@@ -4,6 +4,9 @@
 //   sweep_lrflux   — _sweep_kernel (B5): CTU steps 1-3 along one axis:
 //                    cons->prim, characteristic PLM with CTU tracing, the
 //                    dt/2 static-gravity kick, prim->cons and the Roe flux.
+//   sweep_lrflux_df — the same kernel's with_df=True form: (Ul, Ur) plus
+//                    the density flux F_ID and dF = F(+1_axis) - F, the flux
+//                    difference that the middle-phase kernels read.
 //   flux_pointwise — _flux_kernel (B13): step 9, cons->prim of the
 //                    transverse-corrected states and the Roe flux with the
 //                    H-correction etah.
@@ -19,7 +22,8 @@
 // What bounds them on the H100: B5 is compute-bound in float64 (two PLM
 // characteristic projections and one Roe solve per interface, ~10 divides
 // and square roots each) and near the boundary in float32 (24 loads and 18
-// stores of 4 bytes per interface); B13 is a pointwise pass, bound by its
+// stores of 4 bytes per interface; the dF form loads 30, stores 19 and does
+// three PLM cells and two Roe solves); B13 is a pointwise pass, bound by its
 // 13 loads and 6 stores.  This first version keeps every interface's
 // stencil in registers and recomputes the PLM of the two cells around each
 // interface instead of staging cell states in shared memory; that doubles
@@ -34,18 +38,64 @@
 
 namespace ath {
 
-struct Perm {
-  int p[8];
+// The sweep line through interface `idx` along `axis`: the linear index of
+// its cell 0 (base), the stride between its cells, the interface's position
+// on it and its length.
+struct Line {
+  long long base, stride;
+  int pos, n;
 };
 
-__host__ __device__ inline Perm make_perm(int axis, int nv) {
-  Perm q;
-  q.p[0] = 0;
-  q.p[1] = 1 + axis;
-  q.p[2] = 1 + (axis + 1) % 3;
-  q.p[3] = 1 + (axis + 2) % 3;
-  for (int k = 4; k < nv; ++k) q.p[k] = k;
-  return q;
+__device__ __forceinline__ Line sweep_line(long long idx, int NZ, int NY,
+                                           int NX, int axis) {
+  const int x = (int)(idx % NX);
+  const int y = (int)((idx / NX) % NY);
+  const int z = (int)(idx / ((long long)NX * NY));
+  Line L;
+  if (axis == 0) {
+    L.stride = 1; L.pos = x; L.n = NX;
+  } else if (axis == 1) {
+    L.stride = NX; L.pos = y; L.n = NY;
+  } else {
+    L.stride = (long long)NX * NY; L.pos = z; L.n = NZ;
+  }
+  L.base = idx - (long long)L.pos * L.stride;
+  return L;
+}
+
+// linear index of the cell at position c of the line (wrapping)
+__device__ __forceinline__ long long line_cell(const Line& L, int c) {
+  c = (c % L.n + L.n) % L.n;
+  return L.base + (long long)c * L.stride;
+}
+
+// primitive state of one cell, sweep order
+template <typename T, int NS>
+__device__ __forceinline__ void load_prim(const T* __restrict__ U,
+                                          long long ncell, long long off,
+                                          const Perm& pm, T g1, T* W) {
+  constexpr int NV = 5 + NS;
+  T Uc[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) Uc[v] = U[pm.p[v] * ncell + off];
+  cons_to_prim<T, NS>(Uc, W, g1);
+}
+
+// Steps 1c-3 at one interface from its traced states Wl, Wr (modified in
+// place): the dt/2 static-gravity kick (integrate_3d_ctu.c:318-342) with
+// dVl = dtodx (phif(f) - phic(f-1)), dVr = dtodx (phic(f) - phif(f)),
+// prim->cons and the Roe flux.  kick = false without a potential.
+template <typename T, int NS>
+__device__ __forceinline__ void interface_flux(T* Wl, T* Wr, bool kick,
+                                               T dVl, T dVr, T gamma, T g1,
+                                               T* Ul, T* Ur, T* F) {
+  if (kick) {
+    Wl[1] = Wl[1] - dVl;
+    Wr[1] = Wr[1] - dVr;
+  }
+  prim_to_cons<T, NS>(Wl, Ul, g1);
+  prim_to_cons<T, NS>(Wr, Ur, g1);
+  roe_flux<T, NS>(Ul, Ur, Wl, Wr, T(0), gamma, g1, F);
 }
 
 template <typename T, int NS>
@@ -60,33 +110,14 @@ __global__ void sweep_lrflux_kernel(const T* __restrict__ U,
   const long long ncell = (long long)NZ * NY * NX;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= ncell) return;
-  const int x = (int)(idx % NX);
-  const int y = (int)((idx / NX) % NY);
-  const int z = (int)(idx / ((long long)NX * NY));
-  long long stride;
-  int pos, n;
-  if (axis == 0) {
-    stride = 1; pos = x; n = NX;
-  } else if (axis == 1) {
-    stride = NX; pos = y; n = NY;
-  } else {
-    stride = (long long)NX * NY; pos = z; n = NZ;
-  }
-  const long long base = idx - (long long)pos * stride;
+  const Line L = sweep_line(idx, NZ, NY, NX, axis);
   const Perm pm = make_perm(axis, NV);
 
   // primitive states of cells f-2 .. f+1 (wrapping), sweep order
   T W[4][NV];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    int c = pos - 2 + k;
-    c = (c % n + n) % n;
-    const long long off = base + (long long)c * stride;
-    T Uc[NV];
-#pragma unroll
-    for (int v = 0; v < NV; ++v) Uc[v] = U[pm.p[v] * ncell + off];
-    cons_to_prim<T, NS>(Uc, W[k], g1);
-  }
+  for (int k = 0; k < 4; ++k)
+    load_prim<T, NS>(U, ncell, line_cell(L, L.pos - 2 + k), pm, g1, W[k]);
   const T dtodx = *dtodx_p;
 
   // Wl[f] = Wplus of cell f-1, Wr[f] = Wminus of cell f
@@ -94,20 +125,14 @@ __global__ void sweep_lrflux_kernel(const T* __restrict__ U,
   plm_cell<T, NS>(W[0], W[1], W[2], dtodx, gamma, scratch, Wl);
   plm_cell<T, NS>(W[1], W[2], W[3], dtodx, gamma, Wr, scratch);
 
-  if (phic != nullptr) {
-    // dt/2 static-gravity kick (integrate_3d_ctu.c:318-342)
-    const int cm = (pos - 1 + n) % n;
-    const long long offm = base + (long long)cm * stride;
-    const T dVl = dtodx * (phif[idx] - phic[offm]);
-    const T dVr = dtodx * (phic[idx] - phif[idx]);
-    Wl[1] = Wl[1] - dVl;
-    Wr[1] = Wr[1] - dVr;
+  const bool kick = phic != nullptr;
+  T dVl = T(0), dVr = T(0);
+  if (kick) {
+    dVl = dtodx * (phif[idx] - phic[line_cell(L, L.pos - 1)]);
+    dVr = dtodx * (phic[idx] - phif[idx]);
   }
-
   T Ulc[NV], Urc[NV], Fs[NV];
-  prim_to_cons<T, NS>(Wl, Ulc, g1);
-  prim_to_cons<T, NS>(Wr, Urc, g1);
-  roe_flux<T, NS>(Ulc, Urc, Wl, Wr, T(0), gamma, g1, Fs);
+  interface_flux<T, NS>(Wl, Wr, kick, dVl, dVr, gamma, g1, Ulc, Urc, Fs);
 #pragma unroll
   for (int v = 0; v < NV; ++v) {
     const long long o = pm.p[v] * ncell + idx;
@@ -115,6 +140,63 @@ __global__ void sweep_lrflux_kernel(const T* __restrict__ U,
     Ur[o] = Urc[v];
     F[o] = Fs[v];
   }
+}
+
+// The with_df=True form: (Ul, Ur) of interface f, the density flux F_ID(f)
+// and dF(f) = F(f+1) - F(f).  The thread solves interfaces f and f+1 itself
+// (cells f-2 .. f+2, three PLM cells, two Roe solves) instead of writing F
+// to a scratch array for a second pass: F(f+1) is computed by the same
+// instructions as the thread of interface f+1 computes it, so dF equals
+// the plain roll-and-subtract bit for bit under -fmad=false.
+template <typename T, int NS>
+__global__ void sweep_lrflux_df_kernel(const T* __restrict__ U,
+                                       const T* __restrict__ phic,
+                                       const T* __restrict__ phif,
+                                       const T* __restrict__ dtodx_p,
+                                       T* __restrict__ Ul, T* __restrict__ Ur,
+                                       T* __restrict__ Fid,
+                                       T* __restrict__ dF, int NZ, int NY,
+                                       int NX, int axis, T gamma, T g1) {
+  constexpr int NV = 5 + NS;
+  const long long ncell = (long long)NZ * NY * NX;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= ncell) return;
+  const Line L = sweep_line(idx, NZ, NY, NX, axis);
+  const Perm pm = make_perm(axis, NV);
+
+  T W[5][NV];
+#pragma unroll
+  for (int k = 0; k < 5; ++k)
+    load_prim<T, NS>(U, ncell, line_cell(L, L.pos - 2 + k), pm, g1, W[k]);
+  const T dtodx = *dtodx_p;
+
+  // interface f: Wplus of cell f-1 | Wminus of cell f;
+  // interface f+1: Wplus of cell f | Wminus of cell f+1
+  T Wl0[NV], Wr0[NV], Wl1[NV], Wr1[NV], scratch[NV];
+  plm_cell<T, NS>(W[0], W[1], W[2], dtodx, gamma, scratch, Wl0);
+  plm_cell<T, NS>(W[1], W[2], W[3], dtodx, gamma, Wr0, Wl1);
+  plm_cell<T, NS>(W[2], W[3], W[4], dtodx, gamma, Wr1, scratch);
+
+  const bool kick = phic != nullptr;
+  const long long idx1 = line_cell(L, L.pos + 1);
+  T dVl0 = T(0), dVr0 = T(0), dVl1 = T(0), dVr1 = T(0);
+  if (kick) {
+    dVl0 = dtodx * (phif[idx] - phic[line_cell(L, L.pos - 1)]);
+    dVr0 = dtodx * (phic[idx] - phif[idx]);
+    dVl1 = dtodx * (phif[idx1] - phic[idx]);
+    dVr1 = dtodx * (phic[idx1] - phif[idx1]);
+  }
+  T Ul0[NV], Ur0[NV], F0[NV], Ul1[NV], Ur1[NV], F1[NV];
+  interface_flux<T, NS>(Wl0, Wr0, kick, dVl0, dVr0, gamma, g1, Ul0, Ur0, F0);
+  interface_flux<T, NS>(Wl1, Wr1, kick, dVl1, dVr1, gamma, g1, Ul1, Ur1, F1);
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const long long o = pm.p[v] * ncell + idx;
+    Ul[o] = Ul0[v];
+    Ur[o] = Ur0[v];
+    dF[o] = F1[v] - F0[v];
+  }
+  Fid[idx] = F0[0];
 }
 
 template <typename T, int NS>
@@ -158,6 +240,20 @@ int launch_sweep(const void* U, const void* phic, const void* phif,
 }
 
 template <typename T, int NS>
+int launch_sweep_df(const void* U, const void* phic, const void* phif,
+                    const void* dtodx, void* Ul, void* Ur, void* Fid,
+                    void* dF, int nz, int ny, int nx, int axis, double gamma,
+                    double gamma_1, void* stream) {
+  const long long ncell = (long long)nz * ny * nx;
+  const unsigned blocks = (unsigned)((ncell + kThreads - 1) / kThreads);
+  sweep_lrflux_df_kernel<T, NS><<<blocks, kThreads, 0,
+                                  (cudaStream_t)stream>>>(
+      (const T*)U, (const T*)phic, (const T*)phif, (const T*)dtodx, (T*)Ul,
+      (T*)Ur, (T*)Fid, (T*)dF, nz, ny, nx, axis, (T)gamma, (T)gamma_1);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int NS>
 int launch_flux(const void* Ul, const void* Ur, const void* etah, void* F,
                 int nz, int ny, int nx, int axis, double gamma,
                 double gamma_1, void* stream) {
@@ -175,9 +271,6 @@ int launch_flux(const void* Ul, const void* Ur, const void* etah, void* F,
 // ---------------------------------------------------------------- C API
 // Return value: cudaGetLastError() after the launch (0 = launched).
 // nscalars must be 0 or 1; the wrapper checks shapes and types.
-
-#define ATH_DISPATCH_NS(NSCAL, CALL0, CALL1) \
-  ((NSCAL) == 0 ? (CALL0) : (NSCAL) == 1 ? (CALL1) : (int)cudaErrorInvalidValue)
 
 extern "C" {
 
@@ -203,6 +296,26 @@ int ath_sweep_lrflux_f64(const void* U, const void* phic, const void* phif,
                                     nx, axis, gamma, gamma_1, stream)),
       (ath::launch_sweep<double, 1>(U, phic, phif, dtodx, Ul, Ur, F, nz, ny,
                                     nx, axis, gamma, gamma_1, stream)));
+}
+
+#define ATH_SWEEP_DF_ARGS                                                  \
+  const void *U, const void *phic, const void *phif, const void *dtodx,    \
+      void *Ul, void *Ur, void *Fid, void *dF, int nz, int ny, int nx,     \
+      int axis, int nscalars, double gamma, double gamma_1, void *stream
+#define ATH_SWEEP_DF_CALL                                                  \
+  U, phic, phif, dtodx, Ul, Ur, Fid, dF, nz, ny, nx, axis, gamma, gamma_1, \
+      stream
+
+int ath_sweep_lrflux_df_f32(ATH_SWEEP_DF_ARGS) {
+  return ATH_DISPATCH_NS(nscalars,
+                         (ath::launch_sweep_df<float, 0>(ATH_SWEEP_DF_CALL)),
+                         (ath::launch_sweep_df<float, 1>(ATH_SWEEP_DF_CALL)));
+}
+
+int ath_sweep_lrflux_df_f64(ATH_SWEEP_DF_ARGS) {
+  return ATH_DISPATCH_NS(nscalars,
+                         (ath::launch_sweep_df<double, 0>(ATH_SWEEP_DF_CALL)),
+                         (ath::launch_sweep_df<double, 1>(ATH_SWEEP_DF_CALL)));
 }
 
 int ath_flux_pointwise_f32(const void* Ul, const void* Ur, const void* etah,

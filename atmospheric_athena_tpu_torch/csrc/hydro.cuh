@@ -1,5 +1,6 @@
-// Device-side adiabatic hydrodynamics shared by the sweep kernel and the
-// pointwise flux kernel (hydro.cu): the EOS conversions, characteristic PLM
+// Device-side adiabatic hydrodynamics shared by the sweep and pointwise flux
+// kernels (hydro.cu) and the step-9 flux kernel (ctu_mid.cu): the sweep
+// variable permutation, the EOS conversions, characteristic PLM
 // with CTU tracing, and the Roe solver with its HLLE fallback and the
 // H-correction.
 //
@@ -19,18 +20,26 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace ath {
 
 constexpr double TINY_NUMBER = 1.0e-20;
 
-template <typename T> __device__ __forceinline__ T tmax(T a, T b) {
-  return fmax(a, b);
-}
-template <typename T> __device__ __forceinline__ T tmin(T a, T b) {
-  return fmin(a, b);
-}
-template <typename T> __device__ __forceinline__ T tsign(T c) {
-  return T((c > T(0)) - (c < T(0)));
+// variable order of a sweep along `axis` as indices into the physical order
+// (integrators/sweep.py var_perm): (d, M_axis, M_axis+1, M_axis+2, E, s...)
+struct Perm {
+  int p[8];
+};
+
+__host__ __device__ inline Perm make_perm(int axis, int nv) {
+  Perm q;
+  q.p[0] = 0;
+  q.p[1] = 1 + axis;
+  q.p[2] = 1 + (axis + 1) % 3;
+  q.p[3] = 1 + (axis + 2) % 3;
+  for (int k = 4; k < nv; ++k) q.p[k] = k;
+  return q;
 }
 
 // ---------------------------------------------------------------- EOS
@@ -352,3 +361,7 @@ __device__ __forceinline__ void roe_flux(const T* Ul, const T* Ur,
 }
 
 }  // namespace ath
+
+// C entry points: launch the <T, NS> instance for nscalars = 0 or 1
+#define ATH_DISPATCH_NS(NSCAL, CALL0, CALL1) \
+  ((NSCAL) == 0 ? (CALL0) : (NSCAL) == 1 ? (CALL1) : (int)cudaErrorInvalidValue)

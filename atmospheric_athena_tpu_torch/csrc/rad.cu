@@ -36,10 +36,16 @@
 // TPU kernel's max_a|M_a| shortcut holds only for dx1 == dx2 == dx3); for
 // a cubic cell the two agree bitwise, as every operation rounds
 // monotonically.
+//
+// Every min and max, the per-cell limits and the warp and block reductions
+// alike, is tmin/tmax (common.cuh): a NaN in a cell's state reaches dt_chem,
+// dt_therm and the CFL maximum as it does in the plain versions.
 
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
+
+#include "common.cuh"
 
 namespace ath {
 
@@ -95,7 +101,7 @@ __device__ __forceinline__ void rates_percell(
   const T e_sp = (E - ke_be) * di;
   const T Tt = temperature<T>(e_sp, x, p);
   const T lnT = log(Tt);
-  const T lnTc = fmax(lnT, T(p.ln_tfloor));
+  const T lnTc = tmax(lnT, T(p.ln_tfloor));
   const T alpha_B = T(2.59e-13) * exp(T(-0.7) * (lnTc - T(p.ln_1e4)));
   T nHdot = alpha_B * T(p.time_unit) * n_e * n_Hplus - ph_rate * n_H;
 
@@ -123,8 +129,8 @@ __device__ __forceinline__ void rates_percell(
   const T dt1_neg = T(p.neg_mx) * n_e * inv_nHdot;
   const T dt2_neg = T(p.neg_mx_frac) * n_H * inv_nHdot;
   const bool above_floor = s0 > T(1.0001) * d_nlim;
-  dtc = (nHdot > T(0)) ? fmin(dt1_pos, dt2_pos)
-        : ((nHdot < T(0) && above_floor) ? fmin(dt1_neg, dt2_neg) : big);
+  dtc = (nHdot > T(0)) ? tmin(dt1_pos, dt2_pos)
+        : ((nHdot < T(0) && above_floor) ? tmin(dt1_neg, dt2_neg) : big);
 
   const T e_thermal = E - ke_be;
   const T crec = (Tt < T(100)) ? T(0) : T(p.crec_coef) * exp(T(0.11) * lnT);
@@ -136,14 +142,14 @@ __device__ __forceinline__ void rates_percell(
   if (skip) edot = T(0);
 
   const T inv_edot = T(1) / edot;
-  const T dt_heat = fmin(T(p.mde) * E * inv_edot,
+  const T dt_heat = tmin(T(p.mde) * E * inv_edot,
                          T(p.mdt) * e_thermal * inv_edot);
   const T mm = mean_mass<T>(x, p);
   const T e_th_min = T(p.e_th_min_coef) * d / mm;
   const T e_min = ke_be + e_th_min;
   const bool floor_ok = (e_thermal < T(p.one_mdt) * e_th_min) &&
                         (E < T(p.one_mde) * e_min);
-  const T dt_cool = fmin(T(p.neg_mde_frac) * E * inv_edot,
+  const T dt_cool = tmin(T(p.neg_mde_frac) * E * inv_edot,
                          T(p.neg_mdt_frac) * e_thermal * inv_edot);
   dtt = (edot == T(0)) ? big
         : ((edot > T(0)) ? dt_heat : (floor_ok ? big : dt_cool));
@@ -181,8 +187,8 @@ __device__ __forceinline__ bool update_percell(
   if (Tt < T(p.tfloor)) E2 = ke_be + T(p.tfloor_kB) * inv_mmg1 * d;
   if (p.tceil > 0 && Tt > T(p.tceil))
     E2 = ke_be + T(p.tceil_kB) * inv_mmg1 * d;
-  const T dnl = fmin(d * T(p.ionfracfloor), T(p.d_nlo));
-  s02 = (s02 < dnl) ? dnl : fmin(s02, d);
+  const T dnl = tmin(d * T(p.ionfracfloor), T(p.d_nlo));
+  s02 = (s02 < dnl) ? dnl : tmin(s02, d);
   // check_range
   temp3<T>(E2, s02, d, ke_be, di, p, Tt, e_th, x);
   const T n_H = s02 * T(p.inv_mH);
@@ -207,12 +213,12 @@ __device__ __forceinline__ bool update_percell(
 
 template <typename T> __device__ __forceinline__ T warp_min(T v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmin(v, __shfl_xor_sync(~0u, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = tmin(v, __shfl_xor_sync(~0u, v, o));
   return v;
 }
 template <typename T> __device__ __forceinline__ T warp_max(T v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmax(v, __shfl_xor_sync(~0u, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = tmax(v, __shfl_xor_sync(~0u, v, o));
   return v;
 }
 __device__ __forceinline__ int warp_sum(int v) {
@@ -276,15 +282,16 @@ __global__ void rates_kernel(const T* __restrict__ s0a,
       const T etau = exp(-(c_tau * n_H * dx1));
       const T F = Fin * Tprev;
       const bool alive = (i == 0) || (F / den >= minfrac);
-      const T Fa = alive ? F : T(0);
-      const T kp = Fa * (T(1) - etau) / (n_H * dx1);
-      efb[o] = Fa;
+      // kph multiplies by the mask as plane.py does, so a NaN flux gives a
+      // NaN rate beyond the cutoff too; the face flux selects
+      const T kp = (alive ? T(1) : T(0)) * F * (T(1) - etau) / (n_H * dx1);
+      efb[o] = alive ? F : T(0);
       kph[o] = kp;
       Tprev = Tprev * etau;
 
       const T E = Ea[o], d = da[o];
       const T ke_be = T(0.5) * Msqa[o] / d;
-      const T d_nlim = fmin(d * T(p.ionfracfloor), T(p.d_nlo));
+      const T d_nlim = tmin(d * T(p.ionfracfloor), T(p.d_nlo));
       const int code = codea[o];
       const int lsn = code % 4 - 1, scn = code / 4;
       T nh, ed, dtc, dtt;
@@ -294,8 +301,8 @@ __global__ void rates_kernel(const T* __restrict__ s0a,
       ncode[o] = ncn * 4 + (nsn + 1);
       nHdot[o] = nh;
       edot[o] = ed;
-      dtc_min = fmin(dtc_min, dtc);
-      dtt_min = fmin(dtt_min, dtt);
+      dtc_min = tmin(dtc_min, dtc);
+      dtt_min = tmin(dtt_min, dtt);
     }
     if (lane == 31) {
       // exit face NX: Tprev is now the product over the whole row
@@ -313,8 +320,8 @@ __global__ void rates_kernel(const T* __restrict__ s0a,
   if (threadIdx.x == 0) {
     T c = sh_c[0], t = sh_t[0];
     for (int w = 1; w < kRowsPerBlock; ++w) {
-      c = fmin(c, sh_c[w]);
-      t = fmin(t, sh_t[w]);
+      c = tmin(c, sh_c[w]);
+      t = tmin(t, sh_t[w]);
     }
     dtc_part[blockIdx.x] = c;
     dtt_part[blockIdx.x] = t;
@@ -348,7 +355,7 @@ __global__ void update_kernel(const T* __restrict__ s0a,
     const T d = da[o], M1 = M1a[o], M2 = M2a[o], M3 = M3a[o];
     const T Msq = M1 * M1 + M2 * M2 + M3 * M3;
     const T ke_be = T(0.5) * Msq / d;
-    const T d_nlim = fmin(d * T(p.ionfracfloor), T(p.d_nlo));
+    const T d_nlim = tmin(d * T(p.ionfracfloor), T(p.d_nlo));
     const T ei = eia[o];
     const T ethi = ei - ke_be;
     const T di = T(1) / d;
@@ -361,10 +368,10 @@ __global__ void update_kernel(const T* __restrict__ s0a,
     s02a[o] = s02;
     // compute_dt_hydro per axis (driver.dti_percell)
     const T qsq = Msq * di * di;
-    const T pr = fmax(T(p.gamma_1) * (E2 - T(0.5) * d * qsq), T(1.0e-20));
+    const T pr = tmax(T(p.gamma_1) * (E2 - T(0.5) * d * qsq), T(1.0e-20));
     const T asq = T(p.gamma) * pr * di;
     const T cs = sqrt(asq);
-    dti = fmax(fmax((fabs(M1) * di + cs) / T(p.dx1),
+    dti = tmax(tmax((fabs(M1) * di + cs) / T(p.dx1),
                     (fabs(M2) * di + cs) / T(p.dx2)),
                (fabs(M3) * di + cs) / T(p.dx3));
   }
@@ -381,7 +388,7 @@ __global__ void update_kernel(const T* __restrict__ s0a,
     T m = T(0);
     for (int w = 0; w < kUpdThreads / 32; ++w) {
       v += sh_v[w];
-      m = fmax(m, sh_d[w]);
+      m = tmax(m, sh_d[w]);
     }
     viol_part[blockIdx.x] = v;
     dti_part[blockIdx.x] = m;

@@ -2,7 +2,8 @@
 
 All ``csrc/*.cu`` files are compiled by ``nvcc`` into one shared library
 with a plain C interface, loaded with ctypes (no PyTorch headers, so the
-build takes seconds).  The library is built on first use into ``_build/``
+build takes seconds): one ``nvcc -c`` per source, all started together,
+then one link.  The library is built on first use into ``_build/``
 beside this file, under a name that carries a hash of the sources and
 flags, so an edited source is rebuilt and a stale library never loads.
 
@@ -32,19 +33,32 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _D = ctypes.c_double
 
-# C signatures of the entry points (csrc/hydro.cu, csrc/rad.cu)
+# C signatures of the entry points (csrc/hydro.cu, csrc/ctu_mid.cu,
+# csrc/rad.cu)
 _SIGNATURES = {
     "ath_sweep_lrflux_f32": [_P] * 7 + [_I] * 5 + [_D, _D, _P],
     "ath_sweep_lrflux_f64": [_P] * 7 + [_I] * 5 + [_D, _D, _P],
+    "ath_sweep_lrflux_df_f32": [_P] * 8 + [_I] * 5 + [_D, _D, _P],
+    "ath_sweep_lrflux_df_f64": [_P] * 8 + [_I] * 5 + [_D, _D, _P],
     "ath_flux_pointwise_f32": [_P] * 4 + [_I] * 5 + [_D, _D, _P],
     "ath_flux_pointwise_f64": [_P] * 4 + [_I] * 5 + [_D, _D, _P],
+    "ath_gcross_f32": [_P] * 10 + [_I] * 3 + [_P],
+    "ath_gcross_f64": [_P] * 10 + [_I] * 3 + [_P],
+    "ath_transverse_f32": [_P] * 12 + [_I] * 5 + [_D, _D, _P],
+    "ath_transverse_f64": [_P] * 12 + [_I] * 5 + [_D, _D, _P],
+    "ath_flux_corrected_f32": [_P] * 6 + [_I] * 5 + [_D, _D, _P],
+    "ath_flux_corrected_f64": [_P] * 6 + [_I] * 5 + [_D, _D, _P],
+    "ath_grav_source_f32": [_P] * 14 + [_I] * 3 + [_P],
+    "ath_grav_source_f64": [_P] * 14 + [_I] * 3 + [_P],
+    "ath_final_update_f32": [_P] * 7 + [_I] * 10 + [_P],
+    "ath_final_update_f64": [_P] * 7 + [_I] * 10 + [_P],
     "ath_rad_rates_f32": [_P] * 14 + [_I, _I, _P, _P],
     "ath_rad_rates_f64": [_P] * 14 + [_I, _I, _P, _P],
     "ath_rad_update_f32": [_P] * 16 + [_L, _P, _P],
@@ -87,6 +101,21 @@ def library_path() -> Path:
     return BUILD_DIR / f"libathena_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds):
+    """Run the commands in parallel; raise with the first failure's output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the shared library unless it exists."""
     out = library_path()
@@ -94,13 +123,11 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{p.stem}.o" for p in sorted(CSRC.glob("*.cu"))]
+        _run([[nvcc(), *NVCC_FLAGS, "-c", str(CSRC / f"{o.stem}.cu"), "-o",
+               str(o)] for o in objs])
         tmp_out = Path(tmp) / out.name
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp_out),
-               *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+        _run([[nvcc(), "-shared", "-o", str(tmp_out), *map(str, objs)]])
         os.replace(tmp_out, out)
     return out
 
@@ -132,9 +159,14 @@ def stream_ptr(device) -> int:
 
 
 def scalar_arg(v, like):
-    """`v` (a float or 0-d tensor) as a 1-element tensor of `like`'s dtype
-    on its device; the kernels read such scalars through a pointer, so a
-    value computed on the device needs no read back to the host."""
+    """`v` (a float or 0-d tensor, or a list of them) as a 1-D tensor of
+    `like`'s dtype on its device; the kernels read such scalars through a
+    pointer, so a value computed on the device needs no read back to the
+    host."""
     import torch
-    return torch.as_tensor(v, dtype=like.dtype, device=like.device).reshape(
-        1).contiguous()
+
+    def one(x):
+        return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+    if isinstance(v, (list, tuple)):
+        return torch.stack([one(x).reshape(()) for x in v])
+    return one(v).reshape(1).contiguous()

@@ -1,22 +1,32 @@
 """3D CTU integrator, hydrodynamics with static gravity and the
-H-correction (``atmospheric_athena_tpu/integrators/ctu3d.py`` as the JAX
-package runs it with its fused sweep kernels on and its middle-phase
-kernels off; reference integrate_3d_ctu.c).
+H-correction (``atmospheric_athena_tpu/integrators/ctu3d.py`` with its
+fused sweep kernels on; reference integrate_3d_ctu.c).
 
 The 12-step ordering is the correctness contract and is kept:
-  steps 1-3   per-axis L/R states + first-pass fluxes (kernel sweep_lrflux)
+  steps 1-3   per-axis L/R states + first-pass fluxes
   steps 5-7   transverse flux-gradient corrections + gravity cross terms
   step 8      cell-centred n+1/2 density (dhalf)
-  step 9      H-correction etas and final fluxes (kernel flux_pointwise)
+  step 9      H-correction etas and final fluxes
   steps 11-12 full-dt gravity source and the conservative update, spliced
               into the interior.
+
+Two paths, chosen as the JAX package chooses them
+(``ops.ctu_mid_kernels.supported``: ATHENA_TPU_PALLAS_MID, on by default):
+
+  middle-phase path (default) — the JAX ``use_pallas_mid`` branch
+      (ctu3d.py:212-387): sweeps emitting flux differences
+      (hydro_kernels.sweep_lrflux_df), then the kernels of
+      ops/ctu_mid_kernels.py for every phase after them.
+  ATHENA_TPU_PALLAS_MID=0 — the sweeps emit whole fluxes
+      (hydro_kernels.sweep_lrflux), the middle phases run as the plain
+      versions of ops/ctu_mid_kernels.py and step 9 is
+      hydro_kernels.flux_pointwise.
 
 Array conventions: [nvar, Nz, Ny, Nx]; Athena axis a is dimension 3-a of a
 stacked array (2-a of a field).  Interface index f along axis a lies
 between cells f-1 and f.  Shifts wrap (torch.roll); the wrapped cells are
 ghost cells that no interior update reads (nghost = 4 covers PLM(2) +
-transverse(1) + update(1)).  The middle phases are plain PyTorch; they hold
-a few dozen full-grid temporaries at once.
+transverse(1) + update(1)).
 """
 
 from __future__ import annotations
@@ -25,7 +35,7 @@ import numpy as np
 import torch
 
 from ..config import GridConfig, SimConfig
-from ..defs import ID, IEN, IM1
+from ..ops import ctu_mid_kernels as mid
 from ..ops import hydro_kernels
 from ..state import State
 
@@ -33,11 +43,6 @@ from ..state import State
 def _sh(q, k, axis):
     """Shift a stacked [nvar, ...] array: _sh(q,k,a)[..., f] = q[..., f+k]."""
     return torch.roll(q, -k, dims=3 - axis)
-
-
-def _shf(q, k, axis):
-    """Same for field arrays [Nz, Ny, Nx]."""
-    return torch.roll(q, -k, dims=2 - axis)
 
 
 def _eval_phi(phi_fn, grid: GridConfig, dtype, device):
@@ -67,16 +72,6 @@ def _phi_arrays(problem, grid: GridConfig, dtype, device):
     return _eval_phi(phi_fn, grid, dtype, device)
 
 
-def _cfast_cons(Uc, sim: SimConfig):
-    """Sound speed from a physical-order conserved state, for the
-    H-correction (integrate_3d_ctu.c:2299-2344; convert_var.c:466-508)."""
-    d = Uc[ID]
-    di = 1.0 / d
-    p = sim.gamma_1 * (Uc[IEN] - 0.5 * (
-        Uc[IM1] ** 2 + Uc[IM1 + 1] ** 2 + Uc[IM1 + 2] ** 2) * di)
-    return torch.sqrt(sim.gamma * p * di)
-
-
 def check_supported(sim: SimConfig, grid: GridConfig):
     if sim.gas != "hydro":
         raise NotImplementedError("MHD CTU (ROADMAP A12)")
@@ -94,7 +89,9 @@ def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
          phi=None):
     """One CTU step over the three axes.  `dt` is a 0-d tensor (or float);
     `phi` = (phic, [phif_x, phif_y, phif_z]) from _phi_arrays, or None to
-    evaluate the problem's potential here."""
+    evaluate the problem's potential here.  Takes the middle-phase path
+    (_step_mid) unless ATHENA_TPU_PALLAS_MID turns it off; the rest of
+    this function is the path with plain middle phases."""
     check_supported(sim, grid)
     axes = (0, 1, 2)
     dtodx = {a: dt / grid.dx[a] for a in axes}
@@ -103,6 +100,8 @@ def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
     U = state.U
     phic, phif = phi if phi is not None else _phi_arrays(
         problem, grid, U.dtype, U.device)
+    if mid.supported():
+        return state.replace(U=_step_mid(U, phic, phif, dtodx, q, sim, grid))
 
     # === STEPS 1-3: per-axis L/R states + first-pass fluxes =================
     Ulp, Urp, Fp = {}, {}, {}
@@ -110,89 +109,64 @@ def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
         Ulp[a], Urp[a], Fp[a] = hydro_kernels.sweep_lrflux(
             U, phic, phif[a] if phic is not None else None, dtodx[a], sim, a)
 
-    # === STEPS 5-7: transverse flux-gradient corrections ====================
+    # === STEPS 5-7: transverse corrections + gravity cross terms, eta =======
+    # (the middle phases' plain versions, on the whole first-pass fluxes)
     dF = {b: _sh(Fp[b], 1, b) - Fp[b] for b in axes}
-    Ulc, Urc = {}, {}
+    G = mid.gcross_plain(U, phic, phif, Fp, q, axes) if phic is not None \
+        else None
+    Ulc, Urc, etas = {}, {}, {}
     for a in axes:
-        dUl = 0.0
-        dUr = 0.0
-        for b in axes:
-            if b == a:
-                continue
-            dUl = dUl + q[b] * _sh(dF[b], -1, a)
-            dUr = dUr + q[b] * dF[b]
-        Ulc[a] = Ulp[a] - dUl
-        Urc[a] = Urp[a] - dUr
+        Ulc[a], Urc[a], etas[a] = mid.transverse_correct_plain(
+            Ulp.pop(a), Urp.pop(a), dF, G, q, sim, a, axes)
+    del dF, G
 
-        # Step 5d: gravity cross-terms (integrate_3d_ctu.c:1160-1222)
-        if phic is not None:
-            for b in axes:
-                if b == a:
-                    continue
-                phir = _shf(phif[b], 1, b)
-                phil = phif[b]
-                dMb = q[b] * (phir - phil) * U[ID]
-                dE = q[b] * (Fp[b][ID] * (phic - phil) +
-                             _shf(Fp[b][ID], 1, b) * (phir - phic))
-                Urc[a][IM1 + b] -= dMb
-                Ulc[a][IM1 + b] -= _shf(dMb, -1, a)
-                Urc[a][IEN] -= dE
-                Ulc[a][IEN] -= _shf(dE, -1, a)
-    del Ulp, Urp
-
-    # === STEP 8: cell-centered n+1/2 density (needed with gravity) ==========
-    dhalf = None
-    if phic is not None:
-        dhalf = U[ID]
-        for a in axes:
-            dhalf = dhalf - q[a] * dF[a][ID]
-    del dF
-
-    # === STEP 9: H-correction etas + final fluxes ===========================
-    etas = {}
-    if sim.h_correction:
-        for a in axes:
-            cfl = _cfast_cons(Ulc[a], sim)
-            cfr = _cfast_cons(Urc[a], sim)
-            lam_r = Urc[a][IM1 + a] / Urc[a][ID] + cfr
-            lam_l = Ulc[a][IM1 + a] / Ulc[a][ID] - cfl
-            etas[a] = 0.5 * torch.abs(lam_r - lam_l)
-
+    # === STEP 9: H-correction etah + final fluxes (pointwise kernel) ========
     Fp2 = {}
     for a in axes:
-        etah = None
-        if sim.h_correction:
-            # (integrate_3d_ctu.c:2352-2365 pattern, generalized per axis)
-            etah = etas[a]
-            for b in axes:
-                if b == a:
-                    continue
-                eb = etas[b]
-                for cand in (eb, _shf(eb, -1, a), _shf(eb, 1, b),
-                             _shf(_shf(eb, 1, b), -1, a)):
-                    etah = torch.maximum(etah, cand)
-            etah = etah.contiguous()
-        Fp2[a] = hydro_kernels.flux_pointwise(Ulc[a].contiguous(),
-                                              Urc[a].contiguous(), etah,
+        etah = mid.etah_gather(etas, a, axes) if sim.h_correction else None
+        Fp2[a] = hydro_kernels.flux_pointwise(Ulc.pop(a), Urc.pop(a), etah,
                                               sim, a)
-    del Ulc, Urc, etas
+    del etas
 
-    # === STEP 11: full-dt source terms at n+1/2 =============================
-    Unew = U.clone()
-    if phic is not None:
-        for a in axes:
-            phir = _shf(phif[a], 1, a)
-            phil = phif[a]
-            Unew[IM1 + a] -= dtodx[a] * (phir - phil) * dhalf
-            Unew[IEN] -= dtodx[a] * (Fp2[a][ID] * (phic - phil) +
-                                     _shf(Fp2[a][ID], 1, a) * (phir - phic))
+    # === STEPS 8, 11-12: dhalf, gravity source, update, interior splice =====
+    Sg = (mid.grav_source_plain(U, Fp, Fp2, phic, phif, q, dtodx, axes)
+          if phic is not None else None)
+    del Fp
+    return state.replace(U=mid.final_update_plain(U, Fp2, Sg, dtodx, sim,
+                                                  grid, axes))
 
-    # === STEP 12: conservative update =======================================
+
+def _step_mid(U, phic, phif, dtodx, q, sim: SimConfig, grid: GridConfig):
+    """The middle-phase path (JAX ctu3d.py:212-387 with use_df and the
+    H-correction): returns the new U.  Each phase's inputs are freed as
+    soon as its last reader has run."""
+    axes = (0, 1, 2)
+    grav = phic is not None
+
+    # === STEPS 1-3: L/R states, density flux and flux difference per axis
+    Ulp, Urp, FpID, dFp = {}, {}, {}, {}
     for a in axes:
-        Unew = Unew - dtodx[a] * (_sh(Fp2[a], 1, a) - Fp2[a])
+        Ulp[a], Urp[a], FpID[a], dFp[a] = hydro_kernels.sweep_lrflux_df(
+            U, phic, phif[a] if grav else None, dtodx[a], sim, a)
 
-    # splice: only active cells take the update (ghosts refreshed by bvals)
-    sl = (slice(None),) + grid.interior()
-    Uout = U.clone()
-    Uout[sl] = Unew[sl]
-    return state.replace(U=Uout)
+    # === STEPS 5-7: gravity cross terms, transverse corrections, eta ======
+    G = mid.gcross(U, phic, phif, FpID, q, axes) if grav else None
+    Ulc, Urc, eta = {}, {}, {}
+    for a in axes:
+        Ulc[a], Urc[a], eta[a] = mid.transverse_correct(
+            Ulp.pop(a), Urp.pop(a), dFp, G, q, sim, a, axes)
+    del dFp, G
+
+    # === STEP 9: etah gather + final fluxes ===============================
+    etaS = [eta[a] for a in axes] if sim.h_correction else None
+    Fp2 = {a: mid.flux_corrected(Ulc.pop(a), Urc.pop(a), etaS, sim, a, axes)
+           for a in axes}
+    del etaS
+
+    # === STEPS 8 + 11: dhalf and the full-dt gravity source ===============
+    Sg = (mid.grav_source(U, FpID, Fp2, phic, phif, q, dtodx, axes)
+          if grav else None)
+    del FpID
+
+    # === STEP 12: conservative update + interior splice ===================
+    return mid.final_update(U, Fp2, Sg, dtodx, sim, grid, axes)

@@ -1,0 +1,359 @@
+"""The CTU middle-phase kernels and their plain PyTorch versions (replacing
+``atmospheric_athena_tpu/ops/pallas_ctu_mid.py``): steps 5-12 of the CTU
+step between the per-axis sweeps and the new state.
+
+  gcross             — B6, static-gravity cross terms G_b = (dM_b, dE_b)
+                       (integrate_3d_ctu.c:1160-1222).
+  transverse_correct — B7, steps 5-7 along axis a from the sweeps' flux
+                       differences dF_b, minus the G_b terms, and the
+                       H-correction eta of the corrected states.
+  flux_corrected     — B8, step 9: the etah gather and the Roe flux.
+  grav_source        — B9, step 8's dhalf and the full-dt gravity source.
+  final_update       — B10, steps 11-12 and the interior splice.
+
+The names and argument order are those of pallas_ctu_mid (gcross,
+transverse_correct, flux_corrected, grav_source_pl, final_update), less
+the arguments that only served the TPU's tiling (``grid`` where it gave
+block shapes) and the forms this path does not run: transverse_correct
+takes the dFp form only (no Fp), grav_source has no Fp2IDr and
+final_update no dF2.  ``q`` and ``dtodx`` are dicts {axis: value}, values
+floats or 0-d tensors.
+
+Each wrapper takes the kernel (csrc/ctu_mid.cu) for CUDA tensors, and the
+plain version for CPU tensors.  The plain versions repeat the order of
+operations of the Pallas kernel bodies, which the kernels repeat in turn,
+so float64 results agree to the last bits.  Shifts wrap (torch.roll),
+touching only ghost cells that no interior update reads.  The kernels
+cover the 3D step, ``axes == (0, 1, 2)``.
+
+``<wrapper>.launches`` counts the kernel launches of each wrapper.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from .. import cuda_lib
+from ..config import GridConfig, SimConfig
+from ..defs import ID, IEN, IM1
+from . import hydro_kernels
+
+
+def supported() -> bool:
+    """Whether the CTU step takes the middle-phase path: on unless
+    ATHENA_TPU_PALLAS_MID is 0/off/false, the variable and values the JAX
+    package reads (pallas_ctu_mid.supported; its tiling condition is a TPU
+    block constraint and has no counterpart here)."""
+    return os.environ.get("ATHENA_TPU_PALLAS_MID", "1").lower() not in (
+        "0", "off", "false")
+
+
+def _sh(q, k, axis):
+    """_sh(q, k, a)[..., f] = q[..., f+k] along Athena axis a of a field
+    [Nz, Ny, Nx] or a stacked [n, Nz, Ny, Nx] array (wrapping)."""
+    return torch.roll(q, -k, dims=-1 - axis)
+
+
+def _idfield(F):
+    """The density component of a full flux [nv, ...], or the density flux
+    itself (sweep_lrflux_df emits it as a field)."""
+    return F if F.dim() == 3 else F[ID]
+
+
+def _cfast_cons(Uc, sim: SimConfig):
+    """Sound speed of a physical-order conserved state
+    (integrate_3d_ctu.c:2299-2344; convert_var.c:466-508)."""
+    d = Uc[ID]
+    di = 1.0 / d
+    p = sim.gamma_1 * (Uc[IEN] - 0.5 * (
+        Uc[IM1] ** 2 + Uc[IM1 + 1] ** 2 + Uc[IM1 + 2] ** 2) * di)
+    return torch.sqrt(sim.gamma * p * di)
+
+
+def hcorr_eta(Ulc, Urc, sim: SimConfig, a: int):
+    """The H-correction interface jump eta = |lam_r - lam_l|/2 along axis a
+    of the corrected states (integrate_3d_ctu.c:2292-2351)."""
+    lam_r = Urc[IM1 + a] / Urc[ID] + _cfast_cons(Urc, sim)
+    lam_l = Ulc[IM1 + a] / Ulc[ID] - _cfast_cons(Ulc, sim)
+    return 0.5 * torch.abs(lam_r - lam_l)
+
+
+# ------------------------------------------------------------- plain versions
+
+def gcross_plain(U, phic, phif, Fp, q, axes):
+    """Plain version of ``gcross`` (same signature)."""
+    out = {}
+    for b in axes:
+        phir = _sh(phif[b], 1, b)
+        phil = phif[b]
+        FpID = _idfield(Fp[b])
+        dMb = q[b] * (phir - phil) * U[ID]
+        dE = q[b] * (FpID * (phic - phil) + _sh(FpID, 1, b) * (phir - phic))
+        out[b] = torch.stack([dMb, dE])
+    return out
+
+
+def transverse_correct_plain(Ulp, Urp, dFp, G, q, sim: SimConfig, a: int,
+                             axes):
+    """Plain version of ``transverse_correct`` (same signature)."""
+    corr_r = corr_l = None
+    for b in axes:                 # ascending b
+        if b == a:
+            continue
+        cr = q[b] * dFp[b]
+        cl = q[b] * _sh(dFp[b], -1, a)
+        corr_r = cr if corr_r is None else corr_r + cr
+        corr_l = cl if corr_l is None else corr_l + cl
+    Urc = Urp - corr_r
+    Ulc = Ulp - corr_l
+    if G is not None:
+        # per b: M_b of both states, then E of both
+        for b in axes:
+            if b == a:
+                continue
+            Urc[IM1 + b] -= G[b][0]
+            Ulc[IM1 + b] -= _sh(G[b][0], -1, a)
+            Urc[IEN] -= G[b][1]
+            Ulc[IEN] -= _sh(G[b][1], -1, a)
+    eta = hcorr_eta(Ulc, Urc, sim, a) if sim.h_correction else None
+    return Ulc, Urc, eta
+
+
+def etah_gather(etaS, a: int, axes):
+    """The H-correction etah of axis a's interfaces: the max of eta_a and,
+    per other axis b, eta_b, eta_b(-1_a), eta_b(+1_b), eta_b(+1_b, -1_a)
+    (integrate_3d_ctu.c:2352-2365 pattern, generalized per axis)."""
+    etah = etaS[a]
+    for b in axes:
+        if b == a:
+            continue
+        eb = etaS[b]
+        for cand in (eb, _sh(eb, -1, a), _sh(eb, 1, b),
+                     _sh(_sh(eb, 1, b), -1, a)):
+            etah = torch.maximum(etah, cand)
+    return etah
+
+
+def flux_corrected_plain(Ulc, Urc, etaS, sim: SimConfig, a: int, axes):
+    """Plain version of ``flux_corrected`` (same signature)."""
+    etah = None if etaS is None else etah_gather(etaS, a, axes)
+    return hydro_kernels.flux_pointwise_plain(Ulc, Urc, etah, sim, a)
+
+
+def grav_source_plain(U, Fp, Fp2, phic, phif, q, dtodx, axes):
+    """Plain version of ``grav_source`` (same signature)."""
+    dhalf = U[ID]
+    for a in axes:
+        FpID = _idfield(Fp[a])
+        dhalf = dhalf - q[a] * (_sh(FpID, 1, a) - FpID)
+    dM, dE = [], []
+    for a in range(3):
+        if a not in axes:
+            dM.append(torch.zeros_like(dhalf))
+            dE.append(torch.zeros_like(dhalf))
+            continue
+        phir = _sh(phif[a], 1, a)
+        phil = phif[a]
+        F2 = _idfield(Fp2[a])
+        dM.append(dtodx[a] * (phir - phil) * dhalf)
+        dE.append(dtodx[a] * (F2 * (phic - phil) +
+                              _sh(F2, 1, a) * (phir - phic)))
+    return torch.stack(dM + dE)
+
+
+def final_update_plain(U, Fp2, Sg, dtodx, sim: SimConfig, grid: GridConfig,
+                       axes):
+    """Plain version of ``final_update`` (same signature)."""
+    Unew = U.clone()
+    if Sg is not None:
+        for a in axes:
+            Unew[IM1 + a] -= Sg[a]
+            Unew[IEN] -= Sg[3 + a]
+    for a in axes:
+        Unew = Unew - dtodx[a] * (_sh(Fp2[a], 1, a) - Fp2[a])
+    sl = (slice(None),) + grid.interior()
+    Uout = U.clone()
+    Uout[sl] = Unew[sl]
+    return Uout
+
+
+# ------------------------------------------------------------- kernel wrappers
+
+def _check(name, ref, *ops, sim: SimConfig = None, axes=(0, 1, 2)):
+    """Raise on what the kernels do not take: a step that is not 3D, and
+    (hydro_kernels) an unsupported sim or operands that are not contiguous
+    float32/float64 arrays on ref's device and grid."""
+    if tuple(axes) != (0, 1, 2):
+        raise ValueError(f"{name}: the CUDA kernel covers 3D steps, "
+                         f"axes (0, 1, 2), not {tuple(axes)}")
+    if sim is None:
+        hydro_kernels._check_fields(name, ref, ops)
+    else:
+        hydro_kernels._check_cuda_args(sim, ref, ops, name)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _fn(name, like):
+    lib = cuda_lib.lib()
+    return getattr(lib, f"ath_{name}_f64" if like.dtype == torch.float64
+                   else f"ath_{name}_f32")
+
+
+def gcross(U, phic, phif, Fp, q, axes):
+    """Static-gravity transverse cross terms: {b: [2, NZ, NY, NX]}, rows
+    (dM_b, dE_b).  U [nv, ...]; phic, phif[b] fields; Fp[b] the first-pass
+    flux of axis b, whole or its density component.
+
+    Kernel (CUDA tensors): csrc/ctu_mid.cu gcross_kernel, replacing
+    ops/pallas_ctu_mid.py:_gcross_kernel; one launch for the three axes,
+    bound by its 8 field loads and 6 stores per cell."""
+    if U.device.type != "cuda":
+        return gcross_plain(U, phic, phif, Fp, q, axes)
+    Fid = [_idfield(Fp[b]) for b in range(3)]
+    _check("gcross", U, phic, *phif, *Fid, axes=axes)
+    _, nz, ny, nx = U.shape
+    G = torch.empty((3, 2, nz, ny, nx), dtype=U.dtype, device=U.device)
+    qv = cuda_lib.scalar_arg([q[b] for b in range(3)], U)
+    err = _fn("gcross", U)(
+        U.data_ptr(), phic.data_ptr(), *[p.data_ptr() for p in phif],
+        *[f.data_ptr() for f in Fid], qv.data_ptr(), G.data_ptr(), nz, ny,
+        nx, cuda_lib.stream_ptr(U.device))
+    cuda_lib.check(err, "gcross")
+    gcross.launches += 1
+    return {b: G[b] for b in axes}
+
+
+gcross.launches = 0
+
+
+def transverse_correct(Ulp, Urp, dFp, G, q, sim: SimConfig, a: int, axes):
+    """Steps 5-7 along axis a: returns (Ulc, Urc, eta), eta the
+    H-correction jump [NZ, NY, NX] (None without the H-correction).
+
+    Ulp, Urp: axis a's sweep states [nv, ...]; dFp: {b: dF_b [nv, ...]}
+    from sweep_lrflux_df; G: gcross output or None without gravity.
+
+    Kernel (CUDA tensors): csrc/ctu_mid.cu transverse_kernel, replacing
+    ops/pallas_ctu_mid.py:_trans_kernel (dFp form); bound by its 28 field
+    loads and 13 stores per cell."""
+    if Ulp.device.type != "cuda":
+        return transverse_correct_plain(Ulp, Urp, dFp, G, q, sim, a, axes)
+    others = [b for b in range(3) if b != a]
+    dF = [None if b == a else dFp[b] for b in range(3)]
+    Gs = [None if (G is None or b == a) else G[b] for b in range(3)]
+    _check("transverse_correct", Ulp, Urp, *dF, *Gs, sim=sim, axes=axes)
+    if Urp.shape != Ulp.shape or any(dFp[b].shape != Ulp.shape
+                                     for b in others):
+        raise ValueError("transverse_correct: Urp and dFp must match Ulp")
+    _, nz, ny, nx = Ulp.shape
+    Ulc = torch.empty_like(Ulp)
+    Urc = torch.empty_like(Urp)
+    eta = torch.empty_like(Ulp[0]) if sim.h_correction else None
+    qv = cuda_lib.scalar_arg([q[b] for b in range(3)], Ulp)
+    err = _fn("transverse", Ulp)(
+        Ulp.data_ptr(), Urp.data_ptr(), *[_ptr(t) for t in dF],
+        *[_ptr(t) for t in Gs], qv.data_ptr(), Ulc.data_ptr(), Urc.data_ptr(),
+        _ptr(eta), nz, ny, nx, a, sim.nscalars, sim.gamma, sim.gamma_1,
+        cuda_lib.stream_ptr(Ulp.device))
+    cuda_lib.check(err, "transverse_correct")
+    transverse_correct.launches += 1
+    return Ulc, Urc, eta
+
+
+transverse_correct.launches = 0
+
+
+def flux_corrected(Ulc, Urc, etaS, sim: SimConfig, a: int, axes):
+    """Step 9 along axis a: the etah gather and the Roe flux.  Returns F2
+    [nv, ...].  etaS: the three axes' eta, stacked [3, ...] or a sequence
+    of fields, or None without the H-correction.
+
+    Kernel (CUDA tensors): csrc/ctu_mid.cu flux_corrected_kernel, replacing
+    ops/pallas_ctu_mid.py:_fluxh_kernel; the Roe/HLLE solve is B13's
+    (csrc/hydro.cuh), the 9 eta reads mostly cache hits."""
+    if Ulc.device.type != "cuda":
+        return flux_corrected_plain(Ulc, Urc, etaS, sim, a, axes)
+    eta = [None] * 3 if etaS is None else [etaS[b] for b in range(3)]
+    _check("flux_corrected", Ulc, Urc, *eta, sim=sim, axes=axes)
+    if Urc.shape != Ulc.shape:
+        raise ValueError("flux_corrected: Urc must match Ulc")
+    _, nz, ny, nx = Ulc.shape
+    F = torch.empty_like(Ulc)
+    err = _fn("flux_corrected", Ulc)(
+        Ulc.data_ptr(), Urc.data_ptr(), *[_ptr(t) for t in eta],
+        F.data_ptr(), nz, ny, nx, a, sim.nscalars, sim.gamma, sim.gamma_1,
+        cuda_lib.stream_ptr(Ulc.device))
+    cuda_lib.check(err, "flux_corrected")
+    flux_corrected.launches += 1
+    return F
+
+
+flux_corrected.launches = 0
+
+
+def grav_source(U, Fp, Fp2, phic, phif, q, dtodx, axes):
+    """dhalf = d - sum_a q_a (F_ID,a(+1_a) - F_ID,a) and the full-dt gravity
+    source, stacked [6, ...] as [dM_0..2, dE_0..2].  Fp, Fp2: the first-pass
+    and step-9 fluxes of each axis, whole or their density components.
+
+    Kernel (CUDA tensors): csrc/ctu_mid.cu grav_source_kernel, replacing
+    ops/pallas_ctu_mid.py:_sg_kernel (without Fp2IDr); bound by its 11
+    field loads and 6 stores per cell."""
+    if U.device.type != "cuda":
+        return grav_source_plain(U, Fp, Fp2, phic, phif, q, dtodx, axes)
+    Fid = [_idfield(Fp[a]) for a in range(3)]
+    F2id = [_idfield(Fp2[a]) for a in range(3)]
+    _check("grav_source", U, phic, *phif, *Fid, *F2id, axes=axes)
+    _, nz, ny, nx = U.shape
+    Sg = torch.empty((6, nz, ny, nx), dtype=U.dtype, device=U.device)
+    qv = cuda_lib.scalar_arg([q[a] for a in range(3)], U)
+    dv = cuda_lib.scalar_arg([dtodx[a] for a in range(3)], U)
+    err = _fn("grav_source", U)(
+        U.data_ptr(), phic.data_ptr(), *[p.data_ptr() for p in phif],
+        *[f.data_ptr() for f in Fid], *[f.data_ptr() for f in F2id],
+        qv.data_ptr(), dv.data_ptr(), Sg.data_ptr(), nz, ny, nx,
+        cuda_lib.stream_ptr(U.device))
+    cuda_lib.check(err, "grav_source")
+    grav_source.launches += 1
+    return Sg
+
+
+grav_source.launches = 0
+
+
+def final_update(U, Fp2, Sg, dtodx, sim: SimConfig, grid: GridConfig, axes):
+    """Steps 11-12: U - Sg - sum_a dtodx_a (F2_a(+1_a) - F2_a) on the
+    interior cells of `grid`; ghost cells keep U.  Sg: grav_source output
+    or None.  Returns the new U.
+
+    Kernel (CUDA tensors): csrc/ctu_mid.cu final_update_kernel, replacing
+    ops/pallas_ctu_mid.py:_final_kernel (without dF2); bound by its 30
+    field loads and 6 stores per cell."""
+    if U.device.type != "cuda":
+        return final_update_plain(U, Fp2, Sg, dtodx, sim, grid, axes)
+    F = [Fp2[a] for a in range(3)]
+    _check("final_update", U, Sg, *F, sim=sim, axes=axes)
+    if tuple(U.shape[1:]) != tuple(grid.padded_shape()) or any(
+            f.shape != U.shape for f in F):
+        raise ValueError("final_update: U and Fp2 must be [nv, "
+                         f"*{tuple(grid.padded_shape())}]")
+    _, nz, ny, nx = U.shape
+    Uout = torch.empty_like(U)
+    dv = cuda_lib.scalar_arg([dtodx[a] for a in range(3)], U)
+    lo = [grid.lo(a) for a in range(3)]
+    hi = [grid.hi(a) for a in range(3)]
+    err = _fn("final_update", U)(
+        U.data_ptr(), _ptr(Sg), *[f.data_ptr() for f in F], dv.data_ptr(),
+        Uout.data_ptr(), nz, ny, nx, sim.nscalars, *lo, *hi,
+        cuda_lib.stream_ptr(U.device))
+    cuda_lib.check(err, "final_update")
+    final_update.launches += 1
+    return Uout
+
+
+final_update.launches = 0

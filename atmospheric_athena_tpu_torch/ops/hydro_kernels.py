@@ -6,6 +6,9 @@
                    static-gravity kick, prim->cons and the Roe flux.  Returns
                    (Ul, Ur, F) in physical variable order: the
                    ``with_df=False`` form of ``pallas_hydro.sweep_lrflux``.
+  sweep_lrflux_df — the ``with_df=True`` form: (Ul, Ur, F_ID, dF) with F_ID
+                   the density flux and dF = F(+1_axis) - F, the flux
+                   difference the middle-phase kernels (ctu_mid_kernels) read.
   flux_pointwise — step 9 (:2292-2438): cons->prim of the transverse-corrected
                    states and the Roe flux with the H-correction etah.
 
@@ -25,6 +28,7 @@ import torch
 
 from .. import cuda_lib
 from ..config import SimConfig
+from ..defs import ID
 from ..eos import cons1d_to_prim1d, prim1d_to_cons1d
 from ..integrators.sweep import vperm_from_sweep, vperm_to_sweep
 from . import reconstruct, riemann
@@ -62,6 +66,14 @@ def sweep_lrflux_plain(U, phic, phif_a, dtodx, sim: SimConfig, axis: int):
             vperm_from_sweep(F, axis, sim))
 
 
+def sweep_lrflux_df_plain(U, phic, phif_a, dtodx, sim: SimConfig,
+                          axis: int):
+    """Plain PyTorch version of ``sweep_lrflux_df`` (same signature)."""
+    Ul, Ur, F = sweep_lrflux_plain(U, phic, phif_a, dtodx, sim, axis)
+    dF = torch.roll(F, -1, dims=3 - axis) - F
+    return Ul, Ur, F[ID].clone(), dF
+
+
 def flux_pointwise_plain(Ulc, Urc, etah, sim: SimConfig, axis: int):
     """Plain PyTorch version of ``flux_pointwise`` (same signature)."""
     Ul = vperm_to_sweep(Ulc, axis, sim)
@@ -74,27 +86,41 @@ def flux_pointwise_plain(Ulc, Urc, etah, sim: SimConfig, axis: int):
 
 # ------------------------------------------------------------- kernel wrappers
 
+def _check_fields(name, ref, fields):
+    """Raise unless ref and every field (None skipped) are contiguous
+    float32/float64 arrays on one device, in one dtype, on ref's grid (the
+    last three dimensions)."""
+    if ref.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: dtype {ref.dtype} (float32/float64 only)")
+    for f in (ref, *fields):
+        if f is None:
+            continue
+        if f.device != ref.device or f.dtype != ref.dtype:
+            raise ValueError(f"{name}: operands must share the device and "
+                             "dtype")
+        if f.shape[-3:] != ref.shape[-3:] or not f.is_contiguous():
+            raise ValueError(f"{name}: operand {tuple(f.shape)} is not a "
+                             "contiguous array on the grid "
+                             f"{tuple(ref.shape[-3:])}")
+
+
 def _check_cuda_args(sim, U, fields, name):
     if not supported(sim):
         raise NotImplementedError(f"{name}: the CUDA kernel covers 3D "
                                   "adiabatic hydro, PLM order 2, Roe, "
                                   "nscalars <= 1")
-    if U.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{name}: dtype {U.dtype} (float32/float64 only)")
     if U.dim() != 4 or U.shape[0] != sim.ncons:
         raise ValueError(f"{name}: U shape {tuple(U.shape)}, expected "
                          f"[{sim.ncons}, NZ, NY, NX]")
-    if not U.is_contiguous():
-        raise ValueError(f"{name}: U must be contiguous")
-    for f in fields:
-        if f is None:
-            continue
-        if f.device != U.device or f.dtype != U.dtype:
-            raise ValueError(f"{name}: operands must share U's device "
-                             "and dtype")
-        if f.shape[-3:] != U.shape[1:] or not f.is_contiguous():
-            raise ValueError(f"{name}: operand shape {tuple(f.shape)} / "
-                             "contiguity does not match U")
+    _check_fields(name, U, fields)
+
+
+def _check_sweep_args(U, phic, phif_a, sim, axis, name):
+    _check_cuda_args(sim, U, (phic, phif_a), name)
+    if (phic is None) != (phif_a is None):
+        raise ValueError(f"{name}: phic and phif_a go together")
+    if axis not in (0, 1, 2):
+        raise ValueError(f"{name}: axis {axis}")
 
 
 def sweep_lrflux(U, phic, phif_a, dtodx, sim: SimConfig, axis: int):
@@ -112,11 +138,7 @@ def sweep_lrflux(U, phic, phif_a, dtodx, sim: SimConfig, axis: int):
     """
     if U.device.type != "cuda":
         return sweep_lrflux_plain(U, phic, phif_a, dtodx, sim, axis)
-    _check_cuda_args(sim, U, (phic, phif_a), "sweep_lrflux")
-    if (phic is None) != (phif_a is None):
-        raise ValueError("sweep_lrflux: phic and phif_a go together")
-    if axis not in (0, 1, 2):
-        raise ValueError(f"sweep_lrflux: axis {axis}")
+    _check_sweep_args(U, phic, phif_a, sim, axis, "sweep_lrflux")
     nv, nz, ny, nx = U.shape
     dt_t = cuda_lib.scalar_arg(dtodx, U)
     Ul = torch.empty_like(U)
@@ -135,6 +157,44 @@ def sweep_lrflux(U, phic, phif_a, dtodx, sim: SimConfig, axis: int):
 
 
 sweep_lrflux.launches = 0
+
+
+def sweep_lrflux_df(U, phic, phif_a, dtodx, sim: SimConfig, axis: int):
+    """Fused steps 1-3 along `axis`, emitting the flux difference.
+
+    Arguments as ``sweep_lrflux``.  Returns (Ul, Ur, F_ID, dF): Ul, Ur, dF
+    [nv, NZ, NY, NX] physical order, F_ID [NZ, NY, NX] the density flux and
+    dF[..., f] = F[..., f+1] - F[..., f] along `axis` (wrapping).
+
+    Kernel (CUDA tensors): csrc/hydro.cu sweep_lrflux_df_kernel, replacing
+    ops/pallas_hydro.py:_sweep_kernel with with_df=True.  Each thread solves
+    its interface and the next one (three PLM cells, two Roe solves), so F
+    never goes to memory; dF is bitwise the plain roll-and-subtract in
+    float64.
+    """
+    if U.device.type != "cuda":
+        return sweep_lrflux_df_plain(U, phic, phif_a, dtodx, sim, axis)
+    _check_sweep_args(U, phic, phif_a, sim, axis, "sweep_lrflux_df")
+    nv, nz, ny, nx = U.shape
+    dt_t = cuda_lib.scalar_arg(dtodx, U)
+    Ul = torch.empty_like(U)
+    Ur = torch.empty_like(U)
+    dF = torch.empty_like(U)
+    Fid = torch.empty_like(U[0])
+    fn = (cuda_lib.lib().ath_sweep_lrflux_df_f64
+          if U.dtype == torch.float64
+          else cuda_lib.lib().ath_sweep_lrflux_df_f32)
+    err = fn(U.data_ptr(), None if phic is None else phic.data_ptr(),
+             None if phif_a is None else phif_a.data_ptr(), dt_t.data_ptr(),
+             Ul.data_ptr(), Ur.data_ptr(), Fid.data_ptr(), dF.data_ptr(),
+             nz, ny, nx, axis, sim.nscalars, sim.gamma, sim.gamma_1,
+             cuda_lib.stream_ptr(U.device))
+    cuda_lib.check(err, "sweep_lrflux_df")
+    sweep_lrflux_df.launches += 1
+    return Ul, Ur, Fid, dF
+
+
+sweep_lrflux_df.launches = 0
 
 
 def flux_pointwise(Ulc, Urc, etah, sim: SimConfig, axis: int):

@@ -10,7 +10,9 @@ plain reduction: each program reduces a block of cells of the padded grid
 (interior mask from the flat index) to three per-axis maxima, which the
 wrapper reduces with torch.amax.  Bound on the H100 by its five field loads
 per cell; max is exact, so the result equals the plain version's up to the
-per-cell formula's last bits.  ``max_dti_hydro.launches`` counts launches.
+per-cell formula's last bits.  Its maxima propagate NaN, as torch.amax does,
+so a bad cell gives a NaN dt on the card as on the CPU.
+``max_dti_hydro.launches`` counts launches.
 """
 
 from __future__ import annotations
@@ -59,6 +61,12 @@ def _triton_kernel():
     import triton.language as tl
 
     @triton.jit
+    def nanmax(a, b):
+        # max that returns NaN if either operand is NaN, as torch.maximum
+        # and torch.amax do (tl.maximum and tl.max drop a NaN by default)
+        return tl.maximum(a, b, propagate_nan=tl.PropagateNan.ALL)
+
+    @triton.jit
     def max_dti_kernel(U, prm, out, ncell, NX, NY, nprog,
                        lo0, hi0, lo1, hi1, lo2, hi2,
                        BLOCK: tl.constexpr, IS_F64: tl.constexpr):
@@ -86,15 +94,15 @@ def _triton_kernel():
         v2 = m2 * di
         v3 = m3 * di
         qsq = v1 * v1 + v2 * v2 + v3 * v3
-        p = tl.maximum(gamma_1 * (e - 0.5 * d * qsq), tiny)
+        p = nanmax(gamma_1 * (e - 0.5 * d * qsq), tiny)
         if IS_F64:
             cs = tl.sqrt(gamma * p * di)
         else:
             cs = tl.sqrt_rn(gamma * p * di)
         zero = tl.zeros_like(cs)
-        r1 = tl.max(tl.where(m, tl.abs(v1) + cs, zero), axis=0)
-        r2 = tl.max(tl.where(m, tl.abs(v2) + cs, zero), axis=0)
-        r3 = tl.max(tl.where(m, tl.abs(v3) + cs, zero), axis=0)
+        r1 = tl.reduce(tl.where(m, tl.abs(v1) + cs, zero), 0, nanmax)
+        r2 = tl.reduce(tl.where(m, tl.abs(v2) + cs, zero), 0, nanmax)
+        r3 = tl.reduce(tl.where(m, tl.abs(v3) + cs, zero), 0, nanmax)
         tl.store(out + pid, r1)
         tl.store(out + nprog + pid, r2)
         tl.store(out + 2 * nprog + pid, r3)

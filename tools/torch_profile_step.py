@@ -1,16 +1,19 @@
 """Where the time of one ioniz_sphere step goes on the GPU, for the PyTorch
 port (atmospheric_athena_tpu_torch).
 
-    python3 tools/torch_profile_step.py
+    python3 tools/torch_profile_step.py                          # mid path
+    ATHENA_TPU_PALLAS_MID=0 python3 tools/torch_profile_step.py  # the other
 
 Builds the isph deck at the full width chip_smoke.py runs (256^3,
 float32, ionradiation/maxiter=50) on the first CUDA device, runs one
 warm-up step, then profiles one step with torch.profiler (CPU and CUDA
-activities).  Prints the card (nvidia-smi name and power limit), the
-step's wall time, the device time of each phase range that
+activities).  Prints the card (nvidia-smi name and power limit), the CTU
+hydro path (the middle-phase path unless ATHENA_TPU_PALLAS_MID turns it
+off), the step's wall time, the device time of each phase range that
 Simulation.step records (radiation, bvals, hydro, userwork, new_dt), the
 device busy share of the step, and the kernels with the most device time.
-Imports no JAX.
+Then it profiles the hydro phase (ctu3d.step) alone on the same state and
+prints every kernel of it.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -32,11 +35,16 @@ def main():
         raise SystemExit("needs a CUDA device")
     sys.path.insert(0, REPO)
     from atmospheric_athena_tpu_torch import Simulation
+    from atmospheric_athena_tpu_torch.integrators import ctu3d
+    from atmospheric_athena_tpu_torch.ops import ctu_mid_kernels
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     print(smi)
+    print("hydro path: " + ("middle-phase kernels" if ctu_mid_kernels.supported()
+                            else "ATHENA_TPU_PALLAS_MID=0, plain middle "
+                            "phases"))
     cmd = [f"domain1/Nx{a}={N}" for a in (1, 2, 3)] + [
         f"ionradiation/maxiter={MAXITER}"]
     s = Simulation.from_file(os.path.join(REPO, "tests", "golden",
@@ -56,10 +64,6 @@ def main():
           f"{s.rad_iters[-1]}")
     events = prof.key_averages()
 
-    def dev_us(e):
-        return getattr(e, "device_time_total", None) or getattr(
-            e, "cuda_time_total", 0.0)
-
     phases = ("radiation", "bvals", "hydro", "userwork", "new_dt")
     # each range appears twice: as a host range (CPU time) and as the
     # span of its kernels on the device timeline
@@ -73,16 +77,39 @@ def main():
             print(f"  phase {k:10s} device span {d / 1e3:9.2f} ms  host "
                   f"{host[k].cpu_time_total / 1e3:9.2f} ms  calls "
                   f"{host[k].count}")
-    kernels = [e for e in events if dev_us(e) > 0 and e.key not in phases
-               and getattr(e, "device_type", None) is not None
-               and str(e.device_type).endswith("CUDA")]
+    kernels = device_kernels(events, skip=phases)
     busy = sum(dev_us(e) for e in kernels) / 1e3
     print(f"  device busy {busy:.1f} ms of {1e3 * wall:.1f} ms wall "
           f"({100 * busy / (1e3 * wall):.1f}%)")
     for e in sorted(kernels, key=dev_us, reverse=True)[:20]:
         print(f"  kernel {dev_us(e) / 1e3:9.3f} ms  x{e.count:5d}  "
               f"{e.key[:90]}")
+
+    # the hydro phase alone, every kernel
+    st = s.state
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as hprof:
+        ctu3d.step(st, st.dt, s.sim, s.grid, s.problem, phi=s.phi)
+        torch.cuda.synchronize()
+    hk = device_kernels(hprof.key_averages())
+    total = sum(dev_us(e) for e in hk) / 1e3
+    print(f"hydro phase alone (ctu3d.step): {total:.2f} ms of kernels")
+    for e in sorted(hk, key=dev_us, reverse=True):
+        print(f"  hydro kernel {dev_us(e) / 1e3:9.3f} ms  x{e.count:5d}  "
+              f"{e.key[:90]}")
     return 0
+
+
+def dev_us(e):
+    return getattr(e, "device_time_total", None) or getattr(
+        e, "cuda_time_total", 0.0)
+
+
+def device_kernels(events, skip=()):
+    """The events of key_averages() that ran on the GPU."""
+    return [e for e in events if dev_us(e) > 0 and e.key not in skip
+            and getattr(e, "device_type", None) is not None
+            and str(e.device_type).endswith("CUDA")]
 
 
 if __name__ == "__main__":
