@@ -1,6 +1,7 @@
 """Boundary conditions on the cell-centred hydro state (reference:
-src/bvals_mhd.c), the plain fill of ``atmospheric_athena_tpu/bvals.py``
-(``_apply_bc_jnp``) for the hydro path.
+src/bvals_mhd.c): ``atmospheric_athena_tpu/bvals.py``'s ``apply_bc`` for
+the hydro path, with its one-pass ghost-fill kernel (B4) and its plain
+fill (``_apply_bc_jnp``).
 
 Ghost layers are filled per axis in the fixed order x1 → x2 → x3 so that
 edge and corner ghosts come out right (bvals_mhd.c:170-171).  Flags
@@ -8,19 +9,33 @@ edge and corner ghosts come out right (bvals_mhd.c:170-171).  Flags
 
   1 reflect   — mirror cells, negate the normal momentum
   2 outflow   — zero-gradient copy of the edge active plane
+  3 do nothing — ghosts keep their values
   4 periodic  — wrap-around copy
   5 conductor — identical to reflect for the cell-centred hydro state
 
-The JAX package's one-pass ghost-fill kernel (bvals.py:_bc_kernel) is not
-ported yet (ROADMAP B4); this fill runs on every device.
+``apply_bc`` dispatches as the JAX package's does (``_bc_supported``): the
+kernel wrapper ``bc_fill`` when every flag of every active axis is
+outflow, reflect or conductor and ``ATHENA_TPU_PALLAS_BC`` is not
+0/off/false, else the plain fill ``bc_fill_plain``.  ``bc_fill`` launches
+csrc/bvals.cu for a CUDA tensor (and raises if it cannot) and runs the
+plain fill for a CPU tensor.  Both write a new array, so ``apply_bc`` has
+one contract on both devices.  ``bc_fill.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
+import os
+
+import torch
+
+from . import cuda_lib
 from .config import (BC_CONDUCTOR, BC_DONOTHING, BC_OUTFLOW, BC_PERIODIC,
                      BC_REFLECT, GridConfig, SimConfig)
 from .defs import IM1
 from .state import State
+
+# the kernel's fill mode of each flag it covers (csrc/bvals.cu)
+_MODE = {BC_REFLECT: 1, BC_CONDUCTOR: 1, BC_OUTFLOW: 2}
 
 
 def _idx(ndim, dim, sl):
@@ -29,17 +44,25 @@ def _idx(ndim, dim, sl):
     return tuple(idx)
 
 
-def apply_bc(state: State, grid: GridConfig, sim: SimConfig,
-             problem=None) -> State:
-    """Return the state with all ghost zones of U filled."""
-    if sim.mhd:
-        raise NotImplementedError("MHD boundary conditions (ROADMAP A12)")
-    if problem is not None and any(
-            getattr(problem, f"bc_{s}x{a}", None) is not None
-            for s in ("i", "o") for a in (1, 2, 3)):
-        raise NotImplementedError("user boundary functions (ROADMAP A15)")
+def kernel_enabled() -> bool:
+    """False when ATHENA_TPU_PALLAS_BC is 0/off/false, as the JAX package
+    reads it (bvals._bc_supported)."""
+    return os.environ.get("ATHENA_TPU_PALLAS_BC", "1").lower() not in (
+        "0", "off", "false")
+
+
+def kernel_covers(grid: GridConfig) -> bool:
+    """The configurations bc_fill's kernel fills: outflow, reflect or
+    conductor on both sides of every active axis, each with at least
+    nghost interior cells (so every fill reads interior cells only)."""
+    return all(flag in _MODE and grid.Nx[a] >= grid.nghost
+               for a in range(3) if grid.active(a) for flag in grid.bc[a])
+
+
+def bc_fill_plain(U, grid: GridConfig):
+    """The plain fill: a copy of U with every ghost zone filled."""
     ng = grid.nghost
-    U = state.U.clone()
+    U = U.clone()
     nd = U.dim()
     for axis in (0, 1, 2):
         if not grid.active(axis):
@@ -67,4 +90,56 @@ def apply_bc(state: State, grid: GridConfig, sim: SimConfig,
             else:
                 raise NotImplementedError(
                     f"BC flag {flag} on axis {axis} (ROADMAP A15)")
+    return U
+
+
+def bc_fill(U, grid: GridConfig):
+    """U [nv, NZ, NY, NX] (padded) with every ghost zone filled, in a new
+    array.
+
+    Kernel (CUDA tensors): csrc/bvals.cu bc_kernel, replacing
+    bvals.py:_bc_kernel — each output cell reads its one source cell,
+    four cells of a row per thread; bound by one read and one write of U.
+    Flags outside ``kernel_covers`` raise on a CUDA tensor."""
+    if U.device.type != "cuda":
+        return bc_fill_plain(U, grid)
+    if not kernel_covers(grid):
+        raise ValueError(f"bc_fill: flags {grid.bc} with Nx {grid.Nx}: the "
+                         "kernel covers outflow, reflect and conductor on "
+                         "axes with at least nghost interior cells")
+    if U.dtype not in (torch.float32, torch.float64) or U.dim() != 4 \
+            or not U.is_contiguous() \
+            or tuple(U.shape[1:]) != tuple(grid.padded_shape()):
+        raise ValueError(f"bc_fill: U must be a contiguous float32/float64 "
+                         f"[nv, {grid.padded_shape()}] tensor, got "
+                         f"{U.dtype} {tuple(U.shape)}")
+    nv, nz, ny, nx = U.shape
+    modes = [_MODE[f] if grid.active(a) else 0
+             for a in range(3) for f in grid.bc[a]]
+    out = torch.empty_like(U)
+    L = cuda_lib.lib()
+    fn = L.ath_bc_fill_f64 if U.dtype == torch.float64 else L.ath_bc_fill_f32
+    err = fn(U.data_ptr(), out.data_ptr(), nv, nz, ny, nx, grid.nghost,
+             *modes, IM1, cuda_lib.stream_ptr(U.device))
+    cuda_lib.check(err, "bc_fill")
+    bc_fill.launches += 1
+    return out
+
+
+bc_fill.launches = 0
+
+
+def apply_bc(state: State, grid: GridConfig, sim: SimConfig,
+             problem=None) -> State:
+    """Return the state with all ghost zones of U filled."""
+    if sim.mhd:
+        raise NotImplementedError("MHD boundary conditions (ROADMAP A12)")
+    if problem is not None and any(
+            getattr(problem, f"bc_{s}x{a}", None) is not None
+            for s in ("i", "o") for a in (1, 2, 3)):
+        raise NotImplementedError("user boundary functions (ROADMAP A15)")
+    if kernel_enabled() and kernel_covers(grid):
+        U = bc_fill(state.U, grid)
+    else:
+        U = bc_fill_plain(state.U, grid)
     return state.replace(U=U)

@@ -8,7 +8,9 @@ beside this file, under a name that carries a hash of the sources and
 flags, so an edited source is rebuilt and a stale library never loads.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
--fmad=false``.  No ``--use_fast_math``: approximate division, exp and log
+-fmad=false -Xptxas -v``; ptxas's report of each kernel's registers and
+spills is kept in ``build_log`` (source name -> text) when the library is
+built.  No ``--use_fast_math``: approximate division, exp and log
 and flushed denormals would break the float64 comparisons with the plain
 versions.  ``-fmad=false`` turns off FMA contraction, so each kernel rounds
 after every operation in the order of its plain version, as PyTorch's
@@ -33,7 +35,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,7 +43,7 @@ _L = ctypes.c_longlong
 _D = ctypes.c_double
 
 # C signatures of the entry points (csrc/hydro.cu, csrc/ctu_mid.cu,
-# csrc/rad.cu)
+# csrc/rad.cu, csrc/rad_batch.cu, csrc/bvals.cu)
 _SIGNATURES = {
     "ath_sweep_lrflux_f32": [_P] * 7 + [_I] * 5 + [_D, _D, _P],
     "ath_sweep_lrflux_f64": [_P] * 7 + [_I] * 5 + [_D, _D, _P],
@@ -63,7 +65,12 @@ _SIGNATURES = {
     "ath_rad_rates_f64": [_P] * 14 + [_I, _I, _P, _P],
     "ath_rad_update_f32": [_P] * 16 + [_L, _P, _P],
     "ath_rad_update_f64": [_P] * 16 + [_L, _P, _P],
+    "ath_rad_batch_f32": [_P] * 20 + [_I] * 3 + [_P, _P],
+    "ath_rad_batch_f64": [_P] * 20 + [_I] * 3 + [_P, _P],
+    "ath_bc_fill_f32": [_P] * 2 + [_I] * 12 + [_P],
+    "ath_bc_fill_f64": [_P] * 2 + [_I] * 12 + [_P],
     "ath_rad_rates_blocks": [_I],
+    "ath_rad_batch_blocks": [_I],
     "ath_rad_update_blocks": [_L],
     "ath_rad_params_size": [],
     "ath_error_string": [_I],
@@ -72,6 +79,7 @@ _RESTYPES = {"ath_rad_update_blocks": _L,
              "ath_error_string": ctypes.c_char_p}
 
 _lib = None
+build_log = {}
 
 
 def nvcc() -> str:
@@ -102,18 +110,21 @@ def library_path() -> Path:
 
 
 def _run(cmds):
-    """Run the commands in parallel; raise with the first failure's output."""
+    """Run the commands in parallel; raise with the first failure's output.
+    Returns each command's output (stdout and stderr)."""
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True))
              for cmd in cmds]
-    failed = []
+    failed, errs = [], []
     for cmd, proc in procs:
         out, err = proc.communicate()
+        errs.append(out + err)
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n"
                           f"{' '.join(cmd)}\n{out}\n{err}")
     if failed:
         raise RuntimeError("\n".join(failed))
+    return errs
 
 
 def build() -> Path:
@@ -124,8 +135,9 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / f"{p.stem}.o" for p in sorted(CSRC.glob("*.cu"))]
-        _run([[nvcc(), *NVCC_FLAGS, "-c", str(CSRC / f"{o.stem}.cu"), "-o",
-               str(o)] for o in objs])
+        errs = _run([[nvcc(), *NVCC_FLAGS, "-c", str(CSRC / f"{o.stem}.cu"),
+                      "-o", str(o)] for o in objs])
+        build_log.update({f"{o.stem}.cu": e for o, e in zip(objs, errs)})
         tmp_out = Path(tmp) / out.name
         _run([[nvcc(), "-shared", "-o", str(tmp_out), *map(str, objs)]])
         os.replace(tmp_out, out)

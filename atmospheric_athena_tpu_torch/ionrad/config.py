@@ -47,8 +47,8 @@ class IonConfig:
     # the reference hardwires the erf inlet-flux time ramp at Level 0
     # (ionradplane_3d.c:263-272); disable for problems without it
     time_ramp: bool = True
-    # sub-iterations per launch of the batched sub-cycle (<ionradiation>
-    # batch_iters); only K = 1, the reference-exact loop, is ported
+    # substeps per launch of the batched sub-cycle (<ionradiation>
+    # batch_iters); K = 1 is the reference-exact loop
     batch_iters: int = 1
 
 

@@ -1,12 +1,14 @@
 """Sub-cycled ionization/heating driver (reference:
-src/ionradiation/ionrad_3d.c:862-1047, ion_radtransfer_3d), the K=1 form of
-``atmospheric_athena_tpu/ionrad/driver.py``.
+src/ionradiation/ionrad_3d.c:862-1047, ion_radtransfer_3d), the kernel
+path of ``atmospheric_athena_tpu/ionrad/driver.py``: the K=1 loop and the
+batched loop (``ionradiation/batch_iters`` = K > 1).
 
 Runs BEFORE the hydro update each cycle and may SHRINK the hydro dt
 (ionrad_3d.c:983,1000,1033).  The sub-cycle is a Python loop: every carry
-value stays on the device, and each iteration reads one boolean (the stop
-test) back to the host.  Everything operates on ACTIVE cells only; ghosts
-are refreshed by bvals after radiation, as in main.c:552.
+value stays on the device, and each K=1 iteration reads one boolean (the
+stop test) back to the host; each batch reads (ok, stop, substeps) in one
+transfer.  Everything operates on ACTIVE cells only; ghosts are refreshed
+by bvals after radiation, as in main.c:552.
 
 The per-cell physics (``rates_percell``, ``update_percell``,
 ``dti_percell``) is written once here; the plain versions of the kernels
@@ -27,6 +29,10 @@ from . import rad_kernels
 from .config import (CION, DAMPFACTOR, IONFRACFLOOR, MAXCELLCOUNT,
                      MAXSIGNCOUNT, IonConfig)
 from .plane import inlet_ramp
+
+# the batch schedule's fraction of the seed limit: dt_j = THETA * dt_lim
+# (atmospheric_athena_tpu/ionrad/driver.py:492)
+THETA = 0.75
 
 
 def _temp(E, s0, d, ke_be, sim, ion, di=None):
@@ -211,10 +217,6 @@ def ion_radtransfer(state: State, sim: SimConfig, grid: GridConfig,
             "SMR fine-level radiation (inlet/tcoarse) (ROADMAP A13)")
     if mesh is not None:
         raise NotImplementedError("multi-device radiation (ROADMAP A14)")
-    if ion.batch_iters > 1:
-        raise NotImplementedError(
-            f"ionradiation/batch_iters={ion.batch_iters}: the batched "
-            "sub-cycle is not ported yet (ROADMAP B3); use batch_iters=1")
     if sim.mhd or not sim.adiabatic:
         raise NotImplementedError(
             "radiation on MHD or isothermal gas (ROADMAP A12/A15)")
@@ -247,10 +249,10 @@ def ion_radtransfer(state: State, sim: SimConfig, grid: GridConfig,
     code = torch.ones(d.shape, dtype=torch.int32, device=d.device)
     dt_done = torch.zeros_like(dt0)
     dt_new = dt0
-    stop = torch.zeros((), dtype=torch.bool, device=d.device)
     eflux = (torch.zeros_like(d), torch.zeros_like(d[..., :1]))
-    niter = 0
-    while niter < ion.maxiter:
+
+    def iteration(E, s0, code, dt_done, dt_new):
+        """One reference-exact sub-iteration (ionrad_3d.c:919-1002)."""
         code, eflux, kph, nHdot, edot, dt_chem, dt_therm = rates_fn(
             s0, E, code, Fin)
         dt = torch.minimum(dt_chem, dt_therm)
@@ -265,12 +267,73 @@ def ion_radtransfer(state: State, sim: SimConfig, grid: GridConfig,
                              torch.where(hydro_done, dt_new,
                                          torch.where(cfl_hit, dt_done,
                                                      dt_new)))
-        niter += 1
-        if bool(stop):          # the loop's one host read per iteration
-            break
+        return E, s0, code, eflux, dt_done, dt_new, stop
+
+    niter = 0
+    stop = False
+    if ion.batch_iters <= 1:
+        while niter < ion.maxiter:
+            E, s0, code, eflux, dt_done, dt_new, stop_t = iteration(
+                E, s0, code, dt_done, dt_new)
+            niter += 1
+            stop = bool(stop_t)     # the loop's one host read per iteration
+            if stop:
+                break
+    else:
+        # the batched sub-cycle (JAX driver.py:480-557): a rates call on the
+        # initial state seeds dt_lim; each round runs up to K substeps of
+        # THETA*dt_lim in one batch launch, which validates every active
+        # substep's dt against that substep's min(dt_chem, dt_therm).  A
+        # valid batch is accepted, its stops tested at its end; an invalid
+        # one is discarded for one reference-exact iteration from the
+        # pre-batch state and a fresh dt_lim.  niter counts accepted
+        # substeps.
+        K = ion.batch_iters
+        batch_fn = rad_kernels.build_batch(sim, grid, ion, d, M1, M2, M3,
+                                           e_init, x_init, K)
+        *_, dtc0, dtt0 = rates_fn(s0, E, code, Fin)
+        dt_lim = torch.minimum(dtc0, dtt0)
+        js = torch.arange(K, dtype=d.dtype, device=d.device)
+        while niter < ion.maxiter:
+            dt_b = THETA * dt_lim
+            dts = torch.minimum(torch.clamp_min(
+                (dt0 - dt_done) - js * dt_b, 0.0), dt_b)
+            dts = torch.where(js < ion.maxiter - niter, dts,
+                              torch.zeros_like(dts))
+            (s02, E2, ncode, eflux2, viol, dti_max, dtc_m, dtt_m,
+             ok) = batch_fn(s0, E, code, dts, Fin)
+            dt_done2 = torch.minimum(dt_done + torch.sum(dts), dt0)
+            range_hit = viol > MAXCELLCOUNT
+            cfl_hit = cour_no / dti_max < dt_done2
+            stop_acc = range_hit | (dt_done2 >= dt0) | cfl_hit
+            # the batch's one host read: (ok, stop, substeps)
+            ok_h, stop_h, nsub = torch.stack(
+                [(ok > 0.0).long(), stop_acc.long(),
+                 (dts > 0.0).sum()]).tolist()
+            if ok_h:
+                E, s0, code, eflux = E2, s02, ncode, eflux2
+                dt_new = torch.where(range_hit | cfl_hit, dt_done2, dt_new)
+                dt_done = dt_done2
+                dt_lim = torch.minimum(dtc_m, dtt_m)
+                niter += nsub
+                stop = bool(stop_h)
+                # a batch that advances nothing (dt_lim 0 or NaN, as from a
+                # NaN cell) would repeat forever: it ends the loop
+                if stop or nsub == 0:
+                    break
+            else:
+                E, s0, code, eflux, dt_done, dt_new, stop_t = iteration(
+                    E, s0, code, dt_done, dt_new)
+                niter += 1
+                stop = bool(stop_t)
+                if stop:
+                    break
+                *_, dtc1, dtt1 = rates_fn(s0, E, code, Fin)
+                dt_lim = torch.minimum(dtc1, dtt1)
 
     # maxiter exit without a stop condition: dt = dt_done (ionrad_3d.c:1022)
-    dt_new = torch.where(stop, dt_new, dt_done)
+    if not stop:
+        dt_new = dt_done
     Unew = state.U.clone()
     Unew[(iscal,) + grid.interior()] = s0
     Unew[(IEN,) + grid.interior()] = E

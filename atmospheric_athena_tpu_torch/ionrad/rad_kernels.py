@@ -13,12 +13,22 @@ by the global dt = min(dt_chem, dt_therm) (ionrad_3d.c:941-954):
            the compute_dt_hydro CFL per axis (driver.dti_percell), exact
            for any cell shape.
 
+  batch  — K substeps of the sub-cycle in one pass (pallas_rad.py's
+           ``_batch_kernel``): each the "fast" plane sweep (the prefix sum
+           of tau in a fixed order, see ``prefix_sum_x``), rates_percell
+           and update_percell, with a given dt schedule; frozen dt = 0
+           substeps; the edge fluxes, violation count and dt_chem/dt_therm
+           minima of the last active substep, the CFL of the final state and
+           the schedule's validity flag.
+
 ``build`` returns ``rates_fn`` / ``update_fn`` closed over the per-step
-constants, with the contract of pallas_rad.build (pallas_rad.py:312-407).
-Each wrapper launches the CUDA kernel (csrc/rad.cu) for CUDA tensors and
-calls the plain version for CPU tensors; the plain versions call the
-per-cell physics of ``driver``.  The violation count is an integer sum
-(exact at any grid size).  ``<wrapper>.launches`` counts kernel launches.
+constants, with the contract of pallas_rad.build (pallas_rad.py:312-407);
+``build_batch`` returns ``batch_fn``, with the contract of
+pallas_rad.build_batch (pallas_rad.py:530-597).  Each wrapper launches the
+CUDA kernel (csrc/rad.cu, csrc/rad_batch.cu) for CUDA tensors and calls
+the plain version for CPU tensors; the plain versions call the per-cell
+physics of ``driver``.  The violation count is an integer sum (exact at
+any grid size).  ``<wrapper>.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -34,6 +44,9 @@ from ..config import GridConfig, SimConfig
 from .config import (CION, DAMPFACTOR, IONFRACFLOOR, MAXSIGNCOUNT,
                      MINFLUXFRAC, IonConfig)
 from .plane import get_ph_rate_plane
+
+# the largest ceil(NX/32) the batch kernel keeps in registers (NX <= 512)
+BATCH_MAX_CHUNK = 16
 
 
 def check_supported(sim: SimConfig, grid: GridConfig, ion: IonConfig):
@@ -83,10 +96,105 @@ def update_plain(s0, E, d, M1, M2, M3, kph, nHdot, edot, e_init, x_init, dt,
     return E2, s02, torch.sum(viol, dtype=torch.int64), torch.amax(dti)
 
 
+def prefix_sum_x(tau):
+    """Inclusive prefix sum along the last axis in the batch kernel's order
+    (csrc/rad_batch.cu): 32 lanes own contiguous chunks of ceil(NX/32)
+    cells; each chunk is summed from 0 in order, a Hillis-Steele scan
+    (incl[l] += incl[l-o], o = 1, 2, 4, 8, 16) combines the chunk sums, and
+    each chunk adds its values in order to its exclusive prefix."""
+    n = tau.shape[-1]
+    chunk = -(-n // 32)
+    t = torch.nn.functional.pad(tau, (0, 32 * chunk - n))
+    t = t.reshape(tau.shape[:-1] + (32, chunk))
+    local = t[..., 0]
+    for c in range(1, chunk):
+        local = local + t[..., c]
+    incl = local
+    for o in (1, 2, 4, 8, 16):
+        incl = torch.cat([incl[..., :o], incl[..., o:] + incl[..., :-o]],
+                         dim=-1)
+    run = torch.cat([torch.zeros_like(incl[..., :1]), incl[..., :31]],
+                    dim=-1)
+    out = []
+    for c in range(chunk):
+        run = run + t[..., c]
+        out.append(run)
+    return torch.stack(out, dim=-1).reshape(tau.shape[:-1] + (-1,))[..., :n]
+
+
+def sweep_fast(s0, Fin, grid: GridConfig, ion: IonConfig):
+    """The batch path's dir=-1 plane sweep (pallas_rad._sweep_x with
+    fast=True): T = exp(-ctau) of the prefix sum ctau of tau, the inlet's
+    reciprocal once, and the absorbed flux as F_i - F_{i+1}.  No bf16
+    hi/lo split of the TPU's matmul: the prefix sum is exact up to its
+    (fixed) summation order.  Returns (kph, efb [.., NX], efx [.., 1])."""
+    n_H = s0 * (1.0 / ion.m_H)
+    tau = ion.sigma_ph * n_H * grid.dx[0]
+    T_incl = torch.exp(-prefix_sum_x(tau))
+    T_faces = torch.cat([torch.ones_like(T_incl[..., :1]), T_incl], dim=-1)
+    F_in = torch.as_tensor(Fin, dtype=s0.dtype, device=s0.device)
+    F_faces = F_in * T_faces
+    frac = F_faces * (1.0 / (F_in + 1e-12))
+    n = s0.shape[-1]
+    idx = torch.arange(n + 1, device=s0.device)
+    alive = (idx == 0) | (frac >= MINFLUXFRAC)
+    absorbed = F_faces[..., :n] - F_faces[..., 1:]
+    kph = alive[..., :n] * absorbed / (n_H * grid.dx[0])
+    eflux = torch.where(alive, F_faces, torch.zeros_like(F_faces))
+    return kph, eflux[..., :n], eflux[..., n:]
+
+
+def batch_plain(s0, E, code, d, M1, M2, M3, e_init, x_init, dts, Fin,
+                sim: SimConfig, grid: GridConfig, ion: IonConfig):
+    """Plain version of ``batch``: K = len(dts) substeps of sweep_fast,
+    rates_percell and update_percell; a substep with dts[j] <= 0 is frozen
+    (it updates no state, flux, count or minimum).  Returns (s02, E2,
+    ncode, efb, efx, viol, dti_max, dt_chem, dt_therm, ok): viol (int64),
+    dt_chem and dt_therm of the last active substep, dti_max of the final
+    state, ok 1 unless an active substep's dt exceeds its
+    min(dt_chem, dt_therm) (0-d, the fields' dtype)."""
+    from . import driver
+    ke_be = 0.5 * (M1 ** 2 + M2 ** 2 + M3 ** 2) / d
+    d_nlim = driver._d_nlim(d, ion)
+    ethi = e_init - ke_be
+    di = 1.0 / d
+    big = torch.tensor(torch.finfo(s0.dtype).max, dtype=s0.dtype,
+                       device=s0.device)
+    dtc_min, dtt_min = big, big
+    viol_sum = torch.zeros((), dtype=torch.int64, device=s0.device)
+    bad = torch.zeros((), dtype=torch.bool, device=s0.device)
+    efb = torch.zeros_like(s0)
+    efx = torch.zeros_like(s0[..., :1])
+    for j in range(dts.shape[0]):
+        dt = dts[j]
+        active = dt > 0.0
+        kph, efb_j, efx_j = sweep_fast(s0, Fin, grid, ion)
+        nHdot, nsn, ncn, dtc, edot, dtt = driver.rates_percell(
+            s0, E, d, ke_be, code % 4 - 1, code // 4, kph, d_nlim, sim, ion)
+        dtc_j, dtt_j = torch.amin(dtc), torch.amin(dtt)
+        bad = bad | (active & (dt > torch.minimum(dtc_j, dtt_j)))
+        E2, s02, viol = driver.update_percell(
+            s0, E, d, ke_be, nHdot, edot, kph, dt, d_nlim, e_init, ethi,
+            x_init, sim, ion, di=di)
+        s0 = torch.where(active, s02, s0)
+        E = torch.where(active, E2, E)
+        code = torch.where(active, (ncn * 4 + (nsn + 1)).to(torch.int32),
+                           code)
+        efb = torch.where(active, efb_j, efb)
+        efx = torch.where(active, efx_j, efx)
+        viol_sum = torch.where(active, torch.sum(viol, dtype=torch.int64),
+                               viol_sum)
+        dtc_min = torch.where(active, dtc_j, dtc_min)
+        dtt_min = torch.where(active, dtt_j, dtt_min)
+    dti = driver.dti_percell(E, d, M1, M2, M3, sim, grid)
+    return (s0, E, code, efb, efx, viol_sum, torch.amax(dti), dtc_min,
+            dtt_min, (~bad).to(s0.dtype))
+
+
 # ------------------------------------------------------------- kernels
 
 class _IonParams(ctypes.Structure):
-    """Mirror of ath::IonParams (csrc/rad.cu), field for field."""
+    """Mirror of ath::IonParams (csrc/rad.cuh), field for field."""
     _fields_ = [(n, ctypes.c_double) for n in (
         "inv_mH", "aC14", "m_H", "mu", "k_B", "gamma", "gamma_1",
         "time_unit", "e_gamma", "sigma_ph", "dx1", "dx2", "dx3",
@@ -128,7 +236,7 @@ def _params(sim: SimConfig, dx: tuple, ion: IonConfig) -> _IonParams:
     for k in range(8):
         p.damp[k] = DAMPFACTOR ** (2 ** k)
     if cuda_lib.lib().ath_rad_params_size() != ctypes.sizeof(p):
-        raise RuntimeError("IonParams layout differs between csrc/rad.cu "
+        raise RuntimeError("IonParams layout differs between csrc/rad.cuh "
                            "and rad_kernels._IonParams")
     return p
 
@@ -234,6 +342,64 @@ def update(s0, E, d, M1, M2, M3, kph, nHdot, edot, e_init, x_init, dt,
 update.launches = 0
 
 
+def batch(s0, E, code, d, M1, M2, M3, e_init, x_init, dts, Fin,
+          sim: SimConfig, grid: GridConfig, ion: IonConfig):
+    """K = len(dts) substeps of the sub-cycle; see ``batch_plain`` for the
+    outputs.  dts is a [K] tensor, Fin a float or 0-d tensor.
+
+    Kernel (CUDA tensors): csrc/rad_batch.cu batch_kernel, replacing
+    ionrad/pallas_rad.py:_batch_kernel — one warp per x row keeping the
+    row's state in registers for all K substeps (one read and one write of
+    the fields per launch); bound by the chemistry's arithmetic.  Its
+    per-block, per-substep minima of min(dt_chem, dt_therm) give ok here,
+    exactly as the plain version's global minima do."""
+    if s0.device.type != "cuda":
+        return batch_plain(s0, E, code, d, M1, M2, M3, e_init, x_init, dts,
+                           Fin, sim, grid, ion)
+    check_supported(sim, grid, ion)
+    _check_fields("batch", s0, (E, d, M1, M2, M3, e_init, x_init),
+                  ints=(code,))
+    nz, ny, nx = s0.shape
+    k = dts.shape[0]
+    if dts.dim() != 1 or not 1 <= k <= 1024:
+        raise ValueError(f"batch: dts must be a [K] tensor, 1 <= K <= 1024,"
+                         f" got {tuple(dts.shape)}")
+    if -(-nx // 32) > BATCH_MAX_CHUNK:
+        raise ValueError(f"batch: NX={nx} exceeds the kernel's "
+                         f"{32 * BATCH_MAX_CHUNK} cells per row")
+    nrows = nz * ny
+    L = cuda_lib.lib()
+    nblk = L.ath_rad_batch_blocks(nrows)
+    scal = cuda_lib.scalar_arg([*dts, Fin], s0)
+    s02, E2, efb = (torch.empty_like(s0) for _ in range(3))
+    ncode = torch.empty_like(code)
+    efx = torch.empty((nz, ny, 1), dtype=s0.dtype, device=s0.device)
+    viol_p = torch.empty(nblk, dtype=torch.int32, device=s0.device)
+    dti_p, dtc_p, dtt_p = (torch.empty(nblk, dtype=s0.dtype,
+                                       device=s0.device) for _ in range(3))
+    lim_p = torch.empty((k, nblk), dtype=s0.dtype, device=s0.device)
+    prm = _params(sim, tuple(grid.dx), ion)
+    fn = L.ath_rad_batch_f64 if s0.dtype == torch.float64 \
+        else L.ath_rad_batch_f32
+    err = fn(s0.data_ptr(), E.data_ptr(), code.data_ptr(), d.data_ptr(),
+             M1.data_ptr(), M2.data_ptr(), M3.data_ptr(), e_init.data_ptr(),
+             x_init.data_ptr(), scal.data_ptr(), s02.data_ptr(),
+             E2.data_ptr(), ncode.data_ptr(), efb.data_ptr(), efx.data_ptr(),
+             viol_p.data_ptr(), dti_p.data_ptr(), dtc_p.data_ptr(),
+             dtt_p.data_ptr(), lim_p.data_ptr(), nrows, nx, k,
+             ctypes.byref(prm), cuda_lib.stream_ptr(s0.device))
+    cuda_lib.check(err, "batch")
+    batch.launches += 1
+    dts = scal[:k]
+    bad = ((dts > 0.0) & (dts > torch.amin(lim_p, dim=1))).any()
+    return (s02, E2, ncode, efb, efx, torch.sum(viol_p, dtype=torch.int64),
+            torch.amax(dti_p), torch.amin(dtc_p), torch.amin(dtt_p),
+            (~bad).to(s0.dtype))
+
+
+batch.launches = 0
+
+
 def build(sim: SimConfig, grid: GridConfig, ion: IonConfig, d, M1, M2, M3,
           e_init, x_init):
     """Returns (rates_fn, update_fn) closed over the per-step constants:
@@ -261,3 +427,26 @@ def build(sim: SimConfig, grid: GridConfig, ion: IonConfig, d, M1, M2, M3,
                       dt, sim, grid, ion)
 
     return rates_fn, update_fn
+
+
+def build_batch(sim: SimConfig, grid: GridConfig, ion: IonConfig, d, M1, M2,
+                M3, e_init, x_init, k: int):
+    """Returns batch_fn(s0, E, code, dts, Fin) ->
+    (s02, E2, ncode, (efb, efx), viol, dti_max, dt_chem, dt_therm, ok)
+    running k = len(dts) substeps per call; viol, dt_chem and dt_therm are
+    the last active substep's, ok is 1 iff every active substep's dt was
+    <= its min(dt_chem, dt_therm)."""
+    check_supported(sim, grid, ion)
+    d, M1, M2, M3, e_init, x_init = (t.contiguous() for t in (
+        d, M1, M2, M3, e_init, x_init))
+
+    def batch_fn(s0, E, code, dts, Fin):
+        if dts.shape != (k,):
+            raise ValueError(f"batch_fn: dts of shape {tuple(dts.shape)}, "
+                             f"built for ({k},)")
+        (s02, E2, ncode, efb, efx, viol, dti, dtc, dtt,
+         ok) = batch(s0, E, code, d, M1, M2, M3, e_init, x_init, dts, Fin,
+                     sim, grid, ion)
+        return s02, E2, ncode, (efb, efx), viol, dti, dtc, dtt, ok
+
+    return batch_fn

@@ -9,10 +9,10 @@ configuration the port covers: the ioniz_sphere production step.
   - ``Simulation.run()``: host loop with tlim/nlim termination and
     zone-cycles/sec reporting (main.c:699-735).
 
-Every tensor lives on the ``device`` given at construction.  On a CUDA
-device the step runs the hand-written kernels (sweep_lrflux,
-flux_pointwise, the radiation rates/update pair, max_dti_hydro); on the CPU
-their plain PyTorch versions.
+Every tensor lives on the ``device`` given at construction: ``"cuda"``
+unless the caller asks for ``"cpu"`` (without a visible GPU the default
+raises; there is no silent CPU fallback).  On a CUDA device the step runs
+the hand-written kernels; on the CPU their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from .config import (GridConfig, SimConfig, grid_config_from_par,
 from .integrators import ctu3d
 from .models import get_problem
 from .par import ParameterDB
-from .state import State
+from .state import State, resolve_device
 
 
 def parse_configure_line(par: ParameterDB) -> dict:
@@ -70,19 +70,6 @@ def parse_configure_line(par: ParameterDB) -> dict:
     return out
 
 
-def resolve_device(device) -> torch.device:
-    """torch.device from a name; refuses CUDA when no GPU is visible."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "device 'cuda' requested but torch.cuda.is_available() is "
-                "False; pass device='cpu' to run the plain PyTorch path")
-    elif dev.type != "cpu":
-        raise ValueError(f"device {device!r}: cpu or cuda only")
-    return dev
-
-
 def check_supported(par: ParameterDB, sim: SimConfig, grid: GridConfig):
     """Refuse decks outside the ported slice, naming the ROADMAP item."""
     blockers = [
@@ -107,7 +94,7 @@ def check_supported(par: ParameterDB, sim: SimConfig, grid: GridConfig):
 
 class Simulation:
     def __init__(self, par: ParameterDB, sim: SimConfig, grid: GridConfig,
-                 problem, state: State, device="cpu"):
+                 problem, state: State, device="cuda"):
         self.device = resolve_device(device)
         if state.U.device.type != self.device.type:
             raise ValueError(f"state on {state.U.device}, simulation on "
@@ -137,7 +124,7 @@ class Simulation:
 
     @classmethod
     def from_par(cls, par: ParameterDB, problem: Optional[str] = None,
-                 dtype: Optional[str] = None, device="cpu",
+                 dtype: Optional[str] = None, device="cuda",
                  **sim_overrides) -> "Simulation":
         dev = resolve_device(device)
         auto = parse_configure_line(par)
@@ -166,7 +153,7 @@ class Simulation:
 
     @classmethod
     def from_file(cls, path: str, problem: Optional[str] = None,
-                  cmdline=(), dtype: Optional[str] = None, device="cpu",
+                  cmdline=(), dtype: Optional[str] = None, device="cuda",
                   **sim_overrides) -> "Simulation":
         par = ParameterDB.from_file(path)
         par.apply_cmdline(cmdline)

@@ -52,6 +52,19 @@ def zeros(sim: SimConfig, grid: GridConfig, device) -> State:
                  nstep=torch.zeros((), dtype=torch.int32, device=device))
 
 
+def resolve_device(device) -> torch.device:
+    """torch.device from a name; refuses CUDA when no GPU is visible."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device 'cuda' requested but torch.cuda.is_available() is "
+                "False; pass device='cpu' to run the plain PyTorch path")
+    elif dev.type != "cpu":
+        raise ValueError(f"device {device!r}: cpu or cuda only")
+    return dev
+
+
 _FIELDS = ("U", "Eflux", "time", "dt", "nstep")
 
 
@@ -69,10 +82,13 @@ def to_numpy(state) -> dict:
     return out
 
 
-def from_numpy(d: dict, device="cpu", dtype=None) -> State:
+def from_numpy(d: dict, device="cuda", dtype=None) -> State:
     """dict of numpy arrays (as from ``to_numpy``, or ``np.asarray`` of a
-    JAX State's fields) -> State on `device`.  `dtype` (a torch dtype)
-    overrides the floating type of U, Eflux, time and dt."""
+    JAX State's fields) -> State on `device` (the card unless the caller
+    asks for the CPU).  `dtype` (a torch dtype) overrides the floating
+    type of U, Eflux, time and dt."""
+    device = resolve_device(device)
+
     def t(x, dt=None):
         out = torch.as_tensor(np.array(x), device=device)
         return out if dt is None else out.to(dtype=dt)

@@ -2,37 +2,49 @@
 
     python3 chip_smoke.py            # needs one CUDA GPU, nvcc and triton
 
-Drives the port's main path — the ioniz_sphere production step — through
-the entry points a user calls, on both CTU hydro paths: the middle-phase
-path (the default) and the path that ATHENA_TPU_PALLAS_MID=0 selects (plain
-middle phases, whole-flux sweeps, pointwise step-9 flux).  It checks each
+Drives the port's main path — the ioniz_sphere step in the bench
+configuration (ionradiation/batch_iters=25, the one-pass ghost fill, the
+middle-phase CTU hydro) — through the entry points a user calls, and the
+K=1 radiation loop on both CTU hydro paths: the middle-phase path (the
+default) and the path that ATHENA_TPU_PALLAS_MID=0 selects (plain middle
+phases, whole-flux sweeps, pointwise step-9 flux).  It checks each
 hand-written kernel against its plain PyTorch version on the card:
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
   1. build the CUDA kernels from csrc/ (nvcc, one process per source) and
-     print the build time;
+     print the build time and ptxas's registers and spills of every CUDA
+     kernel;
   2. kernel vs plain version on states of the isph deck after init and two
-     steps, with a damping-code carry drawn from SEED: float64 at 64^3
-     (max error over interior cells <= 1e-12 x the field's max) and
-     float32 at 256^3 (<= 1e-5 x the field's max), with CUDA-event times
-     (median of 20) of both; then the NaN probe at 16^3 float64: one
-     interior cell's E, and in a second case d, set to NaN, and every
-     kernel's NaN cells and NaN reductions equal to its plain version's;
+     steps, with a damping-code carry drawn from SEED and the batch kernel
+     on a 25-substep schedule of THETA x the state's limit: float64 at 64^3
+     (max error over interior cells <= TOL x the field's max) and float32
+     at 256^3, with CUDA-event times (median) of both, the bound (bytes at
+     the HBM rate or operations at the float32 rate, whichever is larger)
+     and the library call where one exists (F.pad for the ghost fill); the
+     ghost fill must equal its plain version bitwise, ghosts included;
+     then the NaN probe at 16^3 float64: one interior cell's E, and in a
+     second case d, set to NaN, and every kernel's NaN cells and NaN
+     reductions equal to its plain version's;
   3. the 64^3 golden (tests/golden/athinput.isph64, float64, 10 cycles)
-     through Simulation.from_file(..., device="cuda"), once on each hydro
-     path: the (time, dt) trajectory to rel 1e-6, the state to 1e-10 x
-     each field's max, and the launch counter of every kernel of that path
-     > 0 (and 0 for the other path's hydro kernels);
-  4. full width: 256^3 float32 with ionradiation/maxiter=50 on the
-     middle-phase path, 3 cycles through Simulation.from_file + run(), then
-     1 cycle through the CLI (__main__.main); step ms, zone-cycles/s,
-     radiation ms per iteration, peak memory, finite fields and dt > 0;
-     then 1 cycle of the ATHENA_TPU_PALLAS_MID=0 path at the same size.
+     through Simulation.from_file on the card, on each hydro path with the
+     ghost-fill kernel and once on the middle-phase path with
+     ATHENA_TPU_PALLAS_BC=0: the (time, dt) trajectory to rel 1e-6, the
+     state to 1e-10 x each field's max, and the launch counter of every
+     kernel of that path > 0 (and 0 for the kernels it must not run); then
+     the batch path (batch_iters=25) against the K=1 path at 64^3 float64,
+     3 cycles from the state after one K=1 cycle, to 3e-3 of each field's
+     max and time to rel 1e-6;
+  4. full width, the bench configuration: 256^3 float32, maxiter=50,
+     batch_iters=25, 3 cycles through Simulation.from_file (no device
+     argument: the card is the default) + run(), then 1 cycle through the
+     CLI (__main__.main); step ms, zone-cycles/s, radiation ms per substep,
+     peak memory, finite fields and dt > 0; then 1 cycle of the K=1 loop on
+     the middle-phase path and 1 on the ATHENA_TPU_PALLAS_MID=0 path.
 
 It ends with a JSON line of the kernels (launches from the phase-4 run of
-each kernel's path), the nvidia-smi line before it, and the final line
-{"ok": true, "device": {...}}.  Any failed check raises, so the exit code
-is non-zero and no result line is printed.
+each kernel's path: the batch run, else the K=1 runs), the nvidia-smi line
+before it, and the final line {"ok": true, "device": {...}}.  Any failed
+check raises, so the exit code is non-zero and no result line is printed.
 """
 
 from __future__ import annotations
@@ -73,12 +85,18 @@ TOL = {"float64": 1e-12, "float32": 1e-5}
 # seed of the packed (sign, count) damping codes fed to the rates kernel
 SEED = 7
 
+# the bench configuration's radiation sub-cycle (bench.py of the JAX
+# package): iterations per cycle and substeps per batch launch
+MAXITER, BATCH_K = 50, 25
+
 # the cell the NaN probe spoils: an interior cell of the 16^3 grid, as a
 # (z, y, x) index of the padded array
 NAN_CELL = (9, 7, 8)
 
-# peak HBM bandwidth of the H100 SXM (data sheet), for the HBM bound
+# peak HBM bandwidth and float32 rate outside the tensor cores of the H100
+# SXM (data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 # fields each kernel has to read and write once per call (its HBM bound),
 # on the padded grid or on the interior cells (the radiation kernels)
@@ -93,7 +111,10 @@ FIELDS_MOVED = {
     "final_update": (36, "padded"),        # U, Sg, 3 F2 -> U
     "rad_rates": (10, "interior"),         # s0, E, code, d, Msq -> 5 fields
     "rad_update": (13, "interior"),        # 11 fields -> E, s0
+    "rad_batch": (13, "interior"),         # s0, E, code, d, 3 M, e_init,
+                                           # x_init -> s0, E, code, efb
     "max_dti_hydro": (5, "padded"),        # d, M1, M2, M3, E
+    "bc_fill": (12, "padded"),             # U (6 fields) -> U
 }
 
 KERNELS = [
@@ -119,20 +140,41 @@ KERNELS = [
      "atmospheric_athena_tpu/ionrad/pallas_rad.py:184"),
     ("rad_update", "cuda", "atmospheric_athena_tpu_torch/csrc/rad.cu",
      "atmospheric_athena_tpu/ionrad/pallas_rad.py:277"),
+    ("rad_batch", "cuda", "atmospheric_athena_tpu_torch/csrc/rad_batch.cu",
+     "atmospheric_athena_tpu/ionrad/pallas_rad.py:448"),
     ("max_dti_hydro", "triton",
      "atmospheric_athena_tpu_torch/ops/util_kernels.py",
      "atmospheric_athena_tpu/ops/pallas_util.py:42"),
+    ("bc_fill", "cuda", "atmospheric_athena_tpu_torch/csrc/bvals.cu",
+     "atmospheric_athena_tpu/bvals.py:152"),
 ]
 
-# the kernels each hydro path launches, and the hydro kernels it must not
-RAD = ["rad_rates", "rad_update", "max_dti_hydro"]
+# the __global__ function of each CUDA kernel, for ptxas's register report
+SYMBOLS = {"sweep_lrflux": "sweep_lrflux_kernel",
+           "sweep_lrflux_df": "sweep_lrflux_df_kernel",
+           "flux_pointwise": "flux_pointwise_kernel",
+           "gcross": "gcross_kernel", "transverse_correct": "transverse_kernel",
+           "flux_corrected": "flux_corrected_kernel",
+           "grav_source": "grav_source_kernel",
+           "final_update": "final_update_kernel",
+           "rad_rates": "rates_kernel", "rad_update": "update_kernel",
+           "rad_batch": "batch_kernel", "bc_fill": "bc_kernel"}
+
+# kernels whose output must equal the plain version's bitwise, ghost
+# cells included (copies and negations only)
+EXACT = {"bc_fill"}
+
+# the kernels each path launches, and those it must not
+MID = ["sweep_lrflux_df", "gcross", "transverse_correct", "flux_corrected",
+       "grav_source", "final_update"]
+K1 = ["rad_rates", "rad_update", "max_dti_hydro", "bc_fill"]
 PATHS = {
-    "mid": (["sweep_lrflux_df", "gcross", "transverse_correct",
-             "flux_corrected", "grav_source", "final_update"] + RAD,
-            ["sweep_lrflux", "flux_pointwise"]),
-    "MID=0": (["sweep_lrflux", "flux_pointwise"] + RAD,
-              ["sweep_lrflux_df", "gcross", "transverse_correct",
-               "flux_corrected", "grav_source", "final_update"]),
+    "batch": (MID + ["rad_batch", "bc_fill", "rad_rates", "max_dti_hydro"],
+              ["sweep_lrflux", "flux_pointwise"]),
+    "mid": (MID + K1, ["sweep_lrflux", "flux_pointwise", "rad_batch"]),
+    "MID=0": (["sweep_lrflux", "flux_pointwise"] + K1, MID + ["rad_batch"]),
+    "mid BC=0": (MID + K1[:3], ["sweep_lrflux", "flux_pointwise",
+                                "rad_batch", "bc_fill"]),
 }
 
 AXES = (0, 1, 2)
@@ -151,21 +193,28 @@ def smi_line():
 
 
 @contextlib.contextmanager
-def hydro_path(path):
-    """Select the CTU hydro path ("mid" or "MID=0") through the variable
-    the port reads (ctu_mid_kernels.supported)."""
-    old = os.environ.pop("ATHENA_TPU_PALLAS_MID", None)
+def path_env(path):
+    """Select the path ("batch", "mid", "MID=0" or "mid BC=0") through the
+    variables the port reads: ATHENA_TPU_PALLAS_MID (ctu_mid_kernels.
+    supported) and ATHENA_TPU_PALLAS_BC (bvals.kernel_enabled).  The batch
+    path's radiation comes from the deck (ionradiation/batch_iters)."""
+    names = ("ATHENA_TPU_PALLAS_MID", "ATHENA_TPU_PALLAS_BC")
+    old = {k: os.environ.pop(k, None) for k in names}
     if path == "MID=0":
         os.environ["ATHENA_TPU_PALLAS_MID"] = "0"
+    elif path == "mid BC=0":
+        os.environ["ATHENA_TPU_PALLAS_BC"] = "0"
     try:
         yield
     finally:
-        os.environ.pop("ATHENA_TPU_PALLAS_MID", None)
-        if old is not None:
-            os.environ["ATHENA_TPU_PALLAS_MID"] = old
+        for k in names:
+            os.environ.pop(k, None)
+            if old[k] is not None:
+                os.environ[k] = old[k]
 
 
 def wrappers():
+    from atmospheric_athena_tpu_torch import bvals
     from atmospheric_athena_tpu_torch.ionrad import rad_kernels
     from atmospheric_athena_tpu_torch.ops import ctu_mid_kernels as mid
     from atmospheric_athena_tpu_torch.ops import hydro_kernels, util_kernels
@@ -179,7 +228,9 @@ def wrappers():
             "final_update": mid.final_update,
             "rad_rates": rad_kernels.rates,
             "rad_update": rad_kernels.update,
-            "max_dti_hydro": util_kernels.max_dti_hydro}
+            "rad_batch": rad_kernels.batch,
+            "max_dti_hydro": util_kernels.max_dti_hydro,
+            "bc_fill": bvals.bc_fill}
 
 
 def reset_counts():
@@ -203,10 +254,17 @@ def check_counts(label, counts, path):
 
 
 def cuda_ms(fn, reps=20):
-    """Median of `reps` CUDA-event timings of fn() (after one warm-up)."""
+    """Median of `reps` CUDA-event timings of fn() (after one warm-up);
+    3 timings where one call takes over 100 ms."""
     import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
     fn()
-    torch.cuda.synchronize()
+    b.record()
+    b.synchronize()
+    if a.elapsed_time(b) > 100.0:
+        reps = 3
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -236,13 +294,67 @@ def hbm_bytes(name, grid, like):
     return fields * ncell * like.element_size()
 
 
+# reductions whose count is the number of elements they read
+_REDUCTIONS = {"amin", "amax", "sum", "any", "all", "min", "max", "prod",
+               "cumsum", "cumprod", "mean"}
+
+
+def count_ops(fn):
+    """The operations one call of fn (a plain version) does on its inputs,
+    as the kernel repeats them: each elementwise operator (torch.Tag.
+    pointwise, and floor_divide) on n elements counts n, each reduction
+    over n elements counts n; copies, views, indexing, concatenation and
+    allocation count nothing.  exp, log, sqrt, pow and a divide count one
+    each, like an add, a multiply, a compare or a select: the bound this
+    gives is the least time, below what the card's multi-instruction
+    transcendentals and IEEE divides take."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if name in _REDUCTIONS:
+                self.n += args[0].numel()
+            elif name != "clone" and (torch.Tag.pointwise in func.tags
+                                      or name == "floor_divide"):
+                o = out[0] if isinstance(out, (tuple, list)) else out
+                if isinstance(o, torch.Tensor):
+                    self.n += o.numel()
+            return out
+
+    with Count() as c:
+        fn()
+    return c.n
+
+
+def bits(t):
+    """t's elements as integers of the same width (NaN payloads and signs
+    included)."""
+    import torch
+    return t.view(torch.int64 if t.element_size() == 8 else torch.int32)
+
+
 def compare(name, got, ref, tol, grid=None, nan_probe=False):
     """Max abs and max rel-to-field-max error over the outputs (over the
     interior cells of `grid` for outputs on its padded grid); raises when
     an output is off by more than tol x its field's max.  Non-finite
     values fail, except in the NaN probe, where the kernel's non-finite
-    and NaN cells must be the plain version's and the rest must agree."""
+    and NaN cells must be the plain version's and the rest must agree.
+    Integer outputs must be equal; the EXACT kernels' outputs equal bit
+    for bit, over the whole array."""
     import torch
+    if name in EXACT:
+        for i, (g, r) in enumerate(zip(got, ref)):
+            if g.shape != r.shape or not torch.equal(bits(g), bits(r)):
+                n = int((bits(g) != bits(r)).sum()) \
+                    if g.shape == r.shape else -1
+                raise AssertionError(f"{name} output {i}: {n} elements "
+                                     "differ from the plain version's bits")
+        return 0.0, 0.0
     worst_abs, worst_rel, where = 0.0, 0.0, ""
     for i, (g, r) in enumerate(zip(got, ref)):
         if g.dtype in (torch.int32, torch.int64):
@@ -313,9 +425,10 @@ def mid_inputs(U, phic, phif, dtodx, sim, grid):
 
 
 def kernel_inputs(sim_obj, dt_rad=None):
-    """Inputs of the eleven kernels from a Simulation's current state.
+    """Inputs of the thirteen kernels from a Simulation's current state.
     dt_rad: the update kernel's dt (default: min(dt_chem, dt_therm) of the
-    plain rates on this state)."""
+    plain rates on this state); the batch kernel runs BATCH_K substeps of
+    THETA x dt_rad, the schedule of a batch from a fresh seed."""
     import torch
     from atmospheric_athena_tpu_torch.defs import ID, IEN, IM1
     from atmospheric_athena_tpu_torch.ionrad import driver, rad_kernels
@@ -355,18 +468,22 @@ def kernel_inputs(sim_obj, dt_rad=None):
     r = rad_kernels.rates_plain(*rates_in)
     if dt_rad is None:
         dt_rad = torch.minimum(r[6], r[7])
-    update_in = (s00, E0, d, M1.contiguous(), M2.contiguous(),
-                 M3.contiguous(), r[3], r[4], r[5], E0, x0, dt_rad, sim, grid,
-                 ion)
+    Mc = (M1.contiguous(), M2.contiguous(), M3.contiguous())
+    update_in = (s00, E0, d, *Mc, r[3], r[4], r[5], E0, x0, dt_rad, sim,
+                 grid, ion)
+    dts = driver.THETA * dt_rad * torch.ones(BATCH_K, dtype=d.dtype,
+                                             device=d.device)
+    batch_in = (s00, E0, code, d, *Mc, E0, x0, dts, Fin, sim, grid, ion)
     return dict(U=U, phic=phic, phif=phif, dtodx=dtodx, flux_in=flux_in,
-                rates_in=rates_in, update_in=update_in, dt_rad=dt_rad,
-                mid=mid_inputs(U, phic, phif, dtodx, sim, grid))
+                rates_in=rates_in, update_in=update_in, batch_in=batch_in,
+                dt_rad=dt_rad, mid=mid_inputs(U, phic, phif, dtodx, sim, grid))
 
 
 def kernel_calls(s, inp):
     """(name, wrapper, plain version, arguments) of every kernel
     comparison on `inp` (kernel_inputs); the per-axis kernels once per
     axis."""
+    from atmospheric_athena_tpu_torch import bvals
     from atmospheric_athena_tpu_torch.ionrad import rad_kernels as rk
     from atmospheric_athena_tpu_torch.ops import ctu_mid_kernels as mid
     from atmospheric_athena_tpu_torch.ops import hydro_kernels as hk
@@ -402,8 +519,10 @@ def kernel_calls(s, inp):
                (U, m["F2"], m["Sg"], m["dtodx"], sim, grid, AXES)),
               ("rad_rates", rk.rates, rk.rates_plain, inp["rates_in"]),
               ("rad_update", rk.update, rk.update_plain, inp["update_in"]),
+              ("rad_batch", rk.batch, rk.batch_plain, inp["batch_in"]),
               ("max_dti_hydro", uk.max_dti_hydro, uk.max_dti_hydro_plain,
-               (U, sim, grid))]
+               (U, sim, grid)),
+              ("bc_fill", bvals.bc_fill, bvals.bc_fill_plain, (U, grid))]
     return calls
 
 
@@ -411,7 +530,7 @@ def make_sim(n, dtype):
     """The isph deck at n^3 on the card after two steps."""
     from atmospheric_athena_tpu_torch import Simulation
     cmd = [f"domain1/Nx1={n}", f"domain1/Nx2={n}", f"domain1/Nx3={n}",
-           "ionradiation/maxiter=50"]
+           f"ionradiation/maxiter={MAXITER}"]
     s = Simulation.from_file(DECK, problem="ioniz_sphere", cmdline=cmd,
                              dtype=dtype, device="cuda")
     s.step()
@@ -421,8 +540,10 @@ def make_sim(n, dtype):
 
 def phase2(n, dtype, timing):
     """Kernel vs plain version at n^3 in `dtype`; returns per-kernel
-    records (errors and, with `timing`, median CUDA-event ms, summed over
-    the three axes for the per-axis kernels, and the HBM bound)."""
+    records: errors and, with `timing`, median CUDA-event ms of kernel and
+    plain version (summed over the three axes for the per-axis kernels),
+    the bound and the library call's ms."""
+    import torch
     s = make_sim(n, dtype)
     inp = kernel_inputs(s)
     tol = TOL[dtype]
@@ -431,12 +552,10 @@ def phase2(n, dtype, timing):
         got, ref = outputs(kern(*args)), outputs(plain(*args))
         ea, er = compare(name, got, ref, tol, s.grid)
         r = rec.setdefault(name, dict(max_abs_err=0.0, max_rel_err=0.0,
-                                      ms=0.0, plain_ms=0.0,
-                                      hbm_bound_ms=0.0))
+                                      ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                                      bound_by=None, library_ms=None))
         r["max_abs_err"] = max(r["max_abs_err"], ea)
         r["max_rel_err"] = max(r["max_rel_err"], er)
-        r["hbm_bound_ms"] += 1e3 * hbm_bytes(name, s.grid, got[0]) / \
-            HBM_BYTES_PER_S
         if timing:
             # plain, kernel, kernel, plain
             p1, k1 = cuda_ms(lambda: plain(*args)), cuda_ms(
@@ -445,10 +564,24 @@ def phase2(n, dtype, timing):
                 lambda: plain(*args))
             r["ms"] += min(k1, k2)
             r["plain_ms"] += min(p1, p2)
+            t_bytes = hbm_bytes(name, s.grid, got[0]) / HBM_BYTES_PER_S
+            t_ops = count_ops(lambda: plain(*args)) / FP32_OPS_PER_S
+            r["bound_ms"] += 1e3 * max(t_bytes, t_ops)
+            r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            if name == "bc_fill":
+                # the one PyTorch call computing the deck's outflow fill
+                Ui = args[0][(slice(None),) + s.grid.interior()].contiguous()
+                ng = s.grid.nghost
+                r["library_ms"] = cuda_ms(lambda: torch.nn.functional.pad(
+                    Ui, (ng,) * 6, mode="replicate"))
+                del Ui
         del got, ref
     for name, r in rec.items():
-        t = (f" kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, HBM "
-             f"bound {r['hbm_bound_ms']:.3f} ms" if timing else "")
+        t = (f" kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+             f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})"
+             + ("" if r["library_ms"] is None
+                else f", library {r['library_ms']:.3f} ms")
+             if timing else "")
         say(f"phase 2 {n}^3 {dtype} {name}: max err {r['max_rel_err']:.2e}"
             f" x field max (bound {tol:.0e}), max abs {r['max_abs_err']:.3e}"
             f";{t}")
@@ -491,6 +624,8 @@ def run_golden(device):
     from atmospheric_athena_tpu_torch import Simulation
     s = Simulation.from_file(DECK, problem="ioniz_sphere", dtype="float64",
                              device=device)
+    if s.ion.batch_iters != 1:
+        raise AssertionError("the golden runs the K=1 sub-cycle")
     if not s.sim.h_correction:
         raise AssertionError("ioniz_sphere must run with the H-correction")
     for i, (t_ref, dt_ref) in enumerate(REF_TRAJ):
@@ -516,8 +651,8 @@ def run_golden(device):
 
 def phase3():
     import torch
-    for path in PATHS:
-        with hydro_path(path):
+    for path in ("mid", "MID=0", "mid BC=0"):
+        with path_env(path):
             reset_counts()
             s, worst = run_golden("cuda")
             counts = read_counts()
@@ -527,29 +662,77 @@ def phase3():
             f"max; radiation iterations per cycle {s.rad_iters}; launches "
             f"{counts}")
         torch.cuda.synchronize()
+    batch_vs_k1()
+
+
+def batch_vs_k1(ncycles=3):
+    """The batch path (batch_iters=BATCH_K) against the K=1 path on the
+    isph64 deck (64^3 float64), ncycles cycles from the state after one K=1
+    cycle (tests/test_torch_rad_batch.py::test_batch_path_matches_k1_path,
+    ROADMAP A7): each field within 3e-3 of its max, time to rel 1e-6."""
+    import torch
+    from atmospheric_athena_tpu_torch import Simulation
+    s_ref = Simulation.from_file(DECK, problem="ioniz_sphere",
+                                 dtype="float64")
+    s_bat = Simulation.from_file(
+        DECK, problem="ioniz_sphere", dtype="float64",
+        cmdline=[f"ionradiation/batch_iters={BATCH_K}"])
+    s_ref.step()
+    s_bat.state = s_ref.state.replace(U=s_ref.state.U.clone())
+    reset_counts()
+    for _ in range(ncycles):
+        s_bat.step()
+    counts = read_counts()
+    for _ in range(ncycles):
+        s_ref.step()
+    check_counts("batch vs K=1, batch run", counts, "batch")
+    t_ref, t_bat = float(s_ref.state.time), float(s_bat.state.time)
+    if abs(t_bat / t_ref - 1) > 1e-6:
+        raise AssertionError(f"batch vs K=1: time {t_bat:.9e} against "
+                             f"{t_ref:.9e}")
+    Ur, Ub = s_ref.state.U, s_bat.state.U
+    err = ((Ub - Ur).abs().flatten(1).amax(1)
+           / Ur.abs().flatten(1).amax(1).clamp_min(1e-300))
+    if not bool(torch.isfinite(err).all()) or float(err.max()) > 3e-3:
+        raise AssertionError(f"batch vs K=1: field errors {err.tolist()} "
+                             "x field max (bound 3e-3)")
+    say(f"phase 3 batch (K={BATCH_K}) vs K=1, isph64 float64, {ncycles} "
+        f"cycles after one K=1 cycle: time rel "
+        f"{abs(t_bat / t_ref - 1):.1e}, field errors "
+        f"{[f'{e:.2e}' for e in err.tolist()]} x field max (bound 3e-3); "
+        f"substeps per cycle {s_bat.rad_iters}, K=1 iterations "
+        f"{s_ref.rad_iters[1:]}")
 
 
 def phase4():
+    """The bench configuration at full width, then one cycle of the K=1
+    loop on each hydro path; returns the counts of each run and the
+    headline numbers."""
     import torch
     from atmospheric_athena_tpu_torch import Simulation
     from atmospheric_athena_tpu_torch import __main__ as cli
     from atmospheric_athena_tpu_torch.ionrad.driver import ion_radtransfer
     n = 256
     cmd = [f"domain1/Nx1={n}", f"domain1/Nx2={n}", f"domain1/Nx3={n}",
-           "ionradiation/maxiter=50"]
+           f"ionradiation/maxiter={MAXITER}"]
+    bench = cmd + [f"ionradiation/batch_iters={BATCH_K}"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    s = Simulation.from_file(DECK, problem="ioniz_sphere", cmdline=cmd,
-                             dtype="float32", device="cuda")
+    # no device argument: the entry point runs on the card by default
+    s = Simulation.from_file(DECK, problem="ioniz_sphere", cmdline=bench,
+                             dtype="float32")
+    if s.device.type != "cuda" or s.ion.batch_iters != BATCH_K:
+        raise AssertionError(f"bench run on {s.device}, batch_iters "
+                             f"{s.ion.batch_iters}")
     torch.cuda.synchronize()
     reset_counts()
     res = s.run(max_steps=3)
-    counts = read_counts()
-    check_counts("256^3 run, mid path", counts, "mid")
+    counts = {"batch": read_counts()}
+    check_counts(f"{n}^3 bench run", counts["batch"], "batch")
     steps_ms = 1e3 * res["wall"] / res["steps"]
     iters = s.rad_iters[-3:]
-    # radiation sub-cycle alone on the current state (timed on the host
-    # around a synchronised call)
+    # the radiation sub-cycle alone on the current state (timed on the
+    # host around a synchronised call)
     st = s.state
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -562,46 +745,81 @@ def phase4():
         torch.isfinite(s.state.Eflux).all())
     dt = float(s.state.dt)
     if not finite or not dt > 0:
-        raise AssertionError(f"256^3 run: finite={finite} dt={dt}")
-    say(f"phase 4 256^3 float32 maxiter=50, 3 cycles via Simulation.run, "
-        f"mid path: step {steps_ms:.1f} ms, "
+        raise AssertionError(f"{n}^3 run: finite={finite} dt={dt}")
+    say(f"phase 4 {n}^3 float32 maxiter={MAXITER} batch_iters={BATCH_K}, 3 "
+        f"cycles via Simulation.run: step {steps_ms:.1f} ms, "
         f"{res['zone_cycles_per_sec']:.4e} zone-cycles/s; radiation "
-        f"iterations {iters}, {rad_ms / niter:.3f} ms per iteration "
-        f"({niter} iterations, {rad_ms:.1f} ms); all fields finite, dt "
-        f"{dt:.6e}")
+        f"substeps {iters}, {rad_ms / niter:.3f} ms per substep ({niter} "
+        f"substeps, {rad_ms:.1f} ms); launches {counts['batch']}; all "
+        f"fields finite, dt {dt:.6e}")
     del s, st, U
     rc = cli.main(["-i", DECK, "--problem", "ioniz_sphere", "--dtype",
-                   "float32", "--device", "cuda", "time/nlim=1", *cmd])
+                   "float32", "time/nlim=1", *bench])
     if rc != 0:
         raise AssertionError(f"CLI returned {rc}")
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     say(f"phase 4 CLI cycle done; peak device memory {peak:.2f} GiB")
 
-    # the ATHENA_TPU_PALLAS_MID=0 path at the same size, one cycle
-    torch.cuda.reset_peak_memory_stats()
-    with hydro_path("MID=0"):
-        s = Simulation.from_file(DECK, problem="ioniz_sphere", cmdline=cmd,
-                                 dtype="float32", device="cuda")
-        torch.cuda.synchronize()
-        reset_counts()
-        res0 = s.run(max_steps=1)
-        counts0 = read_counts()
-    check_counts("256^3 run, MID=0 path", counts0, "MID=0")
-    if not (bool(torch.isfinite(s.state.U).all())
-            and float(s.state.dt) > 0):
-        raise AssertionError("256^3 MID=0 run: non-finite state or dt <= 0")
-    peak0 = torch.cuda.max_memory_allocated() / 2 ** 30
-    say(f"phase 4 256^3 float32, 1 cycle via Simulation.run, MID=0 path: "
-        f"step {1e3 * res0['wall']:.1f} ms; peak device memory "
-        f"{peak0:.2f} GiB")
-    del s
-    # launches of each kernel in the run of its own path
-    launches = {k: (counts0[k] if k in ("sweep_lrflux", "flux_pointwise")
-                    else counts[k]) for k in counts}
-    return launches, dict(step_ms=steps_ms,
-                          zone_cycles_per_sec=res["zone_cycles_per_sec"],
-                          rad_ms_per_iter=rad_ms / niter, peak_gib=peak)
+    # the K=1 loop on each hydro path at the same size, one cycle each
+    k1 = {}
+    for path in ("mid", "MID=0"):
+        torch.cuda.reset_peak_memory_stats()
+        with path_env(path):
+            s = Simulation.from_file(DECK, problem="ioniz_sphere",
+                                     cmdline=cmd, dtype="float32")
+            torch.cuda.synchronize()
+            reset_counts()
+            r1 = s.run(max_steps=1)
+            counts[path] = read_counts()
+        check_counts(f"{n}^3 K=1 run, {path} path", counts[path], path)
+        if not (bool(torch.isfinite(s.state.U).all())
+                and float(s.state.dt) > 0):
+            raise AssertionError(f"{n}^3 {path} run: non-finite state or "
+                                 "dt <= 0")
+        k1[path] = 1e3 * r1["wall"]
+        say(f"phase 4 {n}^3 float32 maxiter={MAXITER} K=1, 1 cycle via "
+            f"Simulation.run, {path} path: step {k1[path]:.1f} ms, "
+            f"{s.rad_iters[-1]} radiation iterations; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        del s
+    return counts, dict(step_ms=steps_ms,
+                        zone_cycles_per_sec=res["zone_cycles_per_sec"],
+                        rad_ms_per_substep=rad_ms / niter, peak_gib=peak,
+                        k1_step_ms=k1)
+
+
+def ptxas_report(source, kernel):
+    """ptxas's registers and spills of each instantiation of `kernel` in
+    `source`, from the build's -Xptxas -v output, labelled by its template
+    arguments (the element type, then an int argument if any: the batch
+    kernel's cells per lane)."""
+    import re
+    from atmospheric_athena_tpu_torch import cuda_lib
+    log = cuda_lib.build_log.get(source)
+    if log is None:
+        return "not rebuilt in this run"
+    out, cur, spill = [], None, "spills not reported"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1) if kernel in m.group(1) else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"spills {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            # the template arguments: (float|double)[, int]
+            t = re.search(kernel + r"I([fd])(?:Li(\d+)E)?", cur)
+            label = ("f32" if t.group(1) == "f" else "f64") + (
+                f"<{t.group(2)}>" if t.group(2) else "")
+            out.append(f"{label}: {m.group(1)} registers, {spill}")
+            cur = None
+    return "; ".join(out)
 
 
 def main():
@@ -618,22 +836,36 @@ def main():
     t0 = time.perf_counter()
     cuda_lib.lib()
     say(f"phase 1 nvcc build of csrc/*.cu: {time.perf_counter() - t0:.1f} s")
+    regs = {}
+    for name, route, source, _ in KERNELS:
+        if route == "cuda":
+            regs[name] = ptxas_report(os.path.basename(source), SYMBOLS[name])
+            say(f"phase 1 ptxas {name}: {regs[name]}")
 
     phase2(64, "float64", timing=False)
     rec = phase2(256, "float32", timing=True)
     nan_probe()
     phase3()
-    launches, _ = phase4()
+    counts, _ = phase4()
 
+    # each kernel's launches in the phase-4 run of the first path that
+    # runs it (the bench run has 3 cycles, the K=1 runs 1)
+    steps = {"batch": 3, "mid": 1, "MID=0": 1}
     kernels = []
     for name, route, source, replaces in KERNELS:
+        path = next((p for p in steps if counts[p][name] > 0), None)
+        if path is None:
+            raise AssertionError(f"{name}: launched in no phase-4 run")
         r = rec[name]
         kernels.append(dict(name=name, route=route, source=source,
-                            replaces=replaces, launches=launches[name],
-                            max_abs_err=r["max_abs_err"],
+                            replaces=replaces, launches=counts[path][name],
+                            launches_per_step=counts[path][name] / steps[path],
+                            path=path, max_abs_err=r["max_abs_err"],
                             max_rel_err=r["max_rel_err"], ms=r["ms"],
-                            plain_ms=r["plain_ms"],
-                            hbm_bound_ms=r["hbm_bound_ms"]))
+                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                            bound_by=r["bound_by"],
+                            library_ms=r["library_ms"],
+                            registers=regs.get(name)))
     say(smi_line())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

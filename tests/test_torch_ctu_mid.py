@@ -211,7 +211,7 @@ def step_both(a, b, st):
     phi = jctu3d._phi_arrays(a.problem, a.grid, jnp.float64)
     out_j = jctu3d.step(st, jnp.asarray(dt), a.sim, a.grid, a.problem,
                         phi=phi)
-    st_t = tstate.from_numpy(tstate.to_numpy(st))
+    st_t = tstate.from_numpy(tstate.to_numpy(st), device="cpu")
     out_t = tctu3d.step(st_t, torch.tensor(dt, dtype=torch.float64), b.sim,
                         b.grid, b.problem, phi=b.phi)
     return out_t, out_j

@@ -1,10 +1,11 @@
 """Each hand-written kernel of the port against its plain PyTorch version
 on the GPU, at 16^3 in float64 (1e-12 of each field's max) and float32
-(1e-5), and in float64 on a grid of unequal cell sizes; and the NaN probe
-(one cell's E, then d, set to NaN: every kernel's NaN cells and NaN
-reductions equal its plain version's).  Needs a CUDA device, nvcc and
-triton; skipped elsewhere.  This file imports no JAX, so on a machine
-without JAX run it as
+(1e-5), and in float64 on a grid of unequal cell sizes; the batch kernel
+on three dt schedules; the ghost-fill kernel bitwise on every flag set it
+covers; and the NaN probe (one cell's E, then d, set to NaN: every
+kernel's NaN cells and NaN reductions equal its plain version's).  Needs a
+CUDA device, nvcc and triton; skipped elsewhere.  This file imports no JAX,
+so on a machine without JAX run it as
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu_kernels.py
 """
@@ -87,6 +88,63 @@ def test_rad_kernels(case):
 
 def test_max_dti_kernel(case):
     check(case, ["max_dti_hydro"])
+
+
+@pytest.mark.parametrize("sched", [
+    [0.5, 0.5, 0.5, 0.5],      # all active
+    [0.5, 0.5, 0.0, 0.0],      # trailing frozen substeps
+    [0.5, 30.0, 0.5, 0.5],     # the second dt above its limit: ok = 0
+], ids=["active", "frozen_tail", "above_limit"])
+def test_rad_batch_kernel(case, sched):
+    """The batch kernel (K=4) against batch_plain, dts = sched x the
+    state's min(dt_chem, dt_therm)."""
+    import torch
+    from atmospheric_athena_tpu_torch.ionrad import rad_kernels as rk
+    s, inp, tol = case
+    args = list(inp["batch_in"])
+    args[9] = torch.tensor(sched, dtype=args[0].dtype,
+                           device=args[0].device) * inp["dt_rad"]
+    got, ref = rk.batch(*args), rk.batch_plain(*args)
+    chip_smoke.compare("rad_batch", chip_smoke.outputs(got),
+                       chip_smoke.outputs(ref), tol, s.grid)
+    assert float(got[-1]) == float(ref[-1]) == (
+        0.0 if max(sched) > 1 else 1.0)
+
+
+R, O, P, C, D = 1, 2, 4, 5, 3   # reflect, outflow, periodic, conductor,
+                                # do nothing
+BC_SETS = [((O, O), (O, O), (O, O)), ((R, R), (R, R), (R, R)),
+           ((C, R), (R, C), (C, C)), ((O, R), (R, O), (C, O))]
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("nx", [(10, 9, 8), (12, 8, 16)],
+                         ids=["tile_refused", "tile_accepted"])
+def test_bc_fill_kernel(dtype, nx):
+    """bc_fill bitwise equal to the plain fill, ghosts and corners
+    included, on every flag set the kernel covers; (10, 9, 8) pads to
+    (16, 17, 18), a shape the TPU kernel's 8 x 8 tiles refuse.  Flag sets
+    it does not cover go to the plain fill through apply_bc and never
+    launch it."""
+    import numpy as np
+    import torch
+    from atmospheric_athena_tpu_torch import bvals
+    from atmospheric_athena_tpu_torch import state as tstate
+    from atmospheric_athena_tpu_torch.config import GridConfig, SimConfig
+    need_cuda()
+    sim = SimConfig(nscalars=1)
+    rng = np.random.default_rng(4)
+    for bc in BC_SETS + [((P, P), (P, P), (P, P)), ((O, O), (O, O), (D, O))]:
+        grid = GridConfig(Nx=nx, bc=bc)
+        st = tstate.zeros(sim, grid, "cuda")
+        U = torch.as_tensor(rng.normal(size=st.U.shape),
+                            dtype=getattr(torch, dtype), device="cuda")
+        before = bvals.bc_fill.launches
+        out = bvals.apply_bc(st.replace(U=U), grid, sim).U
+        ref = bvals.bc_fill_plain(U, grid)
+        assert torch.equal(chip_smoke.bits(out), chip_smoke.bits(ref)), bc
+        assert bvals.bc_fill.launches - before == (1 if bc in BC_SETS
+                                                   else 0), bc
 
 
 def test_nan_propagation():

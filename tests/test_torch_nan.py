@@ -64,8 +64,8 @@ def test_new_dt_nan_matches_jax(field):
     U[(FIELD[field],) + CELL] = np.nan
     st = a.state.replace(U=jnp.asarray(U), nstep=jnp.asarray(1))
     dt_j = jdt.new_dt(st, a.sim, a.grid, a.cour_no)
-    dt_t = tdt.new_dt(tstate.from_numpy(tstate.to_numpy(st)), b.sim, b.grid,
-                      b.cour_no)
+    dt_t = tdt.new_dt(tstate.from_numpy(tstate.to_numpy(st), device="cpu"),
+                      b.sim, b.grid, b.cour_no)
     assert np.isnan(float(dt_j)) and torch.isnan(dt_t)
 
 

@@ -87,7 +87,8 @@ def case():
         j(driver._d_nlim(d_t, ion).numpy()))
     tfns = rad_kernels.build(sim, grid, ion, d_t, *M, E0, x0)
     return dict(s0=s00, E=E0, code=t(code), Fin=Fin, jfns=jfns, tfns=tfns,
-                ion=ion, grid=grid)
+                ion=ion, grid=grid, sim=sim, d=d_t, M=M, x0=x0, jsim=jsim,
+                jgrid=jg, jion=jion)
 
 
 def test_rates_matches_pallas(case):
@@ -129,10 +130,24 @@ def test_update_matches_pallas(case):
     assert float(dti) == pytest.approx(float(jdti), rel=1e-12)
 
 
-def test_batch_iters_raises():
+def test_batch_iters_raises(case):
+    """batch_fn runs the K substeps it was built for: a schedule of another
+    length raises."""
+    fn = rad_kernels.build_batch(case["sim"], case["grid"], case["ion"],
+                                 case["d"], *case["M"], case["E"], case["x0"],
+                                 8)
+    with pytest.raises(ValueError, match="built for"):
+        fn(case["s0"], case["E"], case["code"],
+           torch.zeros(4, dtype=torch.float64), case["Fin"])
+
+
+def test_batch_iters_step_runs():
+    """A step with ionradiation/batch_iters=8 runs the batched sub-cycle."""
     cmd = [f"domain1/Nx{a}={N}" for a in (1, 2, 3)]
     s = Simulation.from_file(DECK, problem="ioniz_sphere",
                              cmdline=cmd + ["ionradiation/batch_iters=8"],
                              dtype="float64", device="cpu")
-    with pytest.raises(NotImplementedError, match="B3"):
-        s.step()
+    assert s.ion.batch_iters == 8
+    s.step()
+    assert bool(torch.isfinite(s.state.U).all()) and float(s.state.dt) > 0
+    assert int(s.state.nstep) == 1 and s.rad_iters[0] > 1

@@ -64,14 +64,14 @@ def test_state_numpy_roundtrip():
     a, b = pair()
     d = tstate.to_numpy(a.state)
     assert set(d) == {"U", "time", "dt", "nstep"}
-    st = tstate.from_numpy(d)
+    st = tstate.from_numpy(d, device="cpu")
     np.testing.assert_array_equal(st.U.numpy(), np.asarray(a.state.U))
     assert float(st.dt) == float(a.state.dt)
     assert st.nstep.dtype == torch.int32
     back = tstate.to_numpy(st)
     for k, v in d.items():
         np.testing.assert_array_equal(back[k], v)
-    f32 = tstate.from_numpy(d, dtype=torch.float32)
+    f32 = tstate.from_numpy(d, device="cpu", dtype=torch.float32)
     assert f32.U.dtype == f32.time.dtype == torch.float32
     # the port's own initial state equals the JAX package's
     close_interior(b.state.U, a.state.U, a.grid, tol=1e-14)
@@ -105,7 +105,7 @@ def test_ctu3d_step_matches_jnp():
     out_j = jctu3d.step(st, jnp.asarray(dt), a.sim, a.grid, a.problem,
                         phi=phi)
     assert np.isfinite(np.asarray(out_j.U)).all()
-    st_t = tstate.from_numpy(tstate.to_numpy(st))
+    st_t = tstate.from_numpy(tstate.to_numpy(st), device="cpu")
     out_t = tctu3d.step(st_t, torch.tensor(dt, dtype=torch.float64), b.sim,
                         b.grid, b.problem, phi=b.phi)
     close_interior(out_t.U, out_j.U, a.grid)
@@ -125,7 +125,7 @@ def test_ion_radtransfer_matches_jnp(extra):
                                radplanes=a.problem.radplanes)
     out_j, dt_j, n_j = jrad(st, a.sim, a.grid, jion, st.time, a.cour_no,
                             return_niter=True)
-    st_t = tstate.from_numpy(tstate.to_numpy(st))
+    st_t = tstate.from_numpy(tstate.to_numpy(st), device="cpu")
     out_t, dt_t, n_t = trad(st_t, b.sim, b.grid, b.ion, st_t.time,
                             b.cour_no, return_niter=True)
     assert n_t == int(n_j) > 1
@@ -139,7 +139,7 @@ def test_ion_radtransfer_matches_jnp(extra):
 def test_simulation_two_cycles_match_jnp():
     a, b = pair()
     a.state = perturbed(a, 9)
-    b.state = tstate.from_numpy(tstate.to_numpy(a.state))
+    b.state = tstate.from_numpy(tstate.to_numpy(a.state), device="cpu")
     for _ in range(2):
         a.step()
         b.step()
@@ -167,6 +167,19 @@ def test_cli_refuses_default_cuda_without_gpu():
         pytest.skip("a GPU is visible: the default device is usable")
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(["-i", DECK, "--problem", "ioniz_sphere", *CMD])
+
+
+def test_entry_points_default_to_cuda_without_gpu():
+    """Simulation.from_file and state.from_numpy run on the card unless the
+    caller asks for the CPU: with no GPU visible they raise, never fall
+    back to the plain path."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        Simulation.from_file(DECK, problem="ioniz_sphere", cmdline=CMD)
+    a, _ = pair()
+    with pytest.raises(RuntimeError, match="cuda"):
+        tstate.from_numpy(tstate.to_numpy(a.state))
 
 
 @pytest.mark.parametrize("override,item", [

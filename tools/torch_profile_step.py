@@ -1,19 +1,23 @@
 """Where the time of one ioniz_sphere step goes on the GPU, for the PyTorch
 port (atmospheric_athena_tpu_torch).
 
-    python3 tools/torch_profile_step.py                          # mid path
-    ATHENA_TPU_PALLAS_MID=0 python3 tools/torch_profile_step.py  # the other
+    python3 tools/torch_profile_step.py                 # bench configuration
+    python3 tools/torch_profile_step.py ionradiation/batch_iters=1   # K=1
+    ATHENA_TPU_PALLAS_MID=0 python3 tools/torch_profile_step.py \
+        ionradiation/batch_iters=1                      # the other hydro path
 
-Builds the isph deck at the full width chip_smoke.py runs (256^3,
-float32, ionradiation/maxiter=50) on the first CUDA device, runs one
-warm-up step, then profiles one step with torch.profiler (CPU and CUDA
-activities).  Prints the card (nvidia-smi name and power limit), the CTU
-hydro path (the middle-phase path unless ATHENA_TPU_PALLAS_MID turns it
-off), the step's wall time, the device time of each phase range that
-Simulation.step records (radiation, bvals, hydro, userwork, new_dt), the
-device busy share of the step, and the kernels with the most device time.
-Then it profiles the hydro phase (ctu3d.step) alone on the same state and
-prints every kernel of it.  Imports no JAX.
+Builds the isph deck at the bench configuration (256^3, float32,
+ionradiation/maxiter=50, ionradiation/batch_iters=25) on the first CUDA
+device, with any block/name=value overrides from the command line applied
+after those, runs one warm-up step, then profiles one step with
+torch.profiler (CPU and CUDA activities).  Prints the card (nvidia-smi name
+and power limit), the CTU hydro path (the middle-phase path unless
+ATHENA_TPU_PALLAS_MID turns it off), the step's wall time, its radiation
+substeps and host reads (device-to-host copies), the device time of each
+phase range that Simulation.step records (radiation, bvals, hydro,
+userwork, new_dt), the device busy share of the step, and the kernels with
+the most device time.  Then it profiles the hydro phase (ctu3d.step) alone
+on the same state and prints every kernel of it.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -25,7 +29,9 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
-N, DTYPE, MAXITER = 256, "float32", 50
+N, DTYPE = 256, "float32"
+BENCH = [f"domain1/Nx{a}={N}" for a in (1, 2, 3)] + [
+    "ionradiation/maxiter=50", "ionradiation/batch_iters=25"]
 
 
 def main():
@@ -45,12 +51,12 @@ def main():
     print("hydro path: " + ("middle-phase kernels" if ctu_mid_kernels.supported()
                             else "ATHENA_TPU_PALLAS_MID=0, plain middle "
                             "phases"))
-    cmd = [f"domain1/Nx{a}={N}" for a in (1, 2, 3)] + [
-        f"ionradiation/maxiter={MAXITER}"]
+    cmd = BENCH + sys.argv[1:]
     s = Simulation.from_file(os.path.join(REPO, "tests", "golden",
                                           "athinput.isph64"),
                              problem="ioniz_sphere", cmdline=cmd,
                              dtype=DTYPE, device="cuda")
+    print("configuration: " + " ".join(cmd))
     s.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -59,10 +65,12 @@ def main():
         s.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    print(f"{N}^3 {DTYPE} maxiter={MAXITER}: step wall "
-          f"{1e3 * wall:.1f} ms (under the profiler), radiation iterations "
-          f"{s.rad_iters[-1]}")
     events = prof.key_averages()
+    reads = sum(e.count for e in events if e.key.startswith("Memcpy DtoH"))
+    print(f"{N}^3 {DTYPE} maxiter={s.ion.maxiter} batch_iters="
+          f"{s.ion.batch_iters}: step wall {1e3 * wall:.1f} ms (under the "
+          f"profiler), radiation substeps {s.rad_iters[-1]}, host reads "
+          f"{reads} (device-to-host copies)")
 
     phases = ("radiation", "bvals", "hydro", "userwork", "new_dt")
     # each range appears twice: as a host range (CPU time) and as the
