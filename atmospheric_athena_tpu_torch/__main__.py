@@ -5,6 +5,8 @@
   --problem <name>   problem generator (default: from the deck's configure
                      line)
   --dtype float32|float64
+  --flux roe|hllc    Riemann solver (default: from the deck's configure line,
+                     else roe); the testsedov deck's golden is HLLC
   --device cuda|cpu  default cuda; refuses to run when no GPU is visible
                      unless cpu is given explicitly
   block/name=value   parameter overrides (par_cmdline)
@@ -28,6 +30,7 @@ def parse_args(argv):
     ap.add_argument("-n", dest="parse_only", action="store_true")
     ap.add_argument("--problem", default=None)
     ap.add_argument("--dtype", default=None, choices=("float32", "float64"))
+    ap.add_argument("--flux", default=None, choices=("roe", "hllc"))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("overrides", nargs="*", help="block/name=value")
     return ap.parse_args(argv)
@@ -36,9 +39,10 @@ def parse_args(argv):
 def main(argv=None):
     args = parse_args(argv if argv is not None else sys.argv[1:])
     from .simulation import Simulation
+    kw = {} if args.flux is None else {"flux": args.flux}
     s = Simulation.from_file(args.input, problem=args.problem,
                              cmdline=args.overrides, dtype=args.dtype,
-                             device=args.device)
+                             device=args.device, **kw)
     if args.parse_only:
         print(s.par.dump())
         print(f"# sim config: {s.sim}")

@@ -15,10 +15,13 @@
 //                    Roe/HLLE flux of hydro.cuh.
 //   grav_source    — _sg_kernel (B9): dhalf = d - sum_a q_a dF_ID,a, then
 //                    the full-dt gravity source Sg = [dM_0..2, dE_0..2]
-//                    (integrate_3d_ctu.c:2741-2782).
+//                    (integrate_3d_ctu.c:2741-2782); in its Fp2IDr form
+//                    (with_f2r) F2_ID(+1_a) is an operand (B12's F2_IDr)
+//                    instead of a shifted read of F2_ID.
 //   final_update   — _final_kernel (B10): steps 11-12, U - Sg - sum_a
 //                    dtodx_a (F_a(+1_a) - F_a), written on interior cells;
-//                    ghost cells keep U.
+//                    ghost cells keep U; in its dF2 form (with_df) the flux
+//                    differences are operands (B12's dF2).
 //
 // Layout: U-like arrays [NV, NZ, NY, NX] contiguous in physical variable
 // order, fields [NZ, NY, NX].  One thread per cell or interface, the thread
@@ -39,7 +42,8 @@
 // solve per interface, as B13 does).  Fields per cell: B6 reads 8 and
 // writes 6, B7 reads 28 and writes 13 (the dF and G neighbours one cell
 // back along a are mostly L1/L2 hits), B8 reads 15 and writes 6, B9 reads
-// 11 and writes 6, B10 reads 30 and writes 6.  This first version
+// 11 and writes 6 (14 in the Fp2IDr form), B10 reads 30 and writes 6 in
+// either form.  This first version
 // keeps every cell's stencil in registers and relies on the caches for the
 // neighbours; shared-memory tiles come later.
 
@@ -216,11 +220,12 @@ __global__ void flux_corrected_kernel(const T* __restrict__ Ul,
   for (int v = 0; v < NV; ++v) F[pm.p[v] * n + idx] = f[v];
 }
 
-// B9: Sg [6, ...]; Fid = first-pass density fluxes, F2id = step-9 ones
+// B9: Sg [6, ...]; Fid = first-pass density fluxes, F2id = step-9 ones,
+// F2idr = F2id(+1_a) (the Fp2IDr form) or nullptr (shifted reads of F2id)
 template <typename T>
 __global__ void grav_source_kernel(const T* __restrict__ d,
                                    const T* __restrict__ phic, Ptr3<T> phif,
-                                   Ptr3<T> Fid, Ptr3<T> F2id,
+                                   Ptr3<T> Fid, Ptr3<T> F2id, Ptr3<T> F2idr,
                                    const T* __restrict__ q,
                                    const T* __restrict__ dtodx,
                                    T* __restrict__ Sg, Geom g) {
@@ -241,17 +246,22 @@ __global__ void grav_source_kernel(const T* __restrict__ d,
   for (int a = 0; a < 3; ++a) {
     const T phil = phif.p[a][idx], phir = phif.p[a][r[a]];
     const T dt = dtodx[a];
+    const T F2r =
+        (F2idr.p[a] != nullptr) ? F2idr.p[a][idx] : F2id.p[a][r[a]];
     Sg[a * g.ncell + idx] = dt * (phir - phil) * dhalf;
     Sg[(3 + a) * g.ncell + idx] =
-        dt * (F2id.p[a][idx] * (pc - phil) + F2id.p[a][r[a]] * (phir - pc));
+        dt * (F2id.p[a][idx] * (pc - phil) + F2r * (phir - pc));
   }
 }
 
-// B10: Sg == nullptr without gravity
-template <typename T, int NS>
+// B10: Sg == nullptr without gravity; DF = 1: the dF2 form (the flux
+// differences dF are operands, F is not read), DF = 0: F is read.  DF is a
+// template argument because a run-time test of dF slowed the F form, the
+// bench configuration's, by about 29% (H100, 256^3 float32).
+template <typename T, int NS, int DF>
 __global__ void final_update_kernel(const T* __restrict__ U,
                                     const T* __restrict__ Sg, Ptr3<T> F,
-                                    const T* __restrict__ dtodx,
+                                    Ptr3<T> dF, const T* __restrict__ dtodx,
                                     T* __restrict__ Uout, Geom g, Box box) {
   constexpr int NV = 5 + NS;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -286,9 +296,14 @@ __global__ void final_update_kernel(const T* __restrict__ U,
         u = u - Sg[5 * n + idx];
       }
     }
+    if constexpr (DF) {
 #pragma unroll
-    for (int a = 0; a < 3; ++a)
-      u = u - dt[a] * (F.p[a][o + r[a]] - F.p[a][o + idx]);
+      for (int a = 0; a < 3; ++a) u = u - dt[a] * dF.p[a][o + idx];
+    } else {
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        u = u - dt[a] * (F.p[a][o + r[a]] - F.p[a][o + idx]);
+    }
     Uout[o + idx] = u;
   }
 }
@@ -354,28 +369,38 @@ int launch_grav_source(const void* d, const void* phic, const void* phif0,
                        const void* phif1, const void* phif2,
                        const void* Fid0, const void* Fid1, const void* Fid2,
                        const void* F2id0, const void* F2id1,
-                       const void* F2id2, const void* q, const void* dtodx,
-                       void* Sg, int nz, int ny, int nx, void* stream) {
+                       const void* F2id2, const void* F2idr0,
+                       const void* F2idr1, const void* F2idr2, const void* q,
+                       const void* dtodx, void* Sg, int nz, int ny, int nx,
+                       void* stream) {
   const Geom g = make_geom(nz, ny, nx);
   grav_source_kernel<T><<<mid_blocks(g.ncell), kMidThreads, 0,
                           (cudaStream_t)stream>>>(
       (const T*)d, (const T*)phic, ptr3<T>(phif0, phif1, phif2),
-      ptr3<T>(Fid0, Fid1, Fid2), ptr3<T>(F2id0, F2id1, F2id2), (const T*)q,
-      (const T*)dtodx, (T*)Sg, g);
+      ptr3<T>(Fid0, Fid1, Fid2), ptr3<T>(F2id0, F2id1, F2id2),
+      ptr3<T>(F2idr0, F2idr1, F2idr2), (const T*)q, (const T*)dtodx, (T*)Sg,
+      g);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int NS>
 int launch_final_update(const void* U, const void* Sg, const void* F0,
-                        const void* F1, const void* F2, const void* dtodx,
+                        const void* F1, const void* F2, const void* dF0,
+                        const void* dF1, const void* dF2, const void* dtodx,
                         void* Uout, int nz, int ny, int nx, const int* lo,
                         const int* hi, void* stream) {
   const Geom g = make_geom(nz, ny, nx);
   const Box box{{lo[0], lo[1], lo[2]}, {hi[0], hi[1], hi[2]}};
-  final_update_kernel<T, NS><<<mid_blocks(g.ncell), kMidThreads, 0,
-                               (cudaStream_t)stream>>>(
-      (const T*)U, (const T*)Sg, ptr3<T>(F0, F1, F2), (const T*)dtodx,
-      (T*)Uout, g, box);
+  const Ptr3<T> F = ptr3<T>(F0, F1, F2), dF = ptr3<T>(dF0, dF1, dF2);
+  const unsigned blocks = mid_blocks(g.ncell);
+  if (dF0 != nullptr)
+    final_update_kernel<T, NS, 1><<<blocks, kMidThreads, 0,
+                                    (cudaStream_t)stream>>>(
+        (const T*)U, (const T*)Sg, F, dF, (const T*)dtodx, (T*)Uout, g, box);
+  else
+    final_update_kernel<T, NS, 0><<<blocks, kMidThreads, 0,
+                                    (cudaStream_t)stream>>>(
+        (const T*)U, (const T*)Sg, F, dF, (const T*)dtodx, (T*)Uout, g, box);
   return (int)cudaGetLastError();
 }
 
@@ -445,11 +470,12 @@ int ath_flux_corrected_f64(ATH_FLUXC_ARGS) {
   const void *d, const void *phic, const void *phif0, const void *phif1,   \
       const void *phif2, const void *Fid0, const void *Fid1,               \
       const void *Fid2, const void *F2id0, const void *F2id1,              \
-      const void *F2id2, const void *q, const void *dtodx, void *Sg,       \
+      const void *F2id2, const void *F2idr0, const void *F2idr1,           \
+      const void *F2idr2, const void *q, const void *dtodx, void *Sg,      \
       int nz, int ny, int nx, void *stream
 #define ATH_SG_CALL                                                        \
-  d, phic, phif0, phif1, phif2, Fid0, Fid1, Fid2, F2id0, F2id1, F2id2, q,  \
-      dtodx, Sg, nz, ny, nx, stream
+  d, phic, phif0, phif1, phif2, Fid0, Fid1, Fid2, F2id0, F2id1, F2id2,     \
+      F2idr0, F2idr1, F2idr2, q, dtodx, Sg, nz, ny, nx, stream
 
 int ath_grav_source_f32(ATH_SG_ARGS) {
   return ath::launch_grav_source<float>(ATH_SG_CALL);
@@ -458,30 +484,27 @@ int ath_grav_source_f64(ATH_SG_ARGS) {
   return ath::launch_grav_source<double>(ATH_SG_CALL);
 }
 
-// lo, hi: the interior box, 3 ints each (axis order x, y, z)
+// lo, hi: the interior box, 3 ints each (axis order x, y, z); dF0..2
+// nullptr: read F0..2 (the form without dF2)
 #define ATH_FINAL_ARGS                                                     \
   const void *U, const void *Sg, const void *F0, const void *F1,           \
-      const void *F2, const void *dtodx, void *Uout, int nz, int ny,       \
-      int nx, int nscalars, int lo0, int lo1, int lo2, int hi0, int hi1,   \
-      int hi2, void *stream
+      const void *F2, const void *dF0, const void *dF1, const void *dF2,   \
+      const void *dtodx, void *Uout, int nz, int ny, int nx, int nscalars, \
+      int lo0, int lo1, int lo2, int hi0, int hi1, int hi2, void *stream
+#define ATH_FINAL_CALL \
+  U, Sg, F0, F1, F2, dF0, dF1, dF2, dtodx, Uout, nz, ny, nx, lo, hi, stream
 
 int ath_final_update_f32(ATH_FINAL_ARGS) {
   const int lo[3] = {lo0, lo1, lo2}, hi[3] = {hi0, hi1, hi2};
   return ATH_DISPATCH_NS(
-      nscalars,
-      (ath::launch_final_update<float, 0>(U, Sg, F0, F1, F2, dtodx, Uout, nz,
-                                          ny, nx, lo, hi, stream)),
-      (ath::launch_final_update<float, 1>(U, Sg, F0, F1, F2, dtodx, Uout, nz,
-                                          ny, nx, lo, hi, stream)));
+      nscalars, (ath::launch_final_update<float, 0>(ATH_FINAL_CALL)),
+      (ath::launch_final_update<float, 1>(ATH_FINAL_CALL)));
 }
 int ath_final_update_f64(ATH_FINAL_ARGS) {
   const int lo[3] = {lo0, lo1, lo2}, hi[3] = {hi0, hi1, hi2};
   return ATH_DISPATCH_NS(
-      nscalars,
-      (ath::launch_final_update<double, 0>(U, Sg, F0, F1, F2, dtodx, Uout,
-                                           nz, ny, nx, lo, hi, stream)),
-      (ath::launch_final_update<double, 1>(U, Sg, F0, F1, F2, dtodx, Uout,
-                                           nz, ny, nx, lo, hi, stream)));
+      nscalars, (ath::launch_final_update<double, 0>(ATH_FINAL_CALL)),
+      (ath::launch_final_update<double, 1>(ATH_FINAL_CALL)));
 }
 
 }  // extern "C"

@@ -1,21 +1,21 @@
 // Device-side adiabatic hydrodynamics shared by the sweep and pointwise flux
 // kernels (hydro.cu) and the step-9 flux kernel (ctu_mid.cu): the sweep
 // variable permutation, the EOS conversions, characteristic PLM
-// with CTU tracing, and the Roe solver with its HLLE fallback and the
-// H-correction.
+// with CTU tracing, the Roe solver with its HLLE fallback and the
+// H-correction, and the HLLC solver.
 //
 // Each function follows the plain PyTorch version of the port line by line
 // (eos.py, ops/eigen.py, ops/reconstruct.py, ops/riemann.py), which in turn
 // follows the reference C code (convert_var.c, esystem_prim.c,
-// esystem_roe.c, lr_states_plm.c, roe.c, hlle.c).  The arrays are in the
-// 1D-slice (sweep) variable order (d, Mx, My, Mz, E, s...) or its primitive
-// counterpart (d, Vx, Vy, Vz, P, r...), NV = 5 + NS entries.
+// esystem_roe.c, lr_states_plm.c, roe.c, hlle.c, hllc.c).  The arrays are
+// in the 1D-slice (sweep) variable order (d, Mx, My, Mz, E, s...) or its
+// primitive counterpart (d, Vx, Vy, Vz, P, r...), NV = 5 + NS entries.
 //
-// Templated on the floating type T (float, double) and the number of passive
-// scalars NS.  Compiled without --use_fast_math and with -fmad=false
-// (cuda_lib.py): division and sqrt are IEEE-rounded and every operation
-// rounds in the plain version's order, so the results match it to the last
-// bits.
+// Templated on the floating type T (float, double), the number of passive
+// scalars NS and, in riemann_flux, the solver FLUX.  Compiled without
+// --use_fast_math and with -fmad=false (cuda_lib.py): division and sqrt are
+// IEEE-rounded and every operation rounds in the plain version's order, so
+// the results match it to the last bits.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -25,6 +25,12 @@
 namespace ath {
 
 constexpr double TINY_NUMBER = 1.0e-20;
+
+// The Riemann solver, a template argument of the sweep and flux kernels: it
+// selects the solver (riemann_flux) and the CTU tracing branch (plm_cell).
+// The C entry points take it as an int, the index of sim.flux in ("roe",
+// "hllc").
+enum FluxKind { kRoe = 0, kHllc = 1 };
 
 // variable order of a sweep along `axis` as indices into the physical order
 // (integrators/sweep.py var_perm): (d, M_axis, M_axis+1, M_axis+2, E, s...)
@@ -130,10 +136,10 @@ template <typename T> struct PrimEig {
 };
 
 // Characteristic PLM + CTU tracing of ONE cell from its primitive stencil
-// (Wm, Wc, Wp) = cells (i-1, i, i+1): plm() and _trace_ctu() of
-// ops/reconstruct.py.  Returns the traced states at the cell's left
-// (Wminus) and right (Wplus) interfaces.
-template <typename T, int NS>
+// (Wm, Wc, Wp) = cells (i-1, i, i+1): plm() and _trace_ctu() (Roe) or
+// _trace_hll() (HLLC) of ops/reconstruct.py.  Returns the traced states at
+// the cell's left (Wminus) and right (Wplus) interfaces.
+template <typename T, int NS, int FLUX>
 __device__ __forceinline__ void plm_cell(const T* Wm, const T* Wc,
                                          const T* Wp, T dtodx, T gamma,
                                          T* Wminus, T* Wplus) {
@@ -191,6 +197,28 @@ __device__ __forceinline__ void plm_cell(const T* Wm, const T* Wc,
     Wlv[k] = lv;
     Wrv[k] = rv;
     dW[k] = rv - lv;
+  }
+
+  if constexpr (FLUX == kHllc) {
+    // HLL-family tracing (lr_states_plm.c:257-294): subtract each wave
+    // moving toward the interface; passive scalars stay untraced.  Adding
+    // -qa rounds as the plain version's subtraction of qa does.
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      Wplus[k] = Wrv[k];
+      Wminus[k] = Wlv[k];
+    }
+#pragma unroll
+    for (int n = 0; n < 5; ++n) {
+      T v[5];
+      const T qx = T(0.5) * dtodx * E.ev[n];
+#pragma unroll
+      for (int m = 0; m < 5; ++m) v[m] = qx * dW[m];
+      const T qa = E.lrow(n, v);
+      E.add_col(n, -((E.ev[n] > T(0)) ? qa : T(0)), Wplus);
+      E.add_col(n, -((E.ev[n] < T(0)) ? qa : T(0)), Wminus);
+    }
+    return;
   }
 
   // Step 8: integrate over the domain of dependence
@@ -360,8 +388,88 @@ __device__ __forceinline__ void roe_flux(const T* Ul, const T* Ur,
   for (int n = 0; n < NV; ++n) F[n] = Fo[n];
 }
 
+// ---------------------------------------------------------------- HLLC
+// HLLC flux (hllc() of ops/riemann.py): the HLLE bounds from the Roe
+// eigenvalues and the sound speeds, the contact speed am and pressure cp,
+// and the flux weights sl, sr, sm.  No H-correction (the reference's HLLC
+// ignores etah).
+template <typename T, int NS>
+__device__ __forceinline__ void hllc_flux(const T* Ul, const T* Ur,
+                                          const T* Wl, const T* Wr, T gamma,
+                                          T g1, T* F) {
+  constexpr int NV = 5 + NS;
+  // Roe averages and the extreme Roe eigenvalues (esys_roe_adb_hyd)
+  const T sqrtdl = sqrt(Wl[0]);
+  const T sqrtdr = sqrt(Wr[0]);
+  const T isdlpdr = T(1) / (sqrtdl + sqrtdr);
+  const T v1 = (sqrtdl * Wl[1] + sqrtdr * Wr[1]) * isdlpdr;
+  const T v2 = (sqrtdl * Wl[2] + sqrtdr * Wr[2]) * isdlpdr;
+  const T v3 = (sqrtdl * Wl[3] + sqrtdr * Wr[3]) * isdlpdr;
+  const T h = ((Ul[4] + Wl[4]) / sqrtdl + (Ur[4] + Wr[4]) / sqrtdr) * isdlpdr;
+  const T vsq = v1 * v1 + v2 * v2 + v3 * v3;
+  const T a = sqrt(g1 * tmax(h - T(0.5) * vsq, T(TINY_NUMBER)));
+  const T ev0 = v1 - a, ev4 = v1 + a;
+
+  const T cfl = sqrt(gamma * Wl[4] / Wl[0]);
+  const T cfr = sqrt(gamma * Wr[4] / Wr[0]);
+  const T ar = tmax(ev4, Wr[1] + cfr);
+  const T al = tmin(ev0, Wl[1] - cfl);
+  const T bp = tmax(ar, T(0));
+  const T bm = tmin(al, T(0));
+
+  // contact speed and pressure
+  const T tl = Wl[4] + (Wl[1] - al) * Ul[1];
+  const T tr = Wr[4] + (Wr[1] - ar) * Ur[1];
+  const T dl = Ul[1] - Ul[0] * al;
+  const T dr = -(Ur[1] - Ur[0] * ar);
+  const T tmp = T(1) / (dl + dr);
+  const T am = (tl - tr) * tmp;
+  const T cp = tmax((dl * tr + dr * tl) * tmp, T(0));
+
+  T Fl[NV], Fr[NV];
+  side_flux<T, NS>(Ul, Wl, bm, Fl);
+  side_flux<T, NS>(Ur, Wr, bp, Fr);
+
+  // flux weights
+  const bool pos = am >= T(0);
+  const T sl = pos ? am / (am - bm) : T(0);
+  const T sr = pos ? T(0) : -am / (bp - am);
+  const T sm = pos ? -bm / (am - bm) : bp / (bp - am);
+#pragma unroll
+  for (int n = 0; n < 5; ++n) F[n] = sl * Fl[n] + sr * Fr[n];
+  F[1] = F[1] + sm * cp;
+  F[4] = F[4] + sm * cp * am;
+  // passive scalars upwinded on the mass flux
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+    F[5 + s] = (F[0] >= T(0)) ? F[0] * Wl[5 + s] : F[0] * Wr[5 + s];
+}
+
+// The Riemann solver of a sweep or flux kernel, chosen at compile time:
+// FLUX = kRoe (with etah) or kHllc (etah unused).
+template <typename T, int NS, int FLUX>
+__device__ __forceinline__ void riemann_flux(const T* Ul, const T* Ur,
+                                             const T* Wl, const T* Wr,
+                                             T etah, T gamma, T g1, T* F) {
+  if constexpr (FLUX == kHllc)
+    hllc_flux<T, NS>(Ul, Ur, Wl, Wr, gamma, g1, F);
+  else
+    roe_flux<T, NS>(Ul, Ur, Wl, Wr, etah, gamma, g1, F);
+}
+
 }  // namespace ath
 
 // C entry points: launch the <T, NS> instance for nscalars = 0 or 1
 #define ATH_DISPATCH_NS(NSCAL, CALL0, CALL1) \
   ((NSCAL) == 0 ? (CALL0) : (NSCAL) == 1 ? (CALL1) : (int)cudaErrorInvalidValue)
+
+// ... and LAUNCH<T, NS, FLUX>(...) for nscalars = 0 or 1 and flux = kRoe or
+// kHllc
+#define ATH_DISPATCH_NS_FLUX(T, LAUNCH, NSCAL, FLUX, ...)                 \
+  ((FLUX) == ath::kRoe                                                    \
+       ? ATH_DISPATCH_NS(NSCAL, (LAUNCH<T, 0, ath::kRoe>(__VA_ARGS__)),    \
+                         (LAUNCH<T, 1, ath::kRoe>(__VA_ARGS__)))           \
+   : (FLUX) == ath::kHllc                                                 \
+       ? ATH_DISPATCH_NS(NSCAL, (LAUNCH<T, 0, ath::kHllc>(__VA_ARGS__)),   \
+                         (LAUNCH<T, 1, ath::kHllc>(__VA_ARGS__)))          \
+       : (int)cudaErrorInvalidValue)

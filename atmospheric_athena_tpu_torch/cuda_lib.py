@@ -45,22 +45,24 @@ _D = ctypes.c_double
 # C signatures of the entry points (csrc/hydro.cu, csrc/ctu_mid.cu,
 # csrc/rad.cu, csrc/rad_batch.cu, csrc/bvals.cu)
 _SIGNATURES = {
-    "ath_sweep_lrflux_f32": [_P] * 7 + [_I] * 5 + [_D, _D, _P],
-    "ath_sweep_lrflux_f64": [_P] * 7 + [_I] * 5 + [_D, _D, _P],
-    "ath_sweep_lrflux_df_f32": [_P] * 8 + [_I] * 5 + [_D, _D, _P],
-    "ath_sweep_lrflux_df_f64": [_P] * 8 + [_I] * 5 + [_D, _D, _P],
-    "ath_flux_pointwise_f32": [_P] * 4 + [_I] * 5 + [_D, _D, _P],
-    "ath_flux_pointwise_f64": [_P] * 4 + [_I] * 5 + [_D, _D, _P],
+    "ath_sweep_lrflux_f32": [_P] * 7 + [_I] * 6 + [_D, _D, _P],
+    "ath_sweep_lrflux_f64": [_P] * 7 + [_I] * 6 + [_D, _D, _P],
+    "ath_sweep_lrflux_df_f32": [_P] * 8 + [_I] * 6 + [_D, _D, _P],
+    "ath_sweep_lrflux_df_f64": [_P] * 8 + [_I] * 6 + [_D, _D, _P],
+    "ath_flux_pointwise_f32": [_P] * 4 + [_I] * 6 + [_D, _D, _P],
+    "ath_flux_pointwise_f64": [_P] * 4 + [_I] * 6 + [_D, _D, _P],
+    "ath_flux_sweep_df_f32": [_P] * 5 + [_I] * 6 + [_D, _D, _P],
+    "ath_flux_sweep_df_f64": [_P] * 5 + [_I] * 6 + [_D, _D, _P],
     "ath_gcross_f32": [_P] * 10 + [_I] * 3 + [_P],
     "ath_gcross_f64": [_P] * 10 + [_I] * 3 + [_P],
     "ath_transverse_f32": [_P] * 12 + [_I] * 5 + [_D, _D, _P],
     "ath_transverse_f64": [_P] * 12 + [_I] * 5 + [_D, _D, _P],
     "ath_flux_corrected_f32": [_P] * 6 + [_I] * 5 + [_D, _D, _P],
     "ath_flux_corrected_f64": [_P] * 6 + [_I] * 5 + [_D, _D, _P],
-    "ath_grav_source_f32": [_P] * 14 + [_I] * 3 + [_P],
-    "ath_grav_source_f64": [_P] * 14 + [_I] * 3 + [_P],
-    "ath_final_update_f32": [_P] * 7 + [_I] * 10 + [_P],
-    "ath_final_update_f64": [_P] * 7 + [_I] * 10 + [_P],
+    "ath_grav_source_f32": [_P] * 17 + [_I] * 3 + [_P],
+    "ath_grav_source_f64": [_P] * 17 + [_I] * 3 + [_P],
+    "ath_final_update_f32": [_P] * 10 + [_I] * 10 + [_P],
+    "ath_final_update_f64": [_P] * 10 + [_I] * 10 + [_P],
     "ath_rad_rates_f32": [_P] * 14 + [_I, _I, _P, _P],
     "ath_rad_rates_f64": [_P] * 14 + [_I, _I, _P, _P],
     "ath_rad_update_f32": [_P] * 16 + [_L, _P, _P],

@@ -1,6 +1,7 @@
-"""3D CTU integrator, hydrodynamics with static gravity and the
-H-correction (``atmospheric_athena_tpu/integrators/ctu3d.py`` with its
-fused sweep kernels on; reference integrate_3d_ctu.c).
+"""3D CTU integrator, adiabatic hydrodynamics with static gravity, with or
+without the H-correction, Roe or HLLC fluxes
+(``atmospheric_athena_tpu/integrators/ctu3d.py`` with its fused sweep
+kernels on; reference integrate_3d_ctu.c).
 
 The 12-step ordering is the correctness contract and is kept:
   steps 1-3   per-axis L/R states + first-pass fluxes
@@ -16,7 +17,11 @@ Two paths, chosen as the JAX package chooses them
   middle-phase path (default) — the JAX ``use_pallas_mid`` branch
       (ctu3d.py:212-387): sweeps emitting flux differences
       (hydro_kernels.sweep_lrflux_df), then the kernels of
-      ops/ctu_mid_kernels.py for every phase after them.
+      ops/ctu_mid_kernels.py for every phase after them.  Step 9 is
+      ctu_mid_kernels.flux_corrected with the H-correction, and without it
+      hydro_kernels.flux_sweep_df, whose flux differences and shifted
+      density fluxes feed the dF2 form of final_update and the Fp2IDr form
+      of grav_source (ctu3d.py:328-336, 379-385).
   ATHENA_TPU_PALLAS_MID=0 — the sweeps emit whole fluxes
       (hydro_kernels.sweep_lrflux), the middle phases run as the plain
       versions of ops/ctu_mid_kernels.py and step 9 is
@@ -77,8 +82,8 @@ def check_supported(sim: SimConfig, grid: GridConfig):
         raise NotImplementedError("MHD CTU (ROADMAP A12)")
     if not hydro_kernels.supported(sim):
         raise NotImplementedError(
-            "CTU hydro: only adiabatic gas, PLM order 2, Roe flux and at "
-            "most one passive scalar are ported (ROADMAP A11)")
+            "CTU hydro: only adiabatic gas, PLM order 2, Roe or HLLC flux "
+            "and at most one passive scalar are ported (ROADMAP A11)")
     if not all(grid.active(a) for a in range(3)):
         raise NotImplementedError("1D/2D CTU (ROADMAP A10/A11)")
     if grid.cylindrical:
@@ -137,9 +142,9 @@ def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
 
 
 def _step_mid(U, phic, phif, dtodx, q, sim: SimConfig, grid: GridConfig):
-    """The middle-phase path (JAX ctu3d.py:212-387 with use_df and the
-    H-correction): returns the new U.  Each phase's inputs are freed as
-    soon as its last reader has run."""
+    """The middle-phase path (JAX ctu3d.py:212-387 with use_df): returns the
+    new U.  Each phase's inputs are freed as soon as its last reader has
+    run."""
     axes = (0, 1, 2)
     grav = phic is not None
 
@@ -157,16 +162,26 @@ def _step_mid(U, phic, phif, dtodx, q, sim: SimConfig, grid: GridConfig):
             Ulp.pop(a), Urp.pop(a), dFp, G, q, sim, a, axes)
     del dFp, G
 
-    # === STEP 9: etah gather + final fluxes ===============================
-    etaS = [eta[a] for a in axes] if sim.h_correction else None
-    Fp2 = {a: mid.flux_corrected(Ulc.pop(a), Urc.pop(a), etaS, sim, a, axes)
-           for a in axes}
-    del etaS
+    # === STEP 9: final fluxes ============================================
+    dF2 = F2IDr = None
+    if sim.h_correction:
+        # the etah gather + the flux of each axis
+        etaS = [eta[a] for a in axes]
+        Fp2 = {a: mid.flux_corrected(Ulc.pop(a), Urc.pop(a), etaS, sim, a,
+                                     axes) for a in axes}
+        del etaS
+    else:
+        # flux differences, density fluxes and their +1 shifts; the whole
+        # step-9 flux never goes to memory
+        dF2, Fp2, F2IDr = {}, {}, {}
+        for a in axes:
+            dF2[a], Fp2[a], F2IDr[a] = hydro_kernels.flux_sweep_df(
+                Ulc.pop(a), Urc.pop(a), sim, a)
 
     # === STEPS 8 + 11: dhalf and the full-dt gravity source ===============
-    Sg = (mid.grav_source(U, FpID, Fp2, phic, phif, q, dtodx, axes)
-          if grav else None)
-    del FpID
+    Sg = (mid.grav_source(U, FpID, Fp2, phic, phif, q, dtodx, axes,
+                          Fp2IDr=F2IDr) if grav else None)
+    del FpID, F2IDr
 
     # === STEP 12: conservative update + interior splice ===================
-    return mid.final_update(U, Fp2, Sg, dtodx, sim, grid, axes)
+    return mid.final_update(U, Fp2, Sg, dtodx, sim, grid, axes, dF2=dF2)

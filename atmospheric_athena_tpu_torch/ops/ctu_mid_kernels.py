@@ -7,17 +7,21 @@ step between the per-axis sweeps and the new state.
   transverse_correct — B7, steps 5-7 along axis a from the sweeps' flux
                        differences dF_b, minus the G_b terms, and the
                        H-correction eta of the corrected states.
-  flux_corrected     — B8, step 9: the etah gather and the Roe flux.
-  grav_source        — B9, step 8's dhalf and the full-dt gravity source.
-  final_update       — B10, steps 11-12 and the interior splice.
+  flux_corrected     — B8, step 9: the etah gather and the Roe flux (the
+                       route with the H-correction; without it, step 9 is
+                       hydro_kernels.flux_sweep_df, B12).
+  grav_source        — B9, step 8's dhalf and the full-dt gravity source;
+                       with Fp2IDr (B12's F2_ID(+1_a)) as an operand or as
+                       a shifted read of F2_ID.
+  final_update       — B10, steps 11-12 and the interior splice; with dF2
+                       (B12's flux differences) or the step-9 fluxes.
 
 The names and argument order are those of pallas_ctu_mid (gcross,
 transverse_correct, flux_corrected, grav_source_pl, final_update), less
 the arguments that only served the TPU's tiling (``grid`` where it gave
-block shapes) and the forms this path does not run: transverse_correct
-takes the dFp form only (no Fp), grav_source has no Fp2IDr and
-final_update no dF2.  ``q`` and ``dtodx`` are dicts {axis: value}, values
-floats or 0-d tensors.
+block shapes) and the form this port does not run: transverse_correct
+takes the dFp form only (no Fp).  ``q`` and ``dtodx`` are dicts {axis:
+value}, values floats or 0-d tensors.
 
 Each wrapper takes the kernel (csrc/ctu_mid.cu) for CUDA tensors, and the
 plain version for CPU tensors.  The plain versions repeat the order of
@@ -26,12 +30,15 @@ so float64 results agree to the last bits.  Shifts wrap (torch.roll),
 touching only ghost cells that no interior update reads.  The kernels
 cover the 3D step, ``axes == (0, 1, 2)``.
 
-``<wrapper>.launches`` counts the kernel launches of each wrapper.
+``<wrapper>.launches`` counts the kernel launches of each wrapper;
+``grav_source.forms`` and ``final_update.forms`` count them per form
+("Fp2IDr" or "Fp2ID", "dF2" or "F2").
 """
 
 from __future__ import annotations
 
 import os
+from collections import Counter
 
 import torch
 
@@ -142,7 +149,7 @@ def flux_corrected_plain(Ulc, Urc, etaS, sim: SimConfig, a: int, axes):
     return hydro_kernels.flux_pointwise_plain(Ulc, Urc, etah, sim, a)
 
 
-def grav_source_plain(U, Fp, Fp2, phic, phif, q, dtodx, axes):
+def grav_source_plain(U, Fp, Fp2, phic, phif, q, dtodx, axes, Fp2IDr=None):
     """Plain version of ``grav_source`` (same signature)."""
     dhalf = U[ID]
     for a in axes:
@@ -157,14 +164,14 @@ def grav_source_plain(U, Fp, Fp2, phic, phif, q, dtodx, axes):
         phir = _sh(phif[a], 1, a)
         phil = phif[a]
         F2 = _idfield(Fp2[a])
+        F2r = _sh(F2, 1, a) if Fp2IDr is None else Fp2IDr[a]
         dM.append(dtodx[a] * (phir - phil) * dhalf)
-        dE.append(dtodx[a] * (F2 * (phic - phil) +
-                              _sh(F2, 1, a) * (phir - phic)))
+        dE.append(dtodx[a] * (F2 * (phic - phil) + F2r * (phir - phic)))
     return torch.stack(dM + dE)
 
 
 def final_update_plain(U, Fp2, Sg, dtodx, sim: SimConfig, grid: GridConfig,
-                       axes):
+                       axes, dF2=None):
     """Plain version of ``final_update`` (same signature)."""
     Unew = U.clone()
     if Sg is not None:
@@ -172,7 +179,8 @@ def final_update_plain(U, Fp2, Sg, dtodx, sim: SimConfig, grid: GridConfig,
             Unew[IM1 + a] -= Sg[a]
             Unew[IEN] -= Sg[3 + a]
     for a in axes:
-        Unew = Unew - dtodx[a] * (_sh(Fp2[a], 1, a) - Fp2[a])
+        dFa = _sh(Fp2[a], 1, a) - Fp2[a] if dF2 is None else dF2[a]
+        Unew = Unew - dtodx[a] * dFa
     sl = (slice(None),) + grid.interior()
     Uout = U.clone()
     Uout[sl] = Unew[sl]
@@ -275,9 +283,15 @@ def flux_corrected(Ulc, Urc, etaS, sim: SimConfig, a: int, axes):
 
     Kernel (CUDA tensors): csrc/ctu_mid.cu flux_corrected_kernel, replacing
     ops/pallas_ctu_mid.py:_fluxh_kernel; the Roe/HLLE solve is B13's
-    (csrc/hydro.cuh), the 9 eta reads mostly cache hits."""
+    (csrc/hydro.cuh), the 9 eta reads mostly cache hits.  The kernel solves
+    Roe only: HLLC on this route (with the H-correction) raises."""
     if Ulc.device.type != "cuda":
         return flux_corrected_plain(Ulc, Urc, etaS, sim, a, axes)
+    if sim.flux != "roe":
+        raise NotImplementedError(
+            f"flux_corrected: the CUDA kernel solves Roe, not {sim.flux} "
+            "(HLLC with the H-correction on the middle-phase path, ROADMAP "
+            "B); ATHENA_TPU_PALLAS_MID=0 runs it")
     eta = [None] * 3 if etaS is None else [etaS[b] for b in range(3)]
     _check("flux_corrected", Ulc, Urc, *eta, sim=sim, axes=axes)
     if Urc.shape != Ulc.shape:
@@ -296,19 +310,23 @@ def flux_corrected(Ulc, Urc, etaS, sim: SimConfig, a: int, axes):
 flux_corrected.launches = 0
 
 
-def grav_source(U, Fp, Fp2, phic, phif, q, dtodx, axes):
+def grav_source(U, Fp, Fp2, phic, phif, q, dtodx, axes, Fp2IDr=None):
     """dhalf = d - sum_a q_a (F_ID,a(+1_a) - F_ID,a) and the full-dt gravity
     source, stacked [6, ...] as [dM_0..2, dE_0..2].  Fp, Fp2: the first-pass
-    and step-9 fluxes of each axis, whole or their density components.
+    and step-9 fluxes of each axis, whole or their density components;
+    Fp2IDr: {a: F2_ID,a(+1_a)} (flux_sweep_df's F2_IDr) or None to shift
+    F2_ID here.
 
     Kernel (CUDA tensors): csrc/ctu_mid.cu grav_source_kernel, replacing
-    ops/pallas_ctu_mid.py:_sg_kernel (without Fp2IDr); bound by its 11
-    field loads and 6 stores per cell."""
+    ops/pallas_ctu_mid.py:_sg_kernel in both forms; bound by its 11 field
+    loads (14 with Fp2IDr) and 6 stores per cell."""
     if U.device.type != "cuda":
-        return grav_source_plain(U, Fp, Fp2, phic, phif, q, dtodx, axes)
+        return grav_source_plain(U, Fp, Fp2, phic, phif, q, dtodx, axes,
+                                 Fp2IDr)
     Fid = [_idfield(Fp[a]) for a in range(3)]
     F2id = [_idfield(Fp2[a]) for a in range(3)]
-    _check("grav_source", U, phic, *phif, *Fid, *F2id, axes=axes)
+    F2idr = [None] * 3 if Fp2IDr is None else [Fp2IDr[a] for a in range(3)]
+    _check("grav_source", U, phic, *phif, *Fid, *F2id, *F2idr, axes=axes)
     _, nz, ny, nx = U.shape
     Sg = torch.empty((6, nz, ny, nx), dtype=U.dtype, device=U.device)
     qv = cuda_lib.scalar_arg([q[a] for a in range(3)], U)
@@ -316,31 +334,37 @@ def grav_source(U, Fp, Fp2, phic, phif, q, dtodx, axes):
     err = _fn("grav_source", U)(
         U.data_ptr(), phic.data_ptr(), *[p.data_ptr() for p in phif],
         *[f.data_ptr() for f in Fid], *[f.data_ptr() for f in F2id],
-        qv.data_ptr(), dv.data_ptr(), Sg.data_ptr(), nz, ny, nx,
-        cuda_lib.stream_ptr(U.device))
+        *[_ptr(f) for f in F2idr], qv.data_ptr(), dv.data_ptr(),
+        Sg.data_ptr(), nz, ny, nx, cuda_lib.stream_ptr(U.device))
     cuda_lib.check(err, "grav_source")
     grav_source.launches += 1
+    grav_source.forms["Fp2ID" if Fp2IDr is None else "Fp2IDr"] += 1
     return Sg
 
 
 grav_source.launches = 0
+grav_source.forms = Counter()
 
 
-def final_update(U, Fp2, Sg, dtodx, sim: SimConfig, grid: GridConfig, axes):
-    """Steps 11-12: U - Sg - sum_a dtodx_a (F2_a(+1_a) - F2_a) on the
-    interior cells of `grid`; ghost cells keep U.  Sg: grav_source output
+def final_update(U, Fp2, Sg, dtodx, sim: SimConfig, grid: GridConfig, axes,
+                 dF2=None):
+    """Steps 11-12: U - Sg - sum_a dtodx_a dF2_a on the interior cells of
+    `grid`; ghost cells keep U.  dF2: {a: F2_a(+1_a) - F2_a} (flux_sweep_df's
+    flux differences), or None to take the differences of the step-9 fluxes
+    Fp2 here (Fp2 is not read when dF2 is given).  Sg: grav_source output
     or None.  Returns the new U.
 
     Kernel (CUDA tensors): csrc/ctu_mid.cu final_update_kernel, replacing
-    ops/pallas_ctu_mid.py:_final_kernel (without dF2); bound by its 30
-    field loads and 6 stores per cell."""
+    ops/pallas_ctu_mid.py:_final_kernel in both forms; bound by its 30
+    field loads and 6 stores per cell in either form."""
     if U.device.type != "cuda":
-        return final_update_plain(U, Fp2, Sg, dtodx, sim, grid, axes)
-    F = [Fp2[a] for a in range(3)]
-    _check("final_update", U, Sg, *F, sim=sim, axes=axes)
+        return final_update_plain(U, Fp2, Sg, dtodx, sim, grid, axes, dF2)
+    F = [Fp2[a] for a in range(3)] if dF2 is None else [None] * 3
+    dF = [None] * 3 if dF2 is None else [dF2[a] for a in range(3)]
+    _check("final_update", U, Sg, *F, *dF, sim=sim, axes=axes)
     if tuple(U.shape[1:]) != tuple(grid.padded_shape()) or any(
-            f.shape != U.shape for f in F):
-        raise ValueError("final_update: U and Fp2 must be [nv, "
+            f is not None and f.shape != U.shape for f in F + dF):
+        raise ValueError("final_update: U and Fp2 (or dF2) must be [nv, "
                          f"*{tuple(grid.padded_shape())}]")
     _, nz, ny, nx = U.shape
     Uout = torch.empty_like(U)
@@ -348,12 +372,14 @@ def final_update(U, Fp2, Sg, dtodx, sim: SimConfig, grid: GridConfig, axes):
     lo = [grid.lo(a) for a in range(3)]
     hi = [grid.hi(a) for a in range(3)]
     err = _fn("final_update", U)(
-        U.data_ptr(), _ptr(Sg), *[f.data_ptr() for f in F], dv.data_ptr(),
-        Uout.data_ptr(), nz, ny, nx, sim.nscalars, *lo, *hi,
+        U.data_ptr(), _ptr(Sg), *[_ptr(f) for f in F], *[_ptr(f) for f in dF],
+        dv.data_ptr(), Uout.data_ptr(), nz, ny, nx, sim.nscalars, *lo, *hi,
         cuda_lib.stream_ptr(U.device))
     cuda_lib.check(err, "final_update")
     final_update.launches += 1
+    final_update.forms["F2" if dF2 is None else "dF2"] += 1
     return Uout
 
 
 final_update.launches = 0
+final_update.forms = Counter()

@@ -3,14 +3,20 @@
 
   sweep_lrflux   — CTU steps 1-3 along one axis (integrate_3d_ctu.c:202-524):
                    cons->prim, characteristic PLM with CTU tracing, the dt/2
-                   static-gravity kick, prim->cons and the Roe flux.  Returns
-                   (Ul, Ur, F) in physical variable order: the
+                   static-gravity kick, prim->cons and the Riemann flux.
+                   Returns (Ul, Ur, F) in physical variable order: the
                    ``with_df=False`` form of ``pallas_hydro.sweep_lrflux``.
   sweep_lrflux_df — the ``with_df=True`` form: (Ul, Ur, F_ID, dF) with F_ID
                    the density flux and dF = F(+1_axis) - F, the flux
                    difference the middle-phase kernels (ctu_mid_kernels) read.
   flux_pointwise — step 9 (:2292-2438): cons->prim of the transverse-corrected
-                   states and the Roe flux with the H-correction etah.
+                   states and the Riemann flux with the H-correction etah.
+  flux_sweep_df  — step 9 without the H-correction, emitting the flux
+                   difference: (dF2, F2_ID, F2_IDr), as
+                   ``pallas_hydro.flux_sweep_df`` documents it.
+
+The Riemann solver is ``sim.flux``: Roe (with its HLLE fallback and etah)
+or HLLC (which ignores etah, as the reference's does).
 
 Each wrapper takes the kernel for a CUDA tensor (csrc/hydro.cu; it raises on
 what the kernel does not take) and the plain version for a CPU tensor.  The
@@ -19,10 +25,13 @@ the port; the kernels repeat their formulas in csrc/hydro.cuh.  Both wrap
 the stencil at the array edge (torch.roll / modular indexing), which touches
 only ghost cells that no interior update reads.
 
-``<wrapper>.launches`` counts the kernel launches of each wrapper.
+``<wrapper>.launches`` counts the kernel launches of each wrapper and
+``<wrapper>.forms`` the launches per solver (``forms["hllc"]``).
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
@@ -34,11 +43,15 @@ from ..integrators.sweep import vperm_from_sweep, vperm_to_sweep
 from . import reconstruct, riemann
 
 
+# the solver argument of the kernels (csrc/hydro.cuh FluxKind)
+FLUX_KIND = {"roe": 0, "hllc": 1}
+
+
 def supported(sim: SimConfig) -> bool:
     """What the kernels implement: 3D adiabatic hydro, characteristic PLM
-    with CTU tracing, Roe fluxes, at most one passive scalar."""
+    with CTU tracing, Roe or HLLC fluxes, at most one passive scalar."""
     return (sim.gas == "hydro" and sim.adiabatic and sim.order == "2"
-            and sim.flux == "roe" and sim.integrator == "ctu"
+            and sim.flux in FLUX_KIND and sim.integrator == "ctu"
             and not sim.special_relativity and sim.nscalars in (0, 1))
 
 
@@ -84,6 +97,13 @@ def flux_pointwise_plain(Ulc, Urc, etah, sim: SimConfig, axis: int):
     return vperm_from_sweep(F, axis, sim)
 
 
+def flux_sweep_df_plain(Ulc, Urc, sim: SimConfig, axis: int):
+    """Plain PyTorch version of ``flux_sweep_df`` (same signature)."""
+    F = flux_pointwise_plain(Ulc, Urc, None, sim, axis)
+    Fn = torch.roll(F, -1, dims=3 - axis)       # F2(+1_axis)
+    return Fn - F, F[ID].clone(), Fn[ID].clone()
+
+
 # ------------------------------------------------------------- kernel wrappers
 
 def _check_fields(name, ref, fields):
@@ -107,8 +127,8 @@ def _check_fields(name, ref, fields):
 def _check_cuda_args(sim, U, fields, name):
     if not supported(sim):
         raise NotImplementedError(f"{name}: the CUDA kernel covers 3D "
-                                  "adiabatic hydro, PLM order 2, Roe, "
-                                  "nscalars <= 1")
+                                  "adiabatic hydro, PLM order 2, Roe or "
+                                  "HLLC, nscalars <= 1")
     if U.dim() != 4 or U.shape[0] != sim.ncons:
         raise ValueError(f"{name}: U shape {tuple(U.shape)}, expected "
                          f"[{sim.ncons}, NZ, NY, NX]")
@@ -133,7 +153,7 @@ def sweep_lrflux(U, phic, phif_a, dtodx, sim: SimConfig, axis: int):
 
     Kernel (CUDA tensors): csrc/hydro.cu sweep_lrflux_kernel, replacing
     ops/pallas_hydro.py:_sweep_kernel.  One thread per interface; it is
-    bound by the PLM/Roe arithmetic in float64 and close to the memory
+    bound by the PLM/Riemann arithmetic in float64 and close to the memory
     bound in float32 (see the source note there).
     """
     if U.device.type != "cuda":
@@ -149,14 +169,16 @@ def sweep_lrflux(U, phic, phif_a, dtodx, sim: SimConfig, axis: int):
     err = fn(U.data_ptr(), None if phic is None else phic.data_ptr(),
              None if phif_a is None else phif_a.data_ptr(), dt_t.data_ptr(),
              Ul.data_ptr(), Ur.data_ptr(), F.data_ptr(), nz, ny, nx, axis,
-             sim.nscalars, sim.gamma, sim.gamma_1,
+             sim.nscalars, FLUX_KIND[sim.flux], sim.gamma, sim.gamma_1,
              cuda_lib.stream_ptr(U.device))
     cuda_lib.check(err, "sweep_lrflux")
     sweep_lrflux.launches += 1
+    sweep_lrflux.forms[sim.flux] += 1
     return Ul, Ur, F
 
 
 sweep_lrflux.launches = 0
+sweep_lrflux.forms = Counter()
 
 
 def sweep_lrflux_df(U, phic, phif_a, dtodx, sim: SimConfig, axis: int):
@@ -168,7 +190,7 @@ def sweep_lrflux_df(U, phic, phif_a, dtodx, sim: SimConfig, axis: int):
 
     Kernel (CUDA tensors): csrc/hydro.cu sweep_lrflux_df_kernel, replacing
     ops/pallas_hydro.py:_sweep_kernel with with_df=True.  Each thread solves
-    its interface and the next one (three PLM cells, two Roe solves), so F
+    its interface and the next one (three PLM cells, two Riemann solves), so F
     never goes to memory; dF is bitwise the plain roll-and-subtract in
     float64.
     """
@@ -187,14 +209,16 @@ def sweep_lrflux_df(U, phic, phif_a, dtodx, sim: SimConfig, axis: int):
     err = fn(U.data_ptr(), None if phic is None else phic.data_ptr(),
              None if phif_a is None else phif_a.data_ptr(), dt_t.data_ptr(),
              Ul.data_ptr(), Ur.data_ptr(), Fid.data_ptr(), dF.data_ptr(),
-             nz, ny, nx, axis, sim.nscalars, sim.gamma, sim.gamma_1,
-             cuda_lib.stream_ptr(U.device))
+             nz, ny, nx, axis, sim.nscalars, FLUX_KIND[sim.flux], sim.gamma,
+             sim.gamma_1, cuda_lib.stream_ptr(U.device))
     cuda_lib.check(err, "sweep_lrflux_df")
     sweep_lrflux_df.launches += 1
+    sweep_lrflux_df.forms[sim.flux] += 1
     return Ul, Ur, Fid, dF
 
 
 sweep_lrflux_df.launches = 0
+sweep_lrflux_df.forms = Counter()
 
 
 def flux_pointwise(Ulc, Urc, etah, sim: SimConfig, axis: int):
@@ -220,11 +244,56 @@ def flux_pointwise(Ulc, Urc, etah, sim: SimConfig, axis: int):
           else cuda_lib.lib().ath_flux_pointwise_f32)
     err = fn(Ulc.data_ptr(), Urc.data_ptr(),
              None if etah is None else etah.data_ptr(), F.data_ptr(),
-             nz, ny, nx, axis, sim.nscalars, sim.gamma, sim.gamma_1,
-             cuda_lib.stream_ptr(Ulc.device))
+             nz, ny, nx, axis, sim.nscalars, FLUX_KIND[sim.flux], sim.gamma,
+             sim.gamma_1, cuda_lib.stream_ptr(Ulc.device))
     cuda_lib.check(err, "flux_pointwise")
     flux_pointwise.launches += 1
+    flux_pointwise.forms[sim.flux] += 1
     return F
 
 
 flux_pointwise.launches = 0
+flux_pointwise.forms = Counter()
+
+
+def flux_sweep_df(Ulc, Urc, sim: SimConfig, axis: int):
+    """Step 9 without the H-correction, emitting the flux difference.
+
+    Ulc, Urc: [nv, NZ, NY, NX] physical order, the transverse-corrected
+    states of `axis`.  Returns (dF2, F2_ID, F2_IDr): dF2[..., f] =
+    F2[..., f+1] - F2[..., f] along `axis` (wrapping) [nv, NZ, NY, NX],
+    F2_ID the density flux and F2_IDr = F2_ID(+1_axis), each [NZ, NY, NX];
+    F2 is ``flux_pointwise`` without etah.
+
+    Kernel (CUDA tensors): csrc/hydro.cu flux_sweep_df_kernel, replacing
+    ops/pallas_hydro.py:_fluxdf_kernel.  Each thread solves interfaces f and
+    f+1, so F2 never goes to memory and dF2 is bitwise the roll-and-subtract
+    of flux_pointwise_kernel's F2; bound by its 12 field loads and 8 stores
+    per interface, the next interface's loads mostly cache hits.
+    """
+    if Ulc.device.type != "cuda":
+        return flux_sweep_df_plain(Ulc, Urc, sim, axis)
+    _check_cuda_args(sim, Ulc, (Urc,), "flux_sweep_df")
+    if Urc.shape != Ulc.shape:
+        raise ValueError("flux_sweep_df: Urc must match Ulc")
+    if axis not in (0, 1, 2):
+        raise ValueError(f"flux_sweep_df: axis {axis}")
+    nv, nz, ny, nx = Ulc.shape
+    dF2 = torch.empty_like(Ulc)
+    Fid = torch.empty_like(Ulc[0])
+    Fidr = torch.empty_like(Ulc[0])
+    fn = (cuda_lib.lib().ath_flux_sweep_df_f64
+          if Ulc.dtype == torch.float64
+          else cuda_lib.lib().ath_flux_sweep_df_f32)
+    err = fn(Ulc.data_ptr(), Urc.data_ptr(), dF2.data_ptr(), Fid.data_ptr(),
+             Fidr.data_ptr(), nz, ny, nx, axis, sim.nscalars,
+             FLUX_KIND[sim.flux], sim.gamma, sim.gamma_1,
+             cuda_lib.stream_ptr(Ulc.device))
+    cuda_lib.check(err, "flux_sweep_df")
+    flux_sweep_df.launches += 1
+    flux_sweep_df.forms[sim.flux] += 1
+    return dF2, Fid, Fidr
+
+
+flux_sweep_df.launches = 0
+flux_sweep_df.forms = Counter()

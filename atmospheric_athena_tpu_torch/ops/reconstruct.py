@@ -1,6 +1,7 @@
 """Second-order (PLM) characteristic reconstruction with CTU tracing
 (``atmospheric_athena_tpu/ops/reconstruct.py``, order "2" on Cartesian
-grids; reference lr_states_plm.c:62-374).
+grids; reference lr_states_plm.c:62-374), in both tracing branches: the
+non-HLL one (Roe) and the HLL-family one (HLLC).
 
 Layout: stacked 1D-slice primitives [nvar1d, ...] with the sweep along
 dimension `axis` of each field (a negative dim of the trailing axes).  Every
@@ -87,6 +88,8 @@ def plm(W, Bx, dtodx, sim: SimConfig, axis: int):
         Wlv[n], Wrv[n] = lv, rv
 
     dW = [r - l for r, l in zip(Wrv, Wlv)]
+    if sim.flux in HLL_FLUXES:
+        return _trace_hll(Wlv, Wrv, dW, ev, rem, lem, dtodx, sim.nwave)
     return _trace_ctu(Wc, Wlv, Wrv, dW, ev, rem, lem, dtodx, sim.nwave, sim)
 
 
@@ -134,13 +137,35 @@ def _trace_ctu(Wc, Wlv, Wrv, dW, ev, rem, lem, dtodx, nw, sim):
     return torch.stack(Wminus), torch.stack(Wplus)
 
 
+def _trace_hll(Wlv, Wrv, dW, ev, rem, lem, dtodx, nw):
+    """CTU tracing for HLL-family fluxes (lr_states_plm.c:257-294): subtract
+    each wave moving toward the interface.  Scalars keep their untraced
+    Wrv/Wlv, as in the JAX package (the reference leaves them unset)."""
+    Wplus = list(Wrv)
+    Wminus = list(Wlv)
+    dWw = dW[:nw]
+    zero = torch.zeros_like(Wrv[0])
+    for n in range(nw):
+        qx = 0.5 * dtodx * ev[n]
+        qa = eigen.lmul([lem[n]], [qx * d for d in dWw])[0]
+        qa_p = torch.where(ev[n] > 0.0, qa, zero)
+        qa_m = torch.where(ev[n] < 0.0, qa, zero)
+        rcol = eigen.column(rem, n)
+        for m in range(nw):
+            c = rcol[m]
+            if isinstance(c, float) and c == 0.0:
+                continue
+            Wplus[m] = Wplus[m] - qa_p * c
+            Wminus[m] = Wminus[m] - qa_m * c
+    return torch.stack(Wminus), torch.stack(Wplus)
+
+
 def lr_states(W, Bx, dtodx, sim: SimConfig, axis: int = -1):
     """Dispatch on sim.order (reconstruction/prototypes.h:40-46); `axis` is
     the sweep dimension within each field of W."""
-    if sim.order != "2" or sim.integrator != "ctu" \
-            or sim.flux in HLL_FLUXES:
+    if sim.order != "2" or sim.integrator != "ctu":
         raise NotImplementedError(
-            f"reconstruction order={sim.order} integrator={sim.integrator} "
-            f"flux={sim.flux}: only characteristic PLM with CTU tracing for "
-            "non-HLL fluxes is ported (ROADMAP A11)")
+            f"reconstruction order={sim.order} integrator={sim.integrator}: "
+            "only characteristic PLM with CTU tracing is ported (ROADMAP "
+            "A11)")
     return plm(W, Bx, dtodx, sim, axis)

@@ -1,6 +1,6 @@
 """Riemann solvers on stacked interface states, adiabatic hydro
 (``atmospheric_athena_tpu/ops/riemann.py``: ``roe`` with its HLLE fallback
-and the H-correction, and the ``fluxes`` dispatcher for it).
+and the H-correction, ``hllc``, and the ``fluxes`` dispatcher for them).
 
 Stacked tensors [nvar1d, ...] with nvar1d = NWAVE + nscalars, so one call
 computes every interface of a sweep.  Where the reference early-returns per
@@ -142,7 +142,52 @@ def roe(Ul, Ur, Wl, Wr, Bxi, sim: SimConfig, etah=None):
     return torch.where(use_hlle, _hlle_core(Ul, Ur, Wl, Wr, sim, ev), F)
 
 
-SOLVERS = {"roe": roe}
+def hllc(Ul, Ur, Wl, Wr, Bxi, sim: SimConfig, etah=None):
+    """HLLC flux, adiabatic hydro (hllc.c:32-254): the HLLE bounds from the
+    Roe eigenvalues and the sound speeds, plus the restored contact wave
+    with pressure cp and speed am.  `etah` is ignored, as in the reference
+    (the H-correction enters only the Roe solver)."""
+    _check(sim)
+    avg = _roe_averages(Ul, Ur, Wl, Wr, sim)
+    ev, _, _ = eigen.esys_roe_adb_hyd(avg["v1"], avg["v2"], avg["v3"],
+                                      avg["hroe"], sim, vectors=False)
+    cfl = torch.sqrt(sim.gamma * Wl[4] / Wl[0])
+    cfr = torch.sqrt(sim.gamma * Wr[4] / Wr[0])
+    ar = torch.maximum(ev[sim.nwave - 1], Wr[1] + cfr)
+    al = torch.minimum(ev[0], Wl[1] - cfl)
+    bp = torch.clamp_min(ar, 0.0)
+    bm = torch.clamp_max(al, 0.0)
+
+    # contact speed and pressure (hllc.c:127-146)
+    tl = Wl[4] + (Wl[1] - al) * Ul[1]
+    tr = Wr[4] + (Wr[1] - ar) * Ur[1]
+    dl = Ul[1] - Ul[0] * al
+    dr = -(Ur[1] - Ur[0] * ar)
+    tmp = 1.0 / (dl + dr)
+    am = (tl - tr) * tmp
+    cp = torch.clamp_min((dl * tr + dr * tl) * tmp, 0.0)
+
+    Fl, Fr = _lr_fluxes(Ul, Ur, Wl, Wr, sim, bm=bm, bp=bp)
+
+    # flux weights (hllc.c:183-196)
+    pos = am >= 0.0
+    zero = torch.zeros_like(am)
+    sl = torch.where(pos, am / (am - bm), zero)
+    sr = torch.where(pos, zero, -am / (bp - am))
+    sm = torch.where(pos, -bm / (am - bm), bp / (bp - am))
+
+    nw = sim.nwave
+    F = [sl * Fl[n] + sr * Fr[n] for n in range(nw)]
+    F[1] = F[1] + sm * cp
+    F[4] = F[4] + sm * cp * am
+    # passive scalars upwinded on the density flux sign
+    for n in range(sim.nscalars):
+        F.append(torch.where(F[0] >= 0.0, F[0] * Wl[nw + n],
+                             F[0] * Wr[nw + n]))
+    return torch.stack(F)
+
+
+SOLVERS = {"roe": roe, "hllc": hllc}
 
 
 def fluxes(Ul, Ur, Wl, Wr, Bxi, sim: SimConfig, etah=None):
@@ -151,5 +196,5 @@ def fluxes(Ul, Ur, Wl, Wr, Bxi, sim: SimConfig, etah=None):
         solver = SOLVERS[sim.flux]
     except KeyError:
         raise NotImplementedError(
-            f"flux={sim.flux}: only roe is ported (ROADMAP A11)")
+            f"flux={sim.flux}: only roe and hllc are ported (ROADMAP A11)")
     return solver(Ul, Ur, Wl, Wr, Bxi, sim, etah=etah)

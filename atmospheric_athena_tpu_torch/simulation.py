@@ -1,5 +1,6 @@
 """Driver: setup + main loop (reference: src/main.c:90-772), for the
-configuration the port covers: the ioniz_sphere production step.
+configurations the port covers: the ioniz_sphere production step and 3D
+adiabatic hydro problems such as testsedov.
 
   - ``Simulation.from_file`` / ``from_par``: par parsing, config build,
     problem init, initial ghost fill, initial dt (main.c steps 1-9).

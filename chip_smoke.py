@@ -7,8 +7,13 @@ configuration (ionradiation/batch_iters=25, the one-pass ghost fill, the
 middle-phase CTU hydro) — through the entry points a user calls, and the
 K=1 radiation loop on both CTU hydro paths: the middle-phase path (the
 default) and the path that ATHENA_TPU_PALLAS_MID=0 selects (plain middle
-phases, whole-flux sweeps, pointwise step-9 flux).  It checks each
-hand-written kernel against its plain PyTorch version on the card:
+phases, whole-flux sweeps, pointwise step-9 flux); then the CTU route
+without the H-correction (step 9 by B12, flux_sweep_df) in the bench
+configuration and in the testsedov blast (HLLC).  It checks each
+hand-written kernel against its plain PyTorch version on the card; a
+kernel with several forms (the solver, Roe or HLLC; the operand forms of
+grav_source and final_update) is checked and counted per form,
+"name[form]":
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
   1. build the CUDA kernels from csrc/ (nvcc, one process per source) and
@@ -21,35 +26,44 @@ hand-written kernel against its plain PyTorch version on the card:
      at 256^3, with CUDA-event times (median) of both, the bound (bytes at
      the HBM rate or operations at the float32 rate, whichever is larger)
      and the library call where one exists (F.pad for the ghost fill); the
-     ghost fill must equal its plain version bitwise, ghosts included;
-     then the NaN probe at 16^3 float64: one interior cell's E, and in a
-     second case d, set to NaN, and every kernel's NaN cells and NaN
-     reductions equal to its plain version's;
+     ghost fill must equal its plain version bitwise, ghosts included, and
+     B12's dF2, F2_ID and F2_IDr the roll-and-subtract of B13's flux on
+     the same states bitwise; then the NaN probe at 16^3 float64: one
+     interior cell's E, and in a second case d, set to NaN, and every
+     kernel's NaN cells and NaN reductions equal to its plain version's;
   3. the 64^3 golden (tests/golden/athinput.isph64, float64, 10 cycles)
      through Simulation.from_file on the card, on each hydro path with the
      ghost-fill kernel and once on the middle-phase path with
      ATHENA_TPU_PALLAS_BC=0: the (time, dt) trajectory to rel 1e-6, the
      state to 1e-10 x each field's max, and the launch counter of every
      kernel of that path > 0 (and 0 for the kernels it must not run); then
-     the batch path (batch_iters=25) against the K=1 path at 64^3 float64,
-     3 cycles from the state after one K=1 cycle, to 3e-3 of each field's
-     max and time to rel 1e-6;
+     the testsedov golden (tests/golden/athinput.testsedov, HLLC, float64,
+     20 cycles) on the middle-phase path and on MID=0, with the tolerances
+     tests/test_problems_r5.py holds the JAX package to; then the batch
+     path (batch_iters=25) against the K=1 path at 64^3 float64, 3 cycles
+     from the state after one K=1 cycle, to 3e-3 of each field's max and
+     time to rel 1e-6;
   4. full width, the bench configuration: 256^3 float32, maxiter=50,
      batch_iters=25, 3 cycles through Simulation.from_file (no device
      argument: the card is the default) + run(), then 1 cycle through the
      CLI (__main__.main); step ms, zone-cycles/s, radiation ms per substep,
      peak memory, finite fields and dt > 0; then 1 cycle of the K=1 loop on
-     the middle-phase path and 1 on the ATHENA_TPU_PALLAS_MID=0 path.
+     the middle-phase path and 1 on the ATHENA_TPU_PALLAS_MID=0 path; 1
+     cycle of the bench configuration with h_correction=False; testsedov
+     at 256^3 float32 with cubic cells, 5 cycles on the middle-phase path
+     and 1 on MID=0, through Simulation.from_file without a device.
 
 It ends with a JSON line of the kernels (launches from the phase-4 run of
-each kernel's path: the batch run, else the K=1 runs), the nvidia-smi line
-before it, and the final line {"ok": true, "device": {...}}.  Any failed
-check raises, so the exit code is non-zero and no result line is printed.
+each kernel's path: the batch run, else the K=1 runs, the run without the
+H-correction, the testsedov runs), the nvidia-smi line before it, and the
+final line {"ok": true, "device": {...}}.  Any failed check raises, so
+the exit code is non-zero and no result line is printed.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -60,6 +74,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 DECK = os.path.join(HERE, "tests", "golden", "athinput.isph64")
 GOLD = os.path.join(HERE, "tests", "golden", "ioniz_sphere_64_10cycles.npz")
+SEDOV_DECK = os.path.join(HERE, "tests", "golden", "athinput.testsedov")
+SEDOV_GOLD = os.path.join(HERE, "tests", "golden", "testsedov_20cycles.npz")
 
 # (time, dt) after each of the 10 cycles of the reference C code on the
 # isph64 deck (the trajectory tests/test_ioniz_sphere.py holds the JAX
@@ -102,13 +118,20 @@ FP32_OPS_PER_S = 67e12
 # on the padded grid or on the interior cells (the radiation kernels)
 FIELDS_MOVED = {
     "sweep_lrflux": (26, "padded"),        # U, phic, phif -> Ul, Ur, F
+    "sweep_lrflux[hllc]": (26, "padded"),
     "sweep_lrflux_df": (27, "padded"),     # U, phic, phif -> Ul, Ur, F_ID, dF
+    "sweep_lrflux_df[hllc]": (27, "padded"),
     "flux_pointwise": (19, "padded"),      # Ulc, Urc, etah -> F2
+    "flux_pointwise[hllc]": (18, "padded"),    # Ulc, Urc -> F2
+    "flux_sweep_df": (20, "padded"),       # Ulc, Urc -> dF2, F2_ID, F2_IDr
+    "flux_sweep_df[hllc]": (20, "padded"),
     "gcross": (14, "padded"),              # d, phic, 3 phif, 3 F_ID -> G
     "transverse_correct": (41, "padded"),  # Ulp, Urp, 2 dF, 2 G -> Ulc, Urc, eta
     "flux_corrected": (21, "padded"),      # Ulc, Urc, 3 eta -> F2
     "grav_source": (17, "padded"),         # d, phic, 3 phif, 3 F_ID, 3 F2_ID -> Sg
+    "grav_source[Fp2IDr]": (20, "padded"),     # ... and 3 F2_IDr -> Sg
     "final_update": (36, "padded"),        # U, Sg, 3 F2 -> U
+    "final_update[dF2]": (36, "padded"),   # U, Sg, 3 dF2 -> U
     "rad_rates": (10, "interior"),         # s0, E, code, d, Msq -> 5 fields
     "rad_update": (13, "interior"),        # 11 fields -> E, s0
     "rad_batch": (13, "interior"),         # s0, E, code, d, 3 M, e_init,
@@ -118,13 +141,28 @@ FIELDS_MOVED = {
 }
 
 KERNELS = [
-    # name, route, source, replaces
+    # name, route, source, replaces; "wrapper[form]" is the form of a
+    # wrapper's kernel counted in wrapper.forms[form] (FORMS)
     ("sweep_lrflux", "cuda", "atmospheric_athena_tpu_torch/csrc/hydro.cu",
+     "atmospheric_athena_tpu/ops/pallas_hydro.py:118"),
+    ("sweep_lrflux[hllc]", "cuda",
+     "atmospheric_athena_tpu_torch/csrc/hydro.cu",
      "atmospheric_athena_tpu/ops/pallas_hydro.py:118"),
     ("sweep_lrflux_df", "cuda", "atmospheric_athena_tpu_torch/csrc/hydro.cu",
      "atmospheric_athena_tpu/ops/pallas_hydro.py:118"),
+    ("sweep_lrflux_df[hllc]", "cuda",
+     "atmospheric_athena_tpu_torch/csrc/hydro.cu",
+     "atmospheric_athena_tpu/ops/pallas_hydro.py:118"),
     ("flux_pointwise", "cuda", "atmospheric_athena_tpu_torch/csrc/hydro.cu",
      "atmospheric_athena_tpu/ops/pallas_hydro.py:250"),
+    ("flux_pointwise[hllc]", "cuda",
+     "atmospheric_athena_tpu_torch/csrc/hydro.cu",
+     "atmospheric_athena_tpu/ops/pallas_hydro.py:250"),
+    ("flux_sweep_df", "cuda", "atmospheric_athena_tpu_torch/csrc/hydro.cu",
+     "atmospheric_athena_tpu/ops/pallas_hydro.py:302"),
+    ("flux_sweep_df[hllc]", "cuda",
+     "atmospheric_athena_tpu_torch/csrc/hydro.cu",
+     "atmospheric_athena_tpu/ops/pallas_hydro.py:302"),
     ("gcross", "cuda", "atmospheric_athena_tpu_torch/csrc/ctu_mid.cu",
      "atmospheric_athena_tpu/ops/pallas_ctu_mid.py:254"),
     ("transverse_correct", "cuda",
@@ -134,7 +172,13 @@ KERNELS = [
      "atmospheric_athena_tpu/ops/pallas_ctu_mid.py:518"),
     ("grav_source", "cuda", "atmospheric_athena_tpu_torch/csrc/ctu_mid.cu",
      "atmospheric_athena_tpu/ops/pallas_ctu_mid.py:304"),
+    ("grav_source[Fp2IDr]", "cuda",
+     "atmospheric_athena_tpu_torch/csrc/ctu_mid.cu",
+     "atmospheric_athena_tpu/ops/pallas_ctu_mid.py:304"),
     ("final_update", "cuda", "atmospheric_athena_tpu_torch/csrc/ctu_mid.cu",
+     "atmospheric_athena_tpu/ops/pallas_ctu_mid.py:593"),
+    ("final_update[dF2]", "cuda",
+     "atmospheric_athena_tpu_torch/csrc/ctu_mid.cu",
      "atmospheric_athena_tpu/ops/pallas_ctu_mid.py:593"),
     ("rad_rates", "cuda", "atmospheric_athena_tpu_torch/csrc/rad.cu",
      "atmospheric_athena_tpu/ionrad/pallas_rad.py:184"),
@@ -149,10 +193,17 @@ KERNELS = [
      "atmospheric_athena_tpu/bvals.py:152"),
 ]
 
+# the form of a kernel entry that names none: the wrappers with several
+# forms count each in wrapper.forms (the solver, or the operand form)
+FORMS = {"sweep_lrflux": "roe", "sweep_lrflux_df": "roe",
+         "flux_pointwise": "roe", "flux_sweep_df": "roe",
+         "grav_source": "Fp2ID", "final_update": "F2"}
+
 # the __global__ function of each CUDA kernel, for ptxas's register report
 SYMBOLS = {"sweep_lrflux": "sweep_lrflux_kernel",
            "sweep_lrflux_df": "sweep_lrflux_df_kernel",
            "flux_pointwise": "flux_pointwise_kernel",
+           "flux_sweep_df": "flux_sweep_df_kernel",
            "gcross": "gcross_kernel", "transverse_correct": "transverse_kernel",
            "flux_corrected": "flux_corrected_kernel",
            "grav_source": "grav_source_kernel",
@@ -168,13 +219,31 @@ EXACT = {"bc_fill"}
 MID = ["sweep_lrflux_df", "gcross", "transverse_correct", "flux_corrected",
        "grav_source", "final_update"]
 K1 = ["rad_rates", "rad_update", "max_dti_hydro", "bc_fill"]
+# the route without the H-correction (B12) and the HLLC forms
+NOHC = ["flux_sweep_df", "grav_source[Fp2IDr]", "final_update[dF2]"]
+HLLC = ["sweep_lrflux[hllc]", "sweep_lrflux_df[hllc]", "flux_pointwise[hllc]",
+        "flux_sweep_df[hllc]"]
+# the testsedov paths (HLLC, no gravity, periodic x2/x3: the plain fill)
+SEDOV_MID = ["sweep_lrflux_df[hllc]", "transverse_correct",
+             "flux_sweep_df[hllc]", "final_update[dF2]", "max_dti_hydro"]
+SEDOV_MID0 = ["sweep_lrflux[hllc]", "flux_pointwise[hllc]", "max_dti_hydro"]
 PATHS = {
     "batch": (MID + ["rad_batch", "bc_fill", "rad_rates", "max_dti_hydro"],
-              ["sweep_lrflux", "flux_pointwise"]),
-    "mid": (MID + K1, ["sweep_lrflux", "flux_pointwise", "rad_batch"]),
-    "MID=0": (["sweep_lrflux", "flux_pointwise"] + K1, MID + ["rad_batch"]),
+              ["sweep_lrflux", "flux_pointwise"] + NOHC + HLLC),
+    "mid": (MID + K1, ["sweep_lrflux", "flux_pointwise", "rad_batch"] + NOHC
+            + HLLC),
+    "MID=0": (["sweep_lrflux", "flux_pointwise"] + K1,
+              MID + ["rad_batch"] + NOHC + HLLC),
     "mid BC=0": (MID + K1[:3], ["sweep_lrflux", "flux_pointwise",
-                                "rad_batch", "bc_fill"]),
+                                "rad_batch", "bc_fill"] + NOHC + HLLC),
+    "nohcorr": (["sweep_lrflux_df", "gcross", "transverse_correct"] + NOHC
+                + ["rad_batch", "bc_fill", "rad_rates", "max_dti_hydro"],
+                ["flux_corrected", "grav_source", "final_update",
+                 "sweep_lrflux", "flux_pointwise"] + HLLC),
+    "sedov": (SEDOV_MID,
+              [k[0] for k in KERNELS if k[0] not in SEDOV_MID]),
+    "sedov MID=0": (SEDOV_MID0,
+                    [k[0] for k in KERNELS if k[0] not in SEDOV_MID0]),
 }
 
 AXES = (0, 1, 2)
@@ -194,15 +263,17 @@ def smi_line():
 
 @contextlib.contextmanager
 def path_env(path):
-    """Select the path ("batch", "mid", "MID=0" or "mid BC=0") through the
+    """Select the hydro path of `path` (a key of PATHS: "MID=0" in it turns
+    the middle-phase kernels off, "BC=0" the ghost-fill kernel) through the
     variables the port reads: ATHENA_TPU_PALLAS_MID (ctu_mid_kernels.
     supported) and ATHENA_TPU_PALLAS_BC (bvals.kernel_enabled).  The batch
-    path's radiation comes from the deck (ionradiation/batch_iters)."""
+    path's radiation comes from the deck (ionradiation/batch_iters), the
+    route without the H-correction from the caller's h_correction."""
     names = ("ATHENA_TPU_PALLAS_MID", "ATHENA_TPU_PALLAS_BC")
     old = {k: os.environ.pop(k, None) for k in names}
-    if path == "MID=0":
+    if "MID=0" in path:
         os.environ["ATHENA_TPU_PALLAS_MID"] = "0"
-    elif path == "mid BC=0":
+    if "BC=0" in path:
         os.environ["ATHENA_TPU_PALLAS_BC"] = "0"
     try:
         yield
@@ -221,6 +292,7 @@ def wrappers():
     return {"sweep_lrflux": hydro_kernels.sweep_lrflux,
             "sweep_lrflux_df": hydro_kernels.sweep_lrflux_df,
             "flux_pointwise": hydro_kernels.flux_pointwise,
+            "flux_sweep_df": hydro_kernels.flux_sweep_df,
             "gcross": mid.gcross,
             "transverse_correct": mid.transverse_correct,
             "flux_corrected": mid.flux_corrected,
@@ -233,13 +305,31 @@ def wrappers():
             "bc_fill": bvals.bc_fill}
 
 
+def base_name(name):
+    """The wrapper of a kernel entry: "grav_source[Fp2IDr]" -> grav_source."""
+    return name.split("[")[0]
+
+
 def reset_counts():
     for w in wrappers().values():
         w.launches = 0
+        if hasattr(w, "forms"):
+            w.forms.clear()
 
 
 def read_counts():
-    return {k: w.launches for k, w in wrappers().items()}
+    """Launches of each kernel entry: the form's count for a wrapper with
+    forms, else the wrapper's count."""
+    w = wrappers()
+    out = {}
+    for name, *_ in KERNELS:
+        fn = w[base_name(name)]
+        if hasattr(fn, "forms"):
+            form = name[len(base_name(name)) + 1:-1] or FORMS[name]
+            out[name] = fn.forms[form]
+        else:
+            out[name] = fn.launches
+    return out
 
 
 def check_counts(label, counts, path):
@@ -404,7 +494,9 @@ def compare(name, got, ref, tol, grid=None, nan_probe=False):
 
 def mid_inputs(U, phic, phif, dtodx, sim, grid):
     """The middle-phase kernels' operands: one chain through the plain
-    versions from U, as the mid path of ctu3d.step runs it."""
+    versions from U, as the mid path of ctu3d.step runs it, and its step 9
+    and after without the H-correction (B12, then the Fp2IDr and dF2
+    forms)."""
     from atmospheric_athena_tpu_torch.ops import ctu_mid_kernels as mid
     from atmospheric_athena_tpu_torch.ops import hydro_kernels
     dtodx = dict(enumerate(dtodx))
@@ -420,8 +512,17 @@ def mid_inputs(U, phic, phif, dtodx, sim, grid):
     F2 = {a: mid.flux_corrected_plain(tr[a][0], tr[a][1], etaS, sim, a,
                                       AXES) for a in AXES}
     Sg = mid.grav_source_plain(U, FpID, F2, phic, phif, q, dtodx, AXES)
+    simn = dataclasses.replace(sim, h_correction=False)
+    b12 = [hydro_kernels.flux_sweep_df_plain(tr[a][0], tr[a][1], simn, a)
+           for a in AXES]
+    dF2 = {a: b12[a][0] for a in AXES}
+    F2ID = {a: b12[a][1] for a in AXES}
+    F2IDr = {a: b12[a][2] for a in AXES}
+    Sg2 = mid.grav_source_plain(U, FpID, F2ID, phic, phif, q, dtodx, AXES,
+                                Fp2IDr=F2IDr)
     return dict(q=q, dtodx=dtodx, sw=sw, FpID=FpID, dFp=dFp, G=G, tr=tr,
-                etaS=etaS, F2=F2, Sg=Sg)
+                etaS=etaS, F2=F2, Sg=Sg, dF2=dF2, F2ID=F2ID, F2IDr=F2IDr,
+                Sg2=Sg2)
 
 
 def kernel_inputs(sim_obj, dt_rad=None):
@@ -482,7 +583,8 @@ def kernel_inputs(sim_obj, dt_rad=None):
 def kernel_calls(s, inp):
     """(name, wrapper, plain version, arguments) of every kernel
     comparison on `inp` (kernel_inputs); the per-axis kernels once per
-    axis."""
+    axis.  The HLLC forms and B12 take the deck's sim with flux="hllc"
+    and/or h_correction=False."""
     from atmospheric_athena_tpu_torch import bvals
     from atmospheric_athena_tpu_torch.ionrad import rad_kernels as rk
     from atmospheric_athena_tpu_torch.ops import ctu_mid_kernels as mid
@@ -523,7 +625,49 @@ def kernel_calls(s, inp):
               ("max_dti_hydro", uk.max_dti_hydro, uk.max_dti_hydro_plain,
                (U, sim, grid)),
               ("bc_fill", bvals.bc_fill, bvals.bc_fill_plain, (U, grid))]
+    simn = dataclasses.replace(sim, h_correction=False)
+    simh = dataclasses.replace(simn, flux="hllc")
+    for a in AXES:
+        args = (U, phic, phif[a], dtodx[a], simh, a)
+        Ulc, Urc = m["tr"][a][:2]
+        calls += [("sweep_lrflux[hllc]", hk.sweep_lrflux,
+                   hk.sweep_lrflux_plain, args),
+                  ("sweep_lrflux_df[hllc]", hk.sweep_lrflux_df,
+                   hk.sweep_lrflux_df_plain, args),
+                  ("flux_pointwise[hllc]", hk.flux_pointwise,
+                   hk.flux_pointwise_plain,
+                   inp["flux_in"][a][:2] + (None, simh, a)),
+                  ("flux_sweep_df", hk.flux_sweep_df, hk.flux_sweep_df_plain,
+                   (Ulc, Urc, simn, a)),
+                  ("flux_sweep_df[hllc]", hk.flux_sweep_df,
+                   hk.flux_sweep_df_plain, (Ulc, Urc, simh, a))]
+    calls += [("grav_source[Fp2IDr]", mid.grav_source, mid.grav_source_plain,
+               (U, m["FpID"], m["F2ID"], phic, phif, m["q"], m["dtodx"],
+                AXES, m["F2IDr"])),
+              ("final_update[dF2]", mid.final_update, mid.final_update_plain,
+               (U, m["F2ID"], m["Sg2"], m["dtodx"], sim, grid, AXES,
+                m["dF2"]))]
     return calls
+
+
+def df2_bits(Ulc, Urc, sim, axis):
+    """B12's design check: its dF2, F2_ID and F2_IDr equal, bit for bit,
+    the roll-and-subtract of B13's F2 (flux_pointwise without etah, the
+    same device solve) on the same states; raises otherwise.  Returns the
+    number of dF2 elements whose bits differ from the plain version's."""
+    import torch
+    from atmospheric_athena_tpu_torch.ops import hydro_kernels as hk
+    dF2, Fid, Fidr = hk.flux_sweep_df(Ulc, Urc, sim, axis)
+    F = hk.flux_pointwise(Ulc, Urc, None, sim, axis)
+    Fn = torch.roll(F, -1, dims=3 - axis)
+    for what, got, want in (("dF2", dF2, Fn - F), ("F2_ID", Fid, F[0]),
+                            ("F2_IDr", Fidr, Fn[0])):
+        if not torch.equal(bits(got), bits(want.contiguous())):
+            raise AssertionError(f"flux_sweep_df[{sim.flux}] axis {axis}: "
+                                 f"{what} differs from the roll of "
+                                 "flux_pointwise's F2 in its bits")
+    ref = hk.flux_sweep_df_plain(Ulc, Urc, sim, axis)[0]
+    return int((bits(dF2) != bits(ref)).sum())
 
 
 def make_sim(n, dtype):
@@ -556,6 +700,9 @@ def phase2(n, dtype, timing):
                                       bound_by=None, library_ms=None))
         r["max_abs_err"] = max(r["max_abs_err"], ea)
         r["max_rel_err"] = max(r["max_rel_err"], er)
+        if base_name(name) == "flux_sweep_df":
+            r["dF2_bits_vs_plain"] = (r.get("dF2_bits_vs_plain", 0)
+                                      + df2_bits(*args))
         if timing:
             # plain, kernel, kernel, plain
             p1, k1 = cuda_ms(lambda: plain(*args)), cuda_ms(
@@ -582,9 +729,14 @@ def phase2(n, dtype, timing):
              + ("" if r["library_ms"] is None
                 else f", library {r['library_ms']:.3f} ms")
              if timing else "")
+        b12 = ("" if "dF2_bits_vs_plain" not in r else
+               ("; " if t else " ") +
+               "dF2 bitwise the roll of flux_pointwise's F2, "
+               f"{r['dF2_bits_vs_plain']} elements differ from the plain "
+               "version's bits")
         say(f"phase 2 {n}^3 {dtype} {name}: max err {r['max_rel_err']:.2e}"
             f" x field max (bound {tol:.0e}), max abs {r['max_abs_err']:.3e}"
-            f";{t}")
+            f";{t}{b12}")
     return rec
 
 
@@ -649,6 +801,51 @@ def run_golden(device):
     return s, worst
 
 
+def run_sedov_golden(device, ncyc=20):
+    """The testsedov golden (tests/golden/athinput.testsedov, HLLC, no
+    H-correction, float64, 20 cycles) through Simulation.from_file on
+    `device`, held as tests/test_problems_r5.py's _run_compare holds the
+    JAX package: the time after every cycle to rel 1e-5, the cycle-1 state
+    within 1e-11 and the cycle-20 state within 1e-9 of each field's scale
+    (its max |value|, floored at 1e-3 of the largest field's) on d, M1-M3
+    and E.  Raises on a miss; returns the Simulation and the worst error of
+    each checked cycle, {1: e1, 20: e20}."""
+    import numpy as np
+    from atmospheric_athena_tpu_torch import Simulation
+    gold = np.load(SEDOV_GOLD)
+    s = Simulation.from_file(SEDOV_DECK, problem="testsedov",
+                             cmdline=[f"time/nlim={ncyc}", "time/tlim=9e9"],
+                             dtype="float64", device=device, flux="hllc")
+    if s.sim.h_correction or s.sim.flux != "hllc":
+        raise AssertionError("testsedov runs HLLC without the H-correction")
+    fields = ["d", "M1", "M2", "M3", "E"]
+    worst = {}
+    for cyc in range(1, ncyc + 1):
+        s.step()
+        t, t_ref = float(s.state.time), float(gold["traj"][cyc - 1][0])
+        if abs(t / t_ref - 1) > 1e-5:
+            raise AssertionError(f"testsedov cycle {cyc}: time {t:.9e}, "
+                                 f"reference {t_ref:.9e}")
+        if cyc not in (1, ncyc):
+            continue
+        ref, atol = (gold["cons1"], 1e-11) if cyc == 1 else (
+            gold[f"cons{ncyc}"], 1e-9)
+        nsp = ref.shape[1] - len(fields)
+        U = s.state.U[(slice(None),) + s.grid.interior()].cpu().numpy()
+        gmax = max(np.abs(ref[:, nsp + i]).max() for i in range(len(fields)))
+        worst[cyc] = 0.0
+        for i, name in enumerate(fields):
+            r = ref[:, nsp + i]
+            scale = max(np.abs(r).max(), 1e-3 * gmax, 1e-30)
+            err = float(np.abs(U[i].ravel() - r).max() / scale)
+            if not err <= atol:
+                raise AssertionError(f"testsedov cycle {cyc} field {name}: "
+                                     f"error {err:.3e} x scale exceeds "
+                                     f"{atol:.0e}")
+            worst[cyc] = max(worst[cyc], err)
+    return s, worst
+
+
 def phase3():
     import torch
     for path in ("mid", "MID=0", "mid BC=0"):
@@ -661,6 +858,18 @@ def phase3():
             f"trajectory within rel 1e-6, state max err {worst:.2e} x field "
             f"max; radiation iterations per cycle {s.rad_iters}; launches "
             f"{counts}")
+        torch.cuda.synchronize()
+    for path in ("sedov", "sedov MID=0"):
+        with path_env(path):
+            reset_counts()
+            s, worst = run_sedov_golden("cuda")
+            counts = read_counts()
+        check_counts(f"testsedov golden, {path} path", counts, path)
+        say(f"phase 3 golden testsedov float64 20 cycles, {path} path: "
+            f"time within rel 1e-5, state err {worst[1]:.2e} (cycle 1, "
+            f"bound 1e-11) and {worst[20]:.2e} (cycle 20, bound 1e-9) x "
+            f"field scale; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
         torch.cuda.synchronize()
     batch_vs_k1()
 
@@ -783,10 +992,68 @@ def phase4():
             f"{s.rad_iters[-1]} radiation iterations; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         del s
+
+    # the bench configuration without the H-correction: step 9 is B12,
+    # with the Fp2IDr and dF2 forms of B9 and B10 after it
+    torch.cuda.reset_peak_memory_stats()
+    with path_env("nohcorr"):
+        s = Simulation.from_file(DECK, problem="ioniz_sphere", cmdline=bench,
+                                 dtype="float32", h_correction=False)
+        torch.cuda.synchronize()
+        reset_counts()
+        r1 = s.run(max_steps=1)
+        counts["nohcorr"] = read_counts()
+    check_counts(f"{n}^3 bench run without the H-correction",
+                 counts["nohcorr"], "nohcorr")
+    if s.sim.h_correction or not (bool(torch.isfinite(s.state.U).all())
+                                  and float(s.state.dt) > 0):
+        raise AssertionError(f"{n}^3 run without the H-correction: "
+                             "non-finite state or dt <= 0")
+    nohc_ms = 1e3 * r1["wall"]
+    say(f"phase 4 {n}^3 float32 maxiter={MAXITER} batch_iters={BATCH_K} "
+        f"h_correction=False, 1 cycle via Simulation.run: step "
+        f"{nohc_ms:.1f} ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+        f"{ {k: v for k, v in counts['nohcorr'].items() if v} }")
+    del s
+
+    # testsedov (HLLC, no H-correction, no gravity) at full width with
+    # cubic cells: 5 cycles on the middle-phase path, 1 on MID=0
+    sedov = {}
+    scmd = [f"domain1/Nx1={n}", f"domain1/Nx2={n}", f"domain1/Nx3={n}",
+            "domain1/x2max=1.0", "domain1/x3max=1.0"]
+    for path, nlim in (("sedov", 5), ("sedov MID=0", 1)):
+        torch.cuda.reset_peak_memory_stats()
+        with path_env(path):
+            s = Simulation.from_file(SEDOV_DECK, problem="testsedov",
+                                     cmdline=scmd + [f"time/nlim={nlim}"],
+                                     dtype="float32", flux="hllc")
+            if s.device.type != "cuda":
+                raise AssertionError(f"testsedov run on {s.device}")
+            torch.cuda.synchronize()
+            reset_counts()
+            r = s.run()
+            counts[path] = read_counts()
+        check_counts(f"{n}^3 testsedov run, {path} path", counts[path], path)
+        if r["steps"] != nlim or not (bool(torch.isfinite(s.state.U).all())
+                                      and float(s.state.dt) > 0):
+            raise AssertionError(f"{n}^3 testsedov {path}: {r['steps']} "
+                                 "steps, or a non-finite state or dt <= 0")
+        peak_s = torch.cuda.max_memory_allocated() / 2 ** 30
+        sedov[path] = dict(step_ms=1e3 * r["wall"] / r["steps"],
+                           zone_cycles_per_sec=r["zone_cycles_per_sec"],
+                           peak_gib=peak_s)
+        say(f"phase 4 {n}^3 float32 testsedov (HLLC), {nlim} cycles via "
+            f"Simulation.run, {path} path: step "
+            f"{sedov[path]['step_ms']:.2f} ms, "
+            f"{r['zone_cycles_per_sec']:.4e} zone-cycles/s; peak device "
+            f"memory {peak_s:.2f} GiB; all fields finite, dt "
+            f"{float(s.state.dt):.6e}")
+        del s
     return counts, dict(step_ms=steps_ms,
                         zone_cycles_per_sec=res["zone_cycles_per_sec"],
                         rad_ms_per_substep=rad_ms / niter, peak_gib=peak,
-                        k1_step_ms=k1)
+                        k1_step_ms=k1, nohcorr_step_ms=nohc_ms, sedov=sedov)
 
 
 def ptxas_report(source, kernel):
@@ -813,10 +1080,11 @@ def ptxas_report(source, kernel):
             spill = f"spills {m.group(1)}/{m.group(2)} B"
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            # the template arguments: (float|double)[, int]
-            t = re.search(kernel + r"I([fd])(?:Li(\d+)E)?", cur)
+            # the template arguments: (float|double)[, int...]
+            t = re.search(kernel + r"I([fd])((?:Li\d+E)*)", cur)
+            ints = re.findall(r"Li(\d+)E", t.group(2))
             label = ("f32" if t.group(1) == "f" else "f64") + (
-                f"<{t.group(2)}>" if t.group(2) else "")
+                f"<{','.join(ints)}>" if ints else "")
             out.append(f"{label}: {m.group(1)} registers, {spill}")
             cur = None
     return "; ".join(out)
@@ -838,7 +1106,8 @@ def main():
     say(f"phase 1 nvcc build of csrc/*.cu: {time.perf_counter() - t0:.1f} s")
     regs = {}
     for name, route, source, _ in KERNELS:
-        if route == "cuda":
+        if route == "cuda" and base_name(name) not in regs:
+            name = base_name(name)
             regs[name] = ptxas_report(os.path.basename(source), SYMBOLS[name])
             say(f"phase 1 ptxas {name}: {regs[name]}")
 
@@ -849,23 +1118,27 @@ def main():
     counts, _ = phase4()
 
     # each kernel's launches in the phase-4 run of the first path that
-    # runs it (the bench run has 3 cycles, the K=1 runs 1)
-    steps = {"batch": 3, "mid": 1, "MID=0": 1}
+    # runs it (the bench run has 3 cycles, the testsedov mid run 5, the
+    # others 1)
+    steps = {"batch": 3, "mid": 1, "MID=0": 1, "nohcorr": 1, "sedov": 5,
+             "sedov MID=0": 1}
     kernels = []
     for name, route, source, replaces in KERNELS:
         path = next((p for p in steps if counts[p][name] > 0), None)
         if path is None:
             raise AssertionError(f"{name}: launched in no phase-4 run")
         r = rec[name]
-        kernels.append(dict(name=name, route=route, source=source,
-                            replaces=replaces, launches=counts[path][name],
-                            launches_per_step=counts[path][name] / steps[path],
-                            path=path, max_abs_err=r["max_abs_err"],
-                            max_rel_err=r["max_rel_err"], ms=r["ms"],
-                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                            bound_by=r["bound_by"],
-                            library_ms=r["library_ms"],
-                            registers=regs.get(name)))
+        k = dict(name=name, route=route, source=source, replaces=replaces,
+                 launches=counts[path][name],
+                 launches_per_step=counts[path][name] / steps[path],
+                 path=path, max_abs_err=r["max_abs_err"],
+                 max_rel_err=r["max_rel_err"], ms=r["ms"],
+                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                 bound_by=r["bound_by"], library_ms=r["library_ms"],
+                 registers=regs.get(base_name(name)))
+        if "dF2_bits_vs_plain" in r:
+            k["dF2_bits_vs_plain"] = r["dF2_bits_vs_plain"]
+        kernels.append(k)
     say(smi_line())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -1,10 +1,13 @@
 """Each hand-written kernel of the port against its plain PyTorch version
 on the GPU, at 16^3 in float64 (1e-12 of each field's max) and float32
-(1e-5), and in float64 on a grid of unequal cell sizes; the batch kernel
-on three dt schedules; the ghost-fill kernel bitwise on every flag set it
-covers; and the NaN probe (one cell's E, then d, set to NaN: every
-kernel's NaN cells and NaN reductions equal its plain version's).  Needs a
-CUDA device, nvcc and triton; skipped elsewhere.  This file imports no JAX,
+(1e-5), and in float64 on a grid of unequal cell sizes; the HLLC forms and
+the route without the H-correction (B12, whose dF2 must also be the
+roll-and-subtract of B13's flux bitwise); the batch kernel on three dt
+schedules; the ghost-fill kernel bitwise on every flag set it covers; the
+NaN probe (one cell's E, then d, set to NaN: every kernel's NaN cells and
+NaN reductions equal its plain version's); and the testsedov golden on
+both hydro paths.  Needs a CUDA device, nvcc and triton; skipped
+elsewhere.  This file imports no JAX,
 so on a machine without JAX run it as
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu_kernels.py
@@ -80,6 +83,47 @@ def test_mid_kernels_without_gravity_or_hcorrection(case):
              (U, m["F2"], None, m["dtodx"], sim, s.grid, axes))]:
         chip_smoke.compare(name, chip_smoke.outputs(kern(*args)),
                            chip_smoke.outputs(plain(*args)), tol, s.grid)
+
+
+def test_hllc_and_no_hcorrection_kernels(case):
+    """B12 (Roe and HLLC), the HLLC forms of B5 (both) and B13, and the
+    Fp2IDr form of B9 and dF2 form of B10; B12's dF2, F2_ID and F2_IDr
+    equal the roll of flux_pointwise's F2 bit for bit."""
+    check(case, ["sweep_lrflux[hllc]", "sweep_lrflux_df[hllc]",
+                 "flux_pointwise[hllc]", "flux_sweep_df",
+                 "flux_sweep_df[hllc]", "grav_source[Fp2IDr]",
+                 "final_update[dF2]"])
+    s, inp, _ = case
+    for name, _, _, args in chip_smoke.kernel_calls(s, inp):
+        if chip_smoke.base_name(name) == "flux_sweep_df":
+            chip_smoke.df2_bits(*args)
+
+
+def test_flux_corrected_refuses_hllc(case):
+    """B8 solves Roe only: HLLC with the H-correction on the middle-phase
+    path raises on the card instead of running another solver."""
+    import dataclasses
+    from atmospheric_athena_tpu_torch.ops import ctu_mid_kernels as mid
+    s, inp, _ = case
+    m = inp["mid"]
+    sim = dataclasses.replace(s.sim, flux="hllc")
+    with pytest.raises(NotImplementedError, match="Roe"):
+        mid.flux_corrected(m["tr"][0][0], m["tr"][0][1], m["etaS"], sim, 0,
+                           chip_smoke.AXES)
+
+
+@pytest.mark.parametrize("path", ["sedov", "sedov MID=0"])
+def test_testsedov_golden(path):
+    """The testsedov golden (HLLC, float64, 20 cycles) on the card, on the
+    middle-phase path (B12) and on MID=0 (B13 with HLLC), each launching
+    its path's kernels and none of the others."""
+    need_cuda()
+    with chip_smoke.path_env(path):
+        chip_smoke.reset_counts()
+        s, worst = chip_smoke.run_sedov_golden("cuda")
+        counts = chip_smoke.read_counts()
+    chip_smoke.check_counts(f"testsedov golden, {path}", counts, path)
+    assert worst[1] <= 1e-11 and worst[20] <= 1e-9
 
 
 def test_rad_kernels(case):

@@ -174,7 +174,7 @@ def test_roe_hlle_fallback():
 
 
 def test_unported_solver_raises():
-    sim = TSim(nscalars=1, flux="hllc")
+    sim = TSim(nscalars=1, flux="hlld")
     x = torch.ones(6, 3, dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         triem.fluxes(x, x, x, x, None, sim)

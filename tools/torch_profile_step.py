@@ -1,15 +1,17 @@
-"""Where the time of one ioniz_sphere step goes on the GPU, for the PyTorch
-port (atmospheric_athena_tpu_torch).
+"""Where the time of one ioniz_sphere or testsedov step goes on the GPU, for
+the PyTorch port (atmospheric_athena_tpu_torch).
 
     python3 tools/torch_profile_step.py                 # bench configuration
     python3 tools/torch_profile_step.py ionradiation/batch_iters=1   # K=1
     ATHENA_TPU_PALLAS_MID=0 python3 tools/torch_profile_step.py \
         ionradiation/batch_iters=1                      # the other hydro path
+    python3 tools/torch_profile_step.py testsedov       # HLLC, no H-correction
 
 Builds the isph deck at the bench configuration (256^3, float32,
-ionradiation/maxiter=50, ionradiation/batch_iters=25) on the first CUDA
-device, with any block/name=value overrides from the command line applied
-after those, runs one warm-up step, then profiles one step with
+ionradiation/maxiter=50, ionradiation/batch_iters=25), or with `testsedov`
+first the testsedov deck at 256^3 float32 with cubic cells and HLLC, on the
+first CUDA device, with any block/name=value overrides from the command
+line applied after those, runs one warm-up step, then profiles one step with
 torch.profiler (CPU and CUDA activities).  Prints the card (nvidia-smi name
 and power limit), the CTU hydro path (the middle-phase path unless
 ATHENA_TPU_PALLAS_MID turns it off), the step's wall time, its radiation
@@ -32,6 +34,11 @@ REPO = os.path.dirname(HERE)
 N, DTYPE = 256, "float32"
 BENCH = [f"domain1/Nx{a}={N}" for a in (1, 2, 3)] + [
     "ionradiation/maxiter=50", "ionradiation/batch_iters=25"]
+SEDOV = [f"domain1/Nx{a}={N}" for a in (1, 2, 3)] + [
+    "domain1/x2max=1.0", "domain1/x3max=1.0"]
+# problem: (deck, base overrides, Simulation keywords)
+PROBLEMS = {"ioniz_sphere": ("athinput.isph64", BENCH, {}),
+            "testsedov": ("athinput.testsedov", SEDOV, {"flux": "hllc"})}
 
 
 def main():
@@ -51,12 +58,14 @@ def main():
     print("hydro path: " + ("middle-phase kernels" if ctu_mid_kernels.supported()
                             else "ATHENA_TPU_PALLAS_MID=0, plain middle "
                             "phases"))
-    cmd = BENCH + sys.argv[1:]
-    s = Simulation.from_file(os.path.join(REPO, "tests", "golden",
-                                          "athinput.isph64"),
-                             problem="ioniz_sphere", cmdline=cmd,
-                             dtype=DTYPE, device="cuda")
-    print("configuration: " + " ".join(cmd))
+    args = sys.argv[1:]
+    problem = args.pop(0) if args[:1] == ["testsedov"] else "ioniz_sphere"
+    deck, base, kw = PROBLEMS[problem]
+    cmd = base + args
+    s = Simulation.from_file(os.path.join(REPO, "tests", "golden", deck),
+                             problem=problem, cmdline=cmd, dtype=DTYPE,
+                             device="cuda", **kw)
+    print(f"configuration: {problem} {' '.join(cmd)}")
     s.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -67,10 +76,12 @@ def main():
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     reads = sum(e.count for e in events if e.key.startswith("Memcpy DtoH"))
-    print(f"{N}^3 {DTYPE} maxiter={s.ion.maxiter} batch_iters="
-          f"{s.ion.batch_iters}: step wall {1e3 * wall:.1f} ms (under the "
-          f"profiler), radiation substeps {s.rad_iters[-1]}, host reads "
-          f"{reads} (device-to-host copies)")
+    rad = ("" if s.ion is None else
+           f" maxiter={s.ion.maxiter} batch_iters={s.ion.batch_iters}")
+    print(f"{N}^3 {DTYPE}{rad}: step wall {1e3 * wall:.1f} ms (under the "
+          f"profiler), radiation substeps "
+          f"{s.rad_iters[-1] if s.rad_iters else 0}, host reads {reads} "
+          "(device-to-host copies)")
 
     phases = ("radiation", "bvals", "hydro", "userwork", "new_dt")
     # each range appears twice: as a host range (CPU time) and as the
