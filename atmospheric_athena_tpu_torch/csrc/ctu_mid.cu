@@ -4,15 +4,22 @@
 //   gcross         — _gcross_kernel (B6): the static-gravity cross terms
 //                    G_b = (dM_b, dE_b) of every axis b
 //                    (integrate_3d_ctu.c:1160-1222).
-//   transverse     — _trans_kernel (B7), its dFp form: steps 5-7 along axis
-//                    a, Ulp/Urp minus q_b dF_b of the other axes (the left
-//                    state reads dF_b one cell back along a), minus the G_b
-//                    terms, and the H-correction eta = |lam_r - lam_l|/2 of
-//                    the corrected states.
+//   transverse     — _trans_kernel (B7): steps 5-7 along axis a, Ulp/Urp
+//                    minus q_b dF_b of the other axes (the left state reads
+//                    dF_b one cell back along a), minus the G_b terms, and
+//                    the H-correction eta = |lam_r - lam_l|/2 of the
+//                    corrected states.  Two forms (template WHOLE): dF_b
+//                    read as an operand (the dFp form of the dF sweep), or
+//                    formed in registers from four reads of the whole
+//                    first-pass flux, F_b(+1_b) - F_b and F_b(+1_b, -1_a) -
+//                    F_b(-1_a) (the Fp form of an SMR level's step), which
+//                    is the dFp form's subtraction bit for bit.
 //   flux_corrected — _fluxh_kernel (B8): step 9 along axis a, etah = the max
 //                    of eta_a and, per other axis b, eta_b, eta_b(-1_a),
 //                    eta_b(+1_b), eta_b(+1_b, -1_a); then cons->prim and the
-//                    Roe/HLLE flux of hydro.cuh.
+//                    Riemann flux of hydro.cuh, Roe/HLLE or HLLC (template
+//                    FLUX; HLLC reads the etah gather and ignores it, as the
+//                    reference's HLLC ignores etah).
 //   grav_source    — _sg_kernel (B9): dhalf = d - sum_a q_a dF_ID,a, then
 //                    the full-dt gravity source Sg = [dM_0..2, dE_0..2]
 //                    (integrate_3d_ctu.c:2741-2782); in its Fp2IDr form
@@ -41,7 +48,8 @@
 // flops per loaded value, bound by device memory (B8 also does one Roe
 // solve per interface, as B13 does).  Fields per cell: B6 reads 8 and
 // writes 6, B7 reads 28 and writes 13 (the dF and G neighbours one cell
-// back along a are mostly L1/L2 hits), B8 reads 15 and writes 6, B9 reads
+// back along a are mostly L1/L2 hits; the Fp form reads four views of each
+// flux, three of them neighbours), B8 reads 15 and writes 6, B9 reads
 // 11 and writes 6 (14 in the Fp2IDr form), B10 reads 30 and writes 6 in
 // either form.  This first version
 // keeps every cell's stencil in registers and relies on the caches for the
@@ -128,8 +136,10 @@ __device__ __forceinline__ T cfast_cons(const T* u, T gamma, T g1) {
 }
 
 // B7 along axis a.  dF.p[b], G.p[b]: the other axes' flux differences
-// [NV, ...] and cross terms [2, ...] (G.p[b] == nullptr: no gravity).
-template <typename T, int NS>
+// [NV, ...] (WHOLE = 1: their whole first-pass fluxes) and cross terms
+// [2, ...] (G.p[b] == nullptr: no gravity).  WHOLE is a template argument,
+// as B10's DF is: a run-time test of the form costs the kernel registers.
+template <typename T, int NS, int WHOLE>
 __global__ void transverse_kernel(const T* __restrict__ Ulp,
                                   const T* __restrict__ Urp, Ptr3<T> dF,
                                   Ptr3<T> G, const T* __restrict__ q,
@@ -140,10 +150,20 @@ __global__ void transverse_kernel(const T* __restrict__ Ulp,
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= g.ncell) return;
   const long long n = g.ncell;
-  const long long m = g.at(g.shift(g.cell(idx), a, -1));
+  const Cell c = g.cell(idx);
+  const Cell cm = g.shift(c, a, -1);
+  const long long m = g.at(cm);
   // the two other axes, ascending
   const int b0 = (a == 0) ? 1 : 0;
   const int b1 = (a == 2) ? 1 : 2;
+  // WHOLE: the +1_b neighbours of the cell and of its -1_a neighbour
+  long long r0 = 0, r1 = 0, rm0 = 0, rm1 = 0;
+  if constexpr (WHOLE) {
+    r0 = g.at(g.shift(c, b0, 1));
+    r1 = g.at(g.shift(c, b1, 1));
+    rm0 = g.at(g.shift(cm, b0, 1));
+    rm1 = g.at(g.shift(cm, b1, 1));
+  }
   const T q0 = q[b0], q1 = q[b1];
   const T *dF0 = dF.p[b0], *dF1 = dF.p[b1];
   const T *G0 = G.p[b0], *G1 = G.p[b1];
@@ -152,9 +172,22 @@ __global__ void transverse_kernel(const T* __restrict__ Ulp,
 #pragma unroll
   for (int v = 0; v < NV; ++v) {
     const long long o = v * n;
+    // dF_b at the cell (r) and one cell back along a (l)
+    T dr0, dr1, dl0, dl1;
+    if constexpr (WHOLE) {
+      dr0 = dF0[o + r0] - dF0[o + idx];
+      dr1 = dF1[o + r1] - dF1[o + idx];
+      dl0 = dF0[o + rm0] - dF0[o + m];
+      dl1 = dF1[o + rm1] - dF1[o + m];
+    } else {
+      dr0 = dF0[o + idx];
+      dr1 = dF1[o + idx];
+      dl0 = dF0[o + m];
+      dl1 = dF1[o + m];
+    }
     // corr = q_b0 dF_b0 + q_b1 dF_b1 (ascending b)
-    T r = Urp[o + idx] - (q0 * dF0[o + idx] + q1 * dF1[o + idx]);
-    T l = Ulp[o + idx] - (q0 * dF0[o + m] + q1 * dF1[o + m]);
+    T r = Urp[o + idx] - (q0 * dr0 + q1 * dr1);
+    T l = Ulp[o + idx] - (q0 * dl0 + q1 * dl1);
     if (grav) {
       // per b: the M_b component, then E
       if (v == 1 + b0) { r = r - G0[idx]; l = l - G0[m]; }
@@ -180,8 +213,9 @@ __global__ void transverse_kernel(const T* __restrict__ Ulp,
   }
 }
 
-// B8 along axis a; eta.p[0] == nullptr: no H-correction (etah = 0)
-template <typename T, int NS>
+// B8 along axis a; eta.p[0] == nullptr: no H-correction (etah = 0);
+// FLUX = kRoe or kHllc (hydro.cuh riemann_flux)
+template <typename T, int NS, int FLUX>
 __global__ void flux_corrected_kernel(const T* __restrict__ Ul,
                                       const T* __restrict__ Ur, Ptr3<T> eta,
                                       T* __restrict__ F, Geom g, int a,
@@ -215,7 +249,7 @@ __global__ void flux_corrected_kernel(const T* __restrict__ Ul,
   }
   cons_to_prim<T, NS>(ul, wl, g1);
   cons_to_prim<T, NS>(ur, wr, g1);
-  roe_flux<T, NS>(ul, ur, wl, wr, etah, gamma, g1, f);
+  riemann_flux<T, NS, FLUX>(ul, ur, wl, wr, etah, gamma, g1, f);
 #pragma unroll
   for (int v = 0; v < NV; ++v) F[pm.p[v] * n + idx] = f[v];
 }
@@ -341,24 +375,32 @@ int launch_transverse(const void* Ulp, const void* Urp, const void* dF0,
                       const void* dF1, const void* dF2, const void* G0,
                       const void* G1, const void* G2, const void* q,
                       void* Ulc, void* Urc, void* eta, int nz, int ny, int nx,
-                      int axis, double gamma, double gamma_1, void* stream) {
+                      int axis, int whole, double gamma, double gamma_1,
+                      void* stream) {
   const Geom g = make_geom(nz, ny, nx);
-  transverse_kernel<T, NS><<<mid_blocks(g.ncell), kMidThreads, 0,
-                             (cudaStream_t)stream>>>(
-      (const T*)Ulp, (const T*)Urp, ptr3<T>(dF0, dF1, dF2),
-      ptr3<T>(G0, G1, G2), (const T*)q, (T*)Ulc, (T*)Urc, (T*)eta, g, axis,
-      (T)gamma, (T)gamma_1);
+  const Ptr3<T> dF = ptr3<T>(dF0, dF1, dF2), G = ptr3<T>(G0, G1, G2);
+  const unsigned blocks = mid_blocks(g.ncell);
+  if (whole)
+    transverse_kernel<T, NS, 1><<<blocks, kMidThreads, 0,
+                                  (cudaStream_t)stream>>>(
+        (const T*)Ulp, (const T*)Urp, dF, G, (const T*)q, (T*)Ulc, (T*)Urc,
+        (T*)eta, g, axis, (T)gamma, (T)gamma_1);
+  else
+    transverse_kernel<T, NS, 0><<<blocks, kMidThreads, 0,
+                                  (cudaStream_t)stream>>>(
+        (const T*)Ulp, (const T*)Urp, dF, G, (const T*)q, (T*)Ulc, (T*)Urc,
+        (T*)eta, g, axis, (T)gamma, (T)gamma_1);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NS>
+template <typename T, int NS, int FLUX>
 int launch_flux_corrected(const void* Ul, const void* Ur, const void* eta0,
                           const void* eta1, const void* eta2, void* F,
                           int nz, int ny, int nx, int axis, double gamma,
                           double gamma_1, void* stream) {
   const Geom g = make_geom(nz, ny, nx);
-  flux_corrected_kernel<T, NS><<<mid_blocks(g.ncell), kMidThreads, 0,
-                                 (cudaStream_t)stream>>>(
+  flux_corrected_kernel<T, NS, FLUX><<<mid_blocks(g.ncell), kMidThreads, 0,
+                                       (cudaStream_t)stream>>>(
       (const T*)Ul, (const T*)Ur, ptr3<T>(eta0, eta1, eta2), (T*)F, g, axis,
       (T)gamma, (T)gamma_1);
   return (int)cudaGetLastError();
@@ -427,15 +469,16 @@ int ath_gcross_f64(ATH_GCROSS_ARGS) {
   return ath::launch_gcross<double>(ATH_GCROSS_CALL);
 }
 
+// whole = 1: dF0..2 are the whole first-pass fluxes (the Fp form)
 #define ATH_TRANS_ARGS                                                     \
   const void *Ulp, const void *Urp, const void *dF0, const void *dF1,      \
       const void *dF2, const void *G0, const void *G1, const void *G2,     \
       const void *q, void *Ulc, void *Urc, void *eta, int nz, int ny,      \
-      int nx, int axis, int nscalars, double gamma, double gamma_1,        \
-      void *stream
+      int nx, int axis, int nscalars, int whole, double gamma,             \
+      double gamma_1, void *stream
 #define ATH_TRANS_CALL                                                     \
   Ulp, Urp, dF0, dF1, dF2, G0, G1, G2, q, Ulc, Urc, eta, nz, ny, nx, axis, \
-      gamma, gamma_1, stream
+      whole, gamma, gamma_1, stream
 
 int ath_transverse_f32(ATH_TRANS_ARGS) {
   return ATH_DISPATCH_NS(nscalars,
@@ -448,22 +491,21 @@ int ath_transverse_f64(ATH_TRANS_ARGS) {
                          (ath::launch_transverse<double, 1>(ATH_TRANS_CALL)));
 }
 
+// flux: 0 Roe, 1 HLLC (hydro.cuh FluxKind)
 #define ATH_FLUXC_ARGS                                                     \
   const void *Ul, const void *Ur, const void *eta0, const void *eta1,      \
       const void *eta2, void *F, int nz, int ny, int nx, int axis,         \
-      int nscalars, double gamma, double gamma_1, void *stream
+      int nscalars, int flux, double gamma, double gamma_1, void *stream
 #define ATH_FLUXC_CALL \
   Ul, Ur, eta0, eta1, eta2, F, nz, ny, nx, axis, gamma, gamma_1, stream
 
 int ath_flux_corrected_f32(ATH_FLUXC_ARGS) {
-  return ATH_DISPATCH_NS(
-      nscalars, (ath::launch_flux_corrected<float, 0>(ATH_FLUXC_CALL)),
-      (ath::launch_flux_corrected<float, 1>(ATH_FLUXC_CALL)));
+  return ATH_DISPATCH_NS_FLUX(float, ath::launch_flux_corrected, nscalars,
+                              flux, ATH_FLUXC_CALL);
 }
 int ath_flux_corrected_f64(ATH_FLUXC_ARGS) {
-  return ATH_DISPATCH_NS(
-      nscalars, (ath::launch_flux_corrected<double, 0>(ATH_FLUXC_CALL)),
-      (ath::launch_flux_corrected<double, 1>(ATH_FLUXC_CALL)));
+  return ATH_DISPATCH_NS_FLUX(double, ath::launch_flux_corrected, nscalars,
+                              flux, ATH_FLUXC_CALL);
 }
 
 #define ATH_SG_ARGS                                                        \

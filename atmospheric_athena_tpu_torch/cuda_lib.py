@@ -55,16 +55,18 @@ _SIGNATURES = {
     "ath_flux_sweep_df_f64": [_P] * 5 + [_I] * 6 + [_D, _D, _P],
     "ath_gcross_f32": [_P] * 10 + [_I] * 3 + [_P],
     "ath_gcross_f64": [_P] * 10 + [_I] * 3 + [_P],
-    "ath_transverse_f32": [_P] * 12 + [_I] * 5 + [_D, _D, _P],
-    "ath_transverse_f64": [_P] * 12 + [_I] * 5 + [_D, _D, _P],
-    "ath_flux_corrected_f32": [_P] * 6 + [_I] * 5 + [_D, _D, _P],
-    "ath_flux_corrected_f64": [_P] * 6 + [_I] * 5 + [_D, _D, _P],
+    "ath_transverse_f32": [_P] * 12 + [_I] * 6 + [_D, _D, _P],
+    "ath_transverse_f64": [_P] * 12 + [_I] * 6 + [_D, _D, _P],
+    "ath_flux_corrected_f32": [_P] * 6 + [_I] * 6 + [_D, _D, _P],
+    "ath_flux_corrected_f64": [_P] * 6 + [_I] * 6 + [_D, _D, _P],
     "ath_grav_source_f32": [_P] * 17 + [_I] * 3 + [_P],
     "ath_grav_source_f64": [_P] * 17 + [_I] * 3 + [_P],
     "ath_final_update_f32": [_P] * 10 + [_I] * 10 + [_P],
     "ath_final_update_f64": [_P] * 10 + [_I] * 10 + [_P],
-    "ath_rad_rates_f32": [_P] * 14 + [_I, _I, _P, _P],
-    "ath_rad_rates_f64": [_P] * 14 + [_I, _I, _P, _P],
+    "ath_rad_rates_f32": [_P] * 15 + [_I, _I, _P, _P],
+    "ath_rad_rates_f64": [_P] * 15 + [_I, _I, _P, _P],
+    "ath_rad_fused_f32": [_P] * 26 + [_I, _I, _P, _P],
+    "ath_rad_fused_f64": [_P] * 26 + [_I, _I, _P, _P],
     "ath_rad_update_f32": [_P] * 16 + [_L, _P, _P],
     "ath_rad_update_f64": [_P] * 16 + [_L, _P, _P],
     "ath_rad_batch_f32": [_P] * 20 + [_I] * 3 + [_P, _P],

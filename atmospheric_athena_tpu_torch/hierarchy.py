@@ -1,0 +1,355 @@
+"""Static-mesh-refinement driver: the MeshS->DomainS hierarchy (reference:
+src/main.c main loop with SMR, src/init_mesh.c <domainN> parsing), as in
+``atmospheric_athena_tpu/hierarchy.py`` for 3D adiabatic hydro with plane
+radiation.
+
+A MeshSimulation holds one level state per <domainN> block (refinement
+ratio 2; the parent of each domain found by containment, so a level may
+hold several domains).  Each cycle runs the reference's SMR order
+(main.c:519-669):
+
+  radiation (the root sets dt and tcoarse; fine levels integrate to it with
+  the parent's EdgeFlux as inlet)  ->  ionradRestrictCorrect (E, s0)  ->
+  hydro on every level with the same dt, keeping each level's boundary
+  flux planes  ->  RestrictCorrect (conserved restriction + fine/coarse
+  flux correction, deepest level first)  ->  Userwork  ->  new_dt (min
+  over levels, 2x growth clamp)  ->  bvals (root; children are fully
+  interior, so every face is ProlongateLater)  ->  Prolongate (child ghost
+  fill, parent first).
+
+The JAX package's phased mode (per-level jits that bound a TPU's memory
+and its watchdog) has no counterpart: PyTorch runs eagerly, level by
+level.  Outputs (make_outputs) are ROADMAP A9.
+"""
+
+from __future__ import annotations
+
+import time as _time
+from typing import List, Optional
+
+import torch
+from torch.profiler import record_function
+
+from . import bvals, smr
+from . import dt as dt_mod
+from .config import GridConfig, SimConfig, grid_config_from_par
+from .defs import IEN
+from .integrators import ctu3d
+from .par import ParameterDB
+from .state import State, resolve_device
+
+
+class Level:
+    """One domain of the hierarchy: its grid and state, its problem
+    instance, its link to the parent (None for the root) and the per-level
+    constants of the step (the static potential, the userwork fields, the
+    radiation configuration)."""
+
+    def __init__(self, grid: GridConfig, state: State, problem,
+                 link: Optional[smr.ChildLink], lev: int = 0,
+                 parent: Optional[int] = None):
+        self.grid = grid
+        self.state = state
+        self.problem = problem
+        self.link = link      # overlap with the parent (None for root)
+        self.lev = lev
+        self.parent = parent  # index into the Level list (None for root)
+        self.phi = None
+        self.uw_aux = None
+        self.ion = None
+
+
+def grids_from_par(par: ParameterDB):
+    """Parse all <domainN> blocks -> [(level, GridConfig, disp, parent)].
+
+    iDisp/jDisp/kDisp are measured in cells OF THIS LEVEL from the ROOT
+    origin (init_mesh.c:375-394: MinX = root_xmin + Disp*dx_own, with the
+    Disp==0 / touches-root-boundary cases snapped exactly to the root
+    box).  The parent is found by spatial containment of the child's
+    index box at level-1 resolution (init_mesh.c:424-446)."""
+    doms = []
+    root = grid_config_from_par(par)   # domain1
+    doms.append((0, root, (0, 0, 0), None))
+    n = 2
+    while par.exist(f"domain{n}", "level"):
+        blk = f"domain{n}"
+        lev = par.geti(blk, "level")
+        Nx = tuple(par.geti_def(blk, f"Nx{a + 1}", 1) for a in range(3))
+        disp = (par.geti_def(blk, "iDisp", 0),
+                par.geti_def(blk, "jDisp", 0),
+                par.geti_def(blk, "kDisp", 0))
+        irefine = 2 ** lev
+        xmin, xmax = [], []
+        for a in range(3):
+            if not root.active(a):
+                xmin.append(root.xmin[a])
+                xmax.append(root.xmax[a])
+                continue
+            dxo = root.dx[a] / irefine
+            lo = (root.xmin[a] if disp[a] == 0
+                  else root.xmin[a] + disp[a] * dxo)
+            izones = (disp[a] + Nx[a]) // irefine
+            hi = (root.xmax[a] if izones == root.Nx[a]
+                  else lo + Nx[a] * dxo)
+            xmin.append(lo)
+            xmax.append(hi)
+        # parent: the level-1 domain whose index box contains this child's
+        # box coarsened to the parent level
+        pidx = None
+        for i, (plev, pg, pdisp, _) in enumerate(doms):
+            if plev != lev - 1:
+                continue
+            if all((not root.active(a))
+                   or (pdisp[a] <= disp[a] // 2
+                       and (disp[a] + Nx[a]) // 2 <= pdisp[a] + pg.Nx[a])
+                   for a in range(3)):
+                pidx = i
+                break
+        if pidx is None:
+            raise ValueError(f"<{blk}>: no level-{lev - 1} domain "
+                             f"contains it (disp={disp}, Nx={Nx})")
+        doms.append((lev, GridConfig(Nx=Nx, xmin=tuple(xmin),
+                                     xmax=tuple(xmax), bc=root.bc),
+                     disp, pidx))
+        n += 1
+    return doms
+
+
+class MeshSimulation:
+    """Multi-level SMR driver with the API of Simulation (from_par,
+    from_file, step, run, state, rad_iters)."""
+
+    def __init__(self, par: ParameterDB, sim: SimConfig, levels: List[Level],
+                 device="cuda"):
+        self.device = resolve_device(device)
+        if levels[0].state.U.device.type != self.device.type:
+            raise ValueError(f"states on {levels[0].state.U.device}, "
+                             f"simulation on {self.device}")
+        self.par = par
+        self.sim = sim
+        self.levels = levels
+        self.cour_no = par.getd_def("time", "cour_no", 0.8)
+        self.tlim = par.getd_def("time", "tlim", 1.0)
+        self.nlim = par.geti_def("time", "nlim", -1)
+        # child-before-parent and parent-before-child orders over the tree
+        self.down = sorted(range(1, len(levels)), key=lambda i: -levels[i].lev)
+        self.up = sorted(range(1, len(levels)), key=lambda i: levels[i].lev)
+        self.rad_iters = []   # per step: the sub-iterations of each level
+
+    # ------------------------------------------------------------------ setup
+
+    @classmethod
+    def from_par(cls, par: ParameterDB, problem: Optional[str] = None,
+                 dtype: Optional[str] = None, device="cuda",
+                 **sim_overrides) -> "MeshSimulation":
+        from .simulation import configure
+        dev = resolve_device(device)
+        prob_cls, sim, _ = configure(par, problem, dtype, sim_overrides)
+        doms = grids_from_par(par)
+        levels = []
+        for (lev, grid, disp, pidx) in doms:
+            prob = prob_cls(par, sim, grid)
+            st = prob.init(par, sim, grid, dev)
+            link = None
+            if lev > 0:
+                link = smr.child_link(doms[pidx][1], grid, disp,
+                                      doms[pidx][2])
+            levels.append(Level(grid, st, prob, link, lev=lev, parent=pidx))
+        for lv in levels:
+            dtype = lv.state.U.dtype
+            lv.phi = ctu3d._phi_arrays(lv.problem, lv.grid, dtype, dev)
+            if hasattr(lv.problem, "userwork_aux"):
+                lv.uw_aux = lv.problem.userwork_aux(dtype, sim, lv.grid, dev)
+            if sim.ion_radplane:
+                from .ionrad.config import ion_config_from_par
+                lv.ion = ion_config_from_par(
+                    par, lv.grid,
+                    radplanes=getattr(lv.problem, "radplanes", ()),
+                    time_ramp=getattr(lv.problem, "time_ramp", True))
+        mesh = cls(par, sim, levels, device=dev)
+        # startup (main.c:400-446): RestrictCorrect with zeroed fluxes, i.e.
+        # pure restriction of U, then bvals, then Prolongate
+        for li in mesh.down:
+            p, c = levels[levels[li].parent], levels[li]
+            p.state = p.state.replace(U=smr.restrict_to_parent(
+                p.state.U, c.state.U, p.grid, c.grid, c.link))
+        levels[0].state = bvals.apply_bc(levels[0].state, levels[0].grid,
+                                         sim, levels[0].problem)
+        for li in mesh.up:
+            p, c = levels[levels[li].parent], levels[li]
+            c.state = c.state.replace(U=smr.prolong_ghosts(
+                p.state.U, c.state.U, p.grid, c.grid, c.link, sim=sim))
+        dt0 = torch.stack([dt_mod.new_dt(lv.state, sim, lv.grid,
+                                         mesh.cour_no)
+                           for lv in levels]).amin()
+        for lv in levels:
+            lv.state = lv.state.replace(dt=dt0)
+        return mesh
+
+    @classmethod
+    def from_file(cls, path: str, problem: Optional[str] = None, cmdline=(),
+                  dtype: Optional[str] = None, device="cuda",
+                  **sim_overrides) -> "MeshSimulation":
+        par = ParameterDB.from_file(path)
+        par.apply_cmdline(cmdline)
+        return cls.from_par(par, problem=problem, dtype=dtype, device=device,
+                            **sim_overrides)
+
+    # ------------------------------------------------------------------ views
+
+    @property
+    def state(self) -> State:
+        """The root level's state (time, dt and nstep live here)."""
+        return self.levels[0].state
+
+    @property
+    def grid(self) -> GridConfig:
+        """The root level's grid."""
+        return self.levels[0].grid
+
+    # ------------------------------------------------------------------- step
+
+    def step(self):
+        """One SMR cycle in the reference's order (JAX
+        hierarchy.py:284-524)."""
+        sim, L = self.sim, self.levels
+        nlev = len(L)
+        states = [lv.state for lv in L]
+        dt = states[0].dt
+        if self.tlim > 0:
+            dt = torch.minimum(dt, torch.clamp_min(self.tlim - states[0].time,
+                                                   0.0))
+        time = states[0].time
+
+        if sim.ion_radplane:
+            from .ionrad.driver import ion_radtransfer
+            # the root first (sets dt and tcoarse), then the fine levels to
+            # tcoarse with the parent's EdgeFlux as inlet (main.c:541-556;
+            # ionrad_3d.c:836-852, 914-962)
+            with record_function("radiation"):
+                states = [s.replace(dt=dt) for s in states]
+                states[0], dt, n0 = ion_radtransfer(
+                    states[0], sim, L[0].grid, L[0].ion, time, self.cour_no,
+                    return_niter=True)
+                iters = [n0] + [0] * (nlev - 1)
+                tcoarse = dt
+                direction = L[0].ion.radplanes[0][0]
+                for li in self.up:
+                    pi = L[li].parent
+                    with record_function("smr"):
+                        inlet = smr.child_inlet_flux(
+                            states[pi].Eflux, L[pi].grid, L[li].grid,
+                            L[li].link, direction)
+                    states[li], _, iters[li] = ion_radtransfer(
+                        states[li], sim, L[li].grid, L[li].ion, time,
+                        self.cour_no, inlet=inlet, tcoarse=tcoarse,
+                        return_niter=True)
+            self.rad_iters.append(iters)
+            # ionradRestrictCorrect: E and s0 fine -> coarse
+            with record_function("smr"):
+                for li in self.down:
+                    pi = L[li].parent
+                    states[pi] = states[pi].replace(U=smr.restrict_to_parent(
+                        states[pi].U, states[li].U, L[pi].grid, L[li].grid,
+                        L[li].link, nvars=[IEN, 5]))
+
+        # hydro on every level with the same dt; each keeps only the flux
+        # planes the corrections read (pCO/pPO myFlx,
+        # integrate_3d_ctu.c:3060-3330)
+        own, of_child = {}, {}
+        for li in range(nlev):
+            with record_function("hydro"):
+                snew, Fp2 = ctu3d.step(states[li], dt, sim, L[li].grid,
+                                       L[li].problem, phi=L[li].phi,
+                                       return_fluxes=True)
+            with record_function("smr"):
+                if L[li].parent is not None:
+                    own[li] = smr.boundary_flux_planes_fine(Fp2, L[li].grid)
+                for ci in range(1, nlev):
+                    if L[ci].parent == li:
+                        of_child[ci] = smr.boundary_flux_planes_coarse(
+                            Fp2, L[li].grid, L[ci].link)
+            del Fp2
+            states[li] = snew
+
+        # RestrictCorrect: conserved restriction + flux correction
+        # (smr.c:1207-1675), deepest level first
+        with record_function("smr"):
+            for li in self.down:
+                pi = L[li].parent
+                Up = smr.restrict_to_parent(states[pi].U, states[li].U,
+                                            L[pi].grid, L[li].grid,
+                                            L[li].link)
+                Up = smr.flux_correct_planes(Up, of_child.pop(li),
+                                             own.pop(li), L[pi].grid,
+                                             L[li].grid, L[li].link, dt)
+                states[pi] = states[pi].replace(U=Up)
+
+        # Userwork (prob/ioniz_sphere.c:255-306 core reset)
+        for li in range(nlev):
+            uw = getattr(L[li].problem, "userwork_in_loop", None)
+            if uw is not None:
+                with record_function("userwork"):
+                    states[li] = uw(states[li], sim, L[li].grid,
+                                    aux=L[li].uw_aux)
+
+        # time/dt update: min over levels, 2x clamp (new_dt.c:32-198 loops
+        # all Grids)
+        with record_function("new_dt"):
+            dt_next = None
+            for li in range(nlev):
+                d = dt_mod.new_dt(states[li].replace(dt=dt), sim, L[li].grid,
+                                  self.cour_no)
+                dt_next = d if dt_next is None else torch.minimum(dt_next, d)
+        nstep = states[0].nstep + 1
+        states = [s.replace(time=time + dt, dt=dt_next, nstep=nstep)
+                  for s in states]
+
+        # boundary values (root physical BCs; children interior)
+        with record_function("bvals"):
+            states[0] = bvals.apply_bc(states[0], L[0].grid, sim,
+                                       L[0].problem)
+
+        # Prolongate: child ghost zones from the parent, parent first
+        with record_function("smr"):
+            for li in self.up:
+                pi = L[li].parent
+                states[li] = states[li].replace(U=smr.prolong_ghosts(
+                    states[pi].U, states[li].U, L[pi].grid, L[li].grid,
+                    L[li].link, sim=sim))
+        for lv, st in zip(L, states):
+            lv.state = st
+
+    # -------------------------------------------------------------------- run
+
+    def run(self, max_steps: Optional[int] = None, verbose: bool = False,
+            outdir: Optional[str] = None):
+        """Main loop (main.c:519-669) without outputs; returns
+        dict(steps, wall, zone_cycles_per_sec) with the zones of every
+        level counted."""
+        if outdir is not None:
+            raise NotImplementedError("SMR outputs (ROADMAP A9)")
+        nlim = self.nlim if max_steps is None else max_steps
+        zones = sum(lv.grid.Nx[0] * lv.grid.Nx[1] * lv.grid.Nx[2]
+                    for lv in self.levels)
+        steps0 = int(self.state.nstep)
+        t0 = _time.perf_counter()
+        while True:
+            tnow = float(self.state.time)
+            nstep = int(self.state.nstep)
+            if self.tlim > 0 and tnow >= self.tlim:
+                break
+            if nlim is not None and nlim >= 0 and nstep - steps0 >= nlim:
+                break
+            if verbose:
+                print(f"cycle={nstep} time={tnow:.6e} dt="
+                      f"{float(self.state.dt):.6e}")
+            self.step()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = _time.perf_counter() - t0
+        nsteps = int(self.state.nstep) - steps0
+        zcps = zones * nsteps / wall if wall > 0 else float("nan")
+        if verbose:
+            print(f"zone-cycles/wall-second = {zcps:.3e}")
+        return dict(steps=nsteps, wall=wall, zone_cycles_per_sec=zcps)

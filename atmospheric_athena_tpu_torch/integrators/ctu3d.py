@@ -27,6 +27,14 @@ Two paths, chosen as the JAX package chooses them
       versions of ops/ctu_mid_kernels.py and step 9 is
       hydro_kernels.flux_pointwise.
 
+``step(..., return_fluxes=True)`` is the step of an SMR level, which needs
+the whole step-9 fluxes for the flux correction (JAX ctu3d.py:212-224,
+258-270, 337-342, 379-387): on the middle-phase path the sweeps emit whole
+fluxes (sweep_lrflux), gcross and transverse_correct read them (B7's Fp
+form), step 9 is flux_corrected with or without eta (never B12), and
+grav_source and final_update take their F2 forms; on
+ATHENA_TPU_PALLAS_MID=0 it is the path above.  It returns (state, Fp2).
+
 Array conventions: [nvar, Nz, Ny, Nx]; Athena axis a is dimension 3-a of a
 stacked array (2-a of a field).  Interface index f along axis a lies
 between cells f-1 and f.  Shifts wrap (torch.roll); the wrapped cells are
@@ -91,12 +99,15 @@ def check_supported(sim: SimConfig, grid: GridConfig):
 
 
 def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
-         phi=None):
+         phi=None, return_fluxes=False):
     """One CTU step over the three axes.  `dt` is a 0-d tensor (or float);
     `phi` = (phic, [phif_x, phif_y, phif_z]) from _phi_arrays, or None to
     evaluate the problem's potential here.  Takes the middle-phase path
-    (_step_mid) unless ATHENA_TPU_PALLAS_MID turns it off; the rest of
-    this function is the path with plain middle phases."""
+    (_step_mid, or _step_mid_fluxes with `return_fluxes`) unless
+    ATHENA_TPU_PALLAS_MID turns it off; the rest of this function is the
+    path with plain middle phases.  With `return_fluxes` it returns
+    (state, Fp2), Fp2[a] the step-9 flux of axis a [nv, NZ, NY, NX]
+    (index f: the interface between cells f-1 and f)."""
     check_supported(sim, grid)
     axes = (0, 1, 2)
     dtodx = {a: dt / grid.dx[a] for a in axes}
@@ -106,6 +117,9 @@ def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
     phic, phif = phi if phi is not None else _phi_arrays(
         problem, grid, U.dtype, U.device)
     if mid.supported():
+        if return_fluxes:
+            Unew, Fp2 = _step_mid_fluxes(U, phic, phif, dtodx, q, sim, grid)
+            return state.replace(U=Unew), Fp2
         return state.replace(U=_step_mid(U, phic, phif, dtodx, q, sim, grid))
 
     # === STEPS 1-3: per-axis L/R states + first-pass fluxes =================
@@ -137,8 +151,9 @@ def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
     Sg = (mid.grav_source_plain(U, Fp, Fp2, phic, phif, q, dtodx, axes)
           if phic is not None else None)
     del Fp
-    return state.replace(U=mid.final_update_plain(U, Fp2, Sg, dtodx, sim,
-                                                  grid, axes))
+    out = state.replace(U=mid.final_update_plain(U, Fp2, Sg, dtodx, sim,
+                                                 grid, axes))
+    return (out, Fp2) if return_fluxes else out
 
 
 def _step_mid(U, phic, phif, dtodx, q, sim: SimConfig, grid: GridConfig):
@@ -185,3 +200,38 @@ def _step_mid(U, phic, phif, dtodx, q, sim: SimConfig, grid: GridConfig):
 
     # === STEP 12: conservative update + interior splice ===================
     return mid.final_update(U, Fp2, Sg, dtodx, sim, grid, axes, dF2=dF2)
+
+
+def _step_mid_fluxes(U, phic, phif, dtodx, q, sim: SimConfig,
+                     grid: GridConfig):
+    """The middle-phase path of an SMR level (JAX ctu3d.py:212-387 with
+    return_fluxes, so without use_df): returns (the new U, Fp2)."""
+    axes = (0, 1, 2)
+    grav = phic is not None
+
+    # === STEPS 1-3: L/R states and whole first-pass fluxes per axis ======
+    Ulp, Urp, Fp = {}, {}, {}
+    for a in axes:
+        Ulp[a], Urp[a], Fp[a] = hydro_kernels.sweep_lrflux(
+            U, phic, phif[a] if grav else None, dtodx[a], sim, a)
+
+    # === STEPS 5-7: gravity cross terms, transverse corrections (B7 from
+    # the whole fluxes), eta ==============================================
+    G = mid.gcross(U, phic, phif, Fp, q, axes) if grav else None
+    Ulc, Urc, eta = {}, {}, {}
+    for a in axes:
+        Ulc[a], Urc[a], eta[a] = mid.transverse_correct(
+            Ulp.pop(a), Urp.pop(a), None, G, q, sim, a, axes, Fp=Fp)
+    del G
+
+    # === STEP 9: final fluxes, with or without the etah gather ===========
+    etaS = [eta[a] for a in axes] if sim.h_correction else None
+    Fp2 = {a: mid.flux_corrected(Ulc.pop(a), Urc.pop(a), etaS, sim, a, axes)
+           for a in axes}
+    del etaS, eta
+
+    # === STEPS 8, 11-12: dhalf, gravity source, update ===================
+    Sg = (mid.grav_source(U, Fp, Fp2, phic, phif, q, dtodx, axes)
+          if grav else None)
+    del Fp
+    return mid.final_update(U, Fp2, Sg, dtodx, sim, grid, axes), Fp2

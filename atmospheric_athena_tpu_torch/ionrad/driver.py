@@ -4,10 +4,12 @@ path of ``atmospheric_athena_tpu/ionrad/driver.py``: the K=1 loop and the
 batched loop (``ionradiation/batch_iters`` = K > 1).
 
 Runs BEFORE the hydro update each cycle and may SHRINK the hydro dt
-(ionrad_3d.c:983,1000,1033).  The sub-cycle is a Python loop: every carry
-value stays on the device, and each K=1 iteration reads one boolean (the
-stop test) back to the host; each batch reads (ok, stop, substeps) in one
-transfer.  Everything operates on ACTIVE cells only; ghosts are refreshed
+(ionrad_3d.c:983,1000,1033).  An SMR fine level (``inlet``, ``tcoarse``)
+integrates to the root's tcoarse with the parent's EdgeFlux as its inlet
+and feeds nothing back into dt (ionrad_3d.c:914-962, 1004-1013).  The
+sub-cycle is a Python loop: every carry value stays on the device, and
+each K=1 iteration reads one boolean (the stop test) back to the host;
+each batch reads (ok, stop, substeps) in one transfer.  Everything operates on ACTIVE cells only; ghosts are refreshed
 by bvals after radiation, as in main.c:552.
 
 The per-cell physics (``rates_percell``, ``update_percell``,
@@ -211,10 +213,13 @@ def ion_radtransfer(state: State, sim: SimConfig, grid: GridConfig,
 
     Returns (new_state, dt_new) — the state with updated E, s0 and Eflux
     and the (possibly shrunk) hydro dt of this cycle — plus the number of
-    sub-iterations (a host int) with `return_niter`."""
-    if inlet is not None or tcoarse is not None:
-        raise NotImplementedError(
-            "SMR fine-level radiation (inlet/tcoarse) (ROADMAP A13)")
+    sub-iterations (a host int) with `return_niter`.
+
+    SMR fine-level mode (JAX driver.py:277-282): with `tcoarse` (a 0-d
+    tensor, the root level's dt_done) the sub-cycle integrates exactly to
+    tcoarse and stops on that alone, takes the K=1 loop, and returns
+    dt_new = state.dt (no feedback); `inlet` (a per-column [NZ, NY, 1]
+    array from smr.child_inlet_flux) replaces the time-ramped inflow."""
     if mesh is not None:
         raise NotImplementedError("multi-device radiation (ROADMAP A14)")
     if sim.mhd or not sim.adiabatic:
@@ -239,10 +244,18 @@ def ion_radtransfer(state: State, sim: SimConfig, grid: GridConfig,
     E0, s00 = _apply_floors(U[IEN], U[iscal], d, ke_be, sim, ion)
     _, _, x_init = _temp(E0, s00, d, ke_be, sim, ion)
     e_init = E0
-    Fin = inlet_ramp(ion.radplanes[0][1], time, ion)
+    if inlet is not None:
+        Fin = torch.zeros((), dtype=d.dtype, device=d.device)  # unused
+    else:
+        Fin = inlet_ramp(ion.radplanes[0][1], time, ion)
+    # the sub-cycle's end: the hydro dt, or a fine level's tcoarse
+    dt_limit = dt0 if tcoarse is None else tcoarse
 
-    rates_fn, update_fn = rad_kernels.build(
-        sim, grid, ion, d, M1, M2, M3, e_init, x_init)
+    # _fused (update_k + rates_{k+1}, B3') is bound as the JAX driver binds
+    # it (driver.py:416) and not called: the two kernels per iteration
+    # measured faster, on a TPU v5e and on an H100 (PERF.md §6)
+    rates_fn, update_fn, _fused = rad_kernels.build(
+        sim, grid, ion, d, M1, M2, M3, e_init, x_init, inlet=inlet)
 
     # carry: (E, s0, packed (sign, count) code; pack(0, 0) = 1)
     E, s0 = E0.contiguous(), s00.contiguous()
@@ -256,10 +269,13 @@ def ion_radtransfer(state: State, sim: SimConfig, grid: GridConfig,
         code, eflux, kph, nHdot, edot, dt_chem, dt_therm = rates_fn(
             s0, E, code, Fin)
         dt = torch.minimum(dt_chem, dt_therm)
-        hydro_done = dt_done + dt > dt0
-        dt = torch.where(hydro_done, dt0 - dt_done, dt)
+        hydro_done = dt_done + dt > dt_limit
+        dt = torch.where(hydro_done, dt_limit - dt_done, dt)
         E, s0, cellcount, dti_max = update_fn(s0, E, kph, nHdot, edot, dt)
         dt_done = dt_done + dt
+        if tcoarse is not None:
+            # fine level: integrate to tcoarse; no dt feedback
+            return E, s0, code, eflux, dt_done, dt_new, hydro_done
         range_hit = cellcount > MAXCELLCOUNT
         cfl_hit = cour_no / dti_max < dt_done
         stop = range_hit | hydro_done | cfl_hit
@@ -271,7 +287,7 @@ def ion_radtransfer(state: State, sim: SimConfig, grid: GridConfig,
 
     niter = 0
     stop = False
-    if ion.batch_iters <= 1:
+    if ion.batch_iters <= 1 or tcoarse is not None:
         while niter < ion.maxiter:
             E, s0, code, eflux, dt_done, dt_new, stop_t = iteration(
                 E, s0, code, dt_done, dt_new)
@@ -331,8 +347,11 @@ def ion_radtransfer(state: State, sim: SimConfig, grid: GridConfig,
                 *_, dtc1, dtt1 = rates_fn(s0, E, code, Fin)
                 dt_lim = torch.minimum(dtc1, dtt1)
 
-    # maxiter exit without a stop condition: dt = dt_done (ionrad_3d.c:1022)
-    if not stop:
+    if tcoarse is not None:
+        dt_new = dt0     # fine levels never feed back into the mesh dt
+    elif not stop:
+        # maxiter exit without a stop condition: dt = dt_done
+        # (ionrad_3d.c:1022)
         dt_new = dt_done
     Unew = state.U.clone()
     Unew[(iscal,) + grid.interior()] = s0

@@ -1,6 +1,7 @@
 """The radiation sub-cycle kernels and their plain PyTorch versions
-(replacing ``atmospheric_athena_tpu/ionrad/pallas_rad.py``'s ``build`` and
-its ``_rates_kernel`` / ``_update_kernel``).
+(replacing ``atmospheric_athena_tpu/ionrad/pallas_rad.py``'s ``build`` with
+its ``_rates_kernel`` / ``_update_kernel`` / ``_fused_kernel``, and
+``build_batch`` with its ``_batch_kernel``).
 
 Per sub-iteration the algorithm needs two passes over the grid, separated
 by the global dt = min(dt_chem, dt_therm) (ionrad_3d.c:941-954):
@@ -12,7 +13,11 @@ by the global dt = min(dt_chem, dt_therm) (ionrad_3d.c:941-954):
   update — update_percell (explicit update, floors, check_range flags) and
            the compute_dt_hydro CFL per axis (driver.dti_percell), exact
            for any cell shape.
-
+  fused  — update_k and rates_{k+1} in one pass (pallas_rad.py's
+           ``_fused_kernel``): the same operations as update then rates.
+           The JAX driver binds it and never calls it (slower than the two
+           kernels, on a TPU v5e and on an H100), and so does this port's
+           driver.
   batch  — K substeps of the sub-cycle in one pass (pallas_rad.py's
            ``_batch_kernel``): each the "fast" plane sweep (the prefix sum
            of tau in a fixed order, see ``prefix_sum_x``), rates_percell
@@ -21,14 +26,24 @@ by the global dt = min(dt_chem, dt_therm) (ionrad_3d.c:941-954):
            minima of the last active substep, the CFL of the final state and
            the schedule's validity flag.
 
-``build`` returns ``rates_fn`` / ``update_fn`` closed over the per-step
-constants, with the contract of pallas_rad.build (pallas_rad.py:312-407);
+The inlet flux of rates and fused is the scalar Fin, or for an SMR fine
+level (``inlet=``) a per-column [NZ, NY] (or [NZ, NY, 1]) array, the
+parent's EdgeFlux under each x row (smr.child_inlet_flux); Fin is then
+ignored.
+
+``build`` returns ``rates_fn`` / ``update_fn`` / ``fused_fn`` closed over
+the per-step constants, with the contract of pallas_rad.build
+(pallas_rad.py:312-421);
 ``build_batch`` returns ``batch_fn``, with the contract of
 pallas_rad.build_batch (pallas_rad.py:530-597).  Each wrapper launches the
 CUDA kernel (csrc/rad.cu, csrc/rad_batch.cu) for CUDA tensors and calls
 the plain version for CPU tensors; the plain versions call the per-cell
 physics of ``driver``.  The violation count is an integer sum (exact at
-any grid size).  ``<wrapper>.launches`` counts kernel launches.
+any grid size).  ``<wrapper>.launches`` counts kernel launches, and
+``rates.forms`` / ``fused.forms`` count them per inlet form ("scalar" or
+"inlet").  The batch kernel's inlet form (pallas_rad.build_batch with
+inlet) is not ported: no path runs it, since a fine level takes the K=1
+loop.
 """
 
 from __future__ import annotations
@@ -36,6 +51,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from collections import Counter
 
 import torch
 
@@ -63,8 +79,15 @@ def check_supported(sim: SimConfig, grid: GridConfig, ion: IonConfig):
 
 # ------------------------------------------------------------- plain versions
 
+def _inflow(Fin, inlet, s0):
+    """The sweep's inflow: the per-column inlet as [NZ, NY, 1], else Fin."""
+    if inlet is None:
+        return Fin
+    return inlet.reshape(s0.shape[0], s0.shape[1], 1)
+
+
 def rates_plain(s0, E, code, d, Msq, Fin, sim: SimConfig, grid: GridConfig,
-                ion: IonConfig):
+                ion: IonConfig, inlet=None):
     """Plain version of ``rates``: returns (ncode, efb, efx, kph, nHdot,
     edot, dt_chem, dt_therm) with efb the faces 0..NX-1, efx the exit face
     [NZ, NY, 1] and dt_chem/dt_therm 0-d minima."""
@@ -72,7 +95,8 @@ def rates_plain(s0, E, code, d, Msq, Fin, sim: SimConfig, grid: GridConfig,
     ke_be = 0.5 * Msq / d
     d_nlim = driver._d_nlim(d, ion)
     lsn, scn = code % 4 - 1, code // 4
-    kph, edge = get_ph_rate_plane(s0, Fin, -1, grid, ion)
+    kph, edge = get_ph_rate_plane(s0, _inflow(Fin, inlet, s0), -1, grid,
+                                  ion)
     nHdot, nsn, ncn, dtc, edot, dtt = driver.rates_percell(
         s0, E, d, ke_be, lsn, scn, kph, d_nlim, sim, ion)
     n = s0.shape[-1]
@@ -94,6 +118,23 @@ def update_plain(s0, E, d, M1, M2, M3, kph, nHdot, edot, e_init, x_init, dt,
         sim, ion)
     dti = driver.dti_percell(E2, d, M1, M2, M3, sim, grid)
     return E2, s02, torch.sum(viol, dtype=torch.int64), torch.amax(dti)
+
+
+def fused_plain(s0, E, code, kph, nHdot, edot, d, M1, M2, M3, e_init,
+                x_init, dt, Fin, sim: SimConfig, grid: GridConfig,
+                ion: IonConfig, inlet=None):
+    """Plain version of ``fused``: update_plain, then rates_plain on the
+    updated (s02, E2) with the incoming code.  Returns (E2, s02, ncode,
+    kph2, nH2, ed2, (efb, efx), viol, dti_max, dt_chem, dt_therm), the
+    contract of pallas_rad's fused_fn."""
+    E2, s02, viol, dti = update_plain(s0, E, d, M1, M2, M3, kph, nHdot, edot,
+                                      e_init, x_init, dt, sim, grid, ion)
+    Msq = M1 ** 2 + M2 ** 2 + M3 ** 2
+    (ncode, efb, efx, kph2, nH2, ed2, dtc,
+     dtt) = rates_plain(s02, E2, code, d, Msq, Fin, sim, grid, ion,
+                        inlet=inlet)
+    return (E2, s02, ncode, kph2, nH2, ed2, (efb, efx), viol, dti, dtc,
+            dtt)
 
 
 def prefix_sum_x(tau):
@@ -259,24 +300,42 @@ def _check_fields(name, ref, fields, ints=()):
                              f"{tuple(ref.shape)} tensor")
 
 
+def _inlet_arg(inlet, s0):
+    """The per-column inlet as the kernels read it: a contiguous [NZ, NY]
+    tensor of s0's dtype on its device (one value per x row), or None."""
+    if inlet is None:
+        return None
+    nz, ny, _ = s0.shape
+    if inlet.numel() != nz * ny or inlet.shape[:2] != (nz, ny):
+        raise ValueError(f"inlet of shape {tuple(inlet.shape)}: expected "
+                         f"[{nz}, {ny}] or [{nz}, {ny}, 1]")
+    if inlet.device != s0.device or inlet.dtype != s0.dtype:
+        raise ValueError("inlet: must share the fields' device and dtype")
+    return inlet.reshape(nz, ny).contiguous()
+
+
 def rates(s0, E, code, d, Msq, Fin, sim: SimConfig, grid: GridConfig,
-          ion: IonConfig):
+          ion: IonConfig, inlet=None):
     """Plane sweep + chemistry/thermal rates; see ``rates_plain`` for the
-    outputs.  Fin is the inlet flux (float or 0-d tensor).
+    outputs.  Fin is the inlet flux (float or 0-d tensor); a per-column
+    `inlet` ([NZ, NY] or [NZ, NY, 1]) replaces it.
 
     Kernel (CUDA tensors): csrc/rad.cu rates_kernel, replacing
-    ionrad/pallas_rad.py:_rates_kernel — one warp per x row with a shuffle
-    scan of the transmittance; bound by the FP64 pipe in float64 (log and
-    three exp per cell) and by its 9 field streams in float32."""
+    ionrad/pallas_rad.py:_rates_kernel in both inlet forms — one warp per x
+    row with a shuffle scan of the transmittance, the row's inlet read
+    once; bound by the FP64 pipe in float64 (log and three exp per cell)
+    and by its 9 field streams in float32."""
     if s0.device.type != "cuda":
-        return rates_plain(s0, E, code, d, Msq, Fin, sim, grid, ion)
+        return rates_plain(s0, E, code, d, Msq, Fin, sim, grid, ion,
+                           inlet=inlet)
     check_supported(sim, grid, ion)
     _check_fields("rates", s0, (E, d, Msq), ints=(code,))
+    inl = _inlet_arg(inlet, s0)
     nz, ny, nx = s0.shape
     nrows = nz * ny
     L = cuda_lib.lib()
     nblk = L.ath_rad_rates_blocks(nrows)
-    fin = cuda_lib.scalar_arg(Fin, s0)
+    fin = cuda_lib.scalar_arg(0.0 if inl is not None else Fin, s0)
     ncode = torch.empty_like(code)
     efb, kph, nHdot, edot = (torch.empty_like(s0) for _ in range(4))
     efx = torch.empty((nz, ny, 1), dtype=s0.dtype, device=s0.device)
@@ -286,18 +345,21 @@ def rates(s0, E, code, d, Msq, Fin, sim: SimConfig, grid: GridConfig,
     fn = L.ath_rad_rates_f64 if s0.dtype == torch.float64 \
         else L.ath_rad_rates_f32
     err = fn(s0.data_ptr(), E.data_ptr(), code.data_ptr(), d.data_ptr(),
-             Msq.data_ptr(), fin.data_ptr(), ncode.data_ptr(),
+             Msq.data_ptr(), fin.data_ptr(),
+             None if inl is None else inl.data_ptr(), ncode.data_ptr(),
              efb.data_ptr(), efx.data_ptr(), kph.data_ptr(),
              nHdot.data_ptr(), edot.data_ptr(), dtc_p.data_ptr(),
              dtt_p.data_ptr(), nrows, nx, ctypes.byref(prm),
              cuda_lib.stream_ptr(s0.device))
     cuda_lib.check(err, "rates")
     rates.launches += 1
+    rates.forms["scalar" if inl is None else "inlet"] += 1
     return (ncode, efb, efx, kph, nHdot, edot, torch.amin(dtc_p),
             torch.amin(dtt_p))
 
 
 rates.launches = 0
+rates.forms = Counter()
 
 
 def update(s0, E, d, M1, M2, M3, kph, nHdot, edot, e_init, x_init, dt,
@@ -340,6 +402,66 @@ def update(s0, E, d, M1, M2, M3, kph, nHdot, edot, e_init, x_init, dt,
 
 
 update.launches = 0
+
+
+def fused(s0, E, code, kph, nHdot, edot, d, M1, M2, M3, e_init, x_init, dt,
+          Fin, sim: SimConfig, grid: GridConfig, ion: IonConfig,
+          inlet=None):
+    """update_k then rates_{k+1} in one pass; see ``fused_plain`` for the
+    outputs.  dt and Fin are floats or 0-d tensors; a per-column `inlet`
+    replaces Fin as in ``rates``.
+
+    Kernel (CUDA tensors): csrc/rad.cu fused_kernel, replacing
+    ionrad/pallas_rad.py:_fused_kernel in both inlet forms — rates' warp
+    per x row: each lane updates its chunk (update_percell, the per-axis
+    CFL), stages the updated s0 and E in shared memory, and after the
+    shuffle scan of the updated transmittance runs rates_percell on them;
+    it reads 12 fields and writes 7 and the exit face, against 9 + 13 for
+    rates and update apart; bound by the FP64 pipe in float64 (the
+    chemistry's log, exp and divides) and by its 19 field streams in
+    float32."""
+    if s0.device.type != "cuda":
+        return fused_plain(s0, E, code, kph, nHdot, edot, d, M1, M2, M3,
+                           e_init, x_init, dt, Fin, sim, grid, ion,
+                           inlet=inlet)
+    check_supported(sim, grid, ion)
+    _check_fields("fused", s0, (E, kph, nHdot, edot, d, M1, M2, M3, e_init,
+                                x_init), ints=(code,))
+    inl = _inlet_arg(inlet, s0)
+    nz, ny, nx = s0.shape
+    nrows = nz * ny
+    L = cuda_lib.lib()
+    nblk = L.ath_rad_rates_blocks(nrows)
+    scal = cuda_lib.scalar_arg([dt, 0.0 if inl is not None else Fin], s0)
+    E2, s02, kph2, nH2, ed2, efb = (torch.empty_like(s0) for _ in range(6))
+    ncode = torch.empty_like(code)
+    efx = torch.empty((nz, ny, 1), dtype=s0.dtype, device=s0.device)
+    viol_p = torch.empty(nblk, dtype=torch.int32, device=s0.device)
+    dti_p, dtc_p, dtt_p = (torch.empty(nblk, dtype=s0.dtype,
+                                       device=s0.device) for _ in range(3))
+    prm = _params(sim, tuple(grid.dx), ion)
+    fn = L.ath_rad_fused_f64 if s0.dtype == torch.float64 \
+        else L.ath_rad_fused_f32
+    err = fn(s0.data_ptr(), E.data_ptr(), code.data_ptr(), kph.data_ptr(),
+             nHdot.data_ptr(), edot.data_ptr(), d.data_ptr(), M1.data_ptr(),
+             M2.data_ptr(), M3.data_ptr(), e_init.data_ptr(),
+             x_init.data_ptr(), scal.data_ptr(),
+             None if inl is None else inl.data_ptr(), E2.data_ptr(),
+             s02.data_ptr(), ncode.data_ptr(), kph2.data_ptr(),
+             nH2.data_ptr(), ed2.data_ptr(), efb.data_ptr(), efx.data_ptr(),
+             viol_p.data_ptr(), dti_p.data_ptr(), dtc_p.data_ptr(),
+             dtt_p.data_ptr(), nrows, nx, ctypes.byref(prm),
+             cuda_lib.stream_ptr(s0.device))
+    cuda_lib.check(err, "fused")
+    fused.launches += 1
+    fused.forms["scalar" if inl is None else "inlet"] += 1
+    return (E2, s02, ncode, kph2, nH2, ed2, (efb, efx),
+            torch.sum(viol_p, dtype=torch.int64), torch.amax(dti_p),
+            torch.amin(dtc_p), torch.amin(dtt_p))
+
+
+fused.launches = 0
+fused.forms = Counter()
 
 
 def batch(s0, E, code, d, M1, M2, M3, e_init, x_init, dts, Fin,
@@ -401,16 +523,24 @@ batch.launches = 0
 
 
 def build(sim: SimConfig, grid: GridConfig, ion: IonConfig, d, M1, M2, M3,
-          e_init, x_init):
-    """Returns (rates_fn, update_fn) closed over the per-step constants:
+          e_init, x_init, inlet=None):
+    """Returns (rates_fn, update_fn, fused_fn) closed over the per-step
+    constants:
 
     rates_fn(s0, E, code, Fin) ->
         (ncode, (efb, efx), kph, nHdot, edot, dt_chem, dt_therm)
     update_fn(s0, E, kph, nHdot, edot, dt) -> (E2, s02, cellcount, dti_max)
+    fused_fn(s0, E, code, kph, nHdot, edot, dt, Fin) ->
+        (E2, s02, ncode, kph2, nH2, ed2, (efb, efx), cellcount, dti_max,
+         dt_chem, dt_therm)
 
     with `code` the packed (last_sign, sign_count) int32 carry; all inputs
-    are active-cell fields [NZ, NY, NX] on one device."""
+    are active-cell fields [NZ, NY, NX] on one device.  With `inlet` (the
+    SMR fine-level mode, a per-column [NZ, NY] or [NZ, NY, 1] array) the
+    Fin argument of rates_fn and fused_fn is ignored."""
     check_supported(sim, grid, ion)
+    if inlet is not None:
+        inlet = inlet.reshape(d.shape[0], d.shape[1]).contiguous()
     d = d.contiguous()
     Msq = (M1 ** 2 + M2 ** 2 + M3 ** 2).contiguous()
     M1, M2, M3 = M1.contiguous(), M2.contiguous(), M3.contiguous()
@@ -419,14 +549,18 @@ def build(sim: SimConfig, grid: GridConfig, ion: IonConfig, d, M1, M2, M3,
 
     def rates_fn(s0, E, code, Fin):
         (ncode, efb, efx, kph, nHdot, edot, dtc,
-         dtt) = rates(s0, E, code, d, Msq, Fin, sim, grid, ion)
+         dtt) = rates(s0, E, code, d, Msq, Fin, sim, grid, ion, inlet=inlet)
         return ncode, (efb, efx), kph, nHdot, edot, dtc, dtt
 
     def update_fn(s0, E, kph, nHdot, edot, dt):
         return update(s0, E, d, M1, M2, M3, kph, nHdot, edot, e_init, x_init,
                       dt, sim, grid, ion)
 
-    return rates_fn, update_fn
+    def fused_fn(s0, E, code, kph, nHdot, edot, dt, Fin):
+        return fused(s0, E, code, kph, nHdot, edot, d, M1, M2, M3, e_init,
+                     x_init, dt, Fin, sim, grid, ion, inlet=inlet)
+
+    return rates_fn, update_fn, fused_fn
 
 
 def build_batch(sim: SimConfig, grid: GridConfig, ion: IonConfig, d, M1, M2,

@@ -16,7 +16,7 @@ def register(name):
 
 
 def get_problem(name: str):
-    from . import ioniz_sphere, testsedov  # noqa: F401  (register themselves)
+    from . import blast, ioniz_sphere, testsedov  # noqa: F401  (register)
     try:
         return _REGISTRY[name]
     except KeyError:

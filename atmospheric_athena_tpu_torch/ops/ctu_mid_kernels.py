@@ -5,11 +5,14 @@ step between the per-axis sweeps and the new state.
   gcross             — B6, static-gravity cross terms G_b = (dM_b, dE_b)
                        (integrate_3d_ctu.c:1160-1222).
   transverse_correct — B7, steps 5-7 along axis a from the sweeps' flux
-                       differences dF_b, minus the G_b terms, and the
-                       H-correction eta of the corrected states.
-  flux_corrected     — B8, step 9: the etah gather and the Roe flux (the
-                       route with the H-correction; without it, step 9 is
-                       hydro_kernels.flux_sweep_df, B12).
+                       differences dF_b (or, for an SMR level's step, from
+                       the whole first-pass fluxes F_b), minus the G_b
+                       terms, and the H-correction eta of the corrected
+                       states.
+  flux_corrected     — B8, step 9: the etah gather and the Roe or HLLC flux
+                       (the route with the H-correction, and an SMR level's
+                       route without it; the single-level step without it
+                       takes hydro_kernels.flux_sweep_df, B12).
   grav_source        — B9, step 8's dhalf and the full-dt gravity source;
                        with Fp2IDr (B12's F2_ID(+1_a)) as an operand or as
                        a shifted read of F2_ID.
@@ -19,9 +22,9 @@ step between the per-axis sweeps and the new state.
 The names and argument order are those of pallas_ctu_mid (gcross,
 transverse_correct, flux_corrected, grav_source_pl, final_update), less
 the arguments that only served the TPU's tiling (``grid`` where it gave
-block shapes) and the form this port does not run: transverse_correct
-takes the dFp form only (no Fp).  ``q`` and ``dtodx`` are dicts {axis:
-value}, values floats or 0-d tensors.
+block shapes); transverse_correct takes ``Fp`` last, as a keyword, since
+its dFp form is the one the single-level step runs.  ``q`` and ``dtodx``
+are dicts {axis: value}, values floats or 0-d tensors.
 
 Each wrapper takes the kernel (csrc/ctu_mid.cu) for CUDA tensors, and the
 plain version for CPU tensors.  The plain versions repeat the order of
@@ -31,8 +34,9 @@ touching only ghost cells that no interior update reads.  The kernels
 cover the 3D step, ``axes == (0, 1, 2)``.
 
 ``<wrapper>.launches`` counts the kernel launches of each wrapper;
-``grav_source.forms`` and ``final_update.forms`` count them per form
-("Fp2IDr" or "Fp2ID", "dF2" or "F2").
+``<wrapper>.forms`` counts them per form: transverse_correct "dF" or "F",
+flux_corrected the solver ("roe" or "hllc"), grav_source "Fp2IDr" or
+"Fp2ID", final_update "dF2" or "F2".
 """
 
 from __future__ import annotations
@@ -103,8 +107,12 @@ def gcross_plain(U, phic, phif, Fp, q, axes):
 
 
 def transverse_correct_plain(Ulp, Urp, dFp, G, q, sim: SimConfig, a: int,
-                             axes):
-    """Plain version of ``transverse_correct`` (same signature)."""
+                             axes, Fp=None):
+    """Plain version of ``transverse_correct`` (same signature).  From Fp it
+    forms dF_b = F_b(+1_b) - F_b, the sweep's own subtraction, so the two
+    forms agree bit for bit."""
+    if Fp is not None:
+        dFp = {b: _sh(Fp[b], 1, b) - Fp[b] for b in axes if b != a}
     corr_r = corr_l = None
     for b in axes:                 # ascending b
         if b == a:
@@ -239,25 +247,35 @@ def gcross(U, phic, phif, Fp, q, axes):
 gcross.launches = 0
 
 
-def transverse_correct(Ulp, Urp, dFp, G, q, sim: SimConfig, a: int, axes):
+def transverse_correct(Ulp, Urp, dFp, G, q, sim: SimConfig, a: int, axes,
+                       Fp=None):
     """Steps 5-7 along axis a: returns (Ulc, Urc, eta), eta the
     H-correction jump [NZ, NY, NX] (None without the H-correction).
 
     Ulp, Urp: axis a's sweep states [nv, ...]; dFp: {b: dF_b [nv, ...]}
-    from sweep_lrflux_df; G: gcross output or None without gravity.
+    from sweep_lrflux_df, or None with Fp: {b: F_b [nv, ...]}, the whole
+    first-pass fluxes from sweep_lrflux (an SMR level's step); G: gcross
+    output or None without gravity.
 
     Kernel (CUDA tensors): csrc/ctu_mid.cu transverse_kernel, replacing
-    ops/pallas_ctu_mid.py:_trans_kernel (dFp form); bound by its 28 field
-    loads and 13 stores per cell."""
+    ops/pallas_ctu_mid.py:_trans_kernel in both forms; bound by its 28
+    field loads and 13 stores per cell (the Fp form reads four views of
+    each F_b, three of them neighbours that are mostly cache hits, and
+    forms both differences in registers)."""
+    if (dFp is None) == (Fp is None):
+        raise ValueError("transverse_correct: give dFp or Fp")
     if Ulp.device.type != "cuda":
-        return transverse_correct_plain(Ulp, Urp, dFp, G, q, sim, a, axes)
+        return transverse_correct_plain(Ulp, Urp, dFp, G, q, sim, a, axes,
+                                        Fp=Fp)
     others = [b for b in range(3) if b != a]
-    dF = [None if b == a else dFp[b] for b in range(3)]
+    src = dFp if Fp is None else Fp
+    dF = [None if b == a else src[b] for b in range(3)]
     Gs = [None if (G is None or b == a) else G[b] for b in range(3)]
     _check("transverse_correct", Ulp, Urp, *dF, *Gs, sim=sim, axes=axes)
-    if Urp.shape != Ulp.shape or any(dFp[b].shape != Ulp.shape
+    if Urp.shape != Ulp.shape or any(src[b].shape != Ulp.shape
                                      for b in others):
-        raise ValueError("transverse_correct: Urp and dFp must match Ulp")
+        raise ValueError("transverse_correct: Urp and dFp (Fp) must match "
+                         "Ulp")
     _, nz, ny, nx = Ulp.shape
     Ulc = torch.empty_like(Ulp)
     Urc = torch.empty_like(Urp)
@@ -266,32 +284,29 @@ def transverse_correct(Ulp, Urp, dFp, G, q, sim: SimConfig, a: int, axes):
     err = _fn("transverse", Ulp)(
         Ulp.data_ptr(), Urp.data_ptr(), *[_ptr(t) for t in dF],
         *[_ptr(t) for t in Gs], qv.data_ptr(), Ulc.data_ptr(), Urc.data_ptr(),
-        _ptr(eta), nz, ny, nx, a, sim.nscalars, sim.gamma, sim.gamma_1,
-        cuda_lib.stream_ptr(Ulp.device))
+        _ptr(eta), nz, ny, nx, a, sim.nscalars, int(Fp is not None),
+        sim.gamma, sim.gamma_1, cuda_lib.stream_ptr(Ulp.device))
     cuda_lib.check(err, "transverse_correct")
     transverse_correct.launches += 1
+    transverse_correct.forms["dF" if Fp is None else "F"] += 1
     return Ulc, Urc, eta
 
 
 transverse_correct.launches = 0
+transverse_correct.forms = Counter()
 
 
 def flux_corrected(Ulc, Urc, etaS, sim: SimConfig, a: int, axes):
-    """Step 9 along axis a: the etah gather and the Roe flux.  Returns F2
+    """Step 9 along axis a: the etah gather and the Riemann flux of
+    ``sim.flux`` (Roe with etah, or HLLC, which ignores it).  Returns F2
     [nv, ...].  etaS: the three axes' eta, stacked [3, ...] or a sequence
     of fields, or None without the H-correction.
 
     Kernel (CUDA tensors): csrc/ctu_mid.cu flux_corrected_kernel, replacing
-    ops/pallas_ctu_mid.py:_fluxh_kernel; the Roe/HLLE solve is B13's
-    (csrc/hydro.cuh), the 9 eta reads mostly cache hits.  The kernel solves
-    Roe only: HLLC on this route (with the H-correction) raises."""
+    ops/pallas_ctu_mid.py:_fluxh_kernel; the solve is B13's
+    (csrc/hydro.cuh), the 9 eta reads mostly cache hits."""
     if Ulc.device.type != "cuda":
         return flux_corrected_plain(Ulc, Urc, etaS, sim, a, axes)
-    if sim.flux != "roe":
-        raise NotImplementedError(
-            f"flux_corrected: the CUDA kernel solves Roe, not {sim.flux} "
-            "(HLLC with the H-correction on the middle-phase path, ROADMAP "
-            "B); ATHENA_TPU_PALLAS_MID=0 runs it")
     eta = [None] * 3 if etaS is None else [etaS[b] for b in range(3)]
     _check("flux_corrected", Ulc, Urc, *eta, sim=sim, axes=axes)
     if Urc.shape != Ulc.shape:
@@ -300,14 +315,17 @@ def flux_corrected(Ulc, Urc, etaS, sim: SimConfig, a: int, axes):
     F = torch.empty_like(Ulc)
     err = _fn("flux_corrected", Ulc)(
         Ulc.data_ptr(), Urc.data_ptr(), *[_ptr(t) for t in eta],
-        F.data_ptr(), nz, ny, nx, a, sim.nscalars, sim.gamma, sim.gamma_1,
+        F.data_ptr(), nz, ny, nx, a, sim.nscalars,
+        hydro_kernels.FLUX_KIND[sim.flux], sim.gamma, sim.gamma_1,
         cuda_lib.stream_ptr(Ulc.device))
     cuda_lib.check(err, "flux_corrected")
     flux_corrected.launches += 1
+    flux_corrected.forms[sim.flux] += 1
     return F
 
 
 flux_corrected.launches = 0
+flux_corrected.forms = Counter()
 
 
 def grav_source(U, Fp, Fp2, phic, phif, q, dtodx, axes, Fp2IDr=None):

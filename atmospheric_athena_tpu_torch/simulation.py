@@ -1,6 +1,9 @@
 """Driver: setup + main loop (reference: src/main.c:90-772), for the
 configurations the port covers: the ioniz_sphere production step and 3D
-adiabatic hydro problems such as testsedov.
+adiabatic hydro problems such as testsedov and blast, on one domain or, for
+a deck with num_domains > 1 and a <domain2> block, on a static-mesh-refined
+hierarchy (``Simulation.from_par`` then returns a
+``hierarchy.MeshSimulation``, as the JAX package's does).
 
   - ``Simulation.from_file`` / ``from_par``: par parsing, config build,
     problem init, initial ghost fill, initial dt (main.c steps 1-9).
@@ -82,8 +85,6 @@ def check_supported(par: ParameterDB, sim: SimConfig, grid: GridConfig):
                                         "A15)"),
         (grid.cylindrical, "cylindrical coordinates (ROADMAP A15)"),
         (grid.ndim != 3, f"{grid.ndim}D grids (ROADMAP A10/A11)"),
-        (par.geti_def("job", "num_domains", 1) > 1
-         and par.exist("domain2", "level"), "SMR (ROADMAP A13)"),
         (any(par.getd_def("problem", k, 0.0) > 0.0 for k in (
             "nu_iso", "kappa_iso", "eta_O", "Q_AD", "Q_Hall", "nu_aniso",
             "kappa_aniso")), "diffusion / microphysics (ROADMAP A15)"),
@@ -91,6 +92,31 @@ def check_supported(par: ParameterDB, sim: SimConfig, grid: GridConfig):
     for bad, what in blockers:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet")
+
+
+def configure(par: ParameterDB, problem: Optional[str], dtype: Optional[str],
+              sim_overrides: dict):
+    """A deck's problem class, SimConfig and root GridConfig: the deck's
+    configure line, then the caller's overrides and dtype, then the
+    problem's own overrides where neither set them; raises on what the
+    port does not cover."""
+    auto = parse_configure_line(par)
+    problem = problem or auto.pop("_problem", None)
+    auto.pop("_problem", None)
+    coord = auto.pop("_coord", "cartesian")
+    if problem is None:
+        raise ValueError("no problem name given or found in deck")
+    auto.update(sim_overrides)
+    if dtype is not None:
+        auto["dtype"] = dtype
+    prob_cls = get_problem(problem)
+    for k, v in getattr(prob_cls, "sim_overrides", {}).items():
+        auto.setdefault(k, v)
+    sim = sim_config_from_par(par, **auto)
+    grid = grid_config_from_par(par, coord=coord)
+    check_supported(par, sim, grid)
+    ctu3d.check_supported(sim, grid)
+    return prob_cls, sim, grid
 
 
 class Simulation:
@@ -127,23 +153,15 @@ class Simulation:
     def from_par(cls, par: ParameterDB, problem: Optional[str] = None,
                  dtype: Optional[str] = None, device="cuda",
                  **sim_overrides) -> "Simulation":
+        # multi-<domainN> decks run on the SMR hierarchy driver
+        # (JAX simulation.py:107-113)
+        if (par.geti_def("job", "num_domains", 1) > 1
+                and par.exist("domain2", "level")):
+            from .hierarchy import MeshSimulation
+            return MeshSimulation.from_par(par, problem=problem, dtype=dtype,
+                                           device=device, **sim_overrides)
         dev = resolve_device(device)
-        auto = parse_configure_line(par)
-        problem = problem or auto.pop("_problem", None)
-        auto.pop("_problem", None)
-        coord = auto.pop("_coord", "cartesian")
-        if problem is None:
-            raise ValueError("no problem name given or found in deck")
-        auto.update(sim_overrides)
-        if dtype is not None:
-            auto["dtype"] = dtype
-        prob_cls = get_problem(problem)
-        for k, v in getattr(prob_cls, "sim_overrides", {}).items():
-            auto.setdefault(k, v)
-        sim = sim_config_from_par(par, **auto)
-        grid = grid_config_from_par(par, coord=coord)
-        check_supported(par, sim, grid)
-        ctu3d.check_supported(sim, grid)
+        prob_cls, sim, grid = configure(par, problem, dtype, sim_overrides)
         prob = prob_cls(par, sim, grid)
         state = prob.init(par, sim, grid, dev)
         state = bvals.apply_bc(state, grid, sim, prob)

@@ -2,35 +2,44 @@
 
     python3 chip_smoke.py            # needs one CUDA GPU, nvcc and triton
 
-Drives the port's main path — the ioniz_sphere step in the bench
-configuration (ionradiation/batch_iters=25, the one-pass ghost fill, the
-middle-phase CTU hydro) — through the entry points a user calls, and the
-K=1 radiation loop on both CTU hydro paths: the middle-phase path (the
-default) and the path that ATHENA_TPU_PALLAS_MID=0 selects (plain middle
-phases, whole-flux sweeps, pointwise step-9 flux); then the CTU route
-without the H-correction (step 9 by B12, flux_sweep_df) in the bench
-configuration and in the testsedov blast (HLLC).  It checks each
+Drives the port's main path — ioniz_sphere on a static-mesh-refined
+hierarchy (tests/golden/athinput.isph2lev: a root and one child at twice
+its resolution; the root's batched radiation sub-cycle, the child's K=1
+loop with the parent's EdgeFlux as inlet, each level's CTU step with whole
+fluxes, restriction, flux correction and prolongation) — through the entry
+points a user calls, and the earlier slices' paths: the single-level step
+in the bench configuration (ionradiation/batch_iters=25, the one-pass
+ghost fill, the middle-phase CTU hydro), the K=1 radiation loop on both
+CTU hydro paths (the middle-phase path, the default, and the path that
+ATHENA_TPU_PALLAS_MID=0 selects: plain middle phases, whole-flux sweeps,
+pointwise step-9 flux), the CTU route without the H-correction (step 9 by
+B12, flux_sweep_df) in the bench configuration and in the testsedov blast
+(HLLC), and testsedov with the H-correction (B8 with HLLC).  It checks each
 hand-written kernel against its plain PyTorch version on the card; a
 kernel with several forms (the solver, Roe or HLLC; the operand forms of
-grav_source and final_update) is checked and counted per form,
-"name[form]":
+transverse_correct, grav_source and final_update; the inlet of the
+radiation sweep) is checked and counted per form, "name[form]":
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
   1. build the CUDA kernels from csrc/ (nvcc, one process per source) and
      print the build time and ptxas's registers and spills of every CUDA
      kernel;
   2. kernel vs plain version on states of the isph deck after init and two
-     steps, with a damping-code carry drawn from SEED and the batch kernel
-     on a 25-substep schedule of THETA x the state's limit: float64 at 64^3
-     (max error over interior cells <= TOL x the field's max) and float32
-     at 256^3, with CUDA-event times (median) of both, the bound (bytes at
-     the HBM rate or operations at the float32 rate, whichever is larger)
-     and the library call where one exists (F.pad for the ghost fill); the
-     ghost fill must equal its plain version bitwise, ghosts included, and
-     B12's dF2, F2_ID and F2_IDr the roll-and-subtract of B13's flux on
-     the same states bitwise; then the NaN probe at 16^3 float64: one
-     interior cell's E, and in a second case d, set to NaN, and every
-     kernel's NaN cells and NaN reductions equal to its plain version's;
+     steps, with a damping-code carry and a per-column inlet drawn from
+     SEED and the batch kernel on a 25-substep schedule of THETA x the
+     state's limit: float64 at 64^3 (max error over interior cells <= TOL
+     x the field's max) and float32 at 256^3, with CUDA-event times
+     (median) of both, the bound (bytes at the HBM rate or operations at
+     the float32 rate, whichever is larger) and the library call where one
+     exists (F.pad for the ghost fill); the ghost fill must equal its plain
+     version bitwise, ghosts included, B12's dF2, F2_ID and F2_IDr the
+     roll-and-subtract of B13's flux on the same states bitwise, B7 from
+     the whole fluxes its dF form on the same fluxes bitwise, and B3' (the
+     fused update + rates, on no path, as in the JAX package) update_fn
+     followed by rates_fn of the same build within TOL, timed against
+     them; then the NaN probe at 16^3 float64: one interior cell's E, and
+     in a second case d, set to NaN, and every kernel's NaN cells and NaN
+     reductions equal to its plain version's;
   3. the 64^3 golden (tests/golden/athinput.isph64, float64, 10 cycles)
      through Simulation.from_file on the card, on each hydro path with the
      ghost-fill kernel and once on the middle-phase path with
@@ -42,22 +51,32 @@ grav_source and final_update) is checked and counted per form,
      tests/test_problems_r5.py holds the JAX package to; then the batch
      path (batch_iters=25) against the K=1 path at 64^3 float64, 3 cycles
      from the state after one K=1 cycle, to 3e-3 of each field's max and
-     time to rel 1e-6;
-  4. full width, the bench configuration: 256^3 float32, maxiter=50,
-     batch_iters=25, 3 cycles through Simulation.from_file (no device
-     argument: the card is the default) + run(), then 1 cycle through the
-     CLI (__main__.main); step ms, zone-cycles/s, radiation ms per substep,
-     peak memory, finite fields and dt > 0; then 1 cycle of the K=1 loop on
-     the middle-phase path and 1 on the ATHENA_TPU_PALLAS_MID=0 path; 1
-     cycle of the bench configuration with h_correction=False; testsedov
-     at 256^3 float32 with cubic cells, 5 cycles on the middle-phase path
-     and 1 on MID=0, through Simulation.from_file without a device.
+     time to rel 1e-6; then the SMR goldens of the reference C code
+     (blast2lev: 3 cycles at 1e-13 and the (time, dt) trajectory of 10 to
+     rel 1e-6; blast3lev: 5 cycles at 1e-12 on every level) and isph2lev
+     (32^3 + 32^3, maxiter=20, float64, 2 cycles) on the card against the
+     port's plain run on the CPU in the same process, each level to 1e-10
+     of each field's max, with the launch counters of those paths;
+  4. full width: the SMR main path, isph2lev at 256^3 + 256^3 float32
+     (the child over the root's centre), maxiter=50, batch_iters=25, 3
+     cycles through Simulation.from_file (no device argument: the card is
+     the default) + run(), then 1 cycle through the CLI: ms per cycle,
+     zone-cycles/s over both levels, the radiation sub-iterations of each
+     level, peak memory, finite fields and dt > 0; the bench configuration
+     at 256^3 float32 (3 cycles + a CLI cycle): step ms, zone-cycles/s,
+     radiation ms per substep; then 1 cycle of the K=1 loop on the
+     middle-phase path and 1 on the ATHENA_TPU_PALLAS_MID=0 path; 1 cycle
+     of the bench configuration with h_correction=False; testsedov at
+     256^3 float32 with cubic cells, 5 cycles on the middle-phase path, 1
+     on MID=0 and 1 with the H-correction, through Simulation.from_file
+     without a device.
 
 It ends with a JSON line of the kernels (launches from the phase-4 run of
-each kernel's path: the batch run, else the K=1 runs, the run without the
-H-correction, the testsedov runs), the nvidia-smi line before it, and the
-final line {"ok": true, "device": {...}}.  Any failed check raises, so
-the exit code is non-zero and no result line is printed.
+each kernel's path: the SMR run first, then the bench run, the K=1 runs,
+the run without the H-correction, the testsedov runs; B3', on no path,
+with its phase-2 launches and "path": null), the nvidia-smi line before
+it, and the final line {"ok": true, "device": {...}}.  Any failed check
+raises, so the exit code is non-zero and no result line is printed.
 """
 
 from __future__ import annotations
@@ -76,6 +95,14 @@ DECK = os.path.join(HERE, "tests", "golden", "athinput.isph64")
 GOLD = os.path.join(HERE, "tests", "golden", "ioniz_sphere_64_10cycles.npz")
 SEDOV_DECK = os.path.join(HERE, "tests", "golden", "athinput.testsedov")
 SEDOV_GOLD = os.path.join(HERE, "tests", "golden", "testsedov_20cycles.npz")
+# the SMR decks: the reference-C blast goldens (2 and 3 levels) and
+# ioniz_sphere on a root and one child (tests/test_smr*.py)
+BLAST2 = os.path.join(HERE, "tests", "golden", "athinput.blast2lev")
+BLAST3 = os.path.join(HERE, "tests", "golden", "athinput.blast3lev")
+ISPH2 = os.path.join(HERE, "tests", "golden", "athinput.isph2lev")
+BLAST2_GOLD = os.path.join(HERE, "tests", "golden", "blast2lev_10cycles.npz")
+BLAST2_GOLD3 = os.path.join(HERE, "tests", "golden", "blast2lev_3cycles.npz")
+BLAST3_GOLD = os.path.join(HERE, "tests", "golden", "blast3lev_5cycles.npz")
 
 # (time, dt) after each of the 10 cycles of the reference C code on the
 # isph64 deck (the trajectory tests/test_ioniz_sphere.py holds the JAX
@@ -127,13 +154,20 @@ FIELDS_MOVED = {
     "flux_sweep_df[hllc]": (20, "padded"),
     "gcross": (14, "padded"),              # d, phic, 3 phif, 3 F_ID -> G
     "transverse_correct": (41, "padded"),  # Ulp, Urp, 2 dF, 2 G -> Ulc, Urc, eta
+    "transverse_correct[F]": (41, "padded"),   # ... 2 whole F instead of dF
     "flux_corrected": (21, "padded"),      # Ulc, Urc, 3 eta -> F2
+    "flux_corrected[hllc]": (21, "padded"),
     "grav_source": (17, "padded"),         # d, phic, 3 phif, 3 F_ID, 3 F2_ID -> Sg
     "grav_source[Fp2IDr]": (20, "padded"),     # ... and 3 F2_IDr -> Sg
     "final_update": (36, "padded"),        # U, Sg, 3 F2 -> U
     "final_update[dF2]": (36, "padded"),   # U, Sg, 3 dF2 -> U
     "rad_rates": (10, "interior"),         # s0, E, code, d, Msq -> 5 fields
+    "rad_rates[inlet]": (10, "interior"),  # ... and one inlet per x row
     "rad_update": (13, "interior"),        # 11 fields -> E, s0
+    "rad_fused": (19, "interior"),         # s0, E, code, kph, nHdot, edot,
+                                           # d, 3 M, e_init, x_init -> E2,
+                                           # s02, ncode, kph2, nH2, ed2, efb
+    "rad_fused[inlet]": (19, "interior"),
     "rad_batch": (13, "interior"),         # s0, E, code, d, 3 M, e_init,
                                            # x_init -> s0, E, code, efb
     "max_dti_hydro": (5, "padded"),        # d, M1, M2, M3, E
@@ -168,7 +202,13 @@ KERNELS = [
     ("transverse_correct", "cuda",
      "atmospheric_athena_tpu_torch/csrc/ctu_mid.cu",
      "atmospheric_athena_tpu/ops/pallas_ctu_mid.py:390"),
+    ("transverse_correct[F]", "cuda",
+     "atmospheric_athena_tpu_torch/csrc/ctu_mid.cu",
+     "atmospheric_athena_tpu/ops/pallas_ctu_mid.py:390"),
     ("flux_corrected", "cuda", "atmospheric_athena_tpu_torch/csrc/ctu_mid.cu",
+     "atmospheric_athena_tpu/ops/pallas_ctu_mid.py:518"),
+    ("flux_corrected[hllc]", "cuda",
+     "atmospheric_athena_tpu_torch/csrc/ctu_mid.cu",
      "atmospheric_athena_tpu/ops/pallas_ctu_mid.py:518"),
     ("grav_source", "cuda", "atmospheric_athena_tpu_torch/csrc/ctu_mid.cu",
      "atmospheric_athena_tpu/ops/pallas_ctu_mid.py:304"),
@@ -182,8 +222,14 @@ KERNELS = [
      "atmospheric_athena_tpu/ops/pallas_ctu_mid.py:593"),
     ("rad_rates", "cuda", "atmospheric_athena_tpu_torch/csrc/rad.cu",
      "atmospheric_athena_tpu/ionrad/pallas_rad.py:184"),
+    ("rad_rates[inlet]", "cuda", "atmospheric_athena_tpu_torch/csrc/rad.cu",
+     "atmospheric_athena_tpu/ionrad/pallas_rad.py:184"),
     ("rad_update", "cuda", "atmospheric_athena_tpu_torch/csrc/rad.cu",
      "atmospheric_athena_tpu/ionrad/pallas_rad.py:277"),
+    ("rad_fused", "cuda", "atmospheric_athena_tpu_torch/csrc/rad.cu",
+     "atmospheric_athena_tpu/ionrad/pallas_rad.py:213"),
+    ("rad_fused[inlet]", "cuda", "atmospheric_athena_tpu_torch/csrc/rad.cu",
+     "atmospheric_athena_tpu/ionrad/pallas_rad.py:213"),
     ("rad_batch", "cuda", "atmospheric_athena_tpu_torch/csrc/rad_batch.cu",
      "atmospheric_athena_tpu/ionrad/pallas_rad.py:448"),
     ("max_dti_hydro", "triton",
@@ -197,7 +243,9 @@ KERNELS = [
 # forms count each in wrapper.forms (the solver, or the operand form)
 FORMS = {"sweep_lrflux": "roe", "sweep_lrflux_df": "roe",
          "flux_pointwise": "roe", "flux_sweep_df": "roe",
-         "grav_source": "Fp2ID", "final_update": "F2"}
+         "transverse_correct": "dF", "flux_corrected": "roe",
+         "grav_source": "Fp2ID", "final_update": "F2",
+         "rad_rates": "scalar", "rad_fused": "scalar"}
 
 # the __global__ function of each CUDA kernel, for ptxas's register report
 SYMBOLS = {"sweep_lrflux": "sweep_lrflux_kernel",
@@ -209,7 +257,8 @@ SYMBOLS = {"sweep_lrflux": "sweep_lrflux_kernel",
            "grav_source": "grav_source_kernel",
            "final_update": "final_update_kernel",
            "rad_rates": "rates_kernel", "rad_update": "update_kernel",
-           "rad_batch": "batch_kernel", "bc_fill": "bc_kernel"}
+           "rad_fused": "fused_kernel", "rad_batch": "batch_kernel",
+           "bc_fill": "bc_kernel"}
 
 # kernels whose output must equal the plain version's bitwise, ghost
 # cells included (copies and negations only)
@@ -222,28 +271,55 @@ K1 = ["rad_rates", "rad_update", "max_dti_hydro", "bc_fill"]
 # the route without the H-correction (B12) and the HLLC forms
 NOHC = ["flux_sweep_df", "grav_source[Fp2IDr]", "final_update[dF2]"]
 HLLC = ["sweep_lrflux[hllc]", "sweep_lrflux_df[hllc]", "flux_pointwise[hllc]",
-        "flux_sweep_df[hllc]"]
+        "flux_sweep_df[hllc]", "flux_corrected[hllc]"]
+# the forms of an SMR level's step and radiation, and B3' (on no path)
+SMRF = ["transverse_correct[F]", "rad_rates[inlet]"]
+FUSED = ["rad_fused", "rad_fused[inlet]"]
 # the testsedov paths (HLLC, no gravity, periodic x2/x3: the plain fill)
 SEDOV_MID = ["sweep_lrflux_df[hllc]", "transverse_correct",
              "flux_sweep_df[hllc]", "final_update[dF2]", "max_dti_hydro"]
 SEDOV_MID0 = ["sweep_lrflux[hllc]", "flux_pointwise[hllc]", "max_dti_hydro"]
+# testsedov with the H-correction on the middle-phase path: B8 with HLLC
+SEDOV_HC = ["sweep_lrflux_df[hllc]", "transverse_correct",
+            "flux_corrected[hllc]", "final_update", "max_dti_hydro"]
+# an SMR level's hydro step (ctu3d.step with return_fluxes): whole-flux
+# sweeps, B7 from them, B8 with eta, the F2 forms; blast has no gravity,
+# no radiation and periodic boundaries (the plain fill)
+BLAST = ["sweep_lrflux", "transverse_correct[F]", "flux_corrected",
+         "final_update", "max_dti_hydro"]
+# isph2lev: that step with gravity on both levels, the root's K=1
+# radiation with the scalar inlet and the fine level's with the parent's
+# EdgeFlux, the outflow ghost fill on the root; "smr" adds the root's
+# batch sub-cycle (batch_iters = 25)
+SMR_LEVELS = BLAST + ["gcross", "grav_source", "rad_rates",
+                      "rad_rates[inlet]", "rad_update", "bc_fill"]
+
+
+def others(need):
+    return [k[0] for k in KERNELS if k[0] not in need]
+
+
 PATHS = {
     "batch": (MID + ["rad_batch", "bc_fill", "rad_rates", "max_dti_hydro"],
-              ["sweep_lrflux", "flux_pointwise"] + NOHC + HLLC),
+              ["sweep_lrflux", "flux_pointwise"] + NOHC + HLLC + SMRF
+              + FUSED),
     "mid": (MID + K1, ["sweep_lrflux", "flux_pointwise", "rad_batch"] + NOHC
-            + HLLC),
+            + HLLC + SMRF + FUSED),
     "MID=0": (["sweep_lrflux", "flux_pointwise"] + K1,
-              MID + ["rad_batch"] + NOHC + HLLC),
+              MID + ["rad_batch"] + NOHC + HLLC + SMRF + FUSED),
     "mid BC=0": (MID + K1[:3], ["sweep_lrflux", "flux_pointwise",
-                                "rad_batch", "bc_fill"] + NOHC + HLLC),
+                                "rad_batch", "bc_fill"] + NOHC + HLLC + SMRF
+                 + FUSED),
     "nohcorr": (["sweep_lrflux_df", "gcross", "transverse_correct"] + NOHC
                 + ["rad_batch", "bc_fill", "rad_rates", "max_dti_hydro"],
                 ["flux_corrected", "grav_source", "final_update",
-                 "sweep_lrflux", "flux_pointwise"] + HLLC),
-    "sedov": (SEDOV_MID,
-              [k[0] for k in KERNELS if k[0] not in SEDOV_MID]),
-    "sedov MID=0": (SEDOV_MID0,
-                    [k[0] for k in KERNELS if k[0] not in SEDOV_MID0]),
+                 "sweep_lrflux", "flux_pointwise"] + HLLC + SMRF + FUSED),
+    "sedov": (SEDOV_MID, others(SEDOV_MID)),
+    "sedov MID=0": (SEDOV_MID0, others(SEDOV_MID0)),
+    "sedov hcorr": (SEDOV_HC, others(SEDOV_HC)),
+    "blast": (BLAST, others(BLAST)),
+    "isph2lev": (SMR_LEVELS, others(SMR_LEVELS)),
+    "smr": (SMR_LEVELS + ["rad_batch"], others(SMR_LEVELS + ["rad_batch"])),
 }
 
 AXES = (0, 1, 2)
@@ -300,6 +376,7 @@ def wrappers():
             "final_update": mid.final_update,
             "rad_rates": rad_kernels.rates,
             "rad_update": rad_kernels.update,
+            "rad_fused": rad_kernels.fused,
             "rad_batch": rad_kernels.batch,
             "max_dti_hydro": util_kernels.max_dti_hydro,
             "bc_fill": bvals.bc_fill}
@@ -368,11 +445,11 @@ def cuda_ms(fn, reps=20):
 
 
 def outputs(x):
-    """A wrapper's outputs as a list of tensors."""
+    """A wrapper's outputs as a flat list of tensors."""
     if isinstance(x, dict):
         return [x[k] for k in sorted(x)]
     if isinstance(x, (tuple, list)):
-        return [t for t in x if t is not None]
+        return [t for y in x if y is not None for t in outputs(y)]
     return [x]
 
 
@@ -503,6 +580,9 @@ def mid_inputs(U, phic, phif, dtodx, sim, grid):
     q = {a: 0.5 * dtodx[a] for a in AXES}
     sw = [hydro_kernels.sweep_lrflux_df_plain(U, phic, phif[a], dtodx[a],
                                               sim, a) for a in AXES]
+    # the whole first-pass fluxes (an SMR level's with_df=False sweeps)
+    Fp = {a: hydro_kernels.sweep_lrflux_plain(U, phic, phif[a], dtodx[a],
+                                              sim, a)[2] for a in AXES}
     FpID = {a: sw[a][2] for a in AXES}
     dFp = {a: sw[a][3] for a in AXES}
     G = mid.gcross_plain(U, phic, phif, FpID, q, AXES)
@@ -520,16 +600,18 @@ def mid_inputs(U, phic, phif, dtodx, sim, grid):
     F2IDr = {a: b12[a][2] for a in AXES}
     Sg2 = mid.grav_source_plain(U, FpID, F2ID, phic, phif, q, dtodx, AXES,
                                 Fp2IDr=F2IDr)
-    return dict(q=q, dtodx=dtodx, sw=sw, FpID=FpID, dFp=dFp, G=G, tr=tr,
-                etaS=etaS, F2=F2, Sg=Sg, dF2=dF2, F2ID=F2ID, F2IDr=F2IDr,
-                Sg2=Sg2)
+    return dict(q=q, dtodx=dtodx, sw=sw, FpID=FpID, dFp=dFp, Fp=Fp, G=G,
+                tr=tr, etaS=etaS, F2=F2, Sg=Sg, dF2=dF2, F2ID=F2ID,
+                F2IDr=F2IDr, Sg2=Sg2)
 
 
 def kernel_inputs(sim_obj, dt_rad=None):
-    """Inputs of the thirteen kernels from a Simulation's current state.
+    """Inputs of the fourteen kernels from a Simulation's current state.
     dt_rad: the update kernel's dt (default: min(dt_chem, dt_therm) of the
     plain rates on this state); the batch kernel runs BATCH_K substeps of
-    THETA x dt_rad, the schedule of a batch from a fresh seed."""
+    THETA x dt_rad, the schedule of a batch from a fresh seed; the fused
+    kernel updates with dt_rad from the plain rates' outputs.  The inlet
+    forms take a per-column inlet of 0.5-1.5 x the ramped flux (SEED)."""
     import torch
     from atmospheric_athena_tpu_torch.defs import ID, IEN, IM1
     from atmospheric_athena_tpu_torch.ionrad import driver, rad_kernels
@@ -566,25 +648,31 @@ def kernel_inputs(sim_obj, dt_rad=None):
                 device=d.device, dtype=torch.int32)
     Fin = inlet_ramp(ion.radplanes[0][1], st.time, ion)
     rates_in = (s00, E0, code, d, Msq, Fin, sim, grid, ion)
+    inlet = Fin * (0.5 + torch.rand(d.shape[:2], generator=gen,
+                                    dtype=torch.float64)).to(d.device,
+                                                             d.dtype)
     r = rad_kernels.rates_plain(*rates_in)
     if dt_rad is None:
         dt_rad = torch.minimum(r[6], r[7])
     Mc = (M1.contiguous(), M2.contiguous(), M3.contiguous())
     update_in = (s00, E0, d, *Mc, r[3], r[4], r[5], E0, x0, dt_rad, sim,
                  grid, ion)
+    fused_in = (s00, E0, code, r[3], r[4], r[5], d, *Mc, E0, x0, dt_rad,
+                Fin, sim, grid, ion)
     dts = driver.THETA * dt_rad * torch.ones(BATCH_K, dtype=d.dtype,
                                              device=d.device)
     batch_in = (s00, E0, code, d, *Mc, E0, x0, dts, Fin, sim, grid, ion)
     return dict(U=U, phic=phic, phif=phif, dtodx=dtodx, flux_in=flux_in,
                 rates_in=rates_in, update_in=update_in, batch_in=batch_in,
-                dt_rad=dt_rad, mid=mid_inputs(U, phic, phif, dtodx, sim, grid))
+                fused_in=fused_in, inlet=inlet, dt_rad=dt_rad,
+                mid=mid_inputs(U, phic, phif, dtodx, sim, grid))
 
 
 def kernel_calls(s, inp):
     """(name, wrapper, plain version, arguments) of every kernel
     comparison on `inp` (kernel_inputs); the per-axis kernels once per
     axis.  The HLLC forms and B12 take the deck's sim with flux="hllc"
-    and/or h_correction=False."""
+    and/or h_correction=False; the inlet forms take inp["inlet"]."""
     from atmospheric_athena_tpu_torch import bvals
     from atmospheric_athena_tpu_torch.ionrad import rad_kernels as rk
     from atmospheric_athena_tpu_torch.ops import ctu_mid_kernels as mid
@@ -647,6 +735,23 @@ def kernel_calls(s, inp):
               ("final_update[dF2]", mid.final_update, mid.final_update_plain,
                (U, m["F2ID"], m["Sg2"], m["dtodx"], sim, grid, AXES,
                 m["dF2"]))]
+    # the SMR forms (B7 from the whole fluxes, the per-column inlet), B8
+    # with HLLC and B3' in both inlet forms
+    simhc = dataclasses.replace(sim, flux="hllc")
+    for a in AXES:
+        calls += [("transverse_correct[F]", mid.transverse_correct,
+                   mid.transverse_correct_plain,
+                   (m["sw"][a][0], m["sw"][a][1], None, m["G"], m["q"], sim,
+                    a, AXES, m["Fp"])),
+                  ("flux_corrected[hllc]", mid.flux_corrected,
+                   mid.flux_corrected_plain,
+                   (m["tr"][a][0], m["tr"][a][1], m["etaS"], simhc, a,
+                    AXES))]
+    calls += [("rad_rates[inlet]", rk.rates, rk.rates_plain,
+               inp["rates_in"] + (inp["inlet"],)),
+              ("rad_fused", rk.fused, rk.fused_plain, inp["fused_in"]),
+              ("rad_fused[inlet]", rk.fused, rk.fused_plain,
+               inp["fused_in"] + (inp["inlet"],))]
     return calls
 
 
@@ -668,6 +773,54 @@ def df2_bits(Ulc, Urc, sim, axis):
                                  "flux_pointwise's F2 in its bits")
     ref = hk.flux_sweep_df_plain(Ulc, Urc, sim, axis)[0]
     return int((bits(dF2) != bits(ref)).sum())
+
+
+def trans_f_bits(inp, sim):
+    """B7's design check: its Fp form (dF_b formed in registers from four
+    views of the whole flux F_b) equals its dF form bit for bit, given the
+    dF_b = F_b(+1_b) - F_b of the same fluxes (the subtraction the sweep
+    does); raises otherwise."""
+    import torch
+    from atmospheric_athena_tpu_torch.ops import ctu_mid_kernels as mid
+    m = inp["mid"]
+    dFp = {b: (torch.roll(m["Fp"][b], -1, dims=3 - b)
+               - m["Fp"][b]).contiguous() for b in AXES}
+    for a in AXES:
+        args = (m["sw"][a][0], m["sw"][a][1])
+        gF = mid.transverse_correct(*args, None, m["G"], m["q"], sim, a, AXES,
+                                    Fp=m["Fp"])
+        gD = mid.transverse_correct(*args, dFp, m["G"], m["q"], sim, a, AXES)
+        for i, (x, y) in enumerate(zip(outputs(gF), outputs(gD))):
+            if not torch.equal(bits(x), bits(y)):
+                raise AssertionError(f"transverse_correct[F] axis {a} output"
+                                     f" {i} differs from the dF form's bits")
+
+
+def fused_vs_pair(s, inp, tol, timing):
+    """B3' against update_fn followed by rates_fn of the same
+    rad_kernels.build (both kernels) on the same inputs, within tol;
+    raises otherwise.  With `timing`, returns (fused ms, update + rates ms)
+    per iteration (CUDA events, the faster of two interleaved runs)."""
+    from atmospheric_athena_tpu_torch.ionrad import rad_kernels as rk
+    (s0, E, code, kph, nHdot, edot, d, M1, M2, M3, ei, x0, dt, Fin, sim,
+     grid, ion) = inp["fused_in"]
+    rates_fn, update_fn, fused_fn = rk.build(sim, grid, ion, d, M1, M2, M3,
+                                             ei, x0)
+
+    def fused():
+        return fused_fn(s0, E, code, kph, nHdot, edot, dt, Fin)
+
+    def pair():
+        E2, s02, cnt, dti = update_fn(s0, E, kph, nHdot, edot, dt)
+        r = rates_fn(s02, E2, code, Fin)
+        return (E2, s02, r[0], r[2], r[3], r[4], r[1], cnt, dti, r[5], r[6])
+    compare("rad_fused vs update_fn + rates_fn", outputs(fused()),
+            outputs(pair()), tol, s.grid)
+    if not timing:
+        return None
+    p1, f1 = cuda_ms(pair), cuda_ms(fused)
+    f2, p2 = cuda_ms(fused), cuda_ms(pair)
+    return min(f1, f2), min(p1, p2)
 
 
 def make_sim(n, dtype):
@@ -723,6 +876,15 @@ def phase2(n, dtype, timing):
                     Ui, (ng,) * 6, mode="replicate"))
                 del Ui
         del got, ref
+    trans_f_bits(inp, s.sim)
+    fp = fused_vs_pair(s, inp, tol, timing)
+    say(f"phase 2 {n}^3 {dtype}: transverse_correct[F] bitwise its dF form "
+        f"on the same fluxes (3 axes); rad_fused within {tol:.0e} of "
+        "update_fn + rates_fn of the same build" + (
+            "" if fp is None else f", {fp[0]:.3f} ms per iteration against "
+            f"{fp[1]:.3f} ms for the two kernels"))
+    if fp is not None:
+        rec["rad_fused"]["rates_plus_update_ms"] = fp[1]
     for name, r in rec.items():
         t = (f" kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})"
@@ -846,6 +1008,110 @@ def run_sedov_golden(device, ncyc=20):
     return s, worst
 
 
+def level_interior(level):
+    """A level's interior cells as a numpy array."""
+    return level.state.U[(slice(None),) + level.grid.interior()].cpu().numpy()
+
+
+def run_blast_golden(nlev, device):
+    """The SMR blast goldens of the reference C code (the bounds
+    tests/test_smr.py holds the JAX package to) through
+    Simulation.from_file on `device` in float64.  nlev=2: blast2lev (32^3 +
+    32^3), both levels after 3 cycles within 1e-13 of each field's max and
+    the (time, dt) trajectory of 10 cycles to rel 1e-6; nlev=3: blast3lev
+    (three 32^3 levels), the time of 5 cycles to rel 1e-6 and every level
+    after them within 1e-12.  Raises on a miss; returns the
+    MeshSimulation and the worst state error."""
+    import numpy as np
+    from atmospheric_athena_tpu_torch import Simulation
+    if nlev == 2:
+        deck, ncyc, at, tol = BLAST2, 10, 3, 1e-13
+        traj, gold = np.load(BLAST2_GOLD)["traj"], np.load(BLAST2_GOLD3)
+    else:
+        deck, ncyc, at, tol = BLAST3, 5, 5, 1e-12
+        gold = np.load(BLAST3_GOLD)
+        traj = gold["traj"]
+    s = Simulation.from_file(deck, problem="blast", dtype="float64",
+                             device=device)
+    if len(s.levels) != nlev:
+        raise AssertionError(f"{deck}: {len(s.levels)} levels")
+    worst = 0.0
+    for i in range(ncyc):
+        s.step()
+        t = float(s.state.time)
+        if abs(t / traj[i][0] - 1) > 1e-6 or (
+                nlev == 2 and abs(float(s.state.dt) / traj[i][1] - 1) > 1e-6):
+            raise AssertionError(f"blast{nlev}lev cycle {i}: time {t:.9e}, "
+                                 f"dt {float(s.state.dt):.9e}, reference "
+                                 f"{traj[i]}")
+        if i + 1 != at:
+            continue
+        for li, pre in enumerate(("root", "lev1", "lev2")[:nlev]):
+            U = level_interior(s.levels[li])
+            for k, name in enumerate(("d", "M1", "M2", "M3", "E")):
+                ref = gold[f"{pre}_{name}"]
+                err = float(np.abs(U[k] - ref).max()
+                            / max(np.abs(ref).max(), 1e-30))
+                worst = max(worst, err)
+                if not err <= tol:
+                    raise AssertionError(f"blast{nlev}lev {pre} {name}: "
+                                         f"error {err:.3e} x max exceeds "
+                                         f"{tol:.0e}")
+    return s, worst
+
+
+def isph2lev_vs_cpu(ncyc=2):
+    """isph2lev (ioniz_sphere on 32^3 + 32^3, the deck's own size, with the
+    radiation capped at maxiter=20, K=1) on the card in float64 against the
+    port's plain run on the CPU in the same process (which
+    tests/test_torch_smr.py holds to the JAX package): cycle 1 from the
+    deck's start, each later cycle from the CPU run's state copied to the
+    card (a later cycle's radiation limit amplifies differences of the last
+    bits, as between the port and the JAX package), every level's state
+    and Eflux within 1e-10 of each field's max and time and dt to rel 1e-9.
+    Raises on a miss; returns the worst error, the card run's launch counts
+    and its sub-iterations per level."""
+    import numpy as np
+    from atmospheric_athena_tpu_torch import Simulation
+    from atmospheric_athena_tpu_torch import state as tstate
+    cmd = ["ionradiation/maxiter=20"]
+    g = Simulation.from_file(ISPH2, problem="ioniz_sphere", cmdline=cmd,
+                             dtype="float64", device="cuda")
+    c = Simulation.from_file(ISPH2, problem="ioniz_sphere", cmdline=cmd,
+                             dtype="float64", device="cpu")
+    reset_counts()
+    worst = 0.0
+    for cyc in range(ncyc):
+        if cyc:
+            for lg, lc in zip(g.levels, c.levels):
+                lg.state = tstate.from_numpy(tstate.to_numpy(lc.state),
+                                             device="cuda")
+        g.step()
+        c.step()
+        for what in ("time", "dt"):
+            a, b = float(getattr(g.state, what)), float(getattr(c.state,
+                                                                 what))
+            if not abs(a / b - 1) <= 1e-9:
+                raise AssertionError(f"isph2lev cycle {cyc + 1}: {what} "
+                                     f"{a:.15e} on the card, {b:.15e} plain")
+        for li, (lg, lc) in enumerate(zip(g.levels, c.levels)):
+            pairs = [(level_interior(lg), level_interior(lc)),
+                     (lg.state.Eflux.cpu().numpy()[None],
+                      lc.state.Eflux.numpy()[None])]
+            for a, b in pairs:
+                if not np.isfinite(a).all():
+                    raise AssertionError(f"isph2lev level {li}: non-finite")
+                for k in range(a.shape[0]):
+                    err = float(np.abs(a[k] - b[k]).max()
+                                / max(np.abs(b[k]).max(), 1e-300))
+                    worst = max(worst, err)
+                    if not err <= 1e-10:
+                        raise AssertionError(
+                            f"isph2lev cycle {cyc + 1} level {li} field {k}"
+                            f": error {err:.3e} x max exceeds 1e-10")
+    return worst, read_counts(), g.rad_iters
+
+
 def phase3():
     import torch
     for path in ("mid", "MID=0", "mid BC=0"):
@@ -872,6 +1138,28 @@ def phase3():
             f"{ {k: v for k, v in counts.items() if v} }")
         torch.cuda.synchronize()
     batch_vs_k1()
+    # static mesh refinement: an SMR level's hydro step, restriction, flux
+    # correction and prolongation against the reference goldens, and with
+    # the fine-level radiation against the plain run
+    for nlev in (2, 3):
+        reset_counts()
+        s, worst = run_blast_golden(nlev, "cuda")
+        counts = read_counts()
+        check_counts(f"blast{nlev}lev golden", counts, "blast")
+        say(f"phase 3 golden blast{nlev}lev float64 "
+            f"{10 if nlev == 2 else 5} cycles: trajectory within rel 1e-6, "
+            f"state max err {worst:.2e} x field max (bound "
+            f"{1e-13 if nlev == 2 else 1e-12:.0e}); launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        del s
+    worst, counts, iters = isph2lev_vs_cpu()
+    check_counts("isph2lev card vs plain", counts, "isph2lev")
+    say(f"phase 3 isph2lev float64 32^3 + 32^3 maxiter=20, 2 cycles on the "
+        f"card against the plain run on the CPU: state and Eflux max err "
+        f"{worst:.2e} x field max (bound 1e-10), time and dt within rel "
+        f"1e-9; sub-iterations per level {iters}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    torch.cuda.synchronize()
 
 
 def batch_vs_k1(ncycles=3):
@@ -1018,16 +1306,18 @@ def phase4():
     del s
 
     # testsedov (HLLC, no H-correction, no gravity) at full width with
-    # cubic cells: 5 cycles on the middle-phase path, 1 on MID=0
+    # cubic cells: 5 cycles on the middle-phase path, 1 on MID=0; and 1 with
+    # the H-correction on the middle-phase path (B8 with HLLC)
     sedov = {}
     scmd = [f"domain1/Nx1={n}", f"domain1/Nx2={n}", f"domain1/Nx3={n}",
             "domain1/x2max=1.0", "domain1/x3max=1.0"]
-    for path, nlim in (("sedov", 5), ("sedov MID=0", 1)):
+    for path, nlim in (("sedov", 5), ("sedov MID=0", 1), ("sedov hcorr", 1)):
         torch.cuda.reset_peak_memory_stats()
         with path_env(path):
             s = Simulation.from_file(SEDOV_DECK, problem="testsedov",
                                      cmdline=scmd + [f"time/nlim={nlim}"],
-                                     dtype="float32", flux="hllc")
+                                     dtype="float32", flux="hllc",
+                                     h_correction=path == "sedov hcorr")
             if s.device.type != "cuda":
                 raise AssertionError(f"testsedov run on {s.device}")
             torch.cuda.synchronize()
@@ -1043,8 +1333,9 @@ def phase4():
         sedov[path] = dict(step_ms=1e3 * r["wall"] / r["steps"],
                            zone_cycles_per_sec=r["zone_cycles_per_sec"],
                            peak_gib=peak_s)
-        say(f"phase 4 {n}^3 float32 testsedov (HLLC), {nlim} cycles via "
-            f"Simulation.run, {path} path: step "
+        say(f"phase 4 {n}^3 float32 testsedov (HLLC"
+            f"{', H-correction' if s.sim.h_correction else ''}), {nlim} "
+            f"cycles via Simulation.run, {path} path: step "
             f"{sedov[path]['step_ms']:.2f} ms, "
             f"{r['zone_cycles_per_sec']:.4e} zone-cycles/s; peak device "
             f"memory {peak_s:.2f} GiB; all fields finite, dt "
@@ -1054,6 +1345,66 @@ def phase4():
                         zone_cycles_per_sec=res["zone_cycles_per_sec"],
                         rad_ms_per_substep=rad_ms / niter, peak_gib=peak,
                         k1_step_ms=k1, nohcorr_step_ms=nohc_ms, sedov=sedov)
+
+
+def phase4_smr(ncyc=3):
+    """This slice's main path at full width: isph2lev with a 256^3 root and
+    one 256^3 child over its centre (iDisp = jDisp = kDisp = 128), float32,
+    maxiter=50, batch_iters=25 (the root's batch sub-cycle; the child takes
+    the K=1 loop with the parent's EdgeFlux), ncyc cycles through
+    Simulation.from_file without a device argument, then one cycle through
+    the CLI.  Returns the launch counts and the headline numbers."""
+    import torch
+    from atmospheric_athena_tpu_torch import Simulation
+    from atmospheric_athena_tpu_torch import __main__ as cli
+    from atmospheric_athena_tpu_torch.hierarchy import MeshSimulation
+    n = 256
+    cmd = ([f"domain1/Nx{a}={n}" for a in (1, 2, 3)]
+           + [f"domain2/Nx{a}={n}" for a in (1, 2, 3)]
+           + [f"domain2/{c}Disp={n // 2}" for c in "ijk"]
+           + [f"ionradiation/maxiter={MAXITER}",
+              f"ionradiation/batch_iters={BATCH_K}"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s = Simulation.from_file(ISPH2, problem="ioniz_sphere", cmdline=cmd,
+                             dtype="float32")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if not isinstance(s, MeshSimulation) or s.device.type != "cuda" \
+            or len(s.levels) != 2:
+        raise AssertionError(f"isph2lev: {type(s).__name__} on {s.device}")
+    reset_counts()
+    res = s.run(max_steps=ncyc)
+    counts = read_counts()
+    check_counts(f"{n}^3 + {n}^3 isph2lev run", counts, "smr")
+    finite = all(bool(torch.isfinite(lv.state.U).all())
+                 and bool(torch.isfinite(lv.state.Eflux).all())
+                 for lv in s.levels)
+    dt = float(s.state.dt)
+    if res["steps"] != ncyc or not finite or not dt > 0:
+        raise AssertionError(f"isph2lev {n}^3: {res['steps']} steps, "
+                             f"finite={finite}, dt={dt}")
+    cycle_ms = 1e3 * res["wall"] / res["steps"]
+    iters = s.rad_iters[-ncyc:]
+    del s
+    rc = cli.main(["-i", ISPH2, "--problem", "ioniz_sphere", "--dtype",
+                   "float32", "time/nlim=1", *cmd])
+    if rc != 0:
+        raise AssertionError(f"CLI returned {rc}")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"phase 4 isph2lev {n}^3 + {n}^3 float32 maxiter={MAXITER} "
+        f"batch_iters={BATCH_K} (the SMR main path), {ncyc} cycles via "
+        f"Simulation.run: {cycle_ms:.1f} ms per cycle, "
+        f"{res['zone_cycles_per_sec']:.4e} zone-cycles/s over both levels; "
+        f"radiation sub-iterations per cycle (root substeps, child "
+        f"iterations) {iters}; setup {setup_s:.1f} s; then 1 CLI cycle; "
+        f"peak device memory {peak:.2f} GiB; all fields finite, dt "
+        f"{dt:.6e}; launches { {k: v for k, v in counts.items() if v} }")
+    return counts, dict(cycle_ms=cycle_ms,
+                        zone_cycles_per_sec=res["zone_cycles_per_sec"],
+                        rad_iters=iters, peak_gib=peak)
 
 
 def ptxas_report(source, kernel):
@@ -1098,6 +1449,7 @@ def main():
     sys.path.insert(0, HERE)
     from atmospheric_athena_tpu_torch import cuda_lib
 
+    t_all = time.perf_counter()
     smi = smi_line()
     say(f"phase 0 {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -1111,34 +1463,43 @@ def main():
             regs[name] = ptxas_report(os.path.basename(source), SYMBOLS[name])
             say(f"phase 1 ptxas {name}: {regs[name]}")
 
+    # B3' runs on no path (as in the JAX package): its launches are those
+    # of the two phase-2 comparisons
+    reset_counts()
     phase2(64, "float64", timing=False)
     rec = phase2(256, "float32", timing=True)
+    p2 = read_counts()
     nan_probe()
     phase3()
+    smr, _ = phase4_smr()
     counts, _ = phase4()
+    counts["smr"] = smr
 
     # each kernel's launches in the phase-4 run of the first path that
-    # runs it (the bench run has 3 cycles, the testsedov mid run 5, the
-    # others 1)
-    steps = {"batch": 3, "mid": 1, "MID=0": 1, "nohcorr": 1, "sedov": 5,
-             "sedov MID=0": 1}
+    # runs it: this slice's main path (the SMR run, 3 cycles), then the
+    # bench run (3), the testsedov mid run (5) and the others (1)
+    steps = {"smr": 3, "batch": 3, "mid": 1, "MID=0": 1, "nohcorr": 1,
+             "sedov": 5, "sedov MID=0": 1, "sedov hcorr": 1}
     kernels = []
     for name, route, source, replaces in KERNELS:
         path = next((p for p in steps if counts[p][name] > 0), None)
-        if path is None:
+        if path is None and name not in FUSED:
             raise AssertionError(f"{name}: launched in no phase-4 run")
         r = rec[name]
+        n = p2[name] if path is None else counts[path][name]
         k = dict(name=name, route=route, source=source, replaces=replaces,
-                 launches=counts[path][name],
-                 launches_per_step=counts[path][name] / steps[path],
+                 launches=n,
+                 launches_per_step=None if path is None else n / steps[path],
                  path=path, max_abs_err=r["max_abs_err"],
                  max_rel_err=r["max_rel_err"], ms=r["ms"],
                  plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                  bound_by=r["bound_by"], library_ms=r["library_ms"],
                  registers=regs.get(base_name(name)))
-        if "dF2_bits_vs_plain" in r:
-            k["dF2_bits_vs_plain"] = r["dF2_bits_vs_plain"]
+        for extra in ("dF2_bits_vs_plain", "rates_plus_update_ms"):
+            if extra in r:
+                k[extra] = r[extra]
         kernels.append(k)
+    say(f"chip_smoke: all phases in {time.perf_counter() - t_all:.1f} s")
     say(smi_line())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

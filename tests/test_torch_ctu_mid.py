@@ -291,3 +291,99 @@ def test_mid_without_gravity_or_hcorrection_matches_pallas(chain):
     close_interior(Unew, pallas_ctu_mid.final_update(
         j(c["U"]), {a: j(c["F2"][a]) for a in AXES}, None, c["dtodx"], jsim,
         c["jgrid"], AXES), c["grid"])
+
+
+# ---------------------------------------------------------------- SMR route
+# (ctu3d.step(..., return_fluxes=True): whole-flux sweeps, B7 from Fp, B8
+# with or without eta, the F2 forms of B9 and B10)
+
+def whole_fluxes(c):
+    """The with_df=False sweeps' whole first-pass fluxes of the chain's U."""
+    return {a: hydro_kernels.sweep_lrflux(c["U"], c["phic"], c["phif"][a],
+                                          c["dtodx"][a], c["sim"], a)[2]
+            for a in AXES}
+
+
+@pytest.mark.parametrize("axis", AXES)
+def test_transverse_correct_fp_matches_pallas(chain, axis):
+    """B7 from the whole fluxes against the JAX kernel's four-view form
+    (dFp=None), and bit for bit the dF form on the same fluxes."""
+    c = chain
+    Fp = whole_fluxes(c)
+    Ulp, Urp = c["sw"][axis][:2]
+    got = mid.transverse_correct(Ulp, Urp, None, c["G"], c["q"], c["sim"],
+                                 axis, AXES, Fp=Fp)
+    out_j = pallas_ctu_mid.transverse_correct(
+        j(Ulp), j(Urp), {b: j(Fp[b]) for b in AXES},
+        {b: j(c["G"][b]) for b in AXES}, c["q"], c["jsim"], c["jgrid"],
+        axis, AXES)
+    for t, jj in zip(got, out_j):
+        close_interior(t, jj, c["grid"])
+    for t, d in zip(got, c["tr"][axis]):
+        assert torch.equal(t, d)
+    with pytest.raises(ValueError, match="dFp or Fp"):
+        mid.transverse_correct(Ulp, Urp, c["dFp"], c["G"], c["q"], c["sim"],
+                               axis, AXES, Fp=Fp)
+
+
+@pytest.mark.parametrize("axis", AXES)
+def test_flux_corrected_hllc_matches_pallas(chain, axis):
+    """B8 with HLLC: the etah gather runs and HLLC ignores it, as the JAX
+    kernel's riemann.fluxes does."""
+    import dataclasses
+    c = chain
+    sim = dataclasses.replace(c["sim"], flux="hllc")
+    jsim = dataclasses.replace(c["jsim"], flux="hllc")
+    Ulc, Urc = c["tr"][axis][:2]
+    F = mid.flux_corrected(Ulc, Urc, c["etaS"], sim, axis, AXES)
+    Fj = pallas_ctu_mid.flux_corrected(j(Ulc), j(Urc), j(c["etaS"]), jsim,
+                                       c["jgrid"], axis, AXES)
+    close_interior(F, Fj, c["grid"])
+    assert torch.equal(F, mid.flux_corrected(Ulc, Urc, None, sim, axis, AXES))
+
+
+def step_fluxes(a, b, st):
+    dt = 0.3 * float(st.dt)
+    phi = jctu3d._phi_arrays(a.problem, a.grid, jnp.float64)
+    out_j, F_j = jctu3d.step(st, jnp.asarray(dt), a.sim, a.grid, a.problem,
+                             phi=phi, return_fluxes=True)
+    st_t = tstate.from_numpy(tstate.to_numpy(st), device="cpu")
+    out_t, F_t = tctu3d.step(st_t, torch.tensor(dt, dtype=torch.float64),
+                             b.sim, b.grid, b.problem, phi=b.phi,
+                             return_fluxes=True)
+    return out_t, F_t, out_j, F_j
+
+
+@pytest.mark.parametrize("hcorr", [True, False], ids=["hcorr", "no_hcorr"])
+@pytest.mark.parametrize("path", ["mid", "MID=0"])
+def test_step_return_fluxes_matches_jax(monkeypatch, path, hcorr):
+    """ctu3d.step(return_fluxes=True), the step of an SMR level, against the
+    JAX step with return_fluxes: on the middle-phase path the JAX Pallas
+    branch without use_df (whole-flux sweeps, B7 from Fp, B8 with or
+    without eta, never B12), on MID=0 the jnp branch; the state and the
+    step-9 fluxes Fp2 of each axis to 1e-12."""
+    import dataclasses
+    if path == "MID=0":
+        monkeypatch.setenv("ATHENA_TPU_PALLAS_MID", "0")
+    else:
+        monkeypatch.delenv("ATHENA_TPU_PALLAS_MID", raising=False)
+    a, b, st = jax_state("on" if path == "mid" else "off", 19)
+    if not hcorr:
+        a.sim = dataclasses.replace(a.sim, h_correction=False)
+        b.sim = dataclasses.replace(b.sim, h_correction=False)
+    called = spy(monkeypatch)
+    out_t, F_t, out_j, F_j = step_fluxes(a, b, st)
+    want = (["final_update", "flux_corrected", "gcross", "grav_source",
+             "sweep_lrflux", "transverse_correct"] if path == "mid"
+            else ["flux_pointwise", "sweep_lrflux"])
+    assert sorted(set(called)) == want
+    close_interior(out_t.U, out_j.U, a.grid)
+    assert sorted(F_t) == sorted(F_j) == list(AXES)
+    for ax in AXES:
+        close_interior(F_t[ax], F_j[ax], a.grid)
+    # the state equals the step without return_fluxes
+    st_t = tstate.from_numpy(tstate.to_numpy(st), device="cpu")
+    plain = tctu3d.step(st_t, torch.tensor(0.3 * float(st.dt),
+                                           dtype=torch.float64),
+                        b.sim, b.grid, b.problem, phi=b.phi)
+    close_interior(out_t.U, plain.U, a.grid, tol=1e-13)

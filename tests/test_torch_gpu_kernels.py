@@ -2,11 +2,14 @@
 on the GPU, at 16^3 in float64 (1e-12 of each field's max) and float32
 (1e-5), and in float64 on a grid of unequal cell sizes; the HLLC forms and
 the route without the H-correction (B12, whose dF2 must also be the
-roll-and-subtract of B13's flux bitwise); the batch kernel on three dt
-schedules; the ghost-fill kernel bitwise on every flag set it covers; the
-NaN probe (one cell's E, then d, set to NaN: every kernel's NaN cells and
-NaN reductions equal its plain version's); and the testsedov golden on
-both hydro paths.  Needs a CUDA device, nvcc and triton; skipped
+roll-and-subtract of B13's flux bitwise); the SMR forms (B7 from the whole
+fluxes, bitwise its dF form; the per-column inlet of B1), B8 with HLLC and
+B3' in both inlet forms (also against update then rates); the batch
+kernel on three dt schedules; the ghost-fill kernel bitwise on every flag
+set it covers; the NaN probe (one cell's E, then d, set to NaN: every
+kernel's NaN cells and NaN reductions equal its plain version's); the
+testsedov golden on both hydro paths; the SMR blast goldens and isph2lev
+against the plain run on the CPU.  Needs a CUDA device, nvcc and triton; skipped
 elsewhere.  This file imports no JAX,
 so on a machine without JAX run it as
 
@@ -100,16 +103,49 @@ def test_hllc_and_no_hcorrection_kernels(case):
 
 
 def test_flux_corrected_refuses_hllc(case):
-    """B8 solves Roe only: HLLC with the H-correction on the middle-phase
-    path raises on the card instead of running another solver."""
+    """B8 refused HLLC until it took the solver as a template argument: now
+    HLLC with the H-correction on the middle-phase path runs the kernel
+    (counted as flux_corrected[hllc]) and matches its plain version."""
     import dataclasses
     from atmospheric_athena_tpu_torch.ops import ctu_mid_kernels as mid
-    s, inp, _ = case
+    s, inp, tol = case
     m = inp["mid"]
     sim = dataclasses.replace(s.sim, flux="hllc")
-    with pytest.raises(NotImplementedError, match="Roe"):
-        mid.flux_corrected(m["tr"][0][0], m["tr"][0][1], m["etaS"], sim, 0,
-                           chip_smoke.AXES)
+    before = mid.flux_corrected.forms["hllc"]
+    args = (m["tr"][0][0], m["tr"][0][1], m["etaS"], sim, 0, chip_smoke.AXES)
+    chip_smoke.compare("flux_corrected[hllc]", [mid.flux_corrected(*args)],
+                       [mid.flux_corrected_plain(*args)], tol, s.grid)
+    assert mid.flux_corrected.forms["hllc"] == before + 1
+
+
+def test_smr_forms_and_fused_kernels(case):
+    """B7's Fp form, B8 with HLLC, B1's inlet form and B3' in both inlet
+    forms against their plain versions; B7-F bitwise its dF form on the
+    same fluxes and B3' within the bound of update then rates."""
+    check(case, ["transverse_correct[F]", "flux_corrected[hllc]",
+                 "rad_rates[inlet]", "rad_fused", "rad_fused[inlet]"])
+    s, inp, tol = case
+    chip_smoke.trans_f_bits(inp, s.sim)
+    chip_smoke.fused_vs_pair(s, inp, tol, timing=False)
+
+
+@pytest.mark.parametrize("nlev", [2, 3], ids=["blast2lev", "blast3lev"])
+def test_smr_blast_golden(nlev):
+    """The SMR blast goldens on the card, launching an SMR level's hydro
+    kernels (B5, B7-F, B8, B10 F2, B11) and none of the others."""
+    need_cuda()
+    chip_smoke.reset_counts()
+    _, worst = chip_smoke.run_blast_golden(nlev, "cuda")
+    chip_smoke.check_counts(f"blast{nlev}lev", chip_smoke.read_counts(),
+                            "blast")
+    assert worst <= (1e-13 if nlev == 2 else 1e-12)
+
+
+def test_isph2lev_card_vs_cpu():
+    need_cuda()
+    worst, counts, _ = chip_smoke.isph2lev_vs_cpu()
+    chip_smoke.check_counts("isph2lev", counts, "isph2lev")
+    assert worst <= 1e-10
 
 
 @pytest.mark.parametrize("path", ["sedov", "sedov MID=0"])

@@ -1,6 +1,6 @@
-"""The port stands alone: it imports, builds the ioniz_sphere deck and takes
-a step with JAX made unimportable, and it refuses a CUDA device when none
-is visible."""
+"""The port stands alone: it imports, builds the ioniz_sphere deck and an
+SMR deck (hierarchy.py, smr.py) and takes a step of each with JAX made
+unimportable, and it refuses a CUDA device when none is visible."""
 
 import os
 import subprocess
@@ -11,6 +11,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DECK = os.path.join(REPO, "tests", "golden", "athinput.isph64")
+SMR_DECK = os.path.join(REPO, "tests", "golden", "athinput.isph2lev")
 
 _SCRIPT = f"""
 import sys
@@ -26,6 +27,18 @@ s = P.Simulation.from_file({DECK!r}, problem="ioniz_sphere",
 s.step()
 import torch
 assert bool(torch.isfinite(s.state.U).all()) and float(s.state.dt) > 0
+from atmospheric_athena_tpu_torch import hierarchy, smr
+m = P.Simulation.from_file({SMR_DECK!r}, problem="ioniz_sphere",
+                           cmdline=["domain1/Nx1=16", "domain1/Nx2=16",
+                                    "domain1/Nx3=16", "domain2/Nx1=16",
+                                    "domain2/Nx2=16", "domain2/Nx3=16",
+                                    "domain2/iDisp=8", "domain2/jDisp=8",
+                                    "domain2/kDisp=8",
+                                    "ionradiation/maxiter=5"],
+                           device="cpu")
+assert isinstance(m, hierarchy.MeshSimulation)
+m.step()
+assert all(bool(torch.isfinite(l.state.U).all()) for l in m.levels)
 bad = sorted(m for m in set(sys.modules) - pre
              if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                     "atmospheric_athena_tpu")
@@ -50,6 +63,9 @@ def test_cuda_device_refused_without_gpu():
     from atmospheric_athena_tpu_torch.simulation import resolve_device
     with pytest.raises(RuntimeError, match="is_available"):
         Simulation.from_file(DECK, problem="ioniz_sphere", device="cuda")
+    from atmospheric_athena_tpu_torch.hierarchy import MeshSimulation
+    with pytest.raises(RuntimeError, match="is_available"):
+        MeshSimulation.from_file(SMR_DECK, problem="ioniz_sphere")
     with pytest.raises(RuntimeError, match="is_available"):
         resolve_device("cuda")
     with pytest.raises(ValueError):

@@ -1,25 +1,29 @@
-"""Where the time of one ioniz_sphere or testsedov step goes on the GPU, for
-the PyTorch port (atmospheric_athena_tpu_torch).
+"""Where the time of one ioniz_sphere, testsedov or SMR step goes on the GPU,
+for the PyTorch port (atmospheric_athena_tpu_torch).
 
     python3 tools/torch_profile_step.py                 # bench configuration
     python3 tools/torch_profile_step.py ionradiation/batch_iters=1   # K=1
     ATHENA_TPU_PALLAS_MID=0 python3 tools/torch_profile_step.py \
         ionradiation/batch_iters=1                      # the other hydro path
     python3 tools/torch_profile_step.py testsedov       # HLLC, no H-correction
+    python3 tools/torch_profile_step.py isph2lev        # SMR, 256^3 + 256^3
 
 Builds the isph deck at the bench configuration (256^3, float32,
 ionradiation/maxiter=50, ionradiation/batch_iters=25), or with `testsedov`
-first the testsedov deck at 256^3 float32 with cubic cells and HLLC, on the
-first CUDA device, with any block/name=value overrides from the command
-line applied after those, runs one warm-up step, then profiles one step with
-torch.profiler (CPU and CUDA activities).  Prints the card (nvidia-smi name
-and power limit), the CTU hydro path (the middle-phase path unless
-ATHENA_TPU_PALLAS_MID turns it off), the step's wall time, its radiation
-substeps and host reads (device-to-host copies), the device time of each
-phase range that Simulation.step records (radiation, bvals, hydro,
-userwork, new_dt), the device busy share of the step, and the kernels with
-the most device time.  Then it profiles the hydro phase (ctu3d.step) alone
-on the same state and prints every kernel of it.  Imports no JAX.
+first the testsedov deck at 256^3 float32 with cubic cells and HLLC, or with
+`isph2lev` first the SMR deck with a 256^3 root and a 256^3 child over its
+centre in the bench configuration, on the first CUDA device, with any
+block/name=value overrides from the command line applied after those, runs
+one warm-up step, then profiles one step with torch.profiler (CPU and CUDA
+activities).  Prints the card (nvidia-smi name and power limit), the CTU
+hydro path (the middle-phase path unless ATHENA_TPU_PALLAS_MID turns it
+off), the step's wall time, its radiation substeps (per level for SMR) and
+host reads (device-to-host copies), the device time of each phase range
+that the step records (radiation, bvals, hydro, userwork, new_dt, and smr:
+the restriction, flux correction and prolongation glue of a mesh), the
+device busy share of the step, and the kernels with the most device time.
+Then it profiles the hydro phase (ctu3d.step) alone on the same (root)
+state and prints every kernel of it.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -36,9 +40,13 @@ BENCH = [f"domain1/Nx{a}={N}" for a in (1, 2, 3)] + [
     "ionradiation/maxiter=50", "ionradiation/batch_iters=25"]
 SEDOV = [f"domain1/Nx{a}={N}" for a in (1, 2, 3)] + [
     "domain1/x2max=1.0", "domain1/x3max=1.0"]
-# problem: (deck, base overrides, Simulation keywords)
-PROBLEMS = {"ioniz_sphere": ("athinput.isph64", BENCH, {}),
-            "testsedov": ("athinput.testsedov", SEDOV, {"flux": "hllc"})}
+SMR = BENCH + [f"domain2/Nx{a}={N}" for a in (1, 2, 3)] + [
+    f"domain2/{c}Disp={N // 2}" for c in "ijk"]
+# name: (deck, problem, base overrides, Simulation keywords)
+PROBLEMS = {"ioniz_sphere": ("athinput.isph64", "ioniz_sphere", BENCH, {}),
+            "testsedov": ("athinput.testsedov", "testsedov", SEDOV,
+                          {"flux": "hllc"}),
+            "isph2lev": ("athinput.isph2lev", "ioniz_sphere", SMR, {})}
 
 
 def main():
@@ -59,13 +67,13 @@ def main():
                             else "ATHENA_TPU_PALLAS_MID=0, plain middle "
                             "phases"))
     args = sys.argv[1:]
-    problem = args.pop(0) if args[:1] == ["testsedov"] else "ioniz_sphere"
-    deck, base, kw = PROBLEMS[problem]
+    name = args.pop(0) if args[:1] and args[0] in PROBLEMS else "ioniz_sphere"
+    deck, problem, base, kw = PROBLEMS[name]
     cmd = base + args
     s = Simulation.from_file(os.path.join(REPO, "tests", "golden", deck),
                              problem=problem, cmdline=cmd, dtype=DTYPE,
                              device="cuda", **kw)
-    print(f"configuration: {problem} {' '.join(cmd)}")
+    print(f"configuration: {name} {' '.join(cmd)}")
     s.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -76,14 +84,16 @@ def main():
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     reads = sum(e.count for e in events if e.key.startswith("Memcpy DtoH"))
-    rad = ("" if s.ion is None else
-           f" maxiter={s.ion.maxiter} batch_iters={s.ion.batch_iters}")
+    # the root level's view of a mesh (grid, problem, potential, radiation)
+    root = s.levels[0] if hasattr(s, "levels") else s
+    rad = ("" if root.ion is None else
+           f" maxiter={root.ion.maxiter} batch_iters={root.ion.batch_iters}")
     print(f"{N}^3 {DTYPE}{rad}: step wall {1e3 * wall:.1f} ms (under the "
           f"profiler), radiation substeps "
           f"{s.rad_iters[-1] if s.rad_iters else 0}, host reads {reads} "
           "(device-to-host copies)")
 
-    phases = ("radiation", "bvals", "hydro", "userwork", "new_dt")
+    phases = ("radiation", "bvals", "hydro", "userwork", "new_dt", "smr")
     # each range appears twice: as a host range (CPU time) and as the
     # span of its kernels on the device timeline
     host = {e.key: e for e in events if e.key in phases
@@ -108,7 +118,8 @@ def main():
     st = s.state
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as hprof:
-        ctu3d.step(st, st.dt, s.sim, s.grid, s.problem, phi=s.phi)
+        ctu3d.step(st, st.dt, s.sim, root.grid, root.problem, phi=root.phi,
+                   return_fluxes=root is not s)
         torch.cuda.synchronize()
     hk = device_kernels(hprof.key_averages())
     total = sum(dev_us(e) for e in hk) / 1e3
