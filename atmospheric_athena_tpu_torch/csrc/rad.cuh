@@ -14,51 +14,75 @@
 
 namespace ath {
 
-// host-folded constants of the radiation physics, all in double
-struct IonParams {
-  double inv_mH;          // 1/m_H
-  double aC14;            // alpha_C / (14 m_H)
-  double m_H, mu, k_B, gamma, gamma_1, time_unit, e_gamma;
-  double sigma_ph, dx1;   // tau = sigma_ph * n_H * dx1
-  double dx2, dx3;        // the CFL's other cell sizes
-  double minfluxfrac;
-  double ln_tfloor, ln_1e4, tfloor, tceil;
-  double mx_frac, mx, neg_mx, neg_mx_frac;   // max_dx_iter forms
-  double crec_coef;       // 6.11e-10 * k_B
-  double mde, mdt, e_th_min_coef;            // tfloor*k_B/gamma_1
-  double one_mdt, one_mde;                   // 1+mdt, 1+mde
-  double neg_mde_frac, neg_mdt_frac;         // -mde/(1+mde), -mdt/(1+mdt)
-  double ionfracfloor, d_nlo;
-  double two_cion, min_area;
-  double c_de_therm, c_de, c_dx;             // 1+max_*_step (0: off)
-  double tfloor_kB, tceil_kB;                // tfloor*k_B, tceil*k_B
+// host-folded constants of the radiation physics: IonParams in double, as
+// the host folds them (the layout rad_kernels._IonParams mirrors), and
+// IonParamsT<float>, a copy rounded once on the host (params_as), for a
+// kernel whose per-cell code should convert none of them; the host rounds
+// to nearest as the device does, so every value is the one T(p.x) gives.
+// The device functions below take either.
+#define ATH_ION_FIELDS(X)                                                   \
+  X(inv_mH)        /* 1/m_H */                                              \
+  X(aC14)          /* alpha_C / (14 m_H) */                                 \
+  X(m_H) X(mu) X(k_B) X(gamma) X(gamma_1) X(time_unit) X(e_gamma)           \
+  X(sigma_ph) X(dx1) /* tau = sigma_ph * n_H * dx1 */                       \
+  X(dx2) X(dx3)    /* the CFL's other cell sizes */                         \
+  X(minfluxfrac)                                                            \
+  X(ln_tfloor) X(ln_1e4) X(tfloor) X(tceil)                                 \
+  X(mx_frac) X(mx) X(neg_mx) X(neg_mx_frac)   /* max_dx_iter forms */       \
+  X(crec_coef)     /* 6.11e-10 * k_B */                                     \
+  X(mde) X(mdt) X(e_th_min_coef)              /* tfloor*k_B/gamma_1 */      \
+  X(one_mdt) X(one_mde)                       /* 1+mdt, 1+mde */            \
+  X(neg_mde_frac) X(neg_mdt_frac)   /* -mde/(1+mde), -mdt/(1+mdt) */        \
+  X(ionfracfloor) X(d_nlo)                                                  \
+  X(two_cion) X(min_area)                                                   \
+  X(c_de_therm) X(c_de) X(c_dx)     /* 1+max_*_step (0: off) */             \
+  X(tfloor_kB) X(tceil_kB)          /* tfloor*k_B, tceil*k_B */
+
+template <typename R>
+struct IonParamsT {
+#define ATH_ION_DECL(f) R f;
+  ATH_ION_FIELDS(ATH_ION_DECL)
+#undef ATH_ION_DECL
   int maxsigncount;
-  double damp[8];                            // DAMPFACTOR^(2^k)
+  R damp[8];                                 // DAMPFACTOR^(2^k)
 };
+using IonParams = IonParamsT<double>;
+
+template <typename T>
+IonParamsT<T> params_as(const IonParams& p) {
+  IonParamsT<T> q;
+#define ATH_ION_CAST(f) q.f = T(p.f);
+  ATH_ION_FIELDS(ATH_ION_CAST)
+#undef ATH_ION_CAST
+  q.maxsigncount = p.maxsigncount;
+  for (int k = 0; k < 8; ++k) q.damp[k] = T(p.damp[k]);
+  return q;
+}
 
 // largest finite value of T (the "big" of rates_percell)
 template <typename T> struct Big;
 template <> struct Big<float> { static constexpr float v = FLT_MAX; };
 template <> struct Big<double> { static constexpr double v = DBL_MAX; };
 
-template <typename T>
-__device__ __forceinline__ T mean_mass(T x, const IonParams& p) {
+template <typename T, typename R>
+__device__ __forceinline__ T mean_mass(T x, const IonParamsT<R>& p) {
   return x * T(0.5) * T(p.m_H) + (T(1) - x) * T(p.mu);
 }
 
-template <typename T>
-__device__ __forceinline__ T temperature(T e_sp, T x, const IonParams& p) {
+template <typename T, typename R>
+__device__ __forceinline__ T temperature(T e_sp, T x,
+                                         const IonParamsT<R>& p) {
   return T(p.gamma_1) * e_sp * mean_mass<T>(x, p) / T(p.k_B);
 }
 
-// rates_percell of ionrad/driver.py
-template <typename T>
+// rates_percell of ionrad/driver.py; di = 1/d, which the caller forms
+// (once per launch in the batch kernel)
+template <typename T, typename R>
 __device__ __forceinline__ void rates_percell(
-    T s0, T E, T d, T ke_be, int last_sign, int sign_count, T ph_rate,
-    T d_nlim, const IonParams& p, T& nHdot_o, int& new_sign,
+    T s0, T E, T d, T di, T ke_be, int last_sign, int sign_count, T ph_rate,
+    T d_nlim, const IonParamsT<R>& p, T& nHdot_o, int& new_sign,
     int& new_count, T& dtc, T& edot_o, T& dtt) {
   const T big = Big<T>::v;
-  const T di = T(1) / d;
   const T n_H = s0 * T(p.inv_mH);
   const T n_Hplus = (d - s0) * T(p.inv_mH);
   const T n_e = n_Hplus + d * T(p.aC14);
@@ -123,9 +147,9 @@ __device__ __forceinline__ void rates_percell(
 }
 
 // _temp of ionrad/driver.py: (T, e_th, x)
-template <typename T>
+template <typename T, typename R>
 __device__ __forceinline__ void temp3(T E, T s0, T d, T ke_be, T di,
-                                      const IonParams& p, T& Tt, T& e_th,
+                                      const IonParamsT<R>& p, T& Tt, T& e_th,
                                       T& x) {
   const T n_Hplus = (d - s0) * T(p.inv_mH);
   const T n_e = n_Hplus + d * T(p.aC14);
@@ -136,10 +160,10 @@ __device__ __forceinline__ void temp3(T E, T s0, T d, T ke_be, T di,
 }
 
 // update_percell of ionrad/driver.py; returns the violation flag
-template <typename T>
+template <typename T, typename R>
 __device__ __forceinline__ bool update_percell(
     T s0, T E, T d, T ke_be, T nHdot, T edot, T ph_rate, T dt, T d_nlim,
-    T e_init, T e_th_init, T x_init, T di, const IonParams& p, T& E2o,
+    T e_init, T e_th_init, T x_init, T di, const IonParamsT<R>& p, T& E2o,
     T& s02o) {
   const bool upd = (nHdot > T(0)) || (s0 > T(1.0001) * d_nlim);
   T E2 = E + (upd ? edot * dt : T(0));

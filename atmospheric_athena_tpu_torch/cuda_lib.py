@@ -63,18 +63,19 @@ _SIGNATURES = {
     "ath_grav_source_f64": [_P] * 17 + [_I] * 3 + [_P],
     "ath_final_update_f32": [_P] * 10 + [_I] * 10 + [_P],
     "ath_final_update_f64": [_P] * 10 + [_I] * 10 + [_P],
-    "ath_rad_rates_f32": [_P] * 15 + [_I, _I, _P, _P],
-    "ath_rad_rates_f64": [_P] * 15 + [_I, _I, _P, _P],
+    "ath_rad_rates_f32": [_P] * 15 + [_I] * 4 + [_P, _P],
+    "ath_rad_rates_f64": [_P] * 15 + [_I] * 4 + [_P, _P],
     "ath_rad_fused_f32": [_P] * 26 + [_I, _I, _P, _P],
     "ath_rad_fused_f64": [_P] * 26 + [_I, _I, _P, _P],
     "ath_rad_update_f32": [_P] * 16 + [_L, _P, _P],
     "ath_rad_update_f64": [_P] * 16 + [_L, _P, _P],
-    "ath_rad_batch_f32": [_P] * 20 + [_I] * 3 + [_P, _P],
-    "ath_rad_batch_f64": [_P] * 20 + [_I] * 3 + [_P, _P],
+    "ath_rad_batch_f32": [_P] * 20 + [_I] * 4 + [_P, _P],
+    "ath_rad_batch_f64": [_P] * 20 + [_I] * 4 + [_P, _P],
     "ath_bc_fill_f32": [_P] * 2 + [_I] * 12 + [_P],
     "ath_bc_fill_f64": [_P] * 2 + [_I] * 12 + [_P],
-    "ath_rad_rates_blocks": [_I],
-    "ath_rad_batch_blocks": [_I],
+    "ath_rad_rates_blocks": [_I, _I],
+    "ath_rad_fused_blocks": [_I],
+    "ath_rad_batch_blocks": [_I, _I],
     "ath_rad_update_blocks": [_L],
     "ath_rad_params_size": [],
     "ath_error_string": [_I],

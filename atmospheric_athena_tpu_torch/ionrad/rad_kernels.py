@@ -61,8 +61,14 @@ from .config import (CION, DAMPFACTOR, IONFRACFLOOR, MAXSIGNCOUNT,
                      MINFLUXFRAC, IonConfig)
 from .plane import get_ph_rate_plane
 
-# the largest ceil(NX/32) the batch kernel keeps in registers (NX <= 512)
+# the largest ceil(NX/32) the batch kernel takes (NX <= 512)
 BATCH_MAX_CHUNK = 16
+
+# launch shapes the kernels are built for: rates (rows per block, cells
+# per lane and tile), batch (rows per block); the first of each is the one
+# the wrappers launch unless given another
+RATES_SHAPES = ((8, 4), (4, 8))
+BATCH_SHAPES = (2, 4)
 
 
 def check_supported(sim: SimConfig, grid: GridConfig, ion: IonConfig):
@@ -315,16 +321,22 @@ def _inlet_arg(inlet, s0):
 
 
 def rates(s0, E, code, d, Msq, Fin, sim: SimConfig, grid: GridConfig,
-          ion: IonConfig, inlet=None):
+          ion: IonConfig, inlet=None, shape=RATES_SHAPES[0]):
     """Plane sweep + chemistry/thermal rates; see ``rates_plain`` for the
     outputs.  Fin is the inlet flux (float or 0-d tensor); a per-column
     `inlet` ([NZ, NY] or [NZ, NY, 1]) replaces it.
 
     Kernel (CUDA tensors): csrc/rad.cu rates_kernel, replacing
-    ionrad/pallas_rad.py:_rates_kernel in both inlet forms — one warp per x
-    row with a shuffle scan of the transmittance, the row's inlet read
-    once; bound by the FP64 pipe in float64 (log and three exp per cell)
-    and by its 9 field streams in float32."""
+    ionrad/pallas_rad.py:_rates_kernel in both inlet forms.  Bound by
+    bytes (5 fields in and 5 out per cell) and, about as much, by the
+    ~420 instructions of a cell's exact chemistry.  One warp per x row
+    stages a tile of the row in shared memory with coalesced (16-byte
+    where aligned) loads, its lanes multiply contiguous chunks of
+    exp(-tau) from there (kept for the rates pass) and combine them with a
+    shuffle scan, and the results leave through shared memory with
+    coalesced stores; the row's inlet is read once.  `shape` is the launch
+    shape, one of RATES_SHAPES (rows per block, cells per lane and
+    tile)."""
     if s0.device.type != "cuda":
         return rates_plain(s0, E, code, d, Msq, Fin, sim, grid, ion,
                            inlet=inlet)
@@ -333,8 +345,10 @@ def rates(s0, E, code, d, Msq, Fin, sim: SimConfig, grid: GridConfig,
     inl = _inlet_arg(inlet, s0)
     nz, ny, nx = s0.shape
     nrows = nz * ny
+    if shape not in RATES_SHAPES:
+        raise ValueError(f"rates: launch shape {shape} not in {RATES_SHAPES}")
     L = cuda_lib.lib()
-    nblk = L.ath_rad_rates_blocks(nrows)
+    nblk = L.ath_rad_rates_blocks(nrows, shape[0])
     fin = cuda_lib.scalar_arg(0.0 if inl is not None else Fin, s0)
     ncode = torch.empty_like(code)
     efb, kph, nHdot, edot = (torch.empty_like(s0) for _ in range(4))
@@ -349,7 +363,7 @@ def rates(s0, E, code, d, Msq, Fin, sim: SimConfig, grid: GridConfig,
              None if inl is None else inl.data_ptr(), ncode.data_ptr(),
              efb.data_ptr(), efx.data_ptr(), kph.data_ptr(),
              nHdot.data_ptr(), edot.data_ptr(), dtc_p.data_ptr(),
-             dtt_p.data_ptr(), nrows, nx, ctypes.byref(prm),
+             dtt_p.data_ptr(), nrows, nx, *shape, ctypes.byref(prm),
              cuda_lib.stream_ptr(s0.device))
     cuda_lib.check(err, "rates")
     rates.launches += 1
@@ -412,10 +426,11 @@ def fused(s0, E, code, kph, nHdot, edot, d, M1, M2, M3, e_init, x_init, dt,
     replaces Fin as in ``rates``.
 
     Kernel (CUDA tensors): csrc/rad.cu fused_kernel, replacing
-    ionrad/pallas_rad.py:_fused_kernel in both inlet forms — rates' warp
-    per x row: each lane updates its chunk (update_percell, the per-axis
-    CFL), stages the updated s0 and E in shared memory, and after the
-    shuffle scan of the updated transmittance runs rates_percell on them;
+    ionrad/pallas_rad.py:_fused_kernel in both inlet forms — a warp per x
+    row, each lane owning a chunk of it: each lane updates its chunk
+    (update_percell, the per-axis CFL), stages the updated s0 and E in
+    shared memory, and after the shuffle scan of the updated
+    transmittance runs rates_percell on them;
     it reads 12 fields and writes 7 and the exit face, against 9 + 13 for
     rates and update apart; bound by the FP64 pipe in float64 (the
     chemistry's log, exp and divides) and by its 19 field streams in
@@ -431,7 +446,7 @@ def fused(s0, E, code, kph, nHdot, edot, d, M1, M2, M3, e_init, x_init, dt,
     nz, ny, nx = s0.shape
     nrows = nz * ny
     L = cuda_lib.lib()
-    nblk = L.ath_rad_rates_blocks(nrows)
+    nblk = L.ath_rad_fused_blocks(nrows)
     scal = cuda_lib.scalar_arg([dt, 0.0 if inl is not None else Fin], s0)
     E2, s02, kph2, nH2, ed2, efb = (torch.empty_like(s0) for _ in range(6))
     ncode = torch.empty_like(code)
@@ -465,16 +480,22 @@ fused.forms = Counter()
 
 
 def batch(s0, E, code, d, M1, M2, M3, e_init, x_init, dts, Fin,
-          sim: SimConfig, grid: GridConfig, ion: IonConfig):
+          sim: SimConfig, grid: GridConfig, ion: IonConfig,
+          shape=BATCH_SHAPES[0]):
     """K = len(dts) substeps of the sub-cycle; see ``batch_plain`` for the
     outputs.  dts is a [K] tensor, Fin a float or 0-d tensor.
 
     Kernel (CUDA tensors): csrc/rad_batch.cu batch_kernel, replacing
-    ionrad/pallas_rad.py:_batch_kernel — one warp per x row keeping the
-    row's state in registers for all K substeps (one read and one write of
-    the fields per launch); bound by the chemistry's arithmetic.  Its
-    per-block, per-substep minima of min(dt_chem, dt_therm) give ok here,
-    exactly as the plain version's global minima do."""
+    ionrad/pallas_rad.py:_batch_kernel.  Bound by instruction issue: a
+    log, four exp and about nine IEEE divides per cell and substep, some
+    500 instructions.  One warp per x row keeps the row's state and the
+    per-cell constants d, ke_be, 1/d, e_init and x_init in shared memory
+    for all K substeps, so its registers hold one cell's chemistry (with
+    the host-folded constants rounded to the fields' dtype) and more warps
+    share each SM; the fields are read and written once per launch,
+    coalesced.  `shape` is the launch shape, one of BATCH_SHAPES (rows per
+    block).  Its per-block, per-substep minima of min(dt_chem, dt_therm)
+    give ok here, exactly as the plain version's global minima do."""
     if s0.device.type != "cuda":
         return batch_plain(s0, E, code, d, M1, M2, M3, e_init, x_init, dts,
                            Fin, sim, grid, ion)
@@ -489,9 +510,11 @@ def batch(s0, E, code, d, M1, M2, M3, e_init, x_init, dts, Fin,
     if -(-nx // 32) > BATCH_MAX_CHUNK:
         raise ValueError(f"batch: NX={nx} exceeds the kernel's "
                          f"{32 * BATCH_MAX_CHUNK} cells per row")
+    if shape not in BATCH_SHAPES:
+        raise ValueError(f"batch: launch shape {shape} not in {BATCH_SHAPES}")
     nrows = nz * ny
     L = cuda_lib.lib()
-    nblk = L.ath_rad_batch_blocks(nrows)
+    nblk = L.ath_rad_batch_blocks(nrows, shape)
     scal = cuda_lib.scalar_arg([*dts, Fin], s0)
     s02, E2, efb = (torch.empty_like(s0) for _ in range(3))
     ncode = torch.empty_like(code)
@@ -508,7 +531,7 @@ def batch(s0, E, code, d, M1, M2, M3, e_init, x_init, dts, Fin,
              x_init.data_ptr(), scal.data_ptr(), s02.data_ptr(),
              E2.data_ptr(), ncode.data_ptr(), efb.data_ptr(), efx.data_ptr(),
              viol_p.data_ptr(), dti_p.data_ptr(), dtc_p.data_ptr(),
-             dtt_p.data_ptr(), lim_p.data_ptr(), nrows, nx, k,
+             dtt_p.data_ptr(), lim_p.data_ptr(), nrows, nx, k, shape,
              ctypes.byref(prm), cuda_lib.stream_ptr(s0.device))
     cuda_lib.check(err, "batch")
     batch.launches += 1

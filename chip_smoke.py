@@ -23,7 +23,9 @@ radiation sweep) is checked and counted per form, "name[form]":
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
   1. build the CUDA kernels from csrc/ (nvcc, one process per source) and
      print the build time and ptxas's registers and spills of every CUDA
-     kernel;
+     kernel (each instantiation: element type and launch shape), and from
+     cuobjdump the SASS instructions of the batch kernel's per-cell pass
+     with the time they take to issue at the card's maximum clock;
   2. kernel vs plain version on states of the isph deck after init and two
      steps, with a damping-code carry and a per-column inlet drawn from
      SEED and the batch kernel on a 25-substep schedule of THETA x the
@@ -32,8 +34,11 @@ radiation sweep) is checked and counted per form, "name[form]":
      (median) of both, the bound (bytes at the HBM rate or operations at
      the float32 rate, whichever is larger) and the library call where one
      exists (F.pad for the ghost fill); the ghost fill must equal its plain
-     version bitwise, ghosts included, B12's dF2, F2_ID and F2_IDr the
-     roll-and-subtract of B13's flux on the same states bitwise, B7 from
+     version bitwise, ghosts included, B1 (both inlet forms) and B3 timed
+     in each launch shape they are built for, with the count of their
+     output elements whose bits differ from the plain version's, B12's
+     dF2, F2_ID and F2_IDr the roll-and-subtract of B13's flux on the
+     same states bitwise, B7 from
      the whole fluxes its dF form on the same fluxes bitwise, and B3' (the
      fused update + rates, on no path, as in the JAX package) update_fn
      followed by rates_fn of the same build within TOL, timed against
@@ -263,6 +268,12 @@ SYMBOLS = {"sweep_lrflux": "sweep_lrflux_kernel",
 # kernels whose output must equal the plain version's bitwise, ghost
 # cells included (copies and negations only)
 EXACT = {"bc_fill"}
+
+# kernels built in several launch shapes (rad_kernels.RATES_SHAPES,
+# BATCH_SHAPES): phase 2 times each shape and counts the output elements
+# whose bits differ from the plain version's
+SHAPED = {"rad_rates": "RATES_SHAPES", "rad_rates[inlet]": "RATES_SHAPES",
+          "rad_batch": "BATCH_SHAPES"}
 
 # the kernels each path launches, and those it must not
 MID = ["sweep_lrflux_df", "gcross", "transverse_correct", "flux_corrected",
@@ -569,6 +580,41 @@ def compare(name, got, ref, tol, grid=None, nan_probe=False):
     return worst_abs, worst_rel
 
 
+def bits_differ(got, ref):
+    """Elements of the outputs `got` whose bits differ from `ref`'s."""
+    return sum(int((bits(g) != bits(r)).sum()) for g, r in zip(got, ref))
+
+
+def burst_ms(fn, n=20):
+    """ms per call of n calls of fn() back to back between two CUDA events
+    (after one warm-up call), so that the host's work per call runs while
+    the device works through the queue."""
+    import torch
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def shape_ms(name, kern, args):
+    """ms per launch of kernel `name` in each launch shape it is built
+    for (burst_ms), the fastest of three runs taken in turns (s1..sn,
+    sn..s1, s1..sn)."""
+    from atmospheric_athena_tpu_torch.ionrad import rad_kernels
+    shapes = list(getattr(rad_kernels, SHAPED[name]))
+    t = {}
+    for sh in shapes + shapes[::-1] + shapes:
+        ms = burst_ms(lambda: kern(*args, shape=sh))
+        t[sh] = min(t.get(sh, ms), ms)
+    return {"x".join(map(str, sh)) if isinstance(sh, tuple) else str(sh): v
+            for sh, v in t.items()}
+
+
 def mid_inputs(U, phic, phif, dtodx, sim, grid):
     """The middle-phase kernels' operands: one chain through the plain
     versions from U, as the mid path of ctu3d.step runs it, and its step 9
@@ -856,6 +902,9 @@ def phase2(n, dtype, timing):
         if base_name(name) == "flux_sweep_df":
             r["dF2_bits_vs_plain"] = (r.get("dF2_bits_vs_plain", 0)
                                       + df2_bits(*args))
+        if name in SHAPED:
+            r["bits_vs_plain"] = bits_differ(got, ref)
+            r["elements"] = sum(g.numel() for g in got)
         if timing:
             # plain, kernel, kernel, plain
             p1, k1 = cuda_ms(lambda: plain(*args)), cuda_ms(
@@ -868,6 +917,8 @@ def phase2(n, dtype, timing):
             t_ops = count_ops(lambda: plain(*args)) / FP32_OPS_PER_S
             r["bound_ms"] += 1e3 * max(t_bytes, t_ops)
             r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            if name in SHAPED:
+                r["shapes_ms"] = shape_ms(name, kern, args)
             if name == "bc_fill":
                 # the one PyTorch call computing the deck's outflow fill
                 Ui = args[0][(slice(None),) + s.grid.interior()].contiguous()
@@ -896,9 +947,14 @@ def phase2(n, dtype, timing):
                "dF2 bitwise the roll of flux_pointwise's F2, "
                f"{r['dF2_bits_vs_plain']} elements differ from the plain "
                "version's bits")
+        shp = ("" if name not in SHAPED else
+               f"; {r['bits_vs_plain']} of {r['elements']} output elements "
+               "differ from the plain version's bits" + (
+                   "" if "shapes_ms" not in r else
+                   f"; ms per launch shape {r['shapes_ms']}"))
         say(f"phase 2 {n}^3 {dtype} {name}: max err {r['max_rel_err']:.2e}"
             f" x field max (bound {tol:.0e}), max abs {r['max_abs_err']:.3e}"
-            f";{t}{b12}")
+            f";{t}{b12}{shp}")
     return rec
 
 
@@ -1432,13 +1488,98 @@ def ptxas_report(source, kernel):
         m = re.search(r"Used (\d+) registers", line)
         if m:
             # the template arguments: (float|double)[, int...]
-            t = re.search(kernel + r"I([fd])((?:Li\d+E)*)", cur)
-            ints = re.findall(r"Li(\d+)E", t.group(2))
+            t = re.search(kernel + r"I([fd])((?:L[ib]-?\d+E)*)", cur)
+            ints = re.findall(r"L[ib](-?\d+)E", t.group(2))
             label = ("f32" if t.group(1) == "f" else "f64") + (
                 f"<{','.join(ints)}>" if ints else "")
             out.append(f"{label}: {m.group(1)} registers, {spill}")
             cur = None
     return "; ".join(out)
+
+
+def sass_loops(kernel, label):
+    """The innermost loops of one instantiation of `kernel` in the built
+    library (cuobjdump -sass): the static instruction count of each loop
+    body, found as the address range [target, branch] of each backward
+    branch that holds no other.  `label` picks the instantiation by its
+    mangled template arguments (e.g. "IfLi4ELi1E" for <float, 4, 1>).
+    Returns the counts, largest first."""
+    import re
+    from pathlib import Path
+    from atmospheric_athena_tpu_torch import cuda_lib
+    tool = Path(cuda_lib.nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(cuda_lib.library_path())],
+                         capture_output=True, text=True, timeout=300,
+                         check=True).stdout
+    want = f"{kernel}{label}"
+    addrs, labels, branches, on = [], {}, [], False
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            if on:
+                break
+            on = want in m.group(1)
+            continue
+        if not on:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            labels[m.group(1)] = None
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if not m:
+            continue
+        a = int(m.group(1), 16)
+        addrs.append(a)
+        for k, v in labels.items():
+            if v is None:
+                labels[k] = a
+        b = re.search(r"\bBRA(?:\.\S+)?\s+`?\(?(0x[0-9a-f]+|\.L_x_\d+)",
+                      m.group(2))
+        if b:
+            branches.append((a, b.group(1)))
+    loops = []
+    for a, tgt in branches:
+        t = int(tgt, 16) if tgt.startswith("0x") else labels.get(tgt)
+        if t is not None and t < a:
+            loops.append((t, a))
+    inner = [(t, a) for t, a in loops
+             if not any(t <= t2 and a2 <= a and (t2, a2) != (t, a)
+                        for t2, a2 in loops)]
+    return sorted((sum(1 for x in addrs if t <= x <= a) for t, a in inner),
+                  reverse=True)
+
+
+def sass_batch(n=256):
+    """The static SASS instructions of the batch kernel's per-cell pass
+    (the largest innermost loop of batch_kernel<float> in the shape the
+    wrapper launches: one cell's sweep, rates_percell and update_percell)
+    and the time that count implies for the BATCH_K substeps of n^3 cells
+    at one warp instruction per scheduler and clock (4 per SM) at the
+    card's maximum SM clock."""
+    import torch
+    from atmospheric_athena_tpu_torch.ionrad import rad_kernels
+    rows = rad_kernels.BATCH_SHAPES[0]
+    try:
+        loops = sass_loops("batch_kernel", f"IfLi{rows}E")
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60, check=True).stdout.split()[0])
+    except (OSError, ValueError, IndexError,
+            subprocess.SubprocessError) as e:
+        say(f"phase 1 SASS batch_kernel: not measured ({e})")
+        return dict(sass_loops=None, sass_issue_ms=None)
+    nsm = torch.cuda.get_device_properties(0).multi_processor_count
+    issue_ms = None
+    if loops:
+        warp_instr = loops[0] * n ** 3 * BATCH_K / 32
+        issue_ms = 1e3 * warp_instr / (nsm * 4 * mhz * 1e6)
+    say(f"phase 1 SASS batch_kernel<float,{rows}>: innermost loop bodies "
+        f"{loops} instructions; the per-cell pass {loops[:1]}; at "
+        f"{mhz:.0f} MHz on {nsm} SMs, {BATCH_K} substeps of {n}^3 cells "
+        f"issue in {issue_ms} ms")
+    return dict(sass_loops=loops, sass_issue_ms=issue_ms, sm_clock_mhz=mhz)
 
 
 def main():
@@ -1462,6 +1603,7 @@ def main():
             name = base_name(name)
             regs[name] = ptxas_report(os.path.basename(source), SYMBOLS[name])
             say(f"phase 1 ptxas {name}: {regs[name]}")
+    sass = sass_batch()
 
     # B3' runs on no path (as in the JAX package): its launches are those
     # of the two phase-2 comparisons
@@ -1469,6 +1611,10 @@ def main():
     phase2(64, "float64", timing=False)
     rec = phase2(256, "float32", timing=True)
     p2 = read_counts()
+    for name in SHAPED:
+        say(f"phase 2 launch shapes of {name} (256^3 float32, burst ms per "
+            f"launch): {rec[name]['shapes_ms']}; ptxas "
+            f"{regs[base_name(name)]}")
     nan_probe()
     phase3()
     smr, _ = phase4_smr()
@@ -1495,9 +1641,12 @@ def main():
                  plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                  bound_by=r["bound_by"], library_ms=r["library_ms"],
                  registers=regs.get(base_name(name)))
-        for extra in ("dF2_bits_vs_plain", "rates_plus_update_ms"):
+        for extra in ("dF2_bits_vs_plain", "rates_plus_update_ms",
+                      "bits_vs_plain", "elements", "shapes_ms"):
             if extra in r:
                 k[extra] = r[extra]
+        if name == "rad_batch":
+            k.update(sass)
         kernels.append(k)
     say(f"chip_smoke: all phases in {time.perf_counter() - t_all:.1f} s")
     say(smi_line())

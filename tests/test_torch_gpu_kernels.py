@@ -5,12 +5,13 @@ the route without the H-correction (B12, whose dF2 must also be the
 roll-and-subtract of B13's flux bitwise); the SMR forms (B7 from the whole
 fluxes, bitwise its dF form; the per-column inlet of B1), B8 with HLLC and
 B3' in both inlet forms (also against update then rates); the batch
-kernel on three dt schedules; the ghost-fill kernel bitwise on every flag
-set it covers; the NaN probe (one cell's E, then d, set to NaN: every
-kernel's NaN cells and NaN reductions equal its plain version's); the
-testsedov golden on both hydro paths; the SMR blast goldens and isph2lev
-against the plain run on the CPU.  Needs a CUDA device, nvcc and triton; skipped
-elsewhere.  This file imports no JAX,
+kernel on three dt schedules; B1 (both inlet forms) and B3 in each launch
+shape at row lengths 45, 100, 256 and 300; the ghost-fill kernel bitwise
+on every flag set it covers; the NaN probe (one cell's E, then d, set to
+NaN: every kernel's NaN cells and NaN reductions equal its plain
+version's); the testsedov golden on both hydro paths; the SMR blast
+goldens and isph2lev against the plain run on the CPU.  Needs a CUDA
+device, nvcc and triton; skipped elsewhere.  This file imports no JAX,
 so on a machine without JAX run it as
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu_kernels.py
@@ -189,6 +190,67 @@ def test_rad_batch_kernel(case, sched):
                        chip_smoke.outputs(ref), tol, s.grid)
     assert float(got[-1]) == float(ref[-1]) == (
         0.0 if max(sched) > 1 else 1.0)
+
+
+@pytest.fixture(scope="module", params=[
+    (nx, dtype) for nx in (45, 100, 256, 300)
+    for dtype in ("float64", "float32")],
+    ids=lambda c: f"nx{c[0]}_{c[1]}")
+def row_case(request):
+    """The isph deck at NX x 3 x 2 after one step: rows of 45 and 100 cells
+    (a ragged last lane, the exit face on a lane below 31), 256 (8 cells
+    per lane, one rates tile) and 300 (rates over two tiles, 10 cells per
+    lane in the batch); 6 rows, a block only partly filled."""
+    need_cuda()
+    from atmospheric_athena_tpu_torch import Simulation
+    nx, dtype = request.param
+    cmd = [f"domain1/Nx1={nx}", "domain1/Nx2=3", "domain1/Nx3=2",
+           "ionradiation/maxiter=20"]
+    s = Simulation.from_file(chip_smoke.DECK, problem="ioniz_sphere",
+                             cmdline=cmd, dtype=dtype, device="cuda")
+    s.step()
+    return s, chip_smoke.kernel_inputs(s), chip_smoke.TOL[dtype]
+
+
+def test_rad_rates_row_lengths(row_case):
+    """B1 in both inlet forms, in every launch shape it is built for,
+    against rates_plain at row lengths where lanes own several cells."""
+    from atmospheric_athena_tpu_torch.ionrad import rad_kernels as rk
+    s, inp, tol = row_case
+    for shape in rk.RATES_SHAPES:
+        for name, inlet in (("rad_rates", None),
+                            ("rad_rates[inlet]", inp["inlet"])):
+            got = rk.rates(*inp["rates_in"], inlet=inlet, shape=shape)
+            ref = rk.rates_plain(*inp["rates_in"], inlet=inlet)
+            chip_smoke.compare(f"{name} {shape}", chip_smoke.outputs(got),
+                               chip_smoke.outputs(ref), tol, s.grid)
+
+
+@pytest.mark.parametrize("sched", [
+    [0.5, 0.5, 0.5, 0.5],
+    [0.5, 0.5, 0.0, 0.0],
+    [0.5, 30.0, 0.5, 0.5],
+], ids=["active", "frozen_tail", "above_limit"])
+def test_rad_batch_row_lengths(row_case, sched):
+    """B3 in every launch shape against batch_plain on the schedules of
+    test_rad_batch_kernel, at row lengths where lanes own several cells;
+    its validity flag equal to the plain version's (on these coarse rows
+    half the first limit can exceed a later substep's limit, so "active"
+    may be refused on both sides)."""
+    import torch
+    from atmospheric_athena_tpu_torch.ionrad import rad_kernels as rk
+    s, inp, tol = row_case
+    args = list(inp["batch_in"])
+    args[9] = torch.tensor(sched, dtype=args[0].dtype,
+                           device=args[0].device) * inp["dt_rad"]
+    ref = rk.batch_plain(*args)
+    for shape in rk.BATCH_SHAPES:
+        got = rk.batch(*args, shape=shape)
+        chip_smoke.compare(f"rad_batch {shape}", chip_smoke.outputs(got),
+                           chip_smoke.outputs(ref), tol, s.grid)
+        assert float(got[-1]) == float(ref[-1])
+    if max(sched) > 1:
+        assert float(ref[-1]) == 0.0
 
 
 R, O, P, C, D = 1, 2, 4, 5, 3   # reflect, outflow, periodic, conductor,
