@@ -45,14 +45,12 @@ _D = ctypes.c_double
 # C signatures of the entry points (csrc/hydro.cu, csrc/ctu_mid.cu,
 # csrc/rad.cu, csrc/rad_batch.cu, csrc/bvals.cu)
 _SIGNATURES = {
-    "ath_sweep_lrflux_f32": [_P] * 7 + [_I] * 6 + [_D, _D, _P],
-    "ath_sweep_lrflux_f64": [_P] * 7 + [_I] * 6 + [_D, _D, _P],
-    "ath_sweep_lrflux_df_f32": [_P] * 8 + [_I] * 6 + [_D, _D, _P],
-    "ath_sweep_lrflux_df_f64": [_P] * 8 + [_I] * 6 + [_D, _D, _P],
+    "ath_sweep_f32": [_P] * 8 + [_I] * 10 + [_D, _D, _P],
+    "ath_sweep_f64": [_P] * 8 + [_I] * 10 + [_D, _D, _P],
     "ath_flux_pointwise_f32": [_P] * 4 + [_I] * 6 + [_D, _D, _P],
     "ath_flux_pointwise_f64": [_P] * 4 + [_I] * 6 + [_D, _D, _P],
-    "ath_flux_sweep_df_f32": [_P] * 5 + [_I] * 6 + [_D, _D, _P],
-    "ath_flux_sweep_df_f64": [_P] * 5 + [_I] * 6 + [_D, _D, _P],
+    "ath_flux_sweep_df_f32": [_P] * 5 + [_I] * 9 + [_D, _D, _P],
+    "ath_flux_sweep_df_f64": [_P] * 5 + [_I] * 9 + [_D, _D, _P],
     "ath_gcross_f32": [_P] * 10 + [_I] * 3 + [_P],
     "ath_gcross_f64": [_P] * 10 + [_I] * 3 + [_P],
     "ath_transverse_f32": [_P] * 12 + [_I] * 6 + [_D, _D, _P],

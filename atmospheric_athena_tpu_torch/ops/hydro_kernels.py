@@ -25,8 +25,10 @@ the port; the kernels repeat their formulas in csrc/hydro.cuh.  Both wrap
 the stencil at the array edge (torch.roll / modular indexing), which touches
 only ghost cells that no interior update reads.
 
-``<wrapper>.launches`` counts the kernel launches of each wrapper and
-``<wrapper>.forms`` the launches per solver (``forms["hllc"]``).
+B5 (both forms) and B12 take ``shape=``, their launch shape, one of
+``SWEEP_SHAPES`` / ``FLUXDF_SHAPES``.  ``<wrapper>.launches`` counts the
+kernel launches of each wrapper and ``<wrapper>.forms`` the launches per
+solver (``forms["hllc"]``).
 """
 
 from __future__ import annotations
@@ -45,6 +47,13 @@ from . import reconstruct, riemann
 
 # the solver argument of the kernels (csrc/hydro.cuh FluxKind)
 FLUX_KIND = {"roe": 0, "hllc": 1}
+
+# launch shapes the B5 and B12 kernels are built for (csrc/hydro.cu
+# ATH_HYDRO_SHAPES): (S interfaces per segment of the y and z sweeps, at
+# most T threads per row and R rows per block of the x sweep); the first is
+# the default
+SWEEP_SHAPES = ((32, 128, 1), (64, 320, 1))
+FLUXDF_SHAPES = SWEEP_SHAPES
 
 
 def supported(sim: SimConfig) -> bool:
@@ -143,7 +152,36 @@ def _check_sweep_args(U, phic, phif_a, sim, axis, name):
         raise ValueError(f"{name}: axis {axis}")
 
 
-def sweep_lrflux(U, phic, phif_a, dtodx, sim: SimConfig, axis: int):
+def _check_shape(name, shape, shapes):
+    if shape not in shapes:
+        raise ValueError(f"{name}: launch shape {shape} not in {shapes}")
+
+
+def _sweep(U, phic, phif_a, dtodx, sim, axis, shape, df, name):
+    """Launch csrc/hydro.cu's B5 kernels: the whole-flux form (Ul, Ur, F)
+    or, with df, the dF form (Ul, Ur, F_ID, dF)."""
+    _check_sweep_args(U, phic, phif_a, sim, axis, name)
+    _check_shape(name, shape, SWEEP_SHAPES)
+    nv, nz, ny, nx = U.shape
+    dt_t = cuda_lib.scalar_arg(dtodx, U)
+    Ul = torch.empty_like(U)
+    Ur = torch.empty_like(U)
+    F = torch.empty_like(U[0] if df else U)
+    dF = torch.empty_like(U) if df else None
+    fn = (cuda_lib.lib().ath_sweep_f64 if U.dtype == torch.float64
+          else cuda_lib.lib().ath_sweep_f32)
+    err = fn(U.data_ptr(), None if phic is None else phic.data_ptr(),
+             None if phif_a is None else phif_a.data_ptr(), dt_t.data_ptr(),
+             Ul.data_ptr(), Ur.data_ptr(), F.data_ptr(),
+             None if dF is None else dF.data_ptr(), nz, ny, nx, axis,
+             sim.nscalars, FLUX_KIND[sim.flux], int(df), *shape, sim.gamma,
+             sim.gamma_1, cuda_lib.stream_ptr(U.device))
+    cuda_lib.check(err, name)
+    return (Ul, Ur, F, dF) if df else (Ul, Ur, F)
+
+
+def sweep_lrflux(U, phic, phif_a, dtodx, sim: SimConfig, axis: int,
+                 shape=SWEEP_SHAPES[0]):
     """Fused steps 1-3 along `axis`.
 
     U: [nv, NZ, NY, NX] physical order; phic, phif_a: [NZ, NY, NX] static
@@ -151,70 +189,46 @@ def sweep_lrflux(U, phic, phif_a, dtodx, sim: SimConfig, axis: int):
     dtodx: dt/dx_axis (float or 0-d tensor on U's device).
     Returns (Ul, Ur, F), each [nv, NZ, NY, NX] in physical order.
 
-    Kernel (CUDA tensors): csrc/hydro.cu sweep_lrflux_kernel, replacing
-    ops/pallas_hydro.py:_sweep_kernel.  One thread per interface; it is
-    bound by the PLM/Riemann arithmetic in float64 and close to the memory
-    bound in float32 (see the source note there).
+    Kernel (CUDA tensors): csrc/hydro.cu sweep_march_kernel (y, z) and
+    sweep_tile_kernel (x), replacing ops/pallas_hydro.py:_sweep_kernel.
+    Each cell is converted and reconstructed once and each interface solved
+    once, apart from the halo of a segment or tile (see the source note).
+    `shape` is the launch shape, one of SWEEP_SHAPES.
     """
     if U.device.type != "cuda":
         return sweep_lrflux_plain(U, phic, phif_a, dtodx, sim, axis)
-    _check_sweep_args(U, phic, phif_a, sim, axis, "sweep_lrflux")
-    nv, nz, ny, nx = U.shape
-    dt_t = cuda_lib.scalar_arg(dtodx, U)
-    Ul = torch.empty_like(U)
-    Ur = torch.empty_like(U)
-    F = torch.empty_like(U)
-    fn = (cuda_lib.lib().ath_sweep_lrflux_f64 if U.dtype == torch.float64
-          else cuda_lib.lib().ath_sweep_lrflux_f32)
-    err = fn(U.data_ptr(), None if phic is None else phic.data_ptr(),
-             None if phif_a is None else phif_a.data_ptr(), dt_t.data_ptr(),
-             Ul.data_ptr(), Ur.data_ptr(), F.data_ptr(), nz, ny, nx, axis,
-             sim.nscalars, FLUX_KIND[sim.flux], sim.gamma, sim.gamma_1,
-             cuda_lib.stream_ptr(U.device))
-    cuda_lib.check(err, "sweep_lrflux")
+    out = _sweep(U, phic, phif_a, dtodx, sim, axis, shape, False,
+                 "sweep_lrflux")
     sweep_lrflux.launches += 1
     sweep_lrflux.forms[sim.flux] += 1
-    return Ul, Ur, F
+    return out
 
 
 sweep_lrflux.launches = 0
 sweep_lrflux.forms = Counter()
 
 
-def sweep_lrflux_df(U, phic, phif_a, dtodx, sim: SimConfig, axis: int):
+def sweep_lrflux_df(U, phic, phif_a, dtodx, sim: SimConfig, axis: int,
+                    shape=SWEEP_SHAPES[0]):
     """Fused steps 1-3 along `axis`, emitting the flux difference.
 
     Arguments as ``sweep_lrflux``.  Returns (Ul, Ur, F_ID, dF): Ul, Ur, dF
     [nv, NZ, NY, NX] physical order, F_ID [NZ, NY, NX] the density flux and
     dF[..., f] = F[..., f+1] - F[..., f] along `axis` (wrapping).
 
-    Kernel (CUDA tensors): csrc/hydro.cu sweep_lrflux_df_kernel, replacing
-    ops/pallas_hydro.py:_sweep_kernel with with_df=True.  Each thread solves
-    its interface and the next one (three PLM cells, two Riemann solves), so F
-    never goes to memory; dF is bitwise the plain roll-and-subtract in
-    float64.
+    Kernel (CUDA tensors): the dF form of sweep_lrflux's kernels, replacing
+    ops/pallas_hydro.py:_sweep_kernel with with_df=True.  F(f) stays in
+    registers (y, z) or shared memory (x) until F(f+1) is formed, so F never
+    goes to memory; dF, F_ID, Ul and Ur are bitwise the roll-and-subtract
+    and the outputs of sweep_lrflux's kernel.
     """
     if U.device.type != "cuda":
         return sweep_lrflux_df_plain(U, phic, phif_a, dtodx, sim, axis)
-    _check_sweep_args(U, phic, phif_a, sim, axis, "sweep_lrflux_df")
-    nv, nz, ny, nx = U.shape
-    dt_t = cuda_lib.scalar_arg(dtodx, U)
-    Ul = torch.empty_like(U)
-    Ur = torch.empty_like(U)
-    dF = torch.empty_like(U)
-    Fid = torch.empty_like(U[0])
-    fn = (cuda_lib.lib().ath_sweep_lrflux_df_f64
-          if U.dtype == torch.float64
-          else cuda_lib.lib().ath_sweep_lrflux_df_f32)
-    err = fn(U.data_ptr(), None if phic is None else phic.data_ptr(),
-             None if phif_a is None else phif_a.data_ptr(), dt_t.data_ptr(),
-             Ul.data_ptr(), Ur.data_ptr(), Fid.data_ptr(), dF.data_ptr(),
-             nz, ny, nx, axis, sim.nscalars, FLUX_KIND[sim.flux], sim.gamma,
-             sim.gamma_1, cuda_lib.stream_ptr(U.device))
-    cuda_lib.check(err, "sweep_lrflux_df")
+    out = _sweep(U, phic, phif_a, dtodx, sim, axis, shape, True,
+                 "sweep_lrflux_df")
     sweep_lrflux_df.launches += 1
     sweep_lrflux_df.forms[sim.flux] += 1
-    return Ul, Ur, Fid, dF
+    return out
 
 
 sweep_lrflux_df.launches = 0
@@ -256,7 +270,8 @@ flux_pointwise.launches = 0
 flux_pointwise.forms = Counter()
 
 
-def flux_sweep_df(Ulc, Urc, sim: SimConfig, axis: int):
+def flux_sweep_df(Ulc, Urc, sim: SimConfig, axis: int,
+                  shape=FLUXDF_SHAPES[0]):
     """Step 9 without the H-correction, emitting the flux difference.
 
     Ulc, Urc: [nv, NZ, NY, NX] physical order, the transverse-corrected
@@ -265,11 +280,13 @@ def flux_sweep_df(Ulc, Urc, sim: SimConfig, axis: int):
     F2_ID the density flux and F2_IDr = F2_ID(+1_axis), each [NZ, NY, NX];
     F2 is ``flux_pointwise`` without etah.
 
-    Kernel (CUDA tensors): csrc/hydro.cu flux_sweep_df_kernel, replacing
-    ops/pallas_hydro.py:_fluxdf_kernel.  Each thread solves interfaces f and
-    f+1, so F2 never goes to memory and dF2 is bitwise the roll-and-subtract
-    of flux_pointwise_kernel's F2; bound by its 12 field loads and 8 stores
-    per interface, the next interface's loads mostly cache hits.
+    Kernel (CUDA tensors): csrc/hydro.cu fluxdf_march_kernel (y, z) and
+    fluxdf_tile_kernel (x), replacing ops/pallas_hydro.py:_fluxdf_kernel.
+    Each interface is solved once (and one more per segment or tile): F2(f)
+    stays in registers (y, z) or shared memory (x) until F2(f+1) is formed,
+    so F2 never goes to memory and dF2 is bitwise the roll-and-subtract of
+    flux_pointwise_kernel's F2.  `shape` is the launch shape, one of
+    FLUXDF_SHAPES.
     """
     if Ulc.device.type != "cuda":
         return flux_sweep_df_plain(Ulc, Urc, sim, axis)
@@ -278,6 +295,7 @@ def flux_sweep_df(Ulc, Urc, sim: SimConfig, axis: int):
         raise ValueError("flux_sweep_df: Urc must match Ulc")
     if axis not in (0, 1, 2):
         raise ValueError(f"flux_sweep_df: axis {axis}")
+    _check_shape("flux_sweep_df", shape, FLUXDF_SHAPES)
     nv, nz, ny, nx = Ulc.shape
     dF2 = torch.empty_like(Ulc)
     Fid = torch.empty_like(Ulc[0])
@@ -287,7 +305,7 @@ def flux_sweep_df(Ulc, Urc, sim: SimConfig, axis: int):
           else cuda_lib.lib().ath_flux_sweep_df_f32)
     err = fn(Ulc.data_ptr(), Urc.data_ptr(), dF2.data_ptr(), Fid.data_ptr(),
              Fidr.data_ptr(), nz, ny, nx, axis, sim.nscalars,
-             FLUX_KIND[sim.flux], sim.gamma, sim.gamma_1,
+             FLUX_KIND[sim.flux], *shape, sim.gamma, sim.gamma_1,
              cuda_lib.stream_ptr(Ulc.device))
     cuda_lib.check(err, "flux_sweep_df")
     flux_sweep_df.launches += 1

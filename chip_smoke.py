@@ -23,9 +23,11 @@ radiation sweep) is checked and counted per form, "name[form]":
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
   1. build the CUDA kernels from csrc/ (nvcc, one process per source) and
      print the build time and ptxas's registers and spills of every CUDA
-     kernel (each instantiation: element type and launch shape), and from
-     cuobjdump the SASS instructions of the batch kernel's per-cell pass
-     with the time they take to issue at the card's maximum clock;
+     kernel (each instantiation: element type, form and launch shape), and
+     from cuobjdump the SASS instructions of the batch kernel's per-cell
+     pass and of B5's and B12's per-interface loop (y, z) and body (x) in
+     every form and launch shape, with the time they take to issue at the
+     card's maximum clock;
   2. kernel vs plain version on states of the isph deck after init and two
      steps, with a damping-code carry and a per-column inlet drawn from
      SEED and the batch kernel on a 25-substep schedule of THETA x the
@@ -34,11 +36,13 @@ radiation sweep) is checked and counted per form, "name[form]":
      (median) of both, the bound (bytes at the HBM rate or operations at
      the float32 rate, whichever is larger) and the library call where one
      exists (F.pad for the ghost fill); the ghost fill must equal its plain
-     version bitwise, ghosts included, B1 (both inlet forms) and B3 timed
-     in each launch shape they are built for, with the count of their
-     output elements whose bits differ from the plain version's, B12's
-     dF2, F2_ID and F2_IDr the roll-and-subtract of B13's flux on the
-     same states bitwise, B7 from
+     version bitwise, ghosts included, B1 (both inlet forms), B3, B5 (four
+     forms) and B12 (two) timed in each launch shape they are built for,
+     with the count of their output elements whose bits differ from the
+     plain version's, B12's dF2, F2_ID and F2_IDr the roll-and-subtract
+     of B13's flux on the same states bitwise and B5's dF form the
+     whole-flux form's Ul, Ur, density flux and roll-and-subtract bitwise
+     (each in every launch shape), B7 from
      the whole fluxes its dF form on the same fluxes bitwise, and B3' (the
      fused update + rates, on no path, as in the JAX package) update_fn
      followed by rates_fn of the same build within TOL, timed against
@@ -253,10 +257,10 @@ FORMS = {"sweep_lrflux": "roe", "sweep_lrflux_df": "roe",
          "rad_rates": "scalar", "rad_fused": "scalar"}
 
 # the __global__ function of each CUDA kernel, for ptxas's register report
-SYMBOLS = {"sweep_lrflux": "sweep_lrflux_kernel",
-           "sweep_lrflux_df": "sweep_lrflux_df_kernel",
+SYMBOLS = {"sweep_lrflux": ("sweep_march_kernel", "sweep_tile_kernel"),
+           "sweep_lrflux_df": ("sweep_march_kernel", "sweep_tile_kernel"),
            "flux_pointwise": "flux_pointwise_kernel",
-           "flux_sweep_df": "flux_sweep_df_kernel",
+           "flux_sweep_df": ("fluxdf_march_kernel", "fluxdf_tile_kernel"),
            "gcross": "gcross_kernel", "transverse_correct": "transverse_kernel",
            "flux_corrected": "flux_corrected_kernel",
            "grav_source": "grav_source_kernel",
@@ -269,11 +273,18 @@ SYMBOLS = {"sweep_lrflux": "sweep_lrflux_kernel",
 # cells included (copies and negations only)
 EXACT = {"bc_fill"}
 
-# kernels built in several launch shapes (rad_kernels.RATES_SHAPES,
-# BATCH_SHAPES): phase 2 times each shape and counts the output elements
-# whose bits differ from the plain version's
-SHAPED = {"rad_rates": "RATES_SHAPES", "rad_rates[inlet]": "RATES_SHAPES",
-          "rad_batch": "BATCH_SHAPES"}
+# kernels built in several launch shapes, (module of the port, its list
+# of shapes): phase 2 times each shape and counts the output elements whose
+# bits differ from the plain version's
+_RAD, _HYD = "ionrad.rad_kernels", "ops.hydro_kernels"
+SHAPED = {"rad_rates": (_RAD, "RATES_SHAPES"),
+          "rad_rates[inlet]": (_RAD, "RATES_SHAPES"),
+          "rad_batch": (_RAD, "BATCH_SHAPES"),
+          **{k: (_HYD, "SWEEP_SHAPES") for k in (
+              "sweep_lrflux", "sweep_lrflux[hllc]", "sweep_lrflux_df",
+              "sweep_lrflux_df[hllc]")},
+          "flux_sweep_df": (_HYD, "FLUXDF_SHAPES"),
+          "flux_sweep_df[hllc]": (_HYD, "FLUXDF_SHAPES")}
 
 # the kernels each path launches, and those it must not
 MID = ["sweep_lrflux_df", "gcross", "transverse_correct", "flux_corrected",
@@ -601,12 +612,19 @@ def burst_ms(fn, n=20):
     return a.elapsed_time(b) / n
 
 
+def shapes_of(name):
+    """The launch shapes kernel `name` is built for (SHAPED)."""
+    import importlib
+    mod, attr = SHAPED[name]
+    return list(getattr(importlib.import_module(
+        f"atmospheric_athena_tpu_torch.{mod}"), attr))
+
+
 def shape_ms(name, kern, args):
     """ms per launch of kernel `name` in each launch shape it is built
     for (burst_ms), the fastest of three runs taken in turns (s1..sn,
     sn..s1, s1..sn)."""
-    from atmospheric_athena_tpu_torch.ionrad import rad_kernels
-    shapes = list(getattr(rad_kernels, SHAPED[name]))
+    shapes = shapes_of(name)
     t = {}
     for sh in shapes + shapes[::-1] + shapes:
         ms = burst_ms(lambda: kern(*args, shape=sh))
@@ -802,23 +820,55 @@ def kernel_calls(s, inp):
 
 
 def df2_bits(Ulc, Urc, sim, axis):
-    """B12's design check: its dF2, F2_ID and F2_IDr equal, bit for bit,
-    the roll-and-subtract of B13's F2 (flux_pointwise without etah, the
-    same device solve) on the same states; raises otherwise.  Returns the
-    number of dF2 elements whose bits differ from the plain version's."""
+    """B12's design check, in each launch shape: its dF2, F2_ID and F2_IDr
+    equal, bit for bit, the roll-and-subtract of B13's F2 (flux_pointwise
+    without etah, the same device solve) on the same states; raises
+    otherwise.  Returns the number of dF2 elements (default shape) whose
+    bits differ from the plain version's."""
     import torch
     from atmospheric_athena_tpu_torch.ops import hydro_kernels as hk
-    dF2, Fid, Fidr = hk.flux_sweep_df(Ulc, Urc, sim, axis)
     F = hk.flux_pointwise(Ulc, Urc, None, sim, axis)
     Fn = torch.roll(F, -1, dims=3 - axis)
-    for what, got, want in (("dF2", dF2, Fn - F), ("F2_ID", Fid, F[0]),
-                            ("F2_IDr", Fidr, Fn[0])):
-        if not torch.equal(bits(got), bits(want.contiguous())):
-            raise AssertionError(f"flux_sweep_df[{sim.flux}] axis {axis}: "
-                                 f"{what} differs from the roll of "
-                                 "flux_pointwise's F2 in its bits")
+    for shape in hk.FLUXDF_SHAPES:
+        dF2, Fid, Fidr = hk.flux_sweep_df(Ulc, Urc, sim, axis, shape=shape)
+        for what, got, want in (("dF2", dF2, Fn - F), ("F2_ID", Fid, F[0]),
+                                ("F2_IDr", Fidr, Fn[0])):
+            if not torch.equal(bits(got), bits(want.contiguous())):
+                raise AssertionError(
+                    f"flux_sweep_df[{sim.flux}] axis {axis} shape {shape}: "
+                    f"{what} differs from the roll of flux_pointwise's F2 "
+                    "in its bits")
     ref = hk.flux_sweep_df_plain(Ulc, Urc, sim, axis)[0]
+    dF2 = hk.flux_sweep_df(Ulc, Urc, sim, axis)[0]
     return int((bits(dF2) != bits(ref)).sum())
+
+
+def sweep_df_bits(U, phic, phif_a, dtodx, sim, axis):
+    """B5's design check, in each launch shape: the dF sweep's Ul and Ur
+    equal the whole-flux sweep's, its F_ID that sweep's density flux and
+    its dF the roll-and-subtract of that sweep's F, bit for bit; and every
+    shape's outputs equal the default shape's.  Raises otherwise."""
+    import torch
+    from atmospheric_athena_tpu_torch.ops import hydro_kernels as hk
+    args = (U, phic, phif_a, dtodx, sim, axis)
+    first = None
+    for shape in hk.SWEEP_SHAPES:
+        Ul, Ur, F = hk.sweep_lrflux(*args, shape=shape)
+        got = hk.sweep_lrflux_df(*args, shape=shape)
+        want = (Ul, Ur, F[0], torch.roll(F, -1, dims=3 - axis) - F)
+        for what, g, w in zip(("Ul", "Ur", "F_ID", "dF"), got, want):
+            if not torch.equal(bits(g), bits(w.contiguous())):
+                raise AssertionError(
+                    f"sweep_lrflux_df[{sim.flux}] axis {axis} shape {shape}:"
+                    f" {what} differs from the whole-flux sweep's in its "
+                    "bits")
+        if first is None:
+            first = (Ul, Ur, F)
+        elif not all(torch.equal(bits(a), bits(b))
+                     for a, b in zip(first, (Ul, Ur, F))):
+            raise AssertionError(f"sweep_lrflux[{sim.flux}] axis {axis}: "
+                                 f"shape {shape} differs from the default "
+                                 "shape's bits")
 
 
 def trans_f_bits(inp, sim):
@@ -902,9 +952,15 @@ def phase2(n, dtype, timing):
         if base_name(name) == "flux_sweep_df":
             r["dF2_bits_vs_plain"] = (r.get("dF2_bits_vs_plain", 0)
                                       + df2_bits(*args))
+        if base_name(name) == "sweep_lrflux_df":
+            sweep_df_bits(*args)
+            r["dF_bitwise_whole_flux"] = True
         if name in SHAPED:
-            r["bits_vs_plain"] = bits_differ(got, ref)
-            r["elements"] = sum(g.numel() for g in got)
+            # summed over the axes of a per-axis kernel
+            r["bits_vs_plain"] = (r.get("bits_vs_plain", 0)
+                                  + bits_differ(got, ref))
+            r["elements"] = (r.get("elements", 0)
+                             + sum(g.numel() for g in got))
         if timing:
             # plain, kernel, kernel, plain
             p1, k1 = cuda_ms(lambda: plain(*args)), cuda_ms(
@@ -918,7 +974,9 @@ def phase2(n, dtype, timing):
             r["bound_ms"] += 1e3 * max(t_bytes, t_ops)
             r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
             if name in SHAPED:
-                r["shapes_ms"] = shape_ms(name, kern, args)
+                sh = r.setdefault("shapes_ms", {})
+                for k, v in shape_ms(name, kern, args).items():
+                    sh[k] = sh.get(k, 0.0) + v
             if name == "bc_fill":
                 # the one PyTorch call computing the deck's outflow fill
                 Ui = args[0][(slice(None),) + s.grid.interior()].contiguous()
@@ -944,9 +1002,12 @@ def phase2(n, dtype, timing):
              if timing else "")
         b12 = ("" if "dF2_bits_vs_plain" not in r else
                ("; " if t else " ") +
-               "dF2 bitwise the roll of flux_pointwise's F2, "
-               f"{r['dF2_bits_vs_plain']} elements differ from the plain "
-               "version's bits")
+               "dF2 bitwise the roll of flux_pointwise's F2 in every "
+               f"shape, {r['dF2_bits_vs_plain']} elements differ from the "
+               "plain version's bits") + (
+            "" if "dF_bitwise_whole_flux" not in r else
+            ("; " if t else " ") + "Ul, Ur, F_ID and dF bitwise the "
+            "whole-flux sweep's (and its roll) in every shape")
         shp = ("" if name not in SHAPED else
                f"; {r['bits_vs_plain']} of {r['elements']} output elements "
                "differ from the plain version's bits" + (
@@ -1463,21 +1524,25 @@ def phase4_smr(ncyc=3):
                         rad_iters=iters, peak_gib=peak)
 
 
-def ptxas_report(source, kernel):
-    """ptxas's registers and spills of each instantiation of `kernel` in
-    `source`, from the build's -Xptxas -v output, labelled by its template
-    arguments (the element type, then an int argument if any: the batch
-    kernel's cells per lane)."""
+def ptxas_report(source, kernels):
+    """ptxas's registers and spills of each instantiation of the kernel (or
+    tuple of kernels) in `source`, from the build's -Xptxas -v output,
+    labelled by the kernel (when several) and its template arguments (the
+    element type, then the int and bool arguments: the batch kernel's rows;
+    the hydro kernels' NS, FLUX, DF and launch shape)."""
     import re
     from atmospheric_athena_tpu_torch import cuda_lib
     log = cuda_lib.build_log.get(source)
     if log is None:
         return "not rebuilt in this run"
+    names = (kernels,) if isinstance(kernels, str) else kernels
     out, cur, spill = [], None, "spills not reported"
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            cur = m.group(1) if kernel in m.group(1) else None
+            cur = next((k for k in names if re.search(
+                rf"\d{k}I", m.group(1))), None)
+            mangled = m.group(1)
             continue
         if cur is None:
             continue
@@ -1487,33 +1552,57 @@ def ptxas_report(source, kernel):
             spill = f"spills {m.group(1)}/{m.group(2)} B"
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            # the template arguments: (float|double)[, int...]
-            t = re.search(kernel + r"I([fd])((?:L[ib]-?\d+E)*)", cur)
+            # the template arguments: (float|double)[, int or bool...]
+            t = re.search(cur + r"I([fd])((?:L[ib]-?\d+E)*)", mangled)
             ints = re.findall(r"L[ib](-?\d+)E", t.group(2))
             label = ("f32" if t.group(1) == "f" else "f64") + (
                 f"<{','.join(ints)}>" if ints else "")
+            if len(names) > 1:
+                label = f"{cur.split('_')[1]} {label}"
             out.append(f"{label}: {m.group(1)} registers, {spill}")
             cur = None
     return "; ".join(out)
 
 
+def form_regs(name, regs):
+    """ptxas's report (ptxas_report, by wrapper in `regs`) of the
+    instantiations of kernel entry `name`: for B5 and B12 those of its
+    solver and output form (template arguments NS, FLUX[, DF], shape)."""
+    import re
+    rep = regs.get(base_name(name))
+    if (rep is None or "registers" not in rep
+            or SHAPED.get(name, ("",))[0] != _HYD):
+        return rep
+    want = [int("hllc" in name)] + (
+        [] if base_name(name) == "flux_sweep_df" else [int("_df" in name)])
+    keep = [item for item in rep.split("; ")
+            if [int(x) for x in re.search(r"<([\d,]+)>", item).group(1)
+                .split(",")[1:1 + len(want)]] == want]
+    return "; ".join(keep)
+
+
+_SASS = {}
+
+
 def sass_loops(kernel, label):
     """The innermost loops of one instantiation of `kernel` in the built
-    library (cuobjdump -sass): the static instruction count of each loop
-    body, found as the address range [target, branch] of each backward
-    branch that holds no other.  `label` picks the instantiation by its
-    mangled template arguments (e.g. "IfLi4ELi1E" for <float, 4, 1>).
-    Returns the counts, largest first."""
+    library (cuobjdump -sass, run once): the static instruction count of
+    each loop body, found as the address range [target, branch] of each
+    backward branch that holds no other.  `label` picks the instantiation
+    by its mangled template arguments (e.g. "IfLi4ELi1E" for <float, 4,
+    1>).  Returns the counts, largest first, and the function's whole
+    static instruction count."""
     import re
     from pathlib import Path
     from atmospheric_athena_tpu_torch import cuda_lib
-    tool = Path(cuda_lib.nvcc()).parent / "cuobjdump"
-    out = subprocess.run([str(tool), "-sass", str(cuda_lib.library_path())],
-                         capture_output=True, text=True, timeout=300,
-                         check=True).stdout
+    if "out" not in _SASS:
+        tool = Path(cuda_lib.nvcc()).parent / "cuobjdump"
+        _SASS["out"] = subprocess.run(
+            [str(tool), "-sass", str(cuda_lib.library_path())],
+            capture_output=True, text=True, timeout=300, check=True).stdout
     want = f"{kernel}{label}"
     addrs, labels, branches, on = [], {}, [], False
-    for line in out.splitlines():
+    for line in _SASS["out"].splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             if on:
@@ -1547,7 +1636,64 @@ def sass_loops(kernel, label):
              if not any(t <= t2 and a2 <= a and (t2, a2) != (t, a)
                         for t2, a2 in loops)]
     return sorted((sum(1 for x in addrs if t <= x <= a) for t, a in inner),
-                  reverse=True)
+                  reverse=True), len(addrs)
+
+
+def sm_clock():
+    """The card's maximum SM clock in MHz and its SM count."""
+    import torch
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    return mhz, torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def sass_hydro(n=256):
+    """The static SASS instructions per interface of each B5 and B12 form
+    (float32, one passive scalar as in phase 2) in each launch shape: the
+    march kernel's loop body (one interface of a y or z segment) and the
+    tile kernel's whole body (one thread: a cell's conversion and PLM and
+    an interface's solve, with the division and sqrt slow paths); and the
+    time the default shape's counts take to issue for one launch, averaged
+    over the axes (two march, one tile), on the padded (n+8)^3 grid at one
+    warp instruction per scheduler and clock (4 per SM) at the card's
+    maximum SM clock.  Returns {entry name: record}."""
+    from atmospheric_athena_tpu_torch.ops import hydro_kernels as hk
+    try:
+        mhz, nsm = sm_clock()
+    except (OSError, ValueError, IndexError,
+            subprocess.SubprocessError) as e:
+        say(f"phase 1 SASS hydro kernels: not measured ({e})")
+        return {}
+    out = {}
+    for name in ("sweep_lrflux", "sweep_lrflux[hllc]", "sweep_lrflux_df",
+                 "sweep_lrflux_df[hllc]", "flux_sweep_df",
+                 "flux_sweep_df[hllc]"):
+        flux = int("hllc" in name)
+        b12 = base_name(name) == "flux_sweep_df"
+        form = "" if b12 else f"Lb{int('_df' in name)}E"
+        march, tile = SYMBOLS[base_name(name)]
+        per = {}
+        for sh in shapes_of(name):
+            S, T, R = sh
+            loops, _ = sass_loops(march, f"IfLi1ELi{flux}E{form}Li{S}EE")
+            _, body = sass_loops(tile,
+                                 f"IfLi1ELi{flux}E{form}Li{T}ELi{R}EE")
+            per["x".join(map(str, sh))] = dict(
+                march=loops[0] if loops else None, tile=body)
+        d = per["x".join(map(str, shapes_of(name)[0]))]
+        issue_ms = None
+        if d["march"]:
+            mean = (2 * d["march"] + d["tile"]) / 3
+            issue_ms = 1e3 * mean * (n + 8) ** 3 / 32 / (nsm * 4 * mhz * 1e6)
+        out[name] = dict(sass_per_interface=per, sass_issue_ms=issue_ms,
+                         sm_clock_mhz=mhz)
+        say(f"phase 1 SASS {name} (f32, NS=1): instructions per interface "
+            f"by launch shape (march loop, tile body) {per}; the default "
+            f"shape's issue time per launch at {mhz:.0f} MHz on {nsm} SMs, "
+            f"{n}^3: {issue_ms} ms")
+    return out
 
 
 def sass_batch(n=256):
@@ -1557,20 +1703,15 @@ def sass_batch(n=256):
     and the time that count implies for the BATCH_K substeps of n^3 cells
     at one warp instruction per scheduler and clock (4 per SM) at the
     card's maximum SM clock."""
-    import torch
     from atmospheric_athena_tpu_torch.ionrad import rad_kernels
     rows = rad_kernels.BATCH_SHAPES[0]
     try:
-        loops = sass_loops("batch_kernel", f"IfLi{rows}E")
-        mhz = float(subprocess.run(
-            ["nvidia-smi", "--query-gpu=clocks.max.sm",
-             "--format=csv,noheader,nounits"], capture_output=True,
-            text=True, timeout=60, check=True).stdout.split()[0])
+        loops, _ = sass_loops("batch_kernel", f"IfLi{rows}E")
+        mhz, nsm = sm_clock()
     except (OSError, ValueError, IndexError,
             subprocess.SubprocessError) as e:
         say(f"phase 1 SASS batch_kernel: not measured ({e})")
         return dict(sass_loops=None, sass_issue_ms=None)
-    nsm = torch.cuda.get_device_properties(0).multi_processor_count
     issue_ms = None
     if loops:
         warp_instr = loops[0] * n ** 3 * BATCH_K / 32
@@ -1604,6 +1745,7 @@ def main():
             regs[name] = ptxas_report(os.path.basename(source), SYMBOLS[name])
             say(f"phase 1 ptxas {name}: {regs[name]}")
     sass = sass_batch()
+    sass_h = sass_hydro()
 
     # B3' runs on no path (as in the JAX package): its launches are those
     # of the two phase-2 comparisons
@@ -1613,8 +1755,9 @@ def main():
     p2 = read_counts()
     for name in SHAPED:
         say(f"phase 2 launch shapes of {name} (256^3 float32, burst ms per "
-            f"launch): {rec[name]['shapes_ms']}; ptxas "
-            f"{regs[base_name(name)]}")
+            "launch" + (", summed over the 3 axes"
+                        if SHAPED[name][0] == _HYD else "")
+            + f"): {rec[name]['shapes_ms']}; ptxas {form_regs(name, regs)}")
     nan_probe()
     phase3()
     smr, _ = phase4_smr()
@@ -1640,13 +1783,15 @@ def main():
                  max_rel_err=r["max_rel_err"], ms=r["ms"],
                  plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                  bound_by=r["bound_by"], library_ms=r["library_ms"],
-                 registers=regs.get(base_name(name)))
-        for extra in ("dF2_bits_vs_plain", "rates_plus_update_ms",
-                      "bits_vs_plain", "elements", "shapes_ms"):
+                 registers=form_regs(name, regs))
+        for extra in ("dF2_bits_vs_plain", "dF_bitwise_whole_flux",
+                      "rates_plus_update_ms", "bits_vs_plain", "elements",
+                      "shapes_ms"):
             if extra in r:
                 k[extra] = r[extra]
         if name == "rad_batch":
             k.update(sass)
+        k.update(sass_h.get(name, {}))
         kernels.append(k)
     say(f"chip_smoke: all phases in {time.perf_counter() - t_all:.1f} s")
     say(smi_line())

@@ -253,6 +253,117 @@ def test_rad_batch_row_lengths(row_case, sched):
         assert float(ref[-1]) == 0.0
 
 
+def stir(s, seed=11):
+    """Jitter each velocity component by up to 0.3 of the sound speed and
+    the pressure by up to 20%, from a numpy seed, so that no flux field of
+    the sweeps is zero to rounding (its max would scale the tolerance
+    down to the last bits); d and the scalars are kept."""
+    import numpy as np
+    import torch
+    U, sim = s.state.U, s.sim
+    noise = torch.as_tensor(
+        np.random.default_rng(seed).uniform(-1.0, 1.0, (4,) + U.shape[1:]),
+        dtype=U.dtype, device=U.device)
+    d = U[0]
+    v = U[1:4] / d
+    P = (U[4] - 0.5 * d * (v * v).sum(0)) * sim.gamma_1
+    v = v + 0.3 * torch.sqrt(sim.gamma * P / d) * noise[:3]
+    P = P * (1.0 + 0.2 * noise[3])
+    U = U.clone()
+    U[1:4] = d * v
+    U[4] = P / sim.gamma_1 + 0.5 * d * (v * v).sum(0)
+    s.state = s.state.replace(U=U)
+
+
+def hydro_line_checks(s, axes, tol):
+    """B5 (both forms) and B12, Roe and HLLC, with and without the
+    potential where the deck has one, on `axes` of Simulation s's state,
+    in every launch shape, against their plain versions within tol; and
+    both bitwise design checks: the dF sweep against the whole-flux sweep
+    (chip_smoke.sweep_df_bits) and B12 against the roll of B13's flux
+    (chip_smoke.df2_bits), on the plain sweep's (Ul, Ur) as the corrected
+    states."""
+    import dataclasses
+    from atmospheric_athena_tpu_torch.ops import hydro_kernels as hk
+    U = s.state.U
+    phic, phif = s.phi
+    for flux in ("roe", "hllc"):
+        sim = dataclasses.replace(s.sim, flux=flux)
+        for a in axes:
+            dtodx = s.state.dt / s.grid.dx[a]
+            pots = [(None, None)] + ([] if phic is None
+                                     else [(phic, phif[a])])
+            for pc, pf in pots:
+                args = (U, pc, pf, dtodx, sim, a)
+                for kern, plain in (
+                        (hk.sweep_lrflux, hk.sweep_lrflux_plain),
+                        (hk.sweep_lrflux_df, hk.sweep_lrflux_df_plain)):
+                    ref = chip_smoke.outputs(plain(*args))
+                    for shape in hk.SWEEP_SHAPES:
+                        chip_smoke.compare(
+                            f"{kern.__name__}[{flux}] axis {a} {shape}",
+                            chip_smoke.outputs(kern(*args, shape=shape)),
+                            ref, tol, s.grid)
+                chip_smoke.sweep_df_bits(*args)
+                Ul, Ur, _ = hk.sweep_lrflux_plain(*args)
+                Ulc, Urc = Ul.contiguous(), Ur.contiguous()
+                ref = chip_smoke.outputs(hk.flux_sweep_df_plain(Ulc, Urc,
+                                                                sim, a))
+                for shape in hk.FLUXDF_SHAPES:
+                    chip_smoke.compare(
+                        f"flux_sweep_df[{flux}] axis {a} {shape}",
+                        chip_smoke.outputs(hk.flux_sweep_df(
+                            Ulc, Urc, sim, a, shape=shape)), ref, tol,
+                        s.grid)
+                chip_smoke.df2_bits(Ulc, Urc, sim, a)
+
+
+@pytest.fixture(scope="module", params=[
+    (n, dtype) for n in (45, 100, 300) for dtype in ("float64", "float32")],
+    ids=lambda c: f"n{c[0]}_{c[1]}")
+def line_case(request):
+    """The isph deck after one step on three grids whose interior is n
+    cells long along x, y and z in turn, (n, 6, 5), (5, n, 6) and (6, 5,
+    n): lines that no segment length or tile width of the hydro launch
+    shapes divides; the state stirred (stir)."""
+    need_cuda()
+    from atmospheric_athena_tpu_torch import Simulation
+    n, dtype = request.param
+    sims = []
+    for a in chip_smoke.AXES:
+        nx = ([n, 6, 5], [5, n, 6], [6, 5, n])[a]
+        cmd = [f"domain1/Nx{k + 1}={v}" for k, v in enumerate(nx)] + [
+            "ionradiation/maxiter=20"]
+        s = Simulation.from_file(chip_smoke.DECK, problem="ioniz_sphere",
+                                 cmdline=cmd, dtype=dtype, device="cuda")
+        s.step()
+        stir(s)
+        sims.append(s)
+    return sims, chip_smoke.TOL[dtype]
+
+
+def test_hydro_sweeps_line_lengths(line_case):
+    """B5 and B12 in every form and launch shape along lines of 45, 100
+    and 300 interior cells (53, 108, 308 with the ghosts)."""
+    sims, tol = line_case
+    for a, s in enumerate(sims):
+        hydro_line_checks(s, (a,), tol)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_hydro_sweeps_testsedov(dtype):
+    """B5 and B12 in every form and launch shape on the testsedov deck's
+    own non-cubic 64 x 16 x 16 grid (no potential) after one step, the
+    state stirred (stir)."""
+    need_cuda()
+    from atmospheric_athena_tpu_torch import Simulation
+    s = Simulation.from_file(chip_smoke.SEDOV_DECK, problem="testsedov",
+                             dtype=dtype, device="cuda", flux="hllc")
+    s.step()
+    stir(s)
+    hydro_line_checks(s, chip_smoke.AXES, chip_smoke.TOL[dtype])
+
+
 R, O, P, C, D = 1, 2, 4, 5, 3   # reflect, outflow, periodic, conductor,
                                 # do nothing
 BC_SETS = [((O, O), (O, O), (O, O)), ((R, R), (R, R), (R, R)),

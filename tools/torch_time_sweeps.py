@@ -1,0 +1,67 @@
+"""Per-axis device times of the CTU sweep kernels B5 (sweep_lrflux and
+sweep_lrflux_df) and B12 (flux_sweep_df) of the PyTorch port, in every
+launch shape they are built for, on one card.
+
+    python3 tools/torch_time_sweeps.py [N]         # default N = 256
+
+Builds the isph deck at N^3 float32 (ionradiation/maxiter=50) on the first
+CUDA device, takes one step, then times each kernel form (Roe and HLLC;
+whole flux, dF form, B12 on the sweep's own Ul/Ur) on each axis and in each
+launch shape: CUDA events around 20 launches back to back after a warm-up,
+the fastest of three such bursts taken in turns over the shapes.  Prints
+the card (nvidia-smi name and power limit) and one JSON line {form: {shape:
+[x ms, y ms, z ms]}} of ms per launch (chip_smoke.shape_ms on each axis).
+Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(HERE)
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from atmospheric_athena_tpu_torch import Simulation
+    from atmospheric_athena_tpu_torch.ops import hydro_kernels as hk
+    n = int(sys.argv[1]) if len(sys.argv) > 1 else 256
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    s = Simulation.from_file(
+        os.path.join(REPO, "tests", "golden", "athinput.isph64"),
+        problem="ioniz_sphere", dtype="float32",
+        cmdline=[f"domain1/Nx{a}={n}" for a in (1, 2, 3)]
+        + ["ionradiation/maxiter=50"])
+    s.step()
+    U, (phic, phif) = s.state.U, s.phi
+    out = {}
+    for flux in ("roe", "hllc"):
+        sim = dataclasses.replace(s.sim, flux=flux)
+        for a in range(3):
+            args = (U, phic, phif[a], s.state.dt / s.grid.dx[a], sim, a)
+            Ul, Ur, _ = hk.sweep_lrflux(*args)
+            forms = {f"sweep_lrflux[{flux}]": (hk.sweep_lrflux, args),
+                     f"sweep_lrflux_df[{flux}]": (hk.sweep_lrflux_df, args),
+                     f"flux_sweep_df[{flux}]": (hk.flux_sweep_df,
+                                                (Ul, Ur, sim, a))}
+            for name, (fn, fargs) in forms.items():
+                entry = name.replace("[roe]", "")
+                for sh, ms in chip_smoke.shape_ms(entry, fn, fargs).items():
+                    out.setdefault(name, {}).setdefault(sh, [0.0] * 3)[a] \
+                        = round(ms, 4)
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()
