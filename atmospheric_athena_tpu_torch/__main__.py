@@ -5,8 +5,8 @@
   --problem <name>   problem generator (default: from the deck's configure
                      line)
   --dtype float32|float64
-  --flux roe|hllc    Riemann solver (default: from the deck's configure line,
-                     else roe); the testsedov deck's golden is HLLC
+  --flux roe|hlle|hllc  Riemann solver (default: from the deck's configure
+                     line, else roe); the testsedov deck's golden is HLLC
   --device cuda|cpu  default cuda; refuses to run when no GPU is visible
                      unless cpu is given explicitly
   block/name=value   parameter overrides (par_cmdline)
@@ -30,7 +30,7 @@ def parse_args(argv):
     ap.add_argument("-n", dest="parse_only", action="store_true")
     ap.add_argument("--problem", default=None)
     ap.add_argument("--dtype", default=None, choices=("float32", "float64"))
-    ap.add_argument("--flux", default=None, choices=("roe", "hllc"))
+    ap.add_argument("--flux", default=None, choices=("roe", "hlle", "hllc"))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("overrides", nargs="*", help="block/name=value")
     return ap.parse_args(argv)

@@ -17,9 +17,9 @@
 //   flux_corrected — _fluxh_kernel (B8): step 9 along axis a, etah = the max
 //                    of eta_a and, per other axis b, eta_b, eta_b(-1_a),
 //                    eta_b(+1_b), eta_b(+1_b, -1_a); then cons->prim and the
-//                    Riemann flux of hydro.cuh, Roe/HLLE or HLLC (template
-//                    FLUX; HLLC reads the etah gather and ignores it, as the
-//                    reference's HLLC ignores etah).
+//                    Riemann flux of hydro.cuh, Roe (with its HLLE fallback),
+//                    HLLE or HLLC (template FLUX; HLLE and HLLC read the
+//                    etah gather and ignore it, as the reference's do).
 //   grav_source    — _sg_kernel (B9): dhalf = d - sum_a q_a dF_ID,a, then
 //                    the full-dt gravity source Sg = [dM_0..2, dE_0..2]
 //                    (integrate_3d_ctu.c:2741-2782); in its Fp2IDr form
@@ -214,7 +214,7 @@ __global__ void transverse_kernel(const T* __restrict__ Ulp,
 }
 
 // B8 along axis a; eta.p[0] == nullptr: no H-correction (etah = 0);
-// FLUX = kRoe or kHllc (hydro.cuh riemann_flux)
+// FLUX = kRoe, kHllc or kHlle (hydro.cuh riemann_flux)
 template <typename T, int NS, int FLUX>
 __global__ void flux_corrected_kernel(const T* __restrict__ Ul,
                                       const T* __restrict__ Ur, Ptr3<T> eta,
@@ -491,7 +491,7 @@ int ath_transverse_f64(ATH_TRANS_ARGS) {
                          (ath::launch_transverse<double, 1>(ATH_TRANS_CALL)));
 }
 
-// flux: 0 Roe, 1 HLLC (hydro.cuh FluxKind)
+// flux: 0 Roe, 1 HLLC, 2 HLLE (hydro.cuh FluxKind)
 #define ATH_FLUXC_ARGS                                                     \
   const void *Ul, const void *Ur, const void *eta0, const void *eta1,      \
       const void *eta2, void *F, int nz, int ny, int nx, int axis,         \

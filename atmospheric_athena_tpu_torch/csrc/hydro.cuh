@@ -1,18 +1,21 @@
-// Device-side adiabatic hydrodynamics shared by the sweep and pointwise flux
-// kernels (hydro.cu) and the step-9 flux kernel (ctu_mid.cu): the sweep
-// variable permutation, the EOS conversions, characteristic PLM
-// with CTU tracing, the Roe solver with its HLLE fallback and the
-// H-correction, and the HLLC solver.
+// Device-side adiabatic hydrodynamics shared by the sweep kernels (sweep.cuh),
+// the pointwise and step-9 flux kernels (hydro.cu, ctu_mid.cu): the sweep
+// variable permutation, the EOS conversions, the reconstructions with CTU
+// tracing (donor cell, PLM and PPM, with characteristic or primitive
+// limiting), the Roe solver with its HLLE fallback and the H-correction, and
+// the HLLE and HLLC solvers.
 //
 // Each function follows the plain PyTorch version of the port line by line
 // (eos.py, ops/eigen.py, ops/reconstruct.py, ops/riemann.py), which in turn
 // follows the reference C code (convert_var.c, esystem_prim.c,
-// esystem_roe.c, lr_states_plm.c, roe.c, hlle.c, hllc.c).  The arrays are
-// in the 1D-slice (sweep) variable order (d, Mx, My, Mz, E, s...) or its
-// primitive counterpart (d, Vx, Vy, Vz, P, r...), NV = 5 + NS entries.
+// esystem_roe.c, lr_states_dc.c, lr_states_plm.c, lr_states_prim2.c,
+// lr_states_ppm.c, roe.c, hlle.c, hllc.c).  The arrays are in the 1D-slice
+// (sweep) variable order (d, Mx, My, Mz, E, s...) or its primitive
+// counterpart (d, Vx, Vy, Vz, P, r...), NV = 5 + NS entries.
 //
 // Templated on the floating type T (float, double), the number of passive
-// scalars NS and, in riemann_flux, the solver FLUX.  Compiled without
+// scalars NS, the solver FLUX and, in the reconstruction, the limiting
+// (CHAR).  Compiled without
 // --use_fast_math and with -fmad=false (cuda_lib.py): division and sqrt are
 // IEEE-rounded and every operation rounds in the plain version's order, so
 // the results match it to the last bits.
@@ -27,10 +30,23 @@ namespace ath {
 constexpr double TINY_NUMBER = 1.0e-20;
 
 // The Riemann solver, a template argument of the sweep and flux kernels: it
-// selects the solver (riemann_flux) and the CTU tracing branch (plm_cell).
-// The C entry points take it as an int, the index of sim.flux in ("roe",
-// "hllc").
-enum FluxKind { kRoe = 0, kHllc = 1 };
+// selects the solver (riemann_flux) and the CTU tracing branch (plm_cell,
+// ppm_cell: Roe's, or the HLL family's for HLLE and HLLC).  The C entry
+// points take it as an int, hydro_kernels.FLUX_KIND[sim.flux].
+enum FluxKind { kRoe = 0, kHllc = 1, kHlle = 2 };
+
+// The reconstruction of the sweep kernels (hydro_kernels.ORDER_KIND of
+// sim.order "1", "2", "3", "2p", "3p"): donor cell, PLM or PPM, with
+// characteristic limiting (orders 2, 3) or limiting of the primitives
+// (2p, 3p).
+enum Order { kDc = 1, kPlm = 2, kPpm = 3, kPlmPrim = 4, kPpmPrim = 5 };
+
+__host__ __device__ constexpr bool is_ppm(int order) {
+  return order == kPpm || order == kPpmPrim;
+}
+__host__ __device__ constexpr bool is_char(int order) {
+  return order == kPlm || order == kPpm;
+}
 
 // variable order of a sweep along `axis` as indices into the physical order
 // (integrators/sweep.py var_perm): (d, M_axis, M_axis+1, M_axis+2, E, s...)
@@ -46,6 +62,12 @@ __host__ __device__ inline Perm make_perm(int axis, int nv) {
   q.p[3] = 1 + (axis + 2) % 3;
   for (int k = 4; k < nv; ++k) q.p[k] = k;
   return q;
+}
+
+template <int N, typename T>
+__device__ __forceinline__ void copy(T* dst, const T* src) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) dst[k] = src[k];
 }
 
 // ---------------------------------------------------------------- EOS
@@ -135,17 +157,16 @@ template <typename T> struct PrimEig {
   }
 };
 
-// Characteristic PLM + CTU tracing of ONE cell from its primitive stencil
-// (Wm, Wc, Wp) = cells (i-1, i, i+1): plm() and _trace_ctu() (Roe) or
-// _trace_hll() (HLLC) of ops/reconstruct.py.  Returns the traced states at
-// the cell's left (Wminus) and right (Wplus) interfaces.
-template <typename T, int NS, int FLUX>
-__device__ __forceinline__ void plm_cell(const T* Wm, const T* Wc,
-                                         const T* Wp, T dtodx, T gamma,
-                                         T* Wminus, T* Wplus) {
+// Monotonized slopes dWmn of ONE cell from its primitive stencil (Wm, Wc,
+// Wp) = cells (i-1, i, i+1): steps 1-5 of PLM (_char_slopes of
+// ops/reconstruct.py), shared by PLM and PPM, limited in the characteristic
+// variables of E, the cell's eigensystem (CHAR), or in the primitives.
+template <typename T, int NS, bool CHAR>
+__device__ __forceinline__ void limited_slopes(const T* Wm, const T* Wc,
+                                               const T* Wp,
+                                               const PrimEig<T>& E,
+                                               T* dWmn) {
   constexpr int NV = 5 + NS;
-  const PrimEig<T> E(Wc[0], Wc[1], gamma * Wc[4]);
-
   T dWc[NV], dWl[NV], dWr[NV], dWg[NV];
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
@@ -157,16 +178,23 @@ __device__ __forceinline__ void plm_cell(const T* Wm, const T* Wc,
     dWg[k] = (l * r > T(0)) ? T(2) * l * r / den : T(0);
   }
   T dac[NV], dal[NV], dar[NV], dag[NV];
-  E.lmul(dWc, dac);
-  E.lmul(dWl, dal);
-  E.lmul(dWr, dar);
-  E.lmul(dWg, dag);
+  if constexpr (CHAR) {
+    E.lmul(dWc, dac);
+    E.lmul(dWl, dal);
+    E.lmul(dWr, dar);
+    E.lmul(dWg, dag);
 #pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    dac[5 + s] = dWc[5 + s];
-    dal[5 + s] = dWl[5 + s];
-    dar[5 + s] = dWr[5 + s];
-    dag[5 + s] = dWg[5 + s];
+    for (int s = 0; s < NS; ++s) {
+      dac[5 + s] = dWc[5 + s];
+      dal[5 + s] = dWl[5 + s];
+      dar[5 + s] = dWr[5 + s];
+      dag[5 + s] = dWg[5 + s];
+    }
+  } else {
+    copy<NV>(dac, dWc);
+    copy<NV>(dal, dWl);
+    copy<NV>(dar, dWr);
+    copy<NV>(dag, dWg);
   }
   T da[NV];
 #pragma unroll
@@ -176,10 +204,37 @@ __device__ __forceinline__ void plm_cell(const T* Wm, const T* Wc,
     const T lim2 = tmin(T(0.5) * fabs(c), fabs(g));
     da[k] = (l * r > T(0)) ? tsign(c) * tmin(T(2) * lim1, lim2) : T(0);
   }
-  T dWmn[NV];
-  E.rmul(da, dWmn);
+  if constexpr (CHAR) {
+    E.rmul(da, dWmn);
 #pragma unroll
-  for (int s = 0; s < NS; ++s) dWmn[5 + s] = da[5 + s];
+    for (int s = 0; s < NS; ++s) dWmn[5 + s] = da[5 + s];
+  } else {
+    copy<NV>(dWmn, da);
+  }
+}
+
+// The slopes of a cell entering the PPM window: limited_slopes with the
+// cell's own eigensystem (unused, and so not computed, without CHAR).
+template <typename T, int NS, bool CHAR>
+__device__ __forceinline__ void ppm_slopes(const T* Wm, const T* Wc,
+                                           const T* Wp, T gamma, T* dWmn) {
+  const PrimEig<T> E(Wc[0], Wc[1], gamma * Wc[4]);
+  limited_slopes<T, NS, CHAR>(Wm, Wc, Wp, E, dWmn);
+}
+
+// PLM (order 2 with CHAR, 2p without) + CTU tracing of ONE cell from its
+// primitive stencil (Wm, Wc, Wp) = cells (i-1, i, i+1): plm() and
+// _trace_ctu() (Roe) or _trace_hll() (HLLE, HLLC) of ops/reconstruct.py.
+// Returns the traced states at the cell's left (Wminus) and right (Wplus)
+// interfaces.
+template <typename T, int NS, int FLUX, bool CHAR>
+__device__ __forceinline__ void plm_cell(const T* Wm, const T* Wc,
+                                         const T* Wp, T dtodx, T gamma,
+                                         T* Wminus, T* Wplus) {
+  constexpr int NV = 5 + NS;
+  const PrimEig<T> E(Wc[0], Wc[1], gamma * Wc[4]);
+  T dWmn[NV];
+  limited_slopes<T, NS, CHAR>(Wm, Wc, Wp, E, dWmn);
 
   // Step 7: L/R values limited between neighbours
   T Wlv[NV], Wrv[NV], dW[NV];
@@ -199,7 +254,7 @@ __device__ __forceinline__ void plm_cell(const T* Wm, const T* Wc,
     dW[k] = rv - lv;
   }
 
-  if constexpr (FLUX == kHllc) {
+  if constexpr (FLUX != kRoe) {
     // HLL-family tracing (lr_states_plm.c:257-294): subtract each wave
     // moving toward the interface; passive scalars stay untraced.  Adding
     // -qa rounds as the plain version's subtraction of qa does.
@@ -258,6 +313,137 @@ __device__ __forceinline__ void plm_cell(const T* Wm, const T* Wc,
   }
 }
 
+// The reconstruction of ONE cell from the three-cell stencil (Wm, Wc, Wp)
+// for the orders whose stencil it is: donor cell (dc(): both states are the
+// cell's own primitives) and PLM (orders 2, 2p).
+template <typename T, int NS, int FLUX, int ORDER>
+__device__ __forceinline__ void recon3_cell(const T* Wm, const T* Wc,
+                                            const T* Wp, T dtodx, T gamma,
+                                            T* Wminus, T* Wplus) {
+  static_assert(!is_ppm(ORDER), "PPM reads five cells: ppm_cell");
+  if constexpr (ORDER == kDc) {
+    copy<5 + NS>(Wminus, Wc);
+    copy<5 + NS>(Wplus, Wc);
+  } else {
+    plm_cell<T, NS, FLUX, ORDER == kPlm>(Wm, Wc, Wp, dtodx, gamma, Wminus,
+                                         Wplus);
+  }
+}
+
+// PPM + CTU tracing of ONE cell (ppm() of ops/reconstruct.py, orders 3 and
+// 3p: the limiting lies in the slopes) from the primitives of cells i-1, i,
+// i+1 (Wm, Wc, Wp) and their slopes dWmn (sm, sc, sp, from ppm_slopes):
+// the parabola's interface values (CW eqn 1.6), its monotonization (CW eqn
+// 1.10) and the neighbour clamps, then the tracing of Roe's branch (the
+// parabola integrals over the extreme wave fans and the subtraction of the
+// waves that do not reach the interface) or of the HLL family's.
+template <typename T, int NS, int FLUX>
+__device__ __forceinline__ void ppm_cell(const T* Wm, const T* Wc,
+                                         const T* Wp, const T* sm,
+                                         const T* sc, const T* sp, T dtodx,
+                                         T gamma, T* Wminus, T* Wplus) {
+  constexpr int NV = 5 + NS;
+  const T F43 = T(4.0 / 3.0);
+  T Wlv[NV], Wrv[NV], dW[NV], W6[NV];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    // the parabola's left and right interface values: Wim1h of cells i and
+    // i+1
+    const T lv = T(0.5) * (Wc[k] + Wm[k]) - (sc[k] - sm[k]) / T(6);
+    const T rv = T(0.5) * (Wp[k] + Wc[k]) - (sp[k] - sc[k]) / T(6);
+    const T qa = (rv - Wc[k]) * (Wc[k] - lv);
+    const T qb = rv - lv;
+    const T qc = T(6) * (Wc[k] - T(0.5) * (lv + rv));
+    const bool c1 = qa <= T(0);
+    const bool c2 = !c1 && (qb * qc > qb * qb);
+    const bool c3 = !c1 && !c2 && (qb * qc < -(qb * qb));
+    T l2 = c1 ? Wc[k] : (c2 ? T(3) * Wc[k] - T(2) * rv : lv);
+    T r2 = c1 ? Wc[k] : (c3 ? T(3) * Wc[k] - T(2) * lv : rv);
+    l2 = tmax(tmin(Wc[k], Wm[k]), l2);
+    l2 = tmin(tmax(Wc[k], Wm[k]), l2);
+    r2 = tmax(tmin(Wc[k], Wp[k]), r2);
+    r2 = tmin(tmax(Wc[k], Wp[k]), r2);
+    Wlv[k] = l2;
+    Wrv[k] = r2;
+    dW[k] = r2 - l2;
+    W6[k] = T(6) * (Wc[k] - T(0.5) * (l2 + r2));
+  }
+  const PrimEig<T> E(Wc[0], Wc[1], gamma * Wc[4]);
+
+  if constexpr (FLUX != kRoe) {
+    // HLL-family tracing: subtract each wave moving toward the interface;
+    // passive scalars stay untraced (adding -qa as in plm_cell)
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      Wplus[k] = Wrv[k];
+      Wminus[k] = Wlv[k];
+    }
+#pragma unroll
+    for (int n = 0; n < 5; ++n) {
+      const T qx = T(0.5) * dtodx * E.ev[n];
+      const T qc = F43 * qx * qx;
+      T vp[5], vm[5];
+#pragma unroll
+      for (int m = 0; m < 5; ++m) {
+        vp[m] = qx * (dW[m] - W6[m]) + qc * W6[m];
+        vm[m] = qx * (dW[m] + W6[m]) + qc * W6[m];
+      }
+      const T qap = E.lrow(n, vp);
+      const T qam = E.lrow(n, vm);
+      E.add_col(n, -((E.ev[n] > T(0)) ? qap : T(0)), Wplus);
+      E.add_col(n, -((E.ev[n] < T(0)) ? qam : T(0)), Wminus);
+    }
+    return;
+  }
+
+  // Step 18: the parabola integrals over the max/min wave fans
+  const T ev_max = E.ev[4], ev_min = E.ev[0];
+  const T qx1 = T(0.5) * tmax(ev_max, T(0)) * dtodx;
+  const T qx2 = T(-0.5) * tmin(ev_min, T(0)) * dtodx;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    Wplus[k] = Wrv[k] - qx1 * (dW[k] - (T(1) - F43 * qx1) * W6[k]);
+    Wminus[k] = Wlv[k] + qx2 * (dW[k] + (T(1) - F43 * qx2) * W6[k]);
+  }
+  // Step 19: subtract the waves that do not reach the interface
+#pragma unroll
+  for (int n = 0; n < 5; ++n) {
+    T v[5];
+    const T q1 = T(0.5) * dtodx * ev_max;
+    const T q2 = T(0.5) * dtodx * E.ev[n];
+    T qb = q1 - q2;
+    T qc = F43 * (q1 * q1 - q2 * q2);
+#pragma unroll
+    for (int m = 0; m < 5; ++m) v[m] = qb * (dW[m] - W6[m]) + qc * W6[m];
+    T qa = E.lrow(n, v);
+    E.add_col(n, (E.ev[n] >= T(0)) ? qa : T(0), Wplus);
+
+    const T q3 = T(0.5) * dtodx * ev_min;
+    qb = q3 - q2;
+    qc = F43 * (q3 * q3 - q2 * q2);
+#pragma unroll
+    for (int m = 0; m < 5; ++m) v[m] = qb * (dW[m] + W6[m]) + qc * W6[m];
+    qa = E.lrow(n, v);
+    E.add_col(n, (E.ev[n] <= T(0)) ? qa : T(0), Wminus);
+  }
+  // passive scalars: advected-wave subtraction with the scalar's own dW
+  // and W6
+  const T Vx = Wc[1];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int k = 5 + s;
+    T qb = T(0.5) * dtodx * (ev_max - Vx);
+    T qc = T(0.5) * dtodx * dtodx * T(2.0 / 3.0) *
+           (ev_max * ev_max - Vx * Vx);
+    Wplus[k] = Wplus[k] +
+        ((Vx > T(0)) ? qb * (dW[k] - W6[k]) + qc * W6[k] : T(0));
+    qb = T(0.5) * dtodx * (ev_min - Vx);
+    qc = T(0.5) * dtodx * dtodx * T(2.0 / 3.0) * (ev_min * ev_min - Vx * Vx);
+    Wminus[k] = Wminus[k] +
+        ((Vx < T(0)) ? qb * (dW[k] + W6[k]) + qc * W6[k] : T(0));
+  }
+}
+
 // ---------------------------------------------------------------- Roe
 // Physical flux F(U) - b U of one side (b = 0: Roe; b = bm/bp: HLLE)
 template <typename T, int NS>
@@ -271,6 +457,59 @@ __device__ __forceinline__ void side_flux(const T* U, const T* W, T b,
   F[4] = U[4] * vb + W[4] * W[1];
 #pragma unroll
   for (int s = 0; s < NS; ++s) F[5 + s] = F[0] * W[5 + s];
+}
+
+// The Roe-averaged extreme eigenvalues ev0 = v1 - a, ev4 = v1 + a
+// (_roe_averages and esys_roe_adb_hyd(vectors=False) of ops/riemann.py,
+// ops/eigen.py): the wave-speed bounds of HLLE and HLLC.
+template <typename T>
+__device__ __forceinline__ void roe_speeds(const T* Ul, const T* Ur,
+                                           const T* Wl, const T* Wr, T g1,
+                                           T& ev0, T& ev4) {
+  const T sqrtdl = sqrt(Wl[0]);
+  const T sqrtdr = sqrt(Wr[0]);
+  const T isdlpdr = T(1) / (sqrtdl + sqrtdr);
+  const T v1 = (sqrtdl * Wl[1] + sqrtdr * Wr[1]) * isdlpdr;
+  const T v2 = (sqrtdl * Wl[2] + sqrtdr * Wr[2]) * isdlpdr;
+  const T v3 = (sqrtdl * Wl[3] + sqrtdr * Wr[3]) * isdlpdr;
+  const T h = ((Ul[4] + Wl[4]) / sqrtdl + (Ur[4] + Wr[4]) / sqrtdr) * isdlpdr;
+  const T vsq = v1 * v1 + v2 * v2 + v3 * v3;
+  const T a = sqrt(g1 * tmax(h - T(0.5) * vsq, T(TINY_NUMBER)));
+  ev0 = v1 - a;
+  ev4 = v1 + a;
+}
+
+// HLLE flux from the extreme Roe eigenvalues ev0, ev4 (_hlle_core of
+// ops/riemann.py): the HLLE solver, and the Roe solver's fallback.
+template <typename T, int NS>
+__device__ __forceinline__ void hlle_core(const T* Ul, const T* Ur,
+                                          const T* Wl, const T* Wr, T ev0,
+                                          T ev4, T gamma, T* F) {
+  constexpr int NV = 5 + NS;
+  const T cfl = sqrt(gamma * Wl[4] / Wl[0]);
+  const T cfr = sqrt(gamma * Wr[4] / Wr[0]);
+  const T ar = tmax(ev4, Wr[1] + cfr);
+  const T al = tmin(ev0, Wl[1] - cfl);
+  const T bp = tmax(ar, T(0));
+  const T bm = tmin(al, T(0));
+  T Fl[NV], Fr[NV];
+  side_flux<T, NS>(Ul, Wl, bm, Fl);
+  side_flux<T, NS>(Ur, Wr, bp, Fr);
+  const T tmp = T(0.5) * (bp + bm) / (bp - bm);
+#pragma unroll
+  for (int n = 0; n < NV; ++n)
+    F[n] = T(0.5) * (Fl[n] + Fr[n]) + (Fl[n] - Fr[n]) * tmp;
+}
+
+// HLLE flux (hlle() of ops/riemann.py); no H-correction, as in the
+// reference.
+template <typename T, int NS>
+__device__ __forceinline__ void hlle_flux(const T* Ul, const T* Ur,
+                                          const T* Wl, const T* Wr, T gamma,
+                                          T g1, T* F) {
+  T ev0, ev4;
+  roe_speeds(Ul, Ur, Wl, Wr, g1, ev0, ev4);
+  hlle_core<T, NS>(Ul, Ur, Wl, Wr, ev0, ev4, gamma, F);
 }
 
 // Roe flux with supersonic short-circuit, intermediate-state positivity
@@ -369,21 +608,9 @@ __device__ __forceinline__ void roe_flux(const T* Ul, const T* Ur,
   for (int s = 0; s < NS; ++s)
     Fo[5 + s] = (Fo[0] >= T(0)) ? Fo[0] * Wl[5 + s] : Fo[0] * Wr[5 + s];
 
-  if (bad && !(sup_l || sup_r)) {
-    // HLLE with the Roe eigenvalues
-    const T cfl = sqrt(gamma * Wl[4] / Wl[0]);
-    const T cfr = sqrt(gamma * Wr[4] / Wr[0]);
-    const T ar = tmax(ev[4], Wr[1] + cfr);
-    const T al = tmin(ev[0], Wl[1] - cfl);
-    const T bp = tmax(ar, T(0));
-    const T bm = tmin(al, T(0));
-    side_flux<T, NS>(Ul, Wl, bm, Fl);
-    side_flux<T, NS>(Ur, Wr, bp, Fr);
-    const T tmp = T(0.5) * (bp + bm) / (bp - bm);
-#pragma unroll
-    for (int n = 0; n < NV; ++n)
-      Fo[n] = T(0.5) * (Fl[n] + Fr[n]) + (Fl[n] - Fr[n]) * tmp;
-  }
+  // HLLE with the Roe eigenvalues
+  if (bad && !(sup_l || sup_r))
+    hlle_core<T, NS>(Ul, Ur, Wl, Wr, ev[0], ev[4], gamma, Fo);
 #pragma unroll
   for (int n = 0; n < NV; ++n) F[n] = Fo[n];
 }
@@ -398,17 +625,8 @@ __device__ __forceinline__ void hllc_flux(const T* Ul, const T* Ur,
                                           const T* Wl, const T* Wr, T gamma,
                                           T g1, T* F) {
   constexpr int NV = 5 + NS;
-  // Roe averages and the extreme Roe eigenvalues (esys_roe_adb_hyd)
-  const T sqrtdl = sqrt(Wl[0]);
-  const T sqrtdr = sqrt(Wr[0]);
-  const T isdlpdr = T(1) / (sqrtdl + sqrtdr);
-  const T v1 = (sqrtdl * Wl[1] + sqrtdr * Wr[1]) * isdlpdr;
-  const T v2 = (sqrtdl * Wl[2] + sqrtdr * Wr[2]) * isdlpdr;
-  const T v3 = (sqrtdl * Wl[3] + sqrtdr * Wr[3]) * isdlpdr;
-  const T h = ((Ul[4] + Wl[4]) / sqrtdl + (Ur[4] + Wr[4]) / sqrtdr) * isdlpdr;
-  const T vsq = v1 * v1 + v2 * v2 + v3 * v3;
-  const T a = sqrt(g1 * tmax(h - T(0.5) * vsq, T(TINY_NUMBER)));
-  const T ev0 = v1 - a, ev4 = v1 + a;
+  T ev0, ev4;
+  roe_speeds(Ul, Ur, Wl, Wr, g1, ev0, ev4);
 
   const T cfl = sqrt(gamma * Wl[4] / Wl[0]);
   const T cfr = sqrt(gamma * Wr[4] / Wr[0]);
@@ -446,13 +664,15 @@ __device__ __forceinline__ void hllc_flux(const T* Ul, const T* Ur,
 }
 
 // The Riemann solver of a sweep or flux kernel, chosen at compile time:
-// FLUX = kRoe (with etah) or kHllc (etah unused).
+// FLUX = kRoe (with etah), kHllc or kHlle (etah unused).
 template <typename T, int NS, int FLUX>
 __device__ __forceinline__ void riemann_flux(const T* Ul, const T* Ur,
                                              const T* Wl, const T* Wr,
                                              T etah, T gamma, T g1, T* F) {
   if constexpr (FLUX == kHllc)
     hllc_flux<T, NS>(Ul, Ur, Wl, Wr, gamma, g1, F);
+  else if constexpr (FLUX == kHlle)
+    hlle_flux<T, NS>(Ul, Ur, Wl, Wr, gamma, g1, F);
   else
     roe_flux<T, NS>(Ul, Ur, Wl, Wr, etah, gamma, g1, F);
 }
@@ -463,8 +683,8 @@ __device__ __forceinline__ void riemann_flux(const T* Ul, const T* Ur,
 #define ATH_DISPATCH_NS(NSCAL, CALL0, CALL1) \
   ((NSCAL) == 0 ? (CALL0) : (NSCAL) == 1 ? (CALL1) : (int)cudaErrorInvalidValue)
 
-// ... and LAUNCH<T, NS, FLUX>(...) for nscalars = 0 or 1 and flux = kRoe or
-// kHllc
+// ... and LAUNCH<T, NS, FLUX>(...) for nscalars = 0 or 1 and flux = kRoe,
+// kHllc or kHlle
 #define ATH_DISPATCH_NS_FLUX(T, LAUNCH, NSCAL, FLUX, ...)                 \
   ((FLUX) == ath::kRoe                                                    \
        ? ATH_DISPATCH_NS(NSCAL, (LAUNCH<T, 0, ath::kRoe>(__VA_ARGS__)),    \
@@ -472,4 +692,7 @@ __device__ __forceinline__ void riemann_flux(const T* Ul, const T* Ur,
    : (FLUX) == ath::kHllc                                                 \
        ? ATH_DISPATCH_NS(NSCAL, (LAUNCH<T, 0, ath::kHllc>(__VA_ARGS__)),   \
                          (LAUNCH<T, 1, ath::kHllc>(__VA_ARGS__)))          \
+   : (FLUX) == ath::kHlle                                                 \
+       ? ATH_DISPATCH_NS(NSCAL, (LAUNCH<T, 0, ath::kHlle>(__VA_ARGS__)),   \
+                         (LAUNCH<T, 1, ath::kHlle>(__VA_ARGS__)))          \
        : (int)cudaErrorInvalidValue)

@@ -1,0 +1,568 @@
+// The B5 sweep kernels (replacing atmospheric_athena_tpu/ops/pallas_hydro.py
+// _sweep_kernel) as templates over the reconstruction order, and the line
+// and tile helpers they share with B12 (hydro.cu).  hydro.cu instantiates
+// order 2 (PLM) in every launch shape; hydro_dc.cu, hydro_plmp.cu,
+// hydro_ppm.cu and hydro_ppmp.cu the other orders in the default shape,
+// each in its own translation unit so that nvcc builds them in parallel.
+//
+//   sweep_march_kernel, sweep_tile_kernel — CTU steps 1-3 along one axis:
+//       cons->prim, the reconstruction with CTU tracing (ORDER: donor
+//       cell, PLM or PPM, characteristic or primitive limiting), the dt/2
+//       static-gravity kick, prim->cons and the Riemann flux (FLUX).  One
+//       template for both output forms (DF): with_df=False stores (Ul, Ur,
+//       F); with_df=True stores (Ul, Ur) of interface f, the density flux
+//       F_ID(f) and dF(f) = F(f+1) - F(f), the flux difference that the
+//       middle-phase kernels read.
+//
+// What bounds them on the H100 is instruction issue, not bytes: a cell's
+// characteristic PLM (plm_cell: a sqrt and about 15 IEEE divides, built
+// without FMA contraction) and an interface's Riemann solve (two or three
+// sqrt and several divides) take about 1300-1600 SASS instructions per
+// interface in float32 for 26-27 words of memory traffic per cell; PPM adds
+// a second slope-and-eigensystem pass per cell, the parabola and its longer
+// tracing.  The TPU kernel's one-thread-per-interface stencil redid that
+// work 2-3 times per interface.  Here each cell is converted to primitives,
+// limited and reconstructed once and each interface is solved once; only
+// the halo of a segment or tile repeats work:
+//
+//   - y and z sweeps (the march kernels): a thread owns one line, a fixed
+//     (z, x) or (y, x), and walks a segment of S interfaces along it, with
+//     the 32 lanes of a warp on 32 neighbouring x, so every load and store
+//     is coalesced and each cell is read once per segment.  A register
+//     window keeps, for the three-cell orders (donor cell, PLM), the
+//     primitives of cells c-1, c, c+1, and for PPM those of c-1 .. c+2 and
+//     the limited slopes of c-1, c, c+1 (each computed once, when its cell
+//     enters the window); besides, the Wplus of cell c-1 and the previous
+//     phic.  Per new cell: one cons_to_prim, (PPM) one ppm_slopes, one
+//     reconstruction and one solve.  The next cell's loads are issued an
+//     iteration ahead, so their latency hides behind the arithmetic.  The
+//     dF forms keep F(f) in registers until F(f+1) is formed.  Halo per
+//     segment: 4 conversions and 2 reconstructions (PPM: 6 conversions, 4
+//     slopes, 2 parabolas) and (dF form) one solve beyond the segment's own.
+//   - x sweep (the tile kernels): lines along x are contiguous, so a block
+//     stages R rows of a tile of up to T - 4 interfaces (PPM: T - 6) in
+//     shared memory: one thread per cell converts it (coalesced loads), (PPM)
+//     one per cell limits its slopes, then one per cell reconstructs it
+//     into shared Wminus/Wplus, then one per interface solves it; the dF
+//     forms put F in shared memory and difference the neighbour's slot.  The
+//     row is cut into equal tiles (a 264-cell row into three of 88 at T =
+//     128), so few lanes idle; the potentials are loaded before the first
+//     barrier.
+//
+// The launch grid carries the line coordinates (blockIdx, threadIdx): no
+// 64-bit divide or modulo per thread.  The stencil wraps at the array edge
+// like the JAX kernels' roll, resolved once per loaded cell by a compare,
+// so the outputs equal the plain version everywhere, ghost cells included.
+// Every cell and interface goes through the same device functions in the
+// same order as in the plain version under -fmad=false, so the dF forms
+// equal the roll-and-subtract of the whole-flux forms bit for bit.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "hydro.cuh"
+
+namespace ath {
+
+// the launch shapes built, X(S, T, R): S interfaces per segment of the y
+// and z sweeps; at most T threads per row and R rows per block of the x
+// sweep (hydro_kernels.SWEEP_SHAPES, FLUXDF_SHAPES; the first is the
+// default and the only shape of B5 at orders other than 2)
+#define ATH_HYDRO_SHAPES(X) X(32, 128, 1) X(64, 320, 1)
+#define ATH_HYDRO_SHAPE0(X) X(32, 128, 1)
+
+// block of the march kernels: 32 x by kMarchRows lines
+constexpr int kMarchRows = 4;
+
+// conserved state of one cell, sweep order
+template <typename T, int NS>
+__device__ __forceinline__ void load_cons(const T* __restrict__ U,
+                                          long long ncell, long long off,
+                                          const Perm& pm, T* Uc) {
+#pragma unroll
+  for (int v = 0; v < 5 + NS; ++v) Uc[v] = U[pm.p[v] * ncell + off];
+}
+
+// conserved and primitive state of one cell, sweep order
+template <typename T, int NS>
+__device__ __forceinline__ void load_cons_prim(const T* __restrict__ U,
+                                               long long ncell, long long off,
+                                               const Perm& pm, T g1, T* Uc,
+                                               T* W) {
+  load_cons<T, NS>(U, ncell, off, pm, Uc);
+  cons_to_prim<T, NS>(Uc, W, g1);
+}
+
+// primitive state of one cell, sweep order
+template <typename T, int NS>
+__device__ __forceinline__ void load_prim(const T* __restrict__ U,
+                                          long long ncell, long long off,
+                                          const Perm& pm, T g1, T* W) {
+  T Uc[5 + NS];
+  load_cons_prim<T, NS>(U, ncell, off, pm, g1, Uc, W);
+}
+
+// one sweep-order vector into the physical-order array A at cell `off`
+template <typename T, int NS>
+__device__ __forceinline__ void store_cell(T* __restrict__ A, long long ncell,
+                                           long long off, const Perm& pm,
+                                           const T* v) {
+#pragma unroll
+  for (int k = 0; k < 5 + NS; ++k) A[pm.p[k] * ncell + off] = v[k];
+}
+
+// Steps 1c-3 at one interface from its traced states Wl, Wr (modified in
+// place): the dt/2 static-gravity kick (integrate_3d_ctu.c:318-342) with
+// dVl = dtodx (phif(f) - phic(f-1)), dVr = dtodx (phic(f) - phif(f)),
+// prim->cons and the Riemann flux.  kick = false without a potential.
+template <typename T, int NS, int FLUX>
+__device__ __forceinline__ void interface_flux(T* Wl, T* Wr, bool kick,
+                                               T dVl, T dVr, T gamma, T g1,
+                                               T* Ul, T* Ur, T* F) {
+  if (kick) {
+    Wl[1] = Wl[1] - dVl;
+    Wr[1] = Wr[1] - dVr;
+  }
+  prim_to_cons<T, NS>(Wl, Ul, g1);
+  prim_to_cons<T, NS>(Wr, Ur, g1);
+  riemann_flux<T, NS, FLUX>(Ul, Ur, Wl, Wr, T(0), gamma, g1, F);
+}
+
+// A cell on a sweep line that wraps at its end: position `pos` of `n`, at
+// linear index `off`; step() moves to the next cell.
+struct LinePos {
+  long long base, stride, off;
+  int pos, n;
+  __device__ __forceinline__ LinePos(long long b, long long s, int len,
+                                     int p)
+      : base(b), stride(s), n(len) {
+    pos = p < 0 ? p + len : (p >= len ? p - len : p);
+    off = base + pos * stride;
+  }
+  __device__ __forceinline__ void step() {
+    if (++pos == n) {
+      pos = 0;
+      off = base;
+    } else {
+      off += stride;
+    }
+  }
+};
+
+// The line of a march kernel's thread along axis 1 (y) or 2 (z), at x =
+// blockIdx.x * 32 + threadIdx.x and the other coordinate q (z or y) =
+// blockIdx.y * kMarchRows + threadIdx.y; its segment starts at interface f0
+// = blockIdx.z * S and holds ni interfaces.  ok = false outside the grid.
+struct MarchLine {
+  long long base, stride;
+  int n, f0, ni;
+  bool ok;
+  __device__ __forceinline__ MarchLine(int NZ, int NY, int NX, int axis,
+                                       int S) {
+    const int x = blockIdx.x * 32 + threadIdx.x;
+    const int q = blockIdx.y * kMarchRows + threadIdx.y;
+    const int nq = axis == 1 ? NZ : NY;
+    n = axis == 1 ? NY : NZ;
+    ok = x < NX && q < nq;
+    stride = axis == 1 ? (long long)NX : (long long)NX * NY;
+    base = axis == 1 ? (long long)q * NY * NX + x : (long long)q * NX + x;
+    f0 = blockIdx.z * S;
+    ni = min(S, n - f0);
+  }
+};
+
+// The x-sweep tile of a tile kernel's block: interfaces x0 .. x0+ni-1 of
+// row (blockIdx.z, y), y = blockIdx.y * R + threadIdx.y (a row beyond NY
+// does no work but takes part in the barriers).
+struct TileRow {
+  long long row;
+  int x0, ni;
+  bool ok;
+  __device__ __forceinline__ TileRow(int NY, int NX, int tw, int R) {
+    const int y = blockIdx.y * R + threadIdx.y;
+    ok = y < NY;
+    row = ((long long)blockIdx.z * NY + y) * NX;
+    x0 = blockIdx.x * tw;
+    ni = min(tw, NX - x0);
+  }
+  // x index of the tile's cell x0 + k (k >= -3), wrapped into [0, NX)
+  __device__ __forceinline__ int cell(int k, int NX) const {
+    const int x = x0 + k;
+    return x < 0 ? x + NX : (x >= NX ? x - NX : x);
+  }
+};
+
+// B5 along y (axis 1) or z (axis 2).  F: the whole flux (DF = false) or
+// the density flux F_ID (DF = true); dF: the flux difference (DF only).
+template <typename T, int NS, int FLUX, int ORDER, bool DF, int S>
+__global__ void __launch_bounds__(32 * kMarchRows)
+    sweep_march_kernel(const T* __restrict__ U, const T* __restrict__ phic,
+                       const T* __restrict__ phif,
+                       const T* __restrict__ dtodx_p, T* __restrict__ Ul,
+                       T* __restrict__ Ur, T* __restrict__ F,
+                       T* __restrict__ dF, int NZ, int NY, int NX, int axis,
+                       T gamma, T g1) {
+  constexpr int NV = 5 + NS;
+  constexpr bool PPM = is_ppm(ORDER);
+  constexpr int NP = PPM ? NV : 1;     // the PPM window's extra arrays
+  const MarchLine L(NZ, NY, NX, axis, S);
+  if (!L.ok) return;
+  const long long ncell = (long long)NZ * NY * NX;
+  const Perm pm = make_perm(axis, NV);
+  const T dtodx = *dtodx_p;
+  const bool kick = phic != nullptr;
+
+  // the window at interface f: primitives of cells f-1, f, f+1 (Wa, Wb,
+  // Wc), for PPM also of f+2 (Wd) and the slopes of f-1, f, f+1 (sa, sb,
+  // sc); the Wplus of cell f-1 (Wl); the conserved state of the next cell
+  // (Un) and the potentials at f (pf_n, pc_n) are loaded an iteration
+  // before their use, so that their latency hides behind a reconstruction
+  // and a solve
+  LinePos ahead(L.base, L.stride, L.n, L.f0 - (PPM ? 3 : 2));
+  LinePos at(L.base, L.stride, L.n, L.f0 - 1);      // cell f-1
+  T Wa[NV], Wb[NV], Wc[NV], Wl[NV], Wr[NV], Un[NV];
+  T Wd[NP], sa[NP], sb[NP], sc[NP];
+  load_prim<T, NS>(U, ncell, ahead.off, pm, g1, Wa);
+  ahead.step();
+  load_prim<T, NS>(U, ncell, ahead.off, pm, g1, Wb);
+  ahead.step();
+  load_prim<T, NS>(U, ncell, ahead.off, pm, g1, Wc);
+  ahead.step();
+  if constexpr (PPM) {
+    // cells f0-3 .. f0+1: the slopes of f0-2, f0-1, f0 and the Wplus of
+    // cell f0-1
+    constexpr bool CH = is_char(ORDER);
+    load_prim<T, NS>(U, ncell, ahead.off, pm, g1, Wd);
+    ahead.step();
+    ppm_slopes<T, NS, CH>(Wa, Wb, Wc, gamma, sa);
+    ppm_slopes<T, NS, CH>(Wb, Wc, Wd, gamma, sb);
+    copy<NV>(Wa, Wb);
+    copy<NV>(Wb, Wc);
+    copy<NV>(Wc, Wd);
+    load_prim<T, NS>(U, ncell, ahead.off, pm, g1, Wd);
+    ahead.step();
+    ppm_slopes<T, NS, CH>(Wb, Wc, Wd, gamma, sc);
+    ppm_cell<T, NS, FLUX>(Wa, Wb, Wc, sa, sb, sc, dtodx, gamma, Wr, Wl);
+    copy<NV>(sa, sb);
+    copy<NV>(sb, sc);
+  } else {
+    recon3_cell<T, NS, FLUX, ORDER>(Wa, Wb, Wc, dtodx, gamma, Wr, Wl);
+  }
+  load_cons<T, NS>(U, ncell, ahead.off, pm, Un);
+  ahead.step();
+  T phic_l = kick ? phic[at.off] : T(0);
+  at.step();
+  T pf_n = kick ? phif[at.off] : T(0), pc_n = kick ? phic[at.off] : T(0);
+  T Fprev[NV];
+  long long off_prev = 0;
+
+  for (int j = 0; j < L.ni + (DF ? 1 : 0); ++j) {
+    const long long off = at.off;                   // interface f = f0 + j
+    at.step();
+    copy<NV>(Wa, Wb);
+    copy<NV>(Wb, Wc);
+    if constexpr (PPM) {
+      copy<NV>(Wc, Wd);
+      cons_to_prim<T, NS>(Un, Wd, g1);
+    } else {
+      cons_to_prim<T, NS>(Un, Wc, g1);
+    }
+    const T pf = pf_n, pc = pc_n;
+    load_cons<T, NS>(U, ncell, ahead.off, pm, Un);  // for interface f+1
+    ahead.step();
+    if (kick) {
+      pf_n = phif[at.off];
+      pc_n = phic[at.off];
+    }
+    // cell f: Wminus is interface f's right state, Wplus interface f+1's
+    // left
+    T Wp[NV];
+    if constexpr (PPM) {
+      ppm_slopes<T, NS, is_char(ORDER)>(Wb, Wc, Wd, gamma, sc);
+      ppm_cell<T, NS, FLUX>(Wa, Wb, Wc, sa, sb, sc, dtodx, gamma, Wr, Wp);
+      copy<NV>(sa, sb);
+      copy<NV>(sb, sc);
+    } else {
+      recon3_cell<T, NS, FLUX, ORDER>(Wa, Wb, Wc, dtodx, gamma, Wr, Wp);
+    }
+    T dVl = T(0), dVr = T(0);
+    if (kick) {
+      dVl = dtodx * (pf - phic_l);
+      dVr = dtodx * (pc - pf);
+      phic_l = pc;
+    }
+    T Ulc[NV], Urc[NV], Fs[NV];
+    interface_flux<T, NS, FLUX>(Wl, Wr, kick, dVl, dVr, gamma, g1, Ulc, Urc,
+                                Fs);
+    if (j < L.ni) {
+      store_cell<T, NS>(Ul, ncell, off, pm, Ulc);
+      store_cell<T, NS>(Ur, ncell, off, pm, Urc);
+      if constexpr (DF)
+        F[off] = Fs[0];
+      else
+        store_cell<T, NS>(F, ncell, off, pm, Fs);
+    }
+    if constexpr (DF) {
+      if (j > 0) {
+#pragma unroll
+        for (int v = 0; v < NV; ++v)
+          dF[pm.p[v] * ncell + off_prev] = Fs[v] - Fprev[v];
+      }
+      copy<NV>(Fprev, Fs);
+      off_prev = off;
+    }
+    copy<NV>(Wl, Wp);
+  }
+}
+
+// B5 along x: a block of blockDim.x = roundup32(tw + halo) threads per row
+// (halo = 4, PPM 6) stages its rows' tiles in dynamic shared memory, planes
+// of NV x blockDim.x per row: primitives (later the fluxes), (PPM) slopes,
+// Wminus, Wplus.
+template <typename T, int NS, int FLUX, int ORDER, bool DF, int TM, int R>
+__global__ void __launch_bounds__(TM * R)
+    sweep_tile_kernel(const T* __restrict__ U, const T* __restrict__ phic,
+                      const T* __restrict__ phif,
+                      const T* __restrict__ dtodx_p, T* __restrict__ Ul,
+                      T* __restrict__ Ur, T* __restrict__ F,
+                      T* __restrict__ dF, int NZ, int NY, int NX, int tw,
+                      T gamma, T g1) {
+  constexpr int NV = 5 + NS;
+  constexpr bool PPM = is_ppm(ORDER);
+  constexpr int H = PPM ? 3 : 2;      // cells left of the tile's first
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nc = blockDim.x;
+  T* sW = reinterpret_cast<T*>(smem_raw) +
+          threadIdx.y * (PPM ? 4 : 3) * NV * nc;
+  T* sS = sW + NV * nc;                             // PPM only
+  T* sM = sW + (PPM ? 2 : 1) * NV * nc;
+  T* sP = sM + NV * nc;
+  const TileRow t(NY, NX, tw, R);
+  if (t.ni <= 0) return;                            // the same for the block
+  const int i = threadIdx.x;
+  const long long ncell = (long long)NZ * NY * NX;
+  const Perm pm = make_perm(0, NV);
+  const T dtodx = *dtodx_p;
+  const bool kick = phic != nullptr;
+  const int nif = t.ni + (DF ? 1 : 0);              // interfaces solved
+
+  // the potentials of interface x0 + i, loaded before the barriers
+  T pf = T(0), pc = T(0), pcl = T(0);
+  if (kick && t.ok && i < nif) {
+    const long long off = t.row + t.cell(i, NX);
+    pf = phif[off];
+    pc = phic[off];
+    pcl = phic[t.row + t.cell(i - 1, NX)];
+  }
+  // 1. cells x0-H .. x0+nif+H-2: slot i holds cell x0-H+i
+  if (t.ok && i < nif + 2 * H - 1) {
+    T W[NV];
+    load_prim<T, NS>(U, ncell, t.row + t.cell(i - H, NX), pm, g1, W);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) sW[v * nc + i] = W[v];
+  }
+  __syncthreads();
+  if constexpr (PPM) {
+    // 1b. slopes of cells x0-2 .. x0+nif: slot i holds cell x0-2+i
+    if (t.ok && i < nif + 3) {
+      T Wm[NV], Wc[NV], Wp[NV], s[NV];
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        Wm[v] = sW[v * nc + i];
+        Wc[v] = sW[v * nc + i + 1];
+        Wp[v] = sW[v * nc + i + 2];
+      }
+      ppm_slopes<T, NS, is_char(ORDER)>(Wm, Wc, Wp, gamma, s);
+#pragma unroll
+      for (int v = 0; v < NV; ++v) sS[v * nc + i] = s[v];
+    }
+    __syncthreads();
+  }
+  // 2. the reconstruction of cells x0-1 .. x0+nif-1: slot i holds cell
+  // x0-1+i
+  if (t.ok && i < nif + 1) {
+    const int c = i + H - 1;                        // cell x0-1+i in sW
+    T Wm[NV], Wc[NV], Wp[NV], a[NV], b[NV];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      Wm[v] = sW[v * nc + c - 1];
+      Wc[v] = sW[v * nc + c];
+      Wp[v] = sW[v * nc + c + 1];
+    }
+    if constexpr (PPM) {
+      T sm[NV], sc[NV], sp[NV];
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        sm[v] = sS[v * nc + i];
+        sc[v] = sS[v * nc + i + 1];
+        sp[v] = sS[v * nc + i + 2];
+      }
+      ppm_cell<T, NS, FLUX>(Wm, Wc, Wp, sm, sc, sp, dtodx, gamma, a, b);
+    } else {
+      recon3_cell<T, NS, FLUX, ORDER>(Wm, Wc, Wp, dtodx, gamma, a, b);
+    }
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      sM[v * nc + i] = a[v];
+      sP[v * nc + i] = b[v];
+    }
+  }
+  __syncthreads();
+  // 3. interface f = x0 + i: Wplus of cell f-1 (slot i) | Wminus of cell f
+  // (slot i+1); the dF form puts F(f) in slot i of the first plane, whose
+  // primitives were last read before the barrier above
+  if (t.ok && i < nif) {
+    const long long off = t.row + t.cell(i, NX);
+    T Wl[NV], Wr[NV];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      Wl[v] = sP[v * nc + i];
+      Wr[v] = sM[v * nc + i + 1];
+    }
+    T dVl = T(0), dVr = T(0);
+    if (kick) {
+      dVl = dtodx * (pf - pcl);
+      dVr = dtodx * (pc - pf);
+    }
+    T Ulc[NV], Urc[NV], Fs[NV];
+    interface_flux<T, NS, FLUX>(Wl, Wr, kick, dVl, dVr, gamma, g1, Ulc, Urc,
+                                Fs);
+    if (i < t.ni) {
+      store_cell<T, NS>(Ul, ncell, off, pm, Ulc);
+      store_cell<T, NS>(Ur, ncell, off, pm, Urc);
+      if constexpr (DF)
+        F[off] = Fs[0];
+      else
+        store_cell<T, NS>(F, ncell, off, pm, Fs);
+    }
+    if constexpr (DF) {
+#pragma unroll
+      for (int v = 0; v < NV; ++v) sW[v * nc + i] = Fs[v];
+    }
+  }
+  if constexpr (DF) {
+    __syncthreads();
+    // 4. dF(f) = F(f+1) - F(f)
+    if (t.ok && i < t.ni) {
+      const long long off = t.row + t.x0 + i;
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+        dF[pm.p[v] * ncell + off] = sW[v * nc + i + 1] - sW[v * nc + i];
+    }
+  }
+}
+
+// ---------------------------------------------------------------- launch
+
+// The x tiles of a row of nx cells for at most tm threads per row and a
+// halo of `halo` cells: n equal tiles of w interfaces, bx threads per row.
+struct Tiles {
+  int n, w, bx;
+};
+
+inline Tiles tiles_of(int nx, int tm, int halo) {
+  Tiles t;
+  t.n = (nx + tm - halo - 1) / (tm - halo);
+  t.w = (nx + t.n - 1) / t.n;
+  t.bx = (t.w + halo + 31) / 32 * 32;
+  return t;
+}
+
+// dynamic shared memory above the default 48 KB needs the kernel's opt-in
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+struct SweepArgs {
+  const void *U, *phic, *phif, *dtodx;
+  void *Ul, *Ur, *F, *dF;
+  int nz, ny, nx, axis;
+  double gamma, g1;
+};
+
+template <typename T, int NS, int FLUX, int ORDER, bool DF, int S, int TM,
+          int R>
+int launch_sweep_shape(const SweepArgs& a, cudaStream_t st) {
+  constexpr bool PPM = is_ppm(ORDER);
+  if (a.axis == 0) {
+    const Tiles t = tiles_of(a.nx, TM, PPM ? 6 : 4);
+    const size_t smem =
+        (size_t)R * (PPM ? 4 : 3) * (5 + NS) * t.bx * sizeof(T);
+    auto k = sweep_tile_kernel<T, NS, FLUX, ORDER, DF, TM, R>;
+    const cudaError_t e = allow_smem(k, smem);
+    if (e != cudaSuccess) return (int)e;
+    k<<<dim3(t.n, (a.ny + R - 1) / R, a.nz), dim3(t.bx, R), smem, st>>>(
+        (const T*)a.U, (const T*)a.phic, (const T*)a.phif,
+        (const T*)a.dtodx, (T*)a.Ul, (T*)a.Ur, (T*)a.F, (T*)a.dF, a.nz, a.ny,
+        a.nx, t.w, (T)a.gamma, (T)a.g1);
+  } else {
+    const int n = a.axis == 1 ? a.ny : a.nz, nq = a.axis == 1 ? a.nz : a.ny;
+    sweep_march_kernel<T, NS, FLUX, ORDER, DF, S>
+        <<<dim3((a.nx + 31) / 32, (nq + kMarchRows - 1) / kMarchRows,
+                (n + S - 1) / S),
+           dim3(32, kMarchRows), 0, st>>>(
+            (const T*)a.U, (const T*)a.phic, (const T*)a.phif,
+            (const T*)a.dtodx, (T*)a.Ul, (T*)a.Ur, (T*)a.F, (T*)a.dF, a.nz,
+            a.ny, a.nx, a.axis, (T)a.gamma, (T)a.g1);
+  }
+  return (int)cudaGetLastError();
+}
+
+// the launch shapes of order 2 (ATH_HYDRO_SHAPES) or, for the other
+// orders, the default one
+template <typename T, int NS, int FLUX, int ORDER>
+int launch_sweep(const SweepArgs& a, int df, int s, int tm, int r,
+                 void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+#define ATH_SWEEP_SHAPE(S, TM, R)                                           \
+  if (s == S && tm == TM && r == R)                                         \
+    return df ? launch_sweep_shape<T, NS, FLUX, ORDER, true, S, TM, R>(a, st) \
+              : launch_sweep_shape<T, NS, FLUX, ORDER, false, S, TM, R>(a, st);
+  if constexpr (ORDER == kPlm) {
+    ATH_HYDRO_SHAPES(ATH_SWEEP_SHAPE)
+  } else {
+    ATH_HYDRO_SHAPE0(ATH_SWEEP_SHAPE)
+  }
+#undef ATH_SWEEP_SHAPE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The entry of one order for the element type T: sweep_<name>_f32/_f64 in
+// the translation unit that instantiates it (ATH_SWEEP_ORDER), called by
+// hydro.cu's C entry points.
+#define ATH_SWEEP_ORDER_DECL(NAME)                                          \
+  int NAME##_f32(const SweepArgs& a, int nscalars, int flux, int df, int s, \
+                 int tm, int r, void* stream);                              \
+  int NAME##_f64(const SweepArgs& a, int nscalars, int flux, int df, int s, \
+                 int tm, int r, void* stream);
+
+ATH_SWEEP_ORDER_DECL(sweep_dc)
+ATH_SWEEP_ORDER_DECL(sweep_plm)
+ATH_SWEEP_ORDER_DECL(sweep_ppm)
+ATH_SWEEP_ORDER_DECL(sweep_plmp)
+ATH_SWEEP_ORDER_DECL(sweep_ppmp)
+
+}  // namespace ath
+
+#define ATH_SWEEP_ORDER(NAME, ORDER)                                        \
+  namespace ath {                                                           \
+  template <typename T, int NS, int FLUX>                                   \
+  int launch_##NAME(const SweepArgs& a, int df, int s, int tm, int r,       \
+                    void* stream) {                                         \
+    return launch_sweep<T, NS, FLUX, ORDER>(a, df, s, tm, r, stream);       \
+  }                                                                         \
+  int NAME##_f32(const SweepArgs& a, int nscalars, int flux, int df, int s, \
+                 int tm, int r, void* stream) {                             \
+    return ATH_DISPATCH_NS_FLUX(float, launch_##NAME, nscalars, flux, a, df, \
+                                s, tm, r, stream);                          \
+  }                                                                         \
+  int NAME##_f64(const SweepArgs& a, int nscalars, int flux, int df, int s, \
+                 int tm, int r, void* stream) {                             \
+    return ATH_DISPATCH_NS_FLUX(double, launch_##NAME, nscalars, flux, a,   \
+                                df, s, tm, r, stream);                      \
+  }                                                                         \
+  }

@@ -43,10 +43,11 @@ _L = ctypes.c_longlong
 _D = ctypes.c_double
 
 # C signatures of the entry points (csrc/hydro.cu, csrc/ctu_mid.cu,
-# csrc/rad.cu, csrc/rad_batch.cu, csrc/bvals.cu)
+# csrc/rad.cu, csrc/rad_batch.cu, csrc/bvals.cu; B5 at orders other than 2
+# is built in csrc/hydro_*.cu behind ath_sweep_f32/f64)
 _SIGNATURES = {
-    "ath_sweep_f32": [_P] * 8 + [_I] * 10 + [_D, _D, _P],
-    "ath_sweep_f64": [_P] * 8 + [_I] * 10 + [_D, _D, _P],
+    "ath_sweep_f32": [_P] * 8 + [_I] * 11 + [_D, _D, _P],
+    "ath_sweep_f64": [_P] * 8 + [_I] * 11 + [_D, _D, _P],
     "ath_flux_pointwise_f32": [_P] * 4 + [_I] * 6 + [_D, _D, _P],
     "ath_flux_pointwise_f64": [_P] * 4 + [_I] * 6 + [_D, _D, _P],
     "ath_flux_sweep_df_f32": [_P] * 5 + [_I] * 9 + [_D, _D, _P],

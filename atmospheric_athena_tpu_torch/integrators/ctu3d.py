@@ -1,5 +1,6 @@
 """3D CTU integrator, adiabatic hydrodynamics with static gravity, with or
-without the H-correction, Roe or HLLC fluxes
+without the H-correction, reconstruction orders 1, 2, 3, 2p and 3p, Roe,
+HLLE or HLLC fluxes
 (``atmospheric_athena_tpu/integrators/ctu3d.py`` with its fused sweep
 kernels on; reference integrate_3d_ctu.c).
 
@@ -88,10 +89,9 @@ def _phi_arrays(problem, grid: GridConfig, dtype, device):
 def check_supported(sim: SimConfig, grid: GridConfig):
     if sim.gas != "hydro":
         raise NotImplementedError("MHD CTU (ROADMAP A12)")
-    if not hydro_kernels.supported(sim):
-        raise NotImplementedError(
-            "CTU hydro: only adiabatic gas, PLM order 2, Roe or HLLC flux "
-            "and at most one passive scalar are ported (ROADMAP A11)")
+    why = hydro_kernels.refusal(sim)
+    if why is not None:
+        raise NotImplementedError(f"CTU hydro: {why} is not ported")
     if not all(grid.active(a) for a in range(3)):
         raise NotImplementedError("1D/2D CTU (ROADMAP A10/A11)")
     if grid.cylindrical:

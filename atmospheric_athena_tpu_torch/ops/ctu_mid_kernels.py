@@ -9,7 +9,8 @@ step between the per-axis sweeps and the new state.
                        the whole first-pass fluxes F_b), minus the G_b
                        terms, and the H-correction eta of the corrected
                        states.
-  flux_corrected     — B8, step 9: the etah gather and the Roe or HLLC flux
+  flux_corrected     — B8, step 9: the etah gather and the Roe, HLLE or
+                       HLLC flux
                        (the route with the H-correction, and an SMR level's
                        route without it; the single-level step without it
                        takes hydro_kernels.flux_sweep_df, B12).
@@ -35,7 +36,7 @@ cover the 3D step, ``axes == (0, 1, 2)``.
 
 ``<wrapper>.launches`` counts the kernel launches of each wrapper;
 ``<wrapper>.forms`` counts them per form: transverse_correct "dF" or "F",
-flux_corrected the solver ("roe" or "hllc"), grav_source "Fp2IDr" or
+flux_corrected the solver ("roe", "hlle" or "hllc"), grav_source "Fp2IDr" or
 "Fp2ID", final_update "dF2" or "F2".
 """
 
@@ -298,7 +299,7 @@ transverse_correct.forms = Counter()
 
 def flux_corrected(Ulc, Urc, etaS, sim: SimConfig, a: int, axes):
     """Step 9 along axis a: the etah gather and the Riemann flux of
-    ``sim.flux`` (Roe with etah, or HLLC, which ignores it).  Returns F2
+    ``sim.flux`` (Roe with etah, or HLLE or HLLC, which ignore it).  Returns F2
     [nv, ...].  etaS: the three axes' eta, stacked [3, ...] or a sequence
     of fields, or None without the H-correction.
 

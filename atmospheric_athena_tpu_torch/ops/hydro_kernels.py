@@ -2,8 +2,10 @@
 ``atmospheric_athena_tpu/ops/pallas_hydro.py``).
 
   sweep_lrflux   — CTU steps 1-3 along one axis (integrate_3d_ctu.c:202-524):
-                   cons->prim, characteristic PLM with CTU tracing, the dt/2
-                   static-gravity kick, prim->cons and the Riemann flux.
+                   cons->prim, the reconstruction of ``sim.order`` with CTU
+                   tracing (donor cell, PLM or PPM, characteristic or
+                   primitive limiting), the dt/2 static-gravity kick,
+                   prim->cons and the Riemann flux.
                    Returns (Ul, Ur, F) in physical variable order: the
                    ``with_df=False`` form of ``pallas_hydro.sweep_lrflux``.
   sweep_lrflux_df — the ``with_df=True`` form: (Ul, Ur, F_ID, dF) with F_ID
@@ -15,20 +17,23 @@
                    difference: (dF2, F2_ID, F2_IDr), as
                    ``pallas_hydro.flux_sweep_df`` documents it.
 
-The Riemann solver is ``sim.flux``: Roe (with its HLLE fallback and etah)
-or HLLC (which ignores etah, as the reference's does).
+The Riemann solver is ``sim.flux``: Roe (with its HLLE fallback and etah),
+HLLE or HLLC (which ignore etah, as the reference's do).
 
-Each wrapper takes the kernel for a CUDA tensor (csrc/hydro.cu; it raises on
-what the kernel does not take) and the plain version for a CPU tensor.  The
-plain versions call the same eos/reconstruct/riemann modules as the rest of
-the port; the kernels repeat their formulas in csrc/hydro.cuh.  Both wrap
+Each wrapper takes the kernel for a CUDA tensor (csrc/hydro.cu,
+csrc/sweep.cuh; it raises on what the kernel does not take) and the plain
+version for a CPU tensor.  The plain versions call the same
+eos/reconstruct/riemann modules as the rest of the port; the kernels
+repeat their formulas in csrc/hydro.cuh.  Both wrap
 the stencil at the array edge (torch.roll / modular indexing), which touches
 only ghost cells that no interior update reads.
 
 B5 (both forms) and B12 take ``shape=``, their launch shape, one of
-``SWEEP_SHAPES`` / ``FLUXDF_SHAPES``.  ``<wrapper>.launches`` counts the
-kernel launches of each wrapper and ``<wrapper>.forms`` the launches per
-solver (``forms["hllc"]``).
+``SWEEP_SHAPES`` / ``FLUXDF_SHAPES``; B5 is built in every shape for order
+2 and in the first for the other orders.  ``<wrapper>.launches`` counts
+the kernel launches of each wrapper and ``<wrapper>.forms`` the launches
+per form: the solver (``forms["hllc"]``), and for B5 at an order other
+than 2 the order and solver (``form``: ``forms["ppm+hllc"]``).
 """
 
 from __future__ import annotations
@@ -45,23 +50,63 @@ from ..integrators.sweep import vperm_from_sweep, vperm_to_sweep
 from . import reconstruct, riemann
 
 
-# the solver argument of the kernels (csrc/hydro.cuh FluxKind)
-FLUX_KIND = {"roe": 0, "hllc": 1}
+# the solver and reconstruction arguments of the kernels (csrc/hydro.cuh
+# FluxKind, Order)
+FLUX_KIND = {"roe": 0, "hllc": 1, "hlle": 2}
+ORDER_KIND = {"1": 1, "2": 2, "3": 3, "2p": 4, "3p": 5}
+ORDER_NAME = {"1": "dc", "2": "plm", "3": "ppm", "2p": "plmp", "3p": "ppmp"}
 
 # launch shapes the B5 and B12 kernels are built for (csrc/hydro.cu
 # ATH_HYDRO_SHAPES): (S interfaces per segment of the y and z sweeps, at
 # most T threads per row and R rows per block of the x sweep); the first is
-# the default
+# the default and the only one of B5 at orders other than 2
 SWEEP_SHAPES = ((32, 128, 1), (64, 320, 1))
 FLUXDF_SHAPES = SWEEP_SHAPES
 
 
+def refusal(sim: SimConfig):
+    """Why the kernels do not take `sim`, naming the ROADMAP item, or None.
+    They take 3D adiabatic hydro with CTU tracing, reconstruction orders
+    1, 2, 3, 2p and 3p, the Roe, HLLE and HLLC solvers and at most one
+    passive scalar: the forms of the JAX package's kernels
+    (pallas_hydro.supported) less isothermal gas and more scalars."""
+    if sim.gas != "hydro":
+        return "MHD (ROADMAP A12)"
+    if sim.special_relativity:
+        return "special relativity (ROADMAP A15)"
+    if not sim.adiabatic:
+        return "isothermal gas (ROADMAP A11 step 4, B2)"
+    if sim.nscalars > 1:
+        return (f"{sim.nscalars} passive scalars, more than one (ROADMAP "
+                "A11 step 4, B2)")
+    if sim.integrator != "ctu":
+        return f"the {sim.integrator} integrator (ROADMAP A11 step 6)"
+    if sim.flux not in FLUX_KIND:
+        item = "A12" if sim.flux == "hlld" else "A11 step 5"
+        return f"the {sim.flux} solver (ROADMAP {item})"
+    return None
+
+
 def supported(sim: SimConfig) -> bool:
-    """What the kernels implement: 3D adiabatic hydro, characteristic PLM
-    with CTU tracing, Roe or HLLC fluxes, at most one passive scalar."""
-    return (sim.gas == "hydro" and sim.adiabatic and sim.order == "2"
-            and sim.flux in FLUX_KIND and sim.integrator == "ctu"
-            and not sim.special_relativity and sim.nscalars in (0, 1))
+    """What the kernels implement (refusal)."""
+    return refusal(sim) is None
+
+
+def sweep_shapes(sim: SimConfig):
+    """The launch shapes B5 is built for at sim.order: every one of
+    SWEEP_SHAPES at order 2, the first at the other orders."""
+    return SWEEP_SHAPES if sim.order == "2" else SWEEP_SHAPES[:1]
+
+
+def form(sim: SimConfig) -> str:
+    """The form of B5 that `sim` selects, as counted in its wrappers'
+    ``forms``: the solver at order 2 ("roe", "hlle", "hllc"), else the
+    order's name, joined to the solver unless it is Roe ("ppm",
+    "ppm+hllc", "dc", "plmp+hlle")."""
+    if sim.order == "2":
+        return sim.flux
+    name = ORDER_NAME[sim.order]
+    return name if sim.flux == "roe" else f"{name}+{sim.flux}"
 
 
 # ------------------------------------------------------------- plain versions
@@ -134,10 +179,10 @@ def _check_fields(name, ref, fields):
 
 
 def _check_cuda_args(sim, U, fields, name):
-    if not supported(sim):
-        raise NotImplementedError(f"{name}: the CUDA kernel covers 3D "
-                                  "adiabatic hydro, PLM order 2, Roe or "
-                                  "HLLC, nscalars <= 1")
+    why = refusal(sim)
+    if why is not None:
+        raise NotImplementedError(f"{name}: the CUDA kernel does not take "
+                                  f"{why}")
     if U.dim() != 4 or U.shape[0] != sim.ncons:
         raise ValueError(f"{name}: U shape {tuple(U.shape)}, expected "
                          f"[{sim.ncons}, NZ, NY, NX]")
@@ -158,10 +203,10 @@ def _check_shape(name, shape, shapes):
 
 
 def _sweep(U, phic, phif_a, dtodx, sim, axis, shape, df, name):
-    """Launch csrc/hydro.cu's B5 kernels: the whole-flux form (Ul, Ur, F)
+    """Launch csrc/sweep.cuh's B5 kernels: the whole-flux form (Ul, Ur, F)
     or, with df, the dF form (Ul, Ur, F_ID, dF)."""
     _check_sweep_args(U, phic, phif_a, sim, axis, name)
-    _check_shape(name, shape, SWEEP_SHAPES)
+    _check_shape(name, shape, sweep_shapes(sim))
     nv, nz, ny, nx = U.shape
     dt_t = cuda_lib.scalar_arg(dtodx, U)
     Ul = torch.empty_like(U)
@@ -174,7 +219,8 @@ def _sweep(U, phic, phif_a, dtodx, sim, axis, shape, df, name):
              None if phif_a is None else phif_a.data_ptr(), dt_t.data_ptr(),
              Ul.data_ptr(), Ur.data_ptr(), F.data_ptr(),
              None if dF is None else dF.data_ptr(), nz, ny, nx, axis,
-             sim.nscalars, FLUX_KIND[sim.flux], int(df), *shape, sim.gamma,
+             sim.nscalars, FLUX_KIND[sim.flux], ORDER_KIND[sim.order],
+             int(df), *shape, sim.gamma,
              sim.gamma_1, cuda_lib.stream_ptr(U.device))
     cuda_lib.check(err, name)
     return (Ul, Ur, F, dF) if df else (Ul, Ur, F)
@@ -189,18 +235,20 @@ def sweep_lrflux(U, phic, phif_a, dtodx, sim: SimConfig, axis: int,
     dtodx: dt/dx_axis (float or 0-d tensor on U's device).
     Returns (Ul, Ur, F), each [nv, NZ, NY, NX] in physical order.
 
-    Kernel (CUDA tensors): csrc/hydro.cu sweep_march_kernel (y, z) and
-    sweep_tile_kernel (x), replacing ops/pallas_hydro.py:_sweep_kernel.
-    Each cell is converted and reconstructed once and each interface solved
-    once, apart from the halo of a segment or tile (see the source note).
-    `shape` is the launch shape, one of SWEEP_SHAPES.
+    Kernel (CUDA tensors): csrc/sweep.cuh sweep_march_kernel (y, z) and
+    sweep_tile_kernel (x), built for order 2 in csrc/hydro.cu and for the
+    other orders in csrc/hydro_*.cu, replacing
+    ops/pallas_hydro.py:_sweep_kernel.  Each cell is converted and
+    reconstructed once and each interface solved once, apart from the halo
+    of a segment or tile (see the source note).  `shape` is the launch
+    shape, one of sweep_shapes(sim).
     """
     if U.device.type != "cuda":
         return sweep_lrflux_plain(U, phic, phif_a, dtodx, sim, axis)
     out = _sweep(U, phic, phif_a, dtodx, sim, axis, shape, False,
                  "sweep_lrflux")
     sweep_lrflux.launches += 1
-    sweep_lrflux.forms[sim.flux] += 1
+    sweep_lrflux.forms[form(sim)] += 1
     return out
 
 
@@ -227,7 +275,7 @@ def sweep_lrflux_df(U, phic, phif_a, dtodx, sim: SimConfig, axis: int,
     out = _sweep(U, phic, phif_a, dtodx, sim, axis, shape, True,
                  "sweep_lrflux_df")
     sweep_lrflux_df.launches += 1
-    sweep_lrflux_df.forms[sim.flux] += 1
+    sweep_lrflux_df.forms[form(sim)] += 1
     return out
 
 

@@ -1,7 +1,10 @@
-"""Second-order (PLM) characteristic reconstruction with CTU tracing
-(``atmospheric_athena_tpu/ops/reconstruct.py``, order "2" on Cartesian
-grids; reference lr_states_plm.c:62-374), in both tracing branches: the
-non-HLL one (Roe) and the HLL-family one (HLLC).
+"""Reconstruction with CTU tracing on Cartesian grids
+(``atmospheric_athena_tpu/ops/reconstruct.py``): donor cell (order "1",
+lr_states_dc.c), PLM (order "2" with characteristic limiting,
+lr_states_plm.c:62-374; "2p" limiting the primitive variables,
+lr_states_prim2.c) and PPM (order "3", lr_states_ppm.c:67-660; "3p"), each
+in both tracing branches: the non-HLL one (Roe) and the HLL-family one
+(HLLE, HLLC).
 
 Layout: stacked 1D-slice primitives [nvar1d, ...] with the sweep along
 dimension `axis` of each field (a negative dim of the trailing axes).  Every
@@ -29,9 +32,16 @@ def _sh(q, k, axis):
     return torch.roll(q, -k, dims=axis)
 
 
-def _char_slopes(W, Bx, sim: SimConfig, axis: int):
-    """Monotonized characteristic slopes dWm per cell plus the eigensystem —
-    PLM steps 1-5 (lr_states_plm.c:98-203)."""
+def dc(W, Bx, dtodx, sim: SimConfig):
+    """Donor cell: piecewise constant states (lr_states_dc.c:44-60)."""
+    return W, W
+
+
+def _char_slopes(W, Bx, sim: SimConfig, axis: int, characteristic=True):
+    """Monotonized slopes dWm per cell plus the eigensystem — PLM steps 1-5
+    (lr_states_plm.c:98-203), shared by PLM and PPM.  With
+    characteristic=False the limiting acts on the primitive variables
+    (lr_states_prim2.c:104-131, orders 2p and 3p)."""
     nw = sim.nwave
     nv = nw + sim.nscalars
     assert W.shape[0] == nv, (W.shape, nv)
@@ -51,10 +61,13 @@ def _char_slopes(W, Bx, sim: SimConfig, axis: int):
                        torch.zeros_like(l))
            for l, r in zip(dWl, dWr)]
 
-    dac = eigen.lmul(lem, dWc[:nw]) + dWc[nw:]
-    dal = eigen.lmul(lem, dWl[:nw]) + dWl[nw:]
-    dar = eigen.lmul(lem, dWr[:nw]) + dWr[nw:]
-    dag = eigen.lmul(lem, dWg[:nw]) + dWg[nw:]
+    if characteristic:
+        dac = eigen.lmul(lem, dWc[:nw]) + dWc[nw:]
+        dal = eigen.lmul(lem, dWl[:nw]) + dWl[nw:]
+        dar = eigen.lmul(lem, dWr[:nw]) + dWr[nw:]
+        dag = eigen.lmul(lem, dWg[:nw]) + dWg[nw:]
+    else:
+        dac, dal, dar, dag = dWc, dWl, dWr, dWg
 
     da = []
     for c, l, r, g in zip(dac, dal, dar, dag):
@@ -64,15 +77,17 @@ def _char_slopes(W, Bx, sim: SimConfig, axis: int):
                               torch.sign(c) * torch.minimum(2.0 * lim1, lim2),
                               torch.zeros_like(c)))
 
-    dWmn = eigen.rmul(rem, da[:nw]) + da[nw:]
+    dWmn = eigen.rmul(rem, da[:nw]) + da[nw:] if characteristic else da
     return Wc, Wp, Wm, dWmn, ev, rem, lem
 
 
-def plm(W, Bx, dtodx, sim: SimConfig, axis: int):
+def plm(W, Bx, dtodx, sim: SimConfig, axis: int, characteristic=True):
     """Piecewise-linear reconstruction + CTU tracing (characteristic
-    projection, order '2').  Returns (Wminus, Wplus), same shape as W."""
+    projection for order '2', primitive-variable limiting for '2p').
+    Returns (Wminus, Wplus), same shape as W."""
     nv = sim.nwave + sim.nscalars
-    Wc, Wp, Wm, dWmn, ev, rem, lem = _char_slopes(W, Bx, sim, axis)
+    Wc, Wp, Wm, dWmn, ev, rem, lem = _char_slopes(W, Bx, sim, axis,
+                                                  characteristic)
 
     # Step 7: L/R values limited between neighbours (:214-236)
     Wlv = [c - 0.5 * m for c, m in zip(Wc, dWmn)]
@@ -160,12 +175,142 @@ def _trace_hll(Wlv, Wrv, dW, ev, rem, lem, dtodx, nw):
     return torch.stack(Wminus), torch.stack(Wplus)
 
 
+def ppm(W, Bx, dtodx, sim: SimConfig, axis: int, characteristic=True):
+    """Piecewise-parabolic (Colella-Woodward) reconstruction with CTU
+    tracing (lr_states_ppm.c:67-660): characteristic limiting for order
+    '3', primitive-variable limiting for '3p'.  Returns (Wminus, Wplus).
+
+    As in the JAX package, the scalar wave subtraction uses the scalar's
+    own dW and W6 where the reference indexes them with a stale loop
+    variable (lr_states_ppm.c:639,643)."""
+    nw = sim.nwave
+    nv = nw + sim.nscalars
+    Wc, Wp, Wm, dWmn, ev, rem, lem = _char_slopes(W, Bx, sim, axis,
+                                                  characteristic)
+
+    # Step 14: parabolic left-interface values Wim1h[i] (CW eqn 1.6)
+    Wlv = []
+    Wrv = []
+    for n in range(nv):
+        wim1h = 0.5 * (Wc[n] + Wm[n]) - (dWmn[n] - _sh(dWmn[n], -1,
+                                                       axis)) / 6.0
+        Wlv.append(wim1h)                 # left interface of cell i
+        Wrv.append(_sh(wim1h, 1, axis))   # left interface of cell i+1
+
+    # Step 16: parabola monotonization (CW eqn 1.10, lr_states_ppm.c:
+    # 465-477), then the neighbour clamps (:479-484)
+    for n in range(nv):
+        qa = (Wrv[n] - Wc[n]) * (Wc[n] - Wlv[n])
+        qb = Wrv[n] - Wlv[n]
+        qc = 6.0 * (Wc[n] - 0.5 * (Wlv[n] + Wrv[n]))
+        c1 = qa <= 0.0
+        c2 = (~c1) & (qb * qc > qb * qb)
+        c3 = (~c1) & (~c2) & (qb * qc < -(qb * qb))
+        lv = torch.where(c1, Wc[n],
+                         torch.where(c2, 3.0 * Wc[n] - 2.0 * Wrv[n], Wlv[n]))
+        rv = torch.where(c1, Wc[n],
+                         torch.where(c3, 3.0 * Wc[n] - 2.0 * Wlv[n], Wrv[n]))
+        lv = torch.maximum(torch.minimum(Wc[n], Wm[n]), lv)
+        lv = torch.minimum(torch.maximum(Wc[n], Wm[n]), lv)
+        rv = torch.maximum(torch.minimum(Wc[n], Wp[n]), rv)
+        rv = torch.minimum(torch.maximum(Wc[n], Wp[n]), rv)
+        Wlv[n], Wrv[n] = lv, rv
+
+    dW = [r - l for r, l in zip(Wrv, Wlv)]
+    W6 = [6.0 * (c - 0.5 * (l + r)) for c, l, r in zip(Wc, Wlv, Wrv)]
+    zero = torch.zeros_like(Wc[0])
+    F43 = 4.0 / 3.0
+    dWw, W6w = dW[:nw], W6[:nw]
+
+    if sim.flux in HLL_FLUXES:
+        # HLL-family tracing; scalars keep their untraced values, as in PLM
+        Wplus = list(Wrv)
+        Wminus = list(Wlv)
+        for n in range(nw):
+            qx = 0.5 * dtodx * ev[n]
+            qc = F43 * qx * qx
+            qa_p = eigen.lmul([lem[n]], [qx * (d - w) + qc * w
+                                         for d, w in zip(dWw, W6w)])[0]
+            qa_m = eigen.lmul([lem[n]], [qx * (d + w) + qc * w
+                                         for d, w in zip(dWw, W6w)])[0]
+            qa_p = torch.where(ev[n] > 0.0, qa_p, zero)
+            qa_m = torch.where(ev[n] < 0.0, qa_m, zero)
+            rcol = eigen.column(rem, n)
+            for m in range(nw):
+                c = rcol[m]
+                if isinstance(c, float) and c == 0.0:
+                    continue
+                Wplus[m] = Wplus[m] - qa_p * c
+                Wminus[m] = Wminus[m] - qa_m * c
+        return torch.stack(Wminus), torch.stack(Wplus)
+
+    # Step 18: parabola integrals over the max/min wave fans
+    ev_max, ev_min = ev[nw - 1], ev[0]
+    qx1 = 0.5 * torch.clamp_min(ev_max, 0.0) * dtodx
+    Wplus = [rv - qx1 * (d - (1.0 - F43 * qx1) * w)
+             for rv, d, w in zip(Wrv, dW, W6)]
+    qx2 = -0.5 * torch.clamp_max(ev_min, 0.0) * dtodx
+    Wminus = [lv + qx2 * (d + (1.0 - F43 * qx2) * w)
+              for lv, d, w in zip(Wlv, dW, W6)]
+
+    # Step 19: subtract the waves that do not reach the interface
+    for n in range(nw):
+        qx1 = 0.5 * dtodx * ev_max
+        qx2 = 0.5 * dtodx * ev[n]
+        qb = qx1 - qx2
+        qc = F43 * (qx1 * qx1 - qx2 * qx2)
+        qa = eigen.lmul([lem[n]], [qb * (d - w) + qc * w
+                                   for d, w in zip(dWw, W6w)])[0]
+        qa = torch.where(ev[n] >= 0.0, qa, zero)
+        rcol = eigen.column(rem, n)
+        for m in range(nw):
+            c = rcol[m]
+            if isinstance(c, float) and c == 0.0:
+                continue
+            Wplus[m] = Wplus[m] + qa * c
+
+        qx1 = 0.5 * dtodx * ev_min
+        qb = qx1 - qx2
+        qc = F43 * (qx1 * qx1 - qx2 * qx2)
+        qa = eigen.lmul([lem[n]], [qb * (d + w) + qc * w
+                                   for d, w in zip(dWw, W6w)])[0]
+        qa = torch.where(ev[n] <= 0.0, qa, zero)
+        for m in range(nw):
+            c = rcol[m]
+            if isinstance(c, float) and c == 0.0:
+                continue
+            Wminus[m] = Wminus[m] + qa * c
+
+    # scalar (advected) wave subtraction
+    Vx = Wc[1]
+    for n in range(nw, nv):
+        qb = 0.5 * dtodx * (ev_max - Vx)
+        qc = 0.5 * dtodx * dtodx * (2.0 / 3.0) * (ev_max ** 2 - Vx ** 2)
+        Wplus[n] = Wplus[n] + torch.where(
+            Vx > 0.0, qb * (dW[n] - W6[n]) + qc * W6[n], zero)
+        qb = 0.5 * dtodx * (ev_min - Vx)
+        qc = 0.5 * dtodx * dtodx * (2.0 / 3.0) * (ev_min ** 2 - Vx ** 2)
+        Wminus[n] = Wminus[n] + torch.where(
+            Vx < 0.0, qb * (dW[n] + W6[n]) + qc * W6[n], zero)
+
+    return torch.stack(Wminus), torch.stack(Wplus)
+
+
 def lr_states(W, Bx, dtodx, sim: SimConfig, axis: int = -1):
     """Dispatch on sim.order (reconstruction/prototypes.h:40-46); `axis` is
     the sweep dimension within each field of W."""
-    if sim.order != "2" or sim.integrator != "ctu":
+    if sim.integrator != "ctu":
         raise NotImplementedError(
-            f"reconstruction order={sim.order} integrator={sim.integrator}: "
-            "only characteristic PLM with CTU tracing is ported (ROADMAP "
-            "A11)")
-    return plm(W, Bx, dtodx, sim, axis)
+            f"reconstruction for integrator={sim.integrator}: only CTU "
+            "tracing is ported (ROADMAP A11)")
+    if sim.order == "1":
+        return dc(W, Bx, dtodx, sim)
+    if sim.order == "2":
+        return plm(W, Bx, dtodx, sim, axis)
+    if sim.order == "3":
+        return ppm(W, Bx, dtodx, sim, axis)
+    if sim.order == "2p":
+        return plm(W, Bx, dtodx, sim, axis, characteristic=False)
+    if sim.order == "3p":
+        return ppm(W, Bx, dtodx, sim, axis, characteristic=False)
+    raise NotImplementedError(f"reconstruction order={sim.order}")

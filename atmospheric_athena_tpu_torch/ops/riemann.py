@@ -1,6 +1,7 @@
 """Riemann solvers on stacked interface states, adiabatic hydro
 (``atmospheric_athena_tpu/ops/riemann.py``: ``roe`` with its HLLE fallback
-and the H-correction, ``hllc``, and the ``fluxes`` dispatcher for them).
+and the H-correction, ``hlle``, ``hllc``, and the ``fluxes`` dispatcher for
+them).
 
 Stacked tensors [nvar1d, ...] with nvar1d = NWAVE + nscalars, so one call
 computes every interface of a sweep.  Where the reference early-returns per
@@ -68,7 +69,8 @@ def _hlle_core(Ul, Ur, Wl, Wr, sim: SimConfig, ev):
 
 
 def hlle(Ul, Ur, Wl, Wr, Bxi, sim: SimConfig, etah=None):
-    """HLLE flux (hlle.c:62-260)."""
+    """HLLE flux (hlle.c:62-260).  `etah` is ignored, as in the reference
+    (the H-correction enters only the Roe solver)."""
     _check(sim)
     avg = _roe_averages(Ul, Ur, Wl, Wr, sim)
     ev, _, _ = eigen.esys_roe_adb_hyd(avg["v1"], avg["v2"], avg["v3"],
@@ -187,7 +189,7 @@ def hllc(Ul, Ur, Wl, Wr, Bxi, sim: SimConfig, etah=None):
     return torch.stack(F)
 
 
-SOLVERS = {"roe": roe, "hllc": hllc}
+SOLVERS = {"roe": roe, "hlle": hlle, "hllc": hllc}
 
 
 def fluxes(Ul, Ur, Wl, Wr, Bxi, sim: SimConfig, etah=None):
@@ -196,5 +198,6 @@ def fluxes(Ul, Ur, Wl, Wr, Bxi, sim: SimConfig, etah=None):
         solver = SOLVERS[sim.flux]
     except KeyError:
         raise NotImplementedError(
-            f"flux={sim.flux}: only roe and hllc are ported (ROADMAP A11)")
+            f"flux={sim.flux}: only roe, hlle and hllc are ported (ROADMAP "
+            "A11 step 5: exact, two_shock, force; A12: hlld)")
     return solver(Ul, Ur, Wl, Wr, Bxi, sim, etah=etah)

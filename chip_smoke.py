@@ -14,11 +14,14 @@ CTU hydro paths (the middle-phase path, the default, and the path that
 ATHENA_TPU_PALLAS_MID=0 selects: plain middle phases, whole-flux sweeps,
 pointwise step-9 flux), the CTU route without the H-correction (step 9 by
 B12, flux_sweep_df) in the bench configuration and in the testsedov blast
-(HLLC), and testsedov with the H-correction (B8 with HLLC).  It checks each
-hand-written kernel against its plain PyTorch version on the card; a
-kernel with several forms (the solver, Roe or HLLC; the operand forms of
-transverse_correct, grav_source and final_update; the inlet of the
-radiation sweep) is checked and counted per form, "name[form]":
+(HLLC), and testsedov with the H-correction (B8 with HLLC); and this
+slice's paths: the bench configuration with PPM (order 3, B5-dF PPM) and
+testsedov with HLLE (B5 and B5-dF, B12, B13 and B8 with HLLE).  It checks
+each hand-written kernel against its plain PyTorch version on the card; a
+kernel with several forms (the solver, Roe, HLLC or HLLE, and B5's
+reconstruction order, "ppm+hllc"; the operand forms of transverse_correct,
+grav_source and final_update; the inlet of the radiation sweep) is checked
+and counted per form, "name[form]":
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
   1. build the CUDA kernels from csrc/ (nvcc, one process per source) and
@@ -65,7 +68,12 @@ radiation sweep) is checked and counted per form, "name[form]":
      rel 1e-6; blast3lev: 5 cycles at 1e-12 on every level) and isph2lev
      (32^3 + 32^3, maxiter=20, float64, 2 cycles) on the card against the
      port's plain run on the CPU in the same process, each level to 1e-10
-     of each field's max, with the launch counters of those paths;
+     of each field's max, with the launch counters of those paths; and
+     in the same way isph64 with PPM (64^3, maxiter=20, 2 cycles),
+     testsedov with HLLE at 64^3 on each hydro path and with the
+     H-correction (3 cycles), and testsedov at its deck's size with every
+     other form of B5 (orders 1, 2p, 3p with each solver, PPM with HLLC
+     and HLLE; 2 cycles each), each to 1e-10 of each field's max;
   4. full width: the SMR main path, isph2lev at 256^3 + 256^3 float32
      (the child over the root's centre), maxiter=50, batch_iters=25, 3
      cycles through Simulation.from_file (no device argument: the card is
@@ -75,17 +83,21 @@ radiation sweep) is checked and counted per form, "name[form]":
      at 256^3 float32 (3 cycles + a CLI cycle): step ms, zone-cycles/s,
      radiation ms per substep; then 1 cycle of the K=1 loop on the
      middle-phase path and 1 on the ATHENA_TPU_PALLAS_MID=0 path; 1 cycle
-     of the bench configuration with h_correction=False; testsedov at
-     256^3 float32 with cubic cells, 5 cycles on the middle-phase path, 1
-     on MID=0 and 1 with the H-correction, through Simulation.from_file
-     without a device.
+     of the bench configuration with h_correction=False; the bench
+     configuration with PPM (3 cycles and a CLI cycle with
+     configure/order=3) and 1 K=1 cycle with PPM on MID=0; testsedov at
+     256^3 float32 with cubic cells, with HLLC and with HLLE, 5 cycles on
+     the middle-phase path, 1 on MID=0 and 1 with the H-correction,
+     through Simulation.from_file without a device.
 
 It ends with a JSON line of the kernels (launches from the phase-4 run of
 each kernel's path: the SMR run first, then the bench run, the K=1 runs,
-the run without the H-correction, the testsedov runs; B3', on no path,
-with its phase-2 launches and "path": null), the nvidia-smi line before
-it, and the final line {"ok": true, "device": {...}}.  Any failed check
-raises, so the exit code is non-zero and no result line is printed.
+the run without the H-correction, the testsedov runs, the PPM runs; B3'
+and the forms of B5 that take no full-width run, on no path, with their
+phase-2 launches and "path": null, the latter also with their phase-3
+launches), the nvidia-smi line before it, and the final line {"ok": true,
+"device": {...}}.  Any failed check raises, so the exit code is non-zero
+and no result line is printed.
 """
 
 from __future__ import annotations
@@ -248,6 +260,40 @@ KERNELS = [
      "atmospheric_athena_tpu/bvals.py:152"),
 ]
 
+# B5's forms beyond order 2 with Roe and HLLC, one entry per wrapper and
+# form (hydro_kernels.form): HLLE at order 2 and every solver at orders 1,
+# 3, 2p and 3p, each order built in its own source; B13, B12 and B8 with
+# HLLE.  Each (order, flux) of a form name: SWEEP_FORMS.
+_HYD_SRC = {"2": "hydro.cu", "1": "hydro_dc.cu", "3": "hydro_ppm.cu",
+            "2p": "hydro_plmp.cu", "3p": "hydro_ppmp.cu"}
+_ORDER_NAME = {"1": "dc", "2": "plm", "3": "ppm", "2p": "plmp", "3p": "ppmp"}
+SWEEP_FORMS = {
+    ("" if (o, f) == ("2", "roe") else f if o == "2"
+     else _ORDER_NAME[o] + ("" if f == "roe" else f"+{f}")): (o, f)
+    for o in _HYD_SRC for f in ("roe", "hllc", "hlle")}
+NEW_FORMS = ([f"{w}[{form}]" for form, (o, f) in SWEEP_FORMS.items()
+              if o != "2" or f == "hlle"
+              for w in ("sweep_lrflux", "sweep_lrflux_df")]
+             + ["flux_pointwise[hlle]", "flux_sweep_df[hlle]",
+                "flux_corrected[hlle]"])
+for _name in NEW_FORMS:
+    _w, _form = _name[:-1].split("[")
+    if _w.startswith("sweep"):
+        _src, _tpu = _HYD_SRC[SWEEP_FORMS[_form][0]], "pallas_hydro.py:118"
+    else:
+        _src = "ctu_mid.cu" if _w == "flux_corrected" else "hydro.cu"
+        _tpu = {"flux_pointwise": "pallas_hydro.py:250",
+                "flux_sweep_df": "pallas_hydro.py:302",
+                "flux_corrected": "pallas_ctu_mid.py:518"}[_w]
+    KERNELS.append((_name, "cuda",
+                    f"atmospheric_athena_tpu_torch/csrc/{_src}",
+                    f"atmospheric_athena_tpu/ops/{_tpu}"))
+
+FIELDS_MOVED.update({name: FIELDS_MOVED[name.replace("hlle", "hllc")]
+                     if "hlle]" in name and not name.startswith("sweep")
+                     else FIELDS_MOVED[name.split("[")[0]]
+                     for name in NEW_FORMS})
+
 # the form of a kernel entry that names none: the wrappers with several
 # forms count each in wrapper.forms (the solver, or the operand form)
 FORMS = {"sweep_lrflux": "roe", "sweep_lrflux_df": "roe",
@@ -282,9 +328,11 @@ SHAPED = {"rad_rates": (_RAD, "RATES_SHAPES"),
           "rad_batch": (_RAD, "BATCH_SHAPES"),
           **{k: (_HYD, "SWEEP_SHAPES") for k in (
               "sweep_lrflux", "sweep_lrflux[hllc]", "sweep_lrflux_df",
-              "sweep_lrflux_df[hllc]")},
-          "flux_sweep_df": (_HYD, "FLUXDF_SHAPES"),
-          "flux_sweep_df[hllc]": (_HYD, "FLUXDF_SHAPES")}
+              "sweep_lrflux_df[hllc]", "sweep_lrflux[hlle]",
+              "sweep_lrflux_df[hlle]")},
+          **{k: (_HYD, "FLUXDF_SHAPES") for k in (
+              "flux_sweep_df", "flux_sweep_df[hllc]",
+              "flux_sweep_df[hlle]")}}
 
 # the kernels each path launches, and those it must not
 MID = ["sweep_lrflux_df", "gcross", "transverse_correct", "flux_corrected",
@@ -321,28 +369,77 @@ def others(need):
     return [k[0] for k in KERNELS if k[0] not in need]
 
 
+def form_of(order, flux):
+    """The form name of B5 at (order, flux): "" (order 2, Roe), "hllc",
+    "ppm", "ppm+hllc", ... (SWEEP_FORMS)."""
+    return next(k for k, v in SWEEP_FORMS.items() if v == (order, flux))
+
+
+def entry(wrapper, form):
+    return f"{wrapper}[{form}]" if form else wrapper
+
+
+def sedov_path(order, flux, path="sedov"):
+    """The kernels of a testsedov run with (order, flux) on `path`: the
+    middle-phase path ("sedov"), MID=0 ("sedov MID=0") or the middle-phase
+    path with the H-correction ("sedov hcorr")."""
+    sw, f2 = form_of(order, flux), "" if flux == "roe" else flux
+    if path == "sedov MID=0":
+        return [entry("sweep_lrflux", sw), entry("flux_pointwise", f2),
+                "max_dti_hydro"]
+    step9 = ([entry("flux_corrected", f2), "final_update"]
+             if path == "sedov hcorr"
+             else [entry("flux_sweep_df", f2), "final_update[dF2]"])
+    return [entry("sweep_lrflux_df", sw), "transverse_correct", *step9,
+            "max_dti_hydro"]
+
+
+# the bench configuration with PPM (order 3): the batch path's kernels with
+# the PPM dF sweep; its K=1 cycle on MID=0
+PPM_BATCH = (["sweep_lrflux_df[ppm]"] + MID[1:]
+             + ["rad_batch", "bc_fill", "rad_rates", "max_dti_hydro"])
+PPM_MID0 = ["sweep_lrflux[ppm]", "flux_pointwise"] + K1
+PPM_K1 = ["sweep_lrflux_df[ppm]"] + MID[1:] + K1
+
 PATHS = {
     "batch": (MID + ["rad_batch", "bc_fill", "rad_rates", "max_dti_hydro"],
               ["sweep_lrflux", "flux_pointwise"] + NOHC + HLLC + SMRF
-              + FUSED),
+              + FUSED + NEW_FORMS),
     "mid": (MID + K1, ["sweep_lrflux", "flux_pointwise", "rad_batch"] + NOHC
-            + HLLC + SMRF + FUSED),
+            + HLLC + SMRF + FUSED + NEW_FORMS),
     "MID=0": (["sweep_lrflux", "flux_pointwise"] + K1,
-              MID + ["rad_batch"] + NOHC + HLLC + SMRF + FUSED),
+              MID + ["rad_batch"] + NOHC + HLLC + SMRF + FUSED + NEW_FORMS),
     "mid BC=0": (MID + K1[:3], ["sweep_lrflux", "flux_pointwise",
                                 "rad_batch", "bc_fill"] + NOHC + HLLC + SMRF
-                 + FUSED),
+                 + FUSED + NEW_FORMS),
     "nohcorr": (["sweep_lrflux_df", "gcross", "transverse_correct"] + NOHC
                 + ["rad_batch", "bc_fill", "rad_rates", "max_dti_hydro"],
                 ["flux_corrected", "grav_source", "final_update",
-                 "sweep_lrflux", "flux_pointwise"] + HLLC + SMRF + FUSED),
+                 "sweep_lrflux", "flux_pointwise"] + HLLC + SMRF + FUSED
+                + NEW_FORMS),
     "sedov": (SEDOV_MID, others(SEDOV_MID)),
     "sedov MID=0": (SEDOV_MID0, others(SEDOV_MID0)),
     "sedov hcorr": (SEDOV_HC, others(SEDOV_HC)),
     "blast": (BLAST, others(BLAST)),
     "isph2lev": (SMR_LEVELS, others(SMR_LEVELS)),
     "smr": (SMR_LEVELS + ["rad_batch"], others(SMR_LEVELS + ["rad_batch"])),
+    "ppm": (PPM_BATCH, others(PPM_BATCH + ["rad_update"])),
+    "ppm MID=0": (PPM_MID0, others(PPM_MID0)),
+    "isph ppm": (PPM_K1, others(PPM_K1)),
+    **{f"sedov hlle{p[5:]}": (sedov_path("2", "hlle", p),
+                              others(sedov_path("2", "hlle", p)))
+       for p in ("sedov", "sedov MID=0", "sedov hcorr")},
+    # phase 3's testsedov runs of the forms that take no full-width run
+    **{f"sedov {form}": (sedov_path(o, f), others(sedov_path(o, f)))
+       for form, (o, f) in SWEEP_FORMS.items()
+       if o != "2" and (o, f) != ("3", "roe")},
 }
+
+# kernel entries on no phase-4 path: B3' (as in the JAX package) and the
+# forms of B5 checked in phases 2 and 3 only
+NO_PATH = FUSED + [entry(w, form) for form, (o, f) in SWEEP_FORMS.items()
+                   if o != "2" and (o, f) != ("3", "roe")
+                   for w in ("sweep_lrflux", "sweep_lrflux_df")]
 
 AXES = (0, 1, 2)
 
@@ -816,6 +913,28 @@ def kernel_calls(s, inp):
               ("rad_fused", rk.fused, rk.fused_plain, inp["fused_in"]),
               ("rad_fused[inlet]", rk.fused, rk.fused_plain,
                inp["fused_in"] + (inp["inlet"],))]
+    # B5 at the other orders and with HLLE, B13, B12 and B8 with HLLE
+    sime = dataclasses.replace(sim, flux="hlle")
+    simen = dataclasses.replace(sime, h_correction=False)
+    for a in AXES:
+        for form, (o, f) in SWEEP_FORMS.items():
+            if o == "2" and f != "hlle":
+                continue
+            args = (U, phic, phif[a], dtodx[a],
+                    dataclasses.replace(sim, order=o, flux=f), a)
+            calls += [(f"sweep_lrflux[{form}]", hk.sweep_lrflux,
+                       hk.sweep_lrflux_plain, args),
+                      (f"sweep_lrflux_df[{form}]", hk.sweep_lrflux_df,
+                       hk.sweep_lrflux_df_plain, args)]
+        Ulc, Urc = m["tr"][a][:2]
+        calls += [("flux_pointwise[hlle]", hk.flux_pointwise,
+                   hk.flux_pointwise_plain,
+                   inp["flux_in"][a][:2] + (None, sime, a)),
+                  ("flux_sweep_df[hlle]", hk.flux_sweep_df,
+                   hk.flux_sweep_df_plain, (Ulc, Urc, simen, a)),
+                  ("flux_corrected[hlle]", mid.flux_corrected,
+                   mid.flux_corrected_plain,
+                   (Ulc, Urc, m["etaS"], sime, a, AXES))]
     return calls
 
 
@@ -852,23 +971,23 @@ def sweep_df_bits(U, phic, phif_a, dtodx, sim, axis):
     from atmospheric_athena_tpu_torch.ops import hydro_kernels as hk
     args = (U, phic, phif_a, dtodx, sim, axis)
     first = None
-    for shape in hk.SWEEP_SHAPES:
+    for shape in hk.sweep_shapes(sim):
         Ul, Ur, F = hk.sweep_lrflux(*args, shape=shape)
         got = hk.sweep_lrflux_df(*args, shape=shape)
         want = (Ul, Ur, F[0], torch.roll(F, -1, dims=3 - axis) - F)
         for what, g, w in zip(("Ul", "Ur", "F_ID", "dF"), got, want):
             if not torch.equal(bits(g), bits(w.contiguous())):
                 raise AssertionError(
-                    f"sweep_lrflux_df[{sim.flux}] axis {axis} shape {shape}:"
-                    f" {what} differs from the whole-flux sweep's in its "
-                    "bits")
+                    f"sweep_lrflux_df[{hk.form(sim)}] axis {axis} shape "
+                    f"{shape}: {what} differs from the whole-flux sweep's "
+                    "in its bits")
         if first is None:
             first = (Ul, Ur, F)
         elif not all(torch.equal(bits(a), bits(b))
                      for a, b in zip(first, (Ul, Ur, F))):
-            raise AssertionError(f"sweep_lrflux[{sim.flux}] axis {axis}: "
-                                 f"shape {shape} differs from the default "
-                                 "shape's bits")
+            raise AssertionError(f"sweep_lrflux[{hk.form(sim)}] axis "
+                                 f"{axis}: shape {shape} differs from the "
+                                 "default shape's bits")
 
 
 def trans_f_bits(inp, sim):
@@ -1279,6 +1398,96 @@ def phase3():
     torch.cuda.synchronize()
 
 
+def run_vs_cpu(label, deck, problem, cmd, ncyc, path, **kw):
+    """A single-level deck with the overrides `kw` (order=, flux=,
+    h_correction=) in float64, ncyc cycles on the card against the port's
+    plain run on the CPU in the same process, on the hydro path `path`
+    (path_env; its kernels checked by check_counts): cycle 1 from the
+    deck's start, each later cycle from the CPU run's state copied to the
+    card (as isph2lev_vs_cpu), the interior state within 1e-10 of each
+    field's max and time and dt to rel 1e-9.  Raises on a miss; returns the
+    worst error and the card run's launch counts."""
+    import numpy as np
+    from atmospheric_athena_tpu_torch import Simulation
+    from atmospheric_athena_tpu_torch import state as tstate
+    with path_env(path):
+        g = Simulation.from_file(deck, problem=problem, cmdline=cmd,
+                                 dtype="float64", device="cuda", **kw)
+        c = Simulation.from_file(deck, problem=problem, cmdline=cmd,
+                                 dtype="float64", device="cpu", **kw)
+        reset_counts()
+        worst = 0.0
+        for cyc in range(ncyc):
+            if cyc:
+                g.state = tstate.from_numpy(tstate.to_numpy(c.state),
+                                            device="cuda")
+            g.step()
+            c.step()
+            for what in ("time", "dt"):
+                a, b = (float(getattr(x.state, what)) for x in (g, c))
+                if not abs(a / b - 1) <= 1e-9:
+                    raise AssertionError(f"{label} cycle {cyc + 1}: {what} "
+                                         f"{a:.15e} on the card, {b:.15e} "
+                                         "plain")
+            a, b = level_interior(g), level_interior(c)
+            if not np.isfinite(a).all():
+                raise AssertionError(f"{label} cycle {cyc + 1}: non-finite")
+            for k in range(a.shape[0]):
+                err = float(np.abs(a[k] - b[k]).max()
+                            / max(np.abs(b[k]).max(), 1e-300))
+                worst = max(worst, err)
+                if not err <= 1e-10:
+                    raise AssertionError(f"{label} cycle {cyc + 1} field {k}"
+                                         f": error {err:.3e} x max exceeds "
+                                         "1e-10")
+        counts = read_counts()
+    check_counts(label, counts, path)
+    return worst, counts
+
+
+def phase3_forms():
+    """This slice's forms on the card against the plain run on the CPU:
+    isph64 with PPM (64^3, K=1 with maxiter=20, 2 cycles, the middle-phase
+    path), testsedov with HLLE at 64^3 with cubic cells on each hydro path
+    and with the H-correction (3 cycles), and testsedov at its deck's size
+    (64 x 16 x 16) with every other form of B5 that takes no full-width
+    run (2 cycles each).  Returns the launch counts of the last runs,
+    keyed by path."""
+    import torch
+    counts = {}
+    worst, counts["isph ppm"] = run_vs_cpu(
+        "isph64 PPM", DECK, "ioniz_sphere", ["ionradiation/maxiter=20"], 2,
+        "isph ppm", order="3")
+    say(f"phase 3 isph64 PPM (order 3) float64 64^3 maxiter=20, 2 cycles on "
+        f"the card against the plain run on the CPU: state max err "
+        f"{worst:.2e} x field max (bound 1e-10), time and dt within rel "
+        f"1e-9; launches "
+        f"{ {k: v for k, v in counts['isph ppm'].items() if v} }")
+    cube = [f"domain1/Nx{a}=64" for a in (1, 2, 3)] + [
+        "domain1/x2max=1.0", "domain1/x3max=1.0", "time/tlim=9e9"]
+    for path in ("sedov hlle", "sedov hlle MID=0", "sedov hlle hcorr"):
+        worst, counts[path] = run_vs_cpu(
+            f"testsedov HLLE 64^3, {path} path", SEDOV_DECK, "testsedov",
+            cube, 3, path, flux="hlle", h_correction=path.endswith("hcorr"))
+        say(f"phase 3 testsedov HLLE float64 64^3, 3 cycles, {path} path, "
+            f"on the card against the plain run on the CPU: state max err "
+            f"{worst:.2e} x field max (bound 1e-10); launches "
+            f"{ {k: v for k, v in counts[path].items() if v} }")
+    for form, (o, f) in SWEEP_FORMS.items():
+        path = f"sedov {form}"
+        if o == "2" or path not in PATHS:
+            continue
+        worst, counts[path] = run_vs_cpu(
+            f"testsedov {form}", SEDOV_DECK, "testsedov", ["time/tlim=9e9"],
+            2, path, order=o, flux=f)
+        say(f"phase 3 testsedov order {o} {f} float64 64x16x16, 2 cycles on "
+            f"the card against the plain run on the CPU: state max err "
+            f"{worst:.2e} x field max (bound 1e-10); launches "
+            f"{ {k: v for k, v in counts[path].items() if v} }")
+    torch.cuda.synchronize()
+    return counts
+
+
 def batch_vs_k1(ncycles=3):
     """The batch path (batch_iters=BATCH_K) against the K=1 path on the
     isph64 deck (64^3 float64), ncycles cycles from the state after one K=1
@@ -1422,19 +1631,83 @@ def phase4():
         f"{ {k: v for k, v in counts['nohcorr'].items() if v} }")
     del s
 
-    # testsedov (HLLC, no H-correction, no gravity) at full width with
-    # cubic cells: 5 cycles on the middle-phase path, 1 on MID=0; and 1 with
-    # the H-correction on the middle-phase path (B8 with HLLC)
+    # the bench configuration with PPM (order 3): 3 cycles and a CLI cycle
+    # that selects it with configure/order=3; then 1 cycle of the K=1 loop
+    # with PPM on the ATHENA_TPU_PALLAS_MID=0 path
+    ppm = {}
+    torch.cuda.reset_peak_memory_stats()
+    with path_env("ppm"):
+        s = Simulation.from_file(DECK, problem="ioniz_sphere", cmdline=bench,
+                                 dtype="float32", order="3")
+        if s.device.type != "cuda" or s.sim.order != "3" \
+                or not s.sim.h_correction:
+            raise AssertionError(f"PPM bench run on {s.device}, {s.sim}")
+        torch.cuda.synchronize()
+        reset_counts()
+        r = s.run(max_steps=3)
+        counts["ppm"] = read_counts()
+    check_counts(f"{n}^3 PPM bench run", counts["ppm"], "ppm")
+    if r["steps"] != 3 or not (bool(torch.isfinite(s.state.U).all())
+                               and bool(torch.isfinite(s.state.Eflux).all())
+                               and float(s.state.dt) > 0):
+        raise AssertionError(f"{n}^3 PPM bench run: {r['steps']} steps, or "
+                             "a non-finite state or dt <= 0")
+    ppm["step_ms"] = 1e3 * r["wall"] / r["steps"]
+    ppm["zone_cycles_per_sec"] = r["zone_cycles_per_sec"]
+    iters = s.rad_iters[-3:]
+    del s
+    with path_env("ppm"):
+        rc = cli.main(["-i", DECK, "--problem", "ioniz_sphere", "--dtype",
+                       "float32", "time/nlim=1", "configure/order=3",
+                       *bench])
+    if rc != 0:
+        raise AssertionError(f"CLI returned {rc}")
+    torch.cuda.synchronize()
+    ppm["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"phase 4 {n}^3 float32 PPM (order 3) maxiter={MAXITER} "
+        f"batch_iters={BATCH_K}, 3 cycles via Simulation.run: step "
+        f"{ppm['step_ms']:.1f} ms, {ppm['zone_cycles_per_sec']:.4e} "
+        f"zone-cycles/s; radiation substeps {iters}; then 1 CLI cycle "
+        f"(configure/order=3); peak device memory {ppm['peak_gib']:.2f} "
+        f"GiB; all fields finite; launches "
+        f"{ {k: v for k, v in counts['ppm'].items() if v} }")
+    torch.cuda.reset_peak_memory_stats()
+    with path_env("ppm MID=0"):
+        s = Simulation.from_file(DECK, problem="ioniz_sphere", cmdline=cmd,
+                                 dtype="float32", order="3")
+        torch.cuda.synchronize()
+        reset_counts()
+        r1 = s.run(max_steps=1)
+        counts["ppm MID=0"] = read_counts()
+    check_counts(f"{n}^3 PPM K=1 run, MID=0 path", counts["ppm MID=0"],
+                 "ppm MID=0")
+    if not (bool(torch.isfinite(s.state.U).all())
+            and float(s.state.dt) > 0):
+        raise AssertionError(f"{n}^3 PPM MID=0 run: non-finite state or "
+                             "dt <= 0")
+    ppm["mid0_step_ms"] = 1e3 * r1["wall"]
+    say(f"phase 4 {n}^3 float32 PPM maxiter={MAXITER} K=1, 1 cycle via "
+        f"Simulation.run, MID=0 path: step {ppm['mid0_step_ms']:.1f} ms, "
+        f"{s.rad_iters[-1]} radiation iterations; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    del s
+
+    # testsedov (no H-correction, no gravity) at full width with cubic
+    # cells, with HLLC and with HLLE: 5 cycles on the middle-phase path, 1
+    # on MID=0; and 1 with the H-correction on the middle-phase path (B8)
     sedov = {}
     scmd = [f"domain1/Nx1={n}", f"domain1/Nx2={n}", f"domain1/Nx3={n}",
             "domain1/x2max=1.0", "domain1/x3max=1.0"]
-    for path, nlim in (("sedov", 5), ("sedov MID=0", 1), ("sedov hcorr", 1)):
+    runs = [(f"sedov{h}{p}", flux, nlim)
+            for h, flux in (("", "hllc"), (" hlle", "hlle"))
+            for p, nlim in (("", 5), (" MID=0", 1), (" hcorr", 1))]
+    for path, flux, nlim in runs:
         torch.cuda.reset_peak_memory_stats()
         with path_env(path):
             s = Simulation.from_file(SEDOV_DECK, problem="testsedov",
                                      cmdline=scmd + [f"time/nlim={nlim}"],
-                                     dtype="float32", flux="hllc",
-                                     h_correction=path == "sedov hcorr")
+                                     dtype="float32", flux=flux,
+                                     h_correction=path.endswith("hcorr"))
             if s.device.type != "cuda":
                 raise AssertionError(f"testsedov run on {s.device}")
             torch.cuda.synchronize()
@@ -1450,7 +1723,7 @@ def phase4():
         sedov[path] = dict(step_ms=1e3 * r["wall"] / r["steps"],
                            zone_cycles_per_sec=r["zone_cycles_per_sec"],
                            peak_gib=peak_s)
-        say(f"phase 4 {n}^3 float32 testsedov (HLLC"
+        say(f"phase 4 {n}^3 float32 testsedov ({flux.upper()}"
             f"{', H-correction' if s.sim.h_correction else ''}), {nlim} "
             f"cycles via Simulation.run, {path} path: step "
             f"{sedov[path]['step_ms']:.2f} ms, "
@@ -1461,7 +1734,8 @@ def phase4():
     return counts, dict(step_ms=steps_ms,
                         zone_cycles_per_sec=res["zone_cycles_per_sec"],
                         rad_ms_per_substep=rad_ms / niter, peak_gib=peak,
-                        k1_step_ms=k1, nohcorr_step_ms=nohc_ms, sedov=sedov)
+                        k1_step_ms=k1, nohcorr_step_ms=nohc_ms, ppm=ppm,
+                        sedov=sedov)
 
 
 def phase4_smr(ncyc=3):
@@ -1564,17 +1838,36 @@ def ptxas_report(source, kernels):
     return "; ".join(out)
 
 
+def source_of(name):
+    """The CUDA source (file name) of kernel entry `name`."""
+    return next(os.path.basename(src) for n, _, src, _ in KERNELS
+                if n == name)
+
+
+def form_args(name):
+    """The template arguments after NS that pick kernel entry `name`'s
+    instantiations in ptxas's report: (FLUX, ORDER, DF) for B5, (FLUX,) for
+    B12, B13 and B8; None for the kernels without forms of the solver."""
+    from atmospheric_athena_tpu_torch.ops import hydro_kernels as hk
+    base = base_name(name)
+    form = name[len(base) + 1:-1]
+    if base.startswith("sweep"):
+        o, f = SWEEP_FORMS[form]
+        return [hk.FLUX_KIND[f], hk.ORDER_KIND[o], int("_df" in base)]
+    if base in ("flux_pointwise", "flux_sweep_df", "flux_corrected"):
+        return [hk.FLUX_KIND[form or "roe"]]
+    return None
+
+
 def form_regs(name, regs):
-    """ptxas's report (ptxas_report, by wrapper in `regs`) of the
-    instantiations of kernel entry `name`: for B5 and B12 those of its
-    solver and output form (template arguments NS, FLUX[, DF], shape)."""
+    """ptxas's report (ptxas_report, by wrapper and source in `regs`) of
+    the instantiations of kernel entry `name`: for the hydro kernels those
+    of its form (form_args)."""
     import re
-    rep = regs.get(base_name(name))
-    if (rep is None or "registers" not in rep
-            or SHAPED.get(name, ("",))[0] != _HYD):
+    rep = regs.get((base_name(name), source_of(name)))
+    want = form_args(name)
+    if rep is None or "registers" not in rep or want is None:
         return rep
-    want = [int("hllc" in name)] + (
-        [] if base_name(name) == "flux_sweep_df" else [int("_df" in name)])
     keep = [item for item in rep.split("; ")
             if [int(x) for x in re.search(r"<([\d,]+)>", item).group(1)
                 .split(",")[1:1 + len(want)]] == want]
@@ -1653,12 +1946,12 @@ def sass_hydro(n=256):
     """The static SASS instructions per interface of each B5 and B12 form
     (float32, one passive scalar as in phase 2) in each launch shape: the
     march kernel's loop body (one interface of a y or z segment) and the
-    tile kernel's whole body (one thread: a cell's conversion and PLM and
-    an interface's solve, with the division and sqrt slow paths); and the
-    time the default shape's counts take to issue for one launch, averaged
-    over the axes (two march, one tile), on the padded (n+8)^3 grid at one
-    warp instruction per scheduler and clock (4 per SM) at the card's
-    maximum SM clock.  Returns {entry name: record}."""
+    tile kernel's whole body (one thread: a cell's conversion and
+    reconstruction and an interface's solve, with the division and sqrt
+    slow paths); and the time the default shape's counts take to issue for
+    one launch, averaged over the axes (two march, one tile), on the padded
+    (n+8)^3 grid at one warp instruction per scheduler and clock (4 per SM)
+    at the card's maximum SM clock.  Returns {entry name: record}."""
     from atmospheric_athena_tpu_torch.ops import hydro_kernels as hk
     try:
         mhz, nsm = sm_clock()
@@ -1667,22 +1960,22 @@ def sass_hydro(n=256):
         say(f"phase 1 SASS hydro kernels: not measured ({e})")
         return {}
     out = {}
-    for name in ("sweep_lrflux", "sweep_lrflux[hllc]", "sweep_lrflux_df",
-                 "sweep_lrflux_df[hllc]", "flux_sweep_df",
-                 "flux_sweep_df[hllc]"):
-        flux = int("hllc" in name)
-        b12 = base_name(name) == "flux_sweep_df"
-        form = "" if b12 else f"Lb{int('_df' in name)}E"
+    names = [k[0] for k in KERNELS
+             if base_name(k[0]) in ("sweep_lrflux", "sweep_lrflux_df",
+                                    "flux_sweep_df")]
+    for name in names:
+        args = form_args(name)
+        form = "".join(f"ELi{x}" for x in args[:2]) + (
+            f"ELb{args[2]}" if len(args) > 2 else "")
         march, tile = SYMBOLS[base_name(name)]
+        shapes = shapes_of(name) if name in SHAPED else [hk.SWEEP_SHAPES[0]]
         per = {}
-        for sh in shapes_of(name):
-            S, T, R = sh
-            loops, _ = sass_loops(march, f"IfLi1ELi{flux}E{form}Li{S}EE")
-            _, body = sass_loops(tile,
-                                 f"IfLi1ELi{flux}E{form}Li{T}ELi{R}EE")
-            per["x".join(map(str, sh))] = dict(
-                march=loops[0] if loops else None, tile=body)
-        d = per["x".join(map(str, shapes_of(name)[0]))]
+        for S, T, R in shapes:
+            loops, _ = sass_loops(march, f"IfLi1{form}ELi{S}EE")
+            _, body = sass_loops(tile, f"IfLi1{form}ELi{T}ELi{R}EE")
+            per[f"{S}x{T}x{R}"] = dict(march=loops[0] if loops else None,
+                                       tile=body)
+        d = per["x".join(map(str, shapes[0]))]
         issue_ms = None
         if d["march"]:
             mean = (2 * d["march"] + d["tile"]) / 3
@@ -1740,10 +2033,10 @@ def main():
     say(f"phase 1 nvcc build of csrc/*.cu: {time.perf_counter() - t0:.1f} s")
     regs = {}
     for name, route, source, _ in KERNELS:
-        if route == "cuda" and base_name(name) not in regs:
-            name = base_name(name)
-            regs[name] = ptxas_report(os.path.basename(source), SYMBOLS[name])
-            say(f"phase 1 ptxas {name}: {regs[name]}")
+        key = (base_name(name), os.path.basename(source))
+        if route == "cuda" and key not in regs:
+            regs[key] = ptxas_report(key[1], SYMBOLS[key[0]])
+            say(f"phase 1 ptxas {key[0]} ({key[1]}): {regs[key]}")
     sass = sass_batch()
     sass_h = sass_hydro()
 
@@ -1760,19 +2053,25 @@ def main():
             + f"): {rec[name]['shapes_ms']}; ptxas {form_regs(name, regs)}")
     nan_probe()
     phase3()
+    p3 = phase3_forms()
     smr, _ = phase4_smr()
     counts, _ = phase4()
     counts["smr"] = smr
 
     # each kernel's launches in the phase-4 run of the first path that
-    # runs it: this slice's main path (the SMR run, 3 cycles), then the
-    # bench run (3), the testsedov mid run (5) and the others (1)
+    # runs it: the SMR run (3 cycles), then the bench run (3), the
+    # testsedov mid runs (5), the PPM bench run (3) and the others (1).
+    # B3' and the forms of B5 that take no full-width run (NO_PATH) carry
+    # their phase-2 launches and "path": null, and the latter their
+    # phase-3 launches
     steps = {"smr": 3, "batch": 3, "mid": 1, "MID=0": 1, "nohcorr": 1,
-             "sedov": 5, "sedov MID=0": 1, "sedov hcorr": 1}
+             "sedov": 5, "sedov MID=0": 1, "sedov hcorr": 1, "ppm": 3,
+             "ppm MID=0": 1, "sedov hlle": 5, "sedov hlle MID=0": 1,
+             "sedov hlle hcorr": 1}
     kernels = []
     for name, route, source, replaces in KERNELS:
         path = next((p for p in steps if counts[p][name] > 0), None)
-        if path is None and name not in FUSED:
+        if path is None and name not in NO_PATH:
             raise AssertionError(f"{name}: launched in no phase-4 run")
         r = rec[name]
         n = p2[name] if path is None else counts[path][name]
@@ -1789,6 +2088,8 @@ def main():
                       "shapes_ms"):
             if extra in r:
                 k[extra] = r[extra]
+        if path is None and name not in FUSED:
+            k["phase3_launches"] = sum(c[name] for c in p3.values())
         if name == "rad_batch":
             k.update(sass)
         k.update(sass_h.get(name, {}))

@@ -10,7 +10,11 @@ shape at row lengths 45, 100, 256 and 300; the ghost-fill kernel bitwise
 on every flag set it covers; the NaN probe (one cell's E, then d, set to
 NaN: every kernel's NaN cells and NaN reductions equal its plain
 version's); the testsedov golden on both hydro paths; the SMR blast
-goldens and isph2lev against the plain run on the CPU.  Needs a CUDA
+goldens and isph2lev against the plain run on the CPU; the reconstruction
+orders 1, 3 (PPM), 2p and 3p and the HLLE solver in B5 (both forms, at
+lines of 45, 100 and 300 cells too), B13, B12 and B8, and short runs of
+isph64 with PPM and testsedov with every such form on the card against
+the plain run on the CPU (chip_smoke.phase3_forms).  Needs a CUDA
 device, nvcc and triton; skipped elsewhere.  This file imports no JAX,
 so on a machine without JAX run it as
 
@@ -117,6 +121,30 @@ def test_flux_corrected_refuses_hllc(case):
     chip_smoke.compare("flux_corrected[hllc]", [mid.flux_corrected(*args)],
                        [mid.flux_corrected_plain(*args)], tol, s.grid)
     assert mid.flux_corrected.forms["hllc"] == before + 1
+
+
+def test_order_and_hlle_kernels(case):
+    """B5 (both forms) at orders 1, 3, 2p and 3p with every solver and at
+    order 2 with HLLE, and B13, B12 and B8 with HLLE, against their plain
+    versions; the dF sweeps bitwise their whole-flux sweeps (in
+    chip_smoke.kernel_calls' order) and B12's outputs the roll of B13's
+    flux."""
+    check(case, chip_smoke.NEW_FORMS)
+    s, inp, _ = case
+    for name, _, _, args in chip_smoke.kernel_calls(s, inp):
+        if name in chip_smoke.NEW_FORMS:
+            if chip_smoke.base_name(name) == "sweep_lrflux_df":
+                chip_smoke.sweep_df_bits(*args)
+            elif chip_smoke.base_name(name) == "flux_sweep_df":
+                chip_smoke.df2_bits(*args)
+
+
+def test_order_and_hlle_runs_card_vs_cpu():
+    """isph64 with PPM, testsedov with HLLE on each hydro path and with the
+    H-correction, and testsedov with every other form of B5, on the card
+    against the plain run on the CPU (1e-10 of each field's max)."""
+    need_cuda()
+    chip_smoke.phase3_forms()
 
 
 def test_smr_forms_and_fused_kernels(case):
@@ -275,20 +303,27 @@ def stir(s, seed=11):
     s.state = s.state.replace(U=U)
 
 
-def hydro_line_checks(s, axes, tol):
-    """B5 (both forms) and B12, Roe and HLLC, with and without the
-    potential where the deck has one, on `axes` of Simulation s's state,
-    in every launch shape, against their plain versions within tol; and
-    both bitwise design checks: the dF sweep against the whole-flux sweep
-    (chip_smoke.sweep_df_bits) and B12 against the roll of B13's flux
-    (chip_smoke.df2_bits), on the plain sweep's (Ul, Ur) as the corrected
-    states."""
+# the forms of the hydro sweeps, (order, flux): PLM with Roe and HLLC, and
+# the others (HLLE, orders 1, 3, 2p and 3p)
+PLM_FORMS = (("2", "roe"), ("2", "hllc"))
+OTHER_FORMS = tuple((o, f) for o, f in chip_smoke.SWEEP_FORMS.values()
+                    if (o, f) not in PLM_FORMS)
+
+
+def hydro_line_checks(s, axes, tol, forms=PLM_FORMS):
+    """B5 (both forms) and, at order 2, B12 in each (order, flux) of
+    `forms`, with and without the potential where the deck has one, on
+    `axes` of Simulation s's state, in every launch shape, against their
+    plain versions within tol; and both bitwise design checks: the dF sweep
+    against the whole-flux sweep (chip_smoke.sweep_df_bits) and B12 against
+    the roll of B13's flux (chip_smoke.df2_bits), on the plain sweep's (Ul,
+    Ur) as the corrected states."""
     import dataclasses
     from atmospheric_athena_tpu_torch.ops import hydro_kernels as hk
     U = s.state.U
     phic, phif = s.phi
-    for flux in ("roe", "hllc"):
-        sim = dataclasses.replace(s.sim, flux=flux)
+    for order, flux in forms:
+        sim = dataclasses.replace(s.sim, order=order, flux=flux)
         for a in axes:
             dtodx = s.state.dt / s.grid.dx[a]
             pots = [(None, None)] + ([] if phic is None
@@ -299,12 +334,15 @@ def hydro_line_checks(s, axes, tol):
                         (hk.sweep_lrflux, hk.sweep_lrflux_plain),
                         (hk.sweep_lrflux_df, hk.sweep_lrflux_df_plain)):
                     ref = chip_smoke.outputs(plain(*args))
-                    for shape in hk.SWEEP_SHAPES:
+                    for shape in hk.sweep_shapes(sim):
                         chip_smoke.compare(
-                            f"{kern.__name__}[{flux}] axis {a} {shape}",
+                            f"{kern.__name__}[{hk.form(sim)}] axis {a} "
+                            f"{shape}",
                             chip_smoke.outputs(kern(*args, shape=shape)),
                             ref, tol, s.grid)
                 chip_smoke.sweep_df_bits(*args)
+                if order != "2":
+                    continue
                 Ul, Ur, _ = hk.sweep_lrflux_plain(*args)
                 Ulc, Urc = Ul.contiguous(), Ur.contiguous()
                 ref = chip_smoke.outputs(hk.flux_sweep_df_plain(Ulc, Urc,
@@ -348,6 +386,16 @@ def test_hydro_sweeps_line_lengths(line_case):
     sims, tol = line_case
     for a, s in enumerate(sims):
         hydro_line_checks(s, (a,), tol)
+
+
+def test_hydro_sweep_forms_line_lengths(line_case):
+    """B5 at orders 1, 3, 2p and 3p with every solver and at order 2 with
+    HLLE (and B12 with HLLE) along lines of 45, 100 and 300 interior
+    cells: PPM's wider stencil and window at the ends of segments and
+    tiles."""
+    sims, tol = line_case
+    for a, s in enumerate(sims):
+        hydro_line_checks(s, (a,), tol, OTHER_FORMS)
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])

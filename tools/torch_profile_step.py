@@ -6,6 +6,8 @@ for the PyTorch port (atmospheric_athena_tpu_torch).
     ATHENA_TPU_PALLAS_MID=0 python3 tools/torch_profile_step.py \
         ionradiation/batch_iters=1                      # the other hydro path
     python3 tools/torch_profile_step.py testsedov       # HLLC, no H-correction
+    python3 tools/torch_profile_step.py testsedov configure/flux=hlle  # HLLE
+    python3 tools/torch_profile_step.py configure/order=3   # bench with PPM
     python3 tools/torch_profile_step.py isph2lev        # SMR, 256^3 + 256^3
 
 Builds the isph deck at the bench configuration (256^3, float32,
@@ -13,7 +15,8 @@ ionradiation/maxiter=50, ionradiation/batch_iters=25), or with `testsedov`
 first the testsedov deck at 256^3 float32 with cubic cells and HLLC, or with
 `isph2lev` first the SMR deck with a 256^3 root and a 256^3 child over its
 centre in the bench configuration, on the first CUDA device, with any
-block/name=value overrides from the command line applied after those, runs
+block/name=value overrides from the command line applied after those (a
+`configure/flux=` override replaces testsedov's HLLC), runs
 one warm-up step, then profiles one step with torch.profiler (CPU and CUDA
 activities).  Prints the card (nvidia-smi name and power limit), the CTU
 hydro path (the middle-phase path unless ATHENA_TPU_PALLAS_MID turns it
@@ -69,6 +72,8 @@ def main():
     args = sys.argv[1:]
     name = args.pop(0) if args[:1] and args[0] in PROBLEMS else "ioniz_sphere"
     deck, problem, base, kw = PROBLEMS[name]
+    if any(a.startswith("configure/flux=") for a in args):
+        kw = {k: v for k, v in kw.items() if k != "flux"}
     cmd = base + args
     s = Simulation.from_file(os.path.join(REPO, "tests", "golden", deck),
                              problem=problem, cmdline=cmd, dtype=DTYPE,
