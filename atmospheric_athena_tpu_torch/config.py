@@ -88,6 +88,10 @@ class SimConfig:
     def gamma_1(self) -> float:
         return self.gamma - 1.0
 
+    @property
+    def iso_csound2(self) -> float:
+        return self.iso_csound * self.iso_csound
+
     def torch_dtype(self):
         import torch
         return getattr(torch, self.dtype)

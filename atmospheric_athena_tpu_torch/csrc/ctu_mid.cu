@@ -8,12 +8,14 @@
 //                    minus q_b dF_b of the other axes (the left state reads
 //                    dF_b one cell back along a), minus the G_b terms, and
 //                    the H-correction eta = |lam_r - lam_l|/2 of the
-//                    corrected states.  Two forms (template WHOLE): dF_b
-//                    read as an operand (the dFp form of the dF sweep), or
-//                    formed in registers from four reads of the whole
-//                    first-pass flux, F_b(+1_b) - F_b and F_b(+1_b, -1_a) -
-//                    F_b(-1_a) (the Fp form of an SMR level's step), which
-//                    is the dFp form's subtraction bit for bit.
+//                    corrected states (isothermal gas: no energy terms,
+//                    the sound speed iso_csound).  Two forms (template
+//                    WHOLE): dF_b read as an operand (the dFp form of the
+//                    dF sweep), or formed in registers from four reads of
+//                    the whole first-pass flux, F_b(+1_b) - F_b and
+//                    F_b(+1_b, -1_a) - F_b(-1_a) (the Fp form of an SMR
+//                    level's step), which is the dFp form's subtraction bit
+//                    for bit.
 //   flux_corrected — _fluxh_kernel (B8): step 9 along axis a, etah = the max
 //                    of eta_a and, per other axis b, eta_b, eta_b(-1_a),
 //                    eta_b(+1_b), eta_b(+1_b, -1_a); then cons->prim and the
@@ -29,6 +31,10 @@
 //                    dtodx_a (F_a(+1_a) - F_a), written on interior cells;
 //                    ghost cells keep U; in its dF2 form (with_df) the flux
 //                    differences are operands (B12's dF2).
+//
+// B7, B8 and B10 are templated on the gas (ISO, hydro.cuh): isothermal gas
+// has no energy field, so it skips the energy terms of G and Sg.  B6 and B9
+// do not depend on it (the JAX package builds B6 as for adiabatic gas).
 //
 // Layout: U-like arrays [NV, NZ, NY, NX] contiguous in physical variable
 // order, fields [NZ, NY, NX].  One thread per cell or interface, the thread
@@ -126,27 +132,33 @@ __global__ void gcross_kernel(const T* __restrict__ d,
   }
 }
 
-// sound speed of a physical-order conserved state (ctu_mid_kernels._cfast_cons)
-template <typename T>
-__device__ __forceinline__ T cfast_cons(const T* u, T gamma, T g1) {
-  const T di = T(1) / u[0];
-  const T p =
-      g1 * (u[4] - T(0.5) * (u[1] * u[1] + u[2] * u[2] + u[3] * u[3]) * di);
-  return sqrt(gamma * p * di);
+// sound speed of a physical-order conserved state
+// (ctu_mid_kernels._cfast_cons): for isothermal gas iso_csound, which is
+// sqrt(iso_csound^2) in double
+template <typename T, bool ISO>
+__device__ __forceinline__ T cfast_cons(const T* u, const Eos<T>& e) {
+  if constexpr (ISO) {
+    return e.cs();
+  } else {
+    const T di = T(1) / u[0];
+    const T p = e.g1() *
+        (u[4] - T(0.5) * (u[1] * u[1] + u[2] * u[2] + u[3] * u[3]) * di);
+    return sqrt(e.gamma() * p * di);
+  }
 }
 
 // B7 along axis a.  dF.p[b], G.p[b]: the other axes' flux differences
 // [NV, ...] (WHOLE = 1: their whole first-pass fluxes) and cross terms
 // [2, ...] (G.p[b] == nullptr: no gravity).  WHOLE is a template argument,
 // as B10's DF is: a run-time test of the form costs the kernel registers.
-template <typename T, int NS, int WHOLE>
+template <typename T, int NS, bool ISO, int WHOLE>
 __global__ void transverse_kernel(const T* __restrict__ Ulp,
                                   const T* __restrict__ Urp, Ptr3<T> dF,
                                   Ptr3<T> G, const T* __restrict__ q,
                                   T* __restrict__ Ulc, T* __restrict__ Urc,
                                   T* __restrict__ eta, Geom g, int a,
-                                  T gamma, T g1) {
-  constexpr int NV = 5 + NS;
+                                  Eos<T> e) {
+  constexpr int NV = nwave(ISO) + NS;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= g.ncell) return;
   const long long n = g.ncell;
@@ -189,10 +201,10 @@ __global__ void transverse_kernel(const T* __restrict__ Ulp,
     T r = Urp[o + idx] - (q0 * dr0 + q1 * dr1);
     T l = Ulp[o + idx] - (q0 * dl0 + q1 * dl1);
     if (grav) {
-      // per b: the M_b component, then E
+      // per b: the M_b component, then E (adiabatic gas)
       if (v == 1 + b0) { r = r - G0[idx]; l = l - G0[m]; }
       if (v == 1 + b1) { r = r - G1[idx]; l = l - G1[m]; }
-      if (v == 4) {
+      if (!ISO && v == 4) {
         r = r - G0[n + idx]; l = l - G0[n + m];
         r = r - G1[n + idx]; l = l - G1[n + m];
       }
@@ -203,8 +215,8 @@ __global__ void transverse_kernel(const T* __restrict__ Ulp,
     Ulc[o + idx] = l;
   }
   if (eta != nullptr) {
-    const T cfl = cfast_cons<T>(ul, gamma, g1);
-    const T cfr = cfast_cons<T>(ur, gamma, g1);
+    const T cfl = cfast_cons<T, ISO>(ul, e);
+    const T cfr = cfast_cons<T, ISO>(ur, e);
     const T Mr = (a == 0) ? ur[1] : ((a == 1) ? ur[2] : ur[3]);
     const T Ml = (a == 0) ? ul[1] : ((a == 1) ? ul[2] : ul[3]);
     const T lam_r = Mr / ur[0] + cfr;
@@ -215,12 +227,12 @@ __global__ void transverse_kernel(const T* __restrict__ Ulp,
 
 // B8 along axis a; eta.p[0] == nullptr: no H-correction (etah = 0);
 // FLUX = kRoe, kHllc or kHlle (hydro.cuh riemann_flux)
-template <typename T, int NS, int FLUX>
+template <typename T, int NS, bool ISO, int FLUX>
 __global__ void flux_corrected_kernel(const T* __restrict__ Ul,
                                       const T* __restrict__ Ur, Ptr3<T> eta,
                                       T* __restrict__ F, Geom g, int a,
-                                      T gamma, T g1) {
-  constexpr int NV = 5 + NS;
+                                      Eos<T> e) {
+  constexpr int NV = nwave(ISO) + NS;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= g.ncell) return;
   const long long n = g.ncell;
@@ -247,9 +259,9 @@ __global__ void flux_corrected_kernel(const T* __restrict__ Ul,
     ul[v] = Ul[pm.p[v] * n + idx];
     ur[v] = Ur[pm.p[v] * n + idx];
   }
-  cons_to_prim<T, NS>(ul, wl, g1);
-  cons_to_prim<T, NS>(ur, wr, g1);
-  riemann_flux<T, NS, FLUX>(ul, ur, wl, wr, etah, gamma, g1, f);
+  cons_to_prim<T, NS, ISO>(ul, wl, e);
+  cons_to_prim<T, NS, ISO>(ur, wr, e);
+  riemann_flux<T, NS, ISO, FLUX>(ul, ur, wl, wr, etah, e, f);
 #pragma unroll
   for (int v = 0; v < NV; ++v) F[pm.p[v] * n + idx] = f[v];
 }
@@ -292,12 +304,12 @@ __global__ void grav_source_kernel(const T* __restrict__ d,
 // differences dF are operands, F is not read), DF = 0: F is read.  DF is a
 // template argument because a run-time test of dF slowed the F form, the
 // bench configuration's, by about 29% (H100, 256^3 float32).
-template <typename T, int NS, int DF>
+template <typename T, int NS, bool ISO, int DF>
 __global__ void final_update_kernel(const T* __restrict__ U,
                                     const T* __restrict__ Sg, Ptr3<T> F,
                                     Ptr3<T> dF, const T* __restrict__ dtodx,
                                     T* __restrict__ Uout, Geom g, Box box) {
-  constexpr int NV = 5 + NS;
+  constexpr int NV = nwave(ISO) + NS;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= g.ncell) return;
   const long long n = g.ncell;
@@ -322,9 +334,10 @@ __global__ void final_update_kernel(const T* __restrict__ U,
     const long long o = v * n;
     T u = U[o + idx];
     if (Sg != nullptr) {
-      // per a: M_a, then E (E takes Sg[3], Sg[4], Sg[5] in turn)
+      // per a: M_a, then E (E takes Sg[3], Sg[4], Sg[5] in turn; adiabatic
+      // gas)
       if (v >= 1 && v <= 3) u = u - Sg[(v - 1) * n + idx];
-      if (v == 4) {
+      if (!ISO && v == 4) {
         u = u - Sg[3 * n + idx];
         u = u - Sg[4 * n + idx];
         u = u - Sg[5 * n + idx];
@@ -370,39 +383,41 @@ int launch_gcross(const void* d, const void* phic, const void* phif0,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NS>
+template <typename T, int NS, bool ISO>
 int launch_transverse(const void* Ulp, const void* Urp, const void* dF0,
                       const void* dF1, const void* dF2, const void* G0,
                       const void* G1, const void* G2, const void* q,
                       void* Ulc, void* Urc, void* eta, int nz, int ny, int nx,
-                      int axis, int whole, double gamma, double gamma_1,
+                      int axis, int whole, double c0, double c1,
                       void* stream) {
   const Geom g = make_geom(nz, ny, nx);
   const Ptr3<T> dF = ptr3<T>(dF0, dF1, dF2), G = ptr3<T>(G0, G1, G2);
+  const Eos<T> e{(T)c0, (T)c1};
   const unsigned blocks = mid_blocks(g.ncell);
   if (whole)
-    transverse_kernel<T, NS, 1><<<blocks, kMidThreads, 0,
-                                  (cudaStream_t)stream>>>(
+    transverse_kernel<T, NS, ISO, 1><<<blocks, kMidThreads, 0,
+                                       (cudaStream_t)stream>>>(
         (const T*)Ulp, (const T*)Urp, dF, G, (const T*)q, (T*)Ulc, (T*)Urc,
-        (T*)eta, g, axis, (T)gamma, (T)gamma_1);
+        (T*)eta, g, axis, e);
   else
-    transverse_kernel<T, NS, 0><<<blocks, kMidThreads, 0,
-                                  (cudaStream_t)stream>>>(
+    transverse_kernel<T, NS, ISO, 0><<<blocks, kMidThreads, 0,
+                                       (cudaStream_t)stream>>>(
         (const T*)Ulp, (const T*)Urp, dF, G, (const T*)q, (T*)Ulc, (T*)Urc,
-        (T*)eta, g, axis, (T)gamma, (T)gamma_1);
+        (T*)eta, g, axis, e);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NS, int FLUX>
+template <typename T, int NS, bool ISO, int FLUX>
 int launch_flux_corrected(const void* Ul, const void* Ur, const void* eta0,
                           const void* eta1, const void* eta2, void* F,
-                          int nz, int ny, int nx, int axis, double gamma,
-                          double gamma_1, void* stream) {
+                          int nz, int ny, int nx, int axis, double c0,
+                          double c1, void* stream) {
   const Geom g = make_geom(nz, ny, nx);
-  flux_corrected_kernel<T, NS, FLUX><<<mid_blocks(g.ncell), kMidThreads, 0,
-                                       (cudaStream_t)stream>>>(
+  flux_corrected_kernel<T, NS, ISO, FLUX><<<mid_blocks(g.ncell),
+                                            kMidThreads, 0,
+                                            (cudaStream_t)stream>>>(
       (const T*)Ul, (const T*)Ur, ptr3<T>(eta0, eta1, eta2), (T*)F, g, axis,
-      (T)gamma, (T)gamma_1);
+      Eos<T>{(T)c0, (T)c1});
   return (int)cudaGetLastError();
 }
 
@@ -425,7 +440,7 @@ int launch_grav_source(const void* d, const void* phic, const void* phif0,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NS>
+template <typename T, int NS, bool ISO>
 int launch_final_update(const void* U, const void* Sg, const void* F0,
                         const void* F1, const void* F2, const void* dF0,
                         const void* dF1, const void* dF2, const void* dtodx,
@@ -436,12 +451,12 @@ int launch_final_update(const void* U, const void* Sg, const void* F0,
   const Ptr3<T> F = ptr3<T>(F0, F1, F2), dF = ptr3<T>(dF0, dF1, dF2);
   const unsigned blocks = mid_blocks(g.ncell);
   if (dF0 != nullptr)
-    final_update_kernel<T, NS, 1><<<blocks, kMidThreads, 0,
-                                    (cudaStream_t)stream>>>(
+    final_update_kernel<T, NS, ISO, 1><<<blocks, kMidThreads, 0,
+                                         (cudaStream_t)stream>>>(
         (const T*)U, (const T*)Sg, F, dF, (const T*)dtodx, (T*)Uout, g, box);
   else
-    final_update_kernel<T, NS, 0><<<blocks, kMidThreads, 0,
-                                    (cudaStream_t)stream>>>(
+    final_update_kernel<T, NS, ISO, 0><<<blocks, kMidThreads, 0,
+                                         (cudaStream_t)stream>>>(
         (const T*)U, (const T*)Sg, F, dF, (const T*)dtodx, (T*)Uout, g, box);
   return (int)cudaGetLastError();
 }
@@ -450,8 +465,9 @@ int launch_final_update(const void* U, const void* Sg, const void* F0,
 
 // ---------------------------------------------------------------- C API
 // Return value: cudaGetLastError() after the launch (0 = launched).
-// nscalars must be 0 or 1; the wrappers (ops/ctu_mid_kernels.py) check
-// shapes, types and devices.
+// nscalars must be 0 or 1, iso 0 (adiabatic gas) or 1 (isothermal gas), c0
+// and c1 the gas's EOS constants (hydro.cuh Eos); the wrappers
+// (ops/ctu_mid_kernels.py) check shapes, types and devices.
 
 extern "C" {
 
@@ -474,38 +490,39 @@ int ath_gcross_f64(ATH_GCROSS_ARGS) {
   const void *Ulp, const void *Urp, const void *dF0, const void *dF1,      \
       const void *dF2, const void *G0, const void *G1, const void *G2,     \
       const void *q, void *Ulc, void *Urc, void *eta, int nz, int ny,      \
-      int nx, int axis, int nscalars, int whole, double gamma,             \
-      double gamma_1, void *stream
+      int nx, int axis, int nscalars, int iso, int whole, double c0,       \
+      double c1, void *stream
 #define ATH_TRANS_CALL                                                     \
   Ulp, Urp, dF0, dF1, dF2, G0, G1, G2, q, Ulc, Urc, eta, nz, ny, nx, axis, \
-      whole, gamma, gamma_1, stream
+      whole, c0, c1, stream
+#define ATH_TRANS_BY_GAS(T)                                                \
+  (iso ? ATH_DISPATCH_NS(                                                  \
+             nscalars,                                                     \
+             (ath::launch_transverse<T, 0, true>(ATH_TRANS_CALL)),         \
+             (ath::launch_transverse<T, 1, true>(ATH_TRANS_CALL)))         \
+       : ATH_DISPATCH_NS(                                                  \
+             nscalars,                                                     \
+             (ath::launch_transverse<T, 0, false>(ATH_TRANS_CALL)),        \
+             (ath::launch_transverse<T, 1, false>(ATH_TRANS_CALL))))
 
-int ath_transverse_f32(ATH_TRANS_ARGS) {
-  return ATH_DISPATCH_NS(nscalars,
-                         (ath::launch_transverse<float, 0>(ATH_TRANS_CALL)),
-                         (ath::launch_transverse<float, 1>(ATH_TRANS_CALL)));
-}
-int ath_transverse_f64(ATH_TRANS_ARGS) {
-  return ATH_DISPATCH_NS(nscalars,
-                         (ath::launch_transverse<double, 0>(ATH_TRANS_CALL)),
-                         (ath::launch_transverse<double, 1>(ATH_TRANS_CALL)));
-}
+int ath_transverse_f32(ATH_TRANS_ARGS) { return ATH_TRANS_BY_GAS(float); }
+int ath_transverse_f64(ATH_TRANS_ARGS) { return ATH_TRANS_BY_GAS(double); }
 
 // flux: 0 Roe, 1 HLLC, 2 HLLE (hydro.cuh FluxKind)
 #define ATH_FLUXC_ARGS                                                     \
   const void *Ul, const void *Ur, const void *eta0, const void *eta1,      \
       const void *eta2, void *F, int nz, int ny, int nx, int axis,         \
-      int nscalars, int flux, double gamma, double gamma_1, void *stream
+      int nscalars, int iso, int flux, double c0, double c1, void *stream
 #define ATH_FLUXC_CALL \
-  Ul, Ur, eta0, eta1, eta2, F, nz, ny, nx, axis, gamma, gamma_1, stream
+  Ul, Ur, eta0, eta1, eta2, F, nz, ny, nx, axis, c0, c1, stream
 
 int ath_flux_corrected_f32(ATH_FLUXC_ARGS) {
-  return ATH_DISPATCH_NS_FLUX(float, ath::launch_flux_corrected, nscalars,
-                              flux, ATH_FLUXC_CALL);
+  return ATH_DISPATCH_ISO_NS_FLUX(float, iso, ath::launch_flux_corrected,
+                                  nscalars, flux, ATH_FLUXC_CALL);
 }
 int ath_flux_corrected_f64(ATH_FLUXC_ARGS) {
-  return ATH_DISPATCH_NS_FLUX(double, ath::launch_flux_corrected, nscalars,
-                              flux, ATH_FLUXC_CALL);
+  return ATH_DISPATCH_ISO_NS_FLUX(double, iso, ath::launch_flux_corrected,
+                                  nscalars, flux, ATH_FLUXC_CALL);
 }
 
 #define ATH_SG_ARGS                                                        \
@@ -532,21 +549,22 @@ int ath_grav_source_f64(ATH_SG_ARGS) {
   const void *U, const void *Sg, const void *F0, const void *F1,           \
       const void *F2, const void *dF0, const void *dF1, const void *dF2,   \
       const void *dtodx, void *Uout, int nz, int ny, int nx, int nscalars, \
-      int lo0, int lo1, int lo2, int hi0, int hi1, int hi2, void *stream
+      int iso, int lo0, int lo1, int lo2, int hi0, int hi1, int hi2,       \
+      void *stream
 #define ATH_FINAL_CALL \
   U, Sg, F0, F1, F2, dF0, dF1, dF2, dtodx, Uout, nz, ny, nx, lo, hi, stream
+#define ATH_FINAL_BY_GAS(T)                                                \
+  const int lo[3] = {lo0, lo1, lo2}, hi[3] = {hi0, hi1, hi2};              \
+  return iso ? ATH_DISPATCH_NS(                                            \
+                   nscalars,                                               \
+                   (ath::launch_final_update<T, 0, true>(ATH_FINAL_CALL)), \
+                   (ath::launch_final_update<T, 1, true>(ATH_FINAL_CALL))) \
+             : ATH_DISPATCH_NS(                                            \
+                   nscalars,                                               \
+                   (ath::launch_final_update<T, 0, false>(ATH_FINAL_CALL)), \
+                   (ath::launch_final_update<T, 1, false>(ATH_FINAL_CALL)));
 
-int ath_final_update_f32(ATH_FINAL_ARGS) {
-  const int lo[3] = {lo0, lo1, lo2}, hi[3] = {hi0, hi1, hi2};
-  return ATH_DISPATCH_NS(
-      nscalars, (ath::launch_final_update<float, 0>(ATH_FINAL_CALL)),
-      (ath::launch_final_update<float, 1>(ATH_FINAL_CALL)));
-}
-int ath_final_update_f64(ATH_FINAL_ARGS) {
-  const int lo[3] = {lo0, lo1, lo2}, hi[3] = {hi0, hi1, hi2};
-  return ATH_DISPATCH_NS(
-      nscalars, (ath::launch_final_update<double, 0>(ATH_FINAL_CALL)),
-      (ath::launch_final_update<double, 1>(ATH_FINAL_CALL)));
-}
+int ath_final_update_f32(ATH_FINAL_ARGS) { ATH_FINAL_BY_GAS(float) }
+int ath_final_update_f64(ATH_FINAL_ARGS) { ATH_FINAL_BY_GAS(double) }
 
 }  // extern "C"

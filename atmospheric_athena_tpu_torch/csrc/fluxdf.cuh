@@ -1,0 +1,249 @@
+// B12 and B13 (replacing atmospheric_athena_tpu/ops/pallas_hydro.py
+// _fluxdf_kernel and _flux_kernel) as templates over the gas and the
+// solver; hydro.cu instantiates them for adiabatic gas, flux_iso.cu for
+// isothermal gas (ATH_FLUX_GAS), each with the C++ entries its C entry
+// points call:
+//
+//   fluxdf_march_kernel, fluxdf_tile_kernel — _fluxdf_kernel (B12): step 9
+//       without the H-correction from the corrected states, emitting dF2 =
+//       F2(f+1) - F2(f), the density flux F2_ID and its shift F2_ID(f+1).
+//   flux_pointwise_kernel — _flux_kernel (B13): step 9, cons->prim of the
+//       transverse-corrected states and the Riemann flux with the
+//       H-correction etah; one thread per interface.
+//
+// Layout: U-like arrays are [NV, NZ, NY, NX] contiguous in physical
+// variable order (d, M1, M2, M3, [E], s...); fields [NZ, NY, NX].
+//
+// What bounds B12 on the H100 is instruction issue as for B5 (sweep.cuh):
+// an interface's two conversions and Riemann solve take 500-700 SASS
+// instructions in float32 (adiabatic gas) for 20 words of memory traffic
+// per cell.  The TPU kernel solved each interface twice (F2(f) and
+// F2(f+1)); here a thread marches a segment of a y or z line (a tile of an
+// x row in shared memory), solving each interface once and keeping F2(f) in
+// registers (shared memory) until F2(f+1) is formed, so dF2 is bitwise the
+// roll-and-subtract of B13's flux.  B13 keeps one thread per interface: a
+// pointwise pass, bound by its 13 loads and 6 stores per cell (adiabatic
+// gas, one scalar; isothermal gas 11 and 5).
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "sweep.cuh"
+
+namespace ath {
+
+// Step 9 at one interface without the H-correction from its corrected
+// conserved states ul, ur: cons->prim and the Riemann flux
+// (flux_pointwise_kernel's solve with etah = 0, so B12's F2 is B13's bit
+// for bit).
+template <typename T, int NS, bool ISO, int FLUX>
+__device__ __forceinline__ void corrected_flux(const T* ul, const T* ur,
+                                               const Eos<T>& e, T* F) {
+  constexpr int NV = nwave(ISO) + NS;
+  T wl[NV], wr[NV];
+  cons_to_prim<T, NS, ISO>(ul, wl, e);
+  cons_to_prim<T, NS, ISO>(ur, wr, e);
+  riemann_flux<T, NS, ISO, FLUX>(ul, ur, wl, wr, T(0), e, F);
+}
+
+template <typename T, int NS, bool ISO, int FLUX>
+__global__ void flux_pointwise_kernel(const T* __restrict__ Ul,
+                                      const T* __restrict__ Ur,
+                                      const T* __restrict__ etah,
+                                      T* __restrict__ F, long long ncell,
+                                      int axis, Eos<T> e) {
+  constexpr int NV = nwave(ISO) + NS;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= ncell) return;
+  const Perm pm = make_perm(axis, NV);
+  T ul[NV], ur[NV], wl[NV], wr[NV], f[NV];
+  load_cons_prim<T, NS, ISO>(Ul, ncell, idx, pm, e, ul, wl);
+  load_cons_prim<T, NS, ISO>(Ur, ncell, idx, pm, e, ur, wr);
+  const T eta = (etah != nullptr) ? etah[idx] : T(0);
+  riemann_flux<T, NS, ISO, FLUX>(ul, ur, wl, wr, eta, e, f);
+#pragma unroll
+  for (int v = 0; v < NV; ++v) F[pm.p[v] * ncell + idx] = f[v];
+}
+
+// B12 along y or z: a thread solves the ni + 1 interfaces f0 .. f0+ni of
+// its segment once each and keeps F2(f) until F2(f+1) is formed.
+template <typename T, int NS, bool ISO, int FLUX, int S>
+__global__ void __launch_bounds__(32 * kMarchRows)
+    fluxdf_march_kernel(const T* __restrict__ Ulc, const T* __restrict__ Urc,
+                        T* __restrict__ dF2, T* __restrict__ Fid,
+                        T* __restrict__ Fidr, int NZ, int NY, int NX,
+                        int axis, Eos<T> e) {
+  constexpr int NV = nwave(ISO) + NS;
+  const MarchLine L(NZ, NY, NX, axis, S);
+  if (!L.ok) return;
+  const long long ncell = (long long)NZ * NY * NX;
+  const Perm pm = make_perm(axis, NV);
+  // the conserved states of interface f are loaded an iteration before
+  // their solve
+  LinePos at(L.base, L.stride, L.n, L.f0);
+  T ul[NV], ur[NV], Fprev[NV];
+  load_cons<T, NS, ISO>(Ulc, ncell, at.off, pm, ul);
+  load_cons<T, NS, ISO>(Urc, ncell, at.off, pm, ur);
+  long long off_prev = 0;
+  for (int j = 0; j <= L.ni; ++j) {
+    const long long off = at.off;                   // interface f = f0 + j
+    at.step();
+    T cl[NV], cr[NV], Fs[NV];
+    copy<NV>(cl, ul);
+    copy<NV>(cr, ur);
+    load_cons<T, NS, ISO>(Ulc, ncell, at.off, pm, ul);
+    load_cons<T, NS, ISO>(Urc, ncell, at.off, pm, ur);
+    corrected_flux<T, NS, ISO, FLUX>(cl, cr, e, Fs);
+    if (j > 0) {
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+        dF2[pm.p[v] * ncell + off_prev] = Fs[v] - Fprev[v];
+      Fid[off_prev] = Fprev[0];
+      Fidr[off_prev] = Fs[0];
+    }
+    copy<NV>(Fprev, Fs);
+    off_prev = off;
+  }
+}
+
+// B12 along x: one thread per interface x0 .. x0+ni of the tile solves it
+// into shared memory (one plane of NV x blockDim.x per row), then each
+// interface of the tile differences its neighbour's slot.
+template <typename T, int NS, bool ISO, int FLUX, int TM, int R>
+__global__ void __launch_bounds__(TM * R)
+    fluxdf_tile_kernel(const T* __restrict__ Ulc, const T* __restrict__ Urc,
+                       T* __restrict__ dF2, T* __restrict__ Fid,
+                       T* __restrict__ Fidr, int NZ, int NY, int NX, int tw,
+                       Eos<T> e) {
+  constexpr int NV = nwave(ISO) + NS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nc = blockDim.x;
+  T* sF = reinterpret_cast<T*>(smem_raw) + threadIdx.y * NV * nc;
+  const TileRow t(NY, NX, tw, R);
+  if (t.ni <= 0) return;
+  const int i = threadIdx.x;
+  const long long ncell = (long long)NZ * NY * NX;
+  const Perm pm = make_perm(0, NV);
+  if (t.ok && i <= t.ni) {
+    const long long off = t.row + t.cell(i, NX);
+    T ul[NV], ur[NV], Fs[NV];
+    load_cons<T, NS, ISO>(Ulc, ncell, off, pm, ul);
+    load_cons<T, NS, ISO>(Urc, ncell, off, pm, ur);
+    corrected_flux<T, NS, ISO, FLUX>(ul, ur, e, Fs);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) sF[v * nc + i] = Fs[v];
+  }
+  __syncthreads();
+  if (t.ok && i < t.ni) {
+    const long long off = t.row + t.x0 + i;
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+      dF2[pm.p[v] * ncell + off] = sF[v * nc + i + 1] - sF[v * nc + i];
+    Fid[off] = sF[i];
+    Fidr[off] = sF[i + 1];
+  }
+}
+
+// ---------------------------------------------------------------- launch
+
+constexpr int kThreads = 128;
+
+template <typename T, int NS, bool ISO, int FLUX>
+int launch_flux(const void* Ul, const void* Ur, const void* etah, void* F,
+                int nz, int ny, int nx, int axis, double c0, double c1,
+                void* stream) {
+  const long long ncell = (long long)nz * ny * nx;
+  flux_pointwise_kernel<T, NS, ISO, FLUX>
+      <<<(unsigned)((ncell + kThreads - 1) / kThreads), kThreads, 0,
+         (cudaStream_t)stream>>>((const T*)Ul, (const T*)Ur,
+                                 (const T*)etah, (T*)F, ncell, axis,
+                                 Eos<T>{(T)c0, (T)c1});
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int NS, bool ISO, int FLUX, int S, int TM, int R>
+int launch_flux_df_shape(const void* Ul, const void* Ur, void* dF2,
+                         void* Fid, void* Fidr, int nz, int ny, int nx,
+                         int axis, double c0, double c1, cudaStream_t st) {
+  const Eos<T> e{(T)c0, (T)c1};
+  if (axis == 0) {
+    const Tiles t = tiles_of(nx, TM, 1);
+    const size_t smem = (size_t)R * (nwave(ISO) + NS) * t.bx * sizeof(T);
+    auto k = fluxdf_tile_kernel<T, NS, ISO, FLUX, TM, R>;
+    const cudaError_t err = allow_smem(k, smem);
+    if (err != cudaSuccess) return (int)err;
+    k<<<dim3(t.n, (ny + R - 1) / R, nz), dim3(t.bx, R), smem, st>>>(
+        (const T*)Ul, (const T*)Ur, (T*)dF2, (T*)Fid, (T*)Fidr, nz, ny, nx,
+        t.w, e);
+  } else {
+    const int n = axis == 1 ? ny : nz, nq = axis == 1 ? nz : ny;
+    fluxdf_march_kernel<T, NS, ISO, FLUX, S>
+        <<<dim3((nx + 31) / 32, (nq + kMarchRows - 1) / kMarchRows,
+                (n + S - 1) / S),
+           dim3(32, kMarchRows), 0, st>>>(
+            (const T*)Ul, (const T*)Ur, (T*)dF2, (T*)Fid, (T*)Fidr, nz, ny,
+            nx, axis, e);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int NS, bool ISO, int FLUX>
+int launch_flux_df(const void* Ul, const void* Ur, void* dF2, void* Fid,
+                   void* Fidr, int nz, int ny, int nx, int axis, int s,
+                   int tm, int r, double c0, double c1, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+#define ATH_FLUX_DF_SHAPE(S, TM, R)                                        \
+  if (s == S && tm == TM && r == R)                                        \
+    return launch_flux_df_shape<T, NS, ISO, FLUX, S, TM, R>(               \
+        Ul, Ur, dF2, Fid, Fidr, nz, ny, nx, axis, c0, c1, st);
+  ATH_HYDRO_SHAPES(ATH_FLUX_DF_SHAPE)
+#undef ATH_FLUX_DF_SHAPE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The entries of one gas for the element type T:
+// flux_pointwise_<name>_f32/_f64 (B13) and flux_df_<name>_f32/_f64 (B12),
+// defined in the translation unit that instantiates them (ATH_FLUX_GAS).
+#define ATH_FLUX_GAS_DECL(NAME)                                             \
+  int flux_pointwise_##NAME##_f32(ATH_FLUX_PARAMS);                         \
+  int flux_pointwise_##NAME##_f64(ATH_FLUX_PARAMS);                         \
+  int flux_df_##NAME##_f32(ATH_FLUX_DF_PARAMS);                             \
+  int flux_df_##NAME##_f64(ATH_FLUX_DF_PARAMS);
+
+#define ATH_FLUX_PARAMS                                                     \
+  const void *Ul, const void *Ur, const void *etah, void *F, int nz,        \
+      int ny, int nx, int axis, int nscalars, int flux, double c0,          \
+      double c1, void *stream
+#define ATH_FLUX_DF_PARAMS                                                  \
+  const void *Ul, const void *Ur, void *dF2, void *Fid, void *Fidr,         \
+      int nz, int ny, int nx, int axis, int nscalars, int flux, int s,      \
+      int t, int r, double c0, double c1, void *stream
+
+ATH_FLUX_GAS_DECL(adb)
+ATH_FLUX_GAS_DECL(iso)
+
+}  // namespace ath
+
+#define ATH_FLUX_CALL Ul, Ur, etah, F, nz, ny, nx, axis, c0, c1, stream
+#define ATH_FLUX_DF_CALL \
+  Ul, Ur, dF2, Fid, Fidr, nz, ny, nx, axis, s, t, r, c0, c1, stream
+
+#define ATH_FLUX_GAS(NAME, ISO)                                             \
+  namespace ath {                                                           \
+  int flux_pointwise_##NAME##_f32(ATH_FLUX_PARAMS) {                        \
+    return ATH_DISPATCH_NS_FLUX(float, ISO, launch_flux, nscalars, flux,    \
+                                ATH_FLUX_CALL);                             \
+  }                                                                         \
+  int flux_pointwise_##NAME##_f64(ATH_FLUX_PARAMS) {                        \
+    return ATH_DISPATCH_NS_FLUX(double, ISO, launch_flux, nscalars, flux,   \
+                                ATH_FLUX_CALL);                             \
+  }                                                                         \
+  int flux_df_##NAME##_f32(ATH_FLUX_DF_PARAMS) {                            \
+    return ATH_DISPATCH_NS_FLUX(float, ISO, launch_flux_df, nscalars, flux, \
+                                ATH_FLUX_DF_CALL);                          \
+  }                                                                         \
+  int flux_df_##NAME##_f64(ATH_FLUX_DF_PARAMS) {                            \
+    return ATH_DISPATCH_NS_FLUX(double, ISO, launch_flux_df, nscalars,      \
+                                flux, ATH_FLUX_DF_CALL);                    \
+  }                                                                         \
+  }

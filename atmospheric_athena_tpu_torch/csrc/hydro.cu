@@ -1,219 +1,33 @@
 // Hand-written Hopper kernels of the CTU hydro step (replacing
-// atmospheric_athena_tpu/ops/pallas_hydro.py):
+// atmospheric_athena_tpu/ops/pallas_hydro.py), for adiabatic gas, and the C
+// entry points of every gas:
 //
 //   sweep_march_kernel, sweep_tile_kernel — _sweep_kernel (B5), in
 //       sweep.cuh: this file builds them for order 2 (PLM) in every launch
 //       shape, hydro_dc.cu, hydro_plmp.cu, hydro_ppm.cu and hydro_ppmp.cu
-//       for the other orders, and the C entry point below dispatches on the
-//       order.
-//   fluxdf_march_kernel, fluxdf_tile_kernel — _fluxdf_kernel (B12): step 9
-//       without the H-correction from the corrected states, emitting dF2 =
-//       F2(f+1) - F2(f), the density flux F2_ID and its shift F2_ID(f+1).
-//   flux_pointwise_kernel — _flux_kernel (B13): step 9, cons->prim of the
-//       transverse-corrected states and the Riemann flux with the
-//       H-correction etah; one thread per interface.
+//       the other orders, hydro_iso*.cu each order for isothermal gas; the
+//       C entry point below dispatches on the gas and the order.
+//   fluxdf_march_kernel, fluxdf_tile_kernel, flux_pointwise_kernel —
+//       _fluxdf_kernel (B12) and _flux_kernel (B13), in fluxdf.cuh: built
+//       here for adiabatic gas, in flux_iso.cu for isothermal gas.
 //
-// Every kernel is templated on the solver (hydro.cuh riemann_flux): Roe with
-// its HLLE fallback, HLLE or HLLC.  Layout: U-like arrays are [NV, NZ, NY,
-// NX] contiguous in physical variable order (d, M1, M2, M3, E, s...);
-// fields [NZ, NY, NX].
-//
-// What bounds B12 on the H100 is instruction issue as for B5 (sweep.cuh):
-// an interface's two conversions and Riemann solve take 500-700 SASS
-// instructions in float32 for 20 words of memory traffic per cell.  The TPU
-// kernel solved each interface twice (F2(f) and F2(f+1)); here a thread
-// marches a segment of a y or z line (a tile of an x row in shared memory),
-// solving each interface once and keeping F2(f) in registers (shared
-// memory) until F2(f+1) is formed, so dF2 is bitwise the roll-and-subtract
-// of B13's flux.  B13 keeps one thread per interface: a pointwise pass,
-// bound by its 13 loads and 6 stores per cell.
+// Every kernel is templated on the gas and the solver (hydro.cuh
+// riemann_flux): Roe with its HLLE fallback, HLLE or HLLC.
 
 #include <cuda_runtime.h>
 
-#include "sweep.cuh"
+#include "fluxdf.cuh"
 
-namespace ath {
-
-// Step 9 at one interface without the H-correction from its corrected
-// conserved states ul, ur: cons->prim and the Riemann flux
-// (flux_pointwise_kernel's solve with etah = 0, so B12's F2 is B13's bit
-// for bit).
-template <typename T, int NS, int FLUX>
-__device__ __forceinline__ void corrected_flux(const T* ul, const T* ur,
-                                               T gamma, T g1, T* F) {
-  constexpr int NV = 5 + NS;
-  T wl[NV], wr[NV];
-  cons_to_prim<T, NS>(ul, wl, g1);
-  cons_to_prim<T, NS>(ur, wr, g1);
-  riemann_flux<T, NS, FLUX>(ul, ur, wl, wr, T(0), gamma, g1, F);
-}
-
-template <typename T, int NS, int FLUX>
-__global__ void flux_pointwise_kernel(const T* __restrict__ Ul,
-                                      const T* __restrict__ Ur,
-                                      const T* __restrict__ etah,
-                                      T* __restrict__ F, long long ncell,
-                                      int axis, T gamma, T g1) {
-  constexpr int NV = 5 + NS;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= ncell) return;
-  const Perm pm = make_perm(axis, NV);
-  T ul[NV], ur[NV], wl[NV], wr[NV], f[NV];
-  load_cons_prim<T, NS>(Ul, ncell, idx, pm, g1, ul, wl);
-  load_cons_prim<T, NS>(Ur, ncell, idx, pm, g1, ur, wr);
-  const T eta = (etah != nullptr) ? etah[idx] : T(0);
-  riemann_flux<T, NS, FLUX>(ul, ur, wl, wr, eta, gamma, g1, f);
-#pragma unroll
-  for (int v = 0; v < NV; ++v) F[pm.p[v] * ncell + idx] = f[v];
-}
-
-// B12 along y or z: a thread solves the ni + 1 interfaces f0 .. f0+ni of
-// its segment once each and keeps F2(f) until F2(f+1) is formed.
-template <typename T, int NS, int FLUX, int S>
-__global__ void __launch_bounds__(32 * kMarchRows)
-    fluxdf_march_kernel(const T* __restrict__ Ulc, const T* __restrict__ Urc,
-                        T* __restrict__ dF2, T* __restrict__ Fid,
-                        T* __restrict__ Fidr, int NZ, int NY, int NX,
-                        int axis, T gamma, T g1) {
-  constexpr int NV = 5 + NS;
-  const MarchLine L(NZ, NY, NX, axis, S);
-  if (!L.ok) return;
-  const long long ncell = (long long)NZ * NY * NX;
-  const Perm pm = make_perm(axis, NV);
-  // the conserved states of interface f are loaded an iteration before
-  // their solve
-  LinePos at(L.base, L.stride, L.n, L.f0);
-  T ul[NV], ur[NV], Fprev[NV];
-  load_cons<T, NS>(Ulc, ncell, at.off, pm, ul);
-  load_cons<T, NS>(Urc, ncell, at.off, pm, ur);
-  long long off_prev = 0;
-  for (int j = 0; j <= L.ni; ++j) {
-    const long long off = at.off;                   // interface f = f0 + j
-    at.step();
-    T cl[NV], cr[NV], Fs[NV];
-    copy<NV>(cl, ul);
-    copy<NV>(cr, ur);
-    load_cons<T, NS>(Ulc, ncell, at.off, pm, ul);
-    load_cons<T, NS>(Urc, ncell, at.off, pm, ur);
-    corrected_flux<T, NS, FLUX>(cl, cr, gamma, g1, Fs);
-    if (j > 0) {
-#pragma unroll
-      for (int v = 0; v < NV; ++v)
-        dF2[pm.p[v] * ncell + off_prev] = Fs[v] - Fprev[v];
-      Fid[off_prev] = Fprev[0];
-      Fidr[off_prev] = Fs[0];
-    }
-    copy<NV>(Fprev, Fs);
-    off_prev = off;
-  }
-}
-
-// B12 along x: one thread per interface x0 .. x0+ni of the tile solves it
-// into shared memory (one plane of NV x blockDim.x per row), then each
-// interface of the tile differences its neighbour's slot.
-template <typename T, int NS, int FLUX, int TM, int R>
-__global__ void __launch_bounds__(TM * R)
-    fluxdf_tile_kernel(const T* __restrict__ Ulc, const T* __restrict__ Urc,
-                       T* __restrict__ dF2, T* __restrict__ Fid,
-                       T* __restrict__ Fidr, int NZ, int NY, int NX, int tw,
-                       T gamma, T g1) {
-  constexpr int NV = 5 + NS;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int nc = blockDim.x;
-  T* sF = reinterpret_cast<T*>(smem_raw) + threadIdx.y * NV * nc;
-  const TileRow t(NY, NX, tw, R);
-  if (t.ni <= 0) return;
-  const int i = threadIdx.x;
-  const long long ncell = (long long)NZ * NY * NX;
-  const Perm pm = make_perm(0, NV);
-  if (t.ok && i <= t.ni) {
-    const long long off = t.row + t.cell(i, NX);
-    T ul[NV], ur[NV], Fs[NV];
-    load_cons<T, NS>(Ulc, ncell, off, pm, ul);
-    load_cons<T, NS>(Urc, ncell, off, pm, ur);
-    corrected_flux<T, NS, FLUX>(ul, ur, gamma, g1, Fs);
-#pragma unroll
-    for (int v = 0; v < NV; ++v) sF[v * nc + i] = Fs[v];
-  }
-  __syncthreads();
-  if (t.ok && i < t.ni) {
-    const long long off = t.row + t.x0 + i;
-#pragma unroll
-    for (int v = 0; v < NV; ++v)
-      dF2[pm.p[v] * ncell + off] = sF[v * nc + i + 1] - sF[v * nc + i];
-    Fid[off] = sF[i];
-    Fidr[off] = sF[i + 1];
-  }
-}
-
-// ---------------------------------------------------------------- launch
-
-constexpr int kThreads = 128;
-
-template <typename T, int NS, int FLUX>
-int launch_flux(const void* Ul, const void* Ur, const void* etah, void* F,
-                int nz, int ny, int nx, int axis, double gamma,
-                double gamma_1, void* stream) {
-  const long long ncell = (long long)nz * ny * nx;
-  flux_pointwise_kernel<T, NS, FLUX>
-      <<<(unsigned)((ncell + kThreads - 1) / kThreads), kThreads, 0,
-         (cudaStream_t)stream>>>((const T*)Ul, (const T*)Ur,
-                                 (const T*)etah, (T*)F, ncell, axis,
-                                 (T)gamma, (T)gamma_1);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int NS, int FLUX, int S, int TM, int R>
-int launch_flux_df_shape(const void* Ul, const void* Ur, void* dF2,
-                         void* Fid, void* Fidr, int nz, int ny, int nx,
-                         int axis, double gamma, double gamma_1,
-                         cudaStream_t st) {
-  if (axis == 0) {
-    const Tiles t = tiles_of(nx, TM, 1);
-    const size_t smem = (size_t)R * (5 + NS) * t.bx * sizeof(T);
-    auto k = fluxdf_tile_kernel<T, NS, FLUX, TM, R>;
-    const cudaError_t e = allow_smem(k, smem);
-    if (e != cudaSuccess) return (int)e;
-    k<<<dim3(t.n, (ny + R - 1) / R, nz), dim3(t.bx, R), smem, st>>>(
-        (const T*)Ul, (const T*)Ur, (T*)dF2, (T*)Fid, (T*)Fidr, nz, ny, nx,
-        t.w, (T)gamma, (T)gamma_1);
-  } else {
-    const int n = axis == 1 ? ny : nz, nq = axis == 1 ? nz : ny;
-    fluxdf_march_kernel<T, NS, FLUX, S>
-        <<<dim3((nx + 31) / 32, (nq + kMarchRows - 1) / kMarchRows,
-                (n + S - 1) / S),
-           dim3(32, kMarchRows), 0, st>>>(
-            (const T*)Ul, (const T*)Ur, (T*)dF2, (T*)Fid, (T*)Fidr, nz, ny,
-            nx, axis, (T)gamma, (T)gamma_1);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int NS, int FLUX>
-int launch_flux_df(const void* Ul, const void* Ur, void* dF2, void* Fid,
-                   void* Fidr, int nz, int ny, int nx, int axis, int s,
-                   int tm, int r, double gamma, double gamma_1,
-                   void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-#define ATH_FLUX_DF_SHAPE(S, TM, R)                                        \
-  if (s == S && tm == TM && r == R)                                        \
-    return launch_flux_df_shape<T, NS, FLUX, S, TM, R>(                    \
-        Ul, Ur, dF2, Fid, Fidr, nz, ny, nx, axis, gamma, gamma_1, st);
-  ATH_HYDRO_SHAPES(ATH_FLUX_DF_SHAPE)
-#undef ATH_FLUX_DF_SHAPE
-  return (int)cudaErrorInvalidValue;
-}
-
-}  // namespace ath
-
-ATH_SWEEP_ORDER(sweep_plm, kPlm)
+ATH_SWEEP_ORDER(sweep_plm, kPlm, false)
+ATH_FLUX_GAS(adb, false)
 
 // ---------------------------------------------------------------- C API
 // Return value: cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a launch shape (s, t, r) that is not built.
-// nscalars must be 0 or 1, flux a hydro.cuh FluxKind (0 Roe, 1 HLLC, 2
-// HLLE) and order an Order (1, 2, 3, 4 = 2p, 5 = 3p); the wrapper checks
-// shapes and types.
+// nscalars must be 0 or 1, iso 0 (adiabatic gas) or 1 (isothermal gas),
+// flux a hydro.cuh FluxKind (0 Roe, 1 HLLC, 2 HLLE) and order an Order (1,
+// 2, 3, 4 = 2p, 5 = 3p); c0, c1 the gas's EOS constants (hydro.cuh Eos);
+// the wrapper checks shapes and types.
 
 extern "C" {
 
@@ -222,24 +36,29 @@ extern "C" {
 #define ATH_SWEEP_ARGS                                                     \
   const void *U, const void *phic, const void *phif, const void *dtodx,    \
       void *Ul, void *Ur, void *F, void *dF, int nz, int ny, int nx,       \
-      int axis, int nscalars, int flux, int order, int df, int s, int t,   \
-      int r, double gamma, double gamma_1, void *stream
+      int axis, int nscalars, int iso, int flux, int order, int df, int s, \
+      int t, int r, double c0, double c1, void *stream
+#define ATH_SWEEP_CALL(NAME, SUFFIX) \
+  ath::NAME##_##SUFFIX(a, nscalars, flux, df, s, t, r, stream)
 #define ATH_SWEEP_BY_ORDER(SUFFIX)                                         \
   const ath::SweepArgs a{U, phic, phif, dtodx, Ul, Ur, F, dF,              \
-                         nz, ny, nx, axis, gamma, gamma_1};                \
+                         nz, ny, nx, axis, c0, c1};                        \
   switch (order) {                                                         \
     case ath::kDc:                                                         \
-      return ath::sweep_dc_##SUFFIX(a, nscalars, flux, df, s, t, r, stream); \
+      return iso ? ATH_SWEEP_CALL(sweep_iso_dc, SUFFIX)                    \
+                 : ATH_SWEEP_CALL(sweep_dc, SUFFIX);                        \
     case ath::kPlm:                                                        \
-      return ath::sweep_plm_##SUFFIX(a, nscalars, flux, df, s, t, r, stream); \
+      return iso ? ATH_SWEEP_CALL(sweep_iso_plm, SUFFIX)                   \
+                 : ATH_SWEEP_CALL(sweep_plm, SUFFIX);                       \
     case ath::kPpm:                                                        \
-      return ath::sweep_ppm_##SUFFIX(a, nscalars, flux, df, s, t, r, stream); \
+      return iso ? ATH_SWEEP_CALL(sweep_iso_ppm, SUFFIX)                   \
+                 : ATH_SWEEP_CALL(sweep_ppm, SUFFIX);                       \
     case ath::kPlmPrim:                                                    \
-      return ath::sweep_plmp_##SUFFIX(a, nscalars, flux, df, s, t, r,      \
-                                      stream);                             \
+      return iso ? ATH_SWEEP_CALL(sweep_iso_plmp, SUFFIX)                  \
+                 : ATH_SWEEP_CALL(sweep_plmp, SUFFIX);                      \
     case ath::kPpmPrim:                                                    \
-      return ath::sweep_ppmp_##SUFFIX(a, nscalars, flux, df, s, t, r,      \
-                                      stream);                             \
+      return iso ? ATH_SWEEP_CALL(sweep_iso_ppmp, SUFFIX)                  \
+                 : ATH_SWEEP_CALL(sweep_ppmp, SUFFIX);                      \
   }                                                                        \
   return (int)cudaErrorInvalidValue;
 
@@ -247,38 +66,40 @@ int ath_sweep_f32(ATH_SWEEP_ARGS) { ATH_SWEEP_BY_ORDER(f32) }
 
 int ath_sweep_f64(ATH_SWEEP_ARGS) { ATH_SWEEP_BY_ORDER(f64) }
 
+// B13
 #define ATH_FLUX_ARGS                                                      \
   const void *Ul, const void *Ur, const void *etah, void *F, int nz,       \
-      int ny, int nx, int axis, int nscalars, int flux, double gamma,      \
-      double gamma_1, void *stream
-#define ATH_FLUX_CALL \
-  Ul, Ur, etah, F, nz, ny, nx, axis, gamma, gamma_1, stream
+      int ny, int nx, int axis, int nscalars, int iso, int flux,           \
+      double c0, double c1, void *stream
+#define ATH_FLUX_FWD Ul, Ur, etah, F, nz, ny, nx, axis, nscalars, flux, c0, \
+      c1, stream
 
 int ath_flux_pointwise_f32(ATH_FLUX_ARGS) {
-  return ATH_DISPATCH_NS_FLUX(float, ath::launch_flux, nscalars, flux,
-                              ATH_FLUX_CALL);
+  return iso ? ath::flux_pointwise_iso_f32(ATH_FLUX_FWD)
+             : ath::flux_pointwise_adb_f32(ATH_FLUX_FWD);
 }
 
 int ath_flux_pointwise_f64(ATH_FLUX_ARGS) {
-  return ATH_DISPATCH_NS_FLUX(double, ath::launch_flux, nscalars, flux,
-                              ATH_FLUX_CALL);
+  return iso ? ath::flux_pointwise_iso_f64(ATH_FLUX_FWD)
+             : ath::flux_pointwise_adb_f64(ATH_FLUX_FWD);
 }
 
+// B12
 #define ATH_FLUX_DF_ARGS                                                   \
   const void *Ul, const void *Ur, void *dF2, void *Fid, void *Fidr,        \
-      int nz, int ny, int nx, int axis, int nscalars, int flux, int s,     \
-      int t, int r, double gamma, double gamma_1, void *stream
-#define ATH_FLUX_DF_CALL                                                   \
-  Ul, Ur, dF2, Fid, Fidr, nz, ny, nx, axis, s, t, r, gamma, gamma_1, stream
+      int nz, int ny, int nx, int axis, int nscalars, int iso, int flux,   \
+      int s, int t, int r, double c0, double c1, void *stream
+#define ATH_FLUX_DF_FWD Ul, Ur, dF2, Fid, Fidr, nz, ny, nx, axis, nscalars, \
+      flux, s, t, r, c0, c1, stream
 
 int ath_flux_sweep_df_f32(ATH_FLUX_DF_ARGS) {
-  return ATH_DISPATCH_NS_FLUX(float, ath::launch_flux_df, nscalars, flux,
-                              ATH_FLUX_DF_CALL);
+  return iso ? ath::flux_df_iso_f32(ATH_FLUX_DF_FWD)
+             : ath::flux_df_adb_f32(ATH_FLUX_DF_FWD);
 }
 
 int ath_flux_sweep_df_f64(ATH_FLUX_DF_ARGS) {
-  return ATH_DISPATCH_NS_FLUX(double, ath::launch_flux_df, nscalars, flux,
-                              ATH_FLUX_DF_CALL);
+  return iso ? ath::flux_df_iso_f64(ATH_FLUX_DF_FWD)
+             : ath::flux_df_adb_f64(ATH_FLUX_DF_FWD);
 }
 
 const char* ath_error_string(int err) {

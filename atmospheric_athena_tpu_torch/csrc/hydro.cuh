@@ -1,27 +1,30 @@
-// Device-side adiabatic hydrodynamics shared by the sweep kernels (sweep.cuh),
-// the pointwise and step-9 flux kernels (hydro.cu, ctu_mid.cu): the sweep
+// Device-side hydrodynamics shared by the sweep kernels (sweep.cuh), the
+// pointwise and step-9 flux kernels (fluxdf.cuh, ctu_mid.cu): the sweep
 // variable permutation, the EOS conversions, the reconstructions with CTU
 // tracing (donor cell, PLM and PPM, with characteristic or primitive
 // limiting), the Roe solver with its HLLE fallback and the H-correction, and
-// the HLLE and HLLC solvers.
+// the HLLE and HLLC solvers, for adiabatic and isothermal gas.
 //
 // Each function follows the plain PyTorch version of the port line by line
 // (eos.py, ops/eigen.py, ops/reconstruct.py, ops/riemann.py), which in turn
 // follows the reference C code (convert_var.c, esystem_prim.c,
 // esystem_roe.c, lr_states_dc.c, lr_states_plm.c, lr_states_prim2.c,
 // lr_states_ppm.c, roe.c, hlle.c, hllc.c).  The arrays are in the 1D-slice
-// (sweep) variable order (d, Mx, My, Mz, E, s...) or its primitive
-// counterpart (d, Vx, Vy, Vz, P, r...), NV = 5 + NS entries.
+// (sweep) variable order (d, Mx, My, Mz, [E], s...) or its primitive
+// counterpart (d, Vx, Vy, Vz, [P], r...): NV = NWAVE + NS entries, NWAVE = 5
+// for adiabatic gas and 4 (no energy) for isothermal gas.
 //
 // Templated on the floating type T (float, double), the number of passive
-// scalars NS, the solver FLUX and, in the reconstruction, the limiting
-// (CHAR).  Compiled without
+// scalars NS, the gas ISO (false: adiabatic, true: isothermal), the solver
+// FLUX and, in the reconstruction, the limiting (CHAR).  Compiled without
 // --use_fast_math and with -fmad=false (cuda_lib.py): division and sqrt are
 // IEEE-rounded and every operation rounds in the plain version's order, so
 // the results match it to the last bits.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -48,8 +51,24 @@ __host__ __device__ constexpr bool is_char(int order) {
   return order == kPlm || order == kPpm;
 }
 
+// NWAVE of the gas (defs.n_wave): the scalars start at this index
+__host__ __device__ constexpr int nwave(bool iso) { return iso ? 4 : 5; }
+
+// The EOS constants of a kernel, c0 and c1: gamma and gamma - 1 for
+// adiabatic gas, the isothermal sound speed and its square for isothermal
+// gas (hydro_kernels.eos_args; the C entry points take them as two
+// doubles).
+template <typename T> struct Eos {
+  T c0, c1;
+  __device__ __forceinline__ T gamma() const { return c0; }
+  __device__ __forceinline__ T g1() const { return c1; }
+  __device__ __forceinline__ T cs() const { return c0; }
+  __device__ __forceinline__ T cs2() const { return c1; }
+};
+
 // variable order of a sweep along `axis` as indices into the physical order
-// (integrators/sweep.py var_perm): (d, M_axis, M_axis+1, M_axis+2, E, s...)
+// (integrators/sweep.py var_perm): (d, M_axis, M_axis+1, M_axis+2, [E],
+// s...)
 struct Perm {
   int p[8];
 };
@@ -71,33 +90,42 @@ __device__ __forceinline__ void copy(T* dst, const T* src) {
 }
 
 // ---------------------------------------------------------------- EOS
-// cons1d_to_prim1d with the pressure floor P = max(P, TINY_NUMBER)
-template <typename T, int NS>
-__device__ __forceinline__ void cons_to_prim(const T* U, T* W, T g1) {
+// cons1d_to_prim1d, for adiabatic gas with the pressure floor
+// P = max(P, TINY_NUMBER)
+template <typename T, int NS, bool ISO>
+__device__ __forceinline__ void cons_to_prim(const T* U, T* W,
+                                             const Eos<T>& e) {
+  constexpr int NW = nwave(ISO);
   const T d = U[0];
   const T di = T(1) / d;
   W[0] = d;
   W[1] = U[1] * di;
   W[2] = U[2] * di;
   W[3] = U[3] * di;
-  T P = U[4] - T(0.5) * (U[1] * U[1] + U[2] * U[2] + U[3] * U[3]) * di;
-  P = P * g1;
-  W[4] = tmax(P, T(TINY_NUMBER));
+  if constexpr (!ISO) {
+    T P = U[4] - T(0.5) * (U[1] * U[1] + U[2] * U[2] + U[3] * U[3]) * di;
+    P = P * e.g1();
+    W[4] = tmax(P, T(TINY_NUMBER));
+  }
 #pragma unroll
-  for (int s = 0; s < NS; ++s) W[5 + s] = U[5 + s] * di;
+  for (int s = 0; s < NS; ++s) W[NW + s] = U[NW + s] * di;
 }
 
 // prim1d_to_cons1d (no floor)
-template <typename T, int NS>
-__device__ __forceinline__ void prim_to_cons(const T* W, T* U, T g1) {
+template <typename T, int NS, bool ISO>
+__device__ __forceinline__ void prim_to_cons(const T* W, T* U,
+                                             const Eos<T>& e) {
+  constexpr int NW = nwave(ISO);
   const T d = W[0];
   U[0] = d;
   U[1] = d * W[1];
   U[2] = d * W[2];
   U[3] = d * W[3];
-  U[4] = W[4] / g1 + T(0.5) * d * (W[1] * W[1] + W[2] * W[2] + W[3] * W[3]);
+  if constexpr (!ISO)
+    U[4] = W[4] / e.g1() +
+           T(0.5) * d * (W[1] * W[1] + W[2] * W[2] + W[3] * W[3]);
 #pragma unroll
-  for (int s = 0; s < NS; ++s) U[5 + s] = W[5 + s] * d;
+  for (int s = 0; s < NS; ++s) U[NW + s] = W[NW + s] * d;
 }
 
 // ---------------------------------------------------------------- PLM
@@ -157,16 +185,71 @@ template <typename T> struct PrimEig {
   }
 };
 
+// Primitive eigensystem of isothermal hydro (esys_prim_iso_hyd), sparse:
+//   r0 = (1, -cs/d, 0, 0)  r1 = e2  r2 = e3  r3 = (1, cs/d, 0, 0)
+//   l0 = (1/2, -d/(2cs), 0, 0)  l1 = e2  l2 = e3  l3 = (1/2, d/(2cs), 0, 0)
+template <typename T> struct PrimEigIso {
+  T ev[4];
+  T r10, r13, l01, l31;
+  __device__ __forceinline__ PrimEigIso(T d, T v1, T cs) {
+    ev[0] = v1 - cs; ev[1] = v1; ev[2] = v1; ev[3] = v1 + cs;
+    r10 = -cs / d;
+    r13 = cs / d;
+    l01 = T(-0.5) * d / cs;
+    l31 = T(0.5) * d / cs;
+  }
+  __device__ __forceinline__ T lrow(int n, const T* v) const {
+    switch (n) {
+      case 0: return T(0.5) * v[0] + l01 * v[1];
+      case 1: return v[2];
+      case 2: return v[3];
+      default: return T(0.5) * v[0] + l31 * v[1];
+    }
+  }
+  __device__ __forceinline__ void lmul(const T* v, T* out) const {
+#pragma unroll
+    for (int n = 0; n < 4; ++n) out[n] = lrow(n, v);
+  }
+  __device__ __forceinline__ void rmul(const T* c, T* out) const {
+    out[0] = c[0] + c[3];
+    out[1] = r10 * c[0] + r13 * c[3];
+    out[2] = c[1];
+    out[3] = c[2];
+  }
+  __device__ __forceinline__ void add_col(int n, T qa, T* W) const {
+    switch (n) {
+      case 0: W[0] = W[0] + qa; W[1] = W[1] + qa * r10; break;
+      case 1: W[2] = W[2] + qa; break;
+      case 2: W[3] = W[3] + qa; break;
+      default: W[0] = W[0] + qa; W[1] = W[1] + qa * r13;
+    }
+  }
+};
+
+// The primitive eigensystem of a cell (esys_prim): from (d, Vx, gamma P) or
+// (d, Vx, cs)
+template <typename T, bool ISO>
+using PrimEigOf = std::conditional_t<ISO, PrimEigIso<T>, PrimEig<T>>;
+
+template <typename T, bool ISO>
+__device__ __forceinline__ PrimEigOf<T, ISO> prim_eig(const T* W,
+                                                      const Eos<T>& e) {
+  if constexpr (ISO)
+    return PrimEigIso<T>(W[0], W[1], e.cs());
+  else
+    return PrimEig<T>(W[0], W[1], e.gamma() * W[4]);
+}
+
 // Monotonized slopes dWmn of ONE cell from its primitive stencil (Wm, Wc,
 // Wp) = cells (i-1, i, i+1): steps 1-5 of PLM (_char_slopes of
 // ops/reconstruct.py), shared by PLM and PPM, limited in the characteristic
 // variables of E, the cell's eigensystem (CHAR), or in the primitives.
-template <typename T, int NS, bool CHAR>
+template <typename T, int NS, bool ISO, bool CHAR>
 __device__ __forceinline__ void limited_slopes(const T* Wm, const T* Wc,
                                                const T* Wp,
-                                               const PrimEig<T>& E,
+                                               const PrimEigOf<T, ISO>& E,
                                                T* dWmn) {
-  constexpr int NV = 5 + NS;
+  constexpr int NW = nwave(ISO), NV = NW + NS;
   T dWc[NV], dWl[NV], dWr[NV], dWg[NV];
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
@@ -185,10 +268,10 @@ __device__ __forceinline__ void limited_slopes(const T* Wm, const T* Wc,
     E.lmul(dWg, dag);
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
-      dac[5 + s] = dWc[5 + s];
-      dal[5 + s] = dWl[5 + s];
-      dar[5 + s] = dWr[5 + s];
-      dag[5 + s] = dWg[5 + s];
+      dac[NW + s] = dWc[NW + s];
+      dal[NW + s] = dWl[NW + s];
+      dar[NW + s] = dWr[NW + s];
+      dag[NW + s] = dWg[NW + s];
     }
   } else {
     copy<NV>(dac, dWc);
@@ -207,7 +290,7 @@ __device__ __forceinline__ void limited_slopes(const T* Wm, const T* Wc,
   if constexpr (CHAR) {
     E.rmul(da, dWmn);
 #pragma unroll
-    for (int s = 0; s < NS; ++s) dWmn[5 + s] = da[5 + s];
+    for (int s = 0; s < NS; ++s) dWmn[NW + s] = da[NW + s];
   } else {
     copy<NV>(dWmn, da);
   }
@@ -215,11 +298,12 @@ __device__ __forceinline__ void limited_slopes(const T* Wm, const T* Wc,
 
 // The slopes of a cell entering the PPM window: limited_slopes with the
 // cell's own eigensystem (unused, and so not computed, without CHAR).
-template <typename T, int NS, bool CHAR>
+template <typename T, int NS, bool ISO, bool CHAR>
 __device__ __forceinline__ void ppm_slopes(const T* Wm, const T* Wc,
-                                           const T* Wp, T gamma, T* dWmn) {
-  const PrimEig<T> E(Wc[0], Wc[1], gamma * Wc[4]);
-  limited_slopes<T, NS, CHAR>(Wm, Wc, Wp, E, dWmn);
+                                           const T* Wp, const Eos<T>& e,
+                                           T* dWmn) {
+  const PrimEigOf<T, ISO> E = prim_eig<T, ISO>(Wc, e);
+  limited_slopes<T, NS, ISO, CHAR>(Wm, Wc, Wp, E, dWmn);
 }
 
 // PLM (order 2 with CHAR, 2p without) + CTU tracing of ONE cell from its
@@ -227,14 +311,15 @@ __device__ __forceinline__ void ppm_slopes(const T* Wm, const T* Wc,
 // _trace_ctu() (Roe) or _trace_hll() (HLLE, HLLC) of ops/reconstruct.py.
 // Returns the traced states at the cell's left (Wminus) and right (Wplus)
 // interfaces.
-template <typename T, int NS, int FLUX, bool CHAR>
+template <typename T, int NS, bool ISO, int FLUX, bool CHAR>
 __device__ __forceinline__ void plm_cell(const T* Wm, const T* Wc,
-                                         const T* Wp, T dtodx, T gamma,
-                                         T* Wminus, T* Wplus) {
-  constexpr int NV = 5 + NS;
-  const PrimEig<T> E(Wc[0], Wc[1], gamma * Wc[4]);
+                                         const T* Wp, T dtodx,
+                                         const Eos<T>& e, T* Wminus,
+                                         T* Wplus) {
+  constexpr int NW = nwave(ISO), NV = NW + NS;
+  const PrimEigOf<T, ISO> E = prim_eig<T, ISO>(Wc, e);
   T dWmn[NV];
-  limited_slopes<T, NS, CHAR>(Wm, Wc, Wp, E, dWmn);
+  limited_slopes<T, NS, ISO, CHAR>(Wm, Wc, Wp, E, dWmn);
 
   // Step 7: L/R values limited between neighbours
   T Wlv[NV], Wrv[NV], dW[NV];
@@ -264,11 +349,11 @@ __device__ __forceinline__ void plm_cell(const T* Wm, const T* Wc,
       Wminus[k] = Wlv[k];
     }
 #pragma unroll
-    for (int n = 0; n < 5; ++n) {
-      T v[5];
+    for (int n = 0; n < NW; ++n) {
+      T v[NW];
       const T qx = T(0.5) * dtodx * E.ev[n];
 #pragma unroll
-      for (int m = 0; m < 5; ++m) v[m] = qx * dW[m];
+      for (int m = 0; m < NW; ++m) v[m] = qx * dW[m];
       const T qa = E.lrow(n, v);
       E.add_col(n, -((E.ev[n] > T(0)) ? qa : T(0)), Wplus);
       E.add_col(n, -((E.ev[n] < T(0)) ? qa : T(0)), Wminus);
@@ -277,7 +362,7 @@ __device__ __forceinline__ void plm_cell(const T* Wm, const T* Wc,
   }
 
   // Step 8: integrate over the domain of dependence
-  const T ev_max = E.ev[4], ev_min = E.ev[0];
+  const T ev_max = E.ev[NW - 1], ev_min = E.ev[0];
   const T qxp = T(0.5) * tmax(ev_max, T(0)) * dtodx;
   const T qxm = T(-0.5) * tmin(ev_min, T(0)) * dtodx;
 #pragma unroll
@@ -287,17 +372,17 @@ __device__ __forceinline__ void plm_cell(const T* Wm, const T* Wc,
   }
   // Step 9: subtract the waves that do not reach the interface
 #pragma unroll
-  for (int n = 0; n < 5; ++n) {
-    T v[5];
+  for (int n = 0; n < NW; ++n) {
+    T v[NW];
     T qx = T(0.5) * dtodx * (ev_max - E.ev[n]);
 #pragma unroll
-    for (int m = 0; m < 5; ++m) v[m] = qx * dW[m];
+    for (int m = 0; m < NW; ++m) v[m] = qx * dW[m];
     T qa = E.lrow(n, v);
     E.add_col(n, (E.ev[n] >= T(0)) ? qa : T(0), Wplus);
 
     qx = T(0.5) * dtodx * (ev_min - E.ev[n]);
 #pragma unroll
-    for (int m = 0; m < 5; ++m) v[m] = qx * dW[m];
+    for (int m = 0; m < NW; ++m) v[m] = qx * dW[m];
     qa = E.lrow(n, v);
     E.add_col(n, (E.ev[n] <= T(0)) ? qa : T(0), Wminus);
   }
@@ -305,7 +390,7 @@ __device__ __forceinline__ void plm_cell(const T* Wm, const T* Wc,
   const T Vx = Wc[1];
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
-    const int k = 5 + s;
+    const int k = NW + s;
     Wplus[k] = Wplus[k] +
         ((Vx > T(0)) ? T(0.5) * dtodx * (ev_max - Vx) * dW[k] : T(0));
     Wminus[k] = Wminus[k] +
@@ -316,17 +401,19 @@ __device__ __forceinline__ void plm_cell(const T* Wm, const T* Wc,
 // The reconstruction of ONE cell from the three-cell stencil (Wm, Wc, Wp)
 // for the orders whose stencil it is: donor cell (dc(): both states are the
 // cell's own primitives) and PLM (orders 2, 2p).
-template <typename T, int NS, int FLUX, int ORDER>
+template <typename T, int NS, bool ISO, int FLUX, int ORDER>
 __device__ __forceinline__ void recon3_cell(const T* Wm, const T* Wc,
-                                            const T* Wp, T dtodx, T gamma,
-                                            T* Wminus, T* Wplus) {
+                                            const T* Wp, T dtodx,
+                                            const Eos<T>& e, T* Wminus,
+                                            T* Wplus) {
   static_assert(!is_ppm(ORDER), "PPM reads five cells: ppm_cell");
+  constexpr int NV = nwave(ISO) + NS;
   if constexpr (ORDER == kDc) {
-    copy<5 + NS>(Wminus, Wc);
-    copy<5 + NS>(Wplus, Wc);
+    copy<NV>(Wminus, Wc);
+    copy<NV>(Wplus, Wc);
   } else {
-    plm_cell<T, NS, FLUX, ORDER == kPlm>(Wm, Wc, Wp, dtodx, gamma, Wminus,
-                                         Wplus);
+    plm_cell<T, NS, ISO, FLUX, ORDER == kPlm>(Wm, Wc, Wp, dtodx, e, Wminus,
+                                              Wplus);
   }
 }
 
@@ -337,12 +424,13 @@ __device__ __forceinline__ void recon3_cell(const T* Wm, const T* Wc,
 // 1.10) and the neighbour clamps, then the tracing of Roe's branch (the
 // parabola integrals over the extreme wave fans and the subtraction of the
 // waves that do not reach the interface) or of the HLL family's.
-template <typename T, int NS, int FLUX>
+template <typename T, int NS, bool ISO, int FLUX>
 __device__ __forceinline__ void ppm_cell(const T* Wm, const T* Wc,
                                          const T* Wp, const T* sm,
                                          const T* sc, const T* sp, T dtodx,
-                                         T gamma, T* Wminus, T* Wplus) {
-  constexpr int NV = 5 + NS;
+                                         const Eos<T>& e, T* Wminus,
+                                         T* Wplus) {
+  constexpr int NW = nwave(ISO), NV = NW + NS;
   const T F43 = T(4.0 / 3.0);
   T Wlv[NV], Wrv[NV], dW[NV], W6[NV];
 #pragma unroll
@@ -368,7 +456,7 @@ __device__ __forceinline__ void ppm_cell(const T* Wm, const T* Wc,
     dW[k] = r2 - l2;
     W6[k] = T(6) * (Wc[k] - T(0.5) * (l2 + r2));
   }
-  const PrimEig<T> E(Wc[0], Wc[1], gamma * Wc[4]);
+  const PrimEigOf<T, ISO> E = prim_eig<T, ISO>(Wc, e);
 
   if constexpr (FLUX != kRoe) {
     // HLL-family tracing: subtract each wave moving toward the interface;
@@ -379,12 +467,12 @@ __device__ __forceinline__ void ppm_cell(const T* Wm, const T* Wc,
       Wminus[k] = Wlv[k];
     }
 #pragma unroll
-    for (int n = 0; n < 5; ++n) {
+    for (int n = 0; n < NW; ++n) {
       const T qx = T(0.5) * dtodx * E.ev[n];
       const T qc = F43 * qx * qx;
-      T vp[5], vm[5];
+      T vp[NW], vm[NW];
 #pragma unroll
-      for (int m = 0; m < 5; ++m) {
+      for (int m = 0; m < NW; ++m) {
         vp[m] = qx * (dW[m] - W6[m]) + qc * W6[m];
         vm[m] = qx * (dW[m] + W6[m]) + qc * W6[m];
       }
@@ -397,7 +485,7 @@ __device__ __forceinline__ void ppm_cell(const T* Wm, const T* Wc,
   }
 
   // Step 18: the parabola integrals over the max/min wave fans
-  const T ev_max = E.ev[4], ev_min = E.ev[0];
+  const T ev_max = E.ev[NW - 1], ev_min = E.ev[0];
   const T qx1 = T(0.5) * tmax(ev_max, T(0)) * dtodx;
   const T qx2 = T(-0.5) * tmin(ev_min, T(0)) * dtodx;
 #pragma unroll
@@ -407,14 +495,14 @@ __device__ __forceinline__ void ppm_cell(const T* Wm, const T* Wc,
   }
   // Step 19: subtract the waves that do not reach the interface
 #pragma unroll
-  for (int n = 0; n < 5; ++n) {
-    T v[5];
+  for (int n = 0; n < NW; ++n) {
+    T v[NW];
     const T q1 = T(0.5) * dtodx * ev_max;
     const T q2 = T(0.5) * dtodx * E.ev[n];
     T qb = q1 - q2;
     T qc = F43 * (q1 * q1 - q2 * q2);
 #pragma unroll
-    for (int m = 0; m < 5; ++m) v[m] = qb * (dW[m] - W6[m]) + qc * W6[m];
+    for (int m = 0; m < NW; ++m) v[m] = qb * (dW[m] - W6[m]) + qc * W6[m];
     T qa = E.lrow(n, v);
     E.add_col(n, (E.ev[n] >= T(0)) ? qa : T(0), Wplus);
 
@@ -422,7 +510,7 @@ __device__ __forceinline__ void ppm_cell(const T* Wm, const T* Wc,
     qb = q3 - q2;
     qc = F43 * (q3 * q3 - q2 * q2);
 #pragma unroll
-    for (int m = 0; m < 5; ++m) v[m] = qb * (dW[m] + W6[m]) + qc * W6[m];
+    for (int m = 0; m < NW; ++m) v[m] = qb * (dW[m] + W6[m]) + qc * W6[m];
     qa = E.lrow(n, v);
     E.add_col(n, (E.ev[n] <= T(0)) ? qa : T(0), Wminus);
   }
@@ -431,7 +519,7 @@ __device__ __forceinline__ void ppm_cell(const T* Wm, const T* Wc,
   const T Vx = Wc[1];
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
-    const int k = 5 + s;
+    const int k = NW + s;
     T qb = T(0.5) * dtodx * (ev_max - Vx);
     T qc = T(0.5) * dtodx * dtodx * T(2.0 / 3.0) *
            (ev_max * ev_max - Vx * Vx);
@@ -445,56 +533,75 @@ __device__ __forceinline__ void ppm_cell(const T* Wm, const T* Wc,
 }
 
 // ---------------------------------------------------------------- Roe
-// Physical flux F(U) - b U of one side (b = 0: Roe; b = bm/bp: HLLE)
-template <typename T, int NS>
+// Physical flux F(U) - b U of one side (b = 0: Roe; b = bm/bp: HLLE);
+// isothermal gas: pressure d cs^2, no energy flux
+template <typename T, int NS, bool ISO>
 __device__ __forceinline__ void side_flux(const T* U, const T* W, T b,
-                                          T* F) {
+                                          const Eos<T>& e, T* F) {
+  constexpr int NW = nwave(ISO);
   const T vb = W[1] - b;
   F[0] = U[1] - b * U[0];
-  F[1] = U[1] * vb + W[4];
+  if constexpr (ISO)
+    F[1] = U[1] * vb + W[0] * e.cs2();
+  else
+    F[1] = U[1] * vb + W[4];
   F[2] = U[2] * vb;
   F[3] = U[3] * vb;
-  F[4] = U[4] * vb + W[4] * W[1];
+  if constexpr (!ISO) F[4] = U[4] * vb + W[4] * W[1];
 #pragma unroll
-  for (int s = 0; s < NS; ++s) F[5 + s] = F[0] * W[5 + s];
+  for (int s = 0; s < NS; ++s) F[NW + s] = F[0] * W[NW + s];
 }
 
-// The Roe-averaged extreme eigenvalues ev0 = v1 - a, ev4 = v1 + a
-// (_roe_averages and esys_roe_adb_hyd(vectors=False) of ops/riemann.py,
-// ops/eigen.py): the wave-speed bounds of HLLE and HLLC.
-template <typename T>
+// The Roe-averaged extreme eigenvalues ev0 = v1 - a, evn = v1 + a, a the
+// Roe sound speed or cs (_roe_averages and the Roe eigensystem with
+// vectors=False of ops/riemann.py, ops/eigen.py): the wave-speed bounds of
+// HLLE and HLLC.
+template <typename T, bool ISO>
 __device__ __forceinline__ void roe_speeds(const T* Ul, const T* Ur,
-                                           const T* Wl, const T* Wr, T g1,
-                                           T& ev0, T& ev4) {
+                                           const T* Wl, const T* Wr,
+                                           const Eos<T>& e, T& ev0,
+                                           T& evn) {
   const T sqrtdl = sqrt(Wl[0]);
   const T sqrtdr = sqrt(Wr[0]);
   const T isdlpdr = T(1) / (sqrtdl + sqrtdr);
   const T v1 = (sqrtdl * Wl[1] + sqrtdr * Wr[1]) * isdlpdr;
-  const T v2 = (sqrtdl * Wl[2] + sqrtdr * Wr[2]) * isdlpdr;
-  const T v3 = (sqrtdl * Wl[3] + sqrtdr * Wr[3]) * isdlpdr;
-  const T h = ((Ul[4] + Wl[4]) / sqrtdl + (Ur[4] + Wr[4]) / sqrtdr) * isdlpdr;
-  const T vsq = v1 * v1 + v2 * v2 + v3 * v3;
-  const T a = sqrt(g1 * tmax(h - T(0.5) * vsq, T(TINY_NUMBER)));
-  ev0 = v1 - a;
-  ev4 = v1 + a;
+  if constexpr (ISO) {
+    ev0 = v1 - e.cs();
+    evn = v1 + e.cs();
+  } else {
+    const T v2 = (sqrtdl * Wl[2] + sqrtdr * Wr[2]) * isdlpdr;
+    const T v3 = (sqrtdl * Wl[3] + sqrtdr * Wr[3]) * isdlpdr;
+    const T h =
+        ((Ul[4] + Wl[4]) / sqrtdl + (Ur[4] + Wr[4]) / sqrtdr) * isdlpdr;
+    const T vsq = v1 * v1 + v2 * v2 + v3 * v3;
+    const T a = sqrt(e.g1() * tmax(h - T(0.5) * vsq, T(TINY_NUMBER)));
+    ev0 = v1 - a;
+    evn = v1 + a;
+  }
 }
 
-// HLLE flux from the extreme Roe eigenvalues ev0, ev4 (_hlle_core of
+// HLLE flux from the extreme Roe eigenvalues ev0, evn (_hlle_core of
 // ops/riemann.py): the HLLE solver, and the Roe solver's fallback.
-template <typename T, int NS>
+template <typename T, int NS, bool ISO>
 __device__ __forceinline__ void hlle_core(const T* Ul, const T* Ur,
                                           const T* Wl, const T* Wr, T ev0,
-                                          T ev4, T gamma, T* F) {
-  constexpr int NV = 5 + NS;
-  const T cfl = sqrt(gamma * Wl[4] / Wl[0]);
-  const T cfr = sqrt(gamma * Wr[4] / Wr[0]);
-  const T ar = tmax(ev4, Wr[1] + cfr);
+                                          T evn, const Eos<T>& e, T* F) {
+  constexpr int NV = nwave(ISO) + NS;
+  T cfl, cfr;
+  if constexpr (ISO) {
+    cfl = sqrt(e.cs2());
+    cfr = cfl;
+  } else {
+    cfl = sqrt(e.gamma() * Wl[4] / Wl[0]);
+    cfr = sqrt(e.gamma() * Wr[4] / Wr[0]);
+  }
+  const T ar = tmax(evn, Wr[1] + cfr);
   const T al = tmin(ev0, Wl[1] - cfl);
   const T bp = tmax(ar, T(0));
   const T bm = tmin(al, T(0));
   T Fl[NV], Fr[NV];
-  side_flux<T, NS>(Ul, Wl, bm, Fl);
-  side_flux<T, NS>(Ur, Wr, bp, Fr);
+  side_flux<T, NS, ISO>(Ul, Wl, bm, e, Fl);
+  side_flux<T, NS, ISO>(Ur, Wr, bp, e, Fr);
   const T tmp = T(0.5) * (bp + bm) / (bp - bm);
 #pragma unroll
   for (int n = 0; n < NV; ++n)
@@ -503,23 +610,24 @@ __device__ __forceinline__ void hlle_core(const T* Ul, const T* Ur,
 
 // HLLE flux (hlle() of ops/riemann.py); no H-correction, as in the
 // reference.
-template <typename T, int NS>
+template <typename T, int NS, bool ISO>
 __device__ __forceinline__ void hlle_flux(const T* Ul, const T* Ur,
-                                          const T* Wl, const T* Wr, T gamma,
-                                          T g1, T* F) {
-  T ev0, ev4;
-  roe_speeds(Ul, Ur, Wl, Wr, g1, ev0, ev4);
-  hlle_core<T, NS>(Ul, Ur, Wl, Wr, ev0, ev4, gamma, F);
+                                          const T* Wl, const T* Wr,
+                                          const Eos<T>& e, T* F) {
+  T ev0, evn;
+  roe_speeds<T, ISO>(Ul, Ur, Wl, Wr, e, ev0, evn);
+  hlle_core<T, NS, ISO>(Ul, Ur, Wl, Wr, ev0, evn, e, F);
 }
 
-// Roe flux with supersonic short-circuit, intermediate-state positivity
-// test and branchless HLLE fallback, and the H-correction etah (roe(),
-// _hlle_core() of ops/riemann.py).
+// Roe flux of adiabatic gas with supersonic short-circuit,
+// intermediate-state positivity test and branchless HLLE fallback, and the
+// H-correction etah (roe(), _hlle_core() of ops/riemann.py).
 template <typename T, int NS>
 __device__ __forceinline__ void roe_flux(const T* Ul, const T* Ur,
                                          const T* Wl, const T* Wr, T etah,
-                                         T gamma, T g1, T* F) {
+                                         const Eos<T>& e, T* F) {
   constexpr int NV = 5 + NS;
+  const T g1 = e.g1();
   // Roe averages
   const T sqrtdl = sqrt(Wl[0]);
   const T sqrtdr = sqrt(Wr[0]);
@@ -545,8 +653,8 @@ __device__ __forceinline__ void roe_flux(const T* Ul, const T* Ur,
                    -na * g1 * v2, -na * g1 * v3, na * g1};
 
   T Fl[NV], Fr[NV];
-  side_flux<T, NS>(Ul, Wl, T(0), Fl);
-  side_flux<T, NS>(Ur, Wr, T(0), Fr);
+  side_flux<T, NS, false>(Ul, Wl, T(0), e, Fl);
+  side_flux<T, NS, false>(Ur, Wr, T(0), e, Fr);
 
   // wave strengths a = L dU
   T dU[5];
@@ -610,7 +718,74 @@ __device__ __forceinline__ void roe_flux(const T* Ul, const T* Ur,
 
   // HLLE with the Roe eigenvalues
   if (bad && !(sup_l || sup_r))
-    hlle_core<T, NS>(Ul, Ur, Wl, Wr, ev[0], ev[4], gamma, Fo);
+    hlle_core<T, NS, false>(Ul, Ur, Wl, Wr, ev[0], ev[4], e, Fo);
+#pragma unroll
+  for (int n = 0; n < NV; ++n) F[n] = Fo[n];
+}
+
+// Roe flux of isothermal gas (roe() of ops/riemann.py with
+// esys_roe_iso_hyd): four waves, the positivity scan tests the density
+// alone (there is no energy), the same branchless HLLE fallback and
+// H-correction.  Columns of rem: r0 = (1, v1-cs, v2, v3), r1 = e2,
+// r2 = e3, r3 = (1, v1+cs, v2, v3); rows of lem: l0 = ((1 + v1/cs)/2,
+// -1/(2cs), 0, 0), l1 = (-v2, 0, 1, 0), l2 = (-v3, 0, 0, 1),
+// l3 = ((1 - v1/cs)/2, 1/(2cs), 0, 0).
+template <typename T, int NS>
+__device__ __forceinline__ void roe_flux_iso(const T* Ul, const T* Ur,
+                                             const T* Wl, const T* Wr,
+                                             T etah, const Eos<T>& e, T* F) {
+  constexpr int NV = 4 + NS;
+  const T cs = e.cs();
+  const T sqrtdl = sqrt(Wl[0]);
+  const T sqrtdr = sqrt(Wr[0]);
+  const T isdlpdr = T(1) / (sqrtdl + sqrtdr);
+  const T v1 = (sqrtdl * Wl[1] + sqrtdr * Wr[1]) * isdlpdr;
+  const T v2 = (sqrtdl * Wl[2] + sqrtdr * Wr[2]) * isdlpdr;
+  const T v3 = (sqrtdl * Wl[3] + sqrtdr * Wr[3]) * isdlpdr;
+  const T ev[4] = {v1 - cs, v1, v1, v1 + cs};
+  const T l00 = T(0.5) * (T(1) + v1 / cs), l01 = T(-0.5) / cs;
+  const T l30 = T(0.5) * (T(1) - v1 / cs), l31 = T(0.5) / cs;
+
+  T Fl[NV], Fr[NV];
+  side_flux<T, NS, true>(Ul, Wl, T(0), e, Fl);
+  side_flux<T, NS, true>(Ur, Wr, T(0), e, Fr);
+
+  // wave strengths a = L dU
+  T dU[4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n) dU[n] = Ur[n] - Ul[n];
+  T w[4];
+  w[0] = l00 * dU[0] + l01 * dU[1];
+  w[1] = -v2 * dU[0] + dU[2];
+  w[2] = -v3 * dU[0] + dU[3];
+  w[3] = l30 * dU[0] + l31 * dU[1];
+
+  // intermediate-state density over the first three waves: only r0 has a
+  // density entry
+  const T u0 = Ul[0] + w[0];
+  bool bad = false;
+#pragma unroll
+  for (int n = 0; n < 3; ++n) bad = bad || (ev[n + 1] > ev[n] && u0 <= T(0));
+
+  // Roe flux
+  T c[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) c[m] = T(0.5) * tmax(fabs(ev[m]), etah) * w[m];
+  T Fo[NV];
+  Fo[0] = T(0.5) * (Fl[0] + Fr[0]) - c[0] - c[3];
+  Fo[1] = T(0.5) * (Fl[1] + Fr[1]) - c[0] * ev[0] - c[3] * ev[3];
+  Fo[2] = T(0.5) * (Fl[2] + Fr[2]) - c[0] * v2 - c[1] - c[3] * v2;
+  Fo[3] = T(0.5) * (Fl[3] + Fr[3]) - c[0] * v3 - c[2] - c[3] * v3;
+  const bool sup_l = ev[0] >= T(0);
+  const bool sup_r = ev[3] <= T(0);
+#pragma unroll
+  for (int n = 0; n < 4; ++n) Fo[n] = sup_l ? Fl[n] : (sup_r ? Fr[n] : Fo[n]);
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+    Fo[4 + s] = (Fo[0] >= T(0)) ? Fo[0] * Wl[4 + s] : Fo[0] * Wr[4 + s];
+
+  if (bad && !(sup_l || sup_r))
+    hlle_core<T, NS, true>(Ul, Ur, Wl, Wr, ev[0], ev[3], e, Fo);
 #pragma unroll
   for (int n = 0; n < NV; ++n) F[n] = Fo[n];
 }
@@ -620,24 +795,36 @@ __device__ __forceinline__ void roe_flux(const T* Ul, const T* Ur,
 // eigenvalues and the sound speeds, the contact speed am and pressure cp,
 // and the flux weights sl, sr, sm.  No H-correction (the reference's HLLC
 // ignores etah).
-template <typename T, int NS>
+template <typename T, int NS, bool ISO>
 __device__ __forceinline__ void hllc_flux(const T* Ul, const T* Ur,
-                                          const T* Wl, const T* Wr, T gamma,
-                                          T g1, T* F) {
-  constexpr int NV = 5 + NS;
-  T ev0, ev4;
-  roe_speeds(Ul, Ur, Wl, Wr, g1, ev0, ev4);
+                                          const T* Wl, const T* Wr,
+                                          const Eos<T>& e, T* F) {
+  constexpr int NW = nwave(ISO), NV = NW + NS;
+  T ev0, evn;
+  roe_speeds<T, ISO>(Ul, Ur, Wl, Wr, e, ev0, evn);
 
-  const T cfl = sqrt(gamma * Wl[4] / Wl[0]);
-  const T cfr = sqrt(gamma * Wr[4] / Wr[0]);
-  const T ar = tmax(ev4, Wr[1] + cfr);
+  T cfl, cfr;
+  if constexpr (ISO) {
+    cfl = e.cs();
+    cfr = cfl;
+  } else {
+    cfl = sqrt(e.gamma() * Wl[4] / Wl[0]);
+    cfr = sqrt(e.gamma() * Wr[4] / Wr[0]);
+  }
+  const T ar = tmax(evn, Wr[1] + cfr);
   const T al = tmin(ev0, Wl[1] - cfl);
   const T bp = tmax(ar, T(0));
   const T bm = tmin(al, T(0));
 
   // contact speed and pressure
-  const T tl = Wl[4] + (Wl[1] - al) * Ul[1];
-  const T tr = Wr[4] + (Wr[1] - ar) * Ur[1];
+  T tl, tr;
+  if constexpr (ISO) {
+    tl = Wl[0] * e.cs2() + (Wl[1] - al) * Ul[1];
+    tr = Wr[0] * e.cs2() + (Wr[1] - ar) * Ur[1];
+  } else {
+    tl = Wl[4] + (Wl[1] - al) * Ul[1];
+    tr = Wr[4] + (Wr[1] - ar) * Ur[1];
+  }
   const T dl = Ul[1] - Ul[0] * al;
   const T dr = -(Ur[1] - Ur[0] * ar);
   const T tmp = T(1) / (dl + dr);
@@ -645,8 +832,8 @@ __device__ __forceinline__ void hllc_flux(const T* Ul, const T* Ur,
   const T cp = tmax((dl * tr + dr * tl) * tmp, T(0));
 
   T Fl[NV], Fr[NV];
-  side_flux<T, NS>(Ul, Wl, bm, Fl);
-  side_flux<T, NS>(Ur, Wr, bp, Fr);
+  side_flux<T, NS, ISO>(Ul, Wl, bm, e, Fl);
+  side_flux<T, NS, ISO>(Ur, Wr, bp, e, Fr);
 
   // flux weights
   const bool pos = am >= T(0);
@@ -654,27 +841,29 @@ __device__ __forceinline__ void hllc_flux(const T* Ul, const T* Ur,
   const T sr = pos ? T(0) : -am / (bp - am);
   const T sm = pos ? -bm / (am - bm) : bp / (bp - am);
 #pragma unroll
-  for (int n = 0; n < 5; ++n) F[n] = sl * Fl[n] + sr * Fr[n];
+  for (int n = 0; n < NW; ++n) F[n] = sl * Fl[n] + sr * Fr[n];
   F[1] = F[1] + sm * cp;
-  F[4] = F[4] + sm * cp * am;
+  if constexpr (!ISO) F[4] = F[4] + sm * cp * am;
   // passive scalars upwinded on the mass flux
 #pragma unroll
   for (int s = 0; s < NS; ++s)
-    F[5 + s] = (F[0] >= T(0)) ? F[0] * Wl[5 + s] : F[0] * Wr[5 + s];
+    F[NW + s] = (F[0] >= T(0)) ? F[0] * Wl[NW + s] : F[0] * Wr[NW + s];
 }
 
 // The Riemann solver of a sweep or flux kernel, chosen at compile time:
 // FLUX = kRoe (with etah), kHllc or kHlle (etah unused).
-template <typename T, int NS, int FLUX>
+template <typename T, int NS, bool ISO, int FLUX>
 __device__ __forceinline__ void riemann_flux(const T* Ul, const T* Ur,
                                              const T* Wl, const T* Wr,
-                                             T etah, T gamma, T g1, T* F) {
+                                             T etah, const Eos<T>& e, T* F) {
   if constexpr (FLUX == kHllc)
-    hllc_flux<T, NS>(Ul, Ur, Wl, Wr, gamma, g1, F);
+    hllc_flux<T, NS, ISO>(Ul, Ur, Wl, Wr, e, F);
   else if constexpr (FLUX == kHlle)
-    hlle_flux<T, NS>(Ul, Ur, Wl, Wr, gamma, g1, F);
+    hlle_flux<T, NS, ISO>(Ul, Ur, Wl, Wr, e, F);
+  else if constexpr (ISO)
+    roe_flux_iso<T, NS>(Ul, Ur, Wl, Wr, etah, e, F);
   else
-    roe_flux<T, NS>(Ul, Ur, Wl, Wr, etah, gamma, g1, F);
+    roe_flux<T, NS>(Ul, Ur, Wl, Wr, etah, e, F);
 }
 
 }  // namespace ath
@@ -683,16 +872,25 @@ __device__ __forceinline__ void riemann_flux(const T* Ul, const T* Ur,
 #define ATH_DISPATCH_NS(NSCAL, CALL0, CALL1) \
   ((NSCAL) == 0 ? (CALL0) : (NSCAL) == 1 ? (CALL1) : (int)cudaErrorInvalidValue)
 
-// ... and LAUNCH<T, NS, FLUX>(...) for nscalars = 0 or 1 and flux = kRoe,
-// kHllc or kHlle
-#define ATH_DISPATCH_NS_FLUX(T, LAUNCH, NSCAL, FLUX, ...)                 \
+// ... and LAUNCH<T, NS, ISO, FLUX>(...) for nscalars = 0 or 1 and flux =
+// kRoe, kHllc or kHlle (ISO a compile-time constant)
+#define ATH_DISPATCH_NS_FLUX(T, ISO, LAUNCH, NSCAL, FLUX, ...)            \
   ((FLUX) == ath::kRoe                                                    \
-       ? ATH_DISPATCH_NS(NSCAL, (LAUNCH<T, 0, ath::kRoe>(__VA_ARGS__)),    \
-                         (LAUNCH<T, 1, ath::kRoe>(__VA_ARGS__)))           \
+       ? ATH_DISPATCH_NS(NSCAL, (LAUNCH<T, 0, ISO, ath::kRoe>(__VA_ARGS__)), \
+                         (LAUNCH<T, 1, ISO, ath::kRoe>(__VA_ARGS__)))      \
    : (FLUX) == ath::kHllc                                                 \
-       ? ATH_DISPATCH_NS(NSCAL, (LAUNCH<T, 0, ath::kHllc>(__VA_ARGS__)),   \
-                         (LAUNCH<T, 1, ath::kHllc>(__VA_ARGS__)))          \
+       ? ATH_DISPATCH_NS(NSCAL,                                           \
+                         (LAUNCH<T, 0, ISO, ath::kHllc>(__VA_ARGS__)),    \
+                         (LAUNCH<T, 1, ISO, ath::kHllc>(__VA_ARGS__)))    \
    : (FLUX) == ath::kHlle                                                 \
-       ? ATH_DISPATCH_NS(NSCAL, (LAUNCH<T, 0, ath::kHlle>(__VA_ARGS__)),   \
-                         (LAUNCH<T, 1, ath::kHlle>(__VA_ARGS__)))          \
+       ? ATH_DISPATCH_NS(NSCAL,                                           \
+                         (LAUNCH<T, 0, ISO, ath::kHlle>(__VA_ARGS__)),    \
+                         (LAUNCH<T, 1, ISO, ath::kHlle>(__VA_ARGS__)))    \
        : (int)cudaErrorInvalidValue)
+
+// ... and, for both gases in one translation unit, by the int iso
+#define ATH_DISPATCH_ISO_NS_FLUX(T, ISOFLAG, LAUNCH, NSCAL, FLUX, ...)    \
+  ((ISOFLAG) ? ATH_DISPATCH_NS_FLUX(T, true, LAUNCH, NSCAL, FLUX,         \
+                                    __VA_ARGS__)                          \
+             : ATH_DISPATCH_NS_FLUX(T, false, LAUNCH, NSCAL, FLUX,        \
+                                    __VA_ARGS__))

@@ -1,8 +1,9 @@
 // The B5 sweep kernels (replacing atmospheric_athena_tpu/ops/pallas_hydro.py
-// _sweep_kernel) as templates over the reconstruction order, and the line
-// and tile helpers they share with B12 (hydro.cu).  hydro.cu instantiates
-// order 2 (PLM) in every launch shape; hydro_dc.cu, hydro_plmp.cu,
-// hydro_ppm.cu and hydro_ppmp.cu the other orders in the default shape,
+// _sweep_kernel) as templates over the gas and the reconstruction order,
+// and the line and tile helpers they share with B12 (fluxdf.cuh).  For
+// adiabatic gas hydro.cu instantiates order 2 (PLM) in every launch shape;
+// hydro_dc.cu, hydro_plmp.cu, hydro_ppm.cu and hydro_ppmp.cu the other
+// orders in the default shape; hydro_iso*.cu the same for isothermal gas:
 // each in its own translation unit so that nvcc builds them in parallel.
 //
 //   sweep_march_kernel, sweep_tile_kernel — CTU steps 1-3 along one axis:
@@ -75,57 +76,59 @@ namespace ath {
 constexpr int kMarchRows = 4;
 
 // conserved state of one cell, sweep order
-template <typename T, int NS>
+template <typename T, int NS, bool ISO>
 __device__ __forceinline__ void load_cons(const T* __restrict__ U,
                                           long long ncell, long long off,
                                           const Perm& pm, T* Uc) {
 #pragma unroll
-  for (int v = 0; v < 5 + NS; ++v) Uc[v] = U[pm.p[v] * ncell + off];
+  for (int v = 0; v < nwave(ISO) + NS; ++v) Uc[v] = U[pm.p[v] * ncell + off];
 }
 
 // conserved and primitive state of one cell, sweep order
-template <typename T, int NS>
+template <typename T, int NS, bool ISO>
 __device__ __forceinline__ void load_cons_prim(const T* __restrict__ U,
                                                long long ncell, long long off,
-                                               const Perm& pm, T g1, T* Uc,
+                                               const Perm& pm,
+                                               const Eos<T>& e, T* Uc,
                                                T* W) {
-  load_cons<T, NS>(U, ncell, off, pm, Uc);
-  cons_to_prim<T, NS>(Uc, W, g1);
+  load_cons<T, NS, ISO>(U, ncell, off, pm, Uc);
+  cons_to_prim<T, NS, ISO>(Uc, W, e);
 }
 
 // primitive state of one cell, sweep order
-template <typename T, int NS>
+template <typename T, int NS, bool ISO>
 __device__ __forceinline__ void load_prim(const T* __restrict__ U,
                                           long long ncell, long long off,
-                                          const Perm& pm, T g1, T* W) {
-  T Uc[5 + NS];
-  load_cons_prim<T, NS>(U, ncell, off, pm, g1, Uc, W);
+                                          const Perm& pm, const Eos<T>& e,
+                                          T* W) {
+  T Uc[nwave(ISO) + NS];
+  load_cons_prim<T, NS, ISO>(U, ncell, off, pm, e, Uc, W);
 }
 
 // one sweep-order vector into the physical-order array A at cell `off`
-template <typename T, int NS>
+template <typename T, int NS, bool ISO>
 __device__ __forceinline__ void store_cell(T* __restrict__ A, long long ncell,
                                            long long off, const Perm& pm,
                                            const T* v) {
 #pragma unroll
-  for (int k = 0; k < 5 + NS; ++k) A[pm.p[k] * ncell + off] = v[k];
+  for (int k = 0; k < nwave(ISO) + NS; ++k) A[pm.p[k] * ncell + off] = v[k];
 }
 
 // Steps 1c-3 at one interface from its traced states Wl, Wr (modified in
 // place): the dt/2 static-gravity kick (integrate_3d_ctu.c:318-342) with
 // dVl = dtodx (phif(f) - phic(f-1)), dVr = dtodx (phic(f) - phif(f)),
 // prim->cons and the Riemann flux.  kick = false without a potential.
-template <typename T, int NS, int FLUX>
+template <typename T, int NS, bool ISO, int FLUX>
 __device__ __forceinline__ void interface_flux(T* Wl, T* Wr, bool kick,
-                                               T dVl, T dVr, T gamma, T g1,
+                                               T dVl, T dVr, const Eos<T>& e,
                                                T* Ul, T* Ur, T* F) {
   if (kick) {
     Wl[1] = Wl[1] - dVl;
     Wr[1] = Wr[1] - dVr;
   }
-  prim_to_cons<T, NS>(Wl, Ul, g1);
-  prim_to_cons<T, NS>(Wr, Ur, g1);
-  riemann_flux<T, NS, FLUX>(Ul, Ur, Wl, Wr, T(0), gamma, g1, F);
+  prim_to_cons<T, NS, ISO>(Wl, Ul, e);
+  prim_to_cons<T, NS, ISO>(Wr, Ur, e);
+  riemann_flux<T, NS, ISO, FLUX>(Ul, Ur, Wl, Wr, T(0), e, F);
 }
 
 // A cell on a sweep line that wraps at its end: position `pos` of `n`, at
@@ -194,15 +197,15 @@ struct TileRow {
 
 // B5 along y (axis 1) or z (axis 2).  F: the whole flux (DF = false) or
 // the density flux F_ID (DF = true); dF: the flux difference (DF only).
-template <typename T, int NS, int FLUX, int ORDER, bool DF, int S>
+template <typename T, int NS, bool ISO, int FLUX, int ORDER, bool DF, int S>
 __global__ void __launch_bounds__(32 * kMarchRows)
     sweep_march_kernel(const T* __restrict__ U, const T* __restrict__ phic,
                        const T* __restrict__ phif,
                        const T* __restrict__ dtodx_p, T* __restrict__ Ul,
                        T* __restrict__ Ur, T* __restrict__ F,
                        T* __restrict__ dF, int NZ, int NY, int NX, int axis,
-                       T gamma, T g1) {
-  constexpr int NV = 5 + NS;
+                       Eos<T> e) {
+  constexpr int NW = nwave(ISO), NV = NW + NS;
   constexpr bool PPM = is_ppm(ORDER);
   constexpr int NP = PPM ? NV : 1;     // the PPM window's extra arrays
   const MarchLine L(NZ, NY, NX, axis, S);
@@ -222,33 +225,33 @@ __global__ void __launch_bounds__(32 * kMarchRows)
   LinePos at(L.base, L.stride, L.n, L.f0 - 1);      // cell f-1
   T Wa[NV], Wb[NV], Wc[NV], Wl[NV], Wr[NV], Un[NV];
   T Wd[NP], sa[NP], sb[NP], sc[NP];
-  load_prim<T, NS>(U, ncell, ahead.off, pm, g1, Wa);
+  load_prim<T, NS, ISO>(U, ncell, ahead.off, pm, e, Wa);
   ahead.step();
-  load_prim<T, NS>(U, ncell, ahead.off, pm, g1, Wb);
+  load_prim<T, NS, ISO>(U, ncell, ahead.off, pm, e, Wb);
   ahead.step();
-  load_prim<T, NS>(U, ncell, ahead.off, pm, g1, Wc);
+  load_prim<T, NS, ISO>(U, ncell, ahead.off, pm, e, Wc);
   ahead.step();
   if constexpr (PPM) {
     // cells f0-3 .. f0+1: the slopes of f0-2, f0-1, f0 and the Wplus of
     // cell f0-1
     constexpr bool CH = is_char(ORDER);
-    load_prim<T, NS>(U, ncell, ahead.off, pm, g1, Wd);
+    load_prim<T, NS, ISO>(U, ncell, ahead.off, pm, e, Wd);
     ahead.step();
-    ppm_slopes<T, NS, CH>(Wa, Wb, Wc, gamma, sa);
-    ppm_slopes<T, NS, CH>(Wb, Wc, Wd, gamma, sb);
+    ppm_slopes<T, NS, ISO, CH>(Wa, Wb, Wc, e, sa);
+    ppm_slopes<T, NS, ISO, CH>(Wb, Wc, Wd, e, sb);
     copy<NV>(Wa, Wb);
     copy<NV>(Wb, Wc);
     copy<NV>(Wc, Wd);
-    load_prim<T, NS>(U, ncell, ahead.off, pm, g1, Wd);
+    load_prim<T, NS, ISO>(U, ncell, ahead.off, pm, e, Wd);
     ahead.step();
-    ppm_slopes<T, NS, CH>(Wb, Wc, Wd, gamma, sc);
-    ppm_cell<T, NS, FLUX>(Wa, Wb, Wc, sa, sb, sc, dtodx, gamma, Wr, Wl);
+    ppm_slopes<T, NS, ISO, CH>(Wb, Wc, Wd, e, sc);
+    ppm_cell<T, NS, ISO, FLUX>(Wa, Wb, Wc, sa, sb, sc, dtodx, e, Wr, Wl);
     copy<NV>(sa, sb);
     copy<NV>(sb, sc);
   } else {
-    recon3_cell<T, NS, FLUX, ORDER>(Wa, Wb, Wc, dtodx, gamma, Wr, Wl);
+    recon3_cell<T, NS, ISO, FLUX, ORDER>(Wa, Wb, Wc, dtodx, e, Wr, Wl);
   }
-  load_cons<T, NS>(U, ncell, ahead.off, pm, Un);
+  load_cons<T, NS, ISO>(U, ncell, ahead.off, pm, Un);
   ahead.step();
   T phic_l = kick ? phic[at.off] : T(0);
   at.step();
@@ -263,12 +266,12 @@ __global__ void __launch_bounds__(32 * kMarchRows)
     copy<NV>(Wb, Wc);
     if constexpr (PPM) {
       copy<NV>(Wc, Wd);
-      cons_to_prim<T, NS>(Un, Wd, g1);
+      cons_to_prim<T, NS, ISO>(Un, Wd, e);
     } else {
-      cons_to_prim<T, NS>(Un, Wc, g1);
+      cons_to_prim<T, NS, ISO>(Un, Wc, e);
     }
     const T pf = pf_n, pc = pc_n;
-    load_cons<T, NS>(U, ncell, ahead.off, pm, Un);  // for interface f+1
+    load_cons<T, NS, ISO>(U, ncell, ahead.off, pm, Un);  // for interface f+1
     ahead.step();
     if (kick) {
       pf_n = phif[at.off];
@@ -278,12 +281,12 @@ __global__ void __launch_bounds__(32 * kMarchRows)
     // left
     T Wp[NV];
     if constexpr (PPM) {
-      ppm_slopes<T, NS, is_char(ORDER)>(Wb, Wc, Wd, gamma, sc);
-      ppm_cell<T, NS, FLUX>(Wa, Wb, Wc, sa, sb, sc, dtodx, gamma, Wr, Wp);
+      ppm_slopes<T, NS, ISO, is_char(ORDER)>(Wb, Wc, Wd, e, sc);
+      ppm_cell<T, NS, ISO, FLUX>(Wa, Wb, Wc, sa, sb, sc, dtodx, e, Wr, Wp);
       copy<NV>(sa, sb);
       copy<NV>(sb, sc);
     } else {
-      recon3_cell<T, NS, FLUX, ORDER>(Wa, Wb, Wc, dtodx, gamma, Wr, Wp);
+      recon3_cell<T, NS, ISO, FLUX, ORDER>(Wa, Wb, Wc, dtodx, e, Wr, Wp);
     }
     T dVl = T(0), dVr = T(0);
     if (kick) {
@@ -292,15 +295,15 @@ __global__ void __launch_bounds__(32 * kMarchRows)
       phic_l = pc;
     }
     T Ulc[NV], Urc[NV], Fs[NV];
-    interface_flux<T, NS, FLUX>(Wl, Wr, kick, dVl, dVr, gamma, g1, Ulc, Urc,
-                                Fs);
+    interface_flux<T, NS, ISO, FLUX>(Wl, Wr, kick, dVl, dVr, e, Ulc, Urc,
+                                     Fs);
     if (j < L.ni) {
-      store_cell<T, NS>(Ul, ncell, off, pm, Ulc);
-      store_cell<T, NS>(Ur, ncell, off, pm, Urc);
+      store_cell<T, NS, ISO>(Ul, ncell, off, pm, Ulc);
+      store_cell<T, NS, ISO>(Ur, ncell, off, pm, Urc);
       if constexpr (DF)
         F[off] = Fs[0];
       else
-        store_cell<T, NS>(F, ncell, off, pm, Fs);
+        store_cell<T, NS, ISO>(F, ncell, off, pm, Fs);
     }
     if constexpr (DF) {
       if (j > 0) {
@@ -319,15 +322,16 @@ __global__ void __launch_bounds__(32 * kMarchRows)
 // (halo = 4, PPM 6) stages its rows' tiles in dynamic shared memory, planes
 // of NV x blockDim.x per row: primitives (later the fluxes), (PPM) slopes,
 // Wminus, Wplus.
-template <typename T, int NS, int FLUX, int ORDER, bool DF, int TM, int R>
+template <typename T, int NS, bool ISO, int FLUX, int ORDER, bool DF, int TM,
+          int R>
 __global__ void __launch_bounds__(TM * R)
     sweep_tile_kernel(const T* __restrict__ U, const T* __restrict__ phic,
                       const T* __restrict__ phif,
                       const T* __restrict__ dtodx_p, T* __restrict__ Ul,
                       T* __restrict__ Ur, T* __restrict__ F,
                       T* __restrict__ dF, int NZ, int NY, int NX, int tw,
-                      T gamma, T g1) {
-  constexpr int NV = 5 + NS;
+                      Eos<T> e) {
+  constexpr int NW = nwave(ISO), NV = NW + NS;
   constexpr bool PPM = is_ppm(ORDER);
   constexpr int H = PPM ? 3 : 2;      // cells left of the tile's first
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -357,7 +361,7 @@ __global__ void __launch_bounds__(TM * R)
   // 1. cells x0-H .. x0+nif+H-2: slot i holds cell x0-H+i
   if (t.ok && i < nif + 2 * H - 1) {
     T W[NV];
-    load_prim<T, NS>(U, ncell, t.row + t.cell(i - H, NX), pm, g1, W);
+    load_prim<T, NS, ISO>(U, ncell, t.row + t.cell(i - H, NX), pm, e, W);
 #pragma unroll
     for (int v = 0; v < NV; ++v) sW[v * nc + i] = W[v];
   }
@@ -372,7 +376,7 @@ __global__ void __launch_bounds__(TM * R)
         Wc[v] = sW[v * nc + i + 1];
         Wp[v] = sW[v * nc + i + 2];
       }
-      ppm_slopes<T, NS, is_char(ORDER)>(Wm, Wc, Wp, gamma, s);
+      ppm_slopes<T, NS, ISO, is_char(ORDER)>(Wm, Wc, Wp, e, s);
 #pragma unroll
       for (int v = 0; v < NV; ++v) sS[v * nc + i] = s[v];
     }
@@ -397,9 +401,9 @@ __global__ void __launch_bounds__(TM * R)
         sc[v] = sS[v * nc + i + 1];
         sp[v] = sS[v * nc + i + 2];
       }
-      ppm_cell<T, NS, FLUX>(Wm, Wc, Wp, sm, sc, sp, dtodx, gamma, a, b);
+      ppm_cell<T, NS, ISO, FLUX>(Wm, Wc, Wp, sm, sc, sp, dtodx, e, a, b);
     } else {
-      recon3_cell<T, NS, FLUX, ORDER>(Wm, Wc, Wp, dtodx, gamma, a, b);
+      recon3_cell<T, NS, ISO, FLUX, ORDER>(Wm, Wc, Wp, dtodx, e, a, b);
     }
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
@@ -425,15 +429,15 @@ __global__ void __launch_bounds__(TM * R)
       dVr = dtodx * (pc - pf);
     }
     T Ulc[NV], Urc[NV], Fs[NV];
-    interface_flux<T, NS, FLUX>(Wl, Wr, kick, dVl, dVr, gamma, g1, Ulc, Urc,
-                                Fs);
+    interface_flux<T, NS, ISO, FLUX>(Wl, Wr, kick, dVl, dVr, e, Ulc, Urc,
+                                     Fs);
     if (i < t.ni) {
-      store_cell<T, NS>(Ul, ncell, off, pm, Ulc);
-      store_cell<T, NS>(Ur, ncell, off, pm, Urc);
+      store_cell<T, NS, ISO>(Ul, ncell, off, pm, Ulc);
+      store_cell<T, NS, ISO>(Ur, ncell, off, pm, Urc);
       if constexpr (DF)
         F[off] = Fs[0];
       else
-        store_cell<T, NS>(F, ncell, off, pm, Fs);
+        store_cell<T, NS, ISO>(F, ncell, off, pm, Fs);
     }
     if constexpr (DF) {
 #pragma unroll
@@ -481,47 +485,50 @@ struct SweepArgs {
   const void *U, *phic, *phif, *dtodx;
   void *Ul, *Ur, *F, *dF;
   int nz, ny, nx, axis;
-  double gamma, g1;
+  double c0, c1;      // the EOS constants (Eos)
 };
 
-template <typename T, int NS, int FLUX, int ORDER, bool DF, int S, int TM,
-          int R>
+template <typename T, int NS, bool ISO, int FLUX, int ORDER, bool DF, int S,
+          int TM, int R>
 int launch_sweep_shape(const SweepArgs& a, cudaStream_t st) {
   constexpr bool PPM = is_ppm(ORDER);
+  const Eos<T> e{(T)a.c0, (T)a.c1};
   if (a.axis == 0) {
     const Tiles t = tiles_of(a.nx, TM, PPM ? 6 : 4);
     const size_t smem =
-        (size_t)R * (PPM ? 4 : 3) * (5 + NS) * t.bx * sizeof(T);
-    auto k = sweep_tile_kernel<T, NS, FLUX, ORDER, DF, TM, R>;
-    const cudaError_t e = allow_smem(k, smem);
-    if (e != cudaSuccess) return (int)e;
+        (size_t)R * (PPM ? 4 : 3) * (nwave(ISO) + NS) * t.bx * sizeof(T);
+    auto k = sweep_tile_kernel<T, NS, ISO, FLUX, ORDER, DF, TM, R>;
+    const cudaError_t err = allow_smem(k, smem);
+    if (err != cudaSuccess) return (int)err;
     k<<<dim3(t.n, (a.ny + R - 1) / R, a.nz), dim3(t.bx, R), smem, st>>>(
         (const T*)a.U, (const T*)a.phic, (const T*)a.phif,
         (const T*)a.dtodx, (T*)a.Ul, (T*)a.Ur, (T*)a.F, (T*)a.dF, a.nz, a.ny,
-        a.nx, t.w, (T)a.gamma, (T)a.g1);
+        a.nx, t.w, e);
   } else {
     const int n = a.axis == 1 ? a.ny : a.nz, nq = a.axis == 1 ? a.nz : a.ny;
-    sweep_march_kernel<T, NS, FLUX, ORDER, DF, S>
+    sweep_march_kernel<T, NS, ISO, FLUX, ORDER, DF, S>
         <<<dim3((a.nx + 31) / 32, (nq + kMarchRows - 1) / kMarchRows,
                 (n + S - 1) / S),
            dim3(32, kMarchRows), 0, st>>>(
             (const T*)a.U, (const T*)a.phic, (const T*)a.phif,
             (const T*)a.dtodx, (T*)a.Ul, (T*)a.Ur, (T*)a.F, (T*)a.dF, a.nz,
-            a.ny, a.nx, a.axis, (T)a.gamma, (T)a.g1);
+            a.ny, a.nx, a.axis, e);
   }
   return (int)cudaGetLastError();
 }
 
 // the launch shapes of order 2 (ATH_HYDRO_SHAPES) or, for the other
 // orders, the default one
-template <typename T, int NS, int FLUX, int ORDER>
+template <typename T, int NS, bool ISO, int FLUX, int ORDER>
 int launch_sweep(const SweepArgs& a, int df, int s, int tm, int r,
                  void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
 #define ATH_SWEEP_SHAPE(S, TM, R)                                           \
   if (s == S && tm == TM && r == R)                                         \
-    return df ? launch_sweep_shape<T, NS, FLUX, ORDER, true, S, TM, R>(a, st) \
-              : launch_sweep_shape<T, NS, FLUX, ORDER, false, S, TM, R>(a, st);
+    return df ? launch_sweep_shape<T, NS, ISO, FLUX, ORDER, true, S, TM,     \
+                                   R>(a, st)                                \
+              : launch_sweep_shape<T, NS, ISO, FLUX, ORDER, false, S, TM,    \
+                                   R>(a, st);
   if constexpr (ORDER == kPlm) {
     ATH_HYDRO_SHAPES(ATH_SWEEP_SHAPE)
   } else {
@@ -531,9 +538,9 @@ int launch_sweep(const SweepArgs& a, int df, int s, int tm, int r,
   return (int)cudaErrorInvalidValue;
 }
 
-// The entry of one order for the element type T: sweep_<name>_f32/_f64 in
-// the translation unit that instantiates it (ATH_SWEEP_ORDER), called by
-// hydro.cu's C entry points.
+// The entry of one order and gas for the element type T:
+// sweep_<name>_f32/_f64 in the translation unit that instantiates it
+// (ATH_SWEEP_ORDER), called by hydro.cu's C entry points.
 #define ATH_SWEEP_ORDER_DECL(NAME)                                          \
   int NAME##_f32(const SweepArgs& a, int nscalars, int flux, int df, int s, \
                  int tm, int r, void* stream);                              \
@@ -545,24 +552,29 @@ ATH_SWEEP_ORDER_DECL(sweep_plm)
 ATH_SWEEP_ORDER_DECL(sweep_ppm)
 ATH_SWEEP_ORDER_DECL(sweep_plmp)
 ATH_SWEEP_ORDER_DECL(sweep_ppmp)
+ATH_SWEEP_ORDER_DECL(sweep_iso_dc)
+ATH_SWEEP_ORDER_DECL(sweep_iso_plm)
+ATH_SWEEP_ORDER_DECL(sweep_iso_ppm)
+ATH_SWEEP_ORDER_DECL(sweep_iso_plmp)
+ATH_SWEEP_ORDER_DECL(sweep_iso_ppmp)
 
 }  // namespace ath
 
-#define ATH_SWEEP_ORDER(NAME, ORDER)                                        \
+#define ATH_SWEEP_ORDER(NAME, ORDER, ISO)                                   \
   namespace ath {                                                           \
-  template <typename T, int NS, int FLUX>                                   \
+  template <typename T, int NS, bool G, int FLUX>                           \
   int launch_##NAME(const SweepArgs& a, int df, int s, int tm, int r,       \
                     void* stream) {                                         \
-    return launch_sweep<T, NS, FLUX, ORDER>(a, df, s, tm, r, stream);       \
+    return launch_sweep<T, NS, G, FLUX, ORDER>(a, df, s, tm, r, stream);    \
   }                                                                         \
   int NAME##_f32(const SweepArgs& a, int nscalars, int flux, int df, int s, \
                  int tm, int r, void* stream) {                             \
-    return ATH_DISPATCH_NS_FLUX(float, launch_##NAME, nscalars, flux, a, df, \
-                                s, tm, r, stream);                          \
+    return ATH_DISPATCH_NS_FLUX(float, ISO, launch_##NAME, nscalars, flux,  \
+                                a, df, s, tm, r, stream);                   \
   }                                                                         \
   int NAME##_f64(const SweepArgs& a, int nscalars, int flux, int df, int s, \
                  int tm, int r, void* stream) {                             \
-    return ATH_DISPATCH_NS_FLUX(double, launch_##NAME, nscalars, flux, a,   \
-                                df, s, tm, r, stream);                      \
+    return ATH_DISPATCH_NS_FLUX(double, ISO, launch_##NAME, nscalars, flux, \
+                                a, df, s, tm, r, stream);                   \
   }                                                                         \
   }

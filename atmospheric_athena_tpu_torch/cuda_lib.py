@@ -44,24 +44,25 @@ _D = ctypes.c_double
 
 # C signatures of the entry points (csrc/hydro.cu, csrc/ctu_mid.cu,
 # csrc/rad.cu, csrc/rad_batch.cu, csrc/bvals.cu; B5 at orders other than 2
-# is built in csrc/hydro_*.cu behind ath_sweep_f32/f64)
+# and for isothermal gas is built in csrc/hydro_*.cu behind
+# ath_sweep_f32/f64, B12 and B13 for isothermal gas in csrc/flux_iso.cu)
 _SIGNATURES = {
-    "ath_sweep_f32": [_P] * 8 + [_I] * 11 + [_D, _D, _P],
-    "ath_sweep_f64": [_P] * 8 + [_I] * 11 + [_D, _D, _P],
-    "ath_flux_pointwise_f32": [_P] * 4 + [_I] * 6 + [_D, _D, _P],
-    "ath_flux_pointwise_f64": [_P] * 4 + [_I] * 6 + [_D, _D, _P],
-    "ath_flux_sweep_df_f32": [_P] * 5 + [_I] * 9 + [_D, _D, _P],
-    "ath_flux_sweep_df_f64": [_P] * 5 + [_I] * 9 + [_D, _D, _P],
+    "ath_sweep_f32": [_P] * 8 + [_I] * 12 + [_D, _D, _P],
+    "ath_sweep_f64": [_P] * 8 + [_I] * 12 + [_D, _D, _P],
+    "ath_flux_pointwise_f32": [_P] * 4 + [_I] * 7 + [_D, _D, _P],
+    "ath_flux_pointwise_f64": [_P] * 4 + [_I] * 7 + [_D, _D, _P],
+    "ath_flux_sweep_df_f32": [_P] * 5 + [_I] * 10 + [_D, _D, _P],
+    "ath_flux_sweep_df_f64": [_P] * 5 + [_I] * 10 + [_D, _D, _P],
     "ath_gcross_f32": [_P] * 10 + [_I] * 3 + [_P],
     "ath_gcross_f64": [_P] * 10 + [_I] * 3 + [_P],
-    "ath_transverse_f32": [_P] * 12 + [_I] * 6 + [_D, _D, _P],
-    "ath_transverse_f64": [_P] * 12 + [_I] * 6 + [_D, _D, _P],
-    "ath_flux_corrected_f32": [_P] * 6 + [_I] * 6 + [_D, _D, _P],
-    "ath_flux_corrected_f64": [_P] * 6 + [_I] * 6 + [_D, _D, _P],
+    "ath_transverse_f32": [_P] * 12 + [_I] * 7 + [_D, _D, _P],
+    "ath_transverse_f64": [_P] * 12 + [_I] * 7 + [_D, _D, _P],
+    "ath_flux_corrected_f32": [_P] * 6 + [_I] * 7 + [_D, _D, _P],
+    "ath_flux_corrected_f64": [_P] * 6 + [_I] * 7 + [_D, _D, _P],
     "ath_grav_source_f32": [_P] * 17 + [_I] * 3 + [_P],
     "ath_grav_source_f64": [_P] * 17 + [_I] * 3 + [_P],
-    "ath_final_update_f32": [_P] * 10 + [_I] * 10 + [_P],
-    "ath_final_update_f64": [_P] * 10 + [_I] * 10 + [_P],
+    "ath_final_update_f32": [_P] * 10 + [_I] * 11 + [_P],
+    "ath_final_update_f64": [_P] * 10 + [_I] * 11 + [_P],
     "ath_rad_rates_f32": [_P] * 15 + [_I] * 4 + [_P, _P],
     "ath_rad_rates_f64": [_P] * 15 + [_I] * 4 + [_P, _P],
     "ath_rad_fused_f32": [_P] * 26 + [_I, _I, _P, _P],

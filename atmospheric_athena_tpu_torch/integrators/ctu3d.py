@@ -1,6 +1,6 @@
-"""3D CTU integrator, adiabatic hydrodynamics with static gravity, with or
-without the H-correction, reconstruction orders 1, 2, 3, 2p and 3p, Roe,
-HLLE or HLLC fluxes
+"""3D CTU integrator, adiabatic or isothermal hydrodynamics with static
+gravity, with or without the H-correction, reconstruction orders 1, 2, 3,
+2p and 3p, Roe, HLLE or HLLC fluxes
 (``atmospheric_athena_tpu/integrators/ctu3d.py`` with its fused sweep
 kernels on; reference integrate_3d_ctu.c).
 

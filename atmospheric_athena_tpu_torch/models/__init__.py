@@ -16,7 +16,7 @@ def register(name):
 
 
 def get_problem(name: str):
-    from . import blast, ioniz_sphere, testsedov  # noqa: F401  (register)
+    from . import blast, ioniz_sphere, testsedov, turb  # noqa: F401
     try:
         return _REGISTRY[name]
     except KeyError:

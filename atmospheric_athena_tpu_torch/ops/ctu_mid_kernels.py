@@ -34,14 +34,22 @@ so float64 results agree to the last bits.  Shifts wrap (torch.roll),
 touching only ghost cells that no interior update reads.  The kernels
 cover the 3D step, ``axes == (0, 1, 2)``.
 
+B7, B8 and B10 take adiabatic or isothermal gas (``sim.eos``; isothermal
+gas has no energy field, so G's and Sg's energy rows are not applied and
+the H-correction's sound speed is iso_csound); B6 and B9 do not depend on
+the gas.
+
 ``<wrapper>.launches`` counts the kernel launches of each wrapper;
 ``<wrapper>.forms`` counts them per form: transverse_correct "dF" or "F",
 flux_corrected the solver ("roe", "hlle" or "hllc"), grav_source "Fp2IDr" or
-"Fp2ID", final_update "dF2" or "F2".
+"Fp2ID", final_update "dF2" or "F2"; for isothermal gas the forms of B7, B8
+and B10 are prefixed "iso+" (hydro_kernels.gas_form: "iso+dF", "iso+roe",
+"iso+dF2").
 """
 
 from __future__ import annotations
 
+import math
 import os
 from collections import Counter
 
@@ -76,8 +84,11 @@ def _idfield(F):
 
 def _cfast_cons(Uc, sim: SimConfig):
     """Sound speed of a physical-order conserved state
-    (integrate_3d_ctu.c:2299-2344; convert_var.c:466-508)."""
+    (integrate_3d_ctu.c:2299-2344; convert_var.c:466-508): the isothermal
+    sound speed everywhere for isothermal gas."""
     d = Uc[ID]
+    if not sim.adiabatic:
+        return torch.full_like(d, math.sqrt(sim.iso_csound2))
     di = 1.0 / d
     p = sim.gamma_1 * (Uc[IEN] - 0.5 * (
         Uc[IM1] ** 2 + Uc[IM1 + 1] ** 2 + Uc[IM1 + 2] ** 2) * di)
@@ -125,14 +136,15 @@ def transverse_correct_plain(Ulp, Urp, dFp, G, q, sim: SimConfig, a: int,
     Urc = Urp - corr_r
     Ulc = Ulp - corr_l
     if G is not None:
-        # per b: M_b of both states, then E of both
+        # per b: M_b of both states, then E of both (adiabatic gas only)
         for b in axes:
             if b == a:
                 continue
             Urc[IM1 + b] -= G[b][0]
             Ulc[IM1 + b] -= _sh(G[b][0], -1, a)
-            Urc[IEN] -= G[b][1]
-            Ulc[IEN] -= _sh(G[b][1], -1, a)
+            if sim.adiabatic:
+                Urc[IEN] -= G[b][1]
+                Ulc[IEN] -= _sh(G[b][1], -1, a)
     eta = hcorr_eta(Ulc, Urc, sim, a) if sim.h_correction else None
     return Ulc, Urc, eta
 
@@ -186,7 +198,8 @@ def final_update_plain(U, Fp2, Sg, dtodx, sim: SimConfig, grid: GridConfig,
     if Sg is not None:
         for a in axes:
             Unew[IM1 + a] -= Sg[a]
-            Unew[IEN] -= Sg[3 + a]
+            if sim.adiabatic:
+                Unew[IEN] -= Sg[3 + a]
     for a in axes:
         dFa = _sh(Fp2[a], 1, a) - Fp2[a] if dF2 is None else dF2[a]
         Unew = Unew - dtodx[a] * dFa
@@ -285,11 +298,13 @@ def transverse_correct(Ulp, Urp, dFp, G, q, sim: SimConfig, a: int, axes,
     err = _fn("transverse", Ulp)(
         Ulp.data_ptr(), Urp.data_ptr(), *[_ptr(t) for t in dF],
         *[_ptr(t) for t in Gs], qv.data_ptr(), Ulc.data_ptr(), Urc.data_ptr(),
-        _ptr(eta), nz, ny, nx, a, sim.nscalars, int(Fp is not None),
-        sim.gamma, sim.gamma_1, cuda_lib.stream_ptr(Ulp.device))
+        _ptr(eta), nz, ny, nx, a, sim.nscalars, int(not sim.adiabatic),
+        int(Fp is not None), *hydro_kernels.eos_args(sim),
+        cuda_lib.stream_ptr(Ulp.device))
     cuda_lib.check(err, "transverse_correct")
     transverse_correct.launches += 1
-    transverse_correct.forms["dF" if Fp is None else "F"] += 1
+    transverse_correct.forms[hydro_kernels.gas_form(
+        sim, "dF" if Fp is None else "F")] += 1
     return Ulc, Urc, eta
 
 
@@ -316,12 +331,12 @@ def flux_corrected(Ulc, Urc, etaS, sim: SimConfig, a: int, axes):
     F = torch.empty_like(Ulc)
     err = _fn("flux_corrected", Ulc)(
         Ulc.data_ptr(), Urc.data_ptr(), *[_ptr(t) for t in eta],
-        F.data_ptr(), nz, ny, nx, a, sim.nscalars,
-        hydro_kernels.FLUX_KIND[sim.flux], sim.gamma, sim.gamma_1,
+        F.data_ptr(), nz, ny, nx, a, sim.nscalars, int(not sim.adiabatic),
+        hydro_kernels.FLUX_KIND[sim.flux], *hydro_kernels.eos_args(sim),
         cuda_lib.stream_ptr(Ulc.device))
     cuda_lib.check(err, "flux_corrected")
     flux_corrected.launches += 1
-    flux_corrected.forms[sim.flux] += 1
+    flux_corrected.forms[hydro_kernels.gas_form(sim, sim.flux)] += 1
     return F
 
 
@@ -392,11 +407,12 @@ def final_update(U, Fp2, Sg, dtodx, sim: SimConfig, grid: GridConfig, axes,
     hi = [grid.hi(a) for a in range(3)]
     err = _fn("final_update", U)(
         U.data_ptr(), _ptr(Sg), *[_ptr(f) for f in F], *[_ptr(f) for f in dF],
-        dv.data_ptr(), Uout.data_ptr(), nz, ny, nx, sim.nscalars, *lo, *hi,
-        cuda_lib.stream_ptr(U.device))
+        dv.data_ptr(), Uout.data_ptr(), nz, ny, nx, sim.nscalars,
+        int(not sim.adiabatic), *lo, *hi, cuda_lib.stream_ptr(U.device))
     cuda_lib.check(err, "final_update")
     final_update.launches += 1
-    final_update.forms["F2" if dF2 is None else "dF2"] += 1
+    final_update.forms[hydro_kernels.gas_form(
+        sim, "F2" if dF2 is None else "dF2")] += 1
     return Uout
 
 

@@ -1,4 +1,4 @@
-"""Characteristic eigensystems for adiabatic hydrodynamics
+"""Characteristic eigensystems for adiabatic and isothermal hydrodynamics
 (``atmospheric_athena_tpu/ops/eigen.py``, hydro part).
 
 Eigenmatrices are *sparse symbolic* objects: nested Python lists whose
@@ -82,14 +82,36 @@ def esys_prim_adb_hyd(d, v1, rho_a2, sim: SimConfig):
     return ev, rem, lem
 
 
+def esys_prim_iso_hyd(d, v1, sim: SimConfig):
+    """Isothermal hydro, primitive variables (esystem_prim.c:50-107).
+    Variable order (d, Vx, Vy, Vz); NWAVE=4.  The sound speed is a tensor,
+    so every division by it or of it is one IEEE division on any device
+    (PyTorch multiplies by the reciprocal where a CUDA tensor is divided by
+    a Python number), as in the kernels."""
+    cs = torch.full_like(d, sim.iso_csound)
+    ev = [v1 - cs, v1, v1, v1 + cs]
+    rem = [
+        [1.0, 0.0, 0.0, 1.0],
+        [-cs / d, 0.0, 0.0, cs / d],
+        [0.0, 1.0, 0.0, 0.0],
+        [0.0, 0.0, 1.0, 0.0],
+    ]
+    lem = [
+        [0.5, -0.5 * d / cs, 0.0, 0.0],
+        [0.0, 0.0, 1.0, 0.0],
+        [0.0, 0.0, 0.0, 1.0],
+        [0.5, 0.5 * d / cs, 0.0, 0.0],
+    ]
+    return ev, rem, lem
+
+
 def esys_prim(W, Bx, sim: SimConfig):
-    """Dispatch on (gas, eos) like lr_states_plm.c:101-117; only adiabatic
-    hydro is ported."""
-    if sim.gas == "hydro" and sim.adiabatic:
-        return esys_prim_adb_hyd(W[0], W[1], sim.gamma * W[4], sim)
-    raise NotImplementedError(
-        "primitive eigensystems other than adiabatic hydro "
-        "(ROADMAP A11/A12)")
+    """Dispatch on (gas, eos) like lr_states_plm.c:101-117; hydro only."""
+    if sim.gas == "hydro":
+        if sim.adiabatic:
+            return esys_prim_adb_hyd(W[0], W[1], sim.gamma * W[4], sim)
+        return esys_prim_iso_hyd(W[0], W[1], sim)
+    raise NotImplementedError("MHD primitive eigensystems (ROADMAP A12)")
 
 
 def esys_roe_adb_hyd(v1, v2, v3, h, sim: SimConfig, vectors=True):
@@ -120,5 +142,28 @@ def esys_roe_adb_hyd(v1, v2, v3, h, sim: SimConfig, vectors=True):
         [1.0 - na * g1 * vsq, qa * v1, qa * v2, qa * v3, -qa],
         [na * (0.5 * g1 * vsq - v1 * a), -na * (g1 * v1 - a),
          -na * g1 * v2, -na * g1 * v3, na * g1],
+    ]
+    return ev, rem, lem
+
+
+def esys_roe_iso_hyd(v1, v2, v3, sim: SimConfig, vectors=True):
+    """Isothermal hydro Roe eigensystem (esystem_roe.c:44-120).
+    Conserved order (d, Mx, My, Mz); the sound speed a tensor, as in
+    esys_prim_iso_hyd."""
+    cs = torch.full_like(v1, sim.iso_csound)
+    ev = [v1 - cs, v1, v1, v1 + cs]
+    if not vectors:
+        return ev, None, None
+    rem = [
+        [1.0, 0.0, 0.0, 1.0],
+        [v1 - cs, 0.0, 0.0, v1 + cs],
+        [v2, 1.0, 0.0, v2],
+        [v3, 0.0, 1.0, v3],
+    ]
+    lem = [
+        [0.5 * (1.0 + v1 / cs), -0.5 / cs, 0.0, 0.0],
+        [-v2, 0.0, 1.0, 0.0],
+        [-v3, 0.0, 0.0, 1.0],
+        [0.5 * (1.0 - v1 / cs), 0.5 / cs, 0.0, 0.0],
     ]
     return ev, rem, lem

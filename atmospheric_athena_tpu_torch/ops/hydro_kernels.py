@@ -1,5 +1,6 @@
 """The CTU hydro kernels and their plain PyTorch versions (replacing
-``atmospheric_athena_tpu/ops/pallas_hydro.py``).
+``atmospheric_athena_tpu/ops/pallas_hydro.py``), for adiabatic and
+isothermal gas.
 
   sweep_lrflux   — CTU steps 1-3 along one axis (integrate_3d_ctu.c:202-524):
                    cons->prim, the reconstruction of ``sim.order`` with CTU
@@ -18,11 +19,13 @@
                    ``pallas_hydro.flux_sweep_df`` documents it.
 
 The Riemann solver is ``sim.flux``: Roe (with its HLLE fallback and etah),
-HLLE or HLLC (which ignore etah, as the reference's do).
+HLLE or HLLC (which ignore etah, as the reference's do).  The gas is
+``sim.eos``: the kernels are built for both (csrc/hydro.cuh ``ISO``) and
+take its constants from ``eos_args``.
 
 Each wrapper takes the kernel for a CUDA tensor (csrc/hydro.cu,
-csrc/sweep.cuh; it raises on what the kernel does not take) and the plain
-version for a CPU tensor.  The plain versions call the same
+csrc/sweep.cuh, csrc/fluxdf.cuh; it raises on what the kernel does not
+take) and the plain version for a CPU tensor.  The plain versions call the same
 eos/reconstruct/riemann modules as the rest of the port; the kernels
 repeat their formulas in csrc/hydro.cuh.  Both wrap
 the stencil at the array edge (torch.roll / modular indexing), which touches
@@ -33,7 +36,9 @@ B5 (both forms) and B12 take ``shape=``, their launch shape, one of
 2 and in the first for the other orders.  ``<wrapper>.launches`` counts
 the kernel launches of each wrapper and ``<wrapper>.forms`` the launches
 per form: the solver (``forms["hllc"]``), and for B5 at an order other
-than 2 the order and solver (``form``: ``forms["ppm+hllc"]``).
+than 2 the order and solver (``form``: ``forms["ppm+hllc"]``); for
+isothermal gas each form prefixed "iso+" (``gas_form``:
+``forms["iso+roe"]``, ``forms["iso+ppm+hllc"]``).
 """
 
 from __future__ import annotations
@@ -66,16 +71,14 @@ FLUXDF_SHAPES = SWEEP_SHAPES
 
 def refusal(sim: SimConfig):
     """Why the kernels do not take `sim`, naming the ROADMAP item, or None.
-    They take 3D adiabatic hydro with CTU tracing, reconstruction orders
-    1, 2, 3, 2p and 3p, the Roe, HLLE and HLLC solvers and at most one
-    passive scalar: the forms of the JAX package's kernels
-    (pallas_hydro.supported) less isothermal gas and more scalars."""
+    They take 3D adiabatic or isothermal hydro with CTU tracing,
+    reconstruction orders 1, 2, 3, 2p and 3p, the Roe, HLLE and HLLC
+    solvers and at most one passive scalar: the forms of the JAX package's
+    kernels (pallas_hydro.supported) less more scalars."""
     if sim.gas != "hydro":
         return "MHD (ROADMAP A12)"
     if sim.special_relativity:
         return "special relativity (ROADMAP A15)"
-    if not sim.adiabatic:
-        return "isothermal gas (ROADMAP A11 step 4, B2)"
     if sim.nscalars > 1:
         return (f"{sim.nscalars} passive scalars, more than one (ROADMAP "
                 "A11 step 4, B2)")
@@ -98,15 +101,31 @@ def sweep_shapes(sim: SimConfig):
     return SWEEP_SHAPES if sim.order == "2" else SWEEP_SHAPES[:1]
 
 
+def eos_args(sim: SimConfig):
+    """The EOS constants the kernels take (csrc/hydro.cuh Eos): gamma and
+    gamma - 1 for adiabatic gas, the sound speed and its square for
+    isothermal gas."""
+    if sim.adiabatic:
+        return sim.gamma, sim.gamma_1
+    return sim.iso_csound, sim.iso_csound2
+
+
+def gas_form(sim: SimConfig, name: str) -> str:
+    """A kernel form `name` for the gas of `sim`: as it is for adiabatic
+    gas, prefixed "iso+" for isothermal gas ("iso+roe", "iso+dF2")."""
+    return name if sim.adiabatic else f"iso+{name}"
+
+
 def form(sim: SimConfig) -> str:
     """The form of B5 that `sim` selects, as counted in its wrappers'
     ``forms``: the solver at order 2 ("roe", "hlle", "hllc"), else the
     order's name, joined to the solver unless it is Roe ("ppm",
-    "ppm+hllc", "dc", "plmp+hlle")."""
+    "ppm+hllc", "dc", "plmp+hlle"); prefixed "iso+" for isothermal gas
+    ("iso+roe", "iso+ppm")."""
     if sim.order == "2":
-        return sim.flux
+        return gas_form(sim, sim.flux)
     name = ORDER_NAME[sim.order]
-    return name if sim.flux == "roe" else f"{name}+{sim.flux}"
+    return gas_form(sim, name if sim.flux == "roe" else f"{name}+{sim.flux}")
 
 
 # ------------------------------------------------------------- plain versions
@@ -219,9 +238,9 @@ def _sweep(U, phic, phif_a, dtodx, sim, axis, shape, df, name):
              None if phif_a is None else phif_a.data_ptr(), dt_t.data_ptr(),
              Ul.data_ptr(), Ur.data_ptr(), F.data_ptr(),
              None if dF is None else dF.data_ptr(), nz, ny, nx, axis,
-             sim.nscalars, FLUX_KIND[sim.flux], ORDER_KIND[sim.order],
-             int(df), *shape, sim.gamma,
-             sim.gamma_1, cuda_lib.stream_ptr(U.device))
+             sim.nscalars, int(not sim.adiabatic), FLUX_KIND[sim.flux],
+             ORDER_KIND[sim.order], int(df), *shape, *eos_args(sim),
+             cuda_lib.stream_ptr(U.device))
     cuda_lib.check(err, name)
     return (Ul, Ur, F, dF) if df else (Ul, Ur, F)
 
@@ -236,8 +255,9 @@ def sweep_lrflux(U, phic, phif_a, dtodx, sim: SimConfig, axis: int,
     Returns (Ul, Ur, F), each [nv, NZ, NY, NX] in physical order.
 
     Kernel (CUDA tensors): csrc/sweep.cuh sweep_march_kernel (y, z) and
-    sweep_tile_kernel (x), built for order 2 in csrc/hydro.cu and for the
-    other orders in csrc/hydro_*.cu, replacing
+    sweep_tile_kernel (x), built for adiabatic gas at order 2 in
+    csrc/hydro.cu and at the other orders in csrc/hydro_*.cu, for
+    isothermal gas in csrc/hydro_iso*.cu, replacing
     ops/pallas_hydro.py:_sweep_kernel.  Each cell is converted and
     reconstructed once and each interface solved once, apart from the halo
     of a segment or tile (see the source note).  `shape` is the launch
@@ -289,9 +309,10 @@ def flux_pointwise(Ulc, Urc, etah, sim: SimConfig, axis: int):
     Ulc, Urc: [nv, NZ, NY, NX] physical order; etah: [NZ, NY, NX] or None.
     Returns F [nv, NZ, NY, NX], physical order.
 
-    Kernel (CUDA tensors): csrc/hydro.cu flux_pointwise_kernel, replacing
+    Kernel (CUDA tensors): csrc/fluxdf.cuh flux_pointwise_kernel (built in
+    csrc/hydro.cu and csrc/flux_iso.cu), replacing
     ops/pallas_hydro.py:_flux_kernel; a pointwise pass bound by its 13
-    loads and 6 stores per cell in float32.
+    loads and 6 stores per cell in float32 (adiabatic gas, one scalar).
     """
     if Ulc.device.type != "cuda":
         return flux_pointwise_plain(Ulc, Urc, etah, sim, axis)
@@ -306,11 +327,12 @@ def flux_pointwise(Ulc, Urc, etah, sim: SimConfig, axis: int):
           else cuda_lib.lib().ath_flux_pointwise_f32)
     err = fn(Ulc.data_ptr(), Urc.data_ptr(),
              None if etah is None else etah.data_ptr(), F.data_ptr(),
-             nz, ny, nx, axis, sim.nscalars, FLUX_KIND[sim.flux], sim.gamma,
-             sim.gamma_1, cuda_lib.stream_ptr(Ulc.device))
+             nz, ny, nx, axis, sim.nscalars, int(not sim.adiabatic),
+             FLUX_KIND[sim.flux], *eos_args(sim),
+             cuda_lib.stream_ptr(Ulc.device))
     cuda_lib.check(err, "flux_pointwise")
     flux_pointwise.launches += 1
-    flux_pointwise.forms[sim.flux] += 1
+    flux_pointwise.forms[gas_form(sim, sim.flux)] += 1
     return F
 
 
@@ -328,8 +350,9 @@ def flux_sweep_df(Ulc, Urc, sim: SimConfig, axis: int,
     F2_ID the density flux and F2_IDr = F2_ID(+1_axis), each [NZ, NY, NX];
     F2 is ``flux_pointwise`` without etah.
 
-    Kernel (CUDA tensors): csrc/hydro.cu fluxdf_march_kernel (y, z) and
-    fluxdf_tile_kernel (x), replacing ops/pallas_hydro.py:_fluxdf_kernel.
+    Kernel (CUDA tensors): csrc/fluxdf.cuh fluxdf_march_kernel (y, z) and
+    fluxdf_tile_kernel (x) (built in csrc/hydro.cu and csrc/flux_iso.cu),
+    replacing ops/pallas_hydro.py:_fluxdf_kernel.
     Each interface is solved once (and one more per segment or tile): F2(f)
     stays in registers (y, z) or shared memory (x) until F2(f+1) is formed,
     so F2 never goes to memory and dF2 is bitwise the roll-and-subtract of
@@ -353,11 +376,11 @@ def flux_sweep_df(Ulc, Urc, sim: SimConfig, axis: int,
           else cuda_lib.lib().ath_flux_sweep_df_f32)
     err = fn(Ulc.data_ptr(), Urc.data_ptr(), dF2.data_ptr(), Fid.data_ptr(),
              Fidr.data_ptr(), nz, ny, nx, axis, sim.nscalars,
-             FLUX_KIND[sim.flux], *shape, sim.gamma, sim.gamma_1,
-             cuda_lib.stream_ptr(Ulc.device))
+             int(not sim.adiabatic), FLUX_KIND[sim.flux], *shape,
+             *eos_args(sim), cuda_lib.stream_ptr(Ulc.device))
     cuda_lib.check(err, "flux_sweep_df")
     flux_sweep_df.launches += 1
-    flux_sweep_df.forms[sim.flux] += 1
+    flux_sweep_df.forms[gas_form(sim, sim.flux)] += 1
     return dF2, Fid, Fidr
 
 

@@ -11,30 +11,40 @@ plain reduction: each program reduces a block of cells of the padded grid
 wrapper reduces with torch.amax.  Bound on the H100 by its five field loads
 per cell; max is exact, so the result equals the plain version's up to the
 per-cell formula's last bits.  Its maxima propagate NaN, as torch.amax does,
-so a bad cell gives a NaN dt on the card as on the CPU.
-``max_dti_hydro.launches`` counts launches.
+so a bad cell gives a NaN dt on the card as on the CPU.  Adiabatic gas takes
+c_s from the pressure (five loads per cell); isothermal gas (a constexpr of
+the kernel) takes c_s = sqrt(iso_csound^2) and loads four fields.
+``max_dti_hydro.launches`` counts launches, ``max_dti_hydro.forms`` them
+per gas (``sim.eos``: "adiabatic", "isothermal"), and
+``max_dti_hydro.regs`` holds the compiled kernel's registers and spills per
+(dtype, gas), as Triton reports them (``n_regs``, ``n_spills``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from collections import Counter
+
 from ..config import GridConfig, SimConfig
 from ..defs import ID, IEN, IM1, TINY_NUMBER
 
 _BLOCK = 1024
 _kernel = None
-_params = {}     # (dtype, device, gamma, gamma_1) -> kernel parameter tensor
+_params = {}     # (dtype, device, eos, constants) -> kernel parameter tensor
 
 
 def _per_axis_plain(U, sim: SimConfig, grid: GridConfig):
     Ui = U[(slice(None),) + grid.interior()]
     di = 1.0 / Ui[ID]
     v = [Ui[IM1 + a] * di for a in range(3)]
-    qsq = v[0] ** 2 + v[1] ** 2 + v[2] ** 2
-    p = torch.clamp_min(sim.gamma_1 * (Ui[IEN] - 0.5 * Ui[ID] * qsq),
-                        TINY_NUMBER)
-    cs = torch.sqrt(sim.gamma * p * di)
+    if sim.adiabatic:
+        qsq = v[0] ** 2 + v[1] ** 2 + v[2] ** 2
+        p = torch.clamp_min(sim.gamma_1 * (Ui[IEN] - 0.5 * Ui[ID] * qsq),
+                            TINY_NUMBER)
+        cs = torch.sqrt(sim.gamma * p * di)
+    else:
+        cs = torch.sqrt(sim.iso_csound2 * torch.ones_like(di))
     return [torch.amax(torch.abs(v[a]) + cs) for a in range(3)]
 
 
@@ -69,7 +79,8 @@ def _triton_kernel():
     @triton.jit
     def max_dti_kernel(U, prm, out, ncell, NX, NY, nprog,
                        lo0, hi0, lo1, hi1, lo2, hi2,
-                       BLOCK: tl.constexpr, IS_F64: tl.constexpr):
+                       BLOCK: tl.constexpr, IS_F64: tl.constexpr,
+                       ISO: tl.constexpr):
         pid = tl.program_id(0)
         offs = pid * BLOCK + tl.arange(0, BLOCK)
         inb = offs < ncell
@@ -78,14 +89,10 @@ def _triton_kernel():
         z = offs // (NX * NY)
         m = (inb & (x >= lo0) & (x <= hi0) & (y >= lo1) & (y <= hi1)
              & (z >= lo2) & (z <= hi2))
-        gamma = tl.load(prm)
-        gamma_1 = tl.load(prm + 1)
-        tiny = tl.load(prm + 2)
         d = tl.load(U + offs, mask=m, other=1.0)
         m1 = tl.load(U + ncell + offs, mask=m, other=0.0)
         m2 = tl.load(U + 2 * ncell + offs, mask=m, other=0.0)
         m3 = tl.load(U + 3 * ncell + offs, mask=m, other=0.0)
-        e = tl.load(U + 4 * ncell + offs, mask=m, other=1.0)
         if IS_F64:
             di = 1.0 / d
         else:
@@ -93,12 +100,22 @@ def _triton_kernel():
         v1 = m1 * di
         v2 = m2 * di
         v3 = m3 * di
-        qsq = v1 * v1 + v2 * v2 + v3 * v3
-        p = nanmax(gamma_1 * (e - 0.5 * d * qsq), tiny)
-        if IS_F64:
-            cs = tl.sqrt(gamma * p * di)
+        if ISO:
+            # prm = (iso_csound^2,): asq = cs^2 in every cell
+            asq = tl.load(prm) + tl.zeros_like(d)
         else:
-            cs = tl.sqrt_rn(gamma * p * di)
+            # prm = (gamma, gamma - 1, TINY_NUMBER)
+            gamma = tl.load(prm)
+            gamma_1 = tl.load(prm + 1)
+            tiny = tl.load(prm + 2)
+            e = tl.load(U + 4 * ncell + offs, mask=m, other=1.0)
+            qsq = v1 * v1 + v2 * v2 + v3 * v3
+            p = nanmax(gamma_1 * (e - 0.5 * d * qsq), tiny)
+            asq = gamma * p * di
+        if IS_F64:
+            cs = tl.sqrt(asq)
+        else:
+            cs = tl.sqrt_rn(asq)
         zero = tl.zeros_like(cs)
         r1 = tl.reduce(tl.where(m, tl.abs(v1) + cs, zero), 0, nanmax)
         r2 = tl.reduce(tl.where(m, tl.abs(v2) + cs, zero), 0, nanmax)
@@ -119,33 +136,42 @@ def max_dti_hydro(U, sim: SimConfig, grid: GridConfig):
     ops/pallas_util.py:_kernel; plain version for CPU tensors."""
     if U.device.type != "cuda":
         return max_dti_hydro_plain(U, sim, grid)
-    if sim.mhd or not sim.adiabatic or sim.special_relativity:
-        raise NotImplementedError("max_dti_hydro: adiabatic hydro only")
+    if sim.mhd or sim.special_relativity:
+        raise NotImplementedError("max_dti_hydro: hydro only")
     if U.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"max_dti_hydro: dtype {U.dtype}")
-    if U.dim() != 4 or U.shape[0] < 5 or not U.is_contiguous() \
+    if U.dim() != 4 or U.shape[0] != sim.ncons or not U.is_contiguous() \
             or tuple(U.shape[1:]) != tuple(grid.padded_shape()):
         raise ValueError(f"max_dti_hydro: U {tuple(U.shape)} must be a "
-                         "contiguous [nv, *grid.padded_shape()]")
+                         f"contiguous [{sim.ncons}, *grid.padded_shape()]")
     if U.numel() >= 2 ** 31:
         raise ValueError("max_dti_hydro: U too large for int32 offsets")
     _, nz, ny, nx = U.shape
     ncell = nz * ny * nx
     nprog = (ncell + _BLOCK - 1) // _BLOCK
-    key = (U.dtype, U.device, sim.gamma, sim.gamma_1)
+    iso = not sim.adiabatic
+    consts = ((sim.iso_csound2,) if iso
+              else (sim.gamma, sim.gamma_1, TINY_NUMBER))
+    key = (U.dtype, U.device, sim.eos, consts)
     if key not in _params:
-        _params[key] = torch.tensor([sim.gamma, sim.gamma_1, TINY_NUMBER],
-                                    dtype=U.dtype).to(U.device)
+        _params[key] = torch.tensor(consts, dtype=U.dtype).to(U.device)
     prm = _params[key]
     part = torch.empty((3, nprog), dtype=U.dtype, device=U.device)
     lo = [grid.lo(a) for a in range(3)]
     hi = [grid.hi(a) for a in range(3)]
-    _triton_kernel()[(nprog,)](
+    compiled = _triton_kernel()[(nprog,)](
         U, prm, part, ncell, nx, ny, nprog, lo[0], hi[0], lo[1], hi[1],
         lo[2], hi[2], BLOCK=_BLOCK, IS_F64=U.dtype == torch.float64,
-        num_warps=4, enable_fp_fusion=False)
+        ISO=iso, num_warps=4, enable_fp_fusion=False)
     max_dti_hydro.launches += 1
+    max_dti_hydro.forms[sim.eos] += 1
+    rk = (str(U.dtype).replace("torch.", ""), sim.eos)
+    if rk not in max_dti_hydro.regs:
+        max_dti_hydro.regs[rk] = (getattr(compiled, "n_regs", None),
+                                  getattr(compiled, "n_spills", None))
     return _combine(torch.amax(part, dim=1), grid, U)
 
 
 max_dti_hydro.launches = 0
+max_dti_hydro.forms = Counter()
+max_dti_hydro.regs = {}

@@ -1,6 +1,7 @@
 """Driver: setup + main loop (reference: src/main.c:90-772), for the
-configurations the port covers: the ioniz_sphere production step and 3D
-adiabatic hydro problems such as testsedov and blast, on one domain or, for
+configurations the port covers: the ioniz_sphere production step, 3D
+adiabatic hydro problems such as testsedov and blast, and 3D isothermal
+hydro (driven turbulence, turb), on one domain or, for
 a deck with num_domains > 1 and a <domain2> block, on a static-mesh-refined
 hierarchy (``Simulation.from_par`` then returns a
 ``hierarchy.MeshSimulation``, as the JAX package's does).

@@ -125,6 +125,50 @@ BLAST2_GOLD = os.path.join(HERE, "tests", "golden", "blast2lev_10cycles.npz")
 BLAST2_GOLD3 = os.path.join(HERE, "tests", "golden", "blast2lev_3cycles.npz")
 BLAST3_GOLD = os.path.join(HERE, "tests", "golden", "blast3lev_5cycles.npz")
 
+# driven isothermal turbulence: the deck of the JAX package's
+# tests/test_turb.py (3D isothermal hydro, periodic, Roe, PLM, no
+# H-correction), its size and cycle cap as fields
+TURB_DECK = """
+<comment>
+config = --with-gas=hydro --with-eos=isothermal --enable-fft
+
+<job>
+problem_id = turb
+
+<time>
+cour_no = 0.4
+tlim    = 1.0
+nlim    = {nlim}
+
+<domain1>
+level = 0
+Nx1 = {n}
+x1min = 0.0
+x1max = 1.0
+bc_ix1 = 4
+bc_ox1 = 4
+Nx2 = {n}
+x2min = 0.0
+x2max = 1.0
+bc_ix2 = 4
+bc_ox2 = 4
+Nx3 = {n}
+x3min = 0.0
+x3max = 1.0
+bc_ix3 = 4
+bc_ox3 = 4
+
+<problem>
+iso_csound = 1.0
+dedt  = 0.5
+klow  = 1.0
+khigh = 4.0
+expo  = 2.0
+ispect = 1
+idrive = 0
+rseed = 7
+"""
+
 # (time, dt) after each of the 10 cycles of the reference C code on the
 # isph64 deck (the trajectory tests/test_ioniz_sphere.py holds the JAX
 # package to)
@@ -300,7 +344,68 @@ FORMS = {"sweep_lrflux": "roe", "sweep_lrflux_df": "roe",
          "flux_pointwise": "roe", "flux_sweep_df": "roe",
          "transverse_correct": "dF", "flux_corrected": "roe",
          "grav_source": "Fp2ID", "final_update": "F2",
-         "rad_rates": "scalar", "rad_fused": "scalar"}
+         "rad_rates": "scalar", "rad_fused": "scalar",
+         "max_dti_hydro": "adiabatic"}
+
+# Isothermal gas (hydro_kernels.gas_form): every form of B5 (the order and
+# solver, "iso+roe", "iso+ppm+hllc"), B13, B12 and B8 with each solver, B7
+# and B10 in both operand forms, and B11; B5 and B12/B13 built in their own
+# sources (hydro_iso*.cu, flux_iso.cu)
+ISO_SWEEP_FORMS = {f"iso+{form or 'roe'}": of
+                   for form, of in SWEEP_FORMS.items()}
+_ISO_SRC = {"2": "hydro_iso.cu", "1": "hydro_iso_dc.cu",
+            "3": "hydro_iso_ppm.cu", "2p": "hydro_iso_plmp.cu",
+            "3p": "hydro_iso_ppmp.cu"}
+_TPU = {"sweep_lrflux": "pallas_hydro.py:118",
+        "sweep_lrflux_df": "pallas_hydro.py:118",
+        "flux_pointwise": "pallas_hydro.py:250",
+        "flux_sweep_df": "pallas_hydro.py:302",
+        "flux_corrected": "pallas_ctu_mid.py:518",
+        "transverse_correct": "pallas_ctu_mid.py:390",
+        "final_update": "pallas_ctu_mid.py:593",
+        "max_dti_hydro": "pallas_util.py:42"}
+ISO_FORMS = ([f"{w}[{form}]" for form in ISO_SWEEP_FORMS
+              for w in ("sweep_lrflux", "sweep_lrflux_df")]
+             + [f"{w}[iso+{f}]" for f in ("roe", "hllc", "hlle")
+                for w in ("flux_pointwise", "flux_sweep_df",
+                          "flux_corrected")]
+             + ["transverse_correct[iso+dF]", "transverse_correct[iso+F]",
+                "final_update[iso+F2]", "final_update[iso+dF2]",
+                "max_dti_hydro[isothermal]"])
+for _name in ISO_FORMS:
+    _w = _name.split("[")[0]
+    if _w.startswith("sweep"):
+        _src = _ISO_SRC[ISO_SWEEP_FORMS[_name[len(_w) + 1:-1]][0]]
+    elif _w in ("flux_pointwise", "flux_sweep_df"):
+        _src = "flux_iso.cu"
+    else:
+        _src = "ctu_mid.cu"
+    KERNELS.append(
+        (_name, "triton" if _w == "max_dti_hydro" else "cuda",
+         "atmospheric_athena_tpu_torch/ops/util_kernels.py"
+         if _w == "max_dti_hydro" else
+         f"atmospheric_athena_tpu_torch/csrc/{_src}",
+         f"atmospheric_athena_tpu/ops/{_TPU[_w]}"))
+
+# fields the isothermal forms move, on the 4-field state (d, M1, M2, M3)
+# phase 2 times them on (turb's layout): B7 reads G's momentum rows only
+# and B10 Sg's (their energy rows are not applied)
+FIELDS_MOVED.update({
+    **{f"sweep_lrflux[{f}]": (18, "padded") for f in ISO_SWEEP_FORMS},
+    **{f"sweep_lrflux_df[{f}]": (19, "padded") for f in ISO_SWEEP_FORMS},
+    "flux_pointwise[iso+roe]": (13, "padded"),    # Ulc, Urc, etah -> F2
+    "flux_pointwise[iso+hllc]": (12, "padded"),
+    "flux_pointwise[iso+hlle]": (12, "padded"),
+    **{f"flux_sweep_df[iso+{f}]": (14, "padded")
+       for f in ("roe", "hllc", "hlle")},
+    **{f"flux_corrected[iso+{f}]": (15, "padded")
+       for f in ("roe", "hllc", "hlle")},
+    "transverse_correct[iso+dF]": (27, "padded"),  # Ulp, Urp, 2 dF, 2 G_M
+    "transverse_correct[iso+F]": (27, "padded"),   # -> Ulc, Urc, eta
+    "final_update[iso+F2]": (23, "padded"),        # U, Sg_M, 3 F2 -> U
+    "final_update[iso+dF2]": (23, "padded"),
+    "max_dti_hydro[isothermal]": (4, "padded"),    # d, M1, M2, M3
+})
 
 # the __global__ function of each CUDA kernel, for ptxas's register report
 SYMBOLS = {"sweep_lrflux": ("sweep_march_kernel", "sweep_tile_kernel"),
@@ -332,7 +437,12 @@ SHAPED = {"rad_rates": (_RAD, "RATES_SHAPES"),
               "sweep_lrflux_df[hlle]")},
           **{k: (_HYD, "FLUXDF_SHAPES") for k in (
               "flux_sweep_df", "flux_sweep_df[hllc]",
-              "flux_sweep_df[hlle]")}}
+              "flux_sweep_df[hlle]")},
+          **{f"{w}[iso+{f}]": (_HYD, "SWEEP_SHAPES")
+             for w in ("sweep_lrflux", "sweep_lrflux_df")
+             for f in ("roe", "hllc", "hlle")},
+          **{f"flux_sweep_df[iso+{f}]": (_HYD, "FLUXDF_SHAPES")
+             for f in ("roe", "hllc", "hlle")}}
 
 # the kernels each path launches, and those it must not
 MID = ["sweep_lrflux_df", "gcross", "transverse_correct", "flux_corrected",
@@ -401,22 +511,38 @@ PPM_BATCH = (["sweep_lrflux_df[ppm]"] + MID[1:]
 PPM_MID0 = ["sweep_lrflux[ppm]", "flux_pointwise"] + K1
 PPM_K1 = ["sweep_lrflux_df[ppm]"] + MID[1:] + K1
 
+# driven isothermal turbulence (turb: Roe, PLM, no gravity, periodic, so
+# the plain ghost fill): the middle-phase path without the H-correction,
+# MID=0, and the middle-phase path with the H-correction (B8)
+TURB_MID = ["sweep_lrflux_df[iso+roe]", "transverse_correct[iso+dF]",
+            "flux_sweep_df[iso+roe]", "final_update[iso+dF2]",
+            "max_dti_hydro[isothermal]"]
+TURB_MID0 = ["sweep_lrflux[iso+roe]", "flux_pointwise[iso+roe]",
+             "max_dti_hydro[isothermal]"]
+TURB_HC = ["sweep_lrflux_df[iso+roe]", "transverse_correct[iso+dF]",
+           "flux_corrected[iso+roe]", "final_update[iso+F2]",
+           "max_dti_hydro[isothermal]"]
+
 PATHS = {
     "batch": (MID + ["rad_batch", "bc_fill", "rad_rates", "max_dti_hydro"],
               ["sweep_lrflux", "flux_pointwise"] + NOHC + HLLC + SMRF
-              + FUSED + NEW_FORMS),
+              + FUSED + NEW_FORMS + ISO_FORMS),
     "mid": (MID + K1, ["sweep_lrflux", "flux_pointwise", "rad_batch"] + NOHC
-            + HLLC + SMRF + FUSED + NEW_FORMS),
+            + HLLC + SMRF + FUSED + NEW_FORMS + ISO_FORMS),
     "MID=0": (["sweep_lrflux", "flux_pointwise"] + K1,
-              MID + ["rad_batch"] + NOHC + HLLC + SMRF + FUSED + NEW_FORMS),
+              MID + ["rad_batch"] + NOHC + HLLC + SMRF + FUSED + NEW_FORMS
+              + ISO_FORMS),
     "mid BC=0": (MID + K1[:3], ["sweep_lrflux", "flux_pointwise",
                                 "rad_batch", "bc_fill"] + NOHC + HLLC + SMRF
-                 + FUSED + NEW_FORMS),
+                 + FUSED + NEW_FORMS + ISO_FORMS),
     "nohcorr": (["sweep_lrflux_df", "gcross", "transverse_correct"] + NOHC
                 + ["rad_batch", "bc_fill", "rad_rates", "max_dti_hydro"],
                 ["flux_corrected", "grav_source", "final_update",
                  "sweep_lrflux", "flux_pointwise"] + HLLC + SMRF + FUSED
-                + NEW_FORMS),
+                + NEW_FORMS + ISO_FORMS),
+    "turb": (TURB_MID, others(TURB_MID)),
+    "turb MID=0": (TURB_MID0, others(TURB_MID0)),
+    "turb hcorr": (TURB_HC, others(TURB_HC)),
     "sedov": (SEDOV_MID, others(SEDOV_MID)),
     "sedov MID=0": (SEDOV_MID0, others(SEDOV_MID0)),
     "sedov hcorr": (SEDOV_HC, others(SEDOV_HC)),
@@ -435,11 +561,13 @@ PATHS = {
        if o != "2" and (o, f) != ("3", "roe")},
 }
 
-# kernel entries on no phase-4 path: B3' (as in the JAX package) and the
-# forms of B5 checked in phases 2 and 3 only
+# kernel entries on no phase-4 path: B3' (as in the JAX package), the
+# forms of B5 checked in phases 2 and 3 only, and the isothermal forms that
+# turb does not run (phase 2 only)
 NO_PATH = FUSED + [entry(w, form) for form, (o, f) in SWEEP_FORMS.items()
                    if o != "2" and (o, f) != ("3", "roe")
-                   for w in ("sweep_lrflux", "sweep_lrflux_df")]
+                   for w in ("sweep_lrflux", "sweep_lrflux_df")] + [
+    k for k in ISO_FORMS if k not in TURB_MID + TURB_MID0 + TURB_HC]
 
 AXES = (0, 1, 2)
 
@@ -537,6 +665,11 @@ def check_counts(label, counts, path):
     if stray:
         raise AssertionError(f"{label}: launched {stray}, which the "
                              f"{path} path does not run")
+
+
+# timings of a plain version in phase 2 (its time is a yardstick, and
+# the plain sweeps take 40-100 ms a call at 256^3)
+PLAIN_REPS = 5
 
 
 def cuda_ms(fn, reps=20):
@@ -938,6 +1071,101 @@ def kernel_calls(s, inp):
     return calls
 
 
+def iso_inputs(s, ns, nan_field=None):
+    """The isothermal counterpart of kernel_inputs' hydro operands: the
+    Simulation's state without its energy field and with `ns` of its
+    scalars, as an isothermal state (iso_csound the median adiabatic sound
+    speed of the interior) with random velocities up to cs/2 added, so
+    every wave sign occurs; the deck's potential and dt, and the
+    middle-phase chain from it (mid_inputs).  nan_field: the field of that
+    state set to NaN at NAN_CELL (the NaN probe)."""
+    import torch
+    from atmospheric_athena_tpu_torch.defs import IEN, IM1
+    from atmospheric_athena_tpu_torch.ops import ctu_mid_kernels as mid
+    from atmospheric_athena_tpu_torch.ops import hydro_kernels
+    st, sim, grid = s.state, s.sim, s.grid
+    U = st.U
+    Ui = U[(slice(None),) + grid.interior()]
+    ke = 0.5 * (Ui[IM1] ** 2 + Ui[IM1 + 1] ** 2 + Ui[IM1 + 2] ** 2) / Ui[0]
+    cs = float(torch.sqrt(sim.gamma * sim.gamma_1 * (Ui[IEN] - ke)
+                          / Ui[0]).nanmedian())
+    isim = dataclasses.replace(sim, eos="isothermal", iso_csound=cs,
+                               nscalars=ns, ion_radiation=False,
+                               ion_radplane=False)
+    Uiso = torch.cat([U[:IEN], U[IEN + 1:IEN + 1 + ns]]).contiguous()
+    # random velocities up to cs/2 (SEED), so no field is near zero
+    gen = torch.Generator().manual_seed(SEED)
+    stir = torch.rand((3,) + tuple(U.shape[1:]), generator=gen,
+                      dtype=torch.float64).to(U.device, U.dtype)
+    Uiso[IM1:IM1 + 3] += Uiso[0] * cs * (stir - 0.5)
+    if nan_field is not None:
+        Uiso[(nan_field,) + NAN_CELL] = float("nan")
+    phic, phif = s.phi
+    dtodx = [st.dt / grid.dx[a] for a in range(3)]
+    flux_in = []
+    for a in range(3):
+        Ul, Ur, _ = hydro_kernels.sweep_lrflux_plain(Uiso, phic, phif[a],
+                                                     dtodx[a], isim, a)
+        flux_in.append((Ul.contiguous(), Ur.contiguous(),
+                        mid.hcorr_eta(Ul, Ur, isim, a).contiguous()))
+    return dict(U=Uiso, sim=isim, phic=phic, phif=phif, dtodx=dtodx,
+                flux_in=flux_in,
+                mid=mid_inputs(Uiso, phic, phif, dtodx, isim, grid))
+
+
+def iso_kernel_calls(grid, inp):
+    """(name, wrapper, plain version, arguments) of every isothermal kernel
+    form on `inp` (iso_inputs): B5 at every order and solver, B13 (Roe with
+    etah), B12 and B8 with each solver, B7 in both operand forms and B10
+    in both, with the deck's gravity operands, and B11."""
+    from atmospheric_athena_tpu_torch.ops import ctu_mid_kernels as mid
+    from atmospheric_athena_tpu_torch.ops import hydro_kernels as hk
+    from atmospheric_athena_tpu_torch.ops import util_kernels as uk
+    sim, U, m = inp["sim"], inp["U"], inp["mid"]
+    phic, phif, dtodx = inp["phic"], inp["phif"], inp["dtodx"]
+    simn = dataclasses.replace(sim, h_correction=False)
+    calls = []
+    for a in AXES:
+        for form, (o, f) in ISO_SWEEP_FORMS.items():
+            args = (U, phic, phif[a], dtodx[a],
+                    dataclasses.replace(sim, order=o, flux=f), a)
+            calls += [(f"sweep_lrflux[{form}]", hk.sweep_lrflux,
+                       hk.sweep_lrflux_plain, args),
+                      (f"sweep_lrflux_df[{form}]", hk.sweep_lrflux_df,
+                       hk.sweep_lrflux_df_plain, args)]
+        Ulc, Urc = m["tr"][a][:2]
+        for f in ("roe", "hllc", "hlle"):
+            sf = dataclasses.replace(sim, flux=f)
+            fin = inp["flux_in"][a]
+            calls += [(f"flux_pointwise[iso+{f}]", hk.flux_pointwise,
+                       hk.flux_pointwise_plain,
+                       (fin if f == "roe" else fin[:2] + (None,)) + (sf, a)),
+                      (f"flux_sweep_df[iso+{f}]", hk.flux_sweep_df,
+                       hk.flux_sweep_df_plain,
+                       (Ulc, Urc, dataclasses.replace(simn, flux=f), a)),
+                      (f"flux_corrected[iso+{f}]", mid.flux_corrected,
+                       mid.flux_corrected_plain,
+                       (Ulc, Urc, m["etaS"], sf, a, AXES))]
+        calls += [("transverse_correct[iso+dF]", mid.transverse_correct,
+                   mid.transverse_correct_plain,
+                   (m["sw"][a][0], m["sw"][a][1], m["dFp"], m["G"], m["q"],
+                    sim, a, AXES)),
+                  ("transverse_correct[iso+F]", mid.transverse_correct,
+                   mid.transverse_correct_plain,
+                   (m["sw"][a][0], m["sw"][a][1], None, m["G"], m["q"], sim,
+                    a, AXES, m["Fp"]))]
+    calls += [("final_update[iso+F2]", mid.final_update,
+               mid.final_update_plain,
+               (U, m["F2"], m["Sg"], m["dtodx"], sim, grid, AXES)),
+              ("final_update[iso+dF2]", mid.final_update,
+               mid.final_update_plain,
+               (U, m["F2ID"], m["Sg2"], m["dtodx"], sim, grid, AXES,
+                m["dF2"])),
+              ("max_dti_hydro[isothermal]", uk.max_dti_hydro,
+               uk.max_dti_hydro_plain, (U, sim, grid))]
+    return calls
+
+
 def df2_bits(Ulc, Urc, sim, axis):
     """B12's design check, in each launch shape: its dF2, F2_ID and F2_IDr
     equal, bit for bit, the roll-and-subtract of B13's F2 (flux_pointwise
@@ -1050,8 +1278,55 @@ def make_sim(n, dtype):
     return s
 
 
+def check_call(rec, name, kern, plain, args, grid, tol, timing):
+    """One kernel comparison of phase 2, accumulated into rec[name]: the
+    errors, B12's and B5-dF's bitwise checks, the bits that differ from the
+    plain version (SHAPED kernels) and, with `timing`, the median CUDA-event
+    ms of kernel (20 runs) and plain version (PLAIN_REPS runs), interleaved
+    plain, kernel, kernel, plain, the bound and the launch shapes' ms."""
+    got, ref = outputs(kern(*args)), outputs(plain(*args))
+    ea, er = compare(name, got, ref, tol, grid)
+    r = rec.setdefault(name, dict(max_abs_err=0.0, max_rel_err=0.0,
+                                  ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                                  bound_by=None, library_ms=None))
+    r["max_abs_err"] = max(r["max_abs_err"], ea)
+    r["max_rel_err"] = max(r["max_rel_err"], er)
+    if base_name(name) == "flux_sweep_df":
+        r["dF2_bits_vs_plain"] = (r.get("dF2_bits_vs_plain", 0)
+                                  + df2_bits(*args))
+    if base_name(name) == "sweep_lrflux_df":
+        sweep_df_bits(*args)
+        r["dF_bitwise_whole_flux"] = True
+    if name in SHAPED:
+        # summed over the axes of a per-axis kernel
+        r["bits_vs_plain"] = (r.get("bits_vs_plain", 0)
+                              + bits_differ(got, ref))
+        r["elements"] = (r.get("elements", 0)
+                         + sum(g.numel() for g in got))
+    if timing:
+        # plain, kernel, kernel, plain
+        p1 = cuda_ms(lambda: plain(*args), reps=PLAIN_REPS)
+        k1 = cuda_ms(lambda: kern(*args))
+        k2 = cuda_ms(lambda: kern(*args))
+        p2 = cuda_ms(lambda: plain(*args), reps=PLAIN_REPS)
+        r["ms"] += min(k1, k2)
+        r["plain_ms"] += min(p1, p2)
+        t_bytes = hbm_bytes(name, grid, got[0]) / HBM_BYTES_PER_S
+        t_ops = count_ops(lambda: plain(*args)) / FP32_OPS_PER_S
+        r["bound_ms"] += 1e3 * max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        if name in SHAPED:
+            sh = r.setdefault("shapes_ms", {})
+            for k, v in shape_ms(name, kern, args).items():
+                sh[k] = sh.get(k, 0.0) + v
+    return r
+
+
 def phase2(n, dtype, timing):
-    """Kernel vs plain version at n^3 in `dtype`; returns per-kernel
+    """Kernel vs plain version at n^3 in `dtype` (check_call), the
+    adiabatic forms on the isph deck's state, then the isothermal forms on
+    that state without its energy (iso_inputs: with one scalar and with
+    none, the latter alone when timing, as turb runs); returns per-kernel
     records: errors and, with `timing`, median CUDA-event ms of kernel and
     plain version (summed over the three axes for the per-axis kernels),
     the bound and the library call's ms."""
@@ -1061,49 +1336,14 @@ def phase2(n, dtype, timing):
     tol = TOL[dtype]
     rec = {}
     for name, kern, plain, args in kernel_calls(s, inp):
-        got, ref = outputs(kern(*args)), outputs(plain(*args))
-        ea, er = compare(name, got, ref, tol, s.grid)
-        r = rec.setdefault(name, dict(max_abs_err=0.0, max_rel_err=0.0,
-                                      ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                                      bound_by=None, library_ms=None))
-        r["max_abs_err"] = max(r["max_abs_err"], ea)
-        r["max_rel_err"] = max(r["max_rel_err"], er)
-        if base_name(name) == "flux_sweep_df":
-            r["dF2_bits_vs_plain"] = (r.get("dF2_bits_vs_plain", 0)
-                                      + df2_bits(*args))
-        if base_name(name) == "sweep_lrflux_df":
-            sweep_df_bits(*args)
-            r["dF_bitwise_whole_flux"] = True
-        if name in SHAPED:
-            # summed over the axes of a per-axis kernel
-            r["bits_vs_plain"] = (r.get("bits_vs_plain", 0)
-                                  + bits_differ(got, ref))
-            r["elements"] = (r.get("elements", 0)
-                             + sum(g.numel() for g in got))
-        if timing:
-            # plain, kernel, kernel, plain
-            p1, k1 = cuda_ms(lambda: plain(*args)), cuda_ms(
-                lambda: kern(*args))
-            k2, p2 = cuda_ms(lambda: kern(*args)), cuda_ms(
-                lambda: plain(*args))
-            r["ms"] += min(k1, k2)
-            r["plain_ms"] += min(p1, p2)
-            t_bytes = hbm_bytes(name, s.grid, got[0]) / HBM_BYTES_PER_S
-            t_ops = count_ops(lambda: plain(*args)) / FP32_OPS_PER_S
-            r["bound_ms"] += 1e3 * max(t_bytes, t_ops)
-            r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-            if name in SHAPED:
-                sh = r.setdefault("shapes_ms", {})
-                for k, v in shape_ms(name, kern, args).items():
-                    sh[k] = sh.get(k, 0.0) + v
-            if name == "bc_fill":
-                # the one PyTorch call computing the deck's outflow fill
-                Ui = args[0][(slice(None),) + s.grid.interior()].contiguous()
-                ng = s.grid.nghost
-                r["library_ms"] = cuda_ms(lambda: torch.nn.functional.pad(
-                    Ui, (ng,) * 6, mode="replicate"))
-                del Ui
-        del got, ref
+        r = check_call(rec, name, kern, plain, args, s.grid, tol, timing)
+        if timing and name == "bc_fill":
+            # the one PyTorch call computing the deck's outflow fill
+            Ui = args[0][(slice(None),) + s.grid.interior()].contiguous()
+            ng = s.grid.nghost
+            r["library_ms"] = cuda_ms(lambda: torch.nn.functional.pad(
+                Ui, (ng,) * 6, mode="replicate"))
+            del Ui
     trans_f_bits(inp, s.sim)
     fp = fused_vs_pair(s, inp, tol, timing)
     say(f"phase 2 {n}^3 {dtype}: transverse_correct[F] bitwise its dF form "
@@ -1113,6 +1353,16 @@ def phase2(n, dtype, timing):
             f"{fp[1]:.3f} ms for the two kernels"))
     if fp is not None:
         rec["rad_fused"]["rates_plus_update_ms"] = fp[1]
+    del inp
+    for ns in (0,) if timing else (0, 1):
+        iso = iso_inputs(s, ns)
+        for name, kern, plain, args in iso_kernel_calls(s.grid, iso):
+            check_call(rec, name, kern, plain, args, s.grid, tol, timing)
+        trans_f_bits(iso, iso["sim"])
+        del iso
+    say(f"phase 2 {n}^3 {dtype}: isothermal forms checked on the state "
+        f"without its energy, nscalars {(0,) if timing else (0, 1)}; "
+        "transverse_correct[iso+F] bitwise its dF form")
     for name, r in rec.items():
         t = (f" kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})"
@@ -1163,6 +1413,25 @@ def nan_probe():
         say(f"phase 2 NaN probe 16^3 float64, {field} = NaN at {NAN_CELL}: "
             f"every kernel's NaN cells and reductions equal its plain "
             f"version's; NaN values per kernel {nans}")
+    # isothermal gas has no pressure floor: a NaN density or momentum
+    # reaches every isothermal form, as in the plain versions
+    s = make_sim(16, "float64")
+    for field, k in (("d", 0), ("M1", 1)):
+        iso = iso_inputs(s, 1, nan_field=k)
+        nans = {}
+        for name, kern, plain, args in iso_kernel_calls(s.grid, iso):
+            got, ref = outputs(kern(*args)), outputs(plain(*args))
+            compare(name, got, ref, TOL["float64"], s.grid, nan_probe=True)
+            nans[name] = nans.get(name, 0) + sum(
+                int(torch.isnan(r).sum()) for r in ref
+                if r.is_floating_point())
+        blind = [n for n, c in nans.items() if c == 0]
+        if blind:
+            raise AssertionError(f"isothermal NaN probe ({field}): no NaN "
+                                 f"reached the plain {blind}")
+        say(f"phase 2 isothermal NaN probe 16^3 float64, {field} = NaN at "
+            f"{NAN_CELL}: every isothermal form's NaN cells and reductions "
+            f"equal its plain version's; NaN values per kernel {nans}")
 
 
 def run_golden(device):
@@ -1486,6 +1755,200 @@ def phase3_forms():
             f"{ {k: v for k, v in counts[path].items() if v} }")
     torch.cuda.synchronize()
     return counts
+
+
+def turb_sim(n, dtype, nlim, **kw):
+    """The turb deck at n^3 through Simulation.from_par (no device argument
+    unless the caller gives one: the card is the default)."""
+    from atmospheric_athena_tpu_torch import Simulation
+    from atmospheric_athena_tpu_torch.par import ParameterDB
+    return Simulation.from_par(
+        ParameterDB.from_string(TURB_DECK.format(n=n, nlim=nlim)),
+        problem="turb", dtype=dtype, **kw)
+
+
+@contextlib.contextmanager
+def plain_on_card():
+    """Swap every kernel wrapper that the CTU step and new_dt call for its
+    plain version, so that a run on the card computes with the plain
+    PyTorch versions on CUDA tensors (and the same CUDA generator as the
+    kernel run); restores the wrappers on exit."""
+    from atmospheric_athena_tpu_torch.ops import ctu_mid_kernels as mid
+    from atmospheric_athena_tpu_torch.ops import hydro_kernels as hk
+    from atmospheric_athena_tpu_torch.ops import util_kernels as uk
+    swaps = [(hk, "sweep_lrflux", hk.sweep_lrflux_plain),
+             (hk, "sweep_lrflux_df", hk.sweep_lrflux_df_plain),
+             (hk, "flux_pointwise", hk.flux_pointwise_plain),
+             (hk, "flux_sweep_df", hk.flux_sweep_df_plain),
+             (mid, "gcross", mid.gcross_plain),
+             (mid, "transverse_correct", mid.transverse_correct_plain),
+             (mid, "flux_corrected", mid.flux_corrected_plain),
+             (mid, "grav_source", mid.grav_source_plain),
+             (mid, "final_update", mid.final_update_plain),
+             (uk, "max_dti_hydro", uk.max_dti_hydro_plain)]
+    old = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    for m, n, f in swaps:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for m, n, f in old:
+            setattr(m, n, f)
+
+
+def phase3_turb(n=32, ncyc=5):
+    """turb at n^3 float64, ncyc cycles on the card with the kernels
+    against the same run with the plain versions on the card (plain_on_card:
+    the deviates come from the same CUDA generator seed, so the forcing is
+    the same), on the middle-phase path, on MID=0 and with the
+    H-correction: (time, dt) after each cycle to rel 1e-12 and the interior
+    state within 1e-10 of each field's max; the kernel run launches its
+    path's isothermal forms, the plain run none.  Returns the launch counts
+    of each path's kernel run."""
+    import numpy as np
+    import torch
+    counts = {}
+    for path in ("turb", "turb MID=0", "turb hcorr"):
+        hc = path.endswith("hcorr")
+        with path_env(path):
+            g = turb_sim(n, "float64", ncyc, device="cuda", h_correction=hc)
+            p = turb_sim(n, "float64", ncyc, device="cuda", h_correction=hc)
+            if g.sim.eos != "isothermal" or g.sim.h_correction != hc:
+                raise AssertionError(f"turb: {g.sim}")
+            reset_counts()
+            traj_g = []
+            for _ in range(ncyc):
+                g.step()
+                traj_g.append((float(g.state.time), float(g.state.dt)))
+            counts[path] = read_counts()
+            traj_p = []
+            with plain_on_card():
+                for _ in range(ncyc):
+                    p.step()
+                    traj_p.append((float(p.state.time), float(p.state.dt)))
+            if read_counts() != counts[path]:
+                raise AssertionError(f"turb {path}: the plain run launched "
+                                     "a kernel")
+        check_counts(f"turb {n}^3, {path} path", counts[path], path)
+        for cyc, (a, b) in enumerate(zip(traj_g, traj_p)):
+            if not all(abs(x / y - 1) <= 1e-12 for x, y in zip(a, b)):
+                raise AssertionError(f"turb {path} cycle {cyc + 1}: (time, "
+                                     f"dt) {a} with the kernels, {b} plain")
+        a, b = level_interior(g), level_interior(p)
+        if not np.isfinite(a).all():
+            raise AssertionError(f"turb {path}: non-finite state")
+        worst = 0.0
+        for k in range(a.shape[0]):
+            err = float(np.abs(a[k] - b[k]).max()
+                        / max(np.abs(b[k]).max(), 1e-300))
+            worst = max(worst, err)
+            if not err <= 1e-10:
+                raise AssertionError(f"turb {path} field {k}: error "
+                                     f"{err:.3e} x max exceeds 1e-10")
+        say(f"phase 3 turb {n}^3 float64, {ncyc} cycles, {path} path: the "
+            f"kernels against the plain versions on the card, state max err "
+            f"{worst:.2e} x field max (bound 1e-10), (time, dt) within rel "
+            f"1e-12; launches "
+            f"{ {k: v for k, v in counts[path].items() if v} }")
+        del g, p
+    torch.cuda.synchronize()
+    return counts
+
+
+def host_reads(s):
+    """Device-to-host copies in one s.step() under torch.profiler, or None
+    where the profiler records no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s.step()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    if not any(getattr(e, "device_time_total", 0) or
+               getattr(e, "cuda_time_total", 0) for e in ev):
+        return None
+    return sum(e.count for e in ev if e.key.startswith("Memcpy DtoH"))
+
+
+def phase4_turb(n=256):
+    """Driven isothermal turbulence at full width: the turb deck at n^3
+    float32 through Simulation.from_par without a device argument, 5 cycles
+    via Simulation.run on the middle-phase path (and 5 more, the steady
+    cycle), then 1 on MID=0 and 1 with the H-correction, and 1 CLI cycle;
+    ms per cycle and zone-cycles/s, the driving (userwork_in_loop:
+    deviates, FFTs, sums) and the hydro step (ctu3d.step) timed apart with
+    CUDA events on the final state, host reads of one step, peak memory.
+    Returns the launch counts per path and the numbers."""
+    import tempfile
+    import torch
+    from atmospheric_athena_tpu_torch import __main__ as cli
+    from atmospheric_athena_tpu_torch.integrators import ctu3d
+    counts, out = {}, {}
+    for path, nlim in (("turb", 5), ("turb MID=0", 1), ("turb hcorr", 1)):
+        torch.cuda.reset_peak_memory_stats()
+        with path_env(path):
+            s = turb_sim(n, "float32", nlim,
+                         h_correction=path.endswith("hcorr"))
+            if s.device.type != "cuda" or s.sim.eos != "isothermal":
+                raise AssertionError(f"turb on {s.device}, {s.sim}")
+            torch.cuda.synchronize()
+            reset_counts()
+            r = s.run()
+            counts[path] = read_counts()
+            check_counts(f"{n}^3 turb run, {path} path", counts[path], path)
+            if r["steps"] != nlim or not (
+                    bool(torch.isfinite(s.state.U).all())
+                    and float(s.state.dt) > 0):
+                raise AssertionError(f"{n}^3 turb {path}: {r['steps']} "
+                                     "steps, or a non-finite state or dt <= 0")
+            rec = dict(step_ms=1e3 * r["wall"] / r["steps"],
+                       zone_cycles_per_sec=r["zone_cycles_per_sec"],
+                       peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+            if path == "turb":
+                # the first cycle builds cuFFT's plans: 5 more cycles
+                # give the steady cycle
+                r2 = s.run(max_steps=5)
+                rec["steady_step_ms"] = 1e3 * r2["wall"] / r2["steps"]
+                rec["steady_zone_cycles_per_sec"] = r2["zone_cycles_per_sec"]
+                if not bool(torch.isfinite(s.state.U).all()):
+                    raise AssertionError(f"{n}^3 turb: non-finite state "
+                                         "after 10 cycles")
+                st, sim, grid = s.state, s.sim, s.grid
+                rec["drive_ms"] = cuda_ms(lambda: s.problem.userwork_in_loop(
+                    st, sim, grid), reps=10)
+                rec["hydro_ms"] = cuda_ms(lambda: ctu3d.step(
+                    st, st.dt, sim, grid, s.problem, phi=s.phi), reps=10)
+                rec["host_reads_per_step"] = host_reads(s)
+        out[path] = rec
+        say(f"phase 4 {n}^3 float32 turb (isothermal, Roe, PLM"
+            f"{', H-correction' if path.endswith('hcorr') else ''}), {nlim} "
+            f"cycles via Simulation.run, {path} path: step "
+            f"{rec['step_ms']:.2f} ms, {rec['zone_cycles_per_sec']:.4e} "
+            f"zone-cycles/s"
+            + ("" if path != "turb" else
+               f" (the first cycle builds cuFFT's plans); 5 more cycles: "
+               f"step {rec['steady_step_ms']:.2f} ms, "
+               f"{rec['steady_zone_cycles_per_sec']:.4e} zone-cycles/s; "
+               f"driving {rec['drive_ms']:.3f} ms and hydro step "
+               f"{rec['hydro_ms']:.3f} ms per cycle (CUDA events); host "
+               f"reads in one step {rec['host_reads_per_step']}")
+            + f"; peak device memory {rec['peak_gib']:.2f} GiB; all fields "
+            f"finite, dt {float(s.state.dt):.6e}; launches "
+            f"{ {k: v for k, v in counts[path].items() if v} }")
+        del s
+    with tempfile.TemporaryDirectory() as tmp:
+        deck = os.path.join(tmp, "athinput.turb")
+        with open(deck, "w") as f:
+            f.write(TURB_DECK.format(n=n, nlim=1))
+        rc = cli.main(["-i", deck, "--problem", "turb", "--dtype",
+                       "float32"])
+    if rc != 0:
+        raise AssertionError(f"turb CLI returned {rc}")
+    torch.cuda.synchronize()
+    say(f"phase 4 {n}^3 float32 turb: 1 CLI cycle done")
+    return counts, out
 
 
 def batch_vs_k1(ncycles=3):
@@ -1846,16 +2309,24 @@ def source_of(name):
 
 def form_args(name):
     """The template arguments after NS that pick kernel entry `name`'s
-    instantiations in ptxas's report: (FLUX, ORDER, DF) for B5, (FLUX,) for
-    B12, B13 and B8; None for the kernels without forms of the solver."""
+    instantiations in ptxas's report, the gas (ISO) first: (ISO, FLUX,
+    ORDER, DF) for B5, (ISO, FLUX) for B12, B13 and B8, (ISO, WHOLE) for B7,
+    (ISO, DF) for B10; None for the kernels without forms of the gas."""
     from atmospheric_athena_tpu_torch.ops import hydro_kernels as hk
     base = base_name(name)
     form = name[len(base) + 1:-1]
+    iso = form.startswith("iso+")
+    rest = form[4:] if iso else form
     if base.startswith("sweep"):
-        o, f = SWEEP_FORMS[form]
-        return [hk.FLUX_KIND[f], hk.ORDER_KIND[o], int("_df" in base)]
+        o, f = (ISO_SWEEP_FORMS if iso else SWEEP_FORMS)[form]
+        return [int(iso), hk.FLUX_KIND[f], hk.ORDER_KIND[o],
+                int("_df" in base)]
     if base in ("flux_pointwise", "flux_sweep_df", "flux_corrected"):
-        return [hk.FLUX_KIND[form or "roe"]]
+        return [int(iso), hk.FLUX_KIND[rest or "roe"]]
+    if base == "transverse_correct":
+        return [int(iso), int(rest == "F")]
+    if base == "final_update":
+        return [int(iso), int(rest == "dF2")]
     return None
 
 
@@ -1888,22 +2359,24 @@ def sass_loops(kernel, label):
     import re
     from pathlib import Path
     from atmospheric_athena_tpu_torch import cuda_lib
-    if "out" not in _SASS:
+    if "funcs" not in _SASS:
+        # the dump split once into (function name, its lines)
         tool = Path(cuda_lib.nvcc()).parent / "cuobjdump"
-        _SASS["out"] = subprocess.run(
+        out = subprocess.run(
             [str(tool), "-sass", str(cuda_lib.library_path())],
             capture_output=True, text=True, timeout=300, check=True).stdout
+        funcs = []
+        for line in out.splitlines():
+            if "Function : " in line:
+                funcs.append((line.split("Function : ")[1].strip(), []))
+            elif funcs:
+                funcs[-1][1].append(line)
+        _SASS["funcs"] = funcs
     want = f"{kernel}{label}"
-    addrs, labels, branches, on = [], {}, [], False
-    for line in _SASS["out"].splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            if on:
-                break
-            on = want in m.group(1)
-            continue
-        if not on:
-            continue
+    body = next((lines for name, lines in _SASS["funcs"] if want in name),
+                [])
+    addrs, labels, branches = [], {}, []
+    for line in body:
         m = re.match(r"\s*(\.L_x_\d+):", line)
         if m:
             labels[m.group(1)] = None
@@ -1944,7 +2417,9 @@ def sm_clock():
 
 def sass_hydro(n=256):
     """The static SASS instructions per interface of each B5 and B12 form
-    (float32, one passive scalar as in phase 2) in each launch shape: the
+    (float32, one passive scalar as in phase 2, none for the isothermal
+    forms, as turb runs them; of these, order 2 and PPM with Roe) in each
+    launch shape: the
     march kernel's loop body (one interface of a y or z segment) and the
     tile kernel's whole body (one thread: a cell's conversion and
     reconstruction and an interface's solve, with the division and sqrt
@@ -1962,17 +2437,21 @@ def sass_hydro(n=256):
     out = {}
     names = [k[0] for k in KERNELS
              if base_name(k[0]) in ("sweep_lrflux", "sweep_lrflux_df",
-                                    "flux_sweep_df")]
+                                    "flux_sweep_df")
+             and (k[0] not in ISO_FORMS or k[0] in SHAPED
+                  or k[0].endswith("[iso+ppm]"))]
     for name in names:
         args = form_args(name)
-        form = "".join(f"ELi{x}" for x in args[:2]) + (
-            f"ELb{args[2]}" if len(args) > 2 else "")
+        # mangled <float, NS, ISO, FLUX[, ORDER, DF]>
+        form = (f"IfLi{0 if args[0] else 1}ELb{args[0]}"
+                + "".join(f"ELi{x}" for x in args[1:3])
+                + (f"ELb{args[3]}" if len(args) > 3 else ""))
         march, tile = SYMBOLS[base_name(name)]
         shapes = shapes_of(name) if name in SHAPED else [hk.SWEEP_SHAPES[0]]
         per = {}
         for S, T, R in shapes:
-            loops, _ = sass_loops(march, f"IfLi1{form}ELi{S}EE")
-            _, body = sass_loops(tile, f"IfLi1{form}ELi{T}ELi{R}EE")
+            loops, _ = sass_loops(march, f"{form}ELi{S}EE")
+            _, body = sass_loops(tile, f"{form}ELi{T}ELi{R}EE")
             per[f"{S}x{T}x{R}"] = dict(march=loops[0] if loops else None,
                                        tile=body)
         d = per["x".join(map(str, shapes[0]))]
@@ -1982,7 +2461,8 @@ def sass_hydro(n=256):
             issue_ms = 1e3 * mean * (n + 8) ** 3 / 32 / (nsm * 4 * mhz * 1e6)
         out[name] = dict(sass_per_interface=per, sass_issue_ms=issue_ms,
                          sm_clock_mhz=mhz)
-        say(f"phase 1 SASS {name} (f32, NS=1): instructions per interface "
+        say(f"phase 1 SASS {name} (f32, NS={0 if args[0] else 1}): "
+            "instructions per interface "
             f"by launch shape (march loop, tile body) {per}; the default "
             f"shape's issue time per launch at {mhz:.0f} MHz on {nsm} SMs, "
             f"{n}^3: {issue_ms} ms")
@@ -2016,6 +2496,28 @@ def sass_batch(n=256):
     return dict(sass_loops=loops, sass_issue_ms=issue_ms, sm_clock_mhz=mhz)
 
 
+class Laps:
+    """Prints the seconds since the last lap, for the time budget."""
+
+    def __init__(self, t0):
+        self.t = t0
+
+    def __call__(self, what):
+        now = time.perf_counter()
+        say(f"chip_smoke: {what} took {now - self.t:.1f} s")
+        self.t = now
+
+
+def triton_regs(name):
+    """The registers and spills of the Triton kernel of entry `name` (B11,
+    in the gas of its form), as Triton reported them for each dtype."""
+    from atmospheric_athena_tpu_torch.ops import util_kernels as uk
+    gas = name[len(base_name(name)) + 1:-1] or FORMS[base_name(name)]
+    got = {k[0]: v for k, v in uk.max_dti_hydro.regs.items() if k[1] == gas}
+    return "; ".join(f"{dt}: {r} registers, spills {sp}"
+                     for dt, (r, sp) in sorted(got.items())) or None
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2039,24 +2541,36 @@ def main():
             say(f"phase 1 ptxas {key[0]} ({key[1]}): {regs[key]}")
     sass = sass_batch()
     sass_h = sass_hydro()
+    lap = Laps(t_all)
+    lap("phases 0-1")
 
     # B3' runs on no path (as in the JAX package): its launches are those
     # of the two phase-2 comparisons
     reset_counts()
     phase2(64, "float64", timing=False)
+    lap("phase 2 at 64^3 float64")
     rec = phase2(256, "float32", timing=True)
     p2 = read_counts()
+    lap("phase 2 at 256^3 float32")
     for name in SHAPED:
         say(f"phase 2 launch shapes of {name} (256^3 float32, burst ms per "
             "launch" + (", summed over the 3 axes"
                         if SHAPED[name][0] == _HYD else "")
             + f"): {rec[name]['shapes_ms']}; ptxas {form_regs(name, regs)}")
     nan_probe()
+    lap("phase 2 NaN probe")
     phase3()
     p3 = phase3_forms()
+    lap("phase 3")
+    phase3_turb()
+    lap("phase 3 turb")
     smr, _ = phase4_smr()
     counts, _ = phase4()
     counts["smr"] = smr
+    lap("phase 4")
+    turb, _ = phase4_turb()
+    counts.update(turb)
+    lap("phase 4 turb")
 
     # each kernel's launches in the phase-4 run of the first path that
     # runs it: the SMR run (3 cycles), then the bench run (3), the
@@ -2067,7 +2581,8 @@ def main():
     steps = {"smr": 3, "batch": 3, "mid": 1, "MID=0": 1, "nohcorr": 1,
              "sedov": 5, "sedov MID=0": 1, "sedov hcorr": 1, "ppm": 3,
              "ppm MID=0": 1, "sedov hlle": 5, "sedov hlle MID=0": 1,
-             "sedov hlle hcorr": 1}
+             "sedov hlle hcorr": 1, "turb": 5, "turb MID=0": 1,
+             "turb hcorr": 1}
     kernels = []
     for name, route, source, replaces in KERNELS:
         path = next((p for p in steps if counts[p][name] > 0), None)
@@ -2082,13 +2597,14 @@ def main():
                  max_rel_err=r["max_rel_err"], ms=r["ms"],
                  plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                  bound_by=r["bound_by"], library_ms=r["library_ms"],
-                 registers=form_regs(name, regs))
+                 registers=(triton_regs(name) if route == "triton"
+                            else form_regs(name, regs)))
         for extra in ("dF2_bits_vs_plain", "dF_bitwise_whole_flux",
                       "rates_plus_update_ms", "bits_vs_plain", "elements",
                       "shapes_ms"):
             if extra in r:
                 k[extra] = r[extra]
-        if path is None and name not in FUSED:
+        if path is None and name not in FUSED + ISO_FORMS:
             k["phase3_launches"] = sum(c[name] for c in p3.values())
         if name == "rad_batch":
             k.update(sass)

@@ -14,7 +14,11 @@ goldens and isph2lev against the plain run on the CPU; the reconstruction
 orders 1, 3 (PPM), 2p and 3p and the HLLE solver in B5 (both forms, at
 lines of 45, 100 and 300 cells too), B13, B12 and B8, and short runs of
 isph64 with PPM and testsedov with every such form on the card against
-the plain run on the CPU (chip_smoke.phase3_forms).  Needs a CUDA
+the plain run on the CPU (chip_smoke.phase3_forms); every isothermal form
+(B5 at every order and solver, B13, B12, B8, B7 and B10 in both operand
+forms, B11) on the isph state without its energy, with and without a
+scalar, along the lines of 45, 100 and 300 cells too, and turb on the card
+against the plain versions on the card (chip_smoke.phase3_turb).  Needs a CUDA
 device, nvcc and triton; skipped elsewhere.  This file imports no JAX,
 so on a machine without JAX run it as
 
@@ -451,3 +455,50 @@ def test_bc_fill_kernel(dtype, nx):
 def test_nan_propagation():
     need_cuda()
     chip_smoke.nan_probe()
+
+
+def check_iso(s, tol, ns):
+    """Every isothermal kernel form against its plain version on the state
+    of `s` without its energy and with `ns` scalars (chip_smoke.iso_inputs);
+    the dF sweeps bitwise their whole-flux sweeps, B12 the roll of B13's
+    flux and B7-F its dF form."""
+    iso = chip_smoke.iso_inputs(s, ns)
+    seen = set()
+    for name, kern, plain, args in chip_smoke.iso_kernel_calls(s.grid, iso):
+        chip_smoke.compare(name, chip_smoke.outputs(kern(*args)),
+                           chip_smoke.outputs(plain(*args)), tol, s.grid)
+        if chip_smoke.base_name(name) == "sweep_lrflux_df":
+            chip_smoke.sweep_df_bits(*args)
+        elif chip_smoke.base_name(name) == "flux_sweep_df":
+            chip_smoke.df2_bits(*args)
+        seen.add(name)
+    assert seen == set(chip_smoke.ISO_FORMS)
+    chip_smoke.trans_f_bits(iso, iso["sim"])
+
+
+@pytest.mark.parametrize("ns", [0, 1], ids=["nscalars0", "nscalars1"])
+def test_isothermal_kernels(case, ns):
+    """Each isothermal form against its plain version (with the deck's
+    gravity operands), counted under its "iso+" form."""
+    s, _, tol = case
+    from atmospheric_athena_tpu_torch.ops import hydro_kernels as hk
+    before = hk.sweep_lrflux_df.forms["iso+ppm"]
+    check_iso(s, tol, ns)
+    assert hk.sweep_lrflux_df.forms["iso+ppm"] > before
+
+
+def test_isothermal_kernels_line_lengths(line_case):
+    """The isothermal forms along lines of 45, 100 and 300 interior
+    cells."""
+    sims, tol = line_case
+    for s in sims:
+        check_iso(s, tol, 1)
+
+
+def test_turb_card_vs_plain():
+    """turb at 16^3 float64, 3 cycles on each path (middle-phase, MID=0,
+    with the H-correction), the kernels against the plain versions on the
+    card with the same CUDA generator seed (1e-10 of each field's max)."""
+    need_cuda()
+    counts = chip_smoke.phase3_turb(n=16, ncyc=3)
+    assert counts["turb"]["flux_sweep_df[iso+roe]"] == 9

@@ -376,8 +376,8 @@ def test_cli_runs_testsedov(capsys):
 
 
 def test_solver_support():
-    """The kernels take Roe, HLLC and HLLE; hlld, two_shock and isothermal
-    gas still raise, naming the ROADMAP item."""
+    """The kernels take Roe, HLLC and HLLE; hlld, two_shock and more than
+    one passive scalar still raise, naming the ROADMAP item."""
     for flux in FLUXES + ("hlle",):
         assert hydro_kernels.supported(TSim(flux=flux))
     grid = Simulation.from_file(SEDOV, problem="testsedov", device="cpu",
@@ -385,7 +385,7 @@ def test_solver_support():
     tctu3d.check_supported(TSim(flux="hlle"), grid)
     for sim, item in ((TSim(flux="hlld"), "A12"),
                       (TSim(flux="two_shock"), "A11"),
-                      (TSim(eos="isothermal"), "A11 step 4, B2")):
+                      (TSim(nscalars=2), "A11 step 4, B2")):
         assert not hydro_kernels.supported(sim)
         with pytest.raises(NotImplementedError, match=item):
             tctu3d.check_supported(sim, grid)

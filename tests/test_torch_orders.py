@@ -349,7 +349,7 @@ def test_kernel_forms_and_refusals():
     for sim, item in ((TSim(flux="hlld"), "A12"),
                       (TSim(flux="two_shock"), "A11 step 5"),
                       (TSim(flux="exact"), "A11 step 5"),
-                      (TSim(eos="isothermal"), "B2"),
+                      (TSim(eos="isothermal", nscalars=2), "B2"),
                       (TSim(nscalars=2), "B2")):
         with pytest.raises(NotImplementedError, match=item):
             hydro_kernels._check_cuda_args(sim, torch.zeros(5, 4, 4, 4), (),

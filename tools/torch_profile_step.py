@@ -9,12 +9,15 @@ for the PyTorch port (atmospheric_athena_tpu_torch).
     python3 tools/torch_profile_step.py testsedov configure/flux=hlle  # HLLE
     python3 tools/torch_profile_step.py configure/order=3   # bench with PPM
     python3 tools/torch_profile_step.py isph2lev        # SMR, 256^3 + 256^3
+    python3 tools/torch_profile_step.py turb            # isothermal turbulence
 
 Builds the isph deck at the bench configuration (256^3, float32,
 ionradiation/maxiter=50, ionradiation/batch_iters=25), or with `testsedov`
 first the testsedov deck at 256^3 float32 with cubic cells and HLLC, or with
 `isph2lev` first the SMR deck with a 256^3 root and a 256^3 child over its
-centre in the bench configuration, on the first CUDA device, with any
+centre in the bench configuration, or with `turb` first the driven
+isothermal turbulence deck (chip_smoke.TURB_DECK) at 256^3 float32, on the
+first CUDA device, with any
 block/name=value overrides from the command line applied after those (a
 `configure/flux=` override replaces testsedov's HLLC), runs
 one warm-up step, then profiles one step with torch.profiler (CPU and CUDA
@@ -49,7 +52,8 @@ SMR = BENCH + [f"domain2/Nx{a}={N}" for a in (1, 2, 3)] + [
 PROBLEMS = {"ioniz_sphere": ("athinput.isph64", "ioniz_sphere", BENCH, {}),
             "testsedov": ("athinput.testsedov", "testsedov", SEDOV,
                           {"flux": "hllc"}),
-            "isph2lev": ("athinput.isph2lev", "ioniz_sphere", SMR, {})}
+            "isph2lev": ("athinput.isph2lev", "ioniz_sphere", SMR, {}),
+            "turb": (None, "turb", [], {})}
 
 
 def main():
@@ -75,9 +79,18 @@ def main():
     if any(a.startswith("configure/flux=") for a in args):
         kw = {k: v for k, v in kw.items() if k != "flux"}
     cmd = base + args
-    s = Simulation.from_file(os.path.join(REPO, "tests", "golden", deck),
-                             problem=problem, cmdline=cmd, dtype=DTYPE,
-                             device="cuda", **kw)
+    if deck is None:
+        # the turb deck lives in chip_smoke.py (its text, at N^3)
+        from atmospheric_athena_tpu_torch.par import ParameterDB
+        from chip_smoke import TURB_DECK
+        par = ParameterDB.from_string(TURB_DECK.format(n=N, nlim=-1))
+        par.apply_cmdline(cmd)
+        s = Simulation.from_par(par, problem=problem, dtype=DTYPE,
+                                device="cuda", **kw)
+    else:
+        s = Simulation.from_file(os.path.join(REPO, "tests", "golden", deck),
+                                 problem=problem, cmdline=cmd, dtype=DTYPE,
+                                 device="cuda", **kw)
     print(f"configuration: {name} {' '.join(cmd)}")
     s.step()
     torch.cuda.synchronize()
