@@ -35,6 +35,9 @@
 // B7, B8 and B10 are templated on the gas (ISO, hydro.cuh): isothermal gas
 // has no energy field, so it skips the energy terms of G and Sg.  B6 and B9
 // do not depend on it (the JAX package builds B6 as for adiabatic gas).
+// They take 2 to kMaxScalars passive scalars as a run-time count (NS =
+// kNsRun): B7 and B10 loop over the scalars' fields, which take no
+// gravity term; B8 forms each scalar's flux from the solve's ScalarFlux.
 //
 // Layout: U-like arrays [NV, NZ, NY, NX] contiguous in physical variable
 // order, fields [NZ, NY, NX].  One thread per cell or interface, the thread
@@ -157,8 +160,8 @@ __global__ void transverse_kernel(const T* __restrict__ Ulp,
                                   Ptr3<T> G, const T* __restrict__ q,
                                   T* __restrict__ Ulc, T* __restrict__ Urc,
                                   T* __restrict__ eta, Geom g, int a,
-                                  Eos<T> e) {
-  constexpr int NV = nwave(ISO) + NS;
+                                  Eos<T> e, int ns) {
+  constexpr int NW = nwave(ISO), NV = NW + ns_fixed(NS);
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= g.ncell) return;
   const long long n = g.ncell;
@@ -214,6 +217,26 @@ __global__ void transverse_kernel(const T* __restrict__ Ulp,
     Urc[o + idx] = r;
     Ulc[o + idx] = l;
   }
+  if constexpr (NS < 0) {
+    // NS = kNsRun: the scalars, which take no gravity term
+    for (int v = NW; v < NW + ns; ++v) {
+      const long long o = v * n;
+      T dr0, dr1, dl0, dl1;
+      if constexpr (WHOLE) {
+        dr0 = dF0[o + r0] - dF0[o + idx];
+        dr1 = dF1[o + r1] - dF1[o + idx];
+        dl0 = dF0[o + rm0] - dF0[o + m];
+        dl1 = dF1[o + rm1] - dF1[o + m];
+      } else {
+        dr0 = dF0[o + idx];
+        dr1 = dF1[o + idx];
+        dl0 = dF0[o + m];
+        dl1 = dF1[o + m];
+      }
+      Urc[o + idx] = Urp[o + idx] - (q0 * dr0 + q1 * dr1);
+      Ulc[o + idx] = Ulp[o + idx] - (q0 * dl0 + q1 * dl1);
+    }
+  }
   if (eta != nullptr) {
     const T cfl = cfast_cons<T, ISO>(ul, e);
     const T cfr = cfast_cons<T, ISO>(ur, e);
@@ -231,8 +254,8 @@ template <typename T, int NS, bool ISO, int FLUX>
 __global__ void flux_corrected_kernel(const T* __restrict__ Ul,
                                       const T* __restrict__ Ur, Ptr3<T> eta,
                                       T* __restrict__ F, Geom g, int a,
-                                      Eos<T> e) {
-  constexpr int NV = nwave(ISO) + NS;
+                                      Eos<T> e, int ns) {
+  constexpr int NF = ns_fixed(NS), NW = nwave(ISO), NV = NW + NF;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= g.ncell) return;
   const long long n = g.ncell;
@@ -259,11 +282,21 @@ __global__ void flux_corrected_kernel(const T* __restrict__ Ul,
     ul[v] = Ul[pm.p[v] * n + idx];
     ur[v] = Ur[pm.p[v] * n + idx];
   }
-  cons_to_prim<T, NS, ISO>(ul, wl, e);
-  cons_to_prim<T, NS, ISO>(ur, wr, e);
-  riemann_flux<T, NS, ISO, FLUX>(ul, ur, wl, wr, etah, e, f);
+  cons_to_prim<T, NF, ISO>(ul, wl, e);
+  cons_to_prim<T, NF, ISO>(ur, wr, e);
+  ScalarFlux<T> sf;
+  riemann_flux<T, NF, ISO, FLUX>(ul, ur, wl, wr, etah, e, f,
+                                 NS < 0 ? &sf : nullptr);
 #pragma unroll
   for (int v = 0; v < NV; ++v) F[pm.p[v] * n + idx] = f[v];
+  if constexpr (NS < 0) {
+    // NS = kNsRun: each scalar's cons->prim and flux (flux_pointwise_kernel)
+    const T dil = T(1) / ul[0], dir = T(1) / ur[0];
+    for (int s = 0; s < ns; ++s) {
+      const long long o = (NW + s) * n + idx;
+      F[o] = sf(Ul[o] * dil, Ur[o] * dir);
+    }
+  }
 }
 
 // B9: Sg [6, ...]; Fid = first-pass density fluxes, F2id = step-9 ones,
@@ -308,8 +341,11 @@ template <typename T, int NS, bool ISO, int DF>
 __global__ void final_update_kernel(const T* __restrict__ U,
                                     const T* __restrict__ Sg, Ptr3<T> F,
                                     Ptr3<T> dF, const T* __restrict__ dtodx,
-                                    T* __restrict__ Uout, Geom g, Box box) {
-  constexpr int NV = nwave(ISO) + NS;
+                                    T* __restrict__ Uout, Geom g, Box box,
+                                    int ns) {
+  constexpr int NV = nwave(ISO) + ns_fixed(NS);
+  // NS = kNsRun: the scalars follow in a loop over the run-time count
+  const int nvr = NS < 0 ? nwave(ISO) + ns : NV;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= g.ncell) return;
   const long long n = g.ncell;
@@ -320,6 +356,8 @@ __global__ void final_update_kernel(const T* __restrict__ U,
   if (!inside) {
 #pragma unroll
     for (int v = 0; v < NV; ++v) Uout[v * n + idx] = U[v * n + idx];
+    if constexpr (NS < 0)
+      for (int v = NV; v < nvr; ++v) Uout[v * n + idx] = U[v * n + idx];
     return;
   }
   long long r[3];
@@ -352,6 +390,22 @@ __global__ void final_update_kernel(const T* __restrict__ U,
         u = u - dt[a] * (F.p[a][o + r[a]] - F.p[a][o + idx]);
     }
     Uout[o + idx] = u;
+  }
+  if constexpr (NS < 0) {
+    // the scalars, which take no source term
+    for (int v = NV; v < nvr; ++v) {
+      const long long o = v * n;
+      T u = U[o + idx];
+      if constexpr (DF) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) u = u - dt[a] * dF.p[a][o + idx];
+      } else {
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+          u = u - dt[a] * (F.p[a][o + r[a]] - F.p[a][o + idx]);
+      }
+      Uout[o + idx] = u;
+    }
   }
 }
 
@@ -388,7 +442,7 @@ int launch_transverse(const void* Ulp, const void* Urp, const void* dF0,
                       const void* dF1, const void* dF2, const void* G0,
                       const void* G1, const void* G2, const void* q,
                       void* Ulc, void* Urc, void* eta, int nz, int ny, int nx,
-                      int axis, int whole, double c0, double c1,
+                      int axis, int ns, int whole, double c0, double c1,
                       void* stream) {
   const Geom g = make_geom(nz, ny, nx);
   const Ptr3<T> dF = ptr3<T>(dF0, dF1, dF2), G = ptr3<T>(G0, G1, G2);
@@ -398,26 +452,26 @@ int launch_transverse(const void* Ulp, const void* Urp, const void* dF0,
     transverse_kernel<T, NS, ISO, 1><<<blocks, kMidThreads, 0,
                                        (cudaStream_t)stream>>>(
         (const T*)Ulp, (const T*)Urp, dF, G, (const T*)q, (T*)Ulc, (T*)Urc,
-        (T*)eta, g, axis, e);
+        (T*)eta, g, axis, e, ns);
   else
     transverse_kernel<T, NS, ISO, 0><<<blocks, kMidThreads, 0,
                                        (cudaStream_t)stream>>>(
         (const T*)Ulp, (const T*)Urp, dF, G, (const T*)q, (T*)Ulc, (T*)Urc,
-        (T*)eta, g, axis, e);
+        (T*)eta, g, axis, e, ns);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int NS, bool ISO, int FLUX>
 int launch_flux_corrected(const void* Ul, const void* Ur, const void* eta0,
                           const void* eta1, const void* eta2, void* F,
-                          int nz, int ny, int nx, int axis, double c0,
+                          int nz, int ny, int nx, int axis, int ns, double c0,
                           double c1, void* stream) {
   const Geom g = make_geom(nz, ny, nx);
   flux_corrected_kernel<T, NS, ISO, FLUX><<<mid_blocks(g.ncell),
                                             kMidThreads, 0,
                                             (cudaStream_t)stream>>>(
       (const T*)Ul, (const T*)Ur, ptr3<T>(eta0, eta1, eta2), (T*)F, g, axis,
-      Eos<T>{(T)c0, (T)c1});
+      Eos<T>{(T)c0, (T)c1}, ns);
   return (int)cudaGetLastError();
 }
 
@@ -444,8 +498,8 @@ template <typename T, int NS, bool ISO>
 int launch_final_update(const void* U, const void* Sg, const void* F0,
                         const void* F1, const void* F2, const void* dF0,
                         const void* dF1, const void* dF2, const void* dtodx,
-                        void* Uout, int nz, int ny, int nx, const int* lo,
-                        const int* hi, void* stream) {
+                        void* Uout, int nz, int ny, int nx, int ns,
+                        const int* lo, const int* hi, void* stream) {
   const Geom g = make_geom(nz, ny, nx);
   const Box box{{lo[0], lo[1], lo[2]}, {hi[0], hi[1], hi[2]}};
   const Ptr3<T> F = ptr3<T>(F0, F1, F2), dF = ptr3<T>(dF0, dF1, dF2);
@@ -453,11 +507,13 @@ int launch_final_update(const void* U, const void* Sg, const void* F0,
   if (dF0 != nullptr)
     final_update_kernel<T, NS, ISO, 1><<<blocks, kMidThreads, 0,
                                          (cudaStream_t)stream>>>(
-        (const T*)U, (const T*)Sg, F, dF, (const T*)dtodx, (T*)Uout, g, box);
+        (const T*)U, (const T*)Sg, F, dF, (const T*)dtodx, (T*)Uout, g, box,
+        ns);
   else
     final_update_kernel<T, NS, ISO, 0><<<blocks, kMidThreads, 0,
                                          (cudaStream_t)stream>>>(
-        (const T*)U, (const T*)Sg, F, dF, (const T*)dtodx, (T*)Uout, g, box);
+        (const T*)U, (const T*)Sg, F, dF, (const T*)dtodx, (T*)Uout, g, box,
+        ns);
   return (int)cudaGetLastError();
 }
 
@@ -465,7 +521,8 @@ int launch_final_update(const void* U, const void* Sg, const void* F0,
 
 // ---------------------------------------------------------------- C API
 // Return value: cudaGetLastError() after the launch (0 = launched).
-// nscalars must be 0 or 1, iso 0 (adiabatic gas) or 1 (isothermal gas), c0
+// nscalars at most kMaxScalars (hydro.cuh), iso 0 (adiabatic gas) or 1
+// (isothermal gas), c0
 // and c1 the gas's EOS constants (hydro.cuh Eos); the wrappers
 // (ops/ctu_mid_kernels.py) check shapes, types and devices.
 
@@ -494,16 +551,14 @@ int ath_gcross_f64(ATH_GCROSS_ARGS) {
       double c1, void *stream
 #define ATH_TRANS_CALL                                                     \
   Ulp, Urp, dF0, dF1, dF2, G0, G1, G2, q, Ulc, Urc, eta, nz, ny, nx, axis, \
-      whole, c0, c1, stream
-#define ATH_TRANS_BY_GAS(T)                                                \
-  (iso ? ATH_DISPATCH_NS(                                                  \
-             nscalars,                                                     \
-             (ath::launch_transverse<T, 0, true>(ATH_TRANS_CALL)),         \
-             (ath::launch_transverse<T, 1, true>(ATH_TRANS_CALL)))         \
-       : ATH_DISPATCH_NS(                                                  \
-             nscalars,                                                     \
-             (ath::launch_transverse<T, 0, false>(ATH_TRANS_CALL)),        \
-             (ath::launch_transverse<T, 1, false>(ATH_TRANS_CALL))))
+      nscalars, whole, c0, c1, stream
+#define ATH_TRANS_GAS(T, ISO)                                              \
+  ATH_DISPATCH_NS(                                                         \
+      nscalars, (ath::launch_transverse<T, 0, ISO>(ATH_TRANS_CALL)),       \
+      (ath::launch_transverse<T, 1, ISO>(ATH_TRANS_CALL)),                 \
+      (ath::launch_transverse<T, ath::kNsRun, ISO>(ATH_TRANS_CALL)))
+#define ATH_TRANS_BY_GAS(T) \
+  (iso ? ATH_TRANS_GAS(T, true) : ATH_TRANS_GAS(T, false))
 
 int ath_transverse_f32(ATH_TRANS_ARGS) { return ATH_TRANS_BY_GAS(float); }
 int ath_transverse_f64(ATH_TRANS_ARGS) { return ATH_TRANS_BY_GAS(double); }
@@ -514,7 +569,7 @@ int ath_transverse_f64(ATH_TRANS_ARGS) { return ATH_TRANS_BY_GAS(double); }
       const void *eta2, void *F, int nz, int ny, int nx, int axis,         \
       int nscalars, int iso, int flux, double c0, double c1, void *stream
 #define ATH_FLUXC_CALL \
-  Ul, Ur, eta0, eta1, eta2, F, nz, ny, nx, axis, c0, c1, stream
+  Ul, Ur, eta0, eta1, eta2, F, nz, ny, nx, axis, nscalars, c0, c1, stream
 
 int ath_flux_corrected_f32(ATH_FLUXC_ARGS) {
   return ATH_DISPATCH_ISO_NS_FLUX(float, iso, ath::launch_flux_corrected,
@@ -551,18 +606,17 @@ int ath_grav_source_f64(ATH_SG_ARGS) {
       const void *dtodx, void *Uout, int nz, int ny, int nx, int nscalars, \
       int iso, int lo0, int lo1, int lo2, int hi0, int hi1, int hi2,       \
       void *stream
-#define ATH_FINAL_CALL \
-  U, Sg, F0, F1, F2, dF0, dF1, dF2, dtodx, Uout, nz, ny, nx, lo, hi, stream
+#define ATH_FINAL_CALL                                                     \
+  U, Sg, F0, F1, F2, dF0, dF1, dF2, dtodx, Uout, nz, ny, nx, nscalars, lo, \
+      hi, stream
+#define ATH_FINAL_GAS(T, ISO)                                              \
+  ATH_DISPATCH_NS(                                                         \
+      nscalars, (ath::launch_final_update<T, 0, ISO>(ATH_FINAL_CALL)),     \
+      (ath::launch_final_update<T, 1, ISO>(ATH_FINAL_CALL)),               \
+      (ath::launch_final_update<T, ath::kNsRun, ISO>(ATH_FINAL_CALL)))
 #define ATH_FINAL_BY_GAS(T)                                                \
   const int lo[3] = {lo0, lo1, lo2}, hi[3] = {hi0, hi1, hi2};              \
-  return iso ? ATH_DISPATCH_NS(                                            \
-                   nscalars,                                               \
-                   (ath::launch_final_update<T, 0, true>(ATH_FINAL_CALL)), \
-                   (ath::launch_final_update<T, 1, true>(ATH_FINAL_CALL))) \
-             : ATH_DISPATCH_NS(                                            \
-                   nscalars,                                               \
-                   (ath::launch_final_update<T, 0, false>(ATH_FINAL_CALL)), \
-                   (ath::launch_final_update<T, 1, false>(ATH_FINAL_CALL)));
+  return iso ? ATH_FINAL_GAS(T, true) : ATH_FINAL_GAS(T, false);
 
 int ath_final_update_f32(ATH_FINAL_ARGS) { ATH_FINAL_BY_GAS(float) }
 int ath_final_update_f64(ATH_FINAL_ARGS) { ATH_FINAL_BY_GAS(double) }

@@ -12,7 +12,9 @@
 //       here for adiabatic gas, in flux_iso.cu for isothermal gas.
 //
 // Every kernel is templated on the gas and the solver (hydro.cuh
-// riemann_flux): Roe with its HLLE fallback, HLLE or HLLC.
+// riemann_flux): Roe with its HLLE fallback, HLLE or HLLC; and on the
+// number of passive scalars, 0, 1 or the run-time count of 2 to
+// kMaxScalars (NS = kNsRun, B5 and B12 in the default launch shape).
 
 #include <cuda_runtime.h>
 
@@ -24,10 +26,11 @@ ATH_FLUX_GAS(adb, false)
 // ---------------------------------------------------------------- C API
 // Return value: cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a launch shape (s, t, r) that is not built.
-// nscalars must be 0 or 1, iso 0 (adiabatic gas) or 1 (isothermal gas),
-// flux a hydro.cuh FluxKind (0 Roe, 1 HLLC, 2 HLLE) and order an Order (1,
-// 2, 3, 4 = 2p, 5 = 3p); c0, c1 the gas's EOS constants (hydro.cuh Eos);
-// the wrapper checks shapes and types.
+// nscalars at most kMaxScalars (hydro.cuh; B5 and B12 take the default
+// launch shape only from 2 scalars on), iso 0 (adiabatic gas) or 1
+// (isothermal gas), flux a hydro.cuh FluxKind (0 Roe, 1 HLLC, 2 HLLE) and
+// order an Order (1, 2, 3, 4 = 2p, 5 = 3p); c0, c1 the gas's EOS constants
+// (hydro.cuh Eos); the wrapper checks shapes and types.
 
 extern "C" {
 
@@ -42,7 +45,7 @@ extern "C" {
   ath::NAME##_##SUFFIX(a, nscalars, flux, df, s, t, r, stream)
 #define ATH_SWEEP_BY_ORDER(SUFFIX)                                         \
   const ath::SweepArgs a{U, phic, phif, dtodx, Ul, Ur, F, dF,              \
-                         nz, ny, nx, axis, c0, c1};                        \
+                         nz, ny, nx, axis, c0, c1, nscalars};              \
   switch (order) {                                                         \
     case ath::kDc:                                                         \
       return iso ? ATH_SWEEP_CALL(sweep_iso_dc, SUFFIX)                    \

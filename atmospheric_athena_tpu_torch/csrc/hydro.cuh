@@ -16,10 +16,15 @@
 //
 // Templated on the floating type T (float, double), the number of passive
 // scalars NS, the gas ISO (false: adiabatic, true: isothermal), the solver
-// FLUX and, in the reconstruction, the limiting (CHAR).  Compiled without
-// --use_fast_math and with -fmad=false (cuda_lib.py): division and sqrt are
-// IEEE-rounded and every operation rounds in the plain version's order, so
-// the results match it to the last bits.
+// FLUX and, in the reconstruction, the limiting (CHAR).  NS = 0 and 1 are
+// compile-time counts; NS = kNsRun (any count from 2 to kMaxScalars) keeps
+// the wave fields in compile-time arrays and passes the scalars one at a
+// time through the functions of "passive scalars, one at a time" below,
+// which repeat the scalar entries' operations of the NS templates.
+// Compiled without --use_fast_math and with -fmad=false (cuda_lib.py):
+// division and sqrt are
+// IEEE-rounded and every operation rounds in the plain version's order,
+// so the results match it to the last bits.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -53,6 +58,15 @@ __host__ __device__ constexpr bool is_char(int order) {
 
 // NWAVE of the gas (defs.n_wave): the scalars start at this index
 __host__ __device__ constexpr int nwave(bool iso) { return iso ? 4 : 5; }
+
+// NS of the kernels that take the number of passive scalars at run time,
+// from 2 to kMaxScalars (hydro_kernels.MAX_SCALARS): their wave fields are
+// compile-time arrays of nwave(ISO) + ns_fixed(NS) entries, their scalars
+// go through a loop over the run-time count.  kMaxScalars bounds the
+// shared memory of the march kernels' scalar windows (sweep.cuh).
+constexpr int kNsRun = -1;
+constexpr int kMaxScalars = 32;
+__host__ __device__ constexpr int ns_fixed(int NS) { return NS < 0 ? 0 : NS; }
 
 // The EOS constants of a kernel, c0 and c1: gamma and gamma - 1 for
 // adiabatic gas, the isothermal sound speed and its square for isothermal
@@ -532,7 +546,140 @@ __device__ __forceinline__ void ppm_cell(const T* Wm, const T* Wc,
   }
 }
 
-// ---------------------------------------------------------------- Roe
+// ------------------------------------- passive scalars, one at a time
+// The NS = kNsRun kernels reconstruct a cell's scalars one at a time after
+// its wave fields.  Each function below is the scalar entry of its NS
+// template counterpart (limited_slopes, plm_cell, ppm_cell), operation for
+// operation, so either form rounds as the plain version does.
+
+// What the scalars' CTU tracing takes from a cell's wave fields (Roe's
+// branch of plm_cell and ppm_cell): Vx and the extreme primitive
+// eigenvalues.
+template <typename T> struct ScalarTrace {
+  T vx, ev_min, ev_max;
+};
+
+template <typename T, bool ISO>
+__device__ __forceinline__ ScalarTrace<T> scalar_trace(const T* W,
+                                                       const Eos<T>& e) {
+  const PrimEigOf<T, ISO> E = prim_eig<T, ISO>(W, e);
+  return ScalarTrace<T>{W[1], E.ev[0], E.ev[nwave(ISO) - 1]};
+}
+
+// A scalar's monotonized slope from the cells (i-1, i, i+1): its entry of
+// limited_slopes, where no eigensystem mixes it (either limiting)
+template <typename T>
+__device__ __forceinline__ T scalar_slope(T wm, T wc, T wp) {
+  const T c = wp - wm, l = wc - wm, r = wp - wc;
+  const T den = (l + r == T(0)) ? T(1) : l + r;
+  const T g = (l * r > T(0)) ? T(2) * l * r / den : T(0);
+  const T lim1 = tmin(fabs(l), fabs(r));
+  const T lim2 = tmin(T(0.5) * fabs(c), fabs(g));
+  return (l * r > T(0)) ? tsign(c) * tmin(T(2) * lim1, lim2) : T(0);
+}
+
+// A scalar's states at the cell's left (wminus) and right (wplus)
+// interfaces, donor cell or PLM from (wm, wc, wp): recon3_cell's scalar
+// entry; tr is the cell's trace (read by Roe's branch of PLM only)
+template <typename T, int FLUX, int ORDER>
+__device__ __forceinline__ void recon3_scalar(T wm, T wc, T wp, T dtodx,
+                                              const ScalarTrace<T>& tr,
+                                              T& wminus, T& wplus) {
+  static_assert(!is_ppm(ORDER), "PPM reads five cells: ppm_scalar");
+  if constexpr (ORDER == kDc) {
+    wminus = wc;
+    wplus = wc;
+  } else {
+    const T dWmn = scalar_slope(wm, wc, wp);
+    const T wl0 = wc - T(0.5) * dWmn;
+    const T wr0 = wc + T(0.5) * dWmn;
+    const T C = wr0 + wl0;
+    T lv = tmax(tmin(wc, wm), wl0);
+    lv = tmin(tmax(wc, wm), lv);
+    T rv = C - lv;
+    rv = tmax(tmin(wc, wp), rv);
+    rv = tmin(tmax(wc, wp), rv);
+    lv = C - rv;
+    if constexpr (FLUX != kRoe) {
+      wplus = rv;
+      wminus = lv;
+    } else {
+      const T dW = rv - lv;
+      const T qxp = T(0.5) * tmax(tr.ev_max, T(0)) * dtodx;
+      const T qxm = T(-0.5) * tmin(tr.ev_min, T(0)) * dtodx;
+      const T Vx = tr.vx;
+      wplus = rv - qxp * dW;
+      wminus = lv + qxm * dW;
+      wplus = wplus +
+          ((Vx > T(0)) ? T(0.5) * dtodx * (tr.ev_max - Vx) * dW : T(0));
+      wminus = wminus +
+          ((Vx < T(0)) ? T(0.5) * dtodx * (tr.ev_min - Vx) * dW : T(0));
+    }
+  }
+}
+
+// A scalar's PPM states from (wm, wc, wp) and their slopes (sm, sc, sp):
+// ppm_cell's scalar entry
+template <typename T, int FLUX>
+__device__ __forceinline__ void ppm_scalar(T wm, T wc, T wp, T sm, T sc,
+                                           T sp, T dtodx,
+                                           const ScalarTrace<T>& tr,
+                                           T& wminus, T& wplus) {
+  const T F43 = T(4.0 / 3.0);
+  const T lv = T(0.5) * (wc + wm) - (sc - sm) / T(6);
+  const T rv = T(0.5) * (wp + wc) - (sp - sc) / T(6);
+  const T qa = (rv - wc) * (wc - lv);
+  const T qb = rv - lv;
+  const T qc = T(6) * (wc - T(0.5) * (lv + rv));
+  const bool c1 = qa <= T(0);
+  const bool c2 = !c1 && (qb * qc > qb * qb);
+  const bool c3 = !c1 && !c2 && (qb * qc < -(qb * qb));
+  T l2 = c1 ? wc : (c2 ? T(3) * wc - T(2) * rv : lv);
+  T r2 = c1 ? wc : (c3 ? T(3) * wc - T(2) * lv : rv);
+  l2 = tmax(tmin(wc, wm), l2);
+  l2 = tmin(tmax(wc, wm), l2);
+  r2 = tmax(tmin(wc, wp), r2);
+  r2 = tmin(tmax(wc, wp), r2);
+  if constexpr (FLUX != kRoe) {
+    wplus = r2;
+    wminus = l2;
+  } else {
+    const T dW = r2 - l2;
+    const T W6 = T(6) * (wc - T(0.5) * (l2 + r2));
+    const T ev_max = tr.ev_max, ev_min = tr.ev_min, Vx = tr.vx;
+    const T qx1 = T(0.5) * tmax(ev_max, T(0)) * dtodx;
+    const T qx2 = T(-0.5) * tmin(ev_min, T(0)) * dtodx;
+    wplus = r2 - qx1 * (dW - (T(1) - F43 * qx1) * W6);
+    wminus = l2 + qx2 * (dW + (T(1) - F43 * qx2) * W6);
+    T b = T(0.5) * dtodx * (ev_max - Vx);
+    T c = T(0.5) * dtodx * dtodx * T(2.0 / 3.0) * (ev_max * ev_max - Vx * Vx);
+    wplus = wplus + ((Vx > T(0)) ? b * (dW - W6) + c * W6 : T(0));
+    b = T(0.5) * dtodx * (ev_min - Vx);
+    c = T(0.5) * dtodx * dtodx * T(2.0 / 3.0) * (ev_min * ev_min - Vx * Vx);
+    wminus = wminus + ((Vx < T(0)) ? b * (dW + W6) + c * W6 : T(0));
+  }
+}
+
+// ---------------------------------------------------------------- solvers
+// What the passive scalars' flux takes from an interface's solve, for the
+// NS = kNsRun kernels (the solvers fill it through their `sf` argument;
+// the NS templates form the same values in their scalar entries): upwinded
+// on the mass flux f0 (Roe, HLLC), or, where the HLLE flux was taken (the
+// HLLE solver, Roe's fallback), from the two sides' mass fluxes fl, fr and
+// the weight tmp of hlle_core.
+template <typename T> struct ScalarFlux {
+  T f0, fl, fr, tmp;
+  bool hlle;
+  // the flux of a scalar with primitive values wl, wr at the interface
+  __device__ __forceinline__ T operator()(T wl, T wr) const {
+    if (hlle) {
+      const T a = fl * wl, b = fr * wr;
+      return T(0.5) * (a + b) + (a - b) * tmp;
+    }
+    return (f0 >= T(0)) ? f0 * wl : f0 * wr;
+  }
+};
+
 // Physical flux F(U) - b U of one side (b = 0: Roe; b = bm/bp: HLLE);
 // isothermal gas: pressure d cs^2, no energy flux
 template <typename T, int NS, bool ISO>
@@ -585,7 +732,8 @@ __device__ __forceinline__ void roe_speeds(const T* Ul, const T* Ur,
 template <typename T, int NS, bool ISO>
 __device__ __forceinline__ void hlle_core(const T* Ul, const T* Ur,
                                           const T* Wl, const T* Wr, T ev0,
-                                          T evn, const Eos<T>& e, T* F) {
+                                          T evn, const Eos<T>& e, T* F,
+                                          ScalarFlux<T>* sf = nullptr) {
   constexpr int NV = nwave(ISO) + NS;
   T cfl, cfr;
   if constexpr (ISO) {
@@ -606,6 +754,7 @@ __device__ __forceinline__ void hlle_core(const T* Ul, const T* Ur,
 #pragma unroll
   for (int n = 0; n < NV; ++n)
     F[n] = T(0.5) * (Fl[n] + Fr[n]) + (Fl[n] - Fr[n]) * tmp;
+  if (sf != nullptr) *sf = ScalarFlux<T>{F[0], Fl[0], Fr[0], tmp, true};
 }
 
 // HLLE flux (hlle() of ops/riemann.py); no H-correction, as in the
@@ -613,10 +762,11 @@ __device__ __forceinline__ void hlle_core(const T* Ul, const T* Ur,
 template <typename T, int NS, bool ISO>
 __device__ __forceinline__ void hlle_flux(const T* Ul, const T* Ur,
                                           const T* Wl, const T* Wr,
-                                          const Eos<T>& e, T* F) {
+                                          const Eos<T>& e, T* F,
+                                          ScalarFlux<T>* sf = nullptr) {
   T ev0, evn;
   roe_speeds<T, ISO>(Ul, Ur, Wl, Wr, e, ev0, evn);
-  hlle_core<T, NS, ISO>(Ul, Ur, Wl, Wr, ev0, evn, e, F);
+  hlle_core<T, NS, ISO>(Ul, Ur, Wl, Wr, ev0, evn, e, F, sf);
 }
 
 // Roe flux of adiabatic gas with supersonic short-circuit,
@@ -625,7 +775,8 @@ __device__ __forceinline__ void hlle_flux(const T* Ul, const T* Ur,
 template <typename T, int NS>
 __device__ __forceinline__ void roe_flux(const T* Ul, const T* Ur,
                                          const T* Wl, const T* Wr, T etah,
-                                         const Eos<T>& e, T* F) {
+                                         const Eos<T>& e, T* F,
+                                         ScalarFlux<T>* sf = nullptr) {
   constexpr int NV = 5 + NS;
   const T g1 = e.g1();
   // Roe averages
@@ -715,10 +866,11 @@ __device__ __forceinline__ void roe_flux(const T* Ul, const T* Ur,
 #pragma unroll
   for (int s = 0; s < NS; ++s)
     Fo[5 + s] = (Fo[0] >= T(0)) ? Fo[0] * Wl[5 + s] : Fo[0] * Wr[5 + s];
+  if (sf != nullptr) sf->f0 = Fo[0], sf->hlle = false;
 
   // HLLE with the Roe eigenvalues
   if (bad && !(sup_l || sup_r))
-    hlle_core<T, NS, false>(Ul, Ur, Wl, Wr, ev[0], ev[4], e, Fo);
+    hlle_core<T, NS, false>(Ul, Ur, Wl, Wr, ev[0], ev[4], e, Fo, sf);
 #pragma unroll
   for (int n = 0; n < NV; ++n) F[n] = Fo[n];
 }
@@ -733,7 +885,8 @@ __device__ __forceinline__ void roe_flux(const T* Ul, const T* Ur,
 template <typename T, int NS>
 __device__ __forceinline__ void roe_flux_iso(const T* Ul, const T* Ur,
                                              const T* Wl, const T* Wr,
-                                             T etah, const Eos<T>& e, T* F) {
+                                             T etah, const Eos<T>& e, T* F,
+                                             ScalarFlux<T>* sf = nullptr) {
   constexpr int NV = 4 + NS;
   const T cs = e.cs();
   const T sqrtdl = sqrt(Wl[0]);
@@ -783,9 +936,10 @@ __device__ __forceinline__ void roe_flux_iso(const T* Ul, const T* Ur,
 #pragma unroll
   for (int s = 0; s < NS; ++s)
     Fo[4 + s] = (Fo[0] >= T(0)) ? Fo[0] * Wl[4 + s] : Fo[0] * Wr[4 + s];
+  if (sf != nullptr) sf->f0 = Fo[0], sf->hlle = false;
 
   if (bad && !(sup_l || sup_r))
-    hlle_core<T, NS, true>(Ul, Ur, Wl, Wr, ev[0], ev[3], e, Fo);
+    hlle_core<T, NS, true>(Ul, Ur, Wl, Wr, ev[0], ev[3], e, Fo, sf);
 #pragma unroll
   for (int n = 0; n < NV; ++n) F[n] = Fo[n];
 }
@@ -798,7 +952,8 @@ __device__ __forceinline__ void roe_flux_iso(const T* Ul, const T* Ur,
 template <typename T, int NS, bool ISO>
 __device__ __forceinline__ void hllc_flux(const T* Ul, const T* Ur,
                                           const T* Wl, const T* Wr,
-                                          const Eos<T>& e, T* F) {
+                                          const Eos<T>& e, T* F,
+                                          ScalarFlux<T>* sf = nullptr) {
   constexpr int NW = nwave(ISO), NV = NW + NS;
   T ev0, evn;
   roe_speeds<T, ISO>(Ul, Ur, Wl, Wr, e, ev0, evn);
@@ -848,44 +1003,54 @@ __device__ __forceinline__ void hllc_flux(const T* Ul, const T* Ur,
 #pragma unroll
   for (int s = 0; s < NS; ++s)
     F[NW + s] = (F[0] >= T(0)) ? F[0] * Wl[NW + s] : F[0] * Wr[NW + s];
+  if (sf != nullptr) sf->f0 = F[0], sf->hlle = false;
 }
 
 // The Riemann solver of a sweep or flux kernel, chosen at compile time:
-// FLUX = kRoe (with etah), kHllc or kHlle (etah unused).
+// FLUX = kRoe (with etah), kHllc or kHlle (etah unused); `sf`, where
+// given, receives what the passive scalars' flux takes (ScalarFlux).
 template <typename T, int NS, bool ISO, int FLUX>
 __device__ __forceinline__ void riemann_flux(const T* Ul, const T* Ur,
                                              const T* Wl, const T* Wr,
-                                             T etah, const Eos<T>& e, T* F) {
+                                             T etah, const Eos<T>& e, T* F,
+                                             ScalarFlux<T>* sf = nullptr) {
   if constexpr (FLUX == kHllc)
-    hllc_flux<T, NS, ISO>(Ul, Ur, Wl, Wr, e, F);
+    hllc_flux<T, NS, ISO>(Ul, Ur, Wl, Wr, e, F, sf);
   else if constexpr (FLUX == kHlle)
-    hlle_flux<T, NS, ISO>(Ul, Ur, Wl, Wr, e, F);
+    hlle_flux<T, NS, ISO>(Ul, Ur, Wl, Wr, e, F, sf);
   else if constexpr (ISO)
-    roe_flux_iso<T, NS>(Ul, Ur, Wl, Wr, etah, e, F);
+    roe_flux_iso<T, NS>(Ul, Ur, Wl, Wr, etah, e, F, sf);
   else
-    roe_flux<T, NS>(Ul, Ur, Wl, Wr, etah, e, F);
+    roe_flux<T, NS>(Ul, Ur, Wl, Wr, etah, e, F, sf);
 }
 
 }  // namespace ath
 
-// C entry points: launch the <T, NS> instance for nscalars = 0 or 1
-#define ATH_DISPATCH_NS(NSCAL, CALL0, CALL1) \
-  ((NSCAL) == 0 ? (CALL0) : (NSCAL) == 1 ? (CALL1) : (int)cudaErrorInvalidValue)
+// C entry points: launch the <T, NS> instance for nscalars = 0 or 1, and
+// the <T, kNsRun> instance for 2 <= nscalars <= kMaxScalars
+#define ATH_DISPATCH_NS(NSCAL, CALL0, CALL1, CALLN)                      \
+  ((NSCAL) == 0   ? (CALL0)                                             \
+   : (NSCAL) == 1 ? (CALL1)                                             \
+   : ((NSCAL) >= 2 && (NSCAL) <= ath::kMaxScalars)                      \
+       ? (CALLN)                                                        \
+       : (int)cudaErrorInvalidValue)
 
-// ... and LAUNCH<T, NS, ISO, FLUX>(...) for nscalars = 0 or 1 and flux =
+// ... and LAUNCH<T, NS, ISO, FLUX>(...) for those nscalars and flux =
 // kRoe, kHllc or kHlle (ISO a compile-time constant)
+#define ATH_DISPATCH_NS_FLUX1(T, ISO, LAUNCH, NSCAL, F, ...)              \
+  ATH_DISPATCH_NS(NSCAL, (LAUNCH<T, 0, ISO, F>(__VA_ARGS__)),           \
+                  (LAUNCH<T, 1, ISO, F>(__VA_ARGS__)),                  \
+                  (LAUNCH<T, ath::kNsRun, ISO, F>(__VA_ARGS__)))
 #define ATH_DISPATCH_NS_FLUX(T, ISO, LAUNCH, NSCAL, FLUX, ...)            \
-  ((FLUX) == ath::kRoe                                                    \
-       ? ATH_DISPATCH_NS(NSCAL, (LAUNCH<T, 0, ISO, ath::kRoe>(__VA_ARGS__)), \
-                         (LAUNCH<T, 1, ISO, ath::kRoe>(__VA_ARGS__)))      \
-   : (FLUX) == ath::kHllc                                                 \
-       ? ATH_DISPATCH_NS(NSCAL,                                           \
-                         (LAUNCH<T, 0, ISO, ath::kHllc>(__VA_ARGS__)),    \
-                         (LAUNCH<T, 1, ISO, ath::kHllc>(__VA_ARGS__)))    \
-   : (FLUX) == ath::kHlle                                                 \
-       ? ATH_DISPATCH_NS(NSCAL,                                           \
-                         (LAUNCH<T, 0, ISO, ath::kHlle>(__VA_ARGS__)),    \
-                         (LAUNCH<T, 1, ISO, ath::kHlle>(__VA_ARGS__)))    \
+  ((FLUX) == ath::kRoe                                                  \
+       ? ATH_DISPATCH_NS_FLUX1(T, ISO, LAUNCH, NSCAL, ath::kRoe,         \
+                               __VA_ARGS__)                             \
+   : (FLUX) == ath::kHllc                                               \
+       ? ATH_DISPATCH_NS_FLUX1(T, ISO, LAUNCH, NSCAL, ath::kHllc,        \
+                               __VA_ARGS__)                             \
+   : (FLUX) == ath::kHlle                                               \
+       ? ATH_DISPATCH_NS_FLUX1(T, ISO, LAUNCH, NSCAL, ath::kHlle,        \
+                               __VA_ARGS__)                             \
        : (int)cudaErrorInvalidValue)
 
 // ... and, for both gases in one translation unit, by the int iso

@@ -13,6 +13,13 @@
 //               every substep j the minimum of min(dt_chem, dt_therm), from
 //               which the wrapper forms the schedule's validity flag.
 //
+// The inlet flux Fin is the scalar scal[K] (the root level's ramped flux)
+// or, in the inlet form (template INLET, pallas_rad.build_batch(inlet=)),
+// the row's entry of a per-column [NZ, NY] inlet (an SMR fine level's
+// parent EdgeFlux under the row), read once per row; no path of the port
+// or of the JAX package launches that form (a fine level takes the K=1
+// loop).
+//
 // The fast sweep (pallas_rad._sweep_x(fast=True)): ctau = the prefix sum of
 // tau along x, T = exp(-ctau), face fluxes F = Fin*[1, T], frac = F *
 // (1/(Fin+1e-12)), absorbed = F_i - F_{i+1}.  absorbed cancels where tau is
@@ -69,15 +76,16 @@ namespace ath {
 constexpr int kBatchMaxChunk = 16;   // cells per lane: NX <= 512
 
 // dynamic shared memory: K*ROWS limits, then per row 32*c slots of the 7
-// values of T, then per row 32*c int32 codes
-template <typename T, int ROWS>
+// values of T, then per row 32*c int32 codes; inlet: [nrows] (INLET only)
+template <typename T, int ROWS, bool INLET>
 __global__ void __launch_bounds__(32 * ROWS) batch_kernel(
     const T* __restrict__ s0a, const T* __restrict__ Ea,
     const int* __restrict__ codea, const T* __restrict__ da,
     const T* __restrict__ M1a, const T* __restrict__ M2a,
     const T* __restrict__ M3a, const T* __restrict__ eia,
     const T* __restrict__ xia, const T* __restrict__ scal,
-    T* __restrict__ s0o, T* __restrict__ Eo, int* __restrict__ codeo,
+    const T* __restrict__ inlet, T* __restrict__ s0o, T* __restrict__ Eo,
+    int* __restrict__ codeo,
     T* __restrict__ efb, T* __restrict__ efx, int* __restrict__ viol_part,
     T* __restrict__ dti_part, T* __restrict__ dtc_part,
     T* __restrict__ dtt_part, T* __restrict__ lim_part, int nrows, int NX,
@@ -110,7 +118,7 @@ __global__ void __launch_bounds__(32 * ROWS) batch_kernel(
   int jlast = -1;
   for (int j = 0; j < K; ++j)
     if (scal[j] > T(0)) jlast = j;
-  const T Fin = scal[K];
+  const T Fin = INLET ? (has_row ? inlet[row] : T(0)) : scal[K];
   const T inv_den = T(1) / (Fin + T(1e-12));
   const T minfrac = T(p.minfluxfrac);
   const T c_tau = T(p.sigma_ph);
@@ -280,11 +288,12 @@ __global__ void __launch_bounds__(32 * ROWS) batch_kernel(
   }
 }
 
-template <typename T, int ROWS>
+template <typename T, int ROWS, bool INLET>
 int launch_batch_rows(const void* s0, const void* E, const void* code,
                        const void* d, const void* M1, const void* M2,
                        const void* M3, const void* ei, const void* xi,
-                       const void* scal, void* s0o, void* Eo, void* codeo,
+                       const void* scal, const void* inlet, void* s0o,
+                       void* Eo, void* codeo,
                        void* efb, void* efx, void* viol_part, void* dti_part,
                        void* dtc_part, void* dtt_part, void* lim_part,
                        int nrows, int nx, int k, const IonParams* p,
@@ -295,38 +304,54 @@ int launch_batch_rows(const void* s0, const void* E, const void* code,
                        ROWS * L * (7 * sizeof(T) + sizeof(int));
   if (shmem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        batch_kernel<T, ROWS>,
+        batch_kernel<T, ROWS, INLET>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
     if (e != cudaSuccess) return (int)e;
   }
-  batch_kernel<T, ROWS><<<blocks, 32 * ROWS, shmem,
-                          (cudaStream_t)stream>>>(
+  batch_kernel<T, ROWS, INLET><<<blocks, 32 * ROWS, shmem,
+                                 (cudaStream_t)stream>>>(
       (const T*)s0, (const T*)E, (const int*)code, (const T*)d,
       (const T*)M1, (const T*)M2, (const T*)M3, (const T*)ei, (const T*)xi,
-      (const T*)scal, (T*)s0o, (T*)Eo, (int*)codeo, (T*)efb, (T*)efx,
+      (const T*)scal, (const T*)inlet, (T*)s0o, (T*)Eo, (int*)codeo,
+      (T*)efb, (T*)efx,
       (int*)viol_part, (T*)dti_part, (T*)dtc_part, (T*)dtt_part,
       (T*)lim_part, nrows, nx, k, params_as<T>(*p));
   return (int)cudaGetLastError();
 }
 
 #define ATH_BATCH_PASS                                                      \
-  s0, E, code, d, M1, M2, M3, ei, xi, scal, s0o, Eo, codeo, efb, efx,      \
-      viol_part, dti_part, dtc_part, dtt_part, lim_part, nrows, nx, k, p,  \
-      stream
+  s0, E, code, d, M1, M2, M3, ei, xi, scal, inlet, s0o, Eo, codeo, efb,    \
+      efx, viol_part, dti_part, dtc_part, dtt_part, lim_part, nrows, nx,   \
+      k, p, stream
 
-// the launch shapes built: rows per block
+// the launch shapes built: rows per block, each in both inlet forms
+template <typename T, int ROWS>
+int launch_batch_form(const void* s0, const void* E, const void* code,
+                      const void* d, const void* M1, const void* M2,
+                      const void* M3, const void* ei, const void* xi,
+                      const void* scal, const void* inlet, void* s0o,
+                      void* Eo, void* codeo, void* efb, void* efx,
+                      void* viol_part, void* dti_part, void* dtc_part,
+                      void* dtt_part, void* lim_part, int nrows, int nx,
+                      int k, const IonParams* p, void* stream) {
+  return inlet != nullptr
+             ? launch_batch_rows<T, ROWS, true>(ATH_BATCH_PASS)
+             : launch_batch_rows<T, ROWS, false>(ATH_BATCH_PASS);
+}
+
 template <typename T>
 int launch_batch(const void* s0, const void* E, const void* code,
                  const void* d, const void* M1, const void* M2,
                  const void* M3, const void* ei, const void* xi,
-                 const void* scal, void* s0o, void* Eo, void* codeo,
+                 const void* scal, const void* inlet, void* s0o, void* Eo,
+                 void* codeo,
                  void* efb, void* efx, void* viol_part, void* dti_part,
                  void* dtc_part, void* dtt_part, void* lim_part, int nrows,
                  int nx, int k, int rows, const IonParams* p,
                  void* stream) {
   if ((nx + 31) / 32 > kBatchMaxChunk) return (int)cudaErrorInvalidValue;
-  if (rows == 2) return launch_batch_rows<T, 2>(ATH_BATCH_PASS);
-  if (rows == 4) return launch_batch_rows<T, 4>(ATH_BATCH_PASS);
+  if (rows == 2) return launch_batch_form<T, 2>(ATH_BATCH_PASS);
+  if (rows == 4) return launch_batch_form<T, 4>(ATH_BATCH_PASS);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -339,15 +364,18 @@ int ath_rad_batch_blocks(int nrows, int rows) {
   return (nrows + rows - 1) / rows;
 }
 
+// inlet: one inlet flux per row ([NZ, NY]), or nullptr for scal[K]
 #define ATH_BATCH_ARGS                                                      \
   const void *s0, const void *E, const void *code, const void *d,           \
       const void *M1, const void *M2, const void *M3, const void *ei,       \
-      const void *xi, const void *scal, void *s0o, void *Eo, void *codeo,   \
+      const void *xi, const void *scal, const void *inlet, void *s0o,       \
+      void *Eo, void *codeo,                                                \
       void *efb, void *efx, void *viol_part, void *dti_part, void *dtc_part, \
       void *dtt_part, void *lim_part, int nrows, int nx, int k, int rows,   \
       const ath::IonParams *p, void *stream
 #define ATH_BATCH_CALL                                                      \
-  s0, E, code, d, M1, M2, M3, ei, xi, scal, s0o, Eo, codeo, efb, efx,      \
+  s0, E, code, d, M1, M2, M3, ei, xi, scal, inlet, s0o, Eo, codeo, efb,    \
+      efx,                                                                  \
       viol_part, dti_part, dtc_part, dtt_part, lim_part, nrows, nx, k,     \
       rows, p, stream
 

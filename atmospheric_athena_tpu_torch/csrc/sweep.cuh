@@ -50,6 +50,24 @@
 //     128), so few lanes idle; the potentials are loaded before the first
 //     barrier.
 //
+// Passive scalars: NS = 0 and 1 are compile-time counts, carried in the
+// arrays above.  NS = kNsRun takes 2 to kMaxScalars scalars at run time
+// (hydro.cuh): the wave fields go through the steps above unchanged, the
+// scalars one at a time after them, each with its own window, which takes
+// from the wave fields only what the scalars read (a cell's trace, Vx and
+// its extreme eigenvalues, for Roe's tracing; an interface's ScalarFlux
+// and densities):
+//
+//   - march kernels: per interface, a loop over the scalars; scalar s's
+//     window (its primitives of cells f-1, f, PPM f+1, PPM its slopes of
+//     f-1, f, its Wplus of cell f-1 and, dF form, its flux at f-1) lives
+//     in dynamic shared memory, march_slots(ORDER) values per scalar and
+//     thread, so the registers hold the wave window alone;
+//   - tile kernels: after the wave fields, each scalar passes through one
+//     more plane of each kind (primitives, PPM slopes, Wminus, Wplus; the
+//     fluxes in the first), the thread keeping its cell's 1/d and trace
+//     and its interface's solve in registers between the scalars.
+//
 // The launch grid carries the line coordinates (blockIdx, threadIdx): no
 // 64-bit divide or modulo per thread.  The stencil wraps at the array edge
 // like the JAX kernels' roll, resolved once per loaded cell by a compare,
@@ -121,14 +139,44 @@ __device__ __forceinline__ void store_cell(T* __restrict__ A, long long ncell,
 template <typename T, int NS, bool ISO, int FLUX>
 __device__ __forceinline__ void interface_flux(T* Wl, T* Wr, bool kick,
                                                T dVl, T dVr, const Eos<T>& e,
-                                               T* Ul, T* Ur, T* F) {
+                                               T* Ul, T* Ur, T* F,
+                                               ScalarFlux<T>* sf = nullptr) {
   if (kick) {
     Wl[1] = Wl[1] - dVl;
     Wr[1] = Wr[1] - dVr;
   }
   prim_to_cons<T, NS, ISO>(Wl, Ul, e);
   prim_to_cons<T, NS, ISO>(Wr, Ur, e);
-  riemann_flux<T, NS, ISO, FLUX>(Ul, Ur, Wl, Wr, T(0), e, F);
+  riemann_flux<T, NS, ISO, FLUX>(Ul, Ur, Wl, Wr, T(0), e, F, sf);
+}
+
+// The trace of a cell that the scalars' reconstruction reads: Roe's
+// branch of PLM and PPM only (a zero trace otherwise, unread)
+template <typename T, bool ISO, int FLUX, int ORDER>
+__device__ __forceinline__ ScalarTrace<T> trace_for(const T* W,
+                                                    const Eos<T>& e) {
+  if constexpr (FLUX == kRoe && ORDER != kDc)
+    return scalar_trace<T, ISO>(W, e);
+  else
+    return ScalarTrace<T>{T(0), T(0), T(0)};
+}
+
+// A march kernel's scalar windows (NS = kNsRun) in dynamic shared memory:
+// K slots per scalar and thread, slot k of scalar s at row s K + k of
+// blockDim entries, so a warp's accesses are conflict-free
+template <typename T> struct ScalarSlots {
+  T* p;
+  int K;
+  __device__ __forceinline__ T& operator()(int s, int k) const {
+    return p[(s * K + k) * (32 * kMarchRows)];
+  }
+};
+
+// slots of a B5 march kernel's scalar window: the primitives of cells f-1,
+// f (PPM also f+1) and (PPM) the slopes of f-1, f, then the Wplus of cell
+// f-1 and the flux at f-1 (dF form)
+__host__ __device__ constexpr int march_slots(int order) {
+  return is_ppm(order) ? 7 : 4;
 }
 
 // A cell on a sweep line that wraps at its end: position `pos` of `n`, at
@@ -204,8 +252,9 @@ __global__ void __launch_bounds__(32 * kMarchRows)
                        const T* __restrict__ dtodx_p, T* __restrict__ Ul,
                        T* __restrict__ Ur, T* __restrict__ F,
                        T* __restrict__ dF, int NZ, int NY, int NX, int axis,
-                       Eos<T> e) {
-  constexpr int NW = nwave(ISO), NV = NW + NS;
+                       Eos<T> e, int ns) {
+  constexpr int NF = ns_fixed(NS);     // the scalars in the wave arrays
+  constexpr int NW = nwave(ISO), NV = NW + NF;
   constexpr bool PPM = is_ppm(ORDER);
   constexpr int NP = PPM ? NV : 1;     // the PPM window's extra arrays
   const MarchLine L(NZ, NY, NX, axis, S);
@@ -225,33 +274,76 @@ __global__ void __launch_bounds__(32 * kMarchRows)
   LinePos at(L.base, L.stride, L.n, L.f0 - 1);      // cell f-1
   T Wa[NV], Wb[NV], Wc[NV], Wl[NV], Wr[NV], Un[NV];
   T Wd[NP], sa[NP], sb[NP], sc[NP];
-  load_prim<T, NS, ISO>(U, ncell, ahead.off, pm, e, Wa);
+  load_prim<T, NF, ISO>(U, ncell, ahead.off, pm, e, Wa);
   ahead.step();
-  load_prim<T, NS, ISO>(U, ncell, ahead.off, pm, e, Wb);
+  load_prim<T, NF, ISO>(U, ncell, ahead.off, pm, e, Wb);
   ahead.step();
-  load_prim<T, NS, ISO>(U, ncell, ahead.off, pm, e, Wc);
+  load_prim<T, NF, ISO>(U, ncell, ahead.off, pm, e, Wc);
   ahead.step();
   if constexpr (PPM) {
     // cells f0-3 .. f0+1: the slopes of f0-2, f0-1, f0 and the Wplus of
     // cell f0-1
     constexpr bool CH = is_char(ORDER);
-    load_prim<T, NS, ISO>(U, ncell, ahead.off, pm, e, Wd);
+    load_prim<T, NF, ISO>(U, ncell, ahead.off, pm, e, Wd);
     ahead.step();
-    ppm_slopes<T, NS, ISO, CH>(Wa, Wb, Wc, e, sa);
-    ppm_slopes<T, NS, ISO, CH>(Wb, Wc, Wd, e, sb);
+    ppm_slopes<T, NF, ISO, CH>(Wa, Wb, Wc, e, sa);
+    ppm_slopes<T, NF, ISO, CH>(Wb, Wc, Wd, e, sb);
     copy<NV>(Wa, Wb);
     copy<NV>(Wb, Wc);
     copy<NV>(Wc, Wd);
-    load_prim<T, NS, ISO>(U, ncell, ahead.off, pm, e, Wd);
+    load_prim<T, NF, ISO>(U, ncell, ahead.off, pm, e, Wd);
     ahead.step();
-    ppm_slopes<T, NS, ISO, CH>(Wb, Wc, Wd, e, sc);
-    ppm_cell<T, NS, ISO, FLUX>(Wa, Wb, Wc, sa, sb, sc, dtodx, e, Wr, Wl);
+    ppm_slopes<T, NF, ISO, CH>(Wb, Wc, Wd, e, sc);
+    ppm_cell<T, NF, ISO, FLUX>(Wa, Wb, Wc, sa, sb, sc, dtodx, e, Wr, Wl);
     copy<NV>(sa, sb);
     copy<NV>(sb, sc);
   } else {
-    recon3_cell<T, NS, ISO, FLUX, ORDER>(Wa, Wb, Wc, dtodx, e, Wr, Wl);
+    recon3_cell<T, NF, ISO, FLUX, ORDER>(Wa, Wb, Wc, dtodx, e, Wr, Wl);
   }
-  load_cons<T, NS, ISO>(U, ncell, ahead.off, pm, Un);
+  // NS = kNsRun: the scalars' windows at interface f0 (cells f0-2 .. f0,
+  // PPM f0-3 .. f0+1, each scalar's Wplus of cell f0-1)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const ScalarSlots<T> sw{reinterpret_cast<T*>(smem_raw) +
+                              threadIdx.y * 32 + threadIdx.x,
+                          march_slots(ORDER)};
+  constexpr int KP = march_slots(ORDER) - 2, KF = KP + 1;
+  if constexpr (NS < 0) {
+    constexpr int NC = PPM ? 5 : 3;
+    LinePos c(L.base, L.stride, L.n, L.f0 - (PPM ? 3 : 2));
+    long long offs[NC];
+    T dis[NC];
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      offs[k] = c.off;
+      dis[k] = T(1) / U[c.off];
+      c.step();
+    }
+    const ScalarTrace<T> tr = trace_for<T, ISO, FLUX, ORDER>(Wb, e);
+    for (int s = 0; s < ns; ++s) {
+      const T* Us = U + (NW + s) * ncell;
+      T w[NC], wm, wp;
+#pragma unroll
+      for (int k = 0; k < NC; ++k) w[k] = Us[offs[k]] * dis[k];
+      if constexpr (PPM) {
+        const T sa = scalar_slope(w[0], w[1], w[2]);
+        const T sb = scalar_slope(w[1], w[2], w[3]);
+        const T sc = scalar_slope(w[2], w[3], w[4]);
+        ppm_scalar<T, FLUX>(w[1], w[2], w[3], sa, sb, sc, dtodx, tr, wm, wp);
+        sw(s, 0) = w[2];
+        sw(s, 1) = w[3];
+        sw(s, 2) = w[4];
+        sw(s, 3) = sb;
+        sw(s, 4) = sc;
+      } else {
+        recon3_scalar<T, FLUX, ORDER>(w[0], w[1], w[2], dtodx, tr, wm, wp);
+        sw(s, 0) = w[1];
+        sw(s, 1) = w[2];
+      }
+      sw(s, KP) = wp;
+    }
+  }
+  long long off_un = ahead.off;           // the cell of Un
+  load_cons<T, NF, ISO>(U, ncell, ahead.off, pm, Un);
   ahead.step();
   T phic_l = kick ? phic[at.off] : T(0);
   at.step();
@@ -266,12 +358,14 @@ __global__ void __launch_bounds__(32 * kMarchRows)
     copy<NV>(Wb, Wc);
     if constexpr (PPM) {
       copy<NV>(Wc, Wd);
-      cons_to_prim<T, NS, ISO>(Un, Wd, e);
+      cons_to_prim<T, NF, ISO>(Un, Wd, e);
     } else {
-      cons_to_prim<T, NS, ISO>(Un, Wc, e);
+      cons_to_prim<T, NF, ISO>(Un, Wc, e);
     }
     const T pf = pf_n, pc = pc_n;
-    load_cons<T, NS, ISO>(U, ncell, ahead.off, pm, Un);  // for interface f+1
+    const long long off_new = off_un;      // the cell just converted
+    off_un = ahead.off;
+    load_cons<T, NF, ISO>(U, ncell, ahead.off, pm, Un);  // for interface f+1
     ahead.step();
     if (kick) {
       pf_n = phif[at.off];
@@ -281,12 +375,12 @@ __global__ void __launch_bounds__(32 * kMarchRows)
     // left
     T Wp[NV];
     if constexpr (PPM) {
-      ppm_slopes<T, NS, ISO, is_char(ORDER)>(Wb, Wc, Wd, e, sc);
-      ppm_cell<T, NS, ISO, FLUX>(Wa, Wb, Wc, sa, sb, sc, dtodx, e, Wr, Wp);
+      ppm_slopes<T, NF, ISO, is_char(ORDER)>(Wb, Wc, Wd, e, sc);
+      ppm_cell<T, NF, ISO, FLUX>(Wa, Wb, Wc, sa, sb, sc, dtodx, e, Wr, Wp);
       copy<NV>(sa, sb);
       copy<NV>(sb, sc);
     } else {
-      recon3_cell<T, NS, ISO, FLUX, ORDER>(Wa, Wb, Wc, dtodx, e, Wr, Wp);
+      recon3_cell<T, NF, ISO, FLUX, ORDER>(Wa, Wb, Wc, dtodx, e, Wr, Wp);
     }
     T dVl = T(0), dVr = T(0);
     if (kick) {
@@ -295,15 +389,55 @@ __global__ void __launch_bounds__(32 * kMarchRows)
       phic_l = pc;
     }
     T Ulc[NV], Urc[NV], Fs[NV];
-    interface_flux<T, NS, ISO, FLUX>(Wl, Wr, kick, dVl, dVr, e, Ulc, Urc,
-                                     Fs);
+    ScalarFlux<T> sf;
+    interface_flux<T, NF, ISO, FLUX>(Wl, Wr, kick, dVl, dVr, e, Ulc, Urc,
+                                     Fs, NS < 0 ? &sf : nullptr);
+    if constexpr (NS < 0) {
+      // each scalar: its new cell enters the window, cell f is
+      // reconstructed, interface f solved from the window's Wplus of f-1
+      const T di = T(1) / (PPM ? Wd[0] : Wc[0]);
+      const ScalarTrace<T> tr = trace_for<T, ISO, FLUX, ORDER>(Wb, e);
+      for (int s = 0; s < ns; ++s) {
+        const long long so = (NW + s) * ncell;
+        const T wn = U[so + off_new] * di;
+        T wm, wp;
+        if constexpr (PPM) {
+          const T wa = sw(s, 0), wb = sw(s, 1), wc = sw(s, 2);
+          const T sc = scalar_slope(wb, wc, wn);
+          ppm_scalar<T, FLUX>(wa, wb, wc, sw(s, 3), sw(s, 4), sc, dtodx, tr,
+                              wm, wp);
+          sw(s, 0) = wb;
+          sw(s, 1) = wc;
+          sw(s, 2) = wn;
+          sw(s, 3) = sw(s, 4);
+          sw(s, 4) = sc;
+        } else {
+          const T wa = sw(s, 0), wb = sw(s, 1);
+          recon3_scalar<T, FLUX, ORDER>(wa, wb, wn, dtodx, tr, wm, wp);
+          sw(s, 0) = wb;
+          sw(s, 1) = wn;
+        }
+        const T wl = sw(s, KP);
+        const T fs = sf(wl, wm);
+        if (j < L.ni) {
+          Ul[so + off] = wl * Ulc[0];
+          Ur[so + off] = wm * Urc[0];
+          if constexpr (!DF) F[so + off] = fs;
+        }
+        if constexpr (DF) {
+          if (j > 0) dF[so + off_prev] = fs - sw(s, KF);
+          sw(s, KF) = fs;
+        }
+        sw(s, KP) = wp;
+      }
+    }
     if (j < L.ni) {
-      store_cell<T, NS, ISO>(Ul, ncell, off, pm, Ulc);
-      store_cell<T, NS, ISO>(Ur, ncell, off, pm, Urc);
+      store_cell<T, NF, ISO>(Ul, ncell, off, pm, Ulc);
+      store_cell<T, NF, ISO>(Ur, ncell, off, pm, Urc);
       if constexpr (DF)
         F[off] = Fs[0];
       else
-        store_cell<T, NS, ISO>(F, ncell, off, pm, Fs);
+        store_cell<T, NF, ISO>(F, ncell, off, pm, Fs);
     }
     if constexpr (DF) {
       if (j > 0) {
@@ -321,7 +455,8 @@ __global__ void __launch_bounds__(32 * kMarchRows)
 // B5 along x: a block of blockDim.x = roundup32(tw + halo) threads per row
 // (halo = 4, PPM 6) stages its rows' tiles in dynamic shared memory, planes
 // of NV x blockDim.x per row: primitives (later the fluxes), (PPM) slopes,
-// Wminus, Wplus.
+// Wminus, Wplus; NS = kNsRun adds one plane of each, through which the
+// scalars pass one at a time after the wave fields.
 template <typename T, int NS, bool ISO, int FLUX, int ORDER, bool DF, int TM,
           int R>
 __global__ void __launch_bounds__(TM * R)
@@ -330,14 +465,16 @@ __global__ void __launch_bounds__(TM * R)
                       const T* __restrict__ dtodx_p, T* __restrict__ Ul,
                       T* __restrict__ Ur, T* __restrict__ F,
                       T* __restrict__ dF, int NZ, int NY, int NX, int tw,
-                      Eos<T> e) {
-  constexpr int NW = nwave(ISO), NV = NW + NS;
+                      Eos<T> e, int ns) {
+  constexpr int NF = ns_fixed(NS);     // the scalars in the wave arrays
+  constexpr int NW = nwave(ISO), NV = NW + NF;
+  constexpr int NVS = NV + (NS < 0 ? 1 : 0);      // planes per kind
   constexpr bool PPM = is_ppm(ORDER);
   constexpr int H = PPM ? 3 : 2;      // cells left of the tile's first
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nc = blockDim.x;
   T* sW = reinterpret_cast<T*>(smem_raw) +
-          threadIdx.y * (PPM ? 4 : 3) * NV * nc;
+          threadIdx.y * (PPM ? 4 : 3) * NVS * nc;
   T* sS = sW + NV * nc;                             // PPM only
   T* sM = sW + (PPM ? 2 : 1) * NV * nc;
   T* sP = sM + NV * nc;
@@ -359,11 +496,13 @@ __global__ void __launch_bounds__(TM * R)
     pcl = phic[t.row + t.cell(i - 1, NX)];
   }
   // 1. cells x0-H .. x0+nif+H-2: slot i holds cell x0-H+i
+  T di = T(0);                      // NS = kNsRun: 1/d of the staged cell
   if (t.ok && i < nif + 2 * H - 1) {
     T W[NV];
-    load_prim<T, NS, ISO>(U, ncell, t.row + t.cell(i - H, NX), pm, e, W);
+    load_prim<T, NF, ISO>(U, ncell, t.row + t.cell(i - H, NX), pm, e, W);
 #pragma unroll
     for (int v = 0; v < NV; ++v) sW[v * nc + i] = W[v];
+    if constexpr (NS < 0) di = T(1) / W[0];
   }
   __syncthreads();
   if constexpr (PPM) {
@@ -376,7 +515,7 @@ __global__ void __launch_bounds__(TM * R)
         Wc[v] = sW[v * nc + i + 1];
         Wp[v] = sW[v * nc + i + 2];
       }
-      ppm_slopes<T, NS, ISO, is_char(ORDER)>(Wm, Wc, Wp, e, s);
+      ppm_slopes<T, NF, ISO, is_char(ORDER)>(Wm, Wc, Wp, e, s);
 #pragma unroll
       for (int v = 0; v < NV; ++v) sS[v * nc + i] = s[v];
     }
@@ -384,6 +523,7 @@ __global__ void __launch_bounds__(TM * R)
   }
   // 2. the reconstruction of cells x0-1 .. x0+nif-1: slot i holds cell
   // x0-1+i
+  ScalarTrace<T> tr{T(0), T(0), T(0)};     // NS = kNsRun: its trace
   if (t.ok && i < nif + 1) {
     const int c = i + H - 1;                        // cell x0-1+i in sW
     T Wm[NV], Wc[NV], Wp[NV], a[NV], b[NV];
@@ -401,20 +541,23 @@ __global__ void __launch_bounds__(TM * R)
         sc[v] = sS[v * nc + i + 1];
         sp[v] = sS[v * nc + i + 2];
       }
-      ppm_cell<T, NS, ISO, FLUX>(Wm, Wc, Wp, sm, sc, sp, dtodx, e, a, b);
+      ppm_cell<T, NF, ISO, FLUX>(Wm, Wc, Wp, sm, sc, sp, dtodx, e, a, b);
     } else {
-      recon3_cell<T, NS, ISO, FLUX, ORDER>(Wm, Wc, Wp, dtodx, e, a, b);
+      recon3_cell<T, NF, ISO, FLUX, ORDER>(Wm, Wc, Wp, dtodx, e, a, b);
     }
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
       sM[v * nc + i] = a[v];
       sP[v * nc + i] = b[v];
     }
+    if constexpr (NS < 0) tr = trace_for<T, ISO, FLUX, ORDER>(Wc, e);
   }
   __syncthreads();
   // 3. interface f = x0 + i: Wplus of cell f-1 (slot i) | Wminus of cell f
   // (slot i+1); the dF form puts F(f) in slot i of the first plane, whose
   // primitives were last read before the barrier above
+  ScalarFlux<T> sf{};               // NS = kNsRun: the solve's, and the
+  T dl = T(0), dr = T(0);           // densities of Ul and Ur
   if (t.ok && i < nif) {
     const long long off = t.row + t.cell(i, NX);
     T Wl[NV], Wr[NV];
@@ -429,15 +572,17 @@ __global__ void __launch_bounds__(TM * R)
       dVr = dtodx * (pc - pf);
     }
     T Ulc[NV], Urc[NV], Fs[NV];
-    interface_flux<T, NS, ISO, FLUX>(Wl, Wr, kick, dVl, dVr, e, Ulc, Urc,
-                                     Fs);
+    interface_flux<T, NF, ISO, FLUX>(Wl, Wr, kick, dVl, dVr, e, Ulc, Urc,
+                                     Fs, NS < 0 ? &sf : nullptr);
+    dl = Ulc[0];
+    dr = Urc[0];
     if (i < t.ni) {
-      store_cell<T, NS, ISO>(Ul, ncell, off, pm, Ulc);
-      store_cell<T, NS, ISO>(Ur, ncell, off, pm, Urc);
+      store_cell<T, NF, ISO>(Ul, ncell, off, pm, Ulc);
+      store_cell<T, NF, ISO>(Ur, ncell, off, pm, Urc);
       if constexpr (DF)
         F[off] = Fs[0];
       else
-        store_cell<T, NS, ISO>(F, ncell, off, pm, Fs);
+        store_cell<T, NF, ISO>(F, ncell, off, pm, Fs);
     }
     if constexpr (DF) {
 #pragma unroll
@@ -452,6 +597,54 @@ __global__ void __launch_bounds__(TM * R)
 #pragma unroll
       for (int v = 0; v < NV; ++v)
         dF[pm.p[v] * ncell + off] = sW[v * nc + i + 1] - sW[v * nc + i];
+    }
+  }
+  if constexpr (NS < 0) {
+    // the scalars one at a time through their planes, steps 1-4 as above
+    T* const sWs = sW + (PPM ? 4 : 3) * NV * nc;    // primitives, fluxes
+    T* const sSs = sWs + nc;                       // PPM slopes
+    T* const sMs = sWs + (PPM ? 2 : 1) * nc;
+    T* const sPs = sMs + nc;
+    for (int s = 0; s < ns; ++s) {
+      const long long so = (NW + s) * ncell;
+      if (t.ok && i < nif + 2 * H - 1)
+        sWs[i] = U[so + t.row + t.cell(i - H, NX)] * di;
+      __syncthreads();
+      if constexpr (PPM) {
+        if (t.ok && i < nif + 3)
+          sSs[i] = scalar_slope(sWs[i], sWs[i + 1], sWs[i + 2]);
+        __syncthreads();
+      }
+      if (t.ok && i < nif + 1) {
+        const int c = i + H - 1;
+        T a, b;
+        if constexpr (PPM)
+          ppm_scalar<T, FLUX>(sWs[c - 1], sWs[c], sWs[c + 1], sSs[i],
+                              sSs[i + 1], sSs[i + 2], dtodx, tr, a, b);
+        else
+          recon3_scalar<T, FLUX, ORDER>(sWs[c - 1], sWs[c], sWs[c + 1],
+                                        dtodx, tr, a, b);
+        sMs[i] = a;
+        sPs[i] = b;
+      }
+      __syncthreads();
+      if (t.ok && i < nif) {
+        const long long off = so + t.row + t.cell(i, NX);
+        const T wl = sPs[i], wr = sMs[i + 1];
+        const T fs = sf(wl, wr);
+        if (i < t.ni) {
+          Ul[off] = wl * dl;
+          Ur[off] = wr * dr;
+          if constexpr (!DF) F[off] = fs;
+        }
+        if constexpr (DF) sWs[i] = fs;
+      }
+      if constexpr (DF) {
+        __syncthreads();
+        if (t.ok && i < t.ni)
+          dF[so + t.row + t.x0 + i] = sWs[i + 1] - sWs[i];
+      }
+      __syncthreads();
     }
   }
 }
@@ -486,6 +679,7 @@ struct SweepArgs {
   void *Ul, *Ur, *F, *dF;
   int nz, ny, nx, axis;
   double c0, c1;      // the EOS constants (Eos)
+  int ns;             // the number of passive scalars
 };
 
 template <typename T, int NS, bool ISO, int FLUX, int ORDER, bool DF, int S,
@@ -495,30 +689,36 @@ int launch_sweep_shape(const SweepArgs& a, cudaStream_t st) {
   const Eos<T> e{(T)a.c0, (T)a.c1};
   if (a.axis == 0) {
     const Tiles t = tiles_of(a.nx, TM, PPM ? 6 : 4);
-    const size_t smem =
-        (size_t)R * (PPM ? 4 : 3) * (nwave(ISO) + NS) * t.bx * sizeof(T);
+    const size_t smem = (size_t)R * (PPM ? 4 : 3) *
+                        (nwave(ISO) + (NS < 0 ? 1 : NS)) * t.bx * sizeof(T);
     auto k = sweep_tile_kernel<T, NS, ISO, FLUX, ORDER, DF, TM, R>;
     const cudaError_t err = allow_smem(k, smem);
     if (err != cudaSuccess) return (int)err;
     k<<<dim3(t.n, (a.ny + R - 1) / R, a.nz), dim3(t.bx, R), smem, st>>>(
         (const T*)a.U, (const T*)a.phic, (const T*)a.phif,
         (const T*)a.dtodx, (T*)a.Ul, (T*)a.Ur, (T*)a.F, (T*)a.dF, a.nz, a.ny,
-        a.nx, t.w, e);
+        a.nx, t.w, e, a.ns);
   } else {
     const int n = a.axis == 1 ? a.ny : a.nz, nq = a.axis == 1 ? a.nz : a.ny;
-    sweep_march_kernel<T, NS, ISO, FLUX, ORDER, DF, S>
-        <<<dim3((a.nx + 31) / 32, (nq + kMarchRows - 1) / kMarchRows,
-                (n + S - 1) / S),
-           dim3(32, kMarchRows), 0, st>>>(
-            (const T*)a.U, (const T*)a.phic, (const T*)a.phif,
-            (const T*)a.dtodx, (T*)a.Ul, (T*)a.Ur, (T*)a.F, (T*)a.dF, a.nz,
-            a.ny, a.nx, a.axis, e);
+    // NS = kNsRun: the scalars' windows
+    const size_t smem = NS < 0 ? (size_t)a.ns * march_slots(ORDER) * 32 *
+                                     kMarchRows * sizeof(T)
+                               : 0;
+    auto k = sweep_march_kernel<T, NS, ISO, FLUX, ORDER, DF, S>;
+    const cudaError_t err = allow_smem(k, smem);
+    if (err != cudaSuccess) return (int)err;
+    k<<<dim3((a.nx + 31) / 32, (nq + kMarchRows - 1) / kMarchRows,
+             (n + S - 1) / S),
+        dim3(32, kMarchRows), smem, st>>>(
+        (const T*)a.U, (const T*)a.phic, (const T*)a.phif, (const T*)a.dtodx,
+        (T*)a.Ul, (T*)a.Ur, (T*)a.F, (T*)a.dF, a.nz, a.ny, a.nx, a.axis, e,
+        a.ns);
   }
   return (int)cudaGetLastError();
 }
 
-// the launch shapes of order 2 (ATH_HYDRO_SHAPES) or, for the other
-// orders, the default one
+// the launch shapes of order 2 with NS = 0 or 1 (ATH_HYDRO_SHAPES) or, for
+// the other orders and NS = kNsRun, the default one
 template <typename T, int NS, bool ISO, int FLUX, int ORDER>
 int launch_sweep(const SweepArgs& a, int df, int s, int tm, int r,
                  void* stream) {
@@ -529,7 +729,7 @@ int launch_sweep(const SweepArgs& a, int df, int s, int tm, int r,
                                    R>(a, st)                                \
               : launch_sweep_shape<T, NS, ISO, FLUX, ORDER, false, S, TM,    \
                                    R>(a, st);
-  if constexpr (ORDER == kPlm) {
+  if constexpr (ORDER == kPlm && NS >= 0) {
     ATH_HYDRO_SHAPES(ATH_SWEEP_SHAPE)
   } else {
     ATH_HYDRO_SHAPE0(ATH_SWEEP_SHAPE)

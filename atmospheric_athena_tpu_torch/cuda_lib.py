@@ -69,8 +69,8 @@ _SIGNATURES = {
     "ath_rad_fused_f64": [_P] * 26 + [_I, _I, _P, _P],
     "ath_rad_update_f32": [_P] * 16 + [_L, _P, _P],
     "ath_rad_update_f64": [_P] * 16 + [_L, _P, _P],
-    "ath_rad_batch_f32": [_P] * 20 + [_I] * 4 + [_P, _P],
-    "ath_rad_batch_f64": [_P] * 20 + [_I] * 4 + [_P, _P],
+    "ath_rad_batch_f32": [_P] * 21 + [_I] * 4 + [_P, _P],
+    "ath_rad_batch_f64": [_P] * 21 + [_I] * 4 + [_P, _P],
     "ath_bc_fill_f32": [_P] * 2 + [_I] * 12 + [_P],
     "ath_bc_fill_f64": [_P] * 2 + [_I] * 12 + [_P],
     "ath_rad_rates_blocks": [_I, _I],

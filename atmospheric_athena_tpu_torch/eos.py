@@ -48,7 +48,11 @@ def prim1d_to_cons1d(W, Bx, sim: SimConfig):
     out = [d, d * Vx, d * Vy, d * Vz]
     ne = 4
     if sim.adiabatic:
-        E = W[4] / sim.gamma_1 + 0.5 * d * (Vx ** 2 + Vy ** 2 + Vz ** 2)
+        # P / (gamma - 1) as one IEEE division on any device, as the
+        # kernels round it (on a CUDA tensor PyTorch divides by a number
+        # through its reciprocal)
+        E = (W[4] / torch.full_like(W[4], sim.gamma_1)
+             + 0.5 * d * (Vx ** 2 + Vy ** 2 + Vz ** 2))
         out.append(E)
         ne = 5
     for n in range(sim.nscalars):

@@ -26,8 +26,8 @@ by the global dt = min(dt_chem, dt_therm) (ionrad_3d.c:941-954):
            minima of the last active substep, the CFL of the final state and
            the schedule's validity flag.
 
-The inlet flux of rates and fused is the scalar Fin, or for an SMR fine
-level (``inlet=``) a per-column [NZ, NY] (or [NZ, NY, 1]) array, the
+The inlet flux of rates, fused and batch is the scalar Fin, or for an SMR
+fine level (``inlet=``) a per-column [NZ, NY] (or [NZ, NY, 1]) array, the
 parent's EdgeFlux under each x row (smr.child_inlet_flux); Fin is then
 ignored.
 
@@ -41,8 +41,9 @@ the plain version for CPU tensors; the plain versions call the per-cell
 physics of ``driver``.  The violation count is an integer sum (exact at
 any grid size).  ``<wrapper>.launches`` counts kernel launches, and
 ``rates.forms`` / ``fused.forms`` count them per inlet form ("scalar" or
-"inlet").  The batch kernel's inlet form (pallas_rad.build_batch with
-inlet) is not ported: no path runs it, since a fine level takes the K=1
+"inlet"), and so does ``batch.forms``.  The batch kernel's inlet form
+(pallas_rad.build_batch with inlet) runs on no path, in the JAX package
+and here alike: ``ion_radtransfer`` gives a fine level (tcoarse) the K=1
 loop.
 """
 
@@ -192,10 +193,12 @@ def sweep_fast(s0, Fin, grid: GridConfig, ion: IonConfig):
 
 
 def batch_plain(s0, E, code, d, M1, M2, M3, e_init, x_init, dts, Fin,
-                sim: SimConfig, grid: GridConfig, ion: IonConfig):
+                sim: SimConfig, grid: GridConfig, ion: IonConfig,
+                inlet=None):
     """Plain version of ``batch``: K = len(dts) substeps of sweep_fast,
     rates_percell and update_percell; a substep with dts[j] <= 0 is frozen
-    (it updates no state, flux, count or minimum).  Returns (s02, E2,
+    (it updates no state, flux, count or minimum); a per-column `inlet`
+    replaces Fin (the inlet form).  Returns (s02, E2,
     ncode, efb, efx, viol, dti_max, dt_chem, dt_therm, ok): viol (int64),
     dt_chem and dt_therm of the last active substep, dti_max of the final
     state, ok 1 unless an active substep's dt exceeds its
@@ -212,10 +215,11 @@ def batch_plain(s0, E, code, d, M1, M2, M3, e_init, x_init, dts, Fin,
     bad = torch.zeros((), dtype=torch.bool, device=s0.device)
     efb = torch.zeros_like(s0)
     efx = torch.zeros_like(s0[..., :1])
+    inflow = _inflow(Fin, inlet, s0)
     for j in range(dts.shape[0]):
         dt = dts[j]
         active = dt > 0.0
-        kph, efb_j, efx_j = sweep_fast(s0, Fin, grid, ion)
+        kph, efb_j, efx_j = sweep_fast(s0, inflow, grid, ion)
         nHdot, nsn, ncn, dtc, edot, dtt = driver.rates_percell(
             s0, E, d, ke_be, code % 4 - 1, code // 4, kph, d_nlim, sim, ion)
         dtc_j, dtt_j = torch.amin(dtc), torch.amin(dtt)
@@ -480,15 +484,17 @@ fused.forms = Counter()
 
 
 def batch(s0, E, code, d, M1, M2, M3, e_init, x_init, dts, Fin,
-          sim: SimConfig, grid: GridConfig, ion: IonConfig,
+          sim: SimConfig, grid: GridConfig, ion: IonConfig, inlet=None,
           shape=BATCH_SHAPES[0]):
     """K = len(dts) substeps of the sub-cycle; see ``batch_plain`` for the
-    outputs.  dts is a [K] tensor, Fin a float or 0-d tensor.
+    outputs.  dts is a [K] tensor, Fin a float or 0-d tensor; a per-column
+    `inlet` ([NZ, NY] or [NZ, NY, 1]) replaces it.
 
     Kernel (CUDA tensors): csrc/rad_batch.cu batch_kernel, replacing
-    ionrad/pallas_rad.py:_batch_kernel.  Bound by instruction issue: a
-    log, four exp and about nine IEEE divides per cell and substep, some
-    500 instructions.  One warp per x row keeps the row's state and the
+    ionrad/pallas_rad.py:_batch_kernel in both inlet forms (the row's
+    inlet read once, its reciprocal formed per row).  Bound by
+    instruction issue: a log, four exp and about nine IEEE divides per
+    cell and substep, some 500 instructions.  One warp per x row keeps the row's state and the
     per-cell constants d, ke_be, 1/d, e_init and x_init in shared memory
     for all K substeps, so its registers hold one cell's chemistry (with
     the host-folded constants rounded to the fields' dtype) and more warps
@@ -498,10 +504,11 @@ def batch(s0, E, code, d, M1, M2, M3, e_init, x_init, dts, Fin,
     give ok here, exactly as the plain version's global minima do."""
     if s0.device.type != "cuda":
         return batch_plain(s0, E, code, d, M1, M2, M3, e_init, x_init, dts,
-                           Fin, sim, grid, ion)
+                           Fin, sim, grid, ion, inlet=inlet)
     check_supported(sim, grid, ion)
     _check_fields("batch", s0, (E, d, M1, M2, M3, e_init, x_init),
                   ints=(code,))
+    inl = _inlet_arg(inlet, s0)
     nz, ny, nx = s0.shape
     k = dts.shape[0]
     if dts.dim() != 1 or not 1 <= k <= 1024:
@@ -515,7 +522,7 @@ def batch(s0, E, code, d, M1, M2, M3, e_init, x_init, dts, Fin,
     nrows = nz * ny
     L = cuda_lib.lib()
     nblk = L.ath_rad_batch_blocks(nrows, shape)
-    scal = cuda_lib.scalar_arg([*dts, Fin], s0)
+    scal = cuda_lib.scalar_arg([*dts, 0.0 if inl is not None else Fin], s0)
     s02, E2, efb = (torch.empty_like(s0) for _ in range(3))
     ncode = torch.empty_like(code)
     efx = torch.empty((nz, ny, 1), dtype=s0.dtype, device=s0.device)
@@ -528,13 +535,15 @@ def batch(s0, E, code, d, M1, M2, M3, e_init, x_init, dts, Fin,
         else L.ath_rad_batch_f32
     err = fn(s0.data_ptr(), E.data_ptr(), code.data_ptr(), d.data_ptr(),
              M1.data_ptr(), M2.data_ptr(), M3.data_ptr(), e_init.data_ptr(),
-             x_init.data_ptr(), scal.data_ptr(), s02.data_ptr(),
+             x_init.data_ptr(), scal.data_ptr(),
+             None if inl is None else inl.data_ptr(), s02.data_ptr(),
              E2.data_ptr(), ncode.data_ptr(), efb.data_ptr(), efx.data_ptr(),
              viol_p.data_ptr(), dti_p.data_ptr(), dtc_p.data_ptr(),
              dtt_p.data_ptr(), lim_p.data_ptr(), nrows, nx, k, shape,
              ctypes.byref(prm), cuda_lib.stream_ptr(s0.device))
     cuda_lib.check(err, "batch")
     batch.launches += 1
+    batch.forms["scalar" if inl is None else "inlet"] += 1
     dts = scal[:k]
     bad = ((dts > 0.0) & (dts > torch.amin(lim_p, dim=1))).any()
     return (s02, E2, ncode, efb, efx, torch.sum(viol_p, dtype=torch.int64),
@@ -543,6 +552,7 @@ def batch(s0, E, code, d, M1, M2, M3, e_init, x_init, dts, Fin,
 
 
 batch.launches = 0
+batch.forms = Counter()
 
 
 def build(sim: SimConfig, grid: GridConfig, ion: IonConfig, d, M1, M2, M3,
@@ -587,13 +597,17 @@ def build(sim: SimConfig, grid: GridConfig, ion: IonConfig, d, M1, M2, M3,
 
 
 def build_batch(sim: SimConfig, grid: GridConfig, ion: IonConfig, d, M1, M2,
-                M3, e_init, x_init, k: int):
+                M3, e_init, x_init, k: int, inlet=None):
     """Returns batch_fn(s0, E, code, dts, Fin) ->
     (s02, E2, ncode, (efb, efx), viol, dti_max, dt_chem, dt_therm, ok)
     running k = len(dts) substeps per call; viol, dt_chem and dt_therm are
     the last active substep's, ok is 1 iff every active substep's dt was
-    <= its min(dt_chem, dt_therm)."""
+    <= its min(dt_chem, dt_therm).  With `inlet` (a per-column [NZ, NY] or
+    [NZ, NY, 1] array, the SMR fine-level mode) batch_fn's Fin is ignored,
+    as in pallas_rad.build_batch."""
     check_supported(sim, grid, ion)
+    if inlet is not None:
+        inlet = inlet.reshape(d.shape[0], d.shape[1]).contiguous()
     d, M1, M2, M3, e_init, x_init = (t.contiguous() for t in (
         d, M1, M2, M3, e_init, x_init))
 
@@ -603,7 +617,7 @@ def build_batch(sim: SimConfig, grid: GridConfig, ion: IonConfig, d, M1, M2,
                              f"built for ({k},)")
         (s02, E2, ncode, efb, efx, viol, dti, dtc, dtt,
          ok) = batch(s0, E, code, d, M1, M2, M3, e_init, x_init, dts, Fin,
-                     sim, grid, ion)
+                     sim, grid, ion, inlet=inlet)
         return s02, E2, ncode, (efb, efx), viol, dti, dtc, dtt, ok
 
     return batch_fn

@@ -16,7 +16,8 @@ def register(name):
 
 
 def get_problem(name: str):
-    from . import blast, ioniz_sphere, testsedov, turb  # noqa: F401
+    from . import (blast, ioniz_sphere, linear_wave, testsedov,  # noqa: F401
+                   turb)
     try:
         return _REGISTRY[name]
     except KeyError:

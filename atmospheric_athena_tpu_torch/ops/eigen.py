@@ -133,7 +133,10 @@ def esys_roe_adb_hyd(v1, v2, v3, h, sim: SimConfig, vectors=True):
         [h - v1 * a, v2, v3, 0.5 * vsq, h + v1 * a],
     ]
     na = 0.5 / asq
-    qa = g1 / asq
+    # g1 / asq as one IEEE division on any device, as the kernels round it
+    # (PyTorch forms a number over a tensor as the tensor's reciprocal
+    # times the number, exact only for a power of two such as na's 0.5)
+    qa = torch.full_like(asq, g1) / asq
     lem = [
         [na * (0.5 * g1 * vsq + v1 * a), -na * (g1 * v1 + a),
          -na * g1 * v2, -na * g1 * v3, na * g1],

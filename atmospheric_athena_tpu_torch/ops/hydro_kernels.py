@@ -31,14 +31,24 @@ repeat their formulas in csrc/hydro.cuh.  Both wrap
 the stencil at the array edge (torch.roll / modular indexing), which touches
 only ghost cells that no interior update reads.
 
+The kernels take any number of passive scalars up to ``MAX_SCALARS``:
+none and one are compile-time counts of their templates; from two on
+(csrc/hydro.cuh ``kNsRun``) the wave fields keep their compile-time arrays
+and the scalars pass one at a time through a loop over the run-time count,
+each with its own window (registers and shared memory) and the
+interface's solve (hydro.cuh ``ScalarFlux``).
+
 B5 (both forms) and B12 take ``shape=``, their launch shape, one of
 ``SWEEP_SHAPES`` / ``FLUXDF_SHAPES``; B5 is built in every shape for order
-2 and in the first for the other orders.  ``<wrapper>.launches`` counts
-the kernel launches of each wrapper and ``<wrapper>.forms`` the launches
-per form: the solver (``forms["hllc"]``), and for B5 at an order other
-than 2 the order and solver (``form``: ``forms["ppm+hllc"]``); for
-isothermal gas each form prefixed "iso+" (``gas_form``:
-``forms["iso+roe"]``, ``forms["iso+ppm+hllc"]``).
+2 and in the first for the other orders, B5 and B12 in the first only
+from two scalars on (``sweep_shapes``, ``fluxdf_shapes``).
+``<wrapper>.launches`` counts the kernel launches of each wrapper and
+``<wrapper>.forms`` the launches per form: the solver
+(``forms["hllc"]``), and for B5 at an order other than 2 the order and
+solver (``form``: ``forms["ppm+hllc"]``); for isothermal gas each form
+prefixed "iso+" (``gas_form``: ``forms["iso+roe"]``,
+``forms["iso+ppm+hllc"]``); from two scalars on each form suffixed with
+their number (``forms["roe+ns4"]``, ``forms["iso+dF2+ns2"]``).
 """
 
 from __future__ import annotations
@@ -64,24 +74,30 @@ ORDER_NAME = {"1": "dc", "2": "plm", "3": "ppm", "2p": "plmp", "3p": "ppmp"}
 # launch shapes the B5 and B12 kernels are built for (csrc/hydro.cu
 # ATH_HYDRO_SHAPES): (S interfaces per segment of the y and z sweeps, at
 # most T threads per row and R rows per block of the x sweep); the first is
-# the default and the only one of B5 at orders other than 2
+# the default and the only one of B5 at orders other than 2 and of B5 and
+# B12 with two or more scalars
 SWEEP_SHAPES = ((32, 128, 1), (64, 320, 1))
 FLUXDF_SHAPES = SWEEP_SHAPES
+
+# the most passive scalars the kernels take (csrc/hydro.cuh kMaxScalars):
+# the march kernels keep 4-7 values per scalar and thread in shared memory
+MAX_SCALARS = 32
 
 
 def refusal(sim: SimConfig):
     """Why the kernels do not take `sim`, naming the ROADMAP item, or None.
     They take 3D adiabatic or isothermal hydro with CTU tracing,
     reconstruction orders 1, 2, 3, 2p and 3p, the Roe, HLLE and HLLC
-    solvers and at most one passive scalar: the forms of the JAX package's
-    kernels (pallas_hydro.supported) less more scalars."""
+    solvers and up to MAX_SCALARS passive scalars: the forms of the JAX
+    package's kernels (pallas_hydro.supported)."""
     if sim.gas != "hydro":
         return "MHD (ROADMAP A12)"
     if sim.special_relativity:
         return "special relativity (ROADMAP A15)"
-    if sim.nscalars > 1:
-        return (f"{sim.nscalars} passive scalars, more than one (ROADMAP "
-                "A11 step 4, B2)")
+    if sim.nscalars > MAX_SCALARS:
+        return (f"{sim.nscalars} passive scalars, more than the "
+                f"{MAX_SCALARS} whose windows fit the march kernels' shared "
+                "memory")
     if sim.integrator != "ctu":
         return f"the {sim.integrator} integrator (ROADMAP A11 step 6)"
     if sim.flux not in FLUX_KIND:
@@ -97,8 +113,15 @@ def supported(sim: SimConfig) -> bool:
 
 def sweep_shapes(sim: SimConfig):
     """The launch shapes B5 is built for at sim.order: every one of
-    SWEEP_SHAPES at order 2, the first at the other orders."""
-    return SWEEP_SHAPES if sim.order == "2" else SWEEP_SHAPES[:1]
+    SWEEP_SHAPES at order 2 with at most one scalar, else the first."""
+    return (SWEEP_SHAPES if sim.order == "2" and sim.nscalars < 2
+            else SWEEP_SHAPES[:1])
+
+
+def fluxdf_shapes(sim: SimConfig):
+    """The launch shapes B12 is built for: every one of FLUXDF_SHAPES with
+    at most one scalar, else the first."""
+    return FLUXDF_SHAPES if sim.nscalars < 2 else FLUXDF_SHAPES[:1]
 
 
 def eos_args(sim: SimConfig):
@@ -111,17 +134,20 @@ def eos_args(sim: SimConfig):
 
 
 def gas_form(sim: SimConfig, name: str) -> str:
-    """A kernel form `name` for the gas of `sim`: as it is for adiabatic
-    gas, prefixed "iso+" for isothermal gas ("iso+roe", "iso+dF2")."""
-    return name if sim.adiabatic else f"iso+{name}"
+    """A kernel form `name` for the gas and scalars of `sim`: as it is for
+    adiabatic gas, prefixed "iso+" for isothermal gas ("iso+roe",
+    "iso+dF2"), suffixed "+ns<N>" for N >= 2 scalars ("roe+ns4",
+    "iso+dF+ns2")."""
+    name = name if sim.adiabatic else f"iso+{name}"
+    return name if sim.nscalars < 2 else f"{name}+ns{sim.nscalars}"
 
 
 def form(sim: SimConfig) -> str:
     """The form of B5 that `sim` selects, as counted in its wrappers'
     ``forms``: the solver at order 2 ("roe", "hlle", "hllc"), else the
     order's name, joined to the solver unless it is Roe ("ppm",
-    "ppm+hllc", "dc", "plmp+hlle"); prefixed "iso+" for isothermal gas
-    ("iso+roe", "iso+ppm")."""
+    "ppm+hllc", "dc", "plmp+hlle"); as gas_form names it for the gas and
+    the scalars ("iso+roe", "iso+ppm", "roe+ns4")."""
     if sim.order == "2":
         return gas_form(sim, sim.flux)
     name = ORDER_NAME[sim.order]
@@ -261,7 +287,8 @@ def sweep_lrflux(U, phic, phif_a, dtodx, sim: SimConfig, axis: int,
     ops/pallas_hydro.py:_sweep_kernel.  Each cell is converted and
     reconstructed once and each interface solved once, apart from the halo
     of a segment or tile (see the source note).  `shape` is the launch
-    shape, one of sweep_shapes(sim).
+    shape, one of sweep_shapes(sim).  From two scalars on, the scalars
+    follow the wave fields one at a time (csrc/sweep.cuh).
     """
     if U.device.type != "cuda":
         return sweep_lrflux_plain(U, phic, phif_a, dtodx, sim, axis)
@@ -357,7 +384,7 @@ def flux_sweep_df(Ulc, Urc, sim: SimConfig, axis: int,
     stays in registers (y, z) or shared memory (x) until F2(f+1) is formed,
     so F2 never goes to memory and dF2 is bitwise the roll-and-subtract of
     flux_pointwise_kernel's F2.  `shape` is the launch shape, one of
-    FLUXDF_SHAPES.
+    fluxdf_shapes(sim).
     """
     if Ulc.device.type != "cuda":
         return flux_sweep_df_plain(Ulc, Urc, sim, axis)
@@ -366,7 +393,7 @@ def flux_sweep_df(Ulc, Urc, sim: SimConfig, axis: int,
         raise ValueError("flux_sweep_df: Urc must match Ulc")
     if axis not in (0, 1, 2):
         raise ValueError(f"flux_sweep_df: axis {axis}")
-    _check_shape("flux_sweep_df", shape, FLUXDF_SHAPES)
+    _check_shape("flux_sweep_df", shape, fluxdf_shapes(sim))
     nv, nz, ny, nx = Ulc.shape
     dF2 = torch.empty_like(Ulc)
     Fid = torch.empty_like(Ulc[0])

@@ -192,8 +192,11 @@ def ppm(W, Bx, dtodx, sim: SimConfig, axis: int, characteristic=True):
     Wlv = []
     Wrv = []
     for n in range(nv):
-        wim1h = 0.5 * (Wc[n] + Wm[n]) - (dWmn[n] - _sh(dWmn[n], -1,
-                                                       axis)) / 6.0
+        # the division by 6 as one IEEE division on any device, as the
+        # kernels round it (on a CUDA tensor PyTorch divides by a number
+        # through its reciprocal)
+        wim1h = 0.5 * (Wc[n] + Wm[n]) - (dWmn[n] - _sh(dWmn[n], -1, axis)) \
+            / torch.full_like(dWmn[n], 6.0)
         Wlv.append(wim1h)                 # left interface of cell i
         Wrv.append(_sh(wim1h, 1, axis))   # left interface of cell i+1
 

@@ -16,7 +16,9 @@ pointwise step-9 flux), the CTU route without the H-correction (step 9 by
 B12, flux_sweep_df) in the bench configuration and in the testsedov blast
 (HLLC), and testsedov with the H-correction (B8 with HLLC); and this
 slice's paths: the bench configuration with PPM (order 3, B5-dF PPM) and
-testsedov with HLLE (B5 and B5-dF, B12, B13 and B8 with HLLE).  It checks
+testsedov with HLLE (B5 and B5-dF, B12, B13 and B8 with HLLE); turb
+(isothermal gas); and linear_wave with four passive scalars (every hydro
+kernel's run-time scalar form, "name[roe+ns4]").  It checks
 each hand-written kernel against its plain PyTorch version on the card; a
 kernel with several forms (the solver, Roe, HLLC or HLLE, and B5's
 reconstruction order, "ppm+hllc"; the operand forms of transverse_correct,
@@ -28,9 +30,10 @@ and counted per form, "name[form]":
      print the build time and ptxas's registers and spills of every CUDA
      kernel (each instantiation: element type, form and launch shape), and
      from cuobjdump the SASS instructions of the batch kernel's per-cell
-     pass and of B5's and B12's per-interface loop (y, z) and body (x) in
-     every form and launch shape, with the time they take to issue at the
-     card's maximum clock;
+     pass (both inlet forms) and of B5's and B12's per-interface loop (y,
+     z) and body (x) in every form and launch shape (the run-time scalar
+     forms: the loop with one pass of its scalar loop, and that loop's
+     body), with the time they take to issue at the card's maximum clock;
   2. kernel vs plain version on states of the isph deck after init and two
      steps, with a damping-code carry and a per-column inlet drawn from
      SEED and the batch kernel on a 25-substep schedule of THETA x the
@@ -49,9 +52,14 @@ and counted per form, "name[form]":
      the whole fluxes its dF form on the same fluxes bitwise, and B3' (the
      fused update + rates, on no path, as in the JAX package) update_fn
      followed by rates_fn of the same build within TOL, timed against
-     them; then the NaN probe at 16^3 float64: one interior cell's E, and
-     in a second case d, set to NaN, and every kernel's NaN cells and NaN
-     reductions equal to its plain version's;
+     them; the forms with 2 and 4 passive scalars (each order, solver,
+     gas and operand form; B5 PLM Roe also with 8) on the isph state with
+     distinct scalars and stirred flows (ns_inputs), and B3's inlet form,
+     the same way, each scalar form timed with one plain call per axis and
+     5 kernel runs; then the NaN probe at 16^3 float64: one interior
+     cell's E, and in a second case d, set to NaN (the scalar forms: d, or
+     the last scalar), and every kernel's NaN cells and NaN reductions
+     equal to its plain version's;
   3. the 64^3 golden (tests/golden/athinput.isph64, float64, 10 cycles)
      through Simulation.from_file on the card, on each hydro path with the
      ghost-fill kernel and once on the middle-phase path with
@@ -73,7 +81,10 @@ and counted per form, "name[form]":
      testsedov with HLLE at 64^3 on each hydro path and with the
      H-correction (3 cycles), and testsedov at its deck's size with every
      other form of B5 (orders 1, 2p, 3p with each solver, PPM with HLLC
-     and HLLE; 2 cycles each), each to 1e-10 of each field's max;
+     and HLLE; 2 cycles each), each to 1e-10 of each field's max; turb
+     and linear_wave (4 distinct scalars, vflow 0 and 1, three routes;
+     isothermal with 2) with the kernels against the plain versions on
+     the card, to 1e-10 of each field's max;
   4. full width: the SMR main path, isph2lev at 256^3 + 256^3 float32
      (the child over the root's centre), maxiter=50, batch_iters=25, 3
      cycles through Simulation.from_file (no device argument: the card is
@@ -88,14 +99,16 @@ and counted per form, "name[form]":
      configure/order=3) and 1 K=1 cycle with PPM on MID=0; testsedov at
      256^3 float32 with cubic cells, with HLLC and with HLLE, 5 cycles on
      the middle-phase path, 1 on MID=0 and 1 with the H-correction,
-     through Simulation.from_file without a device.
+     through Simulation.from_file without a device; turb and linear_wave
+     (4 scalars) at 256^3 float32 the same way, and a CLI cycle of each.
 
 It ends with a JSON line of the kernels (launches from the phase-4 run of
 each kernel's path: the SMR run first, then the bench run, the K=1 runs,
-the run without the H-correction, the testsedov runs, the PPM runs; B3'
-and the forms of B5 that take no full-width run, on no path, with their
-phase-2 launches and "path": null, the latter also with their phase-3
-launches), the nvidia-smi line before it, and the final line {"ok": true,
+the run without the H-correction, the testsedov, PPM, turb and
+linear_wave runs; B3', B3's inlet form and the forms that take no
+full-width run, on no path, with their phase-2 launches and "path": null,
+the hydro ones also with their phase-3 launches), the nvidia-smi line
+before it, and the final line {"ok": true,
 "device": {...}}.  Any failed check raises, so the exit code is non-zero
 and no result line is printed.
 """
@@ -168,6 +181,55 @@ ispect = 1
 idrive = 0
 rseed = 7
 """
+
+# the linear wave of the JAX package's models/linear_wave.py with passive
+# scalars: 3D, periodic, PLM, Roe, no H-correction unless the caller asks;
+# a sound wave (wave_flag 0) in a flow of vflow x c_s; size, cycle cap,
+# scalars, flow and the gas's configure flag as fields
+LW_DECK = """
+<comment>
+config = --with-gas=hydro --with-nscalars={ns}{eos}
+
+<job>
+problem_id = LinWave
+
+<time>
+cour_no = 0.4
+tlim    = 1.0
+nlim    = {nlim}
+
+<domain1>
+level = 0
+Nx1 = {n}
+x1min = 0.0
+x1max = 1.0
+bc_ix1 = 4
+bc_ox1 = 4
+Nx2 = {n}
+x2min = 0.0
+x2max = 1.0
+bc_ix2 = 4
+bc_ox2 = 4
+Nx3 = {n}
+x3min = 0.0
+x3max = 1.0
+bc_ix3 = 4
+bc_ox3 = 4
+
+<problem>
+gamma      = 1.66666666666667
+iso_csound = 1.0
+wave_flag  = 0
+amp        = 1e-6
+vflow      = {vflow}
+"""
+LW_NS = 4
+
+
+def lw_deck(n, nlim, ns=LW_NS, vflow=1.0, iso=False):
+    return LW_DECK.format(n=n, nlim=nlim, ns=ns, vflow=vflow,
+                          eos=" --with-eos=isothermal" if iso else "")
+
 
 # (time, dt) after each of the 10 cycles of the reference C code on the
 # isph64 deck (the trajectory tests/test_ioniz_sphere.py holds the JAX
@@ -407,6 +469,87 @@ FIELDS_MOVED.update({
     "max_dti_hydro[isothermal]": (4, "padded"),    # d, M1, M2, M3
 })
 
+# Passive scalars beyond one (the kernels' run-time scalar forms,
+# csrc/hydro.cuh kNsRun; hydro_kernels.gas_form suffixes "+ns<N>"): every
+# form of B5 (order and solver), B13, B12 and B8 (each solver), B7 and B10
+# (both operand forms), for each gas, with each count of NS_COUNTS; B5 PLM
+# Roe in both forms also with NS_WIDE scalars.  B5 from hydro*.cu, B12 and
+# B13 from hydro.cu / flux_iso.cu, the others from ctu_mid.cu.
+NS_COUNTS = (2, 4)
+NS_WIDE = 8
+
+
+def split_ns(form):
+    """(the form without its "+ns<N>" suffix, N), N = 0 without one."""
+    head, sep, tail = form.rpartition("+ns")
+    if sep and tail.isdigit():
+        return head, int(tail)
+    return form, 0
+
+
+def ns_entries(ns, iso):
+    """The kernel entries of the forms with `ns` scalars of one gas."""
+    pre, suf = ("iso+" if iso else ""), f"+ns{ns}"
+    out = [f"{w}[{pre}{form or 'roe'}{suf}]" for form in SWEEP_FORMS
+           for w in ("sweep_lrflux", "sweep_lrflux_df")]
+    out += [f"{w}[{pre}{f}{suf}]" for f in ("roe", "hllc", "hlle")
+            for w in ("flux_pointwise", "flux_sweep_df", "flux_corrected")]
+    out += [f"transverse_correct[{pre}{k}{suf}]" for k in ("dF", "F")]
+    out += [f"final_update[{pre}{k}{suf}]" for k in ("F2", "dF2")]
+    return out
+
+
+NS_FORMS = ([e for ns in NS_COUNTS for iso in (False, True)
+             for e in ns_entries(ns, iso)]
+            + [f"{w}[roe+ns{NS_WIDE}]"
+               for w in ("sweep_lrflux", "sweep_lrflux_df")])
+
+
+def fields_moved_ns(name):
+    """The fields a call of an NS_FORMS entry must move (FIELDS_MOVED's
+    count for nv = nwave + ns fields, on the padded grid): B5 U, phic,
+    phif -> Ul, Ur, F (dF form: F_ID and dF); B13 Ulc, Urc (Roe: etah) ->
+    F2; B12 Ulc, Urc -> dF2, F2_ID, F2_IDr; B8 Ulc, Urc, 3 eta -> F2; B7
+    Ulp, Urp, 2 dF (or F), 2 G (isothermal gas: their momentum rows) ->
+    Ulc, Urc, eta; B10 U, Sg (isothermal: its momentum rows), 3 F2 (or
+    dF2) -> U."""
+    w = name.split("[")[0]
+    form, ns = split_ns(name[len(w) + 1:-1])
+    iso = form.startswith("iso+")
+    nv = (4 if iso else 5) + ns
+    solver = form[4:] if iso else form
+    n = {"sweep_lrflux": 4 * nv + 2, "sweep_lrflux_df": 4 * nv + 3,
+         "flux_pointwise": 3 * nv + (1 if solver == "roe" else 0),
+         "flux_sweep_df": 3 * nv + 2, "flux_corrected": 3 * nv + 3,
+         "transverse_correct": 6 * nv + (2 if iso else 4) + 1,
+         "final_update": 5 * nv + (3 if iso else 6)}[w]
+    return n, "padded"
+
+
+for _name in NS_FORMS:
+    _w = _name.split("[")[0]
+    _form, _ = split_ns(_name[len(_w) + 1:-1])
+    _iso = _form.startswith("iso+")
+    if _w.startswith("sweep"):
+        _o = (ISO_SWEEP_FORMS if _iso else SWEEP_FORMS)[
+            _form if _iso else ("" if _form == "roe" else _form)][0]
+        _src = (_ISO_SRC if _iso else _HYD_SRC)[_o]
+    elif _w in ("flux_pointwise", "flux_sweep_df"):
+        _src = "flux_iso.cu" if _iso else "hydro.cu"
+    else:
+        _src = "ctu_mid.cu"
+    KERNELS.append((_name, "cuda", f"atmospheric_athena_tpu_torch/csrc/{_src}",
+                    f"atmospheric_athena_tpu/ops/{_TPU[_w]}"))
+    FIELDS_MOVED[_name] = fields_moved_ns(_name)
+
+# B3's inlet form (pallas_rad.build_batch(inlet=)): on no path, in the JAX
+# package and here alike
+KERNELS.append(("rad_batch[inlet]", "cuda",
+                "atmospheric_athena_tpu_torch/csrc/rad_batch.cu",
+                "atmospheric_athena_tpu/ionrad/pallas_rad.py:448"))
+FIELDS_MOVED["rad_batch[inlet]"] = (13, "interior")  # ... and an inlet per row
+FORMS["rad_batch"] = "scalar"
+
 # the __global__ function of each CUDA kernel, for ptxas's register report
 SYMBOLS = {"sweep_lrflux": ("sweep_march_kernel", "sweep_tile_kernel"),
            "sweep_lrflux_df": ("sweep_march_kernel", "sweep_tile_kernel"),
@@ -431,6 +574,7 @@ _RAD, _HYD = "ionrad.rad_kernels", "ops.hydro_kernels"
 SHAPED = {"rad_rates": (_RAD, "RATES_SHAPES"),
           "rad_rates[inlet]": (_RAD, "RATES_SHAPES"),
           "rad_batch": (_RAD, "BATCH_SHAPES"),
+          "rad_batch[inlet]": (_RAD, "BATCH_SHAPES"),
           **{k: (_HYD, "SWEEP_SHAPES") for k in (
               "sweep_lrflux", "sweep_lrflux[hllc]", "sweep_lrflux_df",
               "sweep_lrflux_df[hllc]", "sweep_lrflux[hlle]",
@@ -523,6 +667,22 @@ TURB_HC = ["sweep_lrflux_df[iso+roe]", "transverse_correct[iso+dF]",
            "flux_corrected[iso+roe]", "final_update[iso+F2]",
            "max_dti_hydro[isothermal]"]
 
+# linear_wave with LW_NS scalars (adiabatic; no gravity, periodic, so the
+# plain ghost fill): the middle-phase route without the H-correction, MID=0,
+# the middle-phase route with it; isothermal with 2 scalars on the first
+_LW = f"+ns{LW_NS}"
+LW_MID = [f"sweep_lrflux_df[roe{_LW}]", f"transverse_correct[dF{_LW}]",
+          f"flux_sweep_df[roe{_LW}]", f"final_update[dF2{_LW}]",
+          "max_dti_hydro"]
+LW_MID0 = [f"sweep_lrflux[roe{_LW}]", f"flux_pointwise[roe{_LW}]",
+           "max_dti_hydro"]
+LW_HC = [f"sweep_lrflux_df[roe{_LW}]", f"transverse_correct[dF{_LW}]",
+         f"flux_corrected[roe{_LW}]", f"final_update[F2{_LW}]",
+         "max_dti_hydro"]
+LW_ISO = ["sweep_lrflux_df[iso+roe+ns2]", "transverse_correct[iso+dF+ns2]",
+          "flux_sweep_df[iso+roe+ns2]", "final_update[iso+dF2+ns2]",
+          "max_dti_hydro[isothermal]"]
+
 PATHS = {
     "batch": (MID + ["rad_batch", "bc_fill", "rad_rates", "max_dti_hydro"],
               ["sweep_lrflux", "flux_pointwise"] + NOHC + HLLC + SMRF
@@ -541,6 +701,10 @@ PATHS = {
                  "sweep_lrflux", "flux_pointwise"] + HLLC + SMRF + FUSED
                 + NEW_FORMS + ISO_FORMS),
     "turb": (TURB_MID, others(TURB_MID)),
+    "lw": (LW_MID, others(LW_MID)),
+    "lw MID=0": (LW_MID0, others(LW_MID0)),
+    "lw hcorr": (LW_HC, others(LW_HC)),
+    "lw iso": (LW_ISO, others(LW_ISO)),
     "turb MID=0": (TURB_MID0, others(TURB_MID0)),
     "turb hcorr": (TURB_HC, others(TURB_HC)),
     "sedov": (SEDOV_MID, others(SEDOV_MID)),
@@ -567,7 +731,9 @@ PATHS = {
 NO_PATH = FUSED + [entry(w, form) for form, (o, f) in SWEEP_FORMS.items()
                    if o != "2" and (o, f) != ("3", "roe")
                    for w in ("sweep_lrflux", "sweep_lrflux_df")] + [
-    k for k in ISO_FORMS if k not in TURB_MID + TURB_MID0 + TURB_HC]
+    k for k in ISO_FORMS if k not in TURB_MID + TURB_MID0 + TURB_HC] + [
+    k for k in NS_FORMS if k not in LW_MID + LW_MID0 + LW_HC] + [
+    "rad_batch[inlet]"]
 
 AXES = (0, 1, 2)
 
@@ -1043,6 +1209,8 @@ def kernel_calls(s, inp):
                     AXES))]
     calls += [("rad_rates[inlet]", rk.rates, rk.rates_plain,
                inp["rates_in"] + (inp["inlet"],)),
+              ("rad_batch[inlet]", rk.batch, rk.batch_plain,
+               inp["batch_in"] + (inp["inlet"],)),
               ("rad_fused", rk.fused, rk.fused_plain, inp["fused_in"]),
               ("rad_fused[inlet]", rk.fused, rk.fused_plain,
                inp["fused_in"] + (inp["inlet"],))]
@@ -1166,6 +1334,122 @@ def iso_kernel_calls(grid, inp):
     return calls
 
 
+def scalar_fields(ns, grid, like, amp=1.0):
+    """`ns` distinct periodic fields on `grid`'s padded cells: field n is
+    amp (1 + 0.5 sin(2 pi (x + (n+1) y + (n+2) z))) at the cell centres, so
+    a kernel that mixed the scalars' indices would show."""
+    import math
+    import torch
+    cc = [torch.as_tensor(grid.cc_coords(a), dtype=like.dtype,
+                          device=like.device) for a in AXES]
+    x, y, z = cc[0][None, None, :], cc[1][None, :, None], cc[2][:, None, None]
+    return [amp * (1.0 + 0.5 * torch.sin(2 * math.pi * (
+        x + (n + 1) * y + (n + 2) * z))).expand(grid.padded_shape())
+        for n in range(ns)]
+
+
+def ns_inputs(s, ns, iso, nan_field=None):
+    """The operands of the forms with `ns` >= 2 scalars, from the isph
+    state as iso_inputs builds them: the adiabatic state (d, M, E) or the
+    isothermal one (d, M; iso_csound the median adiabatic sound speed),
+    random velocities up to cs/2 added (SEED; the adiabatic energy keeps
+    its pressure), and scalar n = the deck's neutral density x
+    scalar_fields' field n; the deck's potential and dt, and the
+    middle-phase chain (mid_inputs).  nan_field: the field set to NaN at
+    NAN_CELL (the NaN probe)."""
+    import torch
+    from atmospheric_athena_tpu_torch.defs import IEN, IM1
+    from atmospheric_athena_tpu_torch.ops import ctu_mid_kernels as mid
+    from atmospheric_athena_tpu_torch.ops import hydro_kernels
+    st, sim, grid = s.state, s.sim, s.grid
+    U = st.U
+    Ui = U[(slice(None),) + grid.interior()]
+    ke = 0.5 * (Ui[IM1] ** 2 + Ui[IM1 + 1] ** 2 + Ui[IM1 + 2] ** 2) / Ui[0]
+    cs = float(torch.sqrt(sim.gamma * sim.gamma_1 * (Ui[IEN] - ke)
+                          / Ui[0]).nanmedian())
+    kw = dict(nscalars=ns, ion_radiation=False, ion_radplane=False)
+    if iso:
+        kw.update(eos="isothermal", iso_csound=cs)
+    nsim = dataclasses.replace(sim, **kw)
+    nw = IEN if iso else IEN + 1
+    Un = torch.cat([U[:nw]] + [(U[IEN + 1] * f)[None] for f in
+                               scalar_fields(ns, grid, U)]).contiguous()
+    gen = torch.Generator().manual_seed(SEED)
+    stir = torch.rand((3,) + tuple(U.shape[1:]), generator=gen,
+                      dtype=torch.float64).to(U.device, U.dtype)
+    ke0 = 0.5 * (Un[IM1] ** 2 + Un[IM1 + 1] ** 2 + Un[IM1 + 2] ** 2) / Un[0]
+    Un[IM1:IM1 + 3] += Un[0] * cs * (stir - 0.5)
+    if not iso:
+        Un[IEN] += 0.5 * (Un[IM1] ** 2 + Un[IM1 + 1] ** 2
+                          + Un[IM1 + 2] ** 2) / Un[0] - ke0
+    if nan_field is not None:
+        Un[(nan_field,) + NAN_CELL] = float("nan")
+    phic, phif = s.phi
+    dtodx = [st.dt / grid.dx[a] for a in range(3)]
+    flux_in = []
+    for a in range(3):
+        Ul, Ur, _ = hydro_kernels.sweep_lrflux_plain(Un, phic, phif[a],
+                                                     dtodx[a], nsim, a)
+        flux_in.append((Ul.contiguous(), Ur.contiguous(),
+                        mid.hcorr_eta(Ul, Ur, nsim, a).contiguous()))
+    return dict(U=Un, sim=nsim, phic=phic, phif=phif, dtodx=dtodx,
+                flux_in=flux_in,
+                mid=mid_inputs(Un, phic, phif, dtodx, nsim, grid))
+
+
+def ns_kernel_calls(grid, inp, sweeps_only=False):
+    """(name, wrapper, plain version, arguments) of the forms with the
+    scalars of `inp` (ns_inputs): ns_entries' B5, B13, B12, B8, B7 and B10;
+    with `sweeps_only`, B5 PLM Roe (both forms) alone."""
+    from atmospheric_athena_tpu_torch.ops import ctu_mid_kernels as mid
+    from atmospheric_athena_tpu_torch.ops import hydro_kernels as hk
+    sim, U, m = inp["sim"], inp["U"], inp["mid"]
+    phic, phif, dtodx = inp["phic"], inp["phif"], inp["dtodx"]
+    simn = dataclasses.replace(sim, h_correction=False)
+    calls = []
+    for a in AXES:
+        for form, (o, f) in SWEEP_FORMS.items():
+            if sweeps_only and (o, f) != ("2", "roe"):
+                continue
+            sf = dataclasses.replace(sim, order=o, flux=f)
+            args = (U, phic, phif[a], dtodx[a], sf, a)
+            calls += [(f"{w}[{hk.form(sf)}]", getattr(hk, w),
+                       getattr(hk, f"{w}_plain"), args)
+                      for w in ("sweep_lrflux", "sweep_lrflux_df")]
+        if sweeps_only:
+            continue
+        Ulc, Urc = m["tr"][a][:2]
+        for f in ("roe", "hllc", "hlle"):
+            sf = dataclasses.replace(sim, flux=f)
+            fin = inp["flux_in"][a]
+            calls += [(f"flux_pointwise[{hk.gas_form(sf, f)}]",
+                       hk.flux_pointwise, hk.flux_pointwise_plain,
+                       (fin if f == "roe" else fin[:2] + (None,)) + (sf, a)),
+                      (f"flux_sweep_df[{hk.gas_form(sf, f)}]",
+                       hk.flux_sweep_df, hk.flux_sweep_df_plain,
+                       (Ulc, Urc, dataclasses.replace(simn, flux=f), a)),
+                      (f"flux_corrected[{hk.gas_form(sf, f)}]",
+                       mid.flux_corrected, mid.flux_corrected_plain,
+                       (Ulc, Urc, m["etaS"], sf, a, AXES))]
+        calls += [(f"transverse_correct[{hk.gas_form(sim, 'dF')}]",
+                   mid.transverse_correct, mid.transverse_correct_plain,
+                   (m["sw"][a][0], m["sw"][a][1], m["dFp"], m["G"], m["q"],
+                    sim, a, AXES)),
+                  (f"transverse_correct[{hk.gas_form(sim, 'F')}]",
+                   mid.transverse_correct, mid.transverse_correct_plain,
+                   (m["sw"][a][0], m["sw"][a][1], None, m["G"], m["q"], sim,
+                    a, AXES, m["Fp"]))]
+    if not sweeps_only:
+        calls += [(f"final_update[{hk.gas_form(sim, 'F2')}]",
+                   mid.final_update, mid.final_update_plain,
+                   (U, m["F2"], m["Sg"], m["dtodx"], sim, grid, AXES)),
+                  (f"final_update[{hk.gas_form(sim, 'dF2')}]",
+                   mid.final_update, mid.final_update_plain,
+                   (U, m["F2ID"], m["Sg2"], m["dtodx"], sim, grid, AXES,
+                    m["dF2"]))]
+    return calls
+
+
 def df2_bits(Ulc, Urc, sim, axis):
     """B12's design check, in each launch shape: its dF2, F2_ID and F2_IDr
     equal, bit for bit, the roll-and-subtract of B13's F2 (flux_pointwise
@@ -1176,13 +1460,14 @@ def df2_bits(Ulc, Urc, sim, axis):
     from atmospheric_athena_tpu_torch.ops import hydro_kernels as hk
     F = hk.flux_pointwise(Ulc, Urc, None, sim, axis)
     Fn = torch.roll(F, -1, dims=3 - axis)
-    for shape in hk.FLUXDF_SHAPES:
+    for shape in hk.fluxdf_shapes(sim):
         dF2, Fid, Fidr = hk.flux_sweep_df(Ulc, Urc, sim, axis, shape=shape)
         for what, got, want in (("dF2", dF2, Fn - F), ("F2_ID", Fid, F[0]),
                                 ("F2_IDr", Fidr, Fn[0])):
             if not torch.equal(bits(got), bits(want.contiguous())):
                 raise AssertionError(
-                    f"flux_sweep_df[{sim.flux}] axis {axis} shape {shape}: "
+                    f"flux_sweep_df[{hk.gas_form(sim, sim.flux)}] axis "
+                    f"{axis} shape {shape}: "
                     f"{what} differs from the roll of flux_pointwise's F2 "
                     "in its bits")
     ref = hk.flux_sweep_df_plain(Ulc, Urc, sim, axis)[0]
@@ -1278,13 +1563,31 @@ def make_sim(n, dtype):
     return s
 
 
+def timed_call(fn):
+    """fn()'s result and the CUDA-event ms of that one call."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
 def check_call(rec, name, kern, plain, args, grid, tol, timing):
     """One kernel comparison of phase 2, accumulated into rec[name]: the
     errors, B12's and B5-dF's bitwise checks, the bits that differ from the
-    plain version (SHAPED kernels) and, with `timing`, the median CUDA-event
-    ms of kernel (20 runs) and plain version (PLAIN_REPS runs), interleaved
-    plain, kernel, kernel, plain, the bound and the launch shapes' ms."""
-    got, ref = outputs(kern(*args)), outputs(plain(*args))
+    plain version (SHAPED and NS_FORMS kernels) and, with `timing`, the
+    median CUDA-event ms of kernel (20 runs) and plain version (PLAIN_REPS
+    runs), interleaved plain, kernel, kernel, plain, the bound and the
+    launch shapes' ms.  The NS_FORMS entries, some 170, are timed lighter:
+    the plain version's one compared call, the kernel's median of 5 runs,
+    and the operations counted on the first axis."""
+    quick = name in NS_FORMS
+    got = outputs(kern(*args))
+    ref, t_plain = timed_call(lambda: plain(*args))
+    ref = outputs(ref)
     ea, er = compare(name, got, ref, tol, grid)
     r = rec.setdefault(name, dict(max_abs_err=0.0, max_rel_err=0.0,
                                   ms=0.0, plain_ms=0.0, bound_ms=0.0,
@@ -1297,13 +1600,22 @@ def check_call(rec, name, kern, plain, args, grid, tol, timing):
     if base_name(name) == "sweep_lrflux_df":
         sweep_df_bits(*args)
         r["dF_bitwise_whole_flux"] = True
-    if name in SHAPED:
+    if name in SHAPED or quick:
         # summed over the axes of a per-axis kernel
         r["bits_vs_plain"] = (r.get("bits_vs_plain", 0)
                               + bits_differ(got, ref))
         r["elements"] = (r.get("elements", 0)
                          + sum(g.numel() for g in got))
-    if timing:
+    if timing and quick:
+        r["ms"] += cuda_ms(lambda: kern(*args), reps=5)
+        r["plain_ms"] += t_plain
+        if "ops" not in r:
+            r["ops"] = count_ops(lambda: plain(*args))
+        t_bytes = hbm_bytes(name, grid, got[0]) / HBM_BYTES_PER_S
+        t_ops = r["ops"] / FP32_OPS_PER_S
+        r["bound_ms"] += 1e3 * max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    elif timing:
         # plain, kernel, kernel, plain
         p1 = cuda_ms(lambda: plain(*args), reps=PLAIN_REPS)
         k1 = cuda_ms(lambda: kern(*args))
@@ -1363,6 +1675,32 @@ def phase2(n, dtype, timing):
     say(f"phase 2 {n}^3 {dtype}: isothermal forms checked on the state "
         f"without its energy, nscalars {(0,) if timing else (0, 1)}; "
         "transverse_correct[iso+F] bitwise its dF form")
+    from atmospheric_athena_tpu_torch import bvals
+    from atmospheric_athena_tpu_torch.ops import util_kernels as uk
+    for ns in NS_COUNTS + (NS_WIDE,):
+        for iso in (False, True) if ns != NS_WIDE else (False,):
+            inp = ns_inputs(s, ns, iso)
+            for name, kern, plain, args in ns_kernel_calls(
+                    s.grid, inp, sweeps_only=ns == NS_WIDE):
+                check_call(rec, name, kern, plain, args, s.grid, tol, timing)
+            trans_f_bits(inp, inp["sim"])
+            if not timing and ns == NS_COUNTS[-1]:
+                # B4 and B11 on the nwave + ns fields (no form of theirs
+                # depends on the scalars)
+                for name, kern, plain, args in (
+                        ("bc_fill", bvals.bc_fill, bvals.bc_fill_plain,
+                         (inp["U"], s.grid)),
+                        ("max_dti_hydro" + ("[isothermal]" if iso else ""),
+                         uk.max_dti_hydro, uk.max_dti_hydro_plain,
+                         (inp["U"], inp["sim"], s.grid))):
+                    check_call(rec, name, kern, plain, args, s.grid, tol,
+                               timing)
+            del inp
+    say(f"phase 2 {n}^3 {dtype}: the forms with {NS_COUNTS} scalars (each "
+        f"gas) and B5 PLM Roe with {NS_WIDE} checked on the isph state with "
+        "distinct scalars; transverse_correct[...+ns] bitwise its dF form"
+        + ("" if timing else f"; bc_fill and max_dti_hydro on the "
+           f"{NS_COUNTS[-1]}-scalar states"))
     for name, r in rec.items():
         t = (f" kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})"
@@ -1377,7 +1715,7 @@ def phase2(n, dtype, timing):
             "" if "dF_bitwise_whole_flux" not in r else
             ("; " if t else " ") + "Ul, Ur, F_ID and dF bitwise the "
             "whole-flux sweep's (and its roll) in every shape")
-        shp = ("" if name not in SHAPED else
+        shp = ("" if "bits_vs_plain" not in r else
                f"; {r['bits_vs_plain']} of {r['elements']} output elements "
                "differ from the plain version's bits" + (
                    "" if "shapes_ms" not in r else
@@ -1432,6 +1770,28 @@ def nan_probe():
         say(f"phase 2 isothermal NaN probe 16^3 float64, {field} = NaN at "
             f"{NAN_CELL}: every isothermal form's NaN cells and reductions "
             f"equal its plain version's; NaN values per kernel {nans}")
+    # the forms with NS_COUNTS[0] scalars, each gas: a NaN density, and a
+    # NaN in the last scalar (which reaches only that scalar's outputs)
+    ns = NS_COUNTS[0]
+    for iso in (False, True):
+        for field, k in (("d", 0), (f"s{ns - 1}", (4 if iso else 5) + ns - 1)):
+            inp = ns_inputs(s, ns, iso, nan_field=k)
+            nans = {}
+            for name, kern, plain, args in ns_kernel_calls(s.grid, inp):
+                got, ref = outputs(kern(*args)), outputs(plain(*args))
+                compare(name, got, ref, TOL["float64"], s.grid,
+                        nan_probe=True)
+                nans[name] = nans.get(name, 0) + sum(
+                    int(torch.isnan(r).sum()) for r in ref
+                    if r.is_floating_point())
+            blind = [n for n, c in nans.items() if c == 0]
+            if blind:
+                raise AssertionError(f"NaN probe ({ns} scalars, {field}): "
+                                     f"no NaN reached the plain {blind}")
+            say(f"phase 2 NaN probe 16^3 float64, {ns} scalars, "
+                f"{'isothermal' if iso else 'adiabatic'}, {field} = NaN at "
+                f"{NAN_CELL}: every form's NaN cells equal its plain "
+                f"version's; NaN values per kernel {nans}")
 
 
 def run_golden(device):
@@ -1951,6 +2311,159 @@ def phase4_turb(n=256):
     return counts, out
 
 
+def lw_sim(n, dtype, nlim, ns=LW_NS, vflow=1.0, iso=False, distinct=False,
+           **kw):
+    """linear_wave at n^3 through Simulation.from_par (the card unless the
+    caller gives a device); with `distinct`, scalar n overwritten with
+    amp x d x scalar_fields' field n (problem.U0 set to the new state)."""
+    from atmospheric_athena_tpu_torch import Simulation
+    from atmospheric_athena_tpu_torch.par import ParameterDB
+    s = Simulation.from_par(
+        ParameterDB.from_string(lw_deck(n, nlim, ns, vflow, iso)),
+        problem="linear_wave", dtype=dtype, **kw)
+    if distinct:
+        U = s.state.U.clone()
+        nw = 4 if iso else 5
+        for k, f in enumerate(scalar_fields(ns, s.grid, U, s.problem.amp)):
+            U[nw + k] = f * U[0]
+        s.state = s.state.replace(U=U)
+        s.problem.U0 = U.clone()
+    return s
+
+
+def phase3_lw(n=64, ncyc=3):
+    """linear_wave at n^3 float64 with LW_NS distinct scalars, vflow 0 and
+    1, ncyc cycles on the card with the kernels against the same run with
+    the plain versions on the card (plain_on_card), on the middle-phase
+    route, on MID=0 and with the H-correction; then isothermal with 2
+    scalars on the middle-phase route: (time, dt) to rel 1e-12, the
+    interior state within 1e-10 of each field's max and l1_errors within
+    1e-10 of each field's max; the kernel run launches its path's forms,
+    the plain run none.  Returns the launch counts of each path's last
+    kernel run."""
+    import numpy as np
+    import torch
+    counts = {}
+    runs = [(path, vflow, LW_NS, False) for vflow in (0.0, 1.0)
+            for path in ("lw", "lw MID=0", "lw hcorr")]
+    runs.append(("lw iso", 1.0, 2, True))
+    for path, vflow, ns, iso in runs:
+        hc = path.endswith("hcorr")
+        with path_env(path):
+            g, p = (lw_sim(n, "float64", ncyc, ns, vflow, iso, distinct=True,
+                           device="cuda", h_correction=hc) for _ in range(2))
+            if g.sim.nscalars != ns or g.sim.h_correction != hc:
+                raise AssertionError(f"linear_wave: {g.sim}")
+            reset_counts()
+            traj_g = []
+            for _ in range(ncyc):
+                g.step()
+                traj_g.append((float(g.state.time), float(g.state.dt)))
+            counts[path] = read_counts()
+            traj_p = []
+            with plain_on_card():
+                for _ in range(ncyc):
+                    p.step()
+                    traj_p.append((float(p.state.time), float(p.state.dt)))
+            if read_counts() != counts[path]:
+                raise AssertionError(f"linear_wave {path}: the plain run "
+                                     "launched a kernel")
+        label = f"linear_wave {n}^3 vflow {vflow}, {path} path"
+        check_counts(label, counts[path], path)
+        for cyc, (a, b) in enumerate(zip(traj_g, traj_p)):
+            if not all(abs(x / y - 1) <= 1e-12 for x, y in zip(a, b)):
+                raise AssertionError(f"{label} cycle {cyc + 1}: (time, dt) "
+                                     f"{a} with the kernels, {b} plain")
+        a, b = level_interior(g), level_interior(p)
+        if not np.isfinite(a).all():
+            raise AssertionError(f"{label}: non-finite state")
+        worst = 0.0
+        l1g = g.problem.l1_errors(g.state, g.sim, g.grid)
+        l1p = p.problem.l1_errors(p.state, p.sim, p.grid)
+        for k in range(a.shape[0]):
+            scale = max(np.abs(b[k]).max(), 1e-300)
+            err = float(np.abs(a[k] - b[k]).max() / scale)
+            worst = max(worst, err)
+            if not err <= 1e-10 or not abs(l1g[k] - l1p[k]) <= 1e-10 * scale:
+                raise AssertionError(f"{label} field {k}: error {err:.3e} x "
+                                     f"max, l1 {l1g[k]:.6e} against "
+                                     f"{l1p[k]:.6e}")
+        say(f"phase 3 {label}, {'isothermal, ' if iso else ''}{ns} distinct "
+            f"scalars, float64, {ncyc} cycles: the kernels against the plain "
+            f"versions on the card, state max err {worst:.2e} x field max "
+            f"(bound 1e-10), (time, dt) within rel 1e-12, l1_errors "
+            f"{[float(f'{x:.6e}') for x in l1g]}; launches "
+            f"{ {k: v for k, v in counts[path].items() if v} }")
+        del g, p
+    torch.cuda.synchronize()
+    return counts
+
+
+def phase4_lw(n=256):
+    """linear_wave at full width, LW_NS scalars, n^3 float32 through
+    Simulation.from_par without a device argument: 5 cycles via
+    Simulation.run on the middle-phase route, 1 on MID=0, 1 with the
+    H-correction, and 1 CLI cycle; ms per cycle and zone-cycles/s, the
+    hydro step (ctu3d.step) timed with CUDA events on the final state,
+    host reads of one step, peak memory.  Returns the launch counts per
+    path and the numbers."""
+    import tempfile
+    import torch
+    from atmospheric_athena_tpu_torch import __main__ as cli
+    from atmospheric_athena_tpu_torch.integrators import ctu3d
+    counts, out = {}, {}
+    for path, nlim in (("lw", 5), ("lw MID=0", 1), ("lw hcorr", 1)):
+        torch.cuda.reset_peak_memory_stats()
+        with path_env(path):
+            s = lw_sim(n, "float32", nlim, h_correction=path.endswith("hcorr"))
+            if s.device.type != "cuda" or s.sim.nscalars != LW_NS:
+                raise AssertionError(f"linear_wave on {s.device}, {s.sim}")
+            torch.cuda.synchronize()
+            reset_counts()
+            r = s.run()
+            counts[path] = read_counts()
+            check_counts(f"{n}^3 linear_wave run, {path} path", counts[path],
+                         path)
+            if r["steps"] != nlim or not (
+                    bool(torch.isfinite(s.state.U).all())
+                    and float(s.state.dt) > 0):
+                raise AssertionError(f"{n}^3 linear_wave {path}: "
+                                     f"{r['steps']} steps, or a non-finite "
+                                     "state or dt <= 0")
+            rec = dict(step_ms=1e3 * r["wall"] / r["steps"],
+                       zone_cycles_per_sec=r["zone_cycles_per_sec"],
+                       peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+            if path == "lw":
+                st, sim, grid = s.state, s.sim, s.grid
+                rec["hydro_ms"] = cuda_ms(lambda: ctu3d.step(
+                    st, st.dt, sim, grid, s.problem, phi=s.phi), reps=10)
+                rec["host_reads_per_step"] = host_reads(s)
+        out[path] = rec
+        say(f"phase 4 {n}^3 float32 linear_wave ({LW_NS} scalars, Roe, PLM"
+            f"{', H-correction' if path.endswith('hcorr') else ''}), {nlim} "
+            f"cycles via Simulation.run, {path} path: step "
+            f"{rec['step_ms']:.2f} ms, {rec['zone_cycles_per_sec']:.4e} "
+            f"zone-cycles/s"
+            + ("" if path != "lw" else
+               f"; hydro step {rec['hydro_ms']:.3f} ms (CUDA events); host "
+               f"reads in one step {rec['host_reads_per_step']}")
+            + f"; peak device memory {rec['peak_gib']:.2f} GiB; all fields "
+            f"finite, dt {float(s.state.dt):.6e}; launches "
+            f"{ {k: v for k, v in counts[path].items() if v} }")
+        del s
+    with tempfile.TemporaryDirectory() as tmp:
+        deck = os.path.join(tmp, "athinput.linwave")
+        with open(deck, "w") as f:
+            f.write(lw_deck(n, 1))
+        rc = cli.main(["-i", deck, "--problem", "linear_wave", "--dtype",
+                       "float32"])
+    if rc != 0:
+        raise AssertionError(f"linear_wave CLI returned {rc}")
+    torch.cuda.synchronize()
+    say(f"phase 4 {n}^3 float32 linear_wave: 1 CLI cycle done")
+    return counts, out
+
+
 def batch_vs_k1(ncycles=3):
     """The batch path (batch_iters=BATCH_K) against the K=1 path on the
     isph64 deck (64^3 float64), ncycles cycles from the state after one K=1
@@ -2265,8 +2778,9 @@ def ptxas_report(source, kernels):
     """ptxas's registers and spills of each instantiation of the kernel (or
     tuple of kernels) in `source`, from the build's -Xptxas -v output,
     labelled by the kernel (when several) and its template arguments (the
-    element type, then the int and bool arguments: the batch kernel's rows;
-    the hydro kernels' NS, FLUX, DF and launch shape)."""
+    element type, then the int and bool arguments: the batch kernel's rows
+    and INLET; the hydro kernels' NS (-1: kNsRun, the run-time count), ISO,
+    FLUX, ORDER, DF and launch shape)."""
     import re
     from atmospheric_athena_tpu_torch import cuda_lib
     log = cuda_lib.build_log.get(source)
@@ -2290,8 +2804,9 @@ def ptxas_report(source, kernels):
         m = re.search(r"Used (\d+) registers", line)
         if m:
             # the template arguments: (float|double)[, int or bool...]
-            t = re.search(cur + r"I([fd])((?:L[ib]-?\d+E)*)", mangled)
-            ints = re.findall(r"L[ib](-?\d+)E", t.group(2))
+            t = re.search(cur + r"I([fd])((?:L[ib]n?\d+E)*)", mangled)
+            ints = [x.replace("n", "-")
+                    for x in re.findall(r"L[ib](n?\d+)E", t.group(2))]
             label = ("f32" if t.group(1) == "f" else "f64") + (
                 f"<{','.join(ints)}>" if ints else "")
             if len(names) > 1:
@@ -2314,7 +2829,9 @@ def form_args(name):
     (ISO, DF) for B10; None for the kernels without forms of the gas."""
     from atmospheric_athena_tpu_torch.ops import hydro_kernels as hk
     base = base_name(name)
-    form = name[len(base) + 1:-1]
+    form = split_ns(name[len(base) + 1:-1])[0]
+    if base.startswith("sweep") and form == "roe":
+        form = ""                       # order 2, Roe: SWEEP_FORMS' key
     iso = form.startswith("iso+")
     rest = form[4:] if iso else form
     if base.startswith("sweep"):
@@ -2339,23 +2856,28 @@ def form_regs(name, regs):
     want = form_args(name)
     if rep is None or "registers" not in rep or want is None:
         return rep
-    keep = [item for item in rep.split("; ")
-            if [int(x) for x in re.search(r"<([\d,]+)>", item).group(1)
-                .split(",")[1:1 + len(want)]] == want]
+    keep = []
+    for item in rep.split("; "):
+        ints = [int(x) for x in re.search(r"<([-\d,]+)>", item).group(1)
+                .split(",")]
+        # the run-time scalar instantiation (NS = -1) for NS_FORMS only
+        if ints[1:1 + len(want)] == want and (ints[0] < 0) == (
+                name in NS_FORMS):
+            keep.append(item)
     return "; ".join(keep)
 
 
 _SASS = {}
 
 
-def sass_loops(kernel, label):
+def sass_loops(kernel, label, outer=False):
     """The innermost loops of one instantiation of `kernel` in the built
     library (cuobjdump -sass, run once): the static instruction count of
     each loop body, found as the address range [target, branch] of each
-    backward branch that holds no other.  `label` picks the instantiation
-    by its mangled template arguments (e.g. "IfLi4ELi1E" for <float, 4,
-    1>).  Returns the counts, largest first, and the function's whole
-    static instruction count."""
+    backward branch that holds no other (with `outer`, of every loop).
+    `label` picks the instantiation by its mangled template arguments
+    (e.g. "IfLi4ELi1E" for <float, 4, 1>).  Returns the counts, largest
+    first, and the function's whole static instruction count."""
     import re
     from pathlib import Path
     from atmospheric_athena_tpu_torch import cuda_lib
@@ -2398,9 +2920,10 @@ def sass_loops(kernel, label):
         t = int(tgt, 16) if tgt.startswith("0x") else labels.get(tgt)
         if t is not None and t < a:
             loops.append((t, a))
-    inner = [(t, a) for t, a in loops
-             if not any(t <= t2 and a2 <= a and (t2, a2) != (t, a)
-                        for t2, a2 in loops)]
+    inner = loops if outer else [
+        (t, a) for t, a in loops
+        if not any(t <= t2 and a2 <= a and (t2, a2) != (t, a)
+                   for t2, a2 in loops)]
     return sorted((sum(1 for x in addrs if t <= x <= a) for t, a in inner),
                   reverse=True), len(addrs)
 
@@ -2418,8 +2941,10 @@ def sm_clock():
 def sass_hydro(n=256):
     """The static SASS instructions per interface of each B5 and B12 form
     (float32, one passive scalar as in phase 2, none for the isothermal
-    forms, as turb runs them; of these, order 2 and PPM with Roe) in each
-    launch shape: the
+    forms, as turb runs them; of these, order 2 and PPM with Roe; and the
+    run-time scalar instantiations of every form, as LW_NS scalars name
+    them, whose march loop holds one pass of the scalar loop, reported
+    beside it as "scalar") in each launch shape: the
     march kernel's loop body (one interface of a y or z segment) and the
     tile kernel's whole body (one thread: a cell's conversion and
     reconstruction and an interface's solve, with the division and sqrt
@@ -2439,21 +2964,27 @@ def sass_hydro(n=256):
              if base_name(k[0]) in ("sweep_lrflux", "sweep_lrflux_df",
                                     "flux_sweep_df")
              and (k[0] not in ISO_FORMS or k[0] in SHAPED
-                  or k[0].endswith("[iso+ppm]"))]
+                  or k[0].endswith("[iso+ppm]"))
+             and (k[0] not in NS_FORMS or k[0].endswith(f"+ns{LW_NS}]"))]
     for name in names:
         args = form_args(name)
+        run = name in NS_FORMS
+        nsl = "n1" if run else (0 if args[0] else 1)
         # mangled <float, NS, ISO, FLUX[, ORDER, DF]>
-        form = (f"IfLi{0 if args[0] else 1}ELb{args[0]}"
+        form = (f"IfLi{nsl}ELb{args[0]}"
                 + "".join(f"ELi{x}" for x in args[1:3])
                 + (f"ELb{args[3]}" if len(args) > 3 else ""))
         march, tile = SYMBOLS[base_name(name)]
         shapes = shapes_of(name) if name in SHAPED else [hk.SWEEP_SHAPES[0]]
         per = {}
         for S, T, R in shapes:
-            loops, _ = sass_loops(march, f"{form}ELi{S}EE")
+            loops, _ = sass_loops(march, f"{form}ELi{S}EE", outer=run)
             _, body = sass_loops(tile, f"{form}ELi{T}ELi{R}EE")
             per[f"{S}x{T}x{R}"] = dict(march=loops[0] if loops else None,
                                        tile=body)
+            if run:
+                inner, _ = sass_loops(march, f"{form}ELi{S}EE")
+                per[f"{S}x{T}x{R}"]["scalar"] = inner[0] if inner else None
         d = per["x".join(map(str, shapes[0]))]
         issue_ms = None
         if d["march"]:
@@ -2461,7 +2992,7 @@ def sass_hydro(n=256):
             issue_ms = 1e3 * mean * (n + 8) ** 3 / 32 / (nsm * 4 * mhz * 1e6)
         out[name] = dict(sass_per_interface=per, sass_issue_ms=issue_ms,
                          sm_clock_mhz=mhz)
-        say(f"phase 1 SASS {name} (f32, NS={0 if args[0] else 1}): "
+        say(f"phase 1 SASS {name} (f32, NS={'run-time' if run else nsl}): "
             "instructions per interface "
             f"by launch shape (march loop, tile body) {per}; the default "
             f"shape's issue time per launch at {mhz:.0f} MHz on {nsm} SMs, "
@@ -2472,28 +3003,34 @@ def sass_hydro(n=256):
 def sass_batch(n=256):
     """The static SASS instructions of the batch kernel's per-cell pass
     (the largest innermost loop of batch_kernel<float> in the shape the
-    wrapper launches: one cell's sweep, rates_percell and update_percell)
-    and the time that count implies for the BATCH_K substeps of n^3 cells
-    at one warp instruction per scheduler and clock (4 per SM) at the
-    card's maximum SM clock."""
+    wrapper launches: one cell's sweep, rates_percell and update_percell),
+    in each inlet form, and the time that count implies for the BATCH_K
+    substeps of n^3 cells at one warp instruction per scheduler and clock
+    (4 per SM) at the card's maximum SM clock.  Returns {entry: record}
+    for "rad_batch" and "rad_batch[inlet]"."""
     from atmospheric_athena_tpu_torch.ionrad import rad_kernels
     rows = rad_kernels.BATCH_SHAPES[0]
-    try:
-        loops, _ = sass_loops("batch_kernel", f"IfLi{rows}E")
-        mhz, nsm = sm_clock()
-    except (OSError, ValueError, IndexError,
-            subprocess.SubprocessError) as e:
-        say(f"phase 1 SASS batch_kernel: not measured ({e})")
-        return dict(sass_loops=None, sass_issue_ms=None)
-    issue_ms = None
-    if loops:
-        warp_instr = loops[0] * n ** 3 * BATCH_K / 32
-        issue_ms = 1e3 * warp_instr / (nsm * 4 * mhz * 1e6)
-    say(f"phase 1 SASS batch_kernel<float,{rows}>: innermost loop bodies "
-        f"{loops} instructions; the per-cell pass {loops[:1]}; at "
-        f"{mhz:.0f} MHz on {nsm} SMs, {BATCH_K} substeps of {n}^3 cells "
-        f"issue in {issue_ms} ms")
-    return dict(sass_loops=loops, sass_issue_ms=issue_ms, sm_clock_mhz=mhz)
+    out = {}
+    for name, inlet in (("rad_batch", 0), ("rad_batch[inlet]", 1)):
+        try:
+            loops, _ = sass_loops("batch_kernel", f"IfLi{rows}ELb{inlet}E")
+            mhz, nsm = sm_clock()
+        except (OSError, ValueError, IndexError,
+                subprocess.SubprocessError) as e:
+            say(f"phase 1 SASS batch_kernel: not measured ({e})")
+            out[name] = dict(sass_loops=None, sass_issue_ms=None)
+            continue
+        issue_ms = None
+        if loops:
+            warp_instr = loops[0] * n ** 3 * BATCH_K / 32
+            issue_ms = 1e3 * warp_instr / (nsm * 4 * mhz * 1e6)
+        say(f"phase 1 SASS batch_kernel<float,{rows},{bool(inlet)}> "
+            f"({name}): innermost loop bodies {loops} instructions; the "
+            f"per-cell pass {loops[:1]}; at {mhz:.0f} MHz on {nsm} SMs, "
+            f"{BATCH_K} substeps of {n}^3 cells issue in {issue_ms} ms")
+        out[name] = dict(sass_loops=loops, sass_issue_ms=issue_ms,
+                         sm_clock_mhz=mhz)
+    return out
 
 
 class Laps:
@@ -2564,6 +3101,8 @@ def main():
     lap("phase 3")
     phase3_turb()
     lap("phase 3 turb")
+    p3.update(phase3_lw())
+    lap("phase 3 linear_wave")
     smr, _ = phase4_smr()
     counts, _ = phase4()
     counts["smr"] = smr
@@ -2571,6 +3110,9 @@ def main():
     turb, _ = phase4_turb()
     counts.update(turb)
     lap("phase 4 turb")
+    lw, _ = phase4_lw()
+    counts.update(lw)
+    lap("phase 4 linear_wave")
 
     # each kernel's launches in the phase-4 run of the first path that
     # runs it: the SMR run (3 cycles), then the bench run (3), the
@@ -2582,7 +3124,7 @@ def main():
              "sedov": 5, "sedov MID=0": 1, "sedov hcorr": 1, "ppm": 3,
              "ppm MID=0": 1, "sedov hlle": 5, "sedov hlle MID=0": 1,
              "sedov hlle hcorr": 1, "turb": 5, "turb MID=0": 1,
-             "turb hcorr": 1}
+             "turb hcorr": 1, "lw": 5, "lw MID=0": 1, "lw hcorr": 1}
     kernels = []
     for name, route, source, replaces in KERNELS:
         path = next((p for p in steps if counts[p][name] > 0), None)
@@ -2604,10 +3146,10 @@ def main():
                       "shapes_ms"):
             if extra in r:
                 k[extra] = r[extra]
-        if path is None and name not in FUSED + ISO_FORMS:
+        if path is None and name not in FUSED + ISO_FORMS + [
+                "rad_batch[inlet]"]:
             k["phase3_launches"] = sum(c[name] for c in p3.values())
-        if name == "rad_batch":
-            k.update(sass)
+        k.update(sass.get(name, {}))
         k.update(sass_h.get(name, {}))
         kernels.append(k)
     say(f"chip_smoke: all phases in {time.perf_counter() - t_all:.1f} s")

@@ -255,7 +255,10 @@ def test_cuda_wrappers_check_operands(chain):
         mid._check("gcross", U, torch.zeros(4, 4, 8, dtype=torch.float64))
     with pytest.raises(NotImplementedError):
         mid._check("final_update", torch.zeros(7, 4, 4, 8),
-                   sim=chain["sim"].__class__(nscalars=2))
+                   sim=chain["sim"].__class__(nscalars=2, gas="mhd"))
+    for ns in (2, 3, 8):
+        mid._check("final_update", torch.zeros(5 + ns, 4, 4, 8),
+                   sim=chain["sim"].__class__(nscalars=ns))
     from atmospheric_athena_tpu_torch import cuda_lib
     q = cuda_lib.scalar_arg([0.5, torch.tensor(2.0), 3], U)
     assert q.shape == (3,) and q.dtype == U.dtype

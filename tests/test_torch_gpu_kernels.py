@@ -18,7 +18,11 @@ the plain run on the CPU (chip_smoke.phase3_forms); every isothermal form
 (B5 at every order and solver, B13, B12, B8, B7 and B10 in both operand
 forms, B11) on the isph state without its energy, with and without a
 scalar, along the lines of 45, 100 and 300 cells too, and turb on the card
-against the plain versions on the card (chip_smoke.phase3_turb).  Needs a CUDA
+against the plain versions on the card (chip_smoke.phase3_turb); the forms
+with 2, 3 and 8 distinct scalars (every form of B5, B13, B12, B8, B7 and
+B10, each gas; B5-dF bitwise its whole-flux form) and B3's inlet form, and
+linear_wave on the card against the plain versions on the card
+(chip_smoke.phase3_lw).  Needs a CUDA
 device, nvcc and triton; skipped elsewhere.  This file imports no JAX,
 so on a machine without JAX run it as
 
@@ -502,3 +506,37 @@ def test_turb_card_vs_plain():
     need_cuda()
     counts = chip_smoke.phase3_turb(n=16, ncyc=3)
     assert counts["turb"]["flux_sweep_df[iso+roe]"] == 9
+
+
+@pytest.mark.parametrize("ns", [2, 3, 8], ids=["ns2", "ns3", "ns8"])
+def test_scalar_kernels(case, ns):
+    """The run-time scalar forms on the isph state with `ns` distinct
+    scalars, each gas, against their plain versions; the dF sweeps bitwise
+    their whole-flux sweeps, B7-F bitwise its dF form."""
+    s, _, tol = case
+    for iso in (False, True):
+        inp = chip_smoke.ns_inputs(s, ns, iso)
+        names = set()
+        for name, kern, plain, args in chip_smoke.ns_kernel_calls(s.grid,
+                                                                  inp):
+            chip_smoke.compare(name, chip_smoke.outputs(kern(*args)),
+                               chip_smoke.outputs(plain(*args)), tol, s.grid)
+            if name.startswith("sweep_lrflux_df["):
+                chip_smoke.sweep_df_bits(*args)
+            names.add(name)
+        chip_smoke.trans_f_bits(inp, inp["sim"])
+        assert len(names) == 30 + 9 + 4
+        assert all(n.endswith(f"+ns{ns}]") for n in names)
+
+
+def test_rad_batch_inlet_kernel(case):
+    """B3's inlet form (a per-column inlet in place of Fin)."""
+    check(case, ["rad_batch", "rad_batch[inlet]"])
+
+
+def test_linear_wave_card_vs_plain():
+    """linear_wave with distinct scalars on each route (and isothermal with
+    two scalars) on the card against the plain versions on the card."""
+    need_cuda()
+    counts = chip_smoke.phase3_lw(n=16, ncyc=2)
+    assert set(counts) == {"lw", "lw MID=0", "lw hcorr", "lw iso"}

@@ -108,8 +108,13 @@ def test_cuda_wrappers_refuse_without_gpu(case):
     s = case["s"]
     with pytest.raises(NotImplementedError):
         hydro_kernels._check_cuda_args(
-            s.sim.__class__(nscalars=2), torch.zeros(7, 4, 4, 4), (),
+            s.sim.__class__(nscalars=2, flux="hlld"), torch.zeros(7, 4, 4, 4),
+            (), "sweep_lrflux")
+    for ns in (2, 3, 8):
+        hydro_kernels._check_cuda_args(
+            s.sim.__class__(nscalars=ns), torch.zeros(5 + ns, 4, 4, 4), (),
             "sweep_lrflux")
+        assert hydro_kernels.supported(s.sim.__class__(nscalars=ns))
     with pytest.raises(ValueError, match="contiguous"):
         hydro_kernels._check_cuda_args(
             s.sim, torch.zeros(6, 4, 4, 8)[..., ::2], (), "sweep_lrflux")

@@ -376,16 +376,20 @@ def test_cli_runs_testsedov(capsys):
 
 
 def test_solver_support():
-    """The kernels take Roe, HLLC and HLLE; hlld, two_shock and more than
-    one passive scalar still raise, naming the ROADMAP item."""
+    """The kernels take Roe, HLLC and HLLE, with any number of passive
+    scalars up to MAX_SCALARS; hlld, two_shock and MHD still raise, naming
+    the ROADMAP item."""
     for flux in FLUXES + ("hlle",):
         assert hydro_kernels.supported(TSim(flux=flux))
+        for ns in (2, 3, 8):
+            assert hydro_kernels.supported(TSim(flux=flux, nscalars=ns))
     grid = Simulation.from_file(SEDOV, problem="testsedov", device="cpu",
                                 flux="hllc").grid
     tctu3d.check_supported(TSim(flux="hlle"), grid)
+    tctu3d.check_supported(TSim(flux="hlle", nscalars=3), grid)
     for sim, item in ((TSim(flux="hlld"), "A12"),
                       (TSim(flux="two_shock"), "A11"),
-                      (TSim(nscalars=2), "A11 step 4, B2")):
+                      (TSim(gas="mhd", nscalars=2), "A12")):
         assert not hydro_kernels.supported(sim)
         with pytest.raises(NotImplementedError, match=item):
             tctu3d.check_supported(sim, grid)

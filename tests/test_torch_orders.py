@@ -338,19 +338,22 @@ def test_cli_selects_ppm_and_hlle(capsys):
 
 def test_kernel_forms_and_refusals():
     """The kernels take the five orders and three solvers, counted per form
-    ("ppm+hllc"); the forms the JAX kernels do not take, and those they
-    take that are not ported, raise naming their ROADMAP item."""
+    ("ppm+hllc"), with any number of scalars up to MAX_SCALARS; the forms
+    the JAX kernels do not take raise naming their ROADMAP item."""
     assert hydro_kernels.form(TSim(order="3", flux="hllc")) == "ppm+hllc"
     assert hydro_kernels.form(TSim(order="3")) == "ppm"
     assert hydro_kernels.form(TSim(order="2", flux="hlle")) == "hlle"
     for order in ("1", "2", "3", "2p", "3p"):
         for flux in SOLVERS:
             assert hydro_kernels.supported(TSim(order=order, flux=flux))
+            for ns in (2, 3, 8):
+                assert hydro_kernels.supported(TSim(order=order, flux=flux,
+                                                    nscalars=ns))
     for sim, item in ((TSim(flux="hlld"), "A12"),
                       (TSim(flux="two_shock"), "A11 step 5"),
                       (TSim(flux="exact"), "A11 step 5"),
-                      (TSim(eos="isothermal", nscalars=2), "B2"),
-                      (TSim(nscalars=2), "B2")):
+                      (TSim(eos="isothermal", gas="mhd"), "A12"),
+                      (TSim(nscalars=2, flux="hlld"), "A12")):
         with pytest.raises(NotImplementedError, match=item):
             hydro_kernels._check_cuda_args(sim, torch.zeros(5, 4, 4, 4), (),
                                            "sweep_lrflux")

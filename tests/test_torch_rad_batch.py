@@ -88,6 +88,56 @@ def test_batch_plain_matches_pallas(case, batch_case, sched, ok):
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("sched", [
+    [0.5, 0.5, 0.5, 0.5, 0.5],          # all active
+    [0.5, 0.5, 0.5, 0.0, 0.0],          # trailing frozen substeps
+], ids=["active", "frozen_tail"])
+def test_batch_plain_inlet_matches_pallas(case, batch_case, sched):
+    """The inlet form (an SMR fine level's per-column inlet in place of
+    Fin, pallas_rad.build_batch(inlet=)): a K = 5 schedule with a seeded
+    [NZ, NY] inlet of 0.5-1.5 x the ramped flux, against the JAX batch
+    kernel's inlet form in interpret mode; both ignore batch_fn's Fin."""
+    _, _, lim = batch_case
+    d, M = case["d"], case["M"]
+    rng = np.random.default_rng(17)
+    inlet = float(case["Fin"]) * rng.uniform(0.5, 1.5, d.shape[:2])
+    tfn = rad_kernels.build_batch(case["sim"], case["grid"], case["ion"], d,
+                                  *M, case["E"], case["x0"], len(sched),
+                                  inlet=torch.as_tensor(inlet))
+    j = jnp.asarray
+    jfn = pallas_rad.build_batch(case["jsim"], case["jgrid"], case["jion"],
+                                 j(d.numpy()), *(j(m.numpy()) for m in M),
+                                 j(case["E"].numpy()), j(case["x0"].numpy()),
+                                 len(sched), inlet=j(inlet))
+    dts = torch.tensor(sched, dtype=torch.float64) * lim
+    out_t = tfn(case["s0"], case["E"], case["code"], dts, 123.0)
+    out_j = jfn(j(case["s0"].numpy()), j(case["E"].numpy()),
+                j(case["code"].numpy()), j(dts.numpy()), 456.0)
+    np.testing.assert_array_equal(out_t[2].numpy(), np.asarray(out_j[2]))
+    for k in (0, 1):                    # s0, E
+        close(out_t[k], out_j[k])
+    close(out_t[3][0], out_j[3][0])     # body faces of the last active
+    close(out_t[3][1], out_j[3][1])     # exit face
+    assert int(out_t[4]) == int(float(out_j[4]))
+    for k in (5, 6, 7):                 # dti_max, dt_chem, dt_therm
+        assert float(out_t[k]) == pytest.approx(float(out_j[k]), rel=1e-12)
+    assert float(out_t[8]) == float(out_j[8]) == 1.0
+    # the per-column inlet reaches the sweep: a uniform inlet at the
+    # ramped flux is the scalar form
+    same = rad_kernels.build_batch(
+        case["sim"], case["grid"], case["ion"], d, *M, case["E"],
+        case["x0"], len(sched),
+        inlet=torch.full(d.shape[:2], float(case["Fin"]),
+                         dtype=torch.float64))
+    scal = rad_kernels.build_batch(case["sim"], case["grid"], case["ion"],
+                                   d, *M, case["E"], case["x0"], len(sched))
+    a = same(case["s0"], case["E"], case["code"], dts, 0.0)
+    b = scal(case["s0"], case["E"], case["code"], dts, case["Fin"])
+    for x, y in zip(a[:3] + a[3] + a[4:], b[:3] + b[3] + b[4:]):
+        assert torch.equal(x, y)
+    assert not torch.equal(out_t[3][0], b[3][0])
+
+
 def test_prefix_sum_order():
     """prefix_sum_x is an inclusive prefix sum (to rounding) in the
     kernel's chunked order, for row lengths below, at and above 32 and not

@@ -10,14 +10,16 @@ for the PyTorch port (atmospheric_athena_tpu_torch).
     python3 tools/torch_profile_step.py configure/order=3   # bench with PPM
     python3 tools/torch_profile_step.py isph2lev        # SMR, 256^3 + 256^3
     python3 tools/torch_profile_step.py turb            # isothermal turbulence
+    python3 tools/torch_profile_step.py linear_wave     # 4 passive scalars
 
 Builds the isph deck at the bench configuration (256^3, float32,
 ionradiation/maxiter=50, ionradiation/batch_iters=25), or with `testsedov`
 first the testsedov deck at 256^3 float32 with cubic cells and HLLC, or with
 `isph2lev` first the SMR deck with a 256^3 root and a 256^3 child over its
 centre in the bench configuration, or with `turb` first the driven
-isothermal turbulence deck (chip_smoke.TURB_DECK) at 256^3 float32, on the
-first CUDA device, with any
+isothermal turbulence deck (chip_smoke.TURB_DECK) at 256^3 float32, or
+with `linear_wave` first the linear-wave deck with four passive scalars
+(chip_smoke.lw_deck) at 256^3 float32, on the first CUDA device, with any
 block/name=value overrides from the command line applied after those (a
 `configure/flux=` override replaces testsedov's HLLC), runs
 one warm-up step, then profiles one step with torch.profiler (CPU and CUDA
@@ -53,7 +55,8 @@ PROBLEMS = {"ioniz_sphere": ("athinput.isph64", "ioniz_sphere", BENCH, {}),
             "testsedov": ("athinput.testsedov", "testsedov", SEDOV,
                           {"flux": "hllc"}),
             "isph2lev": ("athinput.isph2lev", "ioniz_sphere", SMR, {}),
-            "turb": (None, "turb", [], {})}
+            "turb": (None, "turb", [], {}),
+            "linear_wave": (None, "linear_wave", [], {})}
 
 
 def main():
@@ -80,10 +83,13 @@ def main():
         kw = {k: v for k, v in kw.items() if k != "flux"}
     cmd = base + args
     if deck is None:
-        # the turb deck lives in chip_smoke.py (its text, at N^3)
+        # the turb and linear-wave decks live in chip_smoke.py (their
+        # text, at N^3)
         from atmospheric_athena_tpu_torch.par import ParameterDB
-        from chip_smoke import TURB_DECK
-        par = ParameterDB.from_string(TURB_DECK.format(n=N, nlim=-1))
+        from chip_smoke import TURB_DECK, lw_deck
+        par = ParameterDB.from_string(
+            TURB_DECK.format(n=N, nlim=-1) if name == "turb"
+            else lw_deck(N, -1))
         par.apply_cmdline(cmd)
         s = Simulation.from_par(par, problem=problem, dtype=DTYPE,
                                 device="cuda", **kw)
