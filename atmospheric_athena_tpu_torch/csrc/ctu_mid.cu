@@ -35,7 +35,7 @@
 // B7, B8 and B10 are templated on the gas (ISO, hydro.cuh): isothermal gas
 // has no energy field, so it skips the energy terms of G and Sg.  B6 and B9
 // do not depend on it (the JAX package builds B6 as for adiabatic gas).
-// They take 2 to kMaxScalars passive scalars as a run-time count (NS =
+// They take any count of passive scalars from 2 on at run time (NS =
 // kNsRun): B7 and B10 loop over the scalars' fields, which take no
 // gravity term; B8 forms each scalar's flux from the solve's ScalarFlux.
 //
@@ -521,7 +521,7 @@ int launch_final_update(const void* U, const void* Sg, const void* F0,
 
 // ---------------------------------------------------------------- C API
 // Return value: cudaGetLastError() after the launch (0 = launched).
-// nscalars at most kMaxScalars (hydro.cuh), iso 0 (adiabatic gas) or 1
+// nscalars >= 0, iso 0 (adiabatic gas) or 1
 // (isothermal gas), c0
 // and c1 the gas's EOS constants (hydro.cuh Eos); the wrappers
 // (ops/ctu_mid_kernels.py) check shapes, types and devices.

@@ -29,8 +29,9 @@
 // fields as above and then, per scalar, forms its primitive at both sides
 // (the scalar times 1/d) and its flux from the interface's ScalarFlux; B12's
 // march keeps each scalar's F2(f) in one slot of dynamic shared memory per
-// thread, its tile passes the scalars one at a time through one more
-// plane.
+// thread, for the scalars of its launch's chunk (sweep.cuh ScalarChunks, at
+// most chunk_cap), its tile passes the scalars one at a time through one
+// more plane.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -84,15 +85,18 @@ __global__ void flux_pointwise_kernel(const T* __restrict__ Ul,
 }
 
 // B12 along y or z: a thread solves the ni + 1 interfaces f0 .. f0+ni of
-// its segment once each and keeps F2(f) until F2(f+1) is formed.
+// its segment once each and keeps F2(f) until F2(f+1) is formed.  NS =
+// kNsRun: scalars s0 .. s1-1, one chunk (the launch of chunk 0, s0 = 0,
+// also stores the wave outputs).
 template <typename T, int NS, bool ISO, int FLUX, int S>
 __global__ void __launch_bounds__(32 * kMarchRows)
     fluxdf_march_kernel(const T* __restrict__ Ulc, const T* __restrict__ Urc,
                         T* __restrict__ dF2, T* __restrict__ Fid,
                         T* __restrict__ Fidr, int NZ, int NY, int NX,
-                        int axis, Eos<T> e, int ns) {
+                        int axis, Eos<T> e, int s0, int s1) {
   constexpr int NW = nwave(ISO), NV = NW + ns_fixed(NS);
-  // NS = kNsRun: each scalar's F2(f-1) in one slot of dynamic shared memory
+  // NS = kNsRun: each scalar's F2(f-1) in one slot of dynamic shared
+  // memory, scalar s of the block's chunk s0 .. s1-1 in slot s - s0
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const ScalarSlots<T> sw{reinterpret_cast<T*>(smem_raw) +
                               threadIdx.y * 32 + threadIdx.x,
@@ -101,6 +105,7 @@ __global__ void __launch_bounds__(32 * kMarchRows)
   if (!L.ok) return;
   const long long ncell = (long long)NZ * NY * NX;
   const Perm pm = make_perm(axis, NV);
+  const bool waves = NS >= 0 || s0 == 0;   // this launch stores the waves
   // the conserved states of interface f are loaded an iteration before
   // their solve
   LinePos at(L.base, L.stride, L.n, L.f0);
@@ -120,14 +125,14 @@ __global__ void __launch_bounds__(32 * kMarchRows)
     corrected_flux<T, NS, ISO, FLUX>(cl, cr, e, Fs, NS < 0 ? &sf : nullptr);
     if constexpr (NS < 0) {
       const T dil = T(1) / cl[0], dir = T(1) / cr[0];
-      for (int s = 0; s < ns; ++s) {
+      for (int s = s0; s < s1; ++s) {
         const long long so = (NW + s) * ncell;
         const T fs = sf(Ulc[so + off] * dil, Urc[so + off] * dir);
-        if (j > 0) dF2[so + off_prev] = fs - sw(s, 0);
-        sw(s, 0) = fs;
+        if (j > 0) dF2[so + off_prev] = fs - sw(s - s0, 0);
+        sw(s - s0, 0) = fs;
       }
     }
-    if (j > 0) {
+    if (j > 0 && waves) {
 #pragma unroll
       for (int v = 0; v < NV; ++v)
         dF2[pm.p[v] * ncell + off_prev] = Fs[v] - Fprev[v];
@@ -218,9 +223,10 @@ template <typename T, int NS, bool ISO, int FLUX, int S, int TM, int R>
 int launch_flux_df_shape(const void* Ul, const void* Ur, void* dF2,
                          void* Fid, void* Fidr, int nz, int ny, int nx,
                          int axis, int ns, double c0, double c1,
-                         cudaStream_t st) {
+                         cudaStream_t st, int* info) {
   const Eos<T> e{(T)c0, (T)c1};
   if (axis == 0) {
+    if (info != nullptr) return (int)cudaErrorInvalidValue;  // march only
     const Tiles t = tiles_of(nx, TM, 1);
     const size_t smem =
         (size_t)R * (nwave(ISO) + (NS < 0 ? 1 : NS)) * t.bx * sizeof(T);
@@ -232,17 +238,22 @@ int launch_flux_df_shape(const void* Ul, const void* Ur, void* dF2,
         t.w, e, ns);
   } else {
     const int n = axis == 1 ? ny : nz, nq = axis == 1 ? nz : ny;
-    // NS = kNsRun: a slot per scalar and thread
-    const size_t smem =
-        NS < 0 ? (size_t)ns * 32 * kMarchRows * sizeof(T) : 0;
+    // NS = kNsRun: a slot per scalar of a chunk and thread, one launch per
+    // chunk
+    constexpr size_t slot = 32 * kMarchRows * sizeof(T);
     auto k = fluxdf_march_kernel<T, NS, ISO, FLUX, S>;
+    static const int cap = NS < 0 ? chunk_cap(k, slot) : 1;
+    const ScalarChunks ch(NS < 0 ? ns : 0, cap);
+    const size_t smem = ch.size * slot;
     const cudaError_t err = allow_smem(k, smem);
     if (err != cudaSuccess) return (int)err;
-    k<<<dim3((nx + 31) / 32, (nq + kMarchRows - 1) / kMarchRows,
-             (n + S - 1) / S),
-        dim3(32, kMarchRows), smem, st>>>(
-        (const T*)Ul, (const T*)Ur, (T*)dF2, (T*)Fid, (T*)Fidr, nz, ny, nx,
-        axis, e, ns);
+    if (info != nullptr) return march_info(k, smem, ch, cap, info);
+    for (int c = 0; c < (NS < 0 ? ch.n : 1); ++c)
+      k<<<dim3((nx + 31) / 32, (nq + kMarchRows - 1) / kMarchRows,
+               (n + S - 1) / S),
+          dim3(32, kMarchRows), smem, st>>>(
+          (const T*)Ul, (const T*)Ur, (T*)dF2, (T*)Fid, (T*)Fidr, nz, ny, nx,
+          axis, e, c * ch.size, ch.end(c, ns));
   }
   return (int)cudaGetLastError();
 }
@@ -253,12 +264,12 @@ template <typename T, int NS, bool ISO, int FLUX>
 int launch_flux_df(const void* Ul, const void* Ur, void* dF2, void* Fid,
                    void* Fidr, int nz, int ny, int nx, int axis, int ns,
                    int s, int tm, int r, double c0, double c1,
-                   void* stream) {
+                   void* stream, int* info) {
   const cudaStream_t st = (cudaStream_t)stream;
 #define ATH_FLUX_DF_SHAPE(S, TM, R)                                        \
   if (s == S && tm == TM && r == R)                                        \
     return launch_flux_df_shape<T, NS, ISO, FLUX, S, TM, R>(               \
-        Ul, Ur, dF2, Fid, Fidr, nz, ny, nx, axis, ns, c0, c1, st);
+        Ul, Ur, dF2, Fid, Fidr, nz, ny, nx, axis, ns, c0, c1, st, info);
   if constexpr (NS >= 0) {
     ATH_HYDRO_SHAPES(ATH_FLUX_DF_SHAPE)
   } else {
@@ -284,7 +295,7 @@ int launch_flux_df(const void* Ul, const void* Ur, void* dF2, void* Fid,
 #define ATH_FLUX_DF_PARAMS                                                  \
   const void *Ul, const void *Ur, void *dF2, void *Fid, void *Fidr,         \
       int nz, int ny, int nx, int axis, int nscalars, int flux, int s,      \
-      int t, int r, double c0, double c1, void *stream
+      int t, int r, double c0, double c1, void *stream, int *info
 
 ATH_FLUX_GAS_DECL(adb)
 ATH_FLUX_GAS_DECL(iso)
@@ -295,7 +306,7 @@ ATH_FLUX_GAS_DECL(iso)
   Ul, Ur, etah, F, nz, ny, nx, axis, nscalars, c0, c1, stream
 #define ATH_FLUX_DF_CALL                                                  \
   Ul, Ur, dF2, Fid, Fidr, nz, ny, nx, axis, nscalars, s, t, r, c0, c1,    \
-      stream
+      stream, info
 
 #define ATH_FLUX_GAS(NAME, ISO)                                             \
   namespace ath {                                                           \

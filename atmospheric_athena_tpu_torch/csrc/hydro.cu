@@ -13,8 +13,8 @@
 //
 // Every kernel is templated on the gas and the solver (hydro.cuh
 // riemann_flux): Roe with its HLLE fallback, HLLE or HLLC; and on the
-// number of passive scalars, 0, 1 or the run-time count of 2 to
-// kMaxScalars (NS = kNsRun, B5 and B12 in the default launch shape).
+// number of passive scalars, 0, 1 or any run-time count from 2 on (NS =
+// kNsRun, B5 and B12 in the default launch shape).
 
 #include <cuda_runtime.h>
 
@@ -26,8 +26,8 @@ ATH_FLUX_GAS(adb, false)
 // ---------------------------------------------------------------- C API
 // Return value: cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a launch shape (s, t, r) that is not built.
-// nscalars at most kMaxScalars (hydro.cuh; B5 and B12 take the default
-// launch shape only from 2 scalars on), iso 0 (adiabatic gas) or 1
+// nscalars >= 0 (B5 and B12 take the default launch shape only from 2
+// scalars on), iso 0 (adiabatic gas) or 1
 // (isothermal gas), flux a hydro.cuh FluxKind (0 Roe, 1 HLLC, 2 HLLE) and
 // order an Order (1, 2, 3, 4 = 2p, 5 = 3p); c0, c1 the gas's EOS constants
 // (hydro.cuh Eos); the wrapper checks shapes and types.
@@ -44,8 +44,8 @@ extern "C" {
 #define ATH_SWEEP_CALL(NAME, SUFFIX) \
   ath::NAME##_##SUFFIX(a, nscalars, flux, df, s, t, r, stream)
 #define ATH_SWEEP_BY_ORDER(SUFFIX)                                         \
-  const ath::SweepArgs a{U, phic, phif, dtodx, Ul, Ur, F, dF,              \
-                         nz, ny, nx, axis, c0, c1, nscalars};              \
+  const ath::SweepArgs a{U,  phic, phif, dtodx, Ul, Ur, F, dF,            \
+                         nz, ny,   nx,   axis,  c0, c1, nscalars, info};  \
   switch (order) {                                                         \
     case ath::kDc:                                                         \
       return iso ? ATH_SWEEP_CALL(sweep_iso_dc, SUFFIX)                    \
@@ -65,9 +65,15 @@ extern "C" {
   }                                                                        \
   return (int)cudaErrorInvalidValue;
 
-int ath_sweep_f32(ATH_SWEEP_ARGS) { ATH_SWEEP_BY_ORDER(f32) }
+int ath_sweep_f32(ATH_SWEEP_ARGS) {
+  int* const info = nullptr;
+  ATH_SWEEP_BY_ORDER(f32)
+}
 
-int ath_sweep_f64(ATH_SWEEP_ARGS) { ATH_SWEEP_BY_ORDER(f64) }
+int ath_sweep_f64(ATH_SWEEP_ARGS) {
+  int* const info = nullptr;
+  ATH_SWEEP_BY_ORDER(f64)
+}
 
 // B13
 #define ATH_FLUX_ARGS                                                      \
@@ -93,7 +99,7 @@ int ath_flux_pointwise_f64(ATH_FLUX_ARGS) {
       int nz, int ny, int nx, int axis, int nscalars, int iso, int flux,   \
       int s, int t, int r, double c0, double c1, void *stream
 #define ATH_FLUX_DF_FWD Ul, Ur, dF2, Fid, Fidr, nz, ny, nx, axis, nscalars, \
-      flux, s, t, r, c0, c1, stream
+      flux, s, t, r, c0, c1, stream, nullptr
 
 int ath_flux_sweep_df_f32(ATH_FLUX_DF_ARGS) {
   return iso ? ath::flux_df_iso_f32(ATH_FLUX_DF_FWD)
@@ -103,6 +109,42 @@ int ath_flux_sweep_df_f32(ATH_FLUX_DF_ARGS) {
 int ath_flux_sweep_df_f64(ATH_FLUX_DF_ARGS) {
   return iso ? ath::flux_df_iso_f64(ATH_FLUX_DF_FWD)
              : ath::flux_df_adb_f64(ATH_FLUX_DF_FWD);
+}
+
+// What the y/z march kernel of B5 (kernel 0, in the form df, order and
+// flux) or B12 (kernel 1) takes and lets run on an nz x ny x nx grid
+// along `axis` (1 or 2) in the default launch shape, for float64 (f64 = 1)
+// or float32, without launching it: info[0 .. kInfoLen-1] (sweep.cuh
+// march_info: dynamic shared memory per block, blocks per SM, scalar
+// chunks, their size and the most a chunk may hold, registers, local bytes
+// per thread).
+int ath_march_info(int kernel, int f64, int nz, int ny, int nx, int axis,
+                   int nscalars, int iso, int flux, int order, int df,
+                   int* info) {
+  const int s = 32, t = 128, r = 1;       // ATH_HYDRO_SHAPE0
+  if (axis != 1 && axis != 2) return (int)cudaErrorInvalidValue;
+  const double c0 = 1.0, c1 = 1.0;
+  if (kernel == 0) {
+    const void *U = nullptr, *phic = nullptr, *phif = nullptr,
+               *dtodx = nullptr;
+    void *Ul = nullptr, *Ur = nullptr, *F = nullptr, *dF = nullptr,
+         *stream = nullptr;
+    if (f64) {
+      ATH_SWEEP_BY_ORDER(f64)
+    } else {
+      ATH_SWEEP_BY_ORDER(f32)
+    }
+  }
+  const void *Ul = nullptr, *Ur = nullptr;
+  void *dF2 = nullptr, *Fid = nullptr, *Fidr = nullptr, *stream = nullptr;
+#define ATH_FLUX_DF_INFO Ul, Ur, dF2, Fid, Fidr, nz, ny, nx, axis, nscalars, \
+      flux, s, t, r, c0, c1, stream, info
+  if (f64)
+    return iso ? ath::flux_df_iso_f64(ATH_FLUX_DF_INFO)
+               : ath::flux_df_adb_f64(ATH_FLUX_DF_INFO);
+  return iso ? ath::flux_df_iso_f32(ATH_FLUX_DF_INFO)
+             : ath::flux_df_adb_f32(ATH_FLUX_DF_INFO);
+#undef ATH_FLUX_DF_INFO
 }
 
 const char* ath_error_string(int err) {

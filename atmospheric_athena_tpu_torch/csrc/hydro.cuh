@@ -17,7 +17,7 @@
 // Templated on the floating type T (float, double), the number of passive
 // scalars NS, the gas ISO (false: adiabatic, true: isothermal), the solver
 // FLUX and, in the reconstruction, the limiting (CHAR).  NS = 0 and 1 are
-// compile-time counts; NS = kNsRun (any count from 2 to kMaxScalars) keeps
+// compile-time counts; NS = kNsRun (any count from 2 on) keeps
 // the wave fields in compile-time arrays and passes the scalars one at a
 // time through the functions of "passive scalars, one at a time" below,
 // which repeat the scalar entries' operations of the NS templates.
@@ -60,12 +60,14 @@ __host__ __device__ constexpr bool is_char(int order) {
 __host__ __device__ constexpr int nwave(bool iso) { return iso ? 4 : 5; }
 
 // NS of the kernels that take the number of passive scalars at run time,
-// from 2 to kMaxScalars (hydro_kernels.MAX_SCALARS): their wave fields are
-// compile-time arrays of nwave(ISO) + ns_fixed(NS) entries, their scalars
-// go through a loop over the run-time count.  kMaxScalars bounds the
-// shared memory of the march kernels' scalar windows (sweep.cuh).
+// any count from 2 on: their wave fields are compile-time arrays of
+// nwave(ISO) + ns_fixed(NS) entries, their scalars go through a loop over
+// the run-time count (the march kernels over the scalars of their
+// launch's chunk, sweep.cuh ScalarChunks).  No count is refused: a field's
+// offset (nwave + s) * ncell is a 64-bit index, a count above a chunk adds
+// launches, not grid blocks or shared memory, and the one bound is the
+// count's own type, an int.
 constexpr int kNsRun = -1;
-constexpr int kMaxScalars = 32;
 __host__ __device__ constexpr int ns_fixed(int NS) { return NS < 0 ? 0 : NS; }
 
 // The EOS constants of a kernel, c0 and c1: gamma and gamma - 1 for
@@ -1027,13 +1029,12 @@ __device__ __forceinline__ void riemann_flux(const T* Ul, const T* Ur,
 }  // namespace ath
 
 // C entry points: launch the <T, NS> instance for nscalars = 0 or 1, and
-// the <T, kNsRun> instance for 2 <= nscalars <= kMaxScalars
+// the <T, kNsRun> instance for nscalars >= 2
 #define ATH_DISPATCH_NS(NSCAL, CALL0, CALL1, CALLN)                      \
   ((NSCAL) == 0   ? (CALL0)                                             \
    : (NSCAL) == 1 ? (CALL1)                                             \
-   : ((NSCAL) >= 2 && (NSCAL) <= ath::kMaxScalars)                      \
-       ? (CALLN)                                                        \
-       : (int)cudaErrorInvalidValue)
+   : (NSCAL) >= 2 ? (CALLN)                                             \
+                  : (int)cudaErrorInvalidValue)
 
 // ... and LAUNCH<T, NS, ISO, FLUX>(...) for those nscalars and flux =
 // kRoe, kHllc or kHlle (ISO a compile-time constant)

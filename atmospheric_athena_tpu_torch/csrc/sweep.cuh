@@ -51,18 +51,29 @@
 //     barrier.
 //
 // Passive scalars: NS = 0 and 1 are compile-time counts, carried in the
-// arrays above.  NS = kNsRun takes 2 to kMaxScalars scalars at run time
+// arrays above.  NS = kNsRun takes any count from 2 on at run time
 // (hydro.cuh): the wave fields go through the steps above unchanged, the
 // scalars one at a time after them, each with its own window, which takes
 // from the wave fields only what the scalars read (a cell's trace, Vx and
 // its extreme eigenvalues, for Roe's tracing; an interface's ScalarFlux
 // and densities):
 //
-//   - march kernels: per interface, a loop over the scalars; scalar s's
-//     window (its primitives of cells f-1, f, PPM f+1, PPM its slopes of
-//     f-1, f, its Wplus of cell f-1 and, dF form, its flux at f-1) lives
-//     in dynamic shared memory, march_slots(ORDER) values per scalar and
-//     thread, so the registers hold the wave window alone;
+//   - march kernels: per interface, a loop over the scalars of the block's
+//     chunk; scalar s's window (its primitives of cells f-1, f, PPM f+1,
+//     PPM its slopes of f-1, f, its Wplus of cell f-1 and, dF form, its
+//     flux at f-1) lives in dynamic shared memory, march_slots(ORDER)
+//     values per scalar and thread, so the registers hold the wave window
+//     alone.  The scalars are cut into equal chunks (ScalarChunks) of at
+//     most chunk_cap: as many windows as leave the kernel the blocks per SM
+//     that its registers allow (march_info reports it), one launch per
+//     chunk, the chunk's scalars s0 .. s1-1 kernel parameters
+//     (so they take no register).  Each launch marches the waves for its
+//     chunk's scalars, and only chunk 0's stores the wave outputs.  So the
+//     shared memory per block is bounded whatever the count; a count that
+//     fits one chunk runs as one launch, as before the chunks, and a count
+//     above it solves each interface's waves once per chunk: at 32 scalars
+//     that is cheaper than the block or two per SM that all the windows at
+//     once would leave;
 //   - tile kernels: after the wave fields, each scalar passes through one
 //     more plane of each kind (primitives, PPM slopes, Wminus, Wplus; the
 //     fluxes in the first), the thread keeping its cell's 1/d and trace
@@ -179,6 +190,46 @@ __host__ __device__ constexpr int march_slots(int order) {
   return is_ppm(order) ? 7 : 4;
 }
 
+// The most scalars per chunk of march kernel `kernel` with `slot_bytes`
+// of windows per scalar and block: as many as the shared memory leaves
+// once the blocks per SM that the kernel's registers allow are resident
+// (cudaOccupancyAvailableDynamicSMemPerBlock, after the kernel's opt-in to
+// the card's largest block), at least one.  Computed once per
+// instantiation by its launcher.
+template <typename K>
+int chunk_cap(K kernel, size_t slot_bytes) {
+  int dev = 0, optin = 0, blocks = 0;
+  size_t avail = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess ||
+      cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           optin) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kernel, 32 * kMarchRows, 0) != cudaSuccess ||
+      cudaOccupancyAvailableDynamicSMemPerBlock(
+          &avail, kernel, blocks > 0 ? blocks : 1, 32 * kMarchRows) !=
+          cudaSuccess)
+    return 1;
+  return avail / slot_bytes > 1 ? (int)(avail / slot_bytes) : 1;
+}
+
+// ns scalars cut into n equal chunks of at most `cap` (the last may be
+// shorter): chunk c holds scalars [c size, min(ns, (c + 1) size)), one
+// launch each
+struct ScalarChunks {
+  int n, size;
+  ScalarChunks(int ns, int cap) {
+    n = (ns + cap - 1) / cap;
+    size = n > 0 ? (ns + n - 1) / n : 0;
+  }
+  // one past chunk c's last scalar
+  int end(int c, int ns) const {
+    return (c + 1) * size < ns ? (c + 1) * size : ns;
+  }
+};
+
 // A cell on a sweep line that wraps at its end: position `pos` of `n`, at
 // linear index `off`; step() moves to the next cell.
 struct LinePos {
@@ -245,6 +296,8 @@ struct TileRow {
 
 // B5 along y (axis 1) or z (axis 2).  F: the whole flux (DF = false) or
 // the density flux F_ID (DF = true); dF: the flux difference (DF only).
+// NS = kNsRun: scalars s0 .. s1-1, one chunk (ScalarChunks; the launch of
+// chunk 0, s0 = 0, also stores the wave outputs).
 template <typename T, int NS, bool ISO, int FLUX, int ORDER, bool DF, int S>
 __global__ void __launch_bounds__(32 * kMarchRows)
     sweep_march_kernel(const T* __restrict__ U, const T* __restrict__ phic,
@@ -252,7 +305,7 @@ __global__ void __launch_bounds__(32 * kMarchRows)
                        const T* __restrict__ dtodx_p, T* __restrict__ Ul,
                        T* __restrict__ Ur, T* __restrict__ F,
                        T* __restrict__ dF, int NZ, int NY, int NX, int axis,
-                       Eos<T> e, int ns) {
+                       Eos<T> e, int s0, int s1) {
   constexpr int NF = ns_fixed(NS);     // the scalars in the wave arrays
   constexpr int NW = nwave(ISO), NV = NW + NF;
   constexpr bool PPM = is_ppm(ORDER);
@@ -263,6 +316,7 @@ __global__ void __launch_bounds__(32 * kMarchRows)
   const Perm pm = make_perm(axis, NV);
   const T dtodx = *dtodx_p;
   const bool kick = phic != nullptr;
+  const bool waves = NS >= 0 || s0 == 0;   // this launch stores the waves
 
   // the window at interface f: primitives of cells f-1, f, f+1 (Wa, Wb,
   // Wc), for PPM also of f+2 (Wd) and the slopes of f-1, f, f+1 (sa, sb,
@@ -300,8 +354,9 @@ __global__ void __launch_bounds__(32 * kMarchRows)
   } else {
     recon3_cell<T, NF, ISO, FLUX, ORDER>(Wa, Wb, Wc, dtodx, e, Wr, Wl);
   }
-  // NS = kNsRun: the scalars' windows at interface f0 (cells f0-2 .. f0,
-  // PPM f0-3 .. f0+1, each scalar's Wplus of cell f0-1)
+  // NS = kNsRun: the windows of the chunk's scalars at interface f0
+  // (cells f0-2 .. f0, PPM f0-3 .. f0+1, each scalar's Wplus of cell
+  // f0-1), scalar s in slots sw(s - s0, k)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const ScalarSlots<T> sw{reinterpret_cast<T*>(smem_raw) +
                               threadIdx.y * 32 + threadIdx.x,
@@ -319,8 +374,9 @@ __global__ void __launch_bounds__(32 * kMarchRows)
       c.step();
     }
     const ScalarTrace<T> tr = trace_for<T, ISO, FLUX, ORDER>(Wb, e);
-    for (int s = 0; s < ns; ++s) {
+    for (int s = s0; s < s1; ++s) {
       const T* Us = U + (NW + s) * ncell;
+      const int i = s - s0;
       T w[NC], wm, wp;
 #pragma unroll
       for (int k = 0; k < NC; ++k) w[k] = Us[offs[k]] * dis[k];
@@ -329,17 +385,17 @@ __global__ void __launch_bounds__(32 * kMarchRows)
         const T sb = scalar_slope(w[1], w[2], w[3]);
         const T sc = scalar_slope(w[2], w[3], w[4]);
         ppm_scalar<T, FLUX>(w[1], w[2], w[3], sa, sb, sc, dtodx, tr, wm, wp);
-        sw(s, 0) = w[2];
-        sw(s, 1) = w[3];
-        sw(s, 2) = w[4];
-        sw(s, 3) = sb;
-        sw(s, 4) = sc;
+        sw(i, 0) = w[2];
+        sw(i, 1) = w[3];
+        sw(i, 2) = w[4];
+        sw(i, 3) = sb;
+        sw(i, 4) = sc;
       } else {
         recon3_scalar<T, FLUX, ORDER>(w[0], w[1], w[2], dtodx, tr, wm, wp);
-        sw(s, 0) = w[1];
-        sw(s, 1) = w[2];
+        sw(i, 0) = w[1];
+        sw(i, 1) = w[2];
       }
-      sw(s, KP) = wp;
+      sw(i, KP) = wp;
     }
   }
   long long off_un = ahead.off;           // the cell of Un
@@ -397,27 +453,28 @@ __global__ void __launch_bounds__(32 * kMarchRows)
       // reconstructed, interface f solved from the window's Wplus of f-1
       const T di = T(1) / (PPM ? Wd[0] : Wc[0]);
       const ScalarTrace<T> tr = trace_for<T, ISO, FLUX, ORDER>(Wb, e);
-      for (int s = 0; s < ns; ++s) {
+      for (int s = s0; s < s1; ++s) {
         const long long so = (NW + s) * ncell;
+        const int i = s - s0;
         const T wn = U[so + off_new] * di;
         T wm, wp;
         if constexpr (PPM) {
-          const T wa = sw(s, 0), wb = sw(s, 1), wc = sw(s, 2);
+          const T wa = sw(i, 0), wb = sw(i, 1), wc = sw(i, 2);
           const T sc = scalar_slope(wb, wc, wn);
-          ppm_scalar<T, FLUX>(wa, wb, wc, sw(s, 3), sw(s, 4), sc, dtodx, tr,
+          ppm_scalar<T, FLUX>(wa, wb, wc, sw(i, 3), sw(i, 4), sc, dtodx, tr,
                               wm, wp);
-          sw(s, 0) = wb;
-          sw(s, 1) = wc;
-          sw(s, 2) = wn;
-          sw(s, 3) = sw(s, 4);
-          sw(s, 4) = sc;
+          sw(i, 0) = wb;
+          sw(i, 1) = wc;
+          sw(i, 2) = wn;
+          sw(i, 3) = sw(i, 4);
+          sw(i, 4) = sc;
         } else {
-          const T wa = sw(s, 0), wb = sw(s, 1);
+          const T wa = sw(i, 0), wb = sw(i, 1);
           recon3_scalar<T, FLUX, ORDER>(wa, wb, wn, dtodx, tr, wm, wp);
-          sw(s, 0) = wb;
-          sw(s, 1) = wn;
+          sw(i, 0) = wb;
+          sw(i, 1) = wn;
         }
-        const T wl = sw(s, KP);
+        const T wl = sw(i, KP);
         const T fs = sf(wl, wm);
         if (j < L.ni) {
           Ul[so + off] = wl * Ulc[0];
@@ -425,13 +482,13 @@ __global__ void __launch_bounds__(32 * kMarchRows)
           if constexpr (!DF) F[so + off] = fs;
         }
         if constexpr (DF) {
-          if (j > 0) dF[so + off_prev] = fs - sw(s, KF);
-          sw(s, KF) = fs;
+          if (j > 0) dF[so + off_prev] = fs - sw(i, KF);
+          sw(i, KF) = fs;
         }
-        sw(s, KP) = wp;
+        sw(i, KP) = wp;
       }
     }
-    if (j < L.ni) {
+    if (j < L.ni && waves) {
       store_cell<T, NF, ISO>(Ul, ncell, off, pm, Ulc);
       store_cell<T, NF, ISO>(Ur, ncell, off, pm, Urc);
       if constexpr (DF)
@@ -440,7 +497,7 @@ __global__ void __launch_bounds__(32 * kMarchRows)
         store_cell<T, NF, ISO>(F, ncell, off, pm, Fs);
     }
     if constexpr (DF) {
-      if (j > 0) {
+      if (j > 0 && waves) {
 #pragma unroll
         for (int v = 0; v < NV; ++v)
           dF[pm.p[v] * ncell + off_prev] = Fs[v] - Fprev[v];
@@ -674,12 +731,42 @@ cudaError_t allow_smem(K kernel, size_t smem) {
                               (int)smem);
 }
 
+// What a march kernel's launch takes and lets run (the C entry points'
+// `info` query; ath_march_info): its dynamic shared memory per block, the
+// blocks per SM that the occupancy calculator allows, the scalar chunks
+// (their number and size) and the most scalars a chunk may hold
+// (chunk_cap), the registers per thread and the local memory (spills) per
+// thread in bytes.
+enum { kInfoSmem, kInfoBlocks, kInfoChunks, kInfoChunk, kInfoCap,
+       kInfoRegs, kInfoLocal, kInfoLen };
+
+template <typename K>
+int march_info(K kernel, size_t smem, const ScalarChunks& ch, int cap,
+               int* info) {
+  cudaFuncAttributes at;
+  cudaError_t err = cudaFuncGetAttributes(&at, kernel);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, kernel, 32 * kMarchRows, smem);
+  if (err != cudaSuccess) return (int)err;
+  info[kInfoSmem] = (int)smem;
+  info[kInfoBlocks] = blocks;
+  info[kInfoChunks] = ch.n;
+  info[kInfoChunk] = ch.size;
+  info[kInfoCap] = cap;
+  info[kInfoRegs] = at.numRegs;
+  info[kInfoLocal] = (int)at.localSizeBytes;
+  return 0;
+}
+
 struct SweepArgs {
   const void *U, *phic, *phif, *dtodx;
   void *Ul, *Ur, *F, *dF;
   int nz, ny, nx, axis;
   double c0, c1;      // the EOS constants (Eos)
   int ns;             // the number of passive scalars
+  int* info;          // non-null: fill march_info instead of launching
 };
 
 template <typename T, int NS, bool ISO, int FLUX, int ORDER, bool DF, int S,
@@ -688,6 +775,7 @@ int launch_sweep_shape(const SweepArgs& a, cudaStream_t st) {
   constexpr bool PPM = is_ppm(ORDER);
   const Eos<T> e{(T)a.c0, (T)a.c1};
   if (a.axis == 0) {
+    if (a.info != nullptr) return (int)cudaErrorInvalidValue;  // march only
     const Tiles t = tiles_of(a.nx, TM, PPM ? 6 : 4);
     const size_t smem = (size_t)R * (PPM ? 4 : 3) *
                         (nwave(ISO) + (NS < 0 ? 1 : NS)) * t.bx * sizeof(T);
@@ -700,19 +788,23 @@ int launch_sweep_shape(const SweepArgs& a, cudaStream_t st) {
         a.nx, t.w, e, a.ns);
   } else {
     const int n = a.axis == 1 ? a.ny : a.nz, nq = a.axis == 1 ? a.nz : a.ny;
-    // NS = kNsRun: the scalars' windows
-    const size_t smem = NS < 0 ? (size_t)a.ns * march_slots(ORDER) * 32 *
-                                     kMarchRows * sizeof(T)
-                               : 0;
+    // NS = kNsRun: the windows of a chunk's scalars (chunk_cap), one
+    // launch per chunk
+    constexpr size_t slot = march_slots(ORDER) * 32 * kMarchRows * sizeof(T);
     auto k = sweep_march_kernel<T, NS, ISO, FLUX, ORDER, DF, S>;
+    static const int cap = NS < 0 ? chunk_cap(k, slot) : 1;
+    const ScalarChunks ch(NS < 0 ? a.ns : 0, cap);
+    const size_t smem = ch.size * slot;
     const cudaError_t err = allow_smem(k, smem);
     if (err != cudaSuccess) return (int)err;
-    k<<<dim3((a.nx + 31) / 32, (nq + kMarchRows - 1) / kMarchRows,
-             (n + S - 1) / S),
-        dim3(32, kMarchRows), smem, st>>>(
-        (const T*)a.U, (const T*)a.phic, (const T*)a.phif, (const T*)a.dtodx,
-        (T*)a.Ul, (T*)a.Ur, (T*)a.F, (T*)a.dF, a.nz, a.ny, a.nx, a.axis, e,
-        a.ns);
+    if (a.info != nullptr) return march_info(k, smem, ch, cap, a.info);
+    for (int c = 0; c < (NS < 0 ? ch.n : 1); ++c)
+      k<<<dim3((a.nx + 31) / 32, (nq + kMarchRows - 1) / kMarchRows,
+               (n + S - 1) / S),
+          dim3(32, kMarchRows), smem, st>>>(
+          (const T*)a.U, (const T*)a.phic, (const T*)a.phif,
+          (const T*)a.dtodx, (T*)a.Ul, (T*)a.Ur, (T*)a.F, (T*)a.dF, a.nz,
+          a.ny, a.nx, a.axis, e, c * ch.size, ch.end(c, a.ns));
   }
   return (int)cudaGetLastError();
 }

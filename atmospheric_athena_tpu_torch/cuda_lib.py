@@ -53,6 +53,7 @@ _SIGNATURES = {
     "ath_flux_pointwise_f64": [_P] * 4 + [_I] * 7 + [_D, _D, _P],
     "ath_flux_sweep_df_f32": [_P] * 5 + [_I] * 10 + [_D, _D, _P],
     "ath_flux_sweep_df_f64": [_P] * 5 + [_I] * 10 + [_D, _D, _P],
+    "ath_march_info": [_I] * 11 + [_P],
     "ath_gcross_f32": [_P] * 10 + [_I] * 3 + [_P],
     "ath_gcross_f64": [_P] * 10 + [_I] * 3 + [_P],
     "ath_transverse_f32": [_P] * 12 + [_I] * 7 + [_D, _D, _P],

@@ -73,8 +73,11 @@ BATCH_SHAPES = (2, 4)
 
 
 def check_supported(sim: SimConfig, grid: GridConfig, ion: IonConfig):
-    """The configuration of pallas_rad.supported: one dir=-1 plane on a 3D
-    adiabatic hydro grid."""
+    """The configuration the kernels take: one dir=-1 plane on a 3D hydro
+    grid, as pallas_rad.supported, which excludes MHD only; and adiabatic
+    gas, which it does not demand: on isothermal gas the JAX driver hands
+    the kernels its first scalar as the energy (ROADMAP C14), so the port
+    refuses that gas here and in driver.ion_radtransfer."""
     if sim.mhd or not sim.adiabatic:
         raise NotImplementedError("radiation kernels: adiabatic hydro only")
     if len(ion.radplanes) != 1 or ion.radplanes[0][0] != -1:

@@ -31,12 +31,17 @@ repeat their formulas in csrc/hydro.cuh.  Both wrap
 the stencil at the array edge (torch.roll / modular indexing), which touches
 only ghost cells that no interior update reads.
 
-The kernels take any number of passive scalars up to ``MAX_SCALARS``:
-none and one are compile-time counts of their templates; from two on
-(csrc/hydro.cuh ``kNsRun``) the wave fields keep their compile-time arrays
-and the scalars pass one at a time through a loop over the run-time count,
-each with its own window (registers and shared memory) and the
-interface's solve (hydro.cuh ``ScalarFlux``).
+The kernels take any number of passive scalars: none and one are
+compile-time counts of their templates; from two on (csrc/hydro.cuh
+``kNsRun``) the wave fields keep their compile-time arrays and the scalars
+pass one at a time through a loop over the run-time count, each with its
+own window and the interface's solve (hydro.cuh ``ScalarFlux``).  The y/z
+march kernels of B5 and B12 keep the windows in shared memory for one
+chunk of the scalars per launch (csrc/sweep.cuh ``ScalarChunks``: as many
+windows per block as leave the kernel the blocks per SM that its
+registers allow); a count above one chunk takes a launch per chunk, each
+solving the waves again (``march_info`` reports a form's chunks, shared
+memory and occupancy).
 
 B5 (both forms) and B12 take ``shape=``, their launch shape, one of
 ``SWEEP_SHAPES`` / ``FLUXDF_SHAPES``; B5 is built in every shape for order
@@ -53,6 +58,7 @@ their number (``forms["roe+ns4"]``, ``forms["iso+dF2+ns2"]``).
 
 from __future__ import annotations
 
+import ctypes
 from collections import Counter
 
 import torch
@@ -79,25 +85,16 @@ ORDER_NAME = {"1": "dc", "2": "plm", "3": "ppm", "2p": "plmp", "3p": "ppmp"}
 SWEEP_SHAPES = ((32, 128, 1), (64, 320, 1))
 FLUXDF_SHAPES = SWEEP_SHAPES
 
-# the most passive scalars the kernels take (csrc/hydro.cuh kMaxScalars):
-# the march kernels keep 4-7 values per scalar and thread in shared memory
-MAX_SCALARS = 32
-
-
 def refusal(sim: SimConfig):
     """Why the kernels do not take `sim`, naming the ROADMAP item, or None.
     They take 3D adiabatic or isothermal hydro with CTU tracing,
     reconstruction orders 1, 2, 3, 2p and 3p, the Roe, HLLE and HLLC
-    solvers and up to MAX_SCALARS passive scalars: the forms of the JAX
+    solvers and any number of passive scalars: the forms of the JAX
     package's kernels (pallas_hydro.supported)."""
     if sim.gas != "hydro":
         return "MHD (ROADMAP A12)"
     if sim.special_relativity:
         return "special relativity (ROADMAP A15)"
-    if sim.nscalars > MAX_SCALARS:
-        return (f"{sim.nscalars} passive scalars, more than the "
-                f"{MAX_SCALARS} whose windows fit the march kernels' shared "
-                "memory")
     if sim.integrator != "ctu":
         return f"the {sim.integrator} integrator (ROADMAP A11 step 6)"
     if sim.flux not in FLUX_KIND:
@@ -113,15 +110,45 @@ def supported(sim: SimConfig) -> bool:
 
 def sweep_shapes(sim: SimConfig):
     """The launch shapes B5 is built for at sim.order: every one of
-    SWEEP_SHAPES at order 2 with at most one scalar, else the first."""
+    SWEEP_SHAPES at order 2 with at most one scalar, else the first (the
+    run-time scalar forms: S = 32 interfaces per segment, 128 threads per
+    march block, each with its chunk's windows in shared memory)."""
     return (SWEEP_SHAPES if sim.order == "2" and sim.nscalars < 2
             else SWEEP_SHAPES[:1])
 
 
 def fluxdf_shapes(sim: SimConfig):
     """The launch shapes B12 is built for: every one of FLUXDF_SHAPES with
-    at most one scalar, else the first."""
+    at most one scalar, else the first (the run-time scalar forms: one
+    shared-memory slot per scalar of a chunk and thread)."""
     return FLUXDF_SHAPES if sim.nscalars < 2 else FLUXDF_SHAPES[:1]
+
+
+# the keys of march_info, in the order of csrc/sweep.cuh's kInfo* slots
+MARCH_INFO = ("smem_bytes", "blocks_per_sm", "chunks", "chunk", "chunk_cap",
+              "registers", "local_bytes")
+
+
+def march_info(kernel: str, sim: SimConfig, dtype, grid_shape, axis=1,
+               df=True):
+    """What the y/z march kernel of B5 (kernel "sweep"; its dF form with
+    `df`) or B12 ("fluxdf") in sim's form takes and lets run on the card
+    for a [.., NZ, NY, NX] = `grid_shape` state of `dtype` along `axis`
+    (1 or 2), in the default launch shape, without launching it: a dict of
+    MARCH_INFO (dynamic shared memory per block, blocks per SM from the
+    CUDA occupancy calculator, the scalar chunks, their size and the most
+    a chunk may hold, registers and local bytes per thread).  Needs the
+    card."""
+    if kernel not in ("sweep", "fluxdf"):
+        raise ValueError(f"march_info: kernel {kernel!r}")
+    info = (ctypes.c_int * len(MARCH_INFO))()
+    nz, ny, nx = grid_shape[-3:]
+    err = cuda_lib.lib().ath_march_info(
+        int(kernel == "fluxdf"), int(dtype == torch.float64), nz, ny, nx,
+        axis, sim.nscalars, int(not sim.adiabatic), FLUX_KIND[sim.flux],
+        ORDER_KIND[sim.order], int(df), ctypes.addressof(info))
+    cuda_lib.check(err, "march_info")
+    return dict(zip(MARCH_INFO, info))
 
 
 def eos_args(sim: SimConfig):

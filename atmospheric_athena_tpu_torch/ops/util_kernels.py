@@ -144,10 +144,12 @@ def max_dti_hydro(U, sim: SimConfig, grid: GridConfig):
             or tuple(U.shape[1:]) != tuple(grid.padded_shape()):
         raise ValueError(f"max_dti_hydro: U {tuple(U.shape)} must be a "
                          f"contiguous [{sim.ncons}, *grid.padded_shape()]")
-    if U.numel() >= 2 ** 31:
-        raise ValueError("max_dti_hydro: U too large for int32 offsets")
     _, nz, ny, nx = U.shape
     ncell = nz * ny * nx
+    if (4 if not sim.adiabatic else 5) * ncell >= 2 ** 31:
+        # the kernel reads the wave fields alone, at int32 offsets: the
+        # passive scalars after them do not count
+        raise ValueError("max_dti_hydro: U too large for int32 offsets")
     nprog = (ncell + _BLOCK - 1) // _BLOCK
     iso = not sim.adiabatic
     consts = ((sim.iso_csound2,) if iso

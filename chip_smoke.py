@@ -17,8 +17,10 @@ B12, flux_sweep_df) in the bench configuration and in the testsedov blast
 (HLLC), and testsedov with the H-correction (B8 with HLLC); and this
 slice's paths: the bench configuration with PPM (order 3, B5-dF PPM) and
 testsedov with HLLE (B5 and B5-dF, B12, B13 and B8 with HLLE); turb
-(isothermal gas); and linear_wave with four passive scalars (every hydro
-kernel's run-time scalar form, "name[roe+ns4]").  It checks
+(isothermal gas); linear_wave with four passive scalars (every hydro
+kernel's run-time scalar form, "name[roe+ns4]"); and this slice's path,
+linear_wave with 40 scalars ("name[roe+ns40]"), whose B5 and B12 march
+kernels pass the scalars in chunks.  It checks
 each hand-written kernel against its plain PyTorch version on the card; a
 kernel with several forms (the solver, Roe, HLLC or HLLE, and B5's
 reconstruction order, "ppm+hllc"; the operand forms of transverse_correct,
@@ -33,7 +35,11 @@ and counted per form, "name[form]":
      pass (both inlet forms) and of B5's and B12's per-interface loop (y,
      z) and body (x) in every form and launch shape (the run-time scalar
      forms: the loop with one pass of its scalar loop, and that loop's
-     body), with the time they take to issue at the card's maximum clock;
+     body), with the time they take to issue at the card's maximum clock,
+     and what the run-time scalar forms' y/z march kernels (B5 PLM and
+     PPM, B12; Roe) take and let run at 4, 32 and 40 scalars: registers,
+     local bytes, scalar chunks, dynamic shared memory per block and
+     blocks per SM (march_occupancy);
   2. kernel vs plain version on states of the isph deck after init and two
      steps, with a damping-code carry and a per-column inlet drawn from
      SEED and the batch kernel on a 25-substep schedule of THETA x the
@@ -56,7 +62,12 @@ and counted per form, "name[form]":
      gas and operand form; B5 PLM Roe also with 8) on the isph state with
      distinct scalars and stirred flows (ns_inputs), and B3's inlet form,
      the same way, each scalar form timed with one plain call per axis and
-     5 kernel runs; then the NaN probe at 16^3 float64: one interior
+     5 kernel runs; the forms with 33 and 40 scalars (MANY_FORMS: B5 at
+     PLM and PPM with each solver, B13, B12, B8, B7, B10; isothermal B5
+     and B12 at 40) the same way, at 256^3 on operands the kernels build
+     (many_calls: the plain chain does not fit the card beside a plain
+     call at 45 fields), and the scalar curve of B5-dF PLM and PPM and B12
+     at 4, 32 and 40 scalars; then the NaN probe at 16^3 float64: one interior
      cell's E, and in a second case d, set to NaN (the scalar forms: d, or
      the last scalar), and every kernel's NaN cells and NaN reductions
      equal to its plain version's;
@@ -83,8 +94,9 @@ and counted per form, "name[form]":
      other form of B5 (orders 1, 2p, 3p with each solver, PPM with HLLC
      and HLLE; 2 cycles each), each to 1e-10 of each field's max; turb
      and linear_wave (4 distinct scalars, vflow 0 and 1, three routes;
-     isothermal with 2) with the kernels against the plain versions on
-     the card, to 1e-10 of each field's max;
+     isothermal with 2; 40 distinct scalars, vflow 1, three routes) with
+     the kernels against the plain versions on the card, to 1e-10 of each
+     field's max;
   4. full width: the SMR main path, isph2lev at 256^3 + 256^3 float32
      (the child over the root's centre), maxiter=50, batch_iters=25, 3
      cycles through Simulation.from_file (no device argument: the card is
@@ -100,11 +112,12 @@ and counted per form, "name[form]":
      256^3 float32 with cubic cells, with HLLC and with HLLE, 5 cycles on
      the middle-phase path, 1 on MID=0 and 1 with the H-correction,
      through Simulation.from_file without a device; turb and linear_wave
-     (4 scalars) at 256^3 float32 the same way, and a CLI cycle of each.
+     (4 scalars, then 40 distinct ones) at 256^3 float32 the same way, and
+     a CLI cycle of each.
 
 It ends with a JSON line of the kernels (launches from the phase-4 run of
 each kernel's path: the SMR run first, then the bench run, the K=1 runs,
-the run without the H-correction, the testsedov, PPM, turb and
+the run without the H-correction, the testsedov, PPM, turb and the two
 linear_wave runs; B3', B3's inlet form and the forms that take no
 full-width run, on no path, with their phase-2 launches and "path": null,
 the hydro ones also with their phase-3 launches), the nvidia-smi line
@@ -487,10 +500,13 @@ def split_ns(form):
     return form, 0
 
 
-def ns_entries(ns, iso):
-    """The kernel entries of the forms with `ns` scalars of one gas."""
+def ns_entries(ns, iso, orders=None):
+    """The kernel entries of the forms with `ns` scalars of one gas (B5 at
+    `orders` only, where given)."""
     pre, suf = ("iso+" if iso else ""), f"+ns{ns}"
-    out = [f"{w}[{pre}{form or 'roe'}{suf}]" for form in SWEEP_FORMS
+    out = [f"{w}[{pre}{form or 'roe'}{suf}]"
+           for form, (o, _) in SWEEP_FORMS.items()
+           if orders is None or o in orders
            for w in ("sweep_lrflux", "sweep_lrflux_df")]
     out += [f"{w}[{pre}{f}{suf}]" for f in ("roe", "hllc", "hlle")
             for w in ("flux_pointwise", "flux_sweep_df", "flux_corrected")]
@@ -499,10 +515,25 @@ def ns_entries(ns, iso):
     return out
 
 
+# More scalars than the 32 that B5's and B12's march kernels once held in
+# one block (csrc/sweep.cuh ScalarChunks): NS_MANY scalars in B5 (both
+# forms) at PLM and PPM with each solver, B13, B12 and B8 (each solver), B7
+# and B10 (both operand forms), adiabatic; and for isothermal gas B5 (both
+# forms) and B12, PLM with Roe, at the last count.  LW_MANY is the count of
+# linear_wave's second run (this slice's path).
+NS_MANY = (33, 40)
+LW_MANY = NS_MANY[-1]
+MANY_ORDERS = ("2", "3")
+MANY_FORMS = ([e for ns in NS_MANY for e in ns_entries(ns, False,
+                                                      MANY_ORDERS)]
+              + [f"{w}[iso+roe+ns{LW_MANY}]" for w in (
+                  "sweep_lrflux", "sweep_lrflux_df", "flux_sweep_df")])
+
 NS_FORMS = ([e for ns in NS_COUNTS for iso in (False, True)
              for e in ns_entries(ns, iso)]
             + [f"{w}[roe+ns{NS_WIDE}]"
-               for w in ("sweep_lrflux", "sweep_lrflux_df")])
+               for w in ("sweep_lrflux", "sweep_lrflux_df")]
+            + MANY_FORMS)
 
 
 def fields_moved_ns(name):
@@ -667,18 +698,37 @@ TURB_HC = ["sweep_lrflux_df[iso+roe]", "transverse_correct[iso+dF]",
            "flux_corrected[iso+roe]", "final_update[iso+F2]",
            "max_dti_hydro[isothermal]"]
 
-# linear_wave with LW_NS scalars (adiabatic; no gravity, periodic, so the
+# linear_wave with ns scalars (adiabatic; no gravity, periodic, so the
 # plain ghost fill): the middle-phase route without the H-correction, MID=0,
-# the middle-phase route with it; isothermal with 2 scalars on the first
-_LW = f"+ns{LW_NS}"
-LW_MID = [f"sweep_lrflux_df[roe{_LW}]", f"transverse_correct[dF{_LW}]",
-          f"flux_sweep_df[roe{_LW}]", f"final_update[dF2{_LW}]",
-          "max_dti_hydro"]
-LW_MID0 = [f"sweep_lrflux[roe{_LW}]", f"flux_pointwise[roe{_LW}]",
-           "max_dti_hydro"]
-LW_HC = [f"sweep_lrflux_df[roe{_LW}]", f"transverse_correct[dF{_LW}]",
-         f"flux_corrected[roe{_LW}]", f"final_update[F2{_LW}]",
-         "max_dti_hydro"]
+# the middle-phase route with it (lw_route); with LW_NS scalars the paths
+# "lw", "lw MID=0", "lw hcorr", with LW_MANY "lw40", "lw40 MID=0",
+# "lw40 hcorr"; isothermal with 2 scalars on the first route
+
+
+def lw_route(ns, route):
+    """The kernel entries of linear_wave with ns scalars on `route`: "mid",
+    "MID=0" or "hcorr"."""
+    sf = f"+ns{ns}"
+    if route == "MID=0":
+        return [f"sweep_lrflux[roe{sf}]", f"flux_pointwise[roe{sf}]",
+                "max_dti_hydro"]
+    step9 = ([f"flux_corrected[roe{sf}]", f"final_update[F2{sf}]"]
+             if route == "hcorr" else
+             [f"flux_sweep_df[roe{sf}]", f"final_update[dF2{sf}]"])
+    return [f"sweep_lrflux_df[roe{sf}]", f"transverse_correct[dF{sf}]",
+            *step9, "max_dti_hydro"]
+
+
+def lw_path(ns, route):
+    """The PATHS key of linear_wave with ns scalars on `route`."""
+    head = "lw" if ns == LW_NS else f"lw{ns}"
+    return head if route == "mid" else f"{head} {route}"
+
+
+LW_MID, LW_MID0, LW_HC = (lw_route(LW_NS, r) for r in ("mid", "MID=0",
+                                                       "hcorr"))
+LW_MANY_PATHS = {lw_path(LW_MANY, r): lw_route(LW_MANY, r)
+                 for r in ("mid", "MID=0", "hcorr")}
 LW_ISO = ["sweep_lrflux_df[iso+roe+ns2]", "transverse_correct[iso+dF+ns2]",
           "flux_sweep_df[iso+roe+ns2]", "final_update[iso+dF2+ns2]",
           "max_dti_hydro[isothermal]"]
@@ -705,6 +755,7 @@ PATHS = {
     "lw MID=0": (LW_MID0, others(LW_MID0)),
     "lw hcorr": (LW_HC, others(LW_HC)),
     "lw iso": (LW_ISO, others(LW_ISO)),
+    **{p: (need, others(need)) for p, need in LW_MANY_PATHS.items()},
     "turb MID=0": (TURB_MID0, others(TURB_MID0)),
     "turb hcorr": (TURB_HC, others(TURB_HC)),
     "sedov": (SEDOV_MID, others(SEDOV_MID)),
@@ -732,7 +783,8 @@ NO_PATH = FUSED + [entry(w, form) for form, (o, f) in SWEEP_FORMS.items()
                    if o != "2" and (o, f) != ("3", "roe")
                    for w in ("sweep_lrflux", "sweep_lrflux_df")] + [
     k for k in ISO_FORMS if k not in TURB_MID + TURB_MID0 + TURB_HC] + [
-    k for k in NS_FORMS if k not in LW_MID + LW_MID0 + LW_HC] + [
+    k for k in NS_FORMS if k not in LW_MID + LW_MID0 + LW_HC + sum(
+        LW_MANY_PATHS.values(), [])] + [
     "rad_batch[inlet]"]
 
 AXES = (0, 1, 2)
@@ -1349,18 +1401,35 @@ def scalar_fields(ns, grid, like, amp=1.0):
 
 
 def ns_inputs(s, ns, iso, nan_field=None):
-    """The operands of the forms with `ns` >= 2 scalars, from the isph
-    state as iso_inputs builds them: the adiabatic state (d, M, E) or the
-    isothermal one (d, M; iso_csound the median adiabatic sound speed),
-    random velocities up to cs/2 added (SEED; the adiabatic energy keeps
-    its pressure), and scalar n = the deck's neutral density x
-    scalar_fields' field n; the deck's potential and dt, and the
-    middle-phase chain (mid_inputs).  nan_field: the field set to NaN at
-    NAN_CELL (the NaN probe)."""
-    import torch
-    from atmospheric_athena_tpu_torch.defs import IEN, IM1
+    """The operands of the forms with `ns` >= 2 scalars (ns_state), the
+    deck's potential and dt, and the middle-phase chain (mid_inputs)."""
     from atmospheric_athena_tpu_torch.ops import ctu_mid_kernels as mid
     from atmospheric_athena_tpu_torch.ops import hydro_kernels
+    Un, nsim = ns_state(s, ns, iso, nan_field)
+    st, grid = s.state, s.grid
+    phic, phif = s.phi
+    dtodx = [st.dt / grid.dx[a] for a in range(3)]
+    flux_in = []
+    for a in range(3):
+        Ul, Ur, _ = hydro_kernels.sweep_lrflux_plain(Un, phic, phif[a],
+                                                     dtodx[a], nsim, a)
+        flux_in.append((Ul.contiguous(), Ur.contiguous(),
+                        mid.hcorr_eta(Ul, Ur, nsim, a).contiguous()))
+    return dict(U=Un, sim=nsim, phic=phic, phif=phif, dtodx=dtodx,
+                flux_in=flux_in,
+                mid=mid_inputs(Un, phic, phif, dtodx, nsim, grid))
+
+
+def ns_state(s, ns, iso, nan_field=None):
+    """The state and SimConfig of the forms with `ns` >= 2 scalars, from
+    the isph state as iso_inputs builds them: the adiabatic state (d, M, E)
+    or the isothermal one (d, M; iso_csound the median adiabatic sound
+    speed), random velocities up to cs/2 added (SEED; the adiabatic energy
+    keeps its pressure), and scalar n = the deck's neutral density x
+    scalar_fields' field n.  nan_field: the field set to NaN at NAN_CELL
+    (the NaN probe)."""
+    import torch
+    from atmospheric_athena_tpu_torch.defs import IEN, IM1
     st, sim, grid = s.state, s.sim, s.grid
     U = st.U
     Ui = U[(slice(None),) + grid.interior()]
@@ -1384,17 +1453,7 @@ def ns_inputs(s, ns, iso, nan_field=None):
                           + Un[IM1 + 2] ** 2) / Un[0] - ke0
     if nan_field is not None:
         Un[(nan_field,) + NAN_CELL] = float("nan")
-    phic, phif = s.phi
-    dtodx = [st.dt / grid.dx[a] for a in range(3)]
-    flux_in = []
-    for a in range(3):
-        Ul, Ur, _ = hydro_kernels.sweep_lrflux_plain(Un, phic, phif[a],
-                                                     dtodx[a], nsim, a)
-        flux_in.append((Ul.contiguous(), Ur.contiguous(),
-                        mid.hcorr_eta(Ul, Ur, nsim, a).contiguous()))
-    return dict(U=Un, sim=nsim, phic=phic, phif=phif, dtodx=dtodx,
-                flux_in=flux_in,
-                mid=mid_inputs(Un, phic, phif, dtodx, nsim, grid))
+    return Un, nsim
 
 
 def ns_kernel_calls(grid, inp, sweeps_only=False):
@@ -1581,37 +1640,41 @@ def check_call(rec, name, kern, plain, args, grid, tol, timing):
     plain version (SHAPED and NS_FORMS kernels) and, with `timing`, the
     median CUDA-event ms of kernel (20 runs) and plain version (PLAIN_REPS
     runs), interleaved plain, kernel, kernel, plain, the bound and the
-    launch shapes' ms.  The NS_FORMS entries, some 170, are timed lighter:
+    launch shapes' ms.  The NS_FORMS entries, some 230, are timed lighter:
     the plain version's one compared call, the kernel's median of 5 runs,
-    and the operations counted on the first axis."""
+    and the operations counted on the first axis.  The plain version runs
+    first and both outputs are dropped before the timings, so that a
+    45-field state at 256^3 leaves the plain version room on the card."""
     quick = name in NS_FORMS
-    got = outputs(kern(*args))
     ref, t_plain = timed_call(lambda: plain(*args))
     ref = outputs(ref)
+    got = outputs(kern(*args))
     ea, er = compare(name, got, ref, tol, grid)
     r = rec.setdefault(name, dict(max_abs_err=0.0, max_rel_err=0.0,
                                   ms=0.0, plain_ms=0.0, bound_ms=0.0,
                                   bound_by=None, library_ms=None))
     r["max_abs_err"] = max(r["max_abs_err"], ea)
     r["max_rel_err"] = max(r["max_rel_err"], er)
-    if base_name(name) == "flux_sweep_df":
-        r["dF2_bits_vs_plain"] = (r.get("dF2_bits_vs_plain", 0)
-                                  + df2_bits(*args))
-    if base_name(name) == "sweep_lrflux_df":
-        sweep_df_bits(*args)
-        r["dF_bitwise_whole_flux"] = True
     if name in SHAPED or quick:
         # summed over the axes of a per-axis kernel
         r["bits_vs_plain"] = (r.get("bits_vs_plain", 0)
                               + bits_differ(got, ref))
         r["elements"] = (r.get("elements", 0)
                          + sum(g.numel() for g in got))
+    nbytes = hbm_bytes(name, grid, got[0])
+    del got, ref
+    if base_name(name) == "flux_sweep_df":
+        r["dF2_bits_vs_plain"] = (r.get("dF2_bits_vs_plain", 0)
+                                  + df2_bits(*args))
+    if base_name(name) == "sweep_lrflux_df":
+        sweep_df_bits(*args)
+        r["dF_bitwise_whole_flux"] = True
     if timing and quick:
         r["ms"] += cuda_ms(lambda: kern(*args), reps=5)
         r["plain_ms"] += t_plain
         if "ops" not in r:
             r["ops"] = count_ops(lambda: plain(*args))
-        t_bytes = hbm_bytes(name, grid, got[0]) / HBM_BYTES_PER_S
+        t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = r["ops"] / FP32_OPS_PER_S
         r["bound_ms"] += 1e3 * max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
@@ -1623,7 +1686,7 @@ def check_call(rec, name, kern, plain, args, grid, tol, timing):
         p2 = cuda_ms(lambda: plain(*args), reps=PLAIN_REPS)
         r["ms"] += min(k1, k2)
         r["plain_ms"] += min(p1, p2)
-        t_bytes = hbm_bytes(name, grid, got[0]) / HBM_BYTES_PER_S
+        t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = count_ops(lambda: plain(*args)) / FP32_OPS_PER_S
         r["bound_ms"] += 1e3 * max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
@@ -1677,30 +1740,43 @@ def phase2(n, dtype, timing):
         "transverse_correct[iso+F] bitwise its dF form")
     from atmospheric_athena_tpu_torch import bvals
     from atmospheric_athena_tpu_torch.ops import util_kernels as uk
-    for ns in NS_COUNTS + (NS_WIDE,):
-        for iso in (False, True) if ns != NS_WIDE else (False,):
-            inp = ns_inputs(s, ns, iso)
-            for name, kern, plain, args in ns_kernel_calls(
-                    s.grid, inp, sweeps_only=ns == NS_WIDE):
-                check_call(rec, name, kern, plain, args, s.grid, tol, timing)
+    runs = ([(ns, iso) for ns in NS_COUNTS for iso in (False, True)]
+            + [(NS_WIDE, False)])
+    if not timing:
+        # the MANY_FORMS entries at this size (at 256^3 phase2_many)
+        runs += [(ns, False) for ns in NS_MANY] + [(LW_MANY, True)]
+    for ns, iso in runs:
+        inp = ns_inputs(s, ns, iso)
+        for name, kern, plain, args in ns_kernel_calls(
+                s.grid, inp, sweeps_only=ns == NS_WIDE):
+            if ns not in NS_MANY or name in MANY_FORMS:
+                check_call(rec, name, kern, plain, args, s.grid, tol,
+                           timing)
+        if ns not in NS_MANY or not iso:
             trans_f_bits(inp, inp["sim"])
-            if not timing and ns == NS_COUNTS[-1]:
-                # B4 and B11 on the nwave + ns fields (no form of theirs
-                # depends on the scalars)
-                for name, kern, plain, args in (
-                        ("bc_fill", bvals.bc_fill, bvals.bc_fill_plain,
-                         (inp["U"], s.grid)),
-                        ("max_dti_hydro" + ("[isothermal]" if iso else ""),
-                         uk.max_dti_hydro, uk.max_dti_hydro_plain,
-                         (inp["U"], inp["sim"], s.grid))):
-                    check_call(rec, name, kern, plain, args, s.grid, tol,
-                               timing)
-            del inp
+        if not timing and (ns == NS_COUNTS[-1] or (ns, iso) == (LW_MANY,
+                                                               False)):
+            # B4 and B11 on the nwave + ns fields (no form of theirs
+            # depends on the scalars)
+            for name, kern, plain, args in (
+                    ("bc_fill", bvals.bc_fill, bvals.bc_fill_plain,
+                     (inp["U"], s.grid)),
+                    ("max_dti_hydro" + ("[isothermal]" if iso else ""),
+                     uk.max_dti_hydro, uk.max_dti_hydro_plain,
+                     (inp["U"], inp["sim"], s.grid))):
+                check_call(rec, name, kern, plain, args, s.grid, tol,
+                           timing)
+        del inp
     say(f"phase 2 {n}^3 {dtype}: the forms with {NS_COUNTS} scalars (each "
         f"gas) and B5 PLM Roe with {NS_WIDE} checked on the isph state with "
         "distinct scalars; transverse_correct[...+ns] bitwise its dF form"
-        + ("" if timing else f"; bc_fill and max_dti_hydro on the "
-           f"{NS_COUNTS[-1]}-scalar states"))
+        + ("" if timing else
+           f"; the forms with {NS_MANY} scalars (B5 at PLM and PPM), "
+           f"isothermal B5 and B12 with {LW_MANY}; bc_fill and "
+           f"max_dti_hydro on the {NS_COUNTS[-1]}- and {LW_MANY}-scalar "
+           "states"))
+    if timing:
+        phase2_many(rec, s, tol)
     for name, r in rec.items():
         t = (f" kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})"
@@ -1724,6 +1800,135 @@ def phase2(n, dtype, timing):
             f" x field max (bound {tol:.0e}), max abs {r['max_abs_err']:.3e}"
             f";{t}{b12}{shp}")
     return rec
+
+
+def many_calls(s, ns, iso):
+    """(name, wrapper, plain version, arguments) of the MANY_FORMS entries
+    with `ns` scalars of one gas on the isph state `s` (ns_state), yielded
+    one at a time with operands built from the kernels' own outputs and
+    dropped after use: the plain chain that ns_inputs builds holds some 24
+    state-sized tensors, which at 256^3 with 45 fields do not fit the card
+    beside a plain call.  B5 per axis; B13, B12 and B8 on each axis's PLM
+    Roe sweep states (eta as ns_inputs forms it); B7 on those states with
+    the dF sweeps' differences, then with the whole fluxes; B10 on B8's
+    fluxes, then on B12's differences, each with grav_source's sources."""
+    from atmospheric_athena_tpu_torch.ops import ctu_mid_kernels as mid
+    from atmospheric_athena_tpu_torch.ops import hydro_kernels as hk
+    U, sim = ns_state(s, ns, iso)
+    grid, (phic, phif) = s.grid, s.phi
+    simn = dataclasses.replace(sim, h_correction=False)
+    dtodx = {a: s.state.dt / grid.dx[a] for a in AXES}
+    q = {a: 0.5 * dtodx[a] for a in AXES}
+    keep = set(MANY_FORMS)
+    for a in AXES:
+        for (o, f) in SWEEP_FORMS.values():
+            sf = dataclasses.replace(sim, order=o, flux=f)
+            for w in ("sweep_lrflux", "sweep_lrflux_df"):
+                if f"{w}[{hk.form(sf)}]" in keep:
+                    yield (f"{w}[{hk.form(sf)}]", getattr(hk, w),
+                           getattr(hk, f"{w}_plain"),
+                           (U, phic, phif[a], dtodx[a], sf, a))
+
+    def states(a):
+        return hk.sweep_lrflux(U, phic, phif[a], dtodx[a], sim, a)[:2]
+    eta = [mid.hcorr_eta(*states(a), sim, a).contiguous() for a in AXES]
+    for a in AXES:
+        Ul, Ur = states(a)
+        for f in ("roe", "hllc", "hlle"):
+            sf = dataclasses.replace(sim, flux=f)
+            for w, p, args in (
+                    (hk.flux_pointwise, hk.flux_pointwise_plain,
+                     (Ul, Ur, eta[a] if f == "roe" else None, sf, a)),
+                    (hk.flux_sweep_df, hk.flux_sweep_df_plain,
+                     (Ul, Ur, dataclasses.replace(simn, flux=f), a)),
+                    (mid.flux_corrected, mid.flux_corrected_plain,
+                     (Ul, Ur, eta, sf, a, AXES))):
+                name = f"{w.__name__}[{hk.gas_form(sf, f)}]"
+                if name in keep:
+                    yield name, w, p, args
+        del Ul, Ur
+    if iso:
+        return                  # B7 and B10 take the adiabatic forms only
+    sw = {a: hk.sweep_lrflux_df(U, phic, phif[a], dtodx[a], sim, a)[2:]
+          for a in AXES}
+    FpID = {a: sw[a][0] for a in AXES}
+    G = mid.gcross(U, phic, phif, FpID, q, AXES)
+    for form in ("dF", "F"):
+        # the first pass's flux differences, or its whole fluxes
+        fl = ({a: sw[a][1] for a in AXES} if form == "dF" else
+              {a: hk.sweep_lrflux(U, phic, phif[a], dtodx[a], sim, a)[2]
+               for a in AXES})
+        for a in AXES:
+            Ul, Ur = states(a)
+            yield (f"transverse_correct[{hk.gas_form(sim, form)}]",
+                   mid.transverse_correct, mid.transverse_correct_plain,
+                   (Ul, Ur, fl, G, q, sim, a, AXES) if form == "dF" else
+                   (Ul, Ur, None, G, q, sim, a, AXES, fl))
+            del Ul, Ur
+        del fl
+        sw = {a: sw[a][:1] for a in AXES}
+    del sw, G
+    F2 = {a: mid.flux_corrected(*states(a), eta, sim, a, AXES)
+          for a in AXES}
+    Sg = mid.grav_source(U, FpID, F2, phic, phif, q, dtodx, AXES)
+    yield (f"final_update[{hk.gas_form(sim, 'F2')}]", mid.final_update,
+           mid.final_update_plain, (U, F2, Sg, dtodx, sim, grid, AXES))
+    del F2, Sg
+    b12 = {a: hk.flux_sweep_df(*states(a), simn, a) for a in AXES}
+    F2ID = {a: b12[a][1] for a in AXES}
+    Sg2 = mid.grav_source(U, FpID, F2ID, phic, phif, q, dtodx, AXES,
+                          Fp2IDr={a: b12[a][2] for a in AXES})
+    yield (f"final_update[{hk.gas_form(sim, 'dF2')}]", mid.final_update,
+           mid.final_update_plain,
+           (U, F2ID, Sg2, dtodx, sim, grid, AXES,
+            {a: b12[a][0] for a in AXES}))
+
+
+def phase2_many(rec, s, tol):
+    """The MANY_FORMS entries at the size of Simulation `s` (phase 2's
+    256^3 float32): each against its plain version and timed as check_call
+    times the NS_FORMS entries, on operands from many_calls; then the
+    scalar curve: B5-dF PLM and PPM and B12, Roe, at LW_NS, 32 and LW_MANY
+    scalars, each axis's ms per launch (burst_ms) beside its march
+    kernel's chunks, shared memory and blocks per SM
+    (hydro_kernels.march_info).  Returns {count: {entry: record}} of the
+    curve."""
+    import torch
+    from atmospheric_athena_tpu_torch.ops import hydro_kernels as hk
+    n = s.grid.Nx[0]
+    for ns, iso in [(ns, False) for ns in NS_MANY] + [(LW_MANY, True)]:
+        for name, kern, plain, args in many_calls(s, ns, iso):
+            check_call(rec, name, kern, plain, args, s.grid, tol, True)
+            del args
+            torch.cuda.empty_cache()
+    say(f"phase 2 {n}^3 float32: the forms with {NS_MANY} scalars and the "
+        f"isothermal ones with {LW_MANY} against their plain versions on "
+        "operands from the kernels (many_calls), plain version first")
+    curve = {}
+    for ns in (LW_NS, 32, LW_MANY):
+        U, sim = ns_state(s, ns, False)
+        phic, phif = s.phi
+        out = curve[ns] = {}
+        for w, o in (("sweep_lrflux_df", "2"), ("sweep_lrflux_df", "3"),
+                     ("flux_sweep_df", "2")):
+            sf = dataclasses.replace(sim, order=o)
+            name = f"{w}[{hk.form(sf)}]"
+            ms = []
+            for a in AXES:
+                args = (U, phic, phif[a], s.state.dt / s.grid.dx[a], sf, a)
+                if w == "flux_sweep_df":
+                    args = hk.sweep_lrflux(*args)[:2] + (sf, a)
+                ms.append(burst_ms(lambda: getattr(hk, w)(*args)))
+                del args
+            info = hk.march_info("sweep" if w.startswith("sweep") else
+                                 "fluxdf", sf, U.dtype, U.shape)
+            out[name] = dict(ms_xyz=ms, ms_per_launch=sum(ms) / 3, **info)
+            say(f"phase 2 scalar curve {n}^3 float32 {name}: ms per launch "
+                f"x, y, z {[round(x, 4) for x in ms]}, mean "
+                f"{sum(ms) / 3:.4f}; y/z march kernel {info}")
+        del U
+        torch.cuda.empty_cache()
+    return curve
 
 
 def nan_probe():
@@ -2331,22 +2536,26 @@ def lw_sim(n, dtype, nlim, ns=LW_NS, vflow=1.0, iso=False, distinct=False,
     return s
 
 
-def phase3_lw(n=64, ncyc=3):
-    """linear_wave at n^3 float64 with LW_NS distinct scalars, vflow 0 and
-    1, ncyc cycles on the card with the kernels against the same run with
-    the plain versions on the card (plain_on_card), on the middle-phase
-    route, on MID=0 and with the H-correction; then isothermal with 2
-    scalars on the middle-phase route: (time, dt) to rel 1e-12, the
-    interior state within 1e-10 of each field's max and l1_errors within
-    1e-10 of each field's max; the kernel run launches its path's forms,
-    the plain run none.  Returns the launch counts of each path's last
-    kernel run."""
+def phase3_lw(n=64, ncyc=3, ns=LW_NS):
+    """linear_wave at n^3 float64 with `ns` distinct scalars, ncyc cycles
+    on the card with the kernels against the same run with the plain
+    versions on the card (plain_on_card), on the middle-phase route, on
+    MID=0 and with the H-correction (lw_path); with LW_NS scalars at vflow
+    0 and 1, then isothermal with 2 scalars on the middle-phase route,
+    with more at vflow 1: (time, dt) to rel 1e-12, the interior state
+    within 1e-10 of each field's max and l1_errors within 1e-10 of each
+    field's max; the kernel run launches its path's forms, the plain run
+    none.  Returns the launch counts of each path's last kernel run."""
     import numpy as np
     import torch
     counts = {}
-    runs = [(path, vflow, LW_NS, False) for vflow in (0.0, 1.0)
-            for path in ("lw", "lw MID=0", "lw hcorr")]
-    runs.append(("lw iso", 1.0, 2, True))
+    routes = ("mid", "MID=0", "hcorr")
+    if ns == LW_NS:
+        runs = [(lw_path(ns, r), vflow, ns, False) for vflow in (0.0, 1.0)
+                for r in routes]
+        runs.append(("lw iso", 1.0, 2, True))
+    else:
+        runs = [(lw_path(ns, r), 1.0, ns, False) for r in routes]
     for path, vflow, ns, iso in runs:
         hc = path.endswith("hcorr")
         with path_env(path):
@@ -2399,8 +2608,9 @@ def phase3_lw(n=64, ncyc=3):
     return counts
 
 
-def phase4_lw(n=256):
-    """linear_wave at full width, LW_NS scalars, n^3 float32 through
+def phase4_lw(n=256, ns=LW_NS):
+    """linear_wave at full width, `ns` scalars (distinct fields, as
+    lw_sim's `distinct` makes them, beyond LW_NS), n^3 float32 through
     Simulation.from_par without a device argument: 5 cycles via
     Simulation.run on the middle-phase route, 1 on MID=0, 1 with the
     H-correction, and 1 CLI cycle; ms per cycle and zone-cycles/s, the
@@ -2412,11 +2622,13 @@ def phase4_lw(n=256):
     from atmospheric_athena_tpu_torch import __main__ as cli
     from atmospheric_athena_tpu_torch.integrators import ctu3d
     counts, out = {}, {}
-    for path, nlim in (("lw", 5), ("lw MID=0", 1), ("lw hcorr", 1)):
+    for route, nlim in (("mid", 5), ("MID=0", 1), ("hcorr", 1)):
+        path = lw_path(ns, route)
         torch.cuda.reset_peak_memory_stats()
         with path_env(path):
-            s = lw_sim(n, "float32", nlim, h_correction=path.endswith("hcorr"))
-            if s.device.type != "cuda" or s.sim.nscalars != LW_NS:
+            s = lw_sim(n, "float32", nlim, ns, distinct=ns != LW_NS,
+                       h_correction=route == "hcorr")
+            if s.device.type != "cuda" or s.sim.nscalars != ns:
                 raise AssertionError(f"linear_wave on {s.device}, {s.sim}")
             torch.cuda.synchronize()
             reset_counts()
@@ -2433,18 +2645,18 @@ def phase4_lw(n=256):
             rec = dict(step_ms=1e3 * r["wall"] / r["steps"],
                        zone_cycles_per_sec=r["zone_cycles_per_sec"],
                        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-            if path == "lw":
+            if route == "mid":
                 st, sim, grid = s.state, s.sim, s.grid
                 rec["hydro_ms"] = cuda_ms(lambda: ctu3d.step(
                     st, st.dt, sim, grid, s.problem, phi=s.phi), reps=10)
                 rec["host_reads_per_step"] = host_reads(s)
         out[path] = rec
-        say(f"phase 4 {n}^3 float32 linear_wave ({LW_NS} scalars, Roe, PLM"
-            f"{', H-correction' if path.endswith('hcorr') else ''}), {nlim} "
+        say(f"phase 4 {n}^3 float32 linear_wave ({ns} scalars, Roe, PLM"
+            f"{', H-correction' if route == 'hcorr' else ''}), {nlim} "
             f"cycles via Simulation.run, {path} path: step "
             f"{rec['step_ms']:.2f} ms, {rec['zone_cycles_per_sec']:.4e} "
             f"zone-cycles/s"
-            + ("" if path != "lw" else
+            + ("" if route != "mid" else
                f"; hydro step {rec['hydro_ms']:.3f} ms (CUDA events); host "
                f"reads in one step {rec['host_reads_per_step']}")
             + f"; peak device memory {rec['peak_gib']:.2f} GiB; all fields "
@@ -2454,13 +2666,14 @@ def phase4_lw(n=256):
     with tempfile.TemporaryDirectory() as tmp:
         deck = os.path.join(tmp, "athinput.linwave")
         with open(deck, "w") as f:
-            f.write(lw_deck(n, 1))
+            f.write(lw_deck(n, 1, ns))
         rc = cli.main(["-i", deck, "--problem", "linear_wave", "--dtype",
                        "float32"])
     if rc != 0:
         raise AssertionError(f"linear_wave CLI returned {rc}")
     torch.cuda.synchronize()
-    say(f"phase 4 {n}^3 float32 linear_wave: 1 CLI cycle done")
+    say(f"phase 4 {n}^3 float32 linear_wave ({ns} scalars): 1 CLI cycle "
+        "done")
     return counts, out
 
 
@@ -3000,6 +3213,36 @@ def sass_hydro(n=256):
     return out
 
 
+def march_occupancy(n=256):
+    """What the y/z march kernels of the run-time scalar forms take and
+    let run on the padded (n+8)^3 grid at LW_NS, 32 and LW_MANY scalars
+    (hydro_kernels.march_info: registers and local bytes per thread, the
+    scalar chunks, dynamic shared memory per block, blocks per SM from the
+    CUDA occupancy calculator): B5's dF and whole-flux forms at PLM and
+    PPM and B12, Roe, float32 and float64.  Returns {label: info}."""
+    import torch
+    from atmospheric_athena_tpu_torch.config import SimConfig
+    from atmospheric_athena_tpu_torch.ops import hydro_kernels as hk
+    out = {}
+    shape = (n + 8,) * 3
+    for dtype in (torch.float32, torch.float64):
+        for ns in (LW_NS, 32, LW_MANY):
+            for kernel, order, df in (("sweep", "2", True),
+                                      ("sweep", "2", False),
+                                      ("sweep", "3", True),
+                                      ("sweep", "3", False),
+                                      ("fluxdf", "2", True)):
+                sim = SimConfig(nscalars=ns, order=order)
+                name = ("flux_sweep_df" if kernel == "fluxdf" else
+                        "sweep_lrflux_df" if df else "sweep_lrflux")
+                label = (f"{name}[{hk.form(sim)}] "
+                         f"{'f32' if dtype == torch.float32 else 'f64'}")
+                out[label] = hk.march_info(kernel, sim, dtype, shape,
+                                           df=df)
+                say(f"phase 1 march kernel {label}: {out[label]}")
+    return out
+
+
 def sass_batch(n=256):
     """The static SASS instructions of the batch kernel's per-cell pass
     (the largest innermost loop of batch_kernel<float> in the shape the
@@ -3078,6 +3321,7 @@ def main():
             say(f"phase 1 ptxas {key[0]} ({key[1]}): {regs[key]}")
     sass = sass_batch()
     sass_h = sass_hydro()
+    march_occupancy()
     lap = Laps(t_all)
     lap("phases 0-1")
 
@@ -3102,6 +3346,7 @@ def main():
     phase3_turb()
     lap("phase 3 turb")
     p3.update(phase3_lw())
+    p3.update(phase3_lw(ns=LW_MANY))
     lap("phase 3 linear_wave")
     smr, _ = phase4_smr()
     counts, _ = phase4()
@@ -3111,6 +3356,8 @@ def main():
     counts.update(turb)
     lap("phase 4 turb")
     lw, _ = phase4_lw()
+    counts.update(lw)
+    lw, _ = phase4_lw(ns=LW_MANY)
     counts.update(lw)
     lap("phase 4 linear_wave")
 
@@ -3124,7 +3371,9 @@ def main():
              "sedov": 5, "sedov MID=0": 1, "sedov hcorr": 1, "ppm": 3,
              "ppm MID=0": 1, "sedov hlle": 5, "sedov hlle MID=0": 1,
              "sedov hlle hcorr": 1, "turb": 5, "turb MID=0": 1,
-             "turb hcorr": 1, "lw": 5, "lw MID=0": 1, "lw hcorr": 1}
+             "turb hcorr": 1, "lw": 5, "lw MID=0": 1, "lw hcorr": 1,
+             **{lw_path(LW_MANY, r): k for r, k in (("mid", 5), ("MID=0", 1),
+                                                    ("hcorr", 1))}}
     kernels = []
     for name, route, source, replaces in KERNELS:
         path = next((p for p in steps if counts[p][name] > 0), None)

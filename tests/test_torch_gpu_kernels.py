@@ -19,10 +19,10 @@ the plain run on the CPU (chip_smoke.phase3_forms); every isothermal form
 forms, B11) on the isph state without its energy, with and without a
 scalar, along the lines of 45, 100 and 300 cells too, and turb on the card
 against the plain versions on the card (chip_smoke.phase3_turb); the forms
-with 2, 3 and 8 distinct scalars (every form of B5, B13, B12, B8, B7 and
-B10, each gas; B5-dF bitwise its whole-flux form) and B3's inlet form, and
-linear_wave on the card against the plain versions on the card
-(chip_smoke.phase3_lw).  Needs a CUDA
+with 2, 3, 8, 33 and 40 distinct scalars (every form of B5, B13, B12, B8,
+B7 and B10, each gas; B5-dF bitwise its whole-flux form) and B3's inlet
+form, and linear_wave with 4 and 40 scalars on the card against the plain
+versions on the card (chip_smoke.phase3_lw).  Needs a CUDA
 device, nvcc and triton; skipped elsewhere.  This file imports no JAX,
 so on a machine without JAX run it as
 
@@ -508,11 +508,14 @@ def test_turb_card_vs_plain():
     assert counts["turb"]["flux_sweep_df[iso+roe]"] == 9
 
 
-@pytest.mark.parametrize("ns", [2, 3, 8], ids=["ns2", "ns3", "ns8"])
+@pytest.mark.parametrize("ns", [2, 3, 8, 33, 40],
+                         ids=["ns2", "ns3", "ns8", "ns33", "ns40"])
 def test_scalar_kernels(case, ns):
     """The run-time scalar forms on the isph state with `ns` distinct
     scalars, each gas, against their plain versions; the dF sweeps bitwise
-    their whole-flux sweeps, B7-F bitwise its dF form."""
+    their whole-flux sweeps, B7-F bitwise its dF form.  33 and 40 scalars
+    pass B5's and B12's march kernels in chunks (csrc/sweep.cuh
+    ScalarChunks)."""
     s, _, tol = case
     for iso in (False, True):
         inp = chip_smoke.ns_inputs(s, ns, iso)
@@ -534,9 +537,17 @@ def test_rad_batch_inlet_kernel(case):
     check(case, ["rad_batch", "rad_batch[inlet]"])
 
 
-def test_linear_wave_card_vs_plain():
-    """linear_wave with distinct scalars on each route (and isothermal with
-    two scalars) on the card against the plain versions on the card."""
+@pytest.mark.parametrize("ns", [chip_smoke.LW_NS, chip_smoke.LW_MANY],
+                         ids=["ns4", "ns40"])
+def test_linear_wave_card_vs_plain(ns):
+    """linear_wave with distinct scalars on each route (and, with four,
+    isothermal with two scalars) on the card against the plain versions on
+    the card: four scalars at 16^3, 40 at 32^3."""
     need_cuda()
-    counts = chip_smoke.phase3_lw(n=16, ncyc=2)
-    assert set(counts) == {"lw", "lw MID=0", "lw hcorr", "lw iso"}
+    if ns == chip_smoke.LW_NS:
+        counts = chip_smoke.phase3_lw(n=16, ncyc=2)
+        assert set(counts) == {"lw", "lw MID=0", "lw hcorr", "lw iso"}
+    else:
+        counts = chip_smoke.phase3_lw(n=32, ncyc=2, ns=ns)
+        assert set(counts) == set(chip_smoke.LW_MANY_PATHS)
+        assert counts["lw40"]["sweep_lrflux_df[roe+ns40]"] == 6

@@ -377,8 +377,8 @@ def test_cli_runs_testsedov(capsys):
 
 def test_solver_support():
     """The kernels take Roe, HLLC and HLLE, with any number of passive
-    scalars up to MAX_SCALARS; hlld, two_shock and MHD still raise, naming
-    the ROADMAP item."""
+    scalars; hlld, two_shock and MHD still raise, naming the ROADMAP
+    item."""
     for flux in FLUXES + ("hlle",):
         assert hydro_kernels.supported(TSim(flux=flux))
         for ns in (2, 3, 8):

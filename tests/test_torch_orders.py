@@ -338,8 +338,8 @@ def test_cli_selects_ppm_and_hlle(capsys):
 
 def test_kernel_forms_and_refusals():
     """The kernels take the five orders and three solvers, counted per form
-    ("ppm+hllc"), with any number of scalars up to MAX_SCALARS; the forms
-    the JAX kernels do not take raise naming their ROADMAP item."""
+    ("ppm+hllc"), with any number of scalars; the forms the JAX kernels
+    do not take raise naming their ROADMAP item."""
     assert hydro_kernels.form(TSim(order="3", flux="hllc")) == "ppm+hllc"
     assert hydro_kernels.form(TSim(order="3")) == "ppm"
     assert hydro_kernels.form(TSim(order="2", flux="hlle")) == "hlle"

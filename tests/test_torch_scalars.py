@@ -386,11 +386,13 @@ def test_linear_wave_init_matches_jax():
 
 
 def test_scalar_forms_and_limits():
-    """The kernels take 2 to MAX_SCALARS scalars in every order, solver and
-    gas, counted per form with the number of scalars ("roe+ns4",
-    "iso+ppm+hllc+ns2", "iso+dF2+ns3"); B5 and B12 in the default launch
-    shape from two scalars on; more than MAX_SCALARS are refused."""
-    for ns in (2, 3, 8, hydro_kernels.MAX_SCALARS):
+    """The kernels take any number of scalars from 2 on in every order,
+    solver and gas, counted per form with the number of scalars
+    ("roe+ns4", "iso+ppm+hllc+ns2", "iso+dF2+ns3", "roe+ns40"); B5 and B12
+    in the default launch shape from two scalars on; 33 and 40 scalars,
+    beyond the 32 the march kernels once held in one block, pass the
+    wrappers' checks."""
+    for ns in (2, 3, 8, 32, 33, 40):
         for eos in ("adiabatic", "isothermal"):
             for order in ("1", "2", "3", "2p", "3p"):
                 for flux in ("roe", "hlle", "hllc"):
@@ -408,11 +410,16 @@ def test_scalar_forms_and_limits():
         hydro_kernels.FLUXDF_SHAPES[:1]
     assert hydro_kernels.fluxdf_shapes(TSim(nscalars=1)) == \
         hydro_kernels.FLUXDF_SHAPES
-    too_many = TSim(nscalars=hydro_kernels.MAX_SCALARS + 1)
-    with pytest.raises(NotImplementedError, match="passive scalars"):
+    assert hydro_kernels.form(TSim(nscalars=40)) == "roe+ns40"
+    assert hydro_kernels.form(TSim(nscalars=33, order="3",
+                                   flux="hlle")) == "ppm+hlle+ns33"
+    assert hydro_kernels.gas_form(TSim(nscalars=40, eos="isothermal"),
+                                  "roe") == "iso+roe+ns40"
+    for ns in (33, 40):
+        many = TSim(nscalars=ns)
+        assert hydro_kernels.refusal(many) is None
         hydro_kernels._check_cuda_args(
-            too_many, torch.zeros(too_many.ncons, 4, 4, 4), (),
-            "sweep_lrflux")
+            many, torch.zeros(many.ncons, 4, 4, 4), (), "sweep_lrflux")
 
 
 def test_linear_wave_four_scalars_run_and_cli(capsys, tmp_path):
