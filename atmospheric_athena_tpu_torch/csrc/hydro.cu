@@ -121,7 +121,8 @@ int ath_flux_sweep_df_f64(ATH_FLUX_DF_ARGS) {
 int ath_march_info(int kernel, int f64, int nz, int ny, int nx, int axis,
                    int nscalars, int iso, int flux, int order, int df,
                    int* info) {
-  const int s = 32, t = 128, r = 1;       // ATH_HYDRO_SHAPE0
+  // ATH_HYDRO_SHAPE0, or for B5 at the PPM orders ATH_HYDRO_SHAPE_PPM
+  const int s = kernel == 0 && ath::is_ppm(order) ? 64 : 32, t = 128, r = 1;
   if (axis != 1 && axis != 2) return (int)cudaErrorInvalidValue;
   const double c0 = 1.0, c1 = 1.0;
   if (kernel == 0) {

@@ -155,6 +155,7 @@ __device__ __forceinline__ void prim_to_cons(const T* W, T* U,
 template <typename T> struct PrimEig {
   T ev[5];
   T asq, r10, r14, l01, l41, l14, na;
+  PrimEig() = default;
   __device__ __forceinline__ PrimEig(T d, T v1, T rho_a2) {
     asq = rho_a2 / d;
     const T a = sqrt(asq);
@@ -165,6 +166,21 @@ template <typename T> struct PrimEig {
     l01 = T(-0.5) * d / a;
     l41 = T(0.5) * d / a;
     l14 = T(-1) / asq;
+  }
+  // The entries kept between a cell's PPM slopes and its reconstruction
+  // (load_eig): all but ev[1..3], which the cell's Vx gives
+  static constexpr int kCarry = 9;
+  template <class S> __device__ __forceinline__ void save(const S& s) const {
+    s[0] = ev[0]; s[1] = ev[4]; s[2] = asq; s[3] = r10; s[4] = r14;
+    s[5] = l01; s[6] = l41; s[7] = l14; s[8] = na;
+  }
+  template <class S>
+  __device__ __forceinline__ static PrimEig load(const S& s, T v1, T) {
+    PrimEig E;
+    E.ev[0] = s[0]; E.ev[1] = v1; E.ev[2] = v1; E.ev[3] = v1; E.ev[4] = s[1];
+    E.asq = s[2]; E.r10 = s[3]; E.r14 = s[4]; E.l01 = s[5]; E.l41 = s[6];
+    E.l14 = s[7]; E.na = s[8];
+    return E;
   }
   // (L v)_n for one row
   __device__ __forceinline__ T lrow(int n, const T* v) const {
@@ -207,12 +223,25 @@ template <typename T> struct PrimEig {
 template <typename T> struct PrimEigIso {
   T ev[4];
   T r10, r13, l01, l31;
+  PrimEigIso() = default;
   __device__ __forceinline__ PrimEigIso(T d, T v1, T cs) {
     ev[0] = v1 - cs; ev[1] = v1; ev[2] = v1; ev[3] = v1 + cs;
     r10 = -cs / d;
     r13 = cs / d;
     l01 = T(-0.5) * d / cs;
     l31 = T(0.5) * d / cs;
+  }
+  // the divisions; the eigenvalues come again from Vx and cs
+  static constexpr int kCarry = 4;
+  template <class S> __device__ __forceinline__ void save(const S& s) const {
+    s[0] = r10; s[1] = r13; s[2] = l01; s[3] = l31;
+  }
+  template <class S>
+  __device__ __forceinline__ static PrimEigIso load(const S& s, T v1, T cs) {
+    PrimEigIso E;
+    E.ev[0] = v1 - cs; E.ev[1] = v1; E.ev[2] = v1; E.ev[3] = v1 + cs;
+    E.r10 = s[0]; E.r13 = s[1]; E.l01 = s[2]; E.l31 = s[3];
+    return E;
   }
   __device__ __forceinline__ T lrow(int n, const T* v) const {
     switch (n) {
@@ -254,6 +283,29 @@ __device__ __forceinline__ PrimEigOf<T, ISO> prim_eig(const T* W,
     return PrimEigIso<T>(W[0], W[1], e.cs());
   else
     return PrimEig<T>(W[0], W[1], e.gamma() * W[4]);
+}
+
+// Strided slots of one thread in shared memory: slot k at p[k * stride]
+// (a march kernel's rows of blockDim entries, a tile kernel's planes)
+template <typename T> struct Slots {
+  T* p;
+  int stride;
+  __device__ __forceinline__ T& operator[](int k) const {
+    return p[k * stride];
+  }
+  __device__ __forceinline__ Slots at(int k) const {
+    return Slots{p + k * stride, stride};
+  }
+};
+
+// A cell's eigensystem carried from its PPM slopes (computed as the cell
+// enters the window) to its reconstruction: the cell's Vx (v1) and the
+// entries that cost a sqrt or a division (PrimEigOf::kCarry slots of s);
+// the same values prim_eig forms, bit for bit.
+template <typename T, bool ISO>
+__device__ __forceinline__ PrimEigOf<T, ISO> load_eig(const Slots<T>& s,
+                                                      T v1, const Eos<T>& e) {
+  return PrimEigOf<T, ISO>::load(s, v1, ISO ? e.cs() : T(0));
 }
 
 // Monotonized slopes dWmn of ONE cell from its primitive stencil (Wm, Wc,
@@ -313,13 +365,28 @@ __device__ __forceinline__ void limited_slopes(const T* Wm, const T* Wc,
 }
 
 // The slopes of a cell entering the PPM window: limited_slopes with the
-// cell's own eigensystem (unused, and so not computed, without CHAR).
+// cell's own eigensystem, which it returns for the cell's reconstruction
+// (without CHAR the slopes do not read it, and a caller that takes it
+// from prim_eig at the reconstruction leaves it uncomputed here).
 template <typename T, int NS, bool ISO, bool CHAR>
-__device__ __forceinline__ void ppm_slopes(const T* Wm, const T* Wc,
-                                           const T* Wp, const Eos<T>& e,
-                                           T* dWmn) {
+__device__ __forceinline__ PrimEigOf<T, ISO> ppm_slopes(const T* Wm,
+                                                        const T* Wc,
+                                                        const T* Wp,
+                                                        const Eos<T>& e,
+                                                        T* dWmn) {
   const PrimEigOf<T, ISO> E = prim_eig<T, ISO>(Wc, e);
   limited_slopes<T, NS, ISO, CHAR>(Wm, Wc, Wp, E, dWmn);
+  return E;
+}
+
+// The parabola's value at the interface between cells i-1 and i (Wim1h
+// of cell i, CW eqn 1.6; lr_states_ppm.c step 14) from their primitives
+// (wm, wc) and limited slopes (sm, sc): the right value of cell i-1 and
+// the left value of cell i, formed once per interface.  The division is
+// an IEEE division by 6, as the plain version's.
+template <typename T>
+__device__ __forceinline__ T ppm_iface(T wm, T wc, T sm, T sc) {
+  return T(0.5) * (wc + wm) - (sc - sm) / T(6);
 }
 
 // PLM (order 2 with CHAR, 2p without) + CTU tracing of ONE cell from its
@@ -435,26 +502,25 @@ __device__ __forceinline__ void recon3_cell(const T* Wm, const T* Wc,
 
 // PPM + CTU tracing of ONE cell (ppm() of ops/reconstruct.py, orders 3 and
 // 3p: the limiting lies in the slopes) from the primitives of cells i-1, i,
-// i+1 (Wm, Wc, Wp) and their slopes dWmn (sm, sc, sp, from ppm_slopes):
-// the parabola's interface values (CW eqn 1.6), its monotonization (CW eqn
-// 1.10) and the neighbour clamps, then the tracing of Roe's branch (the
-// parabola integrals over the extreme wave fans and the subtraction of the
-// waves that do not reach the interface) or of the HLL family's.
+// i+1 (Wm, Wc, Wp), the parabola's values at the cell's left and right
+// interfaces (lvi, rvi: ppm_iface, Wim1h of cells i and i+1) and the
+// cell's eigensystem E: the parabola's monotonization (CW eqn 1.10) and the
+// neighbour clamps, then the tracing of Roe's branch (the parabola
+// integrals over the extreme wave fans and the subtraction of the waves
+// that do not reach the interface) or of the HLL family's.
 template <typename T, int NS, bool ISO, int FLUX>
 __device__ __forceinline__ void ppm_cell(const T* Wm, const T* Wc,
-                                         const T* Wp, const T* sm,
-                                         const T* sc, const T* sp, T dtodx,
-                                         const Eos<T>& e, T* Wminus,
-                                         T* Wplus) {
+                                         const T* Wp, const T* lvi,
+                                         const T* rvi,
+                                         const PrimEigOf<T, ISO>& E,
+                                         T dtodx, T* Wminus, T* Wplus) {
   constexpr int NW = nwave(ISO), NV = NW + NS;
   const T F43 = T(4.0 / 3.0);
   T Wlv[NV], Wrv[NV], dW[NV], W6[NV];
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
-    // the parabola's left and right interface values: Wim1h of cells i and
-    // i+1
-    const T lv = T(0.5) * (Wc[k] + Wm[k]) - (sc[k] - sm[k]) / T(6);
-    const T rv = T(0.5) * (Wp[k] + Wc[k]) - (sp[k] - sc[k]) / T(6);
+    const T lv = lvi[k];
+    const T rv = rvi[k];
     const T qa = (rv - Wc[k]) * (Wc[k] - lv);
     const T qb = rv - lv;
     const T qc = T(6) * (Wc[k] - T(0.5) * (lv + rv));
@@ -472,7 +538,6 @@ __device__ __forceinline__ void ppm_cell(const T* Wm, const T* Wc,
     dW[k] = r2 - l2;
     W6[k] = T(6) * (Wc[k] - T(0.5) * (l2 + r2));
   }
-  const PrimEigOf<T, ISO> E = prim_eig<T, ISO>(Wc, e);
 
   if constexpr (FLUX != kRoe) {
     // HLL-family tracing: subtract each wave moving toward the interface;
@@ -620,16 +685,14 @@ __device__ __forceinline__ void recon3_scalar(T wm, T wc, T wp, T dtodx,
   }
 }
 
-// A scalar's PPM states from (wm, wc, wp) and their slopes (sm, sc, sp):
-// ppm_cell's scalar entry
+// A scalar's PPM states from (wm, wc, wp) and the parabola's values at the
+// cell's interfaces (lv, rv: ppm_iface): ppm_cell's scalar entry
 template <typename T, int FLUX>
-__device__ __forceinline__ void ppm_scalar(T wm, T wc, T wp, T sm, T sc,
-                                           T sp, T dtodx,
+__device__ __forceinline__ void ppm_scalar(T wm, T wc, T wp, T lv, T rv,
+                                           T dtodx,
                                            const ScalarTrace<T>& tr,
                                            T& wminus, T& wplus) {
   const T F43 = T(4.0 / 3.0);
-  const T lv = T(0.5) * (wc + wm) - (sc - sm) / T(6);
-  const T rv = T(0.5) * (wp + wc) - (sp - sc) / T(6);
   const T qa = (rv - wc) * (wc - lv);
   const T qb = rv - lv;
   const T qc = T(6) * (wc - T(0.5) * (lv + rv));

@@ -20,31 +20,40 @@
 // without FMA contraction) and an interface's Riemann solve (two or three
 // sqrt and several divides) take about 1300-1600 SASS instructions per
 // interface in float32 for 26-27 words of memory traffic per cell; PPM adds
-// a second slope-and-eigensystem pass per cell, the parabola and its longer
+// a slope pass per cell, the parabola's interface values and its longer
 // tracing.  The TPU kernel's one-thread-per-interface stencil redid that
 // work 2-3 times per interface.  Here each cell is converted to primitives,
-// limited and reconstructed once and each interface is solved once; only
-// the halo of a segment or tile repeats work:
+// limited and reconstructed once, its eigensystem formed once, each
+// interface's parabola value formed once and each interface solved once;
+// only the halo of a segment or tile repeats work:
 //
 //   - y and z sweeps (the march kernels): a thread owns one line, a fixed
 //     (z, x) or (y, x), and walks a segment of S interfaces along it, with
 //     the 32 lanes of a warp on 32 neighbouring x, so every load and store
 //     is coalesced and each cell is read once per segment.  A register
-//     window keeps, for the three-cell orders (donor cell, PLM), the
-//     primitives of cells c-1, c, c+1, and for PPM those of c-1 .. c+2 and
-//     the limited slopes of c-1, c, c+1 (each computed once, when its cell
-//     enters the window); besides, the Wplus of cell c-1 and the previous
-//     phic.  Per new cell: one cons_to_prim, (PPM) one ppm_slopes, one
-//     reconstruction and one solve.  The next cell's loads are issued an
-//     iteration ahead, so their latency hides behind the arithmetic.  The
-//     dF forms keep F(f) in registers until F(f+1) is formed.  Halo per
-//     segment: 4 conversions and 2 reconstructions (PPM: 6 conversions, 4
-//     slopes, 2 parabolas) and (dF form) one solve beyond the segment's own.
+//     window keeps the primitives of cells c-1, c, c+1 (the three-cell
+//     orders, donor cell and PLM) or c-1 .. c+2 (PPM), the Wplus of cell
+//     c-1 and the previous phic.  PPM's window beyond them, the slope of
+//     cell c and the parabola's value at interface c of each field and
+//     (characteristic limiting) the eigensystems of cells c and c+1, lies in
+//     dynamic shared memory, out of the registers, which set the blocks per
+//     SM (MarchPlan; in registers with run-time scalars, whose windows take
+//     the shared memory).  Per new cell: one cons_to_prim, (PPM) one
+//     ppm_slopes, which forms the cell's eigensystem for its reconstruction
+//     an iteration later, and one ppm_iface, whose value both cells of the
+//     interface read, one reconstruction and one solve.  The next cell's
+//     loads are issued an iteration ahead, so their latency hides behind
+//     the arithmetic.  The dF forms keep F(f) (PPM: in shared memory) until
+//     F(f+1) is formed.  Halo per segment: 4 conversions and 2
+//     reconstructions (PPM: 6 conversions, 4 slopes, 3 interface values,
+//     2 parabolas) and (dF form) one solve beyond the segment's own.
 //   - x sweep (the tile kernels): lines along x are contiguous, so a block
 //     stages R rows of a tile of up to T - 4 interfaces (PPM: T - 6) in
 //     shared memory: one thread per cell converts it (coalesced loads), (PPM)
-//     one per cell limits its slopes, then one per cell reconstructs it
-//     into shared Wminus/Wplus, then one per interface solves it; the dF
+//     one per cell limits its slopes and keeps its eigensystem, one per
+//     interface forms the parabola's value there, then one per cell
+//     reconstructs it into shared Wminus/Wplus, then one per interface
+//     solves it; the dF
 //     forms put F in shared memory and difference the neighbour's slot.  The
 //     row is cut into equal tiles (a 264-cell row into three of 88 at T =
 //     128), so few lanes idle; the potentials are loaded before the first
@@ -60,23 +69,25 @@
 //
 //   - march kernels: per interface, a loop over the scalars of the block's
 //     chunk; scalar s's window (its primitives of cells f-1, f, PPM f+1,
-//     PPM its slopes of f-1, f, its Wplus of cell f-1 and, dF form, its
-//     flux at f-1) lives in dynamic shared memory, march_slots(ORDER)
-//     values per scalar and thread, so the registers hold the wave window
-//     alone.  The scalars are cut into equal chunks (ScalarChunks) of at
-//     most chunk_cap: as many windows as leave the kernel the blocks per SM
-//     that its registers allow (march_info reports it), one launch per
-//     chunk, the chunk's scalars s0 .. s1-1 kernel parameters
-//     (so they take no register).  Each launch marches the waves for its
-//     chunk's scalars, and only chunk 0's stores the wave outputs.  So the
+//     PPM its slope of f and the parabola's value at f, its Wplus of cell
+//     f-1 and, dF form, its flux at f-1) lives in dynamic shared memory,
+//     march_slots(ORDER) values per scalar and thread, so the registers
+//     hold the wave window alone.  The scalars are cut into equal chunks
+//     (ScalarChunks) of at most chunk_cap: as many windows as leave the
+//     kernel the blocks per SM that its registers allow (march_info
+//     reports it), one launch per chunk, the chunk's scalars s0 .. s1-1
+//     kernel parameters (so they take no register).  Each launch marches
+//     the waves for its chunk's scalars, and only chunk 0's stores the
+//     wave outputs.  So the
 //     shared memory per block is bounded whatever the count; a count that
 //     fits one chunk runs as one launch, as before the chunks, and a count
 //     above it solves each interface's waves once per chunk: at 32 scalars
 //     that is cheaper than the block or two per SM that all the windows at
 //     once would leave;
 //   - tile kernels: after the wave fields, each scalar passes through one
-//     more plane of each kind (primitives, PPM slopes, Wminus, Wplus; the
-//     fluxes in the first), the thread keeping its cell's 1/d and trace
+//     more plane of each kind (primitives, PPM slopes and interface values,
+//     Wminus, Wplus; the fluxes in the first), the thread keeping its cell's
+//     1/d and trace
 //     and its interface's solve in registers between the scalars.
 //
 // The launch grid carries the line coordinates (blockIdx, threadIdx): no
@@ -97,9 +108,12 @@ namespace ath {
 // the launch shapes built, X(S, T, R): S interfaces per segment of the y
 // and z sweeps; at most T threads per row and R rows per block of the x
 // sweep (hydro_kernels.SWEEP_SHAPES, FLUXDF_SHAPES; the first is the
-// default and the only shape of B5 at orders other than 2)
+// default and the only shape of B5 at orders 1 and 2p; B5 at PPM orders
+// has its own, PPM_SHAPE: a segment of 64 halves the halo of its wider
+// stencil, 6 conversions, 4 slopes and 3 interface values per segment)
 #define ATH_HYDRO_SHAPES(X) X(32, 128, 1) X(64, 320, 1)
 #define ATH_HYDRO_SHAPE0(X) X(32, 128, 1)
+#define ATH_HYDRO_SHAPE_PPM(X) X(64, 128, 1)
 
 // block of the march kernels: 32 x by kMarchRows lines
 constexpr int kMarchRows = 4;
@@ -184,10 +198,90 @@ template <typename T> struct ScalarSlots {
 };
 
 // slots of a B5 march kernel's scalar window: the primitives of cells f-1,
-// f (PPM also f+1) and (PPM) the slopes of f-1, f, then the Wplus of cell
-// f-1 and the flux at f-1 (dF form)
+// f (PPM also f+1), (PPM) the slope of cell f and the parabola's value at
+// interface f, then the Wplus of cell f-1 and the flux at f-1 (dF form)
 __host__ __device__ constexpr int march_slots(int order) {
   return is_ppm(order) ? 7 : 4;
+}
+
+// Where a march kernel keeps its PPM window beyond the primitives of its
+// four cells, and what it asks of the compiler (each choice measured on
+// the H100 against the others, PERF.md §6):
+//   - NS = 0, 1 (shared): the slope of cell f and the parabola's value at
+//     interface f of each wave field, and (CHAR) the eigensystems of cells
+//     f and f+1, carried from a cell's slopes to its reconstruction an
+//     interface later in two slot sets that alternate with the parity of
+//     f; the dF form also its F(f-1); the characteristic dF form of
+//     adiabatic gas in float32 (tight) also the Wplus of cell f-1, and it
+//     asks for kTightBlocks blocks per SM, 96 registers (in float64 that
+//     would spill a kilobyte per thread; at order 3p, or for isothermal
+//     gas, or in the whole-flux form it was slower on the card);
+//   - NS = kNsRun: the same window in registers, since its shared memory
+//     holds the scalars' windows, whose chunks a wave window there would
+//     shorten (a second chunk at 16 scalars).
+constexpr int kTightBlocks = 5;
+template <typename T, int ORDER, int NS, bool ISO, bool DF> struct MarchPlan {
+  static constexpr bool shared = is_ppm(ORDER) && NS >= 0;
+  static constexpr bool fprev = shared && DF;
+  static constexpr bool tight =
+      fprev && is_char(ORDER) && !ISO && std::is_same_v<T, float>;
+  // the window's slots in shared memory, nv wave fields
+  __host__ __device__ static constexpr int slots(int nv) {
+    constexpr int C = PrimEigOf<T, ISO>::kCarry;
+    return shared ? 2 * nv + (is_char(ORDER) ? 2 * C : 0) +
+                        (fprev ? nv : 0) + (tight ? nv : 0)
+                  : 0;
+  }
+};
+
+template <typename T, bool ISO, int NV, bool SHARED> struct PpmWindow;
+
+// the window in shared memory, rows of blockDim entries as ScalarSlots
+template <typename T, bool ISO, int NV> struct PpmWindow<T, ISO, NV, true> {
+  static constexpr int C = PrimEigOf<T, ISO>::kCarry;
+  Slots<T> s, iv, eig;
+  __device__ __forceinline__ PpmWindow(T* mine)
+      : s{mine, 32 * kMarchRows},
+        iv{mine + NV * 32 * kMarchRows, 32 * kMarchRows},
+        eig{mine + 2 * NV * 32 * kMarchRows, 32 * kMarchRows} {}
+  __device__ __forceinline__ T& slope(int k) const { return s[k]; }
+  __device__ __forceinline__ T& ival(int k) const { return iv[k]; }
+  // the eigensystem of cell f0 + j (slot set j & 1)
+  __device__ __forceinline__ PrimEigOf<T, ISO> load_eig(
+      int j, T v1, const Eos<T>& e) const {
+    return ath::load_eig<T, ISO>(eig.at((j & 1) * C), v1, e);
+  }
+  __device__ __forceinline__ void save_eig(
+      int j, const PrimEigOf<T, ISO>& E) const {
+    E.save(eig.at((j & 1) * C));
+  }
+};
+
+// the window in registers (its eigensystem saved after the one loaded)
+template <typename T, bool ISO, int NV> struct PpmWindow<T, ISO, NV, false> {
+  T s[NV], iv[NV];
+  PrimEigOf<T, ISO> E;
+  __device__ __forceinline__ PpmWindow(T*) {}
+  __device__ __forceinline__ T& slope(int k) { return s[k]; }
+  __device__ __forceinline__ T& ival(int k) { return iv[k]; }
+  __device__ __forceinline__ PrimEigOf<T, ISO> load_eig(
+      int, T, const Eos<T>&) const {
+    return E;
+  }
+  __device__ __forceinline__ void save_eig(int, const PrimEigOf<T, ISO>& x) {
+    E = x;
+  }
+};
+
+// The trace of a cell that the scalars' reconstruction reads, from the
+// cell's eigensystem E and its Vx (trace_for)
+template <typename T, bool ISO, int FLUX>
+__device__ __forceinline__ ScalarTrace<T> trace_of(
+    const PrimEigOf<T, ISO>& E, T vx) {
+  if constexpr (FLUX == kRoe)
+    return ScalarTrace<T>{vx, E.ev[0], E.ev[nwave(ISO) - 1]};
+  else
+    return ScalarTrace<T>{T(0), T(0), T(0)};
 }
 
 // The most scalars per chunk of march kernel `kernel` with `slot_bytes`
@@ -294,22 +388,22 @@ struct TileRow {
   }
 };
 
-// B5 along y (axis 1) or z (axis 2).  F: the whole flux (DF = false) or
-// the density flux F_ID (DF = true); dF: the flux difference (DF only).
-// NS = kNsRun: scalars s0 .. s1-1, one chunk (ScalarChunks; the launch of
-// chunk 0, s0 = 0, also stores the wave outputs).
+// B5 along y (axis 1) or z (axis 2), the body of sweep_march_kernel.  F:
+// the whole flux (DF = false) or the density flux F_ID (DF = true); dF: the
+// flux difference (DF only).  NS = kNsRun: scalars s0 .. s1-1, one chunk
+// (ScalarChunks; the launch of chunk 0, s0 = 0, also stores the wave
+// outputs).
 template <typename T, int NS, bool ISO, int FLUX, int ORDER, bool DF, int S>
-__global__ void __launch_bounds__(32 * kMarchRows)
-    sweep_march_kernel(const T* __restrict__ U, const T* __restrict__ phic,
-                       const T* __restrict__ phif,
-                       const T* __restrict__ dtodx_p, T* __restrict__ Ul,
-                       T* __restrict__ Ur, T* __restrict__ F,
-                       T* __restrict__ dF, int NZ, int NY, int NX, int axis,
-                       Eos<T> e, int s0, int s1) {
+__device__ __forceinline__ void sweep_march(
+    const T* __restrict__ U, const T* __restrict__ phic,
+    const T* __restrict__ phif, const T* __restrict__ dtodx_p,
+    T* __restrict__ Ul, T* __restrict__ Ur, T* __restrict__ F,
+    T* __restrict__ dF, int NZ, int NY, int NX, int axis, Eos<T> e, int s0,
+    int s1) {
   constexpr int NF = ns_fixed(NS);     // the scalars in the wave arrays
   constexpr int NW = nwave(ISO), NV = NW + NF;
-  constexpr bool PPM = is_ppm(ORDER);
-  constexpr int NP = PPM ? NV : 1;     // the PPM window's extra arrays
+  constexpr bool PPM = is_ppm(ORDER), CH = is_char(ORDER);
+  constexpr int NP = PPM ? NV : 1;     // the PPM window's fourth cell
   const MarchLine L(NZ, NY, NX, axis, S);
   if (!L.ok) return;
   const long long ncell = (long long)NZ * NY * NX;
@@ -319,15 +413,29 @@ __global__ void __launch_bounds__(32 * kMarchRows)
   const bool waves = NS >= 0 || s0 == 0;   // this launch stores the waves
 
   // the window at interface f: primitives of cells f-1, f, f+1 (Wa, Wb,
-  // Wc), for PPM also of f+2 (Wd) and the slopes of f-1, f, f+1 (sa, sb,
-  // sc); the Wplus of cell f-1 (Wl); the conserved state of the next cell
-  // (Un) and the potentials at f (pf_n, pc_n) are loaded an iteration
-  // before their use, so that their latency hides behind a reconstruction
-  // and a solve
+  // Wc), for PPM also of f+2 (Wd); the Wplus of cell f-1 (Wl); the
+  // conserved state of the next cell (Un) and the potentials at f (pf_n,
+  // pc_n) are loaded an iteration before their use, so that their latency
+  // hides behind a reconstruction and a solve.  PPM keeps the rest of its
+  // window in a PpmWindow (where, MarchPlan says): the slope of cell f and
+  // the parabola's value at interface f, each formed once, when cell f+1
+  // enters the window, and (CHAR) the eigensystem of cell f, formed with
+  // its slopes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const mine = reinterpret_cast<T*>(smem_raw) + threadIdx.y * 32 +
+                  threadIdx.x;
+  using Plan = MarchPlan<T, ORDER, NS, ISO, DF>;
+  constexpr bool FPS = Plan::fprev, WLS = Plan::tight;
+  constexpr int R = 32 * kMarchRows;       // a slot's row
+  // the shared slots: F(f-1), the Wplus of cell f-1, the window
+  const Slots<T> fps{mine, R};
+  const Slots<T> wls{mine + (FPS ? NV : 0) * R, R};
+  PpmWindow<T, ISO, NV, Plan::shared> pw(mine +
+                                         ((FPS ? NV : 0) + (WLS ? NV : 0)) * R);
   LinePos ahead(L.base, L.stride, L.n, L.f0 - (PPM ? 3 : 2));
   LinePos at(L.base, L.stride, L.n, L.f0 - 1);      // cell f-1
   T Wa[NV], Wb[NV], Wc[NV], Wl[NV], Wr[NV], Un[NV];
-  T Wd[NP], sa[NP], sb[NP], sc[NP];
+  T Wd[NP];
   load_prim<T, NF, ISO>(U, ncell, ahead.off, pm, e, Wa);
   ahead.step();
   load_prim<T, NF, ISO>(U, ncell, ahead.off, pm, e, Wb);
@@ -335,32 +443,51 @@ __global__ void __launch_bounds__(32 * kMarchRows)
   load_prim<T, NF, ISO>(U, ncell, ahead.off, pm, e, Wc);
   ahead.step();
   if constexpr (PPM) {
-    // cells f0-3 .. f0+1: the slopes of f0-2, f0-1, f0 and the Wplus of
-    // cell f0-1
-    constexpr bool CH = is_char(ORDER);
+    // cells f0-3 .. f0+1: the slopes of cells f0-2, f0-1 and f0, the
+    // parabola's values at interfaces f0-1 and f0, the Wplus of cell f0-1
     load_prim<T, NF, ISO>(U, ncell, ahead.off, pm, e, Wd);
     ahead.step();
+    T sa[NV], sb[NV], lv[NV], rv[NV];
     ppm_slopes<T, NF, ISO, CH>(Wa, Wb, Wc, e, sa);
-    ppm_slopes<T, NF, ISO, CH>(Wb, Wc, Wd, e, sb);
+    const PrimEigOf<T, ISO> Eb = ppm_slopes<T, NF, ISO, CH>(Wb, Wc, Wd, e,
+                                                            sb);
+#pragma unroll
+    for (int k = 0; k < NV; ++k) lv[k] = ppm_iface(Wb[k], Wc[k], sa[k], sb[k]);
     copy<NV>(Wa, Wb);
     copy<NV>(Wb, Wc);
     copy<NV>(Wc, Wd);
     load_prim<T, NF, ISO>(U, ncell, ahead.off, pm, e, Wd);
     ahead.step();
-    ppm_slopes<T, NF, ISO, CH>(Wb, Wc, Wd, e, sc);
-    ppm_cell<T, NF, ISO, FLUX>(Wa, Wb, Wc, sa, sb, sc, dtodx, e, Wr, Wl);
-    copy<NV>(sa, sb);
-    copy<NV>(sb, sc);
+    const PrimEigOf<T, ISO> Ec = ppm_slopes<T, NF, ISO, CH>(Wb, Wc, Wd, e,
+                                                            sa);
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      rv[k] = ppm_iface(Wb[k], Wc[k], sb[k], sa[k]);
+      pw.slope(k) = sa[k];
+      pw.ival(k) = rv[k];
+    }
+    PrimEigOf<T, ISO> E;
+    if constexpr (CH) {
+      E = Eb;
+      pw.save_eig(0, Ec);
+    } else {
+      E = prim_eig<T, ISO>(Wb, e);
+    }
+    ppm_cell<T, NF, ISO, FLUX>(Wa, Wb, Wc, lv, rv, E, dtodx, Wr, Wl);
+    if constexpr (WLS) {
+#pragma unroll
+      for (int k = 0; k < NV; ++k) wls[k] = Wl[k];
+    }
   } else {
     recon3_cell<T, NF, ISO, FLUX, ORDER>(Wa, Wb, Wc, dtodx, e, Wr, Wl);
   }
   // NS = kNsRun: the windows of the chunk's scalars at interface f0
   // (cells f0-2 .. f0, PPM f0-3 .. f0+1, each scalar's Wplus of cell
-  // f0-1), scalar s in slots sw(s - s0, k)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const ScalarSlots<T> sw{reinterpret_cast<T*>(smem_raw) +
-                              threadIdx.y * 32 + threadIdx.x,
-                          march_slots(ORDER)};
+  // f0-1), scalar s in slots sw(s - s0, k), the thread's whole shared
+  // memory (its PPM window lies in registers)
+  static_assert(NS >= 0 || Plan::slots(NV) == 0,
+                "the scalars' windows hold the shared memory alone");
+  const ScalarSlots<T> sw{mine, march_slots(ORDER)};
   constexpr int KP = march_slots(ORDER) - 2, KF = KP + 1;
   if constexpr (NS < 0) {
     constexpr int NC = PPM ? 5 : 3;
@@ -384,12 +511,14 @@ __global__ void __launch_bounds__(32 * kMarchRows)
         const T sa = scalar_slope(w[0], w[1], w[2]);
         const T sb = scalar_slope(w[1], w[2], w[3]);
         const T sc = scalar_slope(w[2], w[3], w[4]);
-        ppm_scalar<T, FLUX>(w[1], w[2], w[3], sa, sb, sc, dtodx, tr, wm, wp);
+        const T rv = ppm_iface(w[2], w[3], sb, sc);
+        ppm_scalar<T, FLUX>(w[1], w[2], w[3], ppm_iface(w[1], w[2], sa, sb),
+                            rv, dtodx, tr, wm, wp);
         sw(i, 0) = w[2];
         sw(i, 1) = w[3];
         sw(i, 2) = w[4];
-        sw(i, 3) = sb;
-        sw(i, 4) = sc;
+        sw(i, 3) = sc;
+        sw(i, 4) = rv;
       } else {
         recon3_scalar<T, FLUX, ORDER>(w[0], w[1], w[2], dtodx, tr, wm, wp);
         sw(i, 0) = w[1];
@@ -430,11 +559,29 @@ __global__ void __launch_bounds__(32 * kMarchRows)
     // cell f: Wminus is interface f's right state, Wplus interface f+1's
     // left
     T Wp[NV];
+    ScalarTrace<T> trp;     // PPM, NS = kNsRun: cell f's trace
     if constexpr (PPM) {
-      ppm_slopes<T, NF, ISO, is_char(ORDER)>(Wb, Wc, Wd, e, sc);
-      ppm_cell<T, NF, ISO, FLUX>(Wa, Wb, Wc, sa, sb, sc, dtodx, e, Wr, Wp);
-      copy<NV>(sa, sb);
-      copy<NV>(sb, sc);
+      // cell f+1's slopes (and eigensystem), the parabola's value at
+      // interface f+1; cell f's reconstruction from the carried window
+      T sn[NV], lv[NV], rv[NV];
+      const PrimEigOf<T, ISO> En = ppm_slopes<T, NF, ISO, CH>(Wb, Wc, Wd, e,
+                                                              sn);
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        rv[k] = ppm_iface(Wb[k], Wc[k], T(pw.slope(k)), sn[k]);
+        pw.slope(k) = sn[k];
+        lv[k] = pw.ival(k);
+        pw.ival(k) = rv[k];
+      }
+      PrimEigOf<T, ISO> E;
+      if constexpr (CH) {
+        E = pw.load_eig(j, Wb[1], e);
+        pw.save_eig(j + 1, En);
+      } else {
+        E = prim_eig<T, ISO>(Wb, e);
+      }
+      ppm_cell<T, NF, ISO, FLUX>(Wa, Wb, Wc, lv, rv, E, dtodx, Wr, Wp);
+      if constexpr (NS < 0) trp = trace_of<T, ISO, FLUX>(E, Wb[1]);
     } else {
       recon3_cell<T, NF, ISO, FLUX, ORDER>(Wa, Wb, Wc, dtodx, e, Wr, Wp);
     }
@@ -446,13 +593,21 @@ __global__ void __launch_bounds__(32 * kMarchRows)
     }
     T Ulc[NV], Urc[NV], Fs[NV];
     ScalarFlux<T> sf;
+    if constexpr (WLS) {
+#pragma unroll
+      for (int k = 0; k < NV; ++k) Wl[k] = wls[k];
+    }
     interface_flux<T, NF, ISO, FLUX>(Wl, Wr, kick, dVl, dVr, e, Ulc, Urc,
                                      Fs, NS < 0 ? &sf : nullptr);
     if constexpr (NS < 0) {
       // each scalar: its new cell enters the window, cell f is
       // reconstructed, interface f solved from the window's Wplus of f-1
       const T di = T(1) / (PPM ? Wd[0] : Wc[0]);
-      const ScalarTrace<T> tr = trace_for<T, ISO, FLUX, ORDER>(Wb, e);
+      ScalarTrace<T> tr;
+      if constexpr (PPM)
+        tr = trp;
+      else
+        tr = trace_for<T, ISO, FLUX, ORDER>(Wb, e);
       for (int s = s0; s < s1; ++s) {
         const long long so = (NW + s) * ncell;
         const int i = s - s0;
@@ -460,14 +615,14 @@ __global__ void __launch_bounds__(32 * kMarchRows)
         T wm, wp;
         if constexpr (PPM) {
           const T wa = sw(i, 0), wb = sw(i, 1), wc = sw(i, 2);
-          const T sc = scalar_slope(wb, wc, wn);
-          ppm_scalar<T, FLUX>(wa, wb, wc, sw(i, 3), sw(i, 4), sc, dtodx, tr,
-                              wm, wp);
+          const T sn = scalar_slope(wb, wc, wn);
+          const T rv = ppm_iface(wb, wc, sw(i, 3), sn);
+          ppm_scalar<T, FLUX>(wa, wb, wc, sw(i, 4), rv, dtodx, tr, wm, wp);
           sw(i, 0) = wb;
           sw(i, 1) = wc;
           sw(i, 2) = wn;
-          sw(i, 3) = sw(i, 4);
-          sw(i, 4) = sc;
+          sw(i, 3) = sn;
+          sw(i, 4) = rv;
         } else {
           const T wa = sw(i, 0), wb = sw(i, 1);
           recon3_scalar<T, FLUX, ORDER>(wa, wb, wn, dtodx, tr, wm, wp);
@@ -500,20 +655,72 @@ __global__ void __launch_bounds__(32 * kMarchRows)
       if (j > 0 && waves) {
 #pragma unroll
         for (int v = 0; v < NV; ++v)
-          dF[pm.p[v] * ncell + off_prev] = Fs[v] - Fprev[v];
+          dF[pm.p[v] * ncell + off_prev] =
+              Fs[v] - (FPS ? fps[v] : Fprev[v]);
       }
-      copy<NV>(Fprev, Fs);
+      if constexpr (FPS) {
+#pragma unroll
+        for (int v = 0; v < NV; ++v) fps[v] = Fs[v];
+      } else {
+        copy<NV>(Fprev, Fs);
+      }
       off_prev = off;
     }
-    copy<NV>(Wl, Wp);
+    if constexpr (WLS) {
+#pragma unroll
+      for (int k = 0; k < NV; ++k) wls[k] = Wp[k];
+    } else {
+      copy<NV>(Wl, Wp);
+    }
   }
 }
 
+#define ATH_MARCH_PARAMS                                                    \
+  const T *__restrict__ U, const T *__restrict__ phic,                      \
+      const T *__restrict__ phif, const T *__restrict__ dtodx_p,            \
+      T *__restrict__ Ul, T *__restrict__ Ur, T *__restrict__ F,            \
+      T *__restrict__ dF, int NZ, int NY, int NX, int axis, Eos<T> e,       \
+      int s0, int s1
+#define ATH_MARCH_BODY                                                      \
+  sweep_march<T, NS, ISO, FLUX, ORDER, DF, S>(U, phic, phif, dtodx_p, Ul,   \
+                                              Ur, F, dF, NZ, NY, NX, axis,  \
+                                              e, s0, s1)
+
+template <typename T, int NS, bool ISO, int FLUX, int ORDER, bool DF, int S>
+__global__ void __launch_bounds__(32 * kMarchRows)
+    sweep_march_kernel(ATH_MARCH_PARAMS) {
+  ATH_MARCH_BODY;
+}
+
+// the MarchPlan tight forms: the same kernel, with kTightBlocks blocks per
+// SM asked of the compiler (an explicit minimum of 1 for the others would
+// change their code)
+namespace tight {
+template <typename T, int NS, bool ISO, int FLUX, int ORDER, bool DF, int S>
+__global__ void __launch_bounds__(32 * kMarchRows, kTightBlocks)
+    sweep_march_kernel(ATH_MARCH_PARAMS) {
+  ATH_MARCH_BODY;
+}
+}  // namespace tight
+#undef ATH_MARCH_PARAMS
+#undef ATH_MARCH_BODY
+
+// Planes of blockDim.x entries per row of a B5 tile kernel: NV each of
+// the primitives (later the fluxes), (PPM) the slopes and the parabola's
+// interface values, Wminus and Wplus, then (PPM with CHAR) the slots of
+// the cells' eigensystems (PrimEigOf::kCarry), carried from the slopes to
+// the reconstruction; NS = kNsRun (`run`) adds one plane of each kind but
+// the eigensystem's, through which the scalars pass one at a time.
+template <typename T, bool ISO>
+__host__ __device__ constexpr int tile_planes(int order, int nv, bool run) {
+  return is_ppm(order) ? 5 * (nv + run) +
+                             (is_char(order) ? PrimEigOf<T, ISO>::kCarry : 0)
+                       : 3 * (nv + run);
+}
+
 // B5 along x: a block of blockDim.x = roundup32(tw + halo) threads per row
-// (halo = 4, PPM 6) stages its rows' tiles in dynamic shared memory, planes
-// of NV x blockDim.x per row: primitives (later the fluxes), (PPM) slopes,
-// Wminus, Wplus; NS = kNsRun adds one plane of each, through which the
-// scalars pass one at a time after the wave fields.
+// (halo = 4, PPM 6) stages its rows' tiles in dynamic shared memory, in the
+// planes of tile_planes.
 template <typename T, int NS, bool ISO, int FLUX, int ORDER, bool DF, int TM,
           int R>
 __global__ void __launch_bounds__(TM * R)
@@ -525,16 +732,17 @@ __global__ void __launch_bounds__(TM * R)
                       Eos<T> e, int ns) {
   constexpr int NF = ns_fixed(NS);     // the scalars in the wave arrays
   constexpr int NW = nwave(ISO), NV = NW + NF;
-  constexpr int NVS = NV + (NS < 0 ? 1 : 0);      // planes per kind
-  constexpr bool PPM = is_ppm(ORDER);
+  constexpr bool PPM = is_ppm(ORDER), CH = is_char(ORDER);
   constexpr int H = PPM ? 3 : 2;      // cells left of the tile's first
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nc = blockDim.x;
   T* sW = reinterpret_cast<T*>(smem_raw) +
-          threadIdx.y * (PPM ? 4 : 3) * NVS * nc;
+          threadIdx.y * tile_planes<T, ISO>(ORDER, NV, NS < 0) * nc;
   T* sS = sW + NV * nc;                             // PPM only
-  T* sM = sW + (PPM ? 2 : 1) * NV * nc;
+  T* sI = sS + NV * nc;                             // PPM only
+  T* sM = sW + (PPM ? 3 : 1) * NV * nc;
   T* sP = sM + NV * nc;
+  T* sE = sP + NV * nc;                             // PPM with CHAR only
   const TileRow t(NY, NX, tw, R);
   if (t.ni <= 0) return;                            // the same for the block
   const int i = threadIdx.x;
@@ -563,7 +771,8 @@ __global__ void __launch_bounds__(TM * R)
   }
   __syncthreads();
   if constexpr (PPM) {
-    // 1b. slopes of cells x0-2 .. x0+nif: slot i holds cell x0-2+i
+    // 1b. slopes (and, CHAR, eigensystems) of cells x0-2 .. x0+nif: slot
+    // i holds cell x0-2+i
     if (t.ok && i < nif + 3) {
       T Wm[NV], Wc[NV], Wp[NV], s[NV];
 #pragma unroll
@@ -572,9 +781,20 @@ __global__ void __launch_bounds__(TM * R)
         Wc[v] = sW[v * nc + i + 1];
         Wp[v] = sW[v * nc + i + 2];
       }
-      ppm_slopes<T, NF, ISO, is_char(ORDER)>(Wm, Wc, Wp, e, s);
+      const PrimEigOf<T, ISO> E =
+          ppm_slopes<T, NF, ISO, CH>(Wm, Wc, Wp, e, s);
 #pragma unroll
       for (int v = 0; v < NV; ++v) sS[v * nc + i] = s[v];
+      if constexpr (CH) E.save(Slots<T>{sE + i, nc});
+    }
+    __syncthreads();
+    // 1c. the parabola's values at the left interfaces of cells x0-1 ..
+    // x0+nif: slot i holds that of cell x0-1+i
+    if (t.ok && i < nif + 2) {
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+        sI[v * nc + i] = ppm_iface(sW[v * nc + i + 1], sW[v * nc + i + 2],
+                                   sS[v * nc + i], sS[v * nc + i + 1]);
     }
     __syncthreads();
   }
@@ -591,23 +811,28 @@ __global__ void __launch_bounds__(TM * R)
       Wp[v] = sW[v * nc + c + 1];
     }
     if constexpr (PPM) {
-      T sm[NV], sc[NV], sp[NV];
+      T lv[NV], rv[NV];
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
-        sm[v] = sS[v * nc + i];
-        sc[v] = sS[v * nc + i + 1];
-        sp[v] = sS[v * nc + i + 2];
+        lv[v] = sI[v * nc + i];
+        rv[v] = sI[v * nc + i + 1];
       }
-      ppm_cell<T, NF, ISO, FLUX>(Wm, Wc, Wp, sm, sc, sp, dtodx, e, a, b);
+      PrimEigOf<T, ISO> E;
+      if constexpr (CH)
+        E = load_eig<T, ISO>(Slots<T>{sE + i + 1, nc}, Wc[1], e);
+      else
+        E = prim_eig<T, ISO>(Wc, e);
+      ppm_cell<T, NF, ISO, FLUX>(Wm, Wc, Wp, lv, rv, E, dtodx, a, b);
+      if constexpr (NS < 0) tr = trace_of<T, ISO, FLUX>(E, Wc[1]);
     } else {
       recon3_cell<T, NF, ISO, FLUX, ORDER>(Wm, Wc, Wp, dtodx, e, a, b);
+      if constexpr (NS < 0) tr = trace_for<T, ISO, FLUX, ORDER>(Wc, e);
     }
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
       sM[v * nc + i] = a[v];
       sP[v * nc + i] = b[v];
     }
-    if constexpr (NS < 0) tr = trace_for<T, ISO, FLUX, ORDER>(Wc, e);
   }
   __syncthreads();
   // 3. interface f = x0 + i: Wplus of cell f-1 (slot i) | Wminus of cell f
@@ -658,9 +883,10 @@ __global__ void __launch_bounds__(TM * R)
   }
   if constexpr (NS < 0) {
     // the scalars one at a time through their planes, steps 1-4 as above
-    T* const sWs = sW + (PPM ? 4 : 3) * NV * nc;    // primitives, fluxes
+    T* const sWs = sW + tile_planes<T, ISO>(ORDER, NV, false) * nc;
     T* const sSs = sWs + nc;                       // PPM slopes
-    T* const sMs = sWs + (PPM ? 2 : 1) * nc;
+    T* const sIs = sSs + nc;                       // PPM interface values
+    T* const sMs = sWs + (PPM ? 3 : 1) * nc;
     T* const sPs = sMs + nc;
     for (int s = 0; s < ns; ++s) {
       const long long so = (NW + s) * ncell;
@@ -671,13 +897,16 @@ __global__ void __launch_bounds__(TM * R)
         if (t.ok && i < nif + 3)
           sSs[i] = scalar_slope(sWs[i], sWs[i + 1], sWs[i + 2]);
         __syncthreads();
+        if (t.ok && i < nif + 2)
+          sIs[i] = ppm_iface(sWs[i + 1], sWs[i + 2], sSs[i], sSs[i + 1]);
+        __syncthreads();
       }
       if (t.ok && i < nif + 1) {
         const int c = i + H - 1;
         T a, b;
         if constexpr (PPM)
-          ppm_scalar<T, FLUX>(sWs[c - 1], sWs[c], sWs[c + 1], sSs[i],
-                              sSs[i + 1], sSs[i + 2], dtodx, tr, a, b);
+          ppm_scalar<T, FLUX>(sWs[c - 1], sWs[c], sWs[c + 1], sIs[i],
+                              sIs[i + 1], dtodx, tr, a, b);
         else
           recon3_scalar<T, FLUX, ORDER>(sWs[c - 1], sWs[c], sWs[c + 1],
                                         dtodx, tr, a, b);
@@ -777,8 +1006,10 @@ int launch_sweep_shape(const SweepArgs& a, cudaStream_t st) {
   if (a.axis == 0) {
     if (a.info != nullptr) return (int)cudaErrorInvalidValue;  // march only
     const Tiles t = tiles_of(a.nx, TM, PPM ? 6 : 4);
-    const size_t smem = (size_t)R * (PPM ? 4 : 3) *
-                        (nwave(ISO) + (NS < 0 ? 1 : NS)) * t.bx * sizeof(T);
+    const size_t smem =
+        (size_t)R * tile_planes<T, ISO>(ORDER, nwave(ISO) + ns_fixed(NS),
+                                        NS < 0) *
+        t.bx * sizeof(T);
     auto k = sweep_tile_kernel<T, NS, ISO, FLUX, ORDER, DF, TM, R>;
     const cudaError_t err = allow_smem(k, smem);
     if (err != cudaSuccess) return (int)err;
@@ -788,13 +1019,22 @@ int launch_sweep_shape(const SweepArgs& a, cudaStream_t st) {
         a.nx, t.w, e, a.ns);
   } else {
     const int n = a.axis == 1 ? a.ny : a.nz, nq = a.axis == 1 ? a.nz : a.ny;
-    // NS = kNsRun: the windows of a chunk's scalars (chunk_cap), one
-    // launch per chunk
-    constexpr size_t slot = march_slots(ORDER) * 32 * kMarchRows * sizeof(T);
-    auto k = sweep_march_kernel<T, NS, ISO, FLUX, ORDER, DF, S>;
+    // the PPM window (NS = 0, 1; MarchPlan) or the windows of a chunk's
+    // scalars (NS = kNsRun; chunk_cap), one launch per chunk
+    constexpr size_t row = 32 * kMarchRows * sizeof(T);
+    constexpr size_t slot = march_slots(ORDER) * row;
+    constexpr size_t wave =
+        MarchPlan<T, ORDER, NS, ISO, DF>::slots(nwave(ISO) + ns_fixed(NS)) *
+        row;
+    auto k = [] {
+      if constexpr (MarchPlan<T, ORDER, NS, ISO, DF>::tight)
+        return tight::sweep_march_kernel<T, NS, ISO, FLUX, ORDER, DF, S>;
+      else
+        return sweep_march_kernel<T, NS, ISO, FLUX, ORDER, DF, S>;
+    }();
     static const int cap = NS < 0 ? chunk_cap(k, slot) : 1;
     const ScalarChunks ch(NS < 0 ? a.ns : 0, cap);
-    const size_t smem = ch.size * slot;
+    const size_t smem = wave + ch.size * slot;
     const cudaError_t err = allow_smem(k, smem);
     if (err != cudaSuccess) return (int)err;
     if (a.info != nullptr) return march_info(k, smem, ch, cap, a.info);
@@ -823,6 +1063,8 @@ int launch_sweep(const SweepArgs& a, int df, int s, int tm, int r,
                                    R>(a, st);
   if constexpr (ORDER == kPlm && NS >= 0) {
     ATH_HYDRO_SHAPES(ATH_SWEEP_SHAPE)
+  } else if constexpr (is_ppm(ORDER)) {
+    ATH_HYDRO_SHAPE_PPM(ATH_SWEEP_SHAPE)
   } else {
     ATH_HYDRO_SHAPE0(ATH_SWEEP_SHAPE)
   }

@@ -45,8 +45,10 @@ memory and occupancy).
 
 B5 (both forms) and B12 take ``shape=``, their launch shape, one of
 ``SWEEP_SHAPES`` / ``FLUXDF_SHAPES``; B5 is built in every shape for order
-2 and in the first for the other orders, B5 and B12 in the first only
-from two scalars on (``sweep_shapes``, ``fluxdf_shapes``).
+2, in ``PPM_SHAPE`` at orders 3 and 3p and in the first for the other
+orders, B5 and B12 in the first only from two scalars on (PPM: in
+``PPM_SHAPE``) (``sweep_shapes``, ``fluxdf_shapes``; a wrapper given no
+shape takes the first of its form's).
 ``<wrapper>.launches`` counts the kernel launches of each wrapper and
 ``<wrapper>.forms`` the launches per form: the solver
 (``forms["hllc"]``), and for B5 at an order other than 2 the order and
@@ -84,6 +86,9 @@ ORDER_NAME = {"1": "dc", "2": "plm", "3": "ppm", "2p": "plmp", "3p": "ppmp"}
 # B12 with two or more scalars
 SWEEP_SHAPES = ((32, 128, 1), (64, 320, 1))
 FLUXDF_SHAPES = SWEEP_SHAPES
+# B5 at orders 3 and 3p: a segment of 64 interfaces halves the halo of the
+# PPM stencil (csrc/sweep.cuh ATH_HYDRO_SHAPE_PPM)
+PPM_SHAPE = (64, 128, 1)
 
 def refusal(sim: SimConfig):
     """Why the kernels do not take `sim`, naming the ROADMAP item, or None.
@@ -110,9 +115,12 @@ def supported(sim: SimConfig) -> bool:
 
 def sweep_shapes(sim: SimConfig):
     """The launch shapes B5 is built for at sim.order: every one of
-    SWEEP_SHAPES at order 2 with at most one scalar, else the first (the
-    run-time scalar forms: S = 32 interfaces per segment, 128 threads per
-    march block, each with its chunk's windows in shared memory)."""
+    SWEEP_SHAPES at order 2 with at most one scalar, PPM_SHAPE at orders 3
+    and 3p, else the first (the run-time scalar forms: S = 32 interfaces
+    per segment, 128 threads per march block, each with its chunk's
+    windows in shared memory)."""
+    if sim.order in ("3", "3p"):
+        return (PPM_SHAPE,)
     return (SWEEP_SHAPES if sim.order == "2" and sim.nscalars < 2
             else SWEEP_SHAPES[:1])
 
@@ -276,8 +284,11 @@ def _check_shape(name, shape, shapes):
 
 def _sweep(U, phic, phif_a, dtodx, sim, axis, shape, df, name):
     """Launch csrc/sweep.cuh's B5 kernels: the whole-flux form (Ul, Ur, F)
-    or, with df, the dF form (Ul, Ur, F_ID, dF)."""
+    or, with df, the dF form (Ul, Ur, F_ID, dF); shape None: the form's
+    first launch shape."""
     _check_sweep_args(U, phic, phif_a, sim, axis, name)
+    if shape is None:
+        shape = sweep_shapes(sim)[0]
     _check_shape(name, shape, sweep_shapes(sim))
     nv, nz, ny, nx = U.shape
     dt_t = cuda_lib.scalar_arg(dtodx, U)
@@ -299,7 +310,7 @@ def _sweep(U, phic, phif_a, dtodx, sim, axis, shape, df, name):
 
 
 def sweep_lrflux(U, phic, phif_a, dtodx, sim: SimConfig, axis: int,
-                 shape=SWEEP_SHAPES[0]):
+                 shape=None):
     """Fused steps 1-3 along `axis`.
 
     U: [nv, NZ, NY, NX] physical order; phic, phif_a: [NZ, NY, NX] static
@@ -331,7 +342,7 @@ sweep_lrflux.forms = Counter()
 
 
 def sweep_lrflux_df(U, phic, phif_a, dtodx, sim: SimConfig, axis: int,
-                    shape=SWEEP_SHAPES[0]):
+                    shape=None):
     """Fused steps 1-3 along `axis`, emitting the flux difference.
 
     Arguments as ``sweep_lrflux``.  Returns (Ul, Ur, F_ID, dF): Ul, Ur, dF

@@ -85,6 +85,9 @@ def check_supported(par: ParameterDB, sim: SimConfig, grid: GridConfig):
         (sim.shearing_box or sim.fargo, "shearing box / FARGO (ROADMAP "
                                         "A15)"),
         (grid.cylindrical, "cylindrical coordinates (ROADMAP A15)"),
+        (sim.ion_radplane and not sim.adiabatic,
+         "plane radiation on isothermal gas (ROADMAP C14: the JAX "
+         "package's radiation takes the first scalar as the energy)"),
         (grid.ndim != 3, f"{grid.ndim}D grids (ROADMAP A10/A11)"),
         (any(par.getd_def("problem", k, 0.0) > 0.0 for k in (
             "nu_iso", "kappa_iso", "eta_O", "Q_AD", "Q_Hall", "nu_aniso",

@@ -39,7 +39,9 @@ and counted per form, "name[form]":
      and what the run-time scalar forms' y/z march kernels (B5 PLM and
      PPM, B12; Roe) take and let run at 4, 32 and 40 scalars: registers,
      local bytes, scalar chunks, dynamic shared memory per block and
-     blocks per SM (march_occupancy);
+     blocks per SM (march_occupancy), and the same for every PPM form of
+     B5 (orders 3 and 3p, each solver and gas, 0, 1, 4 and 40 scalars,
+     both output forms, float32 and float64: ppm_occupancy);
   2. kernel vs plain version on states of the isph deck after init and two
      steps, with a damping-code carry and a per-column inlet drawn from
      SEED and the batch kernel on a 25-substep schedule of THETA x the
@@ -58,7 +60,9 @@ and counted per form, "name[form]":
      the whole fluxes its dF form on the same fluxes bitwise, and B3' (the
      fused update + rates, on no path, as in the JAX package) update_fn
      followed by rates_fn of the same build within TOL, timed against
-     them; the forms with 2 and 4 passive scalars (each order, solver,
+     them; every PPM form of B5 and every MANY_FORMS entry with not one
+     output element whose bits differ from its plain version's; the forms
+     with 2 and 4 passive scalars (each order, solver,
      gas and operand form; B5 PLM Roe also with 8) on the isph state with
      distinct scalars and stirred flows (ns_inputs), and B3's inlet form,
      the same way, each scalar form timed with one plain call per axis and
@@ -490,6 +494,37 @@ FIELDS_MOVED.update({
 # B13 from hydro.cu / flux_iso.cu, the others from ctu_mid.cu.
 NS_COUNTS = (2, 4)
 NS_WIDE = 8
+
+
+# B5's PPM forms (orders 3 and 3p; any solver, gas and scalar count): held
+# to their plain versions bit for bit (check_call, ppm_bits), and their
+# march kernels reported by ppm_occupancy
+PPM_ORDERS = ("3", "3p")
+
+
+def is_ppm_form(name):
+    """Whether kernel entry `name` is one of B5's PPM forms."""
+    base = base_name(name)
+    if not base.startswith("sweep"):
+        return False
+    form = split_ns(name[len(base) + 1:-1])[0]
+    form = form[4:] if form.startswith("iso+") else form
+    return form.split("+")[0] in ("ppm", "ppmp")
+
+
+def ppm_bits(U, phic, phif_a, dtodx, sim, axis):
+    """B5 in both output forms against its plain version on the same
+    operands, bit for bit (every output element, ghost cells included);
+    raises with the count of elements that differ."""
+    from atmospheric_athena_tpu_torch.ops import hydro_kernels as hk
+    args = (U, phic, phif_a, dtodx, sim, axis)
+    for kern, plain in ((hk.sweep_lrflux, hk.sweep_lrflux_plain),
+                        (hk.sweep_lrflux_df, hk.sweep_lrflux_df_plain)):
+        nb = bits_differ(outputs(kern(*args)), outputs(plain(*args)))
+        if nb:
+            raise AssertionError(
+                f"{kern.__name__}[{hk.form(sim)}] axis {axis}: {nb} output "
+                "elements differ from the plain version's bits")
 
 
 def split_ns(form):
@@ -1655,10 +1690,15 @@ def check_call(rec, name, kern, plain, args, grid, tol, timing):
                                   bound_by=None, library_ms=None))
     r["max_abs_err"] = max(r["max_abs_err"], ea)
     r["max_rel_err"] = max(r["max_rel_err"], er)
-    if name in SHAPED or quick:
-        # summed over the axes of a per-axis kernel
-        r["bits_vs_plain"] = (r.get("bits_vs_plain", 0)
-                              + bits_differ(got, ref))
+    exact = is_ppm_form(name) or name in MANY_FORMS
+    if name in SHAPED or quick or exact:
+        # summed over the axes of a per-axis kernel; B5's PPM forms and
+        # the MANY_FORMS entries must not differ in one bit
+        nb = bits_differ(got, ref)
+        if exact and nb:
+            raise AssertionError(f"{name}: {nb} output elements differ "
+                                 "from the plain version's bits")
+        r["bits_vs_plain"] = r.get("bits_vs_plain", 0) + nb
         r["elements"] = (r.get("elements", 0)
                          + sum(g.numel() for g in got))
     nbytes = hbm_bytes(name, grid, got[0])
@@ -3177,7 +3217,7 @@ def sass_hydro(n=256):
              if base_name(k[0]) in ("sweep_lrflux", "sweep_lrflux_df",
                                     "flux_sweep_df")
              and (k[0] not in ISO_FORMS or k[0] in SHAPED
-                  or k[0].endswith("[iso+ppm]"))
+                  or is_ppm_form(k[0]))
              and (k[0] not in NS_FORMS or k[0].endswith(f"+ns{LW_NS}]"))]
     for name in names:
         args = form_args(name)
@@ -3188,7 +3228,8 @@ def sass_hydro(n=256):
                 + "".join(f"ELi{x}" for x in args[1:3])
                 + (f"ELb{args[3]}" if len(args) > 3 else ""))
         march, tile = SYMBOLS[base_name(name)]
-        shapes = shapes_of(name) if name in SHAPED else [hk.SWEEP_SHAPES[0]]
+        shapes = (shapes_of(name) if name in SHAPED else
+                  [hk.PPM_SHAPE if is_ppm_form(name) else hk.SWEEP_SHAPES[0]])
         per = {}
         for S, T, R in shapes:
             loops, _ = sass_loops(march, f"{form}ELi{S}EE", outer=run)
@@ -3240,6 +3281,41 @@ def march_occupancy(n=256):
                 out[label] = hk.march_info(kernel, sim, dtype, shape,
                                            df=df)
                 say(f"phase 1 march kernel {label}: {out[label]}")
+    return out
+
+
+def ppm_occupancy(n=256):
+    """What the y/z march kernel of each of B5's PPM forms takes and lets
+    run on the padded (n+8)^3 grid (hydro_kernels.march_info: registers
+    and local bytes per thread, dynamic shared memory per block, blocks
+    per SM from the CUDA occupancy calculator, the scalar chunks): orders
+    3 and 3p with each solver, each gas, 0, 1, LW_NS and LW_MANY scalars,
+    both output forms, float32 and float64.  Returns {entry name: {"f32":
+    info, "f64": info}}."""
+    import torch
+    from atmospheric_athena_tpu_torch.config import SimConfig
+    from atmospheric_athena_tpu_torch.ops import hydro_kernels as hk
+    out = {}
+    shape = (n + 8,) * 3
+    for eos in ("adiabatic", "isothermal"):
+        for ns in (0, 1, LW_NS, LW_MANY):
+            for order in PPM_ORDERS:
+                for flux in ("roe", "hllc", "hlle"):
+                    sim = SimConfig(nscalars=ns, order=order, flux=flux,
+                                    eos=eos)
+                    for df in (True, False):
+                        # the entry's own count (phase 2's states: one
+                        # scalar adiabatic, none isothermal) or the count
+                        w = "sweep_lrflux_df" if df else "sweep_lrflux"
+                        name = f"{w}[{hk.form(sim)}]"
+                        if ns < 2 and ns != int(eos == "adiabatic"):
+                            name += f" ns{ns}"
+                        out[name] = {
+                            dt: hk.march_info("sweep", sim, dtype, shape,
+                                              df=df)
+                            for dt, dtype in (("f32", torch.float32),
+                                              ("f64", torch.float64))}
+                        say(f"phase 1 PPM march kernel {name}: {out[name]}")
     return out
 
 
@@ -3322,6 +3398,7 @@ def main():
     sass = sass_batch()
     sass_h = sass_hydro()
     march_occupancy()
+    ppm_occ = ppm_occupancy()
     lap = Laps(t_all)
     lap("phases 0-1")
 
@@ -3400,6 +3477,8 @@ def main():
             k["phase3_launches"] = sum(c[name] for c in p3.values())
         k.update(sass.get(name, {}))
         k.update(sass_h.get(name, {}))
+        if name in ppm_occ:
+            k["march_info"] = ppm_occ[name]
         kernels.append(k)
     say(f"chip_smoke: all phases in {time.perf_counter() - t_all:.1f} s")
     say(smi_line())

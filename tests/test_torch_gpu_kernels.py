@@ -12,15 +12,17 @@ NaN: every kernel's NaN cells and NaN reductions equal its plain
 version's); the testsedov golden on both hydro paths; the SMR blast
 goldens and isph2lev against the plain run on the CPU; the reconstruction
 orders 1, 3 (PPM), 2p and 3p and the HLLE solver in B5 (both forms, at
-lines of 45, 100 and 300 cells too), B13, B12 and B8, and short runs of
+lines of 20-300 cells too; the PPM forms of each gas with
+0, 1, 4 and 40 scalars bit for bit), B13, B12 and B8, and short runs of
 isph64 with PPM and testsedov with every such form on the card against
 the plain run on the CPU (chip_smoke.phase3_forms); every isothermal form
 (B5 at every order and solver, B13, B12, B8, B7 and B10 in both operand
 forms, B11) on the isph state without its energy, with and without a
-scalar, along the lines of 45, 100 and 300 cells too, and turb on the card
+scalar, along the lines of 20-300 cells too, and turb on the card
 against the plain versions on the card (chip_smoke.phase3_turb); the forms
-with 2, 3, 8, 33 and 40 distinct scalars (every form of B5, B13, B12, B8,
-B7 and B10, each gas; B5-dF bitwise its whole-flux form) and B3's inlet
+with 2, 3, 4, 8, 33 and 40 distinct scalars (every form of B5, B13, B12,
+B8, B7 and B10, each gas; B5-dF bitwise its whole-flux form, B5's PPM
+forms bitwise their plain versions) and B3's inlet
 form, and linear_wave with 4 and 40 scalars on the card against the plain
 versions on the card (chip_smoke.phase3_lw).  Needs a CUDA
 device, nvcc and triton; skipped elsewhere.  This file imports no JAX,
@@ -365,13 +367,17 @@ def hydro_line_checks(s, axes, tol, forms=PLM_FORMS):
 
 
 @pytest.fixture(scope="module", params=[
-    (n, dtype) for n in (45, 100, 300) for dtype in ("float64", "float32")],
+    (n, dtype) for n in (20, 25, 45, 57, 100, 300)
+    for dtype in ("float64", "float32")],
     ids=lambda c: f"n{c[0]}_{c[1]}")
 def line_case(request):
     """The isph deck after one step on three grids whose interior is n
     cells long along x, y and z in turn, (n, 6, 5), (5, n, 6) and (6, 5,
     n): lines that no segment length or tile width of the hydro launch
-    shapes divides; the state stirred (stir)."""
+    shapes divides, among them (with the 8 ghosts) lines shorter than a
+    march segment (n = 20 of PLM's 32 interfaces, 45 of PPM's 64), lines
+    a segment plus one (25, 57) and odd ones (45 and 57: 53 and 65 cells,
+    one x tile); the state stirred (stir)."""
     need_cuda()
     from atmospheric_athena_tpu_torch import Simulation
     n, dtype = request.param
@@ -396,14 +402,37 @@ def test_hydro_sweeps_line_lengths(line_case):
         hydro_line_checks(s, (a,), tol)
 
 
+def ppm_bitwise_checks(s, axes):
+    """B5's PPM forms (orders 3 and 3p with each solver, both output
+    forms) bit for bit against their plain versions (chip_smoke.ppm_bits)
+    on `axes` of the state of Simulation s, with the deck's potential and
+    without, for each gas with 0, 1, LW_NS and LW_MANY distinct scalars
+    (chip_smoke.ns_state)."""
+    import dataclasses
+    phic, phif = s.phi
+    for ns in (0, 1, chip_smoke.LW_NS, chip_smoke.LW_MANY):
+        for iso in (False, True):
+            U, sim0 = chip_smoke.ns_state(s, ns, iso)
+            for order in chip_smoke.PPM_ORDERS:
+                for flux in ("roe", "hllc", "hlle"):
+                    sim = dataclasses.replace(sim0, order=order, flux=flux)
+                    for a in axes:
+                        dtodx = s.state.dt / s.grid.dx[a]
+                        for pc, pf in ((None, None), (phic, phif[a])):
+                            chip_smoke.ppm_bits(U, pc, pf, dtodx, sim, a)
+            del U
+
+
 def test_hydro_sweep_forms_line_lengths(line_case):
     """B5 at orders 1, 3, 2p and 3p with every solver and at order 2 with
-    HLLE (and B12 with HLLE) along lines of 45, 100 and 300 interior
-    cells: PPM's wider stencil and window at the ends of segments and
-    tiles."""
+    HLLE (and B12 with HLLE) along lines of 20, 25, 45, 57, 100 and 300
+    interior cells: PPM's wider stencil and window at the ends of segments
+    and tiles; and the PPM forms of each gas with 0, 1, 4 and 40 scalars
+    bit for bit (ppm_bitwise_checks)."""
     sims, tol = line_case
     for a, s in enumerate(sims):
         hydro_line_checks(s, (a,), tol, OTHER_FORMS)
+        ppm_bitwise_checks(s, (a,))
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
@@ -492,7 +521,7 @@ def test_isothermal_kernels(case, ns):
 
 
 def test_isothermal_kernels_line_lengths(line_case):
-    """The isothermal forms along lines of 45, 100 and 300 interior
+    """The isothermal forms along lines of 20, 25, 45, 57, 100 and 300
     cells."""
     sims, tol = line_case
     for s in sims:
@@ -508,22 +537,25 @@ def test_turb_card_vs_plain():
     assert counts["turb"]["flux_sweep_df[iso+roe]"] == 9
 
 
-@pytest.mark.parametrize("ns", [2, 3, 8, 33, 40],
-                         ids=["ns2", "ns3", "ns8", "ns33", "ns40"])
+@pytest.mark.parametrize("ns", [2, 3, 4, 8, 33, 40],
+                         ids=["ns2", "ns3", "ns4", "ns8", "ns33", "ns40"])
 def test_scalar_kernels(case, ns):
     """The run-time scalar forms on the isph state with `ns` distinct
-    scalars, each gas, against their plain versions; the dF sweeps bitwise
-    their whole-flux sweeps, B7-F bitwise its dF form.  33 and 40 scalars
-    pass B5's and B12's march kernels in chunks (csrc/sweep.cuh
-    ScalarChunks)."""
+    scalars, each gas, against their plain versions, B5's PPM forms bit
+    for bit; the dF sweeps bitwise their whole-flux sweeps, B7-F bitwise
+    its dF form.  33 and 40 scalars pass B5's and B12's march kernels in
+    chunks (csrc/sweep.cuh ScalarChunks)."""
     s, _, tol = case
     for iso in (False, True):
         inp = chip_smoke.ns_inputs(s, ns, iso)
         names = set()
         for name, kern, plain, args in chip_smoke.ns_kernel_calls(s.grid,
                                                                   inp):
-            chip_smoke.compare(name, chip_smoke.outputs(kern(*args)),
-                               chip_smoke.outputs(plain(*args)), tol, s.grid)
+            got = chip_smoke.outputs(kern(*args))
+            ref = chip_smoke.outputs(plain(*args))
+            chip_smoke.compare(name, got, ref, tol, s.grid)
+            if chip_smoke.is_ppm_form(name):
+                assert chip_smoke.bits_differ(got, ref) == 0, name
             if name.startswith("sweep_lrflux_df["):
                 chip_smoke.sweep_df_bits(*args)
             names.add(name)

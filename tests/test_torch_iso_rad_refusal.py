@@ -3,7 +3,8 @@ driver hands its radiation the first passive scalar as the energy, so the
 port raises NotImplementedError where the radiation starts
 (ionrad/driver.ion_radtransfer) and where its kernels check their operands
 (ionrad/rad_kernels.check_supported), on an isothermal ioniz_sphere deck
-that the test writes from the isph64 golden deck."""
+that the test writes from the isph64 golden deck; and Simulation.from_par
+refuses that deck before the problem's init runs (C16)."""
 
 from pathlib import Path
 
@@ -12,7 +13,7 @@ import pytest
 from atmospheric_athena_tpu_torch.ionrad import driver, rad_kernels
 from atmospheric_athena_tpu_torch.ionrad.config import ion_config_from_par
 from atmospheric_athena_tpu_torch.par import ParameterDB
-from atmospheric_athena_tpu_torch.simulation import configure
+from atmospheric_athena_tpu_torch import simulation
 from atmospheric_athena_tpu_torch.state import zeros
 
 DECK = Path(__file__).parent / "golden" / "athinput.isph64"
@@ -33,7 +34,11 @@ def iso_deck():
 @pytest.fixture(scope="module")
 def iso_rad():
     par = iso_deck()
-    prob_cls, sim, grid = configure(par, "ioniz_sphere", "float64", {})
+    # past Simulation's own refusal (C16), to reach the inner ones
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(simulation, "check_supported", lambda *a: None)
+        prob_cls, sim, grid = simulation.configure(par, "ioniz_sphere",
+                                                   "float64", {})
     prob = prob_cls(par, sim, grid)
     ion = ion_config_from_par(par, grid, radplanes=prob.radplanes,
                               time_ramp=prob.time_ramp)
@@ -60,3 +65,14 @@ def test_radiation_refuses_isothermal_gas(iso_rad, site):
         with pytest.raises(NotImplementedError,
                            match="radiation kernels: adiabatic hydro only"):
             rad_kernels.check_supported(sim, grid, ion)
+
+
+def test_simulation_refuses_isothermal_radiation():
+    """Simulation.from_par refuses the deck before the problem's init runs
+    (C16): ioniz_sphere's init would index the energy of a state that has
+    none."""
+    from atmospheric_athena_tpu_torch import Simulation
+    with pytest.raises(NotImplementedError,
+                       match="plane radiation on isothermal gas.*C14"):
+        Simulation.from_par(iso_deck(), problem="ioniz_sphere",
+                            dtype="float64", device="cpu")

@@ -389,7 +389,8 @@ def test_scalar_forms_and_limits():
     """The kernels take any number of scalars from 2 on in every order,
     solver and gas, counted per form with the number of scalars
     ("roe+ns4", "iso+ppm+hllc+ns2", "iso+dF2+ns3", "roe+ns40"); B5 and B12
-    in the default launch shape from two scalars on; 33 and 40 scalars,
+    in the default launch shape from two scalars on (B5 at the PPM orders
+    in PPM_SHAPE with any count); 33 and 40 scalars,
     beyond the 32 the march kernels once held in one block, pass the
     wrappers' checks."""
     for ns in (2, 3, 8, 32, 33, 40):
@@ -406,6 +407,10 @@ def test_scalar_forms_and_limits():
     assert hydro_kernels.form(TSim(nscalars=1)) == "roe"
     assert hydro_kernels.sweep_shapes(TSim(nscalars=2)) == \
         hydro_kernels.SWEEP_SHAPES[:1]
+    for order in ("3", "3p"):
+        for ns in (0, 1, 4):
+            assert hydro_kernels.sweep_shapes(TSim(nscalars=ns, order=order)) \
+                == (hydro_kernels.PPM_SHAPE,)
     assert hydro_kernels.fluxdf_shapes(TSim(nscalars=4)) == \
         hydro_kernels.FLUXDF_SHAPES[:1]
     assert hydro_kernels.fluxdf_shapes(TSim(nscalars=1)) == \

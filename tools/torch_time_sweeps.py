@@ -5,12 +5,15 @@ launch shape they are built for, on one card.
     python3 tools/torch_time_sweeps.py [N] [FORM ...]   # default N = 256
 
 FORM is a form of B5 as chip_smoke names it: "roe" (PLM with Roe), "hllc",
-"hlle", "ppm", "ppm+hllc", "dc", "plmp+hlle", ... (chip_smoke.SWEEP_FORMS);
-the default is PLM and PPM with each solver.  A form suffixed "+ns<K>"
-("roe+ns32", "ppm+ns40") runs with K passive scalars (K >= 2: the
-run-time scalar forms), scalar k the density times chip_smoke.scalar_fields'
-field k, so that no two are alike.  Builds the isph deck at N^3 float32
-(ionradiation/maxiter=50) on the first CUDA device, takes one step, then
+"hlle", "ppm", "ppm+hllc", "dc", "plmp+hlle", ... (chip_smoke.SWEEP_FORMS),
+and with the prefix "iso+" ("iso+ppm") the form for isothermal gas, on
+the state without its energy (chip_smoke.ns_state, no scalar unless
+named); the default is PLM and PPM with each solver.  A form suffixed
+"+ns<K>" ("roe+ns32", "ppm+ns40") runs with K passive scalars (K >= 2:
+the run-time scalar forms), scalar k the density times
+chip_smoke.scalar_fields' field k, so that no two are alike.  Builds the
+isph deck at N^3 float32 (ionradiation/maxiter=50) on the first CUDA
+device, takes one step, then
 times each form (whole flux, dF form and, at order 2, B12 with the
 form's solver on the sweep's own Ul/Ur) on each axis and in each launch
 shape: CUDA events around 20 launches back to back after a warm-up, the
@@ -79,9 +82,10 @@ def march_report(hk, kname, sim, U, order, ns):
         slots = 1
     else:
         kernel = "sweep_march_kernel"
-        source = os.path.basename(chip_smoke._HYD_SRC[order])
-        args = [-1, 0, flux, hk.ORDER_KIND[order],
-                int(kname == "sweep_lrflux_df"), 32]
+        source = os.path.basename((chip_smoke._HYD_SRC if sim.adiabatic
+                                   else chip_smoke._ISO_SRC)[order])
+        args = [-1, int(not sim.adiabatic), flux, hk.ORDER_KIND[order],
+                int(kname == "sweep_lrflux_df"), hk.sweep_shapes(sim)[0][0]]
         slots = 7 if order in ("3", "3p") else 4
     out = {}
     regs = ptxas_regs(kernel, source, args)
@@ -137,8 +141,13 @@ def main():
     out, info = {}, {}
     for form in forms:
         base, ns = chip_smoke.split_ns(form)
-        order, flux = chip_smoke.SWEEP_FORMS["" if base == "roe" else base]
-        U, sim0 = with_scalars(s, ns) if ns else (s.state.U, s.sim)
+        iso = base.startswith("iso+")
+        order, flux = (chip_smoke.ISO_SWEEP_FORMS[base] if iso else
+                       chip_smoke.SWEEP_FORMS["" if base == "roe" else base])
+        if iso:
+            U, sim0 = chip_smoke.ns_state(s, ns, True)
+        else:
+            U, sim0 = with_scalars(s, ns) if ns else (s.state.U, s.sim)
         sim = dataclasses.replace(sim0, order=order, flux=flux)
         shapes = hk.sweep_shapes(sim)
         for a in range(3):
