@@ -19,11 +19,13 @@ hold several domains).  Each cycle runs the reference's SMR order
 
 The JAX package's phased mode (per-level jits that bound a TPU's memory
 and its watchdog) has no counterpart: PyTorch runs eagerly, level by
-level.  Outputs (make_outputs) are ROADMAP A9.
+level.  Outputs (make_outputs) write one set per level, level li > 0
+under lev{li}/ with a -lev{li} problem id, as ath_fname does.
 """
 
 from __future__ import annotations
 
+import os
 import time as _time
 from typing import List, Optional
 
@@ -320,15 +322,47 @@ class MeshSimulation:
         for lv, st in zip(L, states):
             lv.state = st
 
+    # ---------------------------------------------------------------- outputs
+
+    class _LevelView:
+        """Simulation-shaped view of one level for the output writers."""
+
+        def __init__(self, mesh, li):
+            lv = mesh.levels[li]
+            self.par = mesh.par
+            self.sim = mesh.sim
+            self.grid = lv.grid
+            self.state = lv.state
+            self.problem = lv.problem
+
+    def make_outputs(self, outdir: str = "."):
+        """Per-level output sets (JAX hierarchy.py:561-577): files of level
+        li > 0 under lev{li}/ with a -lev{li} problem id, like ath_fname
+        (src/ath_files.c)."""
+        from .io.outputs import OutputSet
+        pid = self.par.gets_def("job", "problem_id", "out")
+        sets = []
+        for li in range(len(self.levels)):
+            d = outdir if li == 0 else os.path.join(outdir, f"lev{li}")
+            p = pid if li == 0 else f"{pid}-lev{li}"
+            sets.append(OutputSet(self.par, d, problem_id=p))
+        mesh = self
+
+        def write(_sim_obj=None, force=False):
+            for li, outs in enumerate(sets):
+                outs(MeshSimulation._LevelView(mesh, li), force=force)
+        return write
+
     # -------------------------------------------------------------------- run
 
     def run(self, max_steps: Optional[int] = None, verbose: bool = False,
-            outdir: Optional[str] = None):
-        """Main loop (main.c:519-669) without outputs; returns
-        dict(steps, wall, zone_cycles_per_sec) with the zones of every
-        level counted."""
-        if outdir is not None:
-            raise NotImplementedError("SMR outputs (ROADMAP A9)")
+            output_fn=None, outdir: Optional[str] = None):
+        """Main loop (main.c:519-669); returns dict(steps, wall,
+        zone_cycles_per_sec) with the zones of every level counted.
+        output_fn(mesh) is called before each step and once at the end;
+        passing `outdir` instead builds the per-level dispatchers."""
+        if output_fn is None and outdir is not None:
+            output_fn = self.make_outputs(outdir)
         nlim = self.nlim if max_steps is None else max_steps
         zones = sum(lv.grid.Nx[0] * lv.grid.Nx[1] * lv.grid.Nx[2]
                     for lv in self.levels)
@@ -341,6 +375,8 @@ class MeshSimulation:
                 break
             if nlim is not None and nlim >= 0 and nstep - steps0 >= nlim:
                 break
+            if output_fn is not None:
+                output_fn(self)
             if verbose:
                 print(f"cycle={nstep} time={tnow:.6e} dt="
                       f"{float(self.state.dt):.6e}")
@@ -349,6 +385,8 @@ class MeshSimulation:
             torch.cuda.synchronize(self.device)
         wall = _time.perf_counter() - t0
         nsteps = int(self.state.nstep) - steps0
+        if output_fn is not None:
+            output_fn(self)
         zcps = zones * nsteps / wall if wall > 0 else float("nan")
         if verbose:
             print(f"zone-cycles/wall-second = {zcps:.3e}")

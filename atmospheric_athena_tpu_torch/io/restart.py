@@ -1,0 +1,81 @@
+"""Checkpoint / restart (reference: src/restart.c, src/dump_restart), as in
+``atmospheric_athena_tpu/io/restart.py``: one ``np.savez_compressed``
+file with the arrays U, Eflux (when present), time, dt and nstep and a
+``__meta__`` JSON of the SimConfig, the GridConfig and the resolved
+parameter database.  A checkpoint of either package loads in the other:
+the JAX SimConfig's ``use_pallas`` has no counterpart here and is dropped;
+any other key this package does not know is refused.  Unlike the JAX
+loader, this one keeps GridConfig.coord, and it refuses a configuration
+the port does not run (MHD, a 2D grid, ...) by name.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+
+import numpy as np
+
+from ..config import GridConfig, SimConfig
+from ..par import ParameterDB
+from ..state import State, from_numpy, to_numpy
+
+# SimConfig fields of the JAX package that the port has no use for
+_JAX_ONLY = ("use_pallas",)
+_ARRAYS = ("U", "Eflux", "time", "dt", "nstep")
+
+
+def _fields(obj) -> dict:
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+
+
+def save_checkpoint(path: str, state: State, sim: SimConfig,
+                    grid: GridConfig, par: ParameterDB):
+    arrays = to_numpy(state)
+    meta = dict(sim=_fields(sim), grid=_fields(grid), par=par.dump())
+    arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(),
+                                       dtype=np.uint8)
+    np.savez_compressed(path, **arrays)
+
+
+def _known(kind, cls, kw: dict, path: str):
+    names = {f.name for f in dataclasses.fields(cls)}
+    unknown = sorted(set(kw) - names)
+    if unknown:
+        raise ValueError(f"checkpoint {path}: unknown {kind} keys {unknown}")
+
+
+def read_checkpoint(path: str):
+    """Returns (arrays, sim, grid, par): the arrays as numpy (host) data,
+    after refusing what the port does not run."""
+    from ..integrators import ctu3d
+    from ..simulation import check_supported
+    with np.load(path) as z:
+        meta = json.loads(bytes(z["__meta__"]).decode())
+        extra = sorted(set(z.files) - set(_ARRAYS) - {"__meta__"})
+        arrays = {k: z[k] for k in _ARRAYS if k in z.files}
+    skw = {k: v for k, v in meta["sim"].items() if k not in _JAX_ONLY}
+    _known("SimConfig", SimConfig, skw, path)
+    sim = SimConfig(**skw)
+    gkw = dict(meta["grid"])
+    _known("GridConfig", GridConfig, gkw, path)
+    for k in ("Nx", "xmin", "xmax"):
+        gkw[k] = tuple(gkw[k])
+    gkw["bc"] = tuple(tuple(b) for b in gkw["bc"])
+    grid = GridConfig(**gkw)
+    par = ParameterDB.from_string(meta["par"])
+    check_supported(par, sim, grid)
+    ctu3d.check_supported(sim, grid)
+    if extra:
+        raise ValueError(f"checkpoint {path}: unknown arrays {extra}")
+    if arrays["U"].dtype != np.dtype(sim.dtype):
+        raise ValueError(f"checkpoint {path}: U is {arrays['U'].dtype}, the "
+                         f"configuration says {sim.dtype}")
+    return arrays, sim, grid, par
+
+
+def load_checkpoint(path: str, device="cuda"):
+    """Returns (state, sim, grid, par), the state on `device` (the card
+    unless the caller asks for the CPU)."""
+    arrays, sim, grid, par = read_checkpoint(path)
+    return from_numpy(arrays, device=device), sim, grid, par

@@ -152,8 +152,11 @@ class Turb:
     rseed.
 
     ``cycle`` is the cycle the next ``userwork_in_loop`` drives, counted
-    on the host from the state ``init`` made (cycle 0), so seeding the
-    deviates reads nothing from the device; ``deviates(cycle, shape,
+    on the host from the state ``init`` made (cycle 0), or from the
+    checkpoint's nstep that ``resume`` is given on a restart (ROADMAP
+    C19), so seeding the deviates reads nothing from the device and a
+    restarted run draws the deviates of an uninterrupted one, as the JAX
+    package's, keyed on state.nstep, does; ``deviates(cycle, shape,
     dtype, device)`` draws them and may be replaced (the tests hand in
     the JAX package's)."""
 
@@ -192,6 +195,11 @@ class Turb:
             st = drive(st, sim, grid, self.dedt, self.pars,
                        self._devs(-1, grid, U), 1.0)
         return st
+
+    def resume(self, nstep: int):
+        """Continue the driving sequence of a run restarted at cycle
+        `nstep` (the checkpoint's, read on the host)."""
+        self.cycle = nstep
 
     def userwork_in_loop(self, state, sim: SimConfig, grid: GridConfig,
                          aux=None):

@@ -11,8 +11,11 @@ hierarchy (``Simulation.from_par`` then returns a
   - ``Simulation.step()``: one mesh update in the reference's order —
     radiation sub-cycle (may shrink dt), ghost fill, CTU hydro, problem
     userwork, time/dt update, ghost fill (main.c:541-669).
-  - ``Simulation.run()``: host loop with tlim/nlim termination and
-    zone-cycles/sec reporting (main.c:699-735).
+  - ``Simulation.run()``: host loop with tlim/nlim termination, the
+    <outputN> dispatcher before each step and once at the end
+    (data_output), and zone-cycles/sec reporting (main.c:699-735).
+  - ``Simulation.from_checkpoint``: a run restarted from a checkpoint
+    (io/restart.py; main.c's -r).
 
 Every tensor lives on the ``device`` given at construction: ``"cuda"``
 unless the caller asks for ``"cpu"`` (without a visible GPU the default
@@ -35,7 +38,7 @@ from .config import (GridConfig, SimConfig, grid_config_from_par,
 from .integrators import ctu3d
 from .models import get_problem
 from .par import ParameterDB
-from .state import State, resolve_device
+from .state import State, from_numpy, resolve_device
 
 
 def parse_configure_line(par: ParameterDB) -> dict:
@@ -183,6 +186,33 @@ class Simulation:
         return cls.from_par(par, problem=problem, dtype=dtype, device=device,
                             **sim_overrides)
 
+    @classmethod
+    def from_checkpoint(cls, path: str, problem: Optional[str] = None,
+                        cmdline=(), device="cuda") -> "Simulation":
+        """Restart from a checkpoint of either package (io/restart.py): the
+        state, SimConfig and GridConfig it holds, its parameters with
+        `cmdline` applied.  The deck's problem name comes from `problem`
+        or its configure line.  A problem that counts cycles on the host
+        (turb) resumes at the checkpoint's nstep, read from the file."""
+        from .io.restart import read_checkpoint
+        arrays, sim, grid, par = read_checkpoint(path)
+        par.apply_cmdline(cmdline)
+        if (par.geti_def("job", "num_domains", 1) > 1
+                and par.exist("domain2", "level")):
+            raise NotImplementedError(
+                f"restart of an SMR checkpoint ({path}) is not ported yet "
+                "(ROADMAP A13; the JAX package's -r restarts its root level "
+                "alone, ROADMAP C17)")
+        problem = problem or parse_configure_line(par).get("_problem")
+        if problem is None:
+            raise ValueError("no problem name given or found in deck")
+        prob = get_problem(problem)(par, sim, grid)
+        resume = getattr(prob, "resume", None)
+        if resume is not None:
+            resume(int(arrays["nstep"]))
+        return cls(par, sim, grid, prob, from_numpy(arrays, device=device),
+                   device=device)
+
     # ------------------------------------------------------------------- step
 
     def step(self):
@@ -223,9 +253,19 @@ class Simulation:
 
     # -------------------------------------------------------------------- run
 
-    def run(self, max_steps: Optional[int] = None, verbose: bool = False):
-        """Main loop (main.c:519-669) without outputs; returns
-        dict(steps, wall, zone_cycles_per_sec)."""
+    def make_outputs(self, outdir: str = "."):
+        """Build the <outputN> dispatcher (init_output analogue)."""
+        from .io.outputs import OutputSet
+        return OutputSet(self.par, outdir)
+
+    def run(self, max_steps: Optional[int] = None, verbose: bool = False,
+            output_fn=None, outdir: Optional[str] = None):
+        """Main loop (main.c:519-669); returns dict(steps, wall,
+        zone_cycles_per_sec).  output_fn(sim) is called before each step
+        and once at the end (data_output analogue); passing `outdir`
+        instead builds the deck's <outputN> dispatcher."""
+        if output_fn is None and outdir is not None:
+            output_fn = self.make_outputs(outdir)
         nlim = self.nlim if max_steps is None else max_steps
         zones = self.grid.Nx[0] * self.grid.Nx[1] * self.grid.Nx[2]
         steps0 = int(self.state.nstep)
@@ -237,6 +277,8 @@ class Simulation:
                 break
             if nlim is not None and nlim >= 0 and nstep - steps0 >= nlim:
                 break
+            if output_fn is not None:
+                output_fn(self)
             if verbose:
                 print(f"cycle={nstep} time={tnow:.6e} dt="
                       f"{float(self.state.dt):.6e}")
@@ -245,6 +287,8 @@ class Simulation:
             torch.cuda.synchronize(self.device)
         wall = _time.perf_counter() - t0
         nsteps = int(self.state.nstep) - steps0
+        if output_fn is not None:
+            output_fn(self)
         zcps = zones * nsteps / wall if wall > 0 else float("nan")
         if verbose:
             print(f"zone-cycles/wall-second = {zcps:.3e}")

@@ -82,6 +82,13 @@ def to_numpy(state) -> dict:
     return out
 
 
+def interior_numpy(t: torch.Tensor, grid: GridConfig) -> np.ndarray:
+    """The active cells of a padded [nv, Nz+2g, Ny+2g, Nx+2g] tensor as a
+    numpy array: one device-to-host copy of the interior alone (a view of
+    a CPU tensor)."""
+    return t[(slice(None),) + grid.interior()].cpu().numpy()
+
+
 def from_numpy(d: dict, device="cuda", dtype=None) -> State:
     """dict of numpy arrays (as from ``to_numpy``, or ``np.asarray`` of a
     JAX State's fields) -> State on `device` (the card unless the caller

@@ -117,7 +117,22 @@ and counted per form, "name[form]":
      the middle-phase path, 1 on MID=0 and 1 with the H-correction,
      through Simulation.from_file without a device; turb and linear_wave
      (4 scalars, then 40 distinct ones) at 256^3 float32 the same way, and
-     a CLI cycle of each.
+     a CLI cycle of each; phase 4's CLI cycles write no outputs
+     (job/maxout=0) but the SMR one, which writes a history and a cons VTK
+     output per level with -d (level 1's under lev1/ with a -lev1 problem
+     id; the first rows and dumps equal to each level's initial state);
+  5. outputs and restart at full width (phase5): the bench configuration
+     at 256^3 float32, 4 cycles through Simulation.run against 2 CLI
+     cycles with -d (a checkpoint, a history row per dispatcher call, a
+     cons VTK dump, the EdgeFlux as VTK) and 2 more restarted with -r from
+     their final checkpoint: the last checkpoint's U, Eflux, time, dt and
+     nstep bit for bit the uninterrupted run's; the history rows and the
+     VTK density and EdgeFlux read back with the port's vis readers equal
+     to the uninterrupted run's; then the writers' times beside the card's
+     name and power limit: a history row, a VTK dump and a checkpoint
+     write and load (seconds and bytes), and the bench step with a history
+     row every cycle against none.  Outputs go to chip_smoke_out/ in the
+     checkout, which the phases remove.
 
 It ends with a JSON line of the kernels (launches from the phase-4 run of
 each kernel's path: the SMR run first, then the bench run, the K=1 runs,
@@ -151,6 +166,13 @@ SEDOV_GOLD = os.path.join(HERE, "tests", "golden", "testsedov_20cycles.npz")
 BLAST2 = os.path.join(HERE, "tests", "golden", "athinput.blast2lev")
 BLAST3 = os.path.join(HERE, "tests", "golden", "athinput.blast3lev")
 ISPH2 = os.path.join(HERE, "tests", "golden", "athinput.isph2lev")
+# phases 4-5 write their outputs under this directory of the checkout
+# (listed in .gitignore) and remove it when they are done
+OUT_DIR = os.path.join(HERE, "chip_smoke_out")
+# phase 4's SMR CLI cycle: a history and a cons VTK output in place of the
+# deck's full-grid tab output1, each written at the start and at the end
+SMR_OUTS = ["job/maxout=2", "output1/out_fmt=hst", "output1/dt=1e30",
+            "output2/out_fmt=vtk", "output2/out=cons", "output2/dt=1e30"]
 BLAST2_GOLD = os.path.join(HERE, "tests", "golden", "blast2lev_10cycles.npz")
 BLAST2_GOLD3 = os.path.join(HERE, "tests", "golden", "blast2lev_3cycles.npz")
 BLAST3_GOLD = os.path.join(HERE, "tests", "golden", "blast3lev_5cycles.npz")
@@ -2806,7 +2828,7 @@ def phase4():
         f"fields finite, dt {dt:.6e}")
     del s, st, U
     rc = cli.main(["-i", DECK, "--problem", "ioniz_sphere", "--dtype",
-                   "float32", "time/nlim=1", *bench])
+                   "float32", "time/nlim=1", "job/maxout=0", *bench])
     if rc != 0:
         raise AssertionError(f"CLI returned {rc}")
     torch.cuda.synchronize()
@@ -2888,7 +2910,7 @@ def phase4():
     with path_env("ppm"):
         rc = cli.main(["-i", DECK, "--problem", "ioniz_sphere", "--dtype",
                        "float32", "time/nlim=1", "configure/order=3",
-                       *bench])
+                       "job/maxout=0", *bench])
     if rc != 0:
         raise AssertionError(f"CLI returned {rc}")
     torch.cuda.synchronize()
@@ -2973,7 +2995,10 @@ def phase4_smr(ncyc=3):
     maxiter=50, batch_iters=25 (the root's batch sub-cycle; the child takes
     the K=1 loop with the parent's EdgeFlux), ncyc cycles through
     Simulation.from_file without a device argument, then one cycle through
-    the CLI.  Returns the launch counts and the headline numbers."""
+    the CLI with -d, a history and a VTK output (each written at the start
+    and at the end): level 1's files under lev1/ with a -lev1 problem id,
+    their first rows and dumps equal to each level's initial state.
+    Returns the launch counts and the headline numbers."""
     import torch
     from atmospheric_athena_tpu_torch import Simulation
     from atmospheric_athena_tpu_torch import __main__ as cli
@@ -2994,6 +3019,7 @@ def phase4_smr(ncyc=3):
     if not isinstance(s, MeshSimulation) or s.device.type != "cuda" \
             or len(s.levels) != 2:
         raise AssertionError(f"isph2lev: {type(s).__name__} on {s.device}")
+    first = [level_snapshot(lv.state, s.sim, lv.grid) for lv in s.levels]
     reset_counts()
     res = s.run(max_steps=ncyc)
     counts = read_counts()
@@ -3007,24 +3033,300 @@ def phase4_smr(ncyc=3):
                              f"finite={finite}, dt={dt}")
     cycle_ms = 1e3 * res["wall"] / res["steps"]
     iters = s.rad_iters[-ncyc:]
+    s_sim = s.sim
     del s
+    out = os.path.join(OUT_DIR, "isph2lev")
+    t0 = time.perf_counter()
     rc = cli.main(["-i", ISPH2, "--problem", "ioniz_sphere", "--dtype",
-                   "float32", "time/nlim=1", *cmd])
+                   "float32", "time/nlim=1", "-d", out, *cmd, *SMR_OUTS])
     if rc != 0:
         raise AssertionError(f"CLI returned {rc}")
     torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    files = check_level_files(out, first, s_sim)
     say(f"phase 4 isph2lev {n}^3 + {n}^3 float32 maxiter={MAXITER} "
         f"batch_iters={BATCH_K} (the SMR main path), {ncyc} cycles via "
         f"Simulation.run: {cycle_ms:.1f} ms per cycle, "
         f"{res['zone_cycles_per_sec']:.4e} zone-cycles/s over both levels; "
         f"radiation sub-iterations per cycle (root substeps, child "
-        f"iterations) {iters}; setup {setup_s:.1f} s; then 1 CLI cycle; "
-        f"peak device memory {peak:.2f} GiB; all fields finite, dt "
+        f"iterations) {iters}; setup {setup_s:.1f} s; then 1 CLI cycle "
+        f"with -d, a history and a VTK output per level ({cli_s:.1f} s; "
+        f"{files}); peak device memory {peak:.2f} GiB; all fields finite, dt "
         f"{dt:.6e}; launches { {k: v for k, v in counts.items() if v} }")
     return counts, dict(cycle_ms=cycle_ms,
                         zone_cycles_per_sec=res["zone_cycles_per_sec"],
                         rad_iters=iters, peak_gib=peak)
+
+
+def level_snapshot(st, sim, grid):
+    """What a level's first history row and VTK dump must hold: the row
+    as the history file formats it, the density interior in float32."""
+    from atmospheric_athena_tpu_torch.io import history
+    from atmospheric_athena_tpu_torch.state import interior_numpy
+    import numpy as np
+    row = history.compute_history(st, sim, grid).cpu().tolist()
+    return dict(row=[f"{v:14.6e}".strip() for v in row],
+                density=interior_numpy(st.U[:1], grid)[0].astype(
+                    np.float32),
+                time=float(st.time))
+
+
+def check_hst(path, sim, rows):
+    """The history file's names are the JAX package's and its rows the
+    snapshots' rows, in order."""
+    from atmospheric_athena_tpu_torch import vis
+    from atmospheric_athena_tpu_torch.io import history
+    h = vis.read_hst(path)
+    names = [k for k in h if k != "data"]
+    if names != history.history_names(sim):
+        raise AssertionError(f"{path}: columns {names}")
+    with open(path) as fh:
+        got = [line.split() for line in fh if not line.startswith("#")]
+    if got != [r["row"] for r in rows]:
+        raise AssertionError(f"{path}: rows {got} != {[r['row'] for r in rows]}")
+
+
+def check_vtk(path, name, want, time_):
+    """A VTK file's field `name` equal to `want` (float32) element for
+    element, at the time `time_`."""
+    from atmospheric_athena_tpu_torch import vis
+    import numpy as np
+    v = vis.read_vtk(path)
+    got = v[name].astype(np.float32)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        bad = (got != want).sum() if got.shape == want.shape else got.shape
+        raise AssertionError(f"{path} {name}: {bad} elements differ")
+    if v["time"] != float(f"{time_:e}"):
+        raise AssertionError(f"{path}: time {v['time']} != {time_}")
+    return os.path.getsize(path)
+
+
+def check_level_files(out, first, sim):
+    """Phase 4's SMR CLI cycle: per level, the history file (rows at the
+    start and at the forced end, the first equal to the level's initial
+    state) and the VTK dumps at the start (equal to the level's initial
+    density) and at the end (finite, later); level 1's under lev1/ with
+    a -lev1 problem id."""
+    import shutil
+
+    import numpy as np
+    from atmospheric_athena_tpu_torch import vis
+    from atmospheric_athena_tpu_torch.io import history
+    sizes = []
+    for li, snap in enumerate(first):
+        d = out if li == 0 else os.path.join(out, f"lev{li}")
+        pid = "isph" if li == 0 else f"isph-lev{li}"
+        want = sorted([f"{pid}.hst", f"{pid}.0000.vtk", f"{pid}.0001.vtk"]
+                      + ([f"lev{j}" for j in range(1, len(first))]
+                         if li == 0 else []))
+        if sorted(os.listdir(d)) != want:
+            raise AssertionError(f"{d}: {sorted(os.listdir(d))} != {want}")
+        hst = os.path.join(d, f"{pid}.hst")
+        h = vis.read_hst(hst)
+        if [k for k in h if k != "data"] != history.history_names(sim) \
+                or h["data"].shape[0] != 2:
+            raise AssertionError(f"{hst}: {h['data'].shape[0]} rows, "
+                                 f"columns {list(h)}")
+        with open(hst) as fh:
+            rows = [line.split() for line in fh if not line.startswith("#")]
+        if rows[0] != snap["row"]:
+            raise AssertionError(f"{hst}: first row {rows[0]} != "
+                                 f"{snap['row']}")
+        n0 = check_vtk(os.path.join(d, f"{pid}.0000.vtk"), "density",
+                       snap["density"], snap["time"])
+        v = vis.read_vtk(os.path.join(d, f"{pid}.0001.vtk"))
+        if not (v["time"] > 0 and np.isfinite(v["density"]).all()
+                and v["density"].shape == snap["density"].shape):
+            raise AssertionError(f"{d}: the final dump")
+        sizes.append(f"{pid}: {n0} bytes per VTK dump")
+    shutil.rmtree(out)
+    return ", ".join(sizes)
+
+
+def bitwise_equal(x, y):
+    import numpy as np
+    return (x.dtype == y.dtype and x.shape == y.shape
+            and np.array_equal(x.reshape(-1).view(np.uint8),
+                               y.reshape(-1).view(np.uint8)))
+
+
+def phase5(n=256):
+    """Outputs and restart at full width: the bench configuration at 256^3
+    float32 (maxiter=50, batch_iters=25).
+
+    (a) Run A: 4 cycles through Simulation.run without outputs (its
+    output_fn only records, before each cycle and at the end, the time,
+    the history row and the density and EdgeFlux interiors).  Run B: the
+    CLI with -d, time/nlim=2 and four outputs: a checkpoint (output1, in
+    place of the deck's full-grid tab; written at the start and forced at
+    the end), a history row at every call of the dispatcher (its dt half
+    of run A's shortest cycle), a cons VTK dump and the EdgeFlux as VTK
+    (usr_expr_flag=1; nothing at the start, before the first radiation
+    sub-cycle, C20).  Then -r of run B's final checkpoint into a second
+    directory (the restarted run numbers its files from 0000 again, C18)
+    with time/nlim=2 and job/maxout=1 (the checkpoint alone): its final
+    checkpoint's U, Eflux, time, dt and nstep equal to run A's bit for
+    bit.  (b) Run B's files read back with the port's vis readers: one
+    history row per call of the dispatcher, each equal to run A's row at
+    that time, with the JAX package's names; the VTK density and EdgeFlux
+    equal to run A's interiors in float32 element for element.  (d) The
+    writers timed on run A's final state: ms per history row, seconds and
+    bytes of a VTK dump, of a checkpoint write and of its load onto the
+    card; and the bench step with a history row every cycle against none
+    (3 cycles each from one state, in turns: none, row, row, none)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from atmospheric_athena_tpu_torch import Simulation
+    from atmospheric_athena_tpu_torch import __main__ as cli
+    from atmospheric_athena_tpu_torch.io import history, restart, vtk
+    from atmospheric_athena_tpu_torch.state import to_numpy
+    bench = ([f"domain1/Nx{a}={n}" for a in (1, 2, 3)]
+             + [f"ionradiation/maxiter={MAXITER}",
+                f"ionradiation/batch_iters={BATCH_K}"])
+    out = os.path.join(OUT_DIR, "phase5")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    a = Simulation.from_file(DECK, problem="ioniz_sphere", cmdline=bench,
+                             dtype="float32")
+    seen = []
+
+    def record(sim_obj):
+        snap = level_snapshot(sim_obj.state, sim_obj.sim, sim_obj.grid)
+        ef = sim_obj.state.Eflux
+        snap["flux"] = (None if ef is None else
+                        ef[..., :-1].cpu().numpy().astype(np.float32))
+        seen.append(snap)
+    reset_counts()
+    a.run(max_steps=4, output_fn=record)
+    counts = {"A": read_counts()}
+    check_counts(f"phase 5 {n}^3 run A", counts["A"], "batch")
+    ref = to_numpy(a.state)
+    times = [x["time"] for x in seen]
+    hst_dt = 0.5 * float(min(np.diff(times)))
+    if len(seen) != 5 or not hst_dt > 0:
+        raise AssertionError(f"phase 5 run A: times {times}")
+
+    outs = ["job/maxout=4", "output1/out_fmt=rst", "output1/dt=1e30",
+            "output2/out_fmt=hst", f"output2/dt={hst_dt!r}",
+            "output3/out_fmt=vtk", "output3/out=cons", "output3/dt=1e30",
+            "output4/out_fmt=vtk", "output4/out=flux",
+            "output4/usr_expr_flag=1", "output4/dt=1e30"]
+    run_b, run_r = os.path.join(out, "b"), os.path.join(out, "r")
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["-i", DECK, "--problem", "ioniz_sphere", "--dtype",
+                   "float32", "-d", run_b, "time/nlim=2", *bench, *outs])
+    torch.cuda.synchronize()
+    b_s = time.perf_counter() - t0
+    counts["B"] = read_counts()
+    if rc != 0:
+        raise AssertionError(f"phase 5 run B: CLI returned {rc}")
+    check_counts(f"phase 5 {n}^3 CLI run B", counts["B"], "batch")
+    want = ["isph.0000.rst.npz", "isph.0000.vtk", "isph.0001.out4.vtk",
+            "isph.0001.rst.npz", "isph.0001.vtk", "isph.hst"]
+    if sorted(os.listdir(run_b)) != want:
+        raise AssertionError(f"phase 5 run B wrote {os.listdir(run_b)}")
+    # the dispatcher's calls: before cycles 1 and 2, after the last, forced
+    check_hst(os.path.join(run_b, "isph.hst"), a.sim, seen[:3] + seen[2:3])
+    vtk_bytes = check_vtk(os.path.join(run_b, "isph.0000.vtk"), "density",
+                          seen[0]["density"], seen[0]["time"])
+    check_vtk(os.path.join(run_b, "isph.0001.vtk"), "density",
+              seen[2]["density"], seen[2]["time"])
+    check_vtk(os.path.join(run_b, "isph.0001.out4.vtk"), "flux",
+              seen[2]["flux"], seen[2]["time"])
+    del seen
+
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["-r", os.path.join(run_b, "isph.0001.rst.npz"),
+                   "--problem", "ioniz_sphere", "-d", run_r, "time/nlim=2",
+                   "job/maxout=1"])
+    torch.cuda.synchronize()
+    r_s = time.perf_counter() - t0
+    counts["restart"] = read_counts()
+    if rc != 0:
+        raise AssertionError(f"phase 5 restart: CLI returned {rc}")
+    check_counts(f"phase 5 {n}^3 restart", counts["restart"], "batch")
+    if sorted(os.listdir(run_r)) != ["isph.0000.rst.npz",
+                                     "isph.0001.rst.npz"]:
+        raise AssertionError(f"phase 5 restart wrote {os.listdir(run_r)}")
+    t0 = time.perf_counter()
+    got, _, _, _ = restart.read_checkpoint(
+        os.path.join(run_r, "isph.0001.rst.npz"))
+    read_s = time.perf_counter() - t0
+    differ = {k: (int((got[k] != ref[k]).sum())
+                  if got[k].shape == ref[k].shape else got[k].shape)
+              for k in ref if not bitwise_equal(got[k], ref[k])}
+    if set(got) != set(ref) or differ:
+        raise AssertionError(f"phase 5: the restarted run's final checkpoint "
+                             f"differs from run A's state: {differ} "
+                             f"(elements), arrays {sorted(got)}")
+    say(f"phase 5 {n}^3 float32 bench configuration: run A (4 cycles via "
+        f"Simulation.run) against run B (the CLI, time/nlim=2, -d: a "
+        f"checkpoint, a history row per dispatcher call (dt {hst_dt!r} s), a "
+        f"cons VTK dump, the EdgeFlux as VTK; {b_s:.2f} s) then -r of its "
+        f"final checkpoint (time/nlim=2, the checkpoint alone; {r_s:.2f} "
+        f"s): U, Eflux, time, dt and nstep bit for bit equal to run A's "
+        f"after 4 cycles; the history rows and VTK density and EdgeFlux "
+        f"equal to run A's")
+    del got, ref
+
+    # (d) the writers on run A's final state
+    smi = smi_line()
+    p = os.path.join(out, "t")
+    os.makedirs(p)
+    w = history.HistoryWriter(os.path.join(p, "t.hst"), a.sim)
+    w(a.state, a.grid)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        w(a.state, a.grid)
+    hst_ms = 1e3 * (time.perf_counter() - t0) / 20
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vtk.dump_vtk(a.state, a.sim, a.grid, os.path.join(p, "t.vtk"))
+    vtk_s = time.perf_counter() - t0
+    ck = os.path.join(p, "t.rst.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restart.save_checkpoint(ck, a.state, a.sim, a.grid, a.par)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st, _, _, _ = restart.load_checkpoint(ck)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if not torch.equal(st.U, a.state.U):
+        raise AssertionError("phase 5: a loaded checkpoint differs")
+    ck_bytes = os.path.getsize(ck)
+    del st
+
+    # the bench step with a history row every cycle against none, from one
+    # state, in turns
+    st0 = a.state.replace(U=a.state.U.clone(), Eflux=a.state.Eflux.clone())
+    w = history.HistoryWriter(os.path.join(p, "s.hst"), a.sim)
+    step_ms = {"none": [], "row": []}
+    for kind in ("none", "row", "row", "none"):
+        a.state = st0.replace(U=st0.U.clone(), Eflux=st0.Eflux.clone())
+        fn = None if kind == "none" else (lambda s: w(s.state, s.grid))
+        r = a.run(max_steps=3, output_fn=fn)
+        step_ms[kind].append(1e3 * r["wall"] / r["steps"])
+    shutil.rmtree(OUT_DIR)
+    res = dict(hst_ms=hst_ms, vtk_s=vtk_s, vtk_bytes=vtk_bytes,
+               ckpt_write_s=save_s, ckpt_load_s=load_s,
+               ckpt_read_host_s=read_s, ckpt_bytes=ck_bytes,
+               run_b_s=b_s, restart_s=r_s,
+               step_ms_none=statistics.mean(step_ms["none"]),
+               step_ms_row=statistics.mean(step_ms["row"]))
+    say(f"phase 5 {n}^3 float32 on {smi}: a history row {hst_ms:.3f} ms; "
+        f"a cons VTK dump {vtk_s:.3f} s, {vtk_bytes} bytes; a checkpoint "
+        f"write (savez_compressed) {save_s:.3f} s, {ck_bytes} bytes, its "
+        f"load onto the card {load_s:.3f} s (its read on the host "
+        f"{read_s:.3f} s); bench step {res['step_ms_none']:.2f} ms without "
+        f"outputs, {res['step_ms_row']:.2f} ms with a history row every "
+        f"cycle (3 cycles each, turns none/row/row/none: {step_ms})")
+    return counts, res
 
 
 def ptxas_report(source, kernels):
@@ -3437,6 +3739,8 @@ def main():
     lw, _ = phase4_lw(ns=LW_MANY)
     counts.update(lw)
     lap("phase 4 linear_wave")
+    phase5()
+    lap("phase 5")
 
     # each kernel's launches in the phase-4 run of the first path that
     # runs it: the SMR run (3 cycles), then the bench run (3), the

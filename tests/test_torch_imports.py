@@ -1,6 +1,8 @@
 """The port stands alone: it imports, builds the ioniz_sphere deck and an
-SMR deck (hierarchy.py, smr.py) and takes a step of each with JAX made
-unimportable, and it refuses a CUDA device when none is visible."""
+SMR deck (hierarchy.py, smr.py) and takes a step of each, writes every
+output format, a checkpoint it restarts from and reads them back (io/,
+vis/) with JAX made unimportable, and it refuses a CUDA device when none
+is visible."""
 
 import os
 import subprocess
@@ -27,6 +29,25 @@ s = P.Simulation.from_file({DECK!r}, problem="ioniz_sphere",
 s.step()
 import torch
 assert bool(torch.isfinite(s.state.U).all()) and float(s.state.dt) > 0
+import os
+outdir = sys.argv[1]
+blocks = ["hst", "vtk", "rst", "bin", "tab", "vtk out=flux usr_expr_flag=1",
+          "ppm out=d x3=0", "pgm out=P x3=0", "pdf out=E", "tab out=V1 x2=0"]
+for i, b in enumerate(blocks):
+    fmt, *keys = b.split()
+    s.par.set(f"output{{i + 1}}", "out_fmt", fmt)
+    for kv in keys:
+        s.par.set(f"output{{i + 1}}", *kv.split("="))
+s.par.set("job", "maxout", len(blocks))
+s.make_outputs(outdir)(s, force=True)
+from atmospheric_athena_tpu_torch import vis
+assert len(os.listdir(outdir)) == len(blocks), os.listdir(outdir)
+v = vis.read_vtk(os.path.join(outdir, "isph.0000.vtk"))
+assert v["density"].shape == (16, 16, 16)
+assert len(vis.read_hst(os.path.join(outdir, "isph.hst"))["mass"]) == 1
+r = P.Simulation.from_checkpoint(os.path.join(outdir, "isph.0000.rst.npz"),
+                                 problem="ioniz_sphere", device="cpu")
+assert torch.equal(r.state.U, s.state.U) and int(r.state.nstep) == 1
 from atmospheric_athena_tpu_torch import hierarchy, smr
 m = P.Simulation.from_file({SMR_DECK!r}, problem="ioniz_sphere",
                            cmdline=["domain1/Nx1=16", "domain1/Nx2=16",
@@ -48,10 +69,11 @@ print("ok", int(s.state.nstep))
 """
 
 
-def test_port_runs_without_jax():
+def test_port_runs_without_jax(tmp_path):
     env = dict(os.environ, PYTHONPATH="")
-    res = subprocess.run([sys.executable, "-c", _SCRIPT], capture_output=True,
-                         text=True, timeout=600, env=env, cwd=REPO)
+    res = subprocess.run([sys.executable, "-c", _SCRIPT, str(tmp_path)],
+                         capture_output=True, text=True, timeout=600,
+                         env=env, cwd=REPO)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok 1")
 

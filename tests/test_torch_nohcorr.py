@@ -366,9 +366,9 @@ def test_testsedov_golden(path):
     assert worst[1] <= 1e-11 and worst[20] <= 1e-9
 
 
-def test_cli_runs_testsedov(capsys):
+def test_cli_runs_testsedov(tmp_path, capsys):
     rc = cli.main(["-i", SEDOV, "--problem", "testsedov", "--flux", "hllc",
-                   "--device", "cpu", "time/nlim=1"])
+                   "--device", "cpu", "-d", str(tmp_path), "time/nlim=1"])
     assert rc == 0
     out = capsys.readouterr().out.splitlines()
     assert out[1].startswith("cycle=0 time=0.000000e+00 dt=")

@@ -321,7 +321,7 @@ def test_testsedov_hlle_cycles_match_jnp(path, hcorr):
             close_interior(b.state.U, a.state.U, a.grid)
 
 
-def test_cli_selects_ppm_and_hlle(capsys):
+def test_cli_selects_ppm_and_hlle(tmp_path, capsys):
     """configure/order=3 on the command line and --flux hlle select PPM
     and HLLE (the deck names neither)."""
     rc = cli.main(["-i", SEDOV, "--problem", "testsedov", "--flux", "hlle",
@@ -330,7 +330,8 @@ def test_cli_selects_ppm_and_hlle(capsys):
     out = capsys.readouterr().out
     assert "order='3'" in out and "flux='hlle'" in out
     rc = cli.main(["-i", SEDOV, "--problem", "testsedov", "--flux", "hlle",
-                   "--device", "cpu", "time/nlim=1", "configure/order=3"])
+                   "--device", "cpu", "-d", str(tmp_path), "time/nlim=1",
+                   "configure/order=3"])
     assert rc == 0
     assert capsys.readouterr().out.splitlines()[-1].startswith(
         "zone-cycles/wall-second = ")

@@ -319,10 +319,10 @@ def test_isph2lev_matches_jax_mesh():
     assert int(b.state.nstep) == 2
 
 
-def test_entry_points():
+def test_entry_points(tmp_path):
     """from_file of an SMR deck gives a MeshSimulation, which runs on the
     card unless asked for the CPU, counts the zones of every level, and
-    refuses outputs (A9)."""
+    writes the deck's outputs per level (level 1 under lev1/)."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             Simulation.from_file(BLAST2, problem="blast")
@@ -336,13 +336,16 @@ def test_entry_points():
     assert s.grid == s.levels[0].grid and s.device.type == "cpu"
     res = s.run(max_steps=1)
     assert res["steps"] == 1 and res["zone_cycles_per_sec"] > 0
-    with pytest.raises(NotImplementedError, match="A9"):
-        s.run(max_steps=1, outdir="unused")
+    res = s.run(max_steps=1, outdir=str(tmp_path))
+    assert res["steps"] == 1
+    assert sorted(os.listdir(tmp_path)) == ["bl2.0000.tab", "lev1"]
+    assert os.listdir(tmp_path / "lev1") == ["bl2-lev1.0000.tab"]
 
 
-def test_cli_runs_isph2lev(capsys):
+def test_cli_runs_isph2lev(tmp_path, capsys):
     rc = cli.main(["-i", ISPH2, "--problem", "ioniz_sphere", "--device",
-                   "cpu", "time/nlim=1", "ionradiation/maxiter=5"])
+                   "cpu", "-d", str(tmp_path), "time/nlim=1",
+                   "ionradiation/maxiter=5"])
     assert rc == 0
     out = capsys.readouterr().out.splitlines()
     assert out[1].startswith("cycle=0 time=0.000000e+00 dt=")

@@ -152,12 +152,13 @@ def test_simulation_two_cycles_match_jnp():
     assert len(b.rad_iters) == 2
 
 
-def test_cli_runs_one_cycle(capsys):
+def test_cli_runs_one_cycle(tmp_path, capsys):
     rc = cli.main(["-i", DECK, "--problem", "ioniz_sphere", "--device",
-                   "cpu", "time/nlim=1", *CMD])
+                   "cpu", "-d", str(tmp_path), "time/nlim=1", *CMD])
     assert rc == 0
     out = capsys.readouterr().out.splitlines()
-    assert "output1" in out[0] and "skipped" in out[0]
+    assert out[0] == f"# output blocks output1 -> {tmp_path}"
+    assert sorted(os.listdir(tmp_path)) == ["isph.0000.tab", "isph.0001.tab"]
     assert out[1].startswith("cycle=0 time=0.000000e+00 dt=")
     assert out[-1].startswith("zone-cycles/wall-second = ")
 
