@@ -13,10 +13,14 @@ edge and corner ghosts come out right (bvals_mhd.c:170-171).  Flags
   4 periodic  — wrap-around copy
   5 conductor — identical to reflect for the cell-centred hydro state
 
-``apply_bc`` dispatches as the JAX package's does (``_bc_supported``): the
-kernel wrapper ``bc_fill`` when every flag of every active axis is
-outflow, reflect or conductor and ``ATHENA_TPU_PALLAS_BC`` is not
-0/off/false, else the plain fill ``bc_fill_plain``.  ``bc_fill`` launches
+``apply_bc`` dispatches as the JAX package's does (``apply_bc`` and
+``_bc_supported``): the kernel wrapper ``bc_fill`` when the grid is 3D,
+every flag of every active axis is outflow, reflect or conductor, the
+problem enrolls no boundary function and ``ATHENA_TPU_PALLAS_BC`` is not
+0/off/false, else the plain fill.  A problem's ``bc_ix1`` .. ``bc_ox3``
+(bvals_mhd_fun, bvals_mhd.c:906-939) replaces the flag's fill of its side
+in the plain fill's order, taking and returning the State (``user_fns``);
+flag 0 (user) needs one.  ``bc_fill`` launches
 csrc/bvals.cu for a CUDA tensor (and raises if it cannot) and runs the
 plain fill for a CPU tensor.  Both write a new array, so ``apply_bc`` has
 one contract on both devices.  ``bc_fill.launches`` counts kernel launches.
@@ -30,7 +34,7 @@ import torch
 
 from . import cuda_lib
 from .config import (BC_CONDUCTOR, BC_DONOTHING, BC_OUTFLOW, BC_PERIODIC,
-                     BC_REFLECT, GridConfig, SimConfig)
+                     BC_REFLECT, BC_USER, GridConfig, SimConfig)
 from .defs import IM1
 from .state import State
 
@@ -52,45 +56,88 @@ def kernel_enabled() -> bool:
 
 
 def kernel_covers(grid: GridConfig) -> bool:
-    """The configurations bc_fill's kernel fills: outflow, reflect or
-    conductor on both sides of every active axis, each with at least
-    nghost interior cells (so every fill reads interior cells only)."""
-    return all(flag in _MODE and grid.Nx[a] >= grid.nghost
-               for a in range(3) if grid.active(a) for flag in grid.bc[a])
+    """The configurations bc_fill's kernel fills: a 3D grid (JAX
+    _bc_supported refuses 2D and 1D ones through its NZ % 8 tiling) with
+    outflow, reflect or conductor on both sides of every axis, each with
+    at least nghost interior cells (so every fill reads interior cells
+    only)."""
+    return grid.ndim == 3 and all(
+        flag in _MODE and grid.Nx[a] >= grid.nghost
+        for a in range(3) for flag in grid.bc[a])
+
+
+def _sides(grid: GridConfig):
+    """(axis, side, flag) of every face of the active axes, in the fill
+    order: x1 -> x2 -> x3, lo then hi."""
+    return [(axis, side, flag) for axis in (0, 1, 2) if grid.active(axis)
+            for side, flag in zip(("lo", "hi"), grid.bc[axis])]
+
+
+def _fill_side(U, grid: GridConfig, axis: int, side: str, flag: int):
+    """Fill the ghost slab of one face of U in place for a deck flag."""
+    ng = grid.nghost
+    nd = U.dim()
+    dim = 3 - axis                 # +1 for the variable axis of U
+    n = U.shape[dim]
+    dst = slice(0, ng) if side == "lo" else slice(n - ng, n)
+    if flag == BC_PERIODIC:
+        src = (slice(n - 2 * ng, n - ng) if side == "lo"
+               else slice(ng, 2 * ng))
+        U[_idx(nd, dim, dst)] = U[_idx(nd, dim, src)]
+    elif flag == BC_OUTFLOW:
+        src = (slice(ng, ng + 1) if side == "lo"
+               else slice(n - ng - 1, n - ng))
+        U[_idx(nd, dim, dst)] = U[_idx(nd, dim, src)]
+    elif flag in (BC_REFLECT, BC_CONDUCTOR):
+        src = (slice(ng, 2 * ng) if side == "lo"
+               else slice(n - 2 * ng, n - ng))
+        blk = U[_idx(nd, dim, src)].flip(dim)
+        blk[IM1 + axis] = -blk[IM1 + axis]
+        U[_idx(nd, dim, dst)] = blk
+    elif flag == BC_USER:
+        raise ValueError(f"BC flag 0 on axis {axis} ({side}) but the "
+                         "problem enrolls no user BC function")
+    else:
+        raise NotImplementedError(
+            f"BC flag {flag} on axis {axis} (ROADMAP A15)")
 
 
 def bc_fill_plain(U, grid: GridConfig):
     """The plain fill: a copy of U with every ghost zone filled."""
-    ng = grid.nghost
     U = U.clone()
-    nd = U.dim()
-    for axis in (0, 1, 2):
-        if not grid.active(axis):
-            continue
-        dim = 3 - axis             # +1 for the variable axis of U
-        n = U.shape[dim]
-        for side, flag in zip(("lo", "hi"), grid.bc[axis]):
-            if flag == BC_DONOTHING:
-                continue
-            dst = slice(0, ng) if side == "lo" else slice(n - ng, n)
-            if flag == BC_PERIODIC:
-                src = (slice(n - 2 * ng, n - ng) if side == "lo"
-                       else slice(ng, 2 * ng))
-                U[_idx(nd, dim, dst)] = U[_idx(nd, dim, src)]
-            elif flag == BC_OUTFLOW:
-                src = (slice(ng, ng + 1) if side == "lo"
-                       else slice(n - ng - 1, n - ng))
-                U[_idx(nd, dim, dst)] = U[_idx(nd, dim, src)]
-            elif flag in (BC_REFLECT, BC_CONDUCTOR):
-                src = (slice(ng, 2 * ng) if side == "lo"
-                       else slice(n - 2 * ng, n - ng))
-                blk = U[_idx(nd, dim, src)].flip(dim)
-                blk[IM1 + axis] = -blk[IM1 + axis]
-                U[_idx(nd, dim, dst)] = blk
-            else:
-                raise NotImplementedError(
-                    f"BC flag {flag} on axis {axis} (ROADMAP A15)")
+    for axis, side, flag in _sides(grid):
+        if flag != BC_DONOTHING:
+            _fill_side(U, grid, axis, side, flag)
     return U
+
+
+def user_fns(problem) -> dict:
+    """The boundary functions a problem enrolls: {(axis, side): fn} for
+    each of its bc_ix1 .. bc_ox3, fn(state, grid, sim) -> State."""
+    out = {}
+    for axis in (0, 1, 2):
+        for side, s in (("lo", "i"), ("hi", "o")):
+            fn = getattr(problem, f"bc_{s}x{axis + 1}", None)
+            if fn is not None:
+                out[(axis, side)] = fn
+    return out
+
+
+def _fill_user(state: State, grid: GridConfig, sim: SimConfig, fns: dict):
+    """The plain fill with the problem's functions in place of the flags
+    of their sides (JAX bvals._apply_bc_jnp): a side whose flag is 3 (do
+    nothing) keeps its ghosts even where a function is enrolled."""
+    U = state.U.clone()
+    for axis, side, flag in _sides(grid):
+        if flag == BC_DONOTHING:
+            continue
+        fn = fns.get((axis, side))
+        if fn is None:
+            _fill_side(U, grid, axis, side, flag)
+            continue
+        state = fn(state.replace(U=U), grid, sim)
+        U = state.U
+    return state.replace(U=U)
 
 
 def bc_fill(U, grid: GridConfig):
@@ -134,10 +181,9 @@ def apply_bc(state: State, grid: GridConfig, sim: SimConfig,
     """Return the state with all ghost zones of U filled."""
     if sim.mhd:
         raise NotImplementedError("MHD boundary conditions (ROADMAP A12)")
-    if problem is not None and any(
-            getattr(problem, f"bc_{s}x{a}", None) is not None
-            for s in ("i", "o") for a in (1, 2, 3)):
-        raise NotImplementedError("user boundary functions (ROADMAP A15)")
+    fns = user_fns(problem)
+    if fns:
+        return _fill_user(state, grid, sim, fns)
     if kernel_enabled() and kernel_covers(grid):
         U = bc_fill(state.U, grid)
     else:

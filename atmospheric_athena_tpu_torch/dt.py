@@ -16,10 +16,15 @@ from .state import State
 
 
 def max_dti(state: State, sim: SimConfig, grid: GridConfig):
-    """Maximum inverse timestep over this grid's active cells (0-d)."""
+    """Maximum inverse timestep over this grid's active cells (0-d): the
+    reduction kernel's wrapper on a 3D grid, the plain version on a 2D or
+    1D one on either device (the JAX package's kernel takes three active
+    axes, pallas_util.supported, and its dt.py runs jnp otherwise)."""
     if sim.mhd or sim.special_relativity or grid.cylindrical:
         raise NotImplementedError(
             "CFL for MHD, SR or cylindrical grids (ROADMAP A12/A15)")
+    if grid.ndim < 3:
+        return util_kernels.max_dti_hydro_plain(state.U, sim, grid)
     return util_kernels.max_dti_hydro(state.U, sim, grid)
 
 

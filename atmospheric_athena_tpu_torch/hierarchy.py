@@ -146,7 +146,10 @@ class MeshSimulation:
                  **sim_overrides) -> "MeshSimulation":
         from .simulation import configure
         dev = resolve_device(device)
-        prob_cls, sim, _ = configure(par, problem, dtype, sim_overrides)
+        prob_cls, sim, root = configure(par, problem, dtype, sim_overrides)
+        if root.ndim < 3:
+            raise NotImplementedError(
+                f"SMR on {root.ndim}D grids (ROADMAP A13)")
         doms = grids_from_par(par)
         levels = []
         for (lev, grid, disp, pidx) in doms:

@@ -1,0 +1,103 @@
+"""1D CTU integrator, hydrodynamics (``atmospheric_athena_tpu/integrators/
+ctu1d.py``; reference src/integrators/integrate_1d_ctu.c).
+
+One whole-grid step along x1.  Step numbering follows the reference: 1
+(L/R states and fluxes with the half-dt static-gravity source), 8 (n+1/2
+density), 11 (full-dt gravity source) and 12 (conservative update); the
+passive scalars ride along in the 1D-slice vectors.  Cartesian only (the
+cylindrical terms are ROADMAP A15), hydro only (MHD is A12).
+
+The JAX package runs this step as jnp on every backend (its Pallas kernels
+take three active axes), so it launches no kernel here either: the plain
+functions run on the tensors' device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import GridConfig, SimConfig
+from ..eos import cons1d_to_prim1d, prim1d_to_cons1d
+from ..ops import reconstruct, riemann
+from ..state import State
+from .sweep import from_sweep_flux, sh, to_sweep
+
+
+def check_supported(sim: SimConfig, grid: GridConfig):
+    if sim.gas != "hydro":
+        raise NotImplementedError("MHD CTU (ROADMAP A12)")
+    if grid.cylindrical:
+        raise NotImplementedError("cylindrical 1D CTU (ROADMAP A15)")
+    if sim.integrator != "ctu":
+        raise NotImplementedError(
+            f"the {sim.integrator} integrator (ROADMAP A11 step 5)")
+    if grid.ndim != 1 or not grid.active(0):
+        raise ValueError(f"ctu1d sweeps x1 (integrate_1d_ctu.c): Nx "
+                         f"{grid.Nx} must have x1 as its one active axis")
+
+
+def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
+         phi=None):
+    """Advance U by one 1D CTU step along x1.  `dt` is a 0-d tensor (or
+    float); `phi` is unused (the potential is evaluated here on the x1
+    line, as the JAX step does)."""
+    check_supported(sim, grid)
+    dx1 = grid.dx[0]
+    dtodx1 = dt / dx1
+    hdtodx1 = 0.5 * dtodx1
+
+    U = state.U
+    U1d = to_sweep(U, 0, sim)
+
+    # --- Step 1b: primitive states + L/R reconstruction --------------------
+    W = cons1d_to_prim1d(U1d, None, sim)
+    Wminus, Wplus = reconstruct.lr_states(W, None, dtodx1, sim)
+    # interface f between cells f-1 and f: Wl[f] = Wplus[f-1], Wr[f] =
+    # Wminus[f] (lr_states_plm.c:17-22)
+    Wl = sh(Wplus, -1)
+    Wr = Wminus
+
+    # --- Step 1c: static gravity source for dt/2 on L/R states -------------
+    # (integrate_1d_ctu.c:153-171)
+    phi_fn = getattr(problem, "static_grav_pot", None) if problem else None
+    if phi_fn is not None:
+        like = dict(dtype=U.dtype, device=U.device)
+        x1c = torch.as_tensor(grid.cc_coords(0)).to(**like)
+        x2 = torch.tensor(grid.xmin[1] + 0.5 * grid.dx[1], **like)
+        x3 = torch.tensor(grid.xmin[2] + 0.5 * grid.dx[2], **like)
+        phic = phi_fn(x1c, x2, x3)
+        phif = phi_fn(x1c - 0.5 * dx1, x2, x3)              # left faces
+        dVl = dtodx1 * (phif - sh(phic, -1))
+        dVr = dtodx1 * (phic - phif)
+        Wl[1] -= dVl
+        Wr[1] -= dVr
+
+    # --- Step 1d: interface fluxes ------------------------------------------
+    Ul = prim1d_to_cons1d(Wl, None, sim)
+    Ur = prim1d_to_cons1d(Wr, None, sim)
+    F = riemann.fluxes(Ul, Ur, Wl, Wr, None, sim)
+    dF = sh(F, 1) - F           # dF[..., i] = F[i+1] - F[i]
+
+    Unew = U1d
+    if phi_fn is not None:
+        # --- Step 8a: dhalf at n+1/2; Step 11a: full-dt gravity source ---
+        # (integrate_1d_ctu.c:445-465)
+        dhalf = U1d[0] - hdtodx1 * dF[0]
+        phir = phi_fn(x1c + 0.5 * dx1, x2, x3)
+        phil = phif
+        dM1 = dtodx1 * dhalf * (phir - phil)
+        dE = dtodx1 * (F[0] * (phic - phil) + sh(F[0], 1) * (phir - phic))
+        Unew = Unew.clone()
+        Unew[1] -= dM1
+        if sim.adiabatic:
+            Unew[4] -= dE
+
+    # --- Step 12a: conservative update --------------------------------------
+    Unew = Unew - dtodx1 * dF
+
+    # scatter back into the state's order, splicing only the active cells
+    Unew3 = from_sweep_flux(Unew, 0, sim)
+    lo, hi = grid.lo(0), grid.hi(0)
+    Uout = U.clone()
+    Uout[..., lo:hi + 1] = Unew3[..., lo:hi + 1]
+    return state.replace(U=Uout)

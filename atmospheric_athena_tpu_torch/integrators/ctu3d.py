@@ -1,8 +1,8 @@
-"""3D CTU integrator, adiabatic or isothermal hydrodynamics with static
-gravity, with or without the H-correction, reconstruction orders 1, 2, 3,
-2p and 3p, Roe, HLLE or HLLC fluxes
-(``atmospheric_athena_tpu/integrators/ctu3d.py`` with its fused sweep
-kernels on; reference integrate_3d_ctu.c).
+"""2D and 3D CTU integrator, adiabatic or isothermal hydrodynamics with
+static gravity, with or without the H-correction, reconstruction orders 1,
+2, 3, 2p and 3p, Roe, HLLE or HLLC fluxes
+(``atmospheric_athena_tpu/integrators/ctu3d.py``; reference
+integrate_3d_ctu.c and integrate_2d_ctu.c).
 
 The 12-step ordering is the correctness contract and is kept:
   steps 1-3   per-axis L/R states + first-pass fluxes
@@ -12,7 +12,12 @@ The 12-step ordering is the correctness contract and is kept:
   steps 11-12 full-dt gravity source and the conservative update, spliced
               into the interior.
 
-Two paths, chosen as the JAX package chooses them
+A 2D grid (one axis with a single cell) takes the plain functions on
+either device, over its two active axes (``_step_whole_flux`` with
+``plain``): the JAX package runs its Pallas kernels only with three active
+axes (ctu3d.py:152-153) and its jnp functions otherwise, so a 2D step
+launches no kernel, on the TPU as here.  A 3D grid takes one of two paths,
+chosen as the JAX package chooses them
 (``ops.ctu_mid_kernels.supported``: ATHENA_TPU_PALLAS_MID, on by default):
 
   middle-phase path (default) — the JAX ``use_pallas_mid`` branch
@@ -92,40 +97,67 @@ def check_supported(sim: SimConfig, grid: GridConfig):
     why = hydro_kernels.refusal(sim)
     if why is not None:
         raise NotImplementedError(f"CTU hydro: {why} is not ported")
-    if not all(grid.active(a) for a in range(3)):
-        raise NotImplementedError("1D/2D CTU (ROADMAP A10/A11)")
+    if grid.ndim < 2:
+        raise ValueError(f"ctu3d steps 2D and 3D grids, not {grid.ndim}D "
+                         "(1D grids take integrators/ctu1d.py)")
     if grid.cylindrical:
         raise NotImplementedError("cylindrical CTU (ROADMAP A15)")
 
 
 def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
          phi=None, return_fluxes=False):
-    """One CTU step over the three axes.  `dt` is a 0-d tensor (or float);
+    """One CTU step over the active axes.  `dt` is a 0-d tensor (or float);
     `phi` = (phic, [phif_x, phif_y, phif_z]) from _phi_arrays, or None to
-    evaluate the problem's potential here.  Takes the middle-phase path
-    (_step_mid, or _step_mid_fluxes with `return_fluxes`) unless
-    ATHENA_TPU_PALLAS_MID turns it off; the rest of this function is the
-    path with plain middle phases.  With `return_fluxes` it returns
-    (state, Fp2), Fp2[a] the step-9 flux of axis a [nv, NZ, NY, NX]
-    (index f: the interface between cells f-1 and f)."""
+    evaluate the problem's potential here.  A 2D grid takes the plain
+    functions (_step_whole_flux with plain=True) on either device; a 3D
+    grid takes the middle-phase path (_step_mid, or _step_mid_fluxes with
+    `return_fluxes`) unless ATHENA_TPU_PALLAS_MID turns it off, and then
+    _step_whole_flux with the sweep and step-9 kernels.  With
+    `return_fluxes` it returns (state, Fp2), Fp2[a] the step-9 flux of
+    active axis a [nv, NZ, NY, NX] (index f: the interface between cells
+    f-1 and f)."""
     check_supported(sim, grid)
-    axes = (0, 1, 2)
+    axes = tuple(a for a in range(3) if grid.active(a))   # JAX ctu3d:138
     dtodx = {a: dt / grid.dx[a] for a in axes}
     q = {a: 0.5 * dtodx[a] for a in axes}
 
     U = state.U
     phic, phif = phi if phi is not None else _phi_arrays(
         problem, grid, U.dtype, U.device)
-    if mid.supported():
+    if len(axes) < 3:
+        # 2D: the JAX package's jnp branch (ctu3d.py:226-452), as it runs
+        # on the TPU; no kernel launches, on the card either
+        Unew, Fp2 = _step_whole_flux(U, phic, phif, dtodx, q, sim, grid,
+                                     axes, plain=True)
+    elif mid.supported():
         if return_fluxes:
             Unew, Fp2 = _step_mid_fluxes(U, phic, phif, dtodx, q, sim, grid)
-            return state.replace(U=Unew), Fp2
-        return state.replace(U=_step_mid(U, phic, phif, dtodx, q, sim, grid))
+        else:
+            Unew, Fp2 = _step_mid(U, phic, phif, dtodx, q, sim, grid), None
+    else:
+        Unew, Fp2 = _step_whole_flux(U, phic, phif, dtodx, q, sim, grid,
+                                     axes, plain=False)
+    out = state.replace(U=Unew)
+    return (out, Fp2) if return_fluxes else out
+
+
+def _step_whole_flux(U, phic, phif, dtodx, q, sim: SimConfig,
+                     grid: GridConfig, axes, plain: bool):
+    """The step with whole first-pass fluxes and plain middle phases (JAX
+    ctu3d.py:226-452): returns (the new U, Fp2).  The sweeps and the
+    step-9 flux are the plain functions with `plain` (a 2D step) and the
+    kernel wrappers otherwise (ATHENA_TPU_PALLAS_MID=0 on a 3D grid)."""
+    if plain:
+        sweep = hydro_kernels.sweep_lrflux_plain
+        flux = hydro_kernels.flux_pointwise_plain
+    else:
+        sweep = hydro_kernels.sweep_lrflux
+        flux = hydro_kernels.flux_pointwise
 
     # === STEPS 1-3: per-axis L/R states + first-pass fluxes =================
     Ulp, Urp, Fp = {}, {}, {}
     for a in axes:
-        Ulp[a], Urp[a], Fp[a] = hydro_kernels.sweep_lrflux(
+        Ulp[a], Urp[a], Fp[a] = sweep(
             U, phic, phif[a] if phic is not None else None, dtodx[a], sim, a)
 
     # === STEPS 5-7: transverse corrections + gravity cross terms, eta =======
@@ -139,27 +171,24 @@ def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
             Ulp.pop(a), Urp.pop(a), dF, G, q, sim, a, axes)
     del dF, G
 
-    # === STEP 9: H-correction etah + final fluxes (pointwise kernel) ========
+    # === STEP 9: H-correction etah + final fluxes ===========================
     Fp2 = {}
     for a in axes:
         etah = mid.etah_gather(etas, a, axes) if sim.h_correction else None
-        Fp2[a] = hydro_kernels.flux_pointwise(Ulc.pop(a), Urc.pop(a), etah,
-                                              sim, a)
+        Fp2[a] = flux(Ulc.pop(a), Urc.pop(a), etah, sim, a)
     del etas
 
     # === STEPS 8, 11-12: dhalf, gravity source, update, interior splice =====
     Sg = (mid.grav_source_plain(U, Fp, Fp2, phic, phif, q, dtodx, axes)
           if phic is not None else None)
     del Fp
-    out = state.replace(U=mid.final_update_plain(U, Fp2, Sg, dtodx, sim,
-                                                 grid, axes))
-    return (out, Fp2) if return_fluxes else out
+    return mid.final_update_plain(U, Fp2, Sg, dtodx, sim, grid, axes), Fp2
 
 
 def _step_mid(U, phic, phif, dtodx, q, sim: SimConfig, grid: GridConfig):
-    """The middle-phase path (JAX ctu3d.py:212-387 with use_df): returns the
-    new U.  Each phase's inputs are freed as soon as its last reader has
-    run."""
+    """The middle-phase path of a 3D grid (JAX ctu3d.py:212-387 with
+    use_df): returns the new U.  Each phase's inputs are freed as soon as
+    its last reader has run."""
     axes = (0, 1, 2)
     grav = phic is not None
 

@@ -1,5 +1,6 @@
 """Sweep-direction variable permutation between the physical state order
-and the 1D-slice order (``atmospheric_athena_tpu/integrators/sweep.py``).
+and the 1D-slice order, and the gather/scatter of the 1D integrator
+(``atmospheric_athena_tpu/integrators/sweep.py``, hydro part).
 
 The reference integrators load per-pencil 1D vectors with cyclically
 permuted momentum components per sweep direction (integrate_3d_ctu.c:202-222
@@ -9,6 +10,8 @@ consumers shift along the sweep axis in place.
 """
 
 from __future__ import annotations
+
+import torch
 
 from ..config import SimConfig
 from ..defs import ID, IEN, IM1
@@ -44,3 +47,29 @@ def vperm_to_sweep(X, axis: int, sim: SimConfig):
 def vperm_from_sweep(X, axis: int, sim: SimConfig):
     """Inverse of vperm_to_sweep."""
     return X[inv_perm(var_perm(axis, sim))]
+
+
+def _adim(axis: int) -> int:
+    """Array dimension (of a [Nz, Ny, Nx] field) of Athena axis `axis`."""
+    return 2 - axis
+
+
+def to_sweep(U, axis: int, sim: SimConfig):
+    """U1d = (d, Mx, My, Mz, [E], s...) stacked, with (x, y, z) the cyclic
+    permutation starting at `axis` and the sweep axis moved last (JAX
+    sweep.to_sweep for hydro; MHD's Bxc and By/Bz are ROADMAP A12)."""
+    return torch.movedim(U[var_perm(axis, sim)], _adim(axis) + 1, -1)
+
+
+def from_sweep_flux(F, axis: int, sim: SimConfig):
+    """Scatter a sweep-ordered flux (or state) [nvar1d, ..., M] back to the
+    physical order [ncons, Nz, Ny, Nx] (JAX sweep.from_sweep_flux for
+    hydro)."""
+    F = torch.movedim(F, -1, _adim(axis) + 1)
+    return F[inv_perm(var_perm(axis, sim))]
+
+
+def sh(q, k, axis=-1):
+    """sh(q, k)[..., i] == q[..., i+k] along `axis` (wraps; the wrapped
+    cells are ghosts no update reads)."""
+    return torch.roll(q, -k, dims=axis)

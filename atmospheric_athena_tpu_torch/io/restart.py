@@ -6,7 +6,9 @@ parameter database.  A checkpoint of either package loads in the other:
 the JAX SimConfig's ``use_pallas`` has no counterpart here and is dropped;
 any other key this package does not know is refused.  Unlike the JAX
 loader, this one keeps GridConfig.coord, and it refuses a configuration
-the port does not run (MHD, a 2D grid, ...) by name.
+the port does not run (MHD, a cylindrical grid, ...) by name.  3D, 2D and
+1D states load alike: U is [nv, NZ, NY, NX] with inactive axes of size
+1.
 """
 
 from __future__ import annotations
@@ -48,8 +50,7 @@ def _known(kind, cls, kw: dict, path: str):
 def read_checkpoint(path: str):
     """Returns (arrays, sim, grid, par): the arrays as numpy (host) data,
     after refusing what the port does not run."""
-    from ..integrators import ctu3d
-    from ..simulation import check_supported
+    from ..simulation import check_supported, integrator
     with np.load(path) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
         extra = sorted(set(z.files) - set(_ARRAYS) - {"__meta__"})
@@ -65,7 +66,7 @@ def read_checkpoint(path: str):
     grid = GridConfig(**gkw)
     par = ParameterDB.from_string(meta["par"])
     check_supported(par, sim, grid)
-    ctu3d.check_supported(sim, grid)
+    integrator(grid).check_supported(sim, grid)
     if extra:
         raise ValueError(f"checkpoint {path}: unknown arrays {extra}")
     if arrays["U"].dtype != np.dtype(sim.dtype):

@@ -51,14 +51,18 @@ def _header(fh, label, time, dims, grid: GridConfig, ncells):
     fh.write(f"CELL_DATA {ncells}\n".encode())
 
 
+def _grid_dims(grid: GridConfig):
+    """DIMENSIONS of a whole-grid dump: cells + 1 per active axis, 2 per
+    inactive one."""
+    return [n + 1 if n > 1 else 2 for n in grid.Nx]
+
+
 def dump_vtk(state: State, sim: SimConfig, grid: GridConfig, path: str,
              out: str = "cons"):
     """Write all variables ('cons' or 'prim') as a legacy VTK file."""
     U = interior_numpy(state.U, grid)
     time = float(state.time)
-    dims = [grid.Nx[0] + 1 if grid.Nx[0] > 1 else 2,
-            grid.Nx[1] + 1 if grid.Nx[1] > 1 else 2,
-            grid.Nx[2] + 1 if grid.Nx[2] > 1 else 2]
+    dims = _grid_dims(grid)
     ncells = grid.Nx[0] * grid.Nx[1] * grid.Nx[2]
     with open(path, "wb") as fh:
         _header(fh, "CONSERVED vars" if out == "cons" else "PRIMITIVE vars",
@@ -89,11 +93,18 @@ def dump_vtk(state: State, sim: SimConfig, grid: GridConfig, path: str,
 def dump_vtk_expr(q, grid: GridConfig, path: str, name: str, time):
     """Single derived-quantity VTK output (output_vtk.c analogue), e.g. the
     ioniz_sphere 'flux' user expression (EdgeFlux); `q` an [Nz, Ny, Nx]
-    tensor or array, `time` a float or a 0-d tensor."""
+    tensor or array (on a 2D or 1D grid, [Ny, Nx] or [Nx]), `time` a float
+    or a 0-d tensor."""
     if isinstance(q, torch.Tensor):
         q = q.cpu().numpy()
     q = np.asarray(q)
-    dims = [q.shape[2] + 1, q.shape[1] + 1, q.shape[0] + 1]
+    if q.ndim == 3:
+        dims = [q.shape[2] + 1, q.shape[1] + 1, q.shape[0] + 1]
+    else:
+        # a whole 2D or 1D grid's expression, its inactive axes dropped by
+        # formats.reduce_data: the dimensions of dump_vtk (the JAX writer
+        # raises an IndexError here, ROADMAP C22)
+        dims = _grid_dims(grid)
     with open(path, "wb") as fh:
         _header(fh, name, float(time), dims, grid, q.size)
         _write_scalar(fh, name, q)

@@ -16,11 +16,13 @@ def register(name):
 
 
 def get_problem(name: str):
-    from . import (blast, ioniz_sphere, linear_wave, testsedov,  # noqa: F401
-                   turb)
+    from . import (blast, carbuncle, ifront, ioniz_sphere,  # noqa: F401
+                   linear_wave, lw_implode, noh, shkset1d, shu_osher,
+                   testsedov, turb, twoibw)
     try:
         return _REGISTRY[name]
     except KeyError:
         raise NotImplementedError(
-            f"problem {name!r} is not ported yet (ROADMAP A10/A11/A15); "
+            f"problem {name!r} is not ported yet (ROADMAP A11 step 6, A12, "
+            f"A15); "
             f"ported: {sorted(_REGISTRY)}") from None

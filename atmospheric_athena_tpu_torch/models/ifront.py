@@ -1,0 +1,45 @@
+"""R-type/D-type ionization front test (reference: src/prob/ifront.c), as
+in ``atmospheric_athena_tpu/models/ifront.py``.
+
+Uniform neutral medium (rho = n_H m_H, P = rho cs^2, the neutral-density
+scalar s0 = rho) with one plane radiation source on the -x1 edge
+(add_radplane_3d(pGrid, -1, flux), ifront.c:79) and the level-0 time ramp
+of its inlet flux (ionradplane_3d.c:265).  No static potential.  The
+adiabatic form only: the isothermal one needs radiation on isothermal gas,
+which ``simulation.check_supported`` refuses (ROADMAP C14), and the MHD one
+is ROADMAP A12.
+"""
+
+from __future__ import annotations
+
+from .. import state as state_mod
+from ..config import GridConfig, SimConfig
+from ..defs import ID, IEN
+from . import register
+
+
+@register("ifront")
+class Ifront:
+    # physics the reference fixes at configure time for this problem
+    sim_overrides = dict(ion_radiation=True, ion_radplane=True, nscalars=1)
+
+    def __init__(self, par, sim: SimConfig, grid: GridConfig):
+        if sim.mhd:
+            raise NotImplementedError("[ifront]: the MHD ifront (ROADMAP "
+                                      "A12)")
+        if not sim.adiabatic:
+            raise NotImplementedError("[ifront]: radiation on isothermal gas "
+                                      "(ROADMAP C14)")
+        self.par = par
+        self.radplanes = [(-1, par.getd("problem", "flux"))]
+        self.time_ramp = True
+
+    def init(self, par, sim: SimConfig, grid: GridConfig, device):
+        st = state_mod.zeros(sim, grid, device)
+        rho = par.getd("problem", "n_H") * par.getd("ionradiation", "m_H")
+        cs = par.getd("problem", "cs")
+        U = st.U.clone()
+        U[ID] = rho
+        U[IEN] = rho * cs * cs / sim.gamma_1
+        U[5] = rho
+        return st.replace(U=U)

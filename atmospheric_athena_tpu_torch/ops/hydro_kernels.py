@@ -25,7 +25,8 @@ take its constants from ``eos_args``.
 
 Each wrapper takes the kernel for a CUDA tensor (csrc/hydro.cu,
 csrc/sweep.cuh, csrc/fluxdf.cuh; it raises on what the kernel does not
-take) and the plain version for a CPU tensor.  The plain versions call the same
+take, a grid with an inactive axis among it) and the plain version for a
+CPU tensor.  The plain versions call the same
 eos/reconstruct/riemann modules as the rest of the port; the kernels
 repeat their formulas in csrc/hydro.cuh.  Both wrap
 the stencil at the array edge (torch.roll / modular indexing), which touches
@@ -101,9 +102,9 @@ def refusal(sim: SimConfig):
     if sim.special_relativity:
         return "special relativity (ROADMAP A15)"
     if sim.integrator != "ctu":
-        return f"the {sim.integrator} integrator (ROADMAP A11 step 6)"
+        return f"the {sim.integrator} integrator (ROADMAP A11 step 5)"
     if sim.flux not in FLUX_KIND:
-        item = "A12" if sim.flux == "hlld" else "A11 step 5"
+        item = "A12" if sim.flux == "hlld" else "A11 step 4"
         return f"the {sim.flux} solver (ROADMAP {item})"
     return None
 
@@ -266,6 +267,13 @@ def _check_cuda_args(sim, U, fields, name):
     if U.dim() != 4 or U.shape[0] != sim.ncons:
         raise ValueError(f"{name}: U shape {tuple(U.shape)}, expected "
                          f"[{sim.ncons}, NZ, NY, NX]")
+    if 1 in U.shape[1:]:
+        # an inactive axis (a 1D or 2D grid): the JAX package's kernels
+        # take three active axes only (pallas_hydro.supported), and its 2D
+        # and 1D steps run the plain functions, as ctu3d and ctu1d do here
+        raise ValueError(f"{name}: the CUDA kernel covers 3D grids; U "
+                         f"{tuple(U.shape)} has an inactive axis (2D and "
+                         "1D steps run the plain functions)")
     _check_fields(name, U, fields)
 
 

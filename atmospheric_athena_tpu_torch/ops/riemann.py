@@ -228,5 +228,5 @@ def fluxes(Ul, Ur, Wl, Wr, Bxi, sim: SimConfig, etah=None):
     except KeyError:
         raise NotImplementedError(
             f"flux={sim.flux}: only roe, hlle and hllc are ported (ROADMAP "
-            "A11 step 5: exact, two_shock, force; A12: hlld)")
+            "A11 step 4: exact, two_shock, force; A12: hlld)")
     return solver(Ul, Ur, Wl, Wr, Bxi, sim, etah=etah)

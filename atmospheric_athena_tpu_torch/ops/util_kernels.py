@@ -132,12 +132,17 @@ def max_dti_hydro(U, sim: SimConfig, grid: GridConfig):
     """Max over interior cells and axes of (|v_a| + c_s)/dx_a as a 0-d
     tensor on U's device.
 
-    Kernel (CUDA tensors): the Triton kernel above, replacing
-    ops/pallas_util.py:_kernel; plain version for CPU tensors."""
+    Kernel (CUDA tensors of a 3D grid; it raises on a 2D or 1D one): the
+    Triton kernel above, replacing ops/pallas_util.py:_kernel; plain
+    version for CPU tensors."""
     if U.device.type != "cuda":
         return max_dti_hydro_plain(U, sim, grid)
     if sim.mhd or sim.special_relativity:
         raise NotImplementedError("max_dti_hydro: hydro only")
+    if grid.ndim < 3:
+        raise ValueError("max_dti_hydro: the kernel covers 3D grids (2D and "
+                         "1D grids take max_dti_hydro_plain, as dt.max_dti "
+                         "does)")
     if U.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"max_dti_hydro: dtype {U.dtype}")
     if U.dim() != 4 or U.shape[0] != sim.ncons or not U.is_contiguous() \

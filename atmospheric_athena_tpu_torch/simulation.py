@@ -1,10 +1,13 @@
 """Driver: setup + main loop (reference: src/main.c:90-772), for the
-configurations the port covers: the ioniz_sphere production step, 3D
-adiabatic hydro problems such as testsedov and blast, and 3D isothermal
-hydro (driven turbulence, turb), on one domain or, for
-a deck with num_domains > 1 and a <domain2> block, on a static-mesh-refined
-hierarchy (``Simulation.from_par`` then returns a
-``hierarchy.MeshSimulation``, as the JAX package's does).
+configurations the port covers: the plane-radiation problems (the
+ioniz_sphere production step, ifront), adiabatic and isothermal hydro on
+3D, 2D and 1D grids (testsedov, blast, turb, linear_wave, the 2D carbuncle,
+noh and lw_implode, the 1D shkset1d, shu_osher and twoibw), on one domain
+or, for a 3D deck with num_domains > 1 and a <domain2> block, on a
+static-mesh-refined hierarchy (``Simulation.from_par`` then returns a
+``hierarchy.MeshSimulation``, as the JAX package's does).  The integrator
+follows the grid's dimension as in the JAX package (simulation.py:
+178-189): integrators/ctu1d.py for 1D, integrators/ctu3d.py for 2D and 3D.
 
   - ``Simulation.from_file`` / ``from_par``: par parsing, config build,
     problem init, initial ghost fill, initial dt (main.c steps 1-9).
@@ -19,8 +22,10 @@ hierarchy (``Simulation.from_par`` then returns a
 
 Every tensor lives on the ``device`` given at construction: ``"cuda"``
 unless the caller asks for ``"cpu"`` (without a visible GPU the default
-raises; there is no silent CPU fallback).  On a CUDA device the step runs
-the hand-written kernels; on the CPU their plain PyTorch versions.
+raises; there is no silent CPU fallback).  On a CUDA device a 3D step runs
+the hand-written kernels; on the CPU their plain PyTorch versions.  A 2D
+or 1D step runs the plain versions on either device, as the JAX package
+runs jnp there (its kernels take three active axes).
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from torch.profiler import record_function
 from . import bvals, dt as dt_mod
 from .config import (GridConfig, SimConfig, grid_config_from_par,
                      sim_config_from_par)
-from .integrators import ctu3d
+from .integrators import ctu1d, ctu3d
 from .models import get_problem
 from .par import ParameterDB
 from .state import State, from_numpy, resolve_device
@@ -82,7 +87,8 @@ def check_supported(par: ParameterDB, sim: SimConfig, grid: GridConfig):
     """Refuse decks outside the ported slice, naming the ROADMAP item."""
     blockers = [
         (sim.mhd, "MHD (ROADMAP A12)"),
-        (sim.integrator == "vl", "the VL integrator (ROADMAP A11)"),
+        (sim.integrator == "vl",
+         "the VL integrator (ROADMAP A11 step 5)"),
         (sim.special_relativity, "special relativity (ROADMAP A15)"),
         (sim.self_gravity, "self-gravity (ROADMAP A15)"),
         (sim.shearing_box or sim.fargo, "shearing box / FARGO (ROADMAP "
@@ -91,7 +97,9 @@ def check_supported(par: ParameterDB, sim: SimConfig, grid: GridConfig):
         (sim.ion_radplane and not sim.adiabatic,
          "plane radiation on isothermal gas (ROADMAP C14: the JAX "
          "package's radiation takes the first scalar as the energy)"),
-        (grid.ndim != 3, f"{grid.ndim}D grids (ROADMAP A10/A11)"),
+        (sim.ion_radplane and grid.ndim != 3,
+         f"plane radiation on {grid.ndim}D grids (ROADMAP A15; the "
+         "reference's is ionrad_3d.c)"),
         (any(par.getd_def("problem", k, 0.0) > 0.0 for k in (
             "nu_iso", "kappa_iso", "eta_O", "Q_AD", "Q_Hall", "nu_aniso",
             "kappa_aniso")), "diffusion / microphysics (ROADMAP A15)"),
@@ -122,8 +130,14 @@ def configure(par: ParameterDB, problem: Optional[str], dtype: Optional[str],
     sim = sim_config_from_par(par, **auto)
     grid = grid_config_from_par(par, coord=coord)
     check_supported(par, sim, grid)
-    ctu3d.check_supported(sim, grid)
+    integrator(grid).check_supported(sim, grid)
     return prob_cls, sim, grid
+
+
+def integrator(grid: GridConfig):
+    """The CTU integrator module of a grid (JAX simulation.py:178-189):
+    ctu1d for 1D grids, ctu3d ("handles 2D and 3D") otherwise."""
+    return ctu1d if grid.ndim == 1 else ctu3d
 
 
 class Simulation:
@@ -147,8 +161,12 @@ class Simulation:
             self.ion = ion_config_from_par(
                 par, grid, radplanes=getattr(problem, "radplanes", ()),
                 time_ramp=getattr(problem, "time_ramp", True))
-        self.phi = ctu3d._phi_arrays(problem, grid, state.U.dtype,
-                                     state.U.device)
+        self.integ = integrator(grid)
+        # the potential on the padded grid (2D, 3D); ctu1d evaluates it on
+        # the x1 line itself (JAX simulation.py:219)
+        self.phi = (ctu3d._phi_arrays(problem, grid, state.U.dtype,
+                                      state.U.device)
+                    if grid.ndim > 1 else None)
         self.uw_aux = (problem.userwork_aux(state.U.dtype, sim, grid,
                                             state.U.device)
                        if hasattr(problem, "userwork_aux") else None)
@@ -238,7 +256,8 @@ class Simulation:
             with record_function("bvals"):
                 state = bvals.apply_bc(state, grid, sim, problem)
         with record_function("hydro"):
-            state = ctu3d.step(state, dt, sim, grid, problem, phi=self.phi)
+            state = self.integ.step(state, dt, sim, grid, problem,
+                                    phi=self.phi)
         userwork = getattr(problem, "userwork_in_loop", None)
         if userwork is not None:
             with record_function("userwork"):

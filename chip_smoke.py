@@ -20,7 +20,10 @@ testsedov with HLLE (B5 and B5-dF, B12, B13 and B8 with HLLE); turb
 (isothermal gas); linear_wave with four passive scalars (every hydro
 kernel's run-time scalar form, "name[roe+ns4]"); and this slice's path,
 linear_wave with 40 scalars ("name[roe+ns40]"), whose B5 and B12 march
-kernels pass the scalars in chunks.  It checks
+kernels pass the scalars in chunks; and this slice's paths: ifront (plane
+radiation without a static potential: the bench kernels but B6 and B9)
+and the 2D and 1D hydro decks, which run the plain functions on the card
+and launch no kernel, as the JAX package runs jnp there.  It checks
 each hand-written kernel against its plain PyTorch version on the card; a
 kernel with several forms (the solver, Roe, HLLC or HLLE, and B5's
 reconstruction order, "ppm+hllc"; the operand forms of transverse_correct,
@@ -100,7 +103,13 @@ and counted per form, "name[form]":
      and linear_wave (4 distinct scalars, vflow 0 and 1, three routes;
      isothermal with 2; 40 distinct scalars, vflow 1, three routes) with
      the kernels against the plain versions on the card, to 1e-10 of each
-     field's max;
+     field's max; then (phase3_lowd) the 2D and 1D goldens through the
+     entry points on the card in float64 with every kernel counter 0
+     (blast2d to t = 0.05; carbuncle, noh2d, lwimplode with its i <-> j
+     symmetry, shuosher, twoibw, at the tolerances tests/test_problems_r5.py
+     holds the JAX package to; Sod's 87 cycles against its tab), and ifront
+     at 32^3 float64, 2 cycles, on the card against the plain CPU run on
+     the K=1 loop and with batch_iters=25, to 1e-10 of each field's max;
   4. full width: the SMR main path, isph2lev at 256^3 + 256^3 float32
      (the child over the root's centre), maxiter=50, batch_iters=25, 3
      cycles through Simulation.from_file (no device argument: the card is
@@ -117,7 +126,13 @@ and counted per form, "name[form]":
      the middle-phase path, 1 on MID=0 and 1 with the H-correction,
      through Simulation.from_file without a device; turb and linear_wave
      (4 scalars, then 40 distinct ones) at 256^3 float32 the same way, and
-     a CLI cycle of each; phase 4's CLI cycles write no outputs
+     a CLI cycle of each; ifront at 256^3 float32 (maxiter=50,
+     batch_iters=25: 3 cycles, a CLI cycle, its launches on a line of
+     their own, B6 and B9 never launched); blast2d at 2048 x 3072 (5
+     cycles, a CLI cycle), lw_implode at 2048^2 and shu_osher at 16384
+     cells (5 cycles each) in float32 with every kernel counter 0, each
+     with ms per cycle, zone-cycles/s and peak memory beside the card's
+     name and power limit; phase 4's CLI cycles write no outputs
      (job/maxout=0) but the SMR one, which writes a history and a cons VTK
      output per level with -d (level 1's under lev1/ with a -lev1 problem
      id; the first rows and dumps equal to each level's initial state);
@@ -269,6 +284,173 @@ def lw_deck(n, nlim, ns=LW_NS, vflow=1.0, iso=False):
     return LW_DECK.format(n=n, nlim=nlim, ns=ns, vflow=vflow,
                           eos=" --with-eos=isothermal" if iso else "")
 
+
+# the ionization front (models/ifront.py): a uniform medium with one plane
+# source on -x1 and the inlet's time ramp, 3D adiabatic, outflow, Roe, PLM,
+# the H-correction; the isph64 deck's <ionradiation> block and its n_H, cs
+# and flux (the reference's own ifront deck is not in the repository); size
+# and cycle cap as fields
+IFRONT_DECK = """
+<comment>
+problem = ionization front in a uniform medium
+config  = --with-gas=hydro --with-problem=ifront --enable-ion-radiation --enable-ion-plane --enable-h-correction
+
+<job>
+problem_id = ifront
+
+<time>
+cour_no = 0.4
+nlim    = {nlim}
+tlim    = 1e12
+
+<domain1>
+level  = 0
+Nx1    = {n}
+x1min  = -7.5e10
+x1max  = 7.5e10
+bc_ix1 = 2
+bc_ox1 = 2
+Nx2    = {n}
+x2min  = -7.5e10
+x2max  = 7.5e10
+bc_ix2 = 2
+bc_ox2 = 2
+Nx3    = {n}
+x3min  = -7.5e10
+x3max  = 7.5e10
+bc_ix3 = 2
+bc_ox3 = 2
+
+<ionradiation>
+sigma_ph = 6.3e-18
+m_H = 1.67e-24
+mu = 1.67e-24
+e_gamma = 3.84e-12
+alpha_C = 1.0e-10
+k_B = 1.38e-16
+time_unit = 1.0
+max_de_iter = 0.1
+max_de_therm_iter = 0.1
+max_dx_iter = 0.25
+max_de_step = 10.0
+max_de_therm_step = 10.0
+max_dx_step = 10.0
+tfloor = 20.0
+tceil = 10e8
+maxiter = 100000000.
+
+<problem>
+gamma = 1.666666666667
+n_H   = 6.0e3
+cs    = 3.0e5
+flux  = 2e13
+"""
+
+
+def ifront_deck(n, nlim):
+    return IFRONT_DECK.format(n=n, nlim=nlim)
+
+
+# the 2D blast of tests/test_golden_multid.py (its BLAST_DECK, which
+# tests/test_torch_lowd_2d.py holds this copy to): 64 x 96, periodic, Roe,
+# PLM, to t = 0.05; its golden the reference C code's state there
+BLAST2D_DECK = """
+<comment>
+config  = --with-gas=hydro --with-problem=blast
+<job>
+problem_id = Blast
+<time>
+cour_no = 0.8
+nlim    = 10000
+tlim    = 0.05
+<domain1>
+Nx1 = 64
+x1min = -0.5
+x1max = 0.5
+bc_ix1 = 4
+bc_ox1 = 4
+Nx2 = 96
+x2min = -0.75
+x2max = 0.75
+bc_ix2 = 4
+bc_ox2 = 4
+Nx3 = 1
+x3min = -0.5
+x3max = 0.5
+<problem>
+gamma  = 1.66666666666667
+pamb   = 0.1
+prat   = 100.0
+radius = 0.1
+"""
+BLAST2D_GOLD = os.path.join(HERE, "tests", "golden",
+                            "blast2d_64x96_t0.05.npz")
+
+# Sod's shock tube (shkset1d, Roe, PLM): 128 cells on [-0.5, 0.5], gamma
+# 1.4, outflow, to t = 0.25 in 87 cycles, as the header of
+# tests/golden/sod_t0.25_prim.tab (the reference C code's primitive state
+# at t = 0.25) describes its run of tst/1D-hydro/athinput.sod
+SOD_DECK = """
+<comment>
+problem = Sod's shock tube
+config  = --with-gas=hydro --with-problem=shkset1d --with-flux=roe
+
+<job>
+problem_id = Sod
+
+<time>
+cour_no = 0.8
+nlim    = 10000
+tlim    = 0.25
+
+<domain1>
+level  = 0
+Nx1    = 128
+x1min  = -0.5
+x1max  = 0.5
+bc_ix1 = 2
+bc_ox1 = 2
+Nx2    = 1
+x2min  = 0.0
+x2max  = 1.0
+Nx3    = 1
+x3min  = 0.0
+x3max  = 1.0
+
+<problem>
+gamma   = 1.4
+shk_dir = 1
+dl  = 1.0
+pl  = 1.0
+v1l = 0.0
+v2l = 0.0
+v3l = 0.0
+dr  = 0.125
+pr  = 0.1
+v1r = 0.0
+v2r = 0.0
+v3r = 0.0
+"""
+SOD_TAB = os.path.join(HERE, "tests", "golden", "sod_t0.25_prim.tab")
+SOD_CYCLES = 87
+
+# the 2D and 1D per-cycle cons goldens of the reference C code, with the
+# cycles, fields, tolerances (cycle 1, last cycle) and solver
+# tests/test_problems_r5.py and test_problems_r5b.py hold the JAX package
+# to: (name, deck, npz, problem, cycles, fields, atol1, atolN, flux)
+GOLD_FIELDS = ["d", "M1", "M2", "M3", "E"]
+LOWD_GOLDENS = [
+    ("carbuncle", "athinput.carbuncle", "carbuncle_20cycles.npz",
+     "carbuncle", 20, GOLD_FIELDS, 1e-11, 1e-9, "roe"),
+    ("noh2d", "athinput.noh", "noh2d.npz", "noh", 10, GOLD_FIELDS, 1e-11,
+     1e-9, "roe"),
+    ("lwimplode", "athinput.lwimplode", "lwimplode_20cycles.npz",
+     "lw_implode", 20, GOLD_FIELDS, 1e-11, 1e-9, "hllc"),
+    ("shuosher", "athinput.shuosher", "shuosher_30cycles.npz", "shu_osher",
+     30, GOLD_FIELDS, 1e-11, 1e-9, "hllc"),
+    ("twoibw", "athinput.twoibw", "twoibw.npz", "twoibw", 30, GOLD_FIELDS,
+     1e-11, 1e-9, "roe"),
+]
 
 # (time, dt) after each of the 10 cycles of the reference C code on the
 # isph64 deck (the trajectory tests/test_ioniz_sphere.py holds the JAX
@@ -790,6 +972,14 @@ LW_ISO = ["sweep_lrflux_df[iso+roe+ns2]", "transverse_correct[iso+dF+ns2]",
           "flux_sweep_df[iso+roe+ns2]", "final_update[iso+dF2+ns2]",
           "max_dti_hydro[isothermal]"]
 
+# ifront: the bench configuration's kernels without a static potential
+# (no gcross, no grav_source) and with the H-correction (B8); its K=1 loop
+# (phase 3) the same with the K=1 radiation kernels
+IFRONT_HYDRO = ["sweep_lrflux_df", "transverse_correct", "flux_corrected",
+                "final_update", "max_dti_hydro", "bc_fill", "rad_rates"]
+IFRONT = IFRONT_HYDRO + ["rad_batch"]
+IFRONT_K1 = IFRONT_HYDRO + ["rad_update"]
+
 PATHS = {
     "batch": (MID + ["rad_batch", "bc_fill", "rad_rates", "max_dti_hydro"],
               ["sweep_lrflux", "flux_pointwise"] + NOHC + HLLC + SMRF
@@ -807,6 +997,8 @@ PATHS = {
                 ["flux_corrected", "grav_source", "final_update",
                  "sweep_lrflux", "flux_pointwise"] + HLLC + SMRF + FUSED
                 + NEW_FORMS + ISO_FORMS),
+    "ifront": (IFRONT, others(IFRONT + ["rad_update"])),
+    "ifront K=1": (IFRONT_K1, others(IFRONT_K1)),
     "turb": (TURB_MID, others(TURB_MID)),
     "lw": (LW_MID, others(LW_MID)),
     "lw MID=0": (LW_MID0, others(LW_MID0)),
@@ -2095,6 +2287,142 @@ def run_golden(device):
     return s, worst
 
 
+def golden_errors(s, ref, fields):
+    """{field: max |port - golden| / scale} over the interior of the port
+    Simulation `s` against one golden cons snapshot (rows: the tab's
+    position columns, then `fields`), with tests/test_problems_r5.py's
+    per-field scale: the field's max, floored at 1e-3 of the largest
+    field's."""
+    import numpy as np
+    U = s.state.U[(slice(None),) + s.grid.interior()].cpu().numpy()
+    nsp = ref.shape[1] - len(fields)
+    gmax = max(np.abs(ref[:, nsp + i]).max() for i in range(len(fields)))
+    out = {}
+    for i, f in enumerate(fields):
+        k = {"d": 0, "M1": 1, "M2": 2, "M3": 3, "E": 4}[f]
+        r = ref[:, nsp + i]
+        scale = max(np.abs(r).max(), 1e-3 * gmax, 1e-30)
+        out[f] = float(np.abs(U[k].ravel() - r).max() / scale)
+    return out
+
+
+def symmetry_error(s):
+    """lw_implode's i <-> j symmetry (tests/test_problems_r5b.py:34-45):
+    the larger of max |d - d^T| and max |M1 - M2^T| over the interior."""
+    import numpy as np
+    sl = s.grid.interior()
+    d, m1, m2 = (s.state.U[k][sl][0].cpu().numpy() for k in (0, 1, 2))
+    return float(max(np.abs(d - d.T).max(), np.abs(m1 - m2.T).max()))
+
+
+def run_lowd_golden(case, device):
+    """One LOWD_GOLDENS case (float64) through Simulation.from_file on
+    `device`: the time of every cycle to rel 1e-5, the cycle-1 and last
+    snapshots to atol1 and atolN x each field's scale (golden_errors), and
+    for lw_implode the i <-> j symmetry to 1e-12.  Raises on a miss;
+    returns the Simulation and {snapshot cycle: worst error}."""
+    import numpy as np
+    from atmospheric_athena_tpu_torch import Simulation
+    name, deck, npz, problem, ncyc, fields, atol1, atolN, flux = case
+    gold = np.load(os.path.join(HERE, "tests", "golden", npz))
+    s = Simulation.from_file(
+        os.path.join(HERE, "tests", "golden", deck), problem=problem,
+        cmdline=[f"time/nlim={ncyc}", "time/tlim=9e9"], dtype="float64",
+        device=device, flux=flux)
+    worst = {}
+    for cyc in range(1, ncyc + 1):
+        s.step()
+        t, t_ref = float(s.state.time), float(gold["traj"][cyc - 1][0])
+        if not abs(t / t_ref - 1) <= 1e-5:
+            raise AssertionError(f"{name} cycle {cyc}: time {t:.9e}, "
+                                 f"golden {t_ref:.9e}")
+        if cyc not in (1, ncyc):
+            continue
+        atol = atol1 if cyc == 1 else atolN
+        errs = golden_errors(s, gold[f"cons{cyc}"], fields)
+        for f, err in errs.items():
+            if not err <= atol:
+                raise AssertionError(f"{name} cycle {cyc} field {f}: error "
+                                     f"{err:.3e} x scale exceeds {atol:.0e}")
+        worst[cyc] = max(errs.values())
+    if name == "lwimplode":
+        sym = symmetry_error(s)
+        if not sym <= 1e-12:
+            raise AssertionError(f"lwimplode: i <-> j symmetry broken by "
+                                 f"{sym:.3e}")
+        worst["symmetry"] = sym
+    return s, worst
+
+
+def run_blast2d_golden(device):
+    """The 2D blast (BLAST2D_DECK, float64) to t = 0.05 through
+    Simulation.from_par and run() on `device`, against its golden to 1e-9
+    (tests/test_golden_multid.py).  Raises on a miss; returns the
+    Simulation and the worst error."""
+    import numpy as np
+    from atmospheric_athena_tpu_torch import Simulation
+    from atmospheric_athena_tpu_torch.par import ParameterDB
+    s = Simulation.from_par(ParameterDB.from_string(BLAST2D_DECK),
+                            dtype="float64", device=device)
+    s.run()
+    if not abs(float(s.state.time) - 0.05) <= 1e-12:
+        raise AssertionError(f"blast2d ended at t = {float(s.state.time)}")
+    gold = np.load(BLAST2D_GOLD)
+    U = s.state.U[(slice(None),) + s.grid.interior()][:, 0].cpu().numpy()
+    worst = 0.0
+    for name, k in (("d", 0), ("M1", 1), ("M2", 2), ("E", 4)):
+        err = float(np.abs(U[k] - gold[name]).max())
+        worst = max(worst, err)
+        if not err <= 1e-9:
+            raise AssertionError(f"blast2d field {name}: error {err:.3e} "
+                                 "exceeds 1e-9")
+    return s, worst
+
+
+def sod_prim(s):
+    """The primitive state (d, V1, V2, V3, P) over the interior of a 1D
+    port Simulation, as numpy [5, Nx1]."""
+    from atmospheric_athena_tpu_torch.eos import cons1d_to_prim1d
+    from atmospheric_athena_tpu_torch.integrators.sweep import to_sweep
+    W = cons1d_to_prim1d(to_sweep(s.state.U, 0, s.sim), None, s.sim)
+    return W[:, 0, 0, s.grid.interior()[2]].cpu().numpy()
+
+
+def run_sod_golden(device):
+    """Sod's shock tube (SOD_DECK, float64) through Simulation.from_par and
+    run() on `device`: SOD_CYCLES cycles to t = 0.25, the primitive state
+    against tests/golden/sod_t0.25_prim.tab to rtol = atol = 1e-10 and the
+    mass 0.5625 to rel 1e-12 (tests/test_sod.py).  Raises on a miss;
+    returns the Simulation and the worst error (|a - b| - rtol |b|)."""
+    import numpy as np
+    from atmospheric_athena_tpu_torch import Simulation
+    from atmospheric_athena_tpu_torch.par import ParameterDB
+    s = Simulation.from_par(ParameterDB.from_string(SOD_DECK),
+                            dtype="float64", device=device)
+    s.run()
+    n, t = int(s.state.nstep), float(s.state.time)
+    if n != SOD_CYCLES or not abs(t - 0.25) <= 1e-12:
+        raise AssertionError(f"sod: {n} cycles to t = {t}")
+    ref = np.loadtxt(SOD_TAB)
+    x = s.grid.cc_coords(0)[s.grid.interior()[2]]
+    if not np.abs(x - ref[:, 1]).max() <= 1e-12:
+        raise AssertionError("sod: the cell centres differ from the tab's")
+    W = sod_prim(s)
+    worst = 0.0
+    for k in range(5):
+        b = ref[:, 2 + k]
+        err = float((np.abs(W[k] - b) - 1e-10 * np.abs(b)).max())
+        worst = max(worst, err)
+        if not err <= 1e-10:
+            raise AssertionError(f"sod prim {k}: error {err:.3e} exceeds "
+                                 "1e-10 + 1e-10 |value|")
+    U = s.state.U[(slice(None),) + s.grid.interior()].cpu().numpy()
+    mass = float(U[0].sum() * s.grid.dx[0])
+    if not abs(mass / 0.5625 - 1) <= 1e-12:
+        raise AssertionError(f"sod: mass {mass!r}, not 0.5625")
+    return s, worst
+
+
 def run_sedov_golden(device, ncyc=20):
     """The testsedov golden (tests/golden/athinput.testsedov, HLLC, no
     H-correction, float64, 20 cycles) through Simulation.from_file on
@@ -2737,6 +3065,169 @@ def phase4_lw(n=256, ns=LW_NS):
     say(f"phase 4 {n}^3 float32 linear_wave ({ns} scalars): 1 CLI cycle "
         "done")
     return counts, out
+
+
+def lowd_dir():
+    """A directory of the checkout for the decks phases 3-4 write (under
+    OUT_DIR, which phase 5 removes)."""
+    out = os.path.join(OUT_DIR, "lowd")
+    os.makedirs(out, exist_ok=True)
+    return out
+
+
+def check_no_kernel(label, counts):
+    """A 2D or 1D run launches no kernel (the JAX package runs jnp there)."""
+    stray = {k: v for k, v in counts.items() if v}
+    if stray:
+        raise AssertionError(f"{label}: launched {stray}; a 2D or 1D run "
+                             "launches no kernel")
+
+
+def phase3_lowd():
+    """The 2D and 1D goldens in float64 through the entry points on the
+    card, each with every kernel's launch counter 0: blast2d (to t = 0.05),
+    LOWD_GOLDENS (carbuncle 20 cycles, noh2d 10, lwimplode 20 with its
+    symmetry, shuosher 30, twoibw 30) and Sod (87 cycles, the tab), at the
+    tolerances the JAX tests hold the JAX package to; then ifront at 32^3
+    float64, 2 cycles on the card against the port's plain run on the CPU
+    (run_vs_cpu: 1e-10 of each field's max, time and dt to rel 1e-9), on
+    the K=1 loop and with batch_iters=25.  Returns ifront's launch
+    counts."""
+    runs = [(case[0], lambda c=case: run_lowd_golden(c, "cuda"))
+            for case in LOWD_GOLDENS]
+    runs += [("blast2d", lambda: run_blast2d_golden("cuda")),
+             ("sod", lambda: run_sod_golden("cuda"))]
+    for name, run in runs:
+        reset_counts()
+        t0 = time.perf_counter()
+        s, worst = run()
+        counts = read_counts()
+        check_no_kernel(f"phase 3 {name}", counts)
+        say(f"phase 3 golden {name} float64 {s.grid.ndim}D "
+            f"{'x'.join(str(n) for n in s.grid.Nx if n > 1)}, "
+            f"{int(s.state.nstep)} cycles on the card in "
+            f"{time.perf_counter() - t0:.2f} s: worst error {worst}; no "
+            "kernel launched")
+    deck = os.path.join(lowd_dir(), "athinput.ifront32")
+    with open(deck, "w") as fh:
+        fh.write(ifront_deck(32, 2))
+    counts = {}
+    for path, cmd in (("ifront K=1", []),
+                      ("ifront", [f"ionradiation/batch_iters={BATCH_K}"])):
+        label = f"phase 3 {path} 32^3 float64"
+        worst, counts[path] = run_vs_cpu(label, deck, "ifront", cmd, 2,
+                                         path)
+        say(f"{label}, 2 cycles on the card against the plain CPU run: "
+            f"worst error {worst:.3e} x max; launches "
+            f"{ {k: v for k, v in counts[path].items() if v} }")
+    return counts
+
+
+def phase4_ifront(n=256):
+    """ifront at n^3 float32, maxiter=MAXITER, batch_iters=BATCH_K, the
+    H-correction, outflow: 3 cycles through Simulation.from_file without a
+    device argument and run(), then a CLI cycle: ms per cycle,
+    zone-cycles/s, the radiation substeps, peak memory and the launch
+    counts (every kernel of the ifront path > 0, gcross and grav_source 0);
+    returns the counts of the 3 cycles."""
+    import torch
+    from atmospheric_athena_tpu_torch import Simulation
+    from atmospheric_athena_tpu_torch import __main__ as cli
+    deck = os.path.join(lowd_dir(), "athinput.ifront")
+    with open(deck, "w") as fh:
+        fh.write(ifront_deck(n, 3))
+    cmd = [f"ionradiation/maxiter={MAXITER}",
+           f"ionradiation/batch_iters={BATCH_K}"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    s = Simulation.from_file(deck, cmdline=cmd, dtype="float32")
+    if s.device.type != "cuda" or s.ion.batch_iters != BATCH_K \
+            or not s.sim.h_correction or s.phi != (None, None):
+        raise AssertionError(f"ifront run on {s.device}, {s.sim}, {s.ion}")
+    torch.cuda.synchronize()
+    reset_counts()
+    res = s.run(max_steps=3)
+    counts = read_counts()
+    check_counts(f"phase 4 ifront {n}^3", counts, "ifront")
+    finite = bool(torch.isfinite(s.state.U).all()) and bool(
+        torch.isfinite(s.state.Eflux).all())
+    dt = float(s.state.dt)
+    if not finite or not dt > 0:
+        raise AssertionError(f"ifront {n}^3: finite={finite} dt={dt}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"phase 4 {n}^3 float32 ifront maxiter={MAXITER} "
+        f"batch_iters={BATCH_K} on {smi_line()}: 3 cycles via "
+        f"Simulation.run, {1e3 * res['wall'] / res['steps']:.1f} ms per "
+        f"cycle, {res['zone_cycles_per_sec']:.4e} zone-cycles/s; radiation "
+        f"substeps {s.rad_iters[-3:]}; peak device memory {peak:.2f} GiB; "
+        f"all fields finite, dt {dt:.6e}")
+    say("phase 4 ifront launches: " + json.dumps(
+        {k: v for k, v in counts.items() if v}))
+    del s
+    reset_counts()
+    rc = cli.main(["-i", deck, "--dtype", "float32", "time/nlim=1",
+                   "job/maxout=0", *cmd])
+    if rc != 0:
+        raise AssertionError(f"ifront CLI returned {rc}")
+    check_counts(f"phase 4 ifront {n}^3 CLI cycle", read_counts(), "ifront")
+    say(f"phase 4 {n}^3 float32 ifront: 1 CLI cycle done")
+    return counts
+
+
+def phase4_lowd():
+    """The 2D and 1D decks at full width in float32 through the entry
+    points without a device argument, with every kernel's launch counter
+    0: blast2d at 2048 x 3072 (5 cycles and a CLI cycle), lw_implode at
+    2048^2 with HLLC (5 cycles), shu_osher at Nx1 = 16384 with HLLC (5
+    cycles): ms per cycle, zone-cycles/s, peak memory, finite fields and
+    dt > 0."""
+    import torch
+    from atmospheric_athena_tpu_torch import Simulation
+    from atmospheric_athena_tpu_torch import __main__ as cli
+    blast = os.path.join(lowd_dir(), "athinput.blast2d")
+    with open(blast, "w") as fh:
+        fh.write(BLAST2D_DECK)
+    gold = os.path.join(HERE, "tests", "golden")
+    runs = [("blast2d", blast, None, None, ["domain1/Nx1=2048",
+                                             "domain1/Nx2=3072"]),
+            ("lw_implode", os.path.join(gold, "athinput.lwimplode"),
+             "lw_implode", "hllc", ["domain1/Nx1=2048", "domain1/Nx2=2048"]),
+            ("shu_osher", os.path.join(gold, "athinput.shuosher"),
+             "shu_osher", "hllc", ["domain1/Nx1=16384"])]
+    smi = smi_line()
+    for name, deck, problem, flux, cmd in runs:
+        kw = {} if flux is None else {"flux": flux}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s = Simulation.from_file(deck, problem=problem, dtype="float32",
+                                 cmdline=cmd + ["time/tlim=9e9"], **kw)
+        if s.device.type != "cuda":
+            raise AssertionError(f"{name} run on {s.device}")
+        torch.cuda.synchronize()
+        reset_counts()
+        res = s.run(max_steps=5)
+        check_no_kernel(f"phase 4 {name}", read_counts())
+        dt = float(s.state.dt)
+        if not bool(torch.isfinite(s.state.U).all()) or not dt > 0:
+            raise AssertionError(f"phase 4 {name}: non-finite state or dt "
+                                 f"{dt}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        size = "x".join(str(n) for n in s.grid.Nx if n > 1)
+        say(f"phase 4 {name} {size} float32 ({s.grid.ndim}D, "
+            f"{s.sim.flux}) on {smi}: 5 cycles via Simulation.run, "
+            f"{1e3 * res['wall'] / res['steps']:.2f} ms per cycle, "
+            f"{res['zone_cycles_per_sec']:.4e} zone-cycles/s; peak device "
+            f"memory {peak:.3f} GiB; no kernel launched; all fields "
+            f"finite, dt {dt:.6e}")
+        del s
+        if name == "blast2d":
+            reset_counts()
+            rc = cli.main(["-i", deck, "--dtype", "float32", "time/nlim=1",
+                           *cmd])
+            if rc != 0:
+                raise AssertionError(f"blast2d CLI returned {rc}")
+            check_no_kernel("phase 4 blast2d CLI cycle", read_counts())
+            say(f"phase 4 blast2d {size} float32: 1 CLI cycle done")
 
 
 def batch_vs_k1(ncycles=3):
@@ -3727,6 +4218,8 @@ def main():
     p3.update(phase3_lw())
     p3.update(phase3_lw(ns=LW_MANY))
     lap("phase 3 linear_wave")
+    p3.update(phase3_lowd())
+    lap("phase 3 2D and 1D goldens, ifront against the CPU")
     smr, _ = phase4_smr()
     counts, _ = phase4()
     counts["smr"] = smr
@@ -3739,6 +4232,10 @@ def main():
     lw, _ = phase4_lw(ns=LW_MANY)
     counts.update(lw)
     lap("phase 4 linear_wave")
+    phase4_ifront()
+    lap("phase 4 ifront")
+    phase4_lowd()
+    lap("phase 4 2D and 1D")
     phase5()
     lap("phase 5")
 

@@ -56,13 +56,33 @@ def test_ghost_fill_matches_jnp(bc):
 
 
 def test_user_boundary_functions_raise():
-    class Prob:
-        bc_ix1 = staticmethod(lambda state, grid, sim: state)
+    """A deck's flag 0 (user) with no function enrolled raises; an enrolled
+    function replaces the fill of its side, after the x1 inner face and
+    before the x2 faces, and the kernel is not taken."""
     sim = TSim(nscalars=1)
-    grid = TGrid(Nx=(8, 8, 8))
+    grid = TGrid(Nx=(8, 8, 8), bc=((O, 0), (O, O), (O, O)))
     st = tstate.zeros(sim, grid, "cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
-        tbvals.apply_bc(st, grid, sim, Prob())
+    with pytest.raises(ValueError, match="no user BC function"):
+        tbvals.apply_bc(st, grid, sim)
+    seen = []
+
+    class Prob:
+        @staticmethod
+        def bc_ox1(state, g, s):
+            seen.append(state.U.clone())
+            U = state.U.clone()
+            U[:, :, :, -4:] = 7.0
+            return state.replace(U=U)
+    rng = np.random.default_rng(3)
+    st = st.replace(U=torch.as_tensor(rng.normal(size=st.U.shape)))
+    out = tbvals.apply_bc(st, grid, sim, Prob())
+    assert len(seen) == 1
+    # the x1 inner face was filled before the function ran
+    np.testing.assert_array_equal(seen[0][:, :, :, :4].numpy(),
+                                  np.repeat(st.U[:, :, :, 4:5].numpy(), 4, 3))
+    # the x2 and x3 fills ran after it, over its ghosts
+    assert (out.U[:, 4:-4, 4:-4, -4:] == 7.0).all()
+    assert (out.U[:, 4:-4, :4, -4:] == 7.0).all()
 
 
 @pytest.mark.parametrize("bc", KERNEL_BCS)

@@ -288,16 +288,18 @@ def test_checkpoint_keeps_coord_and_refuses_unknown(tmp_path):
 
 @pytest.mark.parametrize("kind", ["mhd", "2d"])
 def test_jax_checkpoint_refused_by_name(tmp_path, kind):
-    """An MHD or 2D checkpoint of the JAX package is refused, naming the
-    ROADMAP item."""
+    """An MHD checkpoint, or a 2D one on a cylindrical grid, of the JAX
+    package is refused, naming the ROADMAP item (Cartesian 2D and 1D
+    checkpoints load: tests/test_torch_lowd_io.py)."""
     if kind == "mhd":
         sim = J.SimConfig(gas="mhd")
         grid = J.GridConfig(Nx=(8, 8, 8), bc=((4, 4),) * 3)
         item = "A12"
     else:
         sim = J.SimConfig()
-        grid = J.GridConfig(Nx=(8, 8, 1), bc=((4, 4),) * 3)
-        item = "A1"
+        grid = J.GridConfig(Nx=(8, 8, 1), bc=((4, 4),) * 3,
+                            coord="cylindrical")
+        item = "A15"
     from atmospheric_athena_tpu.state import zeros
     p = str(tmp_path / "x.npz")
     jrestart.save_checkpoint(p, zeros(sim, grid), sim, grid,

@@ -351,8 +351,8 @@ def test_kernel_forms_and_refusals():
                 assert hydro_kernels.supported(TSim(order=order, flux=flux,
                                                     nscalars=ns))
     for sim, item in ((TSim(flux="hlld"), "A12"),
-                      (TSim(flux="two_shock"), "A11 step 5"),
-                      (TSim(flux="exact"), "A11 step 5"),
+                      (TSim(flux="two_shock"), "A11 step 4"),
+                      (TSim(flux="exact"), "A11 step 4"),
                       (TSim(eos="isothermal", gas="mhd"), "A12"),
                       (TSim(nscalars=2, flux="hlld"), "A12")):
         with pytest.raises(NotImplementedError, match=item):

@@ -185,7 +185,7 @@ def test_entry_points_default_to_cuda_without_gpu():
 
 @pytest.mark.parametrize("override,item", [
     ("<configure>gas=mhd", "A12"),
-    ("domain1/Nx3=1", "A10"),
+    ("domain1/Nx3=1", "A15"),
 ])
 def test_unported_decks_raise(override, item):
     if override.startswith("<configure>"):
