@@ -1,17 +1,19 @@
-"""Boundary conditions on the cell-centred hydro state (reference:
-src/bvals_mhd.c): ``atmospheric_athena_tpu/bvals.py``'s ``apply_bc`` for
-the hydro path, with its one-pass ghost-fill kernel (B4) and its plain
-fill (``_apply_bc_jnp``).
+"""Boundary conditions (reference: src/bvals_mhd.c):
+``atmospheric_athena_tpu/bvals.py``'s ``apply_bc``, with its one-pass
+ghost-fill kernel (B4) for the cell-centred hydro state and its plain fill
+(``_apply_bc_jnp``), which also fills an MHD state's Bcc and face fields.
 
 Ghost layers are filled per axis in the fixed order x1 → x2 → x3 so that
 edge and corner ghosts come out right (bvals_mhd.c:170-171).  Flags
 (bvals_mhd.c:540-637):
 
-  1 reflect   — mirror cells, negate the normal momentum
+  1 reflect   — mirror cells, negate the normal momentum and normal B;
+                the normal face field is zeroed ON the boundary face and
+                odd-mirrored about it (bvals_mhd.c:982-989, 1041-1048)
   2 outflow   — zero-gradient copy of the edge active plane
   3 do nothing — ghosts keep their values
   4 periodic  — wrap-around copy
-  5 conductor — identical to reflect for the cell-centred hydro state
+  5 conductor — identical to reflect (bvals_mhd.c:579-581, 629-631)
 
 ``apply_bc`` dispatches as the JAX package's does (``apply_bc`` and
 ``_bc_supported``): the kernel wrapper ``bc_fill`` when the grid is 3D,
@@ -24,6 +26,8 @@ flag 0 (user) needs one.  ``bc_fill`` launches
 csrc/bvals.cu for a CUDA tensor (and raises if it cannot) and runs the
 plain fill for a CPU tensor.  Both write a new array, so ``apply_bc`` has
 one contract on both devices.  ``bc_fill.launches`` counts kernel launches.
+An MHD state takes the plain fill (``_fill_mhd``) on either device: the
+JAX kernel takes hydro only (``_bc_supported``), and so does ``bc_fill``.
 """
 
 from __future__ import annotations
@@ -73,8 +77,11 @@ def _sides(grid: GridConfig):
             for side, flag in zip(("lo", "hi"), grid.bc[axis])]
 
 
-def _fill_side(U, grid: GridConfig, axis: int, side: str, flag: int):
-    """Fill the ghost slab of one face of U in place for a deck flag."""
+def _fill_side(U, grid: GridConfig, axis: int, side: str, flag: int,
+               neg: int = IM1):
+    """Fill the ghost slab of one face of U (or Bcc) in place for a deck
+    flag; reflect and conductor negate component neg + axis (the normal
+    momentum of U, the normal field of Bcc with neg = 0)."""
     ng = grid.nghost
     nd = U.dim()
     dim = 3 - axis                 # +1 for the variable axis of U
@@ -92,7 +99,7 @@ def _fill_side(U, grid: GridConfig, axis: int, side: str, flag: int):
         src = (slice(ng, 2 * ng) if side == "lo"
                else slice(n - 2 * ng, n - ng))
         blk = U[_idx(nd, dim, src)].flip(dim)
-        blk[IM1 + axis] = -blk[IM1 + axis]
+        blk[neg + axis] = -blk[neg + axis]
         U[_idx(nd, dim, dst)] = blk
     elif flag == BC_USER:
         raise ValueError(f"BC flag 0 on axis {axis} ({side}) but the "
@@ -140,6 +147,78 @@ def _fill_user(state: State, grid: GridConfig, sim: SimConfig, fns: dict):
     return state.replace(U=U)
 
 
+def _fill_face(B, grid: GridConfig, axis: int, side: str, flag: int,
+               normal: bool):
+    """Fill the ghost faces of one side of a face field B [NZ, NY, NX] in
+    place (JAX bvals._apply_bc_jnp).  Index f is the lower face of cell f,
+    so along its own axis (`normal`) the boundary face is f0 = ng (lo) or
+    n - ng (hi).  Reflect/conductor zero it and odd-mirror the ng - 1
+    ghost faces about it (reflect_ix1, bvals_mhd.c:982-989; reflect_ox1
+    :1041-1048); periodic and outflow leave the outermost lo ghost face and
+    the shared active face ie+1 alone ("B1i is not set at i=is-nghost",
+    "... at i=ie+1", periodic_ox1 / outflow_ox1) and fill the faces
+    between.  A transverse face field fills like a cell-centred field."""
+    ng = grid.nghost
+    dim = 2 - axis
+    n = B.shape[dim]
+    if flag == BC_USER:
+        raise ValueError(f"BC flag 0 on axis {axis} ({side}) but the "
+                         "problem enrolls no user BC function")
+    if flag not in (BC_PERIODIC, BC_OUTFLOW, BC_REFLECT, BC_CONDUCTOR):
+        raise NotImplementedError(
+            f"BC flag {flag} on axis {axis} (ROADMAP A15)")
+    if normal and flag in (BC_REFLECT, BC_CONDUCTOR):
+        f0 = ng if side == "lo" else n - ng
+        B[_idx(3, dim, slice(f0, f0 + 1))] = 0.0
+        if side == "lo":
+            src, dst = slice(f0 + 1, f0 + ng), slice(f0 - ng + 1, f0)
+        else:
+            src, dst = slice(f0 - ng + 1, f0), slice(f0 + 1, f0 + ng)
+        B[_idx(3, dim, dst)] = -B[_idx(3, dim, src)].flip(dim)
+        return
+    # the ghost block of a cell-centred field (JAX _ghost_block)
+    if flag == BC_PERIODIC:
+        src = slice(n - 2 * ng, n - ng) if side == "lo" else slice(ng, 2 * ng)
+        blk = B[_idx(3, dim, src)].clone()
+    elif flag == BC_OUTFLOW:
+        src = slice(ng, ng + 1) if side == "lo" else slice(n - ng - 1, n - ng)
+        blk = B[_idx(3, dim, src)].expand(
+            *[ng if k == dim else -1 for k in range(3)]).clone()
+    else:
+        src = slice(ng, 2 * ng) if side == "lo" else slice(n - 2 * ng, n - ng)
+        blk = B[_idx(3, dim, src)].flip(dim)
+    if not normal:
+        dst = slice(0, ng) if side == "lo" else slice(n - ng, n)
+        B[_idx(3, dim, dst)] = blk
+    else:
+        dst = slice(1, ng) if side == "lo" else slice(n - ng + 1, n)
+        B[_idx(3, dim, dst)] = blk[_idx(3, dim, slice(1, None))]
+
+
+def _fill_mhd(state: State, grid: GridConfig, sim: SimConfig, fns: dict):
+    """The plain fill of an MHD state: U, Bcc and the three face fields,
+    side by side in the fill order, with the problem's functions in place
+    of the flags of their sides (JAX bvals._apply_bc_jnp)."""
+    U = state.U.clone()
+    Bcc = state.Bcc.clone()
+    Bi = [state.B1i.clone(), state.B2i.clone(), state.B3i.clone()]
+    for axis, side, flag in _sides(grid):
+        if flag == BC_DONOTHING:
+            continue
+        fn = fns.get((axis, side))
+        if fn is not None:
+            state = fn(state.replace(U=U, Bcc=Bcc, B1i=Bi[0], B2i=Bi[1],
+                                     B3i=Bi[2]), grid, sim)
+            U, Bcc = state.U, state.Bcc
+            Bi = [state.B1i, state.B2i, state.B3i]
+            continue
+        _fill_side(U, grid, axis, side, flag)
+        _fill_side(Bcc, grid, axis, side, flag, neg=0)
+        for b in range(3):
+            _fill_face(Bi[b], grid, axis, side, flag, normal=b == axis)
+    return state.replace(U=U, Bcc=Bcc, B1i=Bi[0], B2i=Bi[1], B3i=Bi[2])
+
+
 def bc_fill(U, grid: GridConfig):
     """U [nv, NZ, NY, NX] (padded) with every ghost zone filled, in a new
     array.
@@ -178,10 +257,11 @@ bc_fill.launches = 0
 
 def apply_bc(state: State, grid: GridConfig, sim: SimConfig,
              problem=None) -> State:
-    """Return the state with all ghost zones of U filled."""
-    if sim.mhd:
-        raise NotImplementedError("MHD boundary conditions (ROADMAP A12)")
+    """Return the state with all ghost zones filled: U's, and for MHD
+    also Bcc's and the face fields' (the plain fill on either device)."""
     fns = user_fns(problem)
+    if sim.mhd:
+        return _fill_mhd(state, grid, sim, fns)
     if fns:
         return _fill_user(state, grid, sim, fns)
     if kernel_enabled() and kernel_covers(grid):

@@ -89,6 +89,10 @@ class SimConfig:
         return self.gamma - 1.0
 
     @property
+    def gamma_2(self) -> float:
+        return self.gamma - 2.0
+
+    @property
     def iso_csound2(self) -> float:
         return self.iso_csound * self.iso_csound
 
@@ -165,6 +169,13 @@ class GridConfig:
         n = self.padded_shape()[2 - axis]
         i = np.arange(n)
         return self.xmin[axis] + (i - self.lo(axis) + 0.5) * self.dx[axis]
+
+    def fc_coords(self, axis: int):
+        """Face-center coordinates (left faces) over the padded axis."""
+        import numpy as np
+        n = self.padded_shape()[2 - axis]
+        i = np.arange(n + 1)
+        return self.xmin[axis] + (i - self.lo(axis)) * self.dx[axis]
 
     @property
     def cylindrical(self) -> bool:

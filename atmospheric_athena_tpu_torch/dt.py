@@ -1,7 +1,10 @@
-"""CFL timestep (reference: src/new_dt.c:32-198), hydro.
+"""CFL timestep (reference: src/new_dt.c:32-198), as in
+``atmospheric_athena_tpu/dt.py``.
 
-max_dti = max over active cells and active axes of (|v_a| + c_s)/dx_a with
-a TINY_NUMBER pressure floor; dt = CourNo/max_dti, limited to 2× the
+max_dti = max over active cells and active axes of (|v_a| + c_a)/dx_a with
+a TINY_NUMBER pressure floor: c_a the sound speed for hydro, the per-axis
+fast magnetosonic speed for MHD, built from the *maximum* of face- and
+cell-centered B (new_dt.c:86-92).  dt = CourNo/max_dti, limited to 2× the
 previous dt except on step 0 (new_dt.c:167-171).  The tlim clip lives in
 the driver.
 """
@@ -11,25 +14,66 @@ from __future__ import annotations
 import torch
 
 from .config import GridConfig, SimConfig
+from .defs import ID, IEN, IM1, TINY_NUMBER
+from .eos import exact_div
 from .ops import util_kernels
 from .state import State
 
 
+def max_dti_mhd(state: State, sim: SimConfig, grid: GridConfig):
+    """The MHD CFL reduction (JAX dt.max_dti's MHD branch, new_dt.c:74-134)
+    as plain PyTorch on the state's device (0-d): no kernel takes MHD, as
+    no Pallas kernel does (pallas_util.supported)."""
+    sl = grid.interior()
+    U = state.U[(slice(None),) + sl]
+    di = 1.0 / U[ID]
+    v = [U[IM1 + a] * di for a in range(3)]
+    qsq = v[0] ** 2 + v[1] ** 2 + v[2] ** 2
+    b = []
+    for a, Bi in enumerate((state.B1i, state.B2i, state.B3i)):
+        Bc = state.Bcc[a][sl]
+        b.append(Bc + torch.abs(Bi[sl] - Bc))
+    bsq = b[0] ** 2 + b[1] ** 2 + b[2] ** 2
+    if sim.adiabatic:
+        p = torch.clamp_min(sim.gamma_1 * (U[IEN] - 0.5 * U[ID] * qsq
+                                           - 0.5 * bsq), TINY_NUMBER)
+        asq = sim.gamma * p * di
+    else:
+        asq = sim.iso_csound2
+    tsum = bsq * di + asq
+    tdif = bsq * di - asq
+    dti = torch.zeros((), dtype=U.dtype, device=U.device)
+    for a in range(3):
+        if grid.Nx[a] > 1:
+            cfsq = 0.5 * (tsum + torch.sqrt(
+                tdif * tdif + 4.0 * asq *
+                (b[(a + 1) % 3] ** 2 + b[(a + 2) % 3] ** 2) * di))
+            max_v = torch.amax(torch.abs(v[a]) + torch.sqrt(cfsq))
+            dti = torch.maximum(dti, exact_div(max_v, grid.dx[a]))
+    return dti
+
+
 def max_dti(state: State, sim: SimConfig, grid: GridConfig):
-    """Maximum inverse timestep over this grid's active cells (0-d): the
-    reduction kernel's wrapper on a 3D grid, the plain version on a 2D or
-    1D one on either device (the JAX package's kernel takes three active
-    axes, pallas_util.supported, and its dt.py runs jnp otherwise)."""
-    if sim.mhd or sim.special_relativity or grid.cylindrical:
+    """Maximum inverse timestep over this grid's active cells (0-d): for
+    hydro the reduction kernel's wrapper on a 3D grid, the plain version
+    on a 2D or 1D one on either device (the JAX package's kernel takes
+    three active axes, pallas_util.supported, and its dt.py runs jnp
+    otherwise); for MHD max_dti_mhd on any grid."""
+    if sim.special_relativity or grid.cylindrical:
         raise NotImplementedError(
-            "CFL for MHD, SR or cylindrical grids (ROADMAP A12/A15)")
+            "CFL for SR or cylindrical grids (ROADMAP A15)")
+    if sim.mhd:
+        return max_dti_mhd(state, sim, grid)
     if grid.ndim < 3:
         return util_kernels.max_dti_hydro_plain(state.U, sim, grid)
     return util_kernels.max_dti_hydro(state.U, sim, grid)
 
 
 def new_dt(state: State, sim: SimConfig, grid: GridConfig, cour_no: float):
-    """New dt with the 2× growth clamp (new_dt.c:167-171)."""
-    dt = cour_no / max_dti(state, sim, grid)
+    """New dt with the 2× growth clamp (new_dt.c:167-171).  For MHD the
+    division is one IEEE division (exact_div), as in the JAX package; the
+    hydro path keeps its form (the reciprocal times cour_no)."""
+    dti = max_dti(state, sim, grid)
+    dt = exact_div(cour_no, dti) if sim.mhd else cour_no / dti
     return torch.where(state.nstep == 0, dt,
                        torch.minimum(2.0 * state.dt, dt))

@@ -150,6 +150,10 @@ class MeshSimulation:
         if root.ndim < 3:
             raise NotImplementedError(
                 f"SMR on {root.ndim}D grids (ROADMAP A13)")
+        if sim.mhd:
+            raise NotImplementedError(
+                "MHD SMR (ROADMAP A13: smr_fld.py's face-field restriction "
+                "and prolongation)")
         doms = grids_from_par(par)
         levels = []
         for (lev, grid, disp, pidx) in doms:

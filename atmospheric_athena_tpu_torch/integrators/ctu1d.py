@@ -1,11 +1,15 @@
-"""1D CTU integrator, hydrodynamics (``atmospheric_athena_tpu/integrators/
-ctu1d.py``; reference src/integrators/integrate_1d_ctu.c).
+"""1D CTU integrator, hydrodynamics and MHD
+(``atmospheric_athena_tpu/integrators/ctu1d.py``; reference
+src/integrators/integrate_1d_ctu.c).
 
 One whole-grid step along x1.  Step numbering follows the reference: 1
 (L/R states and fluxes with the half-dt static-gravity source), 8 (n+1/2
 density), 11 (full-dt gravity source) and 12 (conservative update); the
-passive scalars ride along in the 1D-slice vectors.  Cartesian only (the
-cylindrical terms are ROADMAP A15), hydro only (MHD is A12).
+passive scalars ride along in the 1D-slice vectors.  MHD carries (By, Bz)
+in the slice and updates them like the hydro fields; the face field B1i
+stays constant (it equals Bxc in 1D), and B2i/B3i are set to the new
+cell-centred By/Bz (integrate_1d_ctu.c:546-551).  Cartesian only (the
+cylindrical terms are ROADMAP A15).
 
 The JAX package runs this step as jnp on every backend (its Pallas kernels
 take three active axes), so it launches no kernel here either: the plain
@@ -17,15 +21,13 @@ from __future__ import annotations
 import torch
 
 from ..config import GridConfig, SimConfig
-from ..eos import cons1d_to_prim1d, prim1d_to_cons1d
+from ..eos import cons1d_to_prim1d, exact_div, prim1d_to_cons1d
 from ..ops import reconstruct, riemann
 from ..state import State
-from .sweep import from_sweep_flux, sh, to_sweep
+from .sweep import bx_sweep, from_sweep_flux, sh, to_sweep
 
 
 def check_supported(sim: SimConfig, grid: GridConfig):
-    if sim.gas != "hydro":
-        raise NotImplementedError("MHD CTU (ROADMAP A12)")
     if grid.cylindrical:
         raise NotImplementedError("cylindrical 1D CTU (ROADMAP A15)")
     if sim.integrator != "ctu":
@@ -43,15 +45,20 @@ def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
     line, as the JAX step does)."""
     check_supported(sim, grid)
     dx1 = grid.dx[0]
-    dtodx1 = dt / dx1
+    # MHD divides dt by dx as one IEEE division on either device (as the
+    # JAX package and the reference do); the hydro step keeps its form
+    dtodx1 = exact_div(dt, dx1) if sim.mhd else dt / dx1
     hdtodx1 = 0.5 * dtodx1
 
     U = state.U
-    U1d = to_sweep(U, 0, sim)
+    U1d = to_sweep(U, 0, sim, Bcc=state.Bcc)
+    # the cell-centred and face normal fields (1D: B1i = Bxc, constant)
+    Bxc = bx_sweep(state.Bcc, 0) if sim.mhd else None
+    Bxi = state.B1i if sim.mhd else None
 
     # --- Step 1b: primitive states + L/R reconstruction --------------------
-    W = cons1d_to_prim1d(U1d, None, sim)
-    Wminus, Wplus = reconstruct.lr_states(W, None, dtodx1, sim)
+    W = cons1d_to_prim1d(U1d, Bxc, sim)
+    Wminus, Wplus = reconstruct.lr_states(W, Bxc, dtodx1, sim)
     # interface f between cells f-1 and f: Wl[f] = Wplus[f-1], Wr[f] =
     # Wminus[f] (lr_states_plm.c:17-22)
     Wl = sh(Wplus, -1)
@@ -73,9 +80,9 @@ def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
         Wr[1] -= dVr
 
     # --- Step 1d: interface fluxes ------------------------------------------
-    Ul = prim1d_to_cons1d(Wl, None, sim)
-    Ur = prim1d_to_cons1d(Wr, None, sim)
-    F = riemann.fluxes(Ul, Ur, Wl, Wr, None, sim)
+    Ul = prim1d_to_cons1d(Wl, Bxi, sim)
+    Ur = prim1d_to_cons1d(Wr, Bxi, sim)
+    F = riemann.fluxes(Ul, Ur, Wl, Wr, Bxi, sim)
     dF = sh(F, 1) - F           # dF[..., i] = F[i+1] - F[i]
 
     Unew = U1d
@@ -100,4 +107,16 @@ def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
     lo, hi = grid.lo(0), grid.hi(0)
     Uout = U.clone()
     Uout[..., lo:hi + 1] = Unew3[..., lo:hi + 1]
-    return state.replace(U=Uout)
+    if not sim.mhd:
+        return state.replace(U=Uout)
+    # By/Bz cell-centred updates; B2i/B3i set to the cell-centred values
+    # (integrate_1d_ctu.c:546-551)
+    ib = 5 if sim.adiabatic else 4
+    Bcc = state.Bcc.clone()
+    Bcc[1, ..., lo:hi + 1] = Unew[ib][..., lo:hi + 1]
+    Bcc[2, ..., lo:hi + 1] = Unew[ib + 1][..., lo:hi + 1]
+    B2i = state.B2i.clone()
+    B3i = state.B3i.clone()
+    B2i[..., lo:hi + 1] = Bcc[1, ..., lo:hi + 1]
+    B3i[..., lo:hi + 1] = Bcc[2, ..., lo:hi + 1]
+    return state.replace(U=Uout, Bcc=Bcc, B2i=B2i, B3i=B3i)

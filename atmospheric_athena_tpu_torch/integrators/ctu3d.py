@@ -93,10 +93,11 @@ def _phi_arrays(problem, grid: GridConfig, dtype, device):
 
 def check_supported(sim: SimConfig, grid: GridConfig):
     if sim.gas != "hydro":
-        raise NotImplementedError("MHD CTU (ROADMAP A12)")
+        raise ValueError("ctu3d steps hydro; MHD takes ctu3d_mhd (3D) or "
+                         "ctu2d_mhd (2D), as in the JAX package")
     why = hydro_kernels.refusal(sim)
     if why is not None:
-        raise NotImplementedError(f"CTU hydro: {why} is not ported")
+        raise NotImplementedError(f"CTU hydro: {why}")
     if grid.ndim < 2:
         raise ValueError(f"ctu3d steps 2D and 3D grids, not {grid.ndim}D "
                          "(1D grids take integrators/ctu1d.py)")

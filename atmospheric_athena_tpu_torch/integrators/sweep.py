@@ -1,6 +1,6 @@
 """Sweep-direction variable permutation between the physical state order
 and the 1D-slice order, and the gather/scatter of the 1D integrator
-(``atmospheric_athena_tpu/integrators/sweep.py``, hydro part).
+(``atmospheric_athena_tpu/integrators/sweep.py``).
 
 The reference integrators load per-pencil 1D vectors with cyclically
 permuted momentum components per sweep direction (integrate_3d_ctu.c:202-222
@@ -54,18 +54,34 @@ def _adim(axis: int) -> int:
     return 2 - axis
 
 
-def to_sweep(U, axis: int, sim: SimConfig):
-    """U1d = (d, Mx, My, Mz, [E], s...) stacked, with (x, y, z) the cyclic
-    permutation starting at `axis` and the sweep axis moved last (JAX
-    sweep.to_sweep for hydro; MHD's Bxc and By/Bz are ROADMAP A12)."""
-    return torch.movedim(U[var_perm(axis, sim)], _adim(axis) + 1, -1)
+def to_sweep(U, axis: int, sim: SimConfig, Bcc=None):
+    """U1d = (d, Mx, My, Mz, [E], [By, Bz], s...) stacked, with (x, y, z)
+    the cyclic permutation starting at `axis` and the sweep axis moved
+    last (JAX sweep.to_sweep); MHD takes (By, Bz) = (Bcc[axis+1],
+    Bcc[axis+2]) from `Bcc`, and its normal field is ``bx_sweep``."""
+    X = U[var_perm(axis, sim)]
+    if sim.mhd:
+        ib = 5 if sim.adiabatic else 4
+        X = torch.cat([X[:ib], Bcc[(axis + 1) % 3][None],
+                       Bcc[(axis + 2) % 3][None], X[ib:]], 0)
+    return torch.movedim(X, _adim(axis) + 1, -1)
+
+
+def bx_sweep(Bcc, axis: int):
+    """The cell-centred normal field Bxc = Bcc[axis] with the sweep axis
+    last (the Bxc of JAX sweep.to_sweep)."""
+    return torch.movedim(Bcc[axis], _adim(axis), -1)
 
 
 def from_sweep_flux(F, axis: int, sim: SimConfig):
     """Scatter a sweep-ordered flux (or state) [nvar1d, ..., M] back to the
-    physical order [ncons, Nz, Ny, Nx] (JAX sweep.from_sweep_flux for
-    hydro)."""
+    physical order [ncons, Nz, Ny, Nx] (the FU of JAX
+    sweep.from_sweep_flux); an MHD slice's (By, Bz) are dropped here and
+    kept by the caller (ctu1d reads them from the slice)."""
     F = torch.movedim(F, -1, _adim(axis) + 1)
+    if sim.mhd:
+        ib = 5 if sim.adiabatic else 4
+        F = torch.cat([F[:ib], F[ib + 2:]], 0)
     return F[inv_perm(var_perm(axis, sim))]
 
 

@@ -2,8 +2,8 @@
 binary / ppm / pgm / pdf output formats: a copy of
 ``atmospheric_athena_tpu/io/formats.py`` (numpy only) whose entry points
 take the port's State and bring its interior to the host once, as numpy;
-the files are the JAX package's byte for byte.  MHD is not ported
-(ROADMAP A12), so there are no B1c..B3c / ME expressions or columns.
+the files are the JAX package's byte for byte, MHD's B1c..B3c and ME
+expressions and columns included.
 
 Reference parity:
   - expressions  — src/output.c:1111-1250 (expr_d … expr_S) evaluated
@@ -53,11 +53,13 @@ def as_numpy(q):
 # --------------------------------------------------------------------------
 
 
-def _prim_pressure(U, sim: SimConfig):
+def _prim_pressure(U, Bcc, sim: SimConfig):
     if not sim.adiabatic:
         return U[ID] * sim.iso_csound2
     P = U[IEN] - 0.5 * (U[IM1] ** 2 + U[IM1 + 1] ** 2
                         + U[IM1 + 2] ** 2) / U[ID]
+    if sim.mhd and Bcc is not None:
+        P = P - 0.5 * (Bcc[0] ** 2 + Bcc[1] ** 2 + Bcc[2] ** 2)
     return sim.gamma_1 * P
 
 
@@ -70,6 +72,9 @@ def evaluate(name: str, state, sim: SimConfig, grid: GridConfig,
         if usr is not None:
             return as_numpy(usr(state, sim, grid))
     U = interior_numpy(state.U, grid)
+    Bcc = None
+    if sim.mhd and state.Bcc is not None:
+        Bcc = interior_numpy(state.Bcc, grid)
     iscal = 5 if sim.adiabatic else 4
     simple = {"d": lambda: U[ID],
               "M1": lambda: U[IM1], "M2": lambda: U[IM1 + 1],
@@ -77,13 +82,19 @@ def evaluate(name: str, state, sim: SimConfig, grid: GridConfig,
               "V1": lambda: U[IM1] / U[ID],
               "V2": lambda: U[IM1 + 1] / U[ID],
               "V3": lambda: U[IM1 + 2] / U[ID],
-              "P": lambda: _prim_pressure(U, sim)}
+              "P": lambda: _prim_pressure(U, Bcc, sim)}
     if sim.adiabatic:
         simple["E"] = lambda: U[IEN]
-        simple["cs2"] = lambda: (sim.gamma * _prim_pressure(U, sim)
+        simple["cs2"] = lambda: (sim.gamma * _prim_pressure(U, Bcc, sim)
                                  / U[ID])
-        simple["S"] = lambda: (_prim_pressure(U, sim)
+        simple["S"] = lambda: (_prim_pressure(U, Bcc, sim)
                                / U[ID] ** sim.gamma)
+    if Bcc is not None:
+        simple["B1c"] = lambda: Bcc[0]
+        simple["B2c"] = lambda: Bcc[1]
+        simple["B3c"] = lambda: Bcc[2]
+        simple["ME"] = lambda: 0.5 * (Bcc[0] ** 2 + Bcc[1] ** 2
+                                      + Bcc[2] ** 2)
     for n in range(sim.nscalars):
         simple[f"s{n}"] = (lambda n=n: U[iscal + n])
     if name not in simple:
@@ -94,7 +105,7 @@ def evaluate(name: str, state, sim: SimConfig, grid: GridConfig,
 
 def stack_cons(state, sim: SimConfig, grid: GridConfig):
     """All conserved variables in ConsS memory order (athena.h:81-110):
-    (d, M1, M2, M3, [E], s...) over active cells."""
+    (d, M1, M2, M3, [E], [B1c, B2c, B3c], s...) over active cells."""
     U = interior_numpy(state.U, grid)
     iscal = 5 if sim.adiabatic else 4
     cols = [U[ID], U[IM1], U[IM1 + 1], U[IM1 + 2]]
@@ -102,6 +113,10 @@ def stack_cons(state, sim: SimConfig, grid: GridConfig):
     if sim.adiabatic:
         cols.append(U[IEN])
         names.append("E")
+    if sim.mhd and state.Bcc is not None:
+        B = interior_numpy(state.Bcc, grid)
+        cols += [B[0], B[1], B[2]]
+        names += ["B1c", "B2c", "B3c"]
     for n in range(sim.nscalars):
         cols.append(U[iscal + n])
         names.append(f"s{n}")
@@ -109,16 +124,21 @@ def stack_cons(state, sim: SimConfig, grid: GridConfig):
 
 
 def stack_prim(state, sim: SimConfig, grid: GridConfig):
-    """PrimS memory order: (d, V1, V2, V3, [P], r...)."""
+    """PrimS memory order: (d, V1, V2, V3, [P], [B1c..], r...)."""
     cons, _ = stack_cons(state, sim, grid)
     d = cons[0]
     cols = [d, cons[1] / d, cons[2] / d, cons[3] / d]
     names = ["d", "V1", "V2", "V3"]
     i = 4
     if sim.adiabatic:
-        cols.append(_prim_pressure(cons, sim))
+        Bcc = cons[5:8] if sim.mhd else None
+        cols.append(_prim_pressure(cons, Bcc, sim))
         names.append("P")
         i = 5
+    if sim.mhd:
+        cols += [cons[i], cons[i + 1], cons[i + 2]]
+        names += ["B1c", "B2c", "B3c"]
+        i += 3
     for n in range(sim.nscalars):
         cols.append(cons[i + n] / d)
         names.append(f"r{n}")

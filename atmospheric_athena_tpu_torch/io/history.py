@@ -1,10 +1,10 @@
 """History dumps: volume-averaged scalar time series (reference:
 src/dump_history.c:90-360), as in ``atmospheric_athena_tpu/io/history.py``.
 
-Columns: time, dt, mass, [total E], M1, M2, M3, KE1, KE2, KE3, scalars...,
-then user-enrolled scalars (dump_history_enroll).  The sums run on the
-state's device in its dtype; the row comes back to the host in one read.
-MHD is not ported (ROADMAP A12), so there are no ME columns.
+Columns: time, dt, mass, [total E], M1, M2, M3, KE1, KE2, KE3, [ME1, ME2,
+ME3], scalars..., then user-enrolled scalars (dump_history_enroll).  The
+sums run on the state's device in its dtype; the row comes back to the
+host in one read.
 """
 
 from __future__ import annotations
@@ -24,6 +24,8 @@ def history_names(sim: SimConfig, user=()):  # noqa: D103
         names.append("total E")
     names += ["x1 Mom.", "x2 Mom.", "x3 Mom.",
               "x1-KE", "x2-KE", "x3-KE"]
+    if sim.mhd:
+        names += ["x1-ME", "x2-ME", "x3-ME"]
     for n in range(sim.nscalars):
         names.append(f"scalar {n}")
     names += [u[0] for u in user]
@@ -55,6 +57,10 @@ def compute_history(state: State, sim: SimConfig, grid: GridConfig,
         out.append(avg(U[IM1 + m]))
     for m in range(3):
         out.append(avg(0.5 * U[IM1 + m] ** 2 * d1))
+    if sim.mhd:
+        B = state.Bcc[(slice(None),) + grid.interior()]
+        for m in range(3):
+            out.append(avg(0.5 * B[m] ** 2))
     iscal = 5 if sim.adiabatic else 4
     for n in range(sim.nscalars):
         out.append(avg(U[iscal + n]))

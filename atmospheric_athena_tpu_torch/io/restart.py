@@ -1,12 +1,13 @@
 """Checkpoint / restart (reference: src/restart.c, src/dump_restart), as in
 ``atmospheric_athena_tpu/io/restart.py``: one ``np.savez_compressed``
-file with the arrays U, Eflux (when present), time, dt and nstep and a
-``__meta__`` JSON of the SimConfig, the GridConfig and the resolved
-parameter database.  A checkpoint of either package loads in the other:
+file with the arrays U, Bcc, B1i, B2i, B3i (MHD), Eflux (when present),
+time, dt and nstep, in the JAX package's order, and a ``__meta__`` JSON
+of the SimConfig, the GridConfig and the resolved parameter database.  A
+checkpoint of either package loads in the other:
 the JAX SimConfig's ``use_pallas`` has no counterpart here and is dropped;
 any other key this package does not know is refused.  Unlike the JAX
 loader, this one keeps GridConfig.coord, and it refuses a configuration
-the port does not run (MHD, a cylindrical grid, ...) by name.  3D, 2D and
+the port does not run (a cylindrical grid, SR, ...) by name.  3D, 2D and
 1D states load alike: U is [nv, NZ, NY, NX] with inactive axes of size
 1.
 """
@@ -20,11 +21,10 @@ import numpy as np
 
 from ..config import GridConfig, SimConfig
 from ..par import ParameterDB
-from ..state import State, from_numpy, to_numpy
+from ..state import _FIELDS, MHD_FIELDS, State, from_numpy, to_numpy
 
 # SimConfig fields of the JAX package that the port has no use for
 _JAX_ONLY = ("use_pallas",)
-_ARRAYS = ("U", "Eflux", "time", "dt", "nstep")
 
 
 def _fields(obj) -> dict:
@@ -53,8 +53,8 @@ def read_checkpoint(path: str):
     from ..simulation import check_supported, integrator
     with np.load(path) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
-        extra = sorted(set(z.files) - set(_ARRAYS) - {"__meta__"})
-        arrays = {k: z[k] for k in _ARRAYS if k in z.files}
+        extra = sorted(set(z.files) - set(_FIELDS) - {"__meta__"})
+        arrays = {k: z[k] for k in _FIELDS if k in z.files}
     skw = {k: v for k, v in meta["sim"].items() if k not in _JAX_ONLY}
     _known("SimConfig", SimConfig, skw, path)
     sim = SimConfig(**skw)
@@ -66,7 +66,13 @@ def read_checkpoint(path: str):
     grid = GridConfig(**gkw)
     par = ParameterDB.from_string(meta["par"])
     check_supported(par, sim, grid)
-    integrator(grid).check_supported(sim, grid)
+    integrator(grid, sim).check_supported(sim, grid)
+    mhd = [k for k in MHD_FIELDS if k in arrays]
+    if not sim.mhd:
+        extra = sorted(extra + mhd)
+    elif len(mhd) != len(MHD_FIELDS):
+        raise ValueError(f"checkpoint {path}: an MHD state needs "
+                         f"{list(MHD_FIELDS)}, it has {mhd}")
     if extra:
         raise ValueError(f"checkpoint {path}: unknown arrays {extra}")
     if arrays["U"].dtype != np.dtype(sim.dtype):

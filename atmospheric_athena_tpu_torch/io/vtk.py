@@ -4,10 +4,11 @@ ASCII header `# vtk DataFile Version 2.0`, `CONSERVED vars at time= %e,
 level= 0, domain= 0`, BINARY STRUCTURED_POINTS with DIMENSIONS = ncells+1
 per active axis, ORIGIN = domain MinX, SPACING = dx, CELL_DATA, then
 big-endian float32 fields: SCALARS density, VECTORS momentum|velocity,
-SCALARS total_energy|pressure, SCALARS [specific_]scalar[n].
+SCALARS total_energy|pressure, [VECTORS cell_centered_B], SCALARS
+[specific_]scalar[n].
 
 The interior comes to the host in one copy; the float32 conversion and
-the byte swap run there.  MHD is not ported (ROADMAP A12).
+the byte swap run there.
 """
 
 from __future__ import annotations
@@ -81,7 +82,14 @@ def dump_vtk(state: State, sim: SimConfig, grid: GridConfig, path: str,
             if sim.adiabatic:
                 ke = 0.5 * (U[IM1] ** 2 + U[IM1 + 1] ** 2 +
                             U[IM1 + 2] ** 2) * d1
-                _write_scalar(fh, "pressure", (U[IEN] - ke) * sim.gamma_1)
+                P = (U[IEN] - ke) * sim.gamma_1
+                if sim.mhd:
+                    B = interior_numpy(state.Bcc, grid)
+                    P = P - sim.gamma_1 * 0.5 * (B ** 2).sum(0)
+                _write_scalar(fh, "pressure", P)
+        if sim.mhd:
+            B = interior_numpy(state.Bcc, grid)
+            _write_vector(fh, "cell_centered_B", B[0], B[1], B[2])
         for n in range(sim.nscalars):
             q = U[iscal + n]
             if out == "prim":

@@ -224,7 +224,7 @@ def ion_radtransfer(state: State, sim: SimConfig, grid: GridConfig,
         raise NotImplementedError("multi-device radiation (ROADMAP A14)")
     if sim.mhd or not sim.adiabatic:
         raise NotImplementedError(
-            "radiation on MHD or isothermal gas (ROADMAP A12/A15)")
+            "radiation on MHD or isothermal gas (ROADMAP A15, C14)")
     if len(ion.radplanes) != 1 or ion.radplanes[0][0] != -1:
         raise NotImplementedError(
             f"radiation planes {ion.radplanes}: only one dir=-1 plane is "

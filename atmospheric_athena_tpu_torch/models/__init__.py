@@ -16,13 +16,16 @@ def register(name):
 
 
 def get_problem(name: str):
-    from . import (blast, carbuncle, ifront, ioniz_sphere,  # noqa: F401
-                   linear_wave, lw_implode, noh, shkset1d, shu_osher,
-                   testsedov, turb, twoibw)
+    from . import (blast, carbuncle, cpaw, field_loop,  # noqa: F401
+                   ifront, ioniz_sphere, linear_wave, lw_implode, noh,
+                   orszag_tang, rotor, shkset1d, shu_osher, testsedov, turb,
+                   twoibw)
     try:
         return _REGISTRY[name]
     except KeyError:
         raise NotImplementedError(
-            f"problem {name!r} is not ported yet (ROADMAP A11 step 6, A12, "
-            f"A15); "
-            f"ported: {sorted(_REGISTRY)}") from None
+            f"problem {name!r} is not ported yet (ROADMAP A11 steps 3 and "
+            "6: shkset2d, shkset3d, kh, rt, current_sheet; A15: the "
+            "cylindrical, shearing-box, microphysics, self-gravity, "
+            f"particle and SR problems); ported: {sorted(_REGISTRY)}"
+        ) from None

@@ -1,12 +1,15 @@
-"""Spherical blast wave (reference: src/prob/blast.c), the hydro part of
+"""Spherical blast wave (reference: src/prob/blast.c), as in
 ``atmospheric_athena_tpu/models/blast.py``.
 
 Uniform ambient medium with an over-pressured (and optionally over-dense)
-sphere of radius rin at the origin (blast.c:40-92).  The MHD field (ROADMAP
-A12) and the special-relativistic energy (A15) are not ported.
+sphere of radius rin at the origin; MHD adds a uniform field b0 at `angle`
+in the x1-x2 plane (blast.c:40-92).  The special-relativistic energy
+(ROADMAP A15) is not ported.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -14,16 +17,15 @@ import torch
 from .. import state as state_mod
 from ..config import GridConfig, SimConfig
 from ..defs import ID, IEN
+from ..eos import exact_div
 from . import register
 
 
 @register("blast")
 class Blast:
     def __init__(self, par, sim: SimConfig, grid: GridConfig):
-        if sim.mhd:
-            raise NotImplementedError("[blast]: the MHD blast (ROADMAP A12)")
         if sim.special_relativity or not sim.adiabatic:
-            raise NotImplementedError("[blast]: adiabatic Newtonian hydro "
+            raise NotImplementedError("[blast]: adiabatic Newtonian gas "
                                       "only (ROADMAP A15)")
         self.par = par
 
@@ -49,5 +51,16 @@ class Blast:
         U = st.U.clone()
         U[ID] = torch.where(inside, drat * da * one, da * one)
         P = torch.where(inside, prat * pa * one, pa * one)
-        U[IEN] = P / sim.gamma_1
-        return st.replace(U=U)
+        if not sim.mhd:
+            U[IEN] = P / sim.gamma_1
+            return st.replace(U=U)
+        b0 = par.getd("problem", "b0")
+        theta = math.pi / 180.0 * par.getd("problem", "angle")
+        Bx = b0 * math.cos(theta)
+        By = b0 * math.sin(theta)
+        Bcc = st.Bcc.clone()
+        Bcc[0] = Bx
+        Bcc[1] = By
+        U[IEN] = exact_div(P, sim.gamma_1) + 0.5 * (Bx ** 2 + By ** 2)
+        return st.replace(U=U, Bcc=Bcc, B1i=Bcc[0].clone(),
+                          B2i=Bcc[1].clone(), B3i=Bcc[2].clone())

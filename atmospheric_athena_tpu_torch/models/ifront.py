@@ -7,7 +7,7 @@ scalar s0 = rho) with one plane radiation source on the -x1 edge
 of its inlet flux (ionradplane_3d.c:265).  No static potential.  The
 adiabatic form only: the isothermal one needs radiation on isothermal gas,
 which ``simulation.check_supported`` refuses (ROADMAP C14), and the MHD one
-is ROADMAP A12.
+needs radiation on MHD gas (ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -25,8 +25,8 @@ class Ifront:
 
     def __init__(self, par, sim: SimConfig, grid: GridConfig):
         if sim.mhd:
-            raise NotImplementedError("[ifront]: the MHD ifront (ROADMAP "
-                                      "A12)")
+            raise NotImplementedError("[ifront]: the MHD ifront, radiation "
+                                      "on MHD gas (ROADMAP A15)")
         if not sim.adiabatic:
             raise NotImplementedError("[ifront]: radiation on isothermal gas "
                                       "(ROADMAP C14)")

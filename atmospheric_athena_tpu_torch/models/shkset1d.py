@@ -1,6 +1,6 @@
 """Shock-tube problem generator (reference: src/prob/shkset1d.c), as in
-``atmospheric_athena_tpu/models/shkset1d.py`` for hydro (the MHD and
-special-relativistic states are ROADMAP A12 and A15).
+``atmospheric_athena_tpu/models/shkset1d.py`` for hydro and MHD (the
+special-relativistic states are ROADMAP A15).
 
 Left and right primitive states from <problem>, the discontinuity at x = 0
 along shk_dir, vector components permuted so that the shock normal maps
@@ -22,9 +22,6 @@ from . import register
 @register("shkset1d")
 class Shkset1D:
     def __init__(self, par, sim: SimConfig, grid: GridConfig):
-        if sim.mhd:
-            raise NotImplementedError("[shkset1d]: the MHD shock tube "
-                                      "(ROADMAP A12)")
         if sim.special_relativity:
             raise NotImplementedError("[shkset1d]: special relativity "
                                       "(ROADMAP A15)")
@@ -39,6 +36,12 @@ class Shkset1D:
                     for k in ("d", "v1", "v2", "v3")]
             if sim.adiabatic:
                 vals.append(par.getd("problem", f"p{side}"))
+            bx = None
+            if sim.mhd:
+                bx = torch.tensor(par.getd("problem", f"b1{side}"),
+                                  dtype=dtype, device=device)
+                vals += [par.getd("problem", f"b2{side}"),
+                         par.getd("problem", f"b3{side}")]
             for n in range(sim.nscalars):
                 # the decks write r[0]l or s0l
                 key = (f"r[{n}]{side}" if par.exist("problem",
@@ -46,9 +49,9 @@ class Shkset1D:
                        else f"s{n}{side}")
                 vals.append(par.getd("problem", key))
             return prim1d_to_cons1d(torch.tensor(vals, dtype=dtype,
-                                                 device=device), None, sim)
+                                                 device=device), bx, sim), bx
 
-        Ul, Ur = prim_side("l"), prim_side("r")
+        (Ul, Bxl), (Ur, Bxr) = prim_side("l"), prim_side("r")
         axis = par.geti("problem", "shk_dir") - 1
         x = np.asarray(grid.cc_coords(axis))
         shape = grid.padded_shape()
@@ -62,8 +65,19 @@ class Shkset1D:
         if sim.adiabatic:
             dst.append(IEN)
         ib = 5 if sim.adiabatic else 4
+        # the slice's scalars sit after the optional (By, Bz) pair
+        iscal = ib + (2 if sim.mhd else 0)
+        src = list(range(len(dst))) + [iscal + n
+                                       for n in range(sim.nscalars)]
         dst += [ib + n for n in range(sim.nscalars)]
         U = st.U.clone()
-        for n, k in enumerate(dst):
+        for n, k in zip(src, dst):
             U[k] = torch.where(mask, Ul[n], Ur[n])
-        return st.replace(U=U)
+        if not sim.mhd:
+            return st.replace(U=U)
+        Bcc = st.Bcc.clone()
+        Bcc[a1] = torch.where(mask, Bxl, Bxr)
+        Bcc[a2] = torch.where(mask, Ul[ib], Ur[ib])
+        Bcc[a3] = torch.where(mask, Ul[ib + 1], Ur[ib + 1])
+        return st.replace(U=U, Bcc=Bcc, B1i=Bcc[0].clone(),
+                          B2i=Bcc[1].clone(), B3i=Bcc[2].clone())

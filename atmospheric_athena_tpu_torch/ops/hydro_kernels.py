@@ -98,14 +98,17 @@ def refusal(sim: SimConfig):
     solvers and any number of passive scalars: the forms of the JAX
     package's kernels (pallas_hydro.supported)."""
     if sim.gas != "hydro":
-        return "MHD (ROADMAP A12)"
+        return ("MHD: the JAX kernels take hydro only "
+                "(pallas_hydro.supported); MHD runs the plain CT steps")
     if sim.special_relativity:
         return "special relativity (ROADMAP A15)"
     if sim.integrator != "ctu":
         return f"the {sim.integrator} integrator (ROADMAP A11 step 5)"
+    if sim.flux == "hlld":
+        return ("the hlld solver: MHD only, and the JAX kernels take hydro "
+                "only (pallas_hydro.supported)")
     if sim.flux not in FLUX_KIND:
-        item = "A12" if sim.flux == "hlld" else "A11 step 4"
-        return f"the {sim.flux} solver (ROADMAP {item})"
+        return f"the {sim.flux} solver (ROADMAP A11 step 4)"
     return None
 
 

@@ -135,10 +135,13 @@ def max_dti_hydro(U, sim: SimConfig, grid: GridConfig):
     Kernel (CUDA tensors of a 3D grid; it raises on a 2D or 1D one): the
     Triton kernel above, replacing ops/pallas_util.py:_kernel; plain
     version for CPU tensors."""
+    if sim.mhd or sim.special_relativity:
+        raise NotImplementedError(
+            "max_dti_hydro: hydro only, as the JAX kernel it replaces "
+            "(pallas_util.supported takes gas == 'hydro'); the MHD CFL is "
+            "dt.max_dti_mhd")
     if U.device.type != "cuda":
         return max_dti_hydro_plain(U, sim, grid)
-    if sim.mhd or sim.special_relativity:
-        raise NotImplementedError("max_dti_hydro: hydro only")
     if grid.ndim < 3:
         raise ValueError("max_dti_hydro: the kernel covers 3D grids (2D and "
                          "1D grids take max_dti_hydro_plain, as dt.max_dti "

@@ -2,12 +2,15 @@
 configurations the port covers: the plane-radiation problems (the
 ioniz_sphere production step, ifront), adiabatic and isothermal hydro on
 3D, 2D and 1D grids (testsedov, blast, turb, linear_wave, the 2D carbuncle,
-noh and lw_implode, the 1D shkset1d, shu_osher and twoibw), on one domain
-or, for a 3D deck with num_domains > 1 and a <domain2> block, on a
-static-mesh-refined hierarchy (``Simulation.from_par`` then returns a
-``hierarchy.MeshSimulation``, as the JAX package's does).  The integrator
-follows the grid's dimension as in the JAX package (simulation.py:
-178-189): integrators/ctu1d.py for 1D, integrators/ctu3d.py for 2D and 3D.
+noh and lw_implode, the 1D shkset1d, shu_osher and twoibw), adiabatic and
+isothermal MHD with constrained transport on 3D, 2D and 1D grids (blast,
+cpaw3d, orszag_tang, rotor, field_loop, cpaw, shkset1d, linear_wave), on
+one domain or, for a 3D hydro deck with num_domains > 1 and a <domain2>
+block, on a static-mesh-refined hierarchy (``Simulation.from_par`` then
+returns a ``hierarchy.MeshSimulation``, as the JAX package's does).  The
+integrator follows the grid's dimension and gas as in the JAX package
+(simulation.py:178-189): integrators/ctu1d.py for 1D, ctu3d_mhd.py and
+ctu2d_mhd.py for 3D and 2D MHD, ctu3d.py for 2D and 3D hydro.
 
   - ``Simulation.from_file`` / ``from_par``: par parsing, config build,
     problem init, initial ghost fill, initial dt (main.c steps 1-9).
@@ -22,10 +25,11 @@ follows the grid's dimension as in the JAX package (simulation.py:
 
 Every tensor lives on the ``device`` given at construction: ``"cuda"``
 unless the caller asks for ``"cpu"`` (without a visible GPU the default
-raises; there is no silent CPU fallback).  On a CUDA device a 3D step runs
-the hand-written kernels; on the CPU their plain PyTorch versions.  A 2D
-or 1D step runs the plain versions on either device, as the JAX package
-runs jnp there (its kernels take three active axes).
+raises; there is no silent CPU fallback).  On a CUDA device a 3D hydro
+step runs the hand-written kernels; on the CPU their plain PyTorch
+versions.  A 2D or 1D step, and every MHD step, runs the plain versions on
+either device, as the JAX package runs jnp there (its kernels take three
+active axes and hydro gas).
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ from torch.profiler import record_function
 from . import bvals, dt as dt_mod
 from .config import (GridConfig, SimConfig, grid_config_from_par,
                      sim_config_from_par)
-from .integrators import ctu1d, ctu3d
+from .integrators import ctu1d, ctu2d_mhd, ctu3d, ctu3d_mhd
 from .models import get_problem
 from .par import ParameterDB
 from .state import State, from_numpy, resolve_device
@@ -86,9 +90,9 @@ def parse_configure_line(par: ParameterDB) -> dict:
 def check_supported(par: ParameterDB, sim: SimConfig, grid: GridConfig):
     """Refuse decks outside the ported slice, naming the ROADMAP item."""
     blockers = [
-        (sim.mhd, "MHD (ROADMAP A12)"),
         (sim.integrator == "vl",
-         "the VL integrator (ROADMAP A11 step 5)"),
+         f"the VL integrator{' with MHD' if sim.mhd else ''} (ROADMAP A11 "
+         "step 5)"),
         (sim.special_relativity, "special relativity (ROADMAP A15)"),
         (sim.self_gravity, "self-gravity (ROADMAP A15)"),
         (sim.shearing_box or sim.fargo, "shearing box / FARGO (ROADMAP "
@@ -100,6 +104,9 @@ def check_supported(par: ParameterDB, sim: SimConfig, grid: GridConfig):
         (sim.ion_radplane and grid.ndim != 3,
          f"plane radiation on {grid.ndim}D grids (ROADMAP A15; the "
          "reference's is ionrad_3d.c)"),
+        (sim.ion_radplane and sim.mhd,
+         "plane radiation on MHD gas (ROADMAP A15: the radiation's kernels "
+         "and energy update take hydro)"),
         (any(par.getd_def("problem", k, 0.0) > 0.0 for k in (
             "nu_iso", "kappa_iso", "eta_O", "Q_AD", "Q_Hall", "nu_aniso",
             "kappa_aniso")), "diffusion / microphysics (ROADMAP A15)"),
@@ -130,14 +137,19 @@ def configure(par: ParameterDB, problem: Optional[str], dtype: Optional[str],
     sim = sim_config_from_par(par, **auto)
     grid = grid_config_from_par(par, coord=coord)
     check_supported(par, sim, grid)
-    integrator(grid).check_supported(sim, grid)
+    integrator(grid, sim).check_supported(sim, grid)
     return prob_cls, sim, grid
 
 
-def integrator(grid: GridConfig):
-    """The CTU integrator module of a grid (JAX simulation.py:178-189):
-    ctu1d for 1D grids, ctu3d ("handles 2D and 3D") otherwise."""
-    return ctu1d if grid.ndim == 1 else ctu3d
+def integrator(grid: GridConfig, sim: SimConfig):
+    """The CTU integrator module of a grid and gas (JAX simulation.py:
+    178-189): ctu1d for 1D grids, ctu3d_mhd and ctu2d_mhd for 3D and 2D
+    MHD, ctu3d ("handles 2D and 3D") for hydro."""
+    if grid.ndim == 1:
+        return ctu1d
+    if sim.mhd:
+        return ctu3d_mhd if grid.ndim == 3 else ctu2d_mhd
+    return ctu3d
 
 
 class Simulation:
@@ -161,7 +173,7 @@ class Simulation:
             self.ion = ion_config_from_par(
                 par, grid, radplanes=getattr(problem, "radplanes", ()),
                 time_ramp=getattr(problem, "time_ramp", True))
-        self.integ = integrator(grid)
+        self.integ = integrator(grid, sim)
         # the potential on the padded grid (2D, 3D); ctu1d evaluates it on
         # the x1 line itself (JAX simulation.py:219)
         self.phi = (ctu3d._phi_arrays(problem, grid, state.U.dtype,

@@ -20,7 +20,7 @@ Geometry: a child Domain at level l+1 covers the parent cell box
 <domainN> iDisp/jDisp/kDisp displacement measured in CHILD-level cells
 (init_mesh.c reads Disp in own-level units; refinement ratio is 2).
 
-MHD (the face fields and Bcc, smr_fld.py) is ROADMAP A12 and special
+MHD (the face fields and Bcc, smr_fld.py) is ROADMAP A13 and special
 relativity A15: both raise.
 """
 
@@ -262,7 +262,7 @@ def prolong_ghosts(Uc, Uf, pgrid: GridConfig, fgrid: GridConfig,
     the prolonged momenta.  MHD (`Bccc`) and special relativity raise."""
     if Bccc is not None or (sim is not None and sim.mhd):
         raise NotImplementedError("MHD prolongation (smr_fld.py, ROADMAP "
-                                  "A12)")
+                                  "A13: MHD SMR)")
     if sim is not None and sim.special_relativity:
         raise NotImplementedError("special-relativity prolongation (ROADMAP "
                                   "A15)")

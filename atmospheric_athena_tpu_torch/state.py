@@ -6,6 +6,12 @@ Fields:
   time, dt : 0-d tensors of U's dtype on U's device (dt is produced inside
           the step, because the radiation sub-cycle may shrink it).
   nstep : 0-d int32 tensor on U's device.
+  Bcc   : cell-centered magnetic field [3, Nz+2g, Ny+2g, Nx+2g] (MHD only,
+          else None).
+  B1i/B2i/B3i : face-centered fields of constrained transport, each
+          padded-cell-shaped [Nz+2g, Ny+2g, Nx+2g]: index i is the lower
+          face of cell i along the field's own axis, so the upper face ie+1
+          of the last active cell sits in the ghost padding (MHD only).
   Eflux : ionizing radiation edge flux [Nz, Ny, Nx+1] over active cells
           (set by the radiation module, else None).
 
@@ -30,6 +36,10 @@ class State:
     time: torch.Tensor
     dt: torch.Tensor
     nstep: torch.Tensor
+    Bcc: Optional[torch.Tensor] = None
+    B1i: Optional[torch.Tensor] = None
+    B2i: Optional[torch.Tensor] = None
+    B3i: Optional[torch.Tensor] = None
     Eflux: Optional[torch.Tensor] = None
 
     def replace(self, **kw) -> "State":
@@ -41,15 +51,20 @@ class State:
 
 
 def zeros(sim: SimConfig, grid: GridConfig, device) -> State:
-    """Allocate an all-zero state (init_grid.c analogue)."""
-    if sim.mhd:
-        raise NotImplementedError("MHD state (ROADMAP A12)")
+    """Allocate an all-zero state (init_grid.c analogue); MHD adds Bcc
+    and the three face fields."""
     dt = sim.torch_dtype()
     shape = grid.padded_shape()
     U = torch.zeros((sim.ncons,) + shape, dtype=dt, device=device)
     z = torch.zeros((), dtype=dt, device=device)
+    kw = {}
+    if sim.mhd:
+        kw["Bcc"] = torch.zeros((3,) + shape, dtype=dt, device=device)
+        for k in MHD_FIELDS[1:]:
+            kw[k] = torch.zeros(shape, dtype=dt, device=device)
     return State(U=U, time=z, dt=z.clone(),
-                 nstep=torch.zeros((), dtype=torch.int32, device=device))
+                 nstep=torch.zeros((), dtype=torch.int32, device=device),
+                 **kw)
 
 
 def resolve_device(device) -> torch.device:
@@ -65,12 +80,15 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-_FIELDS = ("U", "Eflux", "time", "dt", "nstep")
+#: the magnetic fields of an MHD state
+MHD_FIELDS = ("Bcc", "B1i", "B2i", "B3i")
+#: the arrays of a state in the JAX package's checkpoint order
+_FIELDS = ("U",) + MHD_FIELDS + ("Eflux", "time", "dt", "nstep")
 
 
 def to_numpy(state) -> dict:
-    """State (of either package) -> dict of numpy arrays: U, Eflux (absent
-    when None), time, dt, nstep."""
+    """State (of either package) -> dict of numpy arrays: U, Bcc, B1i, B2i,
+    B3i, Eflux (each absent when None), time, dt, nstep."""
     out = {}
     for k in _FIELDS:
         v = getattr(state, k)
@@ -93,7 +111,7 @@ def from_numpy(d: dict, device="cuda", dtype=None) -> State:
     """dict of numpy arrays (as from ``to_numpy``, or ``np.asarray`` of a
     JAX State's fields) -> State on `device` (the card unless the caller
     asks for the CPU).  `dtype` (a torch dtype) overrides the floating
-    type of U, Eflux, time and dt."""
+    type of U, the magnetic fields, Eflux, time and dt."""
     device = resolve_device(device)
 
     def t(x, dt=None):
@@ -101,9 +119,9 @@ def from_numpy(d: dict, device="cuda", dtype=None) -> State:
         return out if dt is None else out.to(dtype=dt)
     U = t(d["U"], dtype)
     fdt = U.dtype
-    ef = d.get("Eflux")
+    opt = {k: t(d[k], fdt).contiguous() for k in MHD_FIELDS + ("Eflux",)
+           if d.get(k) is not None}
     return State(U=U.contiguous(),
                  time=t(d["time"], fdt).reshape(()),
                  dt=t(d["dt"], fdt).reshape(()),
-                 nstep=t(d["nstep"], torch.int32).reshape(()),
-                 Eflux=None if ef is None else t(ef, fdt).contiguous())
+                 nstep=t(d["nstep"], torch.int32).reshape(()), **opt)

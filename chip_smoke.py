@@ -23,7 +23,11 @@ linear_wave with 40 scalars ("name[roe+ns40]"), whose B5 and B12 march
 kernels pass the scalars in chunks; and this slice's paths: ifront (plane
 radiation without a static potential: the bench kernels but B6 and B9)
 and the 2D and 1D hydro decks, which run the plain functions on the card
-and launch no kernel, as the JAX package runs jnp there.  It checks
+and launch no kernel, as the JAX package runs jnp there; and this slice's
+paths: MHD with constrained transport on 3D, 2D and 1D grids
+(integrators/ctu3d_mhd.py, ctu2d_mhd.py, ctu1d.py with Roe, HLLE and
+HLLD), which also run the plain functions and launch no kernel, as no JAX
+kernel takes MHD.  It checks
 each hand-written kernel against its plain PyTorch version on the card; a
 kernel with several forms (the solver, Roe, HLLC or HLLE, and B5's
 reconstruction order, "ppm+hllc"; the operand forms of transverse_correct,
@@ -110,6 +114,10 @@ and counted per form, "name[form]":
      holds the JAX package to; Sod's 87 cycles against its tab), and ifront
      at 32^3 float64, 2 cycles, on the card against the plain CPU run on
      the K=1 loop and with batch_iters=25, to 1e-10 of each field's max;
+     then (phase3_mhd) the MHD goldens through the entry points on the
+     card in float64 with every kernel counter 0, at the JAX tests'
+     tolerances (run_mhd_golden: b3n1, b3a2, blast2dmhd, cpaw3d, ot64,
+     rotor64 and Brio & Wu's 95 cycles of BRIOWU_DECK);
   4. full width: the SMR main path, isph2lev at 256^3 + 256^3 float32
      (the child over the root's centre), maxiter=50, batch_iters=25, 3
      cycles through Simulation.from_file (no device argument: the card is
@@ -132,7 +140,13 @@ and counted per form, "name[form]":
      cycles, a CLI cycle), lw_implode at 2048^2 and shu_osher at 16384
      cells (5 cycles each) in float32 with every kernel counter 0, each
      with ms per cycle, zone-cycles/s and peak memory beside the card's
-     name and power limit; phase 4's CLI cycles write no outputs
+     name and power limit; then (phase4_mhd, MHD_FULL) the 3D MHD blast
+     (athinput.b3n1's physics: Roe, PLM, the H-correction) at 256^3 with
+     cubic cells, 5 cycles and a CLI cycle, and with HLLD, 3 cycles, and
+     Orszag-Tang (athinput.ot64) at 4096^2, 5 cycles and a CLI cycle, in
+     float32 with every kernel counter 0 (their launches on a line of
+     their own): ms per cycle, zone-cycles/s, peak memory, finite fields,
+     dt > 0 and max |div B| against max |B| / dx (<= 1e-5); phase 4's CLI cycles write no outputs
      (job/maxout=0) but the SMR one, which writes a history and a cons VTK
      output per level with -d (level 1's under lev1/ with a -lev1 problem
      id; the first rows and dumps equal to each level's initial state);
@@ -154,7 +168,8 @@ each kernel's path: the SMR run first, then the bench run, the K=1 runs,
 the run without the H-correction, the testsedov, PPM, turb and the two
 linear_wave runs; B3', B3's inlet form and the forms that take no
 full-width run, on no path, with their phase-2 launches and "path": null,
-the hydro ones also with their phase-3 launches), the nvidia-smi line
+the hydro ones also with their phase-3 launches; "mhd_launches", each
+kernel's launches in each MHD_FULL run, all 0), the nvidia-smi line
 before it, and the final line {"ok": true,
 "device": {...}}.  Any failed check raises, so the exit code is non-zero
 and no result line is printed.
@@ -433,6 +448,74 @@ v3r = 0.0
 """
 SOD_TAB = os.path.join(HERE, "tests", "golden", "sod_t0.25_prim.tab")
 SOD_CYCLES = 87
+
+# Brio & Wu's MHD shock tube as the reference's tst/1D-mhd deck sets it
+# (the deck itself is absent, ROADMAP C0): 200 cells to t = 0.1 (95
+# cycles), gamma = 2, Roe, PLM; tests/golden/briowu_t0.1_prim.npz holds the
+# reference C code's primitive state (columns i, x, d, V1-V3, P, B1c-B3c)
+BRIOWU_DECK = """
+<comment>
+problem = Brio & Wu shock tube
+config  = --with-gas=mhd --with-problem=shkset1d
+
+<job>
+problem_id = BrioWu
+
+<time>
+cour_no = 0.8
+nlim    = 10000
+tlim    = 0.1
+
+<domain1>
+level  = 0
+Nx1    = 200
+x1min  = -0.5
+x1max  = 0.5
+bc_ix1 = 2
+bc_ox1 = 2
+Nx2    = 1
+x2min  = 0.0
+x2max  = 1.0
+Nx3    = 1
+x3min  = 0.0
+x3max  = 1.0
+
+<problem>
+gamma   = 2.0
+shk_dir = 1
+dl  = 1.0
+pl  = 1.0
+v1l = 0.0
+v2l = 0.0
+v3l = 0.0
+b1l = 0.75
+b2l = 1.0
+b3l = 0.0
+dr  = 0.125
+pr  = 0.1
+v1r = 0.0
+v2r = 0.0
+v3r = 0.0
+b1r = 0.75
+b2r = -1.0
+b3r = 0.0
+"""
+BRIOWU_GOLD = os.path.join(HERE, "tests", "golden", "briowu_t0.1_prim.npz")
+BRIOWU_CYCLES = 95
+
+# the MHD goldens of the reference C code, as tests/test_mhd3d.py,
+# test_problems_r5b.py and test_sod.py hold the JAX package to them:
+# name -> (deck, problem, cycles)
+MHD_GOLDENS = {
+    "b3n1": ("athinput.b3n1", None, 1),
+    "b3a2": ("athinput.b3a2", None, 2),
+    "blast2dmhd": ("athinput.blast2dmhd", None, 1),
+    "cpaw3d": ("athinput.cpaw3d", None, 10),
+    "ot64": ("athinput.ot64", "orszag-tang", 10),
+    "rotor64": ("athinput.rotor64", "rotor", 20),
+    "briowu": (None, None, BRIOWU_CYCLES),
+}
+MHD_FIELDS = ["d", "M1", "M2", "M3", "E", "B1", "B2", "B3"]
 
 # the 2D and 1D per-cycle cons goldens of the reference C code, with the
 # cycles, fields, tolerances (cycle 1, last cycle) and solver
@@ -1211,6 +1294,27 @@ def count_ops(fn):
                 if isinstance(o, torch.Tensor):
                     self.n += o.numel()
             return out
+
+    with Count() as c:
+        fn()
+    return c.n
+
+
+def count_dispatch(fn):
+    """The PyTorch operators one call of fn dispatches that compute or move
+    data (each is one pass of a kernel over its tensors, on the card one
+    launch or more): every dispatched operator but the views and the bare
+    allocations (empty, empty_like, empty_strided)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view and func.overloadpacket.__name__ not in (
+                    "empty", "empty_like", "empty_strided"):
+                self.n += 1
+            return func(*args, **(kwargs or {}))
 
     with Count() as c:
         fn()
@@ -2290,19 +2394,25 @@ def run_golden(device):
 def golden_errors(s, ref, fields):
     """{field: max |port - golden| / scale} over the interior of the port
     Simulation `s` against one golden cons snapshot (rows: the tab's
-    position columns, then `fields`), with tests/test_problems_r5.py's
+    position columns, then `fields`: d, M1-M3, E and, for MHD, the
+    cell-centred B1-B3), with tests/test_problems_r5.py's
     per-field scale: the field's max, floored at 1e-3 of the largest
     field's."""
     import numpy as np
     U = s.state.U[(slice(None),) + s.grid.interior()].cpu().numpy()
+    B = (s.state.Bcc[(slice(None),) + s.grid.interior()].cpu().numpy()
+         if s.sim.mhd else None)
     nsp = ref.shape[1] - len(fields)
     gmax = max(np.abs(ref[:, nsp + i]).max() for i in range(len(fields)))
     out = {}
     for i, f in enumerate(fields):
-        k = {"d": 0, "M1": 1, "M2": 2, "M3": 3, "E": 4}[f]
+        if f.startswith("B"):
+            q = B[int(f[1]) - 1]
+        else:
+            q = U[{"d": 0, "M1": 1, "M2": 2, "M3": 3, "E": 4}[f]]
         r = ref[:, nsp + i]
         scale = max(np.abs(r).max(), 1e-3 * gmax, 1e-30)
-        out[f] = float(np.abs(U[k].ravel() - r).max() / scale)
+        out[f] = float(np.abs(q.ravel() - r).max() / scale)
     return out
 
 
@@ -2420,6 +2530,131 @@ def run_sod_golden(device):
     mass = float(U[0].sum() * s.grid.dx[0])
     if not abs(mass / 0.5625 - 1) <= 1e-12:
         raise AssertionError(f"sod: mass {mass!r}, not 0.5625")
+    return s, worst
+
+
+def divb_max(s):
+    """max |∇·B| of an MHD Simulation's face fields over its active cells
+    (utils.fields.compute_div_b, the reference's compute_div_b)."""
+    from atmospheric_athena_tpu_torch.utils.fields import compute_div_b
+    st = s.state
+    return float(compute_div_b(st.B1i, st.B2i, st.B3i, s.grid).abs().max())
+
+
+def mhd_fields(s):
+    """{name: interior numpy array} of d, M1-M3, E and B1c-B3c."""
+    sl = (slice(None),) + s.grid.interior()
+    U = s.state.U[sl].cpu().numpy()
+    B = s.state.Bcc[sl].cpu().numpy()
+    return {"d": U[0], "M1": U[1], "M2": U[2], "M3": U[3], "E": U[4],
+            "B1c": B[0], "B2c": B[1], "B3c": B[2]}
+
+
+def run_mhd_golden(name, device):
+    """One MHD golden (MHD_GOLDENS, float64) through the entry points on
+    `device` at the tolerances the JAX tests hold the JAX package to:
+
+      b3n1 (1 cycle): d, M, E to 5e-13; B to 2e-3 in fewer than 200 cells
+        (tie-degenerate corner-EMF upwinding, tests/test_mhd3d.py:57-71);
+      b3a2 (2 cycles): every field to 5e-3, ∇·B < 1e-12;
+      blast2dmhd (1 cycle): every field to 1e-14;
+      cpaw3d (10 cycles): every field to 2e-14, ∇·B < 5e-13;
+      ot64 (10 cycles): d, M1, M2, E, B1c, B2c to 1e-12;
+      rotor64 (20 cycles): golden_errors at 1e-11 (cycle 1) and 1e-9
+        (cycle 20) of each field's scale, the times to rel 1e-5;
+      briowu (BRIOWU_DECK, 95 cycles to t = 0.1): the primitive state to
+        1e-11 (tests/test_sod.py:57-77).
+
+    Raises on a miss; returns the Simulation and the worst error (an
+    absolute error, or the scaled one of golden_errors for rotor64)."""
+    import numpy as np
+    from atmospheric_athena_tpu_torch import Simulation
+    from atmospheric_athena_tpu_torch.par import ParameterDB
+    deck, problem, ncyc = MHD_GOLDENS[name]
+    gold_dir = os.path.join(HERE, "tests", "golden")
+    if name == "briowu":
+        from atmospheric_athena_tpu_torch.eos import cons1d_to_prim1d
+        from atmospheric_athena_tpu_torch.integrators.sweep import (
+            bx_sweep, to_sweep)
+        s = Simulation.from_par(ParameterDB.from_string(BRIOWU_DECK),
+                                dtype="float64", device=device)
+        s.run()
+        if int(s.state.nstep) != ncyc or abs(float(s.state.time) - 0.1) \
+                > 1e-12:
+            raise AssertionError(f"briowu: {int(s.state.nstep)} cycles to "
+                                 f"t = {float(s.state.time)}")
+        st = s.state
+        W = cons1d_to_prim1d(to_sweep(st.U, 0, s.sim, Bcc=st.Bcc),
+                             bx_sweep(st.Bcc, 0), s.sim)
+        W = W[:, 0, 0, s.grid.interior()[2]].cpu().numpy()
+        ref = np.load(BRIOWU_GOLD)["data"]
+        worst = max(float(np.abs(W[k] - ref[:, c]).max()) for k, c in
+                    ((0, 2), (1, 3), (2, 4), (3, 5), (4, 6), (5, 8), (6, 9)))
+        if not worst <= 1e-11:
+            raise AssertionError(f"briowu: error {worst:.3e} > 1e-11")
+        return s, worst
+    cmd = [f"time/nlim={ncyc}", "job/maxout=0"]
+    if name == "rotor64":
+        cmd.append("time/tlim=9e9")
+    s = Simulation.from_file(os.path.join(gold_dir, deck), problem=problem,
+                             cmdline=cmd, dtype="float64", device=device)
+    if name == "rotor64":
+        gold = np.load(os.path.join(gold_dir, "rotor_20cycles.npz"))
+        worst = 0.0
+        for cyc in range(1, ncyc + 1):
+            s.step()
+            t_ref = gold["traj"][cyc - 1][0]
+            if not abs(float(s.state.time) - t_ref) <= 1e-5 * abs(t_ref):
+                raise AssertionError(f"rotor64 cycle {cyc}: time "
+                                     f"{float(s.state.time)} != {t_ref}")
+            if cyc in (1, ncyc):
+                tol = 1e-11 if cyc == 1 else 1e-9
+                errs = golden_errors(s, gold[f"cons{cyc}"], MHD_FIELDS)
+                bad = {f: e for f, e in errs.items() if not e <= tol}
+                if bad:
+                    raise AssertionError(f"rotor64 cycle {cyc}: {bad} > "
+                                         f"{tol}")
+                worst = max(worst, max(errs.values()))
+        return s, worst
+    s.run(max_steps=ncyc)
+    if int(s.state.nstep) != ncyc:
+        raise AssertionError(f"{name}: {int(s.state.nstep)} cycles")
+    got = mhd_fields(s)
+    if name == "ot64":
+        data = np.load(os.path.join(gold_dir,
+                                    "orszag_tang_64_10cycles.npz"))["data"]
+        worst = max(float(np.abs(got[f][0] - data[:, c].reshape(64, 64))
+                          .max()) for f, c in
+                    (("d", 4), ("M1", 5), ("M2", 6), ("E", 8), ("B1c", 9),
+                     ("B2c", 10)))
+        if not worst <= 1e-12:
+            raise AssertionError(f"ot64: error {worst:.3e} > 1e-12")
+        return s, worst
+    npz = {"b3n1": "blast3dmhd_sym_1step.npz",
+           "b3a2": "blast3dmhd_asym_2step.npz",
+           "blast2dmhd": "blast2dmhd_1step.npz",
+           "cpaw3d": "cpaw3d_10cycles.npz"}[name]
+    gold = np.load(os.path.join(gold_dir, npz))
+    if s.grid.ndim == 2:
+        got = {k: v[0] for k, v in got.items()}
+    err = {k: np.abs(got[k] - gold[k]) for k in got}
+    worst = max(float(e.max()) for e in err.values())
+    if name == "b3n1":
+        hyd = max(float(err[k].max()) for k in ("d", "M1", "M2", "M3", "E"))
+        flips = {k: int((err[k] > 1e-12).sum()) for k in
+                 ("B1c", "B2c", "B3c")}
+        if not hyd <= 5e-13 or not worst < 2e-3 or max(flips.values()) \
+                >= 200:
+            raise AssertionError(f"b3n1: hydro error {hyd:.3e}, B error "
+                                 f"{worst:.3e}, cells off {flips}")
+        return s, worst
+    tol, div_tol = {"b3a2": (5e-3, 1e-12), "blast2dmhd": (1e-14, None),
+                    "cpaw3d": (2e-14, 5e-13)}[name]
+    if not worst <= tol:
+        raise AssertionError(f"{name}: error {worst:.3e} > {tol}")
+    if div_tol is not None and not divb_max(s) < div_tol:
+        raise AssertionError(f"{name}: div B {divb_max(s):.3e} >= "
+                             f"{div_tol}")
     return s, worst
 
 
@@ -3228,6 +3463,115 @@ def phase4_lowd():
                 raise AssertionError(f"blast2d CLI returned {rc}")
             check_no_kernel("phase 4 blast2d CLI cycle", read_counts())
             say(f"phase 4 blast2d {size} float32: 1 CLI cycle done")
+
+
+def phase3_mhd():
+    """The MHD goldens (MHD_GOLDENS: b3n1, b3a2, blast2dmhd, cpaw3d, ot64,
+    rotor64, Brio-Wu) in float64 through the entry points on the card,
+    each with every kernel's launch counter 0 (no kernel takes MHD, as no
+    JAX kernel does), at the JAX tests' tolerances (run_mhd_golden)."""
+    for name in MHD_GOLDENS:
+        reset_counts()
+        t0 = time.perf_counter()
+        s, worst = run_mhd_golden(name, "cuda")
+        check_no_kernel(f"phase 3 {name}", read_counts())
+        div = divb_max(s) if s.grid.ndim > 1 else 0.0
+        say(f"phase 3 MHD golden {name} float64 {s.grid.ndim}D "
+            f"{'x'.join(str(n) for n in s.grid.Nx if n > 1)} "
+            f"({s.sim.flux}, h-correction {s.sim.h_correction}), "
+            f"{int(s.state.nstep)} cycles on the card in "
+            f"{time.perf_counter() - t0:.2f} s: worst error {worst:.3e}, "
+            f"div B {div:.3e}; no kernel launched")
+
+
+# the full-width MHD runs of phase 4: (label, deck, problem, flux, cycles
+# through Simulation.run, a CLI cycle, overrides).  The 3D blast takes the
+# athinput.b3n1 physics (Roe, PLM, the H-correction) at 256^3 with cubic
+# cells (x2 cut from 1.5 to 1.0 long); Orszag-Tang athinput.ot64 at 4096^2
+MHD_FULL = [
+    ("blast3d roe", "athinput.b3n1", None, None, 5, True,
+     ["domain1/Nx1=256", "domain1/Nx2=256", "domain1/Nx3=256",
+      "domain1/x2min=-0.5", "domain1/x2max=0.5"]),
+    ("blast3d hlld", "athinput.b3n1", None, "hlld", 3, False,
+     ["domain1/Nx1=256", "domain1/Nx2=256", "domain1/Nx3=256",
+      "domain1/x2min=-0.5", "domain1/x2max=0.5"]),
+    ("orszag_tang", "athinput.ot64", "orszag-tang", None, 5, True,
+     ["domain1/Nx1=4096", "domain1/Nx2=4096"]),
+]
+
+
+def phase4_mhd():
+    """The MHD runs at full width in float32 through the entry points
+    without a device argument (MHD_FULL): the 3D blast at 256^3 with Roe (5
+    cycles and a CLI cycle) and with HLLD (3 cycles), Orszag-Tang at
+    4096^2 (5 cycles and a CLI cycle), each with every kernel's launch
+    counter 0: ms per cycle, zone-cycles/s, peak memory, finite fields,
+    dt > 0, max |∇·B| of the face fields against max |B| / dx (<= 1e-5
+    in float32), and the operators one more cycle dispatches
+    (count_dispatch).  Returns {label: launch counts} (all zero)."""
+    import torch
+    from atmospheric_athena_tpu_torch import Simulation
+    from atmospheric_athena_tpu_torch import __main__ as cli
+    gold = os.path.join(HERE, "tests", "golden")
+    smi = smi_line()
+    counts = {}
+    for label, deck, problem, flux, ncyc, with_cli, cmd in MHD_FULL:
+        deck = os.path.join(gold, deck)
+        cmd = cmd + ["time/tlim=9e9", "job/maxout=0"]
+        kw = {} if flux is None else {"flux": flux}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s = Simulation.from_file(deck, problem=problem, dtype="float32",
+                                 cmdline=cmd, **kw)
+        if s.device.type != "cuda" or not s.sim.mhd:
+            raise AssertionError(f"{label} run on {s.device}, {s.sim}")
+        torch.cuda.synchronize()
+        reset_counts()
+        res = s.run(max_steps=ncyc)
+        counts[label] = read_counts()
+        check_no_kernel(f"phase 4 {label}", counts[label])
+        st = s.state
+        finite = all(bool(torch.isfinite(getattr(st, k)).all()) for k in
+                     ("U", "Bcc", "B1i", "B2i", "B3i"))
+        dt = float(st.dt)
+        bmax = float(st.Bcc.abs().max())
+        div = divb_max(s) / (bmax / min(s.grid.dx[a] for a in range(3)
+                                        if s.grid.active(a)))
+        if not finite or not dt > 0 or not div <= 1e-5:
+            raise AssertionError(f"phase 4 {label}: finite={finite} dt={dt} "
+                                 f"div B / (max|B|/dx) = {div:.3e}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        size = "x".join(str(n) for n in s.grid.Nx if n > 1)
+        ms = 1e3 * res['wall'] / res['steps']
+        del st
+        nops = count_dispatch(s.step)    # one more cycle, counted
+        say(f"phase 4 MHD {label} {size} float32 ({s.grid.ndim}D, "
+            f"{s.sim.flux}, order {s.sim.order}, h-correction "
+            f"{s.sim.h_correction}) on {smi}: {res['steps']} cycles via "
+            f"Simulation.run, {ms:.1f} ms per cycle, "
+            f"{res['zone_cycles_per_sec']:.4e} zone-cycles/s; peak device "
+            f"memory {peak:.2f} GiB; all fields finite, dt {dt:.6e}; "
+            f"max|div B| {divb_max(s):.3e} = {div:.3e} x max|B|/dx; no "
+            f"kernel launched; {nops} PyTorch operators dispatched per "
+            f"cycle (count_dispatch), {ms / nops:.4f} ms per operator")
+        del s
+        if with_cli:
+            reset_counts()
+            args = ["-i", deck, "--dtype", "float32", "time/nlim=1", *cmd]
+            if problem is not None:
+                args[2:2] = ["--problem", problem]
+            if flux is not None:
+                args[2:2] = ["--flux", flux]
+            rc = cli.main(args)
+            if rc != 0:
+                raise AssertionError(f"{label} CLI returned {rc}")
+            check_no_kernel(f"phase 4 {label} CLI cycle", read_counts())
+            say(f"phase 4 MHD {label} {size} float32: 1 CLI cycle done")
+        torch.cuda.empty_cache()
+    say("phase 4 MHD launches (all kernel entries summed, per run): "
+        + json.dumps({label: sum(c.values()) for label, c in counts.items()})
+        + f" over {len(KERNELS)} kernel entries")
+    return counts
 
 
 def batch_vs_k1(ncycles=3):
@@ -4220,6 +4564,8 @@ def main():
     lap("phase 3 linear_wave")
     p3.update(phase3_lowd())
     lap("phase 3 2D and 1D goldens, ifront against the CPU")
+    phase3_mhd()
+    lap("phase 3 MHD goldens")
     smr, _ = phase4_smr()
     counts, _ = phase4()
     counts["smr"] = smr
@@ -4236,6 +4582,8 @@ def main():
     lap("phase 4 ifront")
     phase4_lowd()
     lap("phase 4 2D and 1D")
+    mhd = phase4_mhd()
+    lap("phase 4 MHD")
     phase5()
     lap("phase 5")
 
@@ -4280,6 +4628,8 @@ def main():
         k.update(sass_h.get(name, {}))
         if name in ppm_occ:
             k["march_info"] = ppm_occ[name]
+        # the MHD runs of phase 4 (MHD_FULL), which launch no kernel
+        k["mhd_launches"] = {p: c[name] for p, c in mhd.items()}
         kernels.append(k)
     say(f"chip_smoke: all phases in {time.perf_counter() - t_all:.1f} s")
     say(smi_line())

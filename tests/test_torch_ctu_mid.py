@@ -253,7 +253,7 @@ def test_cuda_wrappers_check_operands(chain):
         mid._check("gcross", U, torch.zeros(4, 4, 16)[..., ::2])
     with pytest.raises(ValueError, match="dtype"):
         mid._check("gcross", U, torch.zeros(4, 4, 8, dtype=torch.float64))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="hydro only"):
         mid._check("final_update", torch.zeros(7, 4, 4, 8),
                    sim=chain["sim"].__class__(nscalars=2, gas="mhd"))
     for ns in (2, 3, 8):

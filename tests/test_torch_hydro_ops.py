@@ -174,7 +174,11 @@ def test_roe_hlle_fallback():
 
 
 def test_unported_solver_raises():
-    sim = TSim(nscalars=1, flux="hlld")
+    """The solvers still to port name their ROADMAP item; HLLD, ported for
+    MHD, refuses hydro gas as the reference's does."""
     x = torch.ones(6, 3, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        triem.fluxes(x, x, x, x, None, sim)
+    for flux in ("two_shock", "exact", "force"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A11 step 4"):
+            triem.fluxes(x, x, x, x, None, TSim(nscalars=1, flux=flux))
+    with pytest.raises(NotImplementedError, match="adiabatic MHD only"):
+        triem.fluxes(x, x, x, x, None, TSim(nscalars=1, flux="hlld"))

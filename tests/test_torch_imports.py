@@ -1,8 +1,9 @@
 """The port stands alone: it imports, builds the ioniz_sphere deck and an
 SMR deck (hierarchy.py, smr.py) and takes a step of each, writes every
 output format, a checkpoint it restarts from and reads them back (io/,
-vis/) with JAX made unimportable, and it refuses a CUDA device when none
-is visible."""
+vis/), and takes an MHD step on a 3D, a 2D and a 1D grid (ctu3d_mhd,
+ctu2d_mhd, ctu1d; the MHD models, eigen_mhd_roe, utils/fields) with JAX
+made unimportable, and it refuses a CUDA device when none is visible."""
 
 import os
 import subprocess
@@ -60,6 +61,26 @@ m = P.Simulation.from_file({SMR_DECK!r}, problem="ioniz_sphere",
 assert isinstance(m, hierarchy.MeshSimulation)
 m.step()
 assert all(bool(torch.isfinite(l.state.U).all()) for l in m.levels)
+from atmospheric_athena_tpu_torch.integrators import ctu2d_mhd, ctu3d_mhd
+from atmospheric_athena_tpu_torch.ops import eigen_mhd_roe
+from atmospheric_athena_tpu_torch.utils import fields
+from atmospheric_athena_tpu_torch.models import (cpaw, field_loop,
+                                                 orszag_tang, rotor)
+gold = os.path.join({REPO!r}, "tests", "golden")
+for deck, problem, cmd in (
+        ("athinput.b3n1", None, ["domain1/Nx1=8", "domain1/Nx2=8",
+                                 "domain1/Nx3=8"]),
+        ("athinput.ot64", "orszag-tang", ["domain1/Nx1=16",
+                                          "domain1/Nx2=16"]),
+        ("athinput.cpaw3d", None, ["domain1/Nx1=8", "domain1/Nx2=8",
+                                   "domain1/Nx3=8"])):
+    q = P.Simulation.from_file(os.path.join(gold, deck), problem=problem,
+                               cmdline=cmd + ["job/maxout=0"], device="cpu")
+    assert q.sim.mhd and q.integ in (ctu3d_mhd, ctu2d_mhd)
+    q.step()
+    assert bool(torch.isfinite(q.state.Bcc).all()) and float(q.state.dt) > 0
+    div = fields.compute_div_b(q.state.B1i, q.state.B2i, q.state.B3i, q.grid)
+    assert float(div.abs().max()) < 1e-10
 bad = sorted(m for m in set(sys.modules) - pre
              if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                     "atmospheric_athena_tpu")

@@ -286,15 +286,21 @@ def test_checkpoint_keeps_coord_and_refuses_unknown(tmp_path):
         restart.read_checkpoint(q)
 
 
-@pytest.mark.parametrize("kind", ["mhd", "2d"])
+@pytest.mark.parametrize("kind", ["mhd", "2d", "mhd-vl"])
 def test_jax_checkpoint_refused_by_name(tmp_path, kind):
-    """An MHD checkpoint, or a 2D one on a cylindrical grid, of the JAX
-    package is refused, naming the ROADMAP item (Cartesian 2D and 1D
-    checkpoints load: tests/test_torch_lowd_io.py)."""
+    """A JAX checkpoint of a configuration the port does not run (2D on a
+    cylindrical grid, MHD with the VL integrator) is refused, naming the
+    ROADMAP item; an MHD CTU checkpoint, which the port runs, loads with
+    every array the JAX package's (Cartesian 2D and 1D checkpoints:
+    tests/test_torch_lowd_io.py)."""
     if kind == "mhd":
         sim = J.SimConfig(gas="mhd")
         grid = J.GridConfig(Nx=(8, 8, 8), bc=((4, 4),) * 3)
-        item = "A12"
+        item = None
+    elif kind == "mhd-vl":
+        sim = J.SimConfig(gas="mhd", integrator="vl")
+        grid = J.GridConfig(Nx=(8, 8, 8), bc=((4, 4),) * 3)
+        item = "A11 step 5"
     else:
         sim = J.SimConfig()
         grid = J.GridConfig(Nx=(8, 8, 1), bc=((4, 4),) * 3,
@@ -302,8 +308,18 @@ def test_jax_checkpoint_refused_by_name(tmp_path, kind):
         item = "A15"
     from atmospheric_athena_tpu.state import zeros
     p = str(tmp_path / "x.npz")
-    jrestart.save_checkpoint(p, zeros(sim, grid), sim, grid,
+    jst = zeros(sim, grid)
+    jrestart.save_checkpoint(p, jst, sim, grid,
                              J.ParameterDB.from_string(deck_of([])))
+    if item is None:
+        st, tsim, tgrid, _ = restart.load_checkpoint(p, device="cpu")
+        assert tsim.mhd and tgrid.Nx == grid.Nx
+        for k in tstate._FIELDS:
+            x, y = getattr(st, k), getattr(jst, k)
+            assert (x is None) == (y is None), k
+            if x is not None:
+                np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+        return
     with pytest.raises(NotImplementedError, match=item):
         restart.load_checkpoint(p, device="cpu")
 
@@ -320,7 +336,7 @@ def continue_bitwise(tmp_path, make, problem, n=4, k=2):
     c = Simulation.from_checkpoint(p, problem=problem, device="cpu")
     assert int(c.state.nstep) == k
     c.run(max_steps=n - k)
-    for name in ("U", "Eflux", "time", "dt", "nstep"):
+    for name in tstate._FIELDS:
         x, y = getattr(a.state, name), getattr(c.state, name)
         if x is None:
             assert y is None, name

@@ -377,8 +377,8 @@ def test_cli_runs_testsedov(tmp_path, capsys):
 
 def test_solver_support():
     """The kernels take Roe, HLLC and HLLE, with any number of passive
-    scalars; hlld, two_shock and MHD still raise, naming the ROADMAP
-    item."""
+    scalars; hlld and MHD raise (the JAX kernels take hydro only, and
+    ctu3d sends MHD to ctu3d_mhd), two_shock names its ROADMAP item."""
     for flux in FLUXES + ("hlle",):
         assert hydro_kernels.supported(TSim(flux=flux))
         for ns in (2, 3, 8):
@@ -387,9 +387,10 @@ def test_solver_support():
                                 flux="hllc").grid
     tctu3d.check_supported(TSim(flux="hlle"), grid)
     tctu3d.check_supported(TSim(flux="hlle", nscalars=3), grid)
-    for sim, item in ((TSim(flux="hlld"), "A12"),
-                      (TSim(flux="two_shock"), "A11"),
-                      (TSim(gas="mhd", nscalars=2), "A12")):
+    for sim, exc, item in (
+            (TSim(flux="hlld"), NotImplementedError, "hydro only"),
+            (TSim(flux="two_shock"), NotImplementedError, "A11"),
+            (TSim(gas="mhd", nscalars=2), ValueError, "ctu3d_mhd")):
         assert not hydro_kernels.supported(sim)
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(exc, match=item):
             tctu3d.check_supported(sim, grid)

@@ -350,11 +350,11 @@ def test_kernel_forms_and_refusals():
             for ns in (2, 3, 8):
                 assert hydro_kernels.supported(TSim(order=order, flux=flux,
                                                     nscalars=ns))
-    for sim, item in ((TSim(flux="hlld"), "A12"),
+    for sim, item in ((TSim(flux="hlld"), "hydro only"),
                       (TSim(flux="two_shock"), "A11 step 4"),
                       (TSim(flux="exact"), "A11 step 4"),
-                      (TSim(eos="isothermal", gas="mhd"), "A12"),
-                      (TSim(nscalars=2, flux="hlld"), "A12")):
+                      (TSim(eos="isothermal", gas="mhd"), "hydro only"),
+                      (TSim(nscalars=2, flux="hlld"), "hydro only")):
         with pytest.raises(NotImplementedError, match=item):
             hydro_kernels._check_cuda_args(sim, torch.zeros(5, 4, 4, 4), (),
                                            "sweep_lrflux")

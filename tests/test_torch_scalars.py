@@ -368,7 +368,8 @@ def test_linear_wave_matches_jax(monkeypatch, jax_waves, route):
 
 def test_linear_wave_init_matches_jax():
     """The port's initial state (four scalars, each amp (1 + sin 2 pi x1))
-    is the JAX package's, and the MHD waves are refused."""
+    is the JAX package's, and so is its MHD wave's (the fast wave of the
+    adiabatic MHD Roe matrix, Bcc and the face fields included)."""
     a = J.Simulation.from_par(JPar.from_string(deck(ns=4)),
                               problem="linear_wave", use_pallas="off")
     b = Simulation.from_par(ParameterDB.from_string(deck(ns=4)),
@@ -378,11 +379,18 @@ def test_linear_wave_init_matches_jax():
     assert float(b.state.dt) == pytest.approx(float(a.state.dt), rel=1e-14)
     assert b.problem.ev == pytest.approx(a.problem.ev, rel=1e-15)
     assert torch.equal(b.state.U[5], b.state.U[8])
-    from atmospheric_athena_tpu_torch.models import get_problem
-    mhd = TSim(gas="mhd")
-    with pytest.raises(NotImplementedError, match="A12"):
-        get_problem("linear_wave1d")(ParameterDB.from_string(deck()), mhd,
-                                     b.grid)
+    a = J.Simulation.from_par(JPar.from_string(deck(ns=2)),
+                              problem="linear_wave", gas="mhd",
+                              use_pallas="off")
+    b = Simulation.from_par(ParameterDB.from_string(deck(ns=2)),
+                            problem="linear_wave", gas="mhd",
+                            dtype="float64", device="cpu")
+    assert b.sim.mhd and b.problem.ev == pytest.approx(a.problem.ev,
+                                                       rel=1e-14)
+    for k in ("U", "Bcc", "B1i", "B2i", "B3i"):
+        close_interior(getattr(b.state, k), getattr(a.state, k), b.grid,
+                       tol=1e-15)
+    assert float(b.state.dt) == pytest.approx(float(a.state.dt), rel=1e-14)
 
 
 def test_scalar_forms_and_limits():

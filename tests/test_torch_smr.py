@@ -182,7 +182,7 @@ def test_prolong_ghosts_matches_jax(geom, with_sim):
 def test_prolong_ghosts_refuses_mhd_and_sr(geom):
     g = geom
     args = (t(g["Up"]), t(g["Uf"]), g["pg"], g["cg"], g["link"])
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="A13: MHD SMR"):
         smr.prolong_ghosts(*args, sim=SimConfig(nscalars=1),
                            Bccc=torch.zeros(3, 1, 1, 1))
     with pytest.raises(NotImplementedError, match="A15"):

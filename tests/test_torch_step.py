@@ -184,7 +184,7 @@ def test_entry_points_default_to_cuda_without_gpu():
 
 
 @pytest.mark.parametrize("override,item", [
-    ("<configure>gas=mhd", "A12"),
+    ("<configure>gas=mhd", "plane radiation on MHD gas"),
     ("domain1/Nx3=1", "A15"),
 ])
 def test_unported_decks_raise(override, item):
