@@ -31,8 +31,8 @@ def check_supported(sim: SimConfig, grid: GridConfig):
     if grid.cylindrical:
         raise NotImplementedError("cylindrical 1D CTU (ROADMAP A15)")
     if sim.integrator != "ctu":
-        raise NotImplementedError(
-            f"the {sim.integrator} integrator (ROADMAP A11 step 5)")
+        raise ValueError(f"ctu1d is the CTU integrator; {sim.integrator} "
+                         "takes integrators/vl_lowd.py")
     if grid.ndim != 1 or not grid.active(0):
         raise ValueError(f"ctu1d sweeps x1 (integrate_1d_ctu.c): Nx "
                          f"{grid.Nx} must have x1 as its one active axis")

@@ -87,8 +87,9 @@ def check_supported(sim: SimConfig, grid: GridConfig, ndim: int = 3):
                          f"{grid.ndim}D (3D: ctu3d_mhd, 2D: ctu2d_mhd, 1D: "
                          "ctu1d)")
     if sim.integrator != "ctu":
-        raise NotImplementedError(
-            f"MHD with the {sim.integrator} integrator (ROADMAP A11 step 5)")
+        raise ValueError(f"the CT steps are CTU; MHD with {sim.integrator} "
+                         "takes integrators/vl3d.py (3D) or vl_lowd.py (2D, "
+                         "1D)")
     if grid.cylindrical or sim.shearing_box:
         raise NotImplementedError(
             "cylindrical or shearing-box MHD (ROADMAP A15)")

@@ -103,7 +103,10 @@ def refusal(sim: SimConfig):
     if sim.special_relativity:
         return "special relativity (ROADMAP A15)"
     if sim.integrator != "ctu":
-        return f"the {sim.integrator} integrator (ROADMAP A11 step 5)"
+        return (f"the {sim.integrator} integrator: the JAX kernels are "
+                "called only from ctu3d's Pallas branch (ctu3d.py:150-155); "
+                "VL runs the plain steps of integrators/vl3d.py and "
+                "vl_lowd.py")
     if sim.flux == "hlld":
         return ("the hlld solver: MHD only, and the JAX kernels take hydro "
                 "only (pallas_hydro.supported)")

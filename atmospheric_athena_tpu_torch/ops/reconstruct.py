@@ -1,4 +1,4 @@
-"""Reconstruction with CTU tracing on Cartesian grids
+"""Reconstruction, with CTU tracing or untraced for VL, on Cartesian grids
 (``atmospheric_athena_tpu/ops/reconstruct.py``): donor cell (order "1",
 lr_states_dc.c), PLM (order "2" with characteristic limiting,
 lr_states_plm.c:62-374; "2p" limiting the primitive variables,
@@ -102,6 +102,9 @@ def plm(W, Bx, dtodx, sim: SimConfig, axis: int, characteristic=True):
         lv = C - rv
         Wlv[n], Wrv[n] = lv, rv
 
+    if sim.integrator != "ctu":
+        # the VL integrator: the limited values, untraced (:250-255)
+        return torch.stack(Wlv), torch.stack(Wrv)
     dW = [r - l for r, l in zip(Wrv, Wlv)]
     if sim.flux in HLL_FLUXES:
         return _trace_hll(Wlv, Wrv, dW, ev, rem, lem, dtodx, sim.nwave)
@@ -219,6 +222,9 @@ def ppm(W, Bx, dtodx, sim: SimConfig, axis: int, characteristic=True):
         rv = torch.minimum(torch.maximum(Wc[n], Wp[n]), rv)
         Wlv[n], Wrv[n] = lv, rv
 
+    if sim.integrator != "ctu":
+        # the VL integrator: the monotonized parabola's edges, untraced
+        return torch.stack(Wlv), torch.stack(Wrv)
     dW = [r - l for r, l in zip(Wrv, Wlv)]
     W6 = [6.0 * (c - 0.5 * (l + r)) for c, l, r in zip(Wc, Wlv, Wrv)]
     zero = torch.zeros_like(Wc[0])
@@ -301,11 +307,9 @@ def ppm(W, Bx, dtodx, sim: SimConfig, axis: int, characteristic=True):
 
 def lr_states(W, Bx, dtodx, sim: SimConfig, axis: int = -1):
     """Dispatch on sim.order (reconstruction/prototypes.h:40-46); `axis` is
-    the sweep dimension within each field of W."""
-    if sim.integrator != "ctu":
-        raise NotImplementedError(
-            f"reconstruction for integrator={sim.integrator}: only CTU "
-            "tracing is ported (ROADMAP A11)")
+    the sweep dimension within each field of W.  With the VL integrator
+    (``sim.integrator != "ctu"``) PLM and PPM return the limited interface
+    values without tracing, as the JAX package's do."""
     if sim.order == "1":
         return dc(W, Bx, dtodx, sim)
     if sim.order == "2":

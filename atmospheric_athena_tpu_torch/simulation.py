@@ -8,14 +8,16 @@ cpaw3d, orszag_tang, rotor, field_loop, cpaw, shkset1d, linear_wave), on
 one domain or, for a 3D hydro deck with num_domains > 1 and a <domain2>
 block, on a static-mesh-refined hierarchy (``Simulation.from_par`` then
 returns a ``hierarchy.MeshSimulation``, as the JAX package's does).  The
-integrator follows the grid's dimension and gas as in the JAX package
-(simulation.py:178-189): integrators/ctu1d.py for 1D, ctu3d_mhd.py and
-ctu2d_mhd.py for 3D and 2D MHD, ctu3d.py for 2D and 3D hydro.
+integrator follows the deck's integrator, the grid's dimension and the gas
+as in the JAX package (simulation.py:171-189): with VL, integrators/vl3d.py
+for 3D and vl_lowd.py for 2D and 1D, hydro and MHD; with CTU,
+integrators/ctu1d.py for 1D, ctu3d_mhd.py and ctu2d_mhd.py for 3D and 2D
+MHD, ctu3d.py for 2D and 3D hydro.
 
   - ``Simulation.from_file`` / ``from_par``: par parsing, config build,
     problem init, initial ghost fill, initial dt (main.c steps 1-9).
   - ``Simulation.step()``: one mesh update in the reference's order —
-    radiation sub-cycle (may shrink dt), ghost fill, CTU hydro, problem
+    radiation sub-cycle (may shrink dt), ghost fill, hydro, problem
     userwork, time/dt update, ghost fill (main.c:541-669).
   - ``Simulation.run()``: host loop with tlim/nlim termination, the
     <outputN> dispatcher before each step and once at the end
@@ -44,7 +46,7 @@ from torch.profiler import record_function
 from . import bvals, dt as dt_mod
 from .config import (GridConfig, SimConfig, grid_config_from_par,
                      sim_config_from_par)
-from .integrators import ctu1d, ctu2d_mhd, ctu3d, ctu3d_mhd
+from .integrators import ctu1d, ctu2d_mhd, ctu3d, ctu3d_mhd, vl3d, vl_lowd
 from .models import get_problem
 from .par import ParameterDB
 from .state import State, from_numpy, resolve_device
@@ -90,9 +92,6 @@ def parse_configure_line(par: ParameterDB) -> dict:
 def check_supported(par: ParameterDB, sim: SimConfig, grid: GridConfig):
     """Refuse decks outside the ported slice, naming the ROADMAP item."""
     blockers = [
-        (sim.integrator == "vl",
-         f"the VL integrator{' with MHD' if sim.mhd else ''} (ROADMAP A11 "
-         "step 5)"),
         (sim.special_relativity, "special relativity (ROADMAP A15)"),
         (sim.self_gravity, "self-gravity (ROADMAP A15)"),
         (sim.shearing_box or sim.fargo, "shearing box / FARGO (ROADMAP "
@@ -142,9 +141,12 @@ def configure(par: ParameterDB, problem: Optional[str], dtype: Optional[str],
 
 
 def integrator(grid: GridConfig, sim: SimConfig):
-    """The CTU integrator module of a grid and gas (JAX simulation.py:
-    178-189): ctu1d for 1D grids, ctu3d_mhd and ctu2d_mhd for 3D and 2D
-    MHD, ctu3d ("handles 2D and 3D") for hydro."""
+    """The integrator module of a grid and gas (JAX simulation.py:171-189):
+    for VL, vl3d on 3D grids and vl_lowd on 2D and 1D ones; for CTU, ctu1d
+    for 1D grids, ctu3d_mhd and ctu2d_mhd for 3D and 2D MHD, ctu3d
+    ("handles 2D and 3D") for hydro."""
+    if sim.integrator == "vl":
+        return vl3d if grid.ndim == 3 else vl_lowd
     if grid.ndim == 1:
         return ctu1d
     if sim.mhd:
@@ -174,11 +176,12 @@ class Simulation:
                 par, grid, radplanes=getattr(problem, "radplanes", ()),
                 time_ramp=getattr(problem, "time_ramp", True))
         self.integ = integrator(grid, sim)
-        # the potential on the padded grid (2D, 3D); ctu1d evaluates it on
+        # the potential on the padded grid (2D, 3D, and 1D VL, which the
+        # JAX vl_lowd evaluates in its traced step); ctu1d evaluates it on
         # the x1 line itself (JAX simulation.py:219)
         self.phi = (ctu3d._phi_arrays(problem, grid, state.U.dtype,
                                       state.U.device)
-                    if grid.ndim > 1 else None)
+                    if grid.ndim > 1 or self.integ is vl_lowd else None)
         self.uw_aux = (problem.userwork_aux(state.U.dtype, sim, grid,
                                             state.U.device)
                        if hasattr(problem, "userwork_aux") else None)

@@ -27,7 +27,10 @@ and launch no kernel, as the JAX package runs jnp there; and this slice's
 paths: MHD with constrained transport on 3D, 2D and 1D grids
 (integrators/ctu3d_mhd.py, ctu2d_mhd.py, ctu1d.py with Roe, HLLE and
 HLLD), which also run the plain functions and launch no kernel, as no JAX
-kernel takes MHD.  It checks
+kernel takes MHD; and this slice's paths: the van Leer integrator with the
+first-order flux correction (integrators/vl3d.py, vl_lowd.py), whose step
+is plain as in the JAX package, 3D hydro VL launching the CFL and
+ghost-fill kernels around it.  It checks
 each hand-written kernel against its plain PyTorch version on the card; a
 kernel with several forms (the solver, Roe, HLLC or HLLE, and B5's
 reconstruction order, "ppm+hllc"; the operand forms of transverse_correct,
@@ -117,7 +120,13 @@ and counted per form, "name[form]":
      then (phase3_mhd) the MHD goldens through the entry points on the
      card in float64 with every kernel counter 0, at the JAX tests'
      tolerances (run_mhd_golden: b3n1, b3a2, blast2dmhd, cpaw3d, ot64,
-     rotor64 and Brio & Wu's 95 cycles of BRIOWU_DECK);
+     rotor64 and Brio & Wu's 95 cycles of BRIOWU_DECK); then (phase3_vl)
+     the VL goldens on the card in float64 with every kernel counter 0
+     (run_vl_golden: blastvl at 5e-14, Brio & Wu 50 cycles at 1e-12,
+     Orszag-Tang 10 cycles at 1e-13), 3D hydro VL (blastvl's blast as
+     hydro, 32^3, HLLC, order 2p, FOFC, outflow) 2 cycles against the
+     plain CPU run to 1e-10 with B4 and B11 launched and no other kernel,
+     and 2D and 1D hydro VL (noh, shu_osher) the same way with none;
   4. full width: the SMR main path, isph2lev at 256^3 + 256^3 float32
      (the child over the root's centre), maxiter=50, batch_iters=25, 3
      cycles through Simulation.from_file (no device argument: the card is
@@ -146,7 +155,14 @@ and counted per form, "name[form]":
      Orszag-Tang (athinput.ot64) at 4096^2, 5 cycles and a CLI cycle, in
      float32 with every kernel counter 0 (their launches on a line of
      their own): ms per cycle, zone-cycles/s, peak memory, finite fields,
-     dt > 0 and max |div B| against max |B| / dx (<= 1e-5); phase 4's CLI cycles write no outputs
+     dt > 0 and max |div B| against max |B| / dx (<= 1e-5); then
+     (phase4_vl, VL_FULL) the VL MHD blast (athinput.blastvl's physics:
+     HLLD, order 2p, FOFC) at 256^3 with cubic cells, 3 cycles and a CLI
+     cycle, the same blast as hydro (HLLC, outflow), 3 cycles, with B4
+     and B11 launched and no other kernel, and Orszag-Tang at 4096^2 with
+     VL (HLLD, order 2, cour_no 0.4), 3 cycles: the same numbers, the
+     operators of a cycle and the cells FOFC corrected in the last cycle;
+     phase 4's CLI cycles write no outputs
      (job/maxout=0) but the SMR one, which writes a history and a cons VTK
      output per level with -d (level 1's under lev1/ with a -lev1 problem
      id; the first rows and dumps equal to each level's initial state);
@@ -169,7 +185,8 @@ the run without the H-correction, the testsedov, PPM, turb and the two
 linear_wave runs; B3', B3's inlet form and the forms that take no
 full-width run, on no path, with their phase-2 launches and "path": null,
 the hydro ones also with their phase-3 launches; "mhd_launches", each
-kernel's launches in each MHD_FULL run, all 0), the nvidia-smi line
+kernel's launches in each MHD_FULL run, all 0; "vl_launches", each
+kernel's launches in each VL_FULL run), the nvidia-smi line
 before it, and the final line {"ok": true,
 "device": {...}}.  Any failed check raises, so the exit code is non-zero
 and no result line is printed.
@@ -1058,6 +1075,7 @@ LW_ISO = ["sweep_lrflux_df[iso+roe+ns2]", "transverse_correct[iso+dF+ns2]",
 # ifront: the bench configuration's kernels without a static potential
 # (no gcross, no grav_source) and with the H-correction (B8); its K=1 loop
 # (phase 3) the same with the K=1 radiation kernels
+VL_K = ["bc_fill", "max_dti_hydro"]
 IFRONT_HYDRO = ["sweep_lrflux_df", "transverse_correct", "flux_corrected",
                 "final_update", "max_dti_hydro", "bc_fill", "rad_rates"]
 IFRONT = IFRONT_HYDRO + ["rad_batch"]
@@ -1091,6 +1109,11 @@ PATHS = {
     "turb MID=0": (TURB_MID0, others(TURB_MID0)),
     "turb hcorr": (TURB_HC, others(TURB_HC)),
     "sedov": (SEDOV_MID, others(SEDOV_MID)),
+    # 3D hydro VL: the JAX package's new_dt and ghost fill take their
+    # kernels there (pallas_util.supported and bvals._bc_supported test
+    # no integrator); its VL step makes no Pallas call
+    "vl": (VL_K, others(VL_K)),
+    "vl lowd": ([], others([])),
     "sedov MID=0": (SEDOV_MID0, others(SEDOV_MID0)),
     "sedov hcorr": (SEDOV_HC, others(SEDOV_HC)),
     "blast": (BLAST, others(BLAST)),
@@ -2658,6 +2681,89 @@ def run_mhd_golden(name, device):
     return s, worst
 
 
+# the VL goldens of the reference C code, as tests/test_vl.py holds the
+# JAX package to them: name -> (deck, problem, cycles, overrides,
+# SimConfig keywords).  blastvl: one step of the asymmetric 3D MHD blast
+# with HLLD, order 2p and FOFC (the deck's --enable-fofc is not read,
+# ROADMAP C26, so the keyword sets it, as the JAX test does); bw_vl: Brio
+# & Wu (BRIOWU_DECK: the reference deck is absent, C0) at cour_no 0.4 for
+# 50 cycles; ot_vl: athinput.ot64 at cour_no 0.4 for 10 cycles
+VL_MHD = dict(gas="mhd", integrator="vl", flux="hlld")
+VL_GOLDENS = {
+    "blastvl": ("athinput.blastvl", None, 1, [],
+                dict(VL_MHD, order="2p", first_order_flux_correction=True)),
+    "bw_vl": (None, "shkset1d", 50, ["time/tlim=10.0", "time/cour_no=0.4"],
+              dict(VL_MHD, order="2")),
+    "ot_vl": ("athinput.ot64", "orszag-tang", 10,
+              ["time/tlim=10", "time/cour_no=0.4"], dict(VL_MHD, order="2")),
+}
+
+
+# 3D hydro VL: athinput.blastvl's blast as hydro with HLLC, order 2p and
+# FOFC, outflow on every face (so the ghost-fill kernel covers it: 3D
+# hydro VL launches B4 and B11, as in the JAX package)
+VL_BLAST = os.path.join(HERE, "tests", "golden", "athinput.blastvl")
+VL_HYDRO = dict(gas="hydro", integrator="vl", flux="hllc", order="2p",
+                first_order_flux_correction=True)
+VL_OUTFLOW = [f"domain1/bc_{s}x{a}=2" for a in (1, 2, 3) for s in "io"]
+
+
+def run_vl_golden(name, device):
+    """One VL golden (VL_GOLDENS, float64) through the entry points on
+    `device` at the tolerances of tests/test_vl.py: blastvl's U and Bcc to
+    5e-14, bw_vl's primitive state to 1e-12, ot_vl's conserved state to
+    1e-13 (absolute).  Raises on a miss; returns the Simulation and the
+    worst error."""
+    import numpy as np
+    from atmospheric_athena_tpu_torch import Simulation
+    from atmospheric_athena_tpu_torch.par import ParameterDB
+    deck, problem, ncyc, cmd, kw = VL_GOLDENS[name]
+    gold_dir = os.path.join(HERE, "tests", "golden")
+    cmd = [f"time/nlim={ncyc}", "job/maxout=0"] + cmd
+    if deck is None:
+        par = ParameterDB.from_string(BRIOWU_DECK)
+        par.apply_cmdline(cmd)
+        s = Simulation.from_par(par, problem=problem, dtype="float64",
+                                device=device, **kw)
+    else:
+        s = Simulation.from_file(os.path.join(gold_dir, deck),
+                                 problem=problem, cmdline=cmd,
+                                 dtype="float64", device=device, **kw)
+    s.run(max_steps=ncyc)
+    if int(s.state.nstep) != ncyc:
+        raise AssertionError(f"{name}: {int(s.state.nstep)} cycles")
+    got = mhd_fields(s)
+    if name == "blastvl":
+        gold = np.load(os.path.join(gold_dir, "blastvl_1step.npz"))
+        ref, tol = {k: gold[k] for k in got}, 5e-14
+    elif name == "bw_vl":
+        from atmospheric_athena_tpu_torch.eos import cons1d_to_prim1d
+        from atmospheric_athena_tpu_torch.integrators.sweep import (
+            bx_sweep, to_sweep)
+        st = s.state
+        W = cons1d_to_prim1d(to_sweep(st.U, 0, s.sim, Bcc=st.Bcc),
+                             bx_sweep(st.Bcc, 0), s.sim)
+        W = W[:, 0, 0, s.grid.interior()[2]].cpu().numpy()
+        got = dict(zip(("d", "v1", "v2", "v3", "P", "B2", "B3"), W),
+                   B1=got["B1c"])
+        data = np.loadtxt(os.path.join(gold_dir, "bw_vl_50cycles.tab"))
+        ref = {k: data[:, 2 + i] for i, k in enumerate(
+            ("d", "v1", "v2", "v3", "P", "B1", "B2", "B3"))}
+        tol = 1e-12
+    else:
+        data = np.loadtxt(os.path.join(gold_dir, "ot_vl_10cycles.tab"))
+        ref = {k: data[:, 4 + i] for i, k in enumerate(
+            ("d", "M1", "M2", "M3", "E", "B1c", "B2c", "B3c"))}
+        got = {k: v.ravel() for k, v in got.items()}
+        tol = 1e-13
+    errs = {k: float(np.abs(np.ravel(got[k]) - np.ravel(ref[k])).max())
+            for k in ref}
+    worst = max(errs.values())
+    if not worst <= tol:
+        raise AssertionError(f"{name}: errors {errs} > {tol}")
+    return s, worst
+
+
 def run_sedov_golden(device, ncyc=20):
     """The testsedov golden (tests/golden/athinput.testsedov, HLLC, no
     H-correction, float64, 20 cycles) through Simulation.from_file on
@@ -3571,6 +3677,146 @@ def phase4_mhd():
     say("phase 4 MHD launches (all kernel entries summed, per run): "
         + json.dumps({label: sum(c.values()) for label, c in counts.items()})
         + f" over {len(KERNELS)} kernel entries")
+    return counts
+
+
+def phase3_vl():
+    """The VL integrator in float64 on the card: the three VL goldens
+    (VL_GOLDENS: blastvl one step at 5e-14, Brio & Wu 50 cycles at 1e-12,
+    Orszag-Tang 10 cycles at 1e-13; run_vl_golden) with every kernel
+    counter 0; 3D hydro VL (athinput.blastvl's blast as hydro at 32^3,
+    HLLC, order 2p, FOFC, outflow) 2 cycles against the plain CPU run
+    (run_vs_cpu, 1e-10 of each field's max) with B4 and B11 launched and
+    no other kernel; 2D and 1D hydro VL (athinput.noh with Roe,
+    athinput.shuosher with HLLC) 2 cycles each the same way, with no
+    kernel launched.  Returns the 3D hydro run's launch counts."""
+    gold = os.path.join(HERE, "tests", "golden")
+    for name in VL_GOLDENS:
+        reset_counts()
+        t0 = time.perf_counter()
+        s, worst = run_vl_golden(name, "cuda")
+        check_no_kernel(f"phase 3 {name}", read_counts())
+        div = divb_max(s) if s.grid.ndim > 1 else 0.0
+        say(f"phase 3 VL golden {name} float64 {s.grid.ndim}D "
+            f"{'x'.join(str(n) for n in s.grid.Nx if n > 1)} "
+            f"({s.sim.flux}, order {s.sim.order}, FOFC "
+            f"{s.sim.first_order_flux_correction}), {int(s.state.nstep)} "
+            f"cycles on the card in {time.perf_counter() - t0:.2f} s: worst "
+            f"error {worst:.3e}, div B {div:.3e}; no kernel launched")
+    label = "phase 3 VL hydro blast 32^3 float64"
+    worst, counts = run_vs_cpu(
+        label, VL_BLAST, None, VL_OUTFLOW + [
+            "domain1/Nx1=32", "domain1/Nx2=32", "domain1/Nx3=32",
+            "job/maxout=0"], 2, "vl", **VL_HYDRO)
+    say(f"{label} (HLLC, order 2p, FOFC, outflow), 2 cycles on the card "
+        f"against the plain CPU run: worst error {worst:.3e} x max; "
+        f"launches { {k: v for k, v in counts.items() if v} }")
+    for deck, problem, flux in (("athinput.noh", "noh", "roe"),
+                                ("athinput.shuosher", "shu_osher", "hllc")):
+        label = f"phase 3 VL {problem} float64"
+        worst, _ = run_vs_cpu(label, os.path.join(gold, deck), problem,
+                              ["job/maxout=0"], 2, "vl lowd",
+                              integrator="vl", flux=flux)
+        say(f"{label} ({flux}), 2 cycles on the card against the plain CPU "
+            f"run: worst error {worst:.3e} x max; no kernel launched")
+    return counts
+
+
+# the full-width VL runs of phase 4: (label, deck, problem, cycles through
+# Simulation.run, a CLI cycle, overrides, SimConfig keywords).  The 3D
+# blast takes athinput.blastvl's physics (HLLD, order 2p, FOFC) at 256^3
+# with cubic cells (x2 cut from 1.5 to 1.0 long), and the same as hydro
+# (HLLC, outflow on every face); Orszag-Tang athinput.ot64 at 4096^2 with
+# HLLD, order 2, cour_no 0.4 (the ot_vl golden's settings)
+VL_256 = ["domain1/Nx1=256", "domain1/Nx2=256", "domain1/Nx3=256",
+          "domain1/x2min=-0.4", "domain1/x2max=0.6"]
+VL_FULL = [
+    ("blast3d mhd", VL_BLAST, None, 3, True, VL_256,
+     VL_GOLDENS["blastvl"][4]),
+    ("blast3d hydro", VL_BLAST, None, 3, False, VL_256 + VL_OUTFLOW,
+     VL_HYDRO),
+    ("orszag_tang", os.path.join(HERE, "tests", "golden", "athinput.ot64"),
+     "orszag-tang", 3, False, ["domain1/Nx1=4096", "domain1/Nx2=4096",
+                               "time/cour_no=0.4"],
+     VL_GOLDENS["ot_vl"][4]),
+]
+
+
+def phase4_vl():
+    """The VL runs at full width in float32 through the entry points
+    without a device argument (VL_FULL): the 3D MHD blast at 256^3 (3
+    cycles and a CLI cycle), the 3D hydro blast at 256^3 (3 cycles; B4 and
+    B11 launched, no other kernel), Orszag-Tang at 4096^2 (3 cycles), the
+    MHD runs with every kernel counter 0: ms per cycle, zone-cycles/s,
+    peak memory, finite fields, dt > 0, the cells FOFC corrected in the
+    last cycle (vl3d.step.fofc_cells, read once after the cycles), max
+    |div B| against max |B| / dx (<= 1e-5) on the MHD runs, and the
+    operators one more cycle dispatches (count_dispatch).  Returns {label:
+    launch counts}."""
+    import torch
+    from atmospheric_athena_tpu_torch import Simulation
+    from atmospheric_athena_tpu_torch import __main__ as cli
+    from atmospheric_athena_tpu_torch.integrators import vl3d
+    smi = smi_line()
+    counts = {}
+    for label, deck, problem, ncyc, with_cli, cmd, kw in VL_FULL:
+        cmd = cmd + ["time/tlim=9e9", "job/maxout=0"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s = Simulation.from_file(deck, problem=problem, dtype="float32",
+                                 cmdline=cmd, **kw)
+        if s.device.type != "cuda" or s.sim.integrator != "vl":
+            raise AssertionError(f"{label} run on {s.device}, {s.sim}")
+        vl3d.step.fofc_cells = None
+        torch.cuda.synchronize()
+        reset_counts()
+        res = s.run(max_steps=ncyc)
+        counts[label] = read_counts()
+        if s.sim.mhd:
+            check_no_kernel(f"phase 4 VL {label}", counts[label])
+        else:
+            check_counts(f"phase 4 VL {label}", counts[label], "vl")
+        fofc = vl3d.step.fofc_cells
+        fofc = "no FOFC" if fofc is None else f"{int(fofc)} cells"
+        st = s.state
+        keys = ("U", "Bcc", "B1i", "B2i", "B3i") if s.sim.mhd else ("U",)
+        finite = all(bool(torch.isfinite(getattr(st, k)).all())
+                     for k in keys)
+        dt = float(st.dt)
+        div = 0.0
+        if s.sim.mhd:
+            bmax = float(st.Bcc.abs().max())
+            div = divb_max(s) / (bmax / min(s.grid.dx[a] for a in range(3)
+                                            if s.grid.active(a)))
+        if not finite or not dt > 0 or not div <= 1e-5:
+            raise AssertionError(f"phase 4 VL {label}: finite={finite} "
+                                 f"dt={dt} div B / (max|B|/dx) = {div:.3e}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        size = "x".join(str(n) for n in s.grid.Nx if n > 1)
+        ms = 1e3 * res['wall'] / res['steps']
+        del st
+        nops = count_dispatch(s.step)    # one more cycle, counted
+        launched = {k: v for k, v in counts[label].items() if v}
+        say(f"phase 4 VL {label} {size} float32 ({s.grid.ndim}D, "
+            f"{s.sim.gas}, {s.sim.flux}, order {s.sim.order}, FOFC "
+            f"{s.sim.first_order_flux_correction}) on {smi}: "
+            f"{res['steps']} cycles via Simulation.run, {ms:.1f} ms per "
+            f"cycle, {res['zone_cycles_per_sec']:.4e} zone-cycles/s; peak "
+            f"device memory {peak:.2f} GiB; all fields finite, dt "
+            f"{dt:.6e}; FOFC in the last cycle: {fofc}; div B {div:.3e} x "
+            f"max|B|/dx; launches {launched}; {nops} PyTorch operators "
+            f"dispatched per cycle (count_dispatch), {ms / nops:.4f} ms per "
+            "operator")
+        del s
+        if with_cli:
+            reset_counts()
+            rc = cli.main(["-i", deck, "--dtype", "float32", "time/nlim=1",
+                           "configure/first_order_flux_correction=1", *cmd])
+            if rc != 0:
+                raise AssertionError(f"VL {label} CLI returned {rc}")
+            check_no_kernel(f"phase 4 VL {label} CLI cycle", read_counts())
+            say(f"phase 4 VL {label} {size} float32: 1 CLI cycle done")
+        torch.cuda.empty_cache()
     return counts
 
 
@@ -4566,6 +4812,8 @@ def main():
     lap("phase 3 2D and 1D goldens, ifront against the CPU")
     phase3_mhd()
     lap("phase 3 MHD goldens")
+    phase3_vl()
+    lap("phase 3 VL")
     smr, _ = phase4_smr()
     counts, _ = phase4()
     counts["smr"] = smr
@@ -4584,6 +4832,8 @@ def main():
     lap("phase 4 2D and 1D")
     mhd = phase4_mhd()
     lap("phase 4 MHD")
+    vl = phase4_vl()
+    lap("phase 4 VL")
     phase5()
     lap("phase 5")
 
@@ -4630,6 +4880,8 @@ def main():
             k["march_info"] = ppm_occ[name]
         # the MHD runs of phase 4 (MHD_FULL), which launch no kernel
         k["mhd_launches"] = {p: c[name] for p, c in mhd.items()}
+        # the VL runs of phase 4 (VL_FULL): B4 and B11 on 3D hydro only
+        k["vl_launches"] = {p: c[name] for p, c in vl.items()}
         kernels.append(k)
     say(f"chip_smoke: all phases in {time.perf_counter() - t_all:.1f} s")
     say(smi_line())

@@ -20,6 +20,9 @@ from atmospheric_athena_tpu_torch import bvals as tbvals
 from atmospheric_athena_tpu_torch import state as tstate
 from atmospheric_athena_tpu_torch.config import GridConfig as TGrid
 from atmospheric_athena_tpu_torch.config import SimConfig as TSim
+from test_torch_golden import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 R, O, P, C = 1, 2, 4, 5     # reflect, outflow, periodic, conductor
 D = 3                       # do nothing

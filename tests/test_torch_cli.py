@@ -30,6 +30,9 @@ from atmospheric_athena_tpu_torch import __main__ as cli
 from atmospheric_athena_tpu_torch import state as tstate
 from atmospheric_athena_tpu_torch import vis
 from atmospheric_athena_tpu_torch.io import restart
+from test_torch_golden import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 DECK = os.path.join(GOLDEN, "athinput.isph64")

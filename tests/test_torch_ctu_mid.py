@@ -34,6 +34,9 @@ from atmospheric_athena_tpu_torch import state as tstate
 from atmospheric_athena_tpu_torch.integrators import ctu3d as tctu3d
 from atmospheric_athena_tpu_torch.ops import ctu_mid_kernels as mid
 from atmospheric_athena_tpu_torch.ops import hydro_kernels
+from test_torch_golden import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 DECK = os.path.join(os.path.dirname(__file__), "golden", "athinput.isph64")
 N = 16

@@ -27,12 +27,19 @@ def one_torch_thread():
     """Run a module's small-array PyTorch work on one intra-op thread: the
     suite runs in several worker processes on the same cores, where
     PyTorch's default of a thread per core makes each small op wait on
-    the others' threads.  The count is restored after the module."""
+    the others' threads.  It also holds ROADMAP C24: the first
+    multi-threaded torch.sqrt of a process can return some threads' cells
+    ~1e-12 off the correctly rounded root, so a run's first CFL step (and
+    every bit after it) could depend on whether it came first.  The count
+    is restored after the module."""
     import torch
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _run_compare_torch(deck, npz, problem, ncyc, fields, atol1, atolN,

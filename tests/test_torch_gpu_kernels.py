@@ -34,8 +34,9 @@ so on a machine without JAX run it as
 import pytest
 
 import chip_smoke
+from test_torch_golden import one_torch_thread  # noqa: F401
 
-pytestmark = pytest.mark.gpu
+pytestmark = [pytest.mark.gpu, pytest.mark.usefixtures("one_torch_thread")]
 
 
 def need_cuda():

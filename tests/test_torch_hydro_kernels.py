@@ -20,6 +20,9 @@ from atmospheric_athena_tpu.ops import pallas_hydro, pallas_util
 from atmospheric_athena_tpu.par import ParameterDB as JPar
 from atmospheric_athena_tpu_torch import Simulation
 from atmospheric_athena_tpu_torch.ops import hydro_kernels, util_kernels
+from test_torch_golden import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 DECK = os.path.join(os.path.dirname(__file__), "golden", "athinput.isph64")
 N = 16

@@ -19,6 +19,9 @@ from atmospheric_athena_tpu_torch.config import SimConfig as TSim
 from atmospheric_athena_tpu_torch.ops import eigen as teigen
 from atmospheric_athena_tpu_torch.ops import reconstruct as trec
 from atmospheric_athena_tpu_torch.ops import riemann as triem
+from test_torch_golden import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 GAMMA = 5.0 / 3.0
 JS = JSim(nscalars=1, gamma=GAMMA, h_correction=True)

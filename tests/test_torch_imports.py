@@ -11,6 +11,9 @@ import sys
 
 import pytest
 import torch
+from test_torch_golden import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DECK = os.path.join(REPO, "tests", "golden", "athinput.isph64")
@@ -81,6 +84,23 @@ for deck, problem, cmd in (
     assert bool(torch.isfinite(q.state.Bcc).all()) and float(q.state.dt) > 0
     div = fields.compute_div_b(q.state.B1i, q.state.B2i, q.state.B3i, q.grid)
     assert float(div.abs().max()) < 1e-10
+from atmospheric_athena_tpu_torch.integrators import vl3d, vl_lowd
+vl = ["configure/integrator=vl", "job/maxout=0"]
+for deck, problem, cmd, kw in (
+        ("athinput.blastvl", None, ["domain1/Nx1=8", "domain1/Nx2=8",
+                                    "domain1/Nx3=8"],
+         dict(first_order_flux_correction=True)),
+        ("athinput.blastvl", None, ["domain1/Nx1=8", "domain1/Nx2=8",
+                                    "domain1/Nx3=8"],
+         dict(gas="hydro", flux="hllc", first_order_flux_correction=True)),
+        ("athinput.ot64", "orszag-tang", ["domain1/Nx1=16", "domain1/Nx2=16",
+                                          "configure/flux=hlld"], {{}}),
+        ("athinput.shuosher", "shu_osher", ["domain1/Nx1=64"], {{}})):
+    q = P.Simulation.from_file(os.path.join(gold, deck), problem=problem,
+                               cmdline=cmd + vl, device="cpu", **kw)
+    assert q.integ is (vl3d if q.grid.ndim == 3 else vl_lowd)
+    q.step()
+    assert bool(torch.isfinite(q.state.U).all()) and float(q.state.dt) > 0
 bad = sorted(m for m in set(sys.modules) - pre
              if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                     "atmospheric_athena_tpu")

@@ -33,6 +33,9 @@ from atmospheric_athena_tpu_torch import vis
 from atmospheric_athena_tpu_torch.io import history, outputs, restart
 from atmospheric_athena_tpu_torch.io import vtk as tvtk
 from chip_smoke import TURB_DECK
+from test_torch_golden import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 DECK = os.path.join(GOLDEN, "athinput.isph64")
@@ -289,10 +292,11 @@ def test_checkpoint_keeps_coord_and_refuses_unknown(tmp_path):
 @pytest.mark.parametrize("kind", ["mhd", "2d", "mhd-vl"])
 def test_jax_checkpoint_refused_by_name(tmp_path, kind):
     """A JAX checkpoint of a configuration the port does not run (2D on a
-    cylindrical grid, MHD with the VL integrator) is refused, naming the
-    ROADMAP item; an MHD CTU checkpoint, which the port runs, loads with
-    every array the JAX package's (Cartesian 2D and 1D checkpoints:
-    tests/test_torch_lowd_io.py)."""
+    cylindrical grid) is refused, naming the ROADMAP item; an MHD
+    checkpoint, CTU or VL, which the port runs, loads with every array the
+    JAX package's (Cartesian 2D and 1D checkpoints:
+    tests/test_torch_lowd_io.py; a VL run continued from a JAX checkpoint:
+    tests/test_torch_vl_golden.py)."""
     if kind == "mhd":
         sim = J.SimConfig(gas="mhd")
         grid = J.GridConfig(Nx=(8, 8, 8), bc=((4, 4),) * 3)
@@ -300,7 +304,7 @@ def test_jax_checkpoint_refused_by_name(tmp_path, kind):
     elif kind == "mhd-vl":
         sim = J.SimConfig(gas="mhd", integrator="vl")
         grid = J.GridConfig(Nx=(8, 8, 8), bc=((4, 4),) * 3)
-        item = "A11 step 5"
+        item = None
     else:
         sim = J.SimConfig()
         grid = J.GridConfig(Nx=(8, 8, 1), bc=((4, 4),) * 3,
@@ -314,6 +318,7 @@ def test_jax_checkpoint_refused_by_name(tmp_path, kind):
     if item is None:
         st, tsim, tgrid, _ = restart.load_checkpoint(p, device="cpu")
         assert tsim.mhd and tgrid.Nx == grid.Nx
+        assert tsim.integrator == sim.integrator
         for k in tstate._FIELDS:
             x, y = getattr(st, k), getattr(jst, k)
             assert (x is None) == (y is None), k

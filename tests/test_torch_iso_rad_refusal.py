@@ -15,6 +15,9 @@ from atmospheric_athena_tpu_torch.ionrad.config import ion_config_from_par
 from atmospheric_athena_tpu_torch.par import ParameterDB
 from atmospheric_athena_tpu_torch import simulation
 from atmospheric_athena_tpu_torch.state import zeros
+from test_torch_golden import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 DECK = Path(__file__).parent / "golden" / "athinput.isph64"
 

@@ -52,6 +52,9 @@ from atmospheric_athena_tpu_torch.ops import reconstruct as trec
 from atmospheric_athena_tpu_torch.ops import riemann as triem
 from atmospheric_athena_tpu_torch.ops import util_kernels
 from atmospheric_athena_tpu_torch.par import ParameterDB
+from test_torch_golden import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N = 16
 AXES = (0, 1, 2)

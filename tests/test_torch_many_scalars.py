@@ -31,6 +31,9 @@ from atmospheric_athena_tpu_torch.config import grid_config_from_par
 from atmospheric_athena_tpu_torch.integrators import ctu3d
 from atmospheric_athena_tpu_torch.ops import hydro_kernels
 from atmospheric_athena_tpu_torch.par import ParameterDB
+from test_torch_golden import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N = 16
 NS = 40

@@ -31,6 +31,9 @@ from atmospheric_athena_tpu_torch import Simulation
 from atmospheric_athena_tpu_torch import dt as tdt
 from atmospheric_athena_tpu_torch import state as tstate
 from atmospheric_athena_tpu_torch.ionrad import rad_kernels
+from test_torch_golden import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 DECK = os.path.join(os.path.dirname(__file__), "golden", "athinput.isph64")
 CMD = [f"domain1/Nx{a}=16" for a in (1, 2, 3)]

@@ -43,6 +43,9 @@ from atmospheric_athena_tpu_torch.ops import ctu_mid_kernels as mid
 from atmospheric_athena_tpu_torch.ops import hydro_kernels
 from atmospheric_athena_tpu_torch.ops import reconstruct as trec
 from atmospheric_athena_tpu_torch.ops import riemann as triem
+from test_torch_golden import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 HERE = os.path.dirname(__file__)
 DECK = os.path.join(HERE, "golden", "athinput.isph64")

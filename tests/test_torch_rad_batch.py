@@ -33,6 +33,9 @@ from atmospheric_athena_tpu.ionrad.driver import ion_radtransfer as jrad
 from atmospheric_athena_tpu_torch import Simulation
 from atmospheric_athena_tpu_torch import state as tstate
 from atmospheric_athena_tpu_torch.ionrad import driver, rad_kernels
+from test_torch_golden import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 K = 4
 

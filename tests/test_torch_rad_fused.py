@@ -29,6 +29,9 @@ from atmospheric_athena_tpu_torch import Simulation
 from atmospheric_athena_tpu_torch import state as tstate
 from atmospheric_athena_tpu_torch.ionrad import driver, rad_kernels
 from atmospheric_athena_tpu_torch.ionrad.config import MINFLUXFRAC
+from test_torch_golden import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FORMS = ["scalar", "inlet"]
 

@@ -32,6 +32,9 @@ from atmospheric_athena_tpu_torch import Simulation
 from atmospheric_athena_tpu_torch.ionrad import driver, rad_kernels
 from atmospheric_athena_tpu_torch.ionrad.config import MINFLUXFRAC
 from atmospheric_athena_tpu_torch.ionrad.plane import inlet_ramp
+from test_torch_golden import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 DECK = os.path.join(os.path.dirname(__file__), "golden", "athinput.isph64")
 N = 16

@@ -45,6 +45,9 @@ from atmospheric_athena_tpu_torch.integrators import ctu3d as tctu3d
 from atmospheric_athena_tpu_torch.ops import ctu_mid_kernels as mid
 from atmospheric_athena_tpu_torch.ops import hydro_kernels
 from atmospheric_athena_tpu_torch.par import ParameterDB
+from test_torch_golden import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N = 16
 AXES = (0, 1, 2)

@@ -41,6 +41,9 @@ from atmospheric_athena_tpu_torch import __main__ as cli
 from atmospheric_athena_tpu_torch import hierarchy, smr
 from atmospheric_athena_tpu_torch import state as tstate
 from atmospheric_athena_tpu_torch.config import GridConfig, SimConfig
+from test_torch_golden import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 HERE = os.path.dirname(__file__)
 GOLD = os.path.join(HERE, "golden")
@@ -49,18 +52,6 @@ BLAST3 = os.path.join(GOLD, "athinput.blast3lev")
 ISPH2 = os.path.join(GOLD, "athinput.isph2lev")
 ISPH_CMD = ["ionradiation/maxiter=20"]
 FIELDS = ["d", "M1", "M2", "M3", "E"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """The 32^3 levels lie above PyTorch's intra-op grain size, and in the
-    test runner's worker processes its thread pools then oversubscribe the
-    cores, which slows the many small ops of a step tens of times: this
-    module's ops run on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def t(x):

@@ -22,6 +22,9 @@ from atmospheric_athena_tpu_torch import state as tstate
 from atmospheric_athena_tpu_torch.integrators import ctu3d as tctu3d
 from atmospheric_athena_tpu_torch.ionrad.driver import \
     ion_radtransfer as trad
+from test_torch_golden import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 DECK = os.path.join(os.path.dirname(__file__), "golden", "athinput.isph64")
 CMD = [f"domain1/Nx{a}=16" for a in (1, 2, 3)] + ["ionradiation/maxiter=20"]

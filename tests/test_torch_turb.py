@@ -32,6 +32,9 @@ from atmospheric_athena_tpu_torch import state as tstate
 from atmospheric_athena_tpu_torch.defs import ID, IM1
 from atmospheric_athena_tpu_torch.models import turb
 from atmospheric_athena_tpu_torch.par import ParameterDB
+from test_torch_golden import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 DECK = """
 <comment>
