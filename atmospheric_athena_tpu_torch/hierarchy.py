@@ -1,7 +1,8 @@
 """Static-mesh-refinement driver: the MeshS->DomainS hierarchy (reference:
 src/main.c main loop with SMR, src/init_mesh.c <domainN> parsing), as in
-``atmospheric_athena_tpu/hierarchy.py`` for 3D adiabatic hydro with plane
-radiation.
+``atmospheric_athena_tpu/hierarchy.py``: 3D adiabatic hydro with or without
+plane radiation, 2D adiabatic hydro, and adiabatic MHD with constrained
+transport on 3D and 2D grids.
 
 A MeshSimulation holds one level state per <domainN> block (refinement
 ratio 2; the parent of each domain found by containment, so a level may
@@ -10,17 +11,22 @@ hold several domains).  Each cycle runs the reference's SMR order
 
   radiation (the root sets dt and tcoarse; fine levels integrate to it with
   the parent's EdgeFlux as inlet)  ->  ionradRestrictCorrect (E, s0)  ->
-  hydro on every level with the same dt, keeping each level's boundary
-  flux planes  ->  RestrictCorrect (conserved restriction + fine/coarse
-  flux correction, deepest level first)  ->  Userwork  ->  new_dt (min
-  over levels, 2x growth clamp)  ->  bvals (root; children are fully
-  interior, so every face is ProlongateLater)  ->  Prolongate (child ghost
-  fill, parent first).
+  hydro or MHD on every level with the same dt (ctu3d, ctu3d_mhd or
+  ctu2d_mhd), keeping each level's boundary flux and EMF planes  ->
+  RestrictCorrect (conserved restriction + fine/coarse flux correction,
+  and for MHD the Bcc restriction and flux correction, the face
+  restriction and the EMF correction, smr_fld.py; deepest level first)
+  ->  Userwork  ->  new_dt (min over levels, 2x growth clamp)  ->  bvals
+  (root; children are fully interior, so every face is ProlongateLater)
+  ->  Prolongate (child ghost fill, and for MHD the face fields over the
+  ghost slabs; parent first).
 
 The JAX package's phased mode (per-level jits that bound a TPU's memory
 and its watchdog) has no counterpart: PyTorch runs eagerly, level by
 level.  Outputs (make_outputs) write one set per level, level li > 0
-under lev{li}/ with a -lev{li} problem id, as ath_fname does.
+under lev{li}/ with a -lev{li} problem id, as ath_fname does.  1D grids,
+isothermal gas, the VL integrator (the JAX driver's is CTU) and a restart
+of the hierarchy raise, naming their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -32,11 +38,11 @@ from typing import List, Optional
 import torch
 from torch.profiler import record_function
 
-from . import bvals, smr
+from . import bvals, smr, smr_fld
 from . import dt as dt_mod
 from .config import GridConfig, SimConfig, grid_config_from_par
 from .defs import IEN
-from .integrators import ctu3d
+from .integrators import ctu2d_mhd, ctu3d, ctu3d_mhd
 from .par import ParameterDB
 from .state import State, resolve_device
 
@@ -117,6 +123,62 @@ def grids_from_par(par: ParameterDB):
     return doms
 
 
+def check_supported(sim: SimConfig, root: GridConfig):
+    """Refuse what the SMR driver does not run, naming the ROADMAP item:
+    1D grids, isothermal gas and the VL integrator (the JAX driver steps
+    its levels with CTU alone, hierarchy.py:247).  Plane radiation on MHD
+    gas is refused before this (simulation.check_supported), as the JAX
+    driver refuses it (hierarchy.py:252-254)."""
+    if root.ndim < 2:
+        raise NotImplementedError(
+            f"SMR on {root.ndim}D grids (ROADMAP A13)")
+    if not sim.adiabatic:
+        raise NotImplementedError(
+            "isothermal SMR (ROADMAP A13: prolong_ghosts slopes the "
+            "pressure of adiabatic gas; no isothermal SMR deck is held to "
+            "the JAX package yet)")
+    if sim.integrator != "ctu":
+        raise NotImplementedError(
+            f"SMR with the {sim.integrator} integrator (ROADMAP A13: the "
+            "SMR driver uses the CTU integrator, as the JAX package's)")
+
+
+def level_integrator(grid: GridConfig, sim: SimConfig):
+    """The step module of a level (JAX hierarchy.py:254-263): ctu3d_mhd or
+    ctu2d_mhd for MHD, ctu3d for hydro (2D and 3D)."""
+    if not sim.mhd:
+        return ctu3d
+    return ctu3d_mhd if grid.ndim == 3 else ctu2d_mhd
+
+
+def _bflux(FByz, a):
+    """The cell-centred B flux rows of axis a for the conserved flux
+    correction of Bcc (myFlx .B1c/.B2c/.B3c, integrate_3d_ctu.c:3100-3102,
+    :3147-3149, :3194-3195), in physical order; the normal component is
+    0."""
+    by, bz = FByz[a]
+    z = torch.zeros_like(by)
+    rows = {0: (z, by, bz), 1: (bz, z, by), 2: (by, bz, z)}[a]
+    return torch.stack(rows)
+
+
+def _prolongate(ps: State, cs: State, pg: GridConfig, fg: GridConfig,
+                link, sim: SimConfig) -> State:
+    """The child state with its ghost zones filled from the parent: U by
+    prolong_ghosts, and for MHD the face fields and Bcc over each ghost
+    slab by smr_fld.prolong_fld (smr.c:2359-2875)."""
+    if not sim.mhd:
+        return cs.replace(U=smr.prolong_ghosts(ps.U, cs.U, pg, fg, link,
+                                               sim=sim))
+    U = smr.prolong_ghosts(ps.U, cs.U, pg, fg, link, sim=sim, Bccc=ps.Bcc)
+    B1, B2, B3, Bcc = cs.B1i, cs.B2i, cs.B3i, cs.Bcc
+    for dim, region in smr_fld.ghost_regions(fg):
+        B1, B2, B3, Bcc = smr_fld.prolong_fld(
+            B1, B2, B3, Bcc, ps.B1i, ps.B2i, ps.B3i, pg, fg, link, region,
+            dim)
+    return cs.replace(U=U, Bcc=Bcc, B1i=B1, B2i=B2, B3i=B3)
+
+
 class MeshSimulation:
     """Multi-level SMR driver with the API of Simulation (from_par,
     from_file, step, run, state, rad_iters)."""
@@ -147,13 +209,7 @@ class MeshSimulation:
         from .simulation import configure
         dev = resolve_device(device)
         prob_cls, sim, root = configure(par, problem, dtype, sim_overrides)
-        if root.ndim < 3:
-            raise NotImplementedError(
-                f"SMR on {root.ndim}D grids (ROADMAP A13)")
-        if sim.mhd:
-            raise NotImplementedError(
-                "MHD SMR (ROADMAP A13: smr_fld.py's face-field restriction "
-                "and prolongation)")
+        check_supported(sim, root)
         doms = grids_from_par(par)
         levels = []
         for (lev, grid, disp, pidx) in doms:
@@ -177,17 +233,27 @@ class MeshSimulation:
                     time_ramp=getattr(lv.problem, "time_ramp", True))
         mesh = cls(par, sim, levels, device=dev)
         # startup (main.c:400-446): RestrictCorrect with zeroed fluxes, i.e.
-        # pure restriction of U, then bvals, then Prolongate
+        # pure restriction of U (and for MHD of Bcc and the interior faces;
+        # the boundary-plane faces stay, their EMF correction is a no-op),
+        # then bvals, then Prolongate
         for li in mesh.down:
             p, c = levels[levels[li].parent], levels[li]
             p.state = p.state.replace(U=smr.restrict_to_parent(
                 p.state.U, c.state.U, p.grid, c.grid, c.link))
+            if sim.mhd:
+                Bcp = smr.restrict_to_parent(p.state.Bcc, c.state.Bcc,
+                                             p.grid, c.grid, c.link)
+                B1, B2, B3, Bcp = smr_fld.restrict_fld(
+                    p.state.B1i, p.state.B2i, p.state.B3i, Bcp,
+                    c.state.B1i, c.state.B2i, c.state.B3i, p.grid, c.grid,
+                    c.link)
+                p.state = p.state.replace(Bcc=Bcp, B1i=B1, B2i=B2, B3i=B3)
         levels[0].state = bvals.apply_bc(levels[0].state, levels[0].grid,
                                          sim, levels[0].problem)
         for li in mesh.up:
             p, c = levels[levels[li].parent], levels[li]
-            c.state = c.state.replace(U=smr.prolong_ghosts(
-                p.state.U, c.state.U, p.grid, c.grid, c.link, sim=sim))
+            c.state = _prolongate(p.state, c.state, p.grid, c.grid, c.link,
+                                  sim)
         dt0 = torch.stack([dt_mod.new_dt(lv.state, sim, lv.grid,
                                          mesh.cour_no)
                            for lv in levels]).amin()
@@ -262,37 +328,70 @@ class MeshSimulation:
                         states[pi].U, states[li].U, L[pi].grid, L[li].grid,
                         L[li].link, nvars=[IEN, 5]))
 
-        # hydro on every level with the same dt; each keeps only the flux
-        # planes the corrections read (pCO/pPO myFlx,
-        # integrate_3d_ctu.c:3060-3330)
+        # hydro or MHD on every level with the same dt; each keeps only the
+        # flux (and EMF) planes the corrections read (pCO/pPO myFlx and
+        # myEMF, integrate_3d_ctu.c:3060-3330)
         own, of_child = {}, {}
         for li in range(nlev):
+            grid = L[li].grid
             with record_function("hydro"):
-                snew, Fp2 = ctu3d.step(states[li], dt, sim, L[li].grid,
-                                       L[li].problem, phi=L[li].phi,
-                                       return_fluxes=True)
+                snew, F = level_integrator(grid, sim).step(
+                    states[li], dt, sim, grid, L[li].problem, phi=L[li].phi,
+                    return_fluxes=True)
             with record_function("smr"):
+                if sim.mhd:
+                    FU, FByz, emfs = F
+                    FB = {a: _bflux(FByz, a) for a in FU}
+                    del FByz
+                else:
+                    FU, FB, emfs = F, None, None
+                del F
                 if L[li].parent is not None:
-                    own[li] = smr.boundary_flux_planes_fine(Fp2, L[li].grid)
+                    own[li] = {"U": smr.boundary_flux_planes_fine(FU, grid)}
+                    if sim.mhd:
+                        own[li]["B"] = smr.boundary_flux_planes_fine(FB,
+                                                                     grid)
+                        own[li]["E"] = smr_fld.emf_planes_fine(emfs, grid)
                 for ci in range(1, nlev):
                     if L[ci].parent == li:
-                        of_child[ci] = smr.boundary_flux_planes_coarse(
-                            Fp2, L[li].grid, L[ci].link)
-            del Fp2
+                        lk = L[ci].link
+                        of_child[ci] = {"U": smr.boundary_flux_planes_coarse(
+                            FU, grid, lk)}
+                        if sim.mhd:
+                            of_child[ci]["B"] = \
+                                smr.boundary_flux_planes_coarse(FB, grid, lk)
+                            of_child[ci]["E"] = smr_fld.emf_planes_coarse(
+                                emfs, grid, lk)
+            del FU, FB, emfs
             states[li] = snew
 
         # RestrictCorrect: conserved restriction + flux correction
-        # (smr.c:1207-1675), deepest level first
+        # (smr.c:1207-1675), and for MHD the Bcc restriction and flux
+        # correction, the face restriction and the EMF correction
+        # (smr.c:1380-1890), deepest level first
         with record_function("smr"):
             for li in self.down:
                 pi = L[li].parent
-                Up = smr.restrict_to_parent(states[pi].U, states[li].U,
-                                            L[pi].grid, L[li].grid,
-                                            L[li].link)
-                Up = smr.flux_correct_planes(Up, of_child.pop(li),
-                                             own.pop(li), L[pi].grid,
-                                             L[li].grid, L[li].link, dt)
-                states[pi] = states[pi].replace(U=Up)
+                pg, fg, lk = L[pi].grid, L[li].grid, L[li].link
+                ps, cs = states[pi], states[li]
+                cpl, fpl = of_child.pop(li), own.pop(li)
+                Up = smr.restrict_to_parent(ps.U, cs.U, pg, fg, lk)
+                if not sim.mhd:
+                    Up = smr.flux_correct_planes(Up, cpl["U"], fpl["U"], pg,
+                                                 fg, lk, dt)
+                    states[pi] = ps.replace(U=Up)
+                    continue
+                Bcp = smr.restrict_to_parent(ps.Bcc, cs.Bcc, pg, fg, lk)
+                Up = smr.flux_correct_planes(Up, cpl["U"], fpl["U"], pg, fg,
+                                             lk, dt)
+                Bcp = smr.flux_correct_planes(Bcp, cpl["B"], fpl["B"], pg,
+                                              fg, lk, dt)
+                B1, B2, B3, Bcp = smr_fld.restrict_fld(
+                    ps.B1i, ps.B2i, ps.B3i, Bcp, cs.B1i, cs.B2i, cs.B3i, pg,
+                    fg, lk)
+                B1, B2, B3, Bcp = smr_fld.emf_correct_planes(
+                    B1, B2, B3, Bcp, cpl["E"], fpl["E"], pg, fg, lk, dt)
+                states[pi] = ps.replace(U=Up, Bcc=Bcp, B1i=B1, B2i=B2, B3i=B3)
 
         # Userwork (prob/ioniz_sphere.c:255-306 core reset)
         for li in range(nlev):
@@ -319,13 +418,13 @@ class MeshSimulation:
             states[0] = bvals.apply_bc(states[0], L[0].grid, sim,
                                        L[0].problem)
 
-        # Prolongate: child ghost zones from the parent, parent first
+        # Prolongate: child ghost zones (and MHD ghost faces) from the
+        # parent, parent first
         with record_function("smr"):
             for li in self.up:
                 pi = L[li].parent
-                states[li] = states[li].replace(U=smr.prolong_ghosts(
-                    states[pi].U, states[li].U, L[pi].grid, L[li].grid,
-                    L[li].link, sim=sim))
+                states[li] = _prolongate(states[pi], states[li], L[pi].grid,
+                                         L[li].grid, L[li].link, sim)
         for lv, st in zip(L, states):
             lv.state = st
 

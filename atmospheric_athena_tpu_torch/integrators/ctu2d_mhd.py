@@ -58,8 +58,11 @@ def check_supported(sim: SimConfig, grid: GridConfig):
 
 
 def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
-         phi=None):
-    """One 2D CTU+CT step (x1, x2); arguments as ctu3d_mhd.step."""
+         phi=None, return_fluxes=False):
+    """One 2D CTU+CT step (x1, x2); arguments as ctu3d_mhd.step.  With
+    `return_fluxes` it returns (state, (Fp2, FByz2, [None, None, emf3C])),
+    as JAX ctu2d_mhd.py:262-270: a 2D step has the third corner EMF
+    alone."""
     check_supported(sim, grid)
     axes = [0, 1]
     dtodx = {a: exact_div(dt, grid.dx[a]) for a in axes}
@@ -221,4 +224,5 @@ def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
              1: _shf(FByz2[1][0], 1, 1) - FByz2[1][0]}
     B3new = Bcc[2] - dtodx[0] * dFB3f[0] - dtodx[1] * dFB3f[1]
 
-    return _splice(state, Unew, [B1new, B2new], B3new, sim, grid, axes)
+    out = _splice(state, Unew, [B1new, B2new], B3new, sim, grid, axes)
+    return (out, (Fp2, FByz2, [None, None, emf3C])) if return_fluxes else out

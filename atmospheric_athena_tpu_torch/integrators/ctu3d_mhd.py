@@ -104,11 +104,14 @@ def check_supported(sim: SimConfig, grid: GridConfig, ndim: int = 3):
 
 
 def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
-         phi=None):
+         phi=None, return_fluxes=False):
     """One 3D CTU+CT step.  `dt` is a 0-d tensor (or float); `phi` =
     (phic, [phif_x, phif_y, phif_z]) from ctu3d._phi_arrays, or None to
-    evaluate the problem's potential here.  (The JAX step's return_fluxes,
-    an SMR level's fluxes and EMFs, waits with MHD SMR, ROADMAP A13.)"""
+    evaluate the problem's potential here.  With `return_fluxes` (an SMR
+    level's step, JAX ctu3d_mhd.py:405-416) it returns (state, (Fp2, FByz2,
+    emf2_)): the step-9 hydro fluxes {axis: [nv, ...]} in physical order,
+    the transverse-B fluxes {axis: (By, Bz)} in sweep order and the final
+    corner EMFs [E1, E2, E3] (smr.c:3071-3220 myFlx/myEMF storage)."""
     check_supported(sim, grid)
     axes = [0, 1, 2]
     dtodx = {a: exact_div(dt, grid.dx[a]) for a in axes}
@@ -316,7 +319,8 @@ def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
     for a in axes:
         Unew = Unew - dtodx[a] * (_sh(Fp2[a], 1, a) - Fp2[a])
 
-    return _splice(state, Unew, Binew, None, sim, grid, axes)
+    out = _splice(state, Unew, Binew, None, sim, grid, axes)
+    return (out, (Fp2, FByz2, emf2_)) if return_fluxes else out
 
 
 def _splice(state: State, Unew, Binew, B3new, sim: SimConfig,

@@ -16,16 +16,15 @@ def register(name):
 
 
 def get_problem(name: str):
-    from . import (blast, carbuncle, cpaw, field_loop,  # noqa: F401
-                   ifront, ioniz_sphere, linear_wave, lw_implode, noh,
-                   orszag_tang, rotor, shkset1d, shu_osher, testsedov, turb,
-                   twoibw)
+    from . import (blast, carbuncle, cpaw, current_sheet,  # noqa: F401
+                   field_loop, ifront, ioniz_sphere, kh, linear_wave,
+                   lw_implode, noh, orszag_tang, pgflow, rotor, rt, shkset1d,
+                   shkset2d, shkset3d, shu_osher, testsedov, turb, twoibw)
     try:
         return _REGISTRY[name]
     except KeyError:
         raise NotImplementedError(
-            f"problem {name!r} is not ported yet (ROADMAP A11 steps 3 and "
-            "6: shkset2d, shkset3d, kh, rt, current_sheet; A15: the "
-            "cylindrical, shearing-box, microphysics, self-gravity, "
-            f"particle and SR problems); ported: {sorted(_REGISTRY)}"
+            f"problem {name!r} is not ported yet (ROADMAP A15: the "
+            "cylindrical, shearing-box, microphysics, self-gravity and "
+            f"particle problems); ported: {sorted(_REGISTRY)}"
         ) from None

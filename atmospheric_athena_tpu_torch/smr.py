@@ -1,7 +1,7 @@
-"""Static mesh refinement for hydro: restriction, flux correction,
-prolongation and the ionizing-radiation hand-off (reference: src/smr.c,
-src/init_grid.c overlap setup, src/ionradiation/ionrad_smr.c), as in
-``atmospheric_athena_tpu/smr.py``.
+"""Static mesh refinement of the cell-centred state: restriction, flux
+correction, prolongation and the ionizing-radiation hand-off (reference:
+src/smr.c, src/init_grid.c overlap setup, src/ionradiation/ionrad_smr.c),
+as in ``atmospheric_athena_tpu/smr.py``, on 3D and 2D grids.
 
 Each level's Domain is a dense padded State; the parent/child couplings are
 strided means (restriction), slice updates (flux correction at the
@@ -20,8 +20,10 @@ Geometry: a child Domain at level l+1 covers the parent cell box
 <domainN> iDisp/jDisp/kDisp displacement measured in CHILD-level cells
 (init_mesh.c reads Disp in own-level units; refinement ratio is 2).
 
-MHD (the face fields and Bcc, smr_fld.py) is ROADMAP A13 and special
-relativity A15: both raise.
+MHD adds the face fields (smr_fld.py): here the cell-centred Bcc is
+restricted and flux-corrected like U (the caller passes it as the array),
+and prolong_ghosts slopes the gas pressure with the parent's Bcc.  Special
+relativity is ROADMAP A15 and raises.
 """
 
 from __future__ import annotations
@@ -257,12 +259,11 @@ def prolong_ghosts(Uc, Uf, pgrid: GridConfig, fgrid: GridConfig,
     (smr.c:2359-2700, second-order ProCon path).
 
     When `sim` is given and adiabatic, the energy is prolonged the
-    reference way: ProCon slopes P = E - ke ("Prolongate P not E. This is
-    intentionally non-conservative", smr.c:3206-3240) and rebuilds E from
-    the prolonged momenta.  MHD (`Bccc`) and special relativity raise."""
-    if Bccc is not None or (sim is not None and sim.mhd):
-        raise NotImplementedError("MHD prolongation (smr_fld.py, ROADMAP "
-                                  "A13: MHD SMR)")
+    reference way: ProCon slopes the gas pressure P = E - ke - me ("Prolongate
+    P not E. This is intentionally non-conservative", smr.c:3206-3240) and
+    rebuilds E from the prolonged momenta and, for MHD, from the parent's
+    cell-centred field `Bccc` prolonged beside them.  Special relativity
+    raises (ROADMAP A15)."""
     if sim is not None and sim.special_relativity:
         raise NotImplementedError("special-relativity prolongation (ROADMAP "
                                   "A15)")
@@ -280,14 +281,30 @@ def prolong_ghosts(Uc, Uf, pgrid: GridConfig, fgrid: GridConfig,
         src.append(slice(s, e))
     box = Uc[(slice(None),) + tuple(src)]
     pressure_e = sim is not None and sim.adiabatic
+    nbcc = 0
     if pressure_e:
         ke = 0.5 * (box[1] ** 2 + box[2] ** 2 + box[3] ** 2) / box[0]
+        P = box[IEN] - ke
         box = box.clone()
-        box[IEN] = box[IEN] - ke
+        if sim.mhd:
+            if Bccc is None:
+                raise ValueError("prolong_ghosts: an MHD state needs the "
+                                 "parent's Bcc (Bccc)")
+            bb = Bccc[(slice(None),) + tuple(src)]
+            P = P - 0.5 * (bb[0] ** 2 + bb[1] ** 2 + bb[2] ** 2)
+            box[IEN] = P
+            box = torch.cat([box, bb], 0)
+            nbcc = 3
+        else:
+            box[IEN] = P
     fine = prolong_box(box, act)
     if pressure_e:
         kef = 0.5 * (fine[1] ** 2 + fine[2] ** 2 + fine[3] ** 2) / fine[0]
-        fine[IEN] = fine[IEN] + kef
+        Ef = fine[IEN] + kef
+        if nbcc:
+            Ef = Ef + 0.5 * (fine[-3] ** 2 + fine[-2] ** 2 + fine[-1] ** 2)
+            fine = fine[:-nbcc]
+        fine[IEN] = Ef
     # trim the slope-support cell (2 fine cells) per active axis
     trim = tuple(slice(2, -2) if act[2 - i] else slice(None)
                  for i in range(3))

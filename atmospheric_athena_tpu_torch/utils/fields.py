@@ -22,7 +22,9 @@ _GL_W = 0.5 * _GL_W
 
 
 def vecpot_to_b_interface(A, grid: GridConfig):
-    """(B1i, B2i, B3i) padded interface fields from a vector potential.
+    """(B1i, B2i, B3i) padded interface fields from a vector potential,
+    each broadcastable to the padded shape (an axis the potential does not
+    read may have length 1).
 
     A: (A1, A2, A3) — callables A_i(x1, x2, x3) on numpy arrays, or None.
     Each face's normal field is the circulation of A around the face
@@ -35,11 +37,10 @@ def vecpot_to_b_interface(A, grid: GridConfig):
     dx = grid.dx
     act = [grid.active(a) for a in range(3)]
     f = [np.asarray(grid.fc_coords(a))[: shape[2 - a]] for a in range(3)]
-    base = [
-        np.broadcast_to(f[0][None, None, :], shape),
-        np.broadcast_to(f[1][None, :, None], shape),
-        np.broadcast_to(f[2][:, None, None], shape),
-    ]
+    # the face coordinates as broadcastable rows: a potential that does not
+    # read an axis is evaluated without it (the field loop's A3(x1, x2) on
+    # one plane), with the same arithmetic per face
+    base = [f[0][None, None, :], f[1][None, :, None], f[2][:, None, None]]
 
     def edge_int(fn, p0, axis):
         """Integral of fn along the axis-edge starting at p0 (length =

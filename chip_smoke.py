@@ -30,7 +30,12 @@ HLLD), which also run the plain functions and launch no kernel, as no JAX
 kernel takes MHD; and this slice's paths: the van Leer integrator with the
 first-order flux correction (integrators/vl3d.py, vl_lowd.py), whose step
 is plain as in the JAX package, 3D hydro VL launching the CFL and
-ghost-fill kernels around it.  It checks
+ghost-fill kernels around it; and this slice's paths: static mesh
+refinement of MHD on 3D and 2D grids and of 2D hydro (hierarchy.py with
+smr_fld.py's face-field restriction, EMF correction and prolongation), and
+the last CTU problems (shkset2d, shkset3d, current_sheet, kh, rt, pgflow),
+which run the plain functions and launch no kernel, as in the JAX
+package.  It checks
 each hand-written kernel against its plain PyTorch version on the card; a
 kernel with several forms (the solver, Roe, HLLC or HLLE, and B5's
 reconstruction order, "ppm+hllc"; the operand forms of transverse_correct,
@@ -126,7 +131,15 @@ and counted per form, "name[form]":
      Orszag-Tang 10 cycles at 1e-13), 3D hydro VL (blastvl's blast as
      hydro, 32^3, HLLC, order 2p, FOFC, outflow) 2 cycles against the
      plain CPU run to 1e-10 with B4 and B11 launched and no other kernel,
-     and 2D and 1D hydro VL (noh, shu_osher) the same way with none;
+     and 2D and 1D hydro VL (noh, shu_osher) the same way with none; then
+     (phase3_smr_mhd) MHD and 2D SMR and the last CTU problems in float64
+     on the card with every kernel counter 0: the two-level MHD field
+     loops (fl2lev at 2e-13, fl2d2lev at 1e-13, 10 cycles, max |div B| <
+     1e-14 on both levels; run_smr_mhd_golden), rj2a (shkset2d, 20
+     cycles) and rj2a3d (shkset3d, 10) against their goldens
+     (run_ctu_golden), current_sheet's invariants, and a two-level 2D
+     hydro blast, kh (iprob 1 and 2), rt and pgflow 3 cycles each against
+     the plain CPU run at 1e-12 (run_levels_vs_cpu);
   4. full width: the SMR main path, isph2lev at 256^3 + 256^3 float32
      (the child over the root's centre), maxiter=50, batch_iters=25, 3
      cycles through Simulation.from_file (no device argument: the card is
@@ -162,6 +175,13 @@ and counted per form, "name[form]":
      and B11 launched and no other kernel, and Orszag-Tang at 4096^2 with
      VL (HLLD, order 2, cour_no 0.4), 3 cycles: the same numbers, the
      operators of a cycle and the cells FOFC corrected in the last cycle;
+     then (phase4_smr_mhd, SMR_MHD_FULL) fl2lev's physics at 512 x 256 x
+     256 per level (3 cycles, a CLI cycle), fl2d2lev's at 4096 x 2048 per
+     level, rj2a at 4096 x 2048 and rj2a3d at 3072 x 32 x 32 (3 cycles
+     each) in float32 with every kernel counter 0: ms per cycle,
+     zone-cycles/s over all levels, peak memory, max |div B| of each level
+     against its max |B| / dx, the operators of a cycle and the ms of the
+     SMR glue per cycle (smr_glue_timer);
      phase 4's CLI cycles write no outputs
      (job/maxout=0) but the SMR one, which writes a history and a cons VTK
      output per level with -d (level 1's under lev1/ with a -lev1 problem
@@ -186,7 +206,8 @@ linear_wave runs; B3', B3's inlet form and the forms that take no
 full-width run, on no path, with their phase-2 launches and "path": null,
 the hydro ones also with their phase-3 launches; "mhd_launches", each
 kernel's launches in each MHD_FULL run, all 0; "vl_launches", each
-kernel's launches in each VL_FULL run), the nvidia-smi line
+kernel's launches in each VL_FULL run; "smr_mhd_launches", in each
+SMR_MHD_FULL run, all 0), the nvidia-smi line
 before it, and the final line {"ok": true,
 "device": {...}}.  Any failed check raises, so the exit code is non-zero
 and no result line is printed.
@@ -2414,13 +2435,13 @@ def run_golden(device):
     return s, worst
 
 
-def golden_errors(s, ref, fields):
+def golden_errors(s, ref, fields, floor=1e-3):
     """{field: max |port - golden| / scale} over the interior of the port
     Simulation `s` against one golden cons snapshot (rows: the tab's
     position columns, then `fields`: d, M1-M3, E and, for MHD, the
     cell-centred B1-B3), with tests/test_problems_r5.py's
-    per-field scale: the field's max, floored at 1e-3 of the largest
-    field's."""
+    per-field scale: the field's max, floored at `floor` (1e-3) of the
+    largest field's (tests/test_shkset2d.py takes no floor: 0)."""
     import numpy as np
     U = s.state.U[(slice(None),) + s.grid.interior()].cpu().numpy()
     B = (s.state.Bcc[(slice(None),) + s.grid.interior()].cpu().numpy()
@@ -2434,7 +2455,7 @@ def golden_errors(s, ref, fields):
         else:
             q = U[{"d": 0, "M1": 1, "M2": 2, "M3": 3, "E": 4}[f]]
         r = ref[:, nsp + i]
-        scale = max(np.abs(r).max(), 1e-3 * gmax, 1e-30)
+        scale = max(np.abs(r).max(), floor * gmax, 1e-30)
         out[f] = float(np.abs(q.ravel() - r).max() / scale)
     return out
 
@@ -3820,6 +3841,510 @@ def phase4_vl():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# this slice: the other CTU problems (ROADMAP A11 step 6) and MHD and 2D
+# static mesh refinement (A13, smr_fld.py), which run the plain functions
+# and launch no kernel, as the JAX package runs jnp there
+# ---------------------------------------------------------------------------
+
+# the CTU problems' reference goldens, as tests/test_shkset2d.py and
+# tests/test_problems_r5.py hold the JAX package to them: name -> (deck,
+# npz, problem, cycles, cycle-1 and last-cycle tolerances, the floor of
+# each field's scale as a share of the largest field's, golden_errors)
+CTU_MHD = dict(gas="mhd", flux="roe", order="2", integrator="ctu")
+CTU_GOLDENS = {
+    "rj2a": ("athinput.rj2a", "rj2a_shkset2d.npz", "shkset2d", 20, 1e-11,
+             1e-9, 0.0),
+    "rj2a3d": ("athinput.rj2a3d", "rj2a3d_shkset3d.npz", "shkset3d", 10,
+               1e-11, 1e-9, 1e-3),
+}
+# the two-level MHD field loops of the reference C code
+# (tests/test_smr_mhd.py): name -> (deck, absolute tolerance), 10 cycles,
+# every level's d, M1-M3, E and B1c-B3c, and max |div B| < 1e-14 on both
+SMR_MHD_GOLDENS = {"fl2lev": ("athinput.fl2lev", 2e-13),
+                   "fl2d2lev": ("athinput.fl2d2lev", 1e-13)}
+SMR_MHD_CYCLES = 10
+CURSHEET = os.path.join(HERE, "tests", "golden", "athinput.cursheet")
+
+# a two-level 2D hydro blast: BLAST2D_DECK's root with a 32 x 32 child
+# over the middle of its box
+BLAST2D_SMR_DECK = BLAST2D_DECK.replace(
+    "<job>\n", "<job>\nnum_domains = 2\n") + (
+    "<domain2>\nlevel = 1\nNx1 = 32\nNx2 = 32\nNx3 = 1\n"
+    "iDisp = 32\njDisp = 48\nkDisp = 0\n")
+
+# the Kelvin-Helmholtz (iprob 1: the random streams; 2: the single mode,
+# problem/iprob=2) and Rayleigh-Taylor decks at a small size, after the
+# reference's tst/2D-hydro/athinput.kh and athinput.rt, and pgflow's steady
+# flow (tests/test_par_problems.py::test_pgflow_steady)
+KH_DECK = """
+<comment>
+problem = Kelvin-Helmholtz instability
+config  = --with-problem=kh --with-gas=hydro --with-flux=roe
+<job>
+problem_id = KH
+<time>
+cour_no = 0.8
+nlim    = 100000
+tlim    = 5.0
+<domain1>
+level = 0
+Nx1 = 32
+x1min = -0.5
+x1max = 0.5
+bc_ix1 = 4
+bc_ox1 = 4
+Nx2 = 32
+x2min = -0.5
+x2max = 0.5
+bc_ix2 = 4
+bc_ox2 = 4
+Nx3 = 1
+x3min = -0.5
+x3max = 0.5
+<problem>
+gamma = 1.4
+iprob = 1
+amp   = 0.01
+drat  = 2.0
+vflow = 0.5
+"""
+RT_DECK = """
+<comment>
+problem = Rayleigh-Taylor instability
+config  = --with-problem=rt --with-gas=hydro --with-flux=roe
+<job>
+problem_id = RT
+<time>
+cour_no = 0.8
+nlim    = 100000
+tlim    = 10.0
+<domain1>
+level = 0
+Nx1 = 16
+x1min = -0.25
+x1max = 0.25
+bc_ix1 = 4
+bc_ox1 = 4
+Nx2 = 48
+x2min = -0.75
+x2max = 0.75
+bc_ix2 = 1
+bc_ox2 = 1
+Nx3 = 1
+x3min = -0.5
+x3max = 0.5
+<problem>
+gamma = 1.4
+iprob = 1
+amp   = 0.01
+"""
+PGFLOW_DECK = """
+<comment>
+config = --with-problem=pgflow --with-gas=hydro
+<job>
+problem_id = pg
+<time>
+cour_no = 0.8
+nlim = 20
+tlim = 99.0
+<domain1>
+level = 0
+Nx1 = 64
+x1min = 0.0
+x1max = 1.0
+bc_ix1 = 4
+bc_ox1 = 4
+Nx2 = 4
+x2min = 0.0
+x2max = 0.0625
+bc_ix2 = 4
+bc_ox2 = 4
+Nx3 = 1
+x3min = -0.5
+x3max = 0.5
+<problem>
+gamma = 1.6666666666666667
+angle = 0.0
+grav = 0.01
+root = 0
+den = 1.0
+pres = 0.1
+v_par = 1.0
+"""
+# the phase-3 runs on the card against the port's plain run on the CPU:
+# (label, deck text, problem, overrides, cycles)
+CTU_VS_CPU = [
+    ("blast2d 2-level", BLAST2D_SMR_DECK, "blast", [], 3),
+    ("kh iprob=1", KH_DECK, "kh", [], 3),
+    ("kh iprob=2", KH_DECK, "kh", ["problem/iprob=2"], 3),
+    ("rt", RT_DECK, "rt", [], 3),
+    ("pgflow", PGFLOW_DECK, "pgflow", [], 3),
+]
+
+
+def run_ctu_golden(name, device):
+    """One CTU_GOLDENS case in float64 through Simulation.from_file on
+    `device` (CTU, Roe, PLM, MHD): the time of every cycle to rel 1e-5 and
+    the cycle-1 and last snapshots to their tolerances x each field's scale
+    (golden_errors with the case's floor).  Raises on a miss; returns the
+    Simulation and {snapshot cycle: worst error}."""
+    import numpy as np
+    from atmospheric_athena_tpu_torch import Simulation
+    deck, npz, problem, ncyc, atol1, atolN, floor = CTU_GOLDENS[name]
+    gold = np.load(os.path.join(HERE, "tests", "golden", npz))
+    s = Simulation.from_file(
+        os.path.join(HERE, "tests", "golden", deck), problem=problem,
+        cmdline=[f"time/nlim={ncyc}", "time/tlim=9e9", "job/maxout=0"],
+        dtype="float64", device=device, **CTU_MHD)
+    worst = {}
+    for cyc in range(1, ncyc + 1):
+        s.step()
+        t, t_ref = float(s.state.time), float(gold["traj"][cyc - 1][0])
+        if not abs(t / t_ref - 1) <= 1e-5:
+            raise AssertionError(f"{name} cycle {cyc}: time {t:.9e}, "
+                                 f"golden {t_ref:.9e}")
+        if cyc not in (1, ncyc):
+            continue
+        atol = atol1 if cyc == 1 else atolN
+        errs = golden_errors(s, gold[f"cons{cyc}"], MHD_FIELDS, floor=floor)
+        bad = {f: e for f, e in errs.items() if not e <= atol}
+        if bad:
+            raise AssertionError(f"{name} cycle {cyc}: {bad} x scale exceed "
+                                 f"{atol:.0e}")
+        worst[cyc] = max(errs.values())
+    return s, worst
+
+
+def level_divb(level):
+    """max |div B| of one level's face fields over its active cells."""
+    from atmospheric_athena_tpu_torch.utils.fields import compute_div_b
+    st = level.state
+    return float(compute_div_b(st.B1i, st.B2i, st.B3i,
+                               level.grid).abs().max())
+
+
+def run_smr_mhd_golden(name, device):
+    """One SMR_MHD_GOLDENS case in float64 through Simulation.from_file on
+    `device`, SMR_MHD_CYCLES cycles: each level's interior d, M1-M3, E and
+    B1c-B3c against {name}_{root,lev1}_10cycles.npz to the case's absolute
+    tolerance, and max |div B| < 1e-14 on each level.  Raises on a miss;
+    returns the MeshSimulation, the worst error and each level's div B."""
+    import numpy as np
+    from atmospheric_athena_tpu_torch import Simulation
+    from atmospheric_athena_tpu_torch.hierarchy import MeshSimulation
+    deck, atol = SMR_MHD_GOLDENS[name]
+    gold_dir = os.path.join(HERE, "tests", "golden")
+    s = Simulation.from_file(os.path.join(gold_dir, deck),
+                             cmdline=["job/maxout=0"], dtype="float64",
+                             device=device)
+    if not isinstance(s, MeshSimulation) or not s.sim.mhd \
+            or len(s.levels) != 2:
+        raise AssertionError(f"{name}: {type(s).__name__}, {s.sim.gas}")
+    for _ in range(SMR_MHD_CYCLES):
+        s.step()
+    worst, divs = 0.0, []
+    for lv, tag in zip(s.levels, ("root", "lev1")):
+        gold = np.load(os.path.join(
+            gold_dir, f"{name}_{tag}_{SMR_MHD_CYCLES}cycles.npz"))["data"]
+        sl = (slice(None),) + lv.grid.interior()
+        U = lv.state.U[sl].cpu().numpy()
+        B = lv.state.Bcc[sl].cpu().numpy()
+        for i, q in enumerate([U[0], U[1], U[2], U[3], U[4], B[0], B[1],
+                               B[2]]):
+            err = float(np.abs(q.ravel() - gold[:, i]).max())
+            if not err <= atol:
+                raise AssertionError(f"{name} {tag} {MHD_FIELDS[i]}: error "
+                                     f"{err:.3e} > {atol:.0e}")
+            worst = max(worst, err)
+        divs.append(level_divb(lv))
+        if not divs[-1] < 1e-14:
+            raise AssertionError(f"{name} {tag}: max|div B| {divs[-1]:.3e}")
+    return s, worst, divs
+
+
+def current_sheet_invariants(device, ncyc=20):
+    """tests/test_problems_r5b.py::test_current_sheet_physics on
+    athinput.cursheet (64^2, Roe, PLM, CTU), float64 on `device`, ncyc
+    cycles: max |div B| < 1e-12, the magnetic energy falls, the total
+    energy of the periodic box stays within 1e-10 of its start, and M3 and
+    B3c stay below 1e-20 (ROADMAP C5: this problem has no bitwise golden).
+    Raises on a miss; returns the Simulation and the measured values."""
+    import numpy as np
+    from atmospheric_athena_tpu_torch import Simulation
+    s = Simulation.from_file(CURSHEET, problem="current_sheet",
+                             cmdline=[f"time/nlim={ncyc}", "time/tlim=9e9",
+                                      "job/maxout=0"],
+                             dtype="float64", device=device, **CTU_MHD)
+
+    def energies():
+        sl = (slice(None),) + s.grid.interior()
+        U = s.state.U[sl].cpu().numpy()
+        B = s.state.Bcc[sl].cpu().numpy()
+        return (0.5 * (B[0] ** 2 + B[1] ** 2 + B[2] ** 2)).sum(), U[4].sum()
+
+    Eb0, Et0 = energies()
+    for _ in range(ncyc):
+        s.step()
+    Eb1, Et1 = energies()
+    sl = (slice(None),) + s.grid.interior()
+    got = dict(div=divb_max(s), Eb0=float(Eb0), Eb1=float(Eb1),
+               dEt=float(abs(Et1 - Et0) / abs(Et0)),
+               M3=float(s.state.U[sl][3].abs().max()),
+               B3c=float(s.state.Bcc[sl][2].abs().max()))
+    if not (got["div"] < 1e-12 and Eb1 < Eb0 and got["dEt"] < 1e-10
+            and got["M3"] < 1e-20 and got["B3c"] < 1e-20):
+        raise AssertionError(f"current_sheet invariants: {got}")
+    return s, got
+
+
+def copy_levels(src, dst, device):
+    """dst's state (each level's, for a MeshSimulation) set to src's, on
+    `device`."""
+    from atmospheric_athena_tpu_torch import state as tstate
+    a = getattr(src, "levels", None) or [src]
+    b = getattr(dst, "levels", None) or [dst]
+    for x, y in zip(a, b):
+        y.state = tstate.from_numpy(tstate.to_numpy(x.state), device=device)
+
+
+def run_levels_vs_cpu(label, text, problem, cmd, ncyc, tol=1e-12):
+    """A deck (its text) in float64, ncyc cycles on the card against the
+    port's plain run on the CPU in the same process: cycle 1 from the
+    deck's start, each later cycle from the CPU run's state copied to the
+    card; every level's interior U (and Bcc and the face fields for MHD)
+    within `tol` of each field's max, time and dt to rel 1e-12.  Raises on
+    a miss; returns the worst error and the card run's launch counts."""
+    import numpy as np
+    from atmospheric_athena_tpu_torch import ParameterDB, Simulation
+
+    def make(device):
+        par = ParameterDB.from_string(text)
+        par.apply_cmdline(list(cmd) + ["job/maxout=0"])
+        return Simulation.from_par(par, problem=problem, dtype="float64",
+                                   device=device)
+    g, c = make("cuda"), make("cpu")
+    reset_counts()
+    worst = 0.0
+    for cyc in range(ncyc):
+        if cyc:
+            copy_levels(c, g, "cuda")
+        g.step()
+        c.step()
+        for what in ("time", "dt"):
+            a, b = (float(getattr(x.state, what)) for x in (g, c))
+            if not abs(a / b - 1) <= 1e-12:
+                raise AssertionError(f"{label} cycle {cyc + 1}: {what} "
+                                     f"{a:.17e} on the card, {b:.17e} plain")
+        for lg, lc in zip(getattr(g, "levels", None) or [g],
+                          getattr(c, "levels", None) or [c]):
+            keys = ("U", "Bcc") if g.sim.mhd else ("U",)
+            for k in keys:
+                sl = (slice(None),) + lg.grid.interior()
+                a = getattr(lg.state, k)[sl].cpu().numpy()
+                b = getattr(lc.state, k)[sl].numpy()
+                if not np.isfinite(a).all():
+                    raise AssertionError(f"{label} cycle {cyc + 1}: {k} "
+                                         "non-finite")
+                for n in range(a.shape[0]):
+                    err = float(np.abs(a[n] - b[n]).max()
+                                / max(np.abs(b[n]).max(), 1e-300))
+                    worst = max(worst, err)
+                    if not err <= tol:
+                        raise AssertionError(
+                            f"{label} cycle {cyc + 1} {k}[{n}]: error "
+                            f"{err:.3e} x max exceeds {tol:.0e}")
+    return worst, read_counts()
+
+
+def phase3_smr_mhd():
+    """This slice in float64 on the card, every run with every kernel's
+    launch counter 0 (no JAX kernel takes MHD or a 2D grid): the two-level
+    MHD field loops against their goldens (run_smr_mhd_golden: fl2lev at
+    2e-13, fl2d2lev at 1e-13, max |div B| < 1e-14 on both levels), rj2a
+    (shkset2d, 20 cycles) and rj2a3d (shkset3d, 10 cycles) against theirs
+    (run_ctu_golden), current_sheet's invariants, and the two-level 2D
+    hydro blast, kh (both iprob), rt and pgflow 3 cycles each against the
+    port's CPU run at 1e-12 (run_levels_vs_cpu)."""
+    for name in SMR_MHD_GOLDENS:
+        reset_counts()
+        t0 = time.perf_counter()
+        s, worst, divs = run_smr_mhd_golden(name, "cuda")
+        check_no_kernel(f"phase 3 {name}", read_counts())
+        say(f"phase 3 SMR MHD golden {name} float64 {s.grid.ndim}D, levels "
+            + " + ".join("x".join(str(n) for n in lv.grid.Nx if n > 1)
+                         for lv in s.levels)
+            + f", {SMR_MHD_CYCLES} cycles on the card in "
+            f"{time.perf_counter() - t0:.2f} s: worst error {worst:.3e}, "
+            f"max|div B| per level {[f'{d:.3e}' for d in divs]}; no kernel "
+            "launched")
+    for name in CTU_GOLDENS:
+        reset_counts()
+        t0 = time.perf_counter()
+        s, worst = run_ctu_golden(name, "cuda")
+        check_no_kernel(f"phase 3 {name}", read_counts())
+        say(f"phase 3 CTU golden {name} ({CTU_GOLDENS[name][2]}) float64 "
+            f"{'x'.join(str(n) for n in s.grid.Nx if n > 1)}, "
+            f"{int(s.state.nstep)} cycles on the card in "
+            f"{time.perf_counter() - t0:.2f} s: worst error x scale "
+            f"{worst}, div B {divb_max(s):.3e}; no kernel launched")
+    reset_counts()
+    s, got = current_sheet_invariants("cuda")
+    check_no_kernel("phase 3 current_sheet", read_counts())
+    say(f"phase 3 current_sheet 64x64 float64, 20 cycles on the card: "
+        f"{ {k: f'{v:.6e}' for k, v in got.items()} }; no kernel launched")
+    for label, text, problem, cmd, ncyc in CTU_VS_CPU:
+        worst, counts = run_levels_vs_cpu(label, text, problem, cmd, ncyc)
+        check_no_kernel(f"phase 3 {label}", counts)
+        say(f"phase 3 {label} float64, {ncyc} cycles on the card against "
+            f"the plain CPU run: worst error {worst:.3e} x max; no kernel "
+            "launched")
+
+
+@contextlib.contextmanager
+def smr_glue_timer():
+    """CUDA events around each call of the SMR glue the hierarchy makes
+    (the flux and EMF planes of each level, the restriction, the flux and
+    EMF corrections, the prolongation): yields a list that holds, once the
+    block has ended and the card has synchronized, the summed milliseconds
+    and the number of calls."""
+    import torch
+    from atmospheric_athena_tpu_torch import hierarchy, smr, smr_fld
+    names = [(smr, n) for n in ("restrict_to_parent", "flux_correct_planes",
+                                "prolong_ghosts", "boundary_flux_planes_fine",
+                                "boundary_flux_planes_coarse")]
+    names += [(smr_fld, n) for n in ("restrict_fld", "emf_correct_planes",
+                                     "prolong_fld", "emf_planes_fine",
+                                     "emf_planes_coarse")]
+    names += [(hierarchy, "_bflux")]
+    events, saved, out = [], [], []
+
+    def wrap(fn):
+        def timed(*args, **kw):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            r = fn(*args, **kw)
+            b.record()
+            events.append((a, b))
+            return r
+        return timed
+    for mod, n in names:
+        saved.append((mod, n, getattr(mod, n)))
+        setattr(mod, n, wrap(getattr(mod, n)))
+    try:
+        yield out
+    finally:
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
+        torch.cuda.synchronize()
+        out.extend([sum(a.elapsed_time(b) for a, b in events), len(events)])
+
+
+# the full-width runs of phase 4 (float32): (label, deck, problem, a CLI
+# cycle, overrides, SimConfig keywords).  fl2lev's physics at 512 x 256 x
+# 256 per level (the deck's 32 x 16 x 16 x 16; the child over the middle
+# half, i/j/kDisp = 256/128/128, cubic cells as in the deck); fl2d2lev's
+# at 4096 x 2048 per level; rj2a at 4096 x 2048 (the deck's 2:1 aspect,
+# so the unit cell of the remap stays r1 = 2, r2 = 1); rj2a3d at
+# 3072 x 32 x 32 (the deck's extents, so the cells stay cubic and the
+# unit cell (rx, ry, rz) = (1, 2, 4) tiles the grid)
+SMR_MHD_FULL = [
+    ("fl2lev", "athinput.fl2lev", None, True,
+     ["domain1/Nx1=512", "domain1/Nx2=256", "domain1/Nx3=256",
+      "domain2/Nx1=512", "domain2/Nx2=256", "domain2/Nx3=256",
+      "domain2/iDisp=256", "domain2/jDisp=128", "domain2/kDisp=128"], {}),
+    ("fl2d2lev", "athinput.fl2d2lev", None, False,
+     ["domain1/Nx1=4096", "domain1/Nx2=2048", "domain2/Nx1=4096",
+      "domain2/Nx2=2048", "domain2/iDisp=2048", "domain2/jDisp=1024"], {}),
+    ("rj2a", "athinput.rj2a", "shkset2d", False,
+     ["domain1/Nx1=4096", "domain1/Nx2=2048"], CTU_MHD),
+    ("rj2a3d", "athinput.rj2a3d", "shkset3d", False,
+     ["domain1/Nx1=3072", "domain1/Nx2=32", "domain1/Nx3=32"], CTU_MHD),
+]
+
+
+def phase4_smr_mhd(ncyc=3):
+    """This slice at full width in float32 through the entry points without
+    a device argument (SMR_MHD_FULL), ncyc cycles each and a CLI cycle on
+    the first run, with every kernel's launch counter 0: ms per cycle,
+    zone-cycles/s over all levels, peak memory, finite fields, dt > 0, max
+    |div B| of each level against its max |B| / dx (<= 1e-5 in float32),
+    the operators one more cycle dispatches (count_dispatch) and, on the
+    SMR runs, the ms of the SMR glue per cycle (smr_glue_timer).  Returns
+    {label: launch counts} (all zero)."""
+    import torch
+    from atmospheric_athena_tpu_torch import Simulation
+    from atmospheric_athena_tpu_torch import __main__ as cli
+    gold = os.path.join(HERE, "tests", "golden")
+    smi = smi_line()
+    counts = {}
+    for label, deck, problem, with_cli, cmd, kw in SMR_MHD_FULL:
+        deck = os.path.join(gold, deck)
+        cmd = cmd + ["time/tlim=9e9", "job/maxout=0"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        s = Simulation.from_file(deck, problem=problem, dtype="float32",
+                                 cmdline=cmd, **kw)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        levels = getattr(s, "levels", None) or [s]
+        if s.device.type != "cuda" or not s.sim.mhd:
+            raise AssertionError(f"{label} run on {s.device}, {s.sim}")
+        reset_counts()
+        with smr_glue_timer() as glue:
+            res = s.run(max_steps=ncyc)
+        counts[label] = read_counts()
+        check_no_kernel(f"phase 4 {label}", counts[label])
+        keys = ("U", "Bcc", "B1i", "B2i", "B3i")
+        finite = all(bool(torch.isfinite(getattr(lv.state, k)).all())
+                     for lv in levels for k in keys)
+        dt = float(s.state.dt)
+        divs, div_abs = [], []
+        for lv in levels:
+            bmax = float(lv.state.Bcc.abs().max())
+            dx = min(lv.grid.dx[a] for a in range(3) if lv.grid.active(a))
+            div_abs.append(level_divb(lv))
+            divs.append(div_abs[-1] / (bmax / dx))
+        if not finite or not dt > 0 or not max(divs) <= 1e-5 \
+                or res["steps"] != ncyc:
+            raise AssertionError(f"phase 4 {label}: {res['steps']} steps, "
+                                 f"finite={finite} dt={dt} div B / "
+                                 f"(max|B|/dx) = {divs}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        size = " + ".join("x".join(str(n) for n in lv.grid.Nx if n > 1)
+                          for lv in levels)
+        ms = 1e3 * res["wall"] / res["steps"]
+        nops = count_dispatch(s.step)    # one more cycle, counted
+        glue_txt = (f"; SMR glue {glue[0] / ncyc:.2f} ms per cycle "
+                    f"({glue[1] // ncyc} timed calls per cycle, CUDA "
+                    "events)" if len(levels) > 1 else "")
+        say(f"phase 4 {label} {size} float32 ({s.grid.ndim}D MHD, "
+            f"{s.sim.flux}, order {s.sim.order}, {len(levels)} level(s)) on "
+            f"{smi}: setup {setup_s:.1f} s; {res['steps']} cycles via "
+            f"Simulation.run, {ms:.1f} ms per cycle, "
+            f"{res['zone_cycles_per_sec']:.4e} zone-cycles/s over all "
+            f"levels; peak device memory {peak:.2f} GiB; all fields "
+            f"finite, dt {dt:.6e}; max|div B| per level "
+            f"{[f'{d:.3e}' for d in div_abs]}, x dx / max|B| "
+            f"{[f'{d:.3e}' for d in divs]}; no kernel launched; {nops} "
+            f"PyTorch operators dispatched per cycle (count_dispatch), "
+            f"{ms / nops:.4f} ms per operator{glue_txt}")
+        del s, levels
+        if with_cli:
+            reset_counts()
+            args = ["-i", deck, "--dtype", "float32", "time/nlim=1", *cmd]
+            if problem is not None:
+                args[2:2] = ["--problem", problem]
+            rc = cli.main(args)
+            if rc != 0:
+                raise AssertionError(f"{label} CLI returned {rc}")
+            check_no_kernel(f"phase 4 {label} CLI cycle", read_counts())
+            say(f"phase 4 {label} {size} float32: 1 CLI cycle done")
+        torch.cuda.empty_cache()
+    return counts
+
+
 def batch_vs_k1(ncycles=3):
     """The batch path (batch_iters=BATCH_K) against the K=1 path on the
     isph64 deck (64^3 float64), ncycles cycles from the state after one K=1
@@ -4814,6 +5339,8 @@ def main():
     lap("phase 3 MHD goldens")
     phase3_vl()
     lap("phase 3 VL")
+    phase3_smr_mhd()
+    lap("phase 3 SMR MHD, 2D SMR and the CTU problems")
     smr, _ = phase4_smr()
     counts, _ = phase4()
     counts["smr"] = smr
@@ -4834,6 +5361,8 @@ def main():
     lap("phase 4 MHD")
     vl = phase4_vl()
     lap("phase 4 VL")
+    smr_mhd = phase4_smr_mhd()
+    lap("phase 4 SMR MHD and the CTU problems")
     phase5()
     lap("phase 5")
 
@@ -4882,6 +5411,9 @@ def main():
         k["mhd_launches"] = {p: c[name] for p, c in mhd.items()}
         # the VL runs of phase 4 (VL_FULL): B4 and B11 on 3D hydro only
         k["vl_launches"] = {p: c[name] for p, c in vl.items()}
+        # the MHD SMR and CTU problem runs of phase 4 (SMR_MHD_FULL), which
+        # launch no kernel
+        k["smr_mhd_launches"] = {p: c[name] for p, c in smr_mhd.items()}
         kernels.append(k)
     say(f"chip_smoke: all phases in {time.perf_counter() - t_all:.1f} s")
     say(smi_line())

@@ -1,9 +1,12 @@
 """The port stands alone: it imports, builds the ioniz_sphere deck and an
 SMR deck (hierarchy.py, smr.py) and takes a step of each, writes every
 output format, a checkpoint it restarts from and reads them back (io/,
-vis/), and takes an MHD step on a 3D, a 2D and a 1D grid (ctu3d_mhd,
-ctu2d_mhd, ctu1d; the MHD models, eigen_mhd_roe, utils/fields) with JAX
-made unimportable, and it refuses a CUDA device when none is visible."""
+vis/), takes an MHD step on a 3D, a 2D and a 1D grid (ctu3d_mhd,
+ctu2d_mhd, ctu1d; the MHD models, eigen_mhd_roe, utils/fields), VL steps,
+an MHD SMR cycle on the 3D and the 2D field loop decks (smr_fld.py), a 2D
+hydro SMR cycle, and a kh (utils/threefry.py) and a shkset2d step with JAX
+made unimportable (chip_smoke.py imported too), and it refuses a CUDA
+device when none is visible."""
 
 import os
 import subprocess
@@ -101,6 +104,38 @@ for deck, problem, cmd, kw in (
     assert q.integ is (vl3d if q.grid.ndim == 3 else vl_lowd)
     q.step()
     assert bool(torch.isfinite(q.state.U).all()) and float(q.state.dt) > 0
+import chip_smoke
+from atmospheric_athena_tpu_torch import smr_fld
+from atmospheric_athena_tpu_torch.utils import threefry
+for deck, cmd in (
+        ("athinput.fl2lev", ["domain1/Nx1=16", "domain1/Nx2=8",
+                             "domain1/Nx3=8", "domain2/Nx1=16",
+                             "domain2/Nx2=8", "domain2/Nx3=8",
+                             "domain2/iDisp=8", "domain2/jDisp=4",
+                             "domain2/kDisp=4"]),
+        ("athinput.fl2d2lev", [])):
+    m = P.Simulation.from_file(os.path.join(gold, deck),
+                               cmdline=cmd + ["job/maxout=0"], device="cpu")
+    assert isinstance(m, hierarchy.MeshSimulation) and m.sim.mhd
+    m.step()
+    for l in m.levels:
+        div = fields.compute_div_b(l.state.B1i, l.state.B2i, l.state.B3i,
+                                   l.grid)
+        assert float(div.abs().max()) < 1e-12
+for text, problem, cmd in ((chip_smoke.KH_DECK, "kh", []),
+                           (chip_smoke.BLAST2D_SMR_DECK, "blast", [])):
+    par = P.ParameterDB.from_string(text)
+    par.apply_cmdline(cmd + ["job/maxout=0"])
+    q = P.Simulation.from_par(par, problem=problem, device="cpu")
+    q.step()
+    assert bool(torch.isfinite(q.state.U).all())
+q = P.Simulation.from_file(os.path.join(gold, "athinput.rj2a"),
+                           problem="shkset2d",
+                           cmdline=["domain1/Nx1=40", "domain1/Nx2=20",
+                                    "job/maxout=0"],
+                           device="cpu", **chip_smoke.CTU_MHD)
+q.step()
+assert bool(torch.isfinite(q.state.Bcc).all())
 bad = sorted(m for m in set(sys.modules) - pre
              if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                     "atmospheric_athena_tpu")

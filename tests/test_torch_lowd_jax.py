@@ -240,13 +240,40 @@ def test_kernels_refuse_an_inactive_axis():
 
 
 def test_lowd_refusals():
-    text = chip_smoke.BLAST2D_DECK.replace(
-        "<job>\n", "<job>\nnum_domains = 2\n") + (
-        "<domain2>\nlevel = 1\nNx1 = 32\nNx2 = 32\nNx3 = 1\n"
-        "iDisp = 32\njDisp = 48\nkDisp = 0\n")
-    with pytest.raises(NotImplementedError, match="A13"):
-        Simulation.from_par(ParameterDB.from_string(text), dtype="float64",
+    """The 2D SMR deck (chip_smoke.BLAST2D_SMR_DECK: blast2d's 64 x 96 root
+    and a 32 x 32 child over its middle), once refused here (ROADMAP A13),
+    runs: 3 cycles against the JAX MeshSimulation run op by op, each cycle
+    from the JAX state, every level's interior to 1e-12 of each field's
+    max, time and dt to rel 1e-12, no kernel wrapper called.  The
+    cylindrical 1D deck stays refused (A15)."""
+    text = chip_smoke.BLAST2D_SMR_DECK
+    a = J.Simulation.from_par(J.ParameterDB.from_string(text))
+    b = Simulation.from_par(ParameterDB.from_string(text), dtype="float64",
                             device="cpu")
+    assert type(a).__name__ == type(b).__name__ == "MeshSimulation"
+    assert [lv.grid.ndim for lv in b.levels] == [2, 2]
+    for la, lb in zip(a.levels, b.levels):
+        close_interior(lb.state.U, la.state.U, la.grid)
+    with pytest.MonkeyPatch.context() as mp:
+        for mod, names in ((hydro_kernels, ("sweep_lrflux", "flux_pointwise",
+                                            "sweep_lrflux_df")),
+                           (util_kernels, ("max_dti_hydro",)),
+                           (tbvals, ("bc_fill",))):
+            for n in names:
+                mp.setattr(mod, n, raising(n))
+        for cyc in range(3):
+            if cyc:
+                for la, lb in zip(a.levels, b.levels):
+                    lb.state = tstate.from_numpy(tstate.to_numpy(la.state),
+                                                 device="cpu")
+            with jax.disable_jit():
+                a.step()
+            b.step()
+            for k in ("time", "dt"):
+                assert float(getattr(b.state, k)) == pytest.approx(
+                    float(getattr(a.state, k)), rel=1e-12), (cyc, k)
+            for la, lb in zip(a.levels, b.levels):
+                close_interior(lb.state.U, la.state.U, la.grid)
     cyl = chip_smoke.SOD_DECK.replace("--with-flux=roe",
                                       "--with-flux=roe --with-coord="
                                       "cylindrical")

@@ -159,6 +159,49 @@ def test_ct_step_matches_jax(ndim, eos, flux, hcorr, ns):
         assert torch.isfinite(getattr(tst, k)).all(), k
 
 
+@pytest.mark.parametrize("ndim", [3, 2], ids=["3d", "2d"])
+def test_ct_step_return_fluxes(ndim):
+    """ctu3d_mhd / ctu2d_mhd with return_fluxes (an SMR level's step)
+    against the JAX steps with return_fluxes, op by op, on the seeded state
+    of test_ct_step_matches_jax[{3d,2d}-adi-roe-h-ns0]: the state, the
+    step-9 hydro fluxes of each axis, the transverse-B fluxes (By, Bz in
+    sweep order) and the corner EMFs (a 2D step has E3 alone) at 1e-12 of
+    each array's max, and the state equal to the step without
+    return_fluxes."""
+    from atmospheric_athena_tpu_torch.integrators import ctu2d_mhd, ctu3d_mhd
+    (tst, tsim, tgrid), (jst, jsim, jgrid) = seeded(ndim, "adiabatic", "roe",
+                                                    True, 0)
+    tstep = {3: ctu3d_mhd.step, 2: ctu2d_mhd.step}[ndim]
+    dt_ = 0.002
+    td = torch.tensor(dt_, dtype=torch.float64)
+    out, (F, FB, E) = tstep(tst, td, tsim, tgrid, return_fluxes=True)
+    jout, (jF, jFB, jE) = JSTEP[ndim](jst, jnp.asarray(dt_), jsim, jgrid,
+                                      return_fluxes=True)
+    plain = tstep(tst, td, tsim, tgrid)
+    for k in FIELDS:
+        assert torch.equal(getattr(out, k), getattr(plain, k)), k
+    compare(out, jout, tgrid)
+
+    def close(got, ref):
+        ref = np.asarray(ref)
+        assert got.shape == ref.shape
+        err = np.abs(got.numpy() - ref).max()
+        assert err <= 1e-12 * np.abs(ref).max()
+    axes = list(range(ndim))
+    assert sorted(F) == sorted(jF) == sorted(FB) == axes
+    for a in axes:
+        for n in range(F[a].shape[0]):
+            close(F[a][n], jF[a][n])
+        for c in (0, 1):
+            close(FB[a][c], jFB[a][c])
+    assert len(E) == 3
+    for c in range(3):
+        if ndim == 2 and c < 2:
+            assert E[c] is None and jE[c] is None
+        else:
+            close(E[c], jE[c])
+
+
 def test_kernels_refuse_mhd():
     """No hand-written kernel takes an MHD state, as no JAX kernel does:
     the hydro kernels' refusal, the CFL reduction's wrapper, and ctu3d's
@@ -178,7 +221,8 @@ def test_kernels_refuse_mhd():
 
 MHD_REFUSALS = {
     "vl": ("athinput.b3n1", dict(integrator="vl"), None),
-    "smr": ("athinput.blast3lev", dict(gas="mhd"), "A13: smr_fld"),
+    "smr": ("athinput.isph2lev", dict(gas="mhd", problem="ioniz_sphere"),
+            "plane radiation on MHD gas"),
     "radiation": ("athinput.isph64", dict(gas="mhd", problem="ioniz_sphere"),
                   "plane radiation on MHD gas"),
     "cylindrical": ("athinput.b3n1", dict(_coord=True), "cylindrical"),
@@ -190,10 +234,18 @@ MHD_REFUSALS = {
 @pytest.mark.parametrize("case", sorted(MHD_REFUSALS))
 def test_mhd_refusals_name_their_item(case):
     """MHD configurations outside this slice raise a NotImplementedError
-    naming their ROADMAP item: SMR (A13), plane radiation, cylindrical
-    coordinates and SR (A15).  VL, once refused here (A11 step 5), runs:
-    one vl3d step of the b3n1 deck (its H-correction unused by VL in both
-    packages) against the JAX package's, U within 1e-12 of its max.  The
+    naming their ROADMAP item: plane radiation, on one grid and on an SMR
+    hierarchy, cylindrical coordinates and SR (A15).  MHD SMR, once
+    refused here (A13), runs: the "smr" case refuses the SMR deck with
+    plane radiation (isph2lev as MHD), which stays refused as in the JAX
+    driver (hierarchy.py:252-254), then runs blast3lev as MHD (three 32^3
+    levels, Roe, the H-correction, b0 = 1 at 45 degrees) one cycle: every
+    level finite and its face fields' max |div B| below 1e-12 of max |B| /
+    dx (the JAX package and the goldens hold MHD SMR in
+    tests/test_torch_smr_mhd.py and test_torch_smr_fld_prolong.py).  VL,
+    once refused here (A11 step 5), runs: one vl3d step of the b3n1 deck
+    (its H-correction unused by VL in both packages) against the JAX
+    package's, U within 1e-12 of its max.  The
     magnetic arrays are held as the JAX tests hold b3n1 to its golden
     (tests/test_mhd3d.py): this symmetric blast's corner EMFs are upwinded
     on mass fluxes that vanish by symmetry, so a one-ulp difference of a
@@ -231,6 +283,21 @@ def test_mhd_refusals_name_their_item(case):
     with pytest.raises(NotImplementedError, match=item) as err:
         Simulation.from_par(par, device="cpu", **kw)
     assert "ROADMAP A1" in str(err.value)
+    if case == "smr":
+        from atmospheric_athena_tpu_torch.hierarchy import MeshSimulation
+        s = Simulation.from_file(f"{GOLD}/athinput.blast3lev", problem="blast",
+                                 cmdline=["problem/b0=1.0",
+                                          "problem/angle=45.0"],
+                                 device="cpu", gas="mhd")
+        assert isinstance(s, MeshSimulation) and len(s.levels) == 3
+        s.step()
+        for lv in s.levels:
+            st = lv.state
+            for k in FIELDS:
+                assert torch.isfinite(getattr(st, k)).all(), k
+            div = compute_div_b(st.B1i, st.B2i, st.B3i, lv.grid)
+            bmax = float(st.Bcc.abs().max())
+            assert float(div.abs().max()) < 1e-12 * bmax / lv.grid.dx[0]
 
 
 FIELD_LOOP = """

@@ -171,11 +171,25 @@ def test_prolong_ghosts_matches_jax(geom, with_sim):
 
 
 def test_prolong_ghosts_refuses_mhd_and_sr(geom):
+    """MHD, once refused here (ROADMAP A13), prolongs the gas pressure
+    P = E - ke - me with the parent's Bcc beside it (smr.c:3206-3240): held
+    to the JAX function on a random parent Bcc to 1e-14 of each field's
+    max, the child's actives kept; an MHD state without the parent's Bcc
+    raises.  Special relativity stays refused (A15)."""
     g = geom
     args = (t(g["Up"]), t(g["Uf"]), g["pg"], g["cg"], g["link"])
-    with pytest.raises(NotImplementedError, match="A13: MHD SMR"):
-        smr.prolong_ghosts(*args, sim=SimConfig(nscalars=1),
-                           Bccc=torch.zeros(3, 1, 1, 1))
+    Bcc = np.random.default_rng(5).normal(size=(3,) + g["pg"].padded_shape())
+    got = smr.prolong_ghosts(*args, sim=SimConfig(gas="mhd", nscalars=1),
+                             Bccc=t(Bcc))
+    ref = jsmr.prolong_ghosts(jnp.asarray(g["Up"]), jnp.asarray(g["Uf"]),
+                              g["jpg"], g["jcg"], g["jlink"],
+                              sim=JSim(gas="mhd", nscalars=1),
+                              Bccc=jnp.asarray(Bcc))
+    close(got, ref, 1e-14)
+    sl = (slice(None),) + g["cg"].interior()
+    assert torch.equal(got[sl], t(g["Uf"])[sl])
+    with pytest.raises(ValueError, match="Bccc"):
+        smr.prolong_ghosts(*args, sim=SimConfig(gas="mhd", nscalars=1))
     with pytest.raises(NotImplementedError, match="A15"):
         smr.prolong_ghosts(*args, sim=SimConfig(special_relativity=True))
 
