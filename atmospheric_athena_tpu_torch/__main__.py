@@ -10,9 +10,11 @@
   --problem <name>   problem generator (default: from the deck's configure
                      line)
   --dtype float32|float64
-  --flux roe|hlle|hllc|hlld  Riemann solver (default: from the deck's
-                     configure line, else roe); the testsedov deck's golden
-                     is HLLC; hllc is hydro only, hlld adiabatic MHD only
+  --flux roe|hlle|hllc|hlld|force|exact|two_shock  Riemann solver
+                     (default: from the deck's configure line, else roe);
+                     the testsedov deck's golden is HLLC; hllc and exact
+                     are hydro only, hlld adiabatic MHD only, two_shock
+                     isothermal hydro without scalars
   --device cuda|cpu  default cuda; refuses to run when no GPU is visible
                      unless cpu is given explicitly
   block/name=value   parameter overrides (par_cmdline)
@@ -55,8 +57,9 @@ def parse_args(argv):
                     help="wall-time limit hh:mm:ss")
     ap.add_argument("--problem", default=None)
     ap.add_argument("--dtype", default=None, choices=("float32", "float64"))
-    ap.add_argument("--flux", default=None, choices=("roe", "hlle", "hllc",
-                                                    "hlld"))
+    ap.add_argument("--flux", default=None,
+                    choices=("roe", "hlle", "hllc", "hlld", "force", "exact",
+                             "two_shock", "two-shock"))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("overrides", nargs="*", help="block/name=value")
     # overrides may stand before and after the flags

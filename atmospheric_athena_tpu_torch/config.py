@@ -181,6 +181,22 @@ class GridConfig:
     def cylindrical(self) -> bool:
         return self.coord == "cylindrical"
 
+    # -- cylindrical-coordinate helpers (src/cc_pos.c:36-65) ----------------
+
+    def r_coords(self):
+        """Cell-centre radii r over the padded x1 axis (pG->r)."""
+        return self.cc_coords(0)
+
+    def ri_coords(self):
+        """Left-face radii ri over the padded x1 axis + 1 (pG->ri)."""
+        return self.fc_coords(0)
+
+    def x1vc_coords(self):
+        """Volume-centred radius x1vc(i) = x1cc + dx1^2/(12 x1cc)
+        (src/cc_pos.c:61-65)."""
+        cc = self.cc_coords(0)
+        return cc + self.dx[0] ** 2 / (12.0 * cc)
+
 
 def sim_config_from_par(par: ParameterDB, **overrides) -> SimConfig:
     """Build SimConfig from an athinput deck (<problem> gamma / iso_csound,

@@ -11,6 +11,7 @@ the driver.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .config import GridConfig, SimConfig
@@ -20,60 +21,79 @@ from .ops import util_kernels
 from .state import State
 
 
-def max_dti_mhd(state: State, sim: SimConfig, grid: GridConfig):
-    """The MHD CFL reduction (JAX dt.max_dti's MHD branch, new_dt.c:74-134)
-    as plain PyTorch on the state's device (0-d): no kernel takes MHD, as
-    no Pallas kernel does (pallas_util.supported)."""
+def max_dti_plain(state: State, sim: SimConfig, grid: GridConfig):
+    """The CFL reduction of JAX dt.max_dti's jnp branch (new_dt.c:74-134)
+    as plain PyTorch on the state's device (0-d), for MHD on any grid and
+    for every cylindrical grid: no kernel takes these, as no Pallas kernel
+    does (pallas_util.supported; JAX dt.py takes its kernel on Cartesian
+    grids only).  On a cylindrical grid the phi signal speed is over the
+    arc length r dphi (new_dt.c:129-131)."""
     sl = grid.interior()
     U = state.U[(slice(None),) + sl]
     di = 1.0 / U[ID]
     v = [U[IM1 + a] * di for a in range(3)]
     qsq = v[0] ** 2 + v[1] ** 2 + v[2] ** 2
-    b = []
-    for a, Bi in enumerate((state.B1i, state.B2i, state.B3i)):
-        Bc = state.Bcc[a][sl]
-        b.append(Bc + torch.abs(Bi[sl] - Bc))
-    bsq = b[0] ** 2 + b[1] ** 2 + b[2] ** 2
-    if sim.adiabatic:
-        p = torch.clamp_min(sim.gamma_1 * (U[IEN] - 0.5 * U[ID] * qsq
-                                           - 0.5 * bsq), TINY_NUMBER)
-        asq = sim.gamma * p * di
+    if sim.mhd:
+        b = []
+        for a, Bi in enumerate((state.B1i, state.B2i, state.B3i)):
+            Bc = state.Bcc[a][sl]
+            b.append(Bc + torch.abs(Bi[sl] - Bc))
+        bsq = b[0] ** 2 + b[1] ** 2 + b[2] ** 2
+        if sim.adiabatic:
+            p = torch.clamp_min(sim.gamma_1 * (U[IEN] - 0.5 * U[ID] * qsq
+                                               - 0.5 * bsq), TINY_NUMBER)
+            asq = sim.gamma * p * di
+        else:
+            asq = sim.iso_csound2
+        tsum = bsq * di + asq
+        tdif = bsq * di - asq
     else:
-        asq = sim.iso_csound2
-    tsum = bsq * di + asq
-    tdif = bsq * di - asq
+        if sim.adiabatic:
+            p = torch.clamp_min(sim.gamma_1 * (U[IEN] - 0.5 * U[ID] * qsq),
+                                TINY_NUMBER)
+            asq = sim.gamma * p * di
+        else:
+            asq = sim.iso_csound2 * torch.ones_like(di)
     dti = torch.zeros((), dtype=U.dtype, device=U.device)
     for a in range(3):
         if grid.Nx[a] > 1:
-            cfsq = 0.5 * (tsum + torch.sqrt(
-                tdif * tdif + 4.0 * asq *
-                (b[(a + 1) % 3] ** 2 + b[(a + 2) % 3] ** 2) * di))
-            max_v = torch.amax(torch.abs(v[a]) + torch.sqrt(cfsq))
-            dti = torch.maximum(dti, exact_div(max_v, grid.dx[a]))
+            if sim.mhd:
+                cfsq = 0.5 * (tsum + torch.sqrt(
+                    tdif * tdif + 4.0 * asq *
+                    (b[(a + 1) % 3] ** 2 + b[(a + 2) % 3] ** 2) * di))
+            else:
+                cfsq = asq
+            sig = torch.abs(v[a]) + torch.sqrt(cfsq)
+            if a == 1 and grid.cylindrical:
+                r = np.asarray(grid.r_coords(), np.dtype(sim.dtype))
+                sig = sig / torch.as_tensor(
+                    r[grid.lo(0):grid.hi(0) + 1]).to(U.device)
+            dti = torch.maximum(dti, exact_div(torch.amax(sig), grid.dx[a]))
     return dti
 
 
 def max_dti(state: State, sim: SimConfig, grid: GridConfig):
     """Maximum inverse timestep over this grid's active cells (0-d): for
-    hydro the reduction kernel's wrapper on a 3D grid, the plain version
-    on a 2D or 1D one on either device (the JAX package's kernel takes
-    three active axes, pallas_util.supported, and its dt.py runs jnp
-    otherwise); for MHD max_dti_mhd on any grid."""
-    if sim.special_relativity or grid.cylindrical:
-        raise NotImplementedError(
-            "CFL for SR or cylindrical grids (ROADMAP A15)")
-    if sim.mhd:
-        return max_dti_mhd(state, sim, grid)
+    Cartesian hydro the reduction kernel's wrapper on a 3D grid, the plain
+    version on a 2D or 1D one on either device (the JAX package's kernel
+    takes three active axes, pallas_util.supported, and its dt.py runs jnp
+    otherwise); for MHD and cylindrical grids max_dti_plain on any grid."""
+    if sim.special_relativity:
+        raise NotImplementedError("CFL for SR (ROADMAP A15)")
+    if sim.mhd or grid.cylindrical:
+        return max_dti_plain(state, sim, grid)
     if grid.ndim < 3:
         return util_kernels.max_dti_hydro_plain(state.U, sim, grid)
     return util_kernels.max_dti_hydro(state.U, sim, grid)
 
 
 def new_dt(state: State, sim: SimConfig, grid: GridConfig, cour_no: float):
-    """New dt with the 2× growth clamp (new_dt.c:167-171).  For MHD the
-    division is one IEEE division (exact_div), as in the JAX package; the
-    hydro path keeps its form (the reciprocal times cour_no)."""
+    """New dt with the 2× growth clamp (new_dt.c:167-171).  For MHD and
+    cylindrical grids the division is one IEEE division (exact_div), as in
+    the JAX package; the Cartesian hydro path keeps its form (the
+    reciprocal times cour_no)."""
     dti = max_dti(state, sim, grid)
-    dt = exact_div(cour_no, dti) if sim.mhd else cour_no / dti
+    dt = (exact_div(cour_no, dti) if sim.mhd or grid.cylindrical
+          else cour_no / dti)
     return torch.where(state.nstep == 0, dt,
                        torch.minimum(2.0 * state.dt, dt))

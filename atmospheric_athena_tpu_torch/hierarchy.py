@@ -1,8 +1,8 @@
 """Static-mesh-refinement driver: the MeshS->DomainS hierarchy (reference:
 src/main.c main loop with SMR, src/init_mesh.c <domainN> parsing), as in
 ``atmospheric_athena_tpu/hierarchy.py``: 3D adiabatic hydro with or without
-plane radiation, 2D adiabatic hydro, and adiabatic MHD with constrained
-transport on 3D and 2D grids.
+plane radiation, adiabatic or isothermal hydro on 3D, 2D and 1D grids, and
+adiabatic or isothermal MHD with constrained transport on 3D and 2D grids.
 
 A MeshSimulation holds one level state per <domainN> block (refinement
 ratio 2; the parent of each domain found by containment, so a level may
@@ -24,9 +24,10 @@ hold several domains).  Each cycle runs the reference's SMR order
 The JAX package's phased mode (per-level jits that bound a TPU's memory
 and its watchdog) has no counterpart: PyTorch runs eagerly, level by
 level.  Outputs (make_outputs) write one set per level, level li > 0
-under lev{li}/ with a -lev{li} problem id, as ath_fname does.  1D grids,
-isothermal gas, the VL integrator (the JAX driver's is CTU) and a restart
-of the hierarchy raise, naming their ROADMAP items.
+under lev{li}/ with a -lev{li} problem id, as ath_fname does.  The VL
+integrator (the JAX driver's is CTU), MHD on 1D grids and cylindrical
+grids (C29) and a restart of the hierarchy (C17) raise, naming their
+items.
 """
 
 from __future__ import annotations
@@ -124,28 +125,32 @@ def grids_from_par(par: ParameterDB):
 
 
 def check_supported(sim: SimConfig, root: GridConfig):
-    """Refuse what the SMR driver does not run, naming the ROADMAP item:
-    1D grids, isothermal gas and the VL integrator (the JAX driver steps
-    its levels with CTU alone, hierarchy.py:247).  Plane radiation on MHD
-    gas is refused before this (simulation.check_supported), as the JAX
-    driver refuses it (hierarchy.py:252-254)."""
-    if root.ndim < 2:
-        raise NotImplementedError(
-            f"SMR on {root.ndim}D grids (ROADMAP A13)")
-    if not sim.adiabatic:
-        raise NotImplementedError(
-            "isothermal SMR (ROADMAP A13: prolong_ghosts slopes the "
-            "pressure of adiabatic gas; no isothermal SMR deck is held to "
-            "the JAX package yet)")
+    """Refuse what the SMR driver does not run, naming the ROADMAP or C
+    item: the VL integrator (the JAX driver steps its levels with CTU
+    alone, hierarchy.py:251-252), MHD on 1D grids and cylindrical grids
+    (the JAX driver steps a 1D MHD level with ctu2d_mhd, which fails, and
+    a cylindrical one with the Cartesian ctu3d, ROADMAP C29).  Plane
+    radiation on MHD gas and on isothermal gas is refused before this
+    (simulation.check_supported), as the JAX driver refuses the first
+    (hierarchy.py:255-256) and C14 says of the second."""
     if sim.integrator != "ctu":
         raise NotImplementedError(
             f"SMR with the {sim.integrator} integrator (ROADMAP A13: the "
             "SMR driver uses the CTU integrator, as the JAX package's)")
+    if sim.mhd and root.ndim == 1:
+        raise NotImplementedError(
+            "MHD SMR on 1D grids (ROADMAP C29: the JAX SMR driver steps a "
+            "1D MHD level with ctu2d_mhd and fails)")
+    if root.cylindrical:
+        raise NotImplementedError(
+            "SMR on a cylindrical grid (ROADMAP C29: the JAX SMR driver "
+            "steps its levels with the Cartesian ctu3d)")
 
 
 def level_integrator(grid: GridConfig, sim: SimConfig):
-    """The step module of a level (JAX hierarchy.py:254-263): ctu3d_mhd or
-    ctu2d_mhd for MHD, ctu3d for hydro (2D and 3D)."""
+    """The step module of a level (JAX hierarchy.py:259-263): ctu3d_mhd or
+    ctu2d_mhd for MHD, ctu3d for hydro on 3D, 2D and 1D grids (a 1D level
+    steps through ctu3d over its one active axis, as in JAX, not ctu1d)."""
     if not sim.mhd:
         return ctu3d
     return ctu3d_mhd if grid.ndim == 3 else ctu2d_mhd

@@ -29,7 +29,10 @@ from .sweep import bx_sweep, from_sweep_flux, sh, to_sweep
 
 def check_supported(sim: SimConfig, grid: GridConfig):
     if grid.cylindrical:
-        raise NotImplementedError("cylindrical 1D CTU (ROADMAP A15)")
+        raise NotImplementedError(
+            "ctu1d on a cylindrical grid: cylindrical grids take "
+            "integrators/cyl.py (ROADMAP A15 item 1)")
+    riemann.check_solver(sim)
     if sim.integrator != "ctu":
         raise ValueError(f"ctu1d is the CTU integrator; {sim.integrator} "
                          "takes integrators/vl_lowd.py")

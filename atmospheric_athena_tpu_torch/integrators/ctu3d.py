@@ -1,6 +1,7 @@
-"""2D and 3D CTU integrator, adiabatic or isothermal hydrodynamics with
+"""2D and 3D CTU integrator (and 1D, for the levels of an SMR mesh, as
+JAX's SMR driver steps them), adiabatic or isothermal hydrodynamics with
 static gravity, with or without the H-correction, reconstruction orders 1,
-2, 3, 2p and 3p, Roe, HLLE or HLLC fluxes
+2, 3, 2p and 3p, any hydro Riemann solver
 (``atmospheric_athena_tpu/integrators/ctu3d.py``; reference
 integrate_3d_ctu.c and integrate_2d_ctu.c).
 
@@ -12,11 +13,12 @@ The 12-step ordering is the correctness contract and is kept:
   steps 11-12 full-dt gravity source and the conservative update, spliced
               into the interior.
 
-A 2D grid (one axis with a single cell) takes the plain functions on
-either device, over its two active axes (``_step_whole_flux`` with
-``plain``): the JAX package runs its Pallas kernels only with three active
-axes (ctu3d.py:152-153) and its jnp functions otherwise, so a 2D step
-launches no kernel, on the TPU as here.  A 3D grid takes one of two paths,
+A 2D or 1D grid takes the plain functions on either device, over its
+active axes (``_step_whole_flux`` with ``plain``): the JAX package runs
+its Pallas kernels only with three active axes (ctu3d.py:152-153) and its
+jnp functions otherwise, so such a step launches no kernel, on the TPU as
+here.  So does a 3D grid with a solver the kernels do not take (exact,
+two_shock, force: pallas_hydro.supported takes Roe, HLLE and HLLC).  A 3D grid takes one of two paths,
 chosen as the JAX package chooses them
 (``ops.ctu_mid_kernels.supported``: ATHENA_TPU_PALLAS_MID, on by default):
 
@@ -55,7 +57,7 @@ import torch
 
 from ..config import GridConfig, SimConfig
 from ..ops import ctu_mid_kernels as mid
-from ..ops import hydro_kernels
+from ..ops import hydro_kernels, riemann
 from ..state import State
 
 
@@ -92,26 +94,38 @@ def _phi_arrays(problem, grid: GridConfig, dtype, device):
 
 
 def check_supported(sim: SimConfig, grid: GridConfig):
+    """Refuse what this module does not step: MHD (ctu3d_mhd, ctu2d_mhd),
+    SR, the VL integrator and cylindrical grids (integrators/cyl.py).  Any
+    hydro solver is taken: the kernels' (Roe, HLLE, HLLC) on a 3D grid's
+    kernel route, the others on the plain route, as JAX's jnp branch."""
     if sim.gas != "hydro":
         raise ValueError("ctu3d steps hydro; MHD takes ctu3d_mhd (3D) or "
                          "ctu2d_mhd (2D), as in the JAX package")
-    why = hydro_kernels.refusal(sim)
-    if why is not None:
-        raise NotImplementedError(f"CTU hydro: {why}")
-    if grid.ndim < 2:
-        raise ValueError(f"ctu3d steps 2D and 3D grids, not {grid.ndim}D "
-                         "(1D grids take integrators/ctu1d.py)")
+    if sim.special_relativity:
+        raise NotImplementedError("CTU hydro: special relativity (ROADMAP "
+                                  "A15)")
+    if sim.integrator != "ctu":
+        raise ValueError(f"ctu3d is the CTU integrator, not "
+                         f"{sim.integrator}")
+    if sim.flux == "hlld":
+        raise NotImplementedError(
+            "CTU hydro: the hlld solver is MHD only (hlld.c:40), and ctu3d "
+            "steps hydro only")
+    riemann.check_solver(sim)
     if grid.cylindrical:
-        raise NotImplementedError("cylindrical CTU (ROADMAP A15)")
+        raise NotImplementedError(
+            "ctu3d on a cylindrical grid: cylindrical grids take "
+            "integrators/cyl.py (ROADMAP A15 item 1)")
 
 
 def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
          phi=None, return_fluxes=False):
     """One CTU step over the active axes.  `dt` is a 0-d tensor (or float);
     `phi` = (phic, [phif_x, phif_y, phif_z]) from _phi_arrays, or None to
-    evaluate the problem's potential here.  A 2D grid takes the plain
-    functions (_step_whole_flux with plain=True) on either device; a 3D
-    grid takes the middle-phase path (_step_mid, or _step_mid_fluxes with
+    evaluate the problem's potential here.  A 2D or 1D grid, or a solver
+    the kernels do not take, takes the plain functions (_step_whole_flux
+    with plain=True) on either device; a 3D grid otherwise takes the
+    middle-phase path (_step_mid, or _step_mid_fluxes with
     `return_fluxes`) unless ATHENA_TPU_PALLAS_MID turns it off, and then
     _step_whole_flux with the sweep and step-9 kernels.  With
     `return_fluxes` it returns (state, Fp2), Fp2[a] the step-9 flux of
@@ -125,9 +139,10 @@ def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
     U = state.U
     phic, phif = phi if phi is not None else _phi_arrays(
         problem, grid, U.dtype, U.device)
-    if len(axes) < 3:
-        # 2D: the JAX package's jnp branch (ctu3d.py:226-452), as it runs
-        # on the TPU; no kernel launches, on the card either
+    if len(axes) < 3 or not hydro_kernels.supported(sim):
+        # 2D and 1D, or a solver the kernels do not take: the JAX package's
+        # jnp branch (ctu3d.py:226-452), as it runs on the TPU; no hydro
+        # kernel launches, on the card either
         Unew, Fp2 = _step_whole_flux(U, phic, phif, dtodx, q, sim, grid,
                                      axes, plain=True)
     elif mid.supported():

@@ -93,14 +93,8 @@ def check_supported(sim: SimConfig, grid: GridConfig, ndim: int = 3):
     if grid.cylindrical or sim.shearing_box:
         raise NotImplementedError(
             "cylindrical or shearing-box MHD (ROADMAP A15)")
-    if sim.flux not in ("roe", "hlle", "hlld"):
-        raise NotImplementedError(
-            f"MHD with flux={sim.flux}: roe, hlle and hlld are ported (hllc "
-            "is hydro only; exact, two_shock and force are ROADMAP A11 step "
-            "4)")
-    if sim.flux == "hlld" and not sim.adiabatic:
-        raise NotImplementedError(
-            "HLLD is adiabatic MHD only (hlld.c:40)")
+    # every solver riemann.fluxes takes for MHD: roe, hlle, hlld, force
+    riemann.check_solver(sim)
 
 
 def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,

@@ -76,13 +76,8 @@ def check_gas(sim: SimConfig, grid: GridConfig):
     if grid.cylindrical or sim.shearing_box:
         raise NotImplementedError(
             "cylindrical or shearing-box VL (ROADMAP A15)")
-    ok = ("roe", "hlle", "hlld") if sim.mhd else ("roe", "hlle", "hllc")
-    if sim.flux not in ok:
-        raise NotImplementedError(
-            f"VL {sim.gas} with flux={sim.flux}: {', '.join(ok)} are ported "
-            "(exact, two_shock and force are ROADMAP A11 step 4)")
-    if sim.flux == "hlld" and not sim.adiabatic:
-        raise NotImplementedError("HLLD is adiabatic MHD only (hlld.c:40)")
+    # every solver riemann.fluxes takes for the gas, as JAX's VL steps
+    riemann.check_solver(sim)
 
 
 def check_supported(sim: SimConfig, grid: GridConfig):

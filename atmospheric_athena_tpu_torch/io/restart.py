@@ -6,8 +6,9 @@ of the SimConfig, the GridConfig and the resolved parameter database.  A
 checkpoint of either package loads in the other:
 the JAX SimConfig's ``use_pallas`` has no counterpart here and is dropped;
 any other key this package does not know is refused.  Unlike the JAX
-loader, this one keeps GridConfig.coord, and it refuses a configuration
-the port does not run (a cylindrical grid, SR, ...) by name.  3D, 2D and
+loader, this one keeps GridConfig.coord (ROADMAP C30), so a cylindrical
+run restarts as one, and it refuses a configuration the port does not run
+(SR, ...) by name.  3D, 2D and
 1D states load alike: U is [nv, NZ, NY, NX] with inactive axes of size
 1.
 """

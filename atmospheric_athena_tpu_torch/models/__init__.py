@@ -17,14 +17,15 @@ def register(name):
 
 def get_problem(name: str):
     from . import (blast, carbuncle, cpaw, current_sheet,  # noqa: F401
-                   field_loop, ifront, ioniz_sphere, kh, linear_wave,
-                   lw_implode, noh, orszag_tang, pgflow, rotor, rt, shkset1d,
-                   shkset2d, shkset3d, shu_osher, testsedov, turb, twoibw)
+                   cylblast, cylwindrot, cylwindrotb, field_loop, ifront,
+                   ioniz_sphere, kh, linear_wave, lw_implode, noh,
+                   orszag_tang, pgflow, rotor, rt, shkset1d, shkset2d,
+                   shkset3d, shu_osher, testsedov, turb, twoibw)
     try:
         return _REGISTRY[name]
     except KeyError:
         raise NotImplementedError(
             f"problem {name!r} is not ported yet (ROADMAP A15: the "
-            "cylindrical, shearing-box, microphysics, self-gravity and "
-            f"particle problems); ported: {sorted(_REGISTRY)}"
+            "shearing-box, microphysics, self-gravity and particle "
+            f"problems); ported: {sorted(_REGISTRY)}"
         ) from None

@@ -3,8 +3,8 @@
 
 Uniform ambient medium with an over-pressured (and optionally over-dense)
 sphere of radius rin at the origin; MHD adds a uniform field b0 at `angle`
-in the x1-x2 plane (blast.c:40-92).  The special-relativistic energy
-(ROADMAP A15) is not ported.
+in the x1-x2 plane (blast.c:40-92).  Isothermal gas takes the density
+alone.  The special-relativistic energy (ROADMAP A15) is not ported.
 """
 
 from __future__ import annotations
@@ -24,9 +24,9 @@ from . import register
 @register("blast")
 class Blast:
     def __init__(self, par, sim: SimConfig, grid: GridConfig):
-        if sim.special_relativity or not sim.adiabatic:
-            raise NotImplementedError("[blast]: adiabatic Newtonian gas "
-                                      "only (ROADMAP A15)")
+        if sim.special_relativity:
+            raise NotImplementedError("[blast]: special relativity (ROADMAP "
+                                      "A15)")
         self.par = par
 
     def init(self, par, sim: SimConfig, grid: GridConfig, device):
@@ -52,7 +52,8 @@ class Blast:
         U[ID] = torch.where(inside, drat * da * one, da * one)
         P = torch.where(inside, prat * pa * one, pa * one)
         if not sim.mhd:
-            U[IEN] = P / sim.gamma_1
+            if sim.adiabatic:
+                U[IEN] = P / sim.gamma_1
             return st.replace(U=U)
         b0 = par.getd("problem", "b0")
         theta = math.pi / 180.0 * par.getd("problem", "angle")
@@ -61,6 +62,7 @@ class Blast:
         Bcc = st.Bcc.clone()
         Bcc[0] = Bx
         Bcc[1] = By
-        U[IEN] = exact_div(P, sim.gamma_1) + 0.5 * (Bx ** 2 + By ** 2)
+        if sim.adiabatic:
+            U[IEN] = exact_div(P, sim.gamma_1) + 0.5 * (Bx ** 2 + By ** 2)
         return st.replace(U=U, Bcc=Bcc, B1i=Bcc[0].clone(),
                           B2i=Bcc[1].clone(), B3i=Bcc[2].clone())

@@ -133,8 +133,12 @@ def transverse_correct_plain(Ulp, Urp, dFp, G, q, sim: SimConfig, a: int,
         cl = q[b] * _sh(dFp[b], -1, a)
         corr_r = cr if corr_r is None else corr_r + cr
         corr_l = cl if corr_l is None else corr_l + cl
-    Urc = Urp - corr_r
-    Ulc = Ulp - corr_l
+    if corr_r is None:
+        # one active axis (a 1D SMR level): no transverse term
+        Urc, Ulc = Urp, Ulp
+    else:
+        Urc = Urp - corr_r
+        Ulc = Ulp - corr_l
     if G is not None:
         # per b: M_b of both states, then E of both (adiabatic gas only)
         for b in axes:

@@ -111,7 +111,10 @@ def refusal(sim: SimConfig):
         return ("the hlld solver: MHD only, and the JAX kernels take hydro "
                 "only (pallas_hydro.supported)")
     if sim.flux not in FLUX_KIND:
-        return f"the {sim.flux} solver (ROADMAP A11 step 4)"
+        return (f"the {sim.flux} solver: the kernels take Roe, HLLE and "
+                "HLLC alone, as the JAX kernels do (pallas_hydro.supported); "
+                "ctu3d steps the others on its plain route, as JAX's jnp "
+                "branch")
     return None
 
 

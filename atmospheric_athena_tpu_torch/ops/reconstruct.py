@@ -37,11 +37,14 @@ def dc(W, Bx, dtodx, sim: SimConfig):
     return W, W
 
 
-def _char_slopes(W, Bx, sim: SimConfig, axis: int, characteristic=True):
+def _char_slopes(W, Bx, sim: SimConfig, axis: int, characteristic=True,
+                 geom=None):
     """Monotonized slopes dWm per cell plus the eigensystem — PLM steps 1-5
     (lr_states_plm.c:98-203), shared by PLM and PPM.  With
     characteristic=False the limiting acts on the primitive variables
-    (lr_states_prim2.c:104-131, orders 2p and 3p)."""
+    (lr_states_prim2.c:104-131, orders 2p and 3p).  `geom`: the
+    cylindrical R sweep's weights (lr_states_plm.c:123-141) from
+    integrators/cyl.plm_geom, or None on a Cartesian sweep."""
     nw = sim.nwave
     nv = nw + sim.nscalars
     assert W.shape[0] == nv, (W.shape, nv)
@@ -55,6 +58,12 @@ def _char_slopes(W, Bx, sim: SimConfig, axis: int, characteristic=True):
     dWc = [p - m for p, m in zip(Wp, Wm)]
     dWl = [c - m for c, m in zip(Wc, Wm)]
     dWr = [p - c for p, c in zip(Wp, Wc)]
+    if geom is not None:
+        # the conservative-slope weights on the raw differences, before the
+        # van Leer mean and the projection
+        dWc = [geom["zc"] * q for q in dWc]
+        dWl = [geom["zl"] * q for q in dWl]
+        dWr = [geom["zr"] * q for q in dWr]
     dWg = [torch.where(l * r > 0.0,
                        2.0 * l * r / torch.where(l + r == 0.0,
                                                  torch.ones_like(l), l + r),
@@ -81,52 +90,98 @@ def _char_slopes(W, Bx, sim: SimConfig, axis: int, characteristic=True):
     return Wc, Wp, Wm, dWmn, ev, rem, lem
 
 
-def plm(W, Bx, dtodx, sim: SimConfig, axis: int, characteristic=True):
+def plm(W, Bx, dtodx, sim: SimConfig, axis: int, characteristic=True,
+        geom=None):
     """Piecewise-linear reconstruction + CTU tracing (characteristic
     projection for order '2', primitive-variable limiting for '2p').
+    `dtodx` may be a per-cell tensor (the cylindrical phi sweep); `geom` is
+    the cylindrical R sweep's geometry (integrators/cyl.plm_geom) or None.
     Returns (Wminus, Wplus), same shape as W."""
     nv = sim.nwave + sim.nscalars
     Wc, Wp, Wm, dWmn, ev, rem, lem = _char_slopes(W, Bx, sim, axis,
-                                                  characteristic)
+                                                  characteristic, geom)
 
-    # Step 7: L/R values limited between neighbours (:214-236)
-    Wlv = [c - 0.5 * m for c, m in zip(Wc, dWmn)]
-    Wrv = [c + 0.5 * m for c, m in zip(Wc, dWmn)]
-    for n in range(nv):
-        C = Wrv[n] + Wlv[n]
-        lv = torch.maximum(torch.minimum(Wc[n], Wm[n]), Wlv[n])
-        lv = torch.minimum(torch.maximum(Wc[n], Wm[n]), lv)
-        rv = C - lv
-        rv = torch.maximum(torch.minimum(Wc[n], Wp[n]), rv)
-        rv = torch.minimum(torch.maximum(Wc[n], Wp[n]), rv)
-        lv = C - rv
-        Wlv[n], Wrv[n] = lv, rv
+    # Step 7: L/R values limited between neighbours (:214-236); the
+    # cylindrical R sweep uses the curvature asymmetry gcurv = dx/(6r) and
+    # keeps the mean C = Wrv + beta Wlv through the clamps
+    if geom is None:
+        Wlv = [c - 0.5 * m for c, m in zip(Wc, dWmn)]
+        Wrv = [c + 0.5 * m for c, m in zip(Wc, dWmn)]
+        for n in range(nv):
+            C = Wrv[n] + Wlv[n]
+            lv = torch.maximum(torch.minimum(Wc[n], Wm[n]), Wlv[n])
+            lv = torch.minimum(torch.maximum(Wc[n], Wm[n]), lv)
+            rv = C - lv
+            rv = torch.maximum(torch.minimum(Wc[n], Wp[n]), rv)
+            rv = torch.minimum(torch.maximum(Wc[n], Wp[n]), rv)
+            lv = C - rv
+            Wlv[n], Wrv[n] = lv, rv
+    else:
+        opg = 1.0 + geom["gcurv"]
+        omg = 1.0 - geom["gcurv"]
+        beta = omg / opg
+        betai = opg / omg
+        Wlv = [c - 0.5 * m * opg for c, m in zip(Wc, dWmn)]
+        Wrv = [c + 0.5 * m * omg for c, m in zip(Wc, dWmn)]
+        for n in range(nv):
+            C = Wrv[n] + beta * Wlv[n]
+            lv = torch.maximum(torch.minimum(Wc[n], Wm[n]), Wlv[n])
+            lv = torch.minimum(torch.maximum(Wc[n], Wm[n]), lv)
+            rv = C - beta * lv
+            rv = torch.maximum(torch.minimum(Wc[n], Wp[n]), rv)
+            rv = torch.minimum(torch.maximum(Wc[n], Wp[n]), rv)
+            lv = (C - rv) * betai
+            Wlv[n], Wrv[n] = lv, rv
 
     if sim.integrator != "ctu":
         # the VL integrator: the limited values, untraced (:250-255)
         return torch.stack(Wlv), torch.stack(Wrv)
     dW = [r - l for r, l in zip(Wrv, Wlv)]
     if sim.flux in HLL_FLUXES:
-        return _trace_hll(Wlv, Wrv, dW, ev, rem, lem, dtodx, sim.nwave)
-    return _trace_ctu(Wc, Wlv, Wrv, dW, ev, rem, lem, dtodx, sim.nwave, sim)
+        return _trace_hll(Wlv, Wrv, dW, ev, rem, lem, dtodx, sim.nwave,
+                          geom)
+    return _trace_ctu(Wc, Wlv, Wrv, dW, ev, rem, lem, dtodx, sim.nwave, sim,
+                      geom)
 
 
-def _trace_ctu(Wc, Wlv, Wrv, dW, ev, rem, lem, dtodx, nw, sim):
-    """CTU characteristic tracing, non-HLL branch (lr_states_plm.c:296-367)."""
+def _fpl(qx, geom):
+    """The plus side's cylindrical tracing factor (lr_states_plm.c:272-301):
+    qx (1 - dx qx / (3 (ri[i+1] - dx qx)))."""
+    if geom is None:
+        return qx
+    dx = geom["dx"]
+    return qx * (1.0 - dx * qx / (3.0 * (geom["rir"] - dx * qx)))
+
+
+def _fmr(qx, geom):
+    """The minus side's factor: qx (1 + dx qx / (3 (ri[i] + dx qx)))."""
+    if geom is None:
+        return qx
+    dx = geom["dx"]
+    return qx * (1.0 + dx * qx / (3.0 * (geom["ril"] + dx * qx)))
+
+
+def _trace_ctu(Wc, Wlv, Wrv, dW, ev, rem, lem, dtodx, nw, sim, geom=None):
+    """CTU characteristic tracing, non-HLL branch (lr_states_plm.c:296-367),
+    with the cylindrical factors per term when `geom` is given."""
     ev_max, ev_min = ev[nw - 1], ev[0]
     zero = torch.zeros_like(Wc[0])
 
     # Step 8: integrate over domain of dependence
-    qxp = 0.5 * torch.clamp_min(ev_max, 0.0) * dtodx
+    qxp = _fpl(0.5 * torch.clamp_min(ev_max, 0.0) * dtodx, geom)
     Wplus = [rv - qxp * d for rv, d in zip(Wrv, dW)]
-    qxm = -0.5 * torch.clamp_max(ev_min, 0.0) * dtodx
+    qxm = _fmr(-0.5 * torch.clamp_max(ev_min, 0.0) * dtodx, geom)
     Wminus = [lv + qxm * d for lv, d in zip(Wlv, dW)]
 
     # Step 9: subtract waves that do not reach the interface (:322-358)
     dWw = dW[:nw]
     for n in range(nw):
         rcol = eigen.column(rem, n)
-        qx = 0.5 * dtodx * (ev_max - ev[n])
+        if geom is None:
+            qx = 0.5 * dtodx * (ev_max - ev[n])
+        else:
+            qx = (_fpl(0.5 * dtodx * ev_max, geom)
+                  - _fpl(0.5 * dtodx * ev[n], geom))
         qa = eigen.lmul([lem[n]], [qx * d for d in dWw])[0]
         qa = torch.where(ev[n] >= 0.0, qa, zero)
         for m in range(nw):
@@ -135,7 +190,11 @@ def _trace_ctu(Wc, Wlv, Wrv, dW, ev, rem, lem, dtodx, nw, sim):
                 continue
             Wplus[m] = Wplus[m] + qa * c
 
-        qx = 0.5 * dtodx * (ev_min - ev[n])
+        if geom is None:
+            qx = 0.5 * dtodx * (ev_min - ev[n])
+        else:
+            qx = (-_fmr(-0.5 * dtodx * ev_min, geom)
+                  + _fmr(-0.5 * dtodx * ev[n], geom))
         qa = eigen.lmul([lem[n]], [qx * d for d in dWw])[0]
         qa = torch.where(ev[n] <= 0.0, qa, zero)
         for m in range(nw):
@@ -155,19 +214,27 @@ def _trace_ctu(Wc, Wlv, Wrv, dW, ev, rem, lem, dtodx, nw, sim):
     return torch.stack(Wminus), torch.stack(Wplus)
 
 
-def _trace_hll(Wlv, Wrv, dW, ev, rem, lem, dtodx, nw):
+def _trace_hll(Wlv, Wrv, dW, ev, rem, lem, dtodx, nw, geom=None):
     """CTU tracing for HLL-family fluxes (lr_states_plm.c:257-294): subtract
     each wave moving toward the interface.  Scalars keep their untraced
-    Wrv/Wlv, as in the JAX package (the reference leaves them unset)."""
+    Wrv/Wlv, as in the JAX package (the reference leaves them unset).  With
+    `geom`, the cylindrical factors; the minus side keeps the plus side's
+    form with ri[i] (qx < 0 there, lr_states_plm.c:286-290)."""
     Wplus = list(Wrv)
     Wminus = list(Wlv)
     dWw = dW[:nw]
     zero = torch.zeros_like(Wrv[0])
     for n in range(nw):
         qx = 0.5 * dtodx * ev[n]
-        qa = eigen.lmul([lem[n]], [qx * d for d in dWw])[0]
+        qa = eigen.lmul([lem[n]], [_fpl(qx, geom) * d for d in dWw])[0]
+        if geom is None:
+            qa_m = qa
+        else:
+            dx = geom["dx"]
+            qx_m = qx * (1.0 - dx * qx / (3.0 * (geom["ril"] - dx * qx)))
+            qa_m = eigen.lmul([lem[n]], [qx_m * d for d in dWw])[0]
         qa_p = torch.where(ev[n] > 0.0, qa, zero)
-        qa_m = torch.where(ev[n] < 0.0, qa, zero)
+        qa_m = torch.where(ev[n] < 0.0, qa_m, zero)
         rcol = eigen.column(rem, n)
         for m in range(nw):
             c = rcol[m]
@@ -305,19 +372,25 @@ def ppm(W, Bx, dtodx, sim: SimConfig, axis: int, characteristic=True):
     return torch.stack(Wminus), torch.stack(Wplus)
 
 
-def lr_states(W, Bx, dtodx, sim: SimConfig, axis: int = -1):
+def lr_states(W, Bx, dtodx, sim: SimConfig, axis: int = -1, geom=None):
     """Dispatch on sim.order (reconstruction/prototypes.h:40-46); `axis` is
     the sweep dimension within each field of W.  With the VL integrator
     (``sim.integrator != "ctu"``) PLM and PPM return the limited interface
-    values without tracing, as the JAX package's do."""
+    values without tracing, as the JAX package's do.  `geom`: the
+    cylindrical R sweep's geometry (integrators/cyl.plm_geom), which takes
+    orders 1, 2 and 2p, or None."""
+    if geom is not None and sim.order not in ("1", "2", "2p"):
+        raise NotImplementedError(
+            f"cylindrical reconstruction of order {sim.order}: PLM only "
+            "(lr_states_plm.c; ROADMAP A15 item 1, as the JAX package)")
     if sim.order == "1":
         return dc(W, Bx, dtodx, sim)
     if sim.order == "2":
-        return plm(W, Bx, dtodx, sim, axis)
+        return plm(W, Bx, dtodx, sim, axis, geom=geom)
     if sim.order == "3":
         return ppm(W, Bx, dtodx, sim, axis)
     if sim.order == "2p":
-        return plm(W, Bx, dtodx, sim, axis, characteristic=False)
+        return plm(W, Bx, dtodx, sim, axis, characteristic=False, geom=geom)
     if sim.order == "3p":
         return ppm(W, Bx, dtodx, sim, axis, characteristic=False)
     raise NotImplementedError(f"reconstruction order={sim.order}")

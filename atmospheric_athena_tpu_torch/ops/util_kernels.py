@@ -139,7 +139,7 @@ def max_dti_hydro(U, sim: SimConfig, grid: GridConfig):
         raise NotImplementedError(
             "max_dti_hydro: hydro only, as the JAX kernel it replaces "
             "(pallas_util.supported takes gas == 'hydro'); the MHD CFL is "
-            "dt.max_dti_mhd")
+            "dt.max_dti_plain")
     if U.device.type != "cuda":
         return max_dti_hydro_plain(U, sim, grid)
     if grid.ndim < 3:

@@ -46,7 +46,8 @@ from torch.profiler import record_function
 from . import bvals, dt as dt_mod
 from .config import (GridConfig, SimConfig, grid_config_from_par,
                      sim_config_from_par)
-from .integrators import ctu1d, ctu2d_mhd, ctu3d, ctu3d_mhd, vl3d, vl_lowd
+from .integrators import (ctu1d, ctu2d_mhd, ctu3d, ctu3d_mhd, cyl, vl3d,
+                          vl_lowd)
 from .models import get_problem
 from .par import ParameterDB
 from .state import State, from_numpy, resolve_device
@@ -96,7 +97,6 @@ def check_supported(par: ParameterDB, sim: SimConfig, grid: GridConfig):
         (sim.self_gravity, "self-gravity (ROADMAP A15)"),
         (sim.shearing_box or sim.fargo, "shearing box / FARGO (ROADMAP "
                                         "A15)"),
-        (grid.cylindrical, "cylindrical coordinates (ROADMAP A15)"),
         (sim.ion_radplane and not sim.adiabatic,
          "plane radiation on isothermal gas (ROADMAP C14: the JAX "
          "package's radiation takes the first scalar as the energy)"),
@@ -128,11 +128,14 @@ def configure(par: ParameterDB, problem: Optional[str], dtype: Optional[str],
     if problem is None:
         raise ValueError("no problem name given or found in deck")
     auto.update(sim_overrides)
+    coord = auto.pop("coord", coord)
     if dtype is not None:
         auto["dtype"] = dtype
     prob_cls = get_problem(problem)
     for k, v in getattr(prob_cls, "sim_overrides", {}).items():
         auto.setdefault(k, v)
+    # a problem may fix its coordinates (the cylindrical ones), as in JAX
+    coord = getattr(prob_cls, "coord", coord)
     sim = sim_config_from_par(par, **auto)
     grid = grid_config_from_par(par, coord=coord)
     check_supported(par, sim, grid)
@@ -141,10 +144,12 @@ def configure(par: ParameterDB, problem: Optional[str], dtype: Optional[str],
 
 
 def integrator(grid: GridConfig, sim: SimConfig):
-    """The integrator module of a grid and gas (JAX simulation.py:171-189):
-    for VL, vl3d on 3D grids and vl_lowd on 2D and 1D ones; for CTU, ctu1d
-    for 1D grids, ctu3d_mhd and ctu2d_mhd for 3D and 2D MHD, ctu3d
-    ("handles 2D and 3D") for hydro."""
+    """The integrator module of a grid and gas (JAX simulation.py:161-189):
+    cyl for every cylindrical grid; for VL, vl3d on 3D grids and vl_lowd on
+    2D and 1D ones; for CTU, ctu1d for 1D grids, ctu3d_mhd and ctu2d_mhd
+    for 3D and 2D MHD, ctu3d ("handles 2D and 3D") for hydro."""
+    if grid.cylindrical:
+        return cyl
     if sim.integrator == "vl":
         return vl3d if grid.ndim == 3 else vl_lowd
     if grid.ndim == 1:
@@ -178,10 +183,16 @@ class Simulation:
         self.integ = integrator(grid, sim)
         # the potential on the padded grid (2D, 3D, and 1D VL, which the
         # JAX vl_lowd evaluates in its traced step); ctu1d evaluates it on
-        # the x1 line itself (JAX simulation.py:219)
-        self.phi = (ctu3d._phi_arrays(problem, grid, state.U.dtype,
-                                      state.U.device)
-                    if grid.ndim > 1 or self.integ is vl_lowd else None)
+        # the x1 line itself (JAX simulation.py:219); cylindrical grids
+        # add the x1GravAcc field (JAX simulation.py:270-272)
+        if grid.cylindrical:
+            self.phi = cyl._phi_arrays(problem, grid, state.U.dtype,
+                                       state.U.device)
+        elif grid.ndim > 1 or self.integ is vl_lowd:
+            self.phi = ctu3d._phi_arrays(problem, grid, state.U.dtype,
+                                         state.U.device)
+        else:
+            self.phi = None
         self.uw_aux = (problem.userwork_aux(state.U.dtype, sim, grid,
                                             state.U.device)
                        if hasattr(problem, "userwork_aux") else None)

@@ -1,7 +1,9 @@
 """Static mesh refinement of the cell-centred state: restriction, flux
 correction, prolongation and the ionizing-radiation hand-off (reference:
 src/smr.c, src/init_grid.c overlap setup, src/ionradiation/ionrad_smr.c),
-as in ``atmospheric_athena_tpu/smr.py``, on 3D and 2D grids.
+as in ``atmospheric_athena_tpu/smr.py``, on 3D, 2D and 1D grids (an
+inactive axis takes no restriction, slope or correction), for adiabatic
+and isothermal gas.
 
 Each level's Domain is a dense padded State; the parent/child couplings are
 strided means (restriction), slice updates (flux correction at the
@@ -12,7 +14,7 @@ is the JAX package's wherever the bits depend on it: ``restrict_mean``
 halves one axis at a time, x then y then z; ``prolong_box`` limits every
 slope on the coarse data before it applies any; ``prolong_ghosts``
 prolongs P = E - ke, not E (smr.c:3206-3240, deliberately
-non-conservative).  Every function returns new tensors and leaves its
+non-conservative), for adiabatic gas only (isothermal gas has no energy).  Every function returns new tensors and leaves its
 inputs as they were.
 
 Geometry: a child Domain at level l+1 covers the parent cell box

@@ -35,7 +35,13 @@ refinement of MHD on 3D and 2D grids and of 2D hydro (hierarchy.py with
 smr_fld.py's face-field restriction, EMF correction and prolongation), and
 the last CTU problems (shkset2d, shkset3d, current_sheet, kh, rt, pgflow),
 which run the plain functions and launch no kernel, as in the JAX
-package.  It checks
+package; and this slice's paths: isothermal SMR (each level's CTU step
+with whole fluxes in the kernels' isothermal forms, B7 from the whole
+fluxes among them), four-level 1D SMR, 3D hydro with the exact and FORCE
+solvers (ctu3d's plain route between the CFL and ghost-fill kernels, as
+JAX's jnp branch) and cylindrical coordinates (integrators/cyl.py), the
+last two launching no hydro kernel and 1D SMR and cylindrical grids none.
+It checks
 each hand-written kernel against its plain PyTorch version on the card; a
 kernel with several forms (the solver, Roe, HLLC or HLLE, and B5's
 reconstruction order, "ppm+hllc"; the operand forms of transverse_correct,
@@ -139,7 +145,16 @@ and counted per form, "name[form]":
      cycles) and rj2a3d (shkset3d, 10) against their goldens
      (run_ctu_golden), current_sheet's invariants, and a two-level 2D
      hydro blast, kh (iprob 1 and 2), rt and pgflow 3 cycles each against
-     the plain CPU run at 1e-12 (run_levels_vs_cpu);
+     the plain CPU run at 1e-12 (run_levels_vs_cpu); then
+     (phase3_a13_a11_cyl) the five cylindrical goldens at the JAX tests'
+     tolerances with no kernel launched (run_cyl_golden), the isothermal
+     blast SMR at 32^3 + 32^3 (3 cycles, the "smr iso" kernels launched)
+     and twoibw's four levels (30 cycles, none) against the plain CPU run
+     at 1e-12, Sod with the exact solver (its mass to rel 1e-12, L1
+     density within 2e-3 of the Roe golden; run_sod_exact) and testsedov
+     at 32^3 with outflow faces with the exact and the FORCE solver (3
+     cycles each against the CPU run, B4 and B11 launched and no other
+     kernel);
   4. full width: the SMR main path, isph2lev at 256^3 + 256^3 float32
      (the child over the root's centre), maxiter=50, batch_iters=25, 3
      cycles through Simulation.from_file (no device argument: the card is
@@ -181,7 +196,13 @@ and counted per form, "name[form]":
      each) in float32 with every kernel counter 0: ms per cycle,
      zone-cycles/s over all levels, peak memory, max |div B| of each level
      against its max |B| / dx, the operators of a cycle and the ms of the
-     SMR glue per cycle (smr_glue_timer);
+     SMR glue per cycle (smr_glue_timer); then (phase4_a13_a11_cyl,
+     A13_A11_CYL_FULL) isothermal SMR at 256^3 per level (blast2lev's
+     layout x8, drat 100, outflow root; 3 cycles and a CLI cycle),
+     testsedov at 256^3 with outflow faces with the exact and with the
+     FORCE solver, cylblast2d and cylblastb2d at 2048 x 3072 and twoibw's
+     four levels at the deck's size (3 cycles each) in float32: the same
+     numbers, each run's launches against its path's;
      phase 4's CLI cycles write no outputs
      (job/maxout=0) but the SMR one, which writes a history and a cons VTK
      output per level with -d (level 1's under lev1/ with a -lev1 problem
@@ -207,7 +228,9 @@ full-width run, on no path, with their phase-2 launches and "path": null,
 the hydro ones also with their phase-3 launches; "mhd_launches", each
 kernel's launches in each MHD_FULL run, all 0; "vl_launches", each
 kernel's launches in each VL_FULL run; "smr_mhd_launches", in each
-SMR_MHD_FULL run, all 0), the nvidia-smi line
+SMR_MHD_FULL run, all 0; "a13_a11_cyl_launches", in each
+A13_A11_CYL_FULL run; B7's isothermal whole-flux form takes its launches
+from the isothermal SMR run), the nvidia-smi line
 before it, and the final line {"ok": true,
 "device": {...}}.  Any failed check raises, so the exit code is non-zero
 and no result line is printed.
@@ -1102,6 +1125,17 @@ IFRONT_HYDRO = ["sweep_lrflux_df", "transverse_correct", "flux_corrected",
 IFRONT = IFRONT_HYDRO + ["rad_batch"]
 IFRONT_K1 = IFRONT_HYDRO + ["rad_update"]
 
+# isothermal SMR (an outflow root): each level's ctu3d.step with
+# return_fluxes in the kernels' isothermal forms, B7 from the whole fluxes
+# among them, and the ghost fill on the root; 3D hydro with a solver the
+# kernels do not take (exact, two_shock, force) runs ctu3d's plain route,
+# as JAX's jnp branch, between the CFL reduction and the ghost fill of an
+# outflow deck; 1D SMR and cylindrical grids launch no kernel, as in JAX
+SMR_ISO = ["sweep_lrflux[iso+roe]", "transverse_correct[iso+F]",
+           "flux_corrected[iso+roe]", "final_update[iso+F2]",
+           "max_dti_hydro[isothermal]", "bc_fill"]
+EXACT_3D = ["bc_fill", "max_dti_hydro"]
+
 PATHS = {
     "batch": (MID + ["rad_batch", "bc_fill", "rad_rates", "max_dti_hydro"],
               ["sweep_lrflux", "flux_pointwise"] + NOHC + HLLC + SMRF
@@ -1150,15 +1184,20 @@ PATHS = {
     **{f"sedov {form}": (sedov_path(o, f), others(sedov_path(o, f)))
        for form, (o, f) in SWEEP_FORMS.items()
        if o != "2" and (o, f) != ("3", "roe")},
+    "smr iso": (SMR_ISO, others(SMR_ISO)),
+    "exact 3d": (EXACT_3D, others(EXACT_3D)),
+    "smr 1d": ([], others([])),
+    "cyl": ([], others([])),
 }
 
 # kernel entries on no phase-4 path: B3' (as in the JAX package), the
 # forms of B5 checked in phases 2 and 3 only, and the isothermal forms that
-# turb does not run (phase 2 only)
+# neither turb nor isothermal SMR runs (phase 2 only)
 NO_PATH = FUSED + [entry(w, form) for form, (o, f) in SWEEP_FORMS.items()
                    if o != "2" and (o, f) != ("3", "roe")
                    for w in ("sweep_lrflux", "sweep_lrflux_df")] + [
-    k for k in ISO_FORMS if k not in TURB_MID + TURB_MID0 + TURB_HC] + [
+    k for k in ISO_FORMS
+    if k not in TURB_MID + TURB_MID0 + TURB_HC + SMR_ISO] + [
     k for k in NS_FORMS if k not in LW_MID + LW_MID0 + LW_HC + sum(
         LW_MANY_PATHS.values(), [])] + [
     "rad_batch[inlet]"]
@@ -4108,9 +4147,10 @@ def copy_levels(src, dst, device):
         y.state = tstate.from_numpy(tstate.to_numpy(x.state), device=device)
 
 
-def run_levels_vs_cpu(label, text, problem, cmd, ncyc, tol=1e-12):
-    """A deck (its text) in float64, ncyc cycles on the card against the
-    port's plain run on the CPU in the same process: cycle 1 from the
+def run_levels_vs_cpu(label, text, problem, cmd, ncyc, tol=1e-12, **kw):
+    """A deck (its text) in float64 with the SimConfig keywords `kw`, ncyc
+    cycles on the card against the port's plain run on the CPU in the same
+    process: cycle 1 from the
     deck's start, each later cycle from the CPU run's state copied to the
     card; every level's interior U (and Bcc and the face fields for MHD)
     within `tol` of each field's max, time and dt to rel 1e-12.  Raises on
@@ -4122,7 +4162,7 @@ def run_levels_vs_cpu(label, text, problem, cmd, ncyc, tol=1e-12):
         par = ParameterDB.from_string(text)
         par.apply_cmdline(list(cmd) + ["job/maxout=0"])
         return Simulation.from_par(par, problem=problem, dtype="float64",
-                                   device=device)
+                                   device=device, **kw)
     g, c = make("cuda"), make("cpu")
     reset_counts()
     worst = 0.0
@@ -4340,6 +4380,314 @@ def phase4_smr_mhd(ncyc=3):
             if rc != 0:
                 raise AssertionError(f"{label} CLI returned {rc}")
             check_no_kernel(f"phase 4 {label} CLI cycle", read_counts())
+            say(f"phase 4 {label} {size} float32: 1 CLI cycle done")
+        torch.cuda.empty_cache()
+    return counts
+
+
+# ROADMAP A13 (isothermal and 1D SMR), A11 steps 3-4 (the exact,
+# two-shock and FORCE solvers) and A15 item 1 (cylindrical coordinates):
+# the five cylindrical goldens as tests/test_cylindrical.py holds the JAX
+# package to them: (deck, problem, {golden file: (field keys, tolerance x
+# each field's max, cycles)}, time tolerance).  cylwindrot1d's init, which
+# the JAX test does not hold, is held at its trajectory's 1e-6: the
+# bisection init differs from the reference's by ~4e-8 absolute
+CYL_GOLDENS = {
+    "cylblast2d": ("athinput.cylblast2d", None,
+                   {"cylblast2d_init": (("d", "E"), 1e-12, 0),
+                    "cylblast2d_20cycles": (("d", "M1", "M2", "M3", "E"),
+                                            1e-10, 20)}, 1e-5),
+    "cylwindrot1d": ("athinput.cylwindrot1d", None,
+                     {"cylwindrot1d_init": (("d", "M1", "M2", "E"), 1e-6,
+                                            0),
+                      "cylwindrot1d_30cycles": (("d", "M1", "M2", "E"),
+                                                1e-6, 30)}, 1e-5),
+    "cwrb1d": ("athinput.cwrb1d", "cylwindrotb",
+               {"cwrb1d_30cycles": (("d", "M1", "M2", "M3", "E", "B1c",
+                                     "B2c", "B3c"), 1e-12, 30)}, 1e-6),
+    "cylblastb2d": ("athinput.cylblastb2d", None,
+                    {"cylblastb2d_20cycles": (("d", "M1", "M2", "M3", "E",
+                                               "B1c", "B2c", "B3c"), 1e-12,
+                                              20)}, 1e-5),
+}
+_CYL_INDEX = {"d": ("U", 0), "M1": ("U", 1), "M2": ("U", 2), "M3": ("U", 3),
+              "E": ("U", 4), "B1c": ("Bcc", 0), "B2c": ("Bcc", 1),
+              "B3c": ("Bcc", 2)}
+
+
+def run_cyl_golden(name, device):
+    """A cylindrical golden deck (CYL_GOLDENS) in float64 through
+    Simulation.from_file on `device`, held to its golden files at the JAX
+    tests' tolerances (tests/test_cylindrical.py): each field's interior
+    within tol x the golden field's max, at the init, after the cycles
+    named, and, where the golden holds them, the init (cwrb1d,
+    cylblastb2d: 1e-13 and 1e-12 of each max) and the first cycle
+    (cylblastb2d: 1e-13), with the time to the golden's rel tolerance.
+    Raises on a miss; returns the Simulation and the worst error x max."""
+    import numpy as np
+    from atmospheric_athena_tpu_torch import Simulation
+    deck, problem, golds, ttol = CYL_GOLDENS[name]
+    gold = os.path.join(HERE, "tests", "golden")
+    s = Simulation.from_file(os.path.join(gold, deck), problem=problem,
+                             dtype="float64", device=device)
+    if not s.grid.cylindrical:
+        raise AssertionError(f"{name}: not a cylindrical grid")
+    sl = (slice(None),) + s.grid.interior()
+    worst = 0.0
+
+    def hold(label, ref, keys, tol, suffix=""):
+        nonlocal worst
+        for k in keys:
+            arr, n = _CYL_INDEX[k]
+            got = getattr(s.state, arr)[sl][n].cpu().numpy().squeeze()
+            want = ref[k + suffix]
+            err = float(np.abs(got - want).max()
+                        / max(np.abs(want).max(), 1e-30))
+            worst = max(worst, err)
+            if not err <= tol:
+                raise AssertionError(f"{name} {label} {k}: error {err:.3e} "
+                                     f"x max exceeds {tol:.0e}")
+    cycles = 0
+    for gname, (keys, tol, ncyc) in golds.items():
+        ref = np.load(os.path.join(gold, gname + ".npz"))
+        if "d_init" in ref.files:
+            hold(f"{gname} init", ref, keys, 1e-13 if name == "cwrb1d"
+                 else 1e-12, "_init")
+        while cycles < ncyc:
+            s.step()
+            cycles += 1
+            if cycles == 1 and "d_c1" in ref.files and name != "cwrb1d":
+                t1 = float(s.state.time)
+                if not abs(t1 / float(ref["time_c1"]) - 1) <= ttol:
+                    raise AssertionError(f"{name} cycle 1 time {t1}")
+                hold(f"{gname} cycle 1", ref, keys, 1e-13, "_c1")
+        if ncyc:
+            t = float(s.state.time)
+            if not abs(t / float(ref["time"]) - 1) <= ttol:
+                raise AssertionError(f"{name} {gname}: time {t!r}, golden "
+                                     f"{float(ref['time'])!r}")
+        hold(gname, ref, keys, tol)
+    return s, worst
+
+
+def run_sod_exact(device):
+    """Sod's shock tube (SOD_DECK) with flux=exact in float64 through
+    Simulation.run on `device`, to t = 0.25: finite, its mass 0.5625 to rel
+    1e-12 and its density within 2e-3 in L1 of the Roe golden
+    (tests/golden/sod_t0.25_prim.tab), as JAX tests/test_exact.py:55-71
+    holds the JAX package.  Raises on a miss; returns the Simulation and
+    the L1 difference."""
+    import numpy as np
+    from atmospheric_athena_tpu_torch import Simulation
+    from atmospheric_athena_tpu_torch.par import ParameterDB
+    s = Simulation.from_par(ParameterDB.from_string(SOD_DECK),
+                            dtype="float64", device=device, flux="exact")
+    if s.sim.flux != "exact":
+        raise AssertionError(f"sod exact: flux {s.sim.flux}")
+    s.run()
+    U = s.state.U[(slice(None),) + s.grid.interior()].cpu().numpy()
+    if np.isnan(U).any():
+        raise AssertionError("sod exact: NaN in the state")
+    mass = float(U[0].sum() * s.grid.dx[0])
+    if not abs(mass / 0.5625 - 1) <= 1e-12:
+        raise AssertionError(f"sod exact: mass {mass!r}, not 0.5625")
+    ref = np.loadtxt(SOD_TAB)
+    l1 = float(np.abs(U[0][0, 0, :] - ref[:, 2]).mean())
+    if not l1 < 2e-3:
+        raise AssertionError(f"sod exact: L1 density {l1:.3e} >= 2e-3")
+    return s, l1
+
+
+def blast_iso_text():
+    """tests/golden/athinput.blast2lev as isothermal gas (its configure
+    line with --with-eos=isothermal): the deck of the isothermal SMR runs,
+    which set iso_csound, drat and outflow root faces (SMR_ISO_CMD)."""
+    with open(os.path.join(HERE, "tests", "golden",
+                           "athinput.blast2lev")) as fh:
+        return fh.read().replace("--with-gas=hydro",
+                                 "--with-gas=hydro --with-eos=isothermal")
+
+
+def smr_iso_cmd(n):
+    """blast2lev's layout scaled to n^3 per level (the child over the
+    root's centre, i/j/kDisp = n/2), iso_csound = 1, drat = 100 and
+    outflow on every root face (the ghost-fill kernel's faces)."""
+    return ([f"domain{d}/Nx{a}={n}" for d in (1, 2) for a in (1, 2, 3)]
+            + [f"domain2/{c}Disp={n // 2}" for c in "ijk"]
+            + ["problem/iso_csound=1.0", "problem/drat=100.0",
+               "time/tlim=9e9"] + VL_OUTFLOW)
+
+
+def twoibw_text():
+    """The reference's four-level 1D SMR deck, tests/golden/athinput.twoibw
+    with num_domains = 4 (400 + 400 + 640 + 1120 cells)."""
+    with open(os.path.join(HERE, "tests", "golden", "athinput.twoibw")) as fh:
+        return fh.read()
+
+
+TWOIBW_CMD = ["job/num_domains=4", "time/tlim=9e9"]
+
+
+def sedov_cube(n):
+    """The 3D deck of the exact and FORCE runs: testsedov at n^3 with cubic
+    cells and outflow on every face (the ghost-fill kernel's faces)."""
+    return ([f"domain1/Nx{a}={n}" for a in (1, 2, 3)]
+            + ["domain1/x2max=1.0", "domain1/x3max=1.0", "time/tlim=9e9"]
+            + VL_OUTFLOW)
+
+
+def phase3_a13_a11_cyl():
+    """This slice in float64 on the card: the five cylindrical goldens at
+    the JAX tests' tolerances (run_cyl_golden; no kernel launched); the
+    isothermal blast SMR at 32^3 + 32^3 (3 cycles) and twoibw's four
+    levels (30 cycles) against the port's CPU run at 1e-12
+    (run_levels_vs_cpu; the former launching exactly the "smr iso"
+    kernels, the latter none); Sod with the exact solver (run_sod_exact;
+    none); testsedov at 32^3 with outflow faces, with the exact and with
+    the FORCE solver, 3 cycles each against the CPU run at 1e-12 (B4 and
+    B11 launched and no other kernel).  Returns {path: launch counts}."""
+    counts = {}
+    for name in CYL_GOLDENS:
+        reset_counts()
+        t0 = time.perf_counter()
+        s, worst = run_cyl_golden(name, "cuda")
+        check_no_kernel(f"phase 3 {name}", read_counts())
+        say(f"phase 3 cylindrical golden {name} float64 "
+            f"{'x'.join(str(n) for n in s.grid.Nx if n > 1)} "
+            f"({'MHD' if s.sim.mhd else 'hydro'}, {s.sim.flux}), "
+            f"{int(s.state.nstep)} cycles on the card in "
+            f"{time.perf_counter() - t0:.2f} s: worst error {worst:.3e} x "
+            "max; no kernel launched")
+    worst, counts["smr iso"] = run_levels_vs_cpu(
+        "isothermal blast SMR 32^3 + 32^3", blast_iso_text(), "blast",
+        smr_iso_cmd(32), 3)
+    check_counts("phase 3 isothermal SMR", counts["smr iso"], "smr iso")
+    say(f"phase 3 isothermal blast SMR float64 32^3 + 32^3, 3 cycles on the "
+        f"card against the plain CPU run: worst error {worst:.3e} x max; "
+        f"launches { {k: v for k, v in counts['smr iso'].items() if v} }")
+    worst, counts["smr 1d"] = run_levels_vs_cpu(
+        "twoibw 4 levels", twoibw_text(), "twoibw", TWOIBW_CMD, 30)
+    check_no_kernel("phase 3 twoibw 4 levels", counts["smr 1d"])
+    say(f"phase 3 twoibw 400 + 400 + 640 + 1120 float64, 30 cycles on the "
+        f"card against the plain CPU run: worst error {worst:.3e} x max; "
+        "no kernel launched")
+    reset_counts()
+    s, l1 = run_sod_exact("cuda")
+    check_no_kernel("phase 3 sod exact", read_counts())
+    say(f"phase 3 Sod with the exact solver float64 128 cells, "
+        f"{int(s.state.nstep)} cycles on the card: mass 0.5625 to rel "
+        f"1e-12, L1 density against the Roe golden {l1:.3e} (< 2e-3); no "
+        "kernel launched")
+    for flux in ("exact", "force"):
+        with open(SEDOV_DECK) as fh:
+            text = fh.read()
+        worst, counts[f"exact 3d {flux}"] = run_levels_vs_cpu(
+            f"testsedov {flux} 32^3", text, "testsedov", sedov_cube(32), 3,
+            flux=flux)
+        check_counts(f"phase 3 testsedov {flux}", counts[f"exact 3d {flux}"],
+                     "exact 3d")
+        say(f"phase 3 testsedov {flux} float64 32^3 (outflow), 3 cycles on "
+            f"the card against the plain CPU run: worst error {worst:.3e} x "
+            f"max; launches "
+            f"{ {k: v for k, v in counts[f'exact 3d {flux}'].items() if v} }")
+    return counts
+
+
+# the full-width runs of this slice (float32): (label, deck text or path,
+# problem, path, CLI cycle, overrides, SimConfig keywords).  Isothermal
+# SMR is blast2lev's layout scaled x8 (256^3 per level); the exact and
+# FORCE solvers run testsedov at 256^3 with cubic cells and outflow faces;
+# the cylindrical blasts run the decks' 2:3 shape at 2048 x 3072; twoibw
+# runs its four levels at the deck's size, a 1D run bound by launches
+A13_A11_CYL_FULL = [
+    ("smr iso", "blast_iso", "blast", "smr iso", True, smr_iso_cmd(256),
+     {}),
+    ("sedov exact", SEDOV_DECK, "testsedov", "exact 3d", False,
+     sedov_cube(256), {"flux": "exact"}),
+    ("sedov force", SEDOV_DECK, "testsedov", "exact 3d", False,
+     sedov_cube(256), {"flux": "force"}),
+    ("cylblast2d", os.path.join(HERE, "tests", "golden",
+                                "athinput.cylblast2d"), None, "cyl", False,
+     ["domain1/Nx1=2048", "domain1/Nx2=3072"], {}),
+    ("cylblastb2d", os.path.join(HERE, "tests", "golden",
+                                 "athinput.cylblastb2d"), None, "cyl", False,
+     ["domain1/Nx1=2048", "domain1/Nx2=3072"], {}),
+    ("twoibw", "twoibw", "twoibw", "smr 1d", False, TWOIBW_CMD, {}),
+]
+
+
+def phase4_a13_a11_cyl(ncyc=3):
+    """This slice at full width in float32 through the entry points without
+    a device argument (A13_A11_CYL_FULL), ncyc cycles each and a CLI cycle
+    on the first run: ms per cycle, zone-cycles/s over all levels, peak
+    memory, finite fields, dt > 0, the operators one more cycle dispatches
+    (count_dispatch), each run's kernel launches against its path's, and on
+    the SMR runs the ms of the SMR glue per cycle (smr_glue_timer).
+    Returns {label: launch counts}."""
+    import torch
+    from atmospheric_athena_tpu_torch import Simulation
+    from atmospheric_athena_tpu_torch import __main__ as cli
+    texts = {"blast_iso": blast_iso_text(), "twoibw": twoibw_text()}
+    for name, text in texts.items():
+        with open(os.path.join(lowd_dir(), f"athinput.{name}"), "w") as fh:
+            fh.write(text)
+    smi = smi_line()
+    counts = {}
+    for label, deck, problem, path, with_cli, cmd, kw in A13_A11_CYL_FULL:
+        if deck in texts:
+            deck = os.path.join(lowd_dir(), f"athinput.{deck}")
+        cmd = cmd + ["time/tlim=9e9", "job/maxout=0"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        s = Simulation.from_file(deck, problem=problem, dtype="float32",
+                                 cmdline=cmd, **kw)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        levels = getattr(s, "levels", None) or [s]
+        if s.device.type != "cuda":
+            raise AssertionError(f"{label} run on {s.device}")
+        reset_counts()
+        with smr_glue_timer() as glue:
+            res = s.run(max_steps=ncyc)
+        counts[label] = read_counts()
+        check_counts(f"phase 4 {label}", counts[label], path)
+        keys = ("U", "Bcc", "B1i", "B2i", "B3i") if s.sim.mhd else ("U",)
+        finite = all(bool(torch.isfinite(getattr(lv.state, k)).all())
+                     for lv in levels for k in keys)
+        dt = float(s.state.dt)
+        if not finite or not dt > 0 or res["steps"] != ncyc:
+            raise AssertionError(f"phase 4 {label}: {res['steps']} steps, "
+                                 f"finite={finite} dt={dt}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        size = " + ".join("x".join(str(n) for n in lv.grid.Nx if n > 1)
+                          for lv in levels)
+        ms = 1e3 * res["wall"] / res["steps"]
+        nops = count_dispatch(s.step)    # one more cycle, counted
+        glue_txt = (f"; SMR glue {glue[0] / ncyc:.2f} ms per cycle "
+                    f"({glue[1] // ncyc} timed calls per cycle, CUDA "
+                    "events)" if len(levels) > 1 else "")
+        launched = {k: v for k, v in counts[label].items() if v}
+        say(f"phase 4 {label} {size} float32 ({s.grid.ndim}D "
+            f"{'MHD' if s.sim.mhd else 'hydro'}, {s.sim.eos}, {s.sim.flux}, "
+            f"{s.grid.coord}, {len(levels)} level(s)) on {smi}: setup "
+            f"{setup_s:.1f} s; {res['steps']} cycles via Simulation.run, "
+            f"{ms:.2f} ms per cycle, {res['zone_cycles_per_sec']:.4e} "
+            f"zone-cycles/s over all levels; peak device memory "
+            f"{peak:.2f} GiB; all fields finite, dt {dt:.6e}; {nops} "
+            f"PyTorch operators dispatched per cycle (count_dispatch), "
+            f"{ms / nops:.4f} ms per operator; launches in {ncyc} cycles "
+            f"({path} path) {launched or 'none'}{glue_txt}")
+        del s, levels
+        if with_cli:
+            reset_counts()
+            args = ["-i", deck, "--dtype", "float32", "time/nlim=1", *cmd]
+            if problem is not None:
+                args[2:2] = ["--problem", problem]
+            rc = cli.main(args)
+            if rc != 0:
+                raise AssertionError(f"{label} CLI returned {rc}")
+            check_counts(f"phase 4 {label} CLI cycle", read_counts(), path)
             say(f"phase 4 {label} {size} float32: 1 CLI cycle done")
         torch.cuda.empty_cache()
     return counts
@@ -5341,6 +5689,8 @@ def main():
     lap("phase 3 VL")
     phase3_smr_mhd()
     lap("phase 3 SMR MHD, 2D SMR and the CTU problems")
+    phase3_a13_a11_cyl()
+    lap("phase 3 isothermal and 1D SMR, the exact solvers, cylindrical")
     smr, _ = phase4_smr()
     counts, _ = phase4()
     counts["smr"] = smr
@@ -5363,6 +5713,9 @@ def main():
     lap("phase 4 VL")
     smr_mhd = phase4_smr_mhd()
     lap("phase 4 SMR MHD and the CTU problems")
+    a13 = phase4_a13_a11_cyl()
+    counts["smr iso"] = a13["smr iso"]
+    lap("phase 4 isothermal and 1D SMR, the exact solvers, cylindrical")
     phase5()
     lap("phase 5")
 
@@ -5378,7 +5731,8 @@ def main():
              "sedov hlle hcorr": 1, "turb": 5, "turb MID=0": 1,
              "turb hcorr": 1, "lw": 5, "lw MID=0": 1, "lw hcorr": 1,
              **{lw_path(LW_MANY, r): k for r, k in (("mid", 5), ("MID=0", 1),
-                                                    ("hcorr", 1))}}
+                                                    ("hcorr", 1))},
+             "smr iso": 3}
     kernels = []
     for name, route, source, replaces in KERNELS:
         path = next((p for p in steps if counts[p][name] > 0), None)
@@ -5414,6 +5768,10 @@ def main():
         # the MHD SMR and CTU problem runs of phase 4 (SMR_MHD_FULL), which
         # launch no kernel
         k["smr_mhd_launches"] = {p: c[name] for p, c in smr_mhd.items()}
+        # this slice's runs of phase 4 (A13_A11_CYL_FULL): the isothermal
+        # SMR kernels, B4 and B11 around the exact and FORCE steps, none on
+        # the cylindrical and 1D SMR runs
+        k["a13_a11_cyl_launches"] = {p: c[name] for p, c in a13.items()}
         kernels.append(k)
     say(f"chip_smoke: all phases in {time.perf_counter() - t_all:.1f} s")
     say(smi_line())

@@ -4,6 +4,7 @@ with CTU tracing (lr_states) and the Roe solver with and without its HLLE
 fallback.  Inputs come from numpy with a fixed seed; the bar is 1e-12 of
 each field's max."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -177,11 +178,32 @@ def test_roe_hlle_fallback():
 
 
 def test_unported_solver_raises():
-    """The solvers still to port name their ROADMAP item; HLLD, ported for
-    MHD, refuses hydro gas as the reference's does."""
+    """The solvers once still to port (ROADMAP A11 step 4) run through
+    riemann.fluxes: exact and FORCE on the states here (one scalar) as the
+    JAX package's, two_shock on isothermal gas without scalars, and what a
+    solver does not take raises by name (two_shock on adiabatic gas or
+    with scalars, C6); HLLD, ported for MHD, refuses hydro gas as the
+    reference's does.  The kernel entry points still refuse them:
+    tests/test_torch_orders.py::test_forms_and_refusals."""
+    rng = np.random.default_rng(11)
+    Wl = prim_states(rng, (50,))
+    Wr = prim_states(rng, (50,))
+    for flux in ("exact", "force"):
+        kw = dict(nscalars=1, gamma=GAMMA, flux=flux)
+        Ul, Ur, Wlb, Wrb = _roe_inputs(Wl, Wr)
+        Ft = triem.fluxes(Ul[0], Ur[0], Wlb[0], Wrb[0], None, TSim(**kw))
+        with jax.disable_jit():
+            Fj = jriem.fluxes(Ul[1], Ur[1], Wlb[1], Wrb[1], None,
+                              JSim(**kw))
+        close(Ft, Fj)
+    iso = TSim(eos="isothermal", flux="two_shock")
+    x = torch.ones(4, 3, dtype=torch.float64)
+    assert torch.isfinite(triem.fluxes(x, x, x, x, None, iso)).all()
     x = torch.ones(6, 3, dtype=torch.float64)
-    for flux in ("two_shock", "exact", "force"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11 step 4"):
-            triem.fluxes(x, x, x, x, None, TSim(nscalars=1, flux=flux))
+    for sim, what in ((TSim(nscalars=1, flux="two_shock"), "adiabatic gas"),
+                      (TSim(eos="isothermal", nscalars=2, flux="two_shock"),
+                       "passive scalars")):
+        with pytest.raises(NotImplementedError, match=what):
+            triem.fluxes(x, x, x, x, None, sim)
     with pytest.raises(NotImplementedError, match="adiabatic MHD only"):
         triem.fluxes(x, x, x, x, None, TSim(nscalars=1, flux="hlld"))

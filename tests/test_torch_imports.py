@@ -4,7 +4,9 @@ output format, a checkpoint it restarts from and reads them back (io/,
 vis/), takes an MHD step on a 3D, a 2D and a 1D grid (ctu3d_mhd,
 ctu2d_mhd, ctu1d; the MHD models, eigen_mhd_roe, utils/fields), VL steps,
 an MHD SMR cycle on the 3D and the 2D field loop decks (smr_fld.py), a 2D
-hydro SMR cycle, and a kh (utils/threefry.py) and a shkset2d step with JAX
+hydro SMR cycle, a kh (utils/threefry.py) and a shkset2d step, cylindrical
+steps (integrators/cyl.py and its three models), 3D steps with the exact
+and FORCE solvers, an isothermal and a four-level 1D SMR cycle with JAX
 made unimportable (chip_smoke.py imported too), and it refuses a CUDA
 device when none is visible."""
 
@@ -136,6 +138,37 @@ q = P.Simulation.from_file(os.path.join(gold, "athinput.rj2a"),
                            device="cpu", **chip_smoke.CTU_MHD)
 q.step()
 assert bool(torch.isfinite(q.state.Bcc).all())
+from atmospheric_athena_tpu_torch.integrators import cyl
+from atmospheric_athena_tpu_torch.models import (cylblast, cylwindrot,
+                                                 cylwindrotb)
+for deck, problem, cmd in (
+        ("athinput.cylblast2d", None, ["domain1/Nx1=20", "domain1/Nx2=30"]),
+        ("athinput.cylblastb2d", None, ["domain1/Nx1=16", "domain1/Nx2=24"]),
+        ("athinput.cwrb1d", "cylwindrotb", [])):
+    q = P.Simulation.from_file(os.path.join(gold, deck), problem=problem,
+                               cmdline=cmd + ["job/maxout=0"], device="cpu")
+    assert q.integ is cyl and q.grid.cylindrical
+    q.step()
+    assert bool(torch.isfinite(q.state.U).all()) and float(q.state.dt) > 0
+for flux in ("exact", "force"):
+    q = P.Simulation.from_file(os.path.join(gold, "athinput.testsedov"),
+                               problem="testsedov",
+                               cmdline=["domain1/Nx1=8", "domain1/Nx2=8",
+                                        "domain1/Nx3=8", "job/maxout=0"],
+                               device="cpu", flux=flux)
+    q.step()
+    assert bool(torch.isfinite(q.state.U).all())
+par = P.ParameterDB.from_string(chip_smoke.blast_iso_text())
+par.apply_cmdline(chip_smoke.smr_iso_cmd(8) + ["job/maxout=0"])
+m = P.Simulation.from_par(par, problem="blast", device="cpu")
+assert isinstance(m, hierarchy.MeshSimulation) and not m.sim.adiabatic
+m.step()
+par = P.ParameterDB.from_string(chip_smoke.twoibw_text())
+par.apply_cmdline(chip_smoke.TWOIBW_CMD + ["job/maxout=0"])
+m = P.Simulation.from_par(par, problem="twoibw", device="cpu")
+assert [l.grid.ndim for l in m.levels] == [1, 1, 1, 1]
+m.step()
+assert all(bool(torch.isfinite(l.state.U).all()) for l in m.levels)
 bad = sorted(m for m in set(sys.modules) - pre
              if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                     "atmospheric_athena_tpu")

@@ -278,8 +278,13 @@ def test_checkpoint_keeps_coord_and_refuses_unknown(tmp_path):
     q = rewrite(lambda m, d: m["sim"].update(use_gpu=True), "a.npz")
     with pytest.raises(ValueError, match="use_gpu"):
         restart.read_checkpoint(q)
+    # cylindrical grids run since A15 item 1 (their checkpoints restart bit
+    # for bit: tests/test_torch_cyl.py); this state's is refused by what
+    # the cylindrical step does not take, naming it: its passive scalar
+    # (the radiation's neutral density)
     q = rewrite(lambda m, d: m["grid"].update(coord="cylindrical"), "b.npz")
-    with pytest.raises(NotImplementedError, match="cylindrical"):
+    with pytest.raises(NotImplementedError, match="passive scalars on a "
+                       "cylindrical grid"):
         restart.read_checkpoint(q)
     q = rewrite(lambda m, d: d.update(Bcc=d["U"][:3]), "c.npz")
     with pytest.raises(ValueError, match="Bcc"):
@@ -289,14 +294,19 @@ def test_checkpoint_keeps_coord_and_refuses_unknown(tmp_path):
         restart.read_checkpoint(q)
 
 
-@pytest.mark.parametrize("kind", ["mhd", "2d", "mhd-vl"])
+@pytest.mark.parametrize("kind", ["mhd", "2d", "mhd-vl", "cyl-vl"])
 def test_jax_checkpoint_refused_by_name(tmp_path, kind):
-    """A JAX checkpoint of a configuration the port does not run (2D on a
+    """A JAX checkpoint of a configuration the port does not run (VL on a
     cylindrical grid) is refused, naming the ROADMAP item; an MHD
-    checkpoint, CTU or VL, which the port runs, loads with every array the
-    JAX package's (Cartesian 2D and 1D checkpoints:
-    tests/test_torch_lowd_io.py; a VL run continued from a JAX checkpoint:
-    tests/test_torch_vl_golden.py)."""
+    checkpoint, CTU or VL, and a 2D hydro one on a cylindrical grid (once
+    refused here, A15 item 1), which the port runs, load with every array
+    the JAX package's and the grid's coordinates (Cartesian 2D and 1D
+    checkpoints: tests/test_torch_lowd_io.py; a VL run continued from a
+    JAX checkpoint: tests/test_torch_vl_golden.py; cylindrical restarts
+    bit for bit: tests/test_torch_cyl.py)."""
+    cyl = J.GridConfig(Nx=(8, 8, 1), xmin=(1.0, 0.0, 0.0),
+                       xmax=(2.0, 1.0, 1.0), bc=((3, 3),) * 3,
+                       coord="cylindrical")
     if kind == "mhd":
         sim = J.SimConfig(gas="mhd")
         grid = J.GridConfig(Nx=(8, 8, 8), bc=((4, 4),) * 3)
@@ -305,11 +315,11 @@ def test_jax_checkpoint_refused_by_name(tmp_path, kind):
         sim = J.SimConfig(gas="mhd", integrator="vl")
         grid = J.GridConfig(Nx=(8, 8, 8), bc=((4, 4),) * 3)
         item = None
+    elif kind == "2d":
+        sim, grid, item = J.SimConfig(flux="hllc"), cyl, None
     else:
-        sim = J.SimConfig()
-        grid = J.GridConfig(Nx=(8, 8, 1), bc=((4, 4),) * 3,
-                            coord="cylindrical")
-        item = "A15"
+        sim, grid, item = J.SimConfig(flux="hllc", integrator="vl"), cyl, \
+            "CTU integrator only \\(ROADMAP A15"
     from atmospheric_athena_tpu.state import zeros
     p = str(tmp_path / "x.npz")
     jst = zeros(sim, grid)
@@ -317,8 +327,9 @@ def test_jax_checkpoint_refused_by_name(tmp_path, kind):
                              J.ParameterDB.from_string(deck_of([])))
     if item is None:
         st, tsim, tgrid, _ = restart.load_checkpoint(p, device="cpu")
-        assert tsim.mhd and tgrid.Nx == grid.Nx
+        assert tsim.mhd == (kind != "2d") and tgrid.Nx == grid.Nx
         assert tsim.integrator == sim.integrator
+        assert tgrid.coord == grid.coord
         for k in tstate._FIELDS:
             x, y = getattr(st, k), getattr(jst, k)
             assert (x is None) == (y is None), k

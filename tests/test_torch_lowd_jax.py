@@ -13,8 +13,8 @@ the JAX side run eagerly (jax.disable_jit) so that no step is compiled:
     apply_bc, every cell;
   - the routing: with every kernel wrapper made to raise, 2D and 1D
     Simulation steps still run (on both hydro paths); the wrappers refuse
-    a state with an inactive axis; the 2D SMR and cylindrical 1D decks
-    raise naming their ROADMAP items.
+    a state with an inactive axis; the 2D SMR deck against the JAX
+    MeshSimulation and a cylindrical 1D deck against the JAX Simulation.
 """
 
 import os
@@ -245,7 +245,10 @@ def test_lowd_refusals():
     runs: 3 cycles against the JAX MeshSimulation run op by op, each cycle
     from the JAX state, every level's interior to 1e-12 of each field's
     max, time and dt to rel 1e-12, no kernel wrapper called.  The
-    cylindrical 1D deck stays refused (A15)."""
+    cylindrical 1D deck, once refused here (A15), runs: the rotating wind
+    (tests/golden/athinput.cylwindrot1d, HLLC, point-mass gravity), 3
+    cycles on integrators/cyl.py against the JAX Simulation op by op, at
+    the same bar."""
     text = chip_smoke.BLAST2D_SMR_DECK
     a = J.Simulation.from_par(J.ParameterDB.from_string(text))
     b = Simulation.from_par(ParameterDB.from_string(text), dtype="float64",
@@ -274,9 +277,18 @@ def test_lowd_refusals():
                     float(getattr(a.state, k)), rel=1e-12), (cyc, k)
             for la, lb in zip(a.levels, b.levels):
                 close_interior(lb.state.U, la.state.U, la.grid)
-    cyl = chip_smoke.SOD_DECK.replace("--with-flux=roe",
-                                      "--with-flux=roe --with-coord="
-                                      "cylindrical")
-    with pytest.raises(NotImplementedError, match="A15"):
-        Simulation.from_par(ParameterDB.from_string(cyl), dtype="float64",
-                            device="cpu")
+    from atmospheric_athena_tpu_torch.integrators import cyl as tcyl
+    cyl = os.path.join(GOLDEN, "athinput.cylwindrot1d")
+    a = J.Simulation.from_file(cyl, cmdline=["job/maxout=0"])
+    b = Simulation.from_file(cyl, cmdline=["job/maxout=0"], dtype="float64",
+                             device="cpu")
+    assert a.grid.cylindrical and b.grid.cylindrical and b.integ is tcyl
+    close_interior(b.state.U, a.state.U, a.grid)
+    for cyc in range(3):
+        with jax.disable_jit():
+            a.step()
+        b.step()
+        for k in ("time", "dt"):
+            assert float(getattr(b.state, k)) == pytest.approx(
+                float(getattr(a.state, k)), rel=1e-12), (cyc, k)
+        close_interior(b.state.U, a.state.U, a.grid)

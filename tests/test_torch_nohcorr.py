@@ -381,7 +381,9 @@ def test_cli_runs_testsedov(tmp_path, capsys):
 def test_solver_support():
     """The kernels take Roe, HLLC and HLLE, with any number of passive
     scalars; hlld and MHD raise (the JAX kernels take hydro only, and
-    ctu3d sends MHD to ctu3d_mhd), two_shock names its ROADMAP item."""
+    ctu3d sends MHD to ctu3d_mhd); ctu3d takes the exact and FORCE
+    solvers, which the kernels do not take, on its plain route (JAX's jnp
+    branch), and two_shock on adiabatic gas raises by name (C6)."""
     for flux in FLUXES + ("hlle",):
         assert hydro_kernels.supported(TSim(flux=flux))
         for ns in (2, 3, 8):
@@ -390,9 +392,12 @@ def test_solver_support():
                                 flux="hllc").grid
     tctu3d.check_supported(TSim(flux="hlle"), grid)
     tctu3d.check_supported(TSim(flux="hlle", nscalars=3), grid)
+    for flux in ("exact", "force"):
+        tctu3d.check_supported(TSim(flux=flux, nscalars=3), grid)
+        assert not hydro_kernels.supported(TSim(flux=flux))
     for sim, exc, item in (
             (TSim(flux="hlld"), NotImplementedError, "hydro only"),
-            (TSim(flux="two_shock"), NotImplementedError, "A11"),
+            (TSim(flux="two_shock"), NotImplementedError, "adiabatic gas"),
             (TSim(gas="mhd", nscalars=2), ValueError, "ctu3d_mhd")):
         assert not hydro_kernels.supported(sim)
         with pytest.raises(exc, match=item):

@@ -343,7 +343,8 @@ def test_cli_selects_ppm_and_hlle(tmp_path, capsys):
 def test_kernel_forms_and_refusals():
     """The kernels take the five orders and three solvers, counted per form
     ("ppm+hllc"), with any number of scalars; the forms the JAX kernels
-    do not take raise naming their ROADMAP item."""
+    do not take raise naming why (the exact and two-shock solvers, which
+    ctu3d steps on its plain route, as JAX's jnp branch)."""
     assert hydro_kernels.form(TSim(order="3", flux="hllc")) == "ppm+hllc"
     assert hydro_kernels.form(TSim(order="3")) == "ppm"
     assert hydro_kernels.form(TSim(order="2", flux="hlle")) == "hlle"
@@ -354,8 +355,8 @@ def test_kernel_forms_and_refusals():
                 assert hydro_kernels.supported(TSim(order=order, flux=flux,
                                                     nscalars=ns))
     for sim, item in ((TSim(flux="hlld"), "hydro only"),
-                      (TSim(flux="two_shock"), "A11 step 4"),
-                      (TSim(flux="exact"), "A11 step 4"),
+                      (TSim(flux="two_shock"), "HLLC alone"),
+                      (TSim(flux="exact"), "HLLC alone"),
                       (TSim(eos="isothermal", gas="mhd"), "hydro only"),
                       (TSim(nscalars=2, flux="hlld"), "hydro only")):
         with pytest.raises(NotImplementedError, match=item):

@@ -14,8 +14,10 @@ and the reference-C goldens, in float64 on the CPU:
   - the fl2lev and fl2d2lev goldens (10 cycles) at 2e-13 / 1e-13 absolute
     with max |div B| < 1e-14 on both levels, and the CLI on fl2lev writing
     both levels' tab files with the magnetic columns;
-  - the refusals: 1D SMR, isothermal SMR, SMR with VL, MHD SMR with plane
-    radiation, SMR of special relativity, each naming its ROADMAP item.
+  - a two-level 1D deck, adiabatic and isothermal, against the JAX
+    MeshSimulation, and the refusals: SMR with VL, MHD SMR on 1D grids,
+    MHD SMR with plane radiation, SMR of special relativity, each naming
+    its ROADMAP or C item.
 
 ctu3d_mhd's and ctu2d_mhd's return_fluxes are held to JAX's in
 tests/test_torch_mhd_step.py::test_ct_step_return_fluxes (on the states
@@ -229,18 +231,34 @@ def test_cli_runs_fl2lev(tmp_path, capsys):
 
 
 def test_smr_refusals_name_their_item():
-    """1D SMR, isothermal SMR and SMR with VL raise naming ROADMAP A13;
-    MHD SMR with plane radiation and SR name A15."""
+    """1D SMR and isothermal SMR, once refused here (ROADMAP A13), run: a
+    two-level Sod deck (chip_smoke.SOD_DECK with a 64-cell child), as
+    adiabatic and as isothermal gas, 2 cycles against the JAX
+    MeshSimulation at 1e-12 (the 3D, 2D and four-level decks and
+    isothermal MHD SMR: tests/test_torch_smr_iso_1d.py,
+    test_torch_smr_iso_mhd.py).  SMR with VL raises naming ROADMAP A13,
+    MHD SMR on 1D grids and SMR on a cylindrical grid C29, MHD SMR with
+    plane radiation and SR A15."""
+    from test_torch_smr_iso_1d import mesh_vs_jax
     fl = os.path.join(GOLD, "athinput.fl2lev")
     one_d = (chip_smoke.SOD_DECK.replace("<job>\n",
                                          "<job>\nnum_domains = 2\n")
              + "<domain2>\nlevel = 1\nNx1 = 64\nNx2 = 1\nNx3 = 1\n"
              "iDisp = 64\n")
+    iso = one_d.replace("--with-gas=hydro", "--with-gas=hydro "
+                        "--with-eos=isothermal").replace(
+        "<problem>\n", "<problem>\niso_csound = 1.0\n")
+    for text in (one_d, iso):
+        _, b = mesh_vs_jax(text, 2)
+        assert [lv.grid.ndim for lv in b.levels] == [1, 1]
+        assert b.sim.adiabatic == (text is one_d)
+    mhd_1d = (chip_smoke.BRIOWU_DECK.replace("<job>\n",
+                                             "<job>\nnum_domains = 2\n")
+              + "<domain2>\nlevel = 1\nNx1 = 64\nNx2 = 1\nNx3 = 1\n"
+              "iDisp = 64\n")
     cases = [
-        (ParameterDB.from_string(one_d), {}, "SMR on 1D grids \\(ROADMAP "
-                                             "A13\\)"),
-        (ParameterDB.from_file(fl), dict(eos="isothermal"),
-         "isothermal SMR \\(ROADMAP A13"),
+        (ParameterDB.from_string(mhd_1d), {},
+         "MHD SMR on 1D grids \\(ROADMAP C29"),
         (ParameterDB.from_file(fl), dict(integrator="vl"),
          "SMR with the vl integrator \\(ROADMAP A13"),
         (ParameterDB.from_file(os.path.join(GOLD, "athinput.isph2lev")),
@@ -248,6 +266,11 @@ def test_smr_refusals_name_their_item():
          "plane radiation on MHD gas \\(ROADMAP A15"),
         (ParameterDB.from_file(fl), dict(special_relativity=True),
          "special relativity \\(ROADMAP A15"),
+        (ParameterDB.from_string(one_d.replace(
+            "--with-flux=roe", "--with-flux=hllc --with-coord=cylindrical")
+         .replace("x1min  = -0.5", "x1min  = 0.5")
+         .replace("x1max  = 0.5", "x1max  = 1.5")), {},
+         "SMR on a cylindrical grid \\(ROADMAP C29"),
     ]
     for par, kw, match in cases:
         with pytest.raises(NotImplementedError, match=match):
