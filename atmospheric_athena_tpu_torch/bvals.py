@@ -28,6 +28,8 @@ plain fill for a CPU tensor.  Both write a new array, so ``apply_bc`` has
 one contract on both devices.  ``bc_fill.launches`` counts kernel launches.
 An MHD state takes the plain fill (``_fill_mhd``) on either device: the
 JAX kernel takes hydro only (``_bc_supported``), and so does ``bc_fill``.
+So does a shearing box, with the shearing sheet between the x2 and x3
+fills (``shearing.shearing_sheet``).
 """
 
 from __future__ import annotations
@@ -70,10 +72,10 @@ def kernel_covers(grid: GridConfig) -> bool:
         for a in range(3) for flag in grid.bc[a])
 
 
-def _sides(grid: GridConfig):
-    """(axis, side, flag) of every face of the active axes, in the fill
-    order: x1 -> x2 -> x3, lo then hi."""
-    return [(axis, side, flag) for axis in (0, 1, 2) if grid.active(axis)
+def _sides(grid: GridConfig, axes=(0, 1, 2)):
+    """(axis, side, flag) of every face of the active axes among `axes`, in
+    the fill order: x1 -> x2 -> x3, lo then hi."""
+    return [(axis, side, flag) for axis in axes if grid.active(axis)
             for side, flag in zip(("lo", "hi"), grid.bc[axis])]
 
 
@@ -130,12 +132,14 @@ def user_fns(problem) -> dict:
     return out
 
 
-def _fill_user(state: State, grid: GridConfig, sim: SimConfig, fns: dict):
-    """The plain fill with the problem's functions in place of the flags
-    of their sides (JAX bvals._apply_bc_jnp): a side whose flag is 3 (do
-    nothing) keeps its ghosts even where a function is enrolled."""
+def _fill_user(state: State, grid: GridConfig, sim: SimConfig, fns: dict,
+               axes=(0, 1, 2)):
+    """The plain fill of the axes `axes` with the problem's functions in
+    place of the flags of their sides (JAX bvals._apply_bc_jnp): a side
+    whose flag is 3 (do nothing) keeps its ghosts even where a function is
+    enrolled."""
     U = state.U.clone()
-    for axis, side, flag in _sides(grid):
+    for axis, side, flag in _sides(grid, axes):
         if flag == BC_DONOTHING:
             continue
         fn = fns.get((axis, side))
@@ -195,14 +199,16 @@ def _fill_face(B, grid: GridConfig, axis: int, side: str, flag: int,
         B[_idx(3, dim, dst)] = blk[_idx(3, dim, slice(1, None))]
 
 
-def _fill_mhd(state: State, grid: GridConfig, sim: SimConfig, fns: dict):
-    """The plain fill of an MHD state: U, Bcc and the three face fields,
-    side by side in the fill order, with the problem's functions in place
-    of the flags of their sides (JAX bvals._apply_bc_jnp)."""
+def _fill_mhd(state: State, grid: GridConfig, sim: SimConfig, fns: dict,
+              axes=(0, 1, 2)):
+    """The plain fill of an MHD state over the axes `axes`: U, Bcc and the
+    three face fields, side by side in the fill order, with the problem's
+    functions in place of the flags of their sides (JAX
+    bvals._apply_bc_jnp)."""
     U = state.U.clone()
     Bcc = state.Bcc.clone()
     Bi = [state.B1i.clone(), state.B2i.clone(), state.B3i.clone()]
-    for axis, side, flag in _sides(grid):
+    for axis, side, flag in _sides(grid, axes):
         if flag == BC_DONOTHING:
             continue
         fn = fns.get((axis, side))
@@ -258,8 +264,20 @@ bc_fill.launches = 0
 def apply_bc(state: State, grid: GridConfig, sim: SimConfig,
              problem=None) -> State:
     """Return the state with all ghost zones filled: U's, and for MHD
-    also Bcc's and the face fields' (the plain fill on either device)."""
+    also Bcc's and the face fields' (the plain fill on either device).  A
+    shearing box with periodic x1 faces remaps its x1 ghost slabs
+    (shearing.shearing_sheet at the state's time) after the x1 and x2
+    fills and before x3 (JAX bvals.py:229-240, bvals_mhd.c:390-401), on
+    the plain fill: the kernel refuses a shearing box, as the JAX
+    _bc_supported does (bvals.py:111)."""
     fns = user_fns(problem)
+    if (sim.shearing_box and grid.active(0)
+            and grid.bc[0][0] == BC_PERIODIC):
+        from .shearing import shearing_sheet
+        fill = _fill_mhd if sim.mhd else _fill_user
+        state = fill(state, grid, sim, fns, axes=(0, 1))
+        state = shearing_sheet(state, sim, grid, state.time)
+        return fill(state, grid, sim, fns, axes=(2,))
     if sim.mhd:
         return _fill_mhd(state, grid, sim, fns)
     if fns:

@@ -16,7 +16,7 @@ import torch
 
 from .config import GridConfig, SimConfig
 from .defs import ID, IEN, IM1, TINY_NUMBER
-from .eos import exact_div
+from .eos import exact_div, sqrt
 from .ops import util_kernels
 from .state import State
 
@@ -58,12 +58,12 @@ def max_dti_plain(state: State, sim: SimConfig, grid: GridConfig):
     for a in range(3):
         if grid.Nx[a] > 1:
             if sim.mhd:
-                cfsq = 0.5 * (tsum + torch.sqrt(
+                cfsq = 0.5 * (tsum + sqrt(
                     tdif * tdif + 4.0 * asq *
                     (b[(a + 1) % 3] ** 2 + b[(a + 2) % 3] ** 2) * di))
             else:
                 cfsq = asq
-            sig = torch.abs(v[a]) + torch.sqrt(cfsq)
+            sig = torch.abs(v[a]) + sqrt(cfsq)
             if a == 1 and grid.cylindrical:
                 r = np.asarray(grid.r_coords(), np.dtype(sim.dtype))
                 sig = sig / torch.as_tensor(
@@ -88,12 +88,8 @@ def max_dti(state: State, sim: SimConfig, grid: GridConfig):
 
 
 def new_dt(state: State, sim: SimConfig, grid: GridConfig, cour_no: float):
-    """New dt with the 2× growth clamp (new_dt.c:167-171).  For MHD and
-    cylindrical grids the division is one IEEE division (exact_div), as in
-    the JAX package; the Cartesian hydro path keeps its form (the
-    reciprocal times cour_no)."""
-    dti = max_dti(state, sim, grid)
-    dt = (exact_div(cour_no, dti) if sim.mhd or grid.cylindrical
-          else cour_no / dti)
+    """New dt with the 2× growth clamp (new_dt.c:167-171); CourNo/max_dti
+    is one IEEE division (exact_div), as in the JAX package."""
+    dt = exact_div(cour_no, max_dti(state, sim, grid))
     return torch.where(state.nstep == 0, dt,
                        torch.minimum(2.0 * state.dt, dt))

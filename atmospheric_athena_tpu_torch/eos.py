@@ -13,6 +13,7 @@ Everything is shape-polymorphic over the trailing axes.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .config import SimConfig
@@ -25,14 +26,27 @@ def exact_div(a, b):
     number's reciprocal, and forms a number over a tensor as the tensor's
     reciprocal times the number (on the CPU too), which round unlike the
     reference's and the JAX package's divisions.  Two numbers divide as
-    numbers."""
+    numbers.  The number becomes a 0-d tensor on the other operand's device
+    (a device operand, not a scalar, so the division is the IEEE one)."""
     if not isinstance(a, torch.Tensor):
         if not isinstance(b, torch.Tensor):
             return a / b
-        a = torch.full_like(b, a)
+        a = torch.full((), a, dtype=b.dtype, device=b.device)
     elif not isinstance(b, torch.Tensor):
-        b = torch.full_like(a, b)
+        b = torch.full((), b, dtype=a.dtype, device=a.device)
     return a / b
+
+
+def sqrt(x):
+    """The correctly rounded square root of a tensor on either device:
+    torch.sqrt on a CUDA tensor (IEEE), numpy's on a CPU tensor, where
+    PyTorch's kernel rounds about one float64 root in 130 an ulp away from
+    the correctly rounded one that JAX and the reference take (an ulp the
+    near-degenerate MHD eigenvectors of a weak field amplify)."""
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
+    with np.errstate(invalid="ignore"):
+        return torch.from_numpy(np.asarray(np.sqrt(x.numpy())))
 
 
 def _split(q, sim: SimConfig):
@@ -98,10 +112,10 @@ def cfast(U, Bx, sim: SimConfig):
     else:
         asq = sim.iso_csound2
     if not sim.mhd:
-        return torch.sqrt(asq * torch.ones_like(d))
+        return sqrt(asq * torch.ones_like(d))
     ctsq = (byz[0] ** 2 + byz[1] ** 2) * di
     casq = Bx ** 2 * di
     tmp = casq + ctsq - asq
-    cfsq = 0.5 * ((asq + ctsq + casq) + torch.sqrt(tmp * tmp
+    cfsq = 0.5 * ((asq + ctsq + casq) + sqrt(tmp * tmp
                                                    + 4.0 * asq * ctsq))
-    return torch.sqrt(cfsq)
+    return sqrt(cfsq)

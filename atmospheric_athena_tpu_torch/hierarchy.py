@@ -145,6 +145,24 @@ def check_supported(sim: SimConfig, root: GridConfig):
         raise NotImplementedError(
             "SMR on a cylindrical grid (ROADMAP C29: the JAX SMR driver "
             "steps its levels with the Cartesian ctu3d)")
+    if sim.shearing_box or sim.fargo:
+        raise NotImplementedError(
+            "SMR with a shearing box or FARGO (ROADMAP C33: the JAX SMR "
+            "driver never calls fargo_advect, and applies the shearing "
+            "terms and the remaps to each level as if it were the whole "
+            "box)")
+
+
+def check_diffusion(par: ParameterDB, problem):
+    """Refuse microphysics on a mesh (ROADMAP C33: the JAX SMR driver never
+    calls integrate_diff, so a two-level deck with nu_iso runs inviscid)."""
+    from .microphysics.diffusion import COEFFICIENTS
+    if (any(par.getd_def("problem", k, 0.0) > 0.0 for k in COEFFICIENTS)
+            or getattr(problem, "cooling_fn", None) is not None):
+        raise NotImplementedError(
+            "SMR with diffusion or resistivity (ROADMAP C33: the JAX SMR "
+            "driver never calls integrate_diff, so the levels would run "
+            "without it)")
 
 
 def level_integrator(grid: GridConfig, sim: SimConfig):
@@ -219,6 +237,7 @@ class MeshSimulation:
         levels = []
         for (lev, grid, disp, pidx) in doms:
             prob = prob_cls(par, sim, grid)
+            check_diffusion(par, prob)
             st = prob.init(par, sim, grid, dev)
             link = None
             if lev > 0:

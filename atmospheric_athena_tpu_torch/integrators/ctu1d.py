@@ -32,6 +32,10 @@ def check_supported(sim: SimConfig, grid: GridConfig):
         raise NotImplementedError(
             "ctu1d on a cylindrical grid: cylindrical grids take "
             "integrators/cyl.py (ROADMAP A15 item 1)")
+    if sim.shearing_box or sim.fargo:
+        raise NotImplementedError(
+            "a shearing box on a 1D grid (ROADMAP C34: the JAX ctu1d step "
+            "has no Coriolis terms)")
     riemann.check_solver(sim)
     if sim.integrator != "ctu":
         raise ValueError(f"ctu1d is the CTU integrator; {sim.integrator} "

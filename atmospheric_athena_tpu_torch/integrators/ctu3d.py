@@ -84,11 +84,39 @@ def _eval_phi(phi_fn, grid: GridConfig, dtype, device):
 def _phi_arrays(problem, grid: GridConfig, dtype, device):
     """φ at cell centers and at the three left-face families, as full
     contiguous [Nz,Ny,Nx] tensors (cc_pos semantics, src/cc_pos.c:36-58);
-    (None, None) without a static potential."""
+    (None, None) without a potential.
+
+    When the problem enrolls both ``static_grav_pot`` (StaticGravPot) and
+    ``shearing_box_pot`` (ShearingBoxPot, strat.c:362-363), φ is their SUM
+    (JAX ctu3d.py:66-92): everywhere but the shearing box's full-dt
+    momentum update the reference applies the two potentials through the
+    same gradient expressions one after the other, so the sum is
+    equivalent; that update takes the static part alone
+    (_phi_static_arrays)."""
     phi_fn = getattr(problem, "static_grav_pot", None) if problem else None
-    if getattr(problem, "shearing_box_pot", None) is not None:
-        raise NotImplementedError("shearing-box potential (ROADMAP A15)")
-    if phi_fn is None:
+    shear_fn = (getattr(problem, "shearing_box_pot", None) if problem
+                else None)
+    if phi_fn is None and shear_fn is None:
+        return None, None
+    if phi_fn is not None and shear_fn is not None:
+        def fn(x1, x2, x3):
+            return phi_fn(x1, x2, x3) + shear_fn(x1, x2, x3)
+    else:
+        fn = phi_fn if phi_fn is not None else shear_fn
+    return _eval_phi(fn, grid, dtype, device)
+
+
+def _phi_static_arrays(problem, grid: GridConfig, dtype, device):
+    """StaticGravPot alone (JAX ctu3d.py:93-110), for the shearing box's
+    full-dt update, where the Crank-Nicolson scheme replaces the tidal
+    (ShearingBoxPot) momentum source but the static potential keeps the
+    dhalf-weighted gradient (integrate_3d_ctu.c:2741-2782).  (None, None)
+    unless the problem enrolls both potentials: hgb.c enrolls only one,
+    which then plays ShearingBoxPot."""
+    if problem is None:
+        return None, None
+    phi_fn = getattr(problem, "static_grav_pot", None)
+    if phi_fn is None or getattr(problem, "shearing_box_pot", None) is None:
         return None, None
     return _eval_phi(phi_fn, grid, dtype, device)
 
@@ -111,6 +139,10 @@ def check_supported(sim: SimConfig, grid: GridConfig):
         raise NotImplementedError(
             "CTU hydro: the hlld solver is MHD only (hlld.c:40), and ctu3d "
             "steps hydro only")
+    if sim.shearing_box or sim.fargo:
+        raise NotImplementedError(
+            "a hydro shearing box (ROADMAP C34: the JAX ctu3d step has no "
+            "Coriolis terms; the shearing box steps 3D MHD with ctu3d_mhd)")
     riemann.check_solver(sim)
     if grid.cylindrical:
         raise NotImplementedError(

@@ -22,9 +22,14 @@ The JAX package runs this step as jnp on every backend (no Pallas kernel
 takes MHD), so it launches no kernel here either: the plain functions run
 on the tensors' device.  The divisions by a grid spacing are IEEE
 divisions of two tensors (eos.exact_div), as in the JAX package, on the
-card too.  Shearing boxes are ROADMAP A15 (simulation.check_supported
-refuses them).  ``_emf_cc``, ``_corner_emf`` and ``_hcorr_etas`` keep their
-JAX names and signatures: the 2D step and the VL integrators use them.
+card too.  A shearing box (``sim.shearing_box``, with or without FARGO)
+takes the JAX step's shearing branches: the Coriolis kicks of the interface
+states and of the half-step momenta, RemapEy on the full-dt y-EMF and the
+Crank-Nicolson Coriolis and tidal update of the y-momentum fluctuation
+(integrate_3d_ctu.c:379-403, 1638-1651, 2222-2227, 2451-2480, 2653-2782),
+with the static potential apart from the tidal one (``phi_static``).
+``_emf_cc``, ``_corner_emf`` and ``_hcorr_etas`` keep their JAX names and
+signatures: the 2D step and the VL integrators use them.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ from ..defs import ID, IEN, IM1
 from ..eos import cfast, cons1d_to_prim1d, exact_div, prim1d_to_cons1d
 from ..ops import reconstruct, riemann
 from ..state import State
-from .ctu3d import _phi_arrays, _sh
+from .ctu3d import _phi_arrays, _phi_static_arrays, _sh
 from .sweep import vperm_from_sweep, vperm_to_sweep
 
 
@@ -90,18 +95,30 @@ def check_supported(sim: SimConfig, grid: GridConfig, ndim: int = 3):
         raise ValueError(f"the CT steps are CTU; MHD with {sim.integrator} "
                          "takes integrators/vl3d.py (3D) or vl_lowd.py (2D, "
                          "1D)")
-    if grid.cylindrical or sim.shearing_box:
+    if grid.cylindrical:
         raise NotImplementedError(
-            "cylindrical or shearing-box MHD (ROADMAP A15)")
+            f"ctu{ndim}d_mhd on a cylindrical grid: cylindrical grids take "
+            "integrators/cyl.py (ROADMAP A15 item 1; the JAX package steps "
+            "1D and 2D cylindrical MHD only)")
+    if sim.shearing_box and ndim != 3:
+        raise NotImplementedError(
+            f"a shearing box on {ndim}D MHD (ROADMAP C34: the JAX "
+            f"ctu{ndim}d_mhd step has no Coriolis terms)")
+    if sim.fargo and not sim.shearing_box:
+        raise NotImplementedError(
+            "FARGO without the shearing box (ROADMAP C34: orbital advection "
+            "needs the shearing box's Coriolis terms)")
     # every solver riemann.fluxes takes for MHD: roe, hlle, hlld, force
     riemann.check_solver(sim)
 
 
 def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
-         phi=None, return_fluxes=False):
+         phi=None, return_fluxes=False, phi_static=None):
     """One 3D CTU+CT step.  `dt` is a 0-d tensor (or float); `phi` =
     (phic, [phif_x, phif_y, phif_z]) from ctu3d._phi_arrays, or None to
-    evaluate the problem's potential here.  With `return_fluxes` (an SMR
+    evaluate the problem's potential here; on a shearing box `phi_static`
+    is ctu3d._phi_static_arrays' (evaluated here when None).  With
+    `return_fluxes` (an SMR
     level's step, JAX ctu3d_mhd.py:405-416) it returns (state, (Fp2, FByz2,
     emf2_)): the step-9 hydro fluxes {axis: [nv, ...]} in physical order,
     the transverse-B fluxes {axis: (By, Bz)} in sweep order and the final
@@ -118,6 +135,11 @@ def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
     Bi = [state.B1i, state.B2i, state.B3i]
     phic, phif = phi if phi is not None else _phi_arrays(
         problem, grid, U.dtype, U.device)
+    shear = sim.shearing_box
+    if phi_static is None and shear:
+        phi_static = _phi_static_arrays(problem, grid, U.dtype, U.device)
+    phic_s, phif_s = phi_static if phi_static is not None else (None, None)
+    om = sim.omega0
     ib = 5 if sim.adiabatic else 4
 
     d = U[ID]
@@ -137,6 +159,8 @@ def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
         W = cons1d_to_prim1d(U1d, Bxc, sim)
         del U1d
         Wm, Wp_ = reconstruct.lr_states(W, Bxc, dtodx[a], sim, axis=2 - a)
+        # the x1 sweep's W is physical-order: V1, V2 for the Coriolis kick
+        Wv = (W[1], W[2]) if shear and a == 0 else None
         del W
         Wl = _sh(Wp_, -1, a)
         del Wp_
@@ -153,10 +177,27 @@ def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
         Wr[ib + 1] += srcBz
         del srcBy, srcBz
 
-        # static gravity dt/2 (:318-342)
+        # static gravity dt/2 (:318-342); for a shearing box phi holds the
+        # tidal ShearingBoxPot (the same discrete form)
         if phic is not None:
             Wl[1] += -dtodx[a] * (phif[a] - _shf(phic, -1, a))
             Wr[1] += -dtodx[a] * (phic - phif[a])
+
+        # shearing-box Coriolis kick on the x1 interface states (:379-403,
+        # full dt, from the unreconstructed W)
+        if Wv is not None:
+            Wl[1] += dt * om * _shf(Wv[1], -1, a)
+            Wr[1] += dt * om * Wv[1]
+            if sim.fargo:
+                # orbital advection carries the background shear; only the
+                # epicyclic part remains (:395-397)
+                cf = hdt * (sim.qshear - 2.0) * om
+                Wl[2] += cf * _shf(Wv[0], -1, a)
+                Wr[2] += cf * Wv[0]
+            else:
+                Wl[2] += -dt * om * _shf(Wv[0], -1, a)
+                Wr[2] += -dt * om * Wv[0]
+            del Wv
 
         Bxi = Bi[a]  # face field at interface f = t^n B_ai (:217-218)
         Ul = prim1d_to_cons1d(Wl, Bxi, sim)
@@ -246,6 +287,15 @@ def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
                     Urc[a][IEN] += -dE
                     Ulc[a][IEN] += -_shf(dE, -1, a)
 
+        # shearing-box Coriolis on the x2/x3 face states (:1638-1651,
+        # :2053-2064; physical components)
+        if shear and a != 0:
+            Urc[a][IM1] += dt * om * U[IM1 + 1]
+            Ulc[a][IM1] += dt * om * _shf(U[IM1 + 1], -1, a)
+            cf = hdt * (sim.qshear - 2.0) * om if sim.fargo else -dt * om
+            Urc[a][IM1 + 1] += cf * U[IM1]
+            Ulc[a][IM1 + 1] += cf * _shf(U[IM1], -1, a)
+
         Byzlc[a] = (byl, bzl)
         Byzrc[a] = (byr, bzr)
     del Byzl, Byzr
@@ -264,6 +314,13 @@ def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
     if phic is not None:
         for c in range(3):
             Mh[c] = Mh[c] - q[c] * (_shf(phif[c], 1, c) - phif[c]) * U[ID]
+    if shear:
+        # (:2222-2227)
+        Mh[0] = Mh[0] + dt * om * U[IM1 + 1]
+        if sim.fargo:
+            Mh[1] = Mh[1] + hdt * (sim.qshear - 2.0) * om * U[IM1]
+        else:
+            Mh[1] = Mh[1] - dt * om * U[IM1]
     Bch = [0.5 * (Bf[a] + _shf(Bf[a], 1, a)) for a in axes]
     emf_cc_h = _emf_cc(Bch, Mh[0] / dhalf, Mh[1] / dhalf, Mh[2] / dhalf)
     del Bch, Mh
@@ -289,6 +346,11 @@ def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
     # === STEP 10: full-dt CT ================================================
     emf2_ = [_corner_emf(e, Fp2, FByz2, emf_cc_h) for e in axes]
     del emf_cc_h
+    if shear:
+        # average the y-EMF on the two x1 boundary faces with the remapped
+        # opposite face so net Bz is conserved (:2451-2480)
+        from ..shearing import remap_ey
+        emf2_[1] = remap_ey(emf2_[1], sim, grid, state.time)
     Binew = []
     for a in axes:
         a1, a2 = (a + 1) % 3, (a + 2) % 3
@@ -298,7 +360,10 @@ def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
 
     # === STEP 11: full-dt source terms ======================================
     Unew = U
-    if phic is not None:
+    if shear:
+        Unew = _shear_source(U, Fp2, dt, q, dtodx, dhalf, phic, phif, phif_s,
+                             sim, grid)
+    elif phic is not None:
         for a in axes:
             phir = _shf(phif[a], 1, a)
             phil = phif[a]
@@ -315,6 +380,72 @@ def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
 
     out = _splice(state, Unew, Binew, None, sim, grid, axes)
     return (out, (Fp2, FByz2, emf2_)) if return_fluxes else out
+
+
+def _shear_source(U, Fp2, dt, q, dtodx, dhalf, phic, phif, phif_s,
+                  sim: SimConfig, grid: GridConfig):
+    """The shearing box's full-dt source terms (JAX ctu3d_mhd.py:307-374):
+    the Crank-Nicolson Coriolis and tidal update on the y-momentum
+    FLUCTUATION dM2 = M2 + q·Ω·x1·d (:2653-2710; with FARGO the evolved M2
+    is the fluctuation, :2664-2685), the static potential's dhalf-weighted
+    momentum source (:2741-2782, applied apart from the CN block, which
+    replaces ShearingBoxPot alone) and the potential's energy source.
+    Returns U plus these terms (a new tensor)."""
+    om = sim.omega0
+    qsh = sim.qshear
+    om_dt = om * dt
+    fact = om_dt / (2.0 + (2.0 - qsh) * om_dt * om_dt)
+    qom = qsh * om
+    from ..shearing import x1c_row
+    x1c = x1c_row(grid, U)
+    x1l = x1c - 0.5 * grid.dx[0]
+    x1r = x1c + 0.5 * grid.dx[0]
+
+    def right(F, a):       # the flux at the cell's upper face along a
+        return _sh(F, 1, a)
+
+    M1n = U[IM1]
+    if sim.fargo:
+        dM2n = U[IM1 + 1]
+        fl1 = Fp2[0][IM1 + 1]
+        fr1 = right(Fp2[0], 0)[IM1 + 1]
+        fl2 = Fp2[1][IM1 + 1]
+        fr2 = right(Fp2[1], 1)[IM1 + 1]
+        fl3 = Fp2[2][IM1 + 1]
+        fr3 = right(Fp2[2], 2)[IM1 + 1]
+    else:
+        dM2n = U[IM1 + 1] + qom * x1c * U[ID]
+        fl1 = Fp2[0][IM1 + 1] + qom * x1l * Fp2[0][ID]
+        fr1 = right(Fp2[0], 0)[IM1 + 1] + qom * x1r * right(Fp2[0], 0)[ID]
+        fl2 = Fp2[1][IM1 + 1] + qom * x1c * Fp2[1][ID]
+        fr2 = right(Fp2[1], 1)[IM1 + 1] + qom * x1c * right(Fp2[1], 1)[ID]
+        fl3 = Fp2[2][IM1 + 1] + qom * x1c * Fp2[2][ID]
+        fr3 = right(Fp2[2], 2)[IM1 + 1] + qom * x1c * right(Fp2[2], 2)[ID]
+    M1e = (M1n
+           - q[0] * (right(Fp2[0], 0)[IM1] - Fp2[0][IM1])
+           - q[1] * (right(Fp2[1], 1)[IM1] - Fp2[1][IM1])
+           - q[2] * (right(Fp2[2], 2)[IM1] - Fp2[2][IM1]))
+    dM2e = dM2n - q[0] * (fr1 - fl1) - q[1] * (fr2 - fl2) \
+        - q[2] * (fr3 - fl3)
+    Unew = U.clone()
+    Unew[IM1] += (4.0 * dM2e + 2.0 * (qsh - 2.0) * om_dt * M1e) * fact
+    Unew[IM1 + 1] += 2.0 * (qsh - 2.0) * (M1e + om_dt * dM2e) * fact
+    if not sim.fargo:
+        Unew[IM1 + 1] += -0.5 * qsh * om_dt * (Fp2[0][ID]
+                                               + right(Fp2[0], 0)[ID])
+    axes = (0, 1, 2)
+    if phif_s is not None:
+        for a in axes:
+            Unew[IM1 + a] += (-dtodx[a] * (_shf(phif_s[a], 1, a) - phif_s[a])
+                              * dhalf)
+    if phic is not None and sim.adiabatic:
+        for a in axes:
+            phir = _shf(phif[a], 1, a)
+            phil = phif[a]
+            dE = dtodx[a] * (Fp2[a][ID] * (phic - phil) +
+                             _shf(Fp2[a][ID], 1, a) * (phir - phic))
+            Unew[IEN] += -dE
+    return Unew
 
 
 def _splice(state: State, Unew, Binew, B3new, sim: SimConfig,

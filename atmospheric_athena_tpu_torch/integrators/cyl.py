@@ -75,6 +75,10 @@ def check_supported(sim: SimConfig, grid: GridConfig):
             "item 1, as the JAX package)")
     if sim.special_relativity:
         raise NotImplementedError("cylindrical SR (ROADMAP A15)")
+    if sim.shearing_box or sim.fargo:
+        raise NotImplementedError(
+            "a shearing box on a cylindrical grid (ROADMAP C34: the JAX cyl "
+            "steps have no Coriolis terms)")
     if not grid.active(0):
         raise NotImplementedError(
             "cylindrical grids need an active R axis (x1) (ROADMAP A15 "

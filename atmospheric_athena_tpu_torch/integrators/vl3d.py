@@ -73,9 +73,12 @@ def check_gas(sim: SimConfig, grid: GridConfig):
                          "ctu3d, ctu3d_mhd or ctu2d_mhd")
     if sim.special_relativity:
         raise NotImplementedError("special-relativistic VL (ROADMAP A15)")
-    if grid.cylindrical or sim.shearing_box:
+    if grid.cylindrical:
+        raise NotImplementedError("cylindrical VL (ROADMAP A15)")
+    if sim.shearing_box or sim.fargo:
         raise NotImplementedError(
-            "cylindrical or shearing-box VL (ROADMAP A15)")
+            "a shearing box with the VL integrator (ROADMAP C34: the JAX "
+            "vl3d and vl_lowd steps have no Coriolis terms)")
     # every solver riemann.fluxes takes for the gas, as JAX's VL steps
     riemann.check_solver(sim)
 

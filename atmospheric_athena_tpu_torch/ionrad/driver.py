@@ -25,6 +25,7 @@ import torch
 
 from ..config import GridConfig, SimConfig
 from ..defs import ID, IEN, IM1, TINY_NUMBER
+from ..eos import sqrt
 from ..state import State
 from . import chemistry as chem
 from . import rad_kernels
@@ -202,7 +203,7 @@ def dti_percell(E, d, M1, M2, M3, sim: SimConfig, grid: GridConfig):
     for a, M in enumerate((M1, M2, M3)):
         if grid.Nx[a] > 1:
             v = torch.abs(M) * di
-            dti = torch.maximum(dti, (v + torch.sqrt(asq)) / grid.dx[a])
+            dti = torch.maximum(dti, (v + sqrt(asq)) / grid.dx[a])
     return dti
 
 

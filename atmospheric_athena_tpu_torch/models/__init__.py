@@ -16,16 +16,17 @@ def register(name):
 
 
 def get_problem(name: str):
-    from . import (blast, carbuncle, cpaw, current_sheet,  # noqa: F401
-                   cylblast, cylwindrot, cylwindrotb, field_loop, ifront,
-                   ioniz_sphere, kh, linear_wave, lw_implode, noh,
-                   orszag_tang, pgflow, rotor, rt, shkset1d, shkset2d,
-                   shkset3d, shu_osher, testsedov, turb, twoibw)
+    from . import (blast, carbuncle, cpaw, cshock1d,  # noqa: F401
+                   current_sheet, cylblast, cylwindrot, cylwindrotb,
+                   field_loop, hall_drift, hgb, ifront, ioniz_sphere, kh,
+                   linear_wave, lw_implode, noh, orszag_tang, pgflow, rotor,
+                   rt, shkset1d, shkset2d, shkset3d, shu_osher, strat,
+                   testsedov, turb, twoibw)
     try:
         return _REGISTRY[name]
     except KeyError:
         raise NotImplementedError(
-            f"problem {name!r} is not ported yet (ROADMAP A15: the "
-            "shearing-box, microphysics, self-gravity and particle "
+            f"problem {name!r} is not ported yet (ROADMAP A15: jeans, "
+            "par_epicycle and par_friction, the self-gravity and particle "
             f"problems); ported: {sorted(_REGISTRY)}"
         ) from None

@@ -58,6 +58,7 @@ import torch
 from .. import cuda_lib
 from ..config import GridConfig, SimConfig
 from ..defs import ID, IEN, IM1
+from ..eos import sqrt
 from . import hydro_kernels
 
 
@@ -92,7 +93,7 @@ def _cfast_cons(Uc, sim: SimConfig):
     di = 1.0 / d
     p = sim.gamma_1 * (Uc[IEN] - 0.5 * (
         Uc[IM1] ** 2 + Uc[IM1 + 1] ** 2 + Uc[IM1 + 2] ** 2) * di)
-    return torch.sqrt(sim.gamma * p * di)
+    return sqrt(sim.gamma * p * di)
 
 
 def hcorr_eta(Ulc, Urc, sim: SimConfig, a: int):

@@ -18,6 +18,7 @@ import torch
 
 from ..config import SimConfig
 from ..defs import TINY_NUMBER
+from ..eos import sqrt
 
 
 def lmul(lem, vec):
@@ -65,7 +66,7 @@ def esys_prim_adb_hyd(d, v1, rho_a2, sim: SimConfig):
     """Adiabatic hydro, primitive variables (esystem_prim.c:120-199).
     Input rho_a2 = Gamma*P.  Variable order (d, Vx, Vy, Vz, P); NWAVE=5."""
     asq = rho_a2 / d
-    a = torch.sqrt(asq)
+    a = sqrt(asq)
     ev = [v1 - a, v1, v1, v1, v1 + a]
     na = 0.5 / asq
     rem = [
@@ -134,12 +135,12 @@ def _mhd_speeds(d, b1, btsq, asq):
     ct2 = btsq * di
     tsum = vaxsq + ct2 + asq
     tdif = vaxsq + ct2 - asq
-    cf2_cs2 = torch.sqrt(tdif * tdif + 4.0 * asq * ct2)
+    cf2_cs2 = sqrt(tdif * tdif + 4.0 * asq * ct2)
     cfsq = 0.5 * (tsum + cf2_cs2)
-    cf = torch.sqrt(cfsq)
+    cf = sqrt(cfsq)
     cssq = asq * vaxsq / cfsq
-    cs = torch.sqrt(cssq)
-    bt = torch.sqrt(btsq)
+    cs = sqrt(cssq)
+    bt = sqrt(btsq)
     return vaxsq, cfsq, cf, cssq, cs, bt, cf2_cs2
 
 
@@ -159,8 +160,8 @@ def _alphas(asq, cfsq, cssq, denom):
     cf2_a2 = cfsq - asq
     deg = denom == 0.0
     safe = torch.where(deg, 1.0, denom)
-    af_gen = torch.sqrt(torch.clamp_min(a2_cs2, 0.0) / safe)
-    as_gen = torch.sqrt(torch.clamp_min(cf2_a2, 0.0) / safe)
+    af_gen = sqrt(torch.clamp_min(a2_cs2, 0.0) / safe)
+    as_gen = sqrt(torch.clamp_min(cf2_a2, 0.0) / safe)
     alpha_f = torch.where(deg, 1.0,
                           torch.where(a2_cs2 <= 0.0, 0.0,
                                       torch.where(cf2_a2 <= 0.0, 1.0,
@@ -181,14 +182,14 @@ def esys_prim_adb_mhd(d, v1, rho_a2, b1, b2, b3, sim: SimConfig):
     """Adiabatic MHD primitive eigensystem (esystem_prim.c:428-587).
     Variable order (d, Vx, Vy, Vz, P, By, Bz); NWAVE=7."""
     asq = rho_a2 / d          # a² = Gamma·P/d
-    a = torch.sqrt(asq)
+    a = sqrt(asq)
     btsq = b2 * b2 + b3 * b3
     vaxsq, cfsq, cf, cssq, cs, bt, cf2_cs2 = _mhd_speeds(d, b1, btsq, asq)
     bet2, bet3 = _betas(b2, b3, bt)
     alpha_f, alpha_s = _alphas(asq, cfsq, cssq, cf2_cs2)
 
     # Q's and A's (eq. A14-15; esystem_prim.c:443-449)
-    sqrtd = torch.sqrt(d)
+    sqrtd = sqrt(d)
     isqrtd = 1.0 / sqrtd
     s = sign1(b1)
     qf = cf * alpha_f * s
@@ -196,7 +197,7 @@ def esys_prim_adb_mhd(d, v1, rho_a2, b1, b2, b3, sim: SimConfig):
     af_prime = a * alpha_f * isqrtd
     as_prime = a * alpha_s * isqrtd
 
-    vax = torch.sqrt(vaxsq)
+    vax = sqrt(vaxsq)
     ev = [v1 - cf, v1 - vax, v1 - cs, v1, v1 + cs, v1 + vax, v1 + cf]
 
     # Right eigenmatrix, columns (eq. A12)
@@ -249,7 +250,7 @@ def esys_prim_iso_mhd(d, v1, b1, b2, b3, sim: SimConfig):
     # discriminant (esystem_prim.c:248-261)
     alpha_f, alpha_s = _alphas(asq, cfsq, cssq, cfsq - cssq)
 
-    sqrtd = torch.sqrt(d)
+    sqrtd = sqrt(d)
     isqrtd = 1.0 / sqrtd
     s = sign1(b1)
     qf = cf * alpha_f * s
@@ -258,7 +259,7 @@ def esys_prim_iso_mhd(d, v1, b1, b2, b3, sim: SimConfig):
     af_prime = a * alpha_f * isqrtd
     as_prime = a * alpha_s * isqrtd
 
-    vax = torch.sqrt(vaxsq)
+    vax = sqrt(vaxsq)
     ev = [v1 - cf, v1 - vax, v1 - cs, v1 + cs, v1 + vax, v1 + cf]
 
     rem = [
@@ -301,7 +302,7 @@ def esys_roe_adb_hyd(v1, v2, v3, h, sim: SimConfig, vectors=True):
     g1 = sim.gamma_1
     vsq = v1 * v1 + v2 * v2 + v3 * v3
     asq = g1 * torch.clamp_min(h - 0.5 * vsq, TINY_NUMBER)
-    a = torch.sqrt(asq)
+    a = sqrt(asq)
     ev = [v1 - a, v1, v1, v1, v1 + a]
     if not vectors:
         return ev, None, None

@@ -14,7 +14,7 @@ import torch
 
 from ..config import SimConfig
 from ..defs import TINY_NUMBER
-from ..eos import exact_div
+from ..eos import exact_div, sqrt
 from .eigen import sign1
 
 
@@ -28,19 +28,19 @@ def _common(d, b1, b2, b3, bt_star_fac, twid_csq):
     ct2 = bt_starsq * di
     tsum = vaxsq + ct2 + twid_csq
     tdif = vaxsq + ct2 - twid_csq
-    cf2_cs2 = torch.sqrt(tdif * tdif + 4.0 * twid_csq * ct2)
+    cf2_cs2 = sqrt(tdif * tdif + 4.0 * twid_csq * ct2)
     cfsq = 0.5 * (tsum + cf2_cs2)
-    cf = torch.sqrt(cfsq)
+    cf = sqrt(cfsq)
     cssq = twid_csq * vaxsq / cfsq
-    cs = torch.sqrt(cssq)
+    cs = sqrt(cssq)
 
-    bt = torch.sqrt(btsq)
-    bt_star = torch.sqrt(bt_starsq)
+    bt = sqrt(btsq)
+    bt_star = sqrt(bt_starsq)
     bt_pos = bt > 0.0
     safe_bt = torch.where(bt_pos, bt, 1.0)
     bet2 = torch.where(bt_pos, b2 / safe_bt, 1.0)
     bet3 = torch.where(bt_pos, b3 / safe_bt, 0.0)
-    sfac = torch.sqrt(bt_star_fac)
+    sfac = sqrt(bt_star_fac)
     bet2_star = bet2 / sfac
     bet3_star = bet3 / sfac
     bet_starsq = bet2_star ** 2 + bet3_star ** 2
@@ -50,8 +50,8 @@ def _common(d, b1, b2, b3, bt_star_fac, twid_csq):
     denom = torch.where(deg, 1.0, cfsq - cssq)
     a2_cs2 = twid_csq - cssq
     cf2_a2 = cfsq - twid_csq
-    af_gen = torch.sqrt(torch.clamp_min(a2_cs2, 0.0) / denom)
-    as_gen = torch.sqrt(torch.clamp_min(cf2_a2, 0.0) / denom)
+    af_gen = sqrt(torch.clamp_min(a2_cs2, 0.0) / denom)
+    as_gen = sqrt(torch.clamp_min(cf2_a2, 0.0) / denom)
     alpha_f = torch.where(deg, 1.0,
                           torch.where(a2_cs2 <= 0.0, 0.0,
                                       torch.where(cf2_a2 <= 0.0, 1.0,
@@ -61,7 +61,7 @@ def _common(d, b1, b2, b3, bt_star_fac, twid_csq):
                                       torch.where(cf2_a2 <= 0.0, 0.0,
                                                   as_gen)))
 
-    vax = torch.sqrt(vaxsq)
+    vax = sqrt(vaxsq)
     s = sign1(b1)
     return dict(di=di, btsq=btsq, bt_star=bt_star, vaxsq=vaxsq, vax=vax,
                 cf=cf, cs=cs, cfsq=cfsq, cssq=cssq, bet2=bet2, bet3=bet3,
@@ -93,9 +93,9 @@ def esys_roe_adb_mhd(d, v1, v2, v3, h, b1, b2, b3, x, y, sim: SimConfig,
     bet2_star, bet3_star = c["bet2_star"], c["bet3_star"]
     bet_starsq, bt_star, s = c["bet_starsq"], c["bt_star"], c["s"]
 
-    sqrtd = torch.sqrt(d)
+    sqrtd = sqrt(d)
     isqrtd = 1.0 / sqrtd
-    twid_a = torch.sqrt(twid_asq)
+    twid_a = sqrt(twid_asq)
     qf = cf * alpha_f * s
     qs = cs * alpha_s * s
     af_prime = twid_a * alpha_f * isqrtd
@@ -206,8 +206,8 @@ def esys_roe_iso_mhd(d, v1, v2, v3, b1, b2, b3, x, y, sim: SimConfig,
     bet2_star, bet3_star = c["bet2_star"], c["bet3_star"]
     bet_starsq, bt_star, s = c["bet_starsq"], c["bt_star"], c["s"]
 
-    sqrtd = torch.sqrt(d)
-    twid_c = torch.sqrt(twid_csq)
+    sqrtd = sqrt(d)
+    twid_c = sqrt(twid_csq)
     qf = cf * alpha_f * s
     qs = cs * alpha_s * s
     af_prime = twid_c * alpha_f / sqrtd

@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..config import SimConfig
-from ..eos import cons1d_to_prim1d
+from ..eos import cons1d_to_prim1d, sqrt
 from . import eigen
 
 
@@ -70,8 +70,8 @@ def _roe_averages(Ul, Ur, Wl, Wr, Bxi, sim: SimConfig):
     enthalpy hroe only for adiabatic gas; MHD adds the averaged transverse
     field, the Roe correction factors x, y and each side's magnetic
     pressure."""
-    sqrtdl = torch.sqrt(Wl[0])
-    sqrtdr = torch.sqrt(Wr[0])
+    sqrtdl = sqrt(Wl[0])
+    sqrtdr = sqrt(Wr[0])
     isdlpdr = 1.0 / (sqrtdl + sqrtdr)
     out = dict(
         droe=sqrtdl * sqrtdr,
@@ -158,14 +158,14 @@ def _hlle_core(Ul, Ur, Wl, Wr, Bxi, sim: SimConfig, avg, ev,
         else:
             asq = sim.iso_csound2
         if not sim.mhd:
-            return torch.sqrt(asq * torch.ones_like(W[0]))
+            return sqrt(asq * torch.ones_like(W[0]))
         ib = 5 if sim.adiabatic else 4
         vaxsq = Bxi * Bxi / W[0]
         ct2 = (U[ib] ** 2 + U[ib + 1] ** 2) / W[0]
         qsq = vaxsq + ct2 + asq
         tmp = vaxsq + ct2 - asq
-        cfsq = 0.5 * (qsq + torch.sqrt(tmp * tmp + 4.0 * asq * ct2))
-        return torch.sqrt(cfsq)
+        cfsq = 0.5 * (qsq + sqrt(tmp * tmp + 4.0 * asq * ct2))
+        return sqrt(cfsq)
 
     cfl = cf_side(Ul, Wl)
     cfr = cf_side(Ur, Wr)
@@ -301,8 +301,8 @@ def hllc(Ul, Ur, Wl, Wr, Bxi, sim: SimConfig, etah=None, return_pflux=False):
     avg = _roe_averages(Ul, Ur, Wl, Wr, Bxi, sim)
     ev, _, _ = _esys_roe(avg, Bxi, sim, vectors=False)
     if sim.adiabatic:
-        cfl = torch.sqrt(sim.gamma * Wl[4] / Wl[0])
-        cfr = torch.sqrt(sim.gamma * Wr[4] / Wr[0])
+        cfl = sqrt(sim.gamma * Wl[4] / Wl[0])
+        cfr = sqrt(sim.gamma * Wr[4] / Wr[0])
     else:
         cfl = cfr = sim.iso_csound
     ar = torch.maximum(ev[sim.nwave - 1], Wr[1] + cfr)
@@ -374,9 +374,9 @@ def hlld(Ul, Ur, Wl, Wr, Bxi, sim: SimConfig, etah=None, return_pflux=False):
     gpr = sim.gamma * Wr[4]
     gpbl = gpl + 2.0 * pbl
     gpbr = gpr + 2.0 * pbr
-    cfl = torch.sqrt((gpbl + torch.sqrt(gpbl ** 2 - 4 * gpl * Bxsq))
+    cfl = sqrt((gpbl + sqrt(gpbl ** 2 - 4 * gpl * Bxsq))
                      / (2.0 * Wl[0]))
-    cfr = torch.sqrt((gpbr + torch.sqrt(gpbr ** 2 - 4 * gpr * Bxsq))
+    cfr = sqrt((gpbr + sqrt(gpbr ** 2 - 4 * gpr * Bxsq))
                      / (2.0 * Wr[0]))
     cfmax = torch.maximum(cfl, cfr)
     lle = Wl[1] <= Wr[1]
@@ -406,8 +406,8 @@ def hlld(Ul, Ur, Wl, Wr, Bxi, sim: SimConfig, etah=None, return_pflux=False):
     sdmr = spd4 - spd2
     dlst = Ul[0] * sdl / sdml
     drst = Ur[0] * sdr / sdmr
-    sqrtdl = torch.sqrt(dlst)
-    sqrtdr = torch.sqrt(drst)
+    sqrtdl = sqrt(dlst)
+    sqrtdr = sqrt(drst)
     spd1 = spd2 - torch.abs(Bxi) / sqrtdl
     spd3 = spd2 + torch.abs(Bxi) / sqrtdr
 
@@ -505,13 +505,13 @@ def force(Ul, Ur, Wl, Wr, Bxi, sim: SimConfig, etah=None):
         else:
             asq = sim.iso_csound2
         if not sim.mhd:
-            return torch.sqrt(asq * torch.ones_like(W[0]))
+            return sqrt(asq * torch.ones_like(W[0]))
         ib = 5 if sim.adiabatic else 4
         vaxsq = Bxi * Bxi / W[0]
         ct2 = (U[ib] ** 2 + U[ib + 1] ** 2) / W[0]
         qsq = vaxsq + ct2 + asq
         tmp = vaxsq + ct2 - asq
-        return torch.sqrt(0.5 * (qsq + torch.sqrt(tmp * tmp
+        return sqrt(0.5 * (qsq + sqrt(tmp * tmp
                                                   + 4 * asq * ct2)))
 
     ar = torch.maximum(ev[sim.nwave - 1], Wr[1] + cf_side(Ur, Wr))
@@ -567,10 +567,10 @@ def two_shock(Ul, Ur, Wl, Wr, Bxi, sim: SimConfig, etah=None):
     (two_shock.c:29-129).  `etah` is ignored."""
     _check(sim, "two_shock")
     cs = sim.iso_csound
-    zl = torch.sqrt(Wl[0])
-    zr = torch.sqrt(Wr[0])
+    zl = sqrt(Wl[0])
+    zr = sqrt(Wr[0])
     tmp = zl * zr * (Wl[1] - Wr[1]) / (2.0 * cs * (zl + zr))
-    zc = tmp + torch.sqrt(tmp * tmp + zl * zr)
+    zc = tmp + sqrt(tmp * tmp + zl * zr)
     Vxc = (Wl[1] * zl + Wr[1] * zr) / (zl + zr) + cs * (zl - zr) / zc
     sl = Wl[1] - cs * zc / zl
     sr = Wr[1] + cs * zc / zr
@@ -606,29 +606,29 @@ def _exact_adb(Ul, Ur, Wl, Wr, sim: SimConfig):
     TOL = 1.0e-6
     dl, vl, ul2, ul3, pl = Wl[0], Wl[1], Wl[2], Wl[3], Wl[4]
     dr, vr, ur2, ur3, pr = Wr[0], Wr[1], Wr[2], Wr[3], Wr[4]
-    al = torch.sqrt(g * pl / dl)
-    ar = torch.sqrt(g * pr / dr)
+    al = sqrt(g * pl / dl)
+    ar = sqrt(g * pr / dr)
 
     def pfunc(d, p, a, pold):
         raref = 2.0 * a / g1 * ((pold / p) ** (g1 / (2.0 * g)) - 1.0)
         Ak = 2.0 / (d * (g + 1.0))
         Bk = p * g1 / (g + 1.0)
-        shock = (pold - p) * torch.sqrt(Ak / (pold + Bk))
+        shock = (pold - p) * sqrt(Ak / (pold + Bk))
         return torch.where(pold <= p, raref, shock)
 
     def pfunc_deriv(d, p, a, pold):
         raref = 1.0 / (a * d) * (pold / p) ** (-(g + 1.0) / (2.0 * g))
         Ak = 2.0 / (d * (g + 1.0))
         Bk = p * g1 / (g + 1.0)
-        shock = torch.sqrt(Ak / (pold + Bk)) * (
+        shock = sqrt(Ak / (pold + Bk)) * (
             1.0 - 0.5 * (pold - p) / (Bk + pold))
         return torch.where(pold <= p, raref, shock)
 
     # two-shock initial guess (exact.c:347-371)
     ppv = torch.clamp_min(0.5 * (pl + pr)
                           - 0.125 * (vr - vl) * (dl + dr) * (al + ar), 0.0)
-    gl = torch.sqrt((2.0 / (dl * (g + 1.0))) / (g1 * pl / (g + 1.0) + ppv))
-    gr = torch.sqrt((2.0 / (dr * (g + 1.0))) / (g1 * pr / (g + 1.0) + ppv))
+    gl = sqrt((2.0 / (dl * (g + 1.0))) / (g1 * pl / (g + 1.0) + ppv))
+    gr = sqrt((2.0 / (dr * (g + 1.0))) / (g1 * pr / (g + 1.0) + ppv))
     p0 = (gl * pl + gr * pr - (vr - vl)) / (gr + gl)
     pold = torch.where(p0 < 0.0, TOL, p0)
     done = torch.zeros_like(pold, dtype=torch.bool)
@@ -674,9 +674,9 @@ def _exact_adb(Ul, Ur, Wl, Wr, sim: SimConfig):
     FmidL = side_flux(dcl, Vxc, ul2, ul3, pc)
     FmidR = side_flux(dcr, Vxc, ur2, ur3, pc)
 
-    sl = vl - al * torch.sqrt(pc * (g + 1.0) / (2.0 * g * pl)
+    sl = vl - al * sqrt(pc * (g + 1.0) / (2.0 * g * pl)
                               + g1 / (2.0 * g))
-    sr = vr + ar * torch.sqrt(pc * (g + 1.0) / (2.0 * g * pr)
+    sr = vr + ar * sqrt(pc * (g + 1.0) / (2.0 * g * pr)
                               + g1 / (2.0 * g))
     alc = al * (pc / pl) ** (g1 / (2.0 * g))
     arc = ar * (pc / pr) ** (g1 / (2.0 * g))
@@ -707,14 +707,14 @@ def _exact_iso(Ul, Ur, Wl, Wr, sim: SimConfig):
     cs2 = sim.iso_csound2
     dl, vl, ul2, ul3 = Wl[0], Wl[1], Wl[2], Wl[3]
     dr, vr, ur2, ur3 = Wr[0], Wr[1], Wr[2], Wr[3]
-    zl = torch.sqrt(dl)
-    zr = torch.sqrt(dr)
+    zl = sqrt(dl)
+    zr = sqrt(dr)
     dmin = torch.minimum(dl, dr)
     dmax = torch.maximum(dl, dr)
 
     # 1-shock + 2-shock candidate (exact.c:90-99)
     tmp = zl * zr * (vl - vr) / (2.0 * cs * (zl + zr))
-    zm = tmp + torch.sqrt(tmp * tmp + zl * zr)
+    zm = tmp + sqrt(tmp * tmp + zl * zr)
     dm_ss = zm * zm
     vxm_ss = vl - cs * (dm_ss - dl) / (zm * zl)
 
@@ -725,8 +725,8 @@ def _exact_iso(Ul, Ur, Wl, Wr, sim: SimConfig):
     # mixed shock/raref root of srder (exact.c:266-273) by rtsafe
     def srder(dm):
         y = (vr - vl) + cs * (torch.log(dm / dmax)
-                              + (dm - dmin) / torch.sqrt(dm * dmin))
-        dydx = cs / dm * (1.0 + 0.5 * (dm + dmin) / torch.sqrt(dm * dmin))
+                              + (dm - dmin) / sqrt(dm * dmin))
+        dydx = cs / dm * (1.0 + 0.5 * (dm + dmin) / sqrt(dm * dmin))
         return y, dydx
 
     f_lo, _ = srder(dmin)
@@ -788,8 +788,8 @@ def _exact_iso(Ul, Ur, Wl, Wr, sim: SimConfig):
             dm * vxm * torch.where(vxm >= 0.0, ul2, ur2),
             dm * vxm * torch.where(vxm >= 0.0, ul3, ur3)]
 
-    sl = vl - cs * torch.sqrt(dm) / zl
-    sr = vr + cs * torch.sqrt(dm) / zr
+    sl = vl - cs * sqrt(dm) / zl
+    sr = vr + cs * sqrt(dm) / zr
     left_outer = torch.where(left_raref, hdl >= 0.0, sl >= 0.0)
     left_fan = left_raref & (hdl < 0.0) & (tll >= 0.0)
     right_outer = torch.where(right_raref, hdr <= 0.0, sr <= 0.0)

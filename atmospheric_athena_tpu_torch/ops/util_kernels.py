@@ -28,6 +28,7 @@ from collections import Counter
 
 from ..config import GridConfig, SimConfig
 from ..defs import ID, IEN, IM1, TINY_NUMBER
+from ..eos import sqrt
 
 _BLOCK = 1024
 _kernel = None
@@ -42,9 +43,9 @@ def _per_axis_plain(U, sim: SimConfig, grid: GridConfig):
         qsq = v[0] ** 2 + v[1] ** 2 + v[2] ** 2
         p = torch.clamp_min(sim.gamma_1 * (Ui[IEN] - 0.5 * Ui[ID] * qsq),
                             TINY_NUMBER)
-        cs = torch.sqrt(sim.gamma * p * di)
+        cs = sqrt(sim.gamma * p * di)
     else:
-        cs = torch.sqrt(sim.iso_csound2 * torch.ones_like(di))
+        cs = sqrt(sim.iso_csound2 * torch.ones_like(di))
     return [torch.amax(torch.abs(v[a]) + cs) for a in range(3)]
 
 

@@ -17,8 +17,12 @@ MHD, ctu3d.py for 2D and 3D hydro.
   - ``Simulation.from_file`` / ``from_par``: par parsing, config build,
     problem init, initial ghost fill, initial dt (main.c steps 1-9).
   - ``Simulation.step()``: one mesh update in the reference's order —
-    radiation sub-cycle (may shrink dt), ghost fill, hydro, problem
-    userwork, time/dt update, ghost fill (main.c:541-669).
+    the operator-split microphysics (``diffuse``: dt clamped to the
+    diffusion limit, microphysics.integrate_diff, ghost fill), radiation
+    sub-cycle (may shrink dt), ghost fill, hydro, FARGO orbital advection
+    (shearing.fargo_advect), problem userwork, time/dt update, ghost fill
+    (main.c:530-669).  A shearing box (3D MHD with CTU) takes ctu3d_mhd's
+    shearing branches and the shearing sheet in the ghost fill.
   - ``Simulation.run()``: host loop with tlim/nlim termination, the
     <outputN> dispatcher before each step and once at the end
     (data_output), and zone-cycles/sec reporting (main.c:699-735).
@@ -95,8 +99,15 @@ def check_supported(par: ParameterDB, sim: SimConfig, grid: GridConfig):
     blockers = [
         (sim.special_relativity, "special relativity (ROADMAP A15)"),
         (sim.self_gravity, "self-gravity (ROADMAP A15)"),
-        (sim.shearing_box or sim.fargo, "shearing box / FARGO (ROADMAP "
-                                        "A15)"),
+        (sim.shearing_box and not (
+            sim.mhd and grid.ndim == 3 and sim.integrator == "ctu"
+            and not grid.cylindrical),
+         f"a shearing box on {grid.ndim}D {sim.gas} with {sim.integrator}"
+         f"{' on a cylindrical grid' if grid.cylindrical else ''} (ROADMAP "
+         "C34: the JAX package steps it without the Coriolis terms; the "
+         "shearing box runs on 3D MHD with CTU)"),
+        (sim.fargo and not sim.shearing_box,
+         "FARGO without the shearing box (ROADMAP C34)"),
         (sim.ion_radplane and not sim.adiabatic,
          "plane radiation on isothermal gas (ROADMAP C14: the JAX "
          "package's radiation takes the first scalar as the energy)"),
@@ -106,13 +117,43 @@ def check_supported(par: ParameterDB, sim: SimConfig, grid: GridConfig):
         (sim.ion_radplane and sim.mhd,
          "plane radiation on MHD gas (ROADMAP A15: the radiation's kernels "
          "and energy update take hydro)"),
-        (any(par.getd_def("problem", k, 0.0) > 0.0 for k in (
-            "nu_iso", "kappa_iso", "eta_O", "Q_AD", "Q_Hall", "nu_aniso",
-            "kappa_aniso")), "diffusion / microphysics (ROADMAP A15)"),
     ]
     for bad, what in blockers:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet")
+
+
+def diffusion_pars(par: ParameterDB, sim: SimConfig, grid: GridConfig,
+                   problem):
+    """The microphysics coefficients of a deck (JAX simulation.py:193-221:
+    <problem> nu_iso, kappa_iso, eta_O, Q_AD, Q_Hall, nu_aniso, kappa_aniso
+    and d_ind, which when present selects the single-fluid eta_AD) and the
+    problem's cooling_fn, as keywords of microphysics.integrate_diff; None
+    when none is set.  Raises on what the JAX package would run without the
+    physics asked for: a cylindrical grid (ROADMAP C36: its integrate_diff
+    applies the Cartesian stencils there) and the coefficients its
+    integrate_diff skips (C35, microphysics.diffusion.check_coefficients)."""
+    from .microphysics.diffusion import check_coefficients
+    kw = dict(nu_iso=par.getd_def("problem", "nu_iso", 0.0),
+              kappa_iso=par.getd_def("problem", "kappa_iso", 0.0),
+              eta_ohm=par.getd_def("problem", "eta_O", 0.0),
+              q_ad=par.getd_def("problem", "Q_AD", 0.0),
+              q_hall=par.getd_def("problem", "Q_Hall", 0.0),
+              nu_aniso=par.getd_def("problem", "nu_aniso", 0.0),
+              kappa_aniso=par.getd_def("problem", "kappa_aniso", 0.0))
+    cooling_fn = getattr(problem, "cooling_fn", None)
+    if not any(v > 0.0 for v in kw.values()) and cooling_fn is None:
+        return None
+    if grid.cylindrical:
+        raise NotImplementedError(
+            "diffusion on a cylindrical grid (ROADMAP C36: the JAX "
+            "integrate_diff applies its Cartesian stencils there, without "
+            "the radial factors)")
+    check_coefficients(sim, grid, cooling=cooling_fn is not None, **kw)
+    kw["d_ind"] = (par.getd("problem", "d_ind")
+                   if par.exist("problem", "d_ind") else None)
+    kw["cooling_fn"] = cooling_fn
+    return kw
 
 
 def configure(par: ParameterDB, problem: Optional[str], dtype: Optional[str],
@@ -197,6 +238,17 @@ class Simulation:
                                             state.U.device)
                        if hasattr(problem, "userwork_aux") else None)
         self.rad_iters = []     # radiation sub-iterations of each step
+        # a shearing box's static potential alone, for ctu3d_mhd's full-dt
+        # update (JAX ctu3d_mhd.py:76-78)
+        self.phi_static = None
+        if sim.shearing_box and self.integ is ctu3d_mhd:
+            self.phi_static = ctu3d._phi_static_arrays(
+                problem, grid, state.U.dtype, state.U.device)
+        # the operator-split microphysics (JAX simulation.py:193-221); its
+        # CFL bound is computed at the first step, as the JAX package's
+        # (from the state then: constant-AD mode reads max B^2 from it)
+        self.diff = diffusion_pars(par, sim, grid, problem)
+        self.dt_diff = None
 
     # ------------------------------------------------------------------ setup
 
@@ -272,6 +324,13 @@ class Simulation:
         # the record_function ranges name the phases in a torch.profiler
         # trace (tools/torch_profile_step.py); without a profiler each
         # costs ~14 us of host time (measured on an x86 host), six per step
+        if self.diff is not None:
+            # operator-split diffusion before radiation and hydro
+            # (main.c:530-539), dt clamped to the explicit-diffusion CFL
+            with record_function("diffusion"):
+                state, dt = self.diffuse(state, dt)
+            with record_function("bvals"):
+                state = bvals.apply_bc(state, grid, sim, problem)
         if self.ion is not None:
             from .ionrad.driver import ion_radtransfer
             with record_function("radiation"):
@@ -282,8 +341,15 @@ class Simulation:
             with record_function("bvals"):
                 state = bvals.apply_bc(state, grid, sim, problem)
         with record_function("hydro"):
+            kw = ({} if self.phi_static is None
+                  else {"phi_static": self.phi_static})
             state = self.integ.step(state, dt, sim, grid, problem,
-                                    phi=self.phi)
+                                    phi=self.phi, **kw)
+        if sim.fargo:
+            # orbital advection right after the integrator (main.c:576-583)
+            from .shearing import fargo_advect
+            with record_function("fargo"):
+                state = fargo_advect(state, sim, grid, dt)
         userwork = getattr(problem, "userwork_in_loop", None)
         if userwork is not None:
             with record_function("userwork"):
@@ -295,6 +361,40 @@ class Simulation:
                                                    self.cour_no))
         with record_function("bvals"):
             self.state = bvals.apply_bc(state, grid, sim, problem)
+
+    def diffuse(self, state: State, dt):
+        """The microphysics update of a cycle (JAX simulation.py:306-331):
+        dt clamped to the diffusion CFL, a host float from diff_dt, or with
+        the single-fluid ambipolar or Hall coefficient (d_ind set) also to
+        diff_dt_resistive_state's device bound (no host read); then
+        integrate_diff.  Returns (state, dt)."""
+        from .microphysics.diffusion import (diff_dt, diff_dt_resistive_state,
+                                             integrate_diff)
+        c, sim, grid = self.diff, self.sim, self.grid
+        if self.dt_diff is None:
+            eta_ad_max = 0.0
+            if c["q_ad"] > 0.0 and c["d_ind"] is None:
+                # constant-coefficient mode: eta = Q_AD*B^2 bounded by the
+                # field's maximum at the first step
+                Bcc = state.Bcc
+                eta_ad_max = c["q_ad"] * float(torch.max(
+                    Bcc[0] ** 2 + Bcc[1] ** 2 + Bcc[2] ** 2))
+            self.dt_diff = diff_dt(sim, grid, self.cour_no, c["nu_iso"],
+                                   c["kappa_iso"], c["eta_ohm"],
+                                   eta_ad_max=eta_ad_max,
+                                   nu_aniso=c["nu_aniso"],
+                                   kappa_aniso=c["kappa_aniso"])
+        if (c["q_ad"] > 0.0 or c["q_hall"] > 0.0) and c["d_ind"] is not None:
+            # single-fluid ambipolar/Hall: eta is a field of the evolving B
+            # and rho, so the bound is recomputed each cycle
+            # (diff_dt.c:75-77)
+            dt_res = diff_dt_resistive_state(
+                state, sim, grid, self.cour_no, c["eta_ohm"], c["q_ad"],
+                c["d_ind"], q_hall=c["q_hall"])
+            dt = torch.minimum(dt, torch.clamp_max(dt_res, self.dt_diff))
+        else:
+            dt = torch.clamp_max(dt, self.dt_diff)
+        return integrate_diff(state, dt, sim, grid, **c), dt
 
     # -------------------------------------------------------------------- run
 

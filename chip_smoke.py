@@ -154,7 +154,13 @@ and counted per form, "name[form]":
      density within 2e-3 of the Roe golden; run_sod_exact) and testsedov
      at 32^3 with outflow faces with the exact and the FORCE solver (3
      cycles each against the CPU run, B4 and B11 launched and no other
-     kernel);
+     kernel); then (phase3_a15_micro_shear) the five goldens of
+     microphysics and the shearing box (cshock1d, hall_drift at 64^2,
+     strat, hgb and hgb with FARGO; run_a15_golden) at the JAX tests'
+     tolerances with no kernel launched, testsedov at 32^3 with viscosity
+     and conduction (3 cycles against the CPU run at 1e-12, the "sedov
+     visc" kernels launched) and the anisotropic operators on a 2D MHD
+     state against the CPU at 1e-12 (aniso_vs_cpu);
   4. full width: the SMR main path, isph2lev at 256^3 + 256^3 float32
      (the child over the root's centre), maxiter=50, batch_iters=25, 3
      cycles through Simulation.from_file (no device argument: the card is
@@ -202,7 +208,14 @@ and counted per form, "name[form]":
      testsedov at 256^3 with outflow faces with the exact and with the
      FORCE solver, cylblast2d and cylblastb2d at 2048 x 3072 and twoibw's
      four levels at the deck's size (3 cycles each) in float32: the same
-     numbers, each run's launches against its path's;
+     numbers, each run's launches against its path's; then
+     (phase4_a15_micro_shear, A15_FULL) testsedov at 256^3 with viscosity
+     and conduction (3 cycles and a CLI cycle; the "sedov visc" path: the
+     "sedov" kernels around the plain diffusion update, its share of the
+     cycle by CUDA events), hgb at 256 x 256 x 128 with and without FARGO,
+     strat at 32 x 256 x 384, hall_drift at 2048^2 and cshock1d at 48 cells
+     (3 cycles each) in float32: the same numbers, the host reads of a
+     shearing cycle;
      phase 4's CLI cycles write no outputs
      (job/maxout=0) but the SMR one, which writes a history and a cons VTK
      output per level with -d (level 1's under lev1/ with a -lev1 problem
@@ -229,7 +242,7 @@ the hydro ones also with their phase-3 launches; "mhd_launches", each
 kernel's launches in each MHD_FULL run, all 0; "vl_launches", each
 kernel's launches in each VL_FULL run; "smr_mhd_launches", in each
 SMR_MHD_FULL run, all 0; "a13_a11_cyl_launches", in each
-A13_A11_CYL_FULL run; B7's isothermal whole-flux form takes its launches
+A13_A11_CYL_FULL run; "a15_launches", in each A15_FULL run; B7's isothermal whole-flux form takes its launches
 from the isothermal SMR run), the nvidia-smi line
 before it, and the final line {"ok": true,
 "device": {...}}.  Any failed check raises, so the exit code is non-zero
@@ -1188,6 +1201,15 @@ PATHS = {
     "exact 3d": (EXACT_3D, others(EXACT_3D)),
     "smr 1d": ([], others([])),
     "cyl": ([], others([])),
+    # testsedov with isotropic viscosity and conduction: the plain diffusion
+    # update, then the hydro step's kernels, as on the "sedov" path (JAX
+    # runs integrate_diff outside the integrator, ctu3d.py:153-154)
+    "sedov visc": (SEDOV_MID, others(SEDOV_MID)),
+    # the shearing box and the MHD microphysics: no kernel, as in JAX (no
+    # Pallas kernel takes MHD, and bvals.py:111 turns the ghost-fill kernel
+    # off on a shearing box)
+    "shear": ([], others([])),
+    "micro mhd": ([], others([])),
 }
 
 # kernel entries on no phase-4 path: B3' (as in the JAX package), the
@@ -4693,6 +4715,285 @@ def phase4_a13_a11_cyl(ncyc=3):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# ROADMAP A15 items 2-3: microphysics and the shearing box (no kernel of
+# their own; the viscous testsedov keeps the hydro kernels)
+# ---------------------------------------------------------------------------
+
+A15_ISO_MHD = dict(gas="mhd", eos="isothermal", flux="roe", order="2",
+                   integrator="ctu")
+_GOLDEN = os.path.join(HERE, "tests", "golden")
+HGB_DECK = os.path.join(_GOLDEN, "athinput.hgb16")
+STRAT_DECK = os.path.join(_GOLDEN, "athinput.strat")
+HALL_DECK = os.path.join(_GOLDEN, "athinput.hall_drift")
+CSHOCK_DECK = os.path.join(_GOLDEN, "athinput.cshock1d")
+OT_DECK = os.path.join(_GOLDEN, "athinput.ot64")
+A15_FIELDS = ["d", "M1", "M2", "M3", "B1", "B2", "B3"]
+# the per-cycle cons goldens of tests/test_problems_r5.py: name -> (deck,
+# golden, problem, cycles, cycle-1 and last tolerance x each field's scale
+# (floored at 1e-3 of the largest field's), overrides, SimConfig keywords)
+A15_GOLDENS = {
+    "cshock1d": (CSHOCK_DECK, "cshock1d.npz", "cshock1d", 30, 1e-11, 1e-9,
+                 [], A15_ISO_MHD),
+    "hall_drift": (HALL_DECK, "hall_drift.npz", "hall_drift", 20, 1e-11,
+                   1e-9, ["domain1/Nx1=64", "domain1/Nx2=64"], A15_ISO_MHD),
+    "strat": (STRAT_DECK, "strat.npz", "strat", 10, 1e-11, 1e-8, [],
+              dict(A15_ISO_MHD, shearing_box=True)),
+}
+# the shearing-box MRI goldens of tests/test_shearing.py (athinput.hgb16,
+# 100 cycles, d, M1-M3, B1c-B3c to 5e-15 absolute): name -> (golden, FARGO)
+HGB_GOLDENS = {"hgb": ("hgb_100cycles.tab", False),
+               "hgb_fargo": ("hgb_fargo_100cycles.npz", True)}
+HGB_CYCLES = 100
+HGB_ATOL = 5e-15
+# the viscous, conducting testsedov: diffusion dt ~ the hydro dt / 2 at
+# 256^3 (0.4 dx^2/6/0.02 = 5.1e-5 against ~1.1e-4)
+SEDOV_VISC = ["problem/nu_iso=0.02", "problem/kappa_iso=0.02"]
+
+
+def sedov_visc_cmd(n):
+    """testsedov at n^3 with cubic cells (as phase 4's testsedov runs:
+    reflecting x1 lo, outflow x1 hi, periodic x2 and x3) and isotropic
+    viscosity and conduction."""
+    return ([f"domain1/Nx{a}={n}" for a in (1, 2, 3)]
+            + ["domain1/x2max=1.0", "domain1/x3max=1.0", "time/tlim=9e9"]
+            + SEDOV_VISC)
+
+
+def run_a15_golden(name, device):
+    """One golden of ROADMAP A15 items 2-3 in float64 through
+    Simulation.from_file on `device`: an A15_GOLDENS case (the time of
+    every cycle to rel 1e-5, the cycle-1 and last snapshots to their
+    tolerances x each field's scale, golden_errors) or an HGB_GOLDENS case
+    (100 cycles, every interior value within 5e-15 of the golden's).
+    Raises on a miss; returns the Simulation and the worst error (x scale,
+    or absolute for hgb)."""
+    import numpy as np
+    from atmospheric_athena_tpu_torch import Simulation
+    if name in HGB_GOLDENS:
+        gname, fargo = HGB_GOLDENS[name]
+        s = Simulation.from_file(HGB_DECK, cmdline=["job/maxout=0"],
+                                 dtype="float64", device=device, fargo=fargo)
+        if not (s.sim.shearing_box and s.sim.fargo == fargo):
+            raise AssertionError(f"{name}: {s.sim}")
+        for _ in range(HGB_CYCLES):
+            s.step()
+        path = os.path.join(_GOLDEN, gname)
+        gold = (np.loadtxt(path)[:, 6:] if gname.endswith(".tab")
+                else np.load(path)["data"])
+        sl = s.grid.interior()
+        U = s.state.U[(slice(None),) + sl].cpu().numpy()
+        B = s.state.Bcc[(slice(None),) + sl].cpu().numpy()
+        worst = 0.0
+        for i, q in enumerate([U[0], U[1], U[2], U[3], B[0], B[1], B[2]]):
+            err = float(np.abs(q.ravel() - gold[:, i]).max())
+            worst = max(worst, err)
+            if not err <= HGB_ATOL:
+                raise AssertionError(f"{name} {A15_FIELDS[i]}: error "
+                                     f"{err:.3e} exceeds {HGB_ATOL:.0e}")
+        return s, worst
+    deck, npz, problem, ncyc, atol1, atolN, cmd, kw = A15_GOLDENS[name]
+    gold = np.load(os.path.join(_GOLDEN, npz))
+    s = Simulation.from_file(deck, problem=problem, cmdline=[
+        f"time/nlim={ncyc}", "time/tlim=9e9", "job/maxout=0"] + cmd,
+        dtype="float64", device=device, **kw)
+    worst = 0.0
+    for cyc in range(1, ncyc + 1):
+        s.step()
+        t, t_ref = float(s.state.time), float(gold["traj"][cyc - 1][0])
+        if not abs(t / t_ref - 1) <= 1e-5:
+            raise AssertionError(f"{name} cycle {cyc}: time {t:.9e}, "
+                                 f"golden {t_ref:.9e}")
+        if cyc not in (1, ncyc):
+            continue
+        atol = atol1 if cyc == 1 else atolN
+        errs = golden_errors(s, gold[f"cons{cyc}"], A15_FIELDS)
+        bad = {f: e for f, e in errs.items() if not e <= atol}
+        if bad:
+            raise AssertionError(f"{name} cycle {cyc}: {bad} x scale exceed "
+                                 f"{atol:.0e}")
+        worst = max(worst, max(errs.values()))
+    return s, worst
+
+
+def aniso_vs_cpu(n=64, tol=1e-12):
+    """Braginskii viscosity and anisotropic conduction (microphysics/
+    aniso.py) on the Orszag-Tang state at n^2 (2D adiabatic MHD, float64)
+    on the card against the same operators on the CPU: every interior
+    field within tol of its max.  Raises on a miss; returns the worst
+    error x max."""
+    import numpy as np
+    from atmospheric_athena_tpu_torch import Simulation
+    from atmospheric_athena_tpu_torch.microphysics import aniso
+    sims = [Simulation.from_file(OT_DECK, problem="orszag-tang", cmdline=[
+        f"domain1/Nx1={n}", f"domain1/Nx2={n}", "job/maxout=0"],
+        dtype="float64", device=dev) for dev in ("cuda", "cpu")]
+    worst = 0.0
+    for op, coef in ((aniso.viscosity_aniso, 0.01),
+                     (aniso.conduction_aniso, 0.01)):
+        g, c = (op(s.state, s.state.dt, s.sim, s.grid, coef) for s in sims)
+        sl = (slice(None),) + sims[1].grid.interior()
+        for k in ("U", "Bcc"):
+            a = getattr(g, k)[sl].cpu().numpy()
+            b = getattr(c, k)[sl].numpy()
+            for i in range(a.shape[0]):
+                err = float(np.abs(a[i] - b[i]).max()
+                            / max(np.abs(b[i]).max(), 1e-300))
+                worst = max(worst, err)
+                if not err <= tol:
+                    raise AssertionError(f"{op.__name__} {k}[{i}]: error "
+                                         f"{err:.3e} x max exceeds {tol}")
+    return worst
+
+
+def phase3_a15_micro_shear():
+    """This slice in float64 on the card: the five goldens (cshock1d,
+    hall_drift at 64^2, strat, hgb and hgb with FARGO; run_a15_golden) at
+    the JAX tests' tolerances, launching no kernel; testsedov at 32^3 with
+    isotropic viscosity and conduction, 3 cycles against the port's CPU run
+    at 1e-12 (run_levels_vs_cpu), launching exactly the "sedov visc"
+    kernels; Braginskii viscosity and anisotropic conduction on a 2D MHD
+    state against the CPU at 1e-12 (aniso_vs_cpu).  Returns {path: launch
+    counts}."""
+    counts = {}
+    for name in list(A15_GOLDENS) + list(HGB_GOLDENS):
+        reset_counts()
+        t0 = time.perf_counter()
+        s, worst = run_a15_golden(name, "cuda")
+        counts[f"golden {name}"] = read_counts()
+        check_no_kernel(f"phase 3 {name}", counts[f"golden {name}"])
+        say(f"phase 3 golden {name} float64 "
+            f"{'x'.join(str(n) for n in s.grid.Nx if n > 1)} "
+            f"({s.sim.eos} MHD, {s.sim.flux}"
+            f"{', shearing box' if s.sim.shearing_box else ''}"
+            f"{', FARGO' if s.sim.fargo else ''}), {int(s.state.nstep)} "
+            f"cycles on the card in {time.perf_counter() - t0:.2f} s: worst "
+            f"error {worst:.3e} ("
+            f"{'absolute' if name in HGB_GOLDENS else 'x scale'}); no kernel "
+            "launched")
+    with open(SEDOV_DECK) as fh:
+        text = fh.read()
+    worst, counts["sedov visc"] = run_levels_vs_cpu(
+        "viscous testsedov 32^3", text, "testsedov", sedov_visc_cmd(32), 3,
+        flux="hllc")
+    check_counts("phase 3 viscous testsedov", counts["sedov visc"],
+                 "sedov visc")
+    say(f"phase 3 testsedov with nu_iso and kappa_iso float64 32^3, 3 cycles "
+        f"on the card against the plain CPU run: worst error {worst:.3e} x "
+        f"max; launches "
+        f"{ {k: v for k, v in counts['sedov visc'].items() if v} }")
+    reset_counts()
+    worst = aniso_vs_cpu()
+    check_no_kernel("phase 3 anisotropic operators", read_counts())
+    say(f"phase 3 viscosity_aniso and conduction_aniso on the Orszag-Tang "
+        f"state float64 64^2 on the card against the CPU: worst error "
+        f"{worst:.3e} x max; no kernel launched")
+    return counts
+
+
+# the full-width runs of this slice (float32): (label, deck, problem, path,
+# CLI cycle, overrides, SimConfig keywords).  testsedov at 256^3 (cubic)
+# with viscosity and conduction; hgb16 x 16 (256 x 256 x 128), with and
+# without FARGO; strat x 4 (32 x 256 x 384); hall_drift at 2048^2;
+# cshock1d at the deck's 48 cells (bound by launches)
+A15_FULL = [
+    ("sedov visc", SEDOV_DECK, "testsedov", "sedov visc", True,
+     sedov_visc_cmd(256), {"flux": "hllc"}),
+    ("hgb", HGB_DECK, None, "shear", False,
+     ["domain1/Nx1=256", "domain1/Nx2=256", "domain1/Nx3=128"], {}),
+    ("hgb fargo", HGB_DECK, None, "shear", False,
+     ["domain1/Nx1=256", "domain1/Nx2=256", "domain1/Nx3=128"],
+     {"fargo": True}),
+    ("strat", STRAT_DECK, "strat", "shear", False,
+     ["domain1/Nx1=32", "domain1/Nx2=256", "domain1/Nx3=384"],
+     dict(A15_ISO_MHD, shearing_box=True)),
+    ("hall_drift", HALL_DECK, "hall_drift", "micro mhd", False,
+     ["domain1/Nx1=2048", "domain1/Nx2=2048"], A15_ISO_MHD),
+    ("cshock1d", CSHOCK_DECK, "cshock1d", "micro mhd", False, [],
+     A15_ISO_MHD),
+]
+
+
+def phase4_a15_micro_shear(ncyc=3):
+    """This slice at full width in float32 through the entry points without
+    a device argument (A15_FULL), ncyc cycles each and a CLI cycle on the
+    first run: ms per cycle, zone-cycles/s, peak memory, finite fields,
+    dt > 0, the operators one more cycle dispatches (count_dispatch), each
+    run's kernel launches against its path's, the host reads of one cycle
+    of the shearing runs (host_reads) and, on the viscous testsedov, the
+    share of the cycle integrate_diff takes (CUDA events).  Returns
+    {label: launch counts}."""
+    import torch
+    from atmospheric_athena_tpu_torch import Simulation
+    from atmospheric_athena_tpu_torch import __main__ as cli
+    smi = smi_line()
+    counts = {}
+    for label, deck, problem, path, with_cli, cmd, kw in A15_FULL:
+        cmd = cmd + ["time/tlim=9e9", "job/maxout=0"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        s = Simulation.from_file(deck, problem=problem, dtype="float32",
+                                 cmdline=cmd, **kw)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        if s.device.type != "cuda":
+            raise AssertionError(f"{label} run on {s.device}")
+        reset_counts()
+        res = s.run(max_steps=ncyc)
+        counts[label] = read_counts()
+        check_counts(f"phase 4 {label}", counts[label], path)
+        keys = ("U", "Bcc", "B1i", "B2i", "B3i") if s.sim.mhd else ("U",)
+        finite = all(bool(torch.isfinite(getattr(s.state, k)).all())
+                     for k in keys)
+        dt = float(s.state.dt)
+        if not finite or not dt > 0 or res["steps"] != ncyc:
+            raise AssertionError(f"phase 4 {label}: {res['steps']} steps, "
+                                 f"finite={finite} dt={dt}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        size = "x".join(str(n) for n in s.grid.Nx if n > 1)
+        ms = 1e3 * res["wall"] / res["steps"]
+        extra = ""
+        if s.diff is not None and path == "sedov visc":
+            st = s.state
+            diff_ms = cuda_ms(lambda: s.diffuse(st, st.dt), reps=5)
+            step_ms = cuda_ms(s.step, reps=5)
+            extra += (f"; integrate_diff {diff_ms:.3f} ms of a {step_ms:.3f} "
+                      f"ms cycle ({100 * diff_ms / step_ms:.1f}%, CUDA "
+                      f"events; diffusion dt bound {s.dt_diff:.4e}, hydro "
+                      f"dt {dt:.4e})")
+        if s.sim.shearing_box:
+            extra += f"; host reads in one cycle {host_reads(s)}"
+        nops = count_dispatch(s.step)    # one more cycle, counted
+        launched = {k: v for k, v in counts[label].items() if v}
+        say(f"phase 4 {label} {size} float32 ({s.grid.ndim}D "
+            f"{'MHD' if s.sim.mhd else 'hydro'}, {s.sim.eos}, {s.sim.flux}"
+            f"{', shearing box' if s.sim.shearing_box else ''}"
+            f"{', FARGO' if s.sim.fargo else ''}) on {smi}: setup "
+            f"{setup_s:.1f} s; {res['steps']} cycles via Simulation.run, "
+            f"{ms:.2f} ms per cycle, {res['zone_cycles_per_sec']:.4e} "
+            f"zone-cycles/s; peak device memory {peak:.2f} GiB; all fields "
+            f"finite, dt {dt:.6e}; {nops} PyTorch operators dispatched per "
+            f"cycle (count_dispatch), {ms / nops:.4f} ms per operator; "
+            f"launches in {ncyc} cycles ({path} path) {launched or 'none'}"
+            f"{extra}")
+        del s
+        if with_cli:
+            reset_counts()
+            args = ["-i", deck, "--dtype", "float32", "time/nlim=1", *cmd]
+            if problem is not None:
+                args[2:2] = ["--problem", problem]
+            if "flux" in kw:
+                args[2:2] = ["--flux", kw["flux"]]
+            rc = cli.main(args)
+            if rc != 0:
+                raise AssertionError(f"{label} CLI returned {rc}")
+            check_counts(f"phase 4 {label} CLI cycle", read_counts(), path)
+            say(f"phase 4 {label} {size} float32: 1 CLI cycle done")
+        torch.cuda.empty_cache()
+    return counts
+
+
 def batch_vs_k1(ncycles=3):
     """The batch path (batch_iters=BATCH_K) against the K=1 path on the
     isph64 deck (64^3 float64), ncycles cycles from the state after one K=1
@@ -5691,6 +5992,8 @@ def main():
     lap("phase 3 SMR MHD, 2D SMR and the CTU problems")
     phase3_a13_a11_cyl()
     lap("phase 3 isothermal and 1D SMR, the exact solvers, cylindrical")
+    p3.update(phase3_a15_micro_shear())
+    lap("phase 3 microphysics and the shearing box")
     smr, _ = phase4_smr()
     counts, _ = phase4()
     counts["smr"] = smr
@@ -5716,6 +6019,8 @@ def main():
     a13 = phase4_a13_a11_cyl()
     counts["smr iso"] = a13["smr iso"]
     lap("phase 4 isothermal and 1D SMR, the exact solvers, cylindrical")
+    a15 = phase4_a15_micro_shear()
+    lap("phase 4 microphysics and the shearing box")
     phase5()
     lap("phase 5")
 
@@ -5772,6 +6077,10 @@ def main():
         # SMR kernels, B4 and B11 around the exact and FORCE steps, none on
         # the cylindrical and 1D SMR runs
         k["a13_a11_cyl_launches"] = {p: c[name] for p, c in a13.items()}
+        # this slice's runs of phase 4 (A15_FULL): the "sedov" kernels
+        # around the viscous testsedov's diffusion update, none on the
+        # shearing-box and MHD microphysics runs
+        k["a15_launches"] = {p: c[name] for p, c in a15.items()}
         kernels.append(k)
     say(f"chip_smoke: all phases in {time.perf_counter() - t_all:.1f} s")
     say(smi_line())

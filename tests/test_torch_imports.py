@@ -6,9 +6,11 @@ ctu2d_mhd, ctu1d; the MHD models, eigen_mhd_roe, utils/fields), VL steps,
 an MHD SMR cycle on the 3D and the 2D field loop decks (smr_fld.py), a 2D
 hydro SMR cycle, a kh (utils/threefry.py) and a shkset2d step, cylindrical
 steps (integrators/cyl.py and its three models), 3D steps with the exact
-and FORCE solvers, an isothermal and a four-level 1D SMR cycle with JAX
-made unimportable (chip_smoke.py imported too), and it refuses a CUDA
-device when none is visible."""
+and FORCE solvers, an isothermal and a four-level 1D SMR cycle, a step of
+each microphysics and shearing-box problem (microphysics/, shearing.py,
+cshock1d, hall_drift, hgb with and without FARGO, strat) and of a viscous,
+conducting testsedov with JAX made unimportable (chip_smoke.py imported
+too), and it refuses a CUDA device when none is visible."""
 
 import os
 import subprocess
@@ -169,6 +171,28 @@ m = P.Simulation.from_par(par, problem="twoibw", device="cpu")
 assert [l.grid.ndim for l in m.levels] == [1, 1, 1, 1]
 m.step()
 assert all(bool(torch.isfinite(l.state.U).all()) for l in m.levels)
+from atmospheric_athena_tpu_torch import microphysics, shearing
+from atmospheric_athena_tpu_torch.microphysics import (aniso, diffusion,
+                                                       resistivity)
+from atmospheric_athena_tpu_torch.models import (cshock1d, hall_drift, hgb,
+                                                 strat)
+for deck, problem, cmd, kw in (
+        (chip_smoke.CSHOCK_DECK, "cshock1d", [], chip_smoke.A15_ISO_MHD),
+        (chip_smoke.HALL_DECK, "hall_drift",
+         ["domain1/Nx1=16", "domain1/Nx2=16"], chip_smoke.A15_ISO_MHD),
+        (chip_smoke.HGB_DECK, None, [], {{}}),
+        (chip_smoke.HGB_DECK, None, [], {{"fargo": True}}),
+        (chip_smoke.STRAT_DECK, "strat",
+         ["domain1/Nx2=16", "domain1/Nx3=16"],
+         dict(chip_smoke.A15_ISO_MHD, shearing_box=True)),
+        (chip_smoke.SEDOV_DECK, "testsedov", chip_smoke.sedov_visc_cmd(8),
+         {{"flux": "hllc"}})):
+    q = P.Simulation.from_file(deck, problem=problem,
+                               cmdline=cmd + ["job/maxout=0"], device="cpu",
+                               **kw)
+    assert q.diff is not None or q.sim.shearing_box
+    q.step()
+    assert bool(torch.isfinite(q.state.U).all()) and float(q.state.dt) > 0
 bad = sorted(m for m in set(sys.modules) - pre
              if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                     "atmospheric_athena_tpu")
