@@ -4,7 +4,8 @@
 max_dti = max over active cells and active axes of (|v_a| + c_a)/dx_a with
 a TINY_NUMBER pressure floor: c_a the sound speed for hydro, the per-axis
 fast magnetosonic speed for MHD, built from the *maximum* of face- and
-cell-centered B (new_dt.c:86-92).  dt = CourNo/max_dti, limited to 2× the
+cell-centered B (new_dt.c:86-92); for SR gas max 1/dx (c = 1).
+dt = CourNo/max_dti, limited to 2× the
 previous dt except on step 0 (new_dt.c:167-171).  The tlim clip lives in
 the driver.
 """
@@ -77,9 +78,14 @@ def max_dti(state: State, sim: SimConfig, grid: GridConfig):
     Cartesian hydro the reduction kernel's wrapper on a 3D grid, the plain
     version on a 2D or 1D one on either device (the JAX package's kernel
     takes three active axes, pallas_util.supported, and its dt.py runs jnp
-    otherwise); for MHD and cylindrical grids max_dti_plain on any grid."""
+    otherwise); for MHD and cylindrical grids max_dti_plain on any grid;
+    for SR gas the light-speed bound max 1/dx."""
     if sim.special_relativity:
-        raise NotImplementedError("CFL for SR (ROADMAP A15)")
+        # signal speeds bounded by c = 1 (new_dt.c:65-66; JAX dt.py:23-29):
+        # max 1/dx over the active axes, no reduction and no kernel
+        dti = max(1.0 / grid.dx[a] for a in range(3) if grid.active(a))
+        return torch.full((), dti, dtype=state.U.dtype,
+                          device=state.U.device)
     if sim.mhd or grid.cylindrical:
         return max_dti_plain(state, sim, grid)
     if grid.ndim < 3:

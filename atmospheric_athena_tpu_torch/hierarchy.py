@@ -151,6 +151,10 @@ def check_supported(sim: SimConfig, root: GridConfig):
             "driver never calls fargo_advect, and applies the shearing "
             "terms and the remaps to each level as if it were the whole "
             "box)")
+    if sim.self_gravity:
+        raise NotImplementedError(
+            "SMR with self-gravity (ROADMAP C42: the JAX SMR driver never "
+            "solves Phi, so the levels would run without gravity)")
 
 
 def check_diffusion(par: ParameterDB, problem):

@@ -1,7 +1,7 @@
 """2D and 3D CTU integrator (and 1D, for the levels of an SMR mesh, as
 JAX's SMR driver steps them), adiabatic or isothermal hydrodynamics with
-static gravity, with or without the H-correction, reconstruction orders 1,
-2, 3, 2p and 3p, any hydro Riemann solver
+static gravity and self-gravity, with or without the H-correction,
+reconstruction orders 1, 2, 3, 2p and 3p, any hydro Riemann solver
 (``atmospheric_athena_tpu/integrators/ctu3d.py``; reference
 integrate_3d_ctu.c and integrate_2d_ctu.c).
 
@@ -18,8 +18,11 @@ active axes (``_step_whole_flux`` with ``plain``): the JAX package runs
 its Pallas kernels only with three active axes (ctu3d.py:152-153) and its
 jnp functions otherwise, so such a step launches no kernel, on the TPU as
 here.  So does a 3D grid with a solver the kernels do not take (exact,
-two_shock, force: pallas_hydro.supported takes Roe, HLLE and HLLC).  A 3D grid takes one of two paths,
-chosen as the JAX package chooses them
+two_shock, force: pallas_hydro.supported takes Roe, HLLE and HLLC), and a
+step with a self-gravity potential (``_step_selfg``: JAX ctu3d.py:153
+takes no Pallas path with phi_sg; the half-step kick, the transverse
+terms and step 11b's stress-tensor fluxes, :240-241, 301-309, 402-442).
+A 3D grid takes one of two paths, chosen as the JAX package chooses them
 (``ops.ctu_mid_kernels.supported``: ATHENA_TPU_PALLAS_MID, on by default):
 
   middle-phase path (default) — the JAX ``use_pallas_mid`` branch
@@ -56,6 +59,8 @@ import numpy as np
 import torch
 
 from ..config import GridConfig, SimConfig
+from ..defs import ID, IEN, IM1
+from ..eos import exact_div
 from ..ops import ctu_mid_kernels as mid
 from ..ops import hydro_kernels, riemann
 from ..state import State
@@ -130,8 +135,8 @@ def check_supported(sim: SimConfig, grid: GridConfig):
         raise ValueError("ctu3d steps hydro; MHD takes ctu3d_mhd (3D) or "
                          "ctu2d_mhd (2D), as in the JAX package")
     if sim.special_relativity:
-        raise NotImplementedError("CTU hydro: special relativity (ROADMAP "
-                                  "A15)")
+        raise NotImplementedError("SR requires the VL integrator "
+                                  "(integrate_3d_ctu.c:51-53)")
     if sim.integrator != "ctu":
         raise ValueError(f"ctu3d is the CTU integrator, not "
                          f"{sim.integrator}")
@@ -151,7 +156,7 @@ def check_supported(sim: SimConfig, grid: GridConfig):
 
 
 def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
-         phi=None, return_fluxes=False):
+         phi=None, return_fluxes=False, phi_sg=None, selfg_pars=None):
     """One CTU step over the active axes.  `dt` is a 0-d tensor (or float);
     `phi` = (phic, [phif_x, phif_y, phif_z]) from _phi_arrays, or None to
     evaluate the problem's potential here.  A 2D or 1D grid, or a solver
@@ -162,7 +167,10 @@ def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
     _step_whole_flux with the sweep and step-9 kernels.  With
     `return_fluxes` it returns (state, Fp2), Fp2[a] the step-9 flux of
     active axis a [nv, NZ, NY, NX] (index f: the interface between cells
-    f-1 and f)."""
+    f-1 and f).  `phi_sg` (the self-gravity potential on the padded grid,
+    from rho at t^n) with `selfg_pars` = (four_pi_G, grav_mean_rho) takes
+    _step_selfg, plain on either device (JAX ctu3d.py:153: no Pallas path
+    with phi_sg)."""
     check_supported(sim, grid)
     axes = tuple(a for a in range(3) if grid.active(a))   # JAX ctu3d:138
     dtodx = {a: dt / grid.dx[a] for a in axes}
@@ -171,7 +179,10 @@ def step(state: State, dt, sim: SimConfig, grid: GridConfig, problem=None,
     U = state.U
     phic, phif = phi if phi is not None else _phi_arrays(
         problem, grid, U.dtype, U.device)
-    if len(axes) < 3 or not hydro_kernels.supported(sim):
+    if phi_sg is not None:
+        Unew, Fp2 = _step_selfg(U, phic, phif, phi_sg, selfg_pars, dtodx, q,
+                                sim, grid, axes)
+    elif len(axes) < 3 or not hydro_kernels.supported(sim):
         # 2D and 1D, or a solver the kernels do not take: the JAX package's
         # jnp branch (ctu3d.py:226-452), as it runs on the TPU; no hydro
         # kernel launches, on the card either
@@ -231,6 +242,117 @@ def _step_whole_flux(U, phic, phif, dtodx, q, sim: SimConfig,
           if phic is not None else None)
     del Fp
     return mid.final_update_plain(U, Fp2, Sg, dtodx, sim, grid, axes), Fp2
+
+
+def _selfg_cross(Ulc, Urc, U, phi, Fp, q, sim: SimConfig, a, axes):
+    """Self-gravity's transverse terms on axis a's corrected states (JAX
+    ctu3d.py:301-309; integrate_3d_ctu.c:1225-1273): per other axis b, the
+    half-step momentum and mass-flux-weighted energy sources with the Phi
+    averages at the b faces."""
+    for b in axes:
+        if b == a:
+            continue
+        phir = 0.5 * (phi + mid._sh(phi, 1, b))
+        phil = 0.5 * (phi + mid._sh(phi, -1, b))
+        dMb = q[b] * (phir - phil) * U[ID]
+        Urc[IM1 + b] -= dMb
+        Ulc[IM1 + b] -= mid._sh(dMb, -1, a)
+        if sim.adiabatic:
+            FID = Fp[b][ID]
+            dE = q[b] * (FID * (phi - phil)
+                         + mid._sh(FID, 1, b) * (phir - phi))
+            Urc[IEN] -= dE
+            Ulc[IEN] -= mid._sh(dE, -1, a)
+
+
+def _selfg_stress(Unew, phi, Fp2, dtodx, four_pi_G, grav_mean_rho,
+                  sim: SimConfig, grid: GridConfig, axes):
+    """Step 11b (JAX ctu3d.py:402-442; integrate_3d_ctu.c:2790-2936): the
+    momenta take the divergence of the gravitational stress tensor, E the
+    mass-flux-weighted Phi differences of the final fluxes."""
+    grad = {b: exact_div(mid._sh(phi, -1, b) - phi, grid.dx[b])
+            for b in axes}
+    for a in axes:
+        phil = 0.5 * (mid._sh(phi, -1, a) + phi)
+        phir = 0.5 * (phi + mid._sh(phi, 1, a))
+        gl = {a: grad[a]}
+        gr = {a: mid._sh(grad[a], 1, a)}
+        others = [b for b in axes if b != a]
+        for b in others:
+            # the transverse gradient at the a face: the mean of the two
+            # cells' centred differences along b
+            cen = exact_div(0.5 * (mid._sh(phi, -1, b) - mid._sh(phi, 1, b)),
+                            grid.dx[b])
+            gl[b] = 0.5 * (mid._sh(cen, -1, a) + cen)
+            gr[b] = 0.5 * (cen + mid._sh(cen, 1, a))
+        gsq_l = gl[a] ** 2
+        gsq_r = gr[a] ** 2
+        for b in others:
+            gsq_l = gsq_l - gl[b] ** 2
+            gsq_r = gsq_r - gr[b] ** 2
+        flx_al = exact_div(0.5 * gsq_l, four_pi_G) + grav_mean_rho * phil
+        flx_ar = exact_div(0.5 * gsq_r, four_pi_G) + grav_mean_rho * phir
+        Unew[IM1 + a] -= dtodx[a] * (flx_ar - flx_al)
+        for b in others:
+            fl = exact_div(gl[a] * gl[b], four_pi_G)
+            fr = exact_div(gr[a] * gr[b], four_pi_G)
+            Unew[IM1 + b] -= dtodx[a] * (fr - fl)
+        if sim.adiabatic:
+            F2 = Fp2[a][ID]
+            Unew[IEN] -= dtodx[a] * (F2 * (phi - phil) +
+                                     mid._sh(F2, 1, a) * (phir - phi))
+
+
+def _step_selfg(U, phic, phif, phi_sg, selfg_pars, dtodx, q, sim: SimConfig,
+                grid: GridConfig, axes):
+    """The step with self-gravity: JAX ctu3d.py's jnp branch with phi_sg
+    (:226-452), the plain functions on either device.  Returns (the new U,
+    Fp2)."""
+    four_pi_G, grav_mean_rho = selfg_pars
+
+    # === STEPS 1-3: the static and the self-gravity half-step kicks ======
+    Ulp, Urp, Fp = {}, {}, {}
+    for a in axes:
+        Ulp[a], Urp[a], Fp[a] = hydro_kernels.sweep_lrflux_plain(
+            U, phic, phif[a] if phic is not None else None, dtodx[a], sim, a,
+            dvx=q[a] * (phi_sg - mid._sh(phi_sg, -1, a)))
+
+    # === STEPS 5-7: transverse corrections, both gravities' cross terms ==
+    dF = {b: _sh(Fp[b], 1, b) - Fp[b] for b in axes}
+    G = mid.gcross_plain(U, phic, phif, Fp, q, axes) if phic is not None \
+        else None
+    Ulc, Urc, etas = {}, {}, {}
+    for a in axes:
+        Ulc[a], Urc[a], _ = mid.transverse_correct_plain(
+            Ulp.pop(a), Urp.pop(a), dF, G, q, sim, a, axes)
+        _selfg_cross(Ulc[a], Urc[a], U, phi_sg, Fp, q, sim, a, axes)
+        if sim.h_correction:
+            etas[a] = mid.hcorr_eta(Ulc[a], Urc[a], sim, a)
+    del dF, G
+
+    # === STEP 9: final fluxes =============================================
+    Fp2 = {}
+    for a in axes:
+        etah = mid.etah_gather(etas, a, axes) if sim.h_correction else None
+        Fp2[a] = hydro_kernels.flux_pointwise_plain(Ulc.pop(a), Urc.pop(a),
+                                                    etah, sim, a)
+
+    # === STEPS 8, 11-12: the static source, the stress tensor, update ====
+    Unew = U.clone()
+    if phic is not None:
+        Sg = mid.grav_source_plain(U, Fp, Fp2, phic, phif, q, dtodx, axes)
+        for a in axes:
+            Unew[IM1 + a] -= Sg[a]
+            if sim.adiabatic:
+                Unew[IEN] -= Sg[3 + a]
+    _selfg_stress(Unew, phi_sg, Fp2, dtodx, four_pi_G, grav_mean_rho, sim,
+                  grid, axes)
+    for a in axes:
+        Unew = Unew - dtodx[a] * (_sh(Fp2[a], 1, a) - Fp2[a])
+    sl = (slice(None),) + grid.interior()
+    Uout = U.clone()
+    Uout[sl] = Unew[sl]
+    return Uout, Fp2
 
 
 def _step_mid(U, phic, phif, dtodx, q, sim: SimConfig, grid: GridConfig):

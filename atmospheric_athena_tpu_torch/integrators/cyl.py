@@ -74,7 +74,9 @@ def check_supported(sim: SimConfig, grid: GridConfig):
             "cylindrical coordinates: CTU integrator only (ROADMAP A15 "
             "item 1, as the JAX package)")
     if sim.special_relativity:
-        raise NotImplementedError("cylindrical SR (ROADMAP A15)")
+        raise NotImplementedError(
+            "special relativity on a cylindrical grid (ROADMAP C39: the JAX "
+            "driver steps such a deck with this Newtonian integrator)")
     if sim.shearing_box or sim.fargo:
         raise NotImplementedError(
             "a shearing box on a cylindrical grid (ROADMAP C34: the JAX cyl "

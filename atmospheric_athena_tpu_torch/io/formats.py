@@ -53,6 +53,19 @@ def as_numpy(q):
 # --------------------------------------------------------------------------
 
 
+#: the expressions the JAX package forms with the Newtonian conversion
+SR_NEWTONIAN = ("V1", "V2", "V3", "P", "cs2", "S")
+
+
+def _refuse_sr(what):
+    raise NotImplementedError(
+        f"{what} of an SR state (ROADMAP C43: the JAX package's prim "
+        "outputs form V = M/d and P = Gamma_1 (E - M^2/2d), io/formats.py:"
+        "43, 115, the Newtonian conversion, where the reference's SR "
+        "dumps invert with Cons_to_Prim; cons outputs, d, M, E, B and the "
+        "scalars are written)")
+
+
 def _prim_pressure(U, Bcc, sim: SimConfig):
     if not sim.adiabatic:
         return U[ID] * sim.iso_csound2
@@ -71,6 +84,8 @@ def evaluate(name: str, state, sim: SimConfig, grid: GridConfig,
         usr = getattr(problem, "get_usr_expr", lambda n: None)(name)
         if usr is not None:
             return as_numpy(usr(state, sim, grid))
+    if sim.special_relativity and name in SR_NEWTONIAN:
+        _refuse_sr(f"the output expression {name!r}")
     U = interior_numpy(state.U, grid)
     Bcc = None
     if sim.mhd and state.Bcc is not None:
@@ -125,6 +140,8 @@ def stack_cons(state, sim: SimConfig, grid: GridConfig):
 
 def stack_prim(state, sim: SimConfig, grid: GridConfig):
     """PrimS memory order: (d, V1, V2, V3, [P], [B1c..], r...)."""
+    if sim.special_relativity:
+        _refuse_sr("a primitive-variable output")
     cons, _ = stack_cons(state, sim, grid)
     d = cons[0]
     cols = [d, cons[1] / d, cons[2] / d, cons[3] / d]

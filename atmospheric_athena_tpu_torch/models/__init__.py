@@ -18,15 +18,15 @@ def register(name):
 def get_problem(name: str):
     from . import (blast, carbuncle, cpaw, cshock1d,  # noqa: F401
                    current_sheet, cylblast, cylwindrot, cylwindrotb,
-                   field_loop, hall_drift, hgb, ifront, ioniz_sphere, kh,
-                   linear_wave, lw_implode, noh, orszag_tang, pgflow, rotor,
-                   rt, shkset1d, shkset2d, shkset3d, shu_osher, strat,
-                   testsedov, turb, twoibw)
+                   field_loop, hall_drift, hgb, ifront, ioniz_sphere, jeans,
+                   kh, linear_wave, lw_implode, noh, orszag_tang, pgflow,
+                   rotor, rt, shkset1d, shkset2d, shkset3d, shu_osher,
+                   strat, testsedov, turb, twoibw)
     try:
         return _REGISTRY[name]
     except KeyError:
         raise NotImplementedError(
-            f"problem {name!r} is not ported yet (ROADMAP A15: jeans, "
-            "par_epicycle and par_friction, the self-gravity and particle "
-            f"problems); ported: {sorted(_REGISTRY)}"
+            f"problem {name!r} is not ported yet (ROADMAP A15 item 7: "
+            "par_epicycle and par_friction, the particle problems); "
+            f"ported: {sorted(_REGISTRY)}"
         ) from None

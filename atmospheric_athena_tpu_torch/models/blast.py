@@ -4,7 +4,8 @@
 Uniform ambient medium with an over-pressured (and optionally over-dense)
 sphere of radius rin at the origin; MHD adds a uniform field b0 at `angle`
 in the x1-x2 plane (blast.c:40-92).  Isothermal gas takes the density
-alone.  The special-relativistic energy (ROADMAP A15) is not ported.
+alone.  Special-relativistic gas takes D and E from the SR Prim1D_to_Cons1D
+(E includes the rest mass; JAX blast.py:58-73), the momenta zero.
 """
 
 from __future__ import annotations
@@ -18,15 +19,13 @@ from .. import state as state_mod
 from ..config import GridConfig, SimConfig
 from ..defs import ID, IEN
 from ..eos import exact_div
+from ..eos_sr import sr_mhd_prim1d_to_cons1d, sr_prim1d_to_cons1d
 from . import register
 
 
 @register("blast")
 class Blast:
     def __init__(self, par, sim: SimConfig, grid: GridConfig):
-        if sim.special_relativity:
-            raise NotImplementedError("[blast]: special relativity (ROADMAP "
-                                      "A15)")
         self.par = par
 
     def init(self, par, sim: SimConfig, grid: GridConfig, device):
@@ -51,6 +50,12 @@ class Blast:
         U = st.U.clone()
         U[ID] = torch.where(inside, drat * da * one, da * one)
         P = torch.where(inside, prat * pa * one, pa * one)
+        if sim.special_relativity and not sim.mhd:
+            z = torch.zeros_like(P)
+            Usr = sr_prim1d_to_cons1d(torch.stack([U[ID], z, z, z, P]), sim)
+            U[ID] = Usr[0]
+            U[IEN] = Usr[4]
+            return st.replace(U=U)
         if not sim.mhd:
             if sim.adiabatic:
                 U[IEN] = P / sim.gamma_1
@@ -62,7 +67,13 @@ class Blast:
         Bcc = st.Bcc.clone()
         Bcc[0] = Bx
         Bcc[1] = By
-        if sim.adiabatic:
+        if sim.special_relativity:
+            z = torch.zeros_like(P)
+            Usr = sr_mhd_prim1d_to_cons1d(
+                torch.stack([U[ID], z, z, z, P, Bcc[1], z]), Bcc[0], sim)
+            U[ID] = Usr[0]
+            U[IEN] = Usr[4]
+        elif sim.adiabatic:
             U[IEN] = exact_div(P, sim.gamma_1) + 0.5 * (Bx ** 2 + By ** 2)
         return st.replace(U=U, Bcc=Bcc, B1i=Bcc[0].clone(),
                           B2i=Bcc[1].clone(), B3i=Bcc[2].clone())

@@ -1,6 +1,6 @@
 """Shock-tube problem generator (reference: src/prob/shkset1d.c), as in
-``atmospheric_athena_tpu/models/shkset1d.py`` for hydro and MHD (the
-special-relativistic states are ROADMAP A15).
+``atmospheric_athena_tpu/models/shkset1d.py`` for hydro and MHD, Newtonian
+and special-relativistic (the SR Prim1D_to_Cons1D, JAX shkset1d.py:51-56).
 
 Left and right primitive states from <problem>, the discontinuity at x = 0
 along shk_dir, vector components permuted so that the shock normal maps
@@ -16,15 +16,13 @@ from .. import state as state_mod
 from ..config import GridConfig, SimConfig
 from ..defs import ID, IEN, IM1
 from ..eos import prim1d_to_cons1d
+from ..eos_sr import sr_mhd_prim1d_to_cons1d, sr_prim1d_to_cons1d
 from . import register
 
 
 @register("shkset1d")
 class Shkset1D:
     def __init__(self, par, sim: SimConfig, grid: GridConfig):
-        if sim.special_relativity:
-            raise NotImplementedError("[shkset1d]: special relativity "
-                                      "(ROADMAP A15)")
         self.par = par
 
     def init(self, par, sim: SimConfig, grid: GridConfig, device):
@@ -48,8 +46,12 @@ class Shkset1D:
                                                     f"r[{n}]{side}")
                        else f"s{n}{side}")
                 vals.append(par.getd("problem", key))
-            return prim1d_to_cons1d(torch.tensor(vals, dtype=dtype,
-                                                 device=device), bx, sim), bx
+            W = torch.tensor(vals, dtype=dtype, device=device)
+            if sim.special_relativity and sim.mhd:
+                return sr_mhd_prim1d_to_cons1d(W, bx, sim), bx
+            if sim.special_relativity:
+                return sr_prim1d_to_cons1d(W, sim), bx
+            return prim1d_to_cons1d(W, bx, sim), bx
 
         (Ul, Bxl), (Ur, Bxr) = prim_side("l"), prim_side("r")
         axis = par.geti("problem", "shk_dir") - 1

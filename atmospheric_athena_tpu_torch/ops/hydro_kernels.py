@@ -101,7 +101,8 @@ def refusal(sim: SimConfig):
         return ("MHD: the JAX kernels take hydro only "
                 "(pallas_hydro.supported); MHD runs the plain CT steps")
     if sim.special_relativity:
-        return "special relativity (ROADMAP A15)"
+        return ("special relativity: the JAX kernels take Newtonian hydro "
+                "only (pallas_util.py:37); SR runs the plain VL steps")
     if sim.integrator != "ctu":
         return (f"the {sim.integrator} integrator: the JAX kernels are "
                 "called only from ctu3d's Pallas branch (ctu3d.py:150-155); "
@@ -201,8 +202,12 @@ def form(sim: SimConfig) -> str:
 
 # ------------------------------------------------------------- plain versions
 
-def sweep_lrflux_plain(U, phic, phif_a, dtodx, sim: SimConfig, axis: int):
-    """Plain PyTorch version of ``sweep_lrflux`` (same signature)."""
+def sweep_lrflux_plain(U, phic, phif_a, dtodx, sim: SimConfig, axis: int,
+                       dvx=None):
+    """Plain PyTorch version of ``sweep_lrflux`` (same signature); `dvx`, a
+    further kick taken from both states' normal velocity after the static
+    one (self-gravity's half step, JAX ctu3d.py:240-241), which no kernel
+    takes."""
     dim = 3 - axis                 # sweep dimension of a [nv, Nz, Ny, Nx]
     fdim = 2 - axis                # ... and of one field [Nz, Ny, Nx]
     U1d = vperm_to_sweep(U, axis, sim)
@@ -216,6 +221,9 @@ def sweep_lrflux_plain(U, phic, phif_a, dtodx, sim: SimConfig, axis: int):
         dVr = dtodx * (phic - phif_a)
         Wl = torch.cat([Wl[:1], (Wl[1] - dVl)[None], Wl[2:]])
         Wr = torch.cat([Wr[:1], (Wr[1] - dVr)[None], Wr[2:]])
+    if dvx is not None:
+        Wl = torch.cat([Wl[:1], (Wl[1] - dvx)[None], Wl[2:]])
+        Wr = torch.cat([Wr[:1], (Wr[1] - dvx)[None], Wr[2:]])
     Ul = prim1d_to_cons1d(Wl, None, sim)
     Ur = prim1d_to_cons1d(Wr, None, sim)
     F = riemann.fluxes(Ul, Ur, Wl, Wr, None, sim)

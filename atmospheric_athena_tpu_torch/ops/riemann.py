@@ -3,8 +3,9 @@ hydro and MHD (``atmospheric_athena_tpu/ops/riemann.py``: ``roe`` with its
 HLLE fallback and the H-correction, ``hlle``, ``hllc`` (hydro only),
 ``hlld`` (adiabatic MHD only), ``force``, ``two_shock`` (isothermal hydro
 without scalars), ``exact`` (hydro) and the ``fluxes`` dispatcher for
-them).  ``roe``, ``hllc`` and ``hlld`` also return, on request, the
-interface pressure the cylindrical integrator reads.
+them, which sends SR gas to ``ops/riemann_sr.py``).  ``roe``, ``hllc`` and
+``hlld`` also return, on request, the interface pressure the cylindrical
+integrator reads.
 
 Stacked tensors [nvar1d, ...] with nvar1d = NWAVE + nscalars (NWAVE 5
 adiabatic hydro, 4 isothermal hydro, 7 adiabatic MHD, 6 isothermal MHD;
@@ -47,11 +48,17 @@ def _limits(sim: SimConfig):
     }
 
 
+def _sr_table(sim: SimConfig):
+    """The SR solvers of the gas (JAX riemann.py:814-820)."""
+    from . import riemann_sr
+    if sim.mhd:
+        return {"hlle": riemann_sr.hlle_sr_mhd, "hlld": riemann_sr.hlld_sr}
+    return {"hlle": riemann_sr.hlle_sr, "hllc": riemann_sr.hllc_sr,
+            "exact": riemann_sr.exact_sr}
+
+
 def _check(sim: SimConfig, name=None):
-    """Refuse SR gas (every solver) and what solver `name` does not take."""
-    if sim.special_relativity:
-        raise NotImplementedError(
-            "Riemann solvers for SR gas (ROADMAP A15)")
+    """Refuse what solver `name` does not take."""
     for bad, why in _limits(sim).get(name, ()):
         if bad:
             raise NotImplementedError(why)
@@ -59,6 +66,16 @@ def _check(sim: SimConfig, name=None):
 
 def check_solver(sim: SimConfig):
     """Raise what ``fluxes`` would raise for `sim`, before any step runs."""
+    if sim.special_relativity:
+        if not sim.adiabatic:
+            raise NotImplementedError(
+                "SR gas is adiabatic (the reference's SR conversions and "
+                "solvers have no isothermal form)")
+        if sim.flux not in _sr_table(sim):
+            raise NotImplementedError(
+                f"SR flux={sim.flux}: the SR {sim.gas} solvers are "
+                f"{sorted(_sr_table(sim))} (JAX riemann.py:814-824)")
+        return
     if sim.flux not in SOLVERS:
         raise NotImplementedError(
             f"flux={sim.flux}: the solvers are {sorted(SOLVERS)}")
@@ -821,6 +838,18 @@ SOLVERS = {"roe": roe, "hlle": hlle, "hllc": hllc, "hlld": hlld,
 
 
 def fluxes(Ul, Ur, Wl, Wr, Bxi, sim: SimConfig, etah=None):
-    """Uniform dispatch like the reference's single compiled fluxes()."""
+    """Uniform dispatch like the reference's single compiled fluxes(); SR
+    gas takes ops/riemann_sr.py, its passive scalars upwinded on the sign
+    of the mass flux (JAX riemann.py:814-834; the reference's SR solvers
+    refuse scalars, hlle_sr.c:30-32)."""
     check_solver(sim)
+    if sim.special_relativity:
+        nb = 7 if sim.mhd else 5
+        F = _sr_table(sim)[sim.flux](Ul[:nb], Ur[:nb], Wl[:nb], Wr[:nb], Bxi,
+                                     sim, etah=etah)
+        if Wl.shape[0] > nb:
+            Fs = torch.where(F[0] >= 0.0, F[0][None] * Wl[nb:],
+                             F[0][None] * Wr[nb:])
+            F = torch.cat([F, Fs], 0)
+        return F
     return SOLVERS[sim.flux](Ul, Ur, Wl, Wr, Bxi, sim, etah=etah)

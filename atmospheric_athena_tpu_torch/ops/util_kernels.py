@@ -138,9 +138,9 @@ def max_dti_hydro(U, sim: SimConfig, grid: GridConfig):
     version for CPU tensors."""
     if sim.mhd or sim.special_relativity:
         raise NotImplementedError(
-            "max_dti_hydro: hydro only, as the JAX kernel it replaces "
-            "(pallas_util.supported takes gas == 'hydro'); the MHD CFL is "
-            "dt.max_dti_plain")
+            "max_dti_hydro: Newtonian hydro only, as the JAX kernel it "
+            "replaces (pallas_util.supported takes gas == 'hydro' without "
+            "SR); the MHD CFL is dt.max_dti_plain, SR's max 1/dx")
     if U.device.type != "cuda":
         return max_dti_hydro_plain(U, sim, grid)
     if grid.ndim < 3:

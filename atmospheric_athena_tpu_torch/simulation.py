@@ -12,15 +12,20 @@ integrator follows the deck's integrator, the grid's dimension and the gas
 as in the JAX package (simulation.py:171-189): with VL, integrators/vl3d.py
 for 3D and vl_lowd.py for 2D and 1D, hydro and MHD; with CTU,
 integrators/ctu1d.py for 1D, ctu3d_mhd.py and ctu2d_mhd.py for 3D and 2D
-MHD, ctu3d.py for 2D and 3D hydro.
+MHD, ctu3d.py for 2D and 3D hydro.  Special-relativistic gas (blast,
+shkset1d) takes the VL steps, as the reference requires; self-gravity
+(--with-gravity=fft|fft_obc|multigrid, jeans) takes ctu3d, the only JAX
+integrator that takes the potential.
 
   - ``Simulation.from_file`` / ``from_par``: par parsing, config build,
     problem init, initial ghost fill, initial dt (main.c steps 1-9).
   - ``Simulation.step()``: one mesh update in the reference's order —
     the operator-split microphysics (``diffuse``: dt clamped to the
     diffusion limit, microphysics.integrate_diff, ghost fill), radiation
-    sub-cycle (may shrink dt), ghost fill, hydro, FARGO orbital advection
-    (shearing.fargo_advect), problem userwork, time/dt update, ghost fill
+    sub-cycle (may shrink dt), ghost fill, hydro (with self-gravity, Phi
+    from rho at t^n first), FARGO orbital advection
+    (shearing.fargo_advect), problem userwork, self-gravity's new Phi and
+    flux correction (gravity.selfg.selfg_fc), time/dt update, ghost fill
     (main.c:530-669).  A shearing box (3D MHD with CTU) takes ctu3d_mhd's
     shearing branches and the shearing sheet in the ghost fill.
   - ``Simulation.run()``: host loop with tlim/nlim termination, the
@@ -33,9 +38,10 @@ Every tensor lives on the ``device`` given at construction: ``"cuda"``
 unless the caller asks for ``"cpu"`` (without a visible GPU the default
 raises; there is no silent CPU fallback).  On a CUDA device a 3D hydro
 step runs the hand-written kernels; on the CPU their plain PyTorch
-versions.  A 2D or 1D step, and every MHD step, runs the plain versions on
-either device, as the JAX package runs jnp there (its kernels take three
-active axes and hydro gas).
+versions.  A 2D or 1D step, and every MHD, SR or self-gravitating step,
+runs the plain versions on either device, as the JAX package runs jnp there
+(its kernels take three active axes and Newtonian hydro, and ctu3d takes
+none with a self-gravity potential).
 """
 
 from __future__ import annotations
@@ -50,6 +56,8 @@ from torch.profiler import record_function
 from . import bvals, dt as dt_mod
 from .config import (GridConfig, SimConfig, grid_config_from_par,
                      sim_config_from_par)
+from .defs import ID
+from .gravity.selfg import phi_padded, selfg_fc
 from .integrators import (ctu1d, ctu2d_mhd, ctu3d, ctu3d_mhd, cyl, vl3d,
                           vl_lowd)
 from .models import get_problem
@@ -96,9 +104,28 @@ def parse_configure_line(par: ParameterDB) -> dict:
 
 def check_supported(par: ParameterDB, sim: SimConfig, grid: GridConfig):
     """Refuse decks outside the ported slice, naming the ROADMAP item."""
+    if sim.special_relativity and grid.cylindrical:
+        raise NotImplementedError(
+            "special relativity on a cylindrical grid (ROADMAP C39: the JAX "
+            "driver tests the grid before SR, simulation.py:160-177, and "
+            "steps such a deck with the Newtonian cylindrical integrator)")
+    if sim.special_relativity and sim.integrator != "vl":
+        raise NotImplementedError(
+            f"special relativity with the {sim.integrator} integrator: SR "
+            "runs on VL (ROADMAP A11 step 5) only, as the reference's CTU "
+            "integrators refuse it (integrate_3d_ctu.c:51-53) and the JAX "
+            "driver does (simulation.py:176-177)")
+    if sim.self_gravity and integrator(grid, sim) is not ctu3d:
+        raise NotImplementedError(
+            f"self-gravity on {grid.ndim}D {sim.gas} with {sim.integrator}"
+            f"{' on a cylindrical grid' if grid.cylindrical else ''} "
+            "(ROADMAP C40: the JAX driver hands phi_sg and selfg_pars to "
+            "every integrator, simulation.py:359-366, and only ctu3d.step, "
+            "2D and 3D hydro with CTU, takes them)")
+    if sim.self_gravity and sim.selfg_solver == "multigrid":
+        from .gravity.multigrid import check_supported as check_mg
+        check_mg(grid)
     blockers = [
-        (sim.special_relativity, "special relativity (ROADMAP A15)"),
-        (sim.self_gravity, "self-gravity (ROADMAP A15)"),
         (sim.shearing_box and not (
             sim.mhd and grid.ndim == 3 and sim.integrator == "ctu"
             and not grid.cylindrical),
@@ -249,6 +276,11 @@ class Simulation:
         # (from the state then: constant-AD mode reads max B^2 from it)
         self.diff = diffusion_pars(par, sim, grid, problem)
         self.dt_diff = None
+        # self-gravity's (four_pi_G, grav_mean_rho) from <problem> (JAX
+        # simulation.py:226-231; jeans sets them in the database)
+        self.selfg = ((par.getd_def("problem", "four_pi_G", 1.0),
+                       par.getd_def("problem", "grav_mean_rho", 0.0))
+                      if sim.self_gravity else None)
 
     # ------------------------------------------------------------------ setup
 
@@ -340,11 +372,21 @@ class Simulation:
             self.rad_iters.append(niter)
             with record_function("bvals"):
                 state = bvals.apply_bc(state, grid, sim, problem)
+        if self.selfg is not None:
+            # Phi from rho at t^n (the reference solves it at the end of
+            # the cycle before, main.c:603-613: the same potential)
+            with record_function("selfg"):
+                phi_sg = phi_padded(state, sim, grid, *self.selfg)
         with record_function("hydro"):
-            kw = ({} if self.phi_static is None
-                  else {"phi_static": self.phi_static})
-            state = self.integ.step(state, dt, sim, grid, problem,
-                                    phi=self.phi, **kw)
+            if self.selfg is not None:
+                state, fluxes = self.integ.step(
+                    state, dt, sim, grid, problem, phi=self.phi,
+                    phi_sg=phi_sg, selfg_pars=self.selfg, return_fluxes=True)
+            else:
+                kw = ({} if self.phi_static is None
+                      else {"phi_static": self.phi_static})
+                state = self.integ.step(state, dt, sim, grid, problem,
+                                        phi=self.phi, **kw)
         if sim.fargo:
             # orbital advection right after the integrator (main.c:576-583)
             from .shearing import fargo_advect
@@ -354,6 +396,19 @@ class Simulation:
         if userwork is not None:
             with record_function("userwork"):
                 state = userwork(state, sim, grid, aux=self.uw_aux)
+        if self.selfg is not None:
+            # the new Phi from the updated rho and the old/new-Phi flux
+            # correction (main.c:603-613, selfg.c:selfg_fc; JAX
+            # simulation.py:418-426)
+            with record_function("selfg"):
+                U = selfg_fc(state.U, phi_padded(state, sim, grid,
+                                                 *self.selfg),
+                             phi_sg, {a: F[ID] for a, F in fluxes.items()},
+                             dt, sim, grid, *self.selfg)
+                sl = (slice(None),) + grid.interior()
+                Uout = state.U.clone()
+                Uout[sl] = U[sl]
+                state = state.replace(U=Uout)
         state = state.replace(time=state.time + dt, nstep=state.nstep + 1,
                               dt=dt)
         with record_function("new_dt"):

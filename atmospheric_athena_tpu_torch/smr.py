@@ -25,7 +25,7 @@ Geometry: a child Domain at level l+1 covers the parent cell box
 MHD adds the face fields (smr_fld.py): here the cell-centred Bcc is
 restricted and flux-corrected like U (the caller passes it as the array),
 and prolong_ghosts slopes the gas pressure with the parent's Bcc.  Special
-relativity is ROADMAP A15 and raises.
+relativity raises (SMR steps with CTU; SR requires VL).
 """
 
 from __future__ import annotations
@@ -265,10 +265,12 @@ def prolong_ghosts(Uc, Uf, pgrid: GridConfig, fgrid: GridConfig,
     P not E. This is intentionally non-conservative", smr.c:3206-3240) and
     rebuilds E from the prolonged momenta and, for MHD, from the parent's
     cell-centred field `Bccc` prolonged beside them.  Special relativity
-    raises (ROADMAP A15)."""
+    raises: the SMR driver steps its levels with CTU, and SR requires VL
+    (ROADMAP A13)."""
     if sim is not None and sim.special_relativity:
-        raise NotImplementedError("special-relativity prolongation (ROADMAP "
-                                  "A15)")
+        raise NotImplementedError(
+            "special-relativity prolongation: SR runs on VL, and the SMR "
+            "driver steps its levels with CTU (ROADMAP A13)")
     ng = fgrid.nghost
     ngc = ng // 2
     act = tuple(fgrid.active(a) for a in range(3))

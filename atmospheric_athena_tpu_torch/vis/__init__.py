@@ -86,6 +86,7 @@ def read_bin(path: str):
         x3 = np.fromfile(fh, "<f4", nz)
         data = np.fromfile(fh, "<f4", nvar * nz * ny * nx)
     out = dict(coordsys=int(coordsys), time=float(time), dt=float(dt),
+               nscalars=int(nscal), selfg=int(selfg),
                gamma_1=float(g1), iso_csound=float(cs),
                x1=x1.astype(np.float64), x2=x2.astype(np.float64),
                x3=x3.astype(np.float64),

@@ -40,7 +40,13 @@ with whole fluxes in the kernels' isothermal forms, B7 from the whole
 fluxes among them), four-level 1D SMR, 3D hydro with the exact and FORCE
 solvers (ctu3d's plain route between the CFL and ghost-fill kernels, as
 JAX's jnp branch) and cylindrical coordinates (integrators/cyl.py), the
-last two launching no hydro kernel and 1D SMR and cylindrical grids none.
+last two launching no hydro kernel and 1D SMR and cylindrical grids none;
+and this slice's paths: special relativity (the SR branches of
+integrators/vl3d.py and vl_lowd.py, eos_sr.py, ops/riemann_sr.py), which
+launches no kernel but the ghost fill on an SR hydro deck with outflow
+faces, and self-gravity (gravity/, ctu3d's plain route with the
+potential, jeans), which launches the CFL kernel and, on outflow faces,
+the ghost fill, as in the JAX package.
 It checks
 each hand-written kernel against its plain PyTorch version on the card; a
 kernel with several forms (the solver, Roe, HLLC or HLLE, and B5's
@@ -149,18 +155,26 @@ and counted per form, "name[form]":
      (phase3_a13_a11_cyl) the five cylindrical goldens at the JAX tests'
      tolerances with no kernel launched (run_cyl_golden), the isothermal
      blast SMR at 32^3 + 32^3 (3 cycles, the "smr iso" kernels launched)
-     and twoibw's four levels (30 cycles, none) against the plain CPU run
+     and twoibw's four levels (15 cycles, none) against the plain CPU run
      at 1e-12, Sod with the exact solver (its mass to rel 1e-12, L1
      density within 2e-3 of the Roe golden; run_sod_exact) and testsedov
-     at 32^3 with outflow faces with the exact and the FORCE solver (3
-     cycles each against the CPU run, B4 and B11 launched and no other
+     at 32^3 with outflow faces with the exact and the FORCE solver (1
+     cycle each against the CPU run, B4 and B11 launched and no other
      kernel); then (phase3_a15_micro_shear) the five goldens of
      microphysics and the shearing box (cshock1d, hall_drift at 64^2,
      strat, hgb and hgb with FARGO; run_a15_golden) at the JAX tests'
      tolerances with no kernel launched, testsedov at 32^3 with viscosity
      and conduction (3 cycles against the CPU run at 1e-12, the "sedov
      visc" kernels launched) and the anisotropic operators on a 2D MHD
-     state against the CPU at 1e-12 (aniso_vs_cpu);
+     state against the CPU at 1e-12 (aniso_vs_cpu); then
+     (phase3_sr_selfg) the eight SR goldens (run_sr_golden: the MB tube
+     with HLLC, with the exact solver, with transverse velocities; the MUB
+     tubes 1 and generic Alfven; the 3D SR blast; the 2D and 3D SR MHD
+     blasts) and hlld_sr_interfaces at the JAX tests' tolerances with no
+     kernel launched, and jeans (32 x 8 x 8) with fft, fft_obc and
+     multigrid, 3 cycles each against the plain CPU run at 1e-12 of each
+     field's scale floored at 1e-3 of the largest, launching B11 and, on
+     the isolated solvers' outflow decks, B4;
   4. full width: the SMR main path, isph2lev at 256^3 + 256^3 float32
      (the child over the root's centre), maxiter=50, batch_iters=25, 3
      cycles through Simulation.from_file (no device argument: the card is
@@ -197,25 +211,33 @@ and counted per form, "name[form]":
      VL (HLLD, order 2, cour_no 0.4), 3 cycles: the same numbers, the
      operators of a cycle and the cells FOFC corrected in the last cycle;
      then (phase4_smr_mhd, SMR_MHD_FULL) fl2lev's physics at 512 x 256 x
-     256 per level (3 cycles, a CLI cycle), fl2d2lev's at 4096 x 2048 per
-     level, rj2a at 4096 x 2048 and rj2a3d at 3072 x 32 x 32 (3 cycles
+     256 per level (2 cycles, a CLI cycle), fl2d2lev's at 4096 x 2048 per
+     level, rj2a at 4096 x 2048 and rj2a3d at 3072 x 32 x 32 (2 cycles
      each) in float32 with every kernel counter 0: ms per cycle,
      zone-cycles/s over all levels, peak memory, max |div B| of each level
      against its max |B| / dx, the operators of a cycle and the ms of the
      SMR glue per cycle (smr_glue_timer); then (phase4_a13_a11_cyl,
      A13_A11_CYL_FULL) isothermal SMR at 256^3 per level (blast2lev's
-     layout x8, drat 100, outflow root; 3 cycles and a CLI cycle),
+     layout x8, drat 100, outflow root; 2 cycles and a CLI cycle),
      testsedov at 256^3 with outflow faces with the exact and with the
      FORCE solver, cylblast2d and cylblastb2d at 2048 x 3072 and twoibw's
-     four levels at the deck's size (3 cycles each) in float32: the same
+     four levels at the deck's size (2 cycles each) in float32: the same
      numbers, each run's launches against its path's; then
      (phase4_a15_micro_shear, A15_FULL) testsedov at 256^3 with viscosity
-     and conduction (3 cycles and a CLI cycle; the "sedov visc" path: the
+     and conduction (2 cycles and a CLI cycle; the "sedov visc" path: the
      "sedov" kernels around the plain diffusion update, its share of the
      cycle by CUDA events), hgb at 256 x 256 x 128 with and without FARGO,
      strat at 32 x 256 x 384, hall_drift at 2048^2 and cshock1d at 48 cells
-     (3 cycles each) in float32: the same numbers, the host reads of a
-     shearing cycle;
+     (2 cycles each) in float32: the same numbers, the host reads of a
+     shearing cycle; then (phase4_sr_selfg, SR_SELFG_FULL) the SR hydro
+     blast (srblast3d's physics, HLLC, order 2p) at 256^3 on outflow faces
+     (B4 only), the SR MHD blasts (HLLD) at 256^3 and 2048^2 (no kernel;
+     a float32 run left with non-finite or unphysical cells is reported
+     and run again in float64), jeans at 256^3 with fft (B11) and the
+     self-gravitating blob (SELFG_BLOB_DECK) with fft_obc and multigrid on
+     outflow faces (B11, B4), 3 cycles each: the
+     same numbers, the host reads of a cycle and the SR MHD Newton's
+     trips, host reads and iterations per cell;
      phase 4's CLI cycles write no outputs
      (job/maxout=0) but the SMR one, which writes a history and a cons VTK
      output per level with -d (level 1's under lev1/ with a -lev1 problem
@@ -242,8 +264,10 @@ the hydro ones also with their phase-3 launches; "mhd_launches", each
 kernel's launches in each MHD_FULL run, all 0; "vl_launches", each
 kernel's launches in each VL_FULL run; "smr_mhd_launches", in each
 SMR_MHD_FULL run, all 0; "a13_a11_cyl_launches", in each
-A13_A11_CYL_FULL run; "a15_launches", in each A15_FULL run; B7's isothermal whole-flux form takes its launches
-from the isothermal SMR run), the nvidia-smi line
+A13_A11_CYL_FULL run; "a15_launches", in each A15_FULL run;
+"sr_selfg_launches", in each SR_SELFG_FULL run; B7's isothermal
+whole-flux form takes its launches from the isothermal SMR run), the
+nvidia-smi line
 before it, and the final line {"ok": true,
 "device": {...}}.  Any failed check raises, so the exit code is non-zero
 and no result line is printed.
@@ -1210,6 +1234,16 @@ PATHS = {
     # off on a shearing box)
     "shear": ([], others([])),
     "micro mhd": ([], others([])),
+    # special relativity: no hydro kernel and no CFL kernel
+    # (pallas_util.py:37 excludes SR), the ghost-fill kernel on an SR hydro
+    # deck with outflow faces (bvals.py:105-123 does not test SR)
+    "sr": ([], others([])),
+    "sr outflow": (["bc_fill"], others(["bc_fill"])),
+    # self-gravity: ctu3d's plain route (ctu3d.py:153), the CFL kernel
+    # (pallas_util.supported does not test self-gravity) and, on outflow
+    # faces, the ghost fill
+    "selfg": (["max_dti_hydro"], others(["max_dti_hydro"])),
+    "selfg outflow": (EXACT_3D, others(EXACT_3D)),
 }
 
 # kernel entries on no phase-4 path: B3' (as in the JAX package), the
@@ -1323,8 +1357,10 @@ def check_counts(label, counts, path):
 
 
 # timings of a plain version in phase 2 (its time is a yardstick, and
-# the plain sweeps take 40-100 ms a call at 256^3)
-PLAIN_REPS = 5
+# the plain sweeps take 40-100 ms a call at 256^3) and of a kernel (each
+# median taken twice, the lesser kept), cut to fit the script's budget
+PLAIN_REPS = 1
+KERNEL_REPS = 10
 
 
 def cuda_ms(fn, reps=20):
@@ -1405,25 +1441,39 @@ def count_ops(fn):
     return c.n
 
 
-def count_dispatch(fn):
+def count_dispatch(fn, reads=False):
     """The PyTorch operators one call of fn dispatches that compute or move
     data (each is one pass of a kernel over its tensors, on the card one
     launch or more): every dispatched operator but the views and the bare
-    allocations (empty, empty_like, empty_strided)."""
+    allocations (empty, empty_like, empty_strided).  With `reads`, (that,
+    the operators among them that bring a value to the host and wait for
+    the device: a scalar read (item, bool, int: _local_scalar_dense),
+    nonzero (its count), a copy to the CPU)."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Count(TorchDispatchMode):
         n = 0
+        r = 0
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            if not func.is_view and func.overloadpacket.__name__ not in (
+            name = func.overloadpacket.__name__
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view and name not in (
                     "empty", "empty_like", "empty_strided"):
                 self.n += 1
-            return func(*args, **(kwargs or {}))
+            if name in ("_local_scalar_dense", "nonzero"):
+                self.r += 1
+            elif name in ("_to_copy", "copy_") and isinstance(
+                    out, torch.Tensor) and out.device.type == "cpu" and any(
+                    isinstance(a, torch.Tensor) and a.device.type != "cpu"
+                    for a in args):
+                self.r += 1
+            return out
 
+    import torch
     with Count() as c:
         fn()
-    return c.n
+    return (c.n, c.r) if reads else c.n
 
 
 def bits(t):
@@ -2096,9 +2146,9 @@ def check_call(rec, name, kern, plain, args, grid, tol, timing):
     """One kernel comparison of phase 2, accumulated into rec[name]: the
     errors, B12's and B5-dF's bitwise checks, the bits that differ from the
     plain version (SHAPED and NS_FORMS kernels) and, with `timing`, the
-    median CUDA-event ms of kernel (20 runs) and plain version (PLAIN_REPS
-    runs), interleaved plain, kernel, kernel, plain, the bound and the
-    launch shapes' ms.  The NS_FORMS entries, some 230, are timed lighter:
+    median CUDA-event ms of kernel (KERNEL_REPS runs) and plain version
+    (PLAIN_REPS runs), interleaved plain, kernel, kernel, plain, the bound
+    and the launch shapes' ms.  The NS_FORMS entries, some 230, are timed lighter:
     the plain version's one compared call, the kernel's median of 5 runs,
     and the operations counted on the first axis.  The plain version runs
     first and both outputs are dropped before the timings, so that a
@@ -2144,8 +2194,8 @@ def check_call(rec, name, kern, plain, args, grid, tol, timing):
     elif timing:
         # plain, kernel, kernel, plain
         p1 = cuda_ms(lambda: plain(*args), reps=PLAIN_REPS)
-        k1 = cuda_ms(lambda: kern(*args))
-        k2 = cuda_ms(lambda: kern(*args))
+        k1 = cuda_ms(lambda: kern(*args), reps=KERNEL_REPS)
+        k2 = cuda_ms(lambda: kern(*args), reps=KERNEL_REPS)
         p2 = cuda_ms(lambda: plain(*args), reps=PLAIN_REPS)
         r["ms"] += min(k1, k2)
         r["plain_ms"] += min(p1, p2)
@@ -4169,14 +4219,16 @@ def copy_levels(src, dst, device):
         y.state = tstate.from_numpy(tstate.to_numpy(x.state), device=device)
 
 
-def run_levels_vs_cpu(label, text, problem, cmd, ncyc, tol=1e-12, **kw):
+def run_levels_vs_cpu(label, text, problem, cmd, ncyc, tol=1e-12,
+                      floor=0.0, **kw):
     """A deck (its text) in float64 with the SimConfig keywords `kw`, ncyc
     cycles on the card against the port's plain run on the CPU in the same
     process: cycle 1 from the
     deck's start, each later cycle from the CPU run's state copied to the
     card; every level's interior U (and Bcc and the face fields for MHD)
-    within `tol` of each field's max, time and dt to rel 1e-12.  Raises on
-    a miss; returns the worst error and the card run's launch counts."""
+    within `tol` of each field's max (floored at `floor` of the largest
+    field's), time and dt to rel 1e-12.  Raises on a miss; returns the
+    worst error and the card run's launch counts."""
     import numpy as np
     from atmospheric_athena_tpu_torch import ParameterDB, Simulation
 
@@ -4208,9 +4260,10 @@ def run_levels_vs_cpu(label, text, problem, cmd, ncyc, tol=1e-12, **kw):
                 if not np.isfinite(a).all():
                     raise AssertionError(f"{label} cycle {cyc + 1}: {k} "
                                          "non-finite")
+                big = floor * np.abs(b).max()
                 for n in range(a.shape[0]):
                     err = float(np.abs(a[n] - b[n]).max()
-                                / max(np.abs(b[n]).max(), 1e-300))
+                                / max(np.abs(b[n]).max(), big, 1e-300))
                     worst = max(worst, err)
                     if not err <= tol:
                         raise AssertionError(
@@ -4325,7 +4378,7 @@ SMR_MHD_FULL = [
 ]
 
 
-def phase4_smr_mhd(ncyc=3):
+def phase4_smr_mhd(ncyc=2):
     """This slice at full width in float32 through the entry points without
     a device argument (SMR_MHD_FULL), ncyc cycles each and a CLI cycle on
     the first run, with every kernel's launch counter 0: ms per cycle,
@@ -4562,11 +4615,11 @@ def phase3_a13_a11_cyl():
     """This slice in float64 on the card: the five cylindrical goldens at
     the JAX tests' tolerances (run_cyl_golden; no kernel launched); the
     isothermal blast SMR at 32^3 + 32^3 (3 cycles) and twoibw's four
-    levels (30 cycles) against the port's CPU run at 1e-12
+    levels (15 cycles) against the port's CPU run at 1e-12
     (run_levels_vs_cpu; the former launching exactly the "smr iso"
     kernels, the latter none); Sod with the exact solver (run_sod_exact;
     none); testsedov at 32^3 with outflow faces, with the exact and with
-    the FORCE solver, 3 cycles each against the CPU run at 1e-12 (B4 and
+    the FORCE solver, 1 cycle each against the CPU run at 1e-12 (B4 and
     B11 launched and no other kernel).  Returns {path: launch counts}."""
     counts = {}
     for name in CYL_GOLDENS:
@@ -4588,9 +4641,9 @@ def phase3_a13_a11_cyl():
         f"card against the plain CPU run: worst error {worst:.3e} x max; "
         f"launches { {k: v for k, v in counts['smr iso'].items() if v} }")
     worst, counts["smr 1d"] = run_levels_vs_cpu(
-        "twoibw 4 levels", twoibw_text(), "twoibw", TWOIBW_CMD, 30)
+        "twoibw 4 levels", twoibw_text(), "twoibw", TWOIBW_CMD, 15)
     check_no_kernel("phase 3 twoibw 4 levels", counts["smr 1d"])
-    say(f"phase 3 twoibw 400 + 400 + 640 + 1120 float64, 30 cycles on the "
+    say(f"phase 3 twoibw 400 + 400 + 640 + 1120 float64, 15 cycles on the "
         f"card against the plain CPU run: worst error {worst:.3e} x max; "
         "no kernel launched")
     reset_counts()
@@ -4604,11 +4657,11 @@ def phase3_a13_a11_cyl():
         with open(SEDOV_DECK) as fh:
             text = fh.read()
         worst, counts[f"exact 3d {flux}"] = run_levels_vs_cpu(
-            f"testsedov {flux} 32^3", text, "testsedov", sedov_cube(32), 3,
+            f"testsedov {flux} 32^3", text, "testsedov", sedov_cube(32), 1,
             flux=flux)
         check_counts(f"phase 3 testsedov {flux}", counts[f"exact 3d {flux}"],
                      "exact 3d")
-        say(f"phase 3 testsedov {flux} float64 32^3 (outflow), 3 cycles on "
+        say(f"phase 3 testsedov {flux} float64 32^3 (outflow), 1 cycle on "
             f"the card against the plain CPU run: worst error {worst:.3e} x "
             f"max; launches "
             f"{ {k: v for k, v in counts[f'exact 3d {flux}'].items() if v} }")
@@ -4638,7 +4691,7 @@ A13_A11_CYL_FULL = [
 ]
 
 
-def phase4_a13_a11_cyl(ncyc=3):
+def phase4_a13_a11_cyl(ncyc=2):
     """This slice at full width in float32 through the entry points without
     a device argument (A13_A11_CYL_FULL), ncyc cycles each and a CLI cycle
     on the first run: ms per cycle, zone-cycles/s over all levels, peak
@@ -4914,7 +4967,7 @@ A15_FULL = [
 ]
 
 
-def phase4_a15_micro_shear(ncyc=3):
+def phase4_a15_micro_shear(ncyc=2):
     """This slice at full width in float32 through the entry points without
     a device argument (A15_FULL), ncyc cycles each and a CLI cycle on the
     first run: ms per cycle, zone-cycles/s, peak memory, finite fields,
@@ -4990,6 +5043,574 @@ def phase4_a15_micro_shear(ncyc=3):
                 raise AssertionError(f"{label} CLI returned {rc}")
             check_counts(f"phase 4 {label} CLI cycle", read_counts(), path)
             say(f"phase 4 {label} {size} float32: 1 CLI cycle done")
+        torch.cuda.empty_cache()
+    return counts
+
+
+# ------------------------------------------------- SR and self-gravity
+# (ROADMAP A15 items 4-5): the decks of the reference's tst/1D-sr-hydro
+# and tst/1D-sr-mhd tubes, written from their goldens (sizes, domains and
+# the cycle times fix Nx1, x1min/x1max and cour_no; the unperturbed end
+# rows fix the states; gamma the one the golden matches)
+SR_TUBE_DECK = """
+<comment>
+problem = {title}
+config  = --with-problem=shkset1d --with-gas={gas} --enable-special-relativity --with-integrator=vl --with-flux={flux} --with-order=2p
+
+<job>
+problem_id = {pid}
+maxout     = 0
+
+<time>
+cour_no = 0.5
+nlim    = 100000
+tlim    = {tlim}
+
+<domain1>
+level  = 0
+Nx1    = {nx}
+x1min  = {xmin}
+x1max  = {xmax}
+bc_ix1 = 2
+bc_ox1 = 2
+Nx2    = 1
+x2min  = 0.0
+x2max  = 1.0
+Nx3    = 1
+x3min  = 0.0
+x3max  = 1.0
+
+<problem>
+gamma   = {gamma}
+shk_dir = 1
+{states}
+"""
+
+
+def sr_tube_states(left, right, keys=("d", "v1", "v2", "v3", "p")):
+    return "\n".join(f"{k}{side} = {v!r}" for side, vals in
+                     (("l", left), ("r", right)) for k, v in zip(keys, vals))
+
+
+_MHD_KEYS = ("d", "v1", "v2", "v3", "p", "b1", "b2", "b3")
+SR_TUBES = {
+    # Mignone & Bodo 2005 problem 1 (gamma 4/3; 5/3 misses the golden)
+    "mb1": dict(title="SR shock tube, Mignone & Bodo 2005 problem 1",
+                gas="hydro", flux="hllc", pid="MB_1", tlim=0.4, nx=400,
+                xmin=-0.5, xmax=0.5, gamma=4.0 / 3.0,
+                states=sr_tube_states((1.0, 0.9, 0.0, 0.0, 1.0),
+                                      (1.0, 0.0, 0.0, 0.0, 10.0))),
+    # Mignone, Ugliano & Bodo 2009 shock tube 1 (Balsara 1, gamma 2)
+    "mub1": dict(title="SR MHD shock tube, MUB 2009 problem 1", gas="mhd",
+                 flux="hlld", pid="MUB_1", tlim=0.4, nx=400, xmin=-0.5,
+                 xmax=0.5, gamma=2.0,
+                 states=sr_tube_states((1.0, 0.0, 0.0, 0.0, 1.0, 0.5, 1.0,
+                                        0.0), (0.125, 0.0, 0.0, 0.0, 0.1,
+                                               0.5, -1.0, 0.0), _MHD_KEYS)),
+    # MUB 2009's generic Alfven test on x1 in [0, 1]: the discontinuity at
+    # x = 0 leaves the whole grid in the right state
+    "mubrot": dict(title="SR MHD generic Alfven test, MUB 2009", gas="mhd",
+                   flux="hlld", pid="MUB_rot", tlim=0.5, nx=40, xmin=0.0,
+                   xmax=1.0, gamma=5.0 / 3.0,
+                   states=sr_tube_states(
+                       (1.0, 0.4, -0.3, 0.5, 1.0, 2.4, 1.0, -1.6),
+                       (1.0, 0.377347, -0.482389, 0.424190, 1.0, 2.4, -0.1,
+                        -2.178213), _MHD_KEYS)),
+}
+
+
+def sr_tube_deck(name):
+    return SR_TUBE_DECK.format(**SR_TUBES[name])
+
+
+SR_MHD_VL = dict(gas="mhd", special_relativity=True, integrator="vl",
+                 order="2p")
+# the SR goldens of JAX tests/test_sr.py and test_sr_mhd.py: name -> (deck
+# (an SR_TUBES key or a tests/golden file), golden, cycles, overrides,
+# SimConfig keywords, tolerance x each field's scale)
+SR_GOLDENS = {
+    "mb1": ("mb1", "sr_mb1_50cycles.npz", 50, [], dict(flux="hllc"), 5e-5),
+    "mb1_exact": ("mb1", "sr_mb1_exact_50cycles.npz", 50, [],
+                  dict(flux="exact"), 5e-5),
+    "mb1vt_exact": ("mb1", "sr_mb1vt_exact_30cycles.npz", 30,
+                    ["problem/v2l=0.4", "problem/v2r=-0.2", "problem/v3l=0.1"],
+                    dict(flux="exact"), 5e-5),
+    "mub1": ("mub1", "sr_mub1_50cycles.tab", 50, ["time/tlim=10.0"], {},
+             1e-9),
+    "mubrot": ("mubrot", "sr_mubrot_50cycles.tab", 50, ["time/tlim=10.0"],
+               {}, 1e-9),
+    "blast3d": ("athinput.srblast3d", "sr_blast3d_10cycles.tab", 10,
+                ["time/tlim=99"],
+                dict(gas="hydro", special_relativity=True, integrator="vl",
+                     flux="hllc", order="2p"), 1e-5),
+    "mhd_blast2d": ("athinput.srmhdblast2d", "sr_mhd_blast2d_hlle.npz", 10,
+                    ["domain1/Nx1=48", "domain1/Nx2=48", "time/tlim=99",
+                     "problem/b0=0.05", "problem/angle=30",
+                     "problem/prat=100", "problem/drat=10"],
+                    dict(SR_MHD_VL, flux="hlle"), 1e-3),
+    "mhd_blast3d": ("athinput.srmhdblast3d", "sr_mhd_blast3d_hlle.npz", 10,
+                    ["domain1/Nx1=32", "domain1/Nx2=32", "domain1/Nx3=32",
+                     "time/tlim=99", "problem/b0=0.05", "problem/angle=30"],
+                    dict(SR_MHD_VL, flux="hlle"), 1e-3),
+}
+
+
+def sr_golden_sim(name, device):
+    """The Simulation of SR_GOLDENS[name] in float64 on `device`."""
+    from atmospheric_athena_tpu_torch import ParameterDB, Simulation
+    deck, _, ncyc, cmd, kw, _ = SR_GOLDENS[name]
+    cmd = [f"time/nlim={ncyc}", "job/maxout=0"] + cmd
+    if deck in SR_TUBES:
+        par = ParameterDB.from_string(sr_tube_deck(deck))
+        problem = "shkset1d"
+    else:
+        par = ParameterDB.from_file(os.path.join(_GOLDEN, deck))
+        problem = "blast"
+    par.apply_cmdline(cmd)
+    return Simulation.from_par(par, problem=problem, dtype="float64",
+                               device=device, **kw)
+
+
+def sr_prims(s):
+    """The primitive state of an SR run's interior on the host, in the
+    golden tabs' columns: hydro (d, V1, V2, V3, P), MHD (d, v1, v2, v3, P,
+    B1, B2, B3)."""
+    import torch
+    from atmospheric_athena_tpu_torch import eos_sr
+    sl = s.grid.interior()
+    U = s.state.U[(slice(None),) + sl]
+    if not s.sim.mhd:
+        return eos_sr.sr_cons1d_to_prim1d(U, s.sim).reshape(
+            5 + s.sim.nscalars, -1).cpu().numpy()
+    B = s.state.Bcc[(slice(None),) + sl]
+    W = eos_sr.sr_mhd_cons1d_to_prim1d(torch.cat([U[:5], B[1:]]), B[0],
+                                       s.sim).reshape(7, -1).cpu().numpy()
+    return [W[0], W[1], W[2], W[3], W[4], B[0].reshape(-1).cpu().numpy(),
+            W[5], W[6]]
+
+
+def run_sr_golden(name, device):
+    """One SR golden (SR_GOLDENS, float64) through the entry points on
+    `device` at JAX tests/test_sr.py's and test_sr_mhd.py's tolerances:
+    the tubes' primitives (mb1 and its exact runs at 5e-5 of each field's
+    max with the time of every cycle to rel 1e-6; mub1, mubrot at 1e-9
+    of max(|field|, 1)), the 3D blast's U at 1e-5, the 2D and 3D MHD
+    blasts' U and Bcc at 1e-11 after cycle 1 and 1e-3 after cycle 10 (the
+    3D run's B fields at cycle 10: the 99th percentile below 2.5e-3, the
+    max below 3e-2, the JAX test's bound on its tie flips).  Raises on a
+    miss; returns the Simulation and the worst error x scale."""
+    import numpy as np
+    deck, gname, ncyc, _, _, tol = SR_GOLDENS[name]
+    s = sr_golden_sim(name, device)
+    path = os.path.join(_GOLDEN, gname)
+    gold = np.load(path) if gname.endswith(".npz") else np.loadtxt(path)
+    worst = 0.0
+
+    def check(got, ref, atol, what):
+        nonlocal worst
+        scale = max(np.abs(ref).max(), 1e-30)
+        err = float(np.abs(np.ravel(got) - ref).max() / scale)
+        worst = max(worst, err)
+        if not err <= atol:
+            raise AssertionError(f"SR golden {name} {what}: error {err:.3e} "
+                                 f"x scale exceeds {atol:.0e}")
+
+    if name.startswith("mhd_blast"):
+        nsp = gold["cons1"].shape[1] - 8
+        for cyc in range(1, ncyc + 1):
+            s.step()
+            t, tr = float(s.state.time), float(gold["traj"][cyc - 1][0])
+            if not abs(t / tr - 1) <= 1e-6:
+                raise AssertionError(f"{name} cycle {cyc}: time {t}, {tr}")
+            if cyc not in (1, ncyc):
+                continue
+            sl = s.grid.interior()
+            U = s.state.U.cpu().numpy()
+            B = s.state.Bcc.cpu().numpy()
+            ref = gold[f"cons{cyc}"]
+            for i, q in enumerate([U[k][sl] for k in range(5)]
+                                  + [B[k][sl] for k in range(3)]):
+                r = ref[:, nsp + i]
+                if cyc == ncyc and i >= 5 and s.grid.ndim == 3:
+                    e = np.abs(q.ravel() - r) / max(np.abs(r).max(), 1e-30)
+                    worst = max(worst, float(e.max()))
+                    if not (np.quantile(e, 0.99) < 2.5e-3
+                            and e.max() < 3.0e-2):
+                        raise AssertionError(
+                            f"{name} cycle {cyc} B{i - 4}: p99 "
+                            f"{np.quantile(e, 0.99):.2e} max {e.max():.2e}")
+                else:
+                    check(q, r, 1e-11 if cyc == 1 else tol,
+                          f"cycle {cyc} field {i}")
+        return s, worst
+    if name == "blast3d":
+        s.run(max_steps=ncyc)
+        sl = s.grid.interior()
+        U = s.state.U.cpu().numpy()
+        for i in range(5):
+            check(U[i][sl], gold[:, 6 + i], tol, f"U[{i}]")
+        return s, worst
+    if deck == "mb1":
+        for i in range(ncyc):
+            s.step()
+            t, tr = float(s.state.time), float(gold["traj"][i][0])
+            if not abs(t / tr - 1) <= 1e-6:
+                raise AssertionError(f"{name} cycle {i + 1}: time {t}, {tr}")
+        W = sr_prims(s)
+        cols = ([(2, 0), (3, 1), (6, 4)] if name != "mb1vt_exact" else
+                [(2, 0), (3, 1), (4, 2), (5, 3), (6, 4)])
+        for col, k in cols:
+            check(W[k], gold["prim"][:, col], tol, f"prim {k}")
+        return s, worst
+    s.run(max_steps=ncyc)
+    W = sr_prims(s)
+    for i in range(8):
+        ref = gold[:, 2 + i]
+        err = float(np.abs(np.ravel(W[i]) - ref).max()
+                    / max(np.abs(ref).max(), 1.0))
+        worst = max(worst, err)
+        if not err <= tol:
+            raise AssertionError(f"SR golden {name} field {i}: error "
+                                 f"{err:.3e} exceeds {tol:.0e}")
+    return s, worst
+
+
+def hlld_sr_interfaces(device):
+    """JAX test_sr.py::test_sr_hlld_interface_golden on `device`: on the
+    stable set each interface's flux within 1e-7 of the reference's or of
+    the HLL flux, at most 5 HLL escapes.  Returns (worst, escapes)."""
+    import numpy as np
+    import torch
+    from atmospheric_athena_tpu_torch import SimConfig, eos_sr
+    from atmospheric_athena_tpu_torch.ops import riemann_sr
+    g = np.load(os.path.join(_GOLDEN, "hlld_sr_interfaces.npz"))
+    sim = SimConfig(gas="mhd", special_relativity=True, integrator="vl",
+                    order="2p", flux="hlld", gamma=float(g["gamma"]))
+    Wl, Wr, Bx = (torch.as_tensor(g[k], device=device)
+                  for k in ("Wl", "Wr", "Bx"))
+    Ul = eos_sr.sr_mhd_prim1d_to_cons1d(Wl, Bx, sim)
+    Ur = eos_sr.sr_mhd_prim1d_to_cons1d(Wr, Bx, sim)
+    F = riemann_sr.hlld_sr(Ul, Ur, Wl, Wr, Bx, sim).cpu().numpy()
+    Fh = riemann_sr.hlle_sr_mhd(Ul, Ur, Wl, Wr, Bx, sim).cpu().numpy()
+    ref, m = g["F"], g["stable"]
+    scale = np.maximum(np.abs(ref).max(axis=1, keepdims=True), 1e-10)
+    er = (np.abs(F - ref) / scale).max(axis=0)
+    eh = (np.abs(F - Fh) / scale).max(axis=0)
+    best = np.minimum(er, eh)
+    esc = int((m & (er >= 1e-7)).sum())
+    if not ((best < 1e-7)[m].all() and esc <= 5):
+        raise AssertionError(f"hlld_sr_interfaces: worst {best[m].max():.3e}"
+                             f", {esc} HLL escapes")
+    return float(best[m].max()), esc
+
+
+# the Jeans deck of JAX tests/test_selfg.py (32 x 8 x 8, kdir 1), periodic
+# (fft) or outflow (the isolated solvers); njeans 0.5 (stable) or 2
+JEANS_DECK = """
+<comment>
+problem = jeans
+config  = --with-problem=jeans --with-gravity={solver}
+
+<job>
+problem_id = Jeans
+maxout     = 0
+
+<time>
+cour_no = 0.4
+nlim    = 10000
+tlim    = 1.0
+
+<domain1>
+Nx1    = {nx1}
+x1min  = 0.0
+x1max  = 1.0
+bc_ix1 = {bc}
+bc_ox1 = {bc}
+Nx2    = {nx2}
+x2min  = 0.0
+x2max  = {x2max}
+bc_ix2 = {bc}
+bc_ox2 = {bc}
+Nx3    = {nx3}
+x3min  = 0.0
+x3max  = {x3max}
+bc_ix3 = {bc}
+bc_ox3 = {bc}
+
+<problem>
+gamma  = 1.66666666666667
+amp    = {amp}
+njeans = {njeans}
+kdir   = 1
+"""
+
+
+def jeans_deck(solver="fft", n=(32, 8, 8), njeans=0.5, amp=1e-6):
+    """JEANS_DECK for a solver: periodic faces for fft, outflow for
+    fft_obc and multigrid; cells cubic (x1 spans 1)."""
+    return JEANS_DECK.format(
+        solver=solver, nx1=n[0], nx2=n[1], nx3=n[2],
+        x2max=n[1] / n[0], x3max=n[2] / n[0], bc=4 if solver == "fft" else 2,
+        amp=amp, njeans=njeans)
+
+
+# an isolated self-gravitating blob for the isolated solvers (fft_obc,
+# multigrid): blast's dense, pressure-matched sphere (radius 0.1, density
+# 100x a thin ambient medium) on [-0.5, 0.5]^3 with outflow faces and
+# four_pi_G 1.  (jeans' uniform cube is a periodic problem: on outflow
+# faces its boundary cells take the whole cube's pull and go negative in
+# the first cycles, in both packages.)
+SELFG_BLOB_DECK = """
+<comment>
+problem = self-gravitating blob
+config  = --with-problem=blast --with-gravity={solver}
+
+<job>
+problem_id = Blob
+maxout     = 0
+
+<time>
+cour_no = 0.4
+nlim    = 10000
+tlim    = 1.0
+
+<domain1>
+Nx1    = {n}
+x1min  = -0.5
+x1max  = 0.5
+bc_ix1 = 2
+bc_ox1 = 2
+Nx2    = {n}
+x2min  = -0.5
+x2max  = 0.5
+bc_ix2 = 2
+bc_ox2 = 2
+Nx3    = {n}
+x3min  = -0.5
+x3max  = 0.5
+bc_ix3 = 2
+bc_ox3 = 2
+
+<problem>
+gamma     = 1.66666666666667
+four_pi_G = 1.0
+damb      = 0.01
+drat      = 100.0
+pamb      = 0.01
+prat      = 1.0
+radius    = 0.1
+"""
+
+
+def blob_deck(solver, n=32):
+    return SELFG_BLOB_DECK.format(solver=solver, n=n)
+
+
+def phase3_sr_selfg():
+    """ROADMAP A15 items 4-5 in float64 on the card: the eight SR goldens
+    (run_sr_golden) and hlld_sr_interfaces at the JAX tests' tolerances,
+    launching no kernel (their decks are periodic or 1D); then jeans (32 x
+    8 x 8) with fft, fft_obc and multigrid, 3 cycles each against the
+    port's plain CPU run at 1e-12 of each field's scale (floored at 1e-3
+    of the largest: the FFTs differ at roundoff), launching B11 and, on
+    the outflow decks of the isolated solvers, B4.  Returns {path: launch
+    counts}."""
+    counts = {}
+    for name in SR_GOLDENS:
+        reset_counts()
+        t0 = time.perf_counter()
+        s, worst = run_sr_golden(name, "cuda")
+        counts[f"sr {name}"] = read_counts()
+        check_counts(f"phase 3 SR golden {name}", counts[f"sr {name}"], "sr")
+        say(f"phase 3 SR golden {name} float64 "
+            f"{'x'.join(str(n) for n in s.grid.Nx if n > 1)} "
+            f"({s.sim.gas}, {s.sim.flux}), {int(s.state.nstep)} cycles on the "
+            f"card in {time.perf_counter() - t0:.2f} s: worst error "
+            f"{worst:.3e} x scale (tolerance {SR_GOLDENS[name][5]:.0e}); no "
+            "kernel launched")
+    worst, esc = hlld_sr_interfaces("cuda")
+    say(f"phase 3 hlld_sr_interfaces on the card: worst {worst:.3e} of the "
+        f"reference's or the HLL flux (1e-7), {esc} HLL escapes (<= 5)")
+    for solver, path in (("fft", "selfg"), ("fft_obc", "selfg outflow"),
+                         ("multigrid", "selfg outflow")):
+        worst, c = run_levels_vs_cpu(
+            f"jeans {solver}", jeans_deck(solver, amp=0.01), "jeans", [], 3,
+            floor=1e-3)
+        counts[f"jeans {solver}"] = c
+        check_counts(f"phase 3 jeans {solver}", c, path)
+        say(f"phase 3 jeans with {solver} float64 32x8x8, 3 cycles on the "
+            f"card against the plain CPU run: worst error {worst:.3e} x "
+            f"scale; launches { {k: v for k, v in c.items() if v} }")
+    return counts
+
+
+SR_BLAST3D = os.path.join(_GOLDEN, "athinput.srblast3d")
+SR_MHD3D = os.path.join(_GOLDEN, "athinput.srmhdblast3d")
+SR_MHD2D = os.path.join(_GOLDEN, "athinput.srmhdblast2d")
+
+
+def sr_cube(n):
+    """n^3 cubic cells on [-0.5, 0.5]^3."""
+    return ([f"domain1/Nx{a}={n}" for a in (1, 2, 3)]
+            + [f"domain1/x{a}min=-0.5" for a in (1, 2, 3)]
+            + [f"domain1/x{a}max=0.5" for a in (1, 2, 3)])
+
+
+# the full-width runs of this slice (float32): (label, deck (a path or a
+# deck's text), problem, path, overrides, SimConfig keywords).  The SR
+# hydro blast (srblast3d's physics, HLLC, order 2p) on outflow faces, so
+# that B4 covers it; the SR MHD blast (srmhdblast3d's) with HLLD at 256^3
+# and srmhdblast2d's at 2048^2; jeans at 256^3 with fft (periodic faces)
+# and the self-gravitating blob at 256^3 with fft_obc and multigrid
+# (outflow faces)
+SR_HYDRO = dict(gas="hydro", special_relativity=True, integrator="vl",
+                flux="hllc", order="2p")
+SR_SELFG_FULL = [
+    ("sr hydro", SR_BLAST3D, "blast", "sr outflow",
+     sr_cube(256) + VL_OUTFLOW, SR_HYDRO),
+    ("sr mhd", SR_MHD3D, "blast", "sr", sr_cube(256),
+     dict(SR_MHD_VL, flux="hlld")),
+    ("sr mhd 2d", SR_MHD2D, "blast", "sr",
+     ["domain1/Nx1=2048", "domain1/Nx2=2048"], dict(SR_MHD_VL, flux="hlld")),
+    ("jeans fft", jeans_deck("fft", (256,) * 3), "jeans", "selfg", [], {}),
+    ("blob fft_obc", blob_deck("fft_obc", 256), "blast", "selfg outflow",
+     [], {}),
+    ("blob multigrid", blob_deck("multigrid", 256), "blast",
+     "selfg outflow", [], {}),
+]
+
+
+def sr_selfg_run(label, deck, problem, cmd, kw, dtype, ncyc):
+    """One SR_SELFG_FULL run: setup, ncyc cycles via Simulation.run with
+    the Newton counters on, cycle by cycle for float32 SR MHD, stopping
+    at the first cycle whose Newton failed (a cell at the 100 trips of
+    Cons1D_to_Prim1D) or whose fields went non-finite; returns
+    (Simulation, run dict, setup s, launch counts, Newton counters)."""
+    import torch
+    from atmospheric_athena_tpu_torch import ParameterDB, Simulation
+    from atmospheric_athena_tpu_torch import eos_sr
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    par = (ParameterDB.from_file(deck) if os.path.exists(deck)
+           else ParameterDB.from_string(deck))
+    par.apply_cmdline(cmd + ["time/tlim=9e9", "job/maxout=0"])
+    s = Simulation.from_par(par, problem=problem, dtype=dtype, **kw)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if s.device.type != "cuda":
+        raise AssertionError(f"{label} run on {s.device}")
+    reset_counts()
+    eos_sr.reset_newton_stats(track=True)
+    if s.sim.mhd and s.sim.special_relativity and dtype == "float32":
+        res = dict(steps=0, wall=0.0)
+        for _ in range(ncyc):
+            r = s.run(max_steps=1)
+            res["steps"] += r["steps"]
+            res["wall"] += r["wall"]
+            if (int(eos_sr.newton_stats["iter_max"]) >= 100
+                    or not bool(torch.isfinite(s.state.U).all())):
+                break
+        res["zone_cycles_per_sec"] = (s.grid.Nx[0] * s.grid.Nx[1]
+                                      * s.grid.Nx[2] * res["steps"]
+                                      / res["wall"])
+    else:
+        res = s.run(max_steps=ncyc)
+    counts = read_counts()
+    newton = dict(eos_sr.newton_stats)
+    eos_sr.reset_newton_stats(track=False)
+    return s, res, setup_s, counts, newton
+
+
+def sr_unphysical(s):
+    """The interior cells of an SR MHD run that check_Prim, in float64,
+    finds unphysical (d <= 0, P <= 0 or v^2 > 1, a failed inversion
+    included)."""
+    import dataclasses
+    import torch
+    from atmospheric_athena_tpu_torch import eos_sr
+    sl = (slice(None),) + s.grid.interior()
+    U, B = (x[sl].double() for x in (s.state.U, s.state.Bcc))
+    W = eos_sr.sr_mhd_check_prim1d(torch.cat([U[:5], B[1:]]), B[0],
+                                   dataclasses.replace(s.sim,
+                                                       dtype="float64"))
+    vsq = W[1] ** 2 + W[2] ** 2 + W[3] ** 2
+    return int(((~(W[0] > 0)) | (~(W[4] > 0)) | (vsq > 1.0)).sum())
+
+
+def phase4_sr_selfg(ncyc=3):
+    """This slice at full width in float32 through the entry points without
+    a device argument (SR_SELFG_FULL), ncyc cycles each: ms per cycle,
+    zone-cycles/s, peak memory, finite fields, dt > 0, the operators one
+    more cycle dispatches (count_dispatch), the host reads of that cycle,
+    each run's launches against its path's, and for SR MHD
+    the Newton's trips, host reads and mean and largest iterations a cell
+    took.  A float32 SR MHD run whose Newton fails or whose fields go
+    non-finite or unphysical is reported and run again in float64.  The
+    host reads of a cycle are those count_dispatch sees (the profiler's
+    pass over a 41,090-operator SR MHD cycle costs more than the cycle).
+    Returns {label: launch counts}."""
+    import torch
+    smi = smi_line()
+    counts = {}
+    for label, deck, problem, path, cmd, kw in SR_SELFG_FULL:
+        for dtype in ("float32", "float64"):
+            s, res, setup_s, c, nw = sr_selfg_run(label, deck, problem, cmd,
+                                                  kw, dtype, ncyc)
+            keys = ("U", "Bcc", "B1i", "B2i", "B3i") if s.sim.mhd else ("U",)
+            finite = all(bool(torch.isfinite(getattr(s.state, k)).all())
+                         for k in keys)
+            failed = s.sim.mhd and int(nw["iter_max"]) >= 100
+            bad = sr_unphysical(s) if s.sim.mhd else 0
+            if (finite and not bad and not failed) or not s.sim.mhd:
+                break
+            say(f"phase 4 {label} {dtype} FAILED after {res['steps']} "
+                f"cycles ({1e3 * res['wall'] / res['steps']:.2f} ms per "
+                f"cycle): {'finite' if finite else 'NON-FINITE'} fields, "
+                f"{bad} unphysical cells (float64 check_Prim), Newton "
+                f"{nw['calls']} inversions, {nw['trips']} trips, "
+                f"{nw['host_reads']} host reads, {int(nw['iter_max'])} the "
+                "most a cell took (Cons1D_to_Prim1D stops at 100, "
+                "check_Prim at 1000); "
+                + ("again in float64" if dtype == "float32" else "failed"))
+            del s
+            torch.cuda.empty_cache()
+        counts[label] = c
+        check_counts(f"phase 4 {label}", c, path)
+        dt = float(s.state.dt)
+        if (not finite or bad or failed or not dt > 0
+                or res["steps"] != ncyc):
+            raise AssertionError(f"phase 4 {label}: {res['steps']} steps, "
+                                 f"finite={finite} unphysical={bad} "
+                                 f"Newton failed={failed} dt={dt}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        size = "x".join(str(n) for n in s.grid.Nx if n > 1)
+        ms = 1e3 * res["wall"] / res["steps"]
+        extra = ""
+        if s.sim.mhd and nw["calls"]:
+            extra = (f"; Newton per cycle: {nw['calls'] / ncyc:.1f} "
+                     f"inversions, {nw['trips'] / ncyc:.1f} trips, "
+                     f"{nw['host_reads'] / ncyc:.1f} host reads; iterations "
+                     f"a cell took: mean {float(nw['iter_sum']) / nw['cells']:.3f}"
+                     f", max {int(nw['iter_max'])}")
+        if s.sim.self_gravity:
+            extra = f"; solver {s.sim.selfg_solver}, four_pi_G {s.selfg[0]:.6g}"
+        # one more cycle, counted (its host reads the scalar reads,
+        # nonzero calls and copies to the host it dispatches)
+        nops, reads = count_dispatch(s.step, reads=True)
+        launched = {k: v for k, v in c.items() if v}
+        say(f"phase 4 {label} {size} {dtype} ({s.grid.ndim}D "
+            f"{'SR ' if s.sim.special_relativity else ''}"
+            f"{'MHD' if s.sim.mhd else 'hydro'}, {s.sim.flux}"
+            f"{', self-gravity' if s.sim.self_gravity else ''}) on {smi}: "
+            f"setup {setup_s:.1f} s; {res['steps']} cycles via Simulation.run,"
+            f" {ms:.2f} ms per cycle, {res['zone_cycles_per_sec']:.4e} "
+            f"zone-cycles/s; peak device memory {peak:.2f} GiB; all fields "
+            f"finite, dt {dt:.6e}; {nops} PyTorch operators dispatched per "
+            f"cycle (count_dispatch), {ms / nops:.4f} ms per operator; host "
+            f"reads in one cycle {reads}; launches in {ncyc} cycles ({path} "
+            f"path) {launched or 'none'}{extra}")
+        del s
         torch.cuda.empty_cache()
     return counts
 
@@ -5994,6 +6615,8 @@ def main():
     lap("phase 3 isothermal and 1D SMR, the exact solvers, cylindrical")
     p3.update(phase3_a15_micro_shear())
     lap("phase 3 microphysics and the shearing box")
+    p3.update(phase3_sr_selfg())
+    lap("phase 3 special relativity and self-gravity")
     smr, _ = phase4_smr()
     counts, _ = phase4()
     counts["smr"] = smr
@@ -6021,6 +6644,8 @@ def main():
     lap("phase 4 isothermal and 1D SMR, the exact solvers, cylindrical")
     a15 = phase4_a15_micro_shear()
     lap("phase 4 microphysics and the shearing box")
+    srsg = phase4_sr_selfg()
+    lap("phase 4 special relativity and self-gravity")
     phase5()
     lap("phase 5")
 
@@ -6037,7 +6662,7 @@ def main():
              "turb hcorr": 1, "lw": 5, "lw MID=0": 1, "lw hcorr": 1,
              **{lw_path(LW_MANY, r): k for r, k in (("mid", 5), ("MID=0", 1),
                                                     ("hcorr", 1))},
-             "smr iso": 3}
+             "smr iso": 2}
     kernels = []
     for name, route, source, replaces in KERNELS:
         path = next((p for p in steps if counts[p][name] > 0), None)
@@ -6081,6 +6706,9 @@ def main():
         # around the viscous testsedov's diffusion update, none on the
         # shearing-box and MHD microphysics runs
         k["a15_launches"] = {p: c[name] for p, c in a15.items()}
+        # this slice's runs of phase 4 (SR_SELFG_FULL): B4 on the SR hydro
+        # outflow blast; B11 on jeans, with B4 on its outflow decks
+        k["sr_selfg_launches"] = {p: c[name] for p, c in srsg.items()}
         kernels.append(k)
     say(f"chip_smoke: all phases in {time.perf_counter() - t_all:.1f} s")
     say(smi_line())

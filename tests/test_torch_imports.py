@@ -9,8 +9,10 @@ steps (integrators/cyl.py and its three models), 3D steps with the exact
 and FORCE solvers, an isothermal and a four-level 1D SMR cycle, a step of
 each microphysics and shearing-box problem (microphysics/, shearing.py,
 cshock1d, hall_drift, hgb with and without FARGO, strat) and of a viscous,
-conducting testsedov with JAX made unimportable (chip_smoke.py imported
-too), and it refuses a CUDA device when none is visible."""
+conducting testsedov, of SR tubes and blasts (eos_sr.py, ops/riemann_sr.py;
+the exact solver, HLLD, 2D and 3D SR MHD with FOFC) and of jeans with each
+self-gravity solver (gravity/) with JAX made unimportable (chip_smoke.py
+imported too), and it refuses a CUDA device when none is visible."""
 
 import os
 import subprocess
@@ -191,6 +193,30 @@ for deck, problem, cmd, kw in (
                                cmdline=cmd + ["job/maxout=0"], device="cpu",
                                **kw)
     assert q.diff is not None or q.sim.shearing_box
+    q.step()
+    assert bool(torch.isfinite(q.state.U).all()) and float(q.state.dt) > 0
+from atmospheric_athena_tpu_torch import eos_sr, gravity
+from atmospheric_athena_tpu_torch.gravity import multigrid, selfg
+from atmospheric_athena_tpu_torch.models import jeans
+from atmospheric_athena_tpu_torch.ops import riemann_sr
+for name in ("mb1_exact", "mub1", "mhd_blast2d"):
+    q = chip_smoke.sr_golden_sim(name, "cpu")
+    assert q.sim.special_relativity
+    q.step()
+    assert bool(torch.isfinite(q.state.U).all()) and float(q.state.dt) > 0
+q = P.Simulation.from_file(os.path.join(gold, "athinput.srmhdblast3d"),
+                           problem="blast", device="cpu",
+                           cmdline=["domain1/Nx1=8", "domain1/Nx2=8",
+                                    "domain1/Nx3=8", "job/maxout=0"],
+                           gas="mhd", special_relativity=True,
+                           integrator="vl", flux="hlld", order="2p",
+                           first_order_flux_correction=True)
+q.step()
+assert bool(torch.isfinite(q.state.U).all())
+for solver in ("fft", "fft_obc", "multigrid"):
+    q = P.Simulation.from_par(P.ParameterDB.from_string(
+        chip_smoke.jeans_deck(solver)), device="cpu")
+    assert q.sim.self_gravity and q.selfg is not None
     q.step()
     assert bool(torch.isfinite(q.state.U).all()) and float(q.state.dt) > 0
 bad = sorted(m for m in set(sys.modules) - pre

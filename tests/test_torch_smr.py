@@ -175,7 +175,8 @@ def test_prolong_ghosts_refuses_mhd_and_sr(geom):
     P = E - ke - me with the parent's Bcc beside it (smr.c:3206-3240): held
     to the JAX function on a random parent Bcc to 1e-14 of each field's
     max, the child's actives kept; an MHD state without the parent's Bcc
-    raises.  Special relativity stays refused (A15)."""
+    raises.  Special relativity stays refused: it runs on VL, the SMR
+    levels on CTU (A13)."""
     g = geom
     args = (t(g["Up"]), t(g["Uf"]), g["pg"], g["cg"], g["link"])
     Bcc = np.random.default_rng(5).normal(size=(3,) + g["pg"].padded_shape())
@@ -190,7 +191,7 @@ def test_prolong_ghosts_refuses_mhd_and_sr(geom):
     assert torch.equal(got[sl], t(g["Uf"])[sl])
     with pytest.raises(ValueError, match="Bccc"):
         smr.prolong_ghosts(*args, sim=SimConfig(gas="mhd", nscalars=1))
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(NotImplementedError, match="A13"):
         smr.prolong_ghosts(*args, sim=SimConfig(special_relativity=True))
 
 

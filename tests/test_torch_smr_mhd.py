@@ -238,7 +238,7 @@ def test_smr_refusals_name_their_item():
     isothermal MHD SMR: tests/test_torch_smr_iso_1d.py,
     test_torch_smr_iso_mhd.py).  SMR with VL raises naming ROADMAP A13,
     MHD SMR on 1D grids and SMR on a cylindrical grid C29, MHD SMR with
-    plane radiation and SR A15."""
+    plane radiation A15, SR (VL only) A13."""
     from test_torch_smr_iso_1d import mesh_vs_jax
     fl = os.path.join(GOLD, "athinput.fl2lev")
     one_d = (chip_smoke.SOD_DECK.replace("<job>\n",
@@ -265,7 +265,7 @@ def test_smr_refusals_name_their_item():
          dict(gas="mhd", problem="ioniz_sphere"),
          "plane radiation on MHD gas \\(ROADMAP A15"),
         (ParameterDB.from_file(fl), dict(special_relativity=True),
-         "special relativity \\(ROADMAP A15"),
+         "special relativity with the ctu integrator"),
         (ParameterDB.from_string(one_d.replace(
             "--with-flux=roe", "--with-flux=hllc --with-coord=cylindrical")
          .replace("x1min  = -0.5", "x1min  = 0.5")
@@ -275,7 +275,7 @@ def test_smr_refusals_name_their_item():
     for par, kw, match in cases:
         with pytest.raises(NotImplementedError, match=match):
             Simulation.from_par(par, dtype="float64", device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(NotImplementedError, match="A13"):
         smr.prolong_ghosts(torch.zeros(5, 24, 24, 40),
                            torch.zeros(5, 24, 24, 40),
                            GridConfig(Nx=(32, 16, 16)),

@@ -9,8 +9,8 @@
   - a restarted VL run (3D hydro with FOFC, 2D MHD) continues bit for bit
     against an uninterrupted one, and a JAX checkpoint of a 2D VL MHD run
     continues in the port within 1e-12 of the JAX continuation;
-  - the refusals: special relativity (ROADMAP A15), FOFC on 1D and 2D VL
-    grids (C25), the H-correction in 2D VL MHD; and the kernels' refusal
+  - the refusals: passive scalars in 2D VL SR MHD (ROADMAP C41), FOFC on
+    1D and 2D VL grids (C25), the H-correction in 2D VL MHD; and the kernels' refusal
     of VL, which names ctu3d's Pallas branch as the only caller of the
     JAX kernels.
 """
@@ -115,8 +115,8 @@ def test_jax_vl_checkpoint_continues_in_port(tmp_path):
 
 
 REFUSALS = {
-    "sr": ("athinput.blastvl", dict(special_relativity=True),
-           "special relativity (ROADMAP A15)"),
+    "sr": ("athinput.ot64", dict(special_relativity=True, nscalars=1),
+           "passive scalars in 2D VL SR MHD (ROADMAP C41"),
     "fofc-2d": ("athinput.ot64", dict(first_order_flux_correction=True),
                 "C25"),
     "fofc-1d": (None, dict(first_order_flux_correction=True), "C25"),
