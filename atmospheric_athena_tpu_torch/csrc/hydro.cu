@@ -35,17 +35,22 @@ ATH_FLUX_GAS(adb, false)
 extern "C" {
 
 // B5 in both forms: df = 0 stores the whole flux in F (dF unused), df = 1
-// the density flux in F and the flux difference in dF
+// the density flux in F and the flux difference in dF; from two scalars on,
+// along y and z, warps > 0 takes the split plan (sweep.cuh
+// scalar_march_kernel with `warps` warps per block, side: the scalars' side
+// data, side_trace + side_flux fields on the grid) and warps = 0 keeps the
+// scalars in the wave march
 #define ATH_SWEEP_ARGS                                                     \
   const void *U, const void *phic, const void *phif, const void *dtodx,    \
-      void *Ul, void *Ur, void *F, void *dF, int nz, int ny, int nx,       \
-      int axis, int nscalars, int iso, int flux, int order, int df, int s, \
-      int t, int r, double c0, double c1, void *stream
+      void *Ul, void *Ur, void *F, void *dF, void *side, int nz, int ny,   \
+      int nx, int axis, int nscalars, int iso, int flux, int order, int df,\
+      int s, int t, int r, int warps, double c0, double c1, void *stream
 #define ATH_SWEEP_CALL(NAME, SUFFIX) \
   ath::NAME##_##SUFFIX(a, nscalars, flux, df, s, t, r, stream)
 #define ATH_SWEEP_BY_ORDER(SUFFIX)                                         \
-  const ath::SweepArgs a{U,  phic, phif, dtodx, Ul, Ur, F, dF,            \
-                         nz, ny,   nx,   axis,  c0, c1, nscalars, info};  \
+  const ath::SweepArgs a{U,  phic, phif, dtodx, Ul,       Ur,   F,      \
+                         dF, nz,   ny,   nx,    axis, c0,       c1,         \
+                         nscalars, side, warps, info};                      \
   switch (order) {                                                         \
     case ath::kDc:                                                         \
       return iso ? ATH_SWEEP_CALL(sweep_iso_dc, SUFFIX)                    \
@@ -112,15 +117,17 @@ int ath_flux_sweep_df_f64(ATH_FLUX_DF_ARGS) {
 }
 
 // What the y/z march kernel of B5 (kernel 0, in the form df, order and
-// flux) or B12 (kernel 1) takes and lets run on an nz x ny x nx grid
-// along `axis` (1 or 2) in the default launch shape, for float64 (f64 = 1)
-// or float32, without launching it: info[0 .. kInfoLen-1] (sweep.cuh
-// march_info: dynamic shared memory per block, blocks per SM, scalar
-// chunks, their size and the most a chunk may hold, registers, local bytes
-// per thread).
+// flux, the plan `warps` as ath_sweep takes it) or B12 (kernel 1) takes and
+// lets run on an nz x ny x nx grid along `axis` (1 or 2) in the default
+// launch shape, for float64 (f64 = 1) or float32, without launching it:
+// info[0 .. kInfoLen-1] (sweep.cuh march_info: dynamic shared memory per
+// block, blocks per SM, scalar chunks, their size and the most a chunk may
+// hold, registers, local bytes per thread; then B5's split-plan scalar
+// kernel's warps, shared memory, blocks per SM, registers, local bytes and
+// segment).
 int ath_march_info(int kernel, int f64, int nz, int ny, int nx, int axis,
                    int nscalars, int iso, int flux, int order, int df,
-                   int* info) {
+                   int warps, int* info) {
   // ATH_HYDRO_SHAPE0, or for B5 at the PPM orders ATH_HYDRO_SHAPE_PPM
   const int s = kernel == 0 && ath::is_ppm(order) ? 64 : 32, t = 128, r = 1;
   if (axis != 1 && axis != 2) return (int)cudaErrorInvalidValue;
@@ -129,7 +136,7 @@ int ath_march_info(int kernel, int f64, int nz, int ny, int nx, int axis,
     const void *U = nullptr, *phic = nullptr, *phif = nullptr,
                *dtodx = nullptr;
     void *Ul = nullptr, *Ur = nullptr, *F = nullptr, *dF = nullptr,
-         *stream = nullptr;
+         *side = nullptr, *stream = nullptr;
     if (f64) {
       ATH_SWEEP_BY_ORDER(f64)
     } else {

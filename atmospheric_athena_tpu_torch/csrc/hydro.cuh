@@ -62,11 +62,12 @@ __host__ __device__ constexpr int nwave(bool iso) { return iso ? 4 : 5; }
 // NS of the kernels that take the number of passive scalars at run time,
 // any count from 2 on: their wave fields are compile-time arrays of
 // nwave(ISO) + ns_fixed(NS) entries, their scalars go through a loop over
-// the run-time count (the march kernels over the scalars of their
-// launch's chunk, sweep.cuh ScalarChunks).  No count is refused: a field's
-// offset (nwave + s) * ncell is a 64-bit index, a count above a chunk adds
-// launches, not grid blocks or shared memory, and the one bound is the
-// count's own type, an int.
+// the run-time count (B5 as sweep.cuh's source note says; B12's march over
+// the scalars of its launch's chunk, sweep.cuh ScalarChunks).  No count is
+// refused: a field's offset (nwave + s) * ncell is a 64-bit index, B5's
+// shared memory per block does not grow with the count, B12's count above
+// a chunk adds launches, and the one bound is the count's own type, an
+// int.
 constexpr int kNsRun = -1;
 __host__ __device__ constexpr int ns_fixed(int NS) { return NS < 0 ? 0 : NS; }
 

@@ -61,34 +61,53 @@
 //
 // Passive scalars: NS = 0 and 1 are compile-time counts, carried in the
 // arrays above.  NS = kNsRun takes any count from 2 on at run time
-// (hydro.cuh): the wave fields go through the steps above unchanged, the
-// scalars one at a time after them, each with its own window, which takes
-// from the wave fields only what the scalars read (a cell's trace, Vx and
-// its extreme eigenvalues, for Roe's tracing; an interface's ScalarFlux
-// and densities):
+// (hydro.cuh): the wave fields go through the steps above unchanged, each
+// interface's waves solved once whatever the count, and the scalars
+// follow, each from what it takes of the waves (its side data): each
+// cell's 1/d and trace (Vx and its extreme eigenvalues, for Roe's
+// tracing), each interface's ScalarFlux and densities dl, dr.
 //
-//   - march kernels: per interface, a loop over the scalars of the block's
-//     chunk; scalar s's window (its primitives of cells f-1, f, PPM f+1,
-//     PPM its slope of f and the parabola's value at f, its Wplus of cell
-//     f-1 and, dF form, its flux at f-1) lives in dynamic shared memory,
-//     march_slots(ORDER) values per scalar and thread, so the registers
-//     hold the wave window alone.  The scalars are cut into equal chunks
-//     (ScalarChunks) of at most chunk_cap: as many windows as leave the
-//     kernel the blocks per SM that its registers allow (march_info
-//     reports it), one launch per chunk, the chunk's scalars s0 .. s1-1
-//     kernel parameters (so they take no register).  Each launch marches
-//     the waves for its chunk's scalars, and only chunk 0's stores the
-//     wave outputs.  So the
-//     shared memory per block is bounded whatever the count; a count that
-//     fits one chunk runs as one launch, as before the chunks, and a count
-//     above it solves each interface's waves once per chunk: at 32 scalars
-//     that is cheaper than the block or two per SM that all the windows at
-//     once would leave;
-//   - tile kernels: after the wave fields, each scalar passes through one
+// What bounds the scalars is bytes, with the issue of their arithmetic
+// close behind: a scalar reads one field and writes three (Ul, Ur, F or
+// dF), 160 of the 183 fields a 40-scalar dF sweep must move, for some
+// 110-150 instructions per scalar and interface (scalar_slope and its
+// divide, recon3_scalar or ppm_scalar, the ScalarFlux, their loads and
+// stores).  Before this plan (NVIDIA H100 80GB HBM3, 700 W; 256^3
+// float32, 40 scalars, PLM Roe, dF form, ms per launch) x took 7.50, y
+// 10.54 and z 10.72 against a bound of 4.02: the march ran its whole wave
+// body once per chunk of 20 scalars (their windows in its shared memory)
+// and held one scalar's load in flight per thread.  So
+// (hydro_kernels.scalar_plan):
+//
+//   - march kernels (y, z), up to hydro_kernels.KEPT_SCALARS scalars: the
+//     march keeps them, a loop over the scalars per interface; scalar s's
+//     window (its primitives of cells f-1, f, PPM f+1, PPM its slope of f
+//     and the parabola's value at f, its Wplus of cell f-1 and, dF form,
+//     its flux at f-1) lives in dynamic shared memory, march_slots(ORDER)
+//     values per scalar and thread; so few windows cost it no occupancy;
+//   - march kernels beyond (the split plan): the march stores the side data
+//     (side_trace + side_flux fields on the grid; dl and dr are Ul's and
+//     Ur's density fields, 1/d comes from U) and scalar_march_kernel
+//     streams the scalars: a block of up to kScalarWarps warps stages a
+//     segment's side data once in shared memory, and each warp marches its
+//     share of the scalars over the segment, the next scalar's cells in
+//     flight by cp.async.  Split (option b), not held in the march's
+//     shared memory (option a): the side data of a march block's 128
+//     lines, some 10 words per interface (150 KB at S = 32), would cut the
+//     wave march to one block per SM; stored, it costs 7 field passes
+//     written and 10 read (9% of the 183), and each kernel keeps its own
+//     occupancy.  From about 10 scalars on it measured faster than the
+//     kept loop (PERF.md §6);
+//   - tile kernel (x): after the wave fields, each scalar passes through one
 //     more plane of each kind (primitives, PPM slopes and interface values,
-//     Wminus, Wplus; the fluxes in the first), the thread keeping its cell's
-//     1/d and trace
-//     and its interface's solve in registers between the scalars.
+//     Wminus, Wplus; the fluxes in the first), the thread keeping its
+//     cell's 1/d and trace and its interface's solve in registers between
+//     the scalars.  Two streamed designs (each warp streaming its share of
+//     the scalars over the tile, the neighbours by warp shuffles, no block
+//     barrier per scalar, the next scalars' loads in flight in registers or
+//     in a cp.async ring) measured slower at every count from 2 to 40 (at
+//     40, dF: 8.02 against 7.47 ms): the plane loop is bound by its
+//     instructions and shared-memory accesses per scalar, not its barriers.
 //
 // The launch grid carries the line coordinates (blockIdx, threadIdx): no
 // 64-bit divide or modulo per thread.  The stencil wraps at the array edge
@@ -186,6 +205,101 @@ __device__ __forceinline__ ScalarTrace<T> trace_for(const T* W,
     return ScalarTrace<T>{T(0), T(0), T(0)};
 }
 
+// What a run-time scalar (NS = kNsRun) takes from the wave fields besides
+// its cells' 1/d and its interface's densities dl, dr (the density fields
+// of Ul and Ur), as words: a cell's ScalarTrace (Roe's branch of PLM and
+// PPM: Vx and the extreme eigenvalues; none otherwise, where the
+// reconstruction reads no trace) and an interface's ScalarFlux (Roe: the
+// mass flux, or HLLE's fl, fr, tmp where its fallback was taken, and that
+// flag; HLLC: the mass flux; HLLE: fl, fr, tmp).  The words hold the
+// values themselves, so a scalar formed from them rounds as it does from
+// the solve's own ScalarFlux.
+__host__ __device__ constexpr int side_trace(int flux, int order) {
+  return flux == kRoe && order != kDc ? 3 : 0;
+}
+__host__ __device__ constexpr int side_flux(int flux) {
+  return flux == kRoe ? 4 : (flux == kHllc ? 1 : 3);
+}
+
+// word k at p[k st]
+template <typename T, int FLUX, int ORDER>
+__device__ __forceinline__ void put_trace(const ScalarTrace<T>& t, T* p,
+                                          long long st) {
+  if constexpr (side_trace(FLUX, ORDER) > 0) {
+    p[0] = t.vx;
+    p[st] = t.ev_min;
+    p[2 * st] = t.ev_max;
+  }
+}
+
+template <typename T, int FLUX, int ORDER>
+__device__ __forceinline__ ScalarTrace<T> get_trace(const T* p,
+                                                    long long st) {
+  if constexpr (side_trace(FLUX, ORDER) > 0)
+    return ScalarTrace<T>{p[0], p[st], p[2 * st]};
+  else
+    return ScalarTrace<T>{T(0), T(0), T(0)};
+}
+
+template <typename T, int FLUX>
+__device__ __forceinline__ void put_flux(const ScalarFlux<T>& f, T* p,
+                                         long long st) {
+  if constexpr (FLUX == kRoe) {
+    p[0] = f.hlle ? f.fl : f.f0;
+    p[st] = f.hlle ? f.fr : T(0);
+    p[2 * st] = f.hlle ? f.tmp : T(0);
+    p[3 * st] = f.hlle ? T(1) : T(0);
+  } else if constexpr (FLUX == kHllc) {
+    p[0] = f.f0;
+  } else {
+    p[0] = f.fl;
+    p[st] = f.fr;
+    p[2 * st] = f.tmp;
+  }
+}
+
+template <typename T, int FLUX>
+__device__ __forceinline__ ScalarFlux<T> get_flux(const T* p, long long st) {
+  if constexpr (FLUX == kRoe)
+    return ScalarFlux<T>{p[0], p[0], p[st], p[2 * st], p[3 * st] != T(0)};
+  else if constexpr (FLUX == kHllc)
+    return ScalarFlux<T>{p[0], T(0), T(0), T(0), false};
+  else
+    return ScalarFlux<T>{T(0), p[0], p[st], p[2 * st], true};
+}
+
+// One element's copy from device memory into shared memory with
+// cp.async (bypassing the registers), and the waits for the copies that a
+// thread committed; plain copies where no device code is compiled.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (sizeof(T) == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+#else
+  *dst = *src;
+#endif
+}
+__device__ __forceinline__ void cp_async_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+// all but the newest N committed groups of this thread have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
 // A march kernel's scalar windows (NS = kNsRun) in dynamic shared memory:
 // K slots per scalar and thread, slot k of scalar s at row s K + k of
 // blockDim entries, so a warp's accesses are conflict-free
@@ -197,9 +311,10 @@ template <typename T> struct ScalarSlots {
   }
 };
 
-// slots of a B5 march kernel's scalar window: the primitives of cells f-1,
-// f (PPM also f+1), (PPM) the slope of cell f and the parabola's value at
-// interface f, then the Wplus of cell f-1 and the flux at f-1 (dF form)
+// slots of a B5 march kernel's scalar window where it keeps its scalars
+// (MarchPlan::keeps): the primitives of cells f-1, f (PPM also f+1), (PPM)
+// the slope of cell f and the parabola's value at interface f, then the
+// Wplus of cell f-1 and the flux at f-1 (dF form)
 __host__ __device__ constexpr int march_slots(int order) {
   return is_ppm(order) ? 7 : 4;
 }
@@ -217,8 +332,9 @@ __host__ __device__ constexpr int march_slots(int order) {
 //     would spill a kilobyte per thread; at order 3p, or for isothermal
 //     gas, or in the whole-flux form it was slower on the card);
 //   - NS = kNsRun: the same window in registers, since its shared memory
-//     holds the scalars' windows, whose chunks a wave window there would
-//     shorten (a second chunk at 16 scalars).
+//     holds the scalars' windows where it keeps its scalars (few of them,
+//     MarchPlan::keeps), and in the split plan its occupancy is the wave
+//     march's own.
 constexpr int kTightBlocks = 5;
 template <typename T, int ORDER, int NS, bool ISO, bool DF> struct MarchPlan {
   static constexpr bool shared = is_ppm(ORDER) && NS >= 0;
@@ -284,9 +400,10 @@ __device__ __forceinline__ ScalarTrace<T> trace_of(
     return ScalarTrace<T>{T(0), T(0), T(0)};
 }
 
-// The most scalars per chunk of march kernel `kernel` with `slot_bytes`
-// of windows per scalar and block: as many as the shared memory leaves
-// once the blocks per SM that the kernel's registers allow are resident
+// B12's scalar chunks (fluxdf.cuh): the most scalars per chunk of march
+// kernel `kernel` with `slot_bytes` of windows per scalar and block: as
+// many as the shared memory leaves once the blocks per SM that the
+// kernel's registers allow are resident
 // (cudaOccupancyAvailableDynamicSMemPerBlock, after the kernel's opt-in to
 // the card's largest block), at least one.  Computed once per
 // instantiation by its launcher.
@@ -390,16 +507,17 @@ struct TileRow {
 
 // B5 along y (axis 1) or z (axis 2), the body of sweep_march_kernel.  F:
 // the whole flux (DF = false) or the density flux F_ID (DF = true); dF: the
-// flux difference (DF only).  NS = kNsRun: scalars s0 .. s1-1, one chunk
-// (ScalarChunks; the launch of chunk 0, s0 = 0, also stores the wave
-// outputs).
+// flux difference (DF only).  NS = kNsRun: the ns scalars in the march
+// (side == nullptr; a few scalars, MarchPlan::keeps) or, in the split plan,
+// each cell's trace and each interface's ScalarFlux stored into `side`
+// (side_trace and side_flux fields on the grid) for scalar_march_kernel.
 template <typename T, int NS, bool ISO, int FLUX, int ORDER, bool DF, int S>
 __device__ __forceinline__ void sweep_march(
     const T* __restrict__ U, const T* __restrict__ phic,
     const T* __restrict__ phif, const T* __restrict__ dtodx_p,
     T* __restrict__ Ul, T* __restrict__ Ur, T* __restrict__ F,
-    T* __restrict__ dF, int NZ, int NY, int NX, int axis, Eos<T> e, int s0,
-    int s1) {
+    T* __restrict__ dF, int NZ, int NY, int NX, int axis, Eos<T> e, int ns,
+    T* __restrict__ side) {
   constexpr int NF = ns_fixed(NS);     // the scalars in the wave arrays
   constexpr int NW = nwave(ISO), NV = NW + NF;
   constexpr bool PPM = is_ppm(ORDER), CH = is_char(ORDER);
@@ -410,7 +528,6 @@ __device__ __forceinline__ void sweep_march(
   const Perm pm = make_perm(axis, NV);
   const T dtodx = *dtodx_p;
   const bool kick = phic != nullptr;
-  const bool waves = NS >= 0 || s0 == 0;   // this launch stores the waves
 
   // the window at interface f: primitives of cells f-1, f, f+1 (Wa, Wb,
   // Wc), for PPM also of f+2 (Wd); the Wplus of cell f-1 (Wl); the
@@ -481,15 +598,15 @@ __device__ __forceinline__ void sweep_march(
   } else {
     recon3_cell<T, NF, ISO, FLUX, ORDER>(Wa, Wb, Wc, dtodx, e, Wr, Wl);
   }
-  // NS = kNsRun: the windows of the chunk's scalars at interface f0
-  // (cells f0-2 .. f0, PPM f0-3 .. f0+1, each scalar's Wplus of cell
-  // f0-1), scalar s in slots sw(s - s0, k), the thread's whole shared
+  // NS = kNsRun, the scalars in the march: the windows of the scalars at
+  // interface f0 (cells f0-2 .. f0, PPM f0-3 .. f0+1, each scalar's Wplus
+  // of cell f0-1), scalar s in slots sw(s, k), the thread's whole shared
   // memory (its PPM window lies in registers)
   static_assert(NS >= 0 || Plan::slots(NV) == 0,
                 "the scalars' windows hold the shared memory alone");
   const ScalarSlots<T> sw{mine, march_slots(ORDER)};
   constexpr int KP = march_slots(ORDER) - 2, KF = KP + 1;
-  if constexpr (NS < 0) {
+  if (NS < 0 && side == nullptr) {
     constexpr int NC = PPM ? 5 : 3;
     LinePos c(L.base, L.stride, L.n, L.f0 - (PPM ? 3 : 2));
     long long offs[NC];
@@ -501,9 +618,8 @@ __device__ __forceinline__ void sweep_march(
       c.step();
     }
     const ScalarTrace<T> tr = trace_for<T, ISO, FLUX, ORDER>(Wb, e);
-    for (int s = s0; s < s1; ++s) {
+    for (int s = 0; s < ns; ++s) {
       const T* Us = U + (NW + s) * ncell;
-      const int i = s - s0;
       T w[NC], wm, wp;
 #pragma unroll
       for (int k = 0; k < NC; ++k) w[k] = Us[offs[k]] * dis[k];
@@ -514,17 +630,17 @@ __device__ __forceinline__ void sweep_march(
         const T rv = ppm_iface(w[2], w[3], sb, sc);
         ppm_scalar<T, FLUX>(w[1], w[2], w[3], ppm_iface(w[1], w[2], sa, sb),
                             rv, dtodx, tr, wm, wp);
-        sw(i, 0) = w[2];
-        sw(i, 1) = w[3];
-        sw(i, 2) = w[4];
-        sw(i, 3) = sc;
-        sw(i, 4) = rv;
+        sw(s, 0) = w[2];
+        sw(s, 1) = w[3];
+        sw(s, 2) = w[4];
+        sw(s, 3) = sc;
+        sw(s, 4) = rv;
       } else {
         recon3_scalar<T, FLUX, ORDER>(w[0], w[1], w[2], dtodx, tr, wm, wp);
-        sw(i, 0) = w[1];
-        sw(i, 1) = w[2];
+        sw(s, 0) = w[1];
+        sw(s, 1) = w[2];
       }
-      sw(i, KP) = wp;
+      sw(s, KP) = wp;
     }
   }
   long long off_un = ahead.off;           // the cell of Un
@@ -600,50 +716,59 @@ __device__ __forceinline__ void sweep_march(
     interface_flux<T, NF, ISO, FLUX>(Wl, Wr, kick, dVl, dVr, e, Ulc, Urc,
                                      Fs, NS < 0 ? &sf : nullptr);
     if constexpr (NS < 0) {
-      // each scalar: its new cell enters the window, cell f is
-      // reconstructed, interface f solved from the window's Wplus of f-1
-      const T di = T(1) / (PPM ? Wd[0] : Wc[0]);
       ScalarTrace<T> tr;
       if constexpr (PPM)
         tr = trp;
       else
         tr = trace_for<T, ISO, FLUX, ORDER>(Wb, e);
-      for (int s = s0; s < s1; ++s) {
-        const long long so = (NW + s) * ncell;
-        const int i = s - s0;
-        const T wn = U[so + off_new] * di;
-        T wm, wp;
-        if constexpr (PPM) {
-          const T wa = sw(i, 0), wb = sw(i, 1), wc = sw(i, 2);
-          const T sn = scalar_slope(wb, wc, wn);
-          const T rv = ppm_iface(wb, wc, sw(i, 3), sn);
-          ppm_scalar<T, FLUX>(wa, wb, wc, sw(i, 4), rv, dtodx, tr, wm, wp);
-          sw(i, 0) = wb;
-          sw(i, 1) = wc;
-          sw(i, 2) = wn;
-          sw(i, 3) = sn;
-          sw(i, 4) = rv;
-        } else {
-          const T wa = sw(i, 0), wb = sw(i, 1);
-          recon3_scalar<T, FLUX, ORDER>(wa, wb, wn, dtodx, tr, wm, wp);
-          sw(i, 0) = wb;
-          sw(i, 1) = wn;
-        }
-        const T wl = sw(i, KP);
-        const T fs = sf(wl, wm);
+      if (side != nullptr) {
+        // the split plan: cell f's trace and interface f's ScalarFlux
         if (j < L.ni) {
-          Ul[so + off] = wl * Ulc[0];
-          Ur[so + off] = wm * Urc[0];
-          if constexpr (!DF) F[so + off] = fs;
+          put_trace<T, FLUX, ORDER>(tr, side + off, ncell);
+          put_flux<T, FLUX>(
+              sf, side + side_trace(FLUX, ORDER) * ncell + off, ncell);
         }
-        if constexpr (DF) {
-          if (j > 0) dF[so + off_prev] = fs - sw(i, KF);
-          sw(i, KF) = fs;
+      } else {
+        // each scalar: its new cell enters the window, cell f is
+        // reconstructed, interface f solved from the window's Wplus of f-1
+        const T di = T(1) / (PPM ? Wd[0] : Wc[0]);
+        for (int s = 0; s < ns; ++s) {
+          const long long so = (NW + s) * ncell;
+          const T wn = U[so + off_new] * di;
+          T wm, wp;
+          if constexpr (PPM) {
+            const T wa = sw(s, 0), wb = sw(s, 1), wc = sw(s, 2);
+            const T sn = scalar_slope(wb, wc, wn);
+            const T rv = ppm_iface(wb, wc, sw(s, 3), sn);
+            ppm_scalar<T, FLUX>(wa, wb, wc, sw(s, 4), rv, dtodx, tr, wm,
+                                wp);
+            sw(s, 0) = wb;
+            sw(s, 1) = wc;
+            sw(s, 2) = wn;
+            sw(s, 3) = sn;
+            sw(s, 4) = rv;
+          } else {
+            const T wa = sw(s, 0), wb = sw(s, 1);
+            recon3_scalar<T, FLUX, ORDER>(wa, wb, wn, dtodx, tr, wm, wp);
+            sw(s, 0) = wb;
+            sw(s, 1) = wn;
+          }
+          const T wl = sw(s, KP);
+          const T fs = sf(wl, wm);
+          if (j < L.ni) {
+            Ul[so + off] = wl * Ulc[0];
+            Ur[so + off] = wm * Urc[0];
+            if constexpr (!DF) F[so + off] = fs;
+          }
+          if constexpr (DF) {
+            if (j > 0) dF[so + off_prev] = fs - sw(s, KF);
+            sw(s, KF) = fs;
+          }
+          sw(s, KP) = wp;
         }
-        sw(i, KP) = wp;
       }
     }
-    if (j < L.ni && waves) {
+    if (j < L.ni) {
       store_cell<T, NF, ISO>(Ul, ncell, off, pm, Ulc);
       store_cell<T, NF, ISO>(Ur, ncell, off, pm, Urc);
       if constexpr (DF)
@@ -652,7 +777,7 @@ __device__ __forceinline__ void sweep_march(
         store_cell<T, NF, ISO>(F, ncell, off, pm, Fs);
     }
     if constexpr (DF) {
-      if (j > 0 && waves) {
+      if (j > 0) {
 #pragma unroll
         for (int v = 0; v < NV; ++v)
           dF[pm.p[v] * ncell + off_prev] =
@@ -680,11 +805,11 @@ __device__ __forceinline__ void sweep_march(
       const T *__restrict__ phif, const T *__restrict__ dtodx_p,            \
       T *__restrict__ Ul, T *__restrict__ Ur, T *__restrict__ F,            \
       T *__restrict__ dF, int NZ, int NY, int NX, int axis, Eos<T> e,       \
-      int s0, int s1
+      int ns, T *__restrict__ side
 #define ATH_MARCH_BODY                                                      \
   sweep_march<T, NS, ISO, FLUX, ORDER, DF, S>(U, phic, phif, dtodx_p, Ul,   \
                                               Ur, F, dF, NZ, NY, NX, axis,  \
-                                              e, s0, s1)
+                                              e, ns, side)
 
 template <typename T, int NS, bool ISO, int FLUX, int ORDER, bool DF, int S>
 __global__ void __launch_bounds__(32 * kMarchRows)
@@ -935,6 +1060,179 @@ __global__ void __launch_bounds__(TM * R)
   }
 }
 
+// B5's run-time scalars along y (axis 1) or z (axis 2) in the split plan
+// (hydro_kernels.scalar_plan): the wave march (sweep_march with `side`)
+// has stored each cell's trace and each interface's ScalarFlux words into
+// `side`, and Ul's and Ur's density fields; a block of 32 x by W warps
+// takes a segment of kScalarSeg interfaces f0 .. f0+S-1 of 32 lines (a
+// fixed q = blockIdx.y, z or y), stages the segment's side data once in
+// shared memory (position k: cell f0-H+k of the line, wrapped; planes of
+// L x 32 entries: 1/d, the trace words, the flux words, dl, dr; then the
+// positions' offsets along the line), and each warp then marches scalars
+// w, w + W, ... over the segment, the lanes on 32 neighbouring x.  A
+// scalar's L cells come into the warp's ring of two stages in shared
+// memory by cp.async (coalesced; the next scalar's copies in flight while
+// this one is marched, so no register holds them); the march keeps a
+// window of three cells (PPM: three, the slope and the parabola's value)
+// in registers, reconstructs cell f0-1 .. f0+S-1 (dF: f0+S) once and
+// solves interface f0 .. f0+S-1 (dF: f0+S) once, in the order of the
+// plain version's functions.
+constexpr int kScalarSeg = 16;       // interfaces per segment
+constexpr int kScalarWarps = 16;     // the most warps per block
+
+__host__ __device__ constexpr int scalar_planes(int flux, int order) {
+  return 3 + side_trace(flux, order) + side_flux(flux);
+}
+template <int ORDER>
+__host__ __device__ constexpr int scalar_positions() {
+  return kScalarSeg + 2 * (is_ppm(ORDER) ? 3 : 2);
+}
+// the dynamic shared memory of a block of `warps` warps
+template <typename T, int FLUX, int ORDER>
+__host__ __device__ constexpr size_t scalar_smem(int warps) {
+  constexpr int L = scalar_positions<ORDER>();
+  return (size_t)(scalar_planes(FLUX, ORDER) + 2 * warps) * L * 32 *
+             sizeof(T) +
+         L * sizeof(long long);
+}
+
+template <typename T, bool ISO, int FLUX, int ORDER, bool DF>
+__global__ void __launch_bounds__(32 * kScalarWarps)
+    scalar_march_kernel(const T* __restrict__ U, const T* __restrict__ side,
+                        const T* __restrict__ dtodx_p, T* __restrict__ Ul,
+                        T* __restrict__ Ur, T* __restrict__ F,
+                        T* __restrict__ dF, int NZ, int NY, int NX, int axis,
+                        int ns) {
+  constexpr int NW = nwave(ISO);
+  constexpr bool PPM = is_ppm(ORDER);
+  constexpr int H = PPM ? 3 : 2;              // cells left of interface f0
+  constexpr int S = kScalarSeg, L = scalar_positions<ORDER>();
+  constexpr int KT = side_trace(FLUX, ORDER), KF = side_flux(FLUX);
+  constexpr int KS = scalar_planes(FLUX, ORDER);
+  constexpr int PL = L * 32;                  // a plane
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  const int lane = threadIdx.x, wi = threadIdx.y, W = blockDim.y;
+  // the warp's two stages, then the positions' offsets
+  T* const ring = sm + (KS + 2 * wi) * PL + lane;
+  long long* const po = reinterpret_cast<long long*>(sm + (KS + 2 * W) * PL);
+  const int x = blockIdx.x * 32 + lane, q = blockIdx.y;
+  const int n = axis == 1 ? NY : NZ;
+  const long long stride = axis == 1 ? (long long)NX : (long long)NX * NY;
+  const long long base =
+      (axis == 1 ? (long long)q * NY * NX : (long long)q * NX) + x;
+  const long long ncell = (long long)NZ * NY * NX;
+  const int f0 = blockIdx.z * S, ni = min(S, n - f0);
+  const bool ok = x < NX;
+  for (int k = wi; k < L; k += W) {
+    int c = (f0 - H + k) % n;
+    if (c < 0) c += n;
+    const long long o = c * stride;
+    if (lane == 0) po[k] = o;
+    if (ok) {
+      const long long off = base + o;
+      T* const sk = sm + k * 32 + lane;
+      sk[0] = T(1) / U[off];
+#pragma unroll
+      for (int j = 0; j < KT + KF; ++j)
+        sk[(1 + j) * PL] = side[j * ncell + off];
+      sk[(1 + KT + KF) * PL] = Ul[off];
+      sk[(2 + KT + KF) * PL] = Ur[off];
+    }
+  }
+  __syncthreads();
+  if (!ok) return;                  // no barrier below
+  const T dtodx = *dtodx_p;
+  const T* const sD = sm + lane;                       // 1/d
+  const T* const sT = sD + PL;                         // the trace words
+  const T* const sF = sT + KT * PL;                    // the flux words
+  const T* const sL = sF + KF * PL;                    // dl
+  const T* const sR = sL + PL;                         // dr
+  int s = wi;
+  if (s < ns) {
+    const T* const src = U + (NW + s) * ncell + base;
+    for (int k = 0; k < L; ++k) cp_async(ring + k * 32, src + po[k]);
+  }
+  cp_async_commit();
+  for (int it = 0; s < ns; s += W, ++it) {
+    // the next scalar's cells into the other stage
+    T* const nxt = ring + ((it + 1) & 1) * PL;
+    if (s + W < ns) {
+      const T* const src = U + (NW + s + W) * ncell + base;
+      for (int k = 0; k < L; ++k) cp_async(nxt + k * 32, src + po[k]);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    const T* const u = ring + (it & 1) * PL;
+    const long long so = (NW + s) * ncell + base;
+    // the window at the first interface (k = H): cells k-1, k, k+1 (PPM:
+    // also cell k's slope and the parabola's value at its left face) and
+    // the Wplus of cell k-1 (wpl)
+    T wa, wb, wc, wm, wpl, slk, ivk, fprev = T(0);
+    if constexpr (PPM) {
+      const T w0 = u[0] * sD[0], w1 = u[32] * sD[32], w2 = u[64] * sD[64],
+              w3 = u[96] * sD[96], w4 = u[128] * sD[128];
+      const T s1 = scalar_slope(w0, w1, w2), s2 = scalar_slope(w1, w2, w3),
+              s3 = scalar_slope(w2, w3, w4);
+      const T i2 = ppm_iface(w1, w2, s1, s2), i3 = ppm_iface(w2, w3, s2, s3);
+      ppm_scalar<T, FLUX>(w1, w2, w3, i2, i3, dtodx,
+                          get_trace<T, FLUX, ORDER>(sT + 2 * 32, PL), wm,
+                          wpl);
+      wa = w2;
+      wb = w3;
+      wc = w4;
+      slk = s3;
+      ivk = i3;
+    } else {
+      const T w0 = u[0] * sD[0], w1 = u[32] * sD[32], w2 = u[64] * sD[64];
+      recon3_scalar<T, FLUX, ORDER>(
+          w0, w1, w2, dtodx, get_trace<T, FLUX, ORDER>(sT + 32, PL), wm,
+          wpl);
+      wa = w1;
+      wb = w2;
+      slk = ivk = T(0);
+    }
+    // unrolled by 2: chip_smoke.sass_hydro counts this loop per 2
+#pragma unroll 2
+    for (int j = 0; j < S + (DF ? 1 : 0); ++j) {
+      const int k = j + H;             // interface f0 + j | cell f0 + j
+      T wp;
+      if constexpr (PPM) {
+        const T wd = u[(k + 2) * 32] * sD[(k + 2) * 32];
+        const T sn = scalar_slope(wb, wc, wd);
+        const T ivn = ppm_iface(wb, wc, slk, sn);
+        ppm_scalar<T, FLUX>(wa, wb, wc, ivk, ivn, dtodx,
+                            get_trace<T, FLUX, ORDER>(sT + k * 32, PL), wm,
+                            wp);
+        wa = wb;
+        wb = wc;
+        wc = wd;
+        slk = sn;
+        ivk = ivn;
+      } else {
+        const T wn = u[(k + 1) * 32] * sD[(k + 1) * 32];
+        recon3_scalar<T, FLUX, ORDER>(
+            wa, wb, wn, dtodx, get_trace<T, FLUX, ORDER>(sT + k * 32, PL),
+            wm, wp);
+        wa = wb;
+        wb = wn;
+      }
+      const T fs = get_flux<T, FLUX>(sF + k * 32, PL)(wpl, wm);
+      if (j < ni) {
+        const long long o = so + po[k];
+        Ul[o] = wpl * sL[k * 32];
+        Ur[o] = wm * sR[k * 32];
+        if constexpr (!DF) F[o] = fs;
+      }
+      if constexpr (DF) {
+        if (j > 0 && j <= ni) dF[so + po[k - 1]] = fs - fprev;
+        fprev = fs;
+      }
+      wpl = wp;
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launch
 
 // The x tiles of a row of nx cells for at most tm threads per row and a
@@ -963,30 +1261,50 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 // What a march kernel's launch takes and lets run (the C entry points'
 // `info` query; ath_march_info): its dynamic shared memory per block, the
 // blocks per SM that the occupancy calculator allows, the scalar chunks
-// (their number and size) and the most scalars a chunk may hold
-// (chunk_cap), the registers per thread and the local memory (spills) per
-// thread in bytes.
+// (B12: their number and size, and the most scalars a chunk may hold,
+// chunk_cap; B5 from two scalars on: one launch of every scalar, no cap),
+// the registers per thread and the local memory (spills) per thread in
+// bytes; then, for B5's split plan, its scalar kernel's warps per block,
+// dynamic shared memory per block, blocks per SM, registers, local bytes
+// and interfaces per segment (0 where there is no scalar kernel).
 enum { kInfoSmem, kInfoBlocks, kInfoChunks, kInfoChunk, kInfoCap,
-       kInfoRegs, kInfoLocal, kInfoLen };
+       kInfoRegs, kInfoLocal, kInfoWarps, kInfoScalarSmem,
+       kInfoScalarBlocks, kInfoScalarRegs, kInfoScalarLocal,
+       kInfoScalarSeg, kInfoLen };
+
+// registers, local bytes and blocks per SM of `kernel` launched with
+// `threads` threads and `smem` bytes of dynamic shared memory into info[0],
+// info[1], info[2]
+template <typename K>
+int kernel_info(K kernel, int threads, size_t smem, int* regs, int* local,
+                int* blocks) {
+  cudaFuncAttributes at;
+  cudaError_t err = cudaFuncGetAttributes(&at, kernel);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  *regs = at.numRegs;
+  *local = (int)at.localSizeBytes;
+  return 0;
+}
+
+template <typename K>
+int march_info(K kernel, size_t smem, int chunks, int chunk, int cap,
+               int* info) {
+  for (int k = 0; k < kInfoLen; ++k) info[k] = 0;
+  info[kInfoSmem] = (int)smem;
+  info[kInfoChunks] = chunks;
+  info[kInfoChunk] = chunk;
+  info[kInfoCap] = cap;
+  return kernel_info(kernel, 32 * kMarchRows, smem, &info[kInfoRegs],
+                     &info[kInfoLocal], &info[kInfoBlocks]);
+}
 
 template <typename K>
 int march_info(K kernel, size_t smem, const ScalarChunks& ch, int cap,
                int* info) {
-  cudaFuncAttributes at;
-  cudaError_t err = cudaFuncGetAttributes(&at, kernel);
-  if (err != cudaSuccess) return (int)err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, kernel, 32 * kMarchRows, smem);
-  if (err != cudaSuccess) return (int)err;
-  info[kInfoSmem] = (int)smem;
-  info[kInfoBlocks] = blocks;
-  info[kInfoChunks] = ch.n;
-  info[kInfoChunk] = ch.size;
-  info[kInfoCap] = cap;
-  info[kInfoRegs] = at.numRegs;
-  info[kInfoLocal] = (int)at.localSizeBytes;
-  return 0;
+  return march_info(kernel, smem, ch.n, ch.size, cap, info);
 }
 
 struct SweepArgs {
@@ -995,8 +1313,36 @@ struct SweepArgs {
   int nz, ny, nx, axis;
   double c0, c1;      // the EOS constants (Eos)
   int ns;             // the number of passive scalars
+  void* side;         // the split plan's side data (y, z; NS = kNsRun)
+  int warps;          // the split plan's warps per scalar block, 0: none
   int* info;          // non-null: fill march_info instead of launching
 };
+
+// The split plan's scalar kernel along y or z (NS = kNsRun), after the
+// wave march that filled `side`; with a.info, its part of march_info
+template <typename T, bool ISO, int FLUX, int ORDER, bool DF>
+int launch_scalar_march(const SweepArgs& a, cudaStream_t st) {
+  if (a.warps < 1 || a.warps > kScalarWarps)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = scalar_smem<T, FLUX, ORDER>(a.warps);
+  auto k = scalar_march_kernel<T, ISO, FLUX, ORDER, DF>;
+  const cudaError_t err = allow_smem(k, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (a.info != nullptr) {
+    a.info[kInfoWarps] = a.warps;
+    a.info[kInfoScalarSmem] = (int)smem;
+    a.info[kInfoScalarSeg] = kScalarSeg;
+    return kernel_info(k, 32 * a.warps, smem, &a.info[kInfoScalarRegs],
+                       &a.info[kInfoScalarLocal],
+                       &a.info[kInfoScalarBlocks]);
+  }
+  const int n = a.axis == 1 ? a.ny : a.nz, nq = a.axis == 1 ? a.nz : a.ny;
+  k<<<dim3((a.nx + 31) / 32, nq, (n + kScalarSeg - 1) / kScalarSeg),
+      dim3(32, a.warps), smem, st>>>(
+      (const T*)a.U, (const T*)a.side, (const T*)a.dtodx, (T*)a.Ul,
+      (T*)a.Ur, (T*)a.F, (T*)a.dF, a.nz, a.ny, a.nx, a.axis, a.ns);
+  return (int)cudaGetLastError();
+}
 
 template <typename T, int NS, bool ISO, int FLUX, int ORDER, bool DF, int S,
           int TM, int R>
@@ -1019,10 +1365,10 @@ int launch_sweep_shape(const SweepArgs& a, cudaStream_t st) {
         a.nx, t.w, e, a.ns);
   } else {
     const int n = a.axis == 1 ? a.ny : a.nz, nq = a.axis == 1 ? a.nz : a.ny;
-    // the PPM window (NS = 0, 1; MarchPlan) or the windows of a chunk's
-    // scalars (NS = kNsRun; chunk_cap), one launch per chunk
+    // the PPM window (NS = 0, 1; MarchPlan) or, NS = kNsRun, the windows of
+    // the scalars that the march keeps (a.warps == 0) or none (the split
+    // plan: the march stores the side data, scalar_march_kernel follows)
     constexpr size_t row = 32 * kMarchRows * sizeof(T);
-    constexpr size_t slot = march_slots(ORDER) * row;
     constexpr size_t wave =
         MarchPlan<T, ORDER, NS, ISO, DF>::slots(nwave(ISO) + ns_fixed(NS)) *
         row;
@@ -1032,19 +1378,31 @@ int launch_sweep_shape(const SweepArgs& a, cudaStream_t st) {
       else
         return sweep_march_kernel<T, NS, ISO, FLUX, ORDER, DF, S>;
     }();
-    static const int cap = NS < 0 ? chunk_cap(k, slot) : 1;
-    const ScalarChunks ch(NS < 0 ? a.ns : 0, cap);
-    const size_t smem = wave + ch.size * slot;
-    const cudaError_t err = allow_smem(k, smem);
+    const bool split = NS < 0 && a.warps > 0;
+    const int kept = NS < 0 && !split ? a.ns : 0;
+    const size_t smem = wave + (size_t)kept * march_slots(ORDER) * row;
+    cudaError_t err = allow_smem(k, smem);
     if (err != cudaSuccess) return (int)err;
-    if (a.info != nullptr) return march_info(k, smem, ch, cap, a.info);
-    for (int c = 0; c < (NS < 0 ? ch.n : 1); ++c)
-      k<<<dim3((a.nx + 31) / 32, (nq + kMarchRows - 1) / kMarchRows,
-               (n + S - 1) / S),
-          dim3(32, kMarchRows), smem, st>>>(
-          (const T*)a.U, (const T*)a.phic, (const T*)a.phif,
-          (const T*)a.dtodx, (T*)a.Ul, (T*)a.Ur, (T*)a.F, (T*)a.dF, a.nz,
-          a.ny, a.nx, a.axis, e, c * ch.size, ch.end(c, a.ns));
+    if (a.info != nullptr) {
+      const int rc = march_info(k, smem, NS < 0 ? 1 : 0, NS < 0 ? a.ns : 0,
+                                NS < 0 ? 0 : 1, a.info);
+      if (rc != 0 || !split) return rc;
+      if constexpr (NS < 0)
+        return launch_scalar_march<T, ISO, FLUX, ORDER, DF>(a, st);
+    }
+    k<<<dim3((a.nx + 31) / 32, (nq + kMarchRows - 1) / kMarchRows,
+             (n + S - 1) / S),
+        dim3(32, kMarchRows), smem, st>>>(
+        (const T*)a.U, (const T*)a.phic, (const T*)a.phif, (const T*)a.dtodx,
+        (T*)a.Ul, (T*)a.Ur, (T*)a.F, (T*)a.dF, a.nz, a.ny, a.nx, a.axis, e,
+        a.ns, split ? (T*)a.side : nullptr);
+    if constexpr (NS < 0) {
+      if (split) {
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+        return launch_scalar_march<T, ISO, FLUX, ORDER, DF>(a, st);
+      }
+    }
   }
   return (int)cudaGetLastError();
 }

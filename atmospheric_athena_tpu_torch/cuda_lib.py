@@ -47,13 +47,13 @@ _D = ctypes.c_double
 # and for isothermal gas is built in csrc/hydro_*.cu behind
 # ath_sweep_f32/f64, B12 and B13 for isothermal gas in csrc/flux_iso.cu)
 _SIGNATURES = {
-    "ath_sweep_f32": [_P] * 8 + [_I] * 12 + [_D, _D, _P],
-    "ath_sweep_f64": [_P] * 8 + [_I] * 12 + [_D, _D, _P],
+    "ath_sweep_f32": [_P] * 9 + [_I] * 13 + [_D, _D, _P],
+    "ath_sweep_f64": [_P] * 9 + [_I] * 13 + [_D, _D, _P],
     "ath_flux_pointwise_f32": [_P] * 4 + [_I] * 7 + [_D, _D, _P],
     "ath_flux_pointwise_f64": [_P] * 4 + [_I] * 7 + [_D, _D, _P],
     "ath_flux_sweep_df_f32": [_P] * 5 + [_I] * 10 + [_D, _D, _P],
     "ath_flux_sweep_df_f64": [_P] * 5 + [_I] * 10 + [_D, _D, _P],
-    "ath_march_info": [_I] * 11 + [_P],
+    "ath_march_info": [_I] * 12 + [_P],
     "ath_gcross_f32": [_P] * 10 + [_I] * 3 + [_P],
     "ath_gcross_f64": [_P] * 10 + [_I] * 3 + [_P],
     "ath_transverse_f32": [_P] * 12 + [_I] * 7 + [_D, _D, _P],

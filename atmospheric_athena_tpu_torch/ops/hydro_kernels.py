@@ -35,14 +35,17 @@ only ghost cells that no interior update reads.
 The kernels take any number of passive scalars: none and one are
 compile-time counts of their templates; from two on (csrc/hydro.cuh
 ``kNsRun``) the wave fields keep their compile-time arrays and the scalars
-pass one at a time through a loop over the run-time count, each with its
-own window and the interface's solve (hydro.cuh ``ScalarFlux``).  The y/z
-march kernels of B5 and B12 keep the windows in shared memory for one
-chunk of the scalars per launch (csrc/sweep.cuh ``ScalarChunks``: as many
-windows per block as leave the kernel the blocks per SM that its
-registers allow); a count above one chunk takes a launch per chunk, each
-solving the waves again (``march_info`` reports a form's chunks, shared
-memory and occupancy).
+follow them over the run-time count, each from the interface's solve
+(hydro.cuh ``ScalarFlux``) and its cells' trace.  B5 solves each
+interface's waves once whatever the count (``scalar_plan``): along x its
+tile kernel passes the scalars one at a time through the tile after the
+waves; along y and z its wave march keeps up to ``KEPT_SCALARS`` scalars
+in its own loop, and from one more on stores their side data
+(``side_fields`` fields) for a second kernel that streams them
+(csrc/sweep.cuh ``scalar_march_kernel``).  B12's y/z march keeps the
+scalars' windows in shared memory for one chunk of them per launch
+(csrc/sweep.cuh ``ScalarChunks``); ``march_info`` reports a form's
+chunks, shared memory and occupancy.
 
 B5 (both forms) and B12 take ``shape=``, their launch shape, one of
 ``SWEEP_SHAPES`` / ``FLUXDF_SHAPES``; B5 is built in every shape for order
@@ -128,8 +131,8 @@ def sweep_shapes(sim: SimConfig):
     """The launch shapes B5 is built for at sim.order: every one of
     SWEEP_SHAPES at order 2 with at most one scalar, PPM_SHAPE at orders 3
     and 3p, else the first (the run-time scalar forms: S = 32 interfaces
-    per segment, 128 threads per march block, each with its chunk's
-    windows in shared memory)."""
+    per segment of the wave march, 128 threads per march block; the
+    scalars as scalar_plan says)."""
     if sim.order in ("3", "3p"):
         return (PPM_SHAPE,)
     return (SWEEP_SHAPES if sim.order == "2" and sim.nscalars < 2
@@ -143,9 +146,105 @@ def fluxdf_shapes(sim: SimConfig):
     return FLUXDF_SHAPES if sim.nscalars < 2 else FLUXDF_SHAPES[:1]
 
 
+# B5's run-time scalar forms along y and z (csrc/sweep.cuh): the wave
+# march keeps up to KEPT_SCALARS scalars in its own loop (their windows in
+# its shared memory); from KEPT_SCALARS + 1 on the split plan: the march
+# stores the scalars' side data and scalar_march_kernel streams them,
+# SCALAR_WARPS warps a block at most (kScalarWarps; half as many in
+# float64, whose block's shared memory would pass the card's 227 KB) over
+# segments of SCALAR_SEG interfaces (kScalarSeg), the scalars spread
+# evenly over the fewest passes of the warps.  The kept loop measured
+# faster up to 8 scalars, the split plan from 12 (PERF.md §6)
+KEPT_SCALARS = 10
+SCALAR_SEG = 16
+SCALAR_WARPS = 16
+
+
+def tiles_of(nx, tm, halo):
+    """The x tiles of a row of nx cells for at most tm threads per row and
+    a halo of `halo` cells (csrc/sweep.cuh tiles_of): (n equal tiles, w
+    interfaces each, bx threads per row)."""
+    n = (nx + tm - halo - 1) // (tm - halo)
+    w = (nx + n - 1) // n
+    return n, w, (w + halo + 31) // 32 * 32
+
+
+def side_fields(sim: SimConfig) -> int:
+    """The fields of side data that B5's split plan stores per cell
+    (csrc/sweep.cuh side_trace + side_flux): the trace (Roe at orders
+    other than 1: 3) and the ScalarFlux words (Roe 4, HLLC 1, HLLE 3)."""
+    trace = 3 if sim.flux == "roe" and sim.order != "1" else 0
+    return trace + {"roe": 4, "hllc": 1, "hlle": 3}[sim.flux]
+
+
+def scalar_plan(sim: SimConfig, grid_shape, axis: int, itemsize: int = 4):
+    """How B5's kernels take sim's run-time scalars (sim.nscalars >= 2) on
+    a [.., NZ, NY, NX] = `grid_shape` state along `axis`, as csrc/sweep.cuh
+    launches them:
+      - x ("tile"): `tiles` tiles of `tile` interfaces per row, `threads`
+        threads per row, a thread per interface, every scalar at each;
+      - y, z up to KEPT_SCALARS scalars ("march"): the wave march's
+        `segments` segments of `segment` interfaces, every scalar at each;
+      - y, z beyond ("split"): after the wave march, `segments` segments of
+        `segment` = SCALAR_SEG interfaces, `warps` warps a block, warp w
+        taking scalars w, w + warps, ... (float64, itemsize 8: at most half
+        of SCALAR_WARPS).
+    A dict with those keys and "kind"."""
+    nz, ny, nx = grid_shape[-3:]
+    ns = sim.nscalars
+    halo = 3 if sim.order in ("3", "3p") else 2
+    seg, tm, _ = sweep_shapes(sim)[0]
+    if axis == 0:
+        n, w, bx = tiles_of(nx, tm, 2 * halo)
+        return dict(kind="tile", tiles=n, tile=w, threads=bx, warps=0,
+                    halo=halo)
+    n = ny if axis == 1 else nz
+    if ns <= KEPT_SCALARS:
+        return dict(kind="march", segment=seg, segments=-(-n // seg),
+                    warps=0)
+    passes = -(-ns // (SCALAR_WARPS if itemsize <= 4 else SCALAR_WARPS // 2))
+    return dict(kind="split", segment=SCALAR_SEG,
+                segments=-(-n // SCALAR_SEG), warps=-(-ns // passes),
+                halo=halo)
+
+
+def scalar_cover(plan, ns: int, n: int, df: bool):
+    """The (scalar, interface) of each scalar output that the kernels write
+    for a line of n cells under `plan` (scalar_plan), one per write, by the
+    index arithmetic of csrc/sweep.cuh's tile kernel, wave march and
+    scalar_march_kernel: Ul, Ur and F at interface f, and for the split
+    plan's dF form (`df`) its dF writes, made one interface behind."""
+    out = []
+    if plan["kind"] == "tile":
+        # thread i of a tile: interface x0 + i < x0 + ni, every scalar
+        for t in range(plan["tiles"]):
+            x0 = t * plan["tile"]
+            ni = min(plan["tile"], n - x0)
+            out += [(s, x0 + i) for s in range(ns)
+                    for i in range(plan["threads"]) if i < ni]
+        return out
+    seg = plan["segment"]
+    for b in range(plan["segments"]):
+        f0 = b * seg
+        ni = min(seg, n - f0)
+        if plan["kind"] == "march":
+            # every scalar at each interface j; dF at f0 + j - 1, 0 < j <= ni
+            out += [(s, f0 + j) for j in range(ni) for s in range(ns)]
+            continue
+        lag = 1 if df else 0
+        for w in range(plan["warps"]):
+            for s in range(w, ns, plan["warps"]):
+                # step j writes interface f0 + j - lag, lag <= j < ni + lag
+                out += [(s, f0 + j - lag) for j in range(seg + lag)
+                        if lag <= j < ni + lag]
+    return out
+
+
 # the keys of march_info, in the order of csrc/sweep.cuh's kInfo* slots
 MARCH_INFO = ("smem_bytes", "blocks_per_sm", "chunks", "chunk", "chunk_cap",
-              "registers", "local_bytes")
+              "registers", "local_bytes", "scalar_warps",
+              "scalar_smem_bytes", "scalar_blocks_per_sm",
+              "scalar_registers", "scalar_local_bytes", "scalar_segment")
 
 
 def march_info(kernel: str, sim: SimConfig, dtype, grid_shape, axis=1,
@@ -155,9 +254,12 @@ def march_info(kernel: str, sim: SimConfig, dtype, grid_shape, axis=1,
     for a [.., NZ, NY, NX] = `grid_shape` state of `dtype` along `axis`
     (1 or 2), in the default launch shape, without launching it: a dict of
     MARCH_INFO (dynamic shared memory per block, blocks per SM from the
-    CUDA occupancy calculator, the scalar chunks, their size and the most
-    a chunk may hold, registers and local bytes per thread).  Needs the
-    card."""
+    CUDA occupancy calculator, the scalar chunks (B12: their number, size
+    and the most a chunk may hold; B5 from two scalars on: 1 launch of
+    every scalar, no cap), registers and local bytes per thread; then, for
+    B5 in scalar_plan's split plan, its scalar kernel's warps per block,
+    shared memory, blocks per SM, registers, local bytes and segment, 0
+    otherwise).  Needs the card."""
     if kernel not in ("sweep", "fluxdf"):
         raise ValueError(f"march_info: kernel {kernel!r}")
     info = (ctypes.c_int * len(MARCH_INFO))()
@@ -165,9 +267,21 @@ def march_info(kernel: str, sim: SimConfig, dtype, grid_shape, axis=1,
     err = cuda_lib.lib().ath_march_info(
         int(kernel == "fluxdf"), int(dtype == torch.float64), nz, ny, nx,
         axis, sim.nscalars, int(not sim.adiabatic), FLUX_KIND[sim.flux],
-        ORDER_KIND[sim.order], int(df), ctypes.addressof(info))
+        ORDER_KIND[sim.order], int(df),
+        plan_warps(sim, grid_shape, axis, torch.empty((), dtype=dtype)
+                   .element_size()) if kernel == "sweep" else 0,
+        ctypes.addressof(info))
     cuda_lib.check(err, "march_info")
     return dict(zip(MARCH_INFO, info))
+
+
+def plan_warps(sim, grid_shape, axis, itemsize=4):
+    """ath_sweep's `warps`: the split plan's warps per scalar block along y
+    and z, else 0."""
+    if sim.nscalars < 2:
+        return 0
+    plan = scalar_plan(sim, grid_shape, axis, itemsize)
+    return plan["warps"] if plan["kind"] == "split" else 0
 
 
 def eos_args(sim: SimConfig):
@@ -321,14 +435,17 @@ def _sweep(U, phic, phif_a, dtodx, sim, axis, shape, df, name):
     Ur = torch.empty_like(U)
     F = torch.empty_like(U[0] if df else U)
     dF = torch.empty_like(U) if df else None
+    warps = plan_warps(sim, U.shape, axis, U.element_size())
+    side = U.new_empty((side_fields(sim), nz, ny, nx)) if warps else None
     fn = (cuda_lib.lib().ath_sweep_f64 if U.dtype == torch.float64
           else cuda_lib.lib().ath_sweep_f32)
     err = fn(U.data_ptr(), None if phic is None else phic.data_ptr(),
              None if phif_a is None else phif_a.data_ptr(), dt_t.data_ptr(),
              Ul.data_ptr(), Ur.data_ptr(), F.data_ptr(),
-             None if dF is None else dF.data_ptr(), nz, ny, nx, axis,
+             None if dF is None else dF.data_ptr(),
+             None if side is None else side.data_ptr(), nz, ny, nx, axis,
              sim.nscalars, int(not sim.adiabatic), FLUX_KIND[sim.flux],
-             ORDER_KIND[sim.order], int(df), *shape, *eos_args(sim),
+             ORDER_KIND[sim.order], int(df), *shape, warps, *eos_args(sim),
              cuda_lib.stream_ptr(U.device))
     cuda_lib.check(err, name)
     return (Ul, Ur, F, dF) if df else (Ul, Ur, F)
@@ -351,7 +468,7 @@ def sweep_lrflux(U, phic, phif_a, dtodx, sim: SimConfig, axis: int,
     reconstructed once and each interface solved once, apart from the halo
     of a segment or tile (see the source note).  `shape` is the launch
     shape, one of sweep_shapes(sim).  From two scalars on, the scalars
-    follow the wave fields one at a time (csrc/sweep.cuh).
+    follow the wave fields as scalar_plan says (csrc/sweep.cuh).
     """
     if U.device.type != "cuda":
         return sweep_lrflux_plain(U, phic, phif_a, dtodx, sim, axis)

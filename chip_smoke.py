@@ -19,8 +19,10 @@ slice's paths: the bench configuration with PPM (order 3, B5-dF PPM) and
 testsedov with HLLE (B5 and B5-dF, B12, B13 and B8 with HLLE); turb
 (isothermal gas); linear_wave with four passive scalars (every hydro
 kernel's run-time scalar form, "name[roe+ns4]"); and this slice's path,
-linear_wave with 40 scalars ("name[roe+ns40]"), whose B5 and B12 march
-kernels pass the scalars in chunks; and this slice's paths: ifront (plane
+linear_wave with 40 scalars ("name[roe+ns40]"), whose B5 sweeps stream
+the scalars after solving each interface's waves once (along y and z in a
+kernel of their own, hydro_kernels.scalar_plan); and this slice's paths:
+ifront (plane
 radiation without a static potential: the bench kernels but B6 and B9)
 and the 2D and 1D hydro decks, which run the plain functions on the card
 and launch no kernel, as the JAX package runs jnp there; and this slice's
@@ -62,11 +64,13 @@ and counted per form, "name[form]":
      pass (both inlet forms) and of B5's and B12's per-interface loop (y,
      z) and body (x) in every form and launch shape (the run-time scalar
      forms: the loop with one pass of its scalar loop, and that loop's
-     body), with the time they take to issue at the card's maximum clock,
-     and what the run-time scalar forms' y/z march kernels (B5 PLM and
-     PPM, B12; Roe) take and let run at 4, 32 and 40 scalars: registers,
-     local bytes, scalar chunks, dynamic shared memory per block and
-     blocks per SM (march_occupancy), and the same for every PPM form of
+     body, and B5's split-plan scalar kernel per interface), with the
+     time they take to issue at the card's maximum clock, and what the
+     run-time scalar forms' y/z march kernels (B5 PLM and PPM, B12; Roe)
+     take and let run at 4, 32 and 40 scalars: registers, local bytes,
+     scalar chunks (B12) or B5's plan and its scalar kernel's warps,
+     dynamic shared memory per block and blocks per SM
+     (march_occupancy), and the same for every PPM form of
      B5 (orders 3 and 3p, each solver and gas, 0, 1, 4 and 40 scalars,
      both output forms, float32 and float64: ppm_occupancy);
   2. kernel vs plain version on states of the isph deck after init and two
@@ -1002,8 +1006,10 @@ FIELDS_MOVED["rad_batch[inlet]"] = (13, "interior")  # ... and an inlet per row
 FORMS["rad_batch"] = "scalar"
 
 # the __global__ function of each CUDA kernel, for ptxas's register report
-SYMBOLS = {"sweep_lrflux": ("sweep_march_kernel", "sweep_tile_kernel"),
-           "sweep_lrflux_df": ("sweep_march_kernel", "sweep_tile_kernel"),
+SYMBOLS = {"sweep_lrflux": ("sweep_march_kernel", "sweep_tile_kernel",
+                            "scalar_march_kernel"),
+           "sweep_lrflux_df": ("sweep_march_kernel", "sweep_tile_kernel",
+                               "scalar_march_kernel"),
            "flux_pointwise": "flux_pointwise_kernel",
            "flux_sweep_df": ("fluxdf_march_kernel", "fluxdf_tile_kernel"),
            "gcross": "gcross_kernel", "transverse_correct": "transverse_kernel",
@@ -2404,8 +2410,9 @@ def phase2_many(rec, s, tol):
     scalar curve: B5-dF PLM and PPM and B12, Roe, at LW_NS, 32 and LW_MANY
     scalars, each axis's ms per launch (burst_ms) beside its march
     kernel's chunks, shared memory and blocks per SM
-    (hydro_kernels.march_info).  Returns {count: {entry: record}} of the
-    curve."""
+    (hydro_kernels.march_info), both output forms of B5 PLM Roe, and both
+    at LW_MANY isothermal scalars.  Returns {count: {entry: record}} of
+    the curve."""
     import torch
     from atmospheric_athena_tpu_torch.ops import hydro_kernels as hk
     n = s.grid.Nx[0]
@@ -2418,12 +2425,15 @@ def phase2_many(rec, s, tol):
         f"isothermal ones with {LW_MANY} against their plain versions on "
         "operands from the kernels (many_calls), plain version first")
     curve = {}
-    for ns in (LW_NS, 32, LW_MANY):
-        U, sim = ns_state(s, ns, False)
+    runs = [(ns, False) for ns in (LW_NS, 32, LW_MANY)] + [(LW_MANY, True)]
+    for ns, iso in runs:
+        U, sim = ns_state(s, ns, iso)
         phic, phif = s.phi
-        out = curve[ns] = {}
-        for w, o in (("sweep_lrflux_df", "2"), ("sweep_lrflux_df", "3"),
-                     ("flux_sweep_df", "2")):
+        out = curve.setdefault(ns, {})
+        kerns = (("sweep_lrflux", "2"), ("sweep_lrflux_df", "2"))
+        if not iso:
+            kerns += (("sweep_lrflux_df", "3"), ("flux_sweep_df", "2"))
+        for w, o in kerns:
             sf = dataclasses.replace(sim, order=o)
             name = f"{w}[{hk.form(sf)}]"
             ms = []
@@ -2434,7 +2444,8 @@ def phase2_many(rec, s, tol):
                 ms.append(burst_ms(lambda: getattr(hk, w)(*args)))
                 del args
             info = hk.march_info("sweep" if w.startswith("sweep") else
-                                 "fluxdf", sf, U.dtype, U.shape)
+                                 "fluxdf", sf, U.dtype, U.shape,
+                                 df=w != "sweep_lrflux")
             out[name] = dict(ms_xyz=ms, ms_per_launch=sum(ms) / 3, **info)
             say(f"phase 2 scalar curve {n}^3 float32 {name}: ms per launch "
                 f"x, y, z {[round(x, 4) for x in ms]}, mean "
@@ -6241,7 +6252,8 @@ def ptxas_report(source, kernels):
             label = ("f32" if t.group(1) == "f" else "f64") + (
                 f"<{','.join(ints)}>" if ints else "")
             if len(names) > 1:
-                label = f"{cur.split('_')[1]} {label}"
+                label = ("scalar" if cur.startswith("scalar")
+                         else cur.split('_')[1]) + f" {label}"
             out.append(f"{label}: {m.group(1)} registers, {spill}")
             cur = None
     return "; ".join(out)
@@ -6291,6 +6303,11 @@ def form_regs(name, regs):
     for item in rep.split("; "):
         ints = [int(x) for x in re.search(r"<([-\d,]+)>", item).group(1)
                 .split(",")]
+        if item.startswith("scalar "):
+            # B5's split-plan scalar kernel <T, ISO, FLUX, ORDER, DF>
+            if ints == want and name in NS_FORMS:
+                keep.append(item)
+            continue
         # the run-time scalar instantiation (NS = -1) for NS_FORMS only
         if ints[1:1 + len(want)] == want and (ints[0] < 0) == (
                 name in NS_FORMS):
@@ -6382,7 +6399,10 @@ def sass_hydro(n=256):
     slow paths); and the time the default shape's counts take to issue for
     one launch, averaged over the axes (two march, one tile), on the padded
     (n+8)^3 grid at one warp instruction per scheduler and clock (4 per SM)
-    at the card's maximum SM clock.  Returns {entry name: record}."""
+    at the card's maximum SM clock; for B5's run-time scalar forms also
+    ("scalar_split") the split plan's scalar kernel's march loop per
+    interface (csrc/sweep.cuh scalar_march_kernel).  Returns {entry name:
+    record}."""
     from atmospheric_athena_tpu_torch.ops import hydro_kernels as hk
     try:
         mhz, nsm = sm_clock()
@@ -6405,7 +6425,7 @@ def sass_hydro(n=256):
         form = (f"IfLi{nsl}ELb{args[0]}"
                 + "".join(f"ELi{x}" for x in args[1:3])
                 + (f"ELb{args[3]}" if len(args) > 3 else ""))
-        march, tile = SYMBOLS[base_name(name)]
+        march, tile = SYMBOLS[base_name(name)][:2]
         shapes = (shapes_of(name) if name in SHAPED else
                   [hk.PPM_SHAPE if is_ppm_form(name) else hk.SWEEP_SHAPES[0]])
         per = {}
@@ -6417,6 +6437,14 @@ def sass_hydro(n=256):
             if run:
                 inner, _ = sass_loops(march, f"{form}ELi{S}EE")
                 per[f"{S}x{T}x{R}"]["scalar"] = inner[0] if inner else None
+            if run and len(args) > 3:
+                # B5's split-plan scalar kernel: its march loop, unrolled
+                # by 2 (two interfaces of a scalar), per interface
+                sl, _ = sass_loops("scalar_march_kernel",
+                                   f"IfLb{args[0]}ELi{args[1]}ELi{args[2]}"
+                                   f"ELb{args[3]}EE")
+                per[f"{S}x{T}x{R}"]["scalar_split"] = (
+                    sl[0] / 2 if sl else None)
         d = per["x".join(map(str, shapes[0]))]
         issue_ms = None
         if d["march"]:

@@ -7,7 +7,9 @@ RUN is one of shu_osher (athinput.shuosher at Nx1 = 16384, HLLC), lw_implode
 (athinput.lwimplode at 2048^2, HLLC), blast2d (chip_smoke.BLAST2D_DECK at
 2048 x 3072) and mhd_hlld (athinput.b3n1 at 256^3 with cubic cells and
 HLLD), as chip_smoke.py's phase 4 runs them (float32, through
-Simulation.from_file on the first CUDA device); default: all four.
+Simulation.from_file on the first CUDA device), and lw40 (linear_wave at
+256^3 with 40 distinct scalars, Roe, PLM, the middle-phase route, through
+chip_smoke.lw_sim as phase 4 builds it); default: the first four.
 `--tree` imports atmospheric_athena_tpu_torch and chip_smoke, and reads
 the decks, from DIR (another checkout, such as an unpacked `git archive`
 of the parent commit) in place of this one.  Each run takes one warm-up
@@ -25,7 +27,9 @@ import subprocess
 import sys
 import time
 
-CYCLES = {"shu_osher": 20, "lw_implode": 10, "blast2d": 10, "mhd_hlld": 3}
+CYCLES = {"shu_osher": 20, "lw_implode": 10, "blast2d": 10, "mhd_hlld": 3,
+          "lw40": 5}
+DEFAULT = ("shu_osher", "lw_implode", "blast2d", "mhd_hlld")
 
 
 def runs(tree):
@@ -42,6 +46,7 @@ def runs(tree):
                                        "domain1/Nx2=3072"]),
         "mhd_hlld": (os.path.join(gold, "athinput.b3n1"), None, "hlld",
                      cube),
+        "lw40": (None, "linear_wave", None, []),
     }
 
 
@@ -58,16 +63,19 @@ def main(argv):
         raise SystemExit("torch_time_runs: no CUDA device")
     table = runs(tree)
     out = {}
-    for name in argv or list(table):
+    for name in argv or DEFAULT:
         deck, problem, flux, cmd = table[name]
-        if deck is None:
-            deck = os.path.join(chip_smoke.lowd_dir(), "athinput.blast2d")
-            with open(deck, "w") as fh:
-                fh.write(chip_smoke.BLAST2D_DECK)
-        kw = {} if flux is None else {"flux": flux}
-        s = Simulation.from_file(deck, problem=problem, dtype="float32",
-                                 cmdline=cmd + ["time/tlim=9e9",
-                                                "job/maxout=0"], **kw)
+        if name == "lw40":
+            s = chip_smoke.lw_sim(256, "float32", 10 ** 6, 40, distinct=True)
+        else:
+            if deck is None:
+                deck = os.path.join(chip_smoke.lowd_dir(), "athinput.blast2d")
+                with open(deck, "w") as fh:
+                    fh.write(chip_smoke.BLAST2D_DECK)
+            kw = {} if flux is None else {"flux": flux}
+            s = Simulation.from_file(deck, problem=problem, dtype="float32",
+                                     cmdline=cmd + ["time/tlim=9e9",
+                                                    "job/maxout=0"], **kw)
         s.step()
         ms = []
         for _ in range(3):
