@@ -129,10 +129,22 @@ def check_supported(sim: SimConfig, root: GridConfig):
     item: the VL integrator (the JAX driver steps its levels with CTU
     alone, hierarchy.py:251-252), MHD on 1D grids and cylindrical grids
     (the JAX driver steps a 1D MHD level with ctu2d_mhd, which fails, and
-    a cylindrical one with the Cartesian ctu3d, ROADMAP C29).  Plane
-    radiation on MHD gas and on isothermal gas is refused before this
-    (simulation.check_supported), as the JAX driver refuses the first
-    (hierarchy.py:255-256) and C14 says of the second."""
+    a cylindrical one with the Cartesian ctu3d, ROADMAP C29), plane
+    radiation on MHD gas, as the JAX driver refuses it (hierarchy.py:
+    255-256), and on 2D and 1D grids (ROADMAP C48).  Plane radiation on
+    isothermal gas is refused before this (simulation.check_supported,
+    C14)."""
+    if sim.ion_radplane and sim.mhd:
+        raise NotImplementedError(
+            "plane radiation on MHD gas with SMR, as in the JAX package "
+            "(its SMR driver refuses it, hierarchy.py:255-256; ROADMAP A15 "
+            "item 6)")
+    if sim.ion_radplane and root.ndim < 3:
+        raise NotImplementedError(
+            f"plane radiation with SMR on {root.ndim}D grids (ROADMAP C48: "
+            "the JAX SMR driver's EdgeFlux hand-off, smr.child_inlet_flux, "
+            "doubles the inactive axes too, and its fine level's sub-cycle "
+            "fails on the mismatched shapes)")
     if sim.integrator != "ctu":
         raise NotImplementedError(
             f"SMR with the {sim.integrator} integrator (ROADMAP A13: the "

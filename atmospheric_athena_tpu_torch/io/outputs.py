@@ -119,7 +119,14 @@ class OutputSet:
         if o.usr_expr_flag:
             expr = getattr(s.problem, "get_usr_expr", lambda n: None)(o.out)
             if expr is None and o.out == "flux" and s.state.Eflux is not None:
-                q = formats.as_numpy(s.state.Eflux[..., :-1])
+                # the faces 0..N-1 along the plane's sweep axis, the one
+                # where Eflux has a face more than the grid has cells (the
+                # JAX package drops the last x face whatever the axis,
+                # ROADMAP C51)
+                ef = s.state.Eflux
+                adim = next(i for i in range(3)
+                            if ef.shape[i] == s.grid.Nx[2 - i] + 1)
+                q = formats.as_numpy(ef.narrow(adim, 0, ef.shape[adim] - 1))
             elif expr is None and o.out == "flux" and s.sim.ion_radplane:
                 return None      # no radiation sub-cycle has run yet (C20)
             elif expr is not None:

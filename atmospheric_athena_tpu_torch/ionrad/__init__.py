@@ -1,2 +1,2 @@
-"""Plane-parallel ionizing radiation: configuration, chemistry, the plane
-sweep, the sub-cycle driver and its GPU kernels."""
+"""Ionizing radiation: configuration, chemistry, the plane sweep, point
+sources, the sub-cycle driver and its GPU kernels."""

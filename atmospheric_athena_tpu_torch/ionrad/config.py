@@ -44,6 +44,9 @@ class IonConfig:
     d_nlo: float
     # radiation plane(s): list of (dir, flux) from add_radplane_3d
     radplanes: tuple = ()
+    # point source(s): ((x1, x2, x3), ndot) each (add_radpoint_3d,
+    # ionradpoint_3d.c); no model or deck sets them
+    point_sources: tuple = ()
     # the reference hardwires the erf inlet-flux time ramp at Level 0
     # (ionradplane_3d.c:263-272); disable for problems without it
     time_ramp: bool = True

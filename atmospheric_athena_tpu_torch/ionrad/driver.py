@@ -1,20 +1,29 @@
 """Sub-cycled ionization/heating driver (reference:
-src/ionradiation/ionrad_3d.c:862-1047, ion_radtransfer_3d), the kernel
-path of ``atmospheric_athena_tpu/ionrad/driver.py``: the K=1 loop and the
-batched loop (``ionradiation/batch_iters`` = K > 1).
+src/ionradiation/ionrad_3d.c:862-1047, ion_radtransfer_3d), as
+``atmospheric_athena_tpu/ionrad/driver.py``: the kernel loop (K=1, and the
+batched loop with ``ionradiation/batch_iters`` = K > 1) and the plain loop.
 
 Runs BEFORE the hydro update each cycle and may SHRINK the hydro dt
 (ionrad_3d.c:983,1000,1033).  An SMR fine level (``inlet``, ``tcoarse``)
 integrates to the root's tcoarse with the parent's EdgeFlux as its inlet
 and feeds nothing back into dt (ionrad_3d.c:914-962, 1004-1013).  The
 sub-cycle is a Python loop: every carry value stays on the device, and
-each K=1 iteration reads one boolean (the stop test) back to the host;
-each batch reads (ok, stop, substeps) in one transfer.  Everything operates on ACTIVE cells only; ghosts are refreshed
-by bvals after radiation, as in main.c:552.
+each K=1 or plain iteration reads one boolean (the stop test) back to the
+host; each batch reads (ok, stop, substeps) in one transfer.  Everything
+operates on ACTIVE cells only; ghosts are refreshed by bvals after
+radiation, as in main.c:552.
+
+Routes, as the JAX driver's (driver.py:377-379, pallas_rad.py:74-81): the
+kernel loop takes what ``rad_kernels.unsupported`` takes (one dir=-1 plane
+on a 3D adiabatic hydro grid) without point sources; everything else (MHD
+gas, other and several planes, point sources, 2D and 1D grids) takes the
+plain loop (JAX's body/cond, driver.py:564-631), on the card too, with no
+kernel and K=1 whatever ``batch_iters`` says (the JAX batch lives in its
+Pallas branch alone, driver.py:419-421).
 
 The per-cell physics (``rates_percell``, ``update_percell``,
-``dti_percell``) is written once here; the plain versions of the kernels
-in ``rad_kernels`` call it.
+``dti_percell``) is written once here; the plain loop and the plain
+versions of the kernels in ``rad_kernels`` call it.
 """
 
 from __future__ import annotations
@@ -31,7 +40,9 @@ from . import chemistry as chem
 from . import rad_kernels
 from .config import (CION, DAMPFACTOR, IONFRACFLOOR, MAXCELLCOUNT,
                      MAXSIGNCOUNT, IonConfig)
-from .plane import inlet_ramp
+from .plane import get_ph_rate_plane, inlet_ramp
+from .point import check_supported as check_point_sources
+from .point import point_source_fan, point_source_kph
 
 # the batch schedule's fraction of the seed limit: dt_j = THETA * dt_lim
 # (atmospheric_athena_tpu/ionrad/driver.py:492)
@@ -192,19 +203,62 @@ def update_percell(s0, E, d, ke_be, nHdot, edot, ph_rate, dt, d_nlim,
     return E2, s02, viol & ~dtype_skip
 
 
-def dti_percell(E, d, M1, M2, M3, sim: SimConfig, grid: GridConfig):
-    """Per-cell max over active axes of (|v_a| + c_s)/dx_a
-    (compute_dt_hydro, ionrad_3d.c:593-678), hydro."""
+def dti_percell(E, d, M1, M2, M3, sim: SimConfig, grid: GridConfig,
+                B=None, Bfi=None):
+    """Per-cell max over active axes of (|v_a| + c_a)/dx_a
+    (compute_dt_hydro, ionrad_3d.c:593-678): c_a the sound speed on hydro,
+    on MHD the fast speed along axis a from B = Bcc (3 fields) and the
+    lower face fields Bfi = (B1i, B2i, B3i), each component taken as
+    B + |Bfi - B| (JAX driver.py:227-248).  Adiabatic gas only (radiation
+    refuses isothermal gas, ROADMAP C14)."""
     di = 1.0 / d
     qsq = (M1 ** 2 + M2 ** 2 + M3 ** 2) * di * di
-    p = torch.clamp_min(sim.gamma_1 * (E - 0.5 * d * qsq), TINY_NUMBER)
-    asq = sim.gamma * p * di
+    if sim.mhd:
+        b1 = B[0] + torch.abs(Bfi[0] - B[0])
+        b2 = B[1] + torch.abs(Bfi[1] - B[1])
+        b3 = B[2] + torch.abs(Bfi[2] - B[2])
+        bsq = b1 * b1 + b2 * b2 + b3 * b3
+        p = torch.clamp_min(
+            sim.gamma_1 * (E - 0.5 * d * qsq - 0.5 * bsq), TINY_NUMBER)
+        asq = sim.gamma * p * di
+        tsum = bsq * di + asq
+        tdif = bsq * di - asq
+        cf = [sqrt(0.5 * (tsum + sqrt(tdif * tdif + 4.0 * asq * bt * di)))
+              for bt in (b2 * b2 + b3 * b3, b1 * b1 + b3 * b3,
+                         b1 * b1 + b2 * b2)]
+    else:
+        p = torch.clamp_min(sim.gamma_1 * (E - 0.5 * d * qsq), TINY_NUMBER)
+        asq = sim.gamma * p * di
+        cf = [None] * 3
     dti = torch.zeros_like(E)
     for a, M in enumerate((M1, M2, M3)):
         if grid.Nx[a] > 1:
             v = torch.abs(M) * di
-            dti = torch.maximum(dti, (v + sqrt(asq)) / grid.dx[a])
+            c = sqrt(asq) if cf[a] is None else cf[a]
+            dti = torch.maximum(dti, (v + c) / grid.dx[a])
     return dti
+
+
+def check_supported(sim: SimConfig, grid: GridConfig, ion: IonConfig):
+    """Refuse what the radiation sub-cycle does not run, naming the ROADMAP
+    item: isothermal gas (C14: the JAX driver takes the first scalar as
+    the energy, driver.py:294-296), planes on more than one axis (C46: the
+    JAX driver sizes its edge-flux carry by the first plane's axis,
+    driver.py:608-615, and fails at trace time when a later plane's faces
+    differ) and point sources on a 1D grid (C49, point.check_supported)."""
+    if not sim.adiabatic:
+        raise NotImplementedError(
+            "radiation on isothermal gas (ROADMAP C14: the JAX driver takes "
+            "the first scalar as the energy)")
+    axes = sorted({abs(dirn) for dirn, _ in ion.radplanes})
+    if len(axes) > 1:
+        raise NotImplementedError(
+            f"radiation planes {tuple(ion.radplanes)} on the axes {axes} "
+            "(ROADMAP C46: the JAX driver sizes its edge-flux carry by the "
+            "first plane's axis, driver.py:608-615, and fails when a later "
+            "plane's faces differ)")
+    if ion.point_sources:
+        check_point_sources(grid)
 
 
 def ion_radtransfer(state: State, sim: SimConfig, grid: GridConfig,
@@ -223,14 +277,136 @@ def ion_radtransfer(state: State, sim: SimConfig, grid: GridConfig,
     array from smr.child_inlet_flux) replaces the time-ramped inflow."""
     if mesh is not None:
         raise NotImplementedError("multi-device radiation (ROADMAP A14)")
-    if sim.mhd or not sim.adiabatic:
-        raise NotImplementedError(
-            "radiation on MHD or isothermal gas (ROADMAP A15, C14)")
-    if len(ion.radplanes) != 1 or ion.radplanes[0][0] != -1:
-        raise NotImplementedError(
-            f"radiation planes {ion.radplanes}: only one dir=-1 plane is "
-            "ported (ROADMAP A15)")
+    check_supported(sim, grid, ion)
+    if ion.point_sources or rad_kernels.unsupported(sim, grid, ion):
+        loop = _plain_loop
+    else:
+        loop = _kernel_loop
+    new_state, dt_new, niter = loop(state, sim, grid, ion, time, cour_no,
+                                    inlet, tcoarse)
+    if return_niter:
+        return new_state, dt_new, niter
+    return new_state, dt_new
 
+
+def _stop_test(dt_done, dt_new, hydro_done, cellcount, dti_max, cour_no,
+               fine):
+    """The sub-iteration's stop criteria (ionrad_3d.c:977-1002): returns
+    (stop, dt_new).  A fine level (`fine`) stops at tcoarse alone and
+    feeds nothing back."""
+    if fine:
+        return hydro_done, dt_new
+    range_hit = cellcount > MAXCELLCOUNT
+    cfl_hit = cour_no / dti_max < dt_done
+    stop = range_hit | hydro_done | cfl_hit
+    dt_new = torch.where(range_hit, dt_done,
+                         torch.where(hydro_done, dt_new,
+                                     torch.where(cfl_hit, dt_done, dt_new)))
+    return stop, dt_new
+
+
+def _finish(state, grid, E, s0, eflux, dt_new, dt_done, stop, tcoarse):
+    """The common tail: the dt fed back (the maxiter exit without a stop
+    condition takes dt_done, ionrad_3d.c:1022; a fine level keeps its dt)
+    and the state with the new E, s0 and Eflux."""
+    if tcoarse is not None:
+        dt_new = state.dt   # fine levels never feed back into the mesh dt
+    elif not stop:
+        dt_new = dt_done
+    Unew = state.U.clone()
+    Unew[(5,) + grid.interior()] = s0
+    Unew[(IEN,) + grid.interior()] = E
+    return state.replace(U=Unew, Eflux=eflux, dt=dt_new), dt_new
+
+
+def _plain_loop(state: State, sim: SimConfig, grid: GridConfig,
+                ion: IonConfig, time, cour_no: float, inlet, tcoarse):
+    """JAX's plain sub-cycle (driver.py:564-631, its ``body``/``cond``)
+    with ``ph_rate_all`` (:336-367): the rates of every plane add, the
+    edge flux keeps the last plane's faces (the carry shaped by the first
+    plane's axis, zeros without a plane), the inflow of a |dir| > 1 plane
+    is not ramped, point sources add their rates (each fan built once per
+    call); on MHD gas ke_be carries 1/2 |Bcc|^2 and the CFL test the fast
+    speed from the face fields.  Returns (state, dt_new, niter)."""
+    sl = grid.interior()
+    U = state.U[(slice(None),) + sl]
+    d = U[ID]
+    M1, M2, M3 = U[IM1], U[IM1 + 1], U[IM1 + 2]
+    ke_be = 0.5 * (M1 ** 2 + M2 ** 2 + M3 ** 2) / d
+    B = Bfi = None
+    if sim.mhd:
+        B = state.Bcc[(slice(None),) + sl]
+        ke_be = ke_be + 0.5 * (B[0] ** 2 + B[1] ** 2 + B[2] ** 2)
+        Bfi = (state.B1i[sl], state.B2i[sl], state.B3i[sl])
+    dt0 = state.dt
+    E0, s00 = _apply_floors(U[IEN], U[5], d, ke_be, sim, ion)
+    _, e_th_init, x_init = _temp(E0, s00, d, ke_be, sim, ion)
+    e_init = E0
+    d_nlim = _d_nlim(d, ion)
+
+    def inflow(dirn, fx):
+        if inlet is not None:
+            return inlet.to(d.dtype)
+        if abs(dirn) == 1:
+            return inlet_ramp(fx, time, ion)
+        return torch.as_tensor(fx, dtype=d.dtype, device=d.device)
+    planes = [(dirn, inflow(dirn, fx)) for dirn, fx in ion.radplanes]
+    sources = [(ndot, src, point_source_fan(src, grid, d.dtype, d.device))
+               for src, ndot in ion.point_sources]
+    ax = abs(ion.radplanes[0][0]) - 1 if ion.radplanes else 0
+    efshape = list(d.shape)
+    efshape[2 - ax] += 1
+
+    def ph_rate_all(s0):
+        kph_tot, eflux = torch.zeros_like(s0), None
+        for dirn, F in planes:
+            kph, eflux = get_ph_rate_plane(s0, F, dirn, grid, ion)
+            kph_tot = kph_tot + kph
+        for ndot, src, fan in sources:
+            kph_tot = kph_tot + point_source_kph(s0, src, ndot, grid, ion,
+                                                 fan=fan)
+        if eflux is None:
+            eflux = torch.zeros(efshape, dtype=d.dtype, device=d.device)
+        return kph_tot, eflux
+
+    dt_limit = dt0 if tcoarse is None else tcoarse
+    E, s0 = E0, s00
+    last_sign = torch.zeros(d.shape, dtype=torch.int32, device=d.device)
+    sign_count = torch.zeros_like(last_sign)
+    dt_done = torch.zeros_like(dt0)
+    dt_new = dt0
+    eflux = torch.zeros(efshape, dtype=d.dtype, device=d.device)
+    niter, stop = 0, False
+    while niter < ion.maxiter:
+        kph, eflux = ph_rate_all(s0)
+        nHdot, last_sign, sign_count, dtc, edot, dtt = rates_percell(
+            s0, E, d, ke_be, last_sign, sign_count, kph, d_nlim, sim, ion)
+        dt = torch.minimum(torch.amin(dtc), torch.amin(dtt))
+        hydro_done = dt_done + dt > dt_limit
+        dt = torch.where(hydro_done, dt_limit - dt_done, dt)
+        E, s0, viol = update_percell(s0, E, d, ke_be, nHdot, edot, kph, dt,
+                                     d_nlim, e_init, e_th_init, x_init, sim,
+                                     ion)
+        cellcount = torch.sum(viol, dtype=torch.int64)
+        dti_max = torch.amax(dti_percell(E, d, M1, M2, M3, sim, grid, B,
+                                         Bfi))
+        dt_done = dt_done + dt
+        stop_t, dt_new = _stop_test(dt_done, dt_new, hydro_done, cellcount,
+                                    dti_max, cour_no, tcoarse is not None)
+        niter += 1
+        stop = bool(stop_t)     # the loop's one host read per iteration
+        if stop:
+            break
+    new_state, dt_new = _finish(state, grid, E, s0, eflux, dt_new, dt_done,
+                                stop, tcoarse)
+    return new_state, dt_new, niter
+
+
+def _kernel_loop(state: State, sim: SimConfig, grid: GridConfig,
+                 ion: IonConfig, time, cour_no: float, inlet, tcoarse):
+    """The kernel sub-cycle (JAX driver.py:411-562): rad_kernels' rates and
+    update per K=1 iteration, or the batch kernel's K substeps per round.
+    Returns (state, dt_new, niter)."""
     sl = (slice(None),) + grid.interior()
     U = state.U[sl]
     d = U[ID].contiguous()
@@ -274,16 +450,8 @@ def ion_radtransfer(state: State, sim: SimConfig, grid: GridConfig,
         dt = torch.where(hydro_done, dt_limit - dt_done, dt)
         E, s0, cellcount, dti_max = update_fn(s0, E, kph, nHdot, edot, dt)
         dt_done = dt_done + dt
-        if tcoarse is not None:
-            # fine level: integrate to tcoarse; no dt feedback
-            return E, s0, code, eflux, dt_done, dt_new, hydro_done
-        range_hit = cellcount > MAXCELLCOUNT
-        cfl_hit = cour_no / dti_max < dt_done
-        stop = range_hit | hydro_done | cfl_hit
-        dt_new = torch.where(range_hit, dt_done,
-                             torch.where(hydro_done, dt_new,
-                                         torch.where(cfl_hit, dt_done,
-                                                     dt_new)))
+        stop, dt_new = _stop_test(dt_done, dt_new, hydro_done, cellcount,
+                                  dti_max, cour_no, tcoarse is not None)
         return E, s0, code, eflux, dt_done, dt_new, stop
 
     niter = 0
@@ -348,17 +516,7 @@ def ion_radtransfer(state: State, sim: SimConfig, grid: GridConfig,
                 *_, dtc1, dtt1 = rates_fn(s0, E, code, Fin)
                 dt_lim = torch.minimum(dtc1, dtt1)
 
-    if tcoarse is not None:
-        dt_new = dt0     # fine levels never feed back into the mesh dt
-    elif not stop:
-        # maxiter exit without a stop condition: dt = dt_done
-        # (ionrad_3d.c:1022)
-        dt_new = dt_done
-    Unew = state.U.clone()
-    Unew[(iscal,) + grid.interior()] = s0
-    Unew[(IEN,) + grid.interior()] = E
     eflux_out = torch.cat([eflux[0], eflux[1][..., -1:]], dim=-1)
-    new_state = state.replace(U=Unew, Eflux=eflux_out, dt=dt_new)
-    if return_niter:
-        return new_state, dt_new, niter
-    return new_state, dt_new
+    new_state, dt_new = _finish(state, grid, E, s0, eflux_out, dt_new,
+                                dt_done, stop, tcoarse)
+    return new_state, dt_new, niter

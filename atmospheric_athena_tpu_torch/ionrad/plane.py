@@ -1,13 +1,21 @@
 """Plane-parallel radiation sweep (reference:
-src/ionradiation/ionradplane_3d.c:88-407, get_ph_rate_plane), the dir=-1
-case of ``atmospheric_athena_tpu/ionrad/plane.py``.
+src/ionradiation/ionradplane_3d.c:88-407, get_ph_rate_plane), as in
+``atmospheric_athena_tpu/ionrad/plane.py``.
 
 The per-column attenuation recurrence F_{i+1} = F_i·exp(−τ_i)
-(ionradplane_3d.c:278-307) is a cumulative product along x.  The
+(ionradplane_3d.c:278-307) is a cumulative product along the sweep axis,
+which is moved last and, for dir > 0 (a descending sweep), flipped.  The
 MINFLUXFRAC early exit that zeroes all downstream faces of a column
 (:300-306) is monotone (flux never grows), so it is an elementwise mask on
-the scanned flux.  τ uses dx1 (:294) and kph divides by the cell length of
-the sweep axis, which for dir=-1 is dx1 too.
+the scanned flux.
+
+The reference's quirks, kept as the JAX package keeps them:
+  - τ uses dx1 for every direction (ionradplane_3d.c:294,337,370) while kph
+    divides by the cell length of the sweep axis;
+  - for dir=±1 the cutoff fraction divides by the column inlet + 1e-12
+    (:299); for ±2/±3 it divides by the raw inflow (:342,:375).
+Dir > 0 sweeps index their faces properly and dir=±3 takes dx3 as the cell
+length, the JAX package's documented deviations from the reference.
 """
 
 from __future__ import annotations
@@ -28,30 +36,51 @@ def inlet_ramp(flux_i, time, ion: IonConfig):
                             + 1.0) + 0.1)
 
 
+def _column(inflow, s0s):
+    """The inflow as a tensor that broadcasts against the swept s0s: a
+    scalar stays 0-d, a per-column array gains a trailing sweep axis."""
+    F = torch.as_tensor(inflow, dtype=s0s.dtype, device=s0s.device)
+    if F.dim() > 0 and F.dim() != s0s.dim():
+        F = F[..., None]
+    return F
+
+
 def get_ph_rate_plane(s0, inflow, direction: int, grid: GridConfig,
                       ion: IonConfig):
-    """Photoionization rate and edge fluxes of one dir=-1 radiation plane.
+    """Photoionization rate and edge fluxes of one radiation plane.
 
     s0:     neutral density over ACTIVE cells, [Nz, Ny, Nx].
-    inflow: inlet flux entering the x1 inner face (0-d tensor or float).
-    Returns (kph [Nz,Ny,Nx], edge_flux [Nz,Ny,Nx+1]).
+    inflow: inlet flux entering the upstream domain face: a scalar (0-d
+            tensor or float) or a per-column array over the transverse axes
+            (the SMR hand-off, [Nz, Ny] or [Nz, Ny, 1] for dir=±1).
+    Returns (kph [Nz,Ny,Nx], edge_flux with the sweep axis one longer:
+    [Nz,Ny,Nx+1] for dir=±1, [Nz,Ny+1,Nx] for ±2, [Nz+1,Ny,Nx] for ±3).
     """
-    if direction != -1:
-        raise NotImplementedError(
-            f"radiation plane dir={direction}: only dir=-1 is ported "
-            "(ROADMAP A6)")
-    n_H = s0 * (1.0 / ion.m_H)
-    tau = ion.sigma_ph * n_H * grid.dx[0]
+    axis = abs(direction) - 1
+    ascending = direction < 0   # lr=+1 in the reference (:117)
+    adim = 2 - axis
+
+    s0s = torch.movedim(s0, adim, -1)
+    if not ascending:
+        s0s = torch.flip(s0s, dims=(-1,))
+
+    n_H = s0s * (1.0 / ion.m_H)
+    tau = ion.sigma_ph * n_H * grid.dx[0]          # dx1 always (see above)
     etau = torch.exp(-tau)
     T_incl = torch.cumprod(etau, dim=-1)
     T_faces = torch.cat([torch.ones_like(T_incl[..., :1]), T_incl], dim=-1)
-    F_in = torch.as_tensor(inflow, dtype=s0.dtype, device=s0.device)
+    F_in = _column(inflow, s0s)
     F_faces = F_in * T_faces
-    frac = F_faces / (F_in + 1e-12)
-    n = s0.shape[-1]
+    denom = F_in + 1e-12 if abs(direction) == 1 else F_in
+    frac = F_faces / denom
+    n = s0s.shape[-1]
     idx = torch.arange(n + 1, device=s0.device)
     alive = (idx == 0) | (frac >= MINFLUXFRAC)
     kph = (alive[..., :n] * F_faces[..., :n] * (1.0 - etau)
-           / (n_H * grid.dx[0]))
+           / (n_H * grid.dx[axis]))
     edge = torch.where(alive, F_faces, torch.zeros_like(F_faces))
-    return kph, edge
+
+    if not ascending:
+        kph = torch.flip(kph, dims=(-1,))
+        edge = torch.flip(edge, dims=(-1,))
+    return torch.movedim(kph, -1, adim), torch.movedim(edge, -1, adim)

@@ -72,19 +72,29 @@ RATES_SHAPES = ((8, 4), (4, 8))
 BATCH_SHAPES = (2, 4)
 
 
-def check_supported(sim: SimConfig, grid: GridConfig, ion: IonConfig):
-    """The configuration the kernels take: one dir=-1 plane on a 3D hydro
-    grid, as pallas_rad.supported, which excludes MHD only; and adiabatic
-    gas, which it does not demand: on isothermal gas the JAX driver hands
-    the kernels its first scalar as the energy (ROADMAP C14), so the port
-    refuses that gas here and in driver.ion_radtransfer."""
+def unsupported(sim: SimConfig, grid: GridConfig, ion: IonConfig):
+    """Why the kernels do not take a configuration, or None where they
+    do: one dir=-1 plane on a 3D hydro grid, as pallas_rad.supported,
+    which excludes MHD only; and adiabatic gas, which it does not demand:
+    on isothermal gas the JAX driver hands the kernels its first scalar as
+    the energy (ROADMAP C14), so the port refuses that gas here and in
+    driver.ion_radtransfer.  Point sources are the driver's to route (the
+    kernels sweep the plane alone, ROADMAP C47).  Unequal cell sizes are
+    taken: the kernels read dx1-dx3 (ROADMAP C50)."""
     if sim.mhd or not sim.adiabatic:
-        raise NotImplementedError("radiation kernels: adiabatic hydro only")
+        return "radiation kernels: adiabatic hydro only"
     if len(ion.radplanes) != 1 or ion.radplanes[0][0] != -1:
-        raise NotImplementedError(
-            "radiation kernels: one dir=-1 plane only (ROADMAP A15)")
+        return "radiation kernels: one dir=-1 plane only"
     if not all(grid.active(a) for a in range(3)):
-        raise NotImplementedError("radiation kernels: 3D grids only")
+        return "radiation kernels: 3D grids only"
+    return None
+
+
+def check_supported(sim: SimConfig, grid: GridConfig, ion: IonConfig):
+    """Raise what ``unsupported`` says, if anything."""
+    why = unsupported(sim, grid, ion)
+    if why is not None:
+        raise NotImplementedError(why)
 
 
 # ------------------------------------------------------------- plain versions

@@ -1,8 +1,10 @@
 """Driver: setup + main loop (reference: src/main.c:90-772), for the
 configurations the port covers: the plane-radiation problems (the
-ioniz_sphere production step, ifront), adiabatic and isothermal hydro on
-3D, 2D and 1D grids (testsedov, blast, turb, linear_wave, the 2D carbuncle,
-noh and lw_implode, the 1D shkset1d, shu_osher and twoibw), adiabatic and
+ioniz_sphere production step, ifront; hydro or MHD, 3D, 2D or 1D, the
+sub-cycle's kernels on 3D hydro and its plain loop elsewhere), adiabatic
+and isothermal hydro on 3D, 2D and 1D grids (testsedov, blast, turb,
+linear_wave, the 2D carbuncle, noh and lw_implode, the 1D shkset1d,
+shu_osher and twoibw), adiabatic and
 isothermal MHD with constrained transport on 3D, 2D and 1D grids (blast,
 cpaw3d, orszag_tang, rotor, field_loop, cpaw, shkset1d, linear_wave), on
 one domain or, for a 3D hydro deck with num_domains > 1 and a <domain2>
@@ -37,11 +39,14 @@ integrator that takes the potential.
 Every tensor lives on the ``device`` given at construction: ``"cuda"``
 unless the caller asks for ``"cpu"`` (without a visible GPU the default
 raises; there is no silent CPU fallback).  On a CUDA device a 3D hydro
-step runs the hand-written kernels; on the CPU their plain PyTorch
-versions.  A 2D or 1D step, and every MHD, SR or self-gravitating step,
-runs the plain versions on either device, as the JAX package runs jnp there
-(its kernels take three active axes and Newtonian hydro, and ctu3d takes
-none with a self-gravity potential).
+step runs the hand-written kernels, and so does the radiation of one
+dir=-1 plane on 3D hydro; on the CPU their plain PyTorch versions.  Any
+other radiation (MHD gas, 2D and 1D grids, other or several planes, point
+sources) runs the sub-cycle's plain loop on either device, as the JAX
+package runs its jnp loop there.  A 2D or 1D step, and every MHD, SR or
+self-gravitating step, runs the plain versions on either device, as the
+JAX package runs jnp there (its kernels take three active axes and
+Newtonian hydro, and ctu3d takes none with a self-gravity potential).
 """
 
 from __future__ import annotations
@@ -138,12 +143,6 @@ def check_supported(par: ParameterDB, sim: SimConfig, grid: GridConfig):
         (sim.ion_radplane and not sim.adiabatic,
          "plane radiation on isothermal gas (ROADMAP C14: the JAX "
          "package's radiation takes the first scalar as the energy)"),
-        (sim.ion_radplane and grid.ndim != 3,
-         f"plane radiation on {grid.ndim}D grids (ROADMAP A15; the "
-         "reference's is ionrad_3d.c)"),
-        (sim.ion_radplane and sim.mhd,
-         "plane radiation on MHD gas (ROADMAP A15: the radiation's kernels "
-         "and energy update take hydro)"),
     ]
     for bad, what in blockers:
         if bad:

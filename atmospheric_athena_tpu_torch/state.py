@@ -12,8 +12,10 @@ Fields:
           padded-cell-shaped [Nz+2g, Ny+2g, Nx+2g]: index i is the lower
           face of cell i along the field's own axis, so the upper face ie+1
           of the last active cell sits in the ghost padding (MHD only).
-  Eflux : ionizing radiation edge flux [Nz, Ny, Nx+1] over active cells
-          (set by the radiation module, else None).
+  Eflux : ionizing radiation edge flux over active cells with one face
+          more along the radiation planes' axis: [Nz, Ny, Nx+1] for x
+          planes, [Nz, Ny+1, Nx] for y, [Nz+1, Ny, Nx] for z (set by the
+          radiation module, else None).
 
 Every tensor lives on one device; the step never moves a tensor between
 devices.  ``replace`` returns a new State, like the flax struct's.

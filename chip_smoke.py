@@ -178,7 +178,15 @@ and counted per form, "name[form]":
      kernel launched, and jeans (32 x 8 x 8) with fft, fft_obc and
      multigrid, 3 cycles each against the plain CPU run at 1e-12 of each
      field's scale floored at 1e-3 of the largest, launching B11 and, on
-     the isolated solvers' outflow decks, B4;
+     the isolated solvers' outflow decks, B4; then (phase3_a15_rad)
+     the radiation's plain loop, each configuration of RAD_FULL at a
+     small size in float64 on the card against the port's plain run on
+     the CPU in the same process at 1e-10 of each field's max (2 cycles,
+     the second from the CPU run's state; the point source in a seeded
+     random medium that every ray crosses, its kph in every cell and one
+     ion_radtransfer call, whose scatter-add's atomics add in no fixed
+     order: held at 1e-10, not bit for bit), each with its launches: none
+     of a radiation kernel, the ifront path's hydro kernels on 3D hydro;
   4. full width: the SMR main path, isph2lev at 256^3 + 256^3 float32
      (the child over the root's centre), maxiter=50, batch_iters=25, 3
      cycles through Simulation.from_file (no device argument: the card is
@@ -239,9 +247,18 @@ and counted per form, "name[form]":
      a float32 run left with non-finite or unphysical cells is reported
      and run again in float64), jeans at 256^3 with fft (B11) and the
      self-gravitating blob (SELFG_BLOB_DECK) with fft_obc and multigrid on
-     outflow faces (B11, B4), 3 cycles each: the
+     outflow faces (B11, B4), 2 cycles each: the
      same numbers, the host reads of a cycle and the SR MHD Newton's
-     trips, host reads and iterations per cell;
+     trips, host reads and iterations per cell; then (phase4_a15_rad,
+     RAD_FULL) the radiation's plain loop in float32 with maxiter=50: the
+     MHD ifront at 256^3 (2 cycles and a CLI cycle), the 2D ifront at
+     2048^2 and the 1D one at 16384 cells, the 3D hydro ifront with one
+     dir=-2 plane and with planes (-1, +1) at 256^3 (2 cycles each), and
+     a point source at 256^3 (one ion_radtransfer call, maxiter=20, JAX
+     tests/test_point_radiation.py's medium): ms per cycle or call, ms per
+     radiation sub-iteration, plain operators per sub-iteration, host
+     reads per cycle, peak memory and each run's launches (no radiation
+     kernel; the ifront path's hydro kernels on 3D hydro);
      phase 4's CLI cycles write no outputs
      (job/maxout=0) but the SMR one, which writes a history and a cons VTK
      output per level with -d (level 1's under lev1/ with a -lev1 problem
@@ -269,7 +286,8 @@ kernel's launches in each MHD_FULL run, all 0; "vl_launches", each
 kernel's launches in each VL_FULL run; "smr_mhd_launches", in each
 SMR_MHD_FULL run, all 0; "a13_a11_cyl_launches", in each
 A13_A11_CYL_FULL run; "a15_launches", in each A15_FULL run;
-"sr_selfg_launches", in each SR_SELFG_FULL run; B7's isothermal
+"sr_selfg_launches", in each SR_SELFG_FULL run; "a15_rad_launches", in
+each RAD_FULL run; B7's isothermal
 whole-flux form takes its launches from the isothermal SMR run), the
 nvidia-smi line
 before it, and the final line {"ok": true,
@@ -464,8 +482,17 @@ flux  = 2e13
 """
 
 
-def ifront_deck(n, nlim):
-    return IFRONT_DECK.format(n=n, nlim=nlim)
+def ifront_deck(n, nlim, gas="hydro", dims=3):
+    """The ifront deck with n cells on each of its `dims` active axes (the
+    others one cell over the same extent); on MHD gas (`gas="mhd"`) with the
+    uniform field Bx = 3e-5, By = 1e-5 (beta ~ 2)."""
+    text = IFRONT_DECK.format(n=n, nlim=nlim)
+    for a in range(dims + 1, 4):
+        text = text.replace(f"Nx{a}    = {n}", f"Nx{a}    = 1")
+    if gas == "mhd":
+        text = text.replace("--with-gas=hydro", "--with-gas=mhd").replace(
+            "flux  = 2e13", "flux  = 2e13\nBx    = 3e-5\nBy    = 1e-5")
+    return text
 
 
 # the 2D blast of tests/test_golden_multid.py (its BLAST_DECK, which
@@ -1252,6 +1279,13 @@ PATHS = {
     "selfg outflow": (EXACT_3D, others(EXACT_3D)),
 }
 
+# radiation beyond the kernels' slice (ROADMAP A15 item 6): the plain loop,
+# as JAX's jnp loop (driver.py:377-379, pallas_rad.py:74-81), no radiation
+# kernel; on 3D hydro the ifront path's hydro kernels around it
+RAD_PLAIN_3D = [k for k in IFRONT_HYDRO if k != "rad_rates"]
+PATHS["rad plain"] = ([], others([]))
+PATHS["rad plain 3d"] = (RAD_PLAIN_3D, others(RAD_PLAIN_3D))
+
 # kernel entries on no phase-4 path: B3' (as in the JAX package), the
 # forms of B5 checked in phases 2 and 3 only, and the isothermal forms that
 # neither turb nor isothermal SMR runs (phase 2 only)
@@ -1363,8 +1397,9 @@ def check_counts(label, counts, path):
 
 
 # timings of a plain version in phase 2 (its time is a yardstick, and
-# the plain sweeps take 40-100 ms a call at 256^3) and of a kernel (each
-# median taken twice, the lesser kept), cut to fit the script's budget
+# the plain sweeps take 40-100 ms a call at 256^3; one median, after a
+# warm-up) and of a kernel (its median taken twice, the lesser kept), cut
+# to fit the script's budget
 PLAIN_REPS = 1
 KERNEL_REPS = 10
 
@@ -2152,8 +2187,9 @@ def check_call(rec, name, kern, plain, args, grid, tol, timing):
     """One kernel comparison of phase 2, accumulated into rec[name]: the
     errors, B12's and B5-dF's bitwise checks, the bits that differ from the
     plain version (SHAPED and NS_FORMS kernels) and, with `timing`, the
-    median CUDA-event ms of kernel (KERNEL_REPS runs) and plain version
-    (PLAIN_REPS runs), interleaved plain, kernel, kernel, plain, the bound
+    median CUDA-event ms of kernel (KERNEL_REPS runs, twice, the lesser
+    kept) and plain version (PLAIN_REPS runs, once), plain, kernel, kernel,
+    the bound
     and the launch shapes' ms.  The NS_FORMS entries, some 230, are timed lighter:
     the plain version's one compared call, the kernel's median of 5 runs,
     and the operations counted on the first axis.  The plain version runs
@@ -2198,13 +2234,12 @@ def check_call(rec, name, kern, plain, args, grid, tol, timing):
         r["bound_ms"] += 1e3 * max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     elif timing:
-        # plain, kernel, kernel, plain
+        # plain, kernel, kernel
         p1 = cuda_ms(lambda: plain(*args), reps=PLAIN_REPS)
         k1 = cuda_ms(lambda: kern(*args), reps=KERNEL_REPS)
         k2 = cuda_ms(lambda: kern(*args), reps=KERNEL_REPS)
-        p2 = cuda_ms(lambda: plain(*args), reps=PLAIN_REPS)
         r["ms"] += min(k1, k2)
-        r["plain_ms"] += min(p1, p2)
+        r["plain_ms"] += p1
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = count_ops(lambda: plain(*args)) / FP32_OPS_PER_S
         r["bound_ms"] += 1e3 * max(t_bytes, t_ops)
@@ -4231,23 +4266,27 @@ def copy_levels(src, dst, device):
 
 
 def run_levels_vs_cpu(label, text, problem, cmd, ncyc, tol=1e-12,
-                      floor=0.0, **kw):
+                      floor=0.0, ion=None, **kw):
     """A deck (its text) in float64 with the SimConfig keywords `kw`, ncyc
     cycles on the card against the port's plain run on the CPU in the same
     process: cycle 1 from the
     deck's start, each later cycle from the CPU run's state copied to the
     card; every level's interior U (and Bcc and the face fields for MHD)
     within `tol` of each field's max (floored at `floor` of the largest
-    field's), time and dt to rel 1e-12.  Raises on a miss; returns the
-    worst error and the card run's launch counts."""
+    field's), time and dt to rel 1e-12.  `ion` replaces fields of a
+    single-level run's radiation configuration.  Raises on a miss; returns
+    the worst error and the card run's launch counts."""
     import numpy as np
     from atmospheric_athena_tpu_torch import ParameterDB, Simulation
 
     def make(device):
         par = ParameterDB.from_string(text)
         par.apply_cmdline(list(cmd) + ["job/maxout=0"])
-        return Simulation.from_par(par, problem=problem, dtype="float64",
-                                   device=device, **kw)
+        s = Simulation.from_par(par, problem=problem, dtype="float64",
+                                device=device, **kw)
+        if ion:
+            s.ion = dataclasses.replace(s.ion, **ion)
+        return s
     g, c = make("cuda"), make("cpu")
     reset_counts()
     worst = 0.0
@@ -4280,6 +4319,16 @@ def run_levels_vs_cpu(label, text, problem, cmd, ncyc, tol=1e-12,
                         raise AssertionError(
                             f"{label} cycle {cyc + 1} {k}[{n}]: error "
                             f"{err:.3e} x max exceeds {tol:.0e}")
+            if lg.state.Eflux is not None:
+                a = lg.state.Eflux.cpu().numpy()
+                b = lc.state.Eflux.numpy()
+                err = float(np.abs(a - b).max()
+                            / max(np.abs(b).max(), 1e-300))
+                worst = max(worst, err)
+                if not err <= tol:
+                    raise AssertionError(f"{label} cycle {cyc + 1} Eflux: "
+                                         f"error {err:.3e} x max exceeds "
+                                         f"{tol:.0e}")
     return worst, read_counts()
 
 
@@ -5549,7 +5598,7 @@ def sr_unphysical(s):
     return int(((~(W[0] > 0)) | (~(W[4] > 0)) | (vsq > 1.0)).sum())
 
 
-def phase4_sr_selfg(ncyc=3):
+def phase4_sr_selfg(ncyc=2):
     """This slice at full width in float32 through the entry points without
     a device argument (SR_SELFG_FULL), ncyc cycles each: ms per cycle,
     zone-cycles/s, peak memory, finite fields, dt > 0, the operators one
@@ -5623,6 +5672,305 @@ def phase4_sr_selfg(ncyc=3):
             f"path) {launched or 'none'}{extra}")
         del s
         torch.cuda.empty_cache()
+    return counts
+
+
+# ROADMAP A15 item 6: each radiation configuration the kernels do not take,
+# at full width (size, SimConfig keywords, radiation overrides, path, and
+# whether a CLI cycle follows); the point source is one ion_radtransfer
+# call (rad_point_state)
+RAD_PLANES = {"dir=-2": ((-2, 2e13),), "planes -1,+1": ((-1, 2e13),
+                                                         (1, 2e13))}
+RAD_FULL = [
+    ("mhd ifront", dict(n=256, gas="mhd"), None, "rad plain", True),
+    ("2d ifront", dict(n=2048, dims=2), None, "rad plain", False),
+    ("1d ifront", dict(n=16384, dims=1), None, "rad plain", False),
+    ("ifront dir=-2", dict(n=256), RAD_PLANES["dir=-2"], "rad plain 3d",
+     False),
+    ("ifront planes -1,+1", dict(n=256), RAD_PLANES["planes -1,+1"],
+     "rad plain 3d", False),
+]
+# phase 3's sizes of the same runs
+RAD_SMALL = {"mhd ifront": 32, "2d ifront": 64, "1d ifront": 256,
+             "ifront dir=-2": 32, "ifront planes -1,+1": 32}
+# JAX tests/test_point_radiation.py:105-130's medium and source: a cube of
+# side L, n_H = 100, Q = 1e48 at its centre, s0 = 0.999 d, T = 1e4 K,
+# dt = 0.1 t_rec
+RAD_POINT = dict(L=1.0e19, nH=100.0, Q=1.0e48, MH=1.67e-24, SIGMA=6.3e-18,
+                 k_B=1.380658e-16, alpha_B=2.59e-13)
+
+
+def rad_point_state(n, dtype, device, maxiter, seed=None):
+    """(state, sim, grid, ion) of the point-source run at n^3.  With `seed`
+    the medium is random instead (numpy, seeded): each half-cell sample's
+    dtau = sigma n_H ds within [0.02, 0.2], as
+    tests/test_torch_rad_point.py's media, so every ray crosses the grid
+    and the gather, the scan and the scatter reach every cell; dt is 0.1
+    t_rec at the mean n_H."""
+    import numpy as np
+    import torch
+    from atmospheric_athena_tpu_torch import state as tstate
+    from atmospheric_athena_tpu_torch.config import GridConfig, SimConfig
+    from atmospheric_athena_tpu_torch.ionrad.config import IonConfig
+    p = RAD_POINT
+    L, MH = p["L"], p["MH"]
+    sim = SimConfig(gas="hydro", nscalars=1, ion_radplane=True, dtype=dtype)
+    grid = GridConfig(Nx=(n, n, n), xmin=(0, 0, 0), xmax=(L, L, L))
+    dx = grid.dx
+    ion = IonConfig(
+        sigma_ph=p["SIGMA"], m_H=MH, mu=MH, e_gamma=0.0, alpha_C=0.0,
+        k_B=p["k_B"], time_unit=1.0, max_de_iter=0.1, max_de_therm_iter=0.1,
+        max_dx_iter=0.1, max_de_step=0.0, max_de_therm_step=0.0,
+        max_dx_step=0.0, tfloor=1.0e4, tceil=1.0e4, maxiter=maxiter,
+        min_area=dx[0] * dx[1], d_nlo=1e-10 * MH,
+        point_sources=(((L / 2, L / 2, L / 2), p["Q"]),))
+    st = tstate.zeros(sim, grid, device)
+    nH = p["nH"]
+    if seed is not None:
+        nH = (np.random.default_rng(seed).uniform(0.02, 0.2, (n, n, n))
+              / (p["SIGMA"] * 0.5 * min(dx)))
+    e_sp = 1.0e4 * p["k_B"] / (MH * (sim.gamma - 1.0))
+    U = st.U.clone()
+    U[0] = float(np.mean(nH)) * MH          # the ghost cells too
+    U[(0,) + grid.interior()] = torch.as_tensor(nH * MH, dtype=U.dtype,
+                                                device=U.device)
+    U[4], U[5] = U[0] * e_sp, 0.999 * U[0]
+    dt = torch.tensor(0.1 / (p["alpha_B"] * float(np.mean(nH))),
+                      dtype=U.dtype, device=U.device)
+    return st.replace(U=U, dt=dt), sim, grid, ion
+
+
+def rad_text(kw, nlim):
+    """The ifront deck of a RAD_FULL run (its size replaced by `kw`)."""
+    kw = dict(kw)
+    return ifront_deck(kw.pop("n"), nlim, **kw)
+
+
+class RadProbe:
+    """Within the block, ionrad.driver.ion_radtransfer (which
+    Simulation.step imports at each call) is wrapped: each call timed
+    between two synchronizes, its sub-iterations kept, and with `count`
+    the PyTorch operators it dispatches (count_dispatch)."""
+
+    def __init__(self, count=False):
+        self.count = count
+        self.calls = []     # (ms, sub-iterations, operators or None)
+
+    def __enter__(self):
+        import torch
+        from atmospheric_athena_tpu_torch.ionrad import driver
+        self.driver, self.orig = driver, driver.ion_radtransfer
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = {}
+            if self.count:
+                nops = count_dispatch(
+                    lambda: out.setdefault("r", self.orig(*a, **kw)))
+            else:
+                out["r"], nops = self.orig(*a, **kw), None
+            torch.cuda.synchronize()
+            self.calls.append((1e3 * (time.perf_counter() - t0),
+                               out["r"][2], nops))
+            return out["r"]
+        driver.ion_radtransfer = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.driver.ion_radtransfer = self.orig
+
+
+def phase3_a15_rad(point_n=32):
+    """ROADMAP A15 item 6 in float64 on the card: each RAD_FULL run at its
+    RAD_SMALL size, 2 cycles against the port's plain CPU run
+    (run_levels_vs_cpu at 1e-10 of each field's max, Eflux too), and the
+    point source at 32^3 in a seeded random medium thin enough that every
+    ray crosses the grid (rad_point_state's seed; the timing run's medium
+    absorbs each ray in its first sample), against the CPU's: its kph at
+    1e-10 of its max in every cell, and one ion_radtransfer call
+    (maxiter=20): E, s0 and the dt at 1e-10 (the scatter-add's atomics add
+    in no fixed order on the card: not bit for bit), the same
+    sub-iterations.  Each run's launches against its path's.  Returns
+    {label: counts}."""
+    import numpy as np
+    import torch
+    from atmospheric_athena_tpu_torch.ionrad import driver
+    from atmospheric_athena_tpu_torch.ionrad.point import point_source_kph
+    counts = {}
+    for label, kw, planes, path, _ in RAD_FULL:
+        kw = dict(kw, n=RAD_SMALL[label])
+        t0 = time.perf_counter()
+        worst, c = run_levels_vs_cpu(
+            f"rad {label}", rad_text(kw, 2), None,
+            ["ionradiation/maxiter=50"], 2, tol=1e-10,
+            ion=None if planes is None else {"radplanes": planes})
+        counts[label] = c
+        check_counts(f"phase 3 rad {label}", c, path)
+        say(f"phase 3 rad {label} float64 {kw['n']} cells an axis, 2 cycles "
+            f"on the card against the plain CPU run in "
+            f"{time.perf_counter() - t0:.2f} s: worst error {worst:.3e} x "
+            f"max (1e-10); launches { {k: v for k, v in c.items() if v} }")
+    out, kph = {}, {}
+    for dev in ("cuda", "cpu"):
+        st, sim, grid, ion = rad_point_state(point_n, "float64", dev, 20,
+                                             seed=0)
+        (src, ndot), = ion.point_sources
+        kph[dev] = point_source_kph(st.U[(5,) + grid.interior()], src,
+                                    ndot, grid, ion).cpu().numpy()
+        reset_counts()
+        out[dev] = driver.ion_radtransfer(st, sim, grid, ion, st.time,
+                                          1.0e30, return_niter=True)
+        if dev == "cuda":
+            counts["point source"] = read_counts()
+    check_counts("phase 3 rad point source", counts["point source"],
+                 "rad plain")
+    kerr = float(np.abs(kph["cuda"] - kph["cpu"]).max()
+                 / np.abs(kph["cpu"]).max())
+    reached = float((kph["cpu"] > 0).mean())
+    if not (kerr <= 1e-10 and reached == 1.0):
+        raise AssertionError(f"phase 3 rad point source: kph error "
+                             f"{kerr:.3e} x max, {reached:.4f} of the "
+                             "cells reached")
+    (g, gdt, gn), (c, cdt, cn) = out["cuda"], out["cpu"]
+    sl = (slice(None),) + grid.interior()
+    worst = 0.0
+    for k in (4, 5):
+        a, b = g.U[sl][k].cpu().numpy(), c.U[sl][k].numpy()
+        worst = max(worst, float(np.abs(a - b).max() / np.abs(b).max()))
+    if not (worst <= 1e-10 and gn == cn
+            and abs(float(gdt) / float(cdt) - 1) <= 1e-10):
+        raise AssertionError(f"phase 3 rad point source: E/s0 error "
+                             f"{worst:.3e}, niter {gn} / {cn}, dt "
+                             f"{float(gdt)!r} / {float(cdt)!r}")
+    x = 1.0 - g.U[(5,) + grid.interior()] / g.U[(0,) + grid.interior()]
+    h = point_n // 2
+    say(f"phase 3 rad point source float64 {point_n}^3 in a seeded random "
+        f"medium (each sample's dtau in [0.02, 0.2]): kph on the card "
+        f"against the CPU's within {kerr:.3e} x max (1e-10) with every cell "
+        f"reached; one ion_radtransfer call "
+        f"on the card against the CPU's: E and s0 within {worst:.3e} x max "
+        f"(1e-10; the scatter-add's atomics add in no fixed order), "
+        f"{gn} sub-iterations on both, dt {float(gdt):.6e}; ionized "
+        f"fraction at the source {float(x[h, h, h]):.4f}, at a corner "
+        f"{float(x[0, 0, 0]):.2e}; no kernel launched")
+    torch.cuda.synchronize()
+    return counts
+
+
+def phase4_a15_rad(ncyc=2, point_n=256):
+    """RAD_FULL in float32 with maxiter=50 through the entry points without
+    a device argument, ncyc cycles each (RadProbe times the radiation),
+    then one more cycle counted (count_dispatch: its operators and host
+    reads; RadProbe: the radiation's operators); the MHD ifront also a CLI
+    cycle; then the point source at 256^3, one ion_radtransfer call
+    (maxiter=20), timed and counted.  Each with ms per cycle or call, ms
+    per sub-iteration, operators per sub-iteration, host reads, peak
+    memory and launches beside the card's name and power limit.  Returns
+    {label: launch counts}."""
+    import torch
+    from atmospheric_athena_tpu_torch import ParameterDB, Simulation
+    from atmospheric_athena_tpu_torch import __main__ as cli
+    from atmospheric_athena_tpu_torch.ionrad import driver
+    from atmospheric_athena_tpu_torch.ionrad.point import point_source_fan
+    smi = smi_line()
+    counts = {}
+    cmd = [f"ionradiation/maxiter={MAXITER}", "time/tlim=9e9",
+           "job/maxout=0"]
+    for label, kw, planes, path, with_cli in RAD_FULL:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        par = ParameterDB.from_string(rad_text(kw, 10))
+        par.apply_cmdline(cmd)
+        s = Simulation.from_par(par, dtype="float32")
+        if planes is not None:
+            s.ion = dataclasses.replace(s.ion, radplanes=planes)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        if s.device.type != "cuda":
+            raise AssertionError(f"{label} run on {s.device}")
+        reset_counts()
+        with RadProbe() as probe:
+            res = s.run(max_steps=ncyc)
+        c = read_counts()
+        counts[label] = c
+        check_counts(f"phase 4 rad {label}", c, path)
+        keys = ("U", "Eflux") + (("Bcc", "B1i", "B2i", "B3i")
+                                 if s.sim.mhd else ())
+        finite = all(bool(torch.isfinite(getattr(s.state, k)).all())
+                     for k in keys)
+        dt = float(s.state.dt)
+        if not finite or not dt > 0 or res["steps"] != ncyc:
+            raise AssertionError(f"phase 4 rad {label}: finite={finite} "
+                                 f"dt={dt} steps={res['steps']}")
+        with RadProbe(count=True) as cprobe:
+            nops, reads = count_dispatch(s.step, reads=True)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rad_ms = sum(m for m, _, _ in probe.calls)
+        iters = [n for _, n, _ in probe.calls]
+        _, citer, rops = cprobe.calls[0]
+        ms = 1e3 * res["wall"] / res["steps"]
+        size = "x".join(str(n) for n in s.grid.Nx if n > 1)
+        say(f"phase 4 rad {label} {size} float32 ({s.grid.ndim}D "
+            f"{'MHD' if s.sim.mhd else 'hydro'}, planes {s.ion.radplanes}, "
+            f"maxiter={MAXITER}) on {smi}: setup {setup_s:.1f} s; "
+            f"{res['steps']} cycles via Simulation.run, {ms:.2f} ms per "
+            f"cycle, {res['zone_cycles_per_sec']:.4e} zone-cycles/s; "
+            f"radiation {rad_ms / res['steps']:.2f} ms per cycle, "
+            f"sub-iterations {iters}, {rad_ms / max(sum(iters), 1):.4f} ms "
+            f"per sub-iteration; {rops / max(citer, 1):.1f} plain operators "
+            f"per sub-iteration ({rops} in {citer}); one more cycle: {nops} "
+            f"operators, {reads} host reads; peak device memory {peak:.2f} "
+            f"GiB; all fields finite, dt {dt:.6e}; launches in {ncyc} cycles "
+            f"({path} path) { {k: v for k, v in c.items() if v} or 'none'}")
+        del s
+        torch.cuda.empty_cache()
+        if with_cli:
+            deck = os.path.join(lowd_dir(), "athinput.rad_cli")
+            with open(deck, "w") as fh:
+                fh.write(rad_text(kw, 1))
+            reset_counts()
+            rc = cli.main(["-i", deck, "--dtype", "float32", *cmd])
+            if rc != 0:
+                raise AssertionError(f"rad {label} CLI returned {rc}")
+            check_counts(f"phase 4 rad {label} CLI cycle", read_counts(),
+                         path)
+            say(f"phase 4 rad {label} {size} float32: 1 CLI cycle done")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st, sim, grid, ion = rad_point_state(point_n, "float32", "cuda", 20)
+    reset_counts()
+    with RadProbe(count=True) as probe:
+        out, _, _ = driver.ion_radtransfer(st, sim, grid, ion, st.time,
+                                           1.0e30, return_niter=True)
+    counts["point source"] = read_counts()
+    check_counts("phase 4 rad point source", counts["point source"],
+                 "rad plain")
+    with RadProbe() as tprobe:
+        out, dt, n = driver.ion_radtransfer(st, sim, grid, ion, st.time,
+                                            1.0e30, return_niter=True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms, _, _ = tprobe.calls[0]
+    _, citer, rops = probe.calls[0]
+    x = 1.0 - out.U[(5,) + grid.interior()] / out.U[(0,) + grid.interior()]
+    h = point_n // 2
+    if not bool(torch.isfinite(out.U).all()) or not x[h, h, h] > x[0, 0, 0]:
+        raise AssertionError("phase 4 rad point source: non-finite, or the "
+                             "source's cell no more ionized than a corner")
+    fan = point_source_fan(ion.point_sources[0][0], grid, torch.float32,
+                           "cuda")
+    say(f"phase 4 rad point source {point_n}^3 float32 ({fan.nray} rays of "
+        f"{fan.inside.shape[1]} samples; L 1e19, n_H 100, Q 1e48, maxiter "
+        f"20) on {smi}: one "
+        f"ion_radtransfer call {ms:.2f} ms, {n} sub-iterations, "
+        f"{ms / n:.2f} ms per sub-iteration, {rops / max(citer, 1):.1f} "
+        f"plain operators per sub-iteration; peak device memory "
+        f"{peak:.2f} GiB; ionized fraction at the source "
+        f"{float(x[h, h, h]):.4f}; dt {float(dt):.6e}; no kernel "
+        "launched")
+    del st, out, fan
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -6645,6 +6993,8 @@ def main():
     lap("phase 3 microphysics and the shearing box")
     p3.update(phase3_sr_selfg())
     lap("phase 3 special relativity and self-gravity")
+    p3.update(phase3_a15_rad())
+    lap("phase 3 radiation beyond the kernels' slice")
     smr, _ = phase4_smr()
     counts, _ = phase4()
     counts["smr"] = smr
@@ -6674,6 +7024,8 @@ def main():
     lap("phase 4 microphysics and the shearing box")
     srsg = phase4_sr_selfg()
     lap("phase 4 special relativity and self-gravity")
+    rad = phase4_a15_rad()
+    lap("phase 4 radiation beyond the kernels' slice")
     phase5()
     lap("phase 5")
 
@@ -6737,6 +7089,9 @@ def main():
         # this slice's runs of phase 4 (SR_SELFG_FULL): B4 on the SR hydro
         # outflow blast; B11 on jeans, with B4 on its outflow decks
         k["sr_selfg_launches"] = {p: c[name] for p, c in srsg.items()}
+        # this slice's runs of phase 4 (RAD_FULL and the point source): no
+        # radiation kernel; the ifront path's hydro kernels on 3D hydro
+        k["a15_rad_launches"] = {p: c[name] for p, c in rad.items()}
         kernels.append(k)
     say(f"chip_smoke: all phases in {time.perf_counter() - t_all:.1f} s")
     say(smi_line())

@@ -5,8 +5,9 @@ uniform medium, outflow boundaries, the H-correction): the configuration
 and initial state, then 3 cycles of the K=1 radiation loop and the CTU
 step from one numpy state, the (time, dt) trajectory to rel 1e-12 and the
 interior state to 1e-12 of each field's max; a CLI cycle; and the
-refusals of the isothermal (ROADMAP C14) and MHD (A15) ifront.  The 64^3
-golden of tests/test_golden_multid.py waits for the reference's deck."""
+refusal of the isothermal ifront (ROADMAP C14).  The MHD ifront runs
+(tests/test_torch_rad_mhd.py).  The 64^3 golden of
+tests/test_golden_multid.py waits for the reference's deck."""
 
 import numpy as np
 import pytest
@@ -79,8 +80,7 @@ def test_ifront_cli(tmp_path):
 
 
 @pytest.mark.parametrize("config,item", [
-    ("--with-eos=isothermal", "C14"),
-    ("--with-gas=mhd", "radiation on MHD gas")])
+    ("--with-eos=isothermal", "C14")])
 def test_ifront_refusals(config, item):
     text = chip_smoke.ifront_deck(N, 1).replace(
         "config  = --with-gas=hydro", f"config  = --with-gas=hydro {config}")

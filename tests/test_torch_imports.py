@@ -11,8 +11,10 @@ each microphysics and shearing-box problem (microphysics/, shearing.py,
 cshock1d, hall_drift, hgb with and without FARGO, strat) and of a viscous,
 conducting testsedov, of SR tubes and blasts (eos_sr.py, ops/riemann_sr.py;
 the exact solver, HLLD, 2D and 3D SR MHD with FOFC) and of jeans with each
-self-gravity solver (gravity/) with JAX made unimportable (chip_smoke.py
-imported too), and it refuses a CUDA device when none is visible."""
+self-gravity solver (gravity/), of the MHD, 2D and 1D ifront and a
+radiation step with two planes and a point source (ionrad/point.py,
+chemistry.py) with JAX made unimportable (chip_smoke.py imported too), and
+it refuses a CUDA device when none is visible."""
 
 import os
 import subprocess
@@ -219,6 +221,21 @@ for solver in ("fft", "fft_obc", "multigrid"):
     assert q.sim.self_gravity and q.selfg is not None
     q.step()
     assert bool(torch.isfinite(q.state.U).all()) and float(q.state.dt) > 0
+import dataclasses
+from atmospheric_athena_tpu_torch.ionrad import chemistry, point
+from atmospheric_athena_tpu_torch.ionrad.driver import ion_radtransfer
+for kw in ({{"gas": "mhd"}}, {{"dims": 2}}, {{"dims": 1}}):
+    q = P.Simulation.from_par(P.ParameterDB.from_string(
+        chip_smoke.ifront_deck(8, 1, **kw)), device="cpu")
+    q.step()
+    assert bool(torch.isfinite(q.state.U).all()) and float(q.state.dt) > 0
+ion = dataclasses.replace(s.ion, radplanes=((1, 2e13), (-1, 1e13)),
+                          point_sources=(((0.0, 0.0, 0.0), 1e36),),
+                          maxiter=3)
+st, _ = ion_radtransfer(s.state, s.sim, s.grid, ion, s.state.time, 0.4)
+assert bool(torch.isfinite(st.U).all()) and st.Eflux.shape == (16, 16, 17)
+T = torch.logspace(0.0, 8.6, 64, dtype=torch.float64)
+assert bool(torch.isfinite(chemistry.dmc_cool_rate(0.5 + 0 * T, T)).all())
 bad = sorted(m for m in set(sys.modules) - pre
              if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                     "atmospheric_athena_tpu")

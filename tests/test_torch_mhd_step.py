@@ -223,8 +223,6 @@ MHD_REFUSALS = {
     "vl": ("athinput.b3n1", dict(integrator="vl"), None),
     "smr": ("athinput.isph2lev", dict(gas="mhd", problem="ioniz_sphere"),
             "plane radiation on MHD gas"),
-    "radiation": ("athinput.isph64", dict(gas="mhd", problem="ioniz_sphere"),
-                  "plane radiation on MHD gas"),
     "cylindrical": ("athinput.b3n1", dict(_coord=True), "cylindrical"),
     "sr": ("athinput.b3n1", dict(special_relativity=True),
            "special relativity"),
@@ -234,11 +232,12 @@ MHD_REFUSALS = {
 @pytest.mark.parametrize("case", sorted(MHD_REFUSALS))
 def test_mhd_refusals_name_their_item(case):
     """MHD configurations outside this slice raise a NotImplementedError
-    naming their ROADMAP item: plane radiation, on one grid and on an SMR
-    hierarchy, cylindrical coordinates and SR (A15).  MHD SMR, once
-    refused here (A13), runs: the "smr" case refuses the SMR deck with
-    plane radiation (isph2lev as MHD), which stays refused as in the JAX
-    driver (hierarchy.py:252-254), then runs blast3lev as MHD (three 32^3
+    naming their ROADMAP item: plane radiation on an SMR hierarchy,
+    cylindrical coordinates and SR (A15).  Plane radiation on one MHD grid
+    runs (tests/test_torch_rad_isph_mhd.py, test_torch_rad_mhd.py).  MHD
+    SMR, once refused here (A13), runs: the "smr" case refuses the SMR deck
+    with plane radiation (isph2lev as MHD), which stays refused as in the
+    JAX driver (hierarchy.py:255-256), then runs blast3lev as MHD (three 32^3
     levels, Roe, the H-correction, b0 = 1 at 45 degrees) one cycle: every
     level finite and its face fields' max |div B| below 1e-12 of max |B| /
     dx (the JAX package and the goldens hold MHD SMR in

@@ -263,7 +263,7 @@ def test_smr_refusals_name_their_item():
          "SMR with the vl integrator \\(ROADMAP A13"),
         (ParameterDB.from_file(os.path.join(GOLD, "athinput.isph2lev")),
          dict(gas="mhd", problem="ioniz_sphere"),
-         "plane radiation on MHD gas \\(ROADMAP A15"),
+         "plane radiation on MHD gas with SMR, as in the JAX package"),
         (ParameterDB.from_file(fl), dict(special_relativity=True),
          "special relativity with the ctu integrator"),
         (ParameterDB.from_string(one_d.replace(

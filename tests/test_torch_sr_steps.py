@@ -5,9 +5,11 @@ run op by op under ``jax.disable_jit`` (the JAX 3D SR MHD golden runs
 eager for the same reason: XLA contracts FMAs under jit, JAX
 tests/test_sr.py:188-190):
 
-  - 1D hydro (HLLC, exact, a passive scalar) and MHD (HLLD, HLLE);
-  - 2D hydro (HLLC, a scalar) and MHD (HLLD, HLLE);
-  - 3D hydro (HLLC with FOFC, a scalar) and MHD (HLLD with FOFC, HLLE);
+  - 1D hydro (HLLC, a passive scalar) and MHD (HLLD, HLLE);
+  - 2D hydro (HLLC, a scalar) and MHD (HLLE); 1D hydro with the exact
+    solver and 2D MHD with HLLD are tests/test_torch_sr_steps_lowd.py's,
+    3D hydro (HLLC with FOFC, a scalar) and MHD (HLLD with FOFC, HLLE)
+    tests/test_torch_sr_steps_3d.py's, from this file's states and tables;
   - one step of SR hydro from a state built so that FOFC and vsq1D_fix
     fire (the SR MHD step with the entropy rescue as well is
     tests/test_torch_sr_rescue.py: its JAX step op by op takes ~3 min);
@@ -137,7 +139,13 @@ LOWD = {
 }
 
 
-@pytest.mark.parametrize("case", list(LOWD))
+# the slowest cases (46 and 19 s of one worker) run in
+# tests/test_torch_sr_steps_lowd.py, the 3D ones (VL3D) in
+# test_torch_sr_steps_3d.py: pytest-xdist hands one file to one worker
+LOWD_ELSEWHERE = ("1d-hydro-exact", "2d-mhd-hlld")
+
+
+@pytest.mark.parametrize("case", [c for c in LOWD if c not in LOWD_ELSEWHERE])
 def test_sr_vl_lowd_matches_jax(case):
     nx, kw = LOWD[case]
     (tst, jst), tcfg, jcfg = sr_state(nx, **kw)
@@ -152,17 +160,6 @@ VL3D = {
                           first_order_flux_correction=True),
     "mhd-hlle": dict(gas="mhd", flux="hlle", nscalars=1),
 }
-
-
-@pytest.mark.parametrize("case", list(VL3D))
-def test_sr_vl3d_matches_jax(case):
-    """3D SR hydro is held as ROADMAP C44 says (at most 200 values beyond
-    1e-12 of their scale over 3 cycles: 0, 8 and 116 after cycles 1-3,
-    the worst 3.6e-12), SR MHD at 1e-12."""
-    (tst, jst), tcfg, jcfg = sr_state((10, 10, 10), **VL3D[case])
-    assert simulation.integrator(tcfg[1], tcfg[0]) is vl3d
-    sr_cycles(tst, jst, tcfg, jcfg, 3, jvl3d.step,
-              c44=0 if tcfg[0].mhd else 200)
 
 
 def test_sr_hydro_with_jax_transcendentals_is_jax_bitwise(monkeypatch):
