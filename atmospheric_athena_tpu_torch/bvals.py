@@ -108,7 +108,9 @@ def _fill_side(U, grid: GridConfig, axis: int, side: str, flag: int,
                          "problem enrolls no user BC function")
     else:
         raise NotImplementedError(
-            f"BC flag {flag} on axis {axis} (ROADMAP A15)")
+            f"BC flag {flag} on axis {axis}, as in the JAX package (its "
+            "bvals.py:64 fills outflow, reflect, conductor and periodic "
+            "faces)")
 
 
 def bc_fill_plain(U, grid: GridConfig):
@@ -170,7 +172,9 @@ def _fill_face(B, grid: GridConfig, axis: int, side: str, flag: int,
                          "problem enrolls no user BC function")
     if flag not in (BC_PERIODIC, BC_OUTFLOW, BC_REFLECT, BC_CONDUCTOR):
         raise NotImplementedError(
-            f"BC flag {flag} on axis {axis} (ROADMAP A15)")
+            f"BC flag {flag} on axis {axis}, as in the JAX package (its "
+            "bvals.py:64 fills outflow, reflect, conductor and periodic "
+            "faces)")
     if normal and flag in (BC_REFLECT, BC_CONDUCTOR):
         f0 = ng if side == "lo" else n - ng
         B[_idx(3, dim, slice(f0, f0 + 1))] = 0.0

@@ -124,9 +124,11 @@ def grids_from_par(par: ParameterDB):
     return doms
 
 
-def check_supported(sim: SimConfig, root: GridConfig):
+def check_supported(sim: SimConfig, root: GridConfig, prob_cls=None):
     """Refuse what the SMR driver does not run, naming the ROADMAP or C
-    item: the VL integrator (the JAX driver steps its levels with CTU
+    item: a problem with Lagrangian particles (the JAX SMR driver never
+    calls init_particles and runs the gas alone, ROADMAP C52), the VL
+    integrator (the JAX driver steps its levels with CTU
     alone, hierarchy.py:251-252), MHD on 1D grids and cylindrical grids
     (the JAX driver steps a 1D MHD level with ctu2d_mhd, which fails, and
     a cylindrical one with the Cartesian ctu3d, ROADMAP C29), plane
@@ -134,6 +136,10 @@ def check_supported(sim: SimConfig, root: GridConfig):
     255-256), and on 2D and 1D grids (ROADMAP C48).  Plane radiation on
     isothermal gas is refused before this (simulation.check_supported,
     C14)."""
+    if hasattr(prob_cls, "init_particles"):
+        raise NotImplementedError(
+            "SMR with Lagrangian particles (ROADMAP C52: the JAX SMR driver "
+            "never calls init_particles, so the grains would be dropped)")
     if sim.ion_radplane and sim.mhd:
         raise NotImplementedError(
             "plane radiation on MHD gas with SMR, as in the JAX package "
@@ -248,7 +254,7 @@ class MeshSimulation:
         from .simulation import configure
         dev = resolve_device(device)
         prob_cls, sim, root = configure(par, problem, dtype, sim_overrides)
-        check_supported(sim, root)
+        check_supported(sim, root, prob_cls)
         doms = grids_from_par(par)
         levels = []
         for (lev, grid, disp, pidx) in doms:

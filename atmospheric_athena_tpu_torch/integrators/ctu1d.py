@@ -8,8 +8,8 @@ density), 11 (full-dt gravity source) and 12 (conservative update); the
 passive scalars ride along in the 1D-slice vectors.  MHD carries (By, Bz)
 in the slice and updates them like the hydro fields; the face field B1i
 stays constant (it equals Bxc in 1D), and B2i/B3i are set to the new
-cell-centred By/Bz (integrate_1d_ctu.c:546-551).  Cartesian only (the
-cylindrical terms are ROADMAP A15).
+cell-centred By/Bz (integrate_1d_ctu.c:546-551).  Cartesian only
+(cylindrical grids take integrators/cyl.py).
 
 The JAX package runs this step as jnp on every backend (its Pallas kernels
 take three active axes), so it launches no kernel here either: the plain

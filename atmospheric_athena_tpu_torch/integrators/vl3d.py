@@ -93,7 +93,9 @@ def check_gas(sim: SimConfig, grid: GridConfig):
         raise ValueError("the VL steps take integrator=vl; CTU takes ctu1d, "
                          "ctu3d, ctu3d_mhd or ctu2d_mhd")
     if grid.cylindrical:
-        raise NotImplementedError("cylindrical VL (ROADMAP A15)")
+        raise NotImplementedError(
+            "cylindrical VL, as in the JAX package (its Simulation steps "
+            "a cylindrical grid with CTU only, simulation.py:161-164)")
     if sim.shearing_box or sim.fargo:
         raise NotImplementedError(
             "a shearing box with the VL integrator (ROADMAP C34: the JAX "

@@ -80,8 +80,9 @@ def check_coefficients(sim: SimConfig, grid: GridConfig, nu_iso=0.0,
     if q_hall > 0.0 and not (grid.active(0) and grid.active(1)
                              and not grid.active(2)):
         raise NotImplementedError(
-            "the Hall effect on a grid other than 2D (x1, x2) (ROADMAP A15: "
-            "JAX resistivity.py:113-116 ports EField_Hall's 2D sweeps only)")
+            "the Hall effect on a grid other than 2D (x1, x2), as in the "
+            "JAX package (its resistivity.py:112-117 runs EField_Hall's 2D "
+            "sweeps only)")
 
 
 def diff_dt(sim: SimConfig, grid: GridConfig, cour_no: float,

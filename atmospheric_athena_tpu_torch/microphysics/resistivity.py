@@ -44,8 +44,9 @@ def resistivity(state: State, dt, sim: SimConfig, grid: GridConfig,
     act = [grid.active(a) for a in range(3)]
     if q_hall > 0.0 and not (act[0] and act[1] and not act[2]):
         raise NotImplementedError(
-            "the Hall effect on a grid other than 2D (x1, x2) (ROADMAP A15: "
-            "JAX resistivity.py:113-116 ports EField_Hall's 2D sweeps only)")
+            "the Hall effect on a grid other than 2D (x1, x2), as in the "
+            "JAX package (its resistivity.py:112-117 runs EField_Hall's 2D "
+            "sweeps only)")
     B1i, B2i, B3i = state.B1i, state.B2i, state.B3i
     Bcc = state.Bcc
     dx = grid.dx

@@ -24,12 +24,18 @@ integrator that takes the potential.
   - ``Simulation.step()``: one mesh update in the reference's order —
     the operator-split microphysics (``diffuse``: dt clamped to the
     diffusion limit, microphysics.integrate_diff, ghost fill), radiation
-    sub-cycle (may shrink dt), ghost fill, hydro (with self-gravity, Phi
-    from rho at t^n first), FARGO orbital advection
-    (shearing.fargo_advect), problem userwork, self-gravity's new Phi and
-    flux correction (gravity.selfg.selfg_fc), time/dt update, ghost fill
-    (main.c:530-669).  A shearing box (3D MHD with CTU) takes ctu3d_mhd's
-    shearing branches and the shearing sheet in the ghost fill.
+    sub-cycle (may shrink dt), ghost fill, the particles' predictor
+    feedback, hydro (with self-gravity, Phi from rho at t^n first), the
+    particles (the predictor impulse restored, the drag against the
+    old/new average gas, particles.integrate, the corrector feedback),
+    FARGO orbital advection (shearing.fargo_advect), problem userwork,
+    self-gravity's new Phi and flux correction (gravity.selfg.selfg_fc),
+    time/dt update (the particle CFL folded in), ghost fill (main.c:530-669;
+    JAX simulation.py:299-448).  A shearing box (3D MHD with CTU) takes
+    ctu3d_mhd's shearing branches and the shearing sheet in the ghost
+    fill.  A problem with ``init_particles`` (par_friction, par_epicycle)
+    carries a population in ``self.particles`` with its ``par_params``;
+    the step reads it each cycle.
   - ``Simulation.run()``: host loop with tlim/nlim termination, the
     <outputN> dispatcher before each step and once at the end
     (data_output), and zone-cycles/sec reporting (main.c:699-735).
@@ -61,7 +67,7 @@ from torch.profiler import record_function
 from . import bvals, dt as dt_mod
 from .config import (GridConfig, SimConfig, grid_config_from_par,
                      sim_config_from_par)
-from .defs import ID
+from .defs import ID, IEN, IM1
 from .gravity.selfg import phi_padded, selfg_fc
 from .integrators import (ctu1d, ctu2d_mhd, ctu3d, ctu3d_mhd, cyl, vl3d,
                           vl_lowd)
@@ -226,6 +232,15 @@ def integrator(grid: GridConfig, sim: SimConfig):
     return ctu3d
 
 
+def _feedback(state: State, sim: SimConfig, fb, eloss) -> State:
+    """U.M += fb and, for adiabatic gas, U.E += eloss (a new state)."""
+    U = state.U.clone()
+    U[IM1:IM1 + 3] += fb
+    if sim.adiabatic:
+        U[IEN] += eloss
+    return state.replace(U=U)
+
+
 class Simulation:
     def __init__(self, par: ParameterDB, sim: SimConfig, grid: GridConfig,
                  problem, state: State, device="cuda"):
@@ -280,6 +295,12 @@ class Simulation:
         self.selfg = ((par.getd_def("problem", "four_pi_G", 1.0),
                        par.getd_def("problem", "grav_mean_rho", 0.0))
                       if sim.self_gravity else None)
+        # the Lagrangian particles and their <particle> parameters (from_par
+        # attaches them for a problem with init_particles); the step reads
+        # self.particles each cycle, so a population may be assigned or
+        # cleared between steps
+        self.particles = None
+        self.par_params = None
 
     # ------------------------------------------------------------------ setup
 
@@ -302,7 +323,20 @@ class Simulation:
         state = state.replace(dt=dt_mod.new_dt(state, sim, grid,
                                                par.getd_def("time", "cour_no",
                                                             0.8)))
-        return cls(par, sim, grid, prob, state, device=dev)
+        out = cls(par, sim, grid, prob, state, device=dev)
+        if hasattr(prob, "init_particles"):
+            # Lagrangian particles (init_particle.c; JAX simulation.py:
+            # 134-140); the first dt is clamped by their CFL bound, as each
+            # later one is (ROADMAP C59: JAX takes the gas bound alone)
+            from . import particles
+            pp = particles.params_from_par(
+                par, feedback=par.geti_def("particle", "feedback", 0) > 0)
+            particles.check_supported(sim, grid, pp)
+            out.par_params = pp
+            out.particles = prob.init_particles(par, sim, grid, dev)
+            out.state = out.state.replace(dt=particles.clamp_dt(
+                out.particles, grid, out.cour_no, out.state.dt))
+        return out
 
     @classmethod
     def from_file(cls, path: str, problem: Optional[str] = None,
@@ -333,7 +367,14 @@ class Simulation:
         problem = problem or parse_configure_line(par).get("_problem")
         if problem is None:
             raise ValueError("no problem name given or found in deck")
-        prob = get_problem(problem)(par, sim, grid)
+        prob_cls = get_problem(problem)
+        if hasattr(prob_cls, "init_particles"):
+            raise NotImplementedError(
+                f"restart of the particle problem {problem!r} (ROADMAP C53: "
+                "a checkpoint holds the gas alone, as the JAX package's "
+                "io/restart.py writes it, and the JAX -r restarts without "
+                "the particles, __main__.py:50-57)")
+        prob = prob_cls(par, sim, grid)
         resume = getattr(prob, "resume", None)
         if resume is not None:
             resume(int(arrays["nstep"]))
@@ -371,6 +412,25 @@ class Simulation:
             self.rad_iters.append(niter)
             with record_function("bvals"):
                 state = bvals.apply_bc(state, grid, sim, problem)
+        pts = self.particles
+        if pts is not None:
+            from . import particles
+            pp = self.par_params
+            if pp is None:
+                raise ValueError("particles on a Simulation without "
+                                 "par_params (a ParticleParams)")
+            particles.check_supported(sim, grid, pp)
+            state_n = state
+            if pp.feedback:
+                # predictor feedback: the half-step drag impulse taken out
+                # of the momenta (and its dissipation added to E) before
+                # the gas step and restored after it, as JAX's
+                # (simulation.py:340-357; ROADMAP C58), then a ghost fill
+                with record_function("particles"):
+                    fbp, elp = particles.feedback_predictor(
+                        pts, state, sim, grid, pp, dt, problem)
+                    state = bvals.apply_bc(_feedback(state, sim, -fbp, elp),
+                                           grid, sim, problem)
         if self.selfg is not None:
             # Phi from rho at t^n (the reference solves it at the end of
             # the cycle before, main.c:603-613: the same potential)
@@ -386,6 +446,24 @@ class Simulation:
                       else {"phi_static": self.phi_static})
                 state = self.integ.step(state, dt, sim, grid, problem,
                                         phi=self.phi, **kw)
+        if pts is not None:
+            # the particles after the gas step (integrate_3d_ctu.c:
+            # 2283-2291; JAX simulation.py:375-404): the predictor impulse
+            # restored, the drag against the old/new average of U with its
+            # ghosts filled, the corrector feedback on M and E
+            with record_function("particles"):
+                if pp.feedback:
+                    state = _feedback(state, sim, fbp, -elp)
+                state = bvals.apply_bc(state, grid, sim, problem)
+                Uh = 0.5 * (state.U + state_n.U)
+                if pp.feedback:
+                    Uh[IM1:IM1 + 3] += -fbp
+                half = bvals.apply_bc(state.replace(U=Uh), grid, sim, problem)
+                pts, fb, eloss = particles.integrate(
+                    pts, state, dt, sim, grid, pp, problem, drag_state=half)
+                if fb is not None:
+                    state = _feedback(state, sim, -fb, eloss)
+            self.particles = pts
         if sim.fargo:
             # orbital advection right after the integrator (main.c:576-583)
             from .shearing import fargo_advect
@@ -411,8 +489,11 @@ class Simulation:
         state = state.replace(time=state.time + dt, nstep=state.nstep + 1,
                               dt=dt)
         with record_function("new_dt"):
-            state = state.replace(dt=dt_mod.new_dt(state, sim, grid,
-                                                   self.cour_no))
+            dt_next = dt_mod.new_dt(state, sim, grid, self.cour_no)
+            if pts is not None:
+                # the particle CFL (new_dt.c:143-153), on the device
+                dt_next = particles.clamp_dt(pts, grid, self.cour_no, dt_next)
+            state = state.replace(dt=dt_next)
         with record_function("bvals"):
             self.state = bvals.apply_bc(state, grid, sim, problem)
 

@@ -48,7 +48,10 @@ integrators/vl3d.py and vl_lowd.py, eos_sr.py, ops/riemann_sr.py), which
 launches no kernel but the ghost fill on an SR hydro deck with outflow
 faces, and self-gravity (gravity/, ctu3d's plain route with the
 potential, jeans), which launches the CFL kernel and, on outflow faces,
-the ghost fill, as in the JAX package.
+the ghost fill, as in the JAX package; and this slice's paths: Lagrangian
+particles (particles/, par_friction, par_epicycle, JAX's dusty box),
+plain as the JAX package's jnp, around the gas's kernels (the 3D hydro
+route without the H-correction; none on par_epicycle's MHD).
 It checks
 each hand-written kernel against its plain PyTorch version on the card; a
 kernel with several forms (the solver, Roe, HLLC or HLLE, and B5's
@@ -187,6 +190,14 @@ and counted per form, "name[form]":
      ion_radtransfer call, whose scatter-add's atomics add in no fixed
      order: held at 1e-10, not bit for bit), each with its launches: none
      of a radiation kernel, the ifront path's hydro kernels on 3D hydro;
+     then (phase3_particles) the particle functions on random grains of
+     two types at 32^3 (the ghost zones and beyond; gather and scatter_add
+     on 3D, 2D and 1D grids, feedback_predictor, integrate for integrators
+     1-3 x tsmode 1-3) against the CPU, and par_friction with and without
+     feedback, the dusty box (32^3 grains) and par_epicycle on the
+     isothermal MHD shearing box, 5 cycles each against the port's plain
+     CPU run, gas and grains at 1e-10 of each one's max, with their
+     launches;
   4. full width: the SMR main path, isph2lev at 256^3 + 256^3 float32
      (the child over the root's centre), maxiter=50, batch_iters=25, 3
      cycles through Simulation.from_file (no device argument: the card is
@@ -258,7 +269,15 @@ and counted per form, "name[form]":
      tests/test_point_radiation.py's medium): ms per cycle or call, ms per
      radiation sub-iteration, plain operators per sub-iteration, host
      reads per cycle, peak memory and each run's launches (no radiation
-     kernel; the ifront path's hydro kernels on 3D hydro);
+     kernel; the ifront path's hydro kernels on 3D hydro); then
+     (phase4_particles, PAR_FULL) the dusty box at 256^3 float32 with a
+     float64 grain per cell (16.8M) through Simulation.from_par without a
+     device argument, the lattice assigned to s.particles: 3 cycles (ms,
+     zone-cycles/s, grain-steps/s, peak memory, finite fields, every
+     grain alive, the lattice's dv within 2e-3 of the two-fluid
+     solution), CUDA-event ms with the grains and with s.particles
+     cleared (the hooks' share), operators and host reads a cycle each
+     way (the hooks add none), and a par_friction CLI cycle at 256^3;
      phase 4's CLI cycles write no outputs
      (job/maxout=0) but the SMR one, which writes a history and a cons VTK
      output per level with -d (level 1's under lev1/ with a -lev1 problem
@@ -287,7 +306,8 @@ kernel's launches in each VL_FULL run; "smr_mhd_launches", in each
 SMR_MHD_FULL run, all 0; "a13_a11_cyl_launches", in each
 A13_A11_CYL_FULL run; "a15_launches", in each A15_FULL run;
 "sr_selfg_launches", in each SR_SELFG_FULL run; "a15_rad_launches", in
-each RAD_FULL run; B7's isothermal
+each RAD_FULL run; "particle_launches", in the dusty box and
+par_friction CLI runs of PAR_FULL; B7's isothermal
 whole-flux form takes its launches from the isothermal SMR run), the
 nvidia-smi line
 before it, and the final line {"ok": true,
@@ -5974,6 +5994,487 @@ def phase4_a15_rad(ncyc=2, point_n=256):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# ROADMAP A15 item 7: Lagrangian particles (particles/, par_friction,
+# par_epicycle), plain PyTorch as the JAX package's jnp; the gas takes its
+# route's kernels
+# ---------------------------------------------------------------------------
+
+# JAX tests/test_par_problems.py's par_friction deck (one grain at the box
+# centre at v = (0.1, 0.05, -0.08), fixed stopping time 0.5, periodic
+# faces), its size a field
+PAR_FRICTION_DECK = """
+<job>
+problem_id = parfric
+<time>
+cour_no = 0.8
+nlim = 100
+tlim = 2.0
+<domain1>
+level = 0
+Nx1 = {n}
+x1min = -2.0
+x1max = 2.0
+bc_ix1 = 4
+bc_ox1 = 4
+Nx2 = {n}
+x2min = -2.0
+x2max = 2.0
+bc_ix2 = 4
+bc_ox2 = 4
+Nx3 = {n}
+x3min = -2.0
+x3max = 2.0
+bc_ix3 = 4
+bc_ox3 = 4
+<problem>
+gamma = 1.6666666666666667
+v1 = 0.1
+v2 = 0.05
+v3 = -0.08
+tstop = 0.5
+<particle>
+partypes = 1
+tsmode = 3
+tstop = 0.5
+"""
+
+# ... and its par_epicycle deck (isothermal, Omega = 1, q = 1.5, an orbit of
+# amplitude 0.4; the gas's shearing box reads <problem> Omega, the grain's
+# <problem> omega, as in both packages), Nx1 = Nx2 = n, Nx3 = n / 2
+PAR_EPICYCLE_DECK = """
+<job>
+problem_id = parepi
+<time>
+cour_no = 0.4
+nlim = 400
+tlim = 50.0
+<domain1>
+level = 0
+Nx1 = {n}
+x1min = -2.0
+x1max = 2.0
+bc_ix1 = 4
+bc_ox1 = 4
+Nx2 = {n}
+x2min = -2.0
+x2max = 2.0
+bc_ix2 = 4
+bc_ox2 = 4
+Nx3 = {nz}
+x3min = -1.0
+x3max = 1.0
+bc_ix3 = 4
+bc_ox3 = 4
+<problem>
+iso_csound = 1.0
+omega = 1.0
+Omega = 1.0
+qshear = 1.5
+amp = 0.4
+tstop = 1.0e20
+<particle>
+partypes = 1
+tsmode = 3
+tstop = 1.0e20
+"""
+# the epicycle's gas: the port's shearing box runs on 3D MHD with CTU
+# (ROADMAP C34), here with B = 0
+PAR_EPI_MHD = dict(gas="mhd", eos="isothermal", shearing_box=True)
+
+# JAX tests/test_particles.py:194-271's dusty box: par_friction's deck on
+# [-1, 1]^3 with p0 = 10 and the feedback on; the grain mass (mass loading
+# PAR_EPS at one grain per cell, gas density 1) a field
+PAR_DUSTY_DECK = """
+<job>
+problem_id = dusty
+<time>
+cour_no = 0.8
+nlim = 100
+tlim = 0.5
+<domain1>
+level = 0
+Nx1 = {n}
+x1min = -1.0
+x1max = 1.0
+bc_ix1 = 4
+bc_ox1 = 4
+Nx2 = {n}
+x2min = -1.0
+x2max = 1.0
+bc_ix2 = 4
+bc_ox2 = 4
+Nx3 = {n}
+x3min = -1.0
+x3max = 1.0
+bc_ix3 = 4
+bc_ox3 = 4
+<problem>
+gamma = 1.6666666666666667
+v1 = 0.1
+v2 = 0.0
+v3 = 0.0
+tstop = 0.5
+p0 = 10.0
+<particle>
+partypes = 1
+tsmode = 3
+tstop = 0.5
+feedback = 1
+parmass = {mpar!r}
+"""
+PAR_EPS = 0.25
+PAR_TSTOP = 0.5
+
+# the particle problems' gas on 3D adiabatic hydro: CTU with Roe, PLM, no
+# H-correction, periodic faces (the plain ghost fill, no B4): the "sedov"
+# route's kernels in their Roe forms; par_epicycle's MHD gas launches none
+PAR_HYDRO = ["sweep_lrflux_df", "transverse_correct", "flux_sweep_df",
+             "final_update[dF2]", "max_dti_hydro"]
+PATHS["par hydro"] = (PAR_HYDRO, others(PAR_HYDRO))
+PATHS["par mhd"] = ([], others([]))
+
+
+def dusty_box(n, device="cuda", dtype=None):
+    """The dusty box at n^3 through Simulation.from_par (with no device
+    argument when `device` is None), then a cell-centred lattice of one
+    grain per cell at v1 = 0.1 assigned to s.particles, as JAX's test
+    does; float64 grains.  Returns (Simulation, grain mass)."""
+    import torch
+    from atmospheric_athena_tpu_torch import ParameterDB, Simulation
+    from atmospheric_athena_tpu_torch import particles as P
+    mpar = PAR_EPS * 1.0 * (2.0 / n) ** 3
+    par = ParameterDB.from_string(PAR_DUSTY_DECK.format(n=n, mpar=mpar))
+    kw = {} if device is None else {"device": device}
+    s = Simulation.from_par(par, problem="par_friction", dtype=dtype, **kw)
+    c = (torch.arange(n, dtype=torch.float64, device=s.device) + 0.5) \
+        * (2.0 / n) - 1.0
+    zz, yy, xx = torch.meshgrid(c, c, c, indexing="ij")
+    x = torch.stack([xx.reshape(-1), yy.reshape(-1), zz.reshape(-1)])
+    v = torch.zeros_like(x)
+    v[0] = 0.1
+    s.particles = P.Particles.create(x, v, device=s.device)
+    return s, mpar
+
+
+def dusty_dv(s):
+    """(the lattice's dv = v1 of grain 0 minus the gas's mean u1, the
+    two-fluid dv0 exp(-t (1 + eps) / ts) at the state's time)."""
+    import math
+    sl = s.grid.interior()
+    u1 = (s.state.U[1][sl] / s.state.U[0][sl]).double().mean()
+    t = float(s.state.time)
+    return (float(s.particles.v[0, 0] - u1),
+            0.1 * math.exp(-t * (1.0 + PAR_EPS) / PAR_TSTOP))
+
+
+def par_gas(grid, seed, adiabatic=True, vamp=0.5):
+    """A seeded padded gas U (numpy float64) on `grid`: density and
+    pressure in [0.5, 1.5], velocities in [-vamp, vamp]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    shp = grid.padded_shape()
+    gamma = 5.0 / 3.0
+    U = np.zeros((5 if adiabatic else 4,) + shp)
+    U[0] = rng.uniform(0.5, 1.5, shp)
+    for c in range(3):
+        U[1 + c] = U[0] * rng.uniform(-vamp, vamp, shp)
+    if adiabatic:
+        ke = 0.5 * (U[1] ** 2 + U[2] ** 2 + U[3] ** 2) / U[0]
+        U[4] = rng.uniform(0.5, 1.5, shp) / (gamma - 1.0) + ke
+    return U
+
+
+def par_grains(n, seed, lo=-1.0, hi=1.0, vscale=(1.0,), ntypes=2):
+    """n seeded grains (numpy): positions in [lo, hi)^3, normal velocities
+    each scaled by one of `vscale`, types in [0, ntypes)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(lo, hi, (3, n))
+    v = rng.normal(0.0, 1.0, (3, n)) * np.asarray(vscale)[
+        rng.integers(0, len(vscale), n)]
+    return x, v, rng.integers(0, ntypes, n).astype(np.int32)
+
+
+# two grain types: stopping times, rho_s a (a/lambda below and above 2.25 at
+# rho ~ 1) and masses differ
+PAR_TYPES = dict(tstop0=(0.3, 2.0), grrhoa=(0.5, 5.0), alamcoeff=1.0,
+                 mass=(0.01, 0.04), qshear=1.5)
+
+
+def par_functions_vs_cpu(n=32, per_cell=2, tol=1e-10):
+    """The particle functions on the card against their CPU runs on the
+    same seeded float64 inputs: per_cell grains a cell of two types over
+    [-1.3, 1.3)^3 of a [-1, 1]^3 grid (the ghost zones and beyond),
+    velocities over five decades, a random gas (par_gas): the TSC gather
+    and scatter_add on 3D, 2D and 1D grids, feedback_predictor, and
+    integrate with feedback and omega0 for integrators 1-3 x tsmode 1-3,
+    each output within tol of its max (the scatter's atomics add in no
+    fixed order on the card), alive masks equal.  Returns the worst
+    error."""
+    import numpy as np
+    import torch
+    from atmospheric_athena_tpu_torch import particles as P
+    from atmospheric_athena_tpu_torch import state as tstate
+    from atmospheric_athena_tpu_torch.config import GridConfig, SimConfig
+    worst = 0.0
+
+    def check(what, got, ref):
+        nonlocal worst
+        a, b = got.cpu().numpy(), ref.numpy()
+        err = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+        worst = max(worst, err)
+        if not (np.isfinite(a).all() and err <= tol):
+            raise AssertionError(f"phase 3 particle functions {what}: "
+                                 f"error {err:.3e} x max exceeds {tol:.0e}")
+    N = per_cell * n ** 3
+    x, v, prop = par_grains(N, 1, -1.3, 1.3, (1e-3, 1.0, 300.0))
+    for dims in (3, 2, 1):
+        Nx = (n ** 3 // n ** (dims - 1) if dims == 1 else n,
+              n if dims > 1 else 1, n if dims > 2 else 1)
+        grid = GridConfig(Nx=Nx, xmin=(-1.0,) * 3, xmax=(1.0,) * 3)
+        q = np.random.default_rng(dims).normal(0.0, 1.0, (2, N))
+        field = np.random.default_rng(dims + 3).normal(
+            0.0, 1.0, (2,) + grid.padded_shape())
+        out = []
+        for dev in ("cuda", "cpu"):
+            w, idx, ok = P.tsc_weights(grid, torch.as_tensor(x, device=dev))
+            out.append((P.gather(torch.as_tensor(field, device=dev), w, idx,
+                                 ok),
+                        P.scatter_add(torch.zeros_like(
+                            torch.as_tensor(field, device=dev)), w, idx, ok,
+                            torch.as_tensor(q, device=dev))))
+        check(f"gather {dims}D", out[0][0], out[1][0])
+        check(f"scatter_add {dims}D", out[0][1], out[1][1])
+    grid = GridConfig(Nx=(n, n, n), xmin=(-1.0,) * 3, xmax=(1.0,) * 3,
+                      bc=((4, 4), (4, 4), (2, 2)))
+    sim = SimConfig()
+    alive = np.arange(N) % 7 != 3
+
+    def state(seed, dev):
+        U = par_gas(grid, seed)
+        return tstate.from_numpy(dict(U=U, time=0.0, dt=0.0, nstep=0),
+                                 device=dev)
+    for integ in (1, 2, 3):
+        for tsmode in (1, 2, 3):
+            pp = P.ParticleParams(integrator=integ, tsmode=tsmode,
+                                  feedback=True, omega0=1.0, **PAR_TYPES)
+            res = []
+            for dev in ("cuda", "cpu"):
+                pts = P.from_numpy(x, v, prop, alive,
+                                   np.arange(N, dtype=np.int32), device=dev)
+                st, half = state(10 * integ + tsmode, dev), state(7, dev)
+                res.append(P.feedback_predictor(pts, st, sim, grid, pp, 1e-3)
+                           + P.integrate(pts, st, 1e-3, sim, grid, pp,
+                                         drag_state=half))
+            (gfp, gep, gpts, gfb, gel), (cfp, cep, cpts, cfb, cel) = res
+            tag = f"integrator {integ} tsmode {tsmode}"
+            for what, a, b in (("fb predictor", gfp, cfp),
+                               ("eloss predictor", gep, cep),
+                               ("fb", gfb, cfb), ("eloss", gel, cel),
+                               ("x", gpts.x, cpts.x), ("v", gpts.v, cpts.v)):
+                check(f"{tag} {what}", a, b)
+            if not bool((gpts.alive.cpu() == cpts.alive).all()):
+                raise AssertionError(f"phase 3 particle functions {tag}: "
+                                     "alive masks differ")
+    return worst
+
+
+def par_runs(n):
+    """Phase 3's particle runs at n^3 (the epicycle n x n x n/2), float64:
+    (label, path, make(device) -> Simulation)."""
+    from atmospheric_athena_tpu_torch import ParameterDB, Simulation
+
+    def friction(cmd):
+        def make(device):
+            par = ParameterDB.from_string(PAR_FRICTION_DECK.format(n=n))
+            par.apply_cmdline(["time/tlim=9e9"] + cmd)
+            return Simulation.from_par(par, problem="par_friction",
+                                       dtype="float64", device=device)
+        return make
+
+    def epicycle(device):
+        par = ParameterDB.from_string(PAR_EPICYCLE_DECK.format(n=n,
+                                                               nz=n // 2))
+        return Simulation.from_par(par, problem="par_epicycle",
+                                   dtype="float64", device=device,
+                                   **PAR_EPI_MHD)
+    return [("par_friction", "par hydro", friction([])),
+            ("par_friction feedback", "par hydro",
+             friction(["particle/feedback=1", "particle/parmass=0.05"])),
+            ("dusty box", "par hydro",
+             lambda device: dusty_box(n, device, "float64")[0]),
+            ("par_epicycle mhd", "par mhd", epicycle)]
+
+
+def par_vs_cpu(label, make, ncyc, tol=1e-10):
+    """ncyc cycles of a particle run on the card against the port's plain
+    run on the CPU in the same process: cycle 1 from the deck's start,
+    each later cycle from the CPU run's state and grains copied to the
+    card; the interior gas fields (U, and Bcc for MHD) and the grains' x
+    and v within tol of each one's max (the scatter's atomics add in no
+    fixed order on the card), the alive masks equal, time and dt to rel
+    1e-12.  Returns (worst error, the card run's launch counts)."""
+    import numpy as np
+    g, c = make("cuda"), make("cpu")
+    reset_counts()
+    worst = 0.0
+    for cyc in range(ncyc):
+        if cyc:
+            copy_levels(c, g, "cuda")
+            g.particles = c.particles.to("cuda")
+        g.step()
+        c.step()
+        for what in ("time", "dt"):
+            a, b = (float(getattr(x.state, what)) for x in (g, c))
+            if not abs(a / b - 1) <= 1e-12:
+                raise AssertionError(f"{label} cycle {cyc + 1}: {what} "
+                                     f"{a:.17e} on the card, {b:.17e} plain")
+        sl = (slice(None),) + g.grid.interior()
+        pairs = [(f"{k}[{n}]", a, b)
+                 for k in (("U", "Bcc") if g.sim.mhd else ("U",))
+                 for n, (a, b) in enumerate(zip(
+                     getattr(g.state, k)[sl].cpu().numpy(),
+                     getattr(c.state, k)[sl].numpy()))]
+        pairs += [(f"{k}[{n}]", getattr(g.particles, k)[n].cpu().numpy(),
+                   getattr(c.particles, k)[n].numpy())
+                  for k in ("x", "v") for n in range(3)]
+        for name, a, b in pairs:
+            err = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+            worst = max(worst, err)
+            if not (np.isfinite(a).all() and err <= tol):
+                raise AssertionError(f"{label} cycle {cyc + 1} {name}: "
+                                     f"error {err:.3e} x max exceeds "
+                                     f"{tol:.0e}")
+        if not bool((g.particles.alive.cpu() == c.particles.alive).all()):
+            raise AssertionError(f"{label} cycle {cyc + 1}: alive masks "
+                                 "differ")
+    return worst, read_counts()
+
+
+def phase3_particles(n=32, ncyc=5):
+    """ROADMAP A15 item 7 in float64 on the card: the particle functions
+    on random grains against the CPU (par_functions_vs_cpu); par_friction
+    with and
+    without feedback, the dusty box (n^3 grains) and par_epicycle on the
+    isothermal MHD shearing box, ncyc cycles each against the port's plain
+    CPU run (par_vs_cpu, 1e-10), each run's launches against its path's
+    (the 3D hydro route's kernels; none on MHD).  Returns {label:
+    counts}."""
+    import torch
+    t0 = time.perf_counter()
+    reset_counts()
+    worst = par_functions_vs_cpu(n)
+    check_no_kernel("phase 3 particle functions", read_counts())
+    say(f"phase 3 particle functions float64 at {n}^3 ({2 * n ** 3} grains "
+        f"of two types, ghost zones and beyond; gather and scatter_add on "
+        f"3D, 2D and 1D grids, feedback_predictor, integrate for "
+        f"integrators 1-3 x tsmode 1-3) on the card against the CPU in "
+        f"{time.perf_counter() - t0:.2f} s: worst error {worst:.3e} x max "
+        f"(1e-10); no kernel launched")
+    counts = {}
+    for label, path, make in par_runs(n):
+        t0 = time.perf_counter()
+        worst, c = par_vs_cpu(f"phase 3 {label}", make, ncyc)
+        counts[f"par {label}"] = c
+        check_counts(f"phase 3 {label}", c, path)
+        say(f"phase 3 {label} float64 {n}^3, {ncyc} cycles on the card "
+            f"against the plain CPU run in {time.perf_counter() - t0:.2f} "
+            f"s: worst error {worst:.3e} x max (1e-10) over the gas and the "
+            f"grains; launches { {k: v for k, v in c.items() if v} or 'none'}")
+    torch.cuda.synchronize()
+    return counts
+
+
+# the full width of phase 4's particle runs: the dusty box at PAR_FULL^3
+# with a grain per cell (16.8M), a par_friction CLI cycle at PAR_FULL^3
+PAR_FULL = 256
+
+
+def phase4_particles(n=PAR_FULL, ncyc=3, reps=3):
+    """PAR_FULL: the dusty box at n^3 in float32 with n^3 float64 grains
+    (16.8M at 256^3) through Simulation.from_par without a device argument
+    and the lattice assigned as JAX's test does: ncyc cycles via
+    Simulation.run (ms per cycle, zone-cycles/s, grain-steps/s, peak
+    memory, finite fields, every grain alive, the lattice's dv within 2e-3
+    of the two-fluid solution); then CUDA-event times of reps cycles with
+    the grains and reps with s.particles cleared (the gas alone: the
+    particle hooks' share), the operators and host reads of a cycle each
+    way; then a CLI cycle of par_friction at n^3.  Returns {label: launch
+    counts}."""
+    import torch
+    from atmospheric_athena_tpu_torch import __main__ as cli
+    smi = smi_line()
+    counts = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s, _ = dusty_box(n, device=None, dtype="float32")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    N = s.particles.n
+    if s.device.type != "cuda" or s.particles.device.type != "cuda":
+        raise AssertionError(f"dusty box on {s.device}, grains on "
+                             f"{s.particles.device}")
+    reset_counts()
+    res = s.run(max_steps=ncyc)
+    c = read_counts()
+    counts["dusty box"] = c
+    check_counts("phase 4 dusty box", c, "par hydro")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dv, exact = dusty_dv(s)
+    finite = bool(torch.isfinite(s.state.U).all()) and bool(
+        torch.isfinite(s.particles.x).all() & torch.isfinite(
+            s.particles.v).all())
+    alive = int(s.particles.alive.sum())
+    if not (finite and alive == N and res["steps"] == ncyc
+            and abs(dv / exact - 1) <= 2e-3):
+        raise AssertionError(f"phase 4 dusty box: finite={finite}, alive "
+                             f"{alive} of {N}, steps {res['steps']}, dv "
+                             f"{dv!r} against {exact!r}")
+    ms = 1e3 * res["wall"] / res["steps"]
+    ev_ms = cuda_ms(s.step, reps=reps)
+    nops, reads = count_dispatch(s.step, reads=True)
+    pts, s.particles = s.particles, None
+    gas_ms = cuda_ms(s.step, reps=reps)
+    gas_ops, gas_reads = count_dispatch(s.step, reads=True)
+    s.particles = pts
+    say(f"phase 4 dusty box {n}^3 float32 gas, {N} float64 grains "
+        f"(feedback, eps {PAR_EPS}, ts {PAR_TSTOP}) on {smi}: setup "
+        f"{setup_s:.1f} s; {res['steps']} cycles via Simulation.run, "
+        f"{ms:.2f} ms per cycle, {res['zone_cycles_per_sec']:.4e} "
+        f"zone-cycles/s, {N * res['steps'] / res['wall']:.4e} grain-steps/s; "
+        f"CUDA events (median of {reps}): {ev_ms:.2f} ms per cycle with the "
+        f"grains, {gas_ms:.2f} with s.particles cleared, the particle hooks "
+        f"{100 * (1 - gas_ms / ev_ms):.1f}%; a cycle: {nops} operators and "
+        f"{reads} host reads with the grains, {gas_ops} and {gas_reads} "
+        f"without; peak device memory {peak:.2f} GiB; all fields finite, "
+        f"every grain alive, dv {dv:.7e} against the two-fluid "
+        f"{exact:.7e} (rel {abs(dv / exact - 1):.2e}, 2e-3); launches in "
+        f"{ncyc} cycles { {k: v for k, v in c.items() if v} }")
+    if reads != gas_reads:
+        raise AssertionError(f"phase 4 dusty box: the particle hooks add "
+                             f"{reads - gas_reads} host reads a cycle")
+    del s, pts
+    torch.cuda.empty_cache()
+    deck = os.path.join(lowd_dir(), "athinput.par_cli")
+    with open(deck, "w") as fh:
+        fh.write(PAR_FRICTION_DECK.format(n=n))
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["-i", deck, "--problem", "par_friction", "--dtype",
+                   "float32", "time/nlim=1", "job/maxout=0"])
+    if rc != 0:
+        raise AssertionError(f"par_friction CLI returned {rc}")
+    counts["par_friction CLI"] = read_counts()
+    check_counts("phase 4 par_friction CLI cycle", counts["par_friction CLI"],
+                 "par hydro")
+    say(f"phase 4 par_friction {n}^3 float32: 1 CLI cycle in "
+        f"{time.perf_counter() - t0:.1f} s with setup")
+    torch.cuda.synchronize()
+    return counts
+
+
 def batch_vs_k1(ncycles=3):
     """The batch path (batch_iters=BATCH_K) against the K=1 path on the
     isph64 deck (64^3 float64), ncycles cycles from the state after one K=1
@@ -6995,6 +7496,8 @@ def main():
     lap("phase 3 special relativity and self-gravity")
     p3.update(phase3_a15_rad())
     lap("phase 3 radiation beyond the kernels' slice")
+    p3.update(phase3_particles())
+    lap("phase 3 particles")
     smr, _ = phase4_smr()
     counts, _ = phase4()
     counts["smr"] = smr
@@ -7026,6 +7529,8 @@ def main():
     lap("phase 4 special relativity and self-gravity")
     rad = phase4_a15_rad()
     lap("phase 4 radiation beyond the kernels' slice")
+    par = phase4_particles()
+    lap("phase 4 particles")
     phase5()
     lap("phase 5")
 
@@ -7092,6 +7597,10 @@ def main():
         # this slice's runs of phase 4 (RAD_FULL and the point source): no
         # radiation kernel; the ifront path's hydro kernels on 3D hydro
         k["a15_rad_launches"] = {p: c[name] for p, c in rad.items()}
+        # this slice's runs of phase 4 (PAR_FULL): the dusty box and the
+        # par_friction CLI cycle, the 3D hydro route's kernels around the
+        # plain particle hooks
+        k["particle_launches"] = {p: c[name] for p, c in par.items()}
         kernels.append(k)
     say(f"chip_smoke: all phases in {time.perf_counter() - t_all:.1f} s")
     say(smi_line())

@@ -13,8 +13,9 @@ conducting testsedov, of SR tubes and blasts (eos_sr.py, ops/riemann_sr.py;
 the exact solver, HLLD, 2D and 3D SR MHD with FOFC) and of jeans with each
 self-gravity solver (gravity/), of the MHD, 2D and 1D ifront and a
 radiation step with two planes and a point source (ionrad/point.py,
-chemistry.py) with JAX made unimportable (chip_smoke.py imported too), and
-it refuses a CUDA device when none is visible."""
+chemistry.py), a step of par_friction, par_epicycle and the dusty box
+(particles/, utils/log.py) with JAX made unimportable (chip_smoke.py
+imported too), and it refuses a CUDA device when none is visible."""
 
 import os
 import subprocess
@@ -236,6 +237,22 @@ st, _ = ion_radtransfer(s.state, s.sim, s.grid, ion, s.state.time, 0.4)
 assert bool(torch.isfinite(st.U).all()) and st.Eflux.shape == (16, 16, 17)
 T = torch.logspace(0.0, 8.6, 64, dtype=torch.float64)
 assert bool(torch.isfinite(chemistry.dmc_cool_rate(0.5 + 0 * T, T)).all())
+from atmospheric_athena_tpu_torch import particles
+from atmospheric_athena_tpu_torch.models import par_epicycle, par_friction
+from atmospheric_athena_tpu_torch.utils import ath_pout, log
+for text, problem, kw in (
+        (chip_smoke.PAR_FRICTION_DECK.format(n=8), "par_friction", {{}}),
+        (chip_smoke.PAR_EPICYCLE_DECK.format(n=8, nz=4), "par_epicycle",
+         chip_smoke.PAR_EPI_MHD)):
+    q = P.Simulation.from_par(P.ParameterDB.from_string(text),
+                              problem=problem, device="cpu", **kw)
+    q.step()
+    assert isinstance(q.particles, particles.Particles)
+    assert bool(torch.isfinite(q.particles.x).all())
+q, _ = chip_smoke.dusty_box(8, "cpu")
+q.step()
+assert bool(torch.isfinite(q.state.U).all()) and bool(q.particles.alive.all())
+ath_pout(1, "not shown at level 0")
 bad = sorted(m for m in set(sys.modules) - pre
              if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                     "atmospheric_athena_tpu")

@@ -5,7 +5,8 @@ time and dt to rel 1e-12): the two-potential split (the static vertical
 gravity apart from the tidal one in ctu3d_mhd's full-dt update), the
 hydrostatic x3 boundary functions and the density-floor userwork.  JAX's
 strat golden test steps un-jitted (eager=True, ROADMAP C31): so does this
-one, and the port matches it bit for bit there."""
+one, and the port matches it bit for bit there.  The init, boundary
+functions and userwork alone are in tests/test_torch_strat_bcs.py."""
 
 import jax
 import pytest
@@ -34,25 +35,3 @@ def test_strat_three_cycles_match_jax_eager():
             a.step()
         b.step()
         close_sims(b, a)
-
-
-@pytest.mark.parametrize("eos,ifield", [("isothermal", 1), ("isothermal", 5),
-                                        ("adiabatic", 3), ("adiabatic", 4)])
-def test_strat_init_bcs_userwork_match_jax(eos, ifield):
-    """strat's init (the ran2 draws, exp(-z^2) per plane, the field
-    geometries), its hydrostatic x3 boundary functions inside the ghost
-    fill and its density floor, adiabatic and isothermal, at 8 x 16 x 24
-    against JAX's, eager: every array within 1e-12 of its max."""
-    cmd = ["domain1/Nx2=16", "domain1/Nx3=24", "job/maxout=0",
-           f"problem/ifield={ifield}", "problem/pres=5e-7"]
-    kw = dict(chip_smoke.A15_ISO_MHD, eos=eos, shearing_box=True)
-    deck = chip_smoke.STRAT_DECK
-    b = Simulation.from_file(deck, problem="strat", cmdline=cmd,
-                             device="cpu", **kw)
-    with jax.disable_jit():
-        a = J.Simulation.from_file(deck, problem="strat", cmdline=cmd, **kw)
-        ja = a.problem.userwork_in_loop(a.state, a.sim, a.grid)
-    close_sims(b, a)
-    tb = b.problem.userwork_in_loop(b.state, b.sim, b.grid)
-    b.state, a.state = tb, ja
-    close_sims(b, a)

@@ -11,6 +11,7 @@ for the PyTorch port (atmospheric_athena_tpu_torch).
     python3 tools/torch_profile_step.py isph2lev        # SMR, 256^3 + 256^3
     python3 tools/torch_profile_step.py turb            # isothermal turbulence
     python3 tools/torch_profile_step.py linear_wave     # 4 passive scalars
+    python3 tools/torch_profile_step.py dusty           # 256^3 grains
 
 Builds the isph deck at the bench configuration (256^3, float32,
 ionradiation/maxiter=50, ionradiation/batch_iters=25), or with `testsedov`
@@ -19,7 +20,9 @@ first the testsedov deck at 256^3 float32 with cubic cells and HLLC, or with
 centre in the bench configuration, or with `turb` first the driven
 isothermal turbulence deck (chip_smoke.TURB_DECK) at 256^3 float32, or
 with `linear_wave` first the linear-wave deck with four passive scalars
-(chip_smoke.lw_deck) at 256^3 float32, on the first CUDA device, with any
+(chip_smoke.lw_deck) at 256^3 float32, or with `dusty` first the dusty box
+(chip_smoke.dusty_box: par_friction with feedback and a lattice of one
+float64 grain per cell) at 256^3 float32, on the first CUDA device, with any
 block/name=value overrides from the command line applied after those (a
 `configure/flux=` override replaces testsedov's HLLC), runs
 one warm-up step, then profiles one step with torch.profiler (CPU and CUDA
@@ -27,8 +30,9 @@ activities).  Prints the card (nvidia-smi name and power limit), the CTU
 hydro path (the middle-phase path unless ATHENA_TPU_PALLAS_MID turns it
 off), the step's wall time, its radiation substeps (per level for SMR) and
 host reads (device-to-host copies), the device time of each phase range
-that the step records (radiation, bvals, hydro, userwork, new_dt, and smr:
-the restriction, flux correction and prolongation glue of a mesh), the
+that the step records (radiation, bvals, hydro, userwork, new_dt, smr:
+the restriction, flux correction and prolongation glue of a mesh, and
+particles: the particle hooks around the hydro phase), the
 device busy share of the step, and the kernels with the most device time.
 Then it profiles the hydro phase (ctu3d.step) alone on the same (root)
 state and prints every kernel of it.  Imports no JAX.
@@ -56,7 +60,8 @@ PROBLEMS = {"ioniz_sphere": ("athinput.isph64", "ioniz_sphere", BENCH, {}),
                           {"flux": "hllc"}),
             "isph2lev": ("athinput.isph2lev", "ioniz_sphere", SMR, {}),
             "turb": (None, "turb", [], {}),
-            "linear_wave": (None, "linear_wave", [], {})}
+            "linear_wave": (None, "linear_wave", [], {}),
+            "dusty": (None, "par_friction", [], {})}
 
 
 def main():
@@ -83,16 +88,19 @@ def main():
         kw = {k: v for k, v in kw.items() if k != "flux"}
     cmd = base + args
     if deck is None:
-        # the turb and linear-wave decks live in chip_smoke.py (their
-        # text, at N^3)
+        # the turb, linear-wave and dusty-box decks live in chip_smoke.py
+        # (their text, at N^3)
         from atmospheric_athena_tpu_torch.par import ParameterDB
-        from chip_smoke import TURB_DECK, lw_deck
-        par = ParameterDB.from_string(
-            TURB_DECK.format(n=N, nlim=-1) if name == "turb"
-            else lw_deck(N, -1))
-        par.apply_cmdline(cmd)
-        s = Simulation.from_par(par, problem=problem, dtype=DTYPE,
-                                device="cuda", **kw)
+        from chip_smoke import TURB_DECK, dusty_box, lw_deck
+        if name == "dusty":
+            s, _ = dusty_box(N, "cuda", DTYPE)
+        else:
+            par = ParameterDB.from_string(
+                TURB_DECK.format(n=N, nlim=-1) if name == "turb"
+                else lw_deck(N, -1))
+            par.apply_cmdline(cmd)
+            s = Simulation.from_par(par, problem=problem, dtype=DTYPE,
+                                    device="cuda", **kw)
     else:
         s = Simulation.from_file(os.path.join(REPO, "tests", "golden", deck),
                                  problem=problem, cmdline=cmd, dtype=DTYPE,
@@ -117,7 +125,8 @@ def main():
           f"{s.rad_iters[-1] if s.rad_iters else 0}, host reads {reads} "
           "(device-to-host copies)")
 
-    phases = ("radiation", "bvals", "hydro", "userwork", "new_dt", "smr")
+    phases = ("radiation", "bvals", "hydro", "userwork", "new_dt", "smr",
+              "particles")
     # each range appears twice: as a host range (CPU time) and as the
     # span of its kernels on the device timeline
     host = {e.key: e for e in events if e.key in phases
