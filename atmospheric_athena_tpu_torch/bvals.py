@@ -291,3 +291,66 @@ def apply_bc(state: State, grid: GridConfig, sim: SimConfig,
     else:
         U = bc_fill_plain(state.U, grid)
     return state.replace(U=U)
+
+
+def check_sharded(grid: GridConfig, sim: SimConfig, problem, mesh):
+    """Raise unless apply_bc_sharded covers the configuration on `mesh`,
+    naming what it does not cover."""
+    ng = grid.nghost
+    padded = grid.padded_shape()
+    gaps = []
+    if sim.mhd:
+        gaps.append("MHD")
+    if sim.shearing_box:
+        gaps.append("a shearing box")
+    fns = user_fns(problem)
+    if fns:
+        gaps.append(f"the boundary functions {sorted(fns)}")
+    for axis in range(3):
+        if not grid.active(axis):
+            continue
+        nsh = mesh.dims[2 - axis]
+        if padded[2 - axis] % nsh:
+            gaps.append(f"axis {axis}: {padded[2 - axis]} padded cells on "
+                        f"{nsh} ranks")
+        elif padded[2 - axis] // nsh < 2 * ng:
+            gaps.append(f"axis {axis}: blocks of {padded[2 - axis] // nsh} "
+                        f"padded cells, under 2*nghost = {2 * ng}")
+        for flag in grid.bc[axis]:
+            if flag not in (BC_OUTFLOW, BC_REFLECT, BC_CONDUCTOR,
+                            BC_DONOTHING):
+                gaps.append(f"axis {axis}: BC flag {flag}")
+    if gaps:
+        raise NotImplementedError(
+            "apply_bc_sharded covers hydro with outflow, reflect, conductor "
+            "or do-nothing faces, no boundary functions and blocks of at "
+            f"least 2*nghost cells; not {'; '.join(gaps)} (ROADMAP C61: the "
+            "JAX package falls back to its serial fill under GSPMD there, "
+            "simulation.py:274-281)")
+
+
+def apply_bc_sharded(state: State, grid: GridConfig, sim: SimConfig,
+                     problem, mesh) -> State:
+    """The ghost fill of a rank's block on a mesh (JAX bvals.py:316-382):
+    only the ranks at a global edge fill their slab of the global ghost
+    zones, from their own cells, with no communication; an axis with one
+    rank fills both sides.  Plain on either device, as the JAX function is
+    (a shard_map of jnp fills).
+
+    Covered, as in JAX: hydro, outflow, reflect, conductor or do-nothing
+    flags, no boundary functions, and every rank's padded slab at least
+    2*nghost deep (so the fill's source cells are the edge rank's own).
+    Elsewhere JAX falls back to the serial fill under GSPMD
+    (simulation.py:274-281), which the port has not: it raises, naming
+    what is outside (``check_sharded``, ROADMAP C61)."""
+    check_sharded(grid, sim, problem, mesh)
+    U = state.U.clone()
+    for axis, side, flag in _sides(grid):
+        if flag == BC_DONOTHING:
+            continue
+        i = 2 - axis
+        edge = (mesh.coords[i] == 0 if side == "lo"
+                else mesh.coords[i] == mesh.dims[i] - 1)
+        if edge:
+            _fill_side(U, grid, axis, side, flag)
+    return state.replace(U=U)

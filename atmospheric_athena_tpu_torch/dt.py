@@ -93,9 +93,20 @@ def max_dti(state: State, sim: SimConfig, grid: GridConfig):
     return util_kernels.max_dti_hydro(state.U, sim, grid)
 
 
-def new_dt(state: State, sim: SimConfig, grid: GridConfig, cour_no: float):
+def new_dt(state: State, sim: SimConfig, grid: GridConfig, cour_no: float,
+           mesh=None):
     """New dt with the 2× growth clamp (new_dt.c:167-171); CourNo/max_dti
-    is one IEEE division (exact_div), as in the JAX package."""
-    dt = exact_div(cour_no, max_dti(state, sim, grid))
+    is one IEEE division (exact_div), as in the JAX package.  On a mesh
+    (3D Cartesian hydro: parallel/mesh.py) state.U is the rank's block:
+    the CFL reduction runs over the rank's share of the global interior
+    (the kernel with that window), then one collective takes the maximum
+    over the ranks (new_dt.c:175's MPI_Allreduce), exact, so every rank
+    gets the serial dt."""
+    if mesh is None:
+        dti = max_dti(state, sim, grid)
+    else:
+        dti, = mesh.reduce((util_kernels.max_dti_hydro(
+            state.U, sim, grid, window=mesh.interior(grid)), "max"))
+    dt = exact_div(cour_no, dti)
     return torch.where(state.nstep == 0, dt,
                        torch.minimum(2.0 * state.dt, dt))

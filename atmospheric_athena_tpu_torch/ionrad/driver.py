@@ -21,6 +21,21 @@ plain loop (JAX's body/cond, driver.py:564-631), on the card too, with no
 kernel and K=1 whatever ``batch_iters`` says (the JAX batch lives in its
 Pallas branch alone, driver.py:419-421).
 
+On a mesh (``mesh=``, parallel/mesh.py; JAX driver.py:309-335) each rank
+runs the loop over its share of the global interior: with x split over
+several ranks, one dir=-1 plane and no SMR inlet, the plain loop with the
+distributed sweep (plane.get_ph_rate_plane_dist; K=1 whatever
+``batch_iters`` says, as JAX's, whose batch sits in its Pallas branch);
+with x whole on each rank, the kernel loop (or the plain loop where the
+kernels do not go) on the rank's rows.  A plane whose sweep axis is split
+otherwise raises JAX's NotImplementedError.  The loop's global scalars are
+reduced over the ranks, each exactly (dt_chem, dt_therm and a batch's ok
+and limits: min; dti_max: max; the violation count: an integer sum), in
+one collective after the rates and one after the update of a K=1
+iteration, one per accepted batch round (a refused batch adds its
+fallback iteration's two, the next limit folded into its second), so the
+x-whole route equals the serial run bit for bit.
+
 The per-cell physics (``rates_percell``, ``update_percell``,
 ``dti_percell``) is written once here; the plain loop and the plain
 versions of the kernels in ``rad_kernels`` call it.
@@ -40,7 +55,7 @@ from . import chemistry as chem
 from . import rad_kernels
 from .config import (CION, DAMPFACTOR, IONFRACFLOOR, MAXCELLCOUNT,
                      MAXSIGNCOUNT, IonConfig)
-from .plane import get_ph_rate_plane, inlet_ramp
+from .plane import get_ph_rate_plane, get_ph_rate_plane_dist, inlet_ramp
 from .point import check_supported as check_point_sources
 from .point import point_source_fan, point_source_kph
 
@@ -274,19 +289,55 @@ def ion_radtransfer(state: State, sim: SimConfig, grid: GridConfig,
     tensor, the root level's dt_done) the sub-cycle integrates exactly to
     tcoarse and stops on that alone, takes the K=1 loop, and returns
     dt_new = state.dt (no feedback); `inlet` (a per-column [NZ, NY, 1]
-    array from smr.child_inlet_flux) replaces the time-ramped inflow."""
-    if mesh is not None:
-        raise NotImplementedError("multi-device radiation (ROADMAP A14)")
+    array from smr.child_inlet_flux) replaces the time-ramped inflow.
+
+    With `mesh` the state is this rank's block and Eflux its window's
+    (parallel/mesh.py); see the module docstring for the routes."""
     check_supported(sim, grid, ion)
-    if ion.point_sources or rad_kernels.unsupported(sim, grid, ion):
+    dist = False
+    if mesh is not None:
+        dist = mesh_route(grid, ion, mesh, inlet, tcoarse)
+    if dist or ion.point_sources or rad_kernels.unsupported(sim, grid, ion):
         loop = _plain_loop
     else:
         loop = _kernel_loop
     new_state, dt_new, niter = loop(state, sim, grid, ion, time, cour_no,
-                                    inlet, tcoarse)
+                                    inlet, tcoarse, mesh=mesh, dist=dist)
     if return_niter:
         return new_state, dt_new, niter
     return new_state, dt_new
+
+
+def mesh_route(grid: GridConfig, ion: IonConfig, mesh, inlet, tcoarse):
+    """Whether the sweep runs distributed on `mesh` (JAX driver.py:314-315:
+    x split, one dir=-1 plane, no SMR inlet); raises JAX's error for a
+    plane whose sweep axis is split otherwise (driver.py:324-334), and
+    refuses what JAX runs under GSPMD instead: the SMR fine-level mode and
+    point sources (ROADMAP C62)."""
+    direction = ion.radplanes[0][0] if ion.radplanes else -1
+    dist = (mesh.shape["x"] > 1 and len(ion.radplanes) == 1
+            and direction == -1 and inlet is None)
+    if not dist:
+        axname = {1: "x", 2: "y", 3: "z"}
+        for dirn, _ in ion.radplanes:
+            if mesh.shape[axname[abs(dirn)]] > 1:
+                raise NotImplementedError(
+                    f"radiation plane dir={dirn}: sweep axis "
+                    f"'{axname[abs(dirn)]}' is sharded {dict(mesh.shape)} "
+                    "but the distributed scan only covers a single dir=-1 "
+                    "plane without SMR inlet flux; reshard the mesh or run "
+                    "this plane unsharded along its sweep axis")
+    if inlet is not None or tcoarse is not None:
+        raise NotImplementedError(
+            "SMR fine-level radiation on a mesh (ROADMAP C62: the JAX "
+            "package runs the level's inlet sweep under GSPMD, which the "
+            "port has not)")
+    if ion.point_sources:
+        raise NotImplementedError(
+            "radiation point sources on a mesh (ROADMAP C62: the JAX "
+            "package traces their ray fan over the global grid under "
+            "GSPMD, which the port has not)")
+    return dist
 
 
 def _stop_test(dt_done, dt_new, hydro_done, cellcount, dti_max, cour_no,
@@ -305,30 +356,42 @@ def _stop_test(dt_done, dt_new, hydro_done, cellcount, dti_max, cour_no,
     return stop, dt_new
 
 
-def _finish(state, grid, E, s0, eflux, dt_new, dt_done, stop, tcoarse):
+def _finish(state, sl, E, s0, eflux, dt_new, dt_done, stop, tcoarse):
     """The common tail: the dt fed back (the maxiter exit without a stop
     condition takes dt_done, ionrad_3d.c:1022; a fine level keeps its dt)
-    and the state with the new E, s0 and Eflux."""
+    and the state with the new E, s0 (over the interior slices `sl`) and
+    Eflux."""
     if tcoarse is not None:
         dt_new = state.dt   # fine levels never feed back into the mesh dt
     elif not stop:
         dt_new = dt_done
     Unew = state.U.clone()
-    Unew[(5,) + grid.interior()] = s0
-    Unew[(IEN,) + grid.interior()] = E
+    Unew[(5,) + sl] = s0
+    Unew[(IEN,) + sl] = E
     return state.replace(U=Unew, Eflux=eflux, dt=dt_new), dt_new
 
 
+def _reduce(mesh, *pairs):
+    """The values of `pairs` ((0-d tensor, op)) reduced over the mesh's
+    ranks in one collective; as they are without a mesh."""
+    if mesh is None:
+        return [v for v, _ in pairs]
+    return mesh.reduce(*pairs)
+
+
 def _plain_loop(state: State, sim: SimConfig, grid: GridConfig,
-                ion: IonConfig, time, cour_no: float, inlet, tcoarse):
+                ion: IonConfig, time, cour_no: float, inlet, tcoarse,
+                mesh=None, dist=False):
     """JAX's plain sub-cycle (driver.py:564-631, its ``body``/``cond``)
     with ``ph_rate_all`` (:336-367): the rates of every plane add, the
     edge flux keeps the last plane's faces (the carry shaped by the first
     plane's axis, zeros without a plane), the inflow of a |dir| > 1 plane
     is not ramped, point sources add their rates (each fan built once per
     call); on MHD gas ke_be carries 1/2 |Bcc|^2 and the CFL test the fast
-    speed from the face fields.  Returns (state, dt_new, niter)."""
-    sl = grid.interior()
+    speed from the face fields.  On a mesh it runs over the rank's
+    interior window, the sweep distributed with `dist`.  Returns (state,
+    dt_new, niter)."""
+    sl = grid.interior() if mesh is None else mesh.interior(grid)
     U = state.U[(slice(None),) + sl]
     d = U[ID]
     M1, M2, M3 = U[IM1], U[IM1 + 1], U[IM1 + 2]
@@ -360,7 +423,12 @@ def _plain_loop(state: State, sim: SimConfig, grid: GridConfig,
     def ph_rate_all(s0):
         kph_tot, eflux = torch.zeros_like(s0), None
         for dirn, F in planes:
-            kph, eflux = get_ph_rate_plane(s0, F, dirn, grid, ion)
+            if dist:
+                kph, left, exit_ = get_ph_rate_plane_dist(s0, F, dirn, grid,
+                                                          ion, mesh)
+                eflux = torch.cat([left, exit_], dim=-1)
+            else:
+                kph, eflux = get_ph_rate_plane(s0, F, dirn, grid, ion)
             kph_tot = kph_tot + kph
         for ndot, src, fan in sources:
             kph_tot = kph_tot + point_source_kph(s0, src, ndot, grid, ion,
@@ -381,15 +449,17 @@ def _plain_loop(state: State, sim: SimConfig, grid: GridConfig,
         kph, eflux = ph_rate_all(s0)
         nHdot, last_sign, sign_count, dtc, edot, dtt = rates_percell(
             s0, E, d, ke_be, last_sign, sign_count, kph, d_nlim, sim, ion)
-        dt = torch.minimum(torch.amin(dtc), torch.amin(dtt))
+        dt = torch.minimum(*_reduce(mesh, (torch.amin(dtc), "min"),
+                                    (torch.amin(dtt), "min")))
         hydro_done = dt_done + dt > dt_limit
         dt = torch.where(hydro_done, dt_limit - dt_done, dt)
         E, s0, viol = update_percell(s0, E, d, ke_be, nHdot, edot, kph, dt,
                                      d_nlim, e_init, e_th_init, x_init, sim,
                                      ion)
-        cellcount = torch.sum(viol, dtype=torch.int64)
-        dti_max = torch.amax(dti_percell(E, d, M1, M2, M3, sim, grid, B,
-                                         Bfi))
+        cellcount, dti_max = _reduce(
+            mesh, (torch.sum(viol, dtype=torch.int64), "sum"),
+            (torch.amax(dti_percell(E, d, M1, M2, M3, sim, grid, B, Bfi)),
+             "max"))
         dt_done = dt_done + dt
         stop_t, dt_new = _stop_test(dt_done, dt_new, hydro_done, cellcount,
                                     dti_max, cour_no, tcoarse is not None)
@@ -397,17 +467,20 @@ def _plain_loop(state: State, sim: SimConfig, grid: GridConfig,
         stop = bool(stop_t)     # the loop's one host read per iteration
         if stop:
             break
-    new_state, dt_new = _finish(state, grid, E, s0, eflux, dt_new, dt_done,
+    new_state, dt_new = _finish(state, sl, E, s0, eflux, dt_new, dt_done,
                                 stop, tcoarse)
     return new_state, dt_new, niter
 
 
 def _kernel_loop(state: State, sim: SimConfig, grid: GridConfig,
-                 ion: IonConfig, time, cour_no: float, inlet, tcoarse):
+                 ion: IonConfig, time, cour_no: float, inlet, tcoarse,
+                 mesh=None, dist=False):
     """The kernel sub-cycle (JAX driver.py:411-562): rad_kernels' rates and
-    update per K=1 iteration, or the batch kernel's K substeps per round.
-    Returns (state, dt_new, niter)."""
-    sl = (slice(None),) + grid.interior()
+    update per K=1 iteration, or the batch kernel's K substeps per round;
+    on a mesh over the rank's rows (x whole), the scalars reduced over the
+    ranks.  Returns (state, dt_new, niter)."""
+    win = grid.interior() if mesh is None else mesh.interior(grid)
+    sl = (slice(None),) + win
     U = state.U[sl]
     d = U[ID].contiguous()
     M1, M2, M3 = U[IM1], U[IM1 + 1], U[IM1 + 2]
@@ -441,24 +514,34 @@ def _kernel_loop(state: State, sim: SimConfig, grid: GridConfig,
     dt_new = dt0
     eflux = (torch.zeros_like(d), torch.zeros_like(d[..., :1]))
 
-    def iteration(E, s0, code, dt_done, dt_new):
-        """One reference-exact sub-iteration (ionrad_3d.c:919-1002)."""
+    def iteration(E, s0, code, dt_done, dt_new, refresh=False):
+        """One reference-exact sub-iteration (ionrad_3d.c:919-1002).  On a
+        mesh, `refresh` (a refused batch's fallback) also takes the next
+        rates' limit min(dt_chem, dt_therm), reduced in the update's
+        collective; it is returned last (None otherwise)."""
         code, eflux, kph, nHdot, edot, dt_chem, dt_therm = rates_fn(
             s0, E, code, Fin)
-        dt = torch.minimum(dt_chem, dt_therm)
+        dt = torch.minimum(*_reduce(mesh, (dt_chem, "min"),
+                                    (dt_therm, "min")))
         hydro_done = dt_done + dt > dt_limit
         dt = torch.where(hydro_done, dt_limit - dt_done, dt)
         E, s0, cellcount, dti_max = update_fn(s0, E, kph, nHdot, edot, dt)
+        pairs = [(cellcount, "sum"), (dti_max, "max")]
+        if refresh and mesh is not None:
+            *_, dtc1, dtt1 = rates_fn(s0, E, code, Fin)
+            pairs += [(dtc1, "min"), (dtt1, "min")]
+        cellcount, dti_max, *lim = _reduce(mesh, *pairs)
         dt_done = dt_done + dt
         stop, dt_new = _stop_test(dt_done, dt_new, hydro_done, cellcount,
                                   dti_max, cour_no, tcoarse is not None)
-        return E, s0, code, eflux, dt_done, dt_new, stop
+        lim = torch.minimum(*lim) if lim else None
+        return E, s0, code, eflux, dt_done, dt_new, stop, lim
 
     niter = 0
     stop = False
     if ion.batch_iters <= 1 or tcoarse is not None:
         while niter < ion.maxiter:
-            E, s0, code, eflux, dt_done, dt_new, stop_t = iteration(
+            E, s0, code, eflux, dt_done, dt_new, stop_t, _ = iteration(
                 E, s0, code, dt_done, dt_new)
             niter += 1
             stop = bool(stop_t)     # the loop's one host read per iteration
@@ -477,7 +560,7 @@ def _kernel_loop(state: State, sim: SimConfig, grid: GridConfig,
         batch_fn = rad_kernels.build_batch(sim, grid, ion, d, M1, M2, M3,
                                            e_init, x_init, K)
         *_, dtc0, dtt0 = rates_fn(s0, E, code, Fin)
-        dt_lim = torch.minimum(dtc0, dtt0)
+        dt_lim = torch.minimum(*_reduce(mesh, (dtc0, "min"), (dtt0, "min")))
         js = torch.arange(K, dtype=d.dtype, device=d.device)
         while niter < ion.maxiter:
             dt_b = THETA * dt_lim
@@ -487,6 +570,9 @@ def _kernel_loop(state: State, sim: SimConfig, grid: GridConfig,
                               torch.zeros_like(dts))
             (s02, E2, ncode, eflux2, viol, dti_max, dtc_m, dtt_m,
              ok) = batch_fn(s0, E, code, dts, Fin)
+            viol, dti_max, dtc_m, dtt_m, ok = _reduce(
+                mesh, (viol, "sum"), (dti_max, "max"), (dtc_m, "min"),
+                (dtt_m, "min"), (ok, "min"))
             dt_done2 = torch.minimum(dt_done + torch.sum(dts), dt0)
             range_hit = viol > MAXCELLCOUNT
             cfl_hit = cour_no / dti_max < dt_done2
@@ -507,16 +593,18 @@ def _kernel_loop(state: State, sim: SimConfig, grid: GridConfig,
                 if stop or nsub == 0:
                     break
             else:
-                E, s0, code, eflux, dt_done, dt_new, stop_t = iteration(
-                    E, s0, code, dt_done, dt_new)
+                (E, s0, code, eflux, dt_done, dt_new, stop_t,
+                 lim) = iteration(E, s0, code, dt_done, dt_new, refresh=True)
                 niter += 1
                 stop = bool(stop_t)
                 if stop:
                     break
-                *_, dtc1, dtt1 = rates_fn(s0, E, code, Fin)
-                dt_lim = torch.minimum(dtc1, dtt1)
+                if lim is None:
+                    *_, dtc1, dtt1 = rates_fn(s0, E, code, Fin)
+                    lim = torch.minimum(dtc1, dtt1)
+                dt_lim = lim
 
     eflux_out = torch.cat([eflux[0], eflux[1][..., -1:]], dim=-1)
-    new_state, dt_new = _finish(state, grid, E, s0, eflux_out, dt_new,
+    new_state, dt_new = _finish(state, win, E, s0, eflux_out, dt_new,
                                 dt_done, stop, tcoarse)
     return new_state, dt_new, niter

@@ -84,3 +84,57 @@ def get_ph_rate_plane(s0, inflow, direction: int, grid: GridConfig,
         kph = torch.flip(kph, dims=(-1,))
         edge = torch.flip(edge, dims=(-1,))
     return torch.movedim(kph, -1, adim), torch.movedim(edge, -1, adim)
+
+
+def get_ph_rate_plane_dist(s0, inflow, direction: int, grid: GridConfig,
+                           ion: IonConfig, mesh):
+    """The dir=-1 sweep with the sweep (x) axis split over the mesh (JAX
+    plane.py:98-172).  The reference runs the recurrence as a rank
+    pipeline along the radiation axis (ionradplane_3d.c:226-318); here, as
+    in JAX, a blockwise two-pass scan: each x rank forms the cumulative
+    transmittance over its own interior cells, the exclusive product of
+    the ranks' totals is carried in JAX's Hillis-Steele order with
+    send/recv (log2 of the x ranks steps, then one shift), and the rank's
+    faces are scaled by the incoming product.  JAX's shards split the
+    interior evenly (GSPMD re-spreads it); the port's windows are the
+    ranks' shares of the interior (uneven at the edges), so the products
+    associate differently: equal to roundoff.
+
+    s0: the rank's interior window [nz, ny, nx]; inflow: the scalar inlet
+    flux.  Returns (kph [nz, ny, nx], the left faces [nz, ny, nx], the
+    rank's exit face [nz, ny, 1]); the last x rank's exit is the domain's
+    downstream face."""
+    if direction != -1:
+        raise ValueError("distributed sweep: dir=-1 only")
+    i = 2                                     # mesh axis x
+    cx, nP = mesh.coords[i], mesh.dims[i]
+    n_H = s0 * (1.0 / ion.m_H)
+    tau = ion.sigma_ph * n_H * grid.dx[0]
+    etau = torch.exp(-tau)
+    T_incl = torch.cumprod(etau, dim=-1)
+    tot = T_incl[..., -1:].contiguous()
+
+    # exclusive product-scan of the rank totals; a rank that receives
+    # nothing multiplies by one, as JAX masks its ppermute zeros
+    x_ = tot
+    k = 1
+    while k < nP:
+        sh = mesh.shift(x_, i, k)
+        x_ = x_ * (sh if cx >= k else torch.ones_like(sh))
+        k *= 2
+    exc = mesh.shift(x_.contiguous(), i, 1)
+    if cx == 0:
+        exc = torch.ones_like(exc)
+
+    T_faces = torch.cat([torch.ones_like(T_incl[..., :1]), T_incl],
+                        dim=-1) * exc
+    F_in = _column(inflow, s0)
+    F_faces = F_in * T_faces
+    frac = F_faces / (F_in + 1e-12)
+    n = s0.shape[-1]
+    idx = torch.arange(n + 1, device=s0.device)
+    alive = ((idx == 0) & (cx == 0)) | (frac >= MINFLUXFRAC)
+    kph = (alive[..., :n] * F_faces[..., :n] * (1.0 - etau)
+           / (n_H * grid.dx[0]))
+    edge = torch.where(alive, F_faces, torch.zeros_like(F_faces))
+    return kph, edge[..., :n], edge[..., n:]

@@ -146,6 +146,25 @@ class IonizSphere:
         self._reset_cache[key] = out
         return out
 
+    @staticmethod
+    def userwork_aux_block(aux, block):
+        """This rank's part of `aux` (userwork_aux on the global padded
+        grid) on a mesh: the reset box cut to the rank's block (`block`:
+        the global (z, y, x) slices it holds) and moved to its local
+        indices; empty where they do not meet.  The reset sphere is in
+        global coordinates, so the rank takes its slice rather than
+        building the box on its own grid."""
+        inside, myrho, myE, bbox = aux
+        cut, local = [], []
+        for bb, b in zip(bbox, block):
+            a, e = max(bb.start, b.start), min(bb.stop, b.stop)
+            e = max(a, e)
+            cut.append(slice(a - bb.start, e - bb.start))
+            local.append(slice(a - b.start, e - b.start))
+        cut = tuple(cut)
+        return (inside[cut].contiguous(), myrho[cut].contiguous(),
+                myE[cut].contiguous(), tuple(local))
+
     def userwork_in_loop(self, state, sim: SimConfig, grid: GridConfig,
                          aux=None):
         """Re-impose the hydrostatic profile within r < 0.75 rp each cycle

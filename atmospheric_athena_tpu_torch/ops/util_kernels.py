@@ -35,8 +35,9 @@ _kernel = None
 _params = {}     # (dtype, device, eos, constants) -> kernel parameter tensor
 
 
-def _per_axis_plain(U, sim: SimConfig, grid: GridConfig):
-    Ui = U[(slice(None),) + grid.interior()]
+def _per_axis_plain(U, sim: SimConfig, grid: GridConfig, window=None):
+    Ui = U[(slice(None),) + (grid.interior() if window is None
+                             else window)]
     di = 1.0 / Ui[ID]
     v = [Ui[IM1 + a] * di for a in range(3)]
     if sim.adiabatic:
@@ -57,9 +58,9 @@ def _combine(per_axis, grid: GridConfig, like):
     return dti
 
 
-def max_dti_hydro_plain(U, sim: SimConfig, grid: GridConfig):
+def max_dti_hydro_plain(U, sim: SimConfig, grid: GridConfig, window=None):
     """Plain PyTorch version of ``max_dti_hydro`` (same signature)."""
-    return _combine(_per_axis_plain(U, sim, grid), grid, U)
+    return _combine(_per_axis_plain(U, sim, grid, window), grid, U)
 
 
 def _triton_kernel():
@@ -129,9 +130,10 @@ def _triton_kernel():
     return _kernel
 
 
-def max_dti_hydro(U, sim: SimConfig, grid: GridConfig):
+def max_dti_hydro(U, sim: SimConfig, grid: GridConfig, window=None):
     """Max over interior cells and axes of (|v_a| + c_s)/dx_a as a 0-d
-    tensor on U's device.
+    tensor on U's device.  `window` ((z, y, x) slices of U) replaces the
+    grid's interior: a rank's share of it on a mesh, U its block.
 
     Kernel (CUDA tensors of a 3D grid; it raises on a 2D or 1D one): the
     Triton kernel above, replacing ops/pallas_util.py:_kernel; plain
@@ -142,7 +144,7 @@ def max_dti_hydro(U, sim: SimConfig, grid: GridConfig):
             "replaces (pallas_util.supported takes gas == 'hydro' without "
             "SR); the MHD CFL is dt.max_dti_plain, SR's max 1/dx")
     if U.device.type != "cuda":
-        return max_dti_hydro_plain(U, sim, grid)
+        return max_dti_hydro_plain(U, sim, grid, window)
     if grid.ndim < 3:
         raise ValueError("max_dti_hydro: the kernel covers 3D grids (2D and "
                          "1D grids take max_dti_hydro_plain, as dt.max_dti "
@@ -150,7 +152,8 @@ def max_dti_hydro(U, sim: SimConfig, grid: GridConfig):
     if U.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"max_dti_hydro: dtype {U.dtype}")
     if U.dim() != 4 or U.shape[0] != sim.ncons or not U.is_contiguous() \
-            or tuple(U.shape[1:]) != tuple(grid.padded_shape()):
+            or (window is None
+                and tuple(U.shape[1:]) != tuple(grid.padded_shape())):
         raise ValueError(f"max_dti_hydro: U {tuple(U.shape)} must be a "
                          f"contiguous [{sim.ncons}, *grid.padded_shape()]")
     _, nz, ny, nx = U.shape
@@ -168,8 +171,16 @@ def max_dti_hydro(U, sim: SimConfig, grid: GridConfig):
         _params[key] = torch.tensor(consts, dtype=U.dtype).to(U.device)
     prm = _params[key]
     part = torch.empty((3, nprog), dtype=U.dtype, device=U.device)
-    lo = [grid.lo(a) for a in range(3)]
-    hi = [grid.hi(a) for a in range(3)]
+    if window is None:
+        lo = [grid.lo(a) for a in range(3)]
+        hi = [grid.hi(a) for a in range(3)]
+    else:
+        w = [range(n)[sl] for sl, n in zip(window, U.shape[1:])]
+        if not all(len(r) and r.step == 1 for r in w):
+            raise ValueError(f"max_dti_hydro: window {window} of "
+                             f"{tuple(U.shape[1:])}")
+        lo = [w[2 - a][0] for a in range(3)]
+        hi = [w[2 - a][-1] for a in range(3)]
     compiled = _triton_kernel()[(nprog,)](
         U, prm, part, ncell, nx, ny, nprog, lo[0], hi[0], lo[1], hi[1],
         lo[2], hi[2], BLOCK=_BLOCK, IS_F64=U.dtype == torch.float64,

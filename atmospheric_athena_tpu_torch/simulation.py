@@ -42,6 +42,21 @@ integrator that takes the potential.
   - ``Simulation.from_checkpoint``: a run restarted from a checkpoint
     (io/restart.py; main.c's -r).
 
+On a mesh (``mesh=``, a ``parallel.mesh.Mesh``: one process per rank,
+JAX's ``s.mesh``) a 3D Cartesian hydro deck with CTU takes the JAX
+package's explicit path (simulation.py:255-283, 366-371): each rank holds
+its block of the padded state (``self.state``; ``gather()`` rebuilds the
+global one); radiation runs on the rank's share of the interior
+(ionrad/driver.py's mesh route), the ghost fill is
+``bvals.apply_bc_sharded``, hydro ``parallel.overlap.
+hydro_step_sharded_grav`` (one halo exchange, then the serial ctu3d.step
+on the halo-padded block, the potential from per-rank halo blocks built
+once), ioniz_sphere's core reset the rank's cut of the global reset box,
+and ``new_dt`` the CFL kernel over the rank's interior with one
+collective.  ``time``, ``dt`` and ``nstep`` stay equal on every rank.
+What JAX runs under GSPMD's implicit partitioning instead raises by name
+(``check_mesh``), and so do particles, SMR and outputs.
+
 Every tensor lives on the ``device`` given at construction: ``"cuda"``
 unless the caller asks for ``"cpu"`` (without a visible GPU the default
 raises; there is no silent CPU fallback).  On a CUDA device a 3D hydro
@@ -57,6 +72,7 @@ Newtonian hydro, and ctu3d takes none with a self-gravity potential).
 
 from __future__ import annotations
 
+import functools
 import re
 import time as _time
 from typing import Optional
@@ -241,13 +257,64 @@ def _feedback(state: State, sim: SimConfig, fb, eloss) -> State:
     return state.replace(U=U)
 
 
+def check_mesh(sim: SimConfig, grid: GridConfig, problem, mesh,
+               diff=None):
+    """Refuse on a mesh what the JAX package does not run on its explicit
+    multi-device path (simulation.py:262-267: a >1-device mesh, 3D, hydro,
+    Cartesian, no self-gravity, FARGO or SR, CTU) but through GSPMD's
+    implicit partitioning of its serial step, which the port has not
+    (ROADMAP C63): MHD, 2D and 1D grids, cylindrical grids, self-gravity,
+    FARGO, SR and VL, and with them the step's other global phases, the
+    microphysics update and a problem's userwork other than ioniz_sphere's
+    core reset; then the ghost fill's gaps (bvals.check_sharded, C61).  A
+    one-rank mesh takes the explicit path too."""
+    why = [
+        (sim.mhd, "MHD"),
+        (grid.ndim != 3, f"a {grid.ndim}D grid"),
+        (grid.cylindrical, "a cylindrical grid"),
+        (sim.self_gravity, "self-gravity"),
+        (sim.fargo, "FARGO"),
+        (sim.special_relativity, "special relativity"),
+        (sim.integrator != "ctu", f"the {sim.integrator.upper()} "
+                                  "integrator"),
+        (diff is not None, "the microphysics (diffusion) update"),
+        (hasattr(problem, "userwork_in_loop")
+         and not hasattr(problem, "userwork_aux_block"),
+         f"{type(problem).__name__}'s userwork"),
+    ]
+    bad = [what for hit, what in why if hit]
+    if bad:
+        raise NotImplementedError(
+            f"{', '.join(bad)} on a mesh {mesh.dims} (ROADMAP C63: the JAX "
+            "package runs these through GSPMD's implicit partitioning of "
+            "its serial step, not its explicit path, simulation.py:262-267)")
+    bvals.check_sharded(grid, sim, problem, mesh)
+
+
+def mesh_device(device, mesh):
+    """The simulation's device: `device`, which on a mesh must be the
+    mesh's (a bare "cuda" names the rank's GPU)."""
+    dev = resolve_device(device)
+    if mesh is None:
+        return dev
+    if dev.type != mesh.device.type or dev.index not in (None,
+                                                         mesh.device.index):
+        raise ValueError(f"device {dev} on a mesh whose device is "
+                         f"{mesh.device}")
+    return mesh.device
+
+
 class Simulation:
     def __init__(self, par: ParameterDB, sim: SimConfig, grid: GridConfig,
-                 problem, state: State, device="cuda"):
-        self.device = resolve_device(device)
+                 problem, state: State, device="cuda", mesh=None):
+        """With `mesh`, `state` is the global state: the simulation keeps
+        this rank's block of it, on the mesh's device, which `device` must
+        name."""
+        self.device = mesh_device(device, mesh)
         if state.U.device.type != self.device.type:
             raise ValueError(f"state on {state.U.device}, simulation on "
                              f"{self.device}")
+        self.mesh = mesh
         self.par = par
         self.sim = sim
         self.grid = grid
@@ -267,7 +334,9 @@ class Simulation:
         # JAX vl_lowd evaluates in its traced step); ctu1d evaluates it on
         # the x1 line itself (JAX simulation.py:219); cylindrical grids
         # add the x1GravAcc field (JAX simulation.py:270-272)
-        if grid.cylindrical:
+        if mesh is not None:
+            self.phi = None     # per-rank halo blocks, phi_halo below
+        elif grid.cylindrical:
             self.phi = cyl._phi_arrays(problem, grid, state.U.dtype,
                                        state.U.device)
         elif grid.ndim > 1 or self.integ is vl_lowd:
@@ -301,29 +370,51 @@ class Simulation:
         # cleared between steps
         self.particles = None
         self.par_params = None
+        self.phi_halo = None
+        if mesh is not None:
+            check_mesh(sim, grid, problem, mesh, self.diff)
+            from .parallel import mesh as mesh_mod, overlap
+            self.phi_halo = overlap.phi_halo_arrays(
+                problem, grid, mesh, state.U.dtype, mesh.device)
+            if self.uw_aux is not None:
+                self.uw_aux = problem.userwork_aux_block(
+                    self.uw_aux, mesh.block(grid.padded_shape()))
+            self.state = mesh_mod.shard_state(state, mesh, grid)
 
     # ------------------------------------------------------------------ setup
 
     @classmethod
     def from_par(cls, par: ParameterDB, problem: Optional[str] = None,
-                 dtype: Optional[str] = None, device="cuda",
+                 dtype: Optional[str] = None, device="cuda", mesh=None,
                  **sim_overrides) -> "Simulation":
+        """With `mesh` every rank builds the global initial state (init,
+        ghost fill, first dt, as without one) and keeps its block."""
         # multi-<domainN> decks run on the SMR hierarchy driver
         # (JAX simulation.py:107-113)
         if (par.geti_def("job", "num_domains", 1) > 1
                 and par.exist("domain2", "level")):
+            if mesh is not None:
+                raise NotImplementedError(
+                    "SMR on a mesh (ROADMAP C65: the JAX SMR driver, "
+                    "hierarchy.py, takes no mesh and steps every level on "
+                    "one device)")
             from .hierarchy import MeshSimulation
             return MeshSimulation.from_par(par, problem=problem, dtype=dtype,
                                            device=device, **sim_overrides)
-        dev = resolve_device(device)
+        dev = mesh_device(device, mesh)
         prob_cls, sim, grid = configure(par, problem, dtype, sim_overrides)
+        if mesh is not None and hasattr(prob_cls, "init_particles"):
+            raise NotImplementedError(
+                "particles on a multi-device mesh: the TSC scatter-add is "
+                "not sharded yet (bvals_particle.c MPI path; ROADMAP C64: "
+                "the JAX driver refuses them so, simulation.py:290-296)")
         prob = prob_cls(par, sim, grid)
         state = prob.init(par, sim, grid, dev)
         state = bvals.apply_bc(state, grid, sim, prob)
         state = state.replace(dt=dt_mod.new_dt(state, sim, grid,
                                                par.getd_def("time", "cour_no",
                                                             0.8)))
-        out = cls(par, sim, grid, prob, state, device=dev)
+        out = cls(par, sim, grid, prob, state, device=dev, mesh=mesh)
         if hasattr(prob, "init_particles"):
             # Lagrangian particles (init_particle.c; JAX simulation.py:
             # 134-140); the first dt is clamped by their CFL bound, as each
@@ -341,11 +432,11 @@ class Simulation:
     @classmethod
     def from_file(cls, path: str, problem: Optional[str] = None,
                   cmdline=(), dtype: Optional[str] = None, device="cuda",
-                  **sim_overrides) -> "Simulation":
+                  mesh=None, **sim_overrides) -> "Simulation":
         par = ParameterDB.from_file(path)
         par.apply_cmdline(cmdline)
         return cls.from_par(par, problem=problem, dtype=dtype, device=device,
-                            **sim_overrides)
+                            mesh=mesh, **sim_overrides)
 
     @classmethod
     def from_checkpoint(cls, path: str, problem: Optional[str] = None,
@@ -385,8 +476,14 @@ class Simulation:
 
     def step(self):
         """One cycle (main.c:541-669); dt may shrink in the radiation
-        sub-cycle, so it is a device value produced inside the step."""
-        sim, grid, problem = self.sim, self.grid, self.problem
+        sub-cycle, so it is a device value produced inside the step.  On
+        a mesh the ghost fill is apply_bc_sharded, hydro the halo-exchange
+        step and dt reduced over the ranks (check_mesh refuses the other
+        phases)."""
+        sim, grid, problem, mesh = self.sim, self.grid, self.problem, \
+            self.mesh
+        fill = (bvals.apply_bc if mesh is None else
+                functools.partial(bvals.apply_bc_sharded, mesh=mesh))
         state = self.state
         # dt for this cycle, clipped to land exactly on tlim (new_dt.c:183)
         dt = state.dt
@@ -408,12 +505,15 @@ class Simulation:
             with record_function("radiation"):
                 state, dt, niter = ion_radtransfer(
                     state.replace(dt=dt), sim, grid, self.ion, state.time,
-                    self.cour_no, return_niter=True)
+                    self.cour_no, return_niter=True, mesh=mesh)
             self.rad_iters.append(niter)
             with record_function("bvals"):
-                state = bvals.apply_bc(state, grid, sim, problem)
+                state = fill(state, grid, sim, problem)
         pts = self.particles
         if pts is not None:
+            if mesh is not None:
+                raise NotImplementedError(
+                    "particles on a multi-device mesh (ROADMAP C64)")
             from . import particles
             pp = self.par_params
             if pp is None:
@@ -441,6 +541,10 @@ class Simulation:
                 state, fluxes = self.integ.step(
                     state, dt, sim, grid, problem, phi=self.phi,
                     phi_sg=phi_sg, selfg_pars=self.selfg, return_fluxes=True)
+            elif mesh is not None:
+                from .parallel import overlap
+                state = overlap.hydro_step_sharded_grav(
+                    state, dt, sim, grid, mesh, phi_halo=self.phi_halo)
             else:
                 kw = ({} if self.phi_static is None
                       else {"phi_static": self.phi_static})
@@ -489,13 +593,22 @@ class Simulation:
         state = state.replace(time=state.time + dt, nstep=state.nstep + 1,
                               dt=dt)
         with record_function("new_dt"):
-            dt_next = dt_mod.new_dt(state, sim, grid, self.cour_no)
+            dt_next = dt_mod.new_dt(state, sim, grid, self.cour_no, mesh=mesh)
             if pts is not None:
                 # the particle CFL (new_dt.c:143-153), on the device
                 dt_next = particles.clamp_dt(pts, grid, self.cour_no, dt_next)
             state = state.replace(dt=dt_next)
         with record_function("bvals"):
-            self.state = bvals.apply_bc(state, grid, sim, problem)
+            self.state = fill(state, grid, sim, problem)
+
+    def gather(self):
+        """The global state of a mesh run (parallel.mesh.gather_state): on
+        the rank at group position 0, None on the others; the state itself
+        without a mesh."""
+        if self.mesh is None:
+            return self.state
+        from .parallel.mesh import gather_state
+        return gather_state(self.state, self.mesh, self.grid)
 
     def diffuse(self, state: State, dt):
         """The microphysics update of a cycle (JAX simulation.py:306-331):
@@ -544,6 +657,11 @@ class Simulation:
         zone_cycles_per_sec).  output_fn(sim) is called before each step
         and once at the end (data_output analogue); passing `outdir`
         instead builds the deck's <outputN> dispatcher."""
+        if self.mesh is not None and (output_fn is not None
+                                      or outdir is not None):
+            raise NotImplementedError(
+                "outputs of a mesh run (ROADMAP C66: the JAX writers read "
+                "the global sharded arrays; gather() the state first)")
         if output_fn is None and outdir is not None:
             output_fn = self.make_outputs(outdir)
         nlim = self.nlim if max_steps is None else max_steps

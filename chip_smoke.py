@@ -51,7 +51,12 @@ potential, jeans), which launches the CFL kernel and, on outflow faces,
 the ghost fill, as in the JAX package; and this slice's paths: Lagrangian
 particles (particles/, par_friction, par_epicycle, JAX's dusty box),
 plain as the JAX package's jnp, around the gas's kernels (the 3D hydro
-route without the H-correction; none on par_epicycle's MHD).
+route without the H-correction; none on par_epicycle's MHD); and this
+slice's path: the bench configuration on a mesh of ranks
+(Simulation(..., mesh=), parallel/: one process per rank, spawned by
+parallel.launch.run, gloo through host memory when ranks share the card,
+nccl where each has its own), each rank launching the serial path's
+kernels on its block.
 It checks
 each hand-written kernel against its plain PyTorch version on the card; a
 kernel with several forms (the solver, Roe, HLLC or HLLE, and B5's
@@ -63,7 +68,8 @@ and counted per form, "name[form]":
   1. build the CUDA kernels from csrc/ (nvcc, one process per source) and
      print the build time and ptxas's registers and spills of every CUDA
      kernel (each instantiation: element type, form and launch shape), and
-     from cuobjdump the SASS instructions of the batch kernel's per-cell
+     from cuobjdump (its dump runs beside phase 2; the counts are printed
+     after the NaN probe) the SASS instructions of the batch kernel's per-cell
      pass (both inlet forms) and of B5's and B12's per-interface loop (y,
      z) and body (x) in every form and launch shape (the run-time scalar
      forms: the loop with one pass of its scalar loop, and that loop's
@@ -81,7 +87,7 @@ and counted per form, "name[form]":
      SEED and the batch kernel on a 25-substep schedule of THETA x the
      state's limit: float64 at 64^3 (max error over interior cells <= TOL
      x the field's max) and float32 at 256^3, with CUDA-event times
-     (median) of both, the bound (bytes at the HBM rate or operations at
+     (the kernel's median, the plain version's compared call), the bound (bytes at the HBM rate or operations at
      the float32 rate, whichever is larger) and the library call where one
      exists (F.pad for the ghost fill); the ghost fill must equal its plain
      version bitwise, ghosts included, B1 (both inlet forms), B3, B5 (four
@@ -197,7 +203,18 @@ and counted per form, "name[form]":
      feedback, the dusty box (32^3 grains) and par_epicycle on the
      isothermal MHD shearing box, 5 cycles each against the port's plain
      CPU run, gas and grains at 1e-10 of each one's max, with their
-     launches;
+     launches; then (phase3_a14) the bench configuration at 64^3 float64
+     on 4 ranks that share the card over gloo, 3 cycles: on mesh (2,2,1)
+     (x whole on every rank: the batch and the hydro kernels per rank, the
+     loop's scalars reduced exactly) bit for bit the serial card run, on
+     (1,2,2) (x split: the plain K=1 loop with the distributed sweep, as
+     JAX's) within 1e-11 of each field's max of the serial run with
+     batch_iters 1, the K=1 loop without the H-correction on (2,2,1) bit
+     for bit (B2, B12 and the dF2 forms per rank), a one-rank nccl group
+     bit for bit, nccl across the GPUs where there are 4, each rank's
+     launches against its path's ("a14 x whole", "a14 x split", "a14 K=1
+     nohcorr": never the ghost-fill kernel, the sharded fill being plain
+     as JAX's);
   4. full width: the SMR main path, isph2lev at 256^3 + 256^3 float32
      (the child over the root's centre), maxiter=50, batch_iters=25, 3
      cycles through Simulation.from_file (no device argument: the card is
@@ -278,6 +295,14 @@ and counted per form, "name[form]":
      solution), CUDA-event ms with the grains and with s.particles
      cleared (the hooks' share), operators and host reads a cycle each
      way (the hooks add none), and a par_friction CLI cycle at 256^3;
+     then (phase4_a14) the bench configuration at 256^3 float32 with
+     batch_iters 25 on 4 ranks sharing the card over gloo, 3 cycles on
+     (2,2,1) (bit for bit the serial card run) and on (1,2,2) (within
+     1e-4 of each field's max of the serial run with batch_iters 1): rank
+     0's ms per cycle between barriers, each rank's halo-exchange ms (the
+     device synchronized around each exchange), collectives, bytes sent
+     and peak memory, each rank's launches, and the serial run's ms per
+     cycle beside them (ranks sharing one card give no scaling figure);
      phase 4's CLI cycles write no outputs
      (job/maxout=0) but the SMR one, which writes a history and a cons VTK
      output per level with -d (level 1's under lev1/ with a -lev1 problem
@@ -307,7 +332,8 @@ SMR_MHD_FULL run, all 0; "a13_a11_cyl_launches", in each
 A13_A11_CYL_FULL run; "a15_launches", in each A15_FULL run;
 "sr_selfg_launches", in each SR_SELFG_FULL run; "a15_rad_launches", in
 each RAD_FULL run; "particle_launches", in the dusty box and
-par_friction CLI runs of PAR_FULL; B7's isothermal
+par_friction CLI runs of PAR_FULL; "a14_launches", each rank's launches
+in each mesh run of phases 3-4 (rank order); B7's isothermal
 whole-flux form takes its launches from the isothermal SMR run), the
 nvidia-smi line
 before it, and the final line {"ok": true,
@@ -1416,11 +1442,10 @@ def check_counts(label, counts, path):
                              f"{path} path does not run")
 
 
-# timings of a plain version in phase 2 (its time is a yardstick, and
-# the plain sweeps take 40-100 ms a call at 256^3; one median, after a
-# warm-up) and of a kernel (its median taken twice, the lesser kept), cut
-# to fit the script's budget
-PLAIN_REPS = 1
+# timings of a kernel in phase 2 (its median taken twice, the lesser
+# kept); a plain version's time is its compared call's (a yardstick: the
+# plain sweeps take 40-100 ms a call at 256^3; a separate warmed timing
+# took two more calls of each), cut to fit the script's budget
 KERNEL_REPS = 10
 
 
@@ -2208,11 +2233,10 @@ def check_call(rec, name, kern, plain, args, grid, tol, timing):
     errors, B12's and B5-dF's bitwise checks, the bits that differ from the
     plain version (SHAPED and NS_FORMS kernels) and, with `timing`, the
     median CUDA-event ms of kernel (KERNEL_REPS runs, twice, the lesser
-    kept) and plain version (PLAIN_REPS runs, once), plain, kernel, kernel,
-    the bound
-    and the launch shapes' ms.  The NS_FORMS entries, some 230, are timed lighter:
-    the plain version's one compared call, the kernel's median of 5 runs,
-    and the operations counted on the first axis.  The plain version runs
+    kept) and the plain version's compared call, the bound
+    and the launch shapes' ms.  The NS_FORMS entries, some 230, are timed
+    lighter: the kernel's median of 5 runs, and the operations counted on
+    the first axis.  The plain version runs
     first and both outputs are dropped before the timings, so that a
     45-field state at 256^3 leaves the plain version room on the card."""
     quick = name in NS_FORMS
@@ -2254,12 +2278,10 @@ def check_call(rec, name, kern, plain, args, grid, tol, timing):
         r["bound_ms"] += 1e3 * max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     elif timing:
-        # plain, kernel, kernel
-        p1 = cuda_ms(lambda: plain(*args), reps=PLAIN_REPS)
         k1 = cuda_ms(lambda: kern(*args), reps=KERNEL_REPS)
         k2 = cuda_ms(lambda: kern(*args), reps=KERNEL_REPS)
         r["ms"] += min(k1, k2)
-        r["plain_ms"] += p1
+        r["plain_ms"] += t_plain
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = count_ops(lambda: plain(*args)) / FP32_OPS_PER_S
         r["bound_ms"] += 1e3 * max(t_bytes, t_ops)
@@ -6475,6 +6497,376 @@ def phase4_particles(n=PAR_FULL, ncyc=3, reps=3):
     return counts
 
 
+# ROADMAP A14: the mesh route of the bench configuration, per rank.  With x
+# whole on each rank (2,2,1) the bench kernels but the ghost fill (the
+# sharded fill is plain, as JAX's shard_map fill); with x split (1,2,2)
+# the hydro kernels and B11 around the plain radiation loop with the
+# distributed sweep (JAX takes its jnp loop there, driver.py:377-379); the
+# K=1 loop without the H-correction adds B2, B12 and the dF2 forms
+A14_X_WHOLE = MID + ["rad_batch", "rad_rates", "max_dti_hydro"]
+A14_X_SPLIT = MID + ["max_dti_hydro"]
+A14_K1_NOHC = (["sweep_lrflux_df", "gcross", "transverse_correct"] + NOHC
+               + ["rad_rates", "rad_update", "max_dti_hydro"])
+PATHS["a14 x whole"] = (A14_X_WHOLE, others(A14_X_WHOLE + ["rad_update"]))
+PATHS["a14 x split"] = (A14_X_SPLIT, others(A14_X_SPLIT))
+PATHS["a14 K=1 nohcorr"] = (A14_K1_NOHC, others(A14_K1_NOHC))
+A14_RANKS = 4
+A14_TOL = {"float64": 1e-11, "float32": 1e-4}
+
+
+def a14_cmd(n, k):
+    return [f"domain1/Nx1={n}", f"domain1/Nx2={n}", f"domain1/Nx3={n}",
+            f"ionradiation/maxiter={MAXITER}", f"ionradiation/batch_iters={k}"]
+
+
+def _group(n, size):
+    """A process group of the first `size` of the n ranks (None: the
+    world); every rank must call this."""
+    import torch.distributed as dist
+    if size == n:
+        return None
+    return dist.new_group(list(range(size)))
+
+
+def sim_worker(rank, n, runs):
+    """A rank function for parallel.launch.run: run each of `runs` (dicts)
+    on this rank and return a list of what each gave.  A run: ``deck``
+    (athinput text; ``{n}`` filled with ``size``), ``size``, ``problem``,
+    ``cmdline``, ``dtype``, ``kw`` (Simulation keywords), ``shape`` (the
+    mesh; its ranks are the first prod(shape) of the group, the others sit
+    it out), ``steps``, ``gather`` (rank 0 returns the global U, Eflux,
+    time, dt, nstep), ``timing`` (rank 0's ms per cycle after a barrier,
+    and each rank's halo-exchange ms, synchronizing the device around each
+    exchange), ``expect`` (a NotImplementedError or ValueError to catch
+    and return as its type name and message).  Each rank also returns its
+    coordinates, radiation sub-iterations, (time, dt, nstep), collectives,
+    halo exchanges, bytes sent and kernel launches (read_counts), and its
+    peak device memory."""
+    import math
+
+    import torch
+    from atmospheric_athena_tpu_torch import ParameterDB, Simulation
+    from atmospheric_athena_tpu_torch.parallel import launch
+    from atmospheric_athena_tpu_torch.parallel.mesh import make_mesh
+    out = []
+    for spec in runs:
+        shape = tuple(spec["shape"])
+        size = math.prod(shape)
+        group = _group(n, size)
+        if rank >= size:
+            out.append(None)
+            continue
+        dev = launch.RANK_DEVICE
+        mesh = make_mesh(size, shape=shape, group=group, device=dev)
+        res = dict(coords=mesh.coords, backend=mesh.backend,
+                   device=str(dev), staged=mesh.staged)
+        text = spec["deck"]
+        if "size" in spec:
+            text = text.format(n=spec["size"])
+        par = ParameterDB.from_string(text)
+        par.apply_cmdline(list(spec.get("cmdline", ())))
+        try:
+            s = Simulation.from_par(par, problem=spec.get("problem"),
+                                    dtype=spec.get("dtype", "float64"),
+                                    device=dev, mesh=mesh,
+                                    **spec.get("kw", {}))
+        except (NotImplementedError, ValueError) as e:
+            if not spec.get("expect"):
+                raise
+            res["error"] = (type(e).__name__, str(e))
+            out.append(res)
+            mesh.barrier()
+            continue
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        mesh.timing = bool(spec.get("timing"))
+        c0, h0 = mesh.collectives, mesh.halo_exchanges
+        mesh.barrier()
+        t0 = time.perf_counter()
+        for _ in range(spec.get("steps", 1)):
+            s.step()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        mesh.barrier()
+        wall = time.perf_counter() - t0
+        steps = spec.get("steps", 1)
+        res.update(
+            counts=read_counts(), rad_iters=list(s.rad_iters),
+            clock=(float(s.state.time), float(s.state.dt),
+                   int(s.state.nstep)),
+            collectives=mesh.collectives - c0,
+            halo_exchanges=mesh.halo_exchanges - h0,
+            halo_ms=1e3 * mesh.halo_seconds, p2p_bytes=mesh.p2p_bytes,
+            ms_per_cycle=1e3 * wall / steps, steps=steps,
+            peak_gib=(torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                      if dev.type == "cuda" else None))
+        mesh.timing = False
+        if spec.get("gather", True):
+            g = s.gather()
+            if g is not None:
+                res.update(U=g.U.cpu().numpy(), Eflux=(
+                    None if g.Eflux is None else g.Eflux.cpu().numpy()),
+                    time=float(g.time), dt=float(g.dt), nstep=int(g.nstep))
+        out.append(res)
+        del s
+        mesh.barrier()
+    return out
+
+
+def a14_run(label, n, dtype, shape, k, path, kw=None, timing=False,
+            ncyc=3):
+    """One mesh run of the bench configuration for
+    sim_worker, with its label and path."""
+    with open(DECK) as fh:
+        deck = fh.read()
+    return dict(deck=deck, problem="ioniz_sphere", cmdline=a14_cmd(n, k),
+                dtype=dtype, shape=shape, steps=ncyc, timing=timing,
+                kw=kw or {}, label=label, path=path, n=n, k=k)
+
+
+def a14_serial(n, dtype, k, kw=None, ncyc=3):
+    """The serial card run the mesh runs are held to: ncyc cycles of the
+    bench configuration through Simulation.from_file on the card.  Returns
+    the simulation and its ms per cycle (host clock around the cycles,
+    the device synchronized)."""
+    import torch
+    from atmospheric_athena_tpu_torch import Simulation
+    s = Simulation.from_file(DECK, problem="ioniz_sphere",
+                             cmdline=a14_cmd(n, k), dtype=dtype, **(kw or {}))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ncyc):
+        s.step()
+    torch.cuda.synchronize()
+    return s, 1e3 * (time.perf_counter() - t0) / ncyc
+
+
+def a14_check(spec, ranks, s, bitwise):
+    """Hold a mesh run (rank 0's gathered state) to the serial run `s`, on
+    the card: bit for bit (U with its ghosts, Eflux, time, dt, nstep) or
+    within A14_TOL[dtype] of each field's max; check each rank's launches
+    against the run's path.  Returns (worst field error, Eflux error, dt
+    rel)."""
+    import torch
+    r0 = ranks[0]
+    U, ef = s.state.U, s.state.Eflux
+    gU = torch.from_numpy(r0["U"]).to(U.device)
+    gef = torch.from_numpy(r0["Eflux"]).to(U.device)
+    dt, tm = float(s.state.dt), float(s.state.time)
+    errs = [float(torch.amax(torch.abs(gU[k] - U[k]))
+                  / (float(torch.amax(torch.abs(U[k]))) or 1.0))
+            for k in range(U.shape[0])]
+    ef_err = float(torch.amax(torch.abs(gef - ef)) / torch.amax(ef.abs()))
+    dt_rel = abs(r0["dt"] - dt) / dt
+    label = spec["label"]
+    if bitwise:
+        ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+
+        def same_bits(x, y):
+            return (x.dtype == y.dtype and x.shape == y.shape
+                    and torch.equal(x.view(ints[x.dtype]),
+                                    y.view(ints[y.dtype])))
+        same = (same_bits(gU, U) and same_bits(gef, ef)
+                and r0["dt"] == dt and r0["time"] == tm
+                and r0["nstep"] == int(s.state.nstep))
+        if not same:
+            raise AssertionError(
+                f"{label}: not bit for bit the serial run (fields "
+                f"{errs}, Eflux {ef_err:.3e}, dt {r0['dt']!r} against "
+                f"{dt!r}, time {r0['time']!r} against {tm!r})")
+    else:
+        tol = A14_TOL[spec["dtype"]]
+        if max(errs) > tol or ef_err > tol or dt_rel > tol:
+            raise AssertionError(f"{label}: fields {errs}, Eflux "
+                                 f"{ef_err:.3e}, dt rel {dt_rel:.3e} against "
+                                 f"{tol}")
+    if not bool(torch.isfinite(gU).all()):
+        raise AssertionError(f"{label}: non-finite cells")
+    for r in ranks:
+        if r["rad_iters"] != r0["rad_iters"]:
+            raise AssertionError(f"{label}: rank {r['coords']} radiation "
+                                 f"{r['rad_iters']} against {r0['rad_iters']}")
+        check_counts(f"{label} rank {r['coords']}", r["counts"],
+                     spec["path"])
+    return max(errs), ef_err, dt_rel
+
+
+def a14_line(spec, ranks, errs, bitwise, smi):
+    r0 = ranks[0]
+    ncyc = spec["steps"]
+    say(f"{spec['label']}: {spec['n']}^3 {spec['dtype']} batch_iters="
+        f"{spec['k']} on mesh {spec['shape']}, {len(ranks)} ranks, backend "
+        f"{r0['backend']} on {len({r['device'] for r in ranks})} GPU(s) "
+        f"({', '.join(sorted({r['device'] for r in ranks}))}; staged through "
+        f"host memory: {r0['staged']}), {ncyc} cycles: "
+        + ("bit for bit the serial card run (U with its ghosts, Eflux, "
+           "time, dt)" if bitwise else
+           f"fields within {errs[0]:.3e} of each one's max, Eflux "
+           f"{errs[1]:.3e}, dt rel {errs[2]:.3e} of the serial card run "
+           f"(tolerance {A14_TOL[spec['dtype']]})")
+        + f"; radiation sub-iterations {r0['rad_iters']}; rank 0 "
+        f"{r0['ms_per_cycle']:.2f} ms per cycle (between barriers"
+        + (", the device synchronized around each halo exchange"
+           if spec.get("timing") else "")
+        + f"); per cycle and rank: halo exchanges "
+        f"{[r['halo_exchanges'] / ncyc for r in ranks]}, halo ms "
+        f"{[round(r['halo_ms'] / ncyc, 3) for r in ranks]}, collectives "
+        f"{[r['collectives'] / ncyc for r in ranks]}, MB sent "
+        f"{[round(r['p2p_bytes'] / ncyc / 1e6, 2) for r in ranks]}; peak "
+        f"device memory per rank (GiB, the cycles) "
+        f"{[None if r['peak_gib'] is None else round(r['peak_gib'], 2) for r in ranks]}"
+        f"; launches per rank (rank 0) "
+        f"{ {k: v for k, v in r0['counts'].items() if v} }; "
+        f"{smi}; ranks sharing one card give no scaling figure")
+
+
+def a14_nccl_one(n, dtype, k, s_ref):
+    """A one-rank nccl group in this process: the bench configuration on a
+    (1,1,1) mesh, bit for bit the serial run `s_ref`."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from atmospheric_athena_tpu_torch import Simulation
+    from atmospheric_athena_tpu_torch.parallel.mesh import make_mesh
+    tmp = tempfile.mkdtemp(prefix="a14_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/group",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, shape=(1, 1, 1),
+                         device=torch.device("cuda", 0))
+        s = Simulation.from_file(DECK, problem="ioniz_sphere",
+                                 cmdline=a14_cmd(n, k), dtype=dtype,
+                                 mesh=mesh)
+        reset_counts()
+        for _ in range(3):
+            s.step()
+        g = s.gather()
+        raw = read_counts()
+        spec = dict(label=f"phase 3 A14 nccl {mesh.dims}", dtype=dtype,
+                    path="a14 x whole")
+        a14_check(spec, [dict(U=g.U.cpu().numpy(),
+                              Eflux=g.Eflux.cpu().numpy(), dt=float(g.dt),
+                              time=float(g.time), nstep=int(g.nstep),
+                              rad_iters=s.rad_iters, coords=mesh.coords,
+                              counts=raw)], s_ref, bitwise=True)
+        coll, halos = mesh.collectives, mesh.halo_exchanges
+        # a fourth cycle of each from the same bits: nccl keeps the
+        # reductions on the device, so the mesh cycle reads the host as
+        # often as the serial one
+        ops, reads = count_dispatch(s.step, reads=True)
+        ops_s, reads_s = count_dispatch(s_ref.step, reads=True)
+        if reads != reads_s:
+            raise AssertionError(f"phase 3 A14 nccl: {reads} host reads a "
+                                 f"cycle on the mesh, {reads_s} serial")
+        say(f"phase 3 A14: {n}^3 {dtype} batch_iters={k} on a one-rank "
+            f"nccl group (mesh {mesh.dims}, backend {mesh.backend}, 1 GPU), "
+            f"3 cycles: bit for bit the serial card run; {coll} "
+            f"collectives, {halos} halo exchanges (local wraps); a fourth "
+            f"cycle: {reads} host reads and {ops} "
+            f"operators, the serial cycle {reads_s} and {ops_s}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase3_a14(n=64, dtype="float64"):
+    """ROADMAP A14 on the card at n^3 float64: the bench configuration on
+    A14_RANKS ranks that share the GPU over gloo (parallel.launch.run), 3
+    cycles on (2,2,1) bit for bit the serial card run with batch_iters 25,
+    on (1,2,2) (x split: the K=1 plain loop with the distributed sweep)
+    within 1e-11 of each field's max of the serial run with batch_iters 1,
+    and the K=1 loop without the H-correction on (2,2,1) bit for bit its
+    serial run; then a one-rank nccl group bit for bit, and nccl across
+    the GPUs where there are A14_RANKS of them.  Returns {label: [each
+    rank's launches]}."""
+    import torch
+    from atmospheric_athena_tpu_torch.parallel import launch
+    smi = smi_line()
+    nohc = dict(h_correction=False)
+    runs = [a14_run("phase 3 A14 x whole", n, dtype, (2, 2, 1), BATCH_K,
+                    "a14 x whole"),
+            a14_run("phase 3 A14 x split", n, dtype, (1, 2, 2), BATCH_K,
+                    "a14 x split"),
+            a14_run("phase 3 A14 K=1 no H-correction", n, dtype, (2, 2, 1),
+                    1, "a14 K=1 nohcorr", kw=nohc)]
+    t0 = time.perf_counter()
+    res = launch.run(sim_worker, A14_RANKS, runs, backend="gloo",
+                     device="cuda")
+    spawn_s = time.perf_counter() - t0
+    refs = {(BATCH_K, False): a14_serial(n, dtype, BATCH_K)[0],
+            (1, False): a14_serial(n, dtype, 1)[0],
+            (1, True): a14_serial(n, dtype, 1, kw=nohc)[0]}
+    counts = {}
+    for j, spec in enumerate(runs):
+        ranks = [r[j] for r in res]
+        bitwise = spec["shape"][2] == 1
+        ref = refs[(spec["k"] if bitwise else 1, bool(spec["kw"]))]
+        errs = a14_check(spec, ranks, ref, bitwise)
+        a14_line(spec, ranks, errs, bitwise, smi)
+        counts[spec["label"]] = [r["counts"] for r in ranks]
+    say(f"phase 3 A14: {A14_RANKS} ranks spawned, three runs, in "
+        f"{spawn_s:.1f} s")
+    a14_nccl_one(n, dtype, BATCH_K, refs[(BATCH_K, False)])
+    ngpu = torch.cuda.device_count()
+    if ngpu >= A14_RANKS:
+        spec = a14_run("phase 3 A14 nccl", n, dtype, (2, 2, 1), BATCH_K,
+                       "a14 x whole")
+        res = launch.run(sim_worker, A14_RANKS, [spec],
+                         backend="nccl", device="cuda")
+        ranks = [r[0] for r in res]
+        errs = a14_check(spec, ranks, refs[(BATCH_K, False)], True)
+        a14_line(spec, ranks, errs, True, smi)
+    else:
+        say(f"phase 3 A14: nccl across GPUs not run: {ngpu} GPU(s), "
+            f"{A14_RANKS} ranks need {A14_RANKS}")
+    del refs
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase4_a14(n=256, dtype="float32"):
+    """ROADMAP A14 at full width: the bench configuration at n^3 float32
+    with batch_iters 25 on A14_RANKS ranks sharing the GPU over gloo, 3
+    cycles on (2,2,1) (bit for bit the serial card run) and on (1,2,2)
+    (within 1e-4 of each field's max of the serial run with batch_iters
+    1, the route's K=1 loop): rank 0's ms per cycle after a barrier, each
+    rank's halo-exchange ms (the device synchronized around each
+    exchange), collectives and peak memory, each rank's launches.  Returns
+    {label: [each rank's launches]}."""
+    import torch
+    from atmospheric_athena_tpu_torch.parallel import launch
+    smi = smi_line()
+    runs = [a14_run("phase 4 A14 x whole", n, dtype, (2, 2, 1), BATCH_K,
+                    "a14 x whole", timing=True),
+            a14_run("phase 4 A14 x split", n, dtype, (1, 2, 2), BATCH_K,
+                    "a14 x split", timing=True)]
+    t0 = time.perf_counter()
+    res = launch.run(sim_worker, A14_RANKS, runs, backend="gloo",
+                     device="cuda")
+    spawn_s = time.perf_counter() - t0
+    counts = {}
+    for j, spec in enumerate(runs):
+        ranks = [r[j] for r in res]
+        bitwise = spec["shape"][2] == 1
+        ref, ref_ms = a14_serial(n, dtype, BATCH_K if bitwise else 1)
+        errs = a14_check(spec, ranks, ref, bitwise)
+        a14_line(spec, ranks, errs, bitwise, smi)
+        say(f"{spec['label']}: the serial card run with batch_iters "
+            f"{spec['k'] if bitwise else 1} (one process, the whole grid), "
+            f"{ref_ms:.2f} ms per cycle over its 3 cycles (device "
+            f"synchronized; radiation sub-iterations {ref.rad_iters}); "
+            f"{smi}")
+        counts[spec["label"]] = [r["counts"] for r in ranks]
+        del ref
+        torch.cuda.empty_cache()
+    say(f"phase 4 A14: {A14_RANKS} ranks spawned, two runs, in "
+        f"{spawn_s:.1f} s")
+    return counts
+
+
 def batch_vs_k1(ncycles=3):
     """The batch path (batch_iters=BATCH_K) against the K=1 path on the
     isph64 deck (64^3 float64), ncycles cycles from the state after one K=1
@@ -7167,23 +7559,43 @@ def form_regs(name, regs):
 _SASS = {}
 
 
-def sass_loops(kernel, label, outer=False):
-    """The innermost loops of one instantiation of `kernel` in the built
-    library (cuobjdump -sass, run once): the static instruction count of
-    each loop body, found as the address range [target, branch] of each
-    backward branch that holds no other (with `outer`, of every loop).
-    `label` picks the instantiation by its mangled template arguments
-    (e.g. "IfLi4ELi1E" for <float, 4, 1>).  Returns the counts, largest
-    first, and the function's whole static instruction count."""
-    import re
+def start_sass_dump():
+    """Start `cuobjdump -sass` of the built library in the background (run
+    in line, it made most of phase 1's 100 s beside the build), its output
+    into a temporary file, for sass_loops to read when it first needs
+    it."""
+    import tempfile
     from pathlib import Path
     from atmospheric_athena_tpu_torch import cuda_lib
+    tool = Path(cuda_lib.nvcc()).parent / "cuobjdump"
+    fh = tempfile.TemporaryFile(mode="w+")
+    _SASS["dump"] = (fh, subprocess.Popen(
+        [str(tool), "-sass", str(cuda_lib.library_path())], stdout=fh,
+        stderr=subprocess.PIPE, text=True))
+
+
+def sass_loops(kernel, label, outer=False):
+    """The innermost loops of one instantiation of `kernel` in the built
+    library (cuobjdump -sass, run once, started by start_sass_dump): the
+    static instruction count of each loop body, found as the address range
+    [target, branch] of each backward branch that holds no other (with
+    `outer`, of every loop).  `label` picks the instantiation by its
+    mangled template arguments (e.g. "IfLi4ELi1E" for <float, 4, 1>).
+    Returns the counts, largest first, and the function's whole static
+    instruction count."""
+    import re
     if "funcs" not in _SASS:
         # the dump split once into (function name, its lines)
-        tool = Path(cuda_lib.nvcc()).parent / "cuobjdump"
-        out = subprocess.run(
-            [str(tool), "-sass", str(cuda_lib.library_path())],
-            capture_output=True, text=True, timeout=300, check=True).stdout
+        if "dump" not in _SASS:
+            start_sass_dump()
+        fh, proc = _SASS.pop("dump")
+        _, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise subprocess.CalledProcessError(proc.returncode, proc.args,
+                                                stderr=err)
+        fh.seek(0)
+        out = fh.read()
+        fh.close()
         funcs = []
         for line in out.splitlines():
             if "Function : " in line:
@@ -7195,19 +7607,20 @@ def sass_loops(kernel, label, outer=False):
     body = next((lines for name, lines in _SASS["funcs"] if want in name),
                 [])
     addrs, labels, branches = [], {}, []
+    pending = []     # labels waiting for the address of the next instruction
     for line in body:
         m = re.match(r"\s*(\.L_x_\d+):", line)
         if m:
-            labels[m.group(1)] = None
+            pending.append(m.group(1))
             continue
         m = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
         if not m:
             continue
         a = int(m.group(1), 16)
         addrs.append(a)
-        for k, v in labels.items():
-            if v is None:
-                labels[k] = a
+        for k in pending:
+            labels[k] = a
+        pending.clear()
         b = re.search(r"\bBRA(?:\.\S+)?\s+`?\(?(0x[0-9a-f]+|\.L_x_\d+)",
                       m.group(2))
         if b:
@@ -7444,14 +7857,15 @@ def main():
     t0 = time.perf_counter()
     cuda_lib.lib()
     say(f"phase 1 nvcc build of csrc/*.cu: {time.perf_counter() - t0:.1f} s")
+    # the SASS dump runs on a core of its own while phase 2 runs; the SASS
+    # counts are read after phase 2
+    start_sass_dump()
     regs = {}
     for name, route, source, _ in KERNELS:
         key = (base_name(name), os.path.basename(source))
         if route == "cuda" and key not in regs:
             regs[key] = ptxas_report(key[1], SYMBOLS[key[0]])
             say(f"phase 1 ptxas {key[0]} ({key[1]}): {regs[key]}")
-    sass = sass_batch()
-    sass_h = sass_hydro()
     march_occupancy()
     ppm_occ = ppm_occupancy()
     lap = Laps(t_all)
@@ -7472,6 +7886,9 @@ def main():
             + f"): {rec[name]['shapes_ms']}; ptxas {form_regs(name, regs)}")
     nan_probe()
     lap("phase 2 NaN probe")
+    sass = sass_batch()
+    sass_h = sass_hydro()
+    lap("phase 1's SASS counts (the dump ran during phase 2)")
     phase3()
     p3 = phase3_forms()
     lap("phase 3")
@@ -7498,6 +7915,8 @@ def main():
     lap("phase 3 radiation beyond the kernels' slice")
     p3.update(phase3_particles())
     lap("phase 3 particles")
+    a14_3 = phase3_a14()
+    lap("phase 3 multi-GPU (A14)")
     smr, _ = phase4_smr()
     counts, _ = phase4()
     counts["smr"] = smr
@@ -7531,6 +7950,8 @@ def main():
     lap("phase 4 radiation beyond the kernels' slice")
     par = phase4_particles()
     lap("phase 4 particles")
+    a14 = phase4_a14()
+    lap("phase 4 multi-GPU (A14)")
     phase5()
     lap("phase 5")
 
@@ -7601,6 +8022,10 @@ def main():
         # par_friction CLI cycle, the 3D hydro route's kernels around the
         # plain particle hooks
         k["particle_launches"] = {p: c[name] for p, c in par.items()}
+        # this slice's mesh runs (phases 3-4 A14): each rank's launches,
+        # rank order, 4 ranks sharing the card
+        k["a14_launches"] = {p: [c[name] for c in ranks]
+                             for p, ranks in {**a14_3, **a14}.items()}
         kernels.append(k)
     say(f"chip_smoke: all phases in {time.perf_counter() - t_all:.1f} s")
     say(smi_line())

@@ -14,8 +14,11 @@ the exact solver, HLLD, 2D and 3D SR MHD with FOFC) and of jeans with each
 self-gravity solver (gravity/), of the MHD, 2D and 1D ifront and a
 radiation step with two planes and a point source (ionrad/point.py,
 chemistry.py), a step of par_friction, par_epicycle and the dusty box
-(particles/, utils/log.py) with JAX made unimportable (chip_smoke.py
-imported too), and it refuses a CUDA device when none is visible."""
+(particles/, utils/log.py), imports parallel/ and takes a 2-rank gloo
+step on a mesh (parallel.launch.dryrun_multichip; the spawned ranks find
+a jax package that raises on import) with JAX made unimportable
+(chip_smoke.py imported too), and it refuses a CUDA device when none is
+visible."""
 
 import os
 import subprocess
@@ -253,6 +256,15 @@ q, _ = chip_smoke.dusty_box(8, "cpu")
 q.step()
 assert bool(torch.isfinite(q.state.U).all()) and bool(q.particles.alive.all())
 ath_pout(1, "not shown at level 0")
+fake = os.path.join(outdir, "nojax")
+os.makedirs(os.path.join(fake, "jax"))
+with open(os.path.join(fake, "jax", "__init__.py"), "w") as fh:
+    fh.write("raise ImportError('jax is unimportable in this test')")
+os.environ["PYTHONPATH"] = fake    # the spawned ranks cannot import jax
+from atmospheric_athena_tpu_torch.parallel import halo, launch, mesh, overlap
+r0 = launch.dryrun_multichip(2, device="cpu",
+                             cmdline=["ionradiation/maxiter=20"])
+assert r0["coords"] == (0, 0, 0) and r0["nstep"] == 1 and r0["dt"] > 0
 bad = sorted(m for m in set(sys.modules) - pre
              if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                     "atmospheric_athena_tpu")
