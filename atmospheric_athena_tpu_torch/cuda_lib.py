@@ -43,8 +43,8 @@ _L = ctypes.c_longlong
 _D = ctypes.c_double
 
 # C signatures of the entry points (csrc/hydro.cu, csrc/ctu_mid.cu,
-# csrc/rad.cu, csrc/rad_batch.cu, csrc/bvals.cu; B5 at orders other than 2
-# and for isothermal gas is built in csrc/hydro_*.cu behind
+# csrc/rad.cu, csrc/rad_batch.cu, csrc/bvals.cu, csrc/util.cu; B5 at orders
+# other than 2 and for isothermal gas is built in csrc/hydro_*.cu behind
 # ath_sweep_f32/f64, B12 and B13 for isothermal gas in csrc/flux_iso.cu)
 _SIGNATURES = {
     "ath_sweep_f32": [_P] * 9 + [_I] * 13 + [_D, _D, _P],
@@ -56,8 +56,8 @@ _SIGNATURES = {
     "ath_march_info": [_I] * 12 + [_P],
     "ath_gcross_f32": [_P] * 10 + [_I] * 3 + [_P],
     "ath_gcross_f64": [_P] * 10 + [_I] * 3 + [_P],
-    "ath_transverse_f32": [_P] * 12 + [_I] * 7 + [_D, _D, _P],
-    "ath_transverse_f64": [_P] * 12 + [_I] * 7 + [_D, _D, _P],
+    "ath_transverse_f32": [_P] * 12 + [_I] * 11 + [_D, _D, _P],
+    "ath_transverse_f64": [_P] * 12 + [_I] * 11 + [_D, _D, _P],
     "ath_flux_corrected_f32": [_P] * 6 + [_I] * 7 + [_D, _D, _P],
     "ath_flux_corrected_f64": [_P] * 6 + [_I] * 7 + [_D, _D, _P],
     "ath_grav_source_f32": [_P] * 17 + [_I] * 3 + [_P],
@@ -74,6 +74,8 @@ _SIGNATURES = {
     "ath_rad_batch_f64": [_P] * 21 + [_I] * 4 + [_P, _P],
     "ath_bc_fill_f32": [_P] * 2 + [_I] * 12 + [_P],
     "ath_bc_fill_f64": [_P] * 2 + [_I] * 12 + [_P],
+    "ath_max_dti_f32": [_P] * 4 + [_I] * 12 + [_D] * 6 + [_P],
+    "ath_max_dti_f64": [_P] * 4 + [_I] * 12 + [_D] * 6 + [_P],
     "ath_rad_rates_blocks": [_I, _I],
     "ath_rad_fused_blocks": [_I],
     "ath_rad_batch_blocks": [_I, _I],

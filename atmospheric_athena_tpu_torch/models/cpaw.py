@@ -3,8 +3,8 @@ src/prob/cpaw3d.c), as in ``atmospheric_athena_tpu/models/cpaw.py``.
 
 An EXACT nonlinear MHD solution: the wave propagates at v_A = b_par/√ρ
 without change of form, so the L1 error after whole periods measures both
-accuracy and dispersion/diffusion of the CT scheme (the JAX models'
-``l1_error``; the port's tests compare states).  ``cpaw``/``cpaw1d``
+accuracy and dispersion/diffusion of the CT scheme (``l1_error``, a
+Python float as the JAX models return).  ``cpaw``/``cpaw1d``
 is the 1D version (one wavelength across the domain, right/left
 polarization), ``cpaw3d`` the wave oblique to every grid axis with its face
 fields from line integrals of the vector potential.  The profiles are
@@ -78,6 +78,23 @@ class Cpaw:
             Bcc[b] = _t(sol[f"B{b + 1}"], Bcc[b])
         return st.replace(U=U, Bcc=Bcc, B1i=Bcc[0].clone(),
                           B2i=Bcc[1].clone(), B3i=Bcc[2].clone())
+
+    def l1_error(self, state, sim, grid):
+        """L1 error against the exact (initial) solution after whole
+        periods: the interior mean of |U - U0| over d, M1, M2, M3 and of
+        |Bcc - Bcc0| over B2, B3, summed (JAX cpaw.py:76-88)."""
+        sol = self._solution(sim, grid)
+        sl = grid.interior()
+        n = state.U[0][sl].numel()
+        err = 0.0
+        for k, name in ((ID, "d"), (IM1, "M1"), (IM1 + 1, "M2"),
+                        (IM1 + 2, "M3")):
+            ref = _t(sol[name], state.U[k])
+            err += float(torch.abs(state.U[k][sl] - ref[sl]).sum()) / n
+        for b, name in ((1, "B2"), (2, "B3")):
+            ref = _t(sol[name], state.Bcc[b])
+            err += float(torch.abs(state.Bcc[b][sl] - ref[sl]).sum()) / n
+        return err
 
 
 @register("cpaw3d")
@@ -207,3 +224,20 @@ class Cpaw3d:
                                + U[IM1 + 2] ** 2))
         return st.replace(U=U, Bcc=Bcc, B1i=faces[0], B2i=faces[1],
                           B3i=faces[2])
+
+    def l1_error(self, state, sim, grid):
+        """L1 error against the initial state after whole periods (cpaw3d.c
+        Userwork_after_loop pattern: compare to RootSoln): the interior
+        mean of |U - U0| over d, M1, M2, M3 and of |Bcc - Bcc0| over the
+        three components, summed (JAX cpaw.py:248-260)."""
+        init = self.init(None, sim, grid, state.U.device)
+        sl = grid.interior()
+        n = state.U[0][sl].numel()
+        err = 0.0
+        for k in (ID, IM1, IM1 + 1, IM1 + 2):
+            err += float(torch.abs(state.U[k][sl]
+                                   - init.U[k][sl]).sum()) / n
+        for b in (0, 1, 2):
+            err += float(torch.abs(state.Bcc[b][sl]
+                                   - init.Bcc[b][sl]).sum()) / n
+        return err

@@ -53,6 +53,7 @@ import math
 import os
 from collections import Counter
 
+import numpy as np
 import torch
 
 from .. import cuda_lib
@@ -239,6 +240,101 @@ def _fn(name, like):
                    else f"ath_{name}_f32")
 
 
+# B7's whole-flux form (csrc/ctu_mid.cu transverse_march_kernel and
+# transverse_x_kernel): threads a block of the march along y and z
+# (kMarchThreads), the cells a segment of it aims at (24: the fastest or
+# within 3% of it at 256^3 float32 among 12, 24 and 48 and either order of
+# the blocks, tools/torch_time_mid.py on the H100), and the most threads a
+# block of the x tile (kTileMax)
+MARCH_THREADS = 256
+MARCH_SEG = 24
+TILE_MAX = 512
+
+
+def trans_plan(shape, axis: int):
+    """The launch of B7's whole-flux form along `axis` on a padded array
+    `shape` (nz, ny, nx).  Along x (kind "tile"): x rows cut into
+    `npieces` pieces of at most `piece` cells, a slot of piece + 1 threads
+    each (the first the -x halo cell), `rows` slots a block of `threads`
+    threads, `blocks` blocks.  Along y and z (kind "march"): a thread per
+    (t, x) line, `lanes` of them in `blocks` blocks of `threads`, each line
+    cut into `nseg` segments of `seg` cells (the last may be shorter), a
+    row of `blocks` blocks per segment."""
+    nz, ny, nx = shape
+    if axis == 0:
+        npieces = -(-nx // (TILE_MAX - 1))
+        piece = -(-nx // npieces)
+        rows = max(1, TILE_MAX // (piece + 1))
+        threads = -(-rows * (piece + 1) // 32) * 32
+        return dict(kind="tile", piece=piece, npieces=npieces, rows=rows,
+                    threads=threads, blocks=-(-ny * nz * npieces // rows))
+    na = shape[2 - axis]
+    lanes = (nz if axis == 1 else ny) * nx
+    nseg = -(-na // MARCH_SEG)
+    return dict(kind="march", seg=-(-na // nseg), nseg=nseg, lanes=lanes,
+                threads=MARCH_THREADS, blocks=-(-lanes // MARCH_THREADS))
+
+
+def _plan_args(plan):
+    """The four plan integers of the C entry point (launch_transverse)."""
+    if plan["kind"] == "tile":
+        return plan["piece"], plan["npieces"], plan["rows"], plan["threads"]
+    return plan["seg"], plan["nseg"], plan["threads"], plan["blocks"]
+
+
+def trans_cover(plan, shape, axis: int):
+    """Emulate the index arithmetic of B7's whole-flux kernels for `plan`
+    (trans_plan) on a padded array `shape`: returns (count, prev), flat
+    arrays over the cells, count[c] the times cell c's outputs are written
+    and prev[c] the flat cell whose transverse sum its left state takes
+    (the cell one step back along `axis` when the kernel is right)."""
+    nz, ny, nx = shape
+    n = nz * ny * nx
+    count = np.zeros(n, np.int16)
+    prev = np.full(n, -1, np.int64)
+    if plan["kind"] == "tile":
+        slot = plan["piece"] + 1
+        tid = np.arange(plan["threads"])
+        sl, j = tid // slot, tid % slot
+        nslots = ny * nz * plan["npieces"]
+        for b0 in range(0, plan["blocks"], 4096):
+            b = np.arange(b0, min(b0 + 4096, plan["blocks"]))[:, None]
+            gs = b * plan["rows"] + sl[None, :]
+            inslot = (sl[None, :] < plan["rows"]) & (gs < nslots)
+            row = np.where(inslot, gs // plan["npieces"], 0)
+            x0 = (gs - row * plan["npieces"]) * plan["piece"]
+            length = np.minimum(plan["piece"], nx - x0)
+            jj = np.broadcast_to(j[None, :], gs.shape)
+            x = np.where(jj == 0, np.where(x0 == 0, nx - 1, x0 - 1),
+                         x0 + jj - 1)
+            out = inslot & (jj >= 1) & (jj - 1 < length)
+            x = np.where(out | (jj == 0), x, x0)
+            cell = row * nx + x
+            # a thread's left state reads the sum of the thread before it
+            cprev = np.concatenate([np.full((len(b), 1), -1), cell[:, :-1]],
+                                   axis=1)
+            np.add.at(count, cell[out], 1)
+            prev[cell[out]] = cprev[out]
+        return count, prev
+    # the march: a line (t, x) per thread (blockIdx.x, threadIdx.x), its
+    # segments along the a-line (blockIdx.y)
+    st, sa = (nx * ny, nx) if axis == 1 else (nx, nx * ny)
+    na = shape[2 - axis]
+    for seg in range(plan["nseg"]):
+        gi = np.arange(plan["blocks"] * plan["threads"])
+        live = gi < plan["lanes"]
+        li = np.where(live, gi, plan["lanes"] - 1)
+        base = (li // nx) * st + li % nx
+        k0 = seg * plan["seg"]
+        p = base + ((na - 1) if k0 == 0 else k0 - 1) * sa
+        for k in range(k0, min(na, k0 + plan["seg"])):
+            c = base + k * sa
+            np.add.at(count, c[live], 1)
+            prev[c[live]] = p[live]
+            p = c
+    return count, prev
+
+
 def gcross(U, phic, phif, Fp, q, axes):
     """Static-gravity transverse cross terms: {b: [2, NZ, NY, NX]}, rows
     (dM_b, dE_b).  U [nv, ...]; phic, phif[b] fields; Fp[b] the first-pass
@@ -276,11 +372,12 @@ def transverse_correct(Ulp, Urp, dFp, G, q, sim: SimConfig, a: int, axes,
     first-pass fluxes from sweep_lrflux (an SMR level's step); G: gcross
     output or None without gravity.
 
-    Kernel (CUDA tensors): csrc/ctu_mid.cu transverse_kernel, replacing
+    Kernel (CUDA tensors): csrc/ctu_mid.cu, replacing
     ops/pallas_ctu_mid.py:_trans_kernel in both forms; bound by its 28
-    field loads and 13 stores per cell (the Fp form reads four views of
-    each F_b, three of them neighbours that are mostly cache hits, and
-    forms both differences in registers)."""
+    field loads and 13 stores per cell.  The dF form is transverse_kernel,
+    a thread a cell; the Fp form (trans_plan) forms each cell's transverse
+    sum once and hands it to the next cell along a: transverse_march_kernel
+    along y and z, transverse_x_kernel along x."""
     if (dFp is None) == (Fp is None):
         raise ValueError("transverse_correct: give dFp or Fp")
     if Ulp.device.type != "cuda":
@@ -300,11 +397,13 @@ def transverse_correct(Ulp, Urp, dFp, G, q, sim: SimConfig, a: int, axes,
     Urc = torch.empty_like(Urp)
     eta = torch.empty_like(Ulp[0]) if sim.h_correction else None
     qv = cuda_lib.scalar_arg([q[b] for b in range(3)], Ulp)
+    plan = (0,) * 4 if Fp is None else _plan_args(
+        trans_plan((nz, ny, nx), a))
     err = _fn("transverse", Ulp)(
         Ulp.data_ptr(), Urp.data_ptr(), *[_ptr(t) for t in dF],
         *[_ptr(t) for t in Gs], qv.data_ptr(), Ulc.data_ptr(), Urc.data_ptr(),
         _ptr(eta), nz, ny, nx, a, sim.nscalars, int(not sim.adiabatic),
-        int(Fp is not None), *hydro_kernels.eos_args(sim),
+        int(Fp is not None), *plan, *hydro_kernels.eos_args(sim),
         cuda_lib.stream_ptr(Ulp.device))
     cuda_lib.check(err, "transverse_correct")
     transverse_correct.launches += 1

@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # needs one CUDA GPU, nvcc and triton
+    python3 chip_smoke.py            # needs one CUDA GPU and nvcc
 
 Drives the port's main path — ioniz_sphere on a static-mesh-refined
 hierarchy (tests/golden/athinput.isph2lev: a root and one child at twice
@@ -97,7 +97,11 @@ and counted per form, "name[form]":
      of B13's flux on the same states bitwise and B5's dF form the
      whole-flux form's Ul, Ur, density flux and roll-and-subtract bitwise
      (each in every launch shape), B7 from
-     the whole fluxes its dF form on the same fluxes bitwise, and B3' (the
+     the whole fluxes its dF form on the same fluxes bitwise, B11 (the
+     CFL reduction, csrc/util.cu) its plain version on the card bitwise in
+     each gas on the grid's interior and on a mesh rank's window of its
+     block, and in float64 (64^3: the isph64 deck's dx) the CPU's plain
+     version bitwise where m * (1/dx) != m / dx (b11_bits, C67), and B3' (the
      fused update + rates, on no path, as in the JAX package) update_fn
      followed by rates_fn of the same build within TOL, timed against
      them; every PPM form of B5 and every MANY_FORMS entry with not one
@@ -776,7 +780,7 @@ FIELDS_MOVED = {
     "rad_fused[inlet]": (19, "interior"),
     "rad_batch": (13, "interior"),         # s0, E, code, d, 3 M, e_init,
                                            # x_init -> s0, E, code, efb
-    "max_dti_hydro": (5, "padded"),        # d, M1, M2, M3, E
+    "max_dti_hydro": (5, "interior"),      # d, M1, M2, M3, E
     "bc_fill": (12, "padded"),             # U (6 fields) -> U
 }
 
@@ -838,8 +842,7 @@ KERNELS = [
      "atmospheric_athena_tpu/ionrad/pallas_rad.py:213"),
     ("rad_batch", "cuda", "atmospheric_athena_tpu_torch/csrc/rad_batch.cu",
      "atmospheric_athena_tpu/ionrad/pallas_rad.py:448"),
-    ("max_dti_hydro", "triton",
-     "atmospheric_athena_tpu_torch/ops/util_kernels.py",
+    ("max_dti_hydro", "cuda", "atmospheric_athena_tpu_torch/csrc/util.cu",
      "atmospheric_athena_tpu/ops/pallas_util.py:42"),
     ("bc_fill", "cuda", "atmospheric_athena_tpu_torch/csrc/bvals.cu",
      "atmospheric_athena_tpu/bvals.py:152"),
@@ -922,10 +925,8 @@ for _name in ISO_FORMS:
     else:
         _src = "ctu_mid.cu"
     KERNELS.append(
-        (_name, "triton" if _w == "max_dti_hydro" else "cuda",
-         "atmospheric_athena_tpu_torch/ops/util_kernels.py"
-         if _w == "max_dti_hydro" else
-         f"atmospheric_athena_tpu_torch/csrc/{_src}",
+        (_name, "cuda", "atmospheric_athena_tpu_torch/csrc/"
+         + ("util.cu" if _w == "max_dti_hydro" else _src),
          f"atmospheric_athena_tpu/ops/{_TPU[_w]}"))
 
 # fields the isothermal forms move, on the 4-field state (d, M1, M2, M3)
@@ -945,7 +946,7 @@ FIELDS_MOVED.update({
     "transverse_correct[iso+F]": (27, "padded"),   # -> Ulc, Urc, eta
     "final_update[iso+F2]": (23, "padded"),        # U, Sg_M, 3 F2 -> U
     "final_update[iso+dF2]": (23, "padded"),
-    "max_dti_hydro[isothermal]": (4, "padded"),    # d, M1, M2, M3
+    "max_dti_hydro[isothermal]": (4, "interior"),  # d, M1, M2, M3
 })
 
 # Passive scalars beyond one (the kernels' run-time scalar forms,
@@ -1085,13 +1086,16 @@ SYMBOLS = {"sweep_lrflux": ("sweep_march_kernel", "sweep_tile_kernel",
                                "scalar_march_kernel"),
            "flux_pointwise": "flux_pointwise_kernel",
            "flux_sweep_df": ("fluxdf_march_kernel", "fluxdf_tile_kernel"),
-           "gcross": "gcross_kernel", "transverse_correct": "transverse_kernel",
+           "gcross": "gcross_kernel",
+           "transverse_correct": ("transverse_kernel",
+                                  "transverse_march_kernel",
+                                  "transverse_x_kernel"),
            "flux_corrected": "flux_corrected_kernel",
            "grav_source": "grav_source_kernel",
            "final_update": "final_update_kernel",
            "rad_rates": "rates_kernel", "rad_update": "update_kernel",
            "rad_fused": "fused_kernel", "rad_batch": "batch_kernel",
-           "bc_fill": "bc_kernel"}
+           "bc_fill": "bc_kernel", "max_dti_hydro": "max_dti_kernel"}
 
 # kernels whose output must equal the plain version's bitwise, ghost
 # cells included (copies and negations only)
@@ -2177,6 +2181,69 @@ def trans_f_bits(inp, sim):
                                      f" {i} differs from the dF form's bits")
 
 
+def b11_bits(s):
+    """B11's checks beyond phase 2's tolerance, on the isph state of
+    Simulation `s` and on it without its energy as isothermal gas (sound
+    speed 0.7 of the largest |M1|/d, so both terms of |v| + c_s count): the
+    kernel equals its plain version on the card bit for bit on the grid's
+    interior, and on a mesh rank's window of its block (a (2, 2, 1) mesh's
+    corner rank: half the interior along z and y, the block cut at its
+    ghost rows, so its x rows are whole and its y and z windows odd-sized
+    for odd n); in float64 it also equals the CPU's plain version bit for
+    bit, on the state with its momenta scaled until the largest per-axis
+    maximum m has m * (1/dx) != m / dx, which the reciprocal division of
+    C67 would round another way.  Raises otherwise; returns a line for the
+    log."""
+    import torch
+    from atmospheric_athena_tpu_torch.defs import IEN, IM1
+    from atmospheric_athena_tpu_torch.ops import util_kernels as uk
+    sim, grid, U = s.sim, s.grid, s.state.U
+    n, ng = grid.Nx[0], grid.nghost
+    vmax = float((U[IM1].abs() / U[0]).amax())
+    isim = dataclasses.replace(sim, eos="isothermal", iso_csound=0.7 * vmax,
+                               nscalars=0, ion_radiation=False,
+                               ion_radplane=False)
+    Uiso = U[:IEN].contiguous()
+    h = n // 2
+    # the corner rank's block: global z < ng + h + ng, y >= ng + h - ng
+    win = (slice(ng, ng + h), slice(ng, ng + n - h), slice(ng, ng + n))
+    lines = []
+    for Ug, sm in ((U, sim), (Uiso, isim)):
+        Ub = Ug[:, :2 * ng + h, h:, :].contiguous()
+        for name, args, kw in (("interior", (Ug, sm, grid), {}),
+                               ("rank window", (Ub, sm, grid),
+                                {"window": win})):
+            k = uk.max_dti_hydro(*args, **kw)
+            p = uk.max_dti_hydro_plain(*args, **kw)
+            if not torch.equal(bits(k), bits(p)):
+                raise AssertionError(f"max_dti_hydro[{sm.eos}] {name} "
+                                     f"{U.dtype}: {k.item()!r} against the "
+                                     f"plain version's {p.item()!r}")
+        lines.append(f"{sm.eos} bitwise the plain version on the card "
+                     "(interior, rank window)")
+        if U.dtype != torch.float64:
+            continue
+        dx = grid.dx[0]
+        for k in range(200):
+            Ut = Ug.clone()
+            Ut[IM1:IM1 + 3] *= 1.0 + 0.003 * k
+            m = max(float(x) for x in uk._per_axis_plain(Ut.cpu(), sm, grid))
+            if m * (1.0 / dx) != m / dx:
+                break
+        else:
+            raise AssertionError("b11_bits: no scaling gives m*(1/dx) != "
+                                 "m/dx")
+        kc = uk.max_dti_hydro(Ut, sm, grid)
+        pc = uk.max_dti_hydro_plain(Ut.cpu(), sm, grid)
+        if not torch.equal(bits(kc.cpu()), bits(pc)):
+            raise AssertionError(f"max_dti_hydro[{sm.eos}] at dx {dx!r}: "
+                                 f"card {kc.item()!r}, CPU {pc.item()!r}")
+        lines.append(f"{sm.eos} bitwise the CPU's plain version at dx "
+                     f"{dx!r} (momenta x{1.0 + 0.003 * k:.3f}: m*(1/dx) != "
+                     "m/dx)")
+    return "; ".join(lines)
+
+
 def fused_vs_pair(s, inp, tol, timing):
     """B3' against update_fn followed by rates_fn of the same
     rad_kernels.build (both kernels) on the same inputs, within tol;
@@ -2334,6 +2401,7 @@ def phase2(n, dtype, timing):
     say(f"phase 2 {n}^3 {dtype}: isothermal forms checked on the state "
         f"without its energy, nscalars {(0,) if timing else (0, 1)}; "
         "transverse_correct[iso+F] bitwise its dF form")
+    say(f"phase 2 {n}^3 {dtype}: max_dti_hydro {b11_bits(s)}")
     from atmospheric_athena_tpu_torch import bvals
     from atmospheric_athena_tpu_torch.ops import util_kernels as uk
     runs = ([(ns, iso) for ns in NS_COUNTS for iso in (False, True)]
@@ -7509,8 +7577,10 @@ def source_of(name):
 def form_args(name):
     """The template arguments after NS that pick kernel entry `name`'s
     instantiations in ptxas's report, the gas (ISO) first: (ISO, FLUX,
-    ORDER, DF) for B5, (ISO, FLUX) for B12, B13 and B8, (ISO, WHOLE) for B7,
-    (ISO, DF) for B10; None for the kernels without forms of the gas."""
+    ORDER, DF) for B5, (ISO, FLUX) for B12, B13 and B8, (ISO,) for B7
+    (whose kernels differ by form: transverse_kernel the dF form, the march
+    and x-tile kernels the whole-flux form) and B11, (ISO, DF) for B10;
+    None for the kernels without forms of the gas."""
     from atmospheric_athena_tpu_torch.ops import hydro_kernels as hk
     base = base_name(name)
     form = split_ns(name[len(base) + 1:-1])[0]
@@ -7524,8 +7594,8 @@ def form_args(name):
                 int("_df" in base)]
     if base in ("flux_pointwise", "flux_sweep_df", "flux_corrected"):
         return [int(iso), hk.FLUX_KIND[rest or "roe"]]
-    if base == "transverse_correct":
-        return [int(iso), int(rest == "F")]
+    if base in ("transverse_correct", "max_dti_hydro"):
+        return [int(iso or form == "isothermal")]
     if base == "final_update":
         return [int(iso), int(rest == "dF2")]
     return None
@@ -7541,9 +7611,19 @@ def form_regs(name, regs):
     if rep is None or "registers" not in rep or want is None:
         return rep
     keep = []
+    base = base_name(name)
+    whole = split_ns(name[len(base) + 1:-1])[0].split("+")[-1] == "F"
     for item in rep.split("; "):
         ints = [int(x) for x in re.search(r"<([-\d,]+)>", item).group(1)
                 .split(",")]
+        if base == "max_dti_hydro":
+            # <T, ISO>
+            if ints == want:
+                keep.append(item)
+            continue
+        if base == "transverse_correct" and item.startswith("kernel ") \
+                == whole:
+            continue
         if item.startswith("scalar "):
             # B5's split-plan scalar kernel <T, ISO, FLUX, ORDER, DF>
             if ints == want and name in NS_FORMS:
@@ -7832,16 +7912,6 @@ class Laps:
         self.t = now
 
 
-def triton_regs(name):
-    """The registers and spills of the Triton kernel of entry `name` (B11,
-    in the gas of its form), as Triton reported them for each dtype."""
-    from atmospheric_athena_tpu_torch.ops import util_kernels as uk
-    gas = name[len(base_name(name)) + 1:-1] or FORMS[base_name(name)]
-    got = {k[0]: v for k, v in uk.max_dti_hydro.regs.items() if k[1] == gas}
-    return "; ".join(f"{dt}: {r} registers, spills {sp}"
-                     for dt, (r, sp) in sorted(got.items())) or None
-
-
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7983,8 +8053,7 @@ def main():
                  max_rel_err=r["max_rel_err"], ms=r["ms"],
                  plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                  bound_by=r["bound_by"], library_ms=r["library_ms"],
-                 registers=(triton_regs(name) if route == "triton"
-                            else form_regs(name, regs)))
+                 registers=form_regs(name, regs))
         for extra in ("dF2_bits_vs_plain", "dF_bitwise_whole_flux",
                       "rates_plus_update_ms", "bits_vs_plain", "elements",
                       "shapes_ms"):

@@ -25,7 +25,7 @@ B8, B7 and B10, each gas; B5-dF bitwise its whole-flux form, B5's PPM
 forms bitwise their plain versions) and B3's inlet
 form, and linear_wave with 4 and 40 scalars on the card against the plain
 versions on the card (chip_smoke.phase3_lw).  Needs a CUDA
-device, nvcc and triton; skipped elsewhere.  This file imports no JAX,
+device and nvcc; skipped elsewhere.  This file imports no JAX,
 so on a machine without JAX run it as
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu_kernels.py
